@@ -1,0 +1,75 @@
+"""Rotation helpers (counterpart of ``se3conv3d_tpu/core/rotation.py``).
+
+Quaternions are ``(w, x, y, z)``; a frame matrix stores its axes as columns.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+__all__ = [
+    "quaternion_to_matrix",
+    "random_quaternions",
+    "random_rotations",
+    "matrix_to_rotation_6d",
+    "relative_rotations",
+]
+
+
+def quaternion_to_matrix(q: torch.Tensor) -> torch.Tensor:
+    """Quaternions ``[..., 4]`` (w first) -> rotation matrices ``[..., 3, 3]``."""
+    r, i, j, k = q.unbind(-1)
+    two_s = 2.0 / (q * q).sum(-1)
+    o = torch.stack(
+        (
+            1 - two_s * (j * j + k * k),
+            two_s * (i * j - k * r),
+            two_s * (i * k + j * r),
+            two_s * (i * j + k * r),
+            1 - two_s * (i * i + k * k),
+            two_s * (j * k - i * r),
+            two_s * (i * k - j * r),
+            two_s * (j * k + i * r),
+            1 - two_s * (i * i + j * j),
+        ),
+        -1,
+    )
+    return o.reshape(q.shape[:-1] + (3, 3))
+
+
+def random_quaternions(
+    n: int,
+    generator: Optional[torch.Generator] = None,
+    normals: Optional[torch.Tensor] = None,
+    device=None,
+) -> torch.Tensor:
+    """``n`` random unit quaternions with non-negative real part.
+
+    ``normals`` ``[n, 4]`` injects the standard-normal draws directly.
+    """
+    o = normals if normals is not None else torch.randn(
+        n, 4, generator=generator, device=device
+    )
+    s = o.pow(2).sum(1, keepdim=True).sqrt()
+    return o / torch.where(o[:, :1] < 0, -s, s)
+
+
+def random_rotations(
+    n: int,
+    generator: Optional[torch.Generator] = None,
+    normals: Optional[torch.Tensor] = None,
+    device=None,
+) -> torch.Tensor:
+    """``n`` uniformly distributed rotation matrices ``[n, 3, 3]``."""
+    return quaternion_to_matrix(random_quaternions(n, generator, normals, device))
+
+
+def matrix_to_rotation_6d(m: torch.Tensor) -> torch.Tensor:
+    """First two *rows* of the matrix flattened -> ``[..., 6]``."""
+    return m[..., :2, :].reshape(m.shape[:-2] + (6,))
+
+
+def relative_rotations(frames_a: torch.Tensor, frames_b: torch.Tensor) -> torch.Tensor:
+    """All pairwise relative rotations ``A_g^T B_f``: ``[..., G, F, 3, 3]``."""
+    return torch.einsum("...gij,...fik->...gfjk", frames_a, frames_b)

@@ -1,0 +1,60 @@
+"""FPN segmentation U-Net (counterpart of ``se3conv3d_tpu/models/seg_unet.py``,
+equivariant path): encoder + FPN decoder + segmentation head, logits
+averaged over the output cloud's frames."""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from ..core.hierarchy import Hierarchy
+from ..core.pointcloud import PointCloud, frame_pool
+from ..nn.blocks import TorchLinear, gelu_tanh
+from ..nn.norm import MaskedBatchNorm
+from .decoder import FPNDecoder
+from .encoder import Encoder
+from .spec import ModelSpec, NeighborhoodProvider
+
+__all__ = ["FPNSegUNet", "init_parameters"]
+
+
+def init_parameters(module: nn.Module, generator: Optional[torch.Generator] = None) -> None:
+    """Seeded init of every submodule that defines ``reset_parameters``,
+    in module order."""
+    for sub in module.modules():
+        if sub is not module and hasattr(sub, "reset_parameters"):
+            sub.reset_parameters(generator)
+
+
+class FPNSegUNet(nn.Module):
+    """``model(hierarchy, features [B, N0, F, C], out_pc, calibrate=False)
+    -> [B, M, num_classes]`` frame-averaged logits."""
+
+    def __init__(self, spec: ModelSpec, num_in_feats: int, num_classes: int,
+                 frame_pooling: str = "avg", generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.spec = spec
+        self.frame_pooling = frame_pooling
+        if spec.num_hidden_seg_head:
+            raise NotImplementedError("hidden seg-head layers are not ported yet")
+        self.encoder = Encoder(spec, num_in_feats)
+        self.fpn_decoder = FPNDecoder(spec)
+        self.seg_conv = spec.conv.make(spec.fpn_dec_feats, spec.fpn_dec_feats)
+        self.seg_norm = MaskedBatchNorm(spec.fpn_dec_feats)
+        self.seg_linear = TorchLinear(spec.fpn_dec_feats, num_classes)
+        init_parameters(self, generator)
+
+    def forward(self, hierarchy: Hierarchy, features: torch.Tensor, out_pc: PointCloud,
+                calibrate: bool = False) -> torch.Tensor:
+        s = self.spec
+        provider = NeighborhoodProvider(hierarchy, s, collect_trunc=calibrate)
+        enc = self.encoder(hierarchy, features, provider, calibrate)
+        x = self.fpn_decoder(hierarchy, enc, provider, calibrate)
+        neigh_out = provider.to_cloud(
+            0, out_pc, s.radius_scale * hierarchy.levels_radii[0], s.neigh_type, s.num_knn
+        )
+        x = self.seg_conv(hierarchy.levels[0], out_pc, x, neigh_out, calibrate)
+        x = gelu_tanh(self.seg_norm(x, out_pc.mask))
+        x = self.seg_linear(x)
+        return frame_pool(x, self.frame_pooling)

@@ -1,0 +1,111 @@
+"""Static model configuration and the per-forward neighborhood provider
+(counterpart of ``se3conv3d_tpu/models/spec.py``)."""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Tuple
+
+from ..core.hierarchy import Hierarchy
+from ..core.neighborhoods import (
+    SUBSAMPLED_SPACING_FACTOR,
+    Neighborhood,
+    ball_query_neighborhood,
+    knn_neighborhood,
+)
+from ..core.pointcloud import PointCloud
+from ..nn.conv import ConvFactory
+from ..ops.pne_conv import equiv_geometry_parts
+
+__all__ = ["ModelSpec", "NeighborhoodProvider"]
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelSpec:
+    """Architecture hyperparameters of the segmentation U-Net.
+
+    ``max_neighbors`` is the static cap of the padded ball-query tables
+    (the reference's ball query is unbounded; the nearest ones are kept).
+    """
+
+    conv: ConvFactory
+    conv_blocks: Optional[ConvFactory] = None
+    patch_num_levels: int = 1
+    patch_num_features: Tuple[int, ...] = (8,)
+    patch_neigh_type: str = "ball_query"
+    patch_radius_scale: float = 2.0
+    patch_num_knn: int = 16
+    block_layer: str = "resnetformer"
+    num_blocks: Tuple[int, ...] = (2, 2, 2, 2, 2)
+    num_features: Tuple[int, ...] = (64, 128, 192, 256, 320)
+    neigh_type: str = "ball_query"
+    radius_scale: float = 2.0
+    num_knn: int = 16
+    radius_scale_blocks: float = 2.0
+    num_knn_blocks: int = 16
+    radius_scale_dec: float = 1.5
+    num_knn_dec: int = 16
+    fpn_dec_feats: int = 128
+    num_hidden_seg_head: int = 0
+    max_path_drop: float = 0.2
+    max_path_dec_drop: float = 0.0
+    max_neighbors: int = 24
+
+    def __post_init__(self):
+        if self.conv_blocks is None:
+            object.__setattr__(self, "conv_blocks", self.conv)
+        if len(self.patch_num_features) != self.patch_num_levels:
+            raise ValueError("patch_num_features must have patch_num_levels entries")
+        if len(self.num_blocks) != len(self.num_features):
+            raise ValueError("num_blocks and num_features must align")
+        if self.block_layer != "resnetformer":
+            raise NotImplementedError(f"block layer {self.block_layer!r} is not ported yet")
+
+
+class NeighborhoodProvider:
+    """Neighborhood cache over one hierarchy for one forward.
+
+    ``get(src, dst, radius, neigh_type, k)`` builds the table from level
+    ``src`` to level ``dst`` once per key and attaches the layer-independent
+    edge geometry (``equiv_rel`` / ``equiv_rot``) that every conv on it
+    shares -- the reference's rot-tensor cache.
+    """
+
+    def __init__(self, hierarchy: Hierarchy, spec: ModelSpec, collect_trunc: bool = False):
+        self.hierarchy = hierarchy
+        self.spec = spec
+        self.collect_trunc = collect_trunc
+        self._cache: Dict[tuple, Neighborhood] = {}
+
+    def _build(self, src_pc: PointCloud, dst_pc: PointCloud, radius: float,
+               neigh_type: str, k: int, spacing: Optional[float]) -> Neighborhood:
+        if neigh_type == "ball_query":
+            neigh = ball_query_neighborhood(
+                src_pc, dst_pc, radius, self.spec.max_neighbors, want_trunc=self.collect_trunc
+            )
+        elif neigh_type == "knn":
+            neigh = knn_neighborhood(
+                src_pc, dst_pc, k,
+                grid_cell_size=None if spacing is None else SUBSAMPLED_SPACING_FACTOR * spacing,
+            )
+        else:
+            raise ValueError(f"unknown neighborhood type {neigh_type!r}")
+        rel, rot6 = equiv_geometry_parts(src_pc, dst_pc, neigh)
+        return dataclasses.replace(neigh, equiv_rel=rel, equiv_rot=rot6)
+
+    def get(self, src: int, dst: int, radius: float, neigh_type: str, k: int) -> Neighborhood:
+        key = (src, dst, round(float(radius), 9), neigh_type, k)
+        if key not in self._cache:
+            self._cache[key] = self._build(
+                self.hierarchy.levels[src], self.hierarchy.levels[dst], radius,
+                neigh_type, k, self.hierarchy.levels_radii[src],
+            )
+        return self._cache[key]
+
+    def to_cloud(self, src: int, dst_pc: PointCloud, radius: float, neigh_type: str,
+                 k: int) -> Neighborhood:
+        """Neighborhood from a hierarchy level to an external cloud (the
+        segmentation output cloud)."""
+        return self._build(
+            self.hierarchy.levels[src], dst_pc, radius, neigh_type, k,
+            self.hierarchy.levels_radii[src],
+        )

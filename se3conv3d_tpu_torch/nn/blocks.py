@@ -1,0 +1,97 @@
+"""Linear layer, stochastic depth, skip connection and the ResNetFormer block
+(counterparts of ``se3conv3d_tpu/nn/blocks.py``).
+
+The JAX blocks call ``jax.nn.gelu`` with its default, the tanh
+approximation, so the port does too (``approximate="tanh"``); only the PNE
+activation inside the conv is the exact erf form.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..core.neighborhoods import Neighborhood
+from ..core.pointcloud import PointCloud
+from .norm import MaskedBatchNorm
+
+__all__ = ["TorchLinear", "DropPath", "SkipConnection", "ResNetFormer", "gelu_tanh"]
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default (tanh-approximate) GELU."""
+    return F.gelu(x, approximate="tanh")
+
+
+class TorchLinear(nn.Module):
+    """``x @ kernel + bias`` with ``kernel [in, out]`` and torch.nn.Linear's
+    uniform +-1/sqrt(fan_in) init."""
+
+    def __init__(self, in_features: int, out_features: int):
+        super().__init__()
+        self.kernel = nn.Parameter(torch.empty(in_features, out_features))
+        self.bias = nn.Parameter(torch.empty(out_features))
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        bound = 1.0 / math.sqrt(self.kernel.shape[0])
+        nn.init.uniform_(self.kernel, -bound, bound, generator=generator)
+        nn.init.uniform_(self.bias, -bound, bound, generator=generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x @ self.kernel + self.bias
+
+
+class DropPath(nn.Module):
+    """Per-example stochastic depth: identity in eval mode (the training
+    draw comes with the training step)."""
+
+    def __init__(self, drop_prob: float):
+        super().__init__()
+        self.drop_prob = drop_prob
+
+    def forward(self, x):
+        if self.drop_prob == 0.0 or not self.training:
+            return x
+        raise NotImplementedError("stochastic depth in training mode is not ported yet")
+
+
+class SkipConnection(nn.Module):
+    """``drop_path(x * gamma) + y`` with learnable per-channel ``gamma [1, C]``
+    initialised to 1e-6."""
+
+    def __init__(self, features: int, drop_prob: float, init_gamma: float = 1e-6):
+        super().__init__()
+        self.gamma = nn.Parameter(torch.full((1, features), init_gamma))
+        self.drop_path = DropPath(drop_prob)
+
+    def forward(self, x, y):
+        return self.drop_path(x * self.gamma) + y
+
+
+class ResNetFormer(nn.Module):
+    """Pre-norm conv residual + pre-norm MLP residual."""
+
+    def __init__(self, in_features: int, out_features: int, conv_factory, drop_prob: float = 0.0):
+        super().__init__()
+        self.norm_1 = MaskedBatchNorm(in_features)
+        self.spatial_conv = conv_factory.make(in_features, in_features)
+        self.skip_path_1 = SkipConnection(in_features, drop_prob)
+        self.norm_2 = MaskedBatchNorm(in_features)
+        self.linear_1 = TorchLinear(in_features, in_features * 2)
+        self.linear_2 = TorchLinear(in_features * 2, out_features)
+        self.skip_conv = (
+            TorchLinear(in_features, out_features) if in_features != out_features else None
+        )
+        self.skip_path_2 = SkipConnection(out_features, drop_prob)
+
+    def forward(self, pc: PointCloud, features, neigh: Neighborhood, calibrate: bool = False):
+        x = self.norm_1(features, pc.mask)
+        x = self.spatial_conv(pc, pc, x, neigh, calibrate)
+        x = self.skip_path_1(x, features)
+        y = self.norm_2(x, pc.mask)
+        y = self.linear_2(gelu_tanh(self.linear_1(y)))
+        skip = self.skip_conv(x) if self.skip_conv is not None else x
+        return self.skip_path_2(y, skip)

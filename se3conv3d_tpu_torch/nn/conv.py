@@ -1,0 +1,117 @@
+"""Point convolution layer (counterpart of ``se3conv3d_tpu/nn/conv.py``).
+
+Ported: the locally SE(3)-equivariant conv with mlp_gelu point-neighborhood
+embeddings, 6D relative rotations and 'add' aggregation -- the conv of every
+DFaust recipe.  It runs through ``ops.pne_conv.fused_equiv_conv``, i.e. the
+CUDA kernel on the card and its plain version on the CPU.
+
+Calibration buffers (the reference's pre-process epoch,
+``IConvLayer.py:75-97``): ``norm_neigh_dist`` and ``norm_num_neighs`` start
+at 1.0, the first calibration pass sets them directly and later passes take
+a 0.9/0.1 EMA; ball-query neighborhoods use ``1/radius``.  ``trunc_frac``
+keeps the largest fraction of query rows whose ball held more than the
+neighbor cap.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+import torch
+from torch import nn
+
+from ..core.neighborhoods import Neighborhood
+from ..core.pointcloud import PointCloud, gather_rows
+from ..ops import pne_conv as ops
+
+__all__ = ["PNEConv", "ConvFactory"]
+
+
+def _check_supported(pne_type: str, equivariant: bool, rel_rot_type: str, aggregation: str):
+    if (pne_type, equivariant, rel_rot_type, aggregation) != ("mlp_gelu", True, "6D", "add"):
+        raise NotImplementedError(
+            "only the equivariant mlp_gelu / 6D / 'add' conv is ported, got "
+            f"pne_type={pne_type!r}, equivariant={equivariant}, "
+            f"rel_rot_type={rel_rot_type!r}, aggregation={aggregation!r}"
+        )
+
+
+class PNEConv(nn.Module):
+    """Equivariant point conv: ``features [B, N, F, C] -> [B, M, G, O]``.
+
+    Parameters ``proj_axes [9, Q]``, ``proj_biases [Q]`` and
+    ``conv_weights [C, Q, O]``; calibration buffers ``norm_neigh_dist``,
+    ``norm_num_neighs``, ``initialized`` and ``trunc_frac``.
+    """
+
+    def __init__(self, in_features: int, out_features: int, num_basis: int = 32,
+                 pne_type: str = "mlp_gelu", equivariant: bool = True,
+                 rel_rot_type: str = "6D", aggregation: str = "add"):
+        super().__init__()
+        _check_supported(pne_type, equivariant, rel_rot_type, aggregation)
+        self.proj_axes = nn.Parameter(torch.empty(9, num_basis))
+        self.proj_biases = nn.Parameter(torch.zeros(num_basis))
+        self.conv_weights = nn.Parameter(torch.empty(in_features, num_basis, out_features))
+        self.register_buffer("norm_neigh_dist", torch.ones(()))
+        self.register_buffer("norm_num_neighs", torch.ones(()))
+        self.register_buffer("initialized", torch.zeros((), dtype=torch.bool))
+        self.register_buffer("trunc_frac", torch.zeros(()))
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        p_dims, q = self.proj_axes.shape
+        s1 = math.sqrt(1.0 / p_dims)
+        s2 = math.sqrt(1.0 / (self.conv_weights.shape[0] * q))
+        nn.init.uniform_(self.proj_axes, -s1, s1, generator=generator)
+        nn.init.zeros_(self.proj_biases)
+        nn.init.uniform_(self.conv_weights, -s2, s2, generator=generator)
+
+    @torch.no_grad()
+    def _calibrate(self, pc_in: PointCloud, pc_out: PointCloud, neigh: Neighborhood) -> None:
+        if neigh.method == "ball_query":
+            new_dist = torch.tensor(1.0 / neigh.radius, device=self.norm_neigh_dist.device)
+        else:
+            src = gather_rows(pc_in.positions, neigh.idx)
+            dist = (src - pc_out.positions[:, :, None, :]).pow(2).sum(-1).sqrt()
+            edges = neigh.mask.sum().clamp(min=1)
+            mean_dist = torch.where(neigh.mask, dist, torch.zeros_like(dist)).sum() / edges
+            new_dist = 1.0 / (2.0 * mean_dist)
+        rows = neigh.query_mask.sum()
+        new_neighs = rows / neigh.mask.sum().clamp(min=1)
+        seen = self.initialized
+        self.norm_neigh_dist.copy_(
+            torch.where(seen, 0.9 * self.norm_neigh_dist + 0.1 * new_dist, new_dist)
+        )
+        self.norm_num_neighs.copy_(
+            torch.where(seen, 0.9 * self.norm_num_neighs + 0.1 * new_neighs, new_neighs)
+        )
+        self.initialized.fill_(True)
+        if neigh.trunc is not None:
+            frac = neigh.trunc.sum() / rows.clamp(min=1)
+            self.trunc_frac.copy_(torch.maximum(self.trunc_frac, frac))
+
+    def forward(self, pc_in: PointCloud, pc_out: PointCloud, features: torch.Tensor,
+                neigh: Neighborhood, calibrate: bool = False) -> torch.Tensor:
+        if calibrate:
+            self._calibrate(pc_in, pc_out, neigh)
+        return ops.fused_equiv_conv(
+            pc_in, pc_out, neigh, features, self.proj_axes, self.proj_biases,
+            self.conv_weights, self.norm_neigh_dist, self.norm_num_neighs,
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class ConvFactory:
+    """Conv-layer spec that models use to stamp out convs."""
+
+    num_basis: int = 32
+    pne_type: str = "mlp_gelu"
+    equivariant: bool = True
+    rel_rot_type: str = "6D"
+    aggregation: str = "add"
+
+    def make(self, in_features: int, out_features: int) -> PNEConv:
+        return PNEConv(
+            in_features, out_features, self.num_basis, self.pne_type,
+            self.equivariant, self.rel_rot_type, self.aggregation,
+        )

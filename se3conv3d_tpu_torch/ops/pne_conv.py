@@ -1,0 +1,109 @@
+"""Point-neighborhood-embedding conv ops (counterpart of
+``se3conv3d_tpu/ops/pne_conv.py``, equivariant mlp path).
+
+Shape glossary: B batch, M query points, N source points, K neighbors,
+G out-frames, F in-frames, Q basis functions, C/O channels.  Geometry never
+receives gradients, as in the reference (its neighbor search, PNE inputs and
+frames are built under ``torch.no_grad()``).
+"""
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+import torch.nn.functional as F
+
+from ..core.neighborhoods import Neighborhood
+from ..core.pointcloud import PointCloud, gather_rows
+from ..core.rotation import matrix_to_rotation_6d
+from ..kernels.fused_equiv import fused_equiv_fwd
+
+__all__ = [
+    "pne_activation",
+    "linear_pne",
+    "equiv_geometry_parts",
+    "equiv_basis_conv",
+    "fused_equiv_conv",
+]
+
+
+def pne_activation(name: str) -> Optional[Callable]:
+    """Activation by pne_type suffix; gelu is the exact (erf) form."""
+    table = {
+        "relu": F.relu,
+        "gelu": F.gelu,
+        "sin": torch.sin,
+        "softmax": lambda x: torch.softmax(x, -1),
+        "linear": None,
+    }
+    for suffix, fn in table.items():
+        if name.endswith(suffix):
+            return fn
+    raise ValueError(f"unknown pne type {name!r}")
+
+
+def linear_pne(rel, proj_axes, proj_biases, act: Optional[Callable]):
+    """MLP point-neighborhood embedding ``[..., D] -> [..., Q]``."""
+    out = rel @ proj_axes + proj_biases
+    return out if act is None else act(out)
+
+
+@torch.no_grad()
+def equiv_geometry_parts(pc_in: PointCloud, pc_out: PointCloud, neigh: Neighborhood):
+    """Per-edge geometry ``(rel_local [B,M,K,G,3], rot6 [B,M,K,G,F,6])``.
+
+    The edge offset in each receiver frame g (unscaled: the layer's
+    ``norm_neigh_dist`` is a scalar that commutes with the rotation) and the
+    6D form of the relative rotation ``R_g^T R_f``.  Layer-independent, so
+    it is computed once per neighborhood.
+    """
+    rel = gather_rows(pc_in.positions, neigh.idx) - pc_out.positions[:, :, None, :]
+    frames_out = pc_out.frames
+    frames_in = gather_rows(pc_in.frames, neigh.idx)
+    rel_local = torch.einsum("bmkd,bmgde->bmkge", rel, frames_out)
+    rel_rot = torch.einsum("bmgdp,bmkfdq->bmkgfpq", frames_out, frames_in)
+    return rel_local.contiguous(), matrix_to_rotation_6d(rel_rot).contiguous()
+
+
+def equiv_basis_conv(pne, features, neigh: Neighborhood, conv_weights, norm_num_neighs):
+    """``out[b,m,g,o] = norm/F * sum pne[b,m,k,g,f,q] feat[b,nbr,f,c] W[c,q,o]``.
+
+    ``pne [B, M, K, G, F, Q]`` must already be zero on invalid edges.
+    """
+    f_in = features.shape[2]
+    gathered = gather_rows(features, neigh.idx)  # [B, M, K, F, C]
+    basis = torch.einsum("bmkfc,bmkgfq->bmgcq", gathered, pne)
+    out = torch.einsum("bmgcq,cqo->bmgo", basis, conv_weights)
+    return out * (norm_num_neighs / f_in)
+
+
+def fused_equiv_conv(
+    pc_in: PointCloud,
+    pc_out: PointCloud,
+    neigh: Neighborhood,
+    features: torch.Tensor,
+    proj_axes: torch.Tensor,
+    proj_biases: torch.Tensor,
+    conv_weights: torch.Tensor,
+    norm_dist: torch.Tensor,
+    norm_num_neighs: torch.Tensor,
+) -> torch.Tensor:
+    """Rot-equivariant mlp_gelu conv through the fused kernel -> ``[B,M,G,O]``.
+
+    ``norm_dist`` folds into the three offset rows of the projection
+    (``act((s*rel) @ A + rot @ B + b) == act(rel @ (s*A) + ...)``), invalid
+    edges contribute zero, and the output is scaled by
+    ``norm_num_neighs / F``.  Uses the neighborhood's cached geometry when
+    present.  CUDA tensors run the CUDA kernel, CPU tensors its plain
+    version (``kernels.fused_equiv``).
+    """
+    if neigh.equiv_rel is not None:
+        rel, rot6 = neigh.equiv_rel, neigh.equiv_rot
+    else:
+        rel, rot6 = equiv_geometry_parts(pc_in, pc_out, neigh)
+    pa_scaled = torch.cat([proj_axes[:3] * norm_dist, proj_axes[3:]], 0)
+    out = fused_equiv_fwd(
+        rel, rot6, features.contiguous(), neigh.idx, neigh.mask,
+        pa_scaled, proj_biases.contiguous(), conv_weights.contiguous(),
+    )
+    return out * (norm_num_neighs / features.shape[2])

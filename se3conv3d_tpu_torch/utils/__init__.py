@@ -1,0 +1,1 @@
+"""See the module docstrings; layout mirrors ``se3conv3d_tpu.utils``."""
