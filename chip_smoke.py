@@ -1,19 +1,30 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU.
 
-Drives the port's DFaust segmentation eval path (``se3conv3d_tpu_torch``)
-once at the full widths of ``configs/dfaust/dfaust_I_rot_pca_2F.yaml``:
+Drives the port's DFaust segmentation eval and training paths
+(``se3conv3d_tpu_torch``) at the full widths of
+``configs/dfaust/dfaust_I_rot_pca_2F.yaml``:
 
-1. builds the fused conv kernel from ``kernels/csrc`` with ``nvcc``;
-2. holds the kernel against its plain PyTorch version at the slice's two
-   extreme conv shapes and at the JAX bench's conv shape;
+1. builds the fused conv kernels (forward and backward) from
+   ``kernels/csrc`` with ``nvcc``, one process per source, in parallel;
+2. holds the forward kernel against its plain PyTorch version at the
+   slice's two extreme conv shapes and at the JAX bench's conv shape;
 3. builds the model with a seeded init and runs one calibration step and a
    few eval steps on a synthetic batch of 32 body-like clouds of 4096
    points, counting the kernel's launches (21 per forward);
 4. checks that a global rotation of the hierarchy leaves the logits
    unchanged;
 5. checks that the same model and hierarchy on the CPU (plain path) give
-   the same logits at B=2.
+   the same logits at B=2;
+6. holds the backward kernel against its plain PyTorch version at the
+   three shapes of phase 2;
+7. trains a fresh model with the recipe's ``Training`` section: one
+   calibration step, then a few ``Trainer.train_step`` calls on the same
+   batch, counting 21 forward and 21 backward kernel launches per step and
+   checking finite losses and gradients and moved BN statistics;
+8. checks that one train-mode forward and backward at B=2 gives the same
+   parameter gradients on the card and on the CPU (plain path), with the
+   same hierarchy and DropPath keep masks.
 
 Run from the repository root: ``python3 chip_smoke.py``.  Exits non-zero,
 printing no result, without a CUDA device or outside the repository.  The
@@ -35,6 +46,7 @@ import torch
 REPO = Path(__file__).resolve().parent
 BATCH, POINTS, CLASSES = 32, 4096, 20
 EVAL_STEPS = 5
+TRAIN_STEPS = 5
 CONVS_PER_FORWARD = 21
 # kernel vs plain: max |kernel - plain| <= KERNEL_RTOL * max |plain| (both
 # float32; they sum up to 64 edges x 32 basis x 256 channels in other orders)
@@ -43,6 +55,14 @@ KERNEL_RTOL = 1e-5
 # valid output points (the repo's whole-model bound is 2e-4; rotating the
 # positions re-rounds every float32 offset, hence the looser invariance bound)
 CPU_ATOL, ROT_ATOL = 2e-4, 1e-3
+# backward kernel vs plain, each of its four outputs: the parameter
+# gradients sum over up to 131,072 rows (B*M*G) in other orders
+BWD_RTOL = 1e-4
+# parameter gradients, card vs CPU, per leaf: max |card - cpu| <=
+# GRAD_RTOL * max(max |cpu leaf|, GRAD_FLOOR * global norm).  The floor
+# covers leaves whose true gradient is 0 (a bias just before a train-mode
+# BN): they hold only rounding noise.
+GRAD_RTOL, GRAD_FLOOR = 1e-3, 1e-2
 
 
 def card_line() -> str:
@@ -121,6 +141,25 @@ def to_device(batch: dict, dev) -> dict:
     return {k: v.to(dev) for k, v in batch.items()}
 
 
+def seeded_model(model_cls, spec, dev):
+    """The recipe's model with a seeded init and seeded skip gammas (init
+    leaves them at 1e-6), so every block shows in the logits and gradients."""
+    model = model_cls(spec, num_in_feats=1, num_classes=CLASSES,
+                      generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        g = torch.Generator().manual_seed(1)
+        for pname, p in model.named_parameters():
+            if pname.endswith("gamma"):
+                p.copy_(torch.randn(p.shape, generator=g) * 0.5)
+    return model.to(dev)
+
+
+def max_rel_err(got, ref) -> tuple:
+    """``(max |got - ref|, max |got - ref| / max |ref|)``."""
+    err = (got - ref).abs().max().item()
+    return err, err / max(ref.abs().max().item(), 1e-30)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on an NVIDIA GPU", file=sys.stderr)
@@ -134,7 +173,22 @@ def main() -> int:
     from se3conv3d_tpu_torch.kernels import fused_equiv as kfe
     from se3conv3d_tpu_torch.models import FPNSegUNet
     from se3conv3d_tpu_torch.models import presets
+    from se3conv3d_tpu_torch.nn.blocks import DropPathDraws
+    from se3conv3d_tpu_torch.nn.norm import MaskedBatchNorm
+    from se3conv3d_tpu_torch.train import schedule
     from se3conv3d_tpu_torch.train.trainer import Trainer
+
+    class RecordedDraws(DropPathDraws):
+        """Generator draws, kept (on the CPU) in call order for a replay."""
+
+        def __init__(self, generator):
+            super().__init__(generator)
+            self.masks = []
+
+        def keep_mask(self, batch, keep, like):
+            mask = super().keep_mask(batch, keep, like)
+            self.masks.append(mask.cpu())
+            return mask
 
     torch.backends.cuda.matmul.allow_tf32 = False  # plain path in full float32
     torch.backends.cudnn.allow_tf32 = False
@@ -146,8 +200,9 @@ def main() -> int:
 
     # 1. build
     t0 = time.perf_counter()
-    lib = kfe.build_library(verbose=True)
-    print(f"build: {time.perf_counter() - t0:.2f} s -> {lib.relative_to(REPO)} [{card}]", flush=True)
+    libs = kfe.build_libraries(verbose=True)
+    print(f"build: {time.perf_counter() - t0:.2f} s -> "
+          f"{[str(p.relative_to(REPO)) for p in libs.values()]} [{card}]", flush=True)
 
     # 2. kernel vs plain
     shapes = {
@@ -180,14 +235,7 @@ def main() -> int:
     # 3. the slice at full width
     model_dict = presets.DFAUST_I_ROT_PCA_2F_MODEL
     spec = presets.spec_from_model_dict(model_dict)
-    model = FPNSegUNet(spec, num_in_feats=1, num_classes=CLASSES,
-                       generator=torch.Generator().manual_seed(0))
-    with torch.no_grad():  # seeded skip gammas so every block shows in the logits
-        g = torch.Generator().manual_seed(1)
-        for pname, p in model.named_parameters():
-            if pname.endswith("gamma"):
-                p.copy_(torch.randn(p.shape, generator=g) * 0.5)
-    model = model.to(dev).eval()
+    model = seeded_model(FPNSegUNet, spec, dev).eval()
     hcfg = presets.hierarchy_config_from_model_dict(model_dict, POINTS, train=True)
     eval_hcfg = presets.hierarchy_config_from_model_dict(model_dict, POINTS, train=False)
     trainer = Trainer(model, hcfg, eval_hcfg, label_smoothing=0.2)
@@ -254,16 +302,127 @@ def main() -> int:
         if not cpu_err <= CPU_ATOL:
             raise SystemExit("card and CPU logits disagree")
 
-    lvl1 = compared["level1_block_conv"]
+    del model, trainer, outs, logits, base, rotated, cpu_model, cpu_logits, h, f0, out_pc
+    torch.cuda.empty_cache()
+
+    # 6. backward kernel vs plain
+    bwd_compared = {}
+    for i, (name, shp) in enumerate(shapes.items()):
+        args = conv_inputs(*shp, seed=20 + i, dev=dev)
+        b, m, _, _, g_, _, _, _, o = shp
+        gout = torch.randn(b, m, g_, o, device=dev, generator=torch.Generator(device=dev).manual_seed(30 + i))
+        got = kfe.fused_equiv_bwd(*args, gout)
+        ref = kfe.fused_equiv_bwd_reference(*args, gout)
+        torch.cuda.synchronize()
+        errs = {what: max_rel_err(x, y) for what, x, y in
+                zip(("d_feats", "d_proj_axes", "d_proj_biases", "d_conv_weights"), got, ref)}
+        finite = all(bool(torch.isfinite(x).all()) for x in got)
+        del got, ref
+        ms = cuda_ms(lambda: kfe.fused_equiv_bwd(*args, gout), 10)
+        plain_ms = cuda_ms(lambda: kfe.fused_equiv_bwd_reference(*args, gout), 3)
+        bwd_compared[name] = dict(max_abs_err=max(e[0] for e in errs.values()),
+                                  max_rel_err=max(e[1] for e in errs.values()), ms=ms, plain_ms=plain_ms)
+        print(f"bwd_kernel_vs_plain {name} B,M,N,K,G,F,Q,C,O={shp}: "
+              + " ".join(f"{w}: max_abs_err={e[0]:.3e} max_rel_err={e[1]:.3e}" for w, e in errs.items())
+              + f" kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} (bound {BWD_RTOL}) [{card}]", flush=True)
+        if not (finite and all(e[1] <= BWD_RTOL for e in errs.values())):
+            raise SystemExit(f"backward kernel disagrees with its plain version at {name}")
+        del args, gout
+        torch.cuda.empty_cache()
+
+    # 7. the training slice at full width
+    training = presets.DFAUST_I_ROT_PCA_2F_TRAINING
+    model = seeded_model(FPNSegUNet, spec, dev)
+    opt = schedule.optimizer_from_training(model.parameters(), training, TRAIN_STEPS)
+    trainer = Trainer(model, hcfg, eval_hcfg, label_smoothing=training["label_smoothing"],
+                      optimizer=opt)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    bns = {n: mod for n, mod in model.named_modules() if isinstance(mod, MaskedBatchNorm)}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kfe.fused_equiv_fwd.launches = kfe.fused_equiv_bwd.launches = 0
+    trainer.calibration_step(batch, gen)
+    bn_before = {n: mod.mean.clone() for n, mod in bns.items()}
+    train_fwd_calib = kfe.fused_equiv_fwd.launches
+    step_s, per_step = [], []
+    for step in range(TRAIN_STEPS):
+        lr = opt.lr
+        before = kfe.fused_equiv_fwd.launches, kfe.fused_equiv_bwd.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = trainer.train_step(batch, gen)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        loss, gnorm = float(out["loss"]), float(out["grad_norm"])
+        fwd_n = kfe.fused_equiv_fwd.launches - before[0]
+        bwd_n = kfe.fused_equiv_bwd.launches - before[1]
+        per_step.append((loss, gnorm, fwd_n, bwd_n))
+        print(f"train: step {step} lr {lr:.6e} loss {loss:.6f} grad_norm {gnorm:.6f} "
+              f"launches fwd {fwd_n} bwd {bwd_n} time {step_s[-1]:.4f} s [{card}]", flush=True)
+    train_fwd, train_bwd = kfe.fused_equiv_fwd.launches, kfe.fused_equiv_bwd.launches
+    train_peak = torch.cuda.max_memory_allocated()
+    train_median = statistics.median(step_s)
+    print(f"train: calibration launches {train_fwd_calib}; train_step median {train_median:.4f} s "
+          f"(all {[round(x, 4) for x in step_s]}), {BATCH * POINTS / train_median:.1f} input points/s, "
+          f"peak memory {train_peak / 2**30:.3f} GiB; launches fwd {train_fwd} bwd {train_bwd} "
+          f"[{card}]", flush=True)
+    if not all(np.isfinite(lo) and np.isfinite(gn) for lo, gn, _, _ in per_step):
+        raise SystemExit("non-finite loss or gradients in a train step")
+    if train_fwd_calib != CONVS_PER_FORWARD or any(
+            (f_, b_) != (CONVS_PER_FORWARD, CONVS_PER_FORWARD) for _, _, f_, b_ in per_step):
+        raise SystemExit(f"expected {CONVS_PER_FORWARD} forward and backward kernel launches per step")
+    still = [n for n, mod in bns.items() if torch.equal(mod.mean, bn_before[n])]
+    print(f"train: {len(bns) - len(still)} of {len(bns)} BN running means moved")
+    if still:
+        raise SystemExit(f"BN running mean did not move: {still[:5]}")
+
+    # 8. parameter gradients, card vs CPU, on two clouds
+    small = to_device(body_batch(2, POINTS, seed=4), dev)
+    h, f0, out_pc, out_labels, _ = trainer.build(small, torch.Generator(device=dev).manual_seed(8))
+    cpu_model = copy.deepcopy(model).cpu()
+    draws = RecordedDraws(torch.Generator(device=dev).manual_seed(9))
+    card_loss = float(trainer.backward(h, f0, out_pc, out_labels, draws))
+    cpu_trainer = Trainer(cpu_model, hcfg, label_smoothing=training["label_smoothing"])
+    cpu_loss = float(cpu_trainer.backward(h.to("cpu"), f0.cpu(), out_pc.to("cpu"), out_labels.cpu(),
+                                          DropPathDraws(keep_masks=draws.masks)))
+    cpu_grads = {n: p.grad for n, p in cpu_model.named_parameters()}
+    norm = float(schedule.global_norm(list(cpu_grads.values())))
+    worst, worst_name = 0.0, None
+    for n, p in model.named_parameters():
+        ref = cpu_grads[n]
+        if p.grad is None or ref is None or not torch.isfinite(p.grad).all():
+            raise SystemExit(f"missing or non-finite gradient for {n}")
+        ratio = (p.grad.cpu() - ref).abs().max().item() / max(ref.abs().max().item(), GRAD_FLOOR * norm)
+        if ratio > worst:
+            worst, worst_name = ratio, n
+    print(f"grads_card_vs_cpu: loss card {card_loss:.6f} cpu {cpu_loss:.6f}; {len(cpu_grads)} leaves, "
+          f"global norm {norm:.6f}, {len(draws.masks)} DropPath masks; worst max|card - cpu| / "
+          f"max(max|cpu leaf|, {GRAD_FLOOR} * norm) = {worst:.3e} at {worst_name} "
+          f"(bound {GRAD_RTOL}) [{card}]", flush=True)
+    if not (worst <= GRAD_RTOL and abs(card_loss - cpu_loss) <= GRAD_RTOL * abs(cpu_loss)):
+        raise SystemExit("card and CPU gradients disagree")
+
+    lvl1, bwd1 = compared["level1_block_conv"], bwd_compared["level1_block_conv"]
     print(json.dumps({"kernels": [{
         "name": "fused_equiv_fwd",
         "route": "cuda",
         "source": "se3conv3d_tpu_torch/kernels/csrc/fused_equiv_fwd.cu",
         "replaces": "se3conv3d_tpu/ops/pallas/fused_equiv.py:196",
-        "launches": launches,
+        "launches": launches + train_fwd,
+        "launches_by_path": {"eval": launches, "train": train_fwd},
         "max_abs_err": max(v["max_abs_err"] for v in compared.values()),
         "ms": lvl1["ms"],
         "plain_ms": lvl1["plain_ms"],
+    }, {
+        "name": "fused_equiv_bwd",
+        "route": "cuda",
+        "source": "se3conv3d_tpu_torch/kernels/csrc/fused_equiv_bwd.cu",
+        "replaces": "se3conv3d_tpu/ops/pallas/fused_equiv.py:227",
+        "launches": train_bwd,
+        "launches_by_path": {"train": train_bwd},
+        "max_abs_err": max(v["max_abs_err"] for v in bwd_compared.values()),
+        "ms": bwd1["ms"],
+        "plain_ms": bwd1["plain_ms"],
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,5 @@
-"""Fused equivariant PNE-conv forward: Hopper CUDA kernel + plain version.
+"""Fused equivariant PNE conv: Hopper CUDA kernels (forward and backward),
+their plain PyTorch versions and the autograd Function that joins them.
 
 Computes, for every query point m, out-frame g and output channel o::
 
@@ -9,61 +10,98 @@ Computes, for every query point m, out-frame g and output channel o::
 with exact (erf) gelu, ``P = proj_axes [9, Q]`` already scaled by the
 layer's ``norm_neigh_dist`` on its three offset rows, and no normalisation
 (the caller applies ``norm_num_neighs / F``).  All operands are float32.
+Gradients flow to ``feats``, ``P``, ``bias`` and ``W``; the geometry
+(``rel``, ``rot6``, ``idx``, ``mask``) gets none, as in the reference.
 
-Replaces ``se3conv3d_tpu/ops/pallas/fused_equiv.py:_fwd_kernel`` (the TPU
-Pallas forward, reached through ``_fused_single_fwd`` / ``fused_pne_conv``).
-It computes the same function, not the TPU layout: the TPU kernel read a
-pre-gathered ``[M, E, C]`` feature block and a transposed, 128-lane-packed
-geometry table; this one gathers features by ``idx``/``mask`` itself and
-reads the per-edge geometry in its natural ``[B, M, K, G, ...]`` layout.
+Forward, ``csrc/fused_equiv_fwd.cu``: replaces
+``se3conv3d_tpu/ops/pallas/fused_equiv.py:_fwd_kernel`` (reached through
+``_fused_single_fwd`` / ``fused_pne_conv``).  It computes the same function,
+not the TPU layout: the TPU kernel read a pre-gathered ``[M, E, C]`` feature
+block and a transposed, 128-lane-packed geometry table; this one gathers
+features by ``idx``/``mask`` itself and reads the per-edge geometry in its
+natural ``[B, M, K, G, ...]`` layout.  At the slice's widths the per-edge
+embedding ``pne [M, K*F, G*Q]`` and the per-point ``basis [M, G*Q, C]`` are
+0.5-2 GB per conv in float32 if written out, and the gathered features as
+many again.  The kernel keeps all three on chip: one block owns 8 query
+points (one warp per point), stages each point's valid edges, their pne and
+the gathered features in shared memory, reduces to ``basis`` in registers,
+and contracts ``basis`` against ``W`` (read from L2 once per 8-point tile)
+in the same block.
 
-What bounds it on the card: at the slice's widths the per-edge embedding
-``pne [M, K*F, G*Q]`` and the per-point ``basis [M, G*Q, C]`` are 0.5-2 GB
-per conv in float32 if written out, and the gathered features as many
-again.  The design keeps all three on chip: one block owns 8 query points
-(one warp per point), stages each point's valid edges, their pne and the
-gathered features in shared memory, reduces to ``basis`` in registers, and
-contracts ``basis`` against ``W`` (read from L2 once per 8-point tile) in
-the same block.  What remains is float32 FMA and shared-memory traffic:
-no tensor cores yet (the recipe is float32), no TMA, no ``wgmma``.
+Backward, ``csrc/fused_equiv_bwd.cu``: replaces ``_bwd_kernel`` (reached
+through ``_fused_single_bwd`` / ``fused_pne_conv_bwd`` and the lean VJP of
+``ops/pne_conv.py``) together with the XLA scatter-add of per-edge feature
+gradients that followed it.  The TPU summed ``dW`` and ``dproj`` across a
+sequential grid; Hopper blocks run in parallel, and ``dW`` (8 MB at
+C=O=256) fits in no block's shared memory.  So the backward is four
+passes: the forward's first half writes ``basis`` to a ``[B*M*G, C*Q]``
+scratch; a tiled product ``basis^T . gout`` gives ``d_w`` in per-row-split
+partials summed in a fixed order; a tiled product ``gout . W^T`` gives
+``dbasis`` over the same scratch; and a per-point pass recomputes pne and
+gelu', adds ``d_feats`` with float32 atomics straight into ``[B, N, F, C]``
+(no per-edge ``[M, E, C]`` output, masked edges skipped) and sums
+``d_proj`` / ``d_bias`` per block, again added in a fixed order.  The
+parameter gradients are deterministic; ``d_feats`` is summed by atomics in
+no fixed order.  Float32 FMA throughout: no tensor cores, no TMA, no
+``wgmma`` yet.
 
-``fused_equiv_fwd`` launches the kernel for CUDA tensors and runs
-``fused_equiv_fwd_reference`` for CPU tensors; there is no other fallback.
-The kernel is built with ``nvcc`` for ``sm_90a`` at its first launch, into
-``kernels/_build/`` keyed by a hash of its source, and loaded with ctypes.
+``fused_equiv_fwd`` / ``fused_equiv_bwd`` launch the kernels for CUDA
+tensors and run ``fused_equiv_fwd_reference`` / ``fused_equiv_bwd_reference``
+for CPU tensors; there is no other fallback.  ``fused_equiv`` is the
+differentiable op.  Each kernel source is built with ``nvcc`` for
+``sm_90a`` at its first launch (or all at once by :func:`build_libraries`),
+into ``kernels/_build/`` keyed by a hash of its source, and loaded with
+ctypes.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import math
 import os
 import shutil
 import subprocess
 import threading
 from pathlib import Path
+from typing import Dict
 
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 __all__ = [
+    "fused_equiv",
+    "FusedEquivConv",
     "fused_equiv_fwd",
     "fused_equiv_fwd_reference",
-    "build_library",
+    "fused_equiv_bwd",
+    "fused_equiv_bwd_reference",
+    "build_libraries",
     "MAX_GQ",
 ]
 
 _HERE = Path(__file__).resolve().parent
-SOURCE = _HERE / "csrc" / "fused_equiv_fwd.cu"
+SOURCES = {
+    "fwd": _HERE / "csrc" / "fused_equiv_fwd.cu",
+    "bwd": _HERE / "csrc" / "fused_equiv_bwd.cu",
+}
 BUILD_DIR = _HERE / "_build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 ]
-# a pne row in the kernel's shared memory holds at most 64 (g, q) columns
+# a pne row in the kernels' shared memory holds at most 64 (g, q) columns
 MAX_GQ = 64
 
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    # name: (symbol, argtypes)
+    "fwd": ("se3_fused_equiv_fwd", [_P] * 9 + [_I] * 9 + [_P]),
+    "bwd": ("se3_fused_equiv_bwd", [_P] * 15 + [_I] * 11 + [_P]),
+}
 
-_lib = None
+_libs: Dict[str, ctypes.CDLL] = {}
 _lib_lock = threading.Lock()
 
 
@@ -72,53 +110,104 @@ def _nvcc() -> str:
     for cand in (shutil.which("nvcc"), os.path.join(cuda_home, "bin", "nvcc")):
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError("nvcc not found: the fused conv kernel is built with the CUDA toolkit")
+    raise RuntimeError("nvcc not found: the fused conv kernels are built with the CUDA toolkit")
 
 
-def build_library(verbose: bool = False) -> Path:
-    """Compile ``csrc/fused_equiv_fwd.cu`` (once per source hash); returns
-    the shared library's path."""
-    src = SOURCE.read_bytes()
+def _lib_path(name: str) -> Path:
+    src = SOURCES[name].read_bytes()
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"fused_equiv_fwd_{tag}.so"
-    if out.exists():
+    return BUILD_DIR / f"fused_equiv_{name}_{tag}.so"
+
+
+def build_libraries(verbose: bool = False, names=tuple(SOURCES)) -> Dict[str, Path]:
+    """Compile the kernel sources that are not built yet, one ``nvcc`` per
+    source, all started together; returns each shared library's path."""
+    out = {name: _lib_path(name) for name in names}
+    todo = {name: path for name, path in out.items() if not path.exists()}
+    if not todo:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    if verbose:
-        cmd.insert(1, "-Xptxas=-v")
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    if verbose:
-        print(proc.stderr, end="")
-    os.replace(tmp, out)
+    procs = {}
+    for name, path in todo.items():
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])]
+        if verbose:
+            cmd.insert(1, "-Xptxas=-v")
+        procs[name] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                             stderr=subprocess.PIPE, text=True))
+    failed = []
+    for name, (tmp, proc) in procs.items():
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc {SOURCES[name].name} failed ({proc.returncode}):\n{err}")
+            continue
+        if verbose:
+            print(err, end="")
+        os.replace(tmp, todo[name])
+    if failed:
+        raise RuntimeError("\n".join(failed))
     return out
 
 
-def _library():
-    global _lib
+def _library(name: str) -> ctypes.CDLL:
     with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build_library()))
-            fn = lib.se3_fused_equiv_fwd
-            fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+        if name not in _libs:
+            lib = ctypes.CDLL(str(build_libraries(names=(name,))[name]))
+            symbol, argtypes = _SIGNATURES[name]
+            fn = getattr(lib, symbol)
+            fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-            _lib = lib
-    return _lib
+            if name == "bwd":
+                lib.se3_fused_equiv_bwd_plan.argtypes = [_I] * 6 + [_P] * 3
+                lib.se3_fused_equiv_bwd_plan.restype = None
+            _libs[name] = lib
+    return _libs[name]
+
+
+def _edge_geometry(rel, rot6):
+    """``[B, M, K, G, F, 9]`` pne inputs: offsets repeated over in-frames."""
+    b, m, k, g, _ = rel.shape
+    f = rot6.shape[4]
+    return torch.cat([rel[:, :, :, :, None, :].expand(b, m, k, g, f, 3), rot6], -1)
+
+
+def _gather(feats, idx, mask):
+    """``[B, M, K, F, C]`` neighbor features, zero on invalid edges."""
+    bidx = torch.arange(feats.shape[0], device=feats.device)[:, None, None]
+    return feats[bidx, idx] * mask[:, :, :, None, None].to(feats.dtype)
 
 
 def fused_equiv_fwd_reference(rel, rot6, feats, idx, mask, proj_axes, proj_biases, conv_weights):
-    """Plain PyTorch version of the kernel (same arguments, same result)."""
-    b, m, k, g, _ = rel.shape
-    f = rot6.shape[4]
-    geo = torch.cat([rel[:, :, :, :, None, :].expand(b, m, k, g, f, 3), rot6], -1)
-    pne = F.gelu(geo @ proj_axes + proj_biases)  # [B, M, K, G, F, Q], exact erf
-    gathered = feats[torch.arange(b, device=feats.device)[:, None, None], idx]  # [B,M,K,F,C]
-    gathered = gathered * mask[:, :, :, None, None].to(feats.dtype)
-    basis = torch.einsum("bmkfc,bmkgfq->bmgcq", gathered, pne)
+    """Plain PyTorch version of the forward kernel (same arguments, same result)."""
+    pne = F.gelu(_edge_geometry(rel, rot6) @ proj_axes + proj_biases)  # [B,M,K,G,F,Q], exact erf
+    basis = torch.einsum("bmkfc,bmkgfq->bmgcq", _gather(feats, idx, mask), pne)
     return torch.einsum("bmgcq,cqo->bmgo", basis, conv_weights)
+
+
+def fused_equiv_bwd_reference(rel, rot6, feats, idx, mask, proj_axes, proj_biases,
+                              conv_weights, gout):
+    """Plain PyTorch version of the backward kernel: recomputes pne and basis
+    and returns ``(d_feats, d_proj_axes, d_proj_biases, d_conv_weights)``.
+
+    gelu' is the closed form ``Phi(x) + x * phi(x)``, as the TPU kernel
+    takes it (``se3conv3d_tpu/ops/pallas/fused_equiv.py:_act_and_grad``).
+    """
+    geo = _edge_geometry(rel, rot6)
+    pre = geo @ proj_axes + proj_biases
+    pne = F.gelu(pre)
+    dact = 0.5 * (1.0 + torch.erf(pre * math.sqrt(0.5))) + pre * torch.exp(-0.5 * pre * pre) / math.sqrt(2.0 * math.pi)
+    gathered = _gather(feats, idx, mask)
+    basis = torch.einsum("bmkfc,bmkgfq->bmgcq", gathered, pne)
+    d_w = torch.einsum("bmgcq,bmgo->cqo", basis, gout)
+    dbasis = torch.einsum("bmgo,cqo->bmgcq", gout, conv_weights)
+    edge = mask[:, :, :, None, None]
+    d_gathered = torch.einsum("bmkgfq,bmgcq->bmkfc", pne, dbasis).masked_fill(~edge, 0.0)
+    bidx = torch.arange(feats.shape[0], device=feats.device)[:, None, None].expand_as(idx)
+    d_feats = torch.zeros_like(feats).index_put_((bidx, idx), d_gathered, accumulate=True)
+    dpne = torch.einsum("bmkfc,bmgcq->bmkgfq", gathered, dbasis)
+    dpre = (dpne * dact).masked_fill(~edge[..., None], 0.0)
+    d_pa = torch.einsum("bmkgfq,bmkgfd->dq", dpre, geo)
+    return d_feats, d_pa, dpre.sum((0, 1, 2, 3, 4)), d_w
 
 
 def _check(rel, rot6, feats, idx, mask, proj_axes, proj_biases, conv_weights):
@@ -181,8 +270,9 @@ def fused_equiv_fwd(
       proj_axes: ``[9, Q]`` (offset rows pre-scaled); proj_biases ``[Q]``;
         conv_weights ``[C, Q, O]``.
 
-    CPU tensors run :func:`fused_equiv_fwd_reference`.  CUDA tensors launch
-    the kernel (forward only: it raises when a gradient is requested).
+    CPU tensors run :func:`fused_equiv_fwd_reference`; CUDA tensors launch
+    the kernel.  The result carries no autograd history: gradients go
+    through :func:`fused_equiv`.
     """
     if feats.device.type == "cpu":
         return fused_equiv_fwd_reference(
@@ -193,14 +283,10 @@ def fused_equiv_fwd(
     b, m, n, k, g, f, q, c, o = _check(
         rel, rot6, feats, idx, mask, proj_axes, proj_biases, conv_weights
     )
-    if torch.is_grad_enabled() and any(
-        t.requires_grad for t in (feats, proj_axes, proj_biases, conv_weights)
-    ):
-        raise NotImplementedError("the fused conv kernel has no backward yet")
     out = torch.empty((b, m, g, o), dtype=torch.float32, device=feats.device)
     if b * m == 0 or o == 0:
         return out.zero_()
-    lib = _library()
+    lib = _library("fwd")
     with torch.cuda.device(feats.device):
         err = lib.se3_fused_equiv_fwd(
             rel.data_ptr(), rot6.data_ptr(), feats.data_ptr(), idx.data_ptr(),
@@ -214,5 +300,82 @@ def fused_equiv_fwd(
     return out
 
 
-# kernel launches so far (CPU calls do not count); callers may reset it
+def fused_equiv_bwd(rel, rot6, feats, idx, mask, proj_axes, proj_biases, conv_weights, gout):
+    """Fused conv backward: ``gout [B, M, G, O]``, the cotangent of the
+    un-normalised output, ``-> (d_feats [B, N, F, C], d_proj_axes [9, Q],
+    d_proj_biases [Q], d_conv_weights [C, Q, O])``, all float32.
+
+    Same arguments as :func:`fused_equiv_fwd` plus ``gout``.  CPU tensors
+    run :func:`fused_equiv_bwd_reference`; CUDA tensors launch the kernels.
+    """
+    if feats.device.type == "cpu":
+        return fused_equiv_bwd_reference(
+            rel, rot6, feats, idx, mask, proj_axes, proj_biases, conv_weights, gout
+        )
+    if feats.device.type != "cuda":
+        raise ValueError(f"unsupported device {feats.device}")
+    b, m, n, k, g, f, q, c, o = _check(
+        rel, rot6, feats, idx, mask, proj_axes, proj_biases, conv_weights
+    )
+    if gout.device != feats.device or gout.dtype != torch.float32 or not gout.is_contiguous():
+        raise ValueError("gout must be a contiguous float32 tensor on the device of feats")
+    if tuple(gout.shape) != (b, m, g, o):
+        raise ValueError(f"gout has shape {tuple(gout.shape)}, expected {(b, m, g, o)}")
+    dev = feats.device
+    d_feats = torch.zeros_like(feats)
+    d_params = torch.zeros((10, q), dtype=torch.float32, device=dev)  # 9 proj rows + bias
+    d_w = torch.zeros_like(conv_weights)
+    if b * m == 0 or c == 0 or o == 0:
+        return d_feats, d_params[:9], d_params[9], d_w
+    lib = _library("bwd")
+    scratch, w_splits, p_blocks = ctypes.c_longlong(), ctypes.c_int(), ctypes.c_int()
+    lib.se3_fused_equiv_bwd_plan(b, m, g, q, c, o, ctypes.byref(scratch),
+                                 ctypes.byref(w_splits), ctypes.byref(p_blocks))
+    work = torch.empty(scratch.value, dtype=torch.float32, device=dev)
+    w_part = torch.empty((w_splits.value, c * q * o), dtype=torch.float32, device=dev)
+    p_part = torch.empty((p_blocks.value, 10 * q), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.se3_fused_equiv_bwd(
+            rel.data_ptr(), rot6.data_ptr(), feats.data_ptr(), idx.data_ptr(),
+            mask.data_ptr(), proj_axes.data_ptr(), proj_biases.data_ptr(),
+            conv_weights.data_ptr(), gout.data_ptr(), d_feats.data_ptr(),
+            d_params.data_ptr(), d_w.data_ptr(), work.data_ptr(), w_part.data_ptr(),
+            p_part.data_ptr(), b, m, n, k, g, f, q, c, o, w_splits.value, p_blocks.value,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"fused_equiv_bwd kernel launch failed: CUDA error {err}")
+    fused_equiv_bwd.launches += 1
+    return d_feats, d_params[:9], d_params[9], d_w
+
+
+# kernel launches so far (CPU calls do not count); callers may reset them
 fused_equiv_fwd.launches = 0
+fused_equiv_bwd.launches = 0
+
+
+class FusedEquivConv(torch.autograd.Function):
+    """:func:`fused_equiv_fwd` with :func:`fused_equiv_bwd` as its backward.
+
+    Saves only its inputs (the lean-VJP residuals of
+    ``se3conv3d_tpu/ops/pne_conv.py:_lean_equiv``): the backward recomputes
+    pne and basis instead of keeping them.
+    """
+
+    @staticmethod
+    def forward(ctx, rel, rot6, feats, idx, mask, proj_axes, proj_biases, conv_weights):
+        ctx.save_for_backward(rel, rot6, feats, idx, mask, proj_axes, proj_biases, conv_weights)
+        return fused_equiv_fwd(rel, rot6, feats, idx, mask, proj_axes, proj_biases, conv_weights)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, gout):
+        d_feats, d_pa, d_pb, d_w = fused_equiv_bwd(*ctx.saved_tensors, gout.contiguous())
+        need = ctx.needs_input_grad
+        return (None, None, d_feats if need[2] else None, None, None,
+                d_pa if need[5] else None, d_pb if need[6] else None, d_w if need[7] else None)
+
+
+def fused_equiv(rel, rot6, feats, idx, mask, proj_axes, proj_biases, conv_weights):
+    """Differentiable fused conv ``-> [B, M, G, O]`` (see :func:`fused_equiv_fwd`)."""
+    return FusedEquivConv.apply(rel, rot6, feats, idx, mask, proj_axes, proj_biases, conv_weights)

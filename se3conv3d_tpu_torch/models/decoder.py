@@ -2,14 +2,14 @@
 ``se3conv3d_tpu/models/decoder.py``)."""
 from __future__ import annotations
 
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 import torch
 from torch import nn
 
 from ..core.hierarchy import Hierarchy
-from ..nn.blocks import SkipConnection, TorchLinear, gelu_tanh
+from ..nn.blocks import DropPathDraws, SkipConnection, TorchLinear, gelu_tanh
 from ..nn.norm import MaskedBatchNorm
 from .spec import ModelSpec, NeighborhoodProvider
 
@@ -36,7 +36,8 @@ class Decoder(nn.Module):
             )
 
     def forward(self, hierarchy: Hierarchy, enc_feats: List[torch.Tensor],
-                provider: NeighborhoodProvider, calibrate: bool = False):
+                provider: NeighborhoodProvider, calibrate: bool = False,
+                drops: Optional[DropPathDraws] = None):
         s = self.spec
         radii = hierarchy.levels_radii
         n_steps = len(s.num_features) - 1
@@ -52,7 +53,7 @@ class Decoder(nn.Module):
             x = getattr(self, f"conv_{it}")(
                 hierarchy.levels[cur], hierarchy.levels[cur - 1], x, neigh, calibrate
             )
-            x = getattr(self, f"skip_{it}")(x, enc_rev[it + 1])
+            x = getattr(self, f"skip_{it}")(x, enc_rev[it + 1], drops)
             out.append(x)
         return out
 
@@ -100,10 +101,11 @@ class FPNDecoder(nn.Module):
         self.patch_decoder = PatchDecoder(s) if s.patch_num_levels > 0 else None
 
     def forward(self, hierarchy: Hierarchy, enc_feats: List[torch.Tensor],
-                provider: NeighborhoodProvider, calibrate: bool = False):
+                provider: NeighborhoodProvider, calibrate: bool = False,
+                drops: Optional[DropPathDraws] = None):
         s = self.spec
         radii = hierarchy.levels_radii
-        dec = self.decoder(hierarchy, enc_feats, provider, calibrate)
+        dec = self.decoder(hierarchy, enc_feats, provider, calibrate, drops)
         last_level = hierarchy.num_levels - 1
         dest = last_level - len(enc_feats) + 1
         dest_pc = hierarchy.levels[dest]

@@ -3,14 +3,14 @@
 the reference: patch levels 0..P, trunk levels P..P+L-1."""
 from __future__ import annotations
 
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 import torch
 from torch import nn
 
 from ..core.hierarchy import Hierarchy
-from ..nn.blocks import ResNetFormer, TorchLinear, gelu_tanh
+from ..nn.blocks import DropPathDraws, ResNetFormer, TorchLinear, gelu_tanh
 from ..nn.norm import MaskedBatchNorm
 from .spec import ModelSpec, NeighborhoodProvider
 
@@ -78,7 +78,8 @@ class Encoder(nn.Module):
                 self.add_module(f"down_conv_{lvl}", s.conv.make(feats, s.num_features[lvl + 1]))
 
     def forward(self, hierarchy: Hierarchy, features, provider: NeighborhoodProvider,
-                calibrate: bool = False) -> List[torch.Tensor]:
+                calibrate: bool = False,
+                drops: Optional[DropPathDraws] = None) -> List[torch.Tensor]:
         s = self.spec
         radii = hierarchy.levels_radii
         p = s.patch_num_levels
@@ -90,7 +91,7 @@ class Encoder(nn.Module):
             neigh = provider.get(h_lvl, h_lvl, s.radius_scale_blocks * radii[h_lvl],
                                  s.neigh_type, s.num_knn_blocks)
             for i in range(s.num_blocks[lvl]):
-                x = getattr(self, f"block_{lvl}_{i}")(pc, x, neigh, calibrate)
+                x = getattr(self, f"block_{lvl}_{i}")(pc, x, neigh, calibrate, drops)
             out_feats.append(x)
             if lvl < len(s.num_features) - 1:
                 x = getattr(self, f"down_norm_{lvl}")(x, pc.mask)

@@ -1,9 +1,10 @@
 """DFaust model presets and the pinned recipe (counterpart of
 ``se3conv3d_tpu/models/presets.py`` for the FAUST seg models).
 
-``DFAUST_I_ROT_PCA_2F_MODEL`` is the ``Model`` section of
-``configs/dfaust/dfaust_I_rot_pca_2F.yaml`` as a Python dict, so the card
-needs no YAML reader; a test holds it equal to the file.
+``DFAUST_I_ROT_PCA_2F_MODEL`` and ``DFAUST_I_ROT_PCA_2F_TRAINING`` are the
+``Model`` and ``Training`` sections of ``configs/dfaust/dfaust_I_rot_pca_2F.yaml``
+as Python dicts, so the card needs no YAML reader; a test holds them equal
+to the file.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ from .spec import ModelSpec
 __all__ = [
     "SEG_PRESETS",
     "DFAUST_I_ROT_PCA_2F_MODEL",
+    "DFAUST_I_ROT_PCA_2F_TRAINING",
     "DFAUST_NUM_POINTS",
     "DFAUST_NUM_CLASSES",
     "get_model_spec",
@@ -41,6 +43,20 @@ DFAUST_I_ROT_PCA_2F_MODEL: Dict[str, Any] = {
         "train_n_frames": 2,
         "test_n_frames": 2,
     },
+}
+DFAUST_I_ROT_PCA_2F_TRAINING: Dict[str, Any] = {
+    "log_folder": "./logs/dfaust_RotEq_I_OOD_2F",
+    "num_epochs": 150,
+    "batch_size": 32,
+    "weight_decay": 0.0001,
+    "max_lr": 0.005,
+    "pct_start": 0.05,
+    "div_factor": 10.0,
+    "final_div_factor": 1000.0,
+    "clip_grads": 100.0,
+    "label_smoothing": 0.2,
+    "save_models_frequency": 50,
+    "val_freq": 5,
 }
 DFAUST_NUM_POINTS = 4096   # Dataset.num_points of the recipe
 DFAUST_NUM_CLASSES = 20    # DFaust body-part labels

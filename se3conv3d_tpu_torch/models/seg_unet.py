@@ -10,7 +10,7 @@ from torch import nn
 
 from ..core.hierarchy import Hierarchy
 from ..core.pointcloud import PointCloud, frame_pool
-from ..nn.blocks import TorchLinear, gelu_tanh
+from ..nn.blocks import DropPathDraws, TorchLinear, gelu_tanh
 from ..nn.norm import MaskedBatchNorm
 from .decoder import FPNDecoder
 from .encoder import Encoder
@@ -28,8 +28,12 @@ def init_parameters(module: nn.Module, generator: Optional[torch.Generator] = No
 
 
 class FPNSegUNet(nn.Module):
-    """``model(hierarchy, features [B, N0, F, C], out_pc, calibrate=False)
-    -> [B, M, num_classes]`` frame-averaged logits."""
+    """``model(hierarchy, features [B, N0, F, C], out_pc, calibrate=False,
+    drops=None) -> [B, M, num_classes]`` frame-averaged logits.
+
+    ``model.train()`` selects batch statistics in every BN and stochastic
+    depth in every block; the DropPath keep masks then come from ``drops``.
+    """
 
     def __init__(self, spec: ModelSpec, num_in_feats: int, num_classes: int,
                  frame_pooling: str = "avg", generator: Optional[torch.Generator] = None):
@@ -46,11 +50,11 @@ class FPNSegUNet(nn.Module):
         init_parameters(self, generator)
 
     def forward(self, hierarchy: Hierarchy, features: torch.Tensor, out_pc: PointCloud,
-                calibrate: bool = False) -> torch.Tensor:
+                calibrate: bool = False, drops: Optional[DropPathDraws] = None) -> torch.Tensor:
         s = self.spec
         provider = NeighborhoodProvider(hierarchy, s, collect_trunc=calibrate)
-        enc = self.encoder(hierarchy, features, provider, calibrate)
-        x = self.fpn_decoder(hierarchy, enc, provider, calibrate)
+        enc = self.encoder(hierarchy, features, provider, calibrate, drops)
+        x = self.fpn_decoder(hierarchy, enc, provider, calibrate, drops)
         neigh_out = provider.to_cloud(
             0, out_pc, s.radius_scale * hierarchy.levels_radii[0], s.neigh_type, s.num_knn
         )

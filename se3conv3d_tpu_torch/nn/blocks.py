@@ -8,7 +8,7 @@ activation inside the conv is the exact erf form.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -18,7 +18,7 @@ from ..core.neighborhoods import Neighborhood
 from ..core.pointcloud import PointCloud
 from .norm import MaskedBatchNorm
 
-__all__ = ["TorchLinear", "DropPath", "SkipConnection", "ResNetFormer", "gelu_tanh"]
+__all__ = ["TorchLinear", "DropPath", "DropPathDraws", "SkipConnection", "ResNetFormer", "gelu_tanh"]
 
 
 def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
@@ -44,18 +44,49 @@ class TorchLinear(nn.Module):
         return x @ self.kernel + self.bias
 
 
+class DropPathDraws:
+    """Where train-mode :class:`DropPath` layers get their keep masks during
+    one forward: uniforms from ``generator`` (``keep = floor(1 - p + u)``
+    per example), or ``keep_masks`` handed in, consumed in call order.
+    Never the global RNG: a draw with neither source raises."""
+
+    def __init__(self, generator: Optional[torch.Generator] = None,
+                 keep_masks: Optional[Sequence[torch.Tensor]] = None):
+        self.generator = generator
+        self._masks = None if keep_masks is None else iter(keep_masks)
+
+    def keep_mask(self, batch: int, keep: float, like: torch.Tensor) -> torch.Tensor:
+        """``[batch]`` of 0/1 in ``like``'s dtype and device."""
+        if self._masks is not None:
+            mask = next(self._masks, None)
+            if mask is None:
+                raise ValueError("more train-mode DropPath calls than injected keep masks")
+            if tuple(mask.shape) != (batch,):
+                raise ValueError(f"keep mask has shape {tuple(mask.shape)}, expected ({batch},)")
+            return mask.to(device=like.device, dtype=like.dtype)
+        if self.generator is None:
+            raise ValueError("train-mode DropPath needs a generator or injected keep masks")
+        u = torch.rand(batch, generator=self.generator, device=like.device, dtype=like.dtype)
+        return torch.floor(keep + u)
+
+
 class DropPath(nn.Module):
-    """Per-example stochastic depth: identity in eval mode (the training
-    draw comes with the training step)."""
+    """Per-example stochastic depth: in training mode the whole residual
+    branch of an example is kept (scaled by ``1 / keep``) or dropped
+    together, ``x / keep * floor(keep + u)``; identity in eval mode."""
 
     def __init__(self, drop_prob: float):
         super().__init__()
         self.drop_prob = drop_prob
 
-    def forward(self, x):
+    def forward(self, x, drops: Optional[DropPathDraws] = None):
         if self.drop_prob == 0.0 or not self.training:
             return x
-        raise NotImplementedError("stochastic depth in training mode is not ported yet")
+        if drops is None:
+            raise ValueError("train-mode DropPath needs a DropPathDraws source")
+        keep = 1.0 - self.drop_prob
+        mask = drops.keep_mask(x.shape[0], keep, x)
+        return x / keep * mask.reshape((x.shape[0],) + (1,) * (x.ndim - 1))
 
 
 class SkipConnection(nn.Module):
@@ -67,8 +98,8 @@ class SkipConnection(nn.Module):
         self.gamma = nn.Parameter(torch.full((1, features), init_gamma))
         self.drop_path = DropPath(drop_prob)
 
-    def forward(self, x, y):
-        return self.drop_path(x * self.gamma) + y
+    def forward(self, x, y, drops: Optional[DropPathDraws] = None):
+        return self.drop_path(x * self.gamma, drops) + y
 
 
 class ResNetFormer(nn.Module):
@@ -87,11 +118,12 @@ class ResNetFormer(nn.Module):
         )
         self.skip_path_2 = SkipConnection(out_features, drop_prob)
 
-    def forward(self, pc: PointCloud, features, neigh: Neighborhood, calibrate: bool = False):
+    def forward(self, pc: PointCloud, features, neigh: Neighborhood, calibrate: bool = False,
+                drops: Optional[DropPathDraws] = None):
         x = self.norm_1(features, pc.mask)
         x = self.spatial_conv(pc, pc, x, neigh, calibrate)
-        x = self.skip_path_1(x, features)
+        x = self.skip_path_1(x, features, drops)
         y = self.norm_2(x, pc.mask)
         y = self.linear_2(gelu_tanh(self.linear_1(y)))
         skip = self.skip_conv(x) if self.skip_conv is not None else x
-        return self.skip_path_2(y, skip)
+        return self.skip_path_2(y, skip, drops)

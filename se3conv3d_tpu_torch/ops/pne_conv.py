@@ -16,7 +16,7 @@ import torch.nn.functional as F
 from ..core.neighborhoods import Neighborhood
 from ..core.pointcloud import PointCloud, gather_rows
 from ..core.rotation import matrix_to_rotation_6d
-from ..kernels.fused_equiv import fused_equiv_fwd
+from ..kernels.fused_equiv import fused_equiv
 
 __all__ = [
     "pne_activation",
@@ -94,15 +94,18 @@ def fused_equiv_conv(
     (``act((s*rel) @ A + rot @ B + b) == act(rel @ (s*A) + ...)``), invalid
     edges contribute zero, and the output is scaled by
     ``norm_num_neighs / F``.  Uses the neighborhood's cached geometry when
-    present.  CUDA tensors run the CUDA kernel, CPU tensors its plain
-    version (``kernels.fused_equiv``).
+    present.  CUDA tensors run the CUDA kernels, CPU tensors their plain
+    versions (``kernels.fused_equiv``), forward and backward.  Gradients
+    reach ``features``, ``proj_axes`` (through the ``norm_dist`` fold),
+    ``proj_biases`` and ``conv_weights``; the two calibration buffers get
+    none, as in ``se3conv3d_tpu/nn/conv.py``.
     """
     if neigh.equiv_rel is not None:
         rel, rot6 = neigh.equiv_rel, neigh.equiv_rot
     else:
         rel, rot6 = equiv_geometry_parts(pc_in, pc_out, neigh)
     pa_scaled = torch.cat([proj_axes[:3] * norm_dist, proj_axes[3:]], 0)
-    out = fused_equiv_fwd(
+    out = fused_equiv(
         rel, rot6, features.contiguous(), neigh.idx, neigh.mask,
         pa_scaled, proj_biases.contiguous(), conv_weights.contiguous(),
     )

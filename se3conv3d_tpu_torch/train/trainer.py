@@ -1,43 +1,52 @@
-"""Calibration and eval steps (counterpart of the segmentation path of
-``se3conv3d_tpu/train/trainer.py``; the training step comes later).
+"""Calibration, train and eval steps (counterpart of the segmentation path
+of ``se3conv3d_tpu/train/trainer.py``).
 
 A batch is a dict of tensors: ``positions [B, N, 3]``, ``mask [B, N]``,
 ``features [B, N, C]`` and optionally ``labels [B, N]``.  Each step builds
-the hierarchy (random draws from ``generator``, or injected ``draws``),
-repeats the level-0 features over the frames and runs the model in eval
-mode without autograd.
+the hierarchy (random draws from ``generator``, or injected ``draws``) and
+repeats the level-0 features over the frames.  Calibration and eval run the
+model in eval mode without autograd; the train step runs it in train mode
+(batch-statistics BN, stochastic depth), backpropagates the masked
+label-smoothed loss and takes one optimizer step.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
 from ..core.hierarchy import HierarchyConfig, HierarchyDraws, build_hierarchy
+from ..nn.blocks import DropPathDraws
 from .losses import masked_segmentation_loss_parts
+from .schedule import Optimizer
 
 __all__ = ["Trainer"]
 
 
 class Trainer:
-    """Eval-side steps of one (segmentation model, hierarchy config).
+    """Steps of one (segmentation model, hierarchy config, optimizer).
 
     Args:
       model: an ``FPNSegUNet``; its parameters, BN statistics and
         calibration buffers are the state the steps read and update.
-      hierarchy_config: used by the calibration step.
+      hierarchy_config: used by the calibration and train steps.
       eval_hierarchy_config: used by the eval step (default: the same).
       label_smoothing / ignore_label: loss settings.
+      optimizer: ``train.schedule.Optimizer`` over the model's parameters;
+        needed by :meth:`train_step` only.
     """
 
     def __init__(self, model, hierarchy_config: HierarchyConfig,
                  eval_hierarchy_config: Optional[HierarchyConfig] = None,
-                 label_smoothing: float = 0.0, ignore_label: Optional[int] = None):
+                 label_smoothing: float = 0.0, ignore_label: Optional[int] = None,
+                 optimizer: Optional[Optimizer] = None):
         self.model = model
         self.hcfg = hierarchy_config
         self.eval_hcfg = eval_hierarchy_config or hierarchy_config
         self.label_smoothing = label_smoothing
         self.ignore_label = ignore_label
+        self.optimizer = optimizer
+        self.step = 0
 
     def build(self, batch: dict, generator: Optional[torch.Generator] = None,
               draws: Optional[HierarchyDraws] = None, train: bool = True):
@@ -52,6 +61,12 @@ class Trainer:
             f0 = f0[:, :, None, :].repeat(1, 1, hcfg.frames.n_frames, 1)
         return h, f0, out_pc, out_labels, raw_to_out
 
+    def _loss(self, logits, out_labels, out_pc):
+        total, count = masked_segmentation_loss_parts(
+            logits, out_labels, out_pc.mask, self.label_smoothing, self.ignore_label
+        )
+        return total / count.clamp(min=1.0)
+
     @torch.no_grad()
     def calibration_step(self, batch: dict, generator: Optional[torch.Generator] = None,
                          draws: Optional[HierarchyDraws] = None) -> None:
@@ -59,6 +74,35 @@ class Trainer:
         h, f0, out_pc, _, _ = self.build(batch, generator, draws)
         self.model.eval()
         self.model(h, f0, out_pc, calibrate=True)
+
+    def train_step(self, batch: dict, generator: Optional[torch.Generator] = None,
+                   draws: Optional[HierarchyDraws] = None,
+                   drop_masks: Optional[Sequence[torch.Tensor]] = None) -> dict:
+        """One optimizer step on a labelled batch.
+
+        The hierarchy draws come from ``draws`` or ``generator``, the
+        DropPath keep masks (``[B]`` each, in call order) from
+        ``drop_masks`` or ``generator``.  Returns ``{"loss", "grad_norm"}``
+        as device scalars; ``grad_norm`` is the global norm before clipping.
+        BN running statistics are updated in place.
+        """
+        if self.optimizer is None:
+            raise ValueError("train_step needs a Trainer built with an optimizer")
+        h, f0, out_pc, out_labels, _ = self.build(batch, generator, draws, train=True)
+        loss = self.backward(h, f0, out_pc, out_labels, DropPathDraws(generator, drop_masks))
+        grad_norm = self.optimizer.step()
+        self.step += 1
+        return {"loss": loss, "grad_norm": grad_norm}
+
+    def backward(self, h, f0, out_pc, out_labels, drops: DropPathDraws) -> torch.Tensor:
+        """Train-mode forward and backward on a built hierarchy: sets every
+        parameter's ``.grad`` to the gradient of the masked label-smoothed
+        loss (updating the BN running statistics) and returns the loss."""
+        self.model.train()
+        self.model.zero_grad(set_to_none=True)
+        loss = self._loss(self.model(h, f0, out_pc, drops=drops), out_labels, out_pc)
+        loss.backward()
+        return loss.detach()
 
     @torch.no_grad()
     def eval_step(self, batch: dict, generator: Optional[torch.Generator] = None,
@@ -70,10 +114,7 @@ class Trainer:
         logits = self.model(h, f0, out_pc)
         out = {"logits": logits, "mask": out_pc.mask}
         if out_labels is not None:
-            total, count = masked_segmentation_loss_parts(
-                logits, out_labels, out_pc.mask, self.label_smoothing, self.ignore_label
-            )
-            out["loss"] = total / count.clamp(min=1.0)
+            out["loss"] = self._loss(logits, out_labels, out_pc)
             out["labels"] = out_labels
         if raw_to_out is not None:
             out["out_idx"] = raw_to_out.chosen_idx

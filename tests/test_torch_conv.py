@@ -4,8 +4,10 @@ CPU tensors run the kernel's plain PyTorch version; it is held against
 ``se3conv3d_tpu.ops.fused_equiv_conv`` (the Pallas kernel in interpret mode,
 as ``tests/test_fused_equiv.py`` runs it) and against the JAX XLA einsum
 path, at atol 2e-4 / rtol 5e-5 -- the bounds of ``tests/test_fused_equiv.py``.
-The CUDA kernel itself is compared with the plain version on the card in
-``tests/test_torch_kernel_cuda.py``.
+Its gradients (the plain backward) are held against ``jax.grad`` through the
+Pallas backward kernel in interpret mode at that file's gradient bounds.
+The CUDA kernels themselves are compared with the plain versions on the card
+in ``tests/test_torch_kernel_cuda.py``.
 """
 import jax
 import jax.numpy as jnp
@@ -97,15 +99,76 @@ def test_fused_equiv_conv_matches_jax(name, monkeypatch):
     np.testing.assert_allclose(unfused, np.asarray(xla), atol=ATOL, rtol=RTOL)
 
 
+@pytest.mark.parametrize("name", ["self_g2", "g1"])
+def test_fused_equiv_conv_gradients_match_jax_pallas_backward(name, monkeypatch):
+    """Gradients of ``sum(out * cos(out))`` through the port's differentiable
+    conv (CPU tensors: the plain backward) against ``jax.grad`` through the
+    lean VJP, which runs the Pallas ``_bwd_kernel`` in interpret mode, at
+    the bounds of ``tests/test_fused_equiv.py::test_gradients_match_xla_path``
+    (atol 5e-4, rtol 5e-3)."""
+    seed, g, m_out, q_tail, tile = CASES[name]
+    monkeypatch.setattr(fe, "FUSED_INTERPRET", True)
+    pc_in, pc_out, neigh, feats, pa, pb, w = _case(seed, g, m_out, q_tail)
+    nd, nn_ = 3.0, 0.11
+
+    def jloss(params):
+        out = jops.fused_equiv_conv(pc_in, pc_out, neigh, *params, jnp.asarray(nd),
+                                    jnp.asarray(nn_), tile_m=tile, lean_vjp=True)
+        return jnp.sum(out * jnp.cos(out))
+
+    want = jax.grad(jloss)(tuple(jnp.asarray(x) for x in (feats, pa, pb, w)))
+
+    tn = Neighborhood(t(neigh.idx), t(neigh.mask), t(neigh.query_mask), "ball_query", 0.5)
+    params = [t(x).requires_grad_() for x in (feats, pa, pb, w)]
+    nd_t, nn_t = torch.tensor(nd), torch.tensor(nn_)
+    before = kfe.fused_equiv_bwd.launches
+    out = ops.fused_equiv_conv(to_torch_cloud(pc_in), to_torch_cloud(pc_out), tn, *params,
+                               nd_t, nn_t)
+    (out * torch.cos(out)).sum().backward()
+    assert kfe.fused_equiv_bwd.launches == before  # CPU tensors launch no kernel
+    assert nd_t.grad is None and nn_t.grad is None
+    for p, ref, pname in zip(params, want, ("feats", "proj_axes", "proj_biases", "conv_weights")):
+        assert np.abs(np.asarray(ref)).max() > 0, pname
+        np.testing.assert_allclose(p.grad.numpy(), np.asarray(ref), atol=5e-4, rtol=5e-3,
+                                   err_msg=pname)
+
+
+def test_fused_equiv_function_gradcheck_float64_and_saves_only_inputs():
+    """``torch.autograd.gradcheck`` of the Function's CPU path in float64 at a
+    tiny shape (masked and repeated neighbors), and its residuals are its
+    eight inputs: the backward recomputes pne and basis."""
+    gen = torch.Generator().manual_seed(0)
+    b, m, n, k, g, f, q, c, o = 2, 5, 7, 4, 2, 2, 3, 3, 4
+
+    def rnd(*s):
+        return torch.randn(*s, generator=gen, dtype=torch.float64)
+
+    idx = torch.randint(0, n, (b, m, k), generator=gen)
+    mask = torch.rand(b, m, k, generator=gen) < 0.7
+    geometry = (rnd(b, m, k, g, 3), rnd(b, m, k, g, f, 6), idx, mask)
+    feats, pa, pb, w = (x.requires_grad_() for x in (rnd(b, n, f, c), rnd(9, q), rnd(q), rnd(c, q, o)))
+    args = (geometry[0], geometry[1], feats, idx, mask, pa, pb, w)
+    assert torch.autograd.gradcheck(kfe.fused_equiv, args)
+    out = kfe.fused_equiv(*args)
+    saved = out.grad_fn.saved_tensors
+    assert len(saved) == len(args)
+    for s, a in zip(saved, args):
+        assert s.shape == a.shape and s.data_ptr() == a.data_ptr()
+
+
 def test_wrapper_dispatches_cpu_tensors_to_the_plain_version():
     pc_in, pc_out, neigh, feats, pa, pb, w = _case(3, 2, 40, 5)
     tn = Neighborhood(t(neigh.idx), t(neigh.mask), t(neigh.query_mask), "ball_query", 0.5)
     rel, rot6 = ops.equiv_geometry_parts(to_torch_cloud(pc_in), to_torch_cloud(pc_out), tn)
     args = (rel, rot6, t(feats), tn.idx, tn.mask, t(pa), t(pb), t(w))
-    before = kfe.fused_equiv_fwd.launches
+    before = kfe.fused_equiv_fwd.launches, kfe.fused_equiv_bwd.launches
     np.testing.assert_array_equal(kfe.fused_equiv_fwd(*args).numpy(),
                                   kfe.fused_equiv_fwd_reference(*args).numpy())
-    assert kfe.fused_equiv_fwd.launches == before  # CPU tensors launch no kernel
+    gout = torch.randn(2, 40, 2, O, generator=torch.Generator().manual_seed(1))
+    for got, ref in zip(kfe.fused_equiv_bwd(*args, gout), kfe.fused_equiv_bwd_reference(*args, gout)):
+        np.testing.assert_array_equal(got.numpy(), ref.numpy())
+    # CPU tensors launch no kernel
+    assert (kfe.fused_equiv_fwd.launches, kfe.fused_equiv_bwd.launches) == before
 
 
 @pytest.mark.parametrize("method", ["ball_query", "knn"])

@@ -19,7 +19,8 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_helpers import jax_hierarchy_draws, t, to_torch_cloud, to_torch_hierarchy
+from torch_port_helpers import (HCFG, NUM_CLASSES, TINY, jax_hierarchy_draws, randomize, t,
+                                tiny_batch, to_torch_cloud, to_torch_hierarchy)
 
 from se3conv3d_tpu.core import hierarchy as jhier
 from se3conv3d_tpu.models import FPNSegUNet as JNet
@@ -35,44 +36,13 @@ from se3conv3d_tpu_torch.utils.weights import from_flax
 torch.set_num_threads(2)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-TINY = dict(patch_num_levels=1, patch_num_features=(8,), num_blocks=(1, 1),
-            num_features=(8, 16), fpn_dec_feats=8, max_neighbors=8)
-HCFG = dict(init_cell_size=0.08, cell_sizes=(0.16, 0.32), capacities=(128, 64, 32),
-            out_cell_size=0.1, out_capacity=128)
-NUM_CLASSES = 5
-
-
-def _batch(seed=0, b=2, n=200):
-    rng = np.random.default_rng(seed)
-    pts = rng.uniform(size=(b, n, 3)).astype(np.float32)
-    pts[..., 1] *= 1.5
-    mask = np.arange(n)[None] < np.array([n, n - 30])[:, None]
-    feats = rng.normal(size=(b, n, 1)).astype(np.float32)
-    labels = rng.integers(0, NUM_CLASSES, size=(b, n)).astype(np.int32)
-    return pts, mask, feats, labels
-
-
-def _randomize(tree, rng):
-    """Non-trivial values for every leaf that init leaves degenerate
-    (skip gammas 1e-6, BN identity), so every layer shows in the logits."""
-    def leaf(path, x):
-        name = path[-1].key
-        x = np.asarray(x)
-        if name == "gamma":
-            return (rng.normal(size=x.shape) * 0.5).astype(x.dtype)
-        if name in ("scale", "var"):
-            return rng.uniform(0.6, 1.4, size=x.shape).astype(x.dtype)
-        if name in ("bias", "mean", "proj_biases"):
-            return (rng.normal(size=x.shape) * 0.1).astype(x.dtype)
-        return x
-    return jax.tree_util.tree_map_with_path(leaf, tree)
 
 
 @pytest.fixture(scope="module")
 def jax_model():
     spec = dataclasses.replace(jget_spec("FPNSegUNetMLPGeluRotEqFAUST"), **TINY)
     cfg = jhier.HierarchyConfig(**HCFG, frames=jhier.FrameConfig(n_frames=2, neigh_k=8))
-    pts, mask, feats, labels = _batch()
+    pts, mask, feats, labels = tiny_batch()
     build = jax.jit(jhier.build_hierarchy, static_argnums=(4,))
     key = jax.random.PRNGKey(3)
     h, f0, out_pc, out_labels, raw_to_out = build(
@@ -84,8 +54,8 @@ def jax_model():
     v = init({"params": jax.random.PRNGKey(1), "droppath": jax.random.PRNGKey(2)},
              h, f0, out_pc, train=False)
     rng = np.random.default_rng(4)
-    v = {"params": _randomize(v["params"], rng),
-         "batch_stats": _randomize(v["batch_stats"], rng), "calib": v["calib"]}
+    v = {"params": randomize(v["params"], rng),
+         "batch_stats": randomize(v["batch_stats"], rng), "calib": v["calib"]}
     apply = jax.jit(model.apply, static_argnames=("train", "calibrate", "mutable"))
     _, mut = apply(v, h, f0, out_pc, train=False, calibrate=True, mutable=("calib",))
     calibrated = {**v, "calib": mut["calib"]}
@@ -134,7 +104,7 @@ def test_trainer_eval_slice_matches_jax(jax_model):
     model = _port_model(jm["v"])
     tcfg = thier.HierarchyConfig(**HCFG, frames=thier.FrameConfig(n_frames=2, neigh_k=8))
     trainer = Trainer(model, tcfg, label_smoothing=0.2)
-    pts, mask, feats, labels = _batch()
+    pts, mask, feats, labels = tiny_batch()
     batch = {"positions": t(pts), "mask": t(mask), "features": t(feats), "labels": t(labels)}
     draws = jax_hierarchy_draws(jm["key"], jm["cfg"], 2, pts.shape[1])
     trainer.calibration_step(batch, draws=draws)

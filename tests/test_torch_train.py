@@ -1,0 +1,315 @@
+"""The port's training step against the JAX package.
+
+* train-mode ``MaskedBatchNorm`` against numpy over the flat
+  ``(valid points x frames, C)`` rows of the reference's ``BatchNorm1d``,
+  and a record of the JAX package's deviation from it at F > 1;
+* train-mode ``DropPath`` with injected uniforms;
+* the one-cycle schedule and the clipped AdamW against the JAX package's
+  ``onecycle`` / ``make_optimizer`` optax chain;
+* one whole ``Trainer.train_step`` of the tiny FPNSegUNetMLPGeluRotEqFAUST
+  against the JAX ``Trainer.train_step``: the same weights (``from_flax``),
+  hierarchy draws and DropPath keep masks (captured from the JAX run with
+  ``flax.linen.intercept_methods``).  At F=2 the JAX run goes through an
+  interceptor that gives its ``MaskedBatchNorm`` the reference's row count;
+  no file of the JAX package changes.
+"""
+import dataclasses
+import os
+
+import flax.linen as fnn
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+from torch_port_helpers import HCFG, NUM_CLASSES, TINY, jax_hierarchy_draws, randomize, t, tiny_batch
+
+from se3conv3d_tpu.core import hierarchy as jhier
+from se3conv3d_tpu.models import FPNSegUNet as JNet
+from se3conv3d_tpu.models import get_model_spec as jget_spec
+from se3conv3d_tpu.nn.blocks import DropPath as JDropPath
+from se3conv3d_tpu.nn.norm import MaskedBatchNorm as JBatchNorm
+from se3conv3d_tpu.train import config as jconfig
+from se3conv3d_tpu.train import schedule as jschedule
+from se3conv3d_tpu.train.trainer import Trainer as JTrainer
+from se3conv3d_tpu.train.trainer import TrainSettings, TrainState
+from se3conv3d_tpu_torch.core import hierarchy as thier
+from se3conv3d_tpu_torch.models import FPNSegUNet, get_model_spec, presets
+from se3conv3d_tpu_torch.nn.blocks import DropPath, DropPathDraws
+from se3conv3d_tpu_torch.nn.norm import MaskedBatchNorm
+from se3conv3d_tpu_torch.train import schedule
+from se3conv3d_tpu_torch.train.trainer import Trainer
+from se3conv3d_tpu_torch.utils.weights import from_flax
+
+torch.set_num_threads(2)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+# --- batch norm ---------------------------------------------------------------
+
+
+@pytest.mark.parametrize("shape", [(2, 30, 8), (2, 30, 1, 8), (2, 30, 2, 8)])
+def test_train_batchnorm_matches_numpy_over_valid_point_frame_rows(shape):
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=shape).astype(np.float32) * 2.0 + 0.5
+    mask = np.arange(shape[1])[None] < np.array([30, 21])[:, None]
+    bn = MaskedBatchNorm(shape[-1])
+    with torch.no_grad():
+        bn.scale.copy_(torch.from_numpy(rng.uniform(0.5, 1.5, shape[-1]).astype(np.float32)))
+        bn.bias.copy_(torch.from_numpy(rng.normal(size=shape[-1]).astype(np.float32)))
+    y = bn.train()(t(x), t(mask)).detach().numpy()
+
+    rows = x[mask].reshape(-1, shape[-1]).astype(np.float64)  # (valid points x frames, C)
+    mean, var = rows.mean(0), rows.var(0)
+    want = (x - mean) / np.sqrt(var + 1e-5) * bn.scale.detach().numpy() + bn.bias.detach().numpy()
+    np.testing.assert_allclose(y, want, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(bn.mean.numpy(), 0.2 * mean, rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(bn.var.numpy(), 0.8 + 0.2 * rows.var(0, ddof=1), rtol=1e-5)
+    # eval mode normalises with the running statistics and leaves them alone
+    before = bn.mean.clone()
+    bn.eval()(t(x), t(mask))
+    assert torch.equal(bn.mean, before)
+
+
+def test_jax_train_batchnorm_counts_points_not_frames():
+    """Records the JAX package's deviation (ROADMAP Queue 3): its train-mode
+    BN divides by the valid *points*, not points x frames, so at F=2 a
+    constant input of 5 moves its running mean to 2.0 where the reference's
+    ``BatchNorm1d(momentum=0.2)`` over ``(n*F, C)`` rows gives 1.0, and it
+    normalises to -0.707 instead of 0.  This fails once the JAX side is
+    fixed; then the F=2 train-step test can drop its interceptor."""
+    x = np.full((1, 4, 2, 3), 5.0, np.float32)
+    mask = np.ones((1, 4), bool)
+    jbn = JBatchNorm(3)
+    v = jbn.init(jax.random.PRNGKey(0), jnp.asarray(x), jnp.asarray(mask), False)
+    jy, mut = jbn.apply(v, jnp.asarray(x), jnp.asarray(mask), True, mutable=["batch_stats"])
+    bn = MaskedBatchNorm(3).train()
+    y = bn(t(x), t(mask))
+    np.testing.assert_allclose(bn.mean.numpy(), 1.0, rtol=1e-6)
+    np.testing.assert_allclose(y.detach().numpy(), 0.0, atol=1e-6)
+    np.testing.assert_allclose(np.asarray(mut["batch_stats"]["mean"]), 2.0 * bn.mean.numpy(), rtol=1e-6)
+    np.testing.assert_allclose(np.asarray(jy), -0.70710677, rtol=1e-4)
+
+
+# --- drop path ----------------------------------------------------------------
+
+
+def test_train_droppath_formula_and_per_example_scope():
+    x = torch.from_numpy(np.random.default_rng(1).normal(size=(5, 7, 2, 3)).astype(np.float32))
+    dp = DropPath(0.3).train()
+    u = torch.rand(5, generator=torch.Generator().manual_seed(4))
+    got = dp(x, DropPathDraws(generator=torch.Generator().manual_seed(4)))
+    keep = torch.floor(0.7 + u)
+    assert 0 < keep.sum() < 5  # both kept and dropped examples
+    want = x / 0.7 * keep[:, None, None, None]
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    # injected keep masks are consumed in call order, one per example
+    draws = DropPathDraws(keep_masks=[torch.tensor([1., 0., 1., 1., 0.]), torch.tensor([0., 1., 1., 0., 0.])])
+    first, second = dp(x, draws), dp(x, draws)
+    for out, m in ((first, [1, 0, 1, 1, 0]), (second, [0, 1, 1, 0, 0])):
+        for i, keep_i in enumerate(m):
+            np.testing.assert_array_equal(out[i].numpy(), (x[i] / 0.7 * keep_i).numpy())
+    with pytest.raises(ValueError):
+        dp(x, draws)  # no mask left
+    with pytest.raises(ValueError):
+        dp(x)  # never the global RNG
+    assert dp.eval()(x) is x
+    assert DropPath(0.0).train()(x) is x
+
+
+# --- schedule and optimizer ---------------------------------------------------
+
+
+@pytest.mark.parametrize("total", [2, 3, 7, 1000])
+def test_onecycle_matches_jax(total):
+    for kw in (dict(pct_start=0.05, div_factor=10.0, final_div_factor=1000.0), {}):
+        ours = schedule.onecycle(5e-3, total, **kw)
+        ref = jschedule.onecycle(5e-3, total, **kw)
+        steps = np.arange(total + 3)
+        got = np.array([ours(int(s)) for s in steps])
+        want = np.array([float(ref(jnp.asarray(s))) for s in steps])
+        assert np.all(np.isfinite(got))
+        # optax interpolates in float32: agreement to its rounding of max_lr
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=4 * 2.0**-23 * 5e-3, err_msg=str(kw))
+
+
+def test_clipped_adamw_matches_the_jax_optax_chain():
+    rng = np.random.default_rng(2)
+    shapes = {"a": (3, 4), "b": (5,), "c": (2, 3, 2)}
+    params = {k: rng.normal(size=s).astype(np.float32) for k, s in shapes.items()}
+    tx = jschedule.make_optimizer(5e-3, total_steps=12, weight_decay=1e-4, clip_grad_norm=1.5,
+                                  pct_start=0.25)
+    jparams = {k: jnp.asarray(v) for k, v in params.items()}
+    jstate = tx.init(jparams)
+    tparams = {k: torch.nn.Parameter(t(v)) for k, v in params.items()}
+    opt = schedule.make_optimizer(tparams.values(), 5e-3, total_steps=12, weight_decay=1e-4,
+                                  clip_grad_norm=1.5, pct_start=0.25)
+    norms = []
+    for step in range(5):
+        grads = {k: (rng.normal(size=s) * (0.2 if step % 2 else 1.0)).astype(np.float32)
+                 for k, s in shapes.items()}
+        updates, jstate = tx.update({k: jnp.asarray(v) for k, v in grads.items()}, jstate, jparams)
+        jparams = optax.apply_updates(jparams, updates)
+        for k, p in tparams.items():
+            p.grad = t(grads[k])
+        norms.append(float(opt.step()))
+        np.testing.assert_allclose(norms[-1], float(optax.global_norm(grads)), rtol=1e-6)
+        for k, p in tparams.items():
+            np.testing.assert_allclose(p.detach().numpy(), np.asarray(jparams[k]), rtol=1e-6,
+                                       err_msg=f"step {step} leaf {k}")
+    assert max(norms) > 1.5 > min(norms)  # both clipped and unclipped steps
+    with pytest.raises(NotImplementedError):
+        schedule.make_optimizer(tparams.values(), 5e-3, 12, accum_steps=2)
+
+
+def test_pinned_training_matches_yaml():
+    path = os.path.join(REPO, "configs", "dfaust", "dfaust_I_rot_pca_2F.yaml")
+    assert presets.DFAUST_I_ROT_PCA_2F_TRAINING == jconfig.load_yaml_config(path)["Training"]
+    opt = schedule.optimizer_from_training([torch.nn.Parameter(torch.zeros(3))],
+                                           presets.DFAUST_I_ROT_PCA_2F_TRAINING, 1000)
+    assert opt.clip_grad_norm == 100.0 and opt.adamw.defaults["weight_decay"] == 1e-4
+    assert opt.lr == pytest.approx(5e-4)  # max_lr / div_factor at step 0
+
+
+# --- the whole train step -----------------------------------------------------
+
+
+def _capture_grads():
+    """An optax transformation that applies no update and keeps the
+    gradients as its state, so the JAX train step hands them back."""
+    return optax.GradientTransformation(
+        init=lambda p: jax.tree_util.tree_map(jnp.zeros_like, p),
+        update=lambda g, s, p=None: (jax.tree_util.tree_map(jnp.zeros_like, g), g),
+    )
+
+
+def _interceptor(order, reference_bn):
+    """Records each train-mode DropPath draw (as ``batch_stats`` variable
+    ``keep``, in trace order) and, with ``reference_bn``, gives
+    ``MaskedBatchNorm`` the reference's (valid points x frames) row count."""
+
+    def intercept(next_fun, args, kwargs, context):
+        mod = context.module
+        if context.method_name != "__call__":
+            return next_fun(*args, **kwargs)
+        if isinstance(mod, JDropPath) and args[1] and mod.drop_prob > 0.0:
+            x = args[0]
+            keep = 1.0 - mod.drop_prob
+            u = jax.random.uniform(mod.make_rng("droppath"), (x.shape[0],) + (1,) * (x.ndim - 1), x.dtype)
+            mask = jnp.floor(keep + u)
+            mod.put_variable("batch_stats", "keep", mask.reshape(x.shape[0]))
+            order.append(mod.scope.path)
+            return x / keep * mask
+        if reference_bn and isinstance(mod, JBatchNorm) and args[2] and not mod.is_initializing():
+            x, mask = args[0], args[1]
+            rows = mask.reshape(mask.shape + (1,) * (x.ndim - mask.ndim)).astype(x.dtype)
+            rows = jnp.broadcast_to(rows, x.shape[:-1] + (1,))
+            axes = tuple(range(x.ndim - 1))
+            count = jnp.maximum(jnp.sum(rows), 1.0)
+            mean = jnp.sum(x * rows, axis=axes) / count
+            var = jnp.sum(rows * (x - mean) ** 2, axis=axes) / count
+            unbiased = var * (count / jnp.maximum(count - 1.0, 1.0))
+            mom = mod.momentum
+            mod.put_variable("batch_stats", "mean",
+                             (1 - mom) * mod.get_variable("batch_stats", "mean") + mom * mean)
+            mod.put_variable("batch_stats", "var",
+                             (1 - mom) * mod.get_variable("batch_stats", "var") + mom * unbiased)
+            y = (x - mean) * jax.lax.rsqrt(var + mod.eps)
+            return y * mod.get_variable("params", "scale") + mod.get_variable("params", "bias")
+        return next_fun(*args, **kwargs)
+
+    return intercept
+
+
+def _flat(tree):
+    flat = jax.tree_util.tree_flatten_with_path(jax.device_get(tree))[0]
+    return {".".join(p.key for p in path): np.asarray(x) for path, x in flat}
+
+
+def _pop_keep_masks(batch_stats, order):
+    """Remove the recorded keep masks from ``batch_stats``; returns them in
+    call order."""
+    stats = jax.tree_util.tree_map(np.asarray, jax.device_get(batch_stats))
+    masks = []
+    for path in order:
+        node = stats
+        for name in path[:-1]:
+            node = node[name]
+        masks.append(node[path[-1]].pop("keep"))
+        if not node[path[-1]]:
+            del node[path[-1]]
+    return masks, stats
+
+
+# max |port - JAX| <= GRAD_TOL * max(max |JAX leaf|, GRAD_FLOOR * grad_norm)
+# per gradient leaf: both sides sum float32 in other orders through ~20
+# layers and a loss.  The floor covers leaves whose true gradient is 0 (a
+# bias just before a train-mode BN, which removes any constant shift): they
+# hold only rounding noise.  BN statistics within BN_RTOL (they average a
+# few hundred rows).
+GRAD_TOL, GRAD_FLOOR, BN_RTOL = 1e-4, 1e-2, 1e-5
+
+
+@pytest.mark.parametrize("frames", [1, 2])
+def test_train_step_matches_jax_trainer(frames):
+    spec = dataclasses.replace(jget_spec("FPNSegUNetMLPGeluRotEqFAUST"), **TINY, max_path_drop=0.5)
+    cfg = jhier.HierarchyConfig(**HCFG, frames=jhier.FrameConfig(n_frames=frames, neigh_k=8))
+    pts, mask, feats, labels = tiny_batch()
+    jbatch = {"positions": jnp.asarray(pts), "mask": jnp.asarray(mask),
+              "features": jnp.asarray(feats), "labels": jnp.asarray(labels)}
+
+    model = JNet(spec, num_in_feats=1, num_classes=NUM_CLASSES)
+    jtrainer = JTrainer(model, cfg, _capture_grads(), TrainSettings(label_smoothing=0.2),
+                        donate_state=False)
+    h, f0, out_pc, _, _ = jax.jit(jtrainer._build)(jax.random.PRNGKey(3), jbatch)
+    v = jax.jit(model.init, static_argnames=("train",))(
+        {"params": jax.random.PRNGKey(1), "droppath": jax.random.PRNGKey(2)}, h, f0, out_pc,
+        train=False)
+    rng = np.random.default_rng(4)
+    params, stats = randomize(v["params"], rng), randomize(v["batch_stats"], rng)
+    _, mut = jax.jit(model.apply, static_argnames=("train", "calibrate", "mutable"))(
+        {"params": params, "batch_stats": stats, "calib": v["calib"]}, h, f0, out_pc,
+        train=False, calibrate=True, mutable=("calib",))
+    state = TrainState(step=jnp.zeros((), jnp.int32), params=params, batch_stats=stats,
+                       calib=mut["calib"], opt_state=_capture_grads().init(params))
+    order = []
+    key = jax.random.PRNGKey(7)
+    with fnn.intercept_methods(_interceptor(order, reference_bn=frames > 1)):
+        new_state, metrics = jtrainer.train_step(state, jbatch, key)
+    keep_masks, new_stats = _pop_keep_masks(new_state.batch_stats, order)
+    assert len(keep_masks) == 2  # the two skips of the one block with drop probability 0.5
+
+    tspec = dataclasses.replace(get_model_spec("FPNSegUNetMLPGeluRotEqFAUST"), **TINY,
+                                max_path_drop=0.5)
+    tmodel = FPNSegUNet(tspec, num_in_feats=1, num_classes=NUM_CLASSES)
+    tmodel.load_state_dict(from_flax(*(jax.device_get(x) for x in (params, stats, mut["calib"]))))
+    opt = schedule.make_optimizer(tmodel.parameters(), 5e-3, 100, clip_grad_norm=100.0)
+    tcfg = thier.HierarchyConfig(**HCFG, frames=thier.FrameConfig(n_frames=frames, neigh_k=8))
+    trainer = Trainer(tmodel, tcfg, label_smoothing=0.2, optimizer=opt)
+    rng_h, _ = jax.random.split(jax.random.fold_in(key, 0))
+    out = trainer.train_step(
+        {k: t(x) for k, x in zip(("positions", "mask", "features", "labels"), (pts, mask, feats, labels))},
+        draws=jax_hierarchy_draws(rng_h, cfg, 2, pts.shape[1]),
+        drop_masks=[t(m) for m in keep_masks],
+    )
+    assert trainer.step == 1
+    np.testing.assert_allclose(float(out["loss"]), float(metrics["loss"]), rtol=1e-5)
+    np.testing.assert_allclose(float(out["grad_norm"]), float(metrics["grad_norm"]), rtol=1e-4)
+    assert float(out["grad_norm"]) < 100.0  # unclipped, so p.grad is the raw gradient
+
+    ref_grads = _flat(new_state.opt_state)
+    ours = {name: p.grad for name, p in tmodel.named_parameters()}
+    assert set(ours) == set(ref_grads)
+    norm = float(metrics["grad_norm"])
+    for name, ref in ref_grads.items():
+        err = np.abs(ours[name].numpy() - ref).max()
+        assert err <= GRAD_TOL * max(np.abs(ref).max(), GRAD_FLOOR * norm), (name, err, np.abs(ref).max())
+    moved = 0
+    for name, ref in _flat(new_stats).items():
+        got = tmodel.get_buffer(name).numpy()
+        np.testing.assert_allclose(got, ref, rtol=BN_RTOL, atol=1e-6, err_msg=name)
+        moved += not np.allclose(ref, _flat(stats)[name])
+    assert moved == len(_flat(stats))  # every BN statistic moved

@@ -1,5 +1,6 @@
 """Shared helpers of the port's parity tests: the JAX package's random draws
-and hierarchies carried over to the PyTorch port as tensors."""
+and hierarchies carried over to the PyTorch port as tensors, and the tiny
+FPNSegUNetMLPGeluRotEqFAUST that the whole-model tests share."""
 from __future__ import annotations
 
 import jax
@@ -53,3 +54,39 @@ def jax_hierarchy_draws(key, cfg, batch: int, n: int) -> HierarchyDraws:
         out_uniforms=t(jnp.stack([jax.random.uniform(r, (out_cap,)) for r in rngs])),
         out_scores=t(jax.random.uniform(keys[num + 1], (batch, out_cap, s))),
     )
+
+
+# the tiny model of the whole-model tests: two trunk levels, widths <= 16
+TINY = dict(patch_num_levels=1, patch_num_features=(8,), num_blocks=(1, 1),
+            num_features=(8, 16), fpn_dec_feats=8, max_neighbors=8)
+HCFG = dict(init_cell_size=0.08, cell_sizes=(0.16, 0.32), capacities=(128, 64, 32),
+            out_cell_size=0.1, out_capacity=128)
+NUM_CLASSES = 5
+
+
+def tiny_batch(seed=0, b=2, n=200):
+    """``(positions, mask, features, labels)`` numpy arrays; the second
+    cloud has a masked tail of 30 points."""
+    rng = np.random.default_rng(seed)
+    pts = rng.uniform(size=(b, n, 3)).astype(np.float32)
+    pts[..., 1] *= 1.5
+    mask = np.arange(n)[None] < np.array([n, n - 30])[:, None]
+    feats = rng.normal(size=(b, n, 1)).astype(np.float32)
+    labels = rng.integers(0, NUM_CLASSES, size=(b, n)).astype(np.int32)
+    return pts, mask, feats, labels
+
+
+def randomize(tree, rng):
+    """Non-trivial values for every leaf that init leaves degenerate
+    (skip gammas 1e-6, BN identity), so every layer shows in the logits."""
+    def leaf(path, x):
+        name = path[-1].key
+        x = np.asarray(x)
+        if name == "gamma":
+            return (rng.normal(size=x.shape) * 0.5).astype(x.dtype)
+        if name in ("scale", "var"):
+            return rng.uniform(0.6, 1.4, size=x.shape).astype(x.dtype)
+        if name in ("bias", "mean", "proj_biases"):
+            return (rng.normal(size=x.shape) * 0.1).astype(x.dtype)
+        return x
+    return jax.tree_util.tree_map_with_path(leaf, tree)
