@@ -1,0 +1,106 @@
+"""Build and load the port's CUDA kernels.
+
+Each source under ``csrc/`` is compiled with ``nvcc`` for ``sm_90a`` into a
+shared library with a plain C interface, keyed by a hash of the source and
+the flags, in the git-ignored ``kernels/_build/``, and loaded with ctypes.
+:func:`build_libraries` compiles every source that is not built yet, one
+``nvcc`` per source, all started together; :func:`library` builds one at
+its first use.  Nothing here runs at import.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict
+
+__all__ = ["SOURCES", "BUILD_DIR", "build_libraries", "library"]
+
+_HERE = Path(__file__).resolve().parent
+SOURCES = {
+    "fwd": _HERE / "csrc" / "fused_equiv_fwd.cu",
+    "bwd": _HERE / "csrc" / "fused_equiv_bwd.cu",
+    "cumsum": _HERE / "csrc" / "segsum_cumsum.cu",
+}
+BUILD_DIR = _HERE / "_build"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+# name: [(symbol, argtypes, restype)]
+_SIGNATURES = {
+    "fwd": [("se3_fused_equiv_fwd", [_P] * 9 + [_I] * 9 + [_P], _I)],
+    "bwd": [("se3_fused_equiv_bwd", [_P] * 16 + [_I] * 11 + [_P], _I),
+            ("se3_fused_equiv_bwd_plan", [_I] * 6 + [_P] * 3, None)],
+    "cumsum": [("se3_blocked_cumsum", [_P] * 3 + [_I, _L, _I, _P], _I),
+               ("se3_blocked_cumsum_tiles", [_L], _L)],
+}
+
+_libs: Dict[str, ctypes.CDLL] = {}
+_lib_lock = threading.Lock()
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    for cand in (shutil.which("nvcc"), os.path.join(cuda_home, "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the port's kernels are built with the CUDA toolkit")
+
+
+def _lib_path(name: str) -> Path:
+    src = SOURCES[name].read_bytes()
+    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"{SOURCES[name].stem}_{tag}.so"
+
+
+def build_libraries(verbose: bool = False, names=tuple(SOURCES)) -> Dict[str, Path]:
+    """Compile the kernel sources that are not built yet, one ``nvcc`` per
+    source, all started together; returns each shared library's path.
+    ``verbose`` prints ``-Xptxas -v`` (registers, shared memory, spills)."""
+    out = {name: _lib_path(name) for name in names}
+    todo = {name: path for name, path in out.items() if not path.exists()}
+    if not todo:
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, path in todo.items():
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])]
+        if verbose:
+            cmd.insert(1, "-Xptxas=-v")
+        procs[name] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                             stderr=subprocess.PIPE, text=True))
+    failed = []
+    for name, (tmp, proc) in procs.items():
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc {SOURCES[name].name} failed ({proc.returncode}):\n{err}")
+            continue
+        if verbose:
+            print(err, end="")
+        os.replace(tmp, todo[name])
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return out
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel source ``name``, built at first use."""
+    with _lib_lock:
+        if name not in _libs:
+            lib = ctypes.CDLL(str(build_libraries(names=(name,))[name]))
+            for symbol, argtypes, restype in _SIGNATURES[name]:
+                fn = getattr(lib, symbol)
+                fn.argtypes = argtypes
+                fn.restype = restype
+            _libs[name] = lib
+    return _libs[name]

@@ -36,7 +36,13 @@
 //      its valid edges, contracts them with dbasis and the gathered
 //      features, adds d_feats with float32 atomics straight into
 //      [B, N, F, C] (masked edges are skipped) and sums d_proj / d_bias per
-//      block; sum_partials adds the blocks in a fixed order.
+//      block; sum_partials adds the blocks in a fixed order.  Given the
+//      sort tables of the 'sorted' reduction (slot[b, m*K + k], the edge's
+//      position in source order), the edge's row d_gathered[F*C] is stored
+//      plainly at row b*M*K + slot of a zeroed [B, M*K, F*C] buffer instead
+//      of the atomics (64-bit offsets: the buffer passes 2^31 floats at the
+//      ScanNet shapes); the reduction is then a prefix sum
+//      (segsum_cumsum.cu) and prefix differences.
 // Float32 FMA throughout: no tensor cores, no TMA, no wgmma yet.
 
 #include <cuda_runtime.h>
@@ -297,14 +303,16 @@ __global__ void sum_partials(const float* __restrict__ part, int S, long long n,
 
 // --- 4. per-edge gradients ---------------------------------------------------
 // Tiles of kETM query points of one batch element, walked grid-stride; one
-// warp per point.  d_feats by float32 atomics, d_proj / d_bias as one
-// [10][Q] partial per block.
+// warp per point.  d_feats by float32 atomics (or, with slot, each edge's
+// row stored at its sorted slot), d_proj / d_bias as one [10][Q] partial per
+// block.
 __global__ void __launch_bounds__(kEThreads)
 edge_kernel(const float* __restrict__ rel, const float* __restrict__ rot6,
             const float* __restrict__ feats, const int64_t* __restrict__ idx,
             const uint8_t* __restrict__ mask, const float* __restrict__ proj,
             const float* __restrict__ bias, const float* __restrict__ dbasis,
-            float* __restrict__ dfeats, float* __restrict__ ppart,
+            const int64_t* __restrict__ slot, float* __restrict__ dfeats,
+            float* __restrict__ ppart,
             int M, int N, int K, int G, int F, int Q, int C, int num_tiles, int m_tiles) {
   extern __shared__ float smem[];
   float* projS = smem;                       // [9][Q]
@@ -428,11 +436,21 @@ edge_kernel(const float* __restrict__ rel, const float* __restrict__ rot6,
           const int el = eb + 4 * i;
           if (el >= ne) continue;
           const int e = e0 + el, j = e / F, f = e - j * F;
-          float* dst = dfeats + ((static_cast<size_t>(b) * N + vN[j]) * F + f) * C + c0;
+          if (slot != nullptr) {
+            const size_t srow = static_cast<size_t>(b) * M * K + slot[row + vK[j]];
+            float* dst = dfeats + (srow * F + f) * C + c0;
 #pragma unroll
-          for (int jj = 0; jj < 4; ++jj) {
-            const int c = gb + 8 * jj;
-            if (c < cw) atomicAdd(dst + c, df[i][jj]);
+            for (int jj = 0; jj < 4; ++jj) {
+              const int c = gb + 8 * jj;
+              if (c < cw) dst[c] = df[i][jj];
+            }
+          } else {
+            float* dst = dfeats + ((static_cast<size_t>(b) * N + vN[j]) * F + f) * C + c0;
+#pragma unroll
+            for (int jj = 0; jj < 4; ++jj) {
+              const int c = gb + 8 * jj;
+              if (c < cw) atomicAdd(dst + c, df[i][jj]);
+            }
           }
         }
       }
@@ -514,14 +532,16 @@ extern "C" void se3_fused_equiv_bwd_plan(int B, int M, int G, int Q, int C, int 
 }
 
 // Plain C entry point for ctypes.  Launches on `stream` and returns the
-// first CUDA error (0 = launched).  d_feats must be zeroed by the caller;
+// first CUDA error (0 = launched).  d_feats must be zeroed by the caller: it
+// is [B, N, F, C] when slot is null, else the [B, M*K, F*C] sorted buffer;
 // d_params is [10, Q]: rows 0-8 d_proj, row 9 d_bias.  Requires G <= 2,
 // G*Q <= 64 and the workspace sizes of se3_fused_equiv_bwd_plan.
 extern "C" int se3_fused_equiv_bwd(const void* rel, const void* rot6, const void* feats,
                                    const void* idx, const void* mask, const void* proj,
                                    const void* bias, const void* w, const void* gout,
-                                   void* dfeats, void* dparams, void* dw, void* scratch,
-                                   void* wpart, void* ppart, int B, int M, int N, int K, int G,
+                                   const void* slot, void* dfeats, void* dparams, void* dw,
+                                   void* scratch, void* wpart, void* ppart, int B, int M, int N,
+                                   int K, int G,
                                    int F, int Q, int C, int O, int w_splits, int p_blocks,
                                    void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
@@ -575,7 +595,8 @@ extern "C" int se3_fused_equiv_bwd(const void* rel, const void* rot6, const void
                              static_cast<int>(smem_e));
   if (err != cudaSuccess) return static_cast<int>(err);
   edge_kernel<<<p_blocks, kEThreads, smem_e, stream>>>(
-      relf, rot6f, featsf, idxp, maskp, projf, biasf, scr, static_cast<float*>(dfeats),
+      relf, rot6f, featsf, idxp, maskp, projf, biasf, scr, static_cast<const int64_t*>(slot),
+      static_cast<float*>(dfeats),
       static_cast<float*>(ppart), M, N, K, G, F, Q, C, B * m_tiles, m_tiles);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   const long long np = static_cast<long long>(kPRows) * Q;

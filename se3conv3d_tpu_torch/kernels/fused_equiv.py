@@ -45,29 +45,30 @@ parameter gradients are deterministic; ``d_feats`` is summed by atomics in
 no fixed order.  Float32 FMA throughout: no tensor cores, no TMA, no
 ``wgmma`` yet.
 
+Given the sort tables of the 'sorted' reduction (``sorted_slot``, the
+inverse of the permutation that sorts the edges by source), the per-point
+pass stores each valid edge's ``d_gathered`` row, plain, at its sorted slot
+of a zeroed ``[B, M*K, F*C]`` buffer instead (the Pallas kernel's per-edge
+``dfeat`` output, already permuted); ``kernels.segsum.sorted_segment_sum``
+then reduces it in source order, deterministically.
+
 ``fused_equiv_fwd`` / ``fused_equiv_bwd`` launch the kernels for CUDA
 tensors and run ``fused_equiv_fwd_reference`` / ``fused_equiv_bwd_reference``
 for CPU tensors; there is no other fallback.  ``fused_equiv`` is the
 differentiable op.  Each kernel source is built with ``nvcc`` for
-``sm_90a`` at its first launch (or all at once by :func:`build_libraries`),
-into ``kernels/_build/`` keyed by a hash of its source, and loaded with
-ctypes.
+``sm_90a`` at its first launch (``kernels/build.py``).
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import math
-import os
-import shutil
-import subprocess
-import threading
-from pathlib import Path
-from typing import Dict
 
 import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
+
+from .build import library
+from .segsum import sorted_segment_sum
 
 __all__ = [
     "fused_equiv",
@@ -76,92 +77,11 @@ __all__ = [
     "fused_equiv_fwd_reference",
     "fused_equiv_bwd",
     "fused_equiv_bwd_reference",
-    "build_libraries",
     "MAX_GQ",
 ]
 
-_HERE = Path(__file__).resolve().parent
-SOURCES = {
-    "fwd": _HERE / "csrc" / "fused_equiv_fwd.cu",
-    "bwd": _HERE / "csrc" / "fused_equiv_bwd.cu",
-}
-BUILD_DIR = _HERE / "_build"
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-]
 # a pne row in the kernels' shared memory holds at most 64 (g, q) columns
 MAX_GQ = 64
-
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-_SIGNATURES = {
-    # name: (symbol, argtypes)
-    "fwd": ("se3_fused_equiv_fwd", [_P] * 9 + [_I] * 9 + [_P]),
-    "bwd": ("se3_fused_equiv_bwd", [_P] * 15 + [_I] * 11 + [_P]),
-}
-
-_libs: Dict[str, ctypes.CDLL] = {}
-_lib_lock = threading.Lock()
-
-
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    for cand in (shutil.which("nvcc"), os.path.join(cuda_home, "bin", "nvcc")):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the fused conv kernels are built with the CUDA toolkit")
-
-
-def _lib_path(name: str) -> Path:
-    src = SOURCES[name].read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"fused_equiv_{name}_{tag}.so"
-
-
-def build_libraries(verbose: bool = False, names=tuple(SOURCES)) -> Dict[str, Path]:
-    """Compile the kernel sources that are not built yet, one ``nvcc`` per
-    source, all started together; returns each shared library's path."""
-    out = {name: _lib_path(name) for name in names}
-    todo = {name: path for name, path in out.items() if not path.exists()}
-    if not todo:
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name, path in todo.items():
-        tmp = path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])]
-        if verbose:
-            cmd.insert(1, "-Xptxas=-v")
-        procs[name] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                             stderr=subprocess.PIPE, text=True))
-    failed = []
-    for name, (tmp, proc) in procs.items():
-        _, err = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"nvcc {SOURCES[name].name} failed ({proc.returncode}):\n{err}")
-            continue
-        if verbose:
-            print(err, end="")
-        os.replace(tmp, todo[name])
-    if failed:
-        raise RuntimeError("\n".join(failed))
-    return out
-
-
-def _library(name: str) -> ctypes.CDLL:
-    with _lib_lock:
-        if name not in _libs:
-            lib = ctypes.CDLL(str(build_libraries(names=(name,))[name]))
-            symbol, argtypes = _SIGNATURES[name]
-            fn = getattr(lib, symbol)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-            if name == "bwd":
-                lib.se3_fused_equiv_bwd_plan.argtypes = [_I] * 6 + [_P] * 3
-                lib.se3_fused_equiv_bwd_plan.restype = None
-            _libs[name] = lib
-    return _libs[name]
 
 
 def _edge_geometry(rel, rot6):
@@ -184,10 +104,19 @@ def fused_equiv_fwd_reference(rel, rot6, feats, idx, mask, proj_axes, proj_biase
     return torch.einsum("bmgcq,cqo->bmgo", basis, conv_weights)
 
 
+def _sorted_rows(d_gathered, sorted_slot):
+    """``[B, M*K, F*C]``: each edge's row at its sorted slot."""
+    b, m, k, f, c = d_gathered.shape
+    rows = d_gathered.reshape(b, m * k, f * c)
+    return torch.zeros_like(rows).scatter_(1, sorted_slot[:, :, None].expand(-1, -1, f * c), rows)
+
+
 def fused_equiv_bwd_reference(rel, rot6, feats, idx, mask, proj_axes, proj_biases,
-                              conv_weights, gout):
+                              conv_weights, gout, sorted_slot=None):
     """Plain PyTorch version of the backward kernel: recomputes pne and basis
-    and returns ``(d_feats, d_proj_axes, d_proj_biases, d_conv_weights)``.
+    and returns ``(d_feats, d_proj_axes, d_proj_biases, d_conv_weights)``;
+    with ``sorted_slot`` the first is the sorted per-edge buffer of
+    :func:`fused_equiv_bwd` instead.
 
     gelu' is the closed form ``Phi(x) + x * phi(x)``, as the TPU kernel
     takes it (``se3conv3d_tpu/ops/pallas/fused_equiv.py:_act_and_grad``).
@@ -202,8 +131,11 @@ def fused_equiv_bwd_reference(rel, rot6, feats, idx, mask, proj_axes, proj_biase
     dbasis = torch.einsum("bmgo,cqo->bmgcq", gout, conv_weights)
     edge = mask[:, :, :, None, None]
     d_gathered = torch.einsum("bmkgfq,bmgcq->bmkfc", pne, dbasis).masked_fill(~edge, 0.0)
-    bidx = torch.arange(feats.shape[0], device=feats.device)[:, None, None].expand_as(idx)
-    d_feats = torch.zeros_like(feats).index_put_((bidx, idx), d_gathered, accumulate=True)
+    if sorted_slot is not None:
+        d_feats = _sorted_rows(d_gathered, sorted_slot)
+    else:
+        bidx = torch.arange(feats.shape[0], device=feats.device)[:, None, None].expand_as(idx)
+        d_feats = torch.zeros_like(feats).index_put_((bidx, idx), d_gathered, accumulate=True)
     dpne = torch.einsum("bmkfc,bmgcq->bmkgfq", gathered, dbasis)
     dpre = (dpne * dact).masked_fill(~edge[..., None], 0.0)
     d_pa = torch.einsum("bmkgfq,bmkgfd->dq", dpre, geo)
@@ -286,7 +218,7 @@ def fused_equiv_fwd(
     out = torch.empty((b, m, g, o), dtype=torch.float32, device=feats.device)
     if b * m == 0 or o == 0:
         return out.zero_()
-    lib = _library("fwd")
+    lib = library("fwd")
     with torch.cuda.device(feats.device):
         err = lib.se3_fused_equiv_fwd(
             rel.data_ptr(), rot6.data_ptr(), feats.data_ptr(), idx.data_ptr(),
@@ -300,17 +232,21 @@ def fused_equiv_fwd(
     return out
 
 
-def fused_equiv_bwd(rel, rot6, feats, idx, mask, proj_axes, proj_biases, conv_weights, gout):
+def fused_equiv_bwd(rel, rot6, feats, idx, mask, proj_axes, proj_biases, conv_weights, gout,
+                    sorted_slot=None):
     """Fused conv backward: ``gout [B, M, G, O]``, the cotangent of the
     un-normalised output, ``-> (d_feats [B, N, F, C], d_proj_axes [9, Q],
     d_proj_biases [Q], d_conv_weights [C, Q, O])``, all float32.
 
-    Same arguments as :func:`fused_equiv_fwd` plus ``gout``.  CPU tensors
-    run :func:`fused_equiv_bwd_reference`; CUDA tensors launch the kernels.
+    Same arguments as :func:`fused_equiv_fwd` plus ``gout``.  With
+    ``sorted_slot [B, M*K]`` (int64, each edge's slot in source order) the
+    first output is instead the ``[B, M*K, F*C]`` buffer of per-edge feature
+    gradients at their sorted slots, zero for masked edges.  CPU tensors run
+    :func:`fused_equiv_bwd_reference`; CUDA tensors launch the kernels.
     """
     if feats.device.type == "cpu":
         return fused_equiv_bwd_reference(
-            rel, rot6, feats, idx, mask, proj_axes, proj_biases, conv_weights, gout
+            rel, rot6, feats, idx, mask, proj_axes, proj_biases, conv_weights, gout, sorted_slot
         )
     if feats.device.type != "cuda":
         raise ValueError(f"unsupported device {feats.device}")
@@ -322,12 +258,18 @@ def fused_equiv_bwd(rel, rot6, feats, idx, mask, proj_axes, proj_biases, conv_we
     if tuple(gout.shape) != (b, m, g, o):
         raise ValueError(f"gout has shape {tuple(gout.shape)}, expected {(b, m, g, o)}")
     dev = feats.device
-    d_feats = torch.zeros_like(feats)
+    if sorted_slot is None:
+        d_feats = torch.zeros_like(feats)
+    else:
+        if (sorted_slot.device != dev or sorted_slot.dtype != torch.int64
+                or not sorted_slot.is_contiguous() or tuple(sorted_slot.shape) != (b, m * k)):
+            raise ValueError(f"sorted_slot must be a contiguous int64 [{b}, {m * k}] tensor on {dev}")
+        d_feats = torch.zeros((b, m * k, f * c), dtype=torch.float32, device=dev)
     d_params = torch.zeros((10, q), dtype=torch.float32, device=dev)  # 9 proj rows + bias
     d_w = torch.zeros_like(conv_weights)
     if b * m == 0 or c == 0 or o == 0:
         return d_feats, d_params[:9], d_params[9], d_w
-    lib = _library("bwd")
+    lib = library("bwd")
     scratch, w_splits, p_blocks = ctypes.c_longlong(), ctypes.c_int(), ctypes.c_int()
     lib.se3_fused_equiv_bwd_plan(b, m, g, q, c, o, ctypes.byref(scratch),
                                  ctypes.byref(w_splits), ctypes.byref(p_blocks))
@@ -338,7 +280,8 @@ def fused_equiv_bwd(rel, rot6, feats, idx, mask, proj_axes, proj_biases, conv_we
         err = lib.se3_fused_equiv_bwd(
             rel.data_ptr(), rot6.data_ptr(), feats.data_ptr(), idx.data_ptr(),
             mask.data_ptr(), proj_axes.data_ptr(), proj_biases.data_ptr(),
-            conv_weights.data_ptr(), gout.data_ptr(), d_feats.data_ptr(),
+            conv_weights.data_ptr(), gout.data_ptr(),
+            None if sorted_slot is None else sorted_slot.data_ptr(), d_feats.data_ptr(),
             d_params.data_ptr(), d_w.data_ptr(), work.data_ptr(), w_part.data_ptr(),
             p_part.data_ptr(), b, m, n, k, g, f, q, c, o, w_splits.value, p_blocks.value,
             torch.cuda.current_stream(dev).cuda_stream,
@@ -359,23 +302,39 @@ class FusedEquivConv(torch.autograd.Function):
 
     Saves only its inputs (the lean-VJP residuals of
     ``se3conv3d_tpu/ops/pne_conv.py:_lean_equiv``): the backward recomputes
-    pne and basis instead of keeping them.
+    pne and basis instead of keeping them.  Given the sort tables
+    ``(sorted_slot, run_start, run_end)`` of the 'sorted' reduction, the
+    feature gradient is the sorted per-edge buffer reduced by
+    :func:`~se3conv3d_tpu_torch.kernels.segsum.sorted_segment_sum`; without
+    them, the kernel's atomic scatter.
     """
 
     @staticmethod
-    def forward(ctx, rel, rot6, feats, idx, mask, proj_axes, proj_biases, conv_weights):
-        ctx.save_for_backward(rel, rot6, feats, idx, mask, proj_axes, proj_biases, conv_weights)
-        return fused_equiv_fwd(rel, rot6, feats, idx, mask, proj_axes, proj_biases, conv_weights)
+    def forward(ctx, rel, rot6, feats, idx, mask, proj_axes, proj_biases, conv_weights,
+                sorted_slot=None, run_start=None, run_end=None):
+        inputs = (rel, rot6, feats, idx, mask, proj_axes, proj_biases, conv_weights)
+        tables = () if sorted_slot is None else (sorted_slot, run_start, run_end)
+        ctx.save_for_backward(*inputs, *tables)
+        return fused_equiv_fwd(*inputs)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, gout):
-        d_feats, d_pa, d_pb, d_w = fused_equiv_bwd(*ctx.saved_tensors, gout.contiguous())
+        inputs, tables = ctx.saved_tensors[:8], ctx.saved_tensors[8:]
+        d_feats, d_pa, d_pb, d_w = fused_equiv_bwd(
+            *inputs, gout.contiguous(), tables[0] if tables else None)
+        if tables:
+            d_feats = sorted_segment_sum(d_feats, *tables[1:]).reshape(inputs[2].shape)
         need = ctx.needs_input_grad
         return (None, None, d_feats if need[2] else None, None, None,
-                d_pa if need[5] else None, d_pb if need[6] else None, d_w if need[7] else None)
+                d_pa if need[5] else None, d_pb if need[6] else None, d_w if need[7] else None,
+                None, None, None)
 
 
-def fused_equiv(rel, rot6, feats, idx, mask, proj_axes, proj_biases, conv_weights):
-    """Differentiable fused conv ``-> [B, M, G, O]`` (see :func:`fused_equiv_fwd`)."""
-    return FusedEquivConv.apply(rel, rot6, feats, idx, mask, proj_axes, proj_biases, conv_weights)
+def fused_equiv(rel, rot6, feats, idx, mask, proj_axes, proj_biases, conv_weights,
+                sort_tables=None):
+    """Differentiable fused conv ``-> [B, M, G, O]`` (see :func:`fused_equiv_fwd`);
+    ``sort_tables = (sorted_slot, run_start, run_end)`` selects the 'sorted'
+    feature-gradient reduction."""
+    return FusedEquivConv.apply(rel, rot6, feats, idx, mask, proj_axes, proj_biases,
+                                conv_weights, *(sort_tables or (None, None, None)))

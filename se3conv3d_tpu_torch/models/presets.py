@@ -1,10 +1,11 @@
-"""DFaust model presets and the pinned recipe (counterpart of
-``se3conv3d_tpu/models/presets.py`` for the FAUST seg models).
+"""Segmentation model presets and the pinned recipes (counterpart of
+``se3conv3d_tpu/models/presets.py`` for the FAUST and ScanNet seg models).
 
-``DFAUST_I_ROT_PCA_2F_MODEL`` and ``DFAUST_I_ROT_PCA_2F_TRAINING`` are the
-``Model`` and ``Training`` sections of ``configs/dfaust/dfaust_I_rot_pca_2F.yaml``
-as Python dicts, so the card needs no YAML reader; a test holds them equal
-to the file.
+``DFAUST_I_ROT_PCA_2F_MODEL`` / ``_TRAINING`` and
+``SCANNET20_ROT_PCA_I_MODEL`` / ``_TRAINING`` are the ``Model`` and
+``Training`` sections of ``configs/dfaust/dfaust_I_rot_pca_2F.yaml`` and
+``configs/scannet/scannet20_rot_pca_I.yaml`` as Python dicts, so the card
+needs no YAML reader; tests hold them equal to the files.
 """
 from __future__ import annotations
 
@@ -21,6 +22,12 @@ __all__ = [
     "DFAUST_I_ROT_PCA_2F_TRAINING",
     "DFAUST_NUM_POINTS",
     "DFAUST_NUM_CLASSES",
+    "SCANNET20_ROT_PCA_I_MODEL",
+    "SCANNET20_ROT_PCA_I_TRAINING",
+    "SCANNET_SCENE_MAX_POINTS",
+    "SCANNET_NUM_FEATURES",
+    "SCANNET20_NUM_CLASSES",
+    "SCANNET20_IGNORE_LABEL",
     "get_model_spec",
     "spec_from_model_dict",
     "hierarchy_config_from_model_dict",
@@ -61,6 +68,47 @@ DFAUST_I_ROT_PCA_2F_TRAINING: Dict[str, Any] = {
 DFAUST_NUM_POINTS = 4096   # Dataset.num_points of the recipe
 DFAUST_NUM_CLASSES = 20    # DFaust body-part labels
 
+SCANNET20_ROT_PCA_I_MODEL: Dict[str, Any] = {
+    "model": "FPNSegUNetMLPGeluRotEqScanNet",
+    "compute_dtype": "bfloat16",
+    "remat": False,
+    "max_drop_path": 0.5,
+    "init_subsample": 0.1,
+    "output_subsample": 0.1,
+    "grid_subsamples": [0.2, 0.4, 0.8, 1.6],
+    "capacities": [131072, 32768, 8192, 2048, 512],
+    "out_capacity": 131072,
+    "max_neighbors": 24,
+    "RefFrames": {
+        "pca": True,
+        "neigh_method": "knn",
+        "neigh_kwargs": {"neigh_k": 16},
+        "fixed_axis": False,
+        "train_n_frames": 1,
+        "test_n_frames": 1,
+    },
+}
+SCANNET20_ROT_PCA_I_TRAINING: Dict[str, Any] = {
+    "log_folder": "./logs/scannet20_RotEq_pca_I",
+    "num_epochs": 600,
+    "num_batches": 250,
+    "pts_per_batch": 750000,
+    "scan_scenes": True,
+    "weight_decay": 0.0001,
+    "max_lr": 0.005,
+    "pct_start": 0.05,
+    "div_factor": 10.0,
+    "final_div_factor": 1000.0,
+    "clip_grads": 100.0,
+    "label_smoothing": 0.2,
+    "save_models_frequency": 50,
+    "val_freq": 5,
+}
+SCANNET_SCENE_MAX_POINTS = 120000  # Dataset.train_scene_max_pts of the recipe
+SCANNET_NUM_FEATURES = 6           # normals + rgb (se3conv3d_tpu/data/loaders.py:431)
+SCANNET20_NUM_CLASSES = 21         # 20 classes + unlabelled (loaders.py:319)
+SCANNET20_IGNORE_LABEL = 0         # the loss skips unlabelled points (train/run.py:150)
+
 
 def _faust_spec(equivariant: bool) -> ModelSpec:
     """Reference ``FPNSegUNetFAUST`` (``seg_models.py:16-36``)."""
@@ -80,10 +128,29 @@ def _faust_spec(equivariant: bool) -> ModelSpec:
     )
 
 
+def _scannet_spec() -> ModelSpec:
+    """Reference ``FPNSegUNetScanNet`` (``seg_models.py:39-59``), equivariant:
+    no patch stem, five trunk levels."""
+    return ModelSpec(
+        conv=ConvFactory(num_basis=32, pne_type="mlp_gelu", equivariant=True),
+        patch_num_levels=0,
+        patch_num_features=(),
+        patch_radius_scale=2.0,
+        num_blocks=(2, 3, 4, 6, 4),
+        num_features=(64, 128, 192, 256, 320),
+        radius_scale=2.0,
+        radius_scale_dec=2.0,
+        radius_scale_blocks=2.0,
+        fpn_dec_feats=128,
+        num_hidden_seg_head=0,
+    )
+
+
 SEG_PRESETS = {
     # the standard (non-equivariant) conv is not ported yet: building it raises
     "FPNSegUNetMLPGeluFAUST": lambda: _faust_spec(False),
     "FPNSegUNetMLPGeluRotEqFAUST": lambda: _faust_spec(True),
+    "FPNSegUNetMLPGeluRotEqScanNet": _scannet_spec,
 }
 
 

@@ -5,6 +5,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, Optional, Tuple
 
+import torch
+
 from ..core.hierarchy import Hierarchy
 from ..core.neighborhoods import (
     SUBSAMPLED_SPACING_FACTOR,
@@ -14,7 +16,7 @@ from ..core.neighborhoods import (
 )
 from ..core.pointcloud import PointCloud
 from ..nn.conv import ConvFactory
-from ..ops.pne_conv import equiv_geometry_parts
+from ..ops import pne_conv as ops
 
 __all__ = ["ModelSpec", "NeighborhoodProvider"]
 
@@ -67,7 +69,11 @@ class NeighborhoodProvider:
     ``get(src, dst, radius, neigh_type, k)`` builds the table from level
     ``src`` to level ``dst`` once per key and attaches the layer-independent
     edge geometry (``equiv_rel`` / ``equiv_rot``) that every conv on it
-    shares -- the reference's rot-tensor cache.
+    shares -- the reference's rot-tensor cache.  In the 'sorted' backward
+    mode, with autograd on, a self neighborhood (``src == dst``: the block
+    stack's) also gets the sort tables its convs' backwards share; a
+    single-use one builds them in its conv (``ops.pne_conv``), as in the
+    JAX package.
     """
 
     def __init__(self, hierarchy: Hierarchy, spec: ModelSpec, collect_trunc: bool = False):
@@ -89,16 +95,18 @@ class NeighborhoodProvider:
             )
         else:
             raise ValueError(f"unknown neighborhood type {neigh_type!r}")
-        rel, rot6 = equiv_geometry_parts(src_pc, dst_pc, neigh)
+        rel, rot6 = ops.equiv_geometry_parts(src_pc, dst_pc, neigh)
         return dataclasses.replace(neigh, equiv_rel=rel, equiv_rot=rot6)
 
     def get(self, src: int, dst: int, radius: float, neigh_type: str, k: int) -> Neighborhood:
         key = (src, dst, round(float(radius), 9), neigh_type, k)
         if key not in self._cache:
-            self._cache[key] = self._build(
-                self.hierarchy.levels[src], self.hierarchy.levels[dst], radius,
-                neigh_type, k, self.hierarchy.levels_radii[src],
-            )
+            src_pc = self.hierarchy.levels[src]
+            neigh = self._build(src_pc, self.hierarchy.levels[dst], radius, neigh_type, k,
+                                self.hierarchy.levels_radii[src])
+            if src == dst and ops.sorted_backward() and torch.is_grad_enabled():
+                neigh = ops.backward_sort_tables(neigh, src_pc.capacity)
+            self._cache[key] = neigh
         return self._cache[key]
 
     def to_cloud(self, src: int, dst_pc: PointCloud, radius: float, neigh_type: str,

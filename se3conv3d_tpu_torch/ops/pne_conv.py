@@ -5,9 +5,23 @@ Shape glossary: B batch, M query points, N source points, K neighbors,
 G out-frames, F in-frames, Q basis functions, C/O channels.  Geometry never
 receives gradients, as in the reference (its neighbor search, PNE inputs and
 frames are built under ``torch.no_grad()``).
+
+The conv backward reduces per-edge feature gradients into the source points
+in one of two modes, ``BWD_SCATTER_MODE`` (read at call time; the
+``SE3CONV_BWD_MODE`` environment variable sets it at import):
+
+* ``'scatter'`` (default): float32 atomics inside the backward kernel, the
+  original CUDA backward's ``atomicAdd``;
+* ``'sorted'``: the backward kernel stores each edge's row at its slot in
+  source order (:func:`backward_sort_tables`), and
+  ``kernels.segsum.sorted_segment_sum`` sums the runs by a blocked prefix
+  sum (the Hopper port of the Pallas ``_cumsum_kernel``) and prefix
+  differences.  Deterministic; the JAX package's opt-in A/B mode.
 """
 from __future__ import annotations
 
+import dataclasses
+import os
 from typing import Callable, Optional
 
 import torch
@@ -24,7 +38,49 @@ __all__ = [
     "equiv_geometry_parts",
     "equiv_basis_conv",
     "fused_equiv_conv",
+    "backward_sort_tables",
+    "sorted_backward",
+    "BWD_SCATTER_MODE",
 ]
+
+BWD_SCATTER_MODE = os.environ.get("SE3CONV_BWD_MODE", "scatter")
+
+
+def sorted_backward() -> bool:
+    """Whether the conv backward runs the 'sorted' reduction (reads
+    ``BWD_SCATTER_MODE`` now)."""
+    if BWD_SCATTER_MODE not in ("scatter", "sorted"):
+        raise ValueError(f"BWD_SCATTER_MODE must be 'scatter' or 'sorted', got {BWD_SCATTER_MODE!r}")
+    return BWD_SCATTER_MODE == "sorted"
+
+
+@torch.no_grad()
+def backward_sort_tables(neigh: Neighborhood, n_src: int) -> Neighborhood:
+    """Attach the sorted-edge tables of the 'sorted' backward reduction.
+
+    Per example, over all ``M*K`` edges: ``bwd_perm``, the stable
+    permutation that sorts the edges by source index; ``bwd_slot``, its
+    inverse (each edge's position in source order); and ``bwd_run_start`` /
+    ``bwd_run_end`` ``[B, n_src]``, each source's run in that order.
+    Masked edges and padded query rows hold source 0 and park in its run,
+    where they add zero rows, as in
+    ``se3conv3d_tpu/ops/pne_conv.py:backward_sort_tables``; the JAX package
+    keeps one table per 16,384-query chunk (a TPU compiler workaround), the
+    port one per example, so the two agree where ``M <= 16384``.  Built once
+    per neighborhood; every conv backward on it reuses them.
+    """
+    b, m, k = neigh.idx.shape
+    flat = neigh.idx.reshape(b, m * k)
+    perm = torch.argsort(flat, dim=1, stable=True)
+    sorted_ids = flat.gather(1, perm)
+    slot = torch.empty_like(perm).scatter_(
+        1, perm, torch.arange(m * k, device=perm.device).expand(b, -1).contiguous())
+    targets = torch.arange(n_src, device=flat.device).expand(b, -1).contiguous()
+    return dataclasses.replace(
+        neigh, bwd_perm=perm, bwd_slot=slot,
+        bwd_run_start=torch.searchsorted(sorted_ids, targets, side="left"),
+        bwd_run_end=torch.searchsorted(sorted_ids, targets, side="right"),
+    )
 
 
 def pne_activation(name: str) -> Optional[Callable]:
@@ -98,15 +154,23 @@ def fused_equiv_conv(
     versions (``kernels.fused_equiv``), forward and backward.  Gradients
     reach ``features``, ``proj_axes`` (through the ``norm_dist`` fold),
     ``proj_biases`` and ``conv_weights``; the two calibration buffers get
-    none, as in ``se3conv3d_tpu/nn/conv.py``.
+    none, as in ``se3conv3d_tpu/nn/conv.py``.  In 'sorted' mode the feature
+    gradient goes through the neighborhood's sort tables, built here when
+    it carries none.
     """
     if neigh.equiv_rel is not None:
         rel, rot6 = neigh.equiv_rel, neigh.equiv_rot
     else:
         rel, rot6 = equiv_geometry_parts(pc_in, pc_out, neigh)
+    tables = None
+    if sorted_backward() and torch.is_grad_enabled() and features.requires_grad:
+        n_src = features.shape[1]
+        if neigh.bwd_slot is None or neigh.bwd_run_start.shape[1] != n_src:
+            neigh = backward_sort_tables(neigh, n_src)
+        tables = (neigh.bwd_slot, neigh.bwd_run_start, neigh.bwd_run_end)
     pa_scaled = torch.cat([proj_axes[:3] * norm_dist, proj_axes[3:]], 0)
     out = fused_equiv(
         rel, rot6, features.contiguous(), neigh.idx, neigh.mask,
-        pa_scaled, proj_biases.contiguous(), conv_weights.contiguous(),
+        pa_scaled, proj_biases.contiguous(), conv_weights.contiguous(), tables,
     )
     return out * (norm_num_neighs / features.shape[2])

@@ -8,6 +8,14 @@ repeats the level-0 features over the frames.  Calibration and eval run the
 model in eval mode without autograd; the train step runs it in train mode
 (batch-statistics BN, stochastic depth), backpropagates the masked
 label-smoothed loss and takes one optimizer step.
+
+With ``scan_scenes`` (the ScanNet recipes' ``Training.scan_scenes``) a train
+step over B > 1 scenes runs them one at a time, as the JAX package's
+``_train_step_scan``: per scene the hierarchy build, the train-mode forward
+and the backward of the masked loss *sum*, so activations are those of one
+scene and BN statistics update scene after scene; then every gradient is
+divided by the summed count of valid points, and one clipped optimizer step
+follows.  The steps run on the model's device and move the batch there.
 """
 from __future__ import annotations
 
@@ -34,13 +42,16 @@ class Trainer:
       label_smoothing / ignore_label: loss settings.
       optimizer: ``train.schedule.Optimizer`` over the model's parameters;
         needed by :meth:`train_step` only.
+      scan_scenes: scene-sequential train steps (see the module docstring).
     """
 
     def __init__(self, model, hierarchy_config: HierarchyConfig,
                  eval_hierarchy_config: Optional[HierarchyConfig] = None,
                  label_smoothing: float = 0.0, ignore_label: Optional[int] = None,
-                 optimizer: Optional[Optimizer] = None):
+                 optimizer: Optional[Optimizer] = None, scan_scenes: bool = False):
         self.model = model
+        self.device = next(model.parameters()).device
+        self.scan_scenes = scan_scenes
         self.hcfg = hierarchy_config
         self.eval_hcfg = eval_hierarchy_config or hierarchy_config
         self.label_smoothing = label_smoothing
@@ -53,6 +64,7 @@ class Trainer:
         """Hierarchy, frame-repeated level-0 features, output cloud, output
         labels and the raw -> output subsample map."""
         hcfg = self.hcfg if train else self.eval_hcfg
+        batch = {k: v.to(self.device) for k, v in batch.items()}
         h, f0, out_pc, out_labels, raw_to_out = build_hierarchy(
             batch["positions"], batch["mask"], batch.get("features"), hcfg,
             batch.get("labels"), generator=generator, draws=draws,
@@ -61,10 +73,13 @@ class Trainer:
             f0 = f0[:, :, None, :].repeat(1, 1, hcfg.frames.n_frames, 1)
         return h, f0, out_pc, out_labels, raw_to_out
 
-    def _loss(self, logits, out_labels, out_pc):
-        total, count = masked_segmentation_loss_parts(
+    def _loss_parts(self, logits, out_labels, out_pc):
+        return masked_segmentation_loss_parts(
             logits, out_labels, out_pc.mask, self.label_smoothing, self.ignore_label
         )
+
+    def _loss(self, logits, out_labels, out_pc):
+        total, count = self._loss_parts(logits, out_labels, out_pc)
         return total / count.clamp(min=1.0)
 
     @torch.no_grad()
@@ -82,14 +97,19 @@ class Trainer:
 
         The hierarchy draws come from ``draws`` or ``generator``, the
         DropPath keep masks (``[B]`` each, in call order) from
-        ``drop_masks`` or ``generator``.  Returns ``{"loss", "grad_norm"}``
-        as device scalars; ``grad_norm`` is the global norm before clipping.
-        BN running statistics are updated in place.
+        ``drop_masks`` or ``generator``; under ``scan_scenes`` with B > 1,
+        ``draws`` and ``drop_masks`` are lists with one entry per scene
+        (``[1]`` masks).  Returns ``{"loss", "grad_norm"}`` as device
+        scalars; ``grad_norm`` is the global norm before clipping.  BN
+        running statistics are updated in place.
         """
         if self.optimizer is None:
             raise ValueError("train_step needs a Trainer built with an optimizer")
-        h, f0, out_pc, out_labels, _ = self.build(batch, generator, draws, train=True)
-        loss = self.backward(h, f0, out_pc, out_labels, DropPathDraws(generator, drop_masks))
+        if self.scan_scenes and batch["mask"].shape[0] > 1:
+            loss = self.backward_scenes(batch, generator, draws, drop_masks)
+        else:
+            h, f0, out_pc, out_labels, _ = self.build(batch, generator, draws, train=True)
+            loss = self.backward(h, f0, out_pc, out_labels, DropPathDraws(generator, drop_masks))
         grad_norm = self.optimizer.step()
         self.step += 1
         return {"loss": loss, "grad_norm": grad_norm}
@@ -103,6 +123,32 @@ class Trainer:
         loss = self._loss(self.model(h, f0, out_pc, drops=drops), out_labels, out_pc)
         loss.backward()
         return loss.detach()
+
+    def backward_scenes(self, batch: dict, generator: Optional[torch.Generator] = None,
+                        draws: Optional[Sequence[HierarchyDraws]] = None,
+                        drop_masks: Optional[Sequence[Sequence[torch.Tensor]]] = None
+                        ) -> torch.Tensor:
+        """Scene-sequential forward and backward (``scan_scenes``): sets
+        every parameter's ``.grad`` to the count-weighted mean gradient over
+        the scenes of ``batch`` and returns ``sum(total) / sum(count)``."""
+        self.model.train()
+        self.model.zero_grad(set_to_none=True)
+        total = count = None
+        for i in range(batch["mask"].shape[0]):
+            scene = {k: v[i : i + 1] for k, v in batch.items()}
+            h, f0, out_pc, out_labels, _ = self.build(
+                scene, generator, None if draws is None else draws[i], train=True)
+            drops = DropPathDraws(generator, None if drop_masks is None else drop_masks[i])
+            t, c = self._loss_parts(self.model(h, f0, out_pc, drops=drops), out_labels, out_pc)
+            t.backward()
+            total = t.detach() if total is None else total + t.detach()
+            count = c if count is None else count + c
+        denom = count.clamp(min=1.0)
+        with torch.no_grad():
+            for p in self.model.parameters():
+                if p.grad is not None:
+                    p.grad.div_(denom)
+        return total / denom
 
     @torch.no_grad()
     def eval_step(self, batch: dict, generator: Optional[torch.Generator] = None,

@@ -119,14 +119,24 @@ def test_neighbor_sets(method):
     _assert_same_neighbor_sets(tn, jn)
 
 
-def test_grid_threshold_raises_instead_of_brute_force():
-    big = PointCloud(torch.zeros(1, neighborhoods.GRID_AUTO_THRESHOLD, 3),
-                     torch.ones(1, neighborhoods.GRID_AUTO_THRESHOLD, dtype=torch.bool))
-    small = PointCloud(torch.zeros(1, 8, 3), torch.ones(1, 8, dtype=torch.bool))
+def test_grid_threshold_raises_instead_of_brute_force(monkeypatch):
+    """At ``GRID_AUTO_THRESHOLD`` points on either side the searches take the
+    grid (``tests/test_torch_grid.py``): brute force, made to raise here, is
+    never reached."""
+    n = neighborhoods.GRID_AUTO_THRESHOLD
+    pts = torch.from_numpy(np.random.default_rng(0).uniform(size=(1, n, 3)).astype(np.float32))
+    big = PointCloud(pts, torch.ones(1, n, dtype=torch.bool))
+    small = PointCloud(pts[:, :8].clone(), torch.ones(1, 8, dtype=torch.bool))
+
+    def brute(*args, **kwargs):
+        raise NotImplementedError("brute force at the grid threshold")
+
+    monkeypatch.setattr(neighborhoods, "_chunked_topk_neighbors", brute)
+    bq = neighborhoods.ball_query_neighborhood(big, small, 0.1, 4)
+    kn = neighborhoods.knn_neighborhood(small, big, 4, grid_cell_size=0.1)
+    assert bq.mask.all() and kn.mask.all()  # 8 query points inside the big cloud; 8 >= 4 sources
     with pytest.raises(NotImplementedError):
-        neighborhoods.ball_query_neighborhood(big, small, 0.1, 4)
-    with pytest.raises(NotImplementedError):
-        neighborhoods.knn_neighborhood(small, big, 4, grid_cell_size=0.1)
+        neighborhoods.knn_neighborhood(small, big, 4)  # no spacing hint: brute force
 
 
 def _eig_gap_ok(cov, rel_gap=1e-2):

@@ -1,17 +1,20 @@
-"""The fused conv CUDA kernels against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
 
 Needs an NVIDIA GPU and ``nvcc`` (``cuda`` marker): skipped elsewhere.  The
 file imports torch only, so the card runs it without JAX:
 ``python -m pytest --noconftest -q tests/test_torch_kernel_cuda.py``.
 Tolerances: both sides sum in float32 in different orders, so
-``max |kernel - plain| <= 1e-5 * max |plain|`` for the forward; the
-backward's parameter gradients sum over every edge of the batch, so
-``1e-4 * max |plain|`` for each of its four outputs.
+``max |kernel - plain| <= 1e-5 * max |plain|`` for the forward and the
+prefix sum; the backward's parameter gradients sum over every edge of the
+batch, so ``1e-4 * max |plain|`` for each of its four outputs.
 """
 import pytest
 import torch
 
+from se3conv3d_tpu_torch.core.neighborhoods import Neighborhood
 from se3conv3d_tpu_torch.kernels import fused_equiv as kfe
+from se3conv3d_tpu_torch.kernels import segsum
+from se3conv3d_tpu_torch.ops.pne_conv import backward_sort_tables
 
 SHAPES = {
     # name: B, M, N, K, G, F, Q, C, O, valid-edge fraction
@@ -108,3 +111,92 @@ def test_kernel_wrapper_rejects_what_it_does_not_take():
         kfe.fused_equiv_bwd(*args, gout[:, :-1])
     with pytest.raises(ValueError):
         kfe.fused_equiv_bwd(*args, gout.cpu())
+
+
+CUMSUM_SHAPES = [(1, 3000, 64), (2, 777, 20), (1, 256, 320), (3, 1, 5), (1, 100_000, 33)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", CUMSUM_SHAPES)
+def test_cumsum_kernel_matches_plain_version(shape):
+    _needs_card()
+    x = torch.randn(*shape, device="cuda", generator=torch.Generator(device="cuda").manual_seed(1))
+    before = segsum.blocked_cumsum.launches
+    got = segsum.blocked_cumsum(x)
+    torch.cuda.synchronize()
+    ref = segsum.blocked_cumsum_reference(x)
+    assert segsum.blocked_cumsum.launches == before + 1
+    assert got.shape == ref.shape and torch.isfinite(got).all()
+    err = (got - ref).abs().max().item()
+    assert err <= 1e-5 * ref.abs().max().item(), (err, ref.abs().max().item())
+    assert torch.equal(segsum.blocked_cumsum(x[0]), got[0])  # [E, C] is B = 1
+
+
+def _sort_tables(idx, mask, n):
+    idx = torch.where(mask, idx, torch.zeros_like(idx))  # as the searches clamp invalid slots
+    return backward_sort_tables(Neighborhood(idx, mask, mask.any(-1)), n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(SHAPES))
+def test_backward_sorted_output_matches_plain_version(name):
+    """The per-point pass's sorted per-edge rows against the plain version's,
+    slot by slot, and their segment sums against the scatter mode's d_feats."""
+    _needs_card()
+    args = list(_inputs(*SHAPES[name], seed=sorted(SHAPES).index(name)))
+    b, m, n, k, g, f, _, c, o, _ = SHAPES[name]
+    args[3] = torch.where(args[4], args[3], torch.zeros_like(args[3]))
+    tabs = _sort_tables(args[3], args[4], n)
+    gout = torch.randn(b, m, g, o, device="cuda", generator=torch.Generator(device="cuda").manual_seed(7))
+    got = kfe.fused_equiv_bwd(*args, gout, sorted_slot=tabs.bwd_slot)
+    ref = kfe.fused_equiv_bwd_reference(*args, gout, sorted_slot=tabs.bwd_slot)
+    scatter = kfe.fused_equiv_bwd(*args, gout)
+    torch.cuda.synchronize()
+    assert got[0].shape == (b, m * k, f * c)
+    edge_rows = args[4].reshape(b, m * k).gather(1, tabs.bwd_perm)  # validity in sorted order
+    assert not got[0][~edge_rows].any()  # masked edges leave zeros
+    for x, y in zip(got, ref):
+        err = (x - y).abs().max().item()
+        assert err <= BWD_RTOL * max(y.abs().max().item(), 1e-6), (err, y.abs().max().item())
+    for x, y in zip(got[1:], scatter[1:]):
+        assert torch.equal(x, y)  # parameter gradients do not depend on the mode
+    summed = segsum.sorted_segment_sum(got[0], tabs.bwd_run_start, tabs.bwd_run_end)
+    err = (summed.reshape(scatter[0].shape) - scatter[0]).abs().max().item()
+    assert err <= BWD_RTOL * max(scatter[0].abs().max().item(), 1e-6), err
+
+
+@pytest.mark.cuda
+def test_sorted_mode_backward_launches_the_cumsum_kernel():
+    _needs_card()
+    args = list(_inputs(*SHAPES["slice_like"], seed=0))
+    args[3] = torch.where(args[4], args[3], torch.zeros_like(args[3]))
+    tabs = _sort_tables(args[3], args[4], SHAPES["slice_like"][2])
+    for i in (2, 5, 6, 7):
+        args[i].requires_grad_()
+    before = kfe.fused_equiv_bwd.launches, segsum.blocked_cumsum.launches
+    out = kfe.fused_equiv(*args, (tabs.bwd_slot, tabs.bwd_run_start, tabs.bwd_run_end))
+    out.square().sum().backward()
+    assert (kfe.fused_equiv_bwd.launches, segsum.blocked_cumsum.launches) == (before[0] + 1, before[1] + 1)
+    sorted_grads = [args[i].grad.clone() for i in (2, 5, 6, 7)]
+    for i in (2, 5, 6, 7):
+        args[i].grad = None
+    kfe.fused_equiv(*args).square().sum().backward()
+    for x, i in zip(sorted_grads, (2, 5, 6, 7)):
+        y = args[i].grad
+        assert (x - y).abs().max().item() <= BWD_RTOL * y.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_cumsum_and_sorted_wrappers_reject_what_they_do_not_take():
+    _needs_card()
+    with pytest.raises(TypeError):
+        segsum.blocked_cumsum(torch.zeros(10, 4, device="cuda", dtype=torch.float64))
+    with pytest.raises(ValueError):
+        segsum.blocked_cumsum(torch.zeros(4, 10, device="cuda").t())
+    args = list(_inputs(*SHAPES["slice_like"], seed=0))
+    gout = torch.zeros(2, 300, 2, 32, device="cuda")
+    slot = torch.zeros(2, 300 * 32, dtype=torch.int64, device="cuda")
+    with pytest.raises(ValueError):
+        kfe.fused_equiv_bwd(*args, gout, sorted_slot=slot.int())
+    with pytest.raises(ValueError):
+        kfe.fused_equiv_bwd(*args, gout, sorted_slot=slot[:, :-1])

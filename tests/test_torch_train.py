@@ -24,12 +24,13 @@ import optax
 import pytest
 import torch
 
-from torch_port_helpers import HCFG, NUM_CLASSES, TINY, jax_hierarchy_draws, randomize, t, tiny_batch
+from torch_port_helpers import (HCFG, NUM_CLASSES, TINY, capture_grads, droppath_interceptor,
+                                flat_tree, jax_hierarchy_draws, pop_keep_masks, randomize, t,
+                                tiny_batch)
 
 from se3conv3d_tpu.core import hierarchy as jhier
 from se3conv3d_tpu.models import FPNSegUNet as JNet
 from se3conv3d_tpu.models import get_model_spec as jget_spec
-from se3conv3d_tpu.nn.blocks import DropPath as JDropPath
 from se3conv3d_tpu.nn.norm import MaskedBatchNorm as JBatchNorm
 from se3conv3d_tpu.train import config as jconfig
 from se3conv3d_tpu.train import schedule as jschedule
@@ -177,73 +178,6 @@ def test_pinned_training_matches_yaml():
 # --- the whole train step -----------------------------------------------------
 
 
-def _capture_grads():
-    """An optax transformation that applies no update and keeps the
-    gradients as its state, so the JAX train step hands them back."""
-    return optax.GradientTransformation(
-        init=lambda p: jax.tree_util.tree_map(jnp.zeros_like, p),
-        update=lambda g, s, p=None: (jax.tree_util.tree_map(jnp.zeros_like, g), g),
-    )
-
-
-def _interceptor(order, reference_bn):
-    """Records each train-mode DropPath draw (as ``batch_stats`` variable
-    ``keep``, in trace order) and, with ``reference_bn``, gives
-    ``MaskedBatchNorm`` the reference's (valid points x frames) row count."""
-
-    def intercept(next_fun, args, kwargs, context):
-        mod = context.module
-        if context.method_name != "__call__":
-            return next_fun(*args, **kwargs)
-        if isinstance(mod, JDropPath) and args[1] and mod.drop_prob > 0.0:
-            x = args[0]
-            keep = 1.0 - mod.drop_prob
-            u = jax.random.uniform(mod.make_rng("droppath"), (x.shape[0],) + (1,) * (x.ndim - 1), x.dtype)
-            mask = jnp.floor(keep + u)
-            mod.put_variable("batch_stats", "keep", mask.reshape(x.shape[0]))
-            order.append(mod.scope.path)
-            return x / keep * mask
-        if reference_bn and isinstance(mod, JBatchNorm) and args[2] and not mod.is_initializing():
-            x, mask = args[0], args[1]
-            rows = mask.reshape(mask.shape + (1,) * (x.ndim - mask.ndim)).astype(x.dtype)
-            rows = jnp.broadcast_to(rows, x.shape[:-1] + (1,))
-            axes = tuple(range(x.ndim - 1))
-            count = jnp.maximum(jnp.sum(rows), 1.0)
-            mean = jnp.sum(x * rows, axis=axes) / count
-            var = jnp.sum(rows * (x - mean) ** 2, axis=axes) / count
-            unbiased = var * (count / jnp.maximum(count - 1.0, 1.0))
-            mom = mod.momentum
-            mod.put_variable("batch_stats", "mean",
-                             (1 - mom) * mod.get_variable("batch_stats", "mean") + mom * mean)
-            mod.put_variable("batch_stats", "var",
-                             (1 - mom) * mod.get_variable("batch_stats", "var") + mom * unbiased)
-            y = (x - mean) * jax.lax.rsqrt(var + mod.eps)
-            return y * mod.get_variable("params", "scale") + mod.get_variable("params", "bias")
-        return next_fun(*args, **kwargs)
-
-    return intercept
-
-
-def _flat(tree):
-    flat = jax.tree_util.tree_flatten_with_path(jax.device_get(tree))[0]
-    return {".".join(p.key for p in path): np.asarray(x) for path, x in flat}
-
-
-def _pop_keep_masks(batch_stats, order):
-    """Remove the recorded keep masks from ``batch_stats``; returns them in
-    call order."""
-    stats = jax.tree_util.tree_map(np.asarray, jax.device_get(batch_stats))
-    masks = []
-    for path in order:
-        node = stats
-        for name in path[:-1]:
-            node = node[name]
-        masks.append(node[path[-1]].pop("keep"))
-        if not node[path[-1]]:
-            del node[path[-1]]
-    return masks, stats
-
-
 # max |port - JAX| <= GRAD_TOL * max(max |JAX leaf|, GRAD_FLOOR * grad_norm)
 # per gradient leaf: both sides sum float32 in other orders through ~20
 # layers and a loss.  The floor covers leaves whose true gradient is 0 (a
@@ -262,7 +196,7 @@ def test_train_step_matches_jax_trainer(frames):
               "features": jnp.asarray(feats), "labels": jnp.asarray(labels)}
 
     model = JNet(spec, num_in_feats=1, num_classes=NUM_CLASSES)
-    jtrainer = JTrainer(model, cfg, _capture_grads(), TrainSettings(label_smoothing=0.2),
+    jtrainer = JTrainer(model, cfg, capture_grads(), TrainSettings(label_smoothing=0.2),
                         donate_state=False)
     h, f0, out_pc, _, _ = jax.jit(jtrainer._build)(jax.random.PRNGKey(3), jbatch)
     v = jax.jit(model.init, static_argnames=("train",))(
@@ -274,12 +208,12 @@ def test_train_step_matches_jax_trainer(frames):
         {"params": params, "batch_stats": stats, "calib": v["calib"]}, h, f0, out_pc,
         train=False, calibrate=True, mutable=("calib",))
     state = TrainState(step=jnp.zeros((), jnp.int32), params=params, batch_stats=stats,
-                       calib=mut["calib"], opt_state=_capture_grads().init(params))
+                       calib=mut["calib"], opt_state=capture_grads().init(params))
     order = []
     key = jax.random.PRNGKey(7)
-    with fnn.intercept_methods(_interceptor(order, reference_bn=frames > 1)):
+    with fnn.intercept_methods(droppath_interceptor(order, reference_bn=frames > 1)):
         new_state, metrics = jtrainer.train_step(state, jbatch, key)
-    keep_masks, new_stats = _pop_keep_masks(new_state.batch_stats, order)
+    keep_masks, new_stats = pop_keep_masks(new_state.batch_stats, order)
     assert len(keep_masks) == 2  # the two skips of the one block with drop probability 0.5
 
     tspec = dataclasses.replace(get_model_spec("FPNSegUNetMLPGeluRotEqFAUST"), **TINY,
@@ -300,7 +234,7 @@ def test_train_step_matches_jax_trainer(frames):
     np.testing.assert_allclose(float(out["grad_norm"]), float(metrics["grad_norm"]), rtol=1e-4)
     assert float(out["grad_norm"]) < 100.0  # unclipped, so p.grad is the raw gradient
 
-    ref_grads = _flat(new_state.opt_state)
+    ref_grads = flat_tree(new_state.opt_state)
     ours = {name: p.grad for name, p in tmodel.named_parameters()}
     assert set(ours) == set(ref_grads)
     norm = float(metrics["grad_norm"])
@@ -308,8 +242,8 @@ def test_train_step_matches_jax_trainer(frames):
         err = np.abs(ours[name].numpy() - ref).max()
         assert err <= GRAD_TOL * max(np.abs(ref).max(), GRAD_FLOOR * norm), (name, err, np.abs(ref).max())
     moved = 0
-    for name, ref in _flat(new_stats).items():
+    for name, ref in flat_tree(new_stats).items():
         got = tmodel.get_buffer(name).numpy()
         np.testing.assert_allclose(got, ref, rtol=BN_RTOL, atol=1e-6, err_msg=name)
-        moved += not np.allclose(ref, _flat(stats)[name])
-    assert moved == len(_flat(stats))  # every BN statistic moved
+        moved += not np.allclose(ref, flat_tree(stats)[name])
+    assert moved == len(flat_tree(stats))  # every BN statistic moved

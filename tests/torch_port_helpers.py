@@ -1,12 +1,17 @@
 """Shared helpers of the port's parity tests: the JAX package's random draws
-and hierarchies carried over to the PyTorch port as tensors, and the tiny
-FPNSegUNetMLPGeluRotEqFAUST that the whole-model tests share."""
+and hierarchies carried over to the PyTorch port as tensors, the tiny
+FPNSegUNetMLPGeluRotEqFAUST that the whole-model tests share, and the
+interceptor that captures a JAX train step's gradients and DropPath draws."""
 from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import optax
 import torch
+
+from se3conv3d_tpu.nn.blocks import DropPath as JDropPath
+from se3conv3d_tpu.nn.norm import MaskedBatchNorm as JBatchNorm
 
 from se3conv3d_tpu_torch.core.grid import SubsampleMap
 from se3conv3d_tpu_torch.core.hierarchy import Hierarchy, HierarchyDraws
@@ -90,3 +95,73 @@ def randomize(tree, rng):
             return (rng.normal(size=x.shape) * 0.1).astype(x.dtype)
         return x
     return jax.tree_util.tree_map_with_path(leaf, tree)
+
+
+# --- capturing a JAX train step ---------------------------------------------
+
+
+def capture_grads():
+    """An optax transformation that applies no update and keeps the
+    gradients as its state, so the JAX train step hands them back."""
+    return optax.GradientTransformation(
+        init=lambda p: jax.tree_util.tree_map(jnp.zeros_like, p),
+        update=lambda g, s, p=None: (jax.tree_util.tree_map(jnp.zeros_like, g), g),
+    )
+
+
+def droppath_interceptor(order, reference_bn):
+    """Records each train-mode DropPath draw (as ``batch_stats`` variable
+    ``keep``, in trace order) and, with ``reference_bn``, gives
+    ``MaskedBatchNorm`` the reference's (valid points x frames) row count."""
+
+    def intercept(next_fun, args, kwargs, context):
+        mod = context.module
+        if context.method_name != "__call__":
+            return next_fun(*args, **kwargs)
+        if isinstance(mod, JDropPath) and args[1] and mod.drop_prob > 0.0:
+            x = args[0]
+            keep = 1.0 - mod.drop_prob
+            u = jax.random.uniform(mod.make_rng("droppath"), (x.shape[0],) + (1,) * (x.ndim - 1), x.dtype)
+            mask = jnp.floor(keep + u)
+            mod.put_variable("batch_stats", "keep", mask.reshape(x.shape[0]))
+            order.append(mod.scope.path)
+            return x / keep * mask
+        if reference_bn and isinstance(mod, JBatchNorm) and args[2] and not mod.is_initializing():
+            x, mask = args[0], args[1]
+            rows = mask.reshape(mask.shape + (1,) * (x.ndim - mask.ndim)).astype(x.dtype)
+            rows = jnp.broadcast_to(rows, x.shape[:-1] + (1,))
+            axes = tuple(range(x.ndim - 1))
+            count = jnp.maximum(jnp.sum(rows), 1.0)
+            mean = jnp.sum(x * rows, axis=axes) / count
+            var = jnp.sum(rows * (x - mean) ** 2, axis=axes) / count
+            unbiased = var * (count / jnp.maximum(count - 1.0, 1.0))
+            mom = mod.momentum
+            mod.put_variable("batch_stats", "mean",
+                             (1 - mom) * mod.get_variable("batch_stats", "mean") + mom * mean)
+            mod.put_variable("batch_stats", "var",
+                             (1 - mom) * mod.get_variable("batch_stats", "var") + mom * unbiased)
+            y = (x - mean) * jax.lax.rsqrt(var + mod.eps)
+            return y * mod.get_variable("params", "scale") + mod.get_variable("params", "bias")
+        return next_fun(*args, **kwargs)
+
+    return intercept
+
+
+def flat_tree(tree):
+    flat = jax.tree_util.tree_flatten_with_path(jax.device_get(tree))[0]
+    return {".".join(p.key for p in path): np.asarray(x) for path, x in flat}
+
+
+def pop_keep_masks(batch_stats, order):
+    """Remove the recorded keep masks from ``batch_stats``; returns them in
+    call order."""
+    stats = jax.tree_util.tree_map(np.asarray, jax.device_get(batch_stats))
+    masks = []
+    for path in order:
+        node = stats
+        for name in path[:-1]:
+            node = node[name]
+        masks.append(node[path[-1]].pop("keep"))
+        if not node[path[-1]]:
+            del node[path[-1]]
+    return masks, stats
