@@ -1,0 +1,113 @@
+#!/usr/bin/env python3
+"""A/B of the PyTorch port between two checkouts on one NVIDIA GPU, in turns.
+
+    python3 chip_ab.py OLD_ROOT NEW_ROOT [--turns ABBA]
+
+runs one process per turn (``A`` = OLD_ROOT, ``B`` = NEW_ROOT; by default
+A, B, B, A), each importing ``se3conv3d_tpu_torch`` from its root and
+driving it with the phases of the ``chip_smoke.py`` beside this file:
+
+- the conv backward kernel (CUDA-event median of 10, atomic-scatter mode,
+  called without a live-row table, as a kernel test calls it) at the
+  ScanNet level-0 and level-4 block convs, the padded level-0 conv and the
+  DFaust level-1 and level-4 convs;
+- the DFaust train step (``chip_smoke.dfaust_train``: median of 5 steps of
+  B=32 x 4096 after a calibration step, and the peak device memory);
+- the ScanNet-20 ``scan_scenes`` train step (``chip_smoke.scannet_train``:
+  6 rooms x 120,000 points, float32, the two backward modes in turns,
+  median and peak device memory per mode).
+
+Each turn prints one JSON line; the last line holds every turn's numbers
+and the card's name and power limit.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parent
+BWD_SHAPES = {
+    # name: (B, M, N, K, G, F, Q, C, O), live rows per example (None: every row)
+    "scannet_level0": ((1, 131072, 131072, 24, 1, 1, 32, 64, 64), None),
+    "scannet_level0_padded": ((1, 131072, 131072, 24, 1, 1, 32, 64, 64), 22_563),
+    "scannet_level4": ((1, 512, 512, 24, 1, 1, 32, 320, 320), None),
+    "dfaust_level1": ((32, 2048, 2048, 32, 2, 2, 32, 32, 32), None),
+    "dfaust_level4": ((32, 128, 128, 32, 2, 2, 32, 256, 256), None),
+}
+
+
+def side(root: str) -> int:
+    sys.path.insert(0, str(Path(root).resolve()))
+    sys.path.insert(1, str(HERE))
+    import torch
+
+    import chip_smoke as cs
+    import se3conv3d_tpu_torch
+
+    if not torch.cuda.is_available():
+        print("chip_ab: no CUDA device", file=sys.stderr)
+        return 1
+    if Path(se3conv3d_tpu_torch.__file__).resolve().parent.parent != Path(root).resolve():
+        print(f"chip_ab: se3conv3d_tpu_torch did not come from {root}", file=sys.stderr)
+        return 1
+    from se3conv3d_tpu_torch.kernels import fused_equiv as kfe
+    from se3conv3d_tpu_torch.kernels import segsum
+    from se3conv3d_tpu_torch.kernels.build import build_libraries
+    from se3conv3d_tpu_torch.ops import pne_conv as ops
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev, card = torch.device("cuda"), cs.card_line()
+    build_libraries()
+    bwd_ms = {}
+    for i, (name, (shp, live)) in enumerate(BWD_SHAPES.items()):
+        args, gout = cs.scannet_conv_args(i, shp, live, dev)
+        bwd_ms[name] = cs.cuda_ms(lambda: kfe.fused_equiv_bwd(*args, gout), 10)
+        del args, gout
+        torch.cuda.empty_cache()
+    out = dict(root=root, bwd_kernel_ms=bwd_ms)
+    batch = cs.to_device(cs.body_batch(cs.BATCH, cs.POINTS, seed=2), dev)
+    trainer, out["dfaust_train"] = cs.dfaust_train(card, dev, batch)
+    del trainer, batch
+    torch.cuda.empty_cache()
+    rooms = cs.scannet_rooms(dev)
+    trainer = cs.scannet_trainer(dev, {k: v[:1] for k, v in rooms.items()})
+    out["scannet_train"] = cs.scannet_train(card, dev, trainer, rooms, kfe, segsum, ops)
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("roots", nargs="*", help="OLD_ROOT NEW_ROOT")
+    parser.add_argument("--turns", default="ABBA")
+    parser.add_argument("--side", help=argparse.SUPPRESS)
+    args = parser.parse_args()
+    if args.side:
+        return side(args.side)
+    if len(args.roots) != 2:
+        parser.error("give OLD_ROOT and NEW_ROOT")
+    runs = []
+    for turn in args.turns:
+        root = args.roots["AB".index(turn)]
+        env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--side", root],
+                              capture_output=True, text=True, env=env)
+        if proc.returncode != 0:
+            print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
+            return proc.returncode
+        result = json.loads(proc.stdout.strip().splitlines()[-1])
+        print(f"turn {turn} {json.dumps(result)}", flush=True)
+        runs.append(dict(turn=turn, **result))
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    print(json.dumps({"card": card, "turns": runs}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -21,7 +21,8 @@ kernels take no bf16 yet):
 5. checks that the same model and hierarchy on the CPU (plain path) give
    the same logits at B=2;
 6. holds the backward kernel against its plain PyTorch version at the
-   three shapes of phase 2;
+   three shapes of phase 2, in both feature-gradient output modes, with
+   ``torch.matmul`` for its two products;
 7. trains a fresh model with the recipe's ``Training`` section: one
    calibration step, then a few ``Trainer.train_step`` calls on the same
    batch, counting 21 forward and 21 backward kernel launches per step and
@@ -30,8 +31,12 @@ kernels take no bf16 yet):
    parameter gradients on the card and on the CPU (plain path), with the
    same hierarchy and DropPath keep masks;
 9. holds the conv kernels against their plain versions at the ScanNet
-   level-0 and level-4 block convs, the backward in both feature-gradient
-   output modes (atomic scatter; rows at their sorted slots);
+   level-0 and level-4 block convs and at a padded level-0 conv (the
+   first 22,563 of 131,072 rows live, as the fullest synthetic room), the
+   backward in both feature-gradient output modes (atomic scatter; rows at
+   their sorted slots) with its device ms per pass, and times
+   ``torch.matmul`` for the backward's two products over the same live
+   rows beside it;
 10. holds the prefix-sum kernel against its plain version at the level-0
     and level-4 edge counts, with ``torch.cumsum`` timed beside it, and
     ``sorted_segment_sum`` against ``index_add_`` on the same rows;
@@ -46,6 +51,10 @@ kernels take no bf16 yet):
     feature-gradient modes in turns (scatter, sorted, sorted, scatter, ...),
     counting 192 forward and 192 backward launches per step and 192 prefix
     sums in sorted mode only, and checking finite losses and moved BN means;
+    then one step per mode split on the host clock (with the live rows the
+    192 backwards walked against their capacity rows, each given its
+    neighborhood's table) and one under ``torch.profiler`` (device ms by
+    kernel and per backward pass);
 14. checks that the two modes give the same parameter gradients on one
     room, with the same hierarchy and DropPath keep masks.
 
@@ -91,6 +100,9 @@ SEGSUM_EPS_FACTOR = 256
 # published float32 peak outside the tensor cores and HBM rate of one H100
 # SXM at 700 W (NVIDIA's H100 datasheet), for the bound of each kernel
 PEAK_F32_FLOPS, PEAK_BYTES_PER_S = 67e12, 3.35e12
+# the dense TF32 tensor-core peak of the same sheet; the backward's two
+# products run in 3xTF32 (three TF32 products per float32 one)
+PEAK_TF32_FLOPS = 495e12
 # kernel vs plain: max |kernel - plain| <= KERNEL_RTOL * max |plain| (both
 # float32; they sum up to 64 edges x 32 basis x 256 channels in other orders)
 KERNEL_RTOL = 1e-5
@@ -246,29 +258,55 @@ def seeded_model(model_cls, spec, dev):
 def conv_bounds(shape, mask) -> dict:
     """Least times of one conv forward and backward on the card: the larger
     of bytes / HBM rate (each input read once, each output written once)
-    and FLOPs / float32 peak, counting the valid edges of ``mask``.
+    and FLOPs / float32 peak, counting the valid edges of ``mask`` and its
+    live rows (the query rows with a valid edge): a padded row needs no
+    work, so its geometry, ``gout`` row and products are not counted.
 
     FLOPs as in ``PERF.md``: per valid edge and frame pair the pne
-    (``2*9*Q``) and basis (``2*Q*C``) products, per point and out-frame the
-    weight contraction (``2*C*Q*O``).  The backward counts, per edge, pne
-    and basis once, ``dpne`` and ``d_feats`` (``2*Q*C`` each) and
-    ``d_proj``/``d_bias`` (``2*10*Q``), and per point the ``d_w`` and
-    ``dbasis`` products (``2*C*Q*O`` each).
+    (``2*9*Q``) and basis (``2*Q*C``) products, per live point and
+    out-frame the weight contraction (``2*C*Q*O``).  The backward counts,
+    per edge, pne and basis once, ``dpne`` and ``d_feats`` (``2*Q*C`` each)
+    and ``d_proj``/``d_bias`` (``2*10*Q``), and per live point the ``d_w``
+    and ``dbasis`` products (``2*C*Q*O`` each).  The backward runs those two
+    products on tensor cores in 3xTF32, so its bound takes them at that
+    ceiling (``PEAK_TF32_FLOPS / 3``) and the rest at the float32 peak;
+    ``bound_f32_ms`` takes every FLOP at the float32 peak.
     """
     b, m, n, k, g, f, q, c, o = shape
     edges = float(mask.sum()) * g * f
-    fwd_flops = 2 * edges * q * (9 + c) + 2.0 * b * m * g * c * q * o
-    bwd_flops = 2 * edges * q * (9 + 3 * c + 10) + 4.0 * b * m * g * c * q * o
-    geo = 4.0 * b * m * k * g * (3 + 6 * f) + 9.0 * b * m * k  # rel, rot6, idx, mask
+    live = float(mask.any(-1).sum())
+    point_flops = 2.0 * live * g * c * q * o
+    fwd_flops = 2 * edges * q * (9 + c) + point_flops
+    bwd_edge_flops = 2 * edges * q * (9 + 3 * c + 10)
+    bwd_flops = bwd_edge_flops + 2 * point_flops
+    geo = live * (4.0 * k * g * (3 + 6 * f) + 9.0 * k)  # rel, rot6, idx, mask of the live rows
     params = 4.0 * (10 * q + c * q * o)
     fwd_bytes = geo + 4.0 * b * n * f * c + params + 4.0 * b * m * g * o
-    bwd_bytes = fwd_bytes + 4.0 * b * n * f * c + params  # + gout, d_feats, d_params
+    # + gout's live rows, d_feats, d_params
+    bwd_bytes = geo + 4.0 * b * n * f * c + params + 4.0 * live * g * o + 4.0 * b * n * f * c + params
+    bwd_ops_s = bwd_edge_flops / PEAK_F32_FLOPS + 2 * point_flops / (PEAK_TF32_FLOPS / 3)
     out = {}
-    for name, flops, nbytes in (("fwd", fwd_flops, fwd_bytes), ("bwd", bwd_flops, bwd_bytes)):
-        t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    for name, flops, ops_s, nbytes in (("fwd", fwd_flops, fwd_flops / PEAK_F32_FLOPS, fwd_bytes),
+                                       ("bwd", bwd_flops, bwd_ops_s, bwd_bytes)):
+        t_ops, t_bytes = ops_s * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
         out[name] = dict(bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes
-                         else "bytes", gflop=flops / 1e9)
+                         else "bytes", gflop=flops / 1e9, live_rows=int(live))
+    out["bwd"]["bound_f32_ms"] = max(bwd_flops / PEAK_F32_FLOPS, bwd_bytes / PEAK_BYTES_PER_S) * 1e3
     return out
+
+
+def products_matmul_ms(rows: int, conv_weights, seed: int) -> float:
+    """The yardstick of the conv backward's two products: ``torch.matmul``
+    in full float32 (TF32 off, set here) for ``d_w = basis^T . gout`` and
+    ``dbasis = gout . W^T`` over ``rows`` live rows (seeded operands of the
+    kernel's shapes; the time does not depend on their values)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    c, q, o = conv_weights.shape
+    gen = torch.Generator(device=conv_weights.device).manual_seed(seed)
+    basis = torch.randn(rows, c * q, device=conv_weights.device, generator=gen)
+    gout = torch.randn(rows, o, device=conv_weights.device, generator=gen)
+    w2 = conv_weights.reshape(c * q, o)
+    return cuda_ms(lambda: (torch.matmul(basis.t(), gout), torch.matmul(gout, w2.t())), 10)
 
 
 def max_rel_err(got, ref) -> tuple:
@@ -293,11 +331,134 @@ SCANNET_SHAPES = {
     "scannet_level0_block_conv": (1, 131072, 131072, 24, 1, 1, 32, 64, 64),
     "scannet_level4_block_conv": (1, 512, 512, 24, 1, 1, 32, 320, 320),
 }
+# phase 9 also runs the level-0 block conv at the fill of the fullest
+# synthetic room (22,563 of 131,072 level-0 points): name: (shape, live rows)
+SCANNET_PADDED = {
+    "scannet_level0_padded_block_conv": ("scannet_level0_block_conv", 22_563),
+}
+# the conv backward's passes: (name, a substring of its kernel's name)
+BWD_PASSES = (("basis_kernel", "basis_kernel"), ("d_w product", "tf32x3_gemm<false"),
+              ("dbasis product", "tf32x3_gemm<true"), ("edge_kernel", "edge_kernel"),
+              ("sum_partials", "sum_partials"))
+
+
+def device_rows(prof) -> list:
+    """``(device ms, launches, kernel name)`` of a ``torch.profiler`` run,
+    largest first."""
+    rows = []
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(ev, "self_cuda_time_total", 0.0)
+        if dev_us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
+            rows.append((dev_us / 1e3, ev.count, ev.key))
+    return sorted(rows, reverse=True)
+
+
+def bwd_pass_ms(rows) -> dict:
+    """Device ms of each backward pass in ``device_rows`` output."""
+    return {name: sum(ms for ms, _, key in rows if tag in key) for name, tag in BWD_PASSES}
+
+
+def dfaust_train(card, dev, batch) -> tuple:
+    """7. the DFaust recipe's training at full width: a fresh seeded model
+    and the recipe's ``Training`` section, one calibration step, then
+    ``TRAIN_STEPS`` train steps on ``batch``, counting 21 forward and 21
+    backward conv launches per step and checking finite losses and moved BN
+    means.  Returns ``(trainer, {step_s, all_s, peak_gib, launches})``."""
+    from se3conv3d_tpu_torch.kernels import fused_equiv as kfe
+    from se3conv3d_tpu_torch.models import FPNSegUNet, presets
+    from se3conv3d_tpu_torch.nn.norm import MaskedBatchNorm
+    from se3conv3d_tpu_torch.train import schedule
+    from se3conv3d_tpu_torch.train.trainer import Trainer
+
+    model_dict, training = presets.DFAUST_I_ROT_PCA_2F_MODEL, presets.DFAUST_I_ROT_PCA_2F_TRAINING
+    model = seeded_model(FPNSegUNet, presets.spec_from_model_dict(model_dict), dev)
+    opt = schedule.optimizer_from_training(model.parameters(), training, TRAIN_STEPS)
+    trainer = Trainer(model, presets.hierarchy_config_from_model_dict(model_dict, POINTS, train=True),
+                      presets.hierarchy_config_from_model_dict(model_dict, POINTS, train=False),
+                      label_smoothing=training["label_smoothing"], optimizer=opt)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    bns = {n: mod for n, mod in model.named_modules() if isinstance(mod, MaskedBatchNorm)}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kfe.fused_equiv_fwd.launches = kfe.fused_equiv_bwd.launches = 0
+    trainer.calibration_step(batch, gen)
+    bn_before = {n: mod.mean.clone() for n, mod in bns.items()}
+    train_fwd_calib = kfe.fused_equiv_fwd.launches
+    step_s, per_step = [], []
+    for step in range(TRAIN_STEPS):
+        lr = opt.lr
+        before = kfe.fused_equiv_fwd.launches, kfe.fused_equiv_bwd.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = trainer.train_step(batch, gen)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        loss, gnorm = float(out["loss"]), float(out["grad_norm"])
+        fwd_n = kfe.fused_equiv_fwd.launches - before[0]
+        bwd_n = kfe.fused_equiv_bwd.launches - before[1]
+        per_step.append((loss, gnorm, fwd_n, bwd_n))
+        print(f"train: step {step} lr {lr:.6e} loss {loss:.6f} grad_norm {gnorm:.6f} "
+              f"launches fwd {fwd_n} bwd {bwd_n} time {step_s[-1]:.4f} s [{card}]", flush=True)
+    train_fwd, train_bwd = kfe.fused_equiv_fwd.launches, kfe.fused_equiv_bwd.launches
+    train_peak = torch.cuda.max_memory_allocated()
+    train_median = statistics.median(step_s)
+    print(f"train: calibration launches {train_fwd_calib}; train_step median {train_median:.4f} s "
+          f"(all {[round(x, 4) for x in step_s]}), {BATCH * POINTS / train_median:.1f} input points/s, "
+          f"peak memory {train_peak / 2**30:.3f} GiB; launches fwd {train_fwd} bwd {train_bwd} "
+          f"[{card}]", flush=True)
+    if not all(np.isfinite(lo) and np.isfinite(gn) for lo, gn, _, _ in per_step):
+        raise SystemExit("non-finite loss or gradients in a train step")
+    if train_fwd_calib != CONVS_PER_FORWARD or any(
+            (f_, b_) != (CONVS_PER_FORWARD, CONVS_PER_FORWARD) for _, _, f_, b_ in per_step):
+        raise SystemExit(f"expected {CONVS_PER_FORWARD} forward and backward kernel launches per step")
+    still = [n for n, mod in bns.items() if torch.equal(mod.mean, bn_before[n])]
+    print(f"train: {len(bns) - len(still)} of {len(bns)} BN running means moved")
+    if still:
+        raise SystemExit(f"BN running mean did not move: {still[:5]}")
+    return trainer, dict(step_s=train_median, all_s=step_s, peak_gib=train_peak / 2**30,
+                         launches=(train_fwd, train_bwd))
+
+
+def scannet_rooms(dev) -> dict:
+    """The ``SCENES`` synthetic rooms of ``SCENE_POINTS`` points of the
+    ScanNet phases (numpy seeds 100-105), stacked on the card."""
+    return to_device(stack_scenes([room_scene(SCENE_POINTS, 100 + i) for i in range(SCENES)]), dev)
+
+
+def scannet_trainer(dev, room0):
+    """Phase 13's trainer: the ScanNet recipe in float32, a fresh seeded
+    model from ``build_model_from_config``, its optimizer over
+    ``len(SCANNET_MODE_ORDER)`` steps and ``scan_scenes``, calibrated on
+    ``room0``."""
+    from se3conv3d_tpu_torch.models import presets
+    from se3conv3d_tpu_torch.train import schedule
+    from se3conv3d_tpu_torch.train.config import build_model_from_config
+    from se3conv3d_tpu_torch.train.trainer import Trainer
+
+    s_model = {**presets.SCANNET20_ROT_PCA_I_MODEL, "compute_dtype": "float32"}
+    s_training = presets.SCANNET20_ROT_PCA_I_TRAINING
+    model = seed_gammas(build_model_from_config(s_model, presets.SCANNET_NUM_FEATURES,
+                                                presets.SCANNET20_NUM_CLASSES,
+                                                generator=torch.Generator().manual_seed(0)))
+    opt = schedule.optimizer_from_training(model.parameters(), s_training, len(SCANNET_MODE_ORDER))
+    trainer = Trainer(model, presets.hierarchy_config_from_model_dict(s_model, SCENE_POINTS, train=True),
+                      presets.hierarchy_config_from_model_dict(s_model, SCENE_POINTS, train=False),
+                      label_smoothing=s_training["label_smoothing"],
+                      ignore_label=presets.SCANNET20_IGNORE_LABEL, optimizer=opt,
+                      scan_scenes=s_training["scan_scenes"])
+    trainer.calibration_step(room0, torch.Generator(device=dev).manual_seed(120))
+    return trainer
 
 
 def scannet_conv_kernels(card, dev) -> dict:
     """9. conv forward and backward kernels vs plain at the ScanNet shapes,
-    the backward in both feature-gradient output modes."""
+    the backward in both feature-gradient output modes, given the live-row
+    table as the main path gives it, and ``torch.matmul`` for its two
+    products.  (Its passes' device ms come last, in
+    :func:`scannet_bwd_passes`: a ``torch.profiler`` run slows the kernel
+    launches that follow it, and the train steps are timed in between.)"""
     from se3conv3d_tpu_torch.core.neighborhoods import Neighborhood
     from se3conv3d_tpu_torch.kernels import fused_equiv as kfe
     from se3conv3d_tpu_torch.kernels import segsum
@@ -305,10 +466,10 @@ def scannet_conv_kernels(card, dev) -> dict:
 
     names = ("d_feats", "d_proj_axes", "d_proj_biases", "d_conv_weights")
     out = {}
-    for i, (name, shp) in enumerate(SCANNET_SHAPES.items()):
+    for i, (name, (shp, n_live)) in enumerate(scannet_conv_cases().items()):
         b, m, n, k, g, f, q, c, o = shp
-        args = list(conv_inputs(*shp, seed=40 + i, dev=dev))
-        args[3] = torch.where(args[4], args[3], torch.zeros_like(args[3]))  # invalid slots hold 0
+        args, gout = scannet_conv_args(i, shp, n_live, dev)
+        live = kfe.live_row_table(args[4])
         bounds = conv_bounds(shp, args[4])
         with torch.no_grad():
             got = kfe.fused_equiv_fwd(*args)
@@ -326,11 +487,10 @@ def scannet_conv_kernels(card, dev) -> dict:
         if not (finite and fwd_err[1] <= KERNEL_RTOL):
             raise SystemExit(f"forward kernel disagrees with its plain version at {name}")
 
-        gout = torch.randn(b, m, g, o, device=dev, generator=torch.Generator(device=dev).manual_seed(50 + i))
         tabs = backward_sort_tables(Neighborhood(args[3], args[4], args[4].any(-1)), n)
-        got = kfe.fused_equiv_bwd(*args, gout)
+        got = kfe.fused_equiv_bwd(*args, gout, live_rows=live)
         ref = kfe.fused_equiv_bwd_reference(*args, gout)
-        got_s = kfe.fused_equiv_bwd(*args, gout, sorted_slot=tabs.bwd_slot)
+        got_s = kfe.fused_equiv_bwd(*args, gout, sorted_slot=tabs.bwd_slot, live_rows=live)
         ref_s = kfe.fused_equiv_bwd_reference(*args, gout, sorted_slot=tabs.bwd_slot)
         summed = segsum.sorted_segment_sum(got_s[0], tabs.bwd_run_start, tabs.bwd_run_end)
         prefix_scale = float(segsum.blocked_cumsum(got_s[0]).abs().max())
@@ -342,11 +502,15 @@ def scannet_conv_kernels(card, dev) -> dict:
         seg_err = float((summed.reshape(ref[0].shape) - ref[0]).abs().max())
         seg_limit = SEGSUM_EPS_FACTOR * torch.finfo(torch.float32).eps * prefix_scale
         finite = all(bool(torch.isfinite(x).all()) for x in (*got, *got_s))
-        same_params = all(torch.equal(x, y) for x, y in zip(got[1:], got_s[1:]))
-        del got, ref, got_s, ref_s, summed
-        bwd_ms = cuda_ms(lambda: kfe.fused_equiv_bwd(*args, gout), 10)
-        bwd_sorted_ms = cuda_ms(lambda: kfe.fused_equiv_bwd(*args, gout, sorted_slot=tabs.bwd_slot), 10)
+        again = kfe.fused_equiv_bwd(*args, gout, live_rows=live)
+        same_params = all(torch.equal(x, y) and torch.equal(x, z)
+                          for x, y, z in zip(got[1:], got_s[1:], again[1:]))
+        del got, ref, got_s, ref_s, summed, again
+        bwd_ms = cuda_ms(lambda: kfe.fused_equiv_bwd(*args, gout, live_rows=live), 10)
+        bwd_sorted_ms = cuda_ms(
+            lambda: kfe.fused_equiv_bwd(*args, gout, sorted_slot=tabs.bwd_slot, live_rows=live), 10)
         bwd_plain = cuda_ms(lambda: kfe.fused_equiv_bwd_reference(*args, gout), 3)
+        lib_ms = products_matmul_ms(live.numel() * g, args[7], 55 + i)
         for mode, e in (("scatter", errs), ("sorted", errs_s)):
             print(f"scannet_bwd_kernel_vs_plain {name} mode {mode}: "
                   + " ".join(f"{w}: max_abs_err={v[0]:.3e} max_rel_err={v[1]:.3e}" for w, v in e.items())
@@ -354,10 +518,14 @@ def scannet_conv_kernels(card, dev) -> dict:
         print(f"scannet_bwd_kernel_vs_plain {name} mode sorted: d_feats by segment sums of the rows: "
               f"max_abs_err={seg_err:.3e} (bound {seg_limit:.3e} = {SEGSUM_EPS_FACTOR} eps x max|prefix| "
               f"{prefix_scale:.3e}) [{card}]", flush=True)
-        print(f"scannet_bwd_kernel_vs_plain {name}: kernel_ms scatter {bwd_ms:.4f} sorted-rows "
-              f"{bwd_sorted_ms:.4f} plain_ms {bwd_plain:.4f} bound_ms={bounds['bwd']['bound_ms']:.4f} "
-              f"({bounds['bwd']['bound_by']}, {bounds['bwd']['gflop']:.2f} GFLOP); parameter "
-              f"gradients equal across modes: {same_params} [{card}]", flush=True)
+        print(f"scannet_bwd_kernel_vs_plain {name}: {live.numel()} live of {b * m} rows; kernel_ms "
+              f"scatter {bwd_ms:.4f} sorted-rows {bwd_sorted_ms:.4f} plain_ms {bwd_plain:.4f} "
+              f"bound_ms={bounds['bwd']['bound_ms']:.4f} ({bounds['bwd']['bound_by']}, "
+              f"{bounds['bwd']['gflop']:.2f} GFLOP, the two products at the 3xTF32 tensor-core "
+              f"ceiling; {bounds['bwd']['bound_f32_ms']:.4f} with every FLOP at the float32 peak); "
+              f"torch.matmul float32 (no TF32) for "
+              f"d_w and dbasis over the same live rows {lib_ms:.4f} ms; parameter gradients equal "
+              f"across modes and calls: {same_params} [{card}]", flush=True)
         if not (finite and same_params and seg_err <= seg_limit
                 and all(v[1] <= BWD_RTOL for e in (errs, errs_s) for v in e.values())):
             raise SystemExit(f"backward kernel disagrees with its plain version at {name}")
@@ -365,11 +533,57 @@ def scannet_conv_kernels(card, dev) -> dict:
             fwd=dict(ms=fwd_ms, plain_ms=fwd_plain, max_abs_err=fwd_err[0], **bounds["fwd"]),
             bwd=dict(ms=bwd_ms, ms_sorted_rows=bwd_sorted_ms, plain_ms=bwd_plain,
                      max_abs_err=max(v[0] for e in (errs, errs_s) for v in e.values()),
-                     segment_sum_max_abs_err=seg_err, **bounds["bwd"]),
+                     segment_sum_max_abs_err=seg_err, products_library_ms=lib_ms, **bounds["bwd"]),
         )
-        del args, gout, tabs
+        del args, gout, tabs, live
         torch.cuda.empty_cache()
     return out
+
+
+def scannet_conv_cases() -> dict:
+    """Phase 9's convs: ``name: (shape, live rows per example or None)``."""
+    cases = {name: (shp, None) for name, shp in SCANNET_SHAPES.items()}
+    cases.update({name: (SCANNET_SHAPES[base], live) for name, (base, live) in SCANNET_PADDED.items()})
+    return cases
+
+
+def scannet_conv_args(i, shp, n_live, dev) -> tuple:
+    """The seeded operands and ``gout`` of phase 9's ``i``-th conv; rows past
+    ``n_live`` (if given) are padding, with no valid edge."""
+    b, m, n, k, g, f, q, c, o = shp
+    args = list(conv_inputs(*shp, seed=40 + i, dev=dev))
+    if n_live is not None:
+        args[4][:, n_live:] = False
+    args[3] = torch.where(args[4], args[3], torch.zeros_like(args[3]))  # invalid slots hold 0
+    gout = torch.randn(b, m, g, o, device=dev, generator=torch.Generator(device=dev).manual_seed(50 + i))
+    return args, gout
+
+
+def scannet_bwd_passes(card, dev, conv: dict) -> None:
+    """Device ms of each conv backward pass at phase 9's shapes
+    (``torch.profiler`` over 3 calls), into ``conv[name]["bwd"]``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from se3conv3d_tpu_torch.kernels import fused_equiv as kfe
+
+    for i, (name, (shp, n_live)) in enumerate(scannet_conv_cases().items()):
+        args, gout = scannet_conv_args(i, shp, n_live, dev)
+        live = kfe.live_row_table(args[4])
+        kfe.fused_equiv_bwd(*args, gout, live_rows=live)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                kfe.fused_equiv_bwd(*args, gout, live_rows=live)
+            torch.cuda.synchronize()
+        passes = {p: ms / 3 for p, ms in bwd_pass_ms(device_rows(prof)).items()}
+        bwd = conv[name]["bwd"]
+        bwd["passes_ms"] = passes
+        print(f"scannet_bwd_passes {name}: device ms per call "
+              + ", ".join(f"{p} {ms:.4f}" for p, ms in passes.items())
+              + f" (products: {passes['d_w product'] + passes['dbasis product']:.4f}; torch.matmul "
+              f"{bwd['products_library_ms']:.4f}) [{card}]", flush=True)
+        del args, gout, live
+        torch.cuda.empty_cache()
 
 
 def scannet_cumsum(card, dev) -> dict:
@@ -421,12 +635,15 @@ def scannet_cumsum(card, dev) -> dict:
     limit = SEGSUM_EPS_FACTOR * torch.finfo(torch.float32).eps * scale
     seg_ms = cuda_ms(lambda: segsum.sorted_segment_sum(srt, tabs.bwd_run_start[0], tabs.bwd_run_end[0]), 20)
     lib_ms = cuda_ms(lambda: torch.zeros(n, c, device=dev).index_add_(0, flat, rows), 20)
+    # bound: read the sorted rows and the two int64 run tables once, write the sums once
+    seg_bound = (4.0 * m * k * c + 16.0 * n + 4.0 * n * c) / PEAK_BYTES_PER_S * 1e3
     print(f"segment_sum_vs_index_add scannet_level0 [{m * k} x {c}] -> [{n} x {c}]: max_abs_err="
           f"{err:.3e} (bound {limit:.3e} = {SEGSUM_EPS_FACTOR} eps x max|prefix| {scale:.3e}) "
-          f"sorted_segment_sum_ms={seg_ms:.4f} index_add_ms={lib_ms:.4f} [{card}]", flush=True)
+          f"sorted_segment_sum_ms={seg_ms:.4f} index_add_ms={lib_ms:.4f} bound_ms={seg_bound:.4f} "
+          f"(bytes) [{card}]", flush=True)
     if not err <= limit:
         raise SystemExit("sorted segment sums disagree with index_add_")
-    out["segment_sum_level0"] = dict(ms=seg_ms, library_ms=lib_ms, max_abs_err=err)
+    out["segment_sum_level0"] = dict(ms=seg_ms, library_ms=lib_ms, max_abs_err=err, bound_ms=seg_bound)
     return out
 
 
@@ -684,10 +901,35 @@ def scannet_train(card, dev, trainer, batch, kfe, segsum, ops) -> dict:
     return result
 
 
-def scannet_split(card, dev, trainer, batch, ops, drop_path_draws) -> dict:
+@contextlib.contextmanager
+def watching_live_rows(kfe):
+    """Within: each call of the conv backward wrapper records ``(live rows
+    it was given, or -1 if none, capacity rows B*M)``."""
+    real, seen = kfe.fused_equiv_bwd, []
+
+    def watched(*args, **kwargs):
+        live = kwargs.get("live_rows", args[10] if len(args) > 10 else None)
+        seen.append((-1 if live is None else live.numel(), args[4].shape[0] * args[4].shape[1]))
+        return real(*args, **kwargs)
+
+    # the wrapper counts its launches on the module's fused_equiv_bwd: here
+    # that is `watched`, which carries the count and hands it back
+    watched.launches = real.launches
+    kfe.fused_equiv_bwd = watched
+    try:
+        yield seen
+    finally:
+        kfe.fused_equiv_bwd = real
+        real.launches = watched.launches
+
+
+def scannet_split(card, dev, trainer, batch, ops, drop_path_draws, kfe) -> dict:
     """Host-clock split of one scan_scenes step per backward mode, with a
     synchronise at each boundary: per room the hierarchy build, the
-    train-mode forward with the loss, and the backward; then the optimizer."""
+    train-mode forward with the loss, and the backward; then the optimizer.
+    Also counts the live rows the step's conv backwards walked against
+    their capacity rows; each must have been given its neighborhood's
+    table (no host synchronisation per conv)."""
     from se3conv3d_tpu_torch.train.losses import masked_segmentation_loss_parts
 
     model, gen = trainer.model, torch.Generator(device=dev).manual_seed(85)
@@ -698,22 +940,23 @@ def scannet_split(card, dev, trainer, batch, ops, drop_path_draws) -> dict:
         model.train()
         model.zero_grad(set_to_none=True)
         torch.cuda.synchronize()
-        for i in range(batch["mask"].shape[0]):
-            t0 = time.perf_counter()
-            h, f0, out_pc, labels, _ = trainer.build({k: v[i : i + 1] for k, v in batch.items()}, gen)
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            total, _ = masked_segmentation_loss_parts(
-                model(h, f0, out_pc, drops=drop_path_draws(gen)), labels, out_pc.mask,
-                trainer.label_smoothing, trainer.ignore_label)
-            torch.cuda.synchronize()
-            t2 = time.perf_counter()
-            total.backward()
-            torch.cuda.synchronize()
-            t3 = time.perf_counter()
-            parts["build"] += t1 - t0
-            parts["forward"] += t2 - t1
-            parts["backward"] += t3 - t2
+        with watching_live_rows(kfe) as seen:
+            for i in range(batch["mask"].shape[0]):
+                t0 = time.perf_counter()
+                h, f0, out_pc, labels, _ = trainer.build({k: v[i : i + 1] for k, v in batch.items()}, gen)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                total, _ = masked_segmentation_loss_parts(
+                    model(h, f0, out_pc, drops=drop_path_draws(gen)), labels, out_pc.mask,
+                    trainer.label_smoothing, trainer.ignore_label)
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                total.backward()
+                torch.cuda.synchronize()
+                t3 = time.perf_counter()
+                parts["build"] += t1 - t0
+                parts["forward"] += t2 - t1
+                parts["backward"] += t3 - t2
         t0 = time.perf_counter()
         trainer.optimizer.step()
         torch.cuda.synchronize()
@@ -721,6 +964,12 @@ def scannet_split(card, dev, trainer, batch, ops, drop_path_draws) -> dict:
         out[mode] = {k: v * 1e3 for k, v in parts.items()}
         print(f"scannet_split: mode {mode}, ms per step of {batch['mask'].shape[0]} rooms: "
               + ", ".join(f"{k} {v:.2f}" for k, v in out[mode].items()) + f" [{card}]", flush=True)
+        live, cap = sum(x[0] for x in seen), sum(x[1] for x in seen)
+        print(f"scannet_live_rows: mode {mode}: {len(seen)} conv backwards walked {live} live rows "
+              f"of {cap} capacity rows ({100.0 * live / cap:.2f}%) [{card}]", flush=True)
+        if len(seen) != SCANNET_CONVS * SCENES or any(x[0] < 0 for x in seen):
+            raise SystemExit("a conv backward of the ScanNet step was not given its live-row table")
+        out[mode]["live_rows"], out[mode]["capacity_rows"] = live, cap
     ops.BWD_SCATTER_MODE = "scatter"
     return out
 
@@ -741,21 +990,18 @@ def scannet_profile(card, trainer, batch, ops) -> dict:
             trainer.train_step(batch, gen)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-        rows = []
-        for ev in prof.key_averages():
-            dev_us = getattr(ev, "self_device_time_total", None)
-            if dev_us is None:
-                dev_us = getattr(ev, "self_cuda_time_total", 0.0)
-            if dev_us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
-                rows.append((dev_us / 1e3, ev.count, ev.key))
-        rows.sort(reverse=True)
+        rows = device_rows(prof)
         busy = sum(r[0] for r in rows)
+        passes = bwd_pass_ms(rows)
         print(f"scannet_profile: mode {mode}: step {wall_ms:.1f} ms under the profiler, device busy "
               f"{busy:.1f} ms ({100 * (1 - busy / wall_ms):.1f}% idle), {sum(r[1] for r in rows)} kernel "
               f"launches [{card}]", flush=True)
         for ms, n, key in rows[:14]:
             print(f"scannet_profile:   {ms:9.2f} ms {n:6d}x {key[:110]}")
-        out[mode] = dict(wall_ms=wall_ms, busy_ms=busy, top=[(k[:110], ms, n) for ms, n, k in rows[:14]])
+        print(f"scannet_profile: mode {mode}: conv backward {sum(passes.values()):.2f} ms: "
+              + ", ".join(f"{p} {ms:.2f}" for p, ms in passes.items()) + f" [{card}]", flush=True)
+        out[mode] = dict(wall_ms=wall_ms, busy_ms=busy, bwd_passes_ms=passes,
+                         top=[(k[:110], ms, n) for ms, n, k in rows[:14]])
     ops.BWD_SCATTER_MODE = "scatter"
     return out
 
@@ -797,7 +1043,6 @@ def run_scannet(card, dev, recorded_draws, drop_path_draws) -> dict:
     from se3conv3d_tpu_torch.kernels import segsum
     from se3conv3d_tpu_torch.models import presets
     from se3conv3d_tpu_torch.ops import pne_conv as ops
-    from se3conv3d_tpu_torch.train import schedule
     from se3conv3d_tpu_torch.train.config import build_model_from_config
     from se3conv3d_tpu_torch.train.trainer import Trainer
 
@@ -812,7 +1057,7 @@ def run_scannet(card, dev, recorded_draws, drop_path_draws) -> dict:
     s_hcfg = presets.hierarchy_config_from_model_dict(s_model, SCENE_POINTS, train=True)
     s_eval_hcfg = presets.hierarchy_config_from_model_dict(s_model, SCENE_POINTS, train=False)
     feats, classes = presets.SCANNET_NUM_FEATURES, presets.SCANNET20_NUM_CLASSES
-    rooms = to_device(stack_scenes([room_scene(SCENE_POINTS, 100 + i) for i in range(SCENES)]), dev)
+    rooms = scannet_rooms(dev)
     model = seed_gammas(build_model_from_config(s_model, feats, classes,
                                                 generator=torch.Generator().manual_seed(0)))
     if next(model.parameters()).device.type != dev.type:
@@ -832,17 +1077,14 @@ def run_scannet(card, dev, recorded_draws, drop_path_draws) -> dict:
     torch.cuda.empty_cache()
 
     # 13.-14. scan_scenes training, the two backward modes in turns
-    model = seed_gammas(build_model_from_config(s_model, feats, classes,
-                                                generator=torch.Generator().manual_seed(0)))
-    opt = schedule.optimizer_from_training(model.parameters(), s_training, len(SCANNET_MODE_ORDER))
-    trainer = Trainer(model, s_hcfg, s_eval_hcfg, label_smoothing=s_training["label_smoothing"],
-                      ignore_label=presets.SCANNET20_IGNORE_LABEL, optimizer=opt,
-                      scan_scenes=s_training["scan_scenes"])
-    trainer.calibration_step(room0, torch.Generator(device=dev).manual_seed(120))
+    trainer = scannet_trainer(dev, room0)
     scan_train = scannet_train(card, dev, trainer, rooms, kfe, segsum, ops)
-    scan_train["split_ms"] = scannet_split(card, dev, trainer, rooms, ops, drop_path_draws)
+    scan_train["split_ms"] = scannet_split(card, dev, trainer, rooms, ops, drop_path_draws, kfe)
     scan_train["profile"] = scannet_profile(card, trainer, rooms, ops)
     scannet_mode_grads(card, dev, trainer, room0, ops, recorded_draws, drop_path_draws)
+    del trainer, rooms
+    torch.cuda.empty_cache()
+    scannet_bwd_passes(card, dev, scan_conv)
 
     return dict(conv=scan_conv, cumsum=scan_cumsum, grid=grid, eval=scan_eval, train=scan_train)
 
@@ -886,7 +1128,10 @@ def kernels_line(dfaust: dict, scan: dict) -> dict:
         "launches_by_path": bwd_paths,
         "max_abs_err": max(v["max_abs_err"] for v in by_shape_bwd.values()),
         "ms": bwd0["ms"], "plain_ms": bwd0["plain_ms"],
-        "bound_ms": bwd0["bound_ms"], "bound_by": bwd0["bound_by"], "library_ms": None,
+        "bound_ms": bwd0["bound_ms"], "bound_by": bwd0["bound_by"], "bound_f32_ms": bwd0["bound_f32_ms"],
+        "library_ms": bwd0["products_library_ms"],
+        "library_call": "torch.matmul, float32 without TF32, for the d_w and dbasis products "
+                        "over the same live rows (no PyTorch call computes the whole backward)",
         "at": at, "by_shape": by_shape_bwd,
     }, {
         "name": "blocked_cumsum",
@@ -911,17 +1156,15 @@ def main() -> int:
         print("chip_smoke: run it from the repository that holds it", file=sys.stderr)
         return 1
     from se3conv3d_tpu_torch.core.hierarchy import rotate_cloud, rotate_hierarchy
+    from se3conv3d_tpu_torch.core.neighborhoods import Neighborhood
     from se3conv3d_tpu_torch.core.rotation import random_rotations
     from se3conv3d_tpu_torch.kernels import fused_equiv as kfe
-    from se3conv3d_tpu_torch.kernels import segsum
     from se3conv3d_tpu_torch.kernels.build import build_libraries
     from se3conv3d_tpu_torch.models import FPNSegUNet
     from se3conv3d_tpu_torch.models import presets
     from se3conv3d_tpu_torch.nn.blocks import DropPathDraws
-    from se3conv3d_tpu_torch.nn.norm import MaskedBatchNorm
-    from se3conv3d_tpu_torch.ops import pne_conv as ops
+    from se3conv3d_tpu_torch.ops.pne_conv import backward_sort_tables
     from se3conv3d_tpu_torch.train import schedule
-    from se3conv3d_tpu_torch.train.config import build_model_from_config
     from se3conv3d_tpu_torch.train.trainer import Trainer
 
     class RecordedDraws(DropPathDraws):
@@ -1060,69 +1303,45 @@ def main() -> int:
         gout = torch.randn(b, m, g_, o, device=dev, generator=torch.Generator(device=dev).manual_seed(30 + i))
         got = kfe.fused_equiv_bwd(*args, gout)
         ref = kfe.fused_equiv_bwd_reference(*args, gout)
+        # the sorted-slot output mode, and the parameter gradients bitwise
+        # equal across modes and calls
+        slot = backward_sort_tables(Neighborhood(args[3], args[4], args[4].any(-1)), shp[2]).bwd_slot
+        got_s = kfe.fused_equiv_bwd(*args, gout, sorted_slot=slot)
+        ref_s = kfe.fused_equiv_bwd_reference(*args, gout, sorted_slot=slot)
+        again = kfe.fused_equiv_bwd(*args, gout)
         torch.cuda.synchronize()
         errs = {what: max_rel_err(x, y) for what, x, y in
                 zip(("d_feats", "d_proj_axes", "d_proj_biases", "d_conv_weights"), got, ref)}
-        finite = all(bool(torch.isfinite(x).all()) for x in got)
-        del got, ref
+        errs["d_sorted_rows"] = max_rel_err(got_s[0], ref_s[0])
+        finite = all(bool(torch.isfinite(x).all()) for x in (*got, got_s[0]))
+        same_params = all(torch.equal(x, y) and torch.equal(x, z)
+                          for x, y, z in zip(got[1:], got_s[1:], again[1:]))
+        del got, ref, got_s, ref_s, again, slot
         ms = cuda_ms(lambda: kfe.fused_equiv_bwd(*args, gout), 10)
         plain_ms = cuda_ms(lambda: kfe.fused_equiv_bwd_reference(*args, gout), 3)
+        bounds = conv_bounds(shp, args[4])["bwd"]
+        lib_ms = products_matmul_ms(bounds["live_rows"] * g_, args[7], 35 + i)
         bwd_compared[name] = dict(max_abs_err=max(e[0] for e in errs.values()),
                                   max_rel_err=max(e[1] for e in errs.values()), ms=ms, plain_ms=plain_ms,
-                                  **conv_bounds(shp, args[4])["bwd"])
+                                  products_library_ms=lib_ms, **bounds)
         print(f"bwd_kernel_vs_plain {name} B,M,N,K,G,F,Q,C,O={shp}: "
               + " ".join(f"{w}: max_abs_err={e[0]:.3e} max_rel_err={e[1]:.3e}" for w, e in errs.items())
-              + f" kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} (bound {BWD_RTOL}) [{card}]", flush=True)
-        if not (finite and all(e[1] <= BWD_RTOL for e in errs.values())):
+              + f" kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} (bound {BWD_RTOL}); bound_ms="
+              f"{bounds['bound_ms']:.4f} ({bounds['bound_by']}, the two products at the 3xTF32 "
+              f"tensor-core ceiling; {bounds['bound_f32_ms']:.4f} with every FLOP at the float32 "
+              f"peak); torch.matmul float32 for d_w and dbasis "
+              f"{lib_ms:.4f} ms; parameter gradients equal across modes and calls: {same_params} "
+              f"[{card}]", flush=True)
+        if not (finite and same_params and all(e[1] <= BWD_RTOL for e in errs.values())):
             raise SystemExit(f"backward kernel disagrees with its plain version at {name}")
         del args, gout
         torch.cuda.empty_cache()
 
     # 7. the training slice at full width
     training = presets.DFAUST_I_ROT_PCA_2F_TRAINING
-    model = seeded_model(FPNSegUNet, spec, dev)
-    opt = schedule.optimizer_from_training(model.parameters(), training, TRAIN_STEPS)
-    trainer = Trainer(model, hcfg, eval_hcfg, label_smoothing=training["label_smoothing"],
-                      optimizer=opt)
-    gen = torch.Generator(device=dev).manual_seed(7)
-    bns = {n: mod for n, mod in model.named_modules() if isinstance(mod, MaskedBatchNorm)}
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    kfe.fused_equiv_fwd.launches = kfe.fused_equiv_bwd.launches = 0
-    trainer.calibration_step(batch, gen)
-    bn_before = {n: mod.mean.clone() for n, mod in bns.items()}
-    train_fwd_calib = kfe.fused_equiv_fwd.launches
-    step_s, per_step = [], []
-    for step in range(TRAIN_STEPS):
-        lr = opt.lr
-        before = kfe.fused_equiv_fwd.launches, kfe.fused_equiv_bwd.launches
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = trainer.train_step(batch, gen)
-        torch.cuda.synchronize()
-        step_s.append(time.perf_counter() - t0)
-        loss, gnorm = float(out["loss"]), float(out["grad_norm"])
-        fwd_n = kfe.fused_equiv_fwd.launches - before[0]
-        bwd_n = kfe.fused_equiv_bwd.launches - before[1]
-        per_step.append((loss, gnorm, fwd_n, bwd_n))
-        print(f"train: step {step} lr {lr:.6e} loss {loss:.6f} grad_norm {gnorm:.6f} "
-              f"launches fwd {fwd_n} bwd {bwd_n} time {step_s[-1]:.4f} s [{card}]", flush=True)
-    train_fwd, train_bwd = kfe.fused_equiv_fwd.launches, kfe.fused_equiv_bwd.launches
-    train_peak = torch.cuda.max_memory_allocated()
-    train_median = statistics.median(step_s)
-    print(f"train: calibration launches {train_fwd_calib}; train_step median {train_median:.4f} s "
-          f"(all {[round(x, 4) for x in step_s]}), {BATCH * POINTS / train_median:.1f} input points/s, "
-          f"peak memory {train_peak / 2**30:.3f} GiB; launches fwd {train_fwd} bwd {train_bwd} "
-          f"[{card}]", flush=True)
-    if not all(np.isfinite(lo) and np.isfinite(gn) for lo, gn, _, _ in per_step):
-        raise SystemExit("non-finite loss or gradients in a train step")
-    if train_fwd_calib != CONVS_PER_FORWARD or any(
-            (f_, b_) != (CONVS_PER_FORWARD, CONVS_PER_FORWARD) for _, _, f_, b_ in per_step):
-        raise SystemExit(f"expected {CONVS_PER_FORWARD} forward and backward kernel launches per step")
-    still = [n for n, mod in bns.items() if torch.equal(mod.mean, bn_before[n])]
-    print(f"train: {len(bns) - len(still)} of {len(bns)} BN running means moved")
-    if still:
-        raise SystemExit(f"BN running mean did not move: {still[:5]}")
+    trainer, dfaust_steps = dfaust_train(card, dev, batch)
+    model = trainer.model
+    train_fwd, train_bwd = dfaust_steps["launches"]
 
     # 8. parameter gradients, card vs CPU, on two clouds
     small = to_device(body_batch(2, POINTS, seed=4), dev)

@@ -91,6 +91,10 @@ class Neighborhood:
         tables of the 'sorted' backward reduction
         (``ops.pne_conv.backward_sort_tables``): ``[B, M*K]`` permutation
         sorting the edges by source and its inverse, ``[B, N]`` run bounds.
+      live_rows: optional ``[L]`` int32 table of the query rows ``b*M + m``
+        with at least one valid edge, ascending
+        (``kernels.fused_equiv.live_row_table``): the rows the conv
+        backward works on.
     """
 
     idx: torch.Tensor
@@ -105,6 +109,7 @@ class Neighborhood:
     bwd_slot: Optional[torch.Tensor] = None
     bwd_run_start: Optional[torch.Tensor] = None
     bwd_run_end: Optional[torch.Tensor] = None
+    live_rows: Optional[torch.Tensor] = None
 
 
 def _chunked_topk_neighbors(src_pos, src_mask, query_pos, query_mask, k, radius2, chunk,

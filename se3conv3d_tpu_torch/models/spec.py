@@ -15,6 +15,7 @@ from ..core.neighborhoods import (
     knn_neighborhood,
 )
 from ..core.pointcloud import PointCloud
+from ..kernels.fused_equiv import live_row_table
 from ..nn.conv import ConvFactory
 from ..ops import pne_conv as ops
 
@@ -69,7 +70,10 @@ class NeighborhoodProvider:
     ``get(src, dst, radius, neigh_type, k)`` builds the table from level
     ``src`` to level ``dst`` once per key and attaches the layer-independent
     edge geometry (``equiv_rel`` / ``equiv_rot``) that every conv on it
-    shares -- the reference's rot-tensor cache.  In the 'sorted' backward
+    shares -- the reference's rot-tensor cache.  With autograd on, every
+    neighborhood also gets the live-row table of its convs' backwards
+    (``live_rows``; one host synchronisation per neighborhood).  In the
+    'sorted' backward
     mode, with autograd on, a self neighborhood (``src == dst``: the block
     stack's) also gets the sort tables its convs' backwards share; a
     single-use one builds them in its conv (``ops.pne_conv``), as in the
@@ -96,7 +100,8 @@ class NeighborhoodProvider:
         else:
             raise ValueError(f"unknown neighborhood type {neigh_type!r}")
         rel, rot6 = ops.equiv_geometry_parts(src_pc, dst_pc, neigh)
-        return dataclasses.replace(neigh, equiv_rel=rel, equiv_rot=rot6)
+        live = live_row_table(neigh.mask) if torch.is_grad_enabled() else None
+        return dataclasses.replace(neigh, equiv_rel=rel, equiv_rot=rot6, live_rows=live)
 
     def get(self, src: int, dst: int, radius: float, neigh_type: str, k: int) -> Neighborhood:
         key = (src, dst, round(float(radius), 9), neigh_type, k)

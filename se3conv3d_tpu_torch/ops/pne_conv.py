@@ -149,8 +149,8 @@ def fused_equiv_conv(
     ``norm_dist`` folds into the three offset rows of the projection
     (``act((s*rel) @ A + rot @ B + b) == act(rel @ (s*A) + ...)``), invalid
     edges contribute zero, and the output is scaled by
-    ``norm_num_neighs / F``.  Uses the neighborhood's cached geometry when
-    present.  CUDA tensors run the CUDA kernels, CPU tensors their plain
+    ``norm_num_neighs / F``.  Uses the neighborhood's cached geometry and
+    live-row table when present.  CUDA tensors run the CUDA kernels, CPU tensors their plain
     versions (``kernels.fused_equiv``), forward and backward.  Gradients
     reach ``features``, ``proj_axes`` (through the ``norm_dist`` fold),
     ``proj_biases`` and ``conv_weights``; the two calibration buffers get
@@ -171,6 +171,6 @@ def fused_equiv_conv(
     pa_scaled = torch.cat([proj_axes[:3] * norm_dist, proj_axes[3:]], 0)
     out = fused_equiv(
         rel, rot6, features.contiguous(), neigh.idx, neigh.mask,
-        pa_scaled, proj_biases.contiguous(), conv_weights.contiguous(), tables,
+        pa_scaled, proj_biases.contiguous(), conv_weights.contiguous(), tables, neigh.live_rows,
     )
     return out * (norm_num_neighs / features.shape[2])

@@ -6,7 +6,8 @@ file imports torch only, so the card runs it without JAX:
 Tolerances: both sides sum in float32 in different orders, so
 ``max |kernel - plain| <= 1e-5 * max |plain|`` for the forward and the
 prefix sum; the backward's parameter gradients sum over every edge of the
-batch, so ``1e-4 * max |plain|`` for each of its four outputs.
+batch (its two products in 3xTF32 on the tensor cores), so ``1e-4 * max
+|plain|`` for each of its four outputs.
 """
 import pytest
 import torch
@@ -72,7 +73,8 @@ def test_backward_kernel_matches_plain_version(name):
     got = kfe.fused_equiv_bwd(*args, gout)
     torch.cuda.synchronize()
     ref = kfe.fused_equiv_bwd_reference(*args, gout)
-    assert kfe.fused_equiv_bwd.launches == before + 1
+    # no query row with a valid edge: zeros, and nothing to launch
+    assert kfe.fused_equiv_bwd.launches == before + (name != "all_masked_tiles")
     for what, x, y in zip(("d_feats", "d_proj_axes", "d_proj_biases", "d_conv_weights"), got, ref):
         assert x.shape == y.shape and torch.isfinite(x).all(), what
         if name == "all_masked_tiles":
@@ -200,3 +202,79 @@ def test_cumsum_and_sorted_wrappers_reject_what_they_do_not_take():
         kfe.fused_equiv_bwd(*args, gout, sorted_slot=slot.int())
     with pytest.raises(ValueError):
         kfe.fused_equiv_bwd(*args, gout, sorted_slot=slot[:, :-1])
+
+
+LIVE_SHAPES = {
+    # name: B, M, N, K, G, F, Q, C, O, valid-edge fraction, live-prefix fraction
+    # (the rows past each example's live prefix are fully masked)
+    "live_15pct_scannet_like": (1, 4096, 4096, 24, 1, 1, 32, 64, 64, 0.7, 0.15),
+    "live_15pct_g2_wide": (2, 600, 500, 16, 2, 2, 32, 256, 256, 0.7, 0.15),
+    "live_count_off_tiles": (3, 333, 200, 12, 2, 2, 16, 24, 20, 0.6, 0.31),  # 309 live rows
+    "live_few_rows_level4_like": (1, 512, 512, 24, 1, 1, 32, 320, 320, 0.7, 0.08),
+    # C*Q = 333 and O = 70 are not multiples of 4: the products copy 4 bytes at a time
+    "live_unaligned_widths": (2, 150, 120, 10, 2, 2, 9, 37, 70, 0.6, 0.5),
+}
+
+
+def _live_inputs(name):
+    b, m, n, k, g, f, q, c, o, frac, live = LIVE_SHAPES[name]
+    args = list(_inputs(b, m, n, k, g, f, q, c, o, frac, seed=20 + sorted(LIVE_SHAPES).index(name)))
+    args[4][:, int(live * m):] = False
+    args[3] = torch.where(args[4], args[3], torch.zeros_like(args[3]))  # as the searches clamp
+    gout = torch.randn(b, m, g, o, device="cuda", generator=torch.Generator(device="cuda").manual_seed(8))
+    return args, gout
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(LIVE_SHAPES))
+def test_backward_kernel_on_live_rows_matches_plain_version(name):
+    """A live prefix per example, the rest of the rows fully masked: both
+    output modes against the plain version (which walks every row), and the
+    parameter gradients bitwise equal over two calls, across the modes and
+    with the live-row table given or built by the wrapper."""
+    _needs_card()
+    args, gout = _live_inputs(name)
+    b, m, n, k = LIVE_SHAPES[name][:4]
+    live = kfe.live_row_table(args[4])
+    assert 0 < live.numel() < b * m
+    tabs = _sort_tables(args[3], args[4], n)
+    before = kfe.fused_equiv_bwd.launches
+    got = kfe.fused_equiv_bwd(*args, gout, live_rows=live)
+    again = kfe.fused_equiv_bwd(*args, gout)
+    got_s = kfe.fused_equiv_bwd(*args, gout, sorted_slot=tabs.bwd_slot, live_rows=live)
+    torch.cuda.synchronize()
+    assert kfe.fused_equiv_bwd.launches == before + 3
+    ref = kfe.fused_equiv_bwd_reference(*args, gout)
+    ref_s = kfe.fused_equiv_bwd_reference(*args, gout, sorted_slot=tabs.bwd_slot)
+    for what, x, y in zip(("d_feats", "d_proj_axes", "d_proj_biases", "d_conv_weights"), got, ref):
+        assert x.shape == y.shape and torch.isfinite(x).all(), what
+        err = (x - y).abs().max().item()
+        assert err <= BWD_RTOL * y.abs().max().item(), (what, err, y.abs().max().item())
+    err = (got_s[0] - ref_s[0]).abs().max().item()
+    assert err <= BWD_RTOL * ref_s[0].abs().max().item(), err
+    for x, y, z in zip(got[1:], again[1:], got_s[1:]):
+        assert torch.equal(x, y) and torch.equal(x, z)
+
+
+@pytest.mark.cuda
+def test_backward_kernel_with_no_live_row_returns_zeros_without_a_launch():
+    _needs_card()
+    args, gout = _live_inputs("live_count_off_tiles")
+    args[4][:] = False
+    live = kfe.live_row_table(args[4])
+    assert live.numel() == 0 and live.dtype == torch.int32
+    before = kfe.fused_equiv_bwd.launches
+    for slot in (None, _sort_tables(args[3], args[4], LIVE_SHAPES["live_count_off_tiles"][2]).bwd_slot):
+        got = kfe.fused_equiv_bwd(*args, gout, sorted_slot=slot, live_rows=live)
+        assert not any(x.any() for x in got)
+    assert kfe.fused_equiv_bwd.launches == before
+
+
+@pytest.mark.cuda
+def test_backward_wrapper_rejects_a_bad_live_row_table():
+    _needs_card()
+    args, gout = _live_inputs("live_count_off_tiles")
+    live = kfe.live_row_table(args[4])
+    for bad in (live.long(), live.cpu(), live[None], torch.zeros(3 * 333 + 1, dtype=torch.int32, device="cuda")):
+        with pytest.raises(ValueError):
+            kfe.fused_equiv_bwd(*args, gout, live_rows=bad)
