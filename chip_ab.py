@@ -7,12 +7,14 @@ runs one process per turn (``A`` = OLD_ROOT, ``B`` = NEW_ROOT; by default
 A, B, B, A), each importing ``se3conv3d_tpu_torch`` from its root and
 driving it with the phases of the ``chip_smoke.py`` beside this file:
 
-- the conv backward kernel (CUDA-event median of 10, atomic-scatter mode,
-  called without a live-row table, as a kernel test calls it) at the
-  ScanNet level-0 and level-4 block convs, the padded level-0 conv and the
-  DFaust level-1 and level-4 convs;
-- the DFaust train step (``chip_smoke.dfaust_train``: median of 5 steps of
-  B=32 x 4096 after a calibration step, and the peak device memory);
+- the conv forward and backward kernels (CUDA-event medians of 20 and 10;
+  the backward in atomic-scatter mode; each given the live-row table where
+  its wrapper takes one, as the main path gives it) at the ScanNet level-0
+  and level-4 block convs, the padded level-0 conv and the DFaust level-1
+  and level-4 convs and the JAX bench's conv;
+- the DFaust eval and train steps (``chip_smoke.dfaust_eval``: median of 5
+  eval steps of B=32 x 4096 after a calibration step; ``dfaust_train``:
+  median of 5 train steps; the peak device memory of each);
 - the ScanNet-20 ``scan_scenes`` train step (``chip_smoke.scannet_train``:
   6 rooms x 120,000 points, float32, the two backward modes in turns,
   median and peak device memory per mode).
@@ -23,6 +25,7 @@ and the card's name and power limit.
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import os
 import subprocess
@@ -30,11 +33,12 @@ import sys
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
-BWD_SHAPES = {
+CONV_SHAPES = {
     # name: (B, M, N, K, G, F, Q, C, O), live rows per example (None: every row)
     "scannet_level0": ((1, 131072, 131072, 24, 1, 1, 32, 64, 64), None),
     "scannet_level0_padded": ((1, 131072, 131072, 24, 1, 1, 32, 64, 64), 22_563),
     "scannet_level4": ((1, 512, 512, 24, 1, 1, 32, 320, 320), None),
+    "jax_bench": ((1, 65536, 65536, 16, 2, 2, 32, 64, 64), None),
     "dfaust_level1": ((32, 2048, 2048, 32, 2, 2, 32, 32, 32), None),
     "dfaust_level4": ((32, 128, 128, 32, 2, 2, 32, 256, 256), None),
 }
@@ -63,14 +67,21 @@ def side(root: str) -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev, card = torch.device("cuda"), cs.card_line()
     build_libraries()
-    bwd_ms = {}
-    for i, (name, (shp, live)) in enumerate(BWD_SHAPES.items()):
+    fwd_ms, bwd_ms = {}, {}
+    takes_table = "live_rows" in inspect.signature(kfe.fused_equiv_fwd).parameters
+    for i, (name, (shp, live)) in enumerate(CONV_SHAPES.items()):
         args, gout = cs.scannet_conv_args(i, shp, live, dev)
-        bwd_ms[name] = cs.cuda_ms(lambda: kfe.fused_equiv_bwd(*args, gout), 10)
-        del args, gout
+        table = {"live_rows": kfe.live_row_table(args[4])}
+        with torch.no_grad():
+            fwd_ms[name] = cs.cuda_ms(lambda: kfe.fused_equiv_fwd(*args, **(table if takes_table else {})), 20)
+        bwd_ms[name] = cs.cuda_ms(lambda: kfe.fused_equiv_bwd(*args, gout, **table), 10)
+        del args, gout, table
         torch.cuda.empty_cache()
-    out = dict(root=root, bwd_kernel_ms=bwd_ms)
+    out = dict(root=root, fwd_kernel_ms=fwd_ms, bwd_kernel_ms=bwd_ms)
     batch = cs.to_device(cs.body_batch(cs.BATCH, cs.POINTS, seed=2), dev)
+    trainer, out["dfaust_eval"] = cs.dfaust_eval(card, dev, batch)
+    del trainer
+    torch.cuda.empty_cache()
     trainer, out["dfaust_train"] = cs.dfaust_train(card, dev, batch)
     del trainer, batch
     torch.cuda.empty_cache()

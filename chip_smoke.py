@@ -12,7 +12,9 @@ kernels take no bf16 yet):
    prefix sum) from ``kernels/csrc`` with ``nvcc``, one process per source,
    in parallel;
 2. holds the forward kernel against its plain PyTorch version at the
-   slice's two extreme conv shapes and at the JAX bench's conv shape;
+   slice's two extreme conv shapes and at the JAX bench's conv shape, checks
+   that two calls give the same bits, and times ``torch.matmul`` for its
+   weight contraction over the same live rows;
 3. builds the model with a seeded init and runs one calibration step and a
    few eval steps on a synthetic batch of 32 body-like clouds of 4096
    points, counting the kernel's launches (21 per forward);
@@ -33,10 +35,10 @@ kernels take no bf16 yet):
 9. holds the conv kernels against their plain versions at the ScanNet
    level-0 and level-4 block convs and at a padded level-0 conv (the
    first 22,563 of 131,072 rows live, as the fullest synthetic room), the
-   backward in both feature-gradient output modes (atomic scatter; rows at
-   their sorted slots) with its device ms per pass, and times
-   ``torch.matmul`` for the backward's two products over the same live
-   rows beside it;
+   forward bitwise equal over two calls, the backward in both
+   feature-gradient output modes (atomic scatter; rows at their sorted
+   slots), each with its device ms per pass, and times ``torch.matmul``
+   for their products over the same live rows beside them;
 10. holds the prefix-sum kernel against its plain version at the level-0
     and level-4 edge counts, with ``torch.cumsum`` timed beside it, and
     ``sorted_segment_sum`` against ``index_add_`` on the same rows;
@@ -45,16 +47,17 @@ kernels take no bf16 yet):
     distance ties) and times both;
 12. builds the ScanNet model with ``build_model_from_config`` (on the card
     by default), runs a calibration step and eval steps on one room (32
-    conv launches per forward), checks rotation invariance, and card vs CPU
-    logits on a smaller room whose capacities still take the grid;
+    conv launches per forward, each given its neighborhood's live-row
+    table), checks rotation invariance, and card vs CPU logits on a smaller
+    room whose capacities still take the grid;
 13. trains with ``scan_scenes`` on 6 rooms x 120,000 points, the two
     feature-gradient modes in turns (scatter, sorted, sorted, scatter, ...),
     counting 192 forward and 192 backward launches per step and 192 prefix
     sums in sorted mode only, and checking finite losses and moved BN means;
     then one step per mode split on the host clock (with the live rows the
-    192 backwards walked against their capacity rows, each given its
-    neighborhood's table) and one under ``torch.profiler`` (device ms by
-    kernel and per backward pass);
+    192 forwards and 192 backwards walked against their capacity rows, each
+    given its neighborhood's table) and one under ``torch.profiler`` (device
+    ms by kernel and per forward and backward pass);
 14. checks that the two modes give the same parameter gradients on one
     room, with the same hierarchy and DropPath keep masks.
 
@@ -100,11 +103,13 @@ SEGSUM_EPS_FACTOR = 256
 # published float32 peak outside the tensor cores and HBM rate of one H100
 # SXM at 700 W (NVIDIA's H100 datasheet), for the bound of each kernel
 PEAK_F32_FLOPS, PEAK_BYTES_PER_S = 67e12, 3.35e12
-# the dense TF32 tensor-core peak of the same sheet; the backward's two
-# products run in 3xTF32 (three TF32 products per float32 one)
+# the dense TF32 tensor-core peak of the same sheet; the forward's weight
+# contraction and the backward's two products run in 3xTF32 (three TF32
+# products per float32 one)
 PEAK_TF32_FLOPS = 495e12
 # kernel vs plain: max |kernel - plain| <= KERNEL_RTOL * max |plain| (both
-# float32; they sum up to 64 edges x 32 basis x 256 channels in other orders)
+# float32; they sum up to 64 edges x 32 basis x 256 channels in other orders,
+# the kernel's weight contraction in 3xTF32)
 KERNEL_RTOL = 1e-5
 # whole-model logits: card vs CPU and rotated vs unrotated, max abs over the
 # valid output points (the repo's whole-model bound is 2e-4; rotating the
@@ -267,10 +272,11 @@ def conv_bounds(shape, mask) -> dict:
     out-frame the weight contraction (``2*C*Q*O``).  The backward counts,
     per edge, pne and basis once, ``dpne`` and ``d_feats`` (``2*Q*C`` each)
     and ``d_proj``/``d_bias`` (``2*10*Q``), and per live point the ``d_w``
-    and ``dbasis`` products (``2*C*Q*O`` each).  The backward runs those two
-    products on tensor cores in 3xTF32, so its bound takes them at that
-    ceiling (``PEAK_TF32_FLOPS / 3``) and the rest at the float32 peak;
-    ``bound_f32_ms`` takes every FLOP at the float32 peak.
+    and ``dbasis`` products (``2*C*Q*O`` each).  The forward's weight
+    contraction and the backward's two products run on tensor cores in
+    3xTF32, so the bounds take them at that ceiling (``PEAK_TF32_FLOPS /
+    3``) and the rest at the float32 peak; ``bound_f32_ms`` takes every FLOP
+    at the float32 peak.
     """
     b, m, n, k, g, f, q, c, o = shape
     edges = float(mask.sum()) * g * f
@@ -284,14 +290,16 @@ def conv_bounds(shape, mask) -> dict:
     fwd_bytes = geo + 4.0 * b * n * f * c + params + 4.0 * b * m * g * o
     # + gout's live rows, d_feats, d_params
     bwd_bytes = geo + 4.0 * b * n * f * c + params + 4.0 * live * g * o + 4.0 * b * n * f * c + params
-    bwd_ops_s = bwd_edge_flops / PEAK_F32_FLOPS + 2 * point_flops / (PEAK_TF32_FLOPS / 3)
+    tf32x3 = PEAK_TF32_FLOPS / 3
+    fwd_ops_s = (fwd_flops - point_flops) / PEAK_F32_FLOPS + point_flops / tf32x3
+    bwd_ops_s = bwd_edge_flops / PEAK_F32_FLOPS + 2 * point_flops / tf32x3
     out = {}
-    for name, flops, ops_s, nbytes in (("fwd", fwd_flops, fwd_flops / PEAK_F32_FLOPS, fwd_bytes),
+    for name, flops, ops_s, nbytes in (("fwd", fwd_flops, fwd_ops_s, fwd_bytes),
                                        ("bwd", bwd_flops, bwd_ops_s, bwd_bytes)):
         t_ops, t_bytes = ops_s * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
         out[name] = dict(bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes
-                         else "bytes", gflop=flops / 1e9, live_rows=int(live))
-    out["bwd"]["bound_f32_ms"] = max(bwd_flops / PEAK_F32_FLOPS, bwd_bytes / PEAK_BYTES_PER_S) * 1e3
+                         else "bytes", gflop=flops / 1e9, live_rows=int(live),
+                         bound_f32_ms=max(flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S) * 1e3)
     return out
 
 
@@ -307,6 +315,19 @@ def products_matmul_ms(rows: int, conv_weights, seed: int) -> float:
     gout = torch.randn(rows, o, device=conv_weights.device, generator=gen)
     w2 = conv_weights.reshape(c * q, o)
     return cuda_ms(lambda: (torch.matmul(basis.t(), gout), torch.matmul(gout, w2.t())), 10)
+
+
+def product_matmul_ms(rows: int, conv_weights, seed: int) -> float:
+    """The yardstick of the conv forward's weight contraction:
+    ``torch.matmul`` in full float32 (TF32 off, set here) for ``out =
+    basis . W`` over ``rows`` live rows x out-frames (seeded operands of the
+    kernel's shapes)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    c, q, o = conv_weights.shape
+    gen = torch.Generator(device=conv_weights.device).manual_seed(seed)
+    basis = torch.randn(rows, c * q, device=conv_weights.device, generator=gen)
+    w2 = conv_weights.reshape(c * q, o)
+    return cuda_ms(lambda: torch.matmul(basis, w2), 10)
 
 
 def max_rel_err(got, ref) -> tuple:
@@ -336,10 +357,14 @@ SCANNET_SHAPES = {
 SCANNET_PADDED = {
     "scannet_level0_padded_block_conv": ("scannet_level0_block_conv", 22_563),
 }
-# the conv backward's passes: (name, a substring of its kernel's name)
-BWD_PASSES = (("basis_kernel", "basis_kernel"), ("d_w product", "tf32x3_gemm<false"),
-              ("dbasis product", "tf32x3_gemm<true"), ("edge_kernel", "edge_kernel"),
-              ("sum_partials", "sum_partials"))
+# the conv forward's and backward's passes: (name, substrings of its
+# kernel's name); both libraries build basis_kernel and tf32x3_gemm, told
+# apart by their template arguments
+FWD_PASSES = (("basis_kernel", ("basis_kernel<", "false>")),
+              ("product", ("tf32x3_gemm<true, false",)), ("sum_splits", ("sum_splits",)))
+BWD_PASSES = (("basis_kernel", ("basis_kernel<", "true>")), ("d_w product", ("tf32x3_gemm<false, false",)),
+              ("dbasis product", ("tf32x3_gemm<true, true",)), ("edge_kernel", ("edge_kernel",)),
+              ("sum_partials", ("sum_partials",)))
 
 
 def device_rows(prof) -> list:
@@ -355,9 +380,66 @@ def device_rows(prof) -> list:
     return sorted(rows, reverse=True)
 
 
-def bwd_pass_ms(rows) -> dict:
-    """Device ms of each backward pass in ``device_rows`` output."""
-    return {name: sum(ms for ms, _, key in rows if tag in key) for name, tag in BWD_PASSES}
+def pass_ms(rows, passes=BWD_PASSES) -> dict:
+    """Device ms of each pass of ``passes`` in ``device_rows`` output."""
+    return {name: sum(ms for ms, _, key in rows if all(tag in key for tag in tags))
+            for name, tags in passes}
+
+
+def dfaust_eval(card, dev, batch) -> tuple:
+    """3. the DFaust recipe's eval path at full width: a seeded model, one
+    calibration step and ``EVAL_STEPS`` eval steps on ``batch``, counting 21
+    forward conv launches per forward and checking the logits and the
+    calibration.  Returns ``(trainer, {step_s, all_s, peak_gib, launches})``."""
+    from se3conv3d_tpu_torch.kernels import fused_equiv as kfe
+    from se3conv3d_tpu_torch.models import FPNSegUNet, presets
+    from se3conv3d_tpu_torch.train.trainer import Trainer
+
+    model_dict = presets.DFAUST_I_ROT_PCA_2F_MODEL
+    model = seeded_model(FPNSegUNet, presets.spec_from_model_dict(model_dict), dev).eval()
+    trainer = Trainer(model, presets.hierarchy_config_from_model_dict(model_dict, POINTS, train=True),
+                      presets.hierarchy_config_from_model_dict(model_dict, POINTS, train=False),
+                      label_smoothing=0.2)
+    gen = torch.Generator(device=dev).manual_seed(3)
+
+    h, _, out_pc, _, _ = trainer.build(batch, gen, train=False)
+    occupancy = [int(pc.mask.sum(1).max()) for pc in h.levels] + [int(out_pc.mask.sum(1).max())]
+    caps = [pc.capacity for pc in h.levels] + [out_pc.capacity]
+    print(f"slice: max valid points per level {occupancy} of capacities {caps}")
+    if any(o > c or o == 0 for o, c in zip(occupancy, caps)):
+        raise SystemExit("synthetic batch overflows (or empties) a level")
+    del h, out_pc
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kfe.fused_equiv_fwd.launches = 0
+    t0 = time.perf_counter()
+    trainer.calibration_step(batch, gen)
+    torch.cuda.synchronize()
+    calib_s = time.perf_counter() - t0
+    after_calib = kfe.fused_equiv_fwd.launches
+    step_s, outs = [], None
+    for _ in range(EVAL_STEPS):
+        t0 = time.perf_counter()
+        outs = trainer.eval_step(batch, gen)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    launches = kfe.fused_equiv_fwd.launches
+    peak = torch.cuda.max_memory_allocated()
+    logits = outs["logits"]
+    median_s = statistics.median(step_s)
+    print(f"slice: calibration_step {calib_s:.4f} s, eval_step median {median_s:.4f} s "
+          f"(all {[round(s, 4) for s in step_s]}), {BATCH * POINTS / median_s:.1f} input points/s, "
+          f"peak memory {peak / 2**30:.3f} GiB, loss {float(outs['loss']):.4f} [{card}]")
+    print(f"slice: kernel launches {launches} = {after_calib} (calibration) + "
+          f"{launches - after_calib} ({EVAL_STEPS} eval steps) [{card}]")
+    if after_calib != CONVS_PER_FORWARD or launches != CONVS_PER_FORWARD * (1 + EVAL_STEPS):
+        raise SystemExit(f"expected {CONVS_PER_FORWARD} kernel launches per forward")
+    if tuple(logits.shape) != (BATCH, POINTS, CLASSES) or not torch.isfinite(logits).all():
+        raise SystemExit(f"bad logits: shape {tuple(logits.shape)}")
+    if not all(bool(m.initialized) for m in model.modules() if hasattr(m, "initialized")):
+        raise SystemExit("a conv was not calibrated")
+    return trainer, dict(step_s=median_s, all_s=step_s, peak_gib=peak / 2**30, launches=launches)
 
 
 def dfaust_train(card, dev, batch) -> tuple:
@@ -452,13 +534,46 @@ def scannet_trainer(dev, room0):
     return trainer
 
 
+def forward_vs_plain(card, label, shp, args, live, bounds, seed) -> dict:
+    """The forward kernel on the live rows ``live`` vs its plain version
+    (over every row), two calls bitwise equal, and its time beside the plain
+    version's and ``torch.matmul``'s for its weight contraction over the
+    same live rows; fails the run on a disagreement."""
+    from se3conv3d_tpu_torch.kernels import fused_equiv as kfe
+
+    g = shp[4]
+    with torch.no_grad():
+        got = kfe.fused_equiv_fwd(*args, live_rows=live)
+        again = kfe.fused_equiv_fwd(*args, live_rows=live)
+        ref = kfe.fused_equiv_fwd_reference(*args)
+        torch.cuda.synchronize()
+        err = max_rel_err(got, ref)
+        finite, same = bool(torch.isfinite(got).all()), torch.equal(got, again)
+        del got, again, ref
+        ms = cuda_ms(lambda: kfe.fused_equiv_fwd(*args, live_rows=live), 20)
+        plain_ms = cuda_ms(lambda: kfe.fused_equiv_fwd_reference(*args), 3)
+    lib_ms = product_matmul_ms(live.numel() * g, args[7], seed)
+    print(f"{label} B,M,N,K,G,F,Q,C,O={shp}: {live.numel()} live of {shp[0] * shp[1]} rows; "
+          f"max_abs_err={err[0]:.3e} max_rel_err={err[1]:.3e} (bound {KERNEL_RTOL}); two calls "
+          f"bitwise equal: {same}; kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms="
+          f"{bounds['bound_ms']:.4f} ({bounds['bound_by']}, {bounds['gflop']:.2f} GFLOP, the weight "
+          f"contraction at the 3xTF32 tensor-core ceiling; {bounds['bound_f32_ms']:.4f} with every "
+          f"FLOP at the float32 peak); torch.matmul float32 (no TF32) for basis . W over the same "
+          f"live rows {lib_ms:.4f} ms [{card}]", flush=True)
+    if not (finite and same and err[1] <= KERNEL_RTOL):
+        raise SystemExit(f"forward kernel disagrees with its plain version at {label}")
+    return dict(ms=ms, plain_ms=plain_ms, max_abs_err=err[0], max_rel_err=err[1],
+                library_ms=lib_ms, **bounds)
+
+
 def scannet_conv_kernels(card, dev) -> dict:
     """9. conv forward and backward kernels vs plain at the ScanNet shapes,
-    the backward in both feature-gradient output modes, given the live-row
-    table as the main path gives it, and ``torch.matmul`` for its two
-    products.  (Its passes' device ms come last, in
-    :func:`scannet_bwd_passes`: a ``torch.profiler`` run slows the kernel
-    launches that follow it, and the train steps are timed in between.)"""
+    given the live-row table as the main path gives it, the forward bitwise
+    equal over two calls, the backward in both feature-gradient output
+    modes, and ``torch.matmul`` for their products.  (Their passes' device
+    ms come last, in :func:`scannet_conv_passes`: a ``torch.profiler`` run
+    slows the kernel launches that follow it, and the train steps are timed
+    in between.)"""
     from se3conv3d_tpu_torch.core.neighborhoods import Neighborhood
     from se3conv3d_tpu_torch.kernels import fused_equiv as kfe
     from se3conv3d_tpu_torch.kernels import segsum
@@ -471,21 +586,8 @@ def scannet_conv_kernels(card, dev) -> dict:
         args, gout = scannet_conv_args(i, shp, n_live, dev)
         live = kfe.live_row_table(args[4])
         bounds = conv_bounds(shp, args[4])
-        with torch.no_grad():
-            got = kfe.fused_equiv_fwd(*args)
-            ref = kfe.fused_equiv_fwd_reference(*args)
-            torch.cuda.synchronize()
-            fwd_err = max_rel_err(got, ref)
-            finite = bool(torch.isfinite(got).all())
-            del got, ref
-            fwd_ms = cuda_ms(lambda: kfe.fused_equiv_fwd(*args), 20)
-            fwd_plain = cuda_ms(lambda: kfe.fused_equiv_fwd_reference(*args), 3)
-        print(f"scannet_fwd_kernel_vs_plain {name} B,M,N,K,G,F,Q,C,O={shp}: max_abs_err="
-              f"{fwd_err[0]:.3e} max_rel_err={fwd_err[1]:.3e} (bound {KERNEL_RTOL}) kernel_ms="
-              f"{fwd_ms:.4f} plain_ms={fwd_plain:.4f} bound_ms={bounds['fwd']['bound_ms']:.4f} "
-              f"({bounds['fwd']['bound_by']}, {bounds['fwd']['gflop']:.2f} GFLOP) [{card}]", flush=True)
-        if not (finite and fwd_err[1] <= KERNEL_RTOL):
-            raise SystemExit(f"forward kernel disagrees with its plain version at {name}")
+        fwd = forward_vs_plain(card, f"scannet_fwd_kernel_vs_plain {name}", shp, args, live,
+                               bounds["fwd"], 57 + i)
 
         tabs = backward_sort_tables(Neighborhood(args[3], args[4], args[4].any(-1)), n)
         got = kfe.fused_equiv_bwd(*args, gout, live_rows=live)
@@ -530,7 +632,7 @@ def scannet_conv_kernels(card, dev) -> dict:
                 and all(v[1] <= BWD_RTOL for e in (errs, errs_s) for v in e.values())):
             raise SystemExit(f"backward kernel disagrees with its plain version at {name}")
         out[name] = dict(
-            fwd=dict(ms=fwd_ms, plain_ms=fwd_plain, max_abs_err=fwd_err[0], **bounds["fwd"]),
+            fwd=fwd,
             bwd=dict(ms=bwd_ms, ms_sorted_rows=bwd_sorted_ms, plain_ms=bwd_plain,
                      max_abs_err=max(v[0] for e in (errs, errs_s) for v in e.values()),
                      segment_sum_max_abs_err=seg_err, products_library_ms=lib_ms, **bounds["bwd"]),
@@ -559,9 +661,10 @@ def scannet_conv_args(i, shp, n_live, dev) -> tuple:
     return args, gout
 
 
-def scannet_bwd_passes(card, dev, conv: dict) -> None:
-    """Device ms of each conv backward pass at phase 9's shapes
-    (``torch.profiler`` over 3 calls), into ``conv[name]["bwd"]``."""
+def scannet_conv_passes(card, dev, conv: dict) -> None:
+    """Device ms of each conv forward and backward pass at phase 9's shapes
+    (``torch.profiler`` over 3 calls each), into ``conv[name]["fwd"]`` and
+    ``conv[name]["bwd"]``."""
     from torch.profiler import ProfilerActivity, profile
 
     from se3conv3d_tpu_torch.kernels import fused_equiv as kfe
@@ -569,19 +672,26 @@ def scannet_bwd_passes(card, dev, conv: dict) -> None:
     for i, (name, (shp, n_live)) in enumerate(scannet_conv_cases().items()):
         args, gout = scannet_conv_args(i, shp, n_live, dev)
         live = kfe.live_row_table(args[4])
-        kfe.fused_equiv_bwd(*args, gout, live_rows=live)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(3):
-                kfe.fused_equiv_bwd(*args, gout, live_rows=live)
-            torch.cuda.synchronize()
-        passes = {p: ms / 3 for p, ms in bwd_pass_ms(device_rows(prof)).items()}
-        bwd = conv[name]["bwd"]
-        bwd["passes_ms"] = passes
+        with torch.no_grad():
+            runs = {"fwd": (lambda: kfe.fused_equiv_fwd(*args, live_rows=live), FWD_PASSES),
+                    "bwd": (lambda: kfe.fused_equiv_bwd(*args, gout, live_rows=live), BWD_PASSES)}
+            for what, (fn, passes) in runs.items():
+                fn()
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    for _ in range(3):
+                        fn()
+                    torch.cuda.synchronize()
+                conv[name][what]["passes_ms"] = {p: ms / 3 for p, ms in
+                                                 pass_ms(device_rows(prof), passes).items()}
+        fwd, bwd = conv[name]["fwd"], conv[name]["bwd"]
+        print(f"scannet_fwd_passes {name}: device ms per call "
+              + ", ".join(f"{p} {ms:.4f}" for p, ms in fwd["passes_ms"].items())
+              + f" (torch.matmul for the product {fwd['library_ms']:.4f}) [{card}]", flush=True)
         print(f"scannet_bwd_passes {name}: device ms per call "
-              + ", ".join(f"{p} {ms:.4f}" for p, ms in passes.items())
-              + f" (products: {passes['d_w product'] + passes['dbasis product']:.4f}; torch.matmul "
-              f"{bwd['products_library_ms']:.4f}) [{card}]", flush=True)
+              + ", ".join(f"{p} {ms:.4f}" for p, ms in bwd["passes_ms"].items())
+              + f" (products: {bwd['passes_ms']['d_w product'] + bwd['passes_ms']['dbasis product']:.4f}; "
+              f"torch.matmul {bwd['products_library_ms']:.4f}) [{card}]", flush=True)
         del args, gout, live
         torch.cuda.empty_cache()
 
@@ -782,18 +892,20 @@ def scannet_eval(card, dev, model, trainer, scene, kfe, num_classes) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kfe.fused_equiv_fwd.launches = 0
-    t0 = time.perf_counter()
-    trainer.calibration_step(scene, gen)
-    torch.cuda.synchronize()
-    calib_s = time.perf_counter() - t0
-    calib_launches = kfe.fused_equiv_fwd.launches
-    step_s, outs = [], None
-    for _ in range(SCANNET_EVAL_STEPS):
+    with watching_live_rows(kfe, "fused_equiv_fwd") as seen:
         t0 = time.perf_counter()
-        outs = trainer.eval_step(scene, gen)
+        trainer.calibration_step(scene, gen)
         torch.cuda.synchronize()
-        step_s.append(time.perf_counter() - t0)
+        calib_s = time.perf_counter() - t0
+        calib_launches = kfe.fused_equiv_fwd.launches
+        step_s, outs = [], None
+        for _ in range(SCANNET_EVAL_STEPS):
+            t0 = time.perf_counter()
+            outs = trainer.eval_step(scene, gen)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
     launches = kfe.fused_equiv_fwd.launches
+    check_live_rows(card, "calibration and eval, conv forwards", seen, SCANNET_CONVS * (1 + SCANNET_EVAL_STEPS))
     peak = torch.cuda.max_memory_allocated()
     median_s = statistics.median(step_s)
     logits = outs["logits"]
@@ -902,34 +1014,47 @@ def scannet_train(card, dev, trainer, batch, kfe, segsum, ops) -> dict:
 
 
 @contextlib.contextmanager
-def watching_live_rows(kfe):
-    """Within: each call of the conv backward wrapper records ``(live rows
-    it was given, or -1 if none, capacity rows B*M)``."""
-    real, seen = kfe.fused_equiv_bwd, []
+def watching_live_rows(kfe, name="fused_equiv_bwd"):
+    """Within: each call of the conv wrapper ``name`` (``fused_equiv_fwd``
+    or ``fused_equiv_bwd``) records ``(live rows it was given, or -1 if
+    none, capacity rows B*M)``."""
+    real, seen = getattr(kfe, name), []
+    at = {"fused_equiv_fwd": 8, "fused_equiv_bwd": 10}[name]  # live_rows' position
 
     def watched(*args, **kwargs):
-        live = kwargs.get("live_rows", args[10] if len(args) > 10 else None)
+        live = kwargs.get("live_rows", args[at] if len(args) > at else None)
         seen.append((-1 if live is None else live.numel(), args[4].shape[0] * args[4].shape[1]))
         return real(*args, **kwargs)
 
-    # the wrapper counts its launches on the module's fused_equiv_bwd: here
-    # that is `watched`, which carries the count and hands it back
+    # the wrapper counts its launches on the module's attribute `name`:
+    # here that is `watched`, which carries the count and hands it back
     watched.launches = real.launches
-    kfe.fused_equiv_bwd = watched
+    setattr(kfe, name, watched)
     try:
         yield seen
     finally:
-        kfe.fused_equiv_bwd = real
+        setattr(kfe, name, real)
         real.launches = watched.launches
+
+
+def check_live_rows(card, label, seen, want) -> tuple:
+    """Prints the live rows ``seen`` walked against their capacity rows and
+    fails the run unless there were ``want`` calls, each given a table."""
+    live, cap = sum(x[0] for x in seen if x[0] > 0), sum(x[1] for x in seen)
+    print(f"scannet_live_rows: {label}: {len(seen)} calls walked {live} live rows of {cap} "
+          f"capacity rows ({100.0 * live / max(cap, 1):.2f}%) [{card}]", flush=True)
+    if len(seen) != want or any(x[0] < 0 for x in seen):
+        raise SystemExit(f"{label}: a conv was not given its neighborhood's live-row table")
+    return live, cap
 
 
 def scannet_split(card, dev, trainer, batch, ops, drop_path_draws, kfe) -> dict:
     """Host-clock split of one scan_scenes step per backward mode, with a
     synchronise at each boundary: per room the hierarchy build, the
     train-mode forward with the loss, and the backward; then the optimizer.
-    Also counts the live rows the step's conv backwards walked against
-    their capacity rows; each must have been given its neighborhood's
-    table (no host synchronisation per conv)."""
+    Also counts the live rows the step's conv forwards and backwards walked
+    against their capacity rows; each must have been given its
+    neighborhood's table (no host synchronisation per conv)."""
     from se3conv3d_tpu_torch.train.losses import masked_segmentation_loss_parts
 
     model, gen = trainer.model, torch.Generator(device=dev).manual_seed(85)
@@ -940,7 +1065,7 @@ def scannet_split(card, dev, trainer, batch, ops, drop_path_draws, kfe) -> dict:
         model.train()
         model.zero_grad(set_to_none=True)
         torch.cuda.synchronize()
-        with watching_live_rows(kfe) as seen:
+        with watching_live_rows(kfe, "fused_equiv_fwd") as fwd_seen, watching_live_rows(kfe) as seen:
             for i in range(batch["mask"].shape[0]):
                 t0 = time.perf_counter()
                 h, f0, out_pc, labels, _ = trainer.build({k: v[i : i + 1] for k, v in batch.items()}, gen)
@@ -964,11 +1089,9 @@ def scannet_split(card, dev, trainer, batch, ops, drop_path_draws, kfe) -> dict:
         out[mode] = {k: v * 1e3 for k, v in parts.items()}
         print(f"scannet_split: mode {mode}, ms per step of {batch['mask'].shape[0]} rooms: "
               + ", ".join(f"{k} {v:.2f}" for k, v in out[mode].items()) + f" [{card}]", flush=True)
-        live, cap = sum(x[0] for x in seen), sum(x[1] for x in seen)
-        print(f"scannet_live_rows: mode {mode}: {len(seen)} conv backwards walked {live} live rows "
-              f"of {cap} capacity rows ({100.0 * live / cap:.2f}%) [{card}]", flush=True)
-        if len(seen) != SCANNET_CONVS * SCENES or any(x[0] < 0 for x in seen):
-            raise SystemExit("a conv backward of the ScanNet step was not given its live-row table")
+        check_live_rows(card, f"train mode {mode}, conv forwards", fwd_seen, SCANNET_CONVS * SCENES)
+        live, cap = check_live_rows(card, f"train mode {mode}, conv backwards", seen,
+                                    SCANNET_CONVS * SCENES)
         out[mode]["live_rows"], out[mode]["capacity_rows"] = live, cap
     ops.BWD_SCATTER_MODE = "scatter"
     return out
@@ -977,7 +1100,8 @@ def scannet_split(card, dev, trainer, batch, ops, drop_path_draws, kfe) -> dict:
 def scannet_profile(card, trainer, batch, ops) -> dict:
     """Device time by kernel over one scan_scenes train step per backward
     mode (``torch.profiler``): the busy total, the idle share of the
-    step's wall time, and the kernels that take the most."""
+    step's wall time, the kernels that take the most, and the conv
+    forward's and backward's passes."""
     from torch.profiler import ProfilerActivity, profile
 
     gen = torch.Generator(device=batch["mask"].device).manual_seed(87)
@@ -992,15 +1116,16 @@ def scannet_profile(card, trainer, batch, ops) -> dict:
             wall_ms = (time.perf_counter() - t0) * 1e3
         rows = device_rows(prof)
         busy = sum(r[0] for r in rows)
-        passes = bwd_pass_ms(rows)
+        fwd_passes, passes = pass_ms(rows, FWD_PASSES), pass_ms(rows)
         print(f"scannet_profile: mode {mode}: step {wall_ms:.1f} ms under the profiler, device busy "
               f"{busy:.1f} ms ({100 * (1 - busy / wall_ms):.1f}% idle), {sum(r[1] for r in rows)} kernel "
               f"launches [{card}]", flush=True)
         for ms, n, key in rows[:14]:
             print(f"scannet_profile:   {ms:9.2f} ms {n:6d}x {key[:110]}")
-        print(f"scannet_profile: mode {mode}: conv backward {sum(passes.values()):.2f} ms: "
-              + ", ".join(f"{p} {ms:.2f}" for p, ms in passes.items()) + f" [{card}]", flush=True)
-        out[mode] = dict(wall_ms=wall_ms, busy_ms=busy, bwd_passes_ms=passes,
+        for what, ps in (("forward", fwd_passes), ("backward", passes)):
+            print(f"scannet_profile: mode {mode}: conv {what} {sum(ps.values()):.2f} ms: "
+                  + ", ".join(f"{p} {ms:.2f}" for p, ms in ps.items()) + f" [{card}]", flush=True)
+        out[mode] = dict(wall_ms=wall_ms, busy_ms=busy, fwd_passes_ms=fwd_passes, bwd_passes_ms=passes,
                          top=[(k[:110], ms, n) for ms, n, k in rows[:14]])
     ops.BWD_SCATTER_MODE = "scatter"
     return out
@@ -1084,7 +1209,7 @@ def run_scannet(card, dev, recorded_draws, drop_path_draws) -> dict:
     scannet_mode_grads(card, dev, trainer, room0, ops, recorded_draws, drop_path_draws)
     del trainer, rooms
     torch.cuda.empty_cache()
-    scannet_bwd_passes(card, dev, scan_conv)
+    scannet_conv_passes(card, dev, scan_conv)
 
     return dict(conv=scan_conv, cumsum=scan_cumsum, grid=grid, eval=scan_eval, train=scan_train)
 
@@ -1117,7 +1242,10 @@ def kernels_line(dfaust: dict, scan: dict) -> dict:
         "launches_by_path": fwd_paths,
         "max_abs_err": max(v["max_abs_err"] for v in by_shape_fwd.values()),
         "ms": fwd0["ms"], "plain_ms": fwd0["plain_ms"],
-        "bound_ms": fwd0["bound_ms"], "bound_by": fwd0["bound_by"], "library_ms": None,
+        "bound_ms": fwd0["bound_ms"], "bound_by": fwd0["bound_by"], "bound_f32_ms": fwd0["bound_f32_ms"],
+        "library_ms": fwd0["library_ms"],
+        "library_call": "torch.matmul, float32 without TF32, for the weight contraction basis . W "
+                        "over the same live rows (no PyTorch call computes the whole forward)",
         "at": at, "by_shape": by_shape_fwd,
     }, {
         "name": "fused_equiv_bwd",
@@ -1160,7 +1288,6 @@ def main() -> int:
     from se3conv3d_tpu_torch.core.rotation import random_rotations
     from se3conv3d_tpu_torch.kernels import fused_equiv as kfe
     from se3conv3d_tpu_torch.kernels.build import build_libraries
-    from se3conv3d_tpu_torch.models import FPNSegUNet
     from se3conv3d_tpu_torch.models import presets
     from se3conv3d_tpu_torch.nn.blocks import DropPathDraws
     from se3conv3d_tpu_torch.ops.pne_conv import backward_sort_tables
@@ -1201,74 +1328,20 @@ def main() -> int:
         "jax_bench_conv": (1, 65536, 65536, 16, 2, 2, 32, 64, 64),
     }
     compared = {}
-    with torch.no_grad():
-        for i, (name, shp) in enumerate(shapes.items()):
-            args = conv_inputs(*shp, seed=10 + i, dev=dev)
-            got = kfe.fused_equiv_fwd(*args)
-            ref = kfe.fused_equiv_fwd_reference(*args)
-            torch.cuda.synchronize()
-            err = (got - ref).abs().max().item()
-            scale = ref.abs().max().item()
-            rel = err / max(scale, 1e-30)
-            ms = cuda_ms(lambda: kfe.fused_equiv_fwd(*args), 20)
-            plain_ms = cuda_ms(lambda: kfe.fused_equiv_fwd_reference(*args), 5)
-            compared[name] = dict(max_abs_err=err, max_rel_err=rel, ms=ms, plain_ms=plain_ms,
-                                  **conv_bounds(shp, args[4])["fwd"])
-            print(f"kernel_vs_plain {name} B,M,N,K,G,F,Q,C,O={shp}: max_abs_err={err:.3e} "
-                  f"max|plain|={scale:.3e} max_rel_err={rel:.3e} kernel_ms={ms:.4f} "
-                  f"plain_ms={plain_ms:.4f} [{card}]", flush=True)
-            if not (rel <= KERNEL_RTOL and torch.isfinite(got).all()):
-                raise SystemExit(f"kernel disagrees with its plain version at {name}")
-            del args, got, ref
-            torch.cuda.empty_cache()
+    for i, (name, shp) in enumerate(shapes.items()):
+        args = conv_inputs(*shp, seed=10 + i, dev=dev)
+        compared[name] = forward_vs_plain(card, f"kernel_vs_plain {name}", shp, args,
+                                          kfe.live_row_table(args[4]), conv_bounds(shp, args[4])["fwd"],
+                                          15 + i)
+        del args
+        torch.cuda.empty_cache()
 
     # 3. the slice at full width
     model_dict = presets.DFAUST_I_ROT_PCA_2F_MODEL
-    spec = presets.spec_from_model_dict(model_dict)
-    model = seeded_model(FPNSegUNet, spec, dev).eval()
     hcfg = presets.hierarchy_config_from_model_dict(model_dict, POINTS, train=True)
-    eval_hcfg = presets.hierarchy_config_from_model_dict(model_dict, POINTS, train=False)
-    trainer = Trainer(model, hcfg, eval_hcfg, label_smoothing=0.2)
     batch = to_device(body_batch(BATCH, POINTS, seed=2), dev)
-    gen = torch.Generator(device=dev).manual_seed(3)
-
-    h, _, out_pc, _, _ = trainer.build(batch, gen, train=False)
-    occupancy = [int(pc.mask.sum(1).max()) for pc in h.levels] + [int(out_pc.mask.sum(1).max())]
-    caps = [pc.capacity for pc in h.levels] + [out_pc.capacity]
-    print(f"slice: max valid points per level {occupancy} of capacities {caps}")
-    if any(o > c or o == 0 for o, c in zip(occupancy, caps)):
-        raise SystemExit("synthetic batch overflows (or empties) a level")
-
-    torch.cuda.reset_peak_memory_stats()
-    kfe.fused_equiv_fwd.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    trainer.calibration_step(batch, gen)
-    torch.cuda.synchronize()
-    calib_s = time.perf_counter() - t0
-    after_calib = kfe.fused_equiv_fwd.launches
-    step_s, outs = [], None
-    for _ in range(EVAL_STEPS):
-        t0 = time.perf_counter()
-        outs = trainer.eval_step(batch, gen)
-        torch.cuda.synchronize()
-        step_s.append(time.perf_counter() - t0)
-    launches = kfe.fused_equiv_fwd.launches
-    peak = torch.cuda.max_memory_allocated()
-    logits = outs["logits"]
-    median_s = statistics.median(step_s)
-    print(f"slice: calibration_step {calib_s:.4f} s, eval_step median {median_s:.4f} s "
-          f"(all {[round(s, 4) for s in step_s]}), {BATCH * POINTS / median_s:.1f} input points/s, "
-          f"peak memory {peak / 2**30:.3f} GiB, loss {float(outs['loss']):.4f} [{card}]")
-    print(f"slice: kernel launches {launches} = {after_calib} (calibration) + "
-          f"{launches - after_calib} ({EVAL_STEPS} eval steps) [{card}]")
-    if after_calib != CONVS_PER_FORWARD or launches != CONVS_PER_FORWARD * (1 + EVAL_STEPS):
-        raise SystemExit(f"expected {CONVS_PER_FORWARD} kernel launches per forward")
-    if tuple(logits.shape) != (BATCH, POINTS, CLASSES) or not torch.isfinite(logits).all():
-        raise SystemExit(f"bad logits: shape {tuple(logits.shape)}")
-    calib_ok = all(bool(m.initialized) for m in model.modules() if hasattr(m, "initialized"))
-    if not calib_ok:
-        raise SystemExit("a conv was not calibrated")
+    trainer, dfaust_eval_run = dfaust_eval(card, dev, batch)
+    model, launches = trainer.model, dfaust_eval_run["launches"]
 
     # 4. rotation invariance and 5. card vs CPU, on two clouds
     small = to_device(body_batch(2, POINTS, seed=4), dev)
@@ -1292,7 +1365,7 @@ def main() -> int:
         if not cpu_err <= CPU_ATOL:
             raise SystemExit("card and CPU logits disagree")
 
-    del model, trainer, outs, logits, base, rotated, cpu_model, cpu_logits, h, f0, out_pc
+    del model, trainer, base, rotated, cpu_model, cpu_logits, h, f0, out_pc
     torch.cuda.empty_cache()
 
     # 6. backward kernel vs plain

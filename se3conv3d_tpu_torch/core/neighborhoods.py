@@ -94,7 +94,7 @@ class Neighborhood:
       live_rows: optional ``[L]`` int32 table of the query rows ``b*M + m``
         with at least one valid edge, ascending
         (``kernels.fused_equiv.live_row_table``): the rows the conv
-        backward works on.
+        kernels work on.
     """
 
     idx: torch.Tensor

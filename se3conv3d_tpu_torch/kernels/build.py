@@ -1,8 +1,10 @@
 """Build and load the port's CUDA kernels.
 
 Each source under ``csrc/`` is compiled with ``nvcc`` for ``sm_90a`` into a
-shared library with a plain C interface, keyed by a hash of the source and
-the flags, in the git-ignored ``kernels/_build/``, and loaded with ctypes.
+shared library with a plain C interface, keyed by a hash of the flags, the
+source and every header it includes from ``csrc/`` (``#include "..."``,
+followed through the headers), in the git-ignored ``kernels/_build/``, and
+loaded with ctypes.
 :func:`build_libraries` compiles every source that is not built yet, one
 ``nvcc`` per source, all started together; :func:`library` builds one at
 its first use.  Nothing here runs at import.
@@ -12,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -37,7 +40,8 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 # name: [(symbol, argtypes, restype)]
 _SIGNATURES = {
-    "fwd": [("se3_fused_equiv_fwd", [_P] * 9 + [_I] * 9 + [_P], _I)],
+    "fwd": [("se3_fused_equiv_fwd", [_P] * 11 + [_I] * 11 + [_P], _I),
+            ("se3_fused_equiv_fwd_plan", [_I] * 5 + [_L] + [_P] * 3, None)],
     "bwd": [("se3_fused_equiv_bwd", [_P] * 17 + [_I] * 11 + [_P], _I),
             ("se3_fused_equiv_bwd_plan", [_I] * 5 + [_P] * 3, None)],
     "cumsum": [("se3_blocked_cumsum", [_P] * 3 + [_I, _L, _I, _P], _I),
@@ -56,10 +60,30 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the port's kernels are built with the CUDA toolkit")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def _source_files(src: Path) -> list:
+    """``src`` and every file it includes with quotes, found beside the
+    including file, depth first, each once."""
+    seen, todo = [], [src]
+    while todo:
+        path = todo.pop()
+        if path in seen:
+            continue
+        seen.append(path)
+        for inc in _INCLUDE.findall(path.read_bytes()):
+            dep = path.parent / inc.decode()
+            if dep.exists():
+                todo.append(dep)
+    return seen
+
+
 def _lib_path(name: str) -> Path:
-    src = SOURCES[name].read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{SOURCES[name].stem}_{tag}.so"
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _source_files(SOURCES[name]):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"{SOURCES[name].stem}_{digest.hexdigest()[:16]}.so"
 
 
 def build_libraries(verbose: bool = False, names=tuple(SOURCES)) -> Dict[str, Path]:

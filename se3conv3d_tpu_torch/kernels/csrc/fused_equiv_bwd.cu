@@ -33,10 +33,10 @@
 // pass walks a table live[L] of the rows that have one (flat b*M + m,
 // ascending; built once per neighborhood by the caller), and live row r owns
 // scratch rows r*G .. r*G+G-1:
-//   1. basis_kernel: the forward's first half (pne in shared memory,
-//      features gathered by idx/mask, basis in registers), writing basis to
-//      a scratch [L*G, C*Q], and copying the live rows of gout to a compact
-//      [L*G, O] beside it;
+//   1. basis_kernel (fused_equiv_common.cuh, the forward's own first pass):
+//      pne once per edge in shared memory, features gathered by idx/mask,
+//      basis in registers, written to a scratch [L*G, C*Q]; it also copies
+//      the live rows of gout to a compact [L*G, O] beside it;
 //   2. tf32x3_gemm: d_w = basis^T . gout over the L*G rows, split along
 //      them into per-split partials, then sum_partials adds the splits in a
 //      fixed order (deterministic: the splits depend only on L);
@@ -61,20 +61,9 @@
 // Operand tiles are staged through shared memory by cp.async,
 // double-buffered.  Passes 1 and 4 are float32 FMA.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "fused_equiv_common.cuh"
 
 namespace {
-
-constexpr int kGQMax = 64;                // G * Q columns of a pne row
-constexpr int kEB = 32;                   // edges per round, one per lane
-constexpr int kCC = 32;                   // input channels per chunk
-constexpr int kPneStride = kGQMax + 1;    // padded rows: lane-major writes hit distinct banks
-constexpr int kSlab = kEB * kPneStride;   // per-warp pne slab
-
-// basis_kernel
-constexpr int kBThreads = 256;
-constexpr int kBTM = 8;                   // query points per block, one per warp
 
 // edge_kernel
 constexpr int kEThreads = 128;
@@ -84,380 +73,9 @@ constexpr int kGeoStride = 19;            // 2 frames x 9 pne inputs, padded
 constexpr int kEWarpFloats = kSlab + kGQMax * kRowStride + kEB * kRowStride + kEB * kGeoStride;
 constexpr int kPRows = 10;                // 9 projection rows + the bias
 
-// tf32x3_gemm: block tile kTI x kTJ, 8 warps of 32 x 32 (2 x 4 mma tiles)
-constexpr int kGThreads = 256;
-constexpr int kTI = 128;
-constexpr int kTJ = 64;
-constexpr int kTK = 16;                   // depth per stage, two k8 steps
 constexpr int kMinSplitRows = 64;         // d_w: least rows per split
-
 // the d_w partials aim at this many blocks in flight (4 per SM of an H100)
 constexpr int kWantBlocks = 4 * 132;
-
-__device__ __forceinline__ float gelu_erf(float x) {
-  return 0.5f * x * (1.0f + erff(x * 0.70710678118654752f));
-}
-
-__device__ __forceinline__ float gelu_grad(float x) {
-  const float cdf = 0.5f * (1.0f + erff(x * 0.70710678118654752f));
-  return cdf + x * 0.39894228040143268f * expf(-0.5f * x * x);
-}
-
-// Warp-cooperative compaction of the valid edges of one query row
-// (out-of-range indices count as invalid); returns their number.
-__device__ int compact_edges(const int64_t* __restrict__ idx, const uint8_t* __restrict__ mask,
-                             size_t row, int K, int N, int lane, int* validK, int* validN) {
-  int nvalid = 0;
-  for (int k0 = 0; k0 < K; k0 += 32) {
-    const int k = k0 + lane;
-    int64_t n = 0;
-    bool v = false;
-    if (k < K) {
-      n = idx[row + k];
-      v = mask[row + k] != 0 && n >= 0 && n < N;
-    }
-    const unsigned bal = __ballot_sync(0xffffffffu, v);
-    if (v) {
-      const int pos = nvalid + __popc(bal & ((1u << lane) - 1u));
-      validK[pos] = k;
-      validN[pos] = static_cast<int>(n);
-    }
-    nvalid += __popc(bal);
-  }
-  __syncwarp();
-  return nvalid;
-}
-
-// The 9 pne inputs of edge (row + k, in-frame f) for out-frame g.
-__device__ __forceinline__ void edge_geo(const float* __restrict__ rel,
-                                         const float* __restrict__ rot6, size_t base, int g,
-                                         int F, int f, float* geo) {
-  const float* r = rel + (base + g) * 3;
-  const float* t = rot6 + ((base + g) * F + f) * 6;
-#pragma unroll
-  for (int d = 0; d < 3; ++d) geo[d] = r[d];
-#pragma unroll
-  for (int d = 0; d < 6; ++d) geo[3 + d] = t[d];
-}
-
-__device__ __forceinline__ float pre_act(const float* geo, const float* projS,
-                                         const float* biasS, int Q, int q) {
-  float pre = biasS[q];
-#pragma unroll
-  for (int d = 0; d < 9; ++d) pre = fmaf(geo[d], projS[d * Q + q], pre);
-  return pre;
-}
-
-// --- 1. basis -> scratch [L*G, C*Q], gout -> compact [L*G, O] --------------
-// One warp per live row r = blockIdx.x * kBTM + warp.
-__global__ void __launch_bounds__(kBThreads, 2)
-basis_kernel(const float* __restrict__ rel, const float* __restrict__ rot6,
-             const float* __restrict__ feats, const int64_t* __restrict__ idx,
-             const uint8_t* __restrict__ mask, const float* __restrict__ proj,
-             const float* __restrict__ bias, const float* __restrict__ gout,
-             const int* __restrict__ live, float* __restrict__ basis,
-             float* __restrict__ gout_live,
-             int M, int N, int K, int G, int F, int Q, int C, int O, int L) {
-  extern __shared__ float smem[];
-  float* projS = smem;                       // [9][Q]
-  float* biasS = projS + 9 * kGQMax;         // [Q]
-  float* pneS = biasS + kGQMax;              // [kBTM][kSlab]
-  float* featS = pneS + kBTM * kSlab;        // [kBTM][kEB][kCC]
-  int* validK = reinterpret_cast<int*>(featS + kBTM * kEB * kCC);  // [kBTM][K]
-  int* validN = validK + kBTM * K;
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int r = blockIdx.x * kBTM + warp;
-  const int GQ = G * Q;
-  for (int i = tid; i < 9 * Q; i += kBThreads) projS[i] = proj[i];
-  for (int i = tid; i < Q; i += kBThreads) biasS[i] = bias[i];
-  __syncthreads();
-  if (r >= L) return;  // whole warp; no block barrier follows
-
-  const int flat = live[r];  // b * M + m
-  const int b = flat / M;
-  const size_t row = static_cast<size_t>(flat) * K;
-  const size_t out_row = static_cast<size_t>(r) * G;
-  const size_t GO = static_cast<size_t>(G) * O;
-  for (size_t i = lane; i < GO; i += 32) gout_live[out_row * O + i] = gout[flat * GO + i];
-
-  int* vK = validK + warp * K;
-  int* vN = validN + warp * K;
-  const int nE = compact_edges(idx, mask, row, K, N, lane, vK, vN) * F;
-  float* pneW = pneS + warp * kSlab;
-  float* featW = featS + warp * kEB * kCC;
-  const int gqb = lane >> 2, cb = lane & 3;  // basis tile: gq = gqb + 8i, c = cb + 4j
-  const size_t CQ = static_cast<size_t>(C) * Q;
-
-  for (int c0 = 0; c0 < C; c0 += kCC) {
-    const int cw = min(kCC, C - c0);
-    float acc[8][8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-    for (int e0 = 0; e0 < nE; e0 += kEB) {
-      const int ne = min(kEB, nE - e0);
-      float* prow = pneW + lane * kPneStride;
-      if (lane < ne) {
-        const int e = e0 + lane, j = e / F, f = e - j * F;
-        const size_t base = (row + vK[j]) * G;
-#pragma unroll
-        for (int g = 0; g < 2; ++g) {
-          if (g < G) {
-            float geo[9];
-            edge_geo(rel, rot6, base, g, F, f, geo);
-            for (int q = 0; q < Q; ++q) prow[g * Q + q] = gelu_erf(pre_act(geo, projS, biasS, Q, q));
-          }
-        }
-        for (int gq = GQ; gq < kGQMax; ++gq) prow[gq] = 0.f;
-      }
-#pragma unroll 4
-      for (int el = 0; el < ne; ++el) {
-        const int e = e0 + el, j = e / F, f = e - j * F;
-        float v = 0.f;
-        if (lane < cw) v = __ldg(feats + ((static_cast<size_t>(b) * N + vN[j]) * F + f) * C + c0 + lane);
-        featW[el * kCC + lane] = v;
-      }
-      __syncwarp();
-      for (int el = 0; el < ne; ++el) {
-        float p[8], x[8];
-#pragma unroll
-        for (int i = 0; i < 8; ++i) p[i] = pneW[el * kPneStride + gqb + 8 * i];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) x[j] = featW[el * kCC + cb + 4 * j];
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(p[i], x[j], acc[i][j]);
-      }
-      __syncwarp();
-    }
-    // basis tile -> pne slab as [gq][c], then out to the scratch as [g][c][q]
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) pneW[(gqb + 8 * i) * kCC + cb + 4 * j] = acc[i][j];
-    __syncwarp();
-    for (int i = lane; i < G * cw * Q; i += 32) {
-      const int q = i % Q, t = i / Q, c = t % cw, g = t / cw;
-      basis[(out_row + g) * CQ + static_cast<size_t>(c0 + c) * Q + q] = pneW[(g * Q + q) * kCC + c];
-    }
-    __syncwarp();
-  }
-}
-
-// --- 2./3. C[z] = A . B over the depth slice z, on tensor cores --------------
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// x = hi + lo, both TF32: the 3xTF32 split.
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  hi = to_tf32(x);
-  lo = to_tf32(x - __uint_as_float(hi));
-}
-
-// d += a . b on one m16n8k8 TF32 tile, float32 accumulate.
-__device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// Asynchronous copy of `bytes` (< size: the rest is zero-filled) to shared memory.
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, int bytes) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d), "l"(src), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, int bytes) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(d), "l"(src), "r"(bytes)
-               : "memory");
-}
-
-// One operand's kTK-deep slice of a tile into shared memory.  The operand
-// X(r, k) has `R` rows (the tile's own index, r in [r0, r0 + ROWS)) and is
-// summed over k in [k0, ke).  KC (depth contiguous): X(r, k) = X[r*ld + k],
-// kept as [ROWS][kTK + 4]; else X(r, k) = X[k*ld + r], kept as
-// [kTK][ROWS + 8].  Both pads put the mma fragment reads of one warp on 32
-// distinct banks.  VEC: 16-byte copies (ld, the base and the contiguous
-// extent are multiples of 4 floats); else 4-byte copies.
-template <bool KC, int ROWS, bool VEC>
-__device__ __forceinline__ void load_slice(float* s, const float* __restrict__ X, long long ld,
-                                           int r0, int R, int k0, int ke, int tid) {
-  constexpr int kStride = KC ? kTK + 4 : ROWS + 8;
-  if (VEC) {
-    constexpr int kChunks = ROWS * kTK / 4;
-#pragma unroll
-    for (int c = tid; c < kChunks; c += kGThreads) {
-      int r, k;
-      if (KC) { r = c / (kTK / 4); k = (c % (kTK / 4)) * 4; } else { k = c / (ROWS / 4); r = (c % (ROWS / 4)) * 4; }
-      const int gr = r0 + r, gk = k0 + k;
-      int bytes = 0;
-      if (gr < R && gk < ke) bytes = 4 * min(4, KC ? ke - gk : R - gr);
-      const float* src = bytes ? X + (KC ? gr * ld + gk : gk * ld + gr) : X;
-      cp_async16(s + (KC ? r * kStride + k : k * kStride + r), src, bytes);
-    }
-  } else {
-    constexpr int kElems = ROWS * kTK;
-#pragma unroll 4
-    for (int e = tid; e < kElems; e += kGThreads) {
-      int r, k;
-      if (KC) { r = e / kTK; k = e % kTK; } else { k = e / ROWS; r = e % ROWS; }
-      const int gr = r0 + r, gk = k0 + k;
-      const bool ok = gr < R && gk < ke;
-      const float* src = ok ? X + (KC ? gr * ld + gk : gk * ld + gr) : X;
-      cp_async4(s + (KC ? r * kStride + k : k * kStride + r), src, ok ? 4 : 0);
-    }
-  }
-}
-
-// Cout[z] (I x J, row stride ldc; z = blockIdx.z at Cout + z*sCs) =
-// sum over depth k in [z*kPer, min((z+1)*kPer, Kd)) of A(i, k) * B(k, j).
-// A_KC: A(i, k) = A[i*lda + k], else A[k*lda + i]; B_KC: B(k, j) =
-// B[j*ldb + k], else B[k*ldb + j].  A block of 8 warps owns a kTI x kTJ
-// tile; each warp a 32 x 32 piece, 2 x 4 m16n8 tiles, three mma per tile
-// and k8 step (3xTF32).  The tensor cores' float32 adds do not round to
-// nearest, and over thousands of rows (the d_w depth) that bias grows with
-// the depth; so each kTK-deep slice is summed by the mma into a zeroed
-// register tile and added to the running sum by a rounded float32 add.
-// Two shared-memory stages: the next slice's cp.async copies run while
-// this one's products do.  A block whose depth slice is empty writes
-// zeros.  The sum order within a block is fixed, so the result depends
-// only on (I, J, Kd, kPer).
-template <bool A_KC, bool B_KC, bool VEC>
-__global__ void __launch_bounds__(kGThreads)
-tf32x3_gemm(const float* __restrict__ A, long long lda, const float* __restrict__ Bm,
-            long long ldb, float* __restrict__ Cout, long long sCs, long long ldc,
-            int I, int J, int Kd, int kPer) {
-  constexpr int kSA = A_KC ? kTK + 4 : kTI + 8;
-  constexpr int kSB = B_KC ? kTK + 4 : kTJ + 8;
-  constexpr int kASize = A_KC ? kTI * kSA : kTK * kSA;
-  constexpr int kBSize = B_KC ? kTJ * kSB : kTK * kSB;
-  __shared__ __align__(16) float As[2][kASize];
-  __shared__ __align__(16) float Bs[2][kBSize];
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int gid = lane >> 2, tig = lane & 3;  // mma fragment coordinates
-  const int wi = (warp & 3) * 32, wj = (warp >> 2) * 32;
-  const int i0 = blockIdx.y * kTI, j0 = blockIdx.x * kTJ;
-  const int kb = blockIdx.z * kPer, ke = min(Kd, kb + kPer);
-  const int nk = ke > kb ? (ke - kb + kTK - 1) / kTK : 0;
-
-  float acc[2][4][4];
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int v = 0; v < 4; ++v) acc[mt][nt][v] = 0.f;
-
-  auto load = [&](int stage, int k0) {
-    load_slice<A_KC, kTI, VEC>(As[stage], A, lda, i0, I, k0, ke, tid);
-    load_slice<B_KC, kTJ, VEC>(Bs[stage], Bm, ldb, j0, J, k0, ke, tid);
-  };
-  if (nk > 0) load(0, kb);
-  asm volatile("cp.async.commit_group;" ::: "memory");
-
-  for (int kt = 0; kt < nk; ++kt) {
-    if (kt + 1 < nk) load((kt + 1) & 1, kb + (kt + 1) * kTK);
-    asm volatile("cp.async.commit_group;" ::: "memory");
-    asm volatile("cp.async.wait_group 1;" ::: "memory");  // all but the newest group: slice kt is in
-    __syncthreads();
-    const float* as = As[kt & 1];
-    const float* bs = Bs[kt & 1];
-    float part[2][4][4];  // this slice's products: the mma's own adds stay short
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-        for (int v = 0; v < 4; ++v) part[mt][nt][v] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < kTK; ks += 8) {
-      uint32_t ah[2][4], al[2][4], bh[4][2], bl[4][2];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-#pragma unroll
-        for (int v = 0; v < 4; ++v) {
-          const int i = wi + mt * 16 + gid + 8 * (v & 1);
-          const int k = ks + tig + 4 * (v >> 1);
-          split_tf32(A_KC ? as[i * kSA + k] : as[k * kSA + i], ah[mt][v], al[mt][v]);
-        }
-      }
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-#pragma unroll
-        for (int v = 0; v < 2; ++v) {
-          const int j = wj + nt * 8 + gid;
-          const int k = ks + tig + 4 * v;
-          split_tf32(B_KC ? bs[j * kSB + k] : bs[k * kSB + j], bh[nt][v], bl[nt][v]);
-        }
-      }
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          mma_tf32(part[mt][nt], al[mt], bh[nt]);
-          mma_tf32(part[mt][nt], ah[mt], bl[nt]);
-          mma_tf32(part[mt][nt], ah[mt], bh[nt]);
-        }
-    }
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-        for (int v = 0; v < 4; ++v) acc[mt][nt][v] += part[mt][nt][v];
-    __syncthreads();  // the next iteration's copies overwrite this stage
-  }
-  asm volatile("cp.async.wait_group 0;" ::: "memory");
-
-  // accumulator v of tile (mt, nt): row gid + 8*(v >> 1), column 2*tig + (v & 1)
-  float* out = Cout + blockIdx.z * sCs;
-  const bool pairs = (ldc % 2 == 0) && (sCs % 2 == 0);
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int i = i0 + wi + mt * 16 + gid + 8 * h;
-      if (i >= I) continue;
-      float* orow = out + i * ldc;
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int j = j0 + wj + nt * 8 + 2 * tig;
-        const float x = acc[mt][nt][2 * h], y = acc[mt][nt][2 * h + 1];
-        if (pairs && j + 1 < J) {
-          *reinterpret_cast<float2*>(orow + j) = make_float2(x, y);
-        } else {
-          if (j < J) orow[j] = x;
-          if (j + 1 < J) orow[j + 1] = y;
-        }
-      }
-    }
-}
-
-template <bool A_KC, bool B_KC>
-cudaError_t launch_gemm(const float* A, long long lda, const float* Bm, long long ldb, float* Cout,
-                        long long sCs, long long ldc, int I, int J, int Kd, int kPer, int splits,
-                        bool vec, cudaStream_t stream) {
-  const dim3 grid((J + kTJ - 1) / kTJ, (I + kTI - 1) / kTI, splits);
-  if (vec)
-    tf32x3_gemm<A_KC, B_KC, true><<<grid, kGThreads, 0, stream>>>(A, lda, Bm, ldb, Cout, sCs, ldc,
-                                                                  I, J, Kd, kPer);
-  else
-    tf32x3_gemm<A_KC, B_KC, false><<<grid, kGThreads, 0, stream>>>(A, lda, Bm, ldb, Cout, sCs, ldc,
-                                                                   I, J, Kd, kPer);
-  return cudaGetLastError();
-}
 
 // out[i] = sum_{s < S} part[s * n + i], in order of s (deterministic).
 // Block (32, 8): lanes take 32 neighbouring i, the 8 rows stride over s.
@@ -476,6 +94,12 @@ __global__ void sum_partials(const float* __restrict__ part, int S, long long n,
     for (int y = 0; y < 8; ++y) t += red[y][threadIdx.x];
     out[i] = t;
   }
+}
+
+cudaError_t launch_sum_partials(const float* part, int S, long long n, float* out,
+                                cudaStream_t stream) {
+  sum_partials<<<static_cast<unsigned>((n + 31) / 32), dim3(32, 8), 0, stream>>>(part, S, n, out);
+  return cudaGetLastError();
 }
 
 // --- 4. per-edge gradients ---------------------------------------------------
@@ -745,15 +369,10 @@ extern "C" int se3_fused_equiv_bwd(const void* rel, const void* rot6, const void
   cudaError_t err;
 
   // 1. basis and the compact gout rows
-  const size_t smem_b = sizeof(float) * (9 * kGQMax + kGQMax + kBTM * kSlab + kBTM * kEB * kCC) +
-                        sizeof(int) * 2 * kBTM * static_cast<size_t>(K);
-  err = cudaFuncSetAttribute(basis_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem_b));
+  err = launch_basis(true, relf, rot6f, featsf, idxp, maskp, projf, biasf,
+                     static_cast<const float*>(gout), livep, scr, gl, M, N, K, G, F, Q, C, O, L,
+                     stream);
   if (err != cudaSuccess) return static_cast<int>(err);
-  basis_kernel<<<(L + kBTM - 1) / kBTM, kBThreads, smem_b, stream>>>(
-      relf, rot6f, featsf, idxp, maskp, projf, biasf, static_cast<const float*>(gout), livep, scr,
-      gl, M, N, K, G, F, Q, C, O, L);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
 
   // 2. d_w[(c,q), o] = sum_rows basis[row, (c,q)] * gout[row, o], split along the rows
   int k_per = static_cast<int>((rows + w_splits - 1) / w_splits);
@@ -761,15 +380,17 @@ extern "C" int se3_fused_equiv_bwd(const void* rel, const void* rot6, const void
   const long long nw = static_cast<long long>(CQ) * O;
   err = launch_gemm<false, false>(scr, CQ, gl, O, static_cast<float*>(wpart), nw, O, CQ, O,
                                   static_cast<int>(rows), k_per, w_splits,
-                                  CQ % 4 == 0 && O % 4 == 0, stream);
+                                  CQ % 4 == 0 && O % 4 == 0, nullptr, 1, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
-  sum_partials<<<static_cast<unsigned>((nw + 31) / 32), dim3(32, 8), 0, stream>>>(
-      static_cast<const float*>(wpart), w_splits, nw, static_cast<float*>(dw));
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  err = launch_sum_partials(static_cast<const float*>(wpart), w_splits, nw, static_cast<float*>(dw),
+                            stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
 
   // 3. dbasis[row, (c,q)] = sum_o gout[row, o] * W[(c,q), o], over the basis scratch
   err = launch_gemm<true, true>(gl, O, static_cast<const float*>(w), O, scr, 0, CQ,
-                                static_cast<int>(rows), CQ, O, O, 1, O % 4 == 0, stream);
+                                static_cast<int>(rows), CQ, O, O, 1,
+                                O % 4 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0, nullptr, 1,
+                                stream);
   if (err != cudaSuccess) return static_cast<int>(err);
 
   // 4. per-edge gradients
@@ -784,7 +405,6 @@ extern "C" int se3_fused_equiv_bwd(const void* rel, const void* rot6, const void
       M, N, K, G, F, Q, C, L);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   const long long np = static_cast<long long>(kPRows) * Q;
-  sum_partials<<<static_cast<unsigned>((np + 31) / 32), dim3(32, 8), 0, stream>>>(
-      static_cast<const float*>(ppart), p_blocks, np, static_cast<float*>(dparams));
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_sum_partials(static_cast<const float*>(ppart), p_blocks, np,
+                                              static_cast<float*>(dparams), stream));
 }

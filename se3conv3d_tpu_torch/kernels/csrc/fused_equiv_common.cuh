@@ -1,0 +1,470 @@
+// Pieces shared by the fused equivariant PNE-conv forward
+// (fused_equiv_fwd.cu) and backward (fused_equiv_bwd.cu), float32, sm_90a.
+//
+//   pre[k,g,f,q]  = P . [rel[b,m,k,g,:], rot6[b,m,k,g,f,:]] + bias[q]
+//   basis[g,c,q]  = sum_{k,f: mask} gelu(pre[k,g,f,q]) * feats[b, idx[b,m,k], f, c]
+//
+// - the per-edge helpers (edge compaction, the 9 pne inputs, pre, gelu and
+//   its derivative);
+// - basis_kernel: the basis of every live query row (a row with a valid
+//   edge; live[r] = b*M + m) into a scratch [L*G, C*Q], live row r owning
+//   scratch rows r*G .. r*G+G-1 (depth index c*Q + q, the layout of
+//   W [C, Q, O]);
+// - tf32x3_gemm: a float32 product on tensor cores in the 3xTF32 form, with
+//   an optional epilogue that scatters scratch row r*G+g to output row
+//   live[r]*G + g.
+// Everything here sits in an anonymous namespace: each source that includes
+// it builds into its own library with its own copy.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kGQMax = 64;                // G * Q columns of a pne row
+constexpr int kEB = 32;                   // edges per round, one per lane
+constexpr int kCC = 32;                   // input channels per chunk
+constexpr int kPneStride = kGQMax + 1;    // padded rows: lane-major writes hit distinct banks
+constexpr int kSlab = kEB * kPneStride;   // a warp's pne rows for one round of edges
+constexpr int kSmemMax = 232448;          // shared memory one block may use on an H100
+
+__device__ __forceinline__ float gelu_erf(float x) {
+  return 0.5f * x * (1.0f + erff(x * 0.70710678118654752f));
+}
+
+__device__ __forceinline__ float gelu_grad(float x) {
+  const float cdf = 0.5f * (1.0f + erff(x * 0.70710678118654752f));
+  return cdf + x * 0.39894228040143268f * expf(-0.5f * x * x);
+}
+
+// Warp-cooperative compaction of the valid edges of one query row
+// (out-of-range indices count as invalid); returns their number.
+__device__ int compact_edges(const int64_t* __restrict__ idx, const uint8_t* __restrict__ mask,
+                             size_t row, int K, int N, int lane, int* validK, int* validN) {
+  int nvalid = 0;
+  for (int k0 = 0; k0 < K; k0 += 32) {
+    const int k = k0 + lane;
+    int64_t n = 0;
+    bool v = false;
+    if (k < K) {
+      n = idx[row + k];
+      v = mask[row + k] != 0 && n >= 0 && n < N;
+    }
+    const unsigned bal = __ballot_sync(0xffffffffu, v);
+    if (v) {
+      const int pos = nvalid + __popc(bal & ((1u << lane) - 1u));
+      validK[pos] = k;
+      validN[pos] = static_cast<int>(n);
+    }
+    nvalid += __popc(bal);
+  }
+  __syncwarp();
+  return nvalid;
+}
+
+// The 9 pne inputs of edge (row + k, in-frame f) for out-frame g.
+__device__ __forceinline__ void edge_geo(const float* __restrict__ rel,
+                                         const float* __restrict__ rot6, size_t base, int g,
+                                         int F, int f, float* geo) {
+  const float* r = rel + (base + g) * 3;
+  const float* t = rot6 + ((base + g) * F + f) * 6;
+#pragma unroll
+  for (int d = 0; d < 3; ++d) geo[d] = r[d];
+#pragma unroll
+  for (int d = 0; d < 6; ++d) geo[3 + d] = t[d];
+}
+
+__device__ __forceinline__ float pre_act(const float* geo, const float* projS,
+                                         const float* biasS, int Q, int q) {
+  float pre = biasS[q];
+#pragma unroll
+  for (int d = 0; d < 9; ++d) pre = fmaf(geo[d], projS[d * Q + q], pre);
+  return pre;
+}
+
+// --- basis -> scratch [L*G, C*Q] ---------------------------------------------
+// One warp per live row r = blockIdx.x * warps + warp.  The warp compacts the
+// row's valid edges, evaluates each edge's pne row (G*Q gelus; lane e takes
+// edges e, e + 32, ...) once into shared memory, then walks the input
+// channels 32 at a time: per edge, lane c loads feature channel c0 + c
+// (one coalesced 128-byte row), and lane (gqb, cb) adds pne[e][gqb + 8i] *
+// feat[e][cb + 4j] into its NI x 8 register tile (NI = 4 covers G*Q <= 32,
+// 8 covers 64), the features passed by shuffles.  The tile goes straight
+// from registers to the scratch: for one (i, j) the warp writes 4 runs of 8
+// consecutive q, each a whole 32-byte sector.  The columns of a pne row past
+// G*Q are never written; they only feed tile rows that are not stored.
+// With kGout the warp also copies gout's row to a compact [L*G, O] (the
+// backward).
+constexpr int kBWarps = 4;      // warps per block, fewer when K*F is large
+constexpr int kBEdges = 8;      // feature loads in flight per lane
+
+inline size_t basis_warp_bytes(int K, int F) {
+  return sizeof(float) * static_cast<size_t>(K) * F * kPneStride + sizeof(int) * 2 * static_cast<size_t>(K);
+}
+inline size_t basis_smem(int K, int F, int warps) {
+  return sizeof(float) * 10 * kGQMax + warps * basis_warp_bytes(K, F);
+}
+// Warps per block of basis_kernel at K neighbors x F in-frames; 0 if one
+// warp's pne rows do not fit.
+inline int basis_warps(int K, int F) {
+  const size_t room = kSmemMax - sizeof(float) * 10 * kGQMax;
+  const size_t w = room / basis_warp_bytes(K, F);
+  return static_cast<int>(w < kBWarps ? w : kBWarps);
+}
+
+template <int NI, bool kGout>
+__global__ void __launch_bounds__(32 * kBWarps, 4)
+basis_kernel(const float* __restrict__ rel, const float* __restrict__ rot6,
+             const float* __restrict__ feats, const int64_t* __restrict__ idx,
+             const uint8_t* __restrict__ mask, const float* __restrict__ proj,
+             const float* __restrict__ bias, const float* __restrict__ gout,
+             const int* __restrict__ live, float* __restrict__ basis,
+             float* __restrict__ gout_live,
+             int M, int N, int K, int G, int F, int Q, int C, int O, int L) {
+  extern __shared__ float smem[];
+  const int warps = blockDim.x >> 5;
+  const size_t pne_rows = static_cast<size_t>(K) * F;
+  float* projS = smem;                       // [9][Q]
+  float* biasS = projS + 9 * kGQMax;         // [Q]
+  float* pneS = biasS + kGQMax;              // [warps][K*F][kPneStride]
+  int* validK = reinterpret_cast<int*>(pneS + warps * pne_rows * kPneStride);  // [warps][K]
+  int* validN = validK + warps * K;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int r = blockIdx.x * warps + warp;
+  const int GQ = G * Q;
+  for (int i = tid; i < 9 * Q; i += blockDim.x) projS[i] = proj[i];
+  for (int i = tid; i < Q; i += blockDim.x) biasS[i] = bias[i];
+  __syncthreads();
+  if (r >= L) return;  // whole warp; no block barrier follows
+
+  const int flat = live[r];  // b * M + m
+  const int b = flat / M;
+  const size_t row = static_cast<size_t>(flat) * K;
+  const size_t out_row = static_cast<size_t>(r) * G;
+  if (kGout) {
+    const size_t GO = static_cast<size_t>(G) * O;
+    for (size_t i = lane; i < GO; i += 32) gout_live[out_row * O + i] = gout[flat * GO + i];
+  }
+
+  int* vK = validK + warp * K;
+  int* vN = validN + warp * K;
+  const int nE = compact_edges(idx, mask, row, K, N, lane, vK, vN) * F;
+  float* pneW = pneS + warp * pne_rows * kPneStride;
+  for (int e = lane; e < nE; e += 32) {
+    const int j = e / F, f = e - j * F;
+    const size_t base = (row + vK[j]) * G;
+    float* prow = pneW + e * kPneStride;
+#pragma unroll
+    for (int g = 0; g < 2; ++g) {
+      if (g < G) {
+        float geo[9];
+        edge_geo(rel, rot6, base, g, F, f, geo);
+        for (int q = 0; q < Q; ++q) prow[g * Q + q] = gelu_erf(pre_act(geo, projS, biasS, Q, q));
+      }
+    }
+  }
+  __syncwarp();
+
+  const int gqb = lane >> 2, cb = lane & 3;  // tile: gq = gqb + 8i, c = cb + 4j
+  const int CQ = C * Q;
+  float* dst = basis + out_row * CQ;
+  int off[NI];  // offset of (g, q) = gq in the row's G scratch rows, or -1 past G*Q
+#pragma unroll
+  for (int i = 0; i < NI; ++i) {
+    const int gq = gqb + 8 * i, g = gq / Q;
+    off[i] = gq < GQ ? g * CQ + (gq - g * Q) : -1;
+  }
+
+  for (int c0 = 0; c0 < C; c0 += kCC) {
+    const int cw = min(kCC, C - c0);
+    float acc[NI][8];
+#pragma unroll
+    for (int i = 0; i < NI; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+    for (int e0 = 0; e0 < nE; e0 += kBEdges) {  // warp-uniform
+      float v[kBEdges];
+#pragma unroll
+      for (int u = 0; u < kBEdges; ++u) {
+        const int e = e0 + u, j = e / F, f = e - j * F;
+        v[u] = 0.f;
+        if (e < nE && lane < cw)
+          v[u] = __ldg(feats + ((static_cast<size_t>(b) * N + vN[j]) * F + f) * C + c0 + lane);
+      }
+#pragma unroll
+      for (int u = 0; u < kBEdges; ++u) {
+        if (e0 + u >= nE) break;  // warp-uniform
+        const float* prow = pneW + (e0 + u) * kPneStride;
+        float p[NI], x[8];
+#pragma unroll
+        for (int i = 0; i < NI; ++i) p[i] = prow[gqb + 8 * i];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) x[j] = __shfl_sync(0xffffffffu, v[u], cb + 4 * j);
+#pragma unroll
+        for (int i = 0; i < NI; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(p[i], x[j], acc[i][j]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < NI; ++i) {
+      if (off[i] < 0) continue;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c = cb + 4 * j;
+        if (c < cw) dst[off[i] + static_cast<size_t>(c0 + c) * Q] = acc[i][j];
+      }
+    }
+  }
+}
+
+// Launches basis_kernel over L live rows (the tile height from G*Q).
+inline cudaError_t launch_basis(bool with_gout, const float* rel, const float* rot6,
+                                const float* feats, const int64_t* idx, const uint8_t* mask,
+                                const float* proj, const float* bias, const float* gout,
+                                const int* live, float* basis, float* gout_live, int M, int N,
+                                int K, int G, int F, int Q, int C, int O, int L,
+                                cudaStream_t stream) {
+  const int warps = basis_warps(K, F);
+  if (warps < 1) return cudaErrorInvalidValue;
+  const size_t smem = basis_smem(K, F, warps);
+  const bool narrow = G * Q <= 32;
+  auto kernel = with_gout ? (narrow ? basis_kernel<4, true> : basis_kernel<8, true>)
+                          : (narrow ? basis_kernel<4, false> : basis_kernel<8, false>);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  kernel<<<(L + warps - 1) / warps, 32 * warps, smem, stream>>>(
+      rel, rot6, feats, idx, mask, proj, bias, gout, live, basis, gout_live, M, N, K, G, F, Q, C,
+      O, L);
+  return cudaGetLastError();
+}
+
+// --- C[z] = A . B over the depth slice z, on tensor cores --------------------
+// tf32x3_gemm: block tile kTI x kTJ, 8 warps of 32 x 32 (2 x 4 mma tiles)
+constexpr int kGThreads = 256;
+constexpr int kTI = 128;
+constexpr int kTJ = 64;
+constexpr int kTK = 16;                   // depth per stage, two k8 steps
+
+// x rounded to TF32 (10 mantissa bits), to nearest with ties away from zero:
+// cvt.rna.tf32.f32 for finite x, as an integer add and mask.
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = hi + lo, both TF32: the 3xTF32 split.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+
+// d += a . b on one m16n8k8 TF32 tile, float32 accumulate.
+__device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a, const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Asynchronous copy of `bytes` (< size: the rest is zero-filled) to shared memory.
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, int bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d), "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, int bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(d), "l"(src), "r"(bytes)
+               : "memory");
+}
+
+// One operand's kTK-deep slice of a tile into shared memory.  The operand
+// X(r, k) has `R` rows (the tile's own index, r in [r0, r0 + ROWS)) and is
+// summed over k in [k0, ke).  KC (depth contiguous): X(r, k) = X[r*ld + k],
+// kept as [ROWS][kTK + 4]; else X(r, k) = X[k*ld + r], kept as
+// [kTK][ROWS + 8].  Both pads put the mma fragment reads of one warp on 32
+// distinct banks.  VEC: 16-byte copies (ld, the base and the contiguous
+// extent are multiples of 4 floats); else 4-byte copies.
+template <bool KC, int ROWS, bool VEC>
+__device__ __forceinline__ void load_slice(float* s, const float* __restrict__ X, long long ld,
+                                           int r0, int R, int k0, int ke, int tid) {
+  constexpr int kStride = KC ? kTK + 4 : ROWS + 8;
+  if (VEC) {
+    constexpr int kChunks = ROWS * kTK / 4;
+#pragma unroll
+    for (int c = tid; c < kChunks; c += kGThreads) {
+      int r, k;
+      if (KC) { r = c / (kTK / 4); k = (c % (kTK / 4)) * 4; } else { k = c / (ROWS / 4); r = (c % (ROWS / 4)) * 4; }
+      const int gr = r0 + r, gk = k0 + k;
+      int bytes = 0;
+      if (gr < R && gk < ke) bytes = 4 * min(4, KC ? ke - gk : R - gr);
+      const float* src = bytes ? X + (KC ? gr * ld + gk : gk * ld + gr) : X;
+      cp_async16(s + (KC ? r * kStride + k : k * kStride + r), src, bytes);
+    }
+  } else {
+    constexpr int kElems = ROWS * kTK;
+#pragma unroll 4
+    for (int e = tid; e < kElems; e += kGThreads) {
+      int r, k;
+      if (KC) { r = e / kTK; k = e % kTK; } else { k = e / ROWS; r = e % ROWS; }
+      const int gr = r0 + r, gk = k0 + k;
+      const bool ok = gr < R && gk < ke;
+      const float* src = ok ? X + (KC ? gr * ld + gk : gk * ld + gr) : X;
+      cp_async4(s + (KC ? r * kStride + k : k * kStride + r), src, ok ? 4 : 0);
+    }
+  }
+}
+
+// Output row of product row i: i itself, or with a live-row map (rowmap =
+// live rows of this call, G rows each) rowmap[i / G] * G + i % G.
+__device__ __forceinline__ long long mapped_row(const int* __restrict__ rowmap, int G, int i) {
+  return rowmap == nullptr ? i : static_cast<long long>(rowmap[i / G]) * G + i % G;
+}
+
+// Cout[z] (I x J, row stride ldc; z = blockIdx.z at Cout + z*sCs) =
+// sum over depth k in [z*kPer, min((z+1)*kPer, Kd)) of A(i, k) * B(k, j),
+// row i stored at mapped_row(rowmap, G, i).  A_KC: A(i, k) = A[i*lda + k],
+// else A[k*lda + i]; B_KC: B(k, j) = B[j*ldb + k], else B[k*ldb + j].  A
+// block of 8 warps owns a kTI x kTJ tile; each warp a 32 x 32 piece, 2 x 4
+// m16n8 tiles, three mma per tile and k8 step (3xTF32).  The tensor cores'
+// float32 adds do not round to nearest, and over thousands of depth steps
+// that bias grows with the depth; so each kTK-deep slice is summed by the
+// mma into a zeroed register tile and added to the running sum by a
+// rounded float32 add.  Two shared-memory stages: the next slice's
+// cp.async copies run while this one's products do.  A block whose depth
+// slice is empty writes zeros.  The sum order within a block is fixed, so
+// the result depends only on (I, J, Kd, kPer).
+template <bool A_KC, bool B_KC, bool VEC>
+__global__ void __launch_bounds__(kGThreads)
+tf32x3_gemm(const float* __restrict__ A, long long lda, const float* __restrict__ Bm,
+            long long ldb, float* __restrict__ Cout, long long sCs, long long ldc,
+            int I, int J, int Kd, int kPer, const int* __restrict__ rowmap, int G) {
+  constexpr int kSA = A_KC ? kTK + 4 : kTI + 8;
+  constexpr int kSB = B_KC ? kTK + 4 : kTJ + 8;
+  constexpr int kASize = A_KC ? kTI * kSA : kTK * kSA;
+  constexpr int kBSize = B_KC ? kTJ * kSB : kTK * kSB;
+  __shared__ __align__(16) float As[2][kASize];
+  __shared__ __align__(16) float Bs[2][kBSize];
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gid = lane >> 2, tig = lane & 3;  // mma fragment coordinates
+  const int wi = (warp & 3) * 32, wj = (warp >> 2) * 32;
+  const int i0 = blockIdx.y * kTI, j0 = blockIdx.x * kTJ;
+  const int kb = blockIdx.z * kPer, ke = min(Kd, kb + kPer);
+  const int nk = ke > kb ? (ke - kb + kTK - 1) / kTK : 0;
+
+  float acc[2][4][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) acc[mt][nt][v] = 0.f;
+
+  auto load = [&](int stage, int k0) {
+    load_slice<A_KC, kTI, VEC>(As[stage], A, lda, i0, I, k0, ke, tid);
+    load_slice<B_KC, kTJ, VEC>(Bs[stage], Bm, ldb, j0, J, k0, ke, tid);
+  };
+  if (nk > 0) load(0, kb);
+  asm volatile("cp.async.commit_group;" ::: "memory");
+
+  for (int kt = 0; kt < nk; ++kt) {
+    if (kt + 1 < nk) load((kt + 1) & 1, kb + (kt + 1) * kTK);
+    asm volatile("cp.async.commit_group;" ::: "memory");
+    asm volatile("cp.async.wait_group 1;" ::: "memory");  // all but the newest group: slice kt is in
+    __syncthreads();
+    const float* as = As[kt & 1];
+    const float* bs = Bs[kt & 1];
+    float part[2][4][4];  // this slice's products: the mma's own adds stay short
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int v = 0; v < 4; ++v) part[mt][nt][v] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < kTK; ks += 8) {
+      uint32_t ah[2][4], al[2][4], bh[4][2], bl[4][2];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+        for (int v = 0; v < 4; ++v) {
+          const int i = wi + mt * 16 + gid + 8 * (v & 1);
+          const int k = ks + tig + 4 * (v >> 1);
+          split_tf32(A_KC ? as[i * kSA + k] : as[k * kSA + i], ah[mt][v], al[mt][v]);
+        }
+      }
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+        for (int v = 0; v < 2; ++v) {
+          const int j = wj + nt * 8 + gid;
+          const int k = ks + tig + 4 * v;
+          split_tf32(B_KC ? bs[j * kSB + k] : bs[k * kSB + j], bh[nt][v], bl[nt][v]);
+        }
+      }
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          mma_tf32(part[mt][nt], al[mt], bh[nt]);
+          mma_tf32(part[mt][nt], ah[mt], bl[nt]);
+          mma_tf32(part[mt][nt], ah[mt], bh[nt]);
+        }
+    }
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int v = 0; v < 4; ++v) acc[mt][nt][v] += part[mt][nt][v];
+    __syncthreads();  // the next iteration's copies overwrite this stage
+  }
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
+
+  // accumulator v of tile (mt, nt): row gid + 8*(v >> 1), column 2*tig + (v & 1)
+  float* out = Cout + blockIdx.z * sCs;
+  const bool pairs = (ldc % 2 == 0) && (sCs % 2 == 0);
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = i0 + wi + mt * 16 + gid + 8 * h;
+      if (i >= I) continue;
+      float* orow = out + mapped_row(rowmap, G, i) * ldc;
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int j = j0 + wj + nt * 8 + 2 * tig;
+        const float x = acc[mt][nt][2 * h], y = acc[mt][nt][2 * h + 1];
+        if (pairs && j + 1 < J) {
+          *reinterpret_cast<float2*>(orow + j) = make_float2(x, y);
+        } else {
+          if (j < J) orow[j] = x;
+          if (j + 1 < J) orow[j + 1] = y;
+        }
+      }
+    }
+}
+
+template <bool A_KC, bool B_KC>
+cudaError_t launch_gemm(const float* A, long long lda, const float* Bm, long long ldb, float* Cout,
+                        long long sCs, long long ldc, int I, int J, int Kd, int kPer, int splits,
+                        bool vec, const int* rowmap, int G, cudaStream_t stream) {
+  const dim3 grid((J + kTJ - 1) / kTJ, (I + kTI - 1) / kTI, splits);
+  if (vec)
+    tf32x3_gemm<A_KC, B_KC, true><<<grid, kGThreads, 0, stream>>>(A, lda, Bm, ldb, Cout, sCs, ldc,
+                                                                  I, J, Kd, kPer, rowmap, G);
+  else
+    tf32x3_gemm<A_KC, B_KC, false><<<grid, kGThreads, 0, stream>>>(A, lda, Bm, ldb, Cout, sCs, ldc,
+                                                                   I, J, Kd, kPer, rowmap, G);
+  return cudaGetLastError();
+}
+
+}  // namespace

@@ -8,254 +8,129 @@
 // _fwd_kernel.  See se3conv3d_tpu_torch/kernels/fused_equiv.py for the
 // wrapper, the plain PyTorch version and the design note.
 //
-// One block = 256 threads = 8 warps owns a tile of 8 query points of one
-// batch element, one warp per point, and one block of up to 256 output
-// channels.  Per channel chunk of 32:
-//   1. each warp walks its point's valid edges (k, f) 32 at a time: lane e
-//      evaluates the pne row of edge e (G*Q gelus) into shared memory, then
-//      the warp gathers the 32 edges' features (lane = channel);
-//   2. each lane accumulates an 8x8 register tile of basis[g*Q+q][c];
-//   3. the 8 points' basis tiles go to shared memory and the whole block
-//      contracts them against W[c, q, o] (rows = (point, g), depth =
-//      (q, c)), split over the depth when there are few output columns;
-//      partial sums stay in registers across channel chunks and are
-//      reduced through shared memory at the end.
-// pne, basis and the gathered features never reach device memory.
+// What bounds it: per valid edge the pne row (G*Q gelus) and the basis
+// products (2*G*Q*C FLOPs), per live row the weight contraction (2*G*C*Q*O
+// FLOPs), which dominates at C = O = 256-320.  On the TPU one grid step held
+// a tile's basis in VMEM and contracted it on the MXU; a Hopper block has no
+// room for the basis of enough rows to amortise W (C*Q*O floats, 13 MB at
+// C = O = 320).  So the forward is two passes over the live rows only (the
+// query rows with a valid edge, live[L] = b*M + m ascending; a padded row's
+// output is zero, written by the caller), in chunks whose scratch stays
+// within a cap the caller gives:
+//   1. basis_kernel (fused_equiv_common.cuh, shared with the backward): the
+//      chunk's basis rows into a scratch [Lc*G, C*Q];
+//   2. tf32x3_gemm: out rows = basis . W[C*Q, O] on tensor cores in 3xTF32,
+//      a block of 128 rows reading W once, its epilogue storing scratch row
+//      r*G + g at out[live[r], g, :].  Where the chunk has too few row tiles
+//      to fill the card, the depth C*Q is split into partials that
+//      sum_splits adds in a fixed order, storing through the same map.
+// The result depends only on the shapes and L: two calls agree bitwise.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "fused_equiv_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTM = 8;                 // query points per block, one per warp
-constexpr int kEB = 32;                // edges staged per round, one per lane
-constexpr int kCC = 32;                // input channels per chunk
-constexpr int kGQMax = 64;             // G * Q columns of a pne row
-constexpr int kPneStride = kGQMax + 1; // padded: lane-major writes hit distinct banks
-constexpr int kOBlk = 256;             // output channels per block
-constexpr int kSlab = kEB * kPneStride;  // per-warp pne slab, reused for basis
+constexpr int kSMs = 132;               // an H100's SMs
+constexpr int kSlots = 2 * kSMs;        // product blocks resident at once (two per SM)
+constexpr int kMinSplitDepth = 256;     // least depth per split of the product
+constexpr int kSumThreads = 256;
 
-__device__ __forceinline__ float gelu_erf(float x) {
-  return 0.5f * x * (1.0f + erff(x * 0.70710678118654752f));
-}
+long long round4(long long x) { return (x + 3) / 4 * 4; }
 
-__global__ void __launch_bounds__(kThreads, 2)
-fused_equiv_fwd_kernel(const float* __restrict__ rel,    // [B,M,K,G,3]
-                       const float* __restrict__ rot6,   // [B,M,K,G,F,6]
-                       const float* __restrict__ feats,  // [B,N,F,C]
-                       const int64_t* __restrict__ idx,  // [B,M,K]
-                       const uint8_t* __restrict__ mask, // [B,M,K]
-                       const float* __restrict__ proj,   // [9,Q]
-                       const float* __restrict__ bias,   // [Q]
-                       const float* __restrict__ w,      // [C,Q,O]
-                       float* __restrict__ out,          // [B,M,G,O]
-                       int M, int N, int K, int G, int F, int Q, int C, int O) {
-  extern __shared__ float smem[];
-  float* projS = smem;                      // [9][Q]
-  float* biasS = projS + 9 * kGQMax;        // [Q]
-  float* pneS = biasS + kGQMax;             // [kTM][kSlab]
-  float* featS = pneS + kTM * kSlab;        // [kTM][kEB][kCC]
-  int* validK = reinterpret_cast<int*>(featS + kTM * kEB * kCC);  // [kTM][K]
-  int* validN = validK + kTM * K;                                  // [kTM][K]
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int b = blockIdx.z;
-  const int m0 = blockIdx.x * kTM;
-  const int o0 = blockIdx.y * kOBlk;
-  const int m = m0 + warp;
-  const int GQ = G * Q;
-
-  for (int i = tid; i < 9 * Q; i += kThreads) projS[i] = proj[i];
-  for (int i = tid; i < Q; i += kThreads) biasS[i] = bias[i];
-
-  // Compact this warp's valid edges (out-of-range indices count as invalid).
-  int nvalid = 0;
-  if (m < M) {
-    const size_t row = (static_cast<size_t>(b) * M + m) * K;
-    for (int k0 = 0; k0 < K; k0 += 32) {
-      const int k = k0 + lane;
-      int64_t n = 0;
-      bool v = false;
-      if (k < K) {
-        n = idx[row + k];
-        v = mask[row + k] != 0 && n >= 0 && n < N;
-      }
-      const unsigned bal = __ballot_sync(0xffffffffu, v);
-      if (v) {
-        const int pos = nvalid + __popc(bal & ((1u << lane) - 1u));
-        validK[warp * K + pos] = k;
-        validN[warp * K + pos] = static_cast<int>(n);
-      }
-      nvalid += __popc(bal);
-    }
-  }
-  const int R = kTM * G;
-  const int ob = min(kOBlk, O - o0);
-  // Tiles of padding rows (no valid edge at all) only write zeros.
-  if (!__syncthreads_or(nvalid > 0)) {
-    for (int i = tid; i < R * ob; i += kThreads) {
-      const int r = i / ob, mm = m0 + r / G;
-      if (mm < M) out[((static_cast<size_t>(b) * M + mm) * G + r % G) * O + o0 + i % ob] = 0.f;
-    }
-    return;
-  }
-
-  // Weight-stage mapping: 4x4 output micro-tiles over (row = point*G + g,
-  // output column), the depth (q, c) split over the threads left over.
-  const int OG = (ob + 3) / 4;
-  const int MT = ((R + 3) / 4) * OG;
-  const int S = kThreads / MT;
-  const int mt = tid % MT, split = tid / MT;
-  const bool wactive = split < S;
-  const int r0 = (mt / OG) * 4, oc0 = (mt % OG) * 4;
-  float acc2[4][4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc2[a][c] = 0.f;
-
-  const int nE = nvalid * F;
-  float* pneW = pneS + warp * kSlab;
-  float* featW = featS + warp * kEB * kCC;
-  const int gqb = lane >> 2, cb = lane & 3;  // basis tile: gq = gqb + 8i, c = cb + 4j
-
-  for (int c0 = 0; c0 < C; c0 += kCC) {
-    const int cw = min(kCC, C - c0);
-    float acc[8][8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-    for (int e0 = 0; e0 < nE; e0 += kEB) {  // warp-uniform
-      const int ne = min(kEB, nE - e0);
-      // (1a) pne row of edge e0 + lane.
-      float* prow = pneW + lane * kPneStride;
-      if (lane < ne) {
-        const int e = e0 + lane;
-        const int j = e / F, f = e - j * F;
-        const size_t base = ((static_cast<size_t>(b) * M + m) * K + validK[warp * K + j]) * G;
-#pragma unroll
-        for (int g = 0; g < 2; ++g) {
-          if (g < G) {
-            float geo[9];
-            const float* r = rel + (base + g) * 3;
-            const float* t = rot6 + ((base + g) * F + f) * 6;
-#pragma unroll
-            for (int d = 0; d < 3; ++d) geo[d] = r[d];
-#pragma unroll
-            for (int d = 0; d < 6; ++d) geo[3 + d] = t[d];
-            for (int q = 0; q < Q; ++q) {
-              float pre = biasS[q];
-#pragma unroll
-              for (int d = 0; d < 9; ++d) pre = fmaf(geo[d], projS[d * Q + q], pre);
-              prow[g * Q + q] = gelu_erf(pre);
-            }
-          }
-        }
-        for (int gq = GQ; gq < kGQMax; ++gq) prow[gq] = 0.f;
-      }
-      // (1b) gathered features, lane = channel.
-#pragma unroll 4
-      for (int el = 0; el < ne; ++el) {
-        const int e = e0 + el;
-        const int j = e / F, f = e - j * F;
-        float v = 0.f;
-        if (lane < cw) {
-          const size_t src = (static_cast<size_t>(b) * N + validN[warp * K + j]) * F + f;
-          v = __ldg(feats + src * C + c0 + lane);
-        }
-        featW[el * kCC + lane] = v;
-      }
-      __syncwarp();
-      // (2) basis[gq][c] += pne[e][gq] * feat[e][c].
-      for (int el = 0; el < ne; ++el) {
-        float p[8], x[8];
-#pragma unroll
-        for (int i = 0; i < 8; ++i) p[i] = pneW[el * kPneStride + gqb + 8 * i];
-#pragma unroll
-        for (int jj = 0; jj < 8; ++jj) x[jj] = featW[el * kCC + cb + 4 * jj];
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-          for (int jj = 0; jj < 8; ++jj) acc[i][jj] = fmaf(p[i], x[jj], acc[i][jj]);
-      }
-      __syncwarp();
-    }
-    // basis tile -> this warp's slab, [gq][c] with row stride kCC
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int jj = 0; jj < 8; ++jj) pneW[(gqb + 8 * i) * kCC + cb + 4 * jj] = acc[i][jj];
-    __syncthreads();
-
-    // (3) out[row][o] += sum_{q, c} basis[row][q][c] * W[c0 + c][q][o0 + o]
-    if (wactive) {
-      const int KT = Q * cw;
-      const int kb = split * KT / S, ke = (split + 1) * KT / S;
-      const float* brow[4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        const int r = min(r0 + a, R - 1);
-        brow[a] = pneS + (r / G) * kSlab + (r % G) * Q * kCC;
-      }
-      for (int kk = kb; kk < ke; ++kk) {
-        const int q = kk / cw, c = kk - q * cw;
-        const float* wrow = w + (static_cast<size_t>(c0 + c) * Q + q) * O + o0;
-        float bv[4], wv[4];
-#pragma unroll
-        for (int a = 0; a < 4; ++a) bv[a] = brow[a][q * kCC + c];
-#pragma unroll
-        for (int a = 0; a < 4; ++a) wv[a] = (oc0 + a < ob) ? __ldg(wrow + oc0 + a) : 0.f;
-#pragma unroll
-        for (int a = 0; a < 4; ++a)
-#pragma unroll
-          for (int cc = 0; cc < 4; ++cc) acc2[a][cc] = fmaf(bv[a], wv[cc], acc2[a][cc]);
-      }
-    }
-    __syncthreads();
-  }
-
-  // Reduce the depth splits through shared memory and store.
-  float* red = pneS;  // [S][MT][16] <= 256 * 16 floats
-  if (wactive) {
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) red[(split * MT + mt) * 16 + a * 4 + c] = acc2[a][c];
-  }
-  __syncthreads();
-  for (int i = tid; i < R * ob; i += kThreads) {
-    const int r = i / ob, o = i - r * ob;
-    const int tile = (r >> 2) * OG + (o >> 2), sub = (r & 3) * 4 + (o & 3);
-    float s = 0.f;
-    for (int sp = 0; sp < S; ++sp) s += red[(sp * MT + tile) * 16 + sub];
-    const int mm = m0 + r / G, g = r % G;
-    if (mm < M) out[((static_cast<size_t>(b) * M + mm) * G + g) * O + o0 + o] = s;
-  }
+// out[live[r]*G + g][j] = sum_{s < S} part[s][r*G + g][j], in order of s
+// (deterministic): the depth splits of the product, stored at their rows.
+__global__ void __launch_bounds__(kSumThreads)
+sum_splits(const float* __restrict__ part, int S, long long n, int J,
+           const int* __restrict__ live, int G, float* __restrict__ out) {
+  const long long i = blockIdx.x * static_cast<long long>(kSumThreads) + threadIdx.x;
+  if (i >= n) return;
+  float s = 0.f;
+  for (int p = 0; p < S; ++p) s += part[p * n + i];
+  out[mapped_row(live, G, static_cast<int>(i / J)) * J + i % J] = s;
 }
 
 }  // namespace
 
-// Plain C entry point for ctypes.  Launches on `stream` and returns
-// cudaGetLastError() (0 = launched).  Requires G <= 2, G*Q <= 64.
+// Work plan of se3_fused_equiv_fwd for L live rows within cap_floats of
+// scratch (float32 elements): live rows per chunk, depth splits of the
+// product, and the scratch the caller allocates (the chunk's basis rows,
+// then the split partials).  One eighth of the cap is kept for the
+// partials; a single live row whose basis exceeds the rest is taken alone.
+extern "C" void se3_fused_equiv_fwd_plan(int L, int G, int Q, int C, int O, long long cap_floats,
+                                         int* chunk, int* splits, long long* scratch) {
+  const long long cq = static_cast<long long>(C) * Q;
+  const long long part_cap = cap_floats / 8;
+  long long lc = (cap_floats - part_cap) / (G * cq);
+  const long long max_lc = static_cast<long long>(kTI) * 65535 / G;  // the product's grid
+  lc = lc < 1 ? 1 : (lc < max_lc ? lc : max_lc);
+  if (lc > L) lc = L > 0 ? L : 1;
+  const long long n = (L + lc - 1) / lc;
+  lc = (L + n - 1) / n;  // even chunks
+  const long long rows = lc * G;
+  const long long tiles = ((rows + kTI - 1) / kTI) * ((O + kTJ - 1) / kTJ);
+  // Depth splits: s splits run tiles*s blocks of depth cq/s in
+  // ceil(tiles*s / kSlots) rounds, and add s partial rows of width O to
+  // read back; take the s with the least of rounds / s + s*O / cq.
+  const long long by_depth = (cq + kMinSplitDepth - 1) / kMinSplitDepth;
+  const long long by_room = part_cap / (rows * O);
+  const long long s_max = by_depth < by_room ? by_depth : by_room;
+  long long s = 1;
+  double best = static_cast<double>((tiles + kSlots - 1) / kSlots);
+  for (long long t = 2; t <= s_max; ++t) {
+    const double cost = static_cast<double>((tiles * t + kSlots - 1) / kSlots) / t +
+                        static_cast<double>(t * O) / cq;
+    if (cost < best) best = cost, s = t;
+  }
+  *chunk = static_cast<int>(lc);
+  *splits = static_cast<int>(s);
+  *scratch = round4(rows * cq) + (s > 1 ? s * rows * O : 0);
+}
+
+// Plain C entry point for ctypes.  Launches on `stream` and returns the
+// first CUDA error (0 = launched).  live is the int32 table of the L >= 1
+// query rows b*M + m that have a valid edge (a row without one may be
+// listed too); out [B, M, G, O] must be zeroed by the caller (rows not
+// listed are not written).  Requires G <= 2, G*Q <= 64 and the plan of
+// se3_fused_equiv_fwd_plan for the same L.
 extern "C" int se3_fused_equiv_fwd(const void* rel, const void* rot6, const void* feats,
                                    const void* idx, const void* mask, const void* proj,
-                                   const void* bias, const void* w, void* out, int B, int M,
-                                   int N, int K, int G, int F, int Q, int C, int O,
-                                   void* stream) {
-  const size_t smem = sizeof(float) * (9 * kGQMax + kGQMax + kTM * kSlab + kTM * kEB * kCC) +
-                      sizeof(int) * 2 * kTM * static_cast<size_t>(K);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_equiv_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((M + kTM - 1) / kTM, (O + kOBlk - 1) / kOBlk, B);
-  fused_equiv_fwd_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(rel), static_cast<const float*>(rot6),
-      static_cast<const float*>(feats), static_cast<const int64_t*>(idx),
-      static_cast<const uint8_t*>(mask), static_cast<const float*>(proj),
-      static_cast<const float*>(bias), static_cast<const float*>(w), static_cast<float*>(out), M,
-      N, K, G, F, Q, C, O);
-  return static_cast<int>(cudaGetLastError());
+                                   const void* bias, const void* w, const void* live, void* out,
+                                   void* scratch, int M, int N, int K, int G, int F, int Q, int C,
+                                   int O, int L, int chunk, int splits, void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const float* wf = static_cast<const float*>(w);
+  float* outf = static_cast<float*>(out);
+  float* basis = static_cast<float*>(scratch);
+  const int CQ = C * Q;
+  float* part = basis + round4(static_cast<long long>(chunk) * G * CQ);
+  const bool vec = CQ % 4 == 0 && O % 4 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  int k_per = (CQ + splits - 1) / splits;
+  k_per = (k_per + kTK - 1) / kTK * kTK;
+  cudaError_t err;
+  for (int r0 = 0; r0 < L; r0 += chunk) {
+    const int lc = L - r0 < chunk ? L - r0 : chunk;
+    const int rows = lc * G;
+    const int* lv = static_cast<const int*>(live) + r0;
+    err = launch_basis(false, static_cast<const float*>(rel), static_cast<const float*>(rot6),
+                       static_cast<const float*>(feats), static_cast<const int64_t*>(idx),
+                       static_cast<const uint8_t*>(mask), static_cast<const float*>(proj),
+                       static_cast<const float*>(bias), nullptr, lv, basis, nullptr, M, N, K, G, F,
+                       Q, C, O, lc, stream);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (splits == 1) {
+      err = launch_gemm<true, false>(basis, CQ, wf, O, outf, 0, O, rows, O, CQ, k_per, 1, vec, lv,
+                                     G, stream);
+    } else {
+      const long long n = static_cast<long long>(rows) * O;
+      err = launch_gemm<true, false>(basis, CQ, wf, O, part, n, O, rows, O, CQ, k_per, splits, vec,
+                                     nullptr, 1, stream);
+      if (err == cudaSuccess) {
+        sum_splits<<<static_cast<unsigned>((n + kSumThreads - 1) / kSumThreads), kSumThreads, 0,
+                     stream>>>(part, splits, n, O, lv, G, outf);
+        err = cudaGetLastError();
+      }
+    }
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
 }

@@ -20,13 +20,21 @@ not the TPU layout: the TPU kernel read a pre-gathered ``[M, E, C]`` feature
 block and a transposed, 128-lane-packed geometry table; this one gathers
 features by ``idx``/``mask`` itself and reads the per-edge geometry in its
 natural ``[B, M, K, G, ...]`` layout.  At the slice's widths the per-edge
-embedding ``pne [M, K*F, G*Q]`` and the per-point ``basis [M, G*Q, C]`` are
-0.5-2 GB per conv in float32 if written out, and the gathered features as
-many again.  The kernel keeps all three on chip: one block owns 8 query
-points (one warp per point), stages each point's valid edges, their pne and
-the gathered features in shared memory, reduces to ``basis`` in registers,
-and contracts ``basis`` against ``W`` (read from L2 once per 8-point tile)
-in the same block.
+embedding ``pne [M, K*F, G*Q]`` and the gathered features are 0.5-2 GB per
+conv in float32 if written out; neither leaves the chip.  It walks only the
+*live rows* (:func:`live_row_table`, the query rows with at least one valid
+edge, built once per neighborhood and cached on it; a padded row's output
+is zero), in two passes over chunks of them.  The basis pass, shared with
+the backward (``csrc/fused_equiv_common.cuh``), evaluates each edge's pne
+row once into shared memory, gathers the features and writes the chunk's
+``basis`` rows to an ``[Lc*G, C*Q]`` scratch; a product ``basis . W`` on
+tensor cores (``mma.sync`` m16n8k8 TF32 in the 3xTF32 form: each operand
+split into a TF32 high part and a TF32 remainder, three products summed in
+float32, which holds float32 accuracy) reads ``W`` once per 128 rows and
+stores each row at its query row, its depth ``C*Q`` split into partials
+summed in a fixed order where the chunk has too few rows to fill the card.
+The chunks keep the scratch within :data:`FWD_SCRATCH_BYTES`.  Two calls
+give the same bits.
 
 Backward, ``csrc/fused_equiv_bwd.cu``: replaces ``_bwd_kernel`` (reached
 through ``_fused_single_bwd`` / ``fused_pne_conv_bwd`` and the lean VJP of
@@ -45,12 +53,11 @@ product ``gout . W^T`` gives ``dbasis`` over the same scratch; and a
 per-point pass recomputes pne and gelu', adds ``d_feats`` with float32
 atomics straight into ``[B, N, F, C]`` (no per-edge ``[M, E, C]`` output,
 masked edges skipped) and sums ``d_proj`` / ``d_bias`` per block, again
-added in a fixed order.  The two products run on tensor cores
-(``mma.sync`` m16n8k8 TF32 in the 3xTF32 form: each operand split into a
-TF32 high part and a TF32 remainder, three products summed in float32,
-which holds float32 accuracy), their operand tiles staged through shared
-memory by ``cp.async``, double-buffered.  The parameter gradients are
-deterministic: their split boundaries depend only on the live count;
+added in a fixed order.  The basis pass is the forward's, and the two
+products run on the forward's 3xTF32 tensor-core product, their operand
+tiles staged through shared memory by ``cp.async``, double-buffered.  The
+parameter gradients are deterministic: their split boundaries depend only
+on the live count;
 ``d_feats`` is summed by atomics in no fixed order.
 
 Given the sort tables of the 'sorted' reduction (``sorted_slot``, the
@@ -62,8 +69,8 @@ then reduces it in source order, deterministically.
 
 ``fused_equiv_fwd`` / ``fused_equiv_bwd`` launch the kernels for CUDA
 tensors and run ``fused_equiv_fwd_reference`` / ``fused_equiv_bwd_reference``
-for CPU tensors; there is no other fallback.  ``fused_equiv`` is the
-differentiable op.  Each kernel source is built with ``nvcc`` for
+for CPU tensors, over every row whatever the live-row table; there is no
+other fallback.  ``fused_equiv`` is the differentiable op.  Each kernel source is built with ``nvcc`` for
 ``sm_90a`` at its first launch (``kernels/build.py``).
 """
 from __future__ import annotations
@@ -87,12 +94,19 @@ __all__ = [
     "fused_equiv_bwd_reference",
     "live_row_table",
     "MAX_GQ",
+    "MAX_EDGES",
+    "FWD_SCRATCH_BYTES",
 ]
 
 # a pne row in the kernels' shared memory holds at most 64 (g, q) columns
 MAX_GQ = 64
+# the basis pass keeps a row's K*F pne rows in shared memory
+MAX_EDGES = 768
+# the forward walks its live rows in chunks whose scratch (basis rows and
+# depth-split partials) stays within this many bytes
+FWD_SCRATCH_BYTES = 128 << 20
 # the backward's dbasis product tiles its L*G rows by 128 along a grid
-# dimension of at most 65535 blocks
+# dimension of at most 65535 blocks (the forward's chunks stay below it)
 _MAX_SCRATCH_ROWS = 128 * 65535
 
 
@@ -119,8 +133,21 @@ def fused_equiv_fwd_reference(rel, rot6, feats, idx, mask, proj_axes, proj_biase
 def live_row_table(mask: torch.Tensor) -> torch.Tensor:
     """``[L]`` int32 flat indices ``b*M + m`` of the query rows of ``mask
     [B, M, K]`` that have at least one valid edge, ascending: the rows the
-    backward works on.  One host synchronisation (to learn ``L``)."""
+    kernels work on.  One host synchronisation (to learn ``L``)."""
     return torch.nonzero(mask.any(-1).reshape(-1)).reshape(-1).to(torch.int32)
+
+
+def _live_rows(live_rows, mask, rows, dev):
+    """The kernels' live-row table: ``live_rows`` checked, or built from
+    ``mask`` when it is None."""
+    if rows >= 2**31:
+        raise ValueError("kernel takes fewer than 2**31 query rows")
+    if live_rows is None:
+        return live_row_table(mask)
+    if (live_rows.device != dev or live_rows.dtype != torch.int32 or live_rows.dim() != 1
+            or not live_rows.is_contiguous() or live_rows.numel() > rows):
+        raise ValueError(f"live_rows must be a contiguous int32 vector of at most {rows} rows on {dev}")
+    return live_rows
 
 
 def _sorted_rows(d_gathered, sorted_slot):
@@ -196,8 +223,8 @@ def _check(rel, rot6, feats, idx, mask, proj_axes, proj_biases, conv_weights):
             raise ValueError(f"{name} has shape {tuple(tensors[name].shape)}, expected {shape}")
     if g > 2 or g * q > MAX_GQ:
         raise ValueError(f"kernel takes G <= 2 and G*Q <= {MAX_GQ}, got G={g}, Q={q}")
-    if b > 65535:
-        raise ValueError("kernel takes at most 65535 batch elements")
+    if k * f > MAX_EDGES:
+        raise ValueError(f"kernel takes K*F <= {MAX_EDGES}, got K={k}, F={f}")
     return b, m, n, k, g, f, q, c, o
 
 
@@ -210,6 +237,7 @@ def fused_equiv_fwd(
     proj_axes: torch.Tensor,
     proj_biases: torch.Tensor,
     conv_weights: torch.Tensor,
+    live_rows: torch.Tensor = None,
 ) -> torch.Tensor:
     """Fused conv forward ``-> [B, M, G, O]`` float32, un-normalised.
 
@@ -220,10 +248,15 @@ def fused_equiv_fwd(
       idx / mask: ``[B, M, K]`` int64 neighbor indices and bool validity.
       proj_axes: ``[9, Q]`` (offset rows pre-scaled); proj_biases ``[Q]``;
         conv_weights ``[C, Q, O]``.
+      live_rows: :func:`live_row_table` of ``mask`` on the device of
+        ``feats``, as for :func:`fused_equiv_bwd` (indexed unchecked);
+        built here, at the cost of one host synchronisation, when absent.
 
-    CPU tensors run :func:`fused_equiv_fwd_reference`; CUDA tensors launch
-    the kernel.  The result carries no autograd history: gradients go
-    through :func:`fused_equiv`.
+    CPU tensors run :func:`fused_equiv_fwd_reference` over every row,
+    whatever the table; CUDA tensors launch the kernels over the live rows
+    and leave the other rows zero, or launch nothing when no row is live.
+    The result carries no autograd history: gradients go through
+    :func:`fused_equiv`.
     """
     if feats.device.type == "cpu":
         return fused_equiv_fwd_reference(
@@ -234,16 +267,24 @@ def fused_equiv_fwd(
     b, m, n, k, g, f, q, c, o = _check(
         rel, rot6, feats, idx, mask, proj_axes, proj_biases, conv_weights
     )
-    out = torch.empty((b, m, g, o), dtype=torch.float32, device=feats.device)
-    if b * m == 0 or o == 0:
-        return out.zero_()
+    dev = feats.device
+    live_rows = _live_rows(live_rows, mask, b * m, dev)
+    out = torch.zeros((b, m, g, o), dtype=torch.float32, device=dev)
+    n_live = live_rows.numel()
+    if n_live == 0 or c == 0 or o == 0:
+        return out
     lib = library("fwd")
-    with torch.cuda.device(feats.device):
+    chunk, splits, scratch = ctypes.c_int(), ctypes.c_int(), ctypes.c_longlong()
+    lib.se3_fused_equiv_fwd_plan(n_live, g, q, c, o, FWD_SCRATCH_BYTES // 4, ctypes.byref(chunk),
+                                 ctypes.byref(splits), ctypes.byref(scratch))
+    work = torch.empty(scratch.value, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
         err = lib.se3_fused_equiv_fwd(
             rel.data_ptr(), rot6.data_ptr(), feats.data_ptr(), idx.data_ptr(),
             mask.data_ptr(), proj_axes.data_ptr(), proj_biases.data_ptr(),
-            conv_weights.data_ptr(), out.data_ptr(),
-            b, m, n, k, g, f, q, c, o, torch.cuda.current_stream(feats.device).cuda_stream,
+            conv_weights.data_ptr(), live_rows.data_ptr(), out.data_ptr(), work.data_ptr(),
+            m, n, k, g, f, q, c, o, n_live, chunk.value, splits.value,
+            torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"fused_equiv_fwd kernel launch failed: CUDA error {err}")
@@ -291,13 +332,7 @@ def fused_equiv_bwd(rel, rot6, feats, idx, mask, proj_axes, proj_biases, conv_we
                 or not sorted_slot.is_contiguous() or tuple(sorted_slot.shape) != (b, m * k)):
             raise ValueError(f"sorted_slot must be a contiguous int64 [{b}, {m * k}] tensor on {dev}")
         d_feats = torch.zeros((b, m * k, f * c), dtype=torch.float32, device=dev)
-    if b * m >= 2**31:
-        raise ValueError("kernel takes fewer than 2**31 query rows")
-    if live_rows is None:
-        live_rows = live_row_table(mask)
-    elif (live_rows.device != dev or live_rows.dtype != torch.int32 or live_rows.dim() != 1
-          or not live_rows.is_contiguous() or live_rows.numel() > b * m):
-        raise ValueError(f"live_rows must be a contiguous int32 vector of at most {b * m} rows on {dev}")
+    live_rows = _live_rows(live_rows, mask, b * m, dev)
     n_live = live_rows.numel()
     if n_live * g > _MAX_SCRATCH_ROWS:
         raise ValueError(f"kernel takes at most {_MAX_SCRATCH_ROWS} live rows x G, got {n_live * g}")
@@ -343,7 +378,8 @@ class FusedEquivConv(torch.autograd.Function):
     'sorted' reduction, the feature gradient is the sorted per-edge buffer
     reduced by :func:`~se3conv3d_tpu_torch.kernels.segsum.sorted_segment_sum`;
     without them, the kernel's atomic scatter.  Given ``live_rows``
-    (:func:`live_row_table`), the backward uses it instead of building one.
+    (:func:`live_row_table`), the forward and the backward use it instead of
+    each building one.
     """
 
     @staticmethod
@@ -353,7 +389,7 @@ class FusedEquivConv(torch.autograd.Function):
         tables = () if sorted_slot is None else (sorted_slot, run_start, run_end)
         ctx.has_live = live_rows is not None
         ctx.save_for_backward(*inputs, *tables, *((live_rows,) if ctx.has_live else ()))
-        return fused_equiv_fwd(*inputs)
+        return fused_equiv_fwd(*inputs, live_rows)
 
     @staticmethod
     @once_differentiable
@@ -375,7 +411,7 @@ def fused_equiv(rel, rot6, feats, idx, mask, proj_axes, proj_biases, conv_weight
                 sort_tables=None, live_rows=None):
     """Differentiable fused conv ``-> [B, M, G, O]`` (see :func:`fused_equiv_fwd`);
     ``sort_tables = (sorted_slot, run_start, run_end)`` selects the 'sorted'
-    feature-gradient reduction; ``live_rows`` is the backward's
-    :func:`live_row_table` of ``mask``, built by the backward when absent."""
+    feature-gradient reduction; ``live_rows`` is :func:`live_row_table` of
+    ``mask``, built by the forward and again by the backward when absent."""
     return FusedEquivConv.apply(rel, rot6, feats, idx, mask, proj_axes, proj_biases,
                                 conv_weights, *(sort_tables or (None, None, None)), live_rows)

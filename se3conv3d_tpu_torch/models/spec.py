@@ -70,14 +70,13 @@ class NeighborhoodProvider:
     ``get(src, dst, radius, neigh_type, k)`` builds the table from level
     ``src`` to level ``dst`` once per key and attaches the layer-independent
     edge geometry (``equiv_rel`` / ``equiv_rot``) that every conv on it
-    shares -- the reference's rot-tensor cache.  With autograd on, every
-    neighborhood also gets the live-row table of its convs' backwards
-    (``live_rows``; one host synchronisation per neighborhood).  In the
-    'sorted' backward
-    mode, with autograd on, a self neighborhood (``src == dst``: the block
-    stack's) also gets the sort tables its convs' backwards share; a
-    single-use one builds them in its conv (``ops.pne_conv``), as in the
-    JAX package.
+    shares -- the reference's rot-tensor cache.  Every neighborhood also
+    gets the live-row table its convs' forwards and backwards walk
+    (``live_rows``; one host synchronisation per neighborhood, whatever the
+    grad mode).  In the 'sorted' backward mode, with autograd on, a self
+    neighborhood (``src == dst``: the block stack's) also gets the sort
+    tables its convs' backwards share; a single-use one builds them in its
+    conv (``ops.pne_conv``), as in the JAX package.
     """
 
     def __init__(self, hierarchy: Hierarchy, spec: ModelSpec, collect_trunc: bool = False):
@@ -100,8 +99,8 @@ class NeighborhoodProvider:
         else:
             raise ValueError(f"unknown neighborhood type {neigh_type!r}")
         rel, rot6 = ops.equiv_geometry_parts(src_pc, dst_pc, neigh)
-        live = live_row_table(neigh.mask) if torch.is_grad_enabled() else None
-        return dataclasses.replace(neigh, equiv_rel=rel, equiv_rot=rot6, live_rows=live)
+        return dataclasses.replace(neigh, equiv_rel=rel, equiv_rot=rot6,
+                                   live_rows=live_row_table(neigh.mask))
 
     def get(self, src: int, dst: int, radius: float, neigh_type: str, k: int) -> Neighborhood:
         key = (src, dst, round(float(radius), 9), neigh_type, k)

@@ -3,11 +3,12 @@
 Needs an NVIDIA GPU and ``nvcc`` (``cuda`` marker): skipped elsewhere.  The
 file imports torch only, so the card runs it without JAX:
 ``python -m pytest --noconftest -q tests/test_torch_kernel_cuda.py``.
-Tolerances: both sides sum in float32 in different orders, so
-``max |kernel - plain| <= 1e-5 * max |plain|`` for the forward and the
-prefix sum; the backward's parameter gradients sum over every edge of the
-batch (its two products in 3xTF32 on the tensor cores), so ``1e-4 * max
-|plain|`` for each of its four outputs.
+Tolerances: both sides sum in float32 in different orders (the forward's
+weight contraction in 3xTF32 on the tensor cores), so ``max |kernel -
+plain| <= 1e-5 * max |plain|`` for the forward and the prefix sum; the
+backward's parameter gradients sum over every edge of the batch (its two
+products in 3xTF32 on the tensor cores), so ``1e-4 * max |plain|`` for each
+of its four outputs.
 """
 import pytest
 import torch
@@ -56,7 +57,8 @@ def test_kernel_matches_plain_version(name):
         got = kfe.fused_equiv_fwd(*args)
         torch.cuda.synchronize()
         ref = kfe.fused_equiv_fwd_reference(*args)
-    assert kfe.fused_equiv_fwd.launches == before + 1
+    # no query row with a valid edge: zeros, and nothing to launch
+    assert kfe.fused_equiv_fwd.launches == before + (name != "all_masked_tiles")
     assert got.shape == ref.shape and torch.isfinite(got).all()
     err = (got - ref).abs().max().item()
     assert err <= 1e-5 * max(ref.abs().max().item(), 1e-6), (err, ref.abs().max().item())
@@ -213,6 +215,8 @@ LIVE_SHAPES = {
     "live_few_rows_level4_like": (1, 512, 512, 24, 1, 1, 32, 320, 320, 0.7, 0.08),
     # C*Q = 333 and O = 70 are not multiples of 4: the products copy 4 bytes at a time
     "live_unaligned_widths": (2, 150, 120, 10, 2, 2, 9, 37, 70, 0.6, 0.5),
+    # O = 7: the forward's product copies W 4 bytes at a time
+    "live_narrow_c5_o7_q8": (2, 90, 70, 10, 2, 2, 8, 5, 7, 0.6, 0.4),
 }
 
 
@@ -278,3 +282,70 @@ def test_backward_wrapper_rejects_a_bad_live_row_table():
     for bad in (live.long(), live.cpu(), live[None], torch.zeros(3 * 333 + 1, dtype=torch.int32, device="cuda")):
         with pytest.raises(ValueError):
             kfe.fused_equiv_bwd(*args, gout, live_rows=bad)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(LIVE_SHAPES))
+def test_forward_kernel_on_live_rows_matches_plain_version(name):
+    """A live prefix per example, the rest of the rows fully masked: the
+    forward on the live rows against the plain version over every row, the
+    padded rows exactly zero, and two calls (the table given, then built by
+    the wrapper) bitwise equal."""
+    _needs_card()
+    args, _ = _live_inputs(name)
+    b, m = LIVE_SHAPES[name][:2]
+    live = kfe.live_row_table(args[4])
+    assert 0 < live.numel() < b * m
+    before = kfe.fused_equiv_fwd.launches
+    with torch.no_grad():
+        got = kfe.fused_equiv_fwd(*args, live_rows=live)
+        again = kfe.fused_equiv_fwd(*args)
+        torch.cuda.synchronize()
+        ref = kfe.fused_equiv_fwd_reference(*args)
+    assert kfe.fused_equiv_fwd.launches == before + 2
+    assert got.shape == ref.shape and torch.isfinite(got).all()
+    err = (got - ref).abs().max().item()
+    assert err <= 1e-5 * ref.abs().max().item(), (err, ref.abs().max().item())
+    assert not got[~args[4].any(-1)].any()
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+def test_forward_kernel_over_several_scratch_chunks_matches_plain_version(monkeypatch):
+    """A scratch cap of 1 MiB holds the basis rows of 14 live rows at C=256,
+    Q=32, G=2: the forward walks the 180 live rows in 13 chunks."""
+    _needs_card()
+    args, _ = _live_inputs("live_15pct_g2_wide")
+    live = kfe.live_row_table(args[4])
+    assert live.numel() > 100
+    whole = kfe.fused_equiv_fwd(*args, live_rows=live)
+    monkeypatch.setattr(kfe, "FWD_SCRATCH_BYTES", 1 << 20)
+    with torch.no_grad():
+        got = kfe.fused_equiv_fwd(*args, live_rows=live)
+        torch.cuda.synchronize()
+        ref = kfe.fused_equiv_fwd_reference(*args)
+    err = (got - ref).abs().max().item()
+    assert err <= 1e-5 * ref.abs().max().item(), (err, ref.abs().max().item())
+    assert (got - whole).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_forward_kernel_with_no_live_row_returns_zeros_without_a_launch():
+    _needs_card()
+    args, _ = _live_inputs("live_count_off_tiles")
+    args[4][:] = False
+    live = kfe.live_row_table(args[4])
+    before = kfe.fused_equiv_fwd.launches
+    got = kfe.fused_equiv_fwd(*args, live_rows=live)
+    assert got.shape == (3, 333, 2, 20) and not got.any()
+    assert kfe.fused_equiv_fwd.launches == before
+
+
+@pytest.mark.cuda
+def test_forward_wrapper_rejects_a_bad_live_row_table():
+    _needs_card()
+    args, _ = _live_inputs("live_count_off_tiles")
+    live = kfe.live_row_table(args[4])
+    for bad in (live.long(), live.cpu(), live[None], torch.zeros(3 * 333 + 1, dtype=torch.int32, device="cuda")):
+        with pytest.raises(ValueError):
+            kfe.fused_equiv_fwd(*args, live_rows=bad)
