@@ -7,6 +7,9 @@ runs one process per turn (``A`` = OLD_ROOT, ``B`` = NEW_ROOT; by default
 A, B, B, A), each importing ``se3conv3d_tpu_torch`` from its root and
 driving it with the phases of the ``chip_smoke.py`` beside this file:
 
+- the prefix-sum kernel at ``chip_smoke.py``'s phase-10 shapes
+  (``cumsum_cases``; CUDA-event median of 20; null where a side's kernel
+  does not take the payload);
 - the conv forward and backward kernels (CUDA-event medians of 20 and 10;
   the backward in atomic-scatter mode; each given the live-row table where
   its wrapper takes one, as the main path gives it) at the ScanNet level-0
@@ -77,7 +80,16 @@ def side(root: str) -> int:
         bwd_ms[name] = cs.cuda_ms(lambda: kfe.fused_equiv_bwd(*args, gout, **table), 10)
         del args, gout, table
         torch.cuda.empty_cache()
-    out = dict(root=root, fwd_kernel_ms=fwd_ms, bwd_kernel_ms=bwd_ms)
+    cumsum_ms = {}
+    for name, (shape, dtype) in cs.cumsum_cases().items():
+        x = torch.randn(*shape, device=dev, generator=torch.Generator(device=dev).manual_seed(60)).to(dtype)
+        try:
+            cumsum_ms[name] = cs.cuda_ms(lambda: segsum.blocked_cumsum(x), 20)
+        except TypeError:  # a kernel that takes float32 payloads only
+            cumsum_ms[name] = None
+        del x
+        torch.cuda.empty_cache()
+    out = dict(root=root, cumsum_kernel_ms=cumsum_ms, fwd_kernel_ms=fwd_ms, bwd_kernel_ms=bwd_ms)
     batch = cs.to_device(cs.body_batch(cs.BATCH, cs.POINTS, seed=2), dev)
     trainer, out["dfaust_eval"] = cs.dfaust_eval(card, dev, batch)
     del trainer

@@ -6,7 +6,7 @@ Drives the port's DFaust segmentation eval and training paths
 ``configs/dfaust/dfaust_I_rot_pca_2F.yaml``, then its ScanNet-20 eval and
 ``scan_scenes`` training paths at the full widths and capacities of
 ``configs/scannet/scannet20_rot_pca_I.yaml`` (in float32: the port's
-kernels take no bf16 yet):
+conv kernels take no bf16 yet):
 
 1. builds the three kernel sources (conv forward, conv backward, blocked
    prefix sum) from ``kernels/csrc`` with ``nvcc``, one process per source,
@@ -39,9 +39,14 @@ kernels take no bf16 yet):
    feature-gradient output modes (atomic scatter; rows at their sorted
    slots), each with its device ms per pass, and times ``torch.matmul``
    for their products over the same live rows beside them;
-10. holds the prefix-sum kernel against its plain version at the level-0
-    and level-4 edge counts, with ``torch.cumsum`` timed beside it, and
-    ``sorted_segment_sum`` against ``index_add_`` on the same rows;
+10. holds the prefix-sum kernel against its plain version on the sorted
+    buffers of the ScanNet level-0 and level-4 block convs (level 0 in
+    bfloat16 too) and of the DFaust level-0 conv (B=32), checks that 10
+    more calls give the same bits, times ``torch.cumsum`` and a float32
+    copy of the same rows beside it with each shape's share of its bound,
+    and holds ``sorted_segment_sum`` against ``index_add_`` on the same
+    rows (the kernel's device ms per call at these shapes come last, from
+    a CUDA graph of 5 calls);
 11. holds the grid neighbor searches against brute force on one
     full-capacity synthetic room (same neighbor sets per row, away from
     distance ties) and times both;
@@ -95,8 +100,12 @@ SCANNET_EVAL_STEPS = 3
 # the grid searches (level 0 and the output cloud at 16,384 >= 8,192)
 SMALL_ROOM_POINTS, SMALL_CAPS = 30_000, [16384, 4096, 1024, 256, 64]
 # blocked prefix sum vs plain: float32 sums of up to 3.1M rows in other
-# orders; each side carries about eps * log2(E) * max |prefix|
+# orders; each side carries about eps * log2(E) * max |prefix|.  A bfloat16
+# payload is held at the same bound: both sides widen the same values
 CUMSUM_RTOL = 1e-5
+# calls after the first that must give its bits (the scan's offsets are
+# fixed sums of the tiles' aggregates)
+CUMSUM_REPEATS = 10
 # sorted_segment_sum vs index_add_: a prefix difference carries about eps *
 # |prefix| at each end, so the bound is 256 eps * max |prefix|
 SEGSUM_EPS_FACTOR = 256
@@ -365,6 +374,26 @@ FWD_PASSES = (("basis_kernel", ("basis_kernel<", "false>")),
 BWD_PASSES = (("basis_kernel", ("basis_kernel<", "true>")), ("d_w product", ("tf32x3_gemm<false, false",)),
               ("dbasis product", ("tf32x3_gemm<true, true",)), ("edge_kernel", ("edge_kernel",)),
               ("sum_partials", ("sum_partials",)))
+# the prefix sum's single kernel ('sorted' mode only)
+CUMSUM_PASSES = (("scan_kernel", ("scan_kernel<",)),)
+
+
+def cumsum_cases() -> dict:
+    """Phase 10's prefix-sum inputs, ``name: ((B, E, C), payload dtype)``.
+    A conv's sorted buffer is ``[B, M*K, F*C]``: the ScanNet level-0 and
+    level-4 block convs (level 0 in bfloat16 too, the recipe's compute
+    dtype), and the DFaust recipe's level-0 conv (capacity x max_neighbors
+    edges, in-frames x the level-0 width, B=32)."""
+    from se3conv3d_tpu_torch.models import presets
+
+    cases = {name.replace("block_conv", "edges"): ((b, m * k, f * c), torch.float32)
+             for name, (b, m, _, k, _, f, _, c, _) in SCANNET_SHAPES.items()}
+    cases["scannet_level0_edges_bf16"] = (cases["scannet_level0_edges"][0], torch.bfloat16)
+    model = presets.DFAUST_I_ROT_PCA_2F_MODEL
+    width = presets.spec_from_model_dict(model).num_features[0]
+    cases["dfaust_level0_edges"] = ((BATCH, model["capacities"][0] * model["max_neighbors"],
+                                     model["RefFrames"]["train_n_frames"] * width), torch.float32)
+    return cases
 
 
 def device_rows(prof) -> list:
@@ -696,6 +725,47 @@ def scannet_conv_passes(card, dev, conv: dict) -> None:
         torch.cuda.empty_cache()
 
 
+def graph_ms(fn, side, calls: int = 5) -> float:
+    """Device ms per call of ``fn``: ``calls`` calls captured on the stream
+    ``side`` in one CUDA graph, whose replays (CUDA events, median of 5)
+    hold no host time."""
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm-up on the capture stream
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(calls):
+            fn()
+    ms = cuda_ms(graph.replay, 5) / calls
+    del graph
+    torch.cuda.empty_cache()
+    return ms
+
+
+def cumsum_device_ms(card, dev, cumsum: dict) -> None:
+    """Device ms per call of the prefix-sum kernel at phase 10's shapes
+    (``graph_ms``), into ``cumsum[name]``: the CUDA-event times there also
+    hold each call's host time, which exceeds the kernel's at the level-4
+    shape."""
+    from se3conv3d_tpu_torch.kernels import segsum
+
+    gen = torch.Generator(device=dev).manual_seed(61)
+    side = torch.cuda.Stream()
+    for name, (shape, dtype) in cumsum_cases().items():
+        x = torch.randn(*shape, device=dev, generator=gen).to(dtype)
+        y = torch.empty(x.shape, dtype=torch.float32, device=dev)
+        c = cumsum[name]
+        c["device_ms"] = ms = graph_ms(lambda: segsum.blocked_cumsum(x), side)
+        c["copy_device_ms"] = copy_ms = graph_ms(lambda: y.copy_(x), side)
+        print(f"cumsum_device_ms {name}: {ms:.4f} ms per call in a CUDA graph of 5 calls "
+              f"({100 * c['bound_ms'] / ms:.1f}% of the {c['bound_ms']:.4f} ms bound; a float32 copy "
+              f"of the same rows {copy_ms:.4f}, {100 * c['bound_ms'] / copy_ms:.1f}%; CUDA events "
+              f"per call {c['ms']:.4f}) [{card}]", flush=True)
+        del x, y
+        torch.cuda.empty_cache()
+
+
 def scannet_cumsum(card, dev) -> dict:
     """10. prefix-sum kernel vs plain (and torch.cumsum), and the segment sums
     vs index_add_ on the same per-edge rows."""
@@ -705,28 +775,36 @@ def scannet_cumsum(card, dev) -> dict:
 
     out = {}
     gen = torch.Generator(device=dev).manual_seed(60)
-    sizes = {name.replace("block_conv", "edges"): (shp[1] * shp[3], shp[7])
-             for name, shp in SCANNET_SHAPES.items()}
-    for name, (e, c) in sizes.items():
-        x = torch.randn(e, c, device=dev, generator=gen)
+    for name, (shape, dtype) in cumsum_cases().items():
+        x = torch.randn(*shape, device=dev, generator=gen).to(dtype)
+        x = x[0] if shape[0] == 1 else x  # [E, C], as the ScanNet step's single room
         got = segsum.blocked_cumsum(x)
         ref = segsum.blocked_cumsum_reference(x)
         torch.cuda.synchronize()
         err = max_rel_err(got, ref)
         finite = bool(torch.isfinite(got).all())
+        same = all(torch.equal(segsum.blocked_cumsum(x), got) for _ in range(CUMSUM_REPEATS))
         del got, ref
         ms = cuda_ms(lambda: segsum.blocked_cumsum(x), 20)
         plain_ms = cuda_ms(lambda: segsum.blocked_cumsum_reference(x), 5)
-        lib_ms = cuda_ms(lambda: torch.cumsum(x, 0, dtype=torch.float32), 20)
-        bound_ms = 2.0 * e * c * 4 / PEAK_BYTES_PER_S * 1e3
-        print(f"cumsum_kernel_vs_plain {name} [{e} x {c}]: max_abs_err={err[0]:.3e} max_rel_err="
-              f"{err[1]:.3e} (bound {CUMSUM_RTOL}) kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-              f"torch.cumsum_ms={lib_ms:.4f} bound_ms={bound_ms:.4f} (bytes) [{card}]", flush=True)
-        if not (finite and err[1] <= CUMSUM_RTOL):
-            raise SystemExit(f"prefix-sum kernel disagrees with its plain version at {name}")
+        lib_ms = cuda_ms(lambda: torch.cumsum(x, -2, dtype=torch.float32), 3)
+        # the card's reachable rate for the same bytes: a float32 copy of x
+        y = torch.empty(x.shape, dtype=torch.float32, device=dev)
+        copy_ms = cuda_ms(lambda: y.copy_(x), 20)
+        del y
+        # bytes: each payload element read once, each float32 output written once
+        bound_ms = x.numel() * (x.element_size() + 4) / PEAK_BYTES_PER_S * 1e3
+        print(f"cumsum_kernel_vs_plain {name} {list(shape)} {str(dtype)[6:]}: max_abs_err={err[0]:.3e} "
+              f"max_rel_err={err[1]:.3e} (bound {CUMSUM_RTOL}); {CUMSUM_REPEATS} more calls bitwise "
+              f"equal: {same}; kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} torch.cumsum_ms={lib_ms:.4f} "
+              f"bound_ms={bound_ms:.4f} (bytes; {100 * bound_ms / ms:.1f}% of it; a float32 copy of "
+              f"x {copy_ms:.4f}) [{card}]", flush=True)
+        if not (finite and same and err[1] <= CUMSUM_RTOL):
+            raise SystemExit(f"prefix-sum kernel disagrees with its plain version, or with itself, at {name}")
         out[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
-                         max_abs_err=err[0])
+                         bound_share=bound_ms / ms, copy_ms=copy_ms, max_abs_err=err[0])
         del x
+        torch.cuda.empty_cache()
 
     # segment sums of the level-0 conv's per-edge rows vs index_add_ of the same rows
     b, m, n, k = SCANNET_SHAPES["scannet_level0_block_conv"][:4]
@@ -1122,11 +1200,12 @@ def scannet_profile(card, trainer, batch, ops) -> dict:
               f"launches [{card}]", flush=True)
         for ms, n, key in rows[:14]:
             print(f"scannet_profile:   {ms:9.2f} ms {n:6d}x {key[:110]}")
-        for what, ps in (("forward", fwd_passes), ("backward", passes)):
+        cumsum = pass_ms(rows, CUMSUM_PASSES)
+        for what, ps in (("forward", fwd_passes), ("backward", passes), ("prefix sum", cumsum)):
             print(f"scannet_profile: mode {mode}: conv {what} {sum(ps.values()):.2f} ms: "
                   + ", ".join(f"{p} {ms:.2f}" for p, ms in ps.items()) + f" [{card}]", flush=True)
         out[mode] = dict(wall_ms=wall_ms, busy_ms=busy, fwd_passes_ms=fwd_passes, bwd_passes_ms=passes,
-                         top=[(k[:110], ms, n) for ms, n, k in rows[:14]])
+                         cumsum_ms=cumsum, top=[(k[:110], ms, n) for ms, n, k in rows[:14]])
     ops.BWD_SCATTER_MODE = "scatter"
     return out
 
@@ -1210,6 +1289,7 @@ def run_scannet(card, dev, recorded_draws, drop_path_draws) -> dict:
     del trainer, rooms
     torch.cuda.empty_cache()
     scannet_conv_passes(card, dev, scan_conv)
+    cumsum_device_ms(card, dev, scan_cumsum)
 
     return dict(conv=scan_conv, cumsum=scan_cumsum, grid=grid, eval=scan_eval, train=scan_train)
 
@@ -1271,6 +1351,7 @@ def kernels_line(dfaust: dict, scan: dict) -> dict:
         "max_abs_err": max(v["max_abs_err"] for v in scan_cumsum.values()),
         "ms": c0["ms"], "plain_ms": c0["plain_ms"],
         "bound_ms": c0["bound_ms"], "bound_by": "bytes", "library_ms": c0["library_ms"],
+        "library_call": "torch.cumsum along the rows with a float32 output",
         "at": f"scannet level-0 edges [{lvl0[1] * lvl0[3]} x {lvl0[7]}]", "by_shape": scan_cumsum,
     }], "scannet": {"eval": scan["eval"], "train": scan_train, "grid_vs_brute": scan["grid"]}}
 

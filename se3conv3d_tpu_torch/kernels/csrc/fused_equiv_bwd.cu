@@ -113,7 +113,7 @@ edge_kernel(const float* __restrict__ rel, const float* __restrict__ rot6,
             const float* __restrict__ bias, const float* __restrict__ dbasis,
             const int* __restrict__ live, const int64_t* __restrict__ slot,
             float* __restrict__ dfeats, float* __restrict__ ppart,
-            int M, int N, int K, int G, int F, int Q, int C, int L) {
+            int M, int N, int K, int G, int F, int Q, int C, int L, int BM) {
   extern __shared__ float smem[];
   float* projS = smem;                       // [9][Q]
   float* biasS = projS + 9 * kGQMax;         // [Q]
@@ -148,11 +148,14 @@ edge_kernel(const float* __restrict__ rel, const float* __restrict__ rot6,
   for (int tile = blockIdx.x; tile < num_tiles; tile += gridDim.x) {
     const int r = tile * kETM + warp;
     if (r >= L) continue;  // warp-uniform
-    const int flat = live[r];  // b * M + m
+    // b * M + m; a table entry outside [0, BM) walks no edge (row 0 stands in)
+    const int entry = live[r];
+    const bool listed = entry >= 0 && entry < BM;
+    const int flat = listed ? entry : 0;
     const int b = flat / M;
     const size_t row = static_cast<size_t>(flat) * K;  // the original row: slot and idx
     const size_t grow = static_cast<size_t>(r) * G;    // the live row: dbasis
-    const int nE = compact_edges(idx, mask, row, K, N, lane, vK, vN) * F;
+    const int nE = listed ? compact_edges(idx, mask, row, K, N, lane, vK, vN) * F : 0;
 
     for (int e0 = 0; e0 < nE; e0 += kEB) {
       const int ne = min(kEB, nE - e0);
@@ -342,8 +345,9 @@ extern "C" void se3_fused_equiv_bwd_plan(int L, int G, int Q, int C, int O, long
 // Plain C entry point for ctypes.  Launches on `stream` and returns the
 // first CUDA error (0 = launched).  live is the int32 table of the L >= 1
 // query rows b*M + m that have a valid edge, ascending (a row without one
-// may be listed too).  d_feats must be zeroed by the caller: it is
-// [B, N, F, C] when slot is null, else the [B, M*K, F*C] sorted buffer;
+// may be listed too; an entry outside [0, B*M) is skipped).  d_feats must
+// be zeroed by the caller: it is [B, N, F, C] when slot is null, else the
+// [B, M*K, F*C] sorted buffer;
 // d_params is [10, Q]: rows 0-8 d_proj, row 9 d_bias.  Requires G <= 2,
 // G*Q <= 64 and the workspace sizes of se3_fused_equiv_bwd_plan.
 extern "C" int se3_fused_equiv_bwd(const void* rel, const void* rot6, const void* feats,
@@ -351,8 +355,9 @@ extern "C" int se3_fused_equiv_bwd(const void* rel, const void* rot6, const void
                                    const void* bias, const void* w, const void* gout,
                                    const void* live, const void* slot, void* dfeats,
                                    void* dparams, void* dw, void* scratch, void* wpart,
-                                   void* ppart, int M, int N, int K, int G, int F, int Q, int C,
-                                   int O, int L, int w_splits, int p_blocks, void* stream_ptr) {
+                                   void* ppart, int B, int M, int N, int K, int G, int F, int Q,
+                                   int C, int O, int L, int w_splits, int p_blocks,
+                                   void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const float* relf = static_cast<const float*>(rel);
   const float* rot6f = static_cast<const float*>(rot6);
@@ -364,13 +369,13 @@ extern "C" int se3_fused_equiv_bwd(const void* rel, const void* rot6, const void
   const int* livep = static_cast<const int*>(live);
   float* scr = static_cast<float*>(scratch);
   const long long rows = static_cast<long long>(L) * G;
-  const int CQ = C * Q;
+  const int CQ = C * Q, BM = B * M;
   float* gl = scr + gout_offset(rows, CQ);
   cudaError_t err;
 
   // 1. basis and the compact gout rows
   err = launch_basis(true, relf, rot6f, featsf, idxp, maskp, projf, biasf,
-                     static_cast<const float*>(gout), livep, scr, gl, M, N, K, G, F, Q, C, O, L,
+                     static_cast<const float*>(gout), livep, scr, gl, M, N, K, G, F, Q, C, O, L, BM,
                      stream);
   if (err != cudaSuccess) return static_cast<int>(err);
 
@@ -380,7 +385,7 @@ extern "C" int se3_fused_equiv_bwd(const void* rel, const void* rot6, const void
   const long long nw = static_cast<long long>(CQ) * O;
   err = launch_gemm<false, false>(scr, CQ, gl, O, static_cast<float*>(wpart), nw, O, CQ, O,
                                   static_cast<int>(rows), k_per, w_splits,
-                                  CQ % 4 == 0 && O % 4 == 0, nullptr, 1, stream);
+                                  CQ % 4 == 0 && O % 4 == 0, nullptr, 1, 0, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = launch_sum_partials(static_cast<const float*>(wpart), w_splits, nw, static_cast<float*>(dw),
                             stream);
@@ -389,7 +394,7 @@ extern "C" int se3_fused_equiv_bwd(const void* rel, const void* rot6, const void
   // 3. dbasis[row, (c,q)] = sum_o gout[row, o] * W[(c,q), o], over the basis scratch
   err = launch_gemm<true, true>(gl, O, static_cast<const float*>(w), O, scr, 0, CQ,
                                 static_cast<int>(rows), CQ, O, O, 1,
-                                O % 4 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0, nullptr, 1,
+                                O % 4 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0, nullptr, 1, 0,
                                 stream);
   if (err != cudaSuccess) return static_cast<int>(err);
 
@@ -402,7 +407,7 @@ extern "C" int se3_fused_equiv_bwd(const void* rel, const void* rot6, const void
   edge_kernel<<<p_blocks, kEThreads, smem_e, stream>>>(
       relf, rot6f, featsf, idxp, maskp, projf, biasf, scr, livep,
       static_cast<const int64_t*>(slot), static_cast<float*>(dfeats), static_cast<float*>(ppart),
-      M, N, K, G, F, Q, C, L);
+      M, N, K, G, F, Q, C, L, BM);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   const long long np = static_cast<long long>(kPRows) * Q;
   return static_cast<int>(launch_sum_partials(static_cast<const float*>(ppart), p_blocks, np,

@@ -96,7 +96,8 @@ __device__ __forceinline__ float pre_act(const float* geo, const float* projS,
 // consecutive q, each a whole 32-byte sector.  The columns of a pne row past
 // G*Q are never written; they only feed tile rows that are not stored.
 // With kGout the warp also copies gout's row to a compact [L*G, O] (the
-// backward).
+// backward).  A table entry outside [0, BM) (BM = B*M) reads nothing: its
+// scratch rows are zeros, which add nothing to any product.
 constexpr int kBWarps = 4;      // warps per block, fewer when K*F is large
 constexpr int kBEdges = 8;      // feature loads in flight per lane
 
@@ -122,7 +123,7 @@ basis_kernel(const float* __restrict__ rel, const float* __restrict__ rot6,
              const float* __restrict__ bias, const float* __restrict__ gout,
              const int* __restrict__ live, float* __restrict__ basis,
              float* __restrict__ gout_live,
-             int M, int N, int K, int G, int F, int Q, int C, int O, int L) {
+             int M, int N, int K, int G, int F, int Q, int C, int O, int L, int BM) {
   extern __shared__ float smem[];
   const int warps = blockDim.x >> 5;
   const size_t pne_rows = static_cast<size_t>(K) * F;
@@ -141,9 +142,16 @@ basis_kernel(const float* __restrict__ rel, const float* __restrict__ rot6,
   if (r >= L) return;  // whole warp; no block barrier follows
 
   const int flat = live[r];  // b * M + m
+  const size_t out_row = static_cast<size_t>(r) * G;
+  if (flat < 0 || flat >= BM) {
+    const size_t rows_cq = static_cast<size_t>(G) * C * Q;
+    for (size_t i = lane; i < rows_cq; i += 32) basis[out_row * C * Q + i] = 0.f;
+    if (kGout)
+      for (size_t i = lane; i < static_cast<size_t>(G) * O; i += 32) gout_live[out_row * O + i] = 0.f;
+    return;
+  }
   const int b = flat / M;
   const size_t row = static_cast<size_t>(flat) * K;
-  const size_t out_row = static_cast<size_t>(r) * G;
   if (kGout) {
     const size_t GO = static_cast<size_t>(G) * O;
     for (size_t i = lane; i < GO; i += 32) gout_live[out_row * O + i] = gout[flat * GO + i];
@@ -227,7 +235,7 @@ inline cudaError_t launch_basis(bool with_gout, const float* rel, const float* r
                                 const float* feats, const int64_t* idx, const uint8_t* mask,
                                 const float* proj, const float* bias, const float* gout,
                                 const int* live, float* basis, float* gout_live, int M, int N,
-                                int K, int G, int F, int Q, int C, int O, int L,
+                                int K, int G, int F, int Q, int C, int O, int L, int BM,
                                 cudaStream_t stream) {
   const int warps = basis_warps(K, F);
   if (warps < 1) return cudaErrorInvalidValue;
@@ -240,7 +248,7 @@ inline cudaError_t launch_basis(bool with_gout, const float* rel, const float* r
   if (err != cudaSuccess) return err;
   kernel<<<(L + warps - 1) / warps, 32 * warps, smem, stream>>>(
       rel, rot6, feats, idx, mask, proj, bias, gout, live, basis, gout_live, M, N, K, G, F, Q, C,
-      O, L);
+      O, L, BM);
   return cudaGetLastError();
 }
 
@@ -323,16 +331,20 @@ __device__ __forceinline__ void load_slice(float* s, const float* __restrict__ X
 }
 
 // Output row of product row i: i itself, or with a live-row map (rowmap =
-// live rows of this call, G rows each) rowmap[i / G] * G + i % G.
-__device__ __forceinline__ long long mapped_row(const int* __restrict__ rowmap, int G, int i) {
-  return rowmap == nullptr ? i : static_cast<long long>(rowmap[i / G]) * G + i % G;
+// live rows of this call, G rows each) rowmap[i / G] * G + i % G; -1 (not
+// stored) where the map's entry lies outside [0, map_rows).
+__device__ __forceinline__ long long mapped_row(const int* __restrict__ rowmap, int G,
+                                                int map_rows, int i) {
+  if (rowmap == nullptr) return i;
+  const int r = rowmap[i / G];
+  return r < 0 || r >= map_rows ? -1 : static_cast<long long>(r) * G + i % G;
 }
 
 // Cout[z] (I x J, row stride ldc; z = blockIdx.z at Cout + z*sCs) =
 // sum over depth k in [z*kPer, min((z+1)*kPer, Kd)) of A(i, k) * B(k, j),
-// row i stored at mapped_row(rowmap, G, i).  A_KC: A(i, k) = A[i*lda + k],
-// else A[k*lda + i]; B_KC: B(k, j) = B[j*ldb + k], else B[k*ldb + j].  A
-// block of 8 warps owns a kTI x kTJ tile; each warp a 32 x 32 piece, 2 x 4
+// row i stored at mapped_row(rowmap, G, map_rows, i).  A_KC: A(i, k) =
+// A[i*lda + k], else A[k*lda + i]; B_KC: B(k, j) = B[j*ldb + k], else
+// B[k*ldb + j].  A block of 8 warps owns a kTI x kTJ tile; each warp a 32 x 32 piece, 2 x 4
 // m16n8 tiles, three mma per tile and k8 step (3xTF32).  The tensor cores'
 // float32 adds do not round to nearest, and over thousands of depth steps
 // that bias grows with the depth; so each kTK-deep slice is summed by the
@@ -345,7 +357,7 @@ template <bool A_KC, bool B_KC, bool VEC>
 __global__ void __launch_bounds__(kGThreads)
 tf32x3_gemm(const float* __restrict__ A, long long lda, const float* __restrict__ Bm,
             long long ldb, float* __restrict__ Cout, long long sCs, long long ldc,
-            int I, int J, int Kd, int kPer, const int* __restrict__ rowmap, int G) {
+            int I, int J, int Kd, int kPer, const int* __restrict__ rowmap, int G, int map_rows) {
   constexpr int kSA = A_KC ? kTK + 4 : kTI + 8;
   constexpr int kSB = B_KC ? kTK + 4 : kTJ + 8;
   constexpr int kASize = A_KC ? kTI * kSA : kTK * kSA;
@@ -438,7 +450,9 @@ tf32x3_gemm(const float* __restrict__ A, long long lda, const float* __restrict_
     for (int h = 0; h < 2; ++h) {
       const int i = i0 + wi + mt * 16 + gid + 8 * h;
       if (i >= I) continue;
-      float* orow = out + mapped_row(rowmap, G, i) * ldc;
+      const long long mi = mapped_row(rowmap, G, map_rows, i);
+      if (mi < 0) continue;
+      float* orow = out + mi * ldc;
 #pragma unroll
       for (int nt = 0; nt < 4; ++nt) {
         const int j = j0 + wj + nt * 8 + 2 * tig;
@@ -456,14 +470,16 @@ tf32x3_gemm(const float* __restrict__ A, long long lda, const float* __restrict_
 template <bool A_KC, bool B_KC>
 cudaError_t launch_gemm(const float* A, long long lda, const float* Bm, long long ldb, float* Cout,
                         long long sCs, long long ldc, int I, int J, int Kd, int kPer, int splits,
-                        bool vec, const int* rowmap, int G, cudaStream_t stream) {
+                        bool vec, const int* rowmap, int G, int map_rows, cudaStream_t stream) {
   const dim3 grid((J + kTJ - 1) / kTJ, (I + kTI - 1) / kTI, splits);
   if (vec)
     tf32x3_gemm<A_KC, B_KC, true><<<grid, kGThreads, 0, stream>>>(A, lda, Bm, ldb, Cout, sCs, ldc,
-                                                                  I, J, Kd, kPer, rowmap, G);
+                                                                  I, J, Kd, kPer, rowmap, G,
+                                                                  map_rows);
   else
     tf32x3_gemm<A_KC, B_KC, false><<<grid, kGThreads, 0, stream>>>(A, lda, Bm, ldb, Cout, sCs, ldc,
-                                                                   I, J, Kd, kPer, rowmap, G);
+                                                                   I, J, Kd, kPer, rowmap, G,
+                                                                   map_rows);
   return cudaGetLastError();
 }
 

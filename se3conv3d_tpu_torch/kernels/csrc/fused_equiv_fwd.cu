@@ -38,15 +38,18 @@ constexpr int kSumThreads = 256;
 long long round4(long long x) { return (x + 3) / 4 * 4; }
 
 // out[live[r]*G + g][j] = sum_{s < S} part[s][r*G + g][j], in order of s
-// (deterministic): the depth splits of the product, stored at their rows.
+// (deterministic): the depth splits of the product, stored at their rows
+// (none for a table entry outside [0, BM)).
 __global__ void __launch_bounds__(kSumThreads)
 sum_splits(const float* __restrict__ part, int S, long long n, int J,
-           const int* __restrict__ live, int G, float* __restrict__ out) {
+           const int* __restrict__ live, int G, int BM, float* __restrict__ out) {
   const long long i = blockIdx.x * static_cast<long long>(kSumThreads) + threadIdx.x;
   if (i >= n) return;
+  const long long row = mapped_row(live, G, BM, static_cast<int>(i / J));
+  if (row < 0) return;
   float s = 0.f;
   for (int p = 0; p < S; ++p) s += part[p * n + i];
-  out[mapped_row(live, G, static_cast<int>(i / J)) * J + i % J] = s;
+  out[row * J + i % J] = s;
 }
 
 }  // namespace
@@ -89,19 +92,19 @@ extern "C" void se3_fused_equiv_fwd_plan(int L, int G, int Q, int C, int O, long
 // Plain C entry point for ctypes.  Launches on `stream` and returns the
 // first CUDA error (0 = launched).  live is the int32 table of the L >= 1
 // query rows b*M + m that have a valid edge (a row without one may be
-// listed too); out [B, M, G, O] must be zeroed by the caller (rows not
-// listed are not written).  Requires G <= 2, G*Q <= 64 and the plan of
-// se3_fused_equiv_fwd_plan for the same L.
+// listed too; an entry outside [0, B*M) is skipped); out [B, M, G, O] must
+// be zeroed by the caller (rows not listed are not written).  Requires
+// G <= 2, G*Q <= 64 and the plan of se3_fused_equiv_fwd_plan for the same L.
 extern "C" int se3_fused_equiv_fwd(const void* rel, const void* rot6, const void* feats,
                                    const void* idx, const void* mask, const void* proj,
                                    const void* bias, const void* w, const void* live, void* out,
-                                   void* scratch, int M, int N, int K, int G, int F, int Q, int C,
-                                   int O, int L, int chunk, int splits, void* stream_ptr) {
+                                   void* scratch, int B, int M, int N, int K, int G, int F, int Q,
+                                   int C, int O, int L, int chunk, int splits, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const float* wf = static_cast<const float*>(w);
   float* outf = static_cast<float*>(out);
   float* basis = static_cast<float*>(scratch);
-  const int CQ = C * Q;
+  const int CQ = C * Q, BM = B * M;
   float* part = basis + round4(static_cast<long long>(chunk) * G * CQ);
   const bool vec = CQ % 4 == 0 && O % 4 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
   int k_per = (CQ + splits - 1) / splits;
@@ -115,18 +118,18 @@ extern "C" int se3_fused_equiv_fwd(const void* rel, const void* rot6, const void
                        static_cast<const float*>(feats), static_cast<const int64_t*>(idx),
                        static_cast<const uint8_t*>(mask), static_cast<const float*>(proj),
                        static_cast<const float*>(bias), nullptr, lv, basis, nullptr, M, N, K, G, F,
-                       Q, C, O, lc, stream);
+                       Q, C, O, lc, BM, stream);
     if (err != cudaSuccess) return static_cast<int>(err);
     if (splits == 1) {
       err = launch_gemm<true, false>(basis, CQ, wf, O, outf, 0, O, rows, O, CQ, k_per, 1, vec, lv,
-                                     G, stream);
+                                     G, BM, stream);
     } else {
       const long long n = static_cast<long long>(rows) * O;
       err = launch_gemm<true, false>(basis, CQ, wf, O, part, n, O, rows, O, CQ, k_per, splits, vec,
-                                     nullptr, 1, stream);
+                                     nullptr, 1, 0, stream);
       if (err == cudaSuccess) {
         sum_splits<<<static_cast<unsigned>((n + kSumThreads - 1) / kSumThreads), kSumThreads, 0,
-                     stream>>>(part, splits, n, O, lv, G, outf);
+                     stream>>>(part, splits, n, O, lv, G, BM, outf);
         err = cudaGetLastError();
       }
     }

@@ -139,7 +139,15 @@ def live_row_table(mask: torch.Tensor) -> torch.Tensor:
 
 def _live_rows(live_rows, mask, rows, dev):
     """The kernels' live-row table: ``live_rows`` checked, or built from
-    ``mask`` when it is None."""
+    ``mask`` when it is None.
+
+    The check takes the table's device, dtype, rank, contiguity and length
+    (at most ``rows = B*M``), and no host synchronisation.  The kernels skip
+    an entry outside ``[0, B*M)``: it reads and writes nothing, and adds
+    nothing to any gradient.  Strict ascending order and no duplicates
+    remain the caller's contract, as :func:`live_row_table` gives them: a
+    row listed twice counts twice in the backward's parameter gradients.
+    """
     if rows >= 2**31:
         raise ValueError("kernel takes fewer than 2**31 query rows")
     if live_rows is None:
@@ -249,7 +257,7 @@ def fused_equiv_fwd(
       proj_axes: ``[9, Q]`` (offset rows pre-scaled); proj_biases ``[Q]``;
         conv_weights ``[C, Q, O]``.
       live_rows: :func:`live_row_table` of ``mask`` on the device of
-        ``feats``, as for :func:`fused_equiv_bwd` (indexed unchecked);
+        ``feats``, as for :func:`fused_equiv_bwd` (see :func:`_live_rows`);
         built here, at the cost of one host synchronisation, when absent.
 
     CPU tensors run :func:`fused_equiv_fwd_reference` over every row,
@@ -283,7 +291,7 @@ def fused_equiv_fwd(
             rel.data_ptr(), rot6.data_ptr(), feats.data_ptr(), idx.data_ptr(),
             mask.data_ptr(), proj_axes.data_ptr(), proj_biases.data_ptr(),
             conv_weights.data_ptr(), live_rows.data_ptr(), out.data_ptr(), work.data_ptr(),
-            m, n, k, g, f, q, c, o, n_live, chunk.value, splits.value,
+            b, m, n, k, g, f, q, c, o, n_live, chunk.value, splits.value,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
@@ -303,9 +311,8 @@ def fused_equiv_bwd(rel, rot6, feats, idx, mask, proj_axes, proj_biases, conv_we
     first output is instead the ``[B, M*K, F*C]`` buffer of per-edge feature
     gradients at their sorted slots, zero for masked edges.  ``live_rows``
     must be :func:`live_row_table` of this ``mask``, on the device of
-    ``feats``: the kernels index by it unchecked, so a row out of range
-    reads and writes out of bounds and a row listed twice counts twice.
-    Without it the wrapper builds it, at the cost of one host
+    ``feats``: the kernels skip an entry outside ``[0, B*M)``, but a row
+    listed twice counts twice (:func:`_live_rows`).  Without it the wrapper builds it, at the cost of one host
     synchronisation.  CPU tensors run :func:`fused_equiv_bwd_reference`
     over every row, whatever the table (the rows it leaves out add
     nothing); CUDA tensors launch the kernels, unless no row has a valid
@@ -354,7 +361,7 @@ def fused_equiv_bwd(rel, rot6, feats, idx, mask, proj_axes, proj_biases, conv_we
             conv_weights.data_ptr(), gout.data_ptr(), live_rows.data_ptr(),
             None if sorted_slot is None else sorted_slot.data_ptr(), d_feats.data_ptr(),
             d_params.data_ptr(), d_w.data_ptr(), work.data_ptr(), w_part.data_ptr(),
-            p_part.data_ptr(), m, n, k, g, f, q, c, o, n_live, w_splits.value,
+            p_part.data_ptr(), b, m, n, k, g, f, q, c, o, n_live, w_splits.value,
             p_blocks.value, torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:

@@ -10,14 +10,20 @@ with ``prefix`` the inclusive float32 prefix sum behind a zero row.
 ``blocked_cumsum`` launches ``csrc/segsum_cumsum.cu`` (which replaces the
 Pallas ``_cumsum_kernel``, ``se3conv3d_tpu/ops/pallas/segsum.py:38``) for
 CUDA tensors and runs :func:`blocked_cumsum_reference` for CPU tensors;
-there is no other fallback.  The plain version follows the TPU kernel's
-arithmetic: each 256-row block's local prefix is a lower-triangular matrix
-product, and the blocks' running totals (the TPU kernel's carry) are the
-same blocked scan one level up.
+there is no other fallback.  The kernel is one single-pass launch that
+reads each row once; its tile offsets are fixed sums of the tiles'
+aggregates, so two calls give the same bits.  Its state (counters, a
+generation, tagged partial sums) lives in a buffer per device and stream,
+zeroed once when it is made or grown; the kernel leaves it ready for the
+next call.  The plain version follows the TPU kernel's arithmetic: each
+256-row block's local prefix is a lower-triangular matrix product, and the
+blocks' running totals (the TPU kernel's carry) are the same blocked scan
+one level up.
 
-Accumulation is float32.  A prefix difference carries an absolute error of
-about ``eps * |prefix|`` against a direct sum of the run, where ``|prefix|``
-grows with everything summed before the run.
+The payload is float32 or bfloat16; accumulation and the prefix are
+float32, as the TPU kernel's (``segsum.py:17``).  A prefix difference
+carries an absolute error of about ``eps * |prefix|`` against a direct sum
+of the run, where ``|prefix|`` grows with everything summed before the run.
 """
 from __future__ import annotations
 
@@ -28,6 +34,9 @@ from .build import library
 __all__ = ["blocked_cumsum", "blocked_cumsum_reference", "sorted_segment_sum", "BLOCK"]
 
 BLOCK = 256  # rows per block of the plain version, as the TPU kernel's default
+PAYLOADS = (torch.float32, torch.bfloat16)
+# (device index, stream handle) -> the kernel's state buffer
+_SCAN_STATE: dict = {}
 
 
 def blocked_cumsum_reference(x: torch.Tensor, block: int = BLOCK) -> torch.Tensor:
@@ -50,31 +59,48 @@ def blocked_cumsum_reference(x: torch.Tensor, block: int = BLOCK) -> torch.Tenso
 
 def blocked_cumsum(x: torch.Tensor) -> torch.Tensor:
     """Inclusive float32 prefix sum along the rows of ``x [E, C]`` or
-    ``[B, E, C]`` (float32).  CPU tensors run
+    ``[B, E, C]`` (float32 or bfloat16).  CPU tensors run
     :func:`blocked_cumsum_reference`; CUDA tensors launch the kernel, one
-    launch for the whole batch."""
+    launch for the whole batch (none when ``x`` is empty)."""
+    if x.dtype not in PAYLOADS:
+        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
     if x.device.type == "cpu":
         return blocked_cumsum_reference(x)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    if x.dtype != torch.float32:
-        raise TypeError(f"x must be float32, got {x.dtype}")
     if x.dim() not in (2, 3) or not x.is_contiguous():
         raise ValueError(f"x must be a contiguous [E, C] or [B, E, C] tensor, got {tuple(x.shape)}")
     x3 = x[None] if x.dim() == 2 else x
     b, e, c = x3.shape
-    if b > 65535 or -(-c // 32) > 65535:
-        raise ValueError(f"kernel takes B <= 65535 and C <= {65535 * 32}, got {tuple(x.shape)}")
-    out = torch.empty_like(x3)
+    out = torch.empty(x3.shape, dtype=torch.float32, device=x.device)
+    if out.numel() == 0:
+        return out.reshape(x.shape)
     lib = library("cumsum")
-    sums = torch.empty((b, lib.se3_blocked_cumsum_tiles(e), c), dtype=torch.float32, device=x.device)
+    words = lib.se3_blocked_cumsum_words(b, e, c)
+    if words < 0:
+        raise ValueError(f"kernel takes at most 2**31 - 1 tiles of 256 rows x 64 columns, "
+                         f"got {tuple(x.shape)}")
+    stream = torch.cuda.current_stream(x.device)
+    state = _scan_state(x.device, stream, words)
     with torch.cuda.device(x.device):
-        err = lib.se3_blocked_cumsum(x3.data_ptr(), out.data_ptr(), sums.data_ptr(), b, e, c,
-                                     torch.cuda.current_stream(x.device).cuda_stream)
+        err = lib.se3_blocked_cumsum(x3.data_ptr(), out.data_ptr(), state.data_ptr(), b, e, c,
+                                     int(x.dtype == torch.bfloat16), stream.cuda_stream)
     if err != 0:
         raise RuntimeError(f"blocked_cumsum kernel launch failed: CUDA error {err}")
     blocked_cumsum.launches += 1
     return out.reshape(x.shape)
+
+
+def _scan_state(dev: torch.device, stream, words: int) -> torch.Tensor:
+    """The kernel's state buffer for ``stream``: at least ``words`` int64,
+    zeroed when made.  One per device and stream, so that two streams never
+    share one; made anew, at the size of the call, when a call needs more
+    (8 bytes per 256 x 64 tile, 6 MiB at the ScanNet level-0 conv)."""
+    key = (dev.index, stream.cuda_stream)
+    buf = _SCAN_STATE.get(key)
+    if buf is None or buf.numel() < words:
+        buf = _SCAN_STATE[key] = torch.zeros(words, dtype=torch.int64, device=dev)
+    return buf
 
 
 # kernel launches so far (CPU calls do not count); callers may reset them

@@ -8,7 +8,9 @@ weight contraction in 3xTF32 on the tensor cores), so ``max |kernel -
 plain| <= 1e-5 * max |plain|`` for the forward and the prefix sum; the
 backward's parameter gradients sum over every edge of the batch (its two
 products in 3xTF32 on the tensor cores), so ``1e-4 * max |plain|`` for each
-of its four outputs.
+of its four outputs.  The prefix sum takes bfloat16 payloads at the same
+float32 bound (both sides widen the same values), and its calls are
+bitwise equal (its tile offsets are fixed sums).
 """
 import pytest
 import torch
@@ -117,23 +119,96 @@ def test_kernel_wrapper_rejects_what_it_does_not_take():
         kfe.fused_equiv_bwd(*args, gout.cpu())
 
 
-CUMSUM_SHAPES = [(1, 3000, 64), (2, 777, 20), (1, 256, 320), (3, 1, 5), (1, 100_000, 33)]
+CUMSUM_SHAPES = [(1, 3000, 64), (2, 777, 20), (1, 256, 320), (3, 1, 5), (1, 100_000, 33),
+                 # empty, one row, around one 256-row tile; many windows over
+                 # two column groups; a batch of 32 examples, 8 column groups
+                 (1, 0, 64), (1, 1, 64), (1, 255, 64), (1, 256, 64), (1, 257, 64),
+                 (2, 70_000, 128), (32, 4096, 512)]
+
+
+def _cumsum_vs_plain(shape, dtype):
+    x = torch.randn(*shape, device="cuda", generator=torch.Generator(device="cuda").manual_seed(1))
+    x = x.to(dtype)
+    before = segsum.blocked_cumsum.launches
+    got = segsum.blocked_cumsum(x)
+    torch.cuda.synchronize()
+    ref = segsum.blocked_cumsum_reference(x)
+    # one launch per call, none for an empty input
+    assert segsum.blocked_cumsum.launches == before + (x.numel() > 0)
+    assert got.shape == ref.shape and got.dtype == torch.float32 and torch.isfinite(got).all()
+    if ref.numel():
+        err = (got - ref).abs().max().item()
+        assert err <= 1e-5 * ref.abs().max().item(), (err, ref.abs().max().item())
+    assert torch.equal(segsum.blocked_cumsum(x[0]), got[0])  # [E, C] is B = 1
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", CUMSUM_SHAPES)
 def test_cumsum_kernel_matches_plain_version(shape):
     _needs_card()
-    x = torch.randn(*shape, device="cuda", generator=torch.Generator(device="cuda").manual_seed(1))
-    before = segsum.blocked_cumsum.launches
-    got = segsum.blocked_cumsum(x)
-    torch.cuda.synchronize()
-    ref = segsum.blocked_cumsum_reference(x)
-    assert segsum.blocked_cumsum.launches == before + 1
-    assert got.shape == ref.shape and torch.isfinite(got).all()
-    err = (got - ref).abs().max().item()
-    assert err <= 1e-5 * ref.abs().max().item(), (err, ref.abs().max().item())
-    assert torch.equal(segsum.blocked_cumsum(x[0]), got[0])  # [E, C] is B = 1
+    _cumsum_vs_plain(shape, torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", CUMSUM_SHAPES)
+def test_cumsum_kernel_on_bf16_payload_matches_plain_version(shape):
+    """bfloat16 payloads, float32 accumulation and output, at the float32 bound."""
+    _needs_card()
+    _cumsum_vs_plain(shape, torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 300_000, 64), (3, 40_000, 130)])
+def test_cumsum_kernel_gives_the_same_bits_on_every_call(shape):
+    """Over 1,000 tiles (many windows; a ragged column group too): the
+    offsets are fixed sums, so 20 calls agree bitwise."""
+    _needs_card()
+    x = torch.randn(*shape, device="cuda", generator=torch.Generator(device="cuda").manual_seed(2))
+    first = segsum.blocked_cumsum(x)
+    for _ in range(19):
+        assert torch.equal(segsum.blocked_cumsum(x), first)
+
+
+@pytest.mark.cuda
+def test_cumsum_kernel_state_serves_shapes_and_streams_in_turn():
+    """The state buffer grows for a larger call and is reused by smaller
+    ones; a second stream gets its own, and both streams' calls are right."""
+    _needs_card()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    xs = [torch.randn(*shape, device="cuda", generator=gen)
+          for shape in ((1, 5000, 64), (4, 70_000, 64), (1, 300, 20), (2, 9000, 256))]
+    refs = [segsum.blocked_cumsum_reference(x) for x in xs]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    for _ in range(2):
+        outs = [segsum.blocked_cumsum(x) for x in xs]
+        with torch.cuda.stream(side):
+            side_outs = [segsum.blocked_cumsum(x) for x in reversed(xs)]
+        torch.cuda.synchronize()
+        for got, side_got, ref in zip(outs, reversed(side_outs), refs):
+            assert torch.equal(got, side_got)
+            assert (got - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_cumsum_kernel_replays_in_a_cuda_graph():
+    """The launch takes no argument that changes from call to call and
+    needs no reset launch: a captured call replays to the eager bits."""
+    _needs_card()
+    x = torch.randn(1, 300_000, 64, device="cuda", generator=torch.Generator(device="cuda").manual_seed(4))
+    want = segsum.blocked_cumsum(x)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up: the capture stream's state buffer
+        segsum.blocked_cumsum(x)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = segsum.blocked_cumsum(x)
+    for _ in range(5):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
 
 
 def _sort_tables(idx, mask, n):
@@ -195,8 +270,12 @@ def test_cumsum_and_sorted_wrappers_reject_what_they_do_not_take():
     _needs_card()
     with pytest.raises(TypeError):
         segsum.blocked_cumsum(torch.zeros(10, 4, device="cuda", dtype=torch.float64))
+    with pytest.raises(TypeError):
+        segsum.blocked_cumsum(torch.zeros(10, 4, device="cuda", dtype=torch.float16))
     with pytest.raises(ValueError):
         segsum.blocked_cumsum(torch.zeros(4, 10, device="cuda").t())
+    with pytest.raises(ValueError):
+        segsum.blocked_cumsum(torch.zeros(2, 3, 10, 4, device="cuda"))
     args = list(_inputs(*SHAPES["slice_like"], seed=0))
     gout = torch.zeros(2, 300, 2, 32, device="cuda")
     slot = torch.zeros(2, 300 * 32, dtype=torch.int64, device="cuda")
@@ -349,3 +428,37 @@ def test_forward_wrapper_rejects_a_bad_live_row_table():
     for bad in (live.long(), live.cpu(), live[None], torch.zeros(3 * 333 + 1, dtype=torch.int32, device="cuda")):
         with pytest.raises(ValueError):
             kfe.fused_equiv_fwd(*args, live_rows=bad)
+
+
+def _with_rows_out_of_range(live, rows):
+    """``live`` with entries outside ``[0, rows)`` before, among and after
+    its own."""
+    bad = torch.tensor([-1, rows, rows + 7, 2**31 - 1, -2**31], dtype=torch.int32, device="cuda")
+    half = live.numel() // 2
+    return torch.cat([bad[:2], live[:half], bad[2:4], live[half:], bad[4:]])
+
+
+@pytest.mark.cuda
+def test_kernels_skip_live_row_entries_out_of_range():
+    """A table with entries outside [0, B*M): the forward and the backward
+    (both output modes) read and write nothing for them, and give the
+    outputs of the table without them."""
+    _needs_card()
+    args, gout = _live_inputs("live_15pct_g2_wide")
+    b, m, n = LIVE_SHAPES["live_15pct_g2_wide"][:3]
+    live = kfe.live_row_table(args[4])
+    bad = _with_rows_out_of_range(live, b * m)
+    tabs = _sort_tables(args[3], args[4], n)
+    with torch.no_grad():
+        want = kfe.fused_equiv_fwd(*args, live_rows=live)
+        got = kfe.fused_equiv_fwd(*args, live_rows=bad)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+    assert not got[~args[4].any(-1)].any()
+    for slot in (None, tabs.bwd_slot):
+        want_b = kfe.fused_equiv_bwd(*args, gout, sorted_slot=slot, live_rows=live)
+        got_b = kfe.fused_equiv_bwd(*args, gout, sorted_slot=slot, live_rows=bad)
+        torch.cuda.synchronize()
+        for what, x, y in zip(("d_feats", "d_proj_axes", "d_proj_biases", "d_conv_weights"), got_b, want_b):
+            assert torch.isfinite(x).all(), what
+            assert (x - y).abs().max().item() <= BWD_RTOL * y.abs().max().item(), what

@@ -104,6 +104,27 @@ def _plain_backward_on_rows(args, gout, sorted_slot, live_rows):
     return d_feats.reshape(b, m * k, f * c), d_pa, d_pb, d_w
 
 
+def test_wrapper_checks_the_table_it_is_given_without_a_host_sync():
+    """``_live_rows``, which both CUDA wrappers call: it checks the table's
+    device, dtype, rank, contiguity and length, and passes entries outside
+    ``[0, B*M)`` on (the kernels skip them; a range check would cost a host
+    synchronisation per conv)."""
+    mask = torch.from_numpy(_mask(1, 3, 40, 5, (40, 12, 0)))
+    live = kfe.live_row_table(mask)
+    cpu = torch.device("cpu")
+    assert kfe._live_rows(live, mask, 120, cpu) is live
+    assert torch.equal(kfe._live_rows(None, mask, 120, cpu), live)
+    out_of_range = torch.cat([live, torch.tensor([-1, 120, 2**31 - 1], dtype=torch.int32)])
+    assert kfe._live_rows(out_of_range, mask, 120, cpu) is out_of_range
+    for bad in (live.long(), live.float(), live[None], live[::2], torch.zeros(121, dtype=torch.int32)):
+        with pytest.raises(ValueError):
+            kfe._live_rows(bad, mask, 120, cpu)
+    with pytest.raises(ValueError):
+        kfe._live_rows(live, mask, 120, torch.device("meta"))
+    with pytest.raises(ValueError):
+        kfe._live_rows(live, mask, 2**31, cpu)
+
+
 @pytest.mark.parametrize("mode", ["scatter", "sorted"])
 @pytest.mark.parametrize("g", [1, 2])
 def test_plain_backward_is_the_same_with_or_without_the_table(mode, g, monkeypatch):
