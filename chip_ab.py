@@ -98,7 +98,7 @@ def side(root: str) -> int:
     del trainer, batch
     torch.cuda.empty_cache()
     rooms = cs.scannet_rooms(dev)
-    trainer = cs.scannet_trainer(dev, {k: v[:1] for k, v in rooms.items()})
+    trainer = cs.scannet_trainer(dev, {k: v[:1] for k, v in rooms.items()}, cs.scannet_recipes()["float32"])
     out["scannet_train"] = cs.scannet_train(card, dev, trainer, rooms, kfe, segsum, ops)
     print(json.dumps(out), flush=True)
     return 0

@@ -5,16 +5,20 @@ Drives the port's DFaust segmentation eval and training paths
 (``se3conv3d_tpu_torch``) at the full widths of
 ``configs/dfaust/dfaust_I_rot_pca_2F.yaml``, then its ScanNet-20 eval and
 ``scan_scenes`` training paths at the full widths and capacities of
-``configs/scannet/scannet20_rot_pca_I.yaml`` (in float32: the port's
-conv kernels take no bf16 yet):
+``configs/scannet/scannet20_rot_pca_I.yaml``, as the recipe is written
+(``compute_dtype: bfloat16``: the conv kernels' bfloat16 operand path) and
+in float32 beside it:
 
 1. builds the three kernel sources (conv forward, conv backward, blocked
    prefix sum) from ``kernels/csrc`` with ``nvcc``, one process per source,
    in parallel;
 2. holds the forward kernel against its plain PyTorch version at the
-   slice's two extreme conv shapes and at the JAX bench's conv shape, checks
-   that two calls give the same bits, and times ``torch.matmul`` for its
-   weight contraction over the same live rows;
+   slice's two extreme conv shapes and at the JAX bench's conv shape, in
+   float32 and in bfloat16 (against the plain version's bfloat16 rounding,
+   and apart from the plain version with no bfloat16 rounding, the
+   control), checks that two calls give the same bits, and times
+   ``torch.matmul`` in the same dtype for its weight contraction over the
+   same live rows;
 3. builds the model with a seeded init and runs one calibration step and a
    few eval steps on a synthetic batch of 32 body-like clouds of 4096
    points, counting the kernel's launches (21 per forward);
@@ -23,22 +27,33 @@ conv kernels take no bf16 yet):
 5. checks that the same model and hierarchy on the CPU (plain path) give
    the same logits at B=2;
 6. holds the backward kernel against its plain PyTorch version at the
-   three shapes of phase 2, in both feature-gradient output modes, with
+   three shapes of phase 2, in float32 and in bfloat16 (with the control of
+   phase 2), in both feature-gradient output modes (atomic scatter; rows at
+   their sorted slots, summed by ``sorted_segment_sum``) with its
+   parameter gradients bitwise equal across modes and calls, and times
    ``torch.matmul`` for its two products;
 7. trains a fresh model with the recipe's ``Training`` section: one
    calibration step, then a few ``Trainer.train_step`` calls on the same
    batch, counting 21 forward and 21 backward kernel launches per step and
-   checking finite losses and gradients and moved BN statistics;
+   checking finite losses and gradients and moved BN statistics; before
+   them the same for the recipe with ``compute_dtype: bfloat16`` (every
+   launch a bfloat16 one), whose step times are printed beside the float32
+   ones, the first step of each left out (the DFaust recipe computes in
+   float32);
 8. checks that one train-mode forward and backward at B=2 gives the same
    parameter gradients on the card and on the CPU (plain path), with the
    same hierarchy and DropPath keep masks;
 9. holds the conv kernels against their plain versions at the ScanNet
    level-0 and level-4 block convs and at a padded level-0 conv (the
-   first 22,563 of 131,072 rows live, as the fullest synthetic room), the
-   forward bitwise equal over two calls, the backward in both
-   feature-gradient output modes (atomic scatter; rows at their sorted
-   slots), each with its device ms per pass, and times ``torch.matmul``
-   for their products over the same live rows beside them;
+   first 22,563 of 131,072 rows live, as the fullest synthetic room), in
+   bfloat16 (the recipe's operands, against the plain versions' bfloat16
+   rounding, with the control of phase 2) and in float32, the forward
+   bitwise equal over two calls, the
+   backward in both feature-gradient output modes (atomic scatter; rows at
+   their sorted slots) with its parameter gradients bitwise equal across
+   modes and calls, each with its device ms per pass, and times
+   ``torch.matmul`` in the same dtype for their products over the same
+   live rows beside them;
 10. holds the prefix-sum kernel against its plain version on the sorted
     buffers of the ScanNet level-0 and level-4 block convs (level 0 in
     bfloat16 too) and of the DFaust level-0 conv (B=32), checks that 10
@@ -51,20 +66,27 @@ conv kernels take no bf16 yet):
     full-capacity synthetic room (same neighbor sets per row, away from
     distance ties) and times both;
 12. builds the ScanNet model with ``build_model_from_config`` (on the card
-    by default), runs a calibration step and eval steps on one room (32
-    conv launches per forward, each given its neighborhood's live-row
-    table), checks rotation invariance, and card vs CPU logits on a smaller
-    room whose capacities still take the grid;
-13. trains with ``scan_scenes`` on 6 rooms x 120,000 points, the two
-    feature-gradient modes in turns (scatter, sorted, sorted, scatter, ...),
-    counting 192 forward and 192 backward launches per step and 192 prefix
-    sums in sorted mode only, and checking finite losses and moved BN means;
-    then one step per mode split on the host clock (with the live rows the
-    192 forwards and 192 backwards walked against their capacity rows, each
+    by default) from the recipe's ``Model`` section as written (bfloat16
+    convs), runs a calibration step and eval steps on one room (32
+    bfloat16 conv launches per forward, each given its neighborhood's
+    live-row table), checks rotation invariance (and that its bound tells
+    apart a forward whose frames were left unrotated), and card vs CPU
+    logits on a smaller room whose capacities still take the grid (in
+    bfloat16 also apart from the CPU logits with float32 convs, the
+    control); then the same in float32;
+13. trains the recipe as written with ``scan_scenes`` on 6 rooms x 120,000
+    points, the two feature-gradient modes in turns (scatter, sorted,
+    sorted, scatter, ...), counting 192 bfloat16 forward and 192 bfloat16
+    backward launches per step and 192 prefix sums (of bfloat16 rows) in
+    sorted mode only, and checking finite losses and moved BN means; then
+    one step per mode split on the host clock (with the live rows the 192
+    forwards and 192 backwards walked against their capacity rows, each
     given its neighborhood's table) and one under ``torch.profiler`` (device
     ms by kernel and per forward and backward pass);
 14. checks that the two modes give the same parameter gradients on one
-    room, with the same hierarchy and DropPath keep masks.
+    room, with the same hierarchy and DropPath keep masks (in bfloat16 also
+    apart from the gradients with float32 convs, the control); then 13-14
+    in float32, one train step per mode.
 
 Run from the repository root: ``python3 chip_smoke.py``.  Exits non-zero,
 printing no result, without a CUDA device or outside the repository.  The
@@ -95,6 +117,12 @@ CONVS_PER_FORWARD = 21
 # decoder, 4 FPN, the head); steps per backward mode
 SCENES, SCENE_POINTS, SCANNET_CONVS = 6, 120_000, 32
 SCANNET_MODE_ORDER = ("scatter", "sorted", "sorted", "scatter", "scatter", "sorted")
+# the ScanNet phases run the recipe as written (bfloat16), then in float32
+# with one train step per backward mode
+SCANNET_DTYPES = ("bfloat16", "float32")
+# the operand dtypes of the kernel checks of phases 2, 6 and 9
+KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+SCANNET_F32_MODE_ORDER = ("scatter", "sorted")
 SCANNET_EVAL_STEPS = 3
 # the smaller room of the card-vs-CPU logits: capacities that still take
 # the grid searches (level 0 and the output cloud at 16,384 >= 8,192)
@@ -116,6 +144,41 @@ PEAK_F32_FLOPS, PEAK_BYTES_PER_S = 67e12, 3.35e12
 # contraction and the backward's two products run in 3xTF32 (three TF32
 # products per float32 one)
 PEAK_TF32_FLOPS = 495e12
+# the dense bf16 tensor-core peak of the same sheet: the bound of the
+# bfloat16 kernels takes every FLOP there
+PEAK_BF16_FLOPS = 989e12
+# bfloat16 kernels vs their bfloat16 plain versions, each output (as
+# tests/test_torch_kernel_cuda.py): both round at the same points and sum in
+# float32 in other orders, which can flip a rounding by one bfloat16 ulp
+# (2^-8 relative) where a sum lies next to a boundary; such flips are rare,
+# so max |d| <= BF16_RTOL * max |plain| and mean |d| <= BF16_MEAN_RTOL *
+# max |plain| (readings up to 2.1e-5 on one H100).  The mean bound alone
+# cannot tell a kernel that skipped its roundings where most rows are
+# padding (its control reads 3.6e-5 on the padded level-0 sorted rows):
+# the control gate below does, per output
+BF16_RTOL, BF16_MEAN_RTOL = 1e-2, 1e-4
+# the control of every bfloat16 gate: the same inputs with no bfloat16
+# rounding (a kernel against its plain version on the operands widened to
+# float32; a model against the same weights with float32 convs).  The sound
+# reading must be at most BF16_SOUND_SHARE of the control's, so a path that
+# skipped its bfloat16 roundings fails the gate (as tests/test_torch_bf16.py
+# holds the port against JAX bf16 and float32); on one H100 the kernels'
+# outputs read at most 0.019 of their controls' mean error, the ScanNet
+# card-vs-CPU logits 0.16, its sorted-vs-scatter gradients 0.19 (global
+# norm; the per-leaf worst reads 0.21-0.28 and is bounded by BF16_GRAD_RTOL)
+BF16_SOUND_SHARE = 0.5
+# the ScanNet model in bfloat16: card vs CPU logits and rotated vs unrotated
+# logits (max abs over the valid output points, relative to max |logits|):
+# the two sides round at the same points but sum in other orders (or from
+# re-rounded float32 geometry), and a flipped rounding propagates through 32
+# convs; sorted vs scatter parameter gradients, per leaf as GRAD_RTOL: the
+# modes' feature-gradient sums differ in float32 order before their bfloat16
+# rounding.  Each bound lies between the sound reading and its control's on
+# one H100 (PERF.md section 6): card vs CPU 0.9-1.05e-4 against 5.6e-4 with
+# float32 convs on the CPU; rotation 5.0-5.6e-4 against 8.7e-2 with the
+# frames left unrotated; gradients 1.4-1.8e-3 against 5.1-7.5e-3 with
+# float32 convs
+BF16_CPU_RTOL, BF16_ROT_RTOL, BF16_GRAD_RTOL = 2.5e-4, 5e-3, 4e-3
 # kernel vs plain: max |kernel - plain| <= KERNEL_RTOL * max |plain| (both
 # float32; they sum up to 64 edges x 32 basis x 256 channels in other orders,
 # the kernel's weight contraction in 3xTF32)
@@ -269,12 +332,12 @@ def seeded_model(model_cls, spec, dev):
     return seed_gammas(model).to(dev)
 
 
-def conv_bounds(shape, mask) -> dict:
+def conv_bounds(shape, mask, dtype=torch.float32) -> dict:
     """Least times of one conv forward and backward on the card: the larger
     of bytes / HBM rate (each input read once, each output written once)
-    and FLOPs / float32 peak, counting the valid edges of ``mask`` and its
-    live rows (the query rows with a valid edge): a padded row needs no
-    work, so its geometry, ``gout`` row and products are not counted.
+    and FLOPs / peak, counting the valid edges of ``mask`` and its live
+    rows (the query rows with a valid edge): a padded row needs no work, so
+    its geometry, ``gout`` row and products are not counted.
 
     FLOPs as in ``PERF.md``: per valid edge and frame pair the pne
     (``2*9*Q``) and basis (``2*Q*C``) products, per live point and
@@ -285,7 +348,12 @@ def conv_bounds(shape, mask) -> dict:
     contraction and the backward's two products run on tensor cores in
     3xTF32, so the bounds take them at that ceiling (``PEAK_TF32_FLOPS /
     3``) and the rest at the float32 peak; ``bound_f32_ms`` takes every FLOP
-    at the float32 peak.
+    at the float32 peak.  With bfloat16 operands (``dtype``) the geometry
+    and the features count 2 bytes a value (the parameters, ``gout``,
+    ``d_feats`` and the output stay float32), every FLOP counts at the dense
+    bf16 tensor-core peak, and ``bound_f32_ms`` takes the per-edge FLOPs
+    (float32 FMA in these kernels) at the float32 peak and the products at
+    the bf16 peak.
     """
     b, m, n, k, g, f, q, c, o = shape
     edges = float(mask.sum()) * g * f
@@ -294,55 +362,98 @@ def conv_bounds(shape, mask) -> dict:
     fwd_flops = 2 * edges * q * (9 + c) + point_flops
     bwd_edge_flops = 2 * edges * q * (9 + 3 * c + 10)
     bwd_flops = bwd_edge_flops + 2 * point_flops
-    geo = live * (4.0 * k * g * (3 + 6 * f) + 9.0 * k)  # rel, rot6, idx, mask of the live rows
+    bf16 = dtype == torch.bfloat16
+    op = 2.0 if bf16 else 4.0  # bytes of an operand value
+    geo = live * (op * k * g * (3 + 6 * f) + 9.0 * k)  # rel, rot6, idx, mask of the live rows
     params = 4.0 * (10 * q + c * q * o)
-    fwd_bytes = geo + 4.0 * b * n * f * c + params + 4.0 * b * m * g * o
+    fwd_bytes = geo + op * b * n * f * c + params + 4.0 * b * m * g * o
     # + gout's live rows, d_feats, d_params
-    bwd_bytes = geo + 4.0 * b * n * f * c + params + 4.0 * live * g * o + 4.0 * b * n * f * c + params
-    tf32x3 = PEAK_TF32_FLOPS / 3
-    fwd_ops_s = (fwd_flops - point_flops) / PEAK_F32_FLOPS + point_flops / tf32x3
-    bwd_ops_s = bwd_edge_flops / PEAK_F32_FLOPS + 2 * point_flops / tf32x3
+    bwd_bytes = geo + op * b * n * f * c + params + 4.0 * live * g * o + 4.0 * b * n * f * c + params
+    if bf16:
+        fwd_ops_s, bwd_ops_s = fwd_flops / PEAK_BF16_FLOPS, bwd_flops / PEAK_BF16_FLOPS
+        fma_s = {"fwd": (fwd_flops - point_flops) / PEAK_F32_FLOPS + point_flops / PEAK_BF16_FLOPS,
+                 "bwd": bwd_edge_flops / PEAK_F32_FLOPS + 2 * point_flops / PEAK_BF16_FLOPS}
+    else:
+        tf32x3 = PEAK_TF32_FLOPS / 3
+        fwd_ops_s = (fwd_flops - point_flops) / PEAK_F32_FLOPS + point_flops / tf32x3
+        bwd_ops_s = bwd_edge_flops / PEAK_F32_FLOPS + 2 * point_flops / tf32x3
+        fma_s = {"fwd": fwd_flops / PEAK_F32_FLOPS, "bwd": bwd_flops / PEAK_F32_FLOPS}
     out = {}
     for name, flops, ops_s, nbytes in (("fwd", fwd_flops, fwd_ops_s, fwd_bytes),
                                        ("bwd", bwd_flops, bwd_ops_s, bwd_bytes)):
         t_ops, t_bytes = ops_s * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
         out[name] = dict(bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes
                          else "bytes", gflop=flops / 1e9, live_rows=int(live),
-                         bound_f32_ms=max(flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S) * 1e3)
+                         bound_f32_ms=max(fma_s[name], nbytes / PEAK_BYTES_PER_S) * 1e3)
     return out
 
 
-def products_matmul_ms(rows: int, conv_weights, seed: int) -> float:
+def products_matmul_ms(rows: int, conv_weights, seed: int, dtype=torch.float32) -> float:
     """The yardstick of the conv backward's two products: ``torch.matmul``
-    in full float32 (TF32 off, set here) for ``d_w = basis^T . gout`` and
-    ``dbasis = gout . W^T`` over ``rows`` live rows (seeded operands of the
-    kernel's shapes; the time does not depend on their values)."""
+    in ``dtype`` (float32: full float32, TF32 off, set here) for ``d_w =
+    basis^T . gout`` and ``dbasis = gout . W^T`` over ``rows`` live rows
+    (seeded operands of the kernel's shapes; the time does not depend on
+    their values)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     c, q, o = conv_weights.shape
     gen = torch.Generator(device=conv_weights.device).manual_seed(seed)
-    basis = torch.randn(rows, c * q, device=conv_weights.device, generator=gen)
-    gout = torch.randn(rows, o, device=conv_weights.device, generator=gen)
-    w2 = conv_weights.reshape(c * q, o)
+    basis = torch.randn(rows, c * q, device=conv_weights.device, generator=gen).to(dtype)
+    gout = torch.randn(rows, o, device=conv_weights.device, generator=gen).to(dtype)
+    w2 = conv_weights.reshape(c * q, o).to(dtype)
     return cuda_ms(lambda: (torch.matmul(basis.t(), gout), torch.matmul(gout, w2.t())), 10)
 
 
-def product_matmul_ms(rows: int, conv_weights, seed: int) -> float:
+def product_matmul_ms(rows: int, conv_weights, seed: int, dtype=torch.float32) -> float:
     """The yardstick of the conv forward's weight contraction:
-    ``torch.matmul`` in full float32 (TF32 off, set here) for ``out =
-    basis . W`` over ``rows`` live rows x out-frames (seeded operands of the
-    kernel's shapes)."""
+    ``torch.matmul`` in ``dtype`` (float32: full float32, TF32 off, set
+    here) for ``out = basis . W`` over ``rows`` live rows x out-frames
+    (seeded operands of the kernel's shapes)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     c, q, o = conv_weights.shape
     gen = torch.Generator(device=conv_weights.device).manual_seed(seed)
-    basis = torch.randn(rows, c * q, device=conv_weights.device, generator=gen)
-    w2 = conv_weights.reshape(c * q, o)
+    basis = torch.randn(rows, c * q, device=conv_weights.device, generator=gen).to(dtype)
+    w2 = conv_weights.reshape(c * q, o).to(dtype)
     return cuda_ms(lambda: torch.matmul(basis, w2), 10)
 
 
 def max_rel_err(got, ref) -> tuple:
-    """``(max |got - ref|, max |got - ref| / max |ref|)``."""
-    err = (got - ref).abs().max().item()
-    return err, err / max(ref.abs().max().item(), 1e-30)
+    """``(max |got - ref|, max |got - ref| / max |ref|, mean |got - ref| /
+    max |ref|)`` (in float32 for bfloat16 tensors)."""
+    got, ref = got.float(), ref.float()
+    diff = (got - ref).abs()
+    scale = max(ref.abs().max().item(), 1e-30)
+    err = diff.max().item()
+    return err, err / scale, diff.mean().item() / scale
+
+
+def within(err, dtype, rtol) -> bool:
+    """``max_rel_err`` output within the kernel bounds: ``rtol`` for float32
+    operands, ``BF16_RTOL`` and ``BF16_MEAN_RTOL`` for bfloat16 ones."""
+    if dtype == torch.bfloat16:
+        return err[1] <= BF16_RTOL and err[2] <= BF16_MEAN_RTOL
+    return err[1] <= rtol
+
+
+def tells_apart(sound: float, control: float) -> bool:
+    """The discrimination gate of the bfloat16 checks: an error against the
+    bfloat16 version (``sound``) at most ``BF16_SOUND_SHARE`` of the same
+    error against the version with no bfloat16 rounding (``control``)."""
+    return sound <= BF16_SOUND_SHARE * control
+
+
+def control_text(sound: float, control: float) -> str:
+    return (f"against no bfloat16 rounding (control) {control:.3e}, sound/control "
+            f"{sound / max(control, 1e-30):.3f} (bound {BF16_SOUND_SHARE})")
+
+
+def bound_text(dtype, rtol) -> str:
+    return (f"bounds max {BF16_RTOL}, mean {BF16_MEAN_RTOL}" if dtype == torch.bfloat16
+            else f"bound {rtol}")
+
+
+def as_operands(args, dtype) -> list:
+    """A conv's operands with rel, rot6 and feats in ``dtype``."""
+    return [x.to(dtype) if i < 3 else x for i, x in enumerate(args)]
 
 
 def seed_gammas(model):
@@ -366,16 +477,22 @@ SCANNET_SHAPES = {
 SCANNET_PADDED = {
     "scannet_level0_padded_block_conv": ("scannet_level0_block_conv", 22_563),
 }
-# the conv forward's and backward's passes: (name, substrings of its
-# kernel's name); both libraries build basis_kernel and tf32x3_gemm, told
-# apart by their template arguments
-FWD_PASSES = (("basis_kernel", ("basis_kernel<", "false>")),
-              ("product", ("tf32x3_gemm<true, false",)), ("sum_splits", ("sum_splits",)))
-BWD_PASSES = (("basis_kernel", ("basis_kernel<", "true>")), ("d_w product", ("tf32x3_gemm<false, false",)),
-              ("dbasis product", ("tf32x3_gemm<true, true",)), ("edge_kernel", ("edge_kernel",)),
-              ("sum_partials", ("sum_partials",)))
+# the conv forward's and backward's passes: (name, alternatives, each a
+# tuple of substrings of a kernel's name); both libraries build
+# basis_kernel, tf32x3_gemm, bf16_gemm and round_bf16, told apart by their
+# template arguments (the float32 instantiations, then the bfloat16 ones)
+FWD_PASSES = (("basis_kernel", (("basis_kernel<", ", false, "),)),
+              ("product", (("tf32x3_gemm<true, false",), ("bf16_gemm<float, true, true",))),
+              ("sum_splits", (("sum_splits",),)))
+BWD_PASSES = (("basis_kernel", (("basis_kernel<", ", true, "),)),
+              ("d_w product", (("tf32x3_gemm<false, false",), ("bf16_gemm<float, false, false",))),
+              ("dbasis product", (("tf32x3_gemm<true, true",), ("bf16_gemm<__nv_bfloat16, true, true",))),
+              ("edge_kernel", (("edge_kernel",),)), ("sum_partials", (("sum_partials",),)))
+# the bfloat16 copy of the weights: one small kernel in each library, so a
+# step's profile cannot tell the forward's from the backward's
+WEIGHT_COPY_PASSES = (("round_bf16", (("round_bf16",),)),)
 # the prefix sum's single kernel ('sorted' mode only)
-CUMSUM_PASSES = (("scan_kernel", ("scan_kernel<",)),)
+CUMSUM_PASSES = (("scan_kernel", (("scan_kernel<",),)),)
 
 
 def cumsum_cases() -> dict:
@@ -411,8 +528,8 @@ def device_rows(prof) -> list:
 
 def pass_ms(rows, passes=BWD_PASSES) -> dict:
     """Device ms of each pass of ``passes`` in ``device_rows`` output."""
-    return {name: sum(ms for ms, _, key in rows if all(tag in key for tag in tags))
-            for name, tags in passes}
+    return {name: sum(ms for ms, _, key in rows if any(all(tag in key for tag in alt) for alt in alts))
+            for name, alts in passes}
 
 
 def dfaust_eval(card, dev, batch) -> tuple:
@@ -441,7 +558,7 @@ def dfaust_eval(card, dev, batch) -> tuple:
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    kfe.fused_equiv_fwd.launches = 0
+    reset_launches(kfe)
     t0 = time.perf_counter()
     trainer.calibration_step(batch, gen)
     torch.cuda.synchronize()
@@ -471,19 +588,26 @@ def dfaust_eval(card, dev, batch) -> tuple:
     return trainer, dict(step_s=median_s, all_s=step_s, peak_gib=peak / 2**30, launches=launches)
 
 
-def dfaust_train(card, dev, batch) -> tuple:
+def dfaust_train(card, dev, batch, model_dict=None) -> tuple:
     """7. the DFaust recipe's training at full width: a fresh seeded model
-    and the recipe's ``Training`` section, one calibration step, then
-    ``TRAIN_STEPS`` train steps on ``batch``, counting 21 forward and 21
-    backward conv launches per step and checking finite losses and moved BN
-    means.  Returns ``(trainer, {step_s, all_s, peak_gib, launches})``."""
+    (of ``model_dict``, by default the recipe's) and the recipe's
+    ``Training`` section, one calibration step, then ``TRAIN_STEPS`` train
+    steps on ``batch``, counting 21 forward and 21 backward conv launches
+    per step (all of them bfloat16 ones with bfloat16 convs, none
+    otherwise) and checking finite losses and moved BN means.  Returns
+    ``(trainer, {step_s, steady_s, all_s, peak_gib, launches,
+    bf16_launches})``: ``steady_s`` is the median of the steps after the
+    first, which alone carries one-time costs (allocator growth, library
+    handles)."""
     from se3conv3d_tpu_torch.kernels import fused_equiv as kfe
     from se3conv3d_tpu_torch.models import FPNSegUNet, presets
     from se3conv3d_tpu_torch.nn.norm import MaskedBatchNorm
     from se3conv3d_tpu_torch.train import schedule
     from se3conv3d_tpu_torch.train.trainer import Trainer
 
-    model_dict, training = presets.DFAUST_I_ROT_PCA_2F_MODEL, presets.DFAUST_I_ROT_PCA_2F_TRAINING
+    model_dict = model_dict or presets.DFAUST_I_ROT_PCA_2F_MODEL
+    training = presets.DFAUST_I_ROT_PCA_2F_TRAINING
+    label = f"train {model_dict.get('compute_dtype', 'float32')}"
     model = seeded_model(FPNSegUNet, presets.spec_from_model_dict(model_dict), dev)
     opt = schedule.optimizer_from_training(model.parameters(), training, TRAIN_STEPS)
     trainer = Trainer(model, presets.hierarchy_config_from_model_dict(model_dict, POINTS, train=True),
@@ -493,7 +617,7 @@ def dfaust_train(card, dev, batch) -> tuple:
     bns = {n: mod for n, mod in model.named_modules() if isinstance(mod, MaskedBatchNorm)}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    kfe.fused_equiv_fwd.launches = kfe.fused_equiv_bwd.launches = 0
+    reset_launches(kfe)
     trainer.calibration_step(batch, gen)
     bn_before = {n: mod.mean.clone() for n, mod in bns.items()}
     train_fwd_calib = kfe.fused_equiv_fwd.launches
@@ -510,26 +634,31 @@ def dfaust_train(card, dev, batch) -> tuple:
         fwd_n = kfe.fused_equiv_fwd.launches - before[0]
         bwd_n = kfe.fused_equiv_bwd.launches - before[1]
         per_step.append((loss, gnorm, fwd_n, bwd_n))
-        print(f"train: step {step} lr {lr:.6e} loss {loss:.6f} grad_norm {gnorm:.6f} "
+        print(f"{label}: step {step} lr {lr:.6e} loss {loss:.6f} grad_norm {gnorm:.6f} "
               f"launches fwd {fwd_n} bwd {bwd_n} time {step_s[-1]:.4f} s [{card}]", flush=True)
     train_fwd, train_bwd = kfe.fused_equiv_fwd.launches, kfe.fused_equiv_bwd.launches
+    bf16_n = (kfe.fused_equiv_fwd.bf16_launches, kfe.fused_equiv_bwd.bf16_launches)
     train_peak = torch.cuda.max_memory_allocated()
-    train_median = statistics.median(step_s)
-    print(f"train: calibration launches {train_fwd_calib}; train_step median {train_median:.4f} s "
-          f"(all {[round(x, 4) for x in step_s]}), {BATCH * POINTS / train_median:.1f} input points/s, "
-          f"peak memory {train_peak / 2**30:.3f} GiB; launches fwd {train_fwd} bwd {train_bwd} "
-          f"[{card}]", flush=True)
+    train_median, steady = statistics.median(step_s), statistics.median(step_s[1:])
+    print(f"{label}: calibration launches {train_fwd_calib}; train_step median {train_median:.4f} s, "
+          f"after the first {steady:.4f} s (all {[round(x, 4) for x in step_s]}), "
+          f"{BATCH * POINTS / train_median:.1f} input points/s, "
+          f"peak memory {train_peak / 2**30:.3f} GiB; launches fwd {train_fwd} bwd {train_bwd}, "
+          f"bfloat16 fwd {bf16_n[0]} bwd {bf16_n[1]} [{card}]", flush=True)
+    result = dict(step_s=train_median, steady_s=steady, all_s=step_s, peak_gib=train_peak / 2**30,
+                  launches=(train_fwd, train_bwd), bf16_launches=bf16_n)
+    if bf16_n != ((train_fwd, train_bwd) if bf16_convs(model) else (0, 0)):
+        raise SystemExit(f"{label}: bfloat16 launches {bf16_n} of {(train_fwd, train_bwd)}")
     if not all(np.isfinite(lo) and np.isfinite(gn) for lo, gn, _, _ in per_step):
         raise SystemExit("non-finite loss or gradients in a train step")
     if train_fwd_calib != CONVS_PER_FORWARD or any(
             (f_, b_) != (CONVS_PER_FORWARD, CONVS_PER_FORWARD) for _, _, f_, b_ in per_step):
         raise SystemExit(f"expected {CONVS_PER_FORWARD} forward and backward kernel launches per step")
     still = [n for n, mod in bns.items() if torch.equal(mod.mean, bn_before[n])]
-    print(f"train: {len(bns) - len(still)} of {len(bns)} BN running means moved")
+    print(f"{label}: {len(bns) - len(still)} of {len(bns)} BN running means moved")
     if still:
         raise SystemExit(f"BN running mean did not move: {still[:5]}")
-    return trainer, dict(step_s=train_median, all_s=step_s, peak_gib=train_peak / 2**30,
-                         launches=(train_fwd, train_bwd))
+    return trainer, result
 
 
 def scannet_rooms(dev) -> dict:
@@ -538,24 +667,34 @@ def scannet_rooms(dev) -> dict:
     return to_device(stack_scenes([room_scene(SCENE_POINTS, 100 + i) for i in range(SCENES)]), dev)
 
 
-def scannet_trainer(dev, room0):
-    """Phase 13's trainer: the ScanNet recipe in float32, a fresh seeded
-    model from ``build_model_from_config``, its optimizer over
-    ``len(SCANNET_MODE_ORDER)`` steps and ``scan_scenes``, calibrated on
+def scannet_recipes() -> dict:
+    """The ScanNet ``Model`` sections of the ScanNet phases by dtype: the
+    recipe as written (``compute_dtype: bfloat16``) and a float32 copy."""
+    from se3conv3d_tpu_torch.models import presets
+
+    written = presets.SCANNET20_ROT_PCA_I_MODEL
+    if written.get("compute_dtype") != "bfloat16":
+        raise SystemExit("the pinned ScanNet recipe no longer computes in bfloat16")
+    return {"bfloat16": written, "float32": {**written, "compute_dtype": "float32"}}
+
+
+def scannet_trainer(dev, room0, model_dict, steps=len(SCANNET_MODE_ORDER)):
+    """Phase 13's trainer: a fresh seeded model of the ScanNet ``Model``
+    section ``model_dict`` from ``build_model_from_config``, the recipe's
+    optimizer over ``steps`` steps and ``scan_scenes``, calibrated on
     ``room0``."""
     from se3conv3d_tpu_torch.models import presets
     from se3conv3d_tpu_torch.train import schedule
     from se3conv3d_tpu_torch.train.config import build_model_from_config
     from se3conv3d_tpu_torch.train.trainer import Trainer
 
-    s_model = {**presets.SCANNET20_ROT_PCA_I_MODEL, "compute_dtype": "float32"}
     s_training = presets.SCANNET20_ROT_PCA_I_TRAINING
-    model = seed_gammas(build_model_from_config(s_model, presets.SCANNET_NUM_FEATURES,
+    model = seed_gammas(build_model_from_config(model_dict, presets.SCANNET_NUM_FEATURES,
                                                 presets.SCANNET20_NUM_CLASSES,
                                                 generator=torch.Generator().manual_seed(0)))
-    opt = schedule.optimizer_from_training(model.parameters(), s_training, len(SCANNET_MODE_ORDER))
-    trainer = Trainer(model, presets.hierarchy_config_from_model_dict(s_model, SCENE_POINTS, train=True),
-                      presets.hierarchy_config_from_model_dict(s_model, SCENE_POINTS, train=False),
+    opt = schedule.optimizer_from_training(model.parameters(), s_training, steps)
+    trainer = Trainer(model, presets.hierarchy_config_from_model_dict(model_dict, SCENE_POINTS, train=True),
+                      presets.hierarchy_config_from_model_dict(model_dict, SCENE_POINTS, train=False),
                       label_smoothing=s_training["label_smoothing"],
                       ignore_label=presets.SCANNET20_IGNORE_LABEL, optimizer=opt,
                       scan_scenes=s_training["scan_scenes"])
@@ -563,14 +702,27 @@ def scannet_trainer(dev, room0):
     return trainer
 
 
+def dtype_name(dtype) -> str:
+    return str(dtype).replace("torch.", "")
+
+
+def product_text(dtype) -> str:
+    return ("every FLOP at the dense bf16 tensor-core peak; {:.4f} with the per-edge FLOPs at the "
+            "float32 peak" if dtype == torch.bfloat16 else
+            "the products at the 3xTF32 tensor-core ceiling; {:.4f} with every FLOP at the float32 peak")
+
+
 def forward_vs_plain(card, label, shp, args, live, bounds, seed) -> dict:
     """The forward kernel on the live rows ``live`` vs its plain version
-    (over every row), two calls bitwise equal, and its time beside the plain
-    version's and ``torch.matmul``'s for its weight contraction over the
-    same live rows; fails the run on a disagreement."""
+    (over every row; for bfloat16 operands its bfloat16 rounding, with the
+    control of :func:`tells_apart`), two calls bitwise equal, and its time
+    beside the plain version's and ``torch.matmul``'s (in the operands'
+    dtype) for its weight contraction over the same live rows; fails the run
+    on a disagreement."""
     from se3conv3d_tpu_torch.kernels import fused_equiv as kfe
 
-    g = shp[4]
+    g, dtype = shp[4], args[2].dtype
+    bf16 = dtype == torch.bfloat16
     with torch.no_grad():
         got = kfe.fused_equiv_fwd(*args, live_rows=live)
         again = kfe.fused_equiv_fwd(*args, live_rows=live)
@@ -578,95 +730,133 @@ def forward_vs_plain(card, label, shp, args, live, bounds, seed) -> dict:
         torch.cuda.synchronize()
         err = max_rel_err(got, ref)
         finite, same = bool(torch.isfinite(got).all()), torch.equal(got, again)
-        del got, again, ref
+        del again, ref
+        control = (max_rel_err(got, kfe.fused_equiv_fwd_reference(*as_operands(args, torch.float32)))[2]
+                   if bf16 else None)
+        del got
         ms = cuda_ms(lambda: kfe.fused_equiv_fwd(*args, live_rows=live), 20)
         plain_ms = cuda_ms(lambda: kfe.fused_equiv_fwd_reference(*args), 3)
-    lib_ms = product_matmul_ms(live.numel() * g, args[7], seed)
-    print(f"{label} B,M,N,K,G,F,Q,C,O={shp}: {live.numel()} live of {shp[0] * shp[1]} rows; "
-          f"max_abs_err={err[0]:.3e} max_rel_err={err[1]:.3e} (bound {KERNEL_RTOL}); two calls "
-          f"bitwise equal: {same}; kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms="
-          f"{bounds['bound_ms']:.4f} ({bounds['bound_by']}, {bounds['gflop']:.2f} GFLOP, the weight "
-          f"contraction at the 3xTF32 tensor-core ceiling; {bounds['bound_f32_ms']:.4f} with every "
-          f"FLOP at the float32 peak); torch.matmul float32 (no TF32) for basis . W over the same "
-          f"live rows {lib_ms:.4f} ms [{card}]", flush=True)
-    if not (finite and same and err[1] <= KERNEL_RTOL):
-        raise SystemExit(f"forward kernel disagrees with its plain version at {label}")
+    lib_ms = product_matmul_ms(live.numel() * g, args[7], seed, dtype)
+    print(f"{label} {dtype_name(dtype)} B,M,N,K,G,F,Q,C,O={shp}: {live.numel()} live of "
+          f"{shp[0] * shp[1]} rows; max_abs_err={err[0]:.3e} max_rel_err={err[1]:.3e} mean_rel_err="
+          f"{err[2]:.3e} ({bound_text(dtype, KERNEL_RTOL)}"
+          + (f"; mean_rel_err {control_text(err[2], control)}" if bf16 else "")
+          + f"); two calls bitwise equal: {same}; "
+          f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bounds['bound_ms']:.4f} "
+          f"({bounds['bound_by']}, {bounds['gflop']:.2f} GFLOP, "
+          + product_text(dtype).format(bounds["bound_f32_ms"])
+          + f"); torch.matmul {dtype_name(dtype)} for basis . W over the same live rows {lib_ms:.4f} ms "
+          f"[{card}]", flush=True)
+    if not (finite and same and within(err, dtype, KERNEL_RTOL)
+            and (not bf16 or tells_apart(err[2], control))):
+        raise SystemExit(f"forward kernel disagrees with its plain version at {label} ({dtype})")
     return dict(ms=ms, plain_ms=plain_ms, max_abs_err=err[0], max_rel_err=err[1],
-                library_ms=lib_ms, **bounds)
+                mean_rel_err=err[2], control_mean_rel_err=control, library_ms=lib_ms, **bounds)
 
 
-def scannet_conv_kernels(card, dev) -> dict:
-    """9. conv forward and backward kernels vs plain at the ScanNet shapes,
-    given the live-row table as the main path gives it, the forward bitwise
-    equal over two calls, the backward in both feature-gradient output
-    modes, and ``torch.matmul`` for their products.  (Their passes' device
-    ms come last, in :func:`scannet_conv_passes`: a ``torch.profiler`` run
-    slows the kernel launches that follow it, and the train steps are timed
-    in between.)"""
+def backward_vs_plain(card, label, shp, args, gout, live, bounds, seed) -> dict:
+    """The backward kernel on the live rows ``live`` vs its plain version
+    (over every row; for bfloat16 operands its bfloat16 rounding, with the
+    control of :func:`tells_apart`) in both feature-gradient output modes
+    (atomic scatter; rows at their sorted slots, summed by
+    ``sorted_segment_sum``), its parameter gradients bitwise equal across
+    modes and calls, and its time beside the plain version's and
+    ``torch.matmul``'s (in the operands' dtype) for its two products over
+    the same live rows; fails the run on a disagreement."""
     from se3conv3d_tpu_torch.core.neighborhoods import Neighborhood
     from se3conv3d_tpu_torch.kernels import fused_equiv as kfe
     from se3conv3d_tpu_torch.kernels import segsum
     from se3conv3d_tpu_torch.ops.pne_conv import backward_sort_tables
 
     names = ("d_feats", "d_proj_axes", "d_proj_biases", "d_conv_weights")
+    b, m, n, k, g, f, q, c, o = shp
+    dtype = args[2].dtype
+    dname, bf16 = dtype_name(dtype), dtype == torch.bfloat16
+    tabs = backward_sort_tables(Neighborhood(args[3], args[4], args[4].any(-1)), n)
+    got = kfe.fused_equiv_bwd(*args, gout, live_rows=live)
+    ref = kfe.fused_equiv_bwd_reference(*args, gout)
+    got_s = kfe.fused_equiv_bwd(*args, gout, sorted_slot=tabs.bwd_slot, live_rows=live)
+    ref_s = kfe.fused_equiv_bwd_reference(*args, gout, sorted_slot=tabs.bwd_slot)
+    summed = segsum.sorted_segment_sum(got_s[0], tabs.bwd_run_start, tabs.bwd_run_end)
+    prefix_scale = float(segsum.blocked_cumsum(got_s[0]).abs().max())
+    torch.cuda.synchronize()
+    errs = {w: max_rel_err(x, y) for w, x, y in zip(names, got, ref)}
+    errs_s = {w: max_rel_err(x, y) for w, x, y in zip(("d_sorted_rows",) + names[1:], got_s, ref_s)}
+    # the segment sums against the plain scatter (float32), or against the
+    # kernel's own scatter of the same bfloat16-rounded rows (bfloat16: a
+    # plain row may round the other way): prefix differences, so the bound
+    # is SEGSUM_EPS_FACTOR * eps * max |prefix|, not relative
+    seg_ref = got[0] if bf16 else ref[0]
+    seg_err = float((summed.reshape(seg_ref.shape) - seg_ref).abs().max())
+    seg_limit = SEGSUM_EPS_FACTOR * torch.finfo(torch.float32).eps * prefix_scale
+    del ref, ref_s, seg_ref, summed
+    control = {}
+    if bf16:  # the plain version on the widened operands: no bfloat16 rounding
+        wide = as_operands(args, torch.float32)
+        control = {w: max_rel_err(x, y)[2] for w, x, y in
+                   zip(names, got, kfe.fused_equiv_bwd_reference(*wide, gout))}
+        control["d_sorted_rows"] = max_rel_err(
+            got_s[0], kfe.fused_equiv_bwd_reference(*wide, gout, sorted_slot=tabs.bwd_slot)[0])[2]
+        del wide
+    finite = all(bool(torch.isfinite(x.float()).all()) for x in (*got, *got_s))
+    sorted_dtype = got_s[0].dtype
+    again = kfe.fused_equiv_bwd(*args, gout, live_rows=live)
+    same_params = all(torch.equal(x, y) and torch.equal(x, z)
+                      for x, y, z in zip(got[1:], got_s[1:], again[1:]))
+    del got, got_s, again
+    ms = cuda_ms(lambda: kfe.fused_equiv_bwd(*args, gout, live_rows=live), 10)
+    sorted_ms = cuda_ms(lambda: kfe.fused_equiv_bwd(*args, gout, sorted_slot=tabs.bwd_slot, live_rows=live), 10)
+    plain_ms = cuda_ms(lambda: kfe.fused_equiv_bwd_reference(*args, gout), 3)
+    lib_ms = products_matmul_ms(live.numel() * g, args[7], seed, dtype)
+    for mode, e in (("scatter", errs), ("sorted", errs_s)):
+        print(f"{label} {dname} mode {mode}: "
+              + " ".join(f"{w}: max_abs_err={v[0]:.3e} max_rel_err={v[1]:.3e} mean_rel_err={v[2]:.3e}"
+                         + (f" ({control_text(v[2], control[w])})" if w in control and (
+                             mode == "scatter" or w == "d_sorted_rows") else "")
+                         for w, v in e.items())
+              + f" ({bound_text(dtype, BWD_RTOL)}) [{card}]", flush=True)
+    print(f"{label} {dname} mode sorted: rows in {dtype_name(sorted_dtype)}; d_feats by segment sums "
+          f"of the rows vs the {'kernel' if bf16 else 'plain'} scatter: max_abs_err={seg_err:.3e} (bound "
+          f"{seg_limit:.3e} = {SEGSUM_EPS_FACTOR} eps x max|prefix| {prefix_scale:.3e}) [{card}]", flush=True)
+    print(f"{label} {dname} B,M,N,K,G,F,Q,C,O={shp}: {live.numel()} live of {b * m} rows; kernel_ms "
+          f"scatter {ms:.4f} sorted-rows {sorted_ms:.4f} plain_ms {plain_ms:.4f} "
+          f"bound_ms={bounds['bound_ms']:.4f} ({bounds['bound_by']}, {bounds['gflop']:.2f} GFLOP, "
+          + product_text(dtype).format(bounds["bound_f32_ms"])
+          + f"); torch.matmul {dname} for d_w and dbasis over the same live rows {lib_ms:.4f} ms; "
+          f"parameter gradients equal across modes and calls: {same_params} [{card}]", flush=True)
+    told_apart = all(tells_apart(errs_s[w][2] if w == "d_sorted_rows" else errs[w][2], v)
+                     for w, v in control.items())
+    if not (finite and same_params and seg_err <= seg_limit and sorted_dtype == dtype and told_apart
+            and all(within(v, dtype, BWD_RTOL) for e in (errs, errs_s) for v in e.values())):
+        raise SystemExit(f"backward kernel disagrees with its plain version at {label} ({dname})")
+    return dict(ms=ms, ms_sorted_rows=sorted_ms, plain_ms=plain_ms,
+                max_abs_err=max(v[0] for e in (errs, errs_s) for v in e.values()),
+                max_rel_err=max(v[1] for e in (errs, errs_s) for v in e.values()),
+                control_mean_rel_err=control or None, segment_sum_max_abs_err=seg_err,
+                products_library_ms=lib_ms, **bounds)
+
+
+def scannet_conv_kernels(card, dev, dtype=torch.float32) -> dict:
+    """9. conv forward and backward kernels vs plain at the ScanNet shapes,
+    with ``dtype`` operands, given the live-row table as the main path gives
+    it (:func:`forward_vs_plain`, :func:`backward_vs_plain`).  (Their passes'
+    device ms come last, in :func:`scannet_conv_passes`: a
+    ``torch.profiler`` run slows the kernel launches that follow it, and the
+    train steps are timed in between.)"""
+    from se3conv3d_tpu_torch.kernels import fused_equiv as kfe
+
     out = {}
     for i, (name, (shp, n_live)) in enumerate(scannet_conv_cases().items()):
-        b, m, n, k, g, f, q, c, o = shp
-        args, gout = scannet_conv_args(i, shp, n_live, dev)
+        args, gout = scannet_conv_args(i, shp, n_live, dev, dtype)
         live = kfe.live_row_table(args[4])
-        bounds = conv_bounds(shp, args[4])
-        fwd = forward_vs_plain(card, f"scannet_fwd_kernel_vs_plain {name}", shp, args, live,
-                               bounds["fwd"], 57 + i)
-
-        tabs = backward_sort_tables(Neighborhood(args[3], args[4], args[4].any(-1)), n)
-        got = kfe.fused_equiv_bwd(*args, gout, live_rows=live)
-        ref = kfe.fused_equiv_bwd_reference(*args, gout)
-        got_s = kfe.fused_equiv_bwd(*args, gout, sorted_slot=tabs.bwd_slot, live_rows=live)
-        ref_s = kfe.fused_equiv_bwd_reference(*args, gout, sorted_slot=tabs.bwd_slot)
-        summed = segsum.sorted_segment_sum(got_s[0], tabs.bwd_run_start, tabs.bwd_run_end)
-        prefix_scale = float(segsum.blocked_cumsum(got_s[0]).abs().max())
-        torch.cuda.synchronize()
-        errs = {w: max_rel_err(x, y) for w, x, y in zip(names, got, ref)}
-        errs_s = {w: max_rel_err(x, y) for w, x, y in zip(("d_sorted_rows",) + names[1:], got_s, ref_s)}
-        # the segment sums against the plain scatter: prefix differences, so
-        # the bound is SEGSUM_EPS_FACTOR * eps * max |prefix|, not relative
-        seg_err = float((summed.reshape(ref[0].shape) - ref[0]).abs().max())
-        seg_limit = SEGSUM_EPS_FACTOR * torch.finfo(torch.float32).eps * prefix_scale
-        finite = all(bool(torch.isfinite(x).all()) for x in (*got, *got_s))
-        again = kfe.fused_equiv_bwd(*args, gout, live_rows=live)
-        same_params = all(torch.equal(x, y) and torch.equal(x, z)
-                          for x, y, z in zip(got[1:], got_s[1:], again[1:]))
-        del got, ref, got_s, ref_s, summed, again
-        bwd_ms = cuda_ms(lambda: kfe.fused_equiv_bwd(*args, gout, live_rows=live), 10)
-        bwd_sorted_ms = cuda_ms(
-            lambda: kfe.fused_equiv_bwd(*args, gout, sorted_slot=tabs.bwd_slot, live_rows=live), 10)
-        bwd_plain = cuda_ms(lambda: kfe.fused_equiv_bwd_reference(*args, gout), 3)
-        lib_ms = products_matmul_ms(live.numel() * g, args[7], 55 + i)
-        for mode, e in (("scatter", errs), ("sorted", errs_s)):
-            print(f"scannet_bwd_kernel_vs_plain {name} mode {mode}: "
-                  + " ".join(f"{w}: max_abs_err={v[0]:.3e} max_rel_err={v[1]:.3e}" for w, v in e.items())
-                  + f" (bound {BWD_RTOL}) [{card}]", flush=True)
-        print(f"scannet_bwd_kernel_vs_plain {name} mode sorted: d_feats by segment sums of the rows: "
-              f"max_abs_err={seg_err:.3e} (bound {seg_limit:.3e} = {SEGSUM_EPS_FACTOR} eps x max|prefix| "
-              f"{prefix_scale:.3e}) [{card}]", flush=True)
-        print(f"scannet_bwd_kernel_vs_plain {name}: {live.numel()} live of {b * m} rows; kernel_ms "
-              f"scatter {bwd_ms:.4f} sorted-rows {bwd_sorted_ms:.4f} plain_ms {bwd_plain:.4f} "
-              f"bound_ms={bounds['bwd']['bound_ms']:.4f} ({bounds['bwd']['bound_by']}, "
-              f"{bounds['bwd']['gflop']:.2f} GFLOP, the two products at the 3xTF32 tensor-core "
-              f"ceiling; {bounds['bwd']['bound_f32_ms']:.4f} with every FLOP at the float32 peak); "
-              f"torch.matmul float32 (no TF32) for "
-              f"d_w and dbasis over the same live rows {lib_ms:.4f} ms; parameter gradients equal "
-              f"across modes and calls: {same_params} [{card}]", flush=True)
-        if not (finite and same_params and seg_err <= seg_limit
-                and all(v[1] <= BWD_RTOL for e in (errs, errs_s) for v in e.values())):
-            raise SystemExit(f"backward kernel disagrees with its plain version at {name}")
+        bounds = conv_bounds(shp, args[4], dtype)
         out[name] = dict(
-            fwd=fwd,
-            bwd=dict(ms=bwd_ms, ms_sorted_rows=bwd_sorted_ms, plain_ms=bwd_plain,
-                     max_abs_err=max(v[0] for e in (errs, errs_s) for v in e.values()),
-                     segment_sum_max_abs_err=seg_err, products_library_ms=lib_ms, **bounds["bwd"]),
+            fwd=forward_vs_plain(card, f"scannet_fwd_kernel_vs_plain {name}", shp, args, live,
+                                 bounds["fwd"], 57 + i),
+            bwd=backward_vs_plain(card, f"scannet_bwd_kernel_vs_plain {name}", shp, args, gout, live,
+                                  bounds["bwd"], 55 + i),
         )
-        del args, gout, tabs, live
+        del args, gout, live
         torch.cuda.empty_cache()
     return out
 
@@ -678,11 +868,12 @@ def scannet_conv_cases() -> dict:
     return cases
 
 
-def scannet_conv_args(i, shp, n_live, dev) -> tuple:
-    """The seeded operands and ``gout`` of phase 9's ``i``-th conv; rows past
-    ``n_live`` (if given) are padding, with no valid edge."""
+def scannet_conv_args(i, shp, n_live, dev, dtype=torch.float32) -> tuple:
+    """The seeded operands (rel, rot6 and feats in ``dtype``) and ``gout`` of
+    phase 9's ``i``-th conv; rows past ``n_live`` (if given) are padding,
+    with no valid edge."""
     b, m, n, k, g, f, q, c, o = shp
-    args = list(conv_inputs(*shp, seed=40 + i, dev=dev))
+    args = as_operands(conv_inputs(*shp, seed=40 + i, dev=dev), dtype)
     if n_live is not None:
         args[4][:, n_live:] = False
     args[3] = torch.where(args[4], args[3], torch.zeros_like(args[3]))  # invalid slots hold 0
@@ -690,20 +881,20 @@ def scannet_conv_args(i, shp, n_live, dev) -> tuple:
     return args, gout
 
 
-def scannet_conv_passes(card, dev, conv: dict) -> None:
+def scannet_conv_passes(card, dev, conv: dict, dtype=torch.float32) -> None:
     """Device ms of each conv forward and backward pass at phase 9's shapes
-    (``torch.profiler`` over 3 calls each), into ``conv[name]["fwd"]`` and
-    ``conv[name]["bwd"]``."""
+    with ``dtype`` operands (``torch.profiler`` over 3 calls each), into
+    ``conv[name]["fwd"]`` and ``conv[name]["bwd"]``."""
     from torch.profiler import ProfilerActivity, profile
 
     from se3conv3d_tpu_torch.kernels import fused_equiv as kfe
 
     for i, (name, (shp, n_live)) in enumerate(scannet_conv_cases().items()):
-        args, gout = scannet_conv_args(i, shp, n_live, dev)
+        args, gout = scannet_conv_args(i, shp, n_live, dev, dtype)
         live = kfe.live_row_table(args[4])
         with torch.no_grad():
-            runs = {"fwd": (lambda: kfe.fused_equiv_fwd(*args, live_rows=live), FWD_PASSES),
-                    "bwd": (lambda: kfe.fused_equiv_bwd(*args, gout, live_rows=live), BWD_PASSES)}
+            runs = {"fwd": (lambda: kfe.fused_equiv_fwd(*args, live_rows=live), FWD_PASSES + WEIGHT_COPY_PASSES),
+                    "bwd": (lambda: kfe.fused_equiv_bwd(*args, gout, live_rows=live), BWD_PASSES + WEIGHT_COPY_PASSES)}
             for what, (fn, passes) in runs.items():
                 fn()
                 torch.cuda.synchronize()
@@ -714,10 +905,10 @@ def scannet_conv_passes(card, dev, conv: dict) -> None:
                 conv[name][what]["passes_ms"] = {p: ms / 3 for p, ms in
                                                  pass_ms(device_rows(prof), passes).items()}
         fwd, bwd = conv[name]["fwd"], conv[name]["bwd"]
-        print(f"scannet_fwd_passes {name}: device ms per call "
+        print(f"scannet_fwd_passes {name} {dtype_name(dtype)}: device ms per call "
               + ", ".join(f"{p} {ms:.4f}" for p, ms in fwd["passes_ms"].items())
               + f" (torch.matmul for the product {fwd['library_ms']:.4f}) [{card}]", flush=True)
-        print(f"scannet_bwd_passes {name}: device ms per call "
+        print(f"scannet_bwd_passes {name} {dtype_name(dtype)}: device ms per call "
               + ", ".join(f"{p} {ms:.4f}" for p, ms in bwd["passes_ms"].items())
               + f" (products: {bwd['passes_ms']['d_w product'] + bwd['passes_ms']['dbasis product']:.4f}; "
               f"torch.matmul {bwd['products_library_ms']:.4f}) [{card}]", flush=True)
@@ -794,7 +985,7 @@ def scannet_cumsum(card, dev) -> dict:
         del y
         # bytes: each payload element read once, each float32 output written once
         bound_ms = x.numel() * (x.element_size() + 4) / PEAK_BYTES_PER_S * 1e3
-        print(f"cumsum_kernel_vs_plain {name} {list(shape)} {str(dtype)[6:]}: max_abs_err={err[0]:.3e} "
+        print(f"cumsum_kernel_vs_plain {name} {list(shape)} {dtype_name(dtype)}: max_abs_err={err[0]:.3e} "
               f"max_rel_err={err[1]:.3e} (bound {CUMSUM_RTOL}); {CUMSUM_REPEATS} more calls bitwise "
               f"equal: {same}; kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} torch.cumsum_ms={lib_ms:.4f} "
               f"bound_ms={bound_ms:.4f} (bytes; {100 * bound_ms / ms:.1f}% of it; a float32 copy of "
@@ -960,16 +1151,56 @@ class SharedSearches:
                    for a, b in zip(self.tables, self.watched))
 
 
+def bf16_convs(model) -> bool:
+    """Whether ``model``'s convs compute in bfloat16 (all or none do here)."""
+    return any(getattr(mod, "compute_dtype", None) == torch.bfloat16 for mod in model.modules())
+
+
+@contextlib.contextmanager
+def computing_in(model, dtype):
+    """``model`` with its convs, and the spec that its neighborhoods' cached
+    geometry follows, computing in ``dtype`` for the ``with`` block: the
+    same weights and buffers with no bfloat16 rounding for ``float32`` (the
+    control of the model-level bfloat16 gates)."""
+    from se3conv3d_tpu_torch.nn.conv import PNEConv
+
+    spec, convs = model.spec, [mod for mod in model.modules() if isinstance(mod, PNEConv)]
+    kept = [conv.compute_dtype for conv in convs]
+    model.spec = dataclasses.replace(spec, conv=dataclasses.replace(spec.conv, compute_dtype=dtype),
+                                     conv_blocks=dataclasses.replace(spec.conv_blocks, compute_dtype=dtype))
+    for conv in convs:
+        conv.compute_dtype = dtype
+    try:
+        yield model
+    finally:
+        model.spec = spec
+        for conv, cdt in zip(convs, kept):
+            conv.compute_dtype = cdt
+
+
+def reset_launches(kfe, segsum=None) -> None:
+    """Every kernel launch count to 0 (all, and those with bfloat16 operands)."""
+    for fn in (kfe.fused_equiv_fwd, kfe.fused_equiv_bwd):
+        fn.launches = fn.bf16_launches = 0
+    if segsum is not None:
+        segsum.blocked_cumsum.launches = 0
+
+
 def scannet_eval(card, dev, model, trainer, scene, kfe, num_classes) -> dict:
     """12. calibration and eval steps on one room, rotation invariance, and
-    card vs CPU logits on a smaller room."""
-    from se3conv3d_tpu_torch.core.hierarchy import rotate_cloud, rotate_hierarchy
+    card vs CPU logits on a smaller room, in the dtype of the model's convs
+    (bfloat16: every forward launch is a bfloat16 one, and the logits are
+    held at the bfloat16 bounds)."""
+    from se3conv3d_tpu_torch.core.hierarchy import Hierarchy, rotate_cloud, rotate_hierarchy
+    from se3conv3d_tpu_torch.core.pointcloud import PointCloud
     from se3conv3d_tpu_torch.core.rotation import random_rotations
 
+    bf16 = bf16_convs(model)
+    dname = "bfloat16" if bf16 else "float32"
     gen = torch.Generator(device=dev).manual_seed(70)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    kfe.fused_equiv_fwd.launches = 0
+    reset_launches(kfe)
     with watching_live_rows(kfe, "fused_equiv_fwd") as seen:
         t0 = time.perf_counter()
         trainer.calibration_step(scene, gen)
@@ -982,17 +1213,21 @@ def scannet_eval(card, dev, model, trainer, scene, kfe, num_classes) -> dict:
             outs = trainer.eval_step(scene, gen)
             torch.cuda.synchronize()
             step_s.append(time.perf_counter() - t0)
-    launches = kfe.fused_equiv_fwd.launches
-    check_live_rows(card, "calibration and eval, conv forwards", seen, SCANNET_CONVS * (1 + SCANNET_EVAL_STEPS))
+    launches, bf16_launches = kfe.fused_equiv_fwd.launches, kfe.fused_equiv_fwd.bf16_launches
+    check_live_rows(card, f"{dname} calibration and eval, conv forwards", seen,
+                    SCANNET_CONVS * (1 + SCANNET_EVAL_STEPS))
     peak = torch.cuda.max_memory_allocated()
     median_s = statistics.median(step_s)
     logits = outs["logits"]
-    print(f"scannet_eval: calibration_step {calib_s:.4f} s, eval_step median {median_s:.4f} s (all "
+    print(f"scannet_eval {dname}: calibration_step {calib_s:.4f} s, eval_step median {median_s:.4f} s (all "
           f"{[round(s, 4) for s in step_s]}), {SCENE_POINTS / median_s:.1f} input points/s, peak "
           f"memory {peak / 2**30:.3f} GiB, loss {float(outs['loss']):.4f}; fwd kernel launches "
-          f"{launches} = {calib_launches} + {launches - calib_launches} [{card}]", flush=True)
+          f"{launches} = {calib_launches} + {launches - calib_launches}, {bf16_launches} of them "
+          f"bfloat16 [{card}]", flush=True)
     if calib_launches != SCANNET_CONVS or launches != SCANNET_CONVS * (1 + SCANNET_EVAL_STEPS):
         raise SystemExit(f"expected {SCANNET_CONVS} forward kernel launches per ScanNet forward")
+    if bf16_launches != (launches if bf16 else 0):
+        raise SystemExit(f"ScanNet eval in {dname}: {bf16_launches} of {launches} forward launches bfloat16")
     if tuple(logits.shape) != (1, trainer.eval_hcfg.out_capacity, num_classes) \
             or not torch.isfinite(logits).all():
         raise SystemExit(f"bad ScanNet logits: shape {tuple(logits.shape)}")
@@ -1006,18 +1241,30 @@ def scannet_eval(card, dev, model, trainer, scene, kfe, num_classes) -> dict:
         rotated = model(rotate_hierarchy(h, rot), f0, rotate_cloud(out_pc, rot))
     with torch.no_grad(), searches.replaying():
         rotated_shared = model(rotate_hierarchy(h, rot), f0, rotate_cloud(out_pc, rot))
+    with torch.no_grad(), searches.replaying():
+        # the control: the positions rotated but every frame left as it was,
+        # which no equivariant model is blind to
+        unframed = model(Hierarchy(tuple(PointCloud(pc.positions @ rot.T, pc.mask, pc.frames)
+                                         for pc in h.levels), h.maps, h.levels_radii),
+                         f0, PointCloud(out_pc.positions @ rot.T, out_pc.mask, out_pc.frames))
     valid = out_pc.mask
     own = (base - rotated).abs()[valid].amax(-1)
     rot_err = (base - rotated_shared).abs()[valid].max().item()
-    print(f"scannet_invariance: max |logits - logits(rotated)| = {rot_err:.3e} (bound {ROT_ATOL}) over "
-          f"{int(valid.sum())} valid output points, the rotated forward reusing the unrotated "
-          f"forward's neighbor tables (its geometry recomputed); with its own searches "
+    unframed_err = (base - unframed).abs()[valid].max().item()
+    scale = base[valid].abs().max().item()
+    rot_bound = BF16_ROT_RTOL * scale if bf16 else ROT_ATOL
+    print(f"scannet_invariance {dname}: max |logits - logits(rotated)| = {rot_err:.3e} (bound "
+          f"{rot_bound:.3e}{f' = {BF16_ROT_RTOL} x max|logits|' if bf16 else ''}; max |logits| "
+          f"{scale:.3e}) over {int(valid.sum())} valid output points, the rotated forward reusing "
+          f"the unrotated forward's neighbor tables (its geometry recomputed); with its own searches "
           f"{own.max().item():.3e}, {int((own > 1e-5).sum())} points above 1e-5, "
-          f"{searches.rows_that_differ()} neighbor rows that flipped at the "
-          f"radius or the cap under float32 rounding of the rotated positions [{card}]", flush=True)
-    if not rot_err <= ROT_ATOL:
-        raise SystemExit("ScanNet logits change under a global rotation")
-    del base, rotated, h, f0, out_pc
+          f"{searches.rows_that_differ()} neighbor rows that flipped at the radius or the cap under "
+          f"float32 rounding of the rotated positions; control, the positions rotated and the frames "
+          f"not: {unframed_err:.3e} [{card}]", flush=True)
+    if not (rot_err <= rot_bound < unframed_err):
+        raise SystemExit(f"ScanNet logits change under a global rotation ({dname}), or the bound "
+                         "does not tell a model that ignores the frames' rotation")
+    del base, rotated, rotated_shared, unframed, h, f0, out_pc
 
     small_cfg = dataclasses.replace(trainer.eval_hcfg, capacities=tuple(SMALL_CAPS),
                                     out_capacity=SMALL_CAPS[0])
@@ -1025,25 +1272,41 @@ def scannet_eval(card, dev, model, trainer, scene, kfe, num_classes) -> dict:
     h, f0, out_pc, _, _ = type(trainer)(model, small_cfg).build(
         room, torch.Generator(device=dev).manual_seed(74), train=False)
     print(f"scannet_card_vs_cpu room: {occupancy_line(h, out_pc)}")
+    valid = out_pc.mask.cpu()
+    cpu_model, cpu_h, cpu_f0, cpu_out = copy.deepcopy(model).cpu(), h.to("cpu"), f0.cpu(), out_pc.to("cpu")
     with torch.no_grad():
-        card_logits = model(h, f0, out_pc)
+        card_logits = model(h, f0, out_pc).cpu()
         t0 = time.perf_counter()
-        cpu_logits = copy.deepcopy(model).cpu()(h.to("cpu"), f0.cpu(), out_pc.to("cpu"))
+        cpu_logits = cpu_model(cpu_h, cpu_f0, cpu_out)
         cpu_s = time.perf_counter() - t0
-    cpu_err = (card_logits.cpu() - cpu_logits).abs()[out_pc.mask.cpu()].max().item()
-    print(f"scannet_card_vs_cpu: max |logits(card) - logits(cpu)| = {cpu_err:.3e} (bound {CPU_ATOL}), "
-          f"max |logits| {card_logits.abs().max().item():.3e}; CPU forward {cpu_s:.1f} s [{card}]",
-          flush=True)
-    if not cpu_err <= CPU_ATOL:
-        raise SystemExit("ScanNet card and CPU logits disagree")
-    return dict(launches=launches, eval_s=median_s, peak_gib=peak / 2**30)
+        control = None
+        if bf16:  # the same weights on the CPU with no bfloat16 rounding
+            with computing_in(cpu_model, torch.float32):
+                control = (card_logits - cpu_model(cpu_h, cpu_f0, cpu_out)).abs()[valid].max().item()
+    diff = (card_logits - cpu_logits).abs()[valid]
+    cpu_err, scale = diff.max().item(), cpu_logits[valid].abs().max().item()
+    cpu_bound = BF16_CPU_RTOL * scale if bf16 else CPU_ATOL
+    print(f"scannet_card_vs_cpu {dname}: max |logits(card) - logits(cpu)| = {cpu_err:.3e} (bound "
+          f"{cpu_bound:.3e}{f' = {BF16_CPU_RTOL} x max|logits|' if bf16 else ''}"
+          + (f"; {control_text(cpu_err, control)}" if bf16 else "")
+          + f"), mean {diff.mean().item():.3e}, max |logits| {scale:.3e}; CPU forward {cpu_s:.1f} s "
+          f"[{card}]", flush=True)
+    if not (cpu_err <= cpu_bound and (not bf16 or tells_apart(cpu_err, control))):
+        raise SystemExit(f"ScanNet card and CPU logits disagree ({dname})")
+    return dict(launches=launches, bf16_launches=bf16_launches, eval_s=median_s, peak_gib=peak / 2**30,
+                card_vs_cpu_max_abs_err=cpu_err, card_vs_cpu_control=control, rotation_max_abs_err=rot_err,
+                rotation_control=unframed_err)
 
 
-def scannet_train(card, dev, trainer, batch, kfe, segsum, ops) -> dict:
-    """13. scan_scenes train steps, the two backward modes in turns."""
+def scannet_train(card, dev, trainer, batch, kfe, segsum, ops, order=SCANNET_MODE_ORDER) -> dict:
+    """13. scan_scenes train steps, the backward modes in turns (``order``),
+    in the dtype of the model's convs: with bfloat16 convs every conv launch
+    is a bfloat16 one and every prefix sum reads bfloat16 rows."""
     from se3conv3d_tpu_torch.nn.norm import MaskedBatchNorm
 
     model = trainer.model
+    bf16 = bf16_convs(model)
+    dname = "bfloat16" if bf16 else "float32"
     gen = torch.Generator(device=dev).manual_seed(80)
     bns = {n: mod for n, mod in model.named_modules() if isinstance(mod, MaskedBatchNorm)}
     bn_before = {n: mod.mean.clone() for n, mod in bns.items()}
@@ -1051,27 +1314,33 @@ def scannet_train(card, dev, trainer, batch, kfe, segsum, ops) -> dict:
     times = {mode: [] for mode in counts}
     peaks = {mode: 0 for mode in counts}
     want_fwd = SCANNET_CONVS * SCENES
-    for step, mode in enumerate(SCANNET_MODE_ORDER):
+    for step, mode in enumerate(order):
         ops.BWD_SCATTER_MODE = mode
         lr = trainer.optimizer.lr
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        kfe.fused_equiv_fwd.launches = kfe.fused_equiv_bwd.launches = segsum.blocked_cumsum.launches = 0
-        t0 = time.perf_counter()
-        out = trainer.train_step(batch, gen)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
+        reset_launches(kfe, segsum)
+        with watching_payloads(kfe) as payloads:
+            t0 = time.perf_counter()
+            out = trainer.train_step(batch, gen)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
         n = (kfe.fused_equiv_fwd.launches, kfe.fused_equiv_bwd.launches, segsum.blocked_cumsum.launches)
+        n_bf16 = (getattr(kfe.fused_equiv_fwd, "bf16_launches", 0), getattr(kfe.fused_equiv_bwd, "bf16_launches", 0))
         loss, gnorm = float(out["loss"]), float(out["grad_norm"])
         peak = torch.cuda.max_memory_allocated()
-        print(f"scannet_train: step {step} mode {mode} lr {lr:.6e} loss {loss:.6f} grad_norm {gnorm:.6f} "
-              f"launches fwd {n[0]} bwd {n[1]} cumsum {n[2]} time {dt:.4f} s peak "
+        print(f"scannet_train {dname}: step {step} mode {mode} lr {lr:.6e} loss {loss:.6f} grad_norm "
+              f"{gnorm:.6f} launches fwd {n[0]} bwd {n[1]} cumsum {n[2]} (bfloat16: fwd {n_bf16[0]} bwd "
+              f"{n_bf16[1]}; prefix-sum payloads {sorted(set(payloads))}) time {dt:.4f} s peak "
               f"{peak / 2**30:.3f} GiB [{card}]", flush=True)
         if not (np.isfinite(loss) and np.isfinite(gnorm)):
             raise SystemExit("non-finite loss or gradients in a ScanNet train step")
         want = (want_fwd, want_fwd, want_fwd if mode == "sorted" else 0)
         if n != want:
             raise SystemExit(f"ScanNet train step in mode {mode}: launches {n}, expected {want}")
+        if n_bf16 != ((n[0], n[1]) if bf16 else (0, 0)) or set(payloads) - {dname}:
+            raise SystemExit(f"ScanNet {dname} train step in mode {mode}: bfloat16 launches {n_bf16} "
+                             f"of {n[:2]}, prefix-sum payloads {sorted(set(payloads))}")
         times[mode].append(dt)
         peaks[mode] = max(peaks[mode], peak)
         for j in range(3):
@@ -1080,15 +1349,33 @@ def scannet_train(card, dev, trainer, batch, kfe, segsum, ops) -> dict:
     result = {}
     for mode in counts:
         med = statistics.median(times[mode])
-        print(f"scannet_train: mode {mode}: step median {med:.4f} s (all {[round(x, 4) for x in times[mode]]}), "
-              f"{SCENES * SCENE_POINTS / med:.1f} input points/s, peak memory {peaks[mode] / 2**30:.3f} GiB, "
-              f"float32 [{card}]", flush=True)
-        result[mode] = dict(step_s=med, peak_gib=peaks[mode] / 2**30, launches=counts[mode])
+        print(f"scannet_train {dname}: mode {mode}: step median {med:.4f} s (all "
+              f"{[round(x, 4) for x in times[mode]]}), {SCENES * SCENE_POINTS / med:.1f} input points/s, "
+              f"peak memory {peaks[mode] / 2**30:.3f} GiB [{card}]", flush=True)
+        result[mode] = dict(step_s=med, all_s=times[mode], peak_gib=peaks[mode] / 2**30,
+                            launches=counts[mode])
     still = [n for n, mod in bns.items() if torch.equal(mod.mean, bn_before[n])]
-    print(f"scannet_train: {len(bns) - len(still)} of {len(bns)} BN running means moved")
+    print(f"scannet_train {dname}: {len(bns) - len(still)} of {len(bns)} BN running means moved")
     if still:
         raise SystemExit(f"BN running mean did not move: {still[:5]}")
     return result
+
+
+@contextlib.contextmanager
+def watching_payloads(kfe):
+    """Within: the dtype name of every sorted buffer the conv backward hands
+    the prefix sum (``kfe.sorted_segment_sum``), in call order."""
+    real, seen = kfe.sorted_segment_sum, []
+
+    def watched(data, *args):
+        seen.append(dtype_name(data.dtype))
+        return real(data, *args)
+
+    kfe.sorted_segment_sum = watched
+    try:
+        yield seen
+    finally:
+        kfe.sorted_segment_sum = real
 
 
 @contextlib.contextmanager
@@ -1105,14 +1392,14 @@ def watching_live_rows(kfe, name="fused_equiv_bwd"):
         return real(*args, **kwargs)
 
     # the wrapper counts its launches on the module's attribute `name`:
-    # here that is `watched`, which carries the count and hands it back
-    watched.launches = real.launches
+    # here that is `watched`, which carries the counts and hands them back
+    watched.launches, watched.bf16_launches = real.launches, real.bf16_launches
     setattr(kfe, name, watched)
     try:
         yield seen
     finally:
         setattr(kfe, name, real)
-        real.launches = watched.launches
+        real.launches, real.bf16_launches = watched.launches, watched.bf16_launches
 
 
 def check_live_rows(card, label, seen, want) -> tuple:
@@ -1136,6 +1423,7 @@ def scannet_split(card, dev, trainer, batch, ops, drop_path_draws, kfe) -> dict:
     from se3conv3d_tpu_torch.train.losses import masked_segmentation_loss_parts
 
     model, gen = trainer.model, torch.Generator(device=dev).manual_seed(85)
+    dname = "bfloat16" if bf16_convs(model) else "float32"
     out = {}
     for mode in ("scatter", "sorted"):
         ops.BWD_SCATTER_MODE = mode
@@ -1165,10 +1453,10 @@ def scannet_split(card, dev, trainer, batch, ops, drop_path_draws, kfe) -> dict:
         torch.cuda.synchronize()
         parts["optimizer"] = time.perf_counter() - t0
         out[mode] = {k: v * 1e3 for k, v in parts.items()}
-        print(f"scannet_split: mode {mode}, ms per step of {batch['mask'].shape[0]} rooms: "
+        print(f"scannet_split {dname}: mode {mode}, ms per step of {batch['mask'].shape[0]} rooms: "
               + ", ".join(f"{k} {v:.2f}" for k, v in out[mode].items()) + f" [{card}]", flush=True)
-        check_live_rows(card, f"train mode {mode}, conv forwards", fwd_seen, SCANNET_CONVS * SCENES)
-        live, cap = check_live_rows(card, f"train mode {mode}, conv backwards", seen,
+        check_live_rows(card, f"{dname} train mode {mode}, conv forwards", fwd_seen, SCANNET_CONVS * SCENES)
+        live, cap = check_live_rows(card, f"{dname} train mode {mode}, conv backwards", seen,
                                     SCANNET_CONVS * SCENES)
         out[mode]["live_rows"], out[mode]["capacity_rows"] = live, cap
     ops.BWD_SCATTER_MODE = "scatter"
@@ -1183,6 +1471,7 @@ def scannet_profile(card, trainer, batch, ops) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     gen = torch.Generator(device=batch["mask"].device).manual_seed(87)
+    dname = "bfloat16" if bf16_convs(trainer.model) else "float32"
     out = {}
     for mode in ("scatter", "sorted"):
         ops.BWD_SCATTER_MODE = mode
@@ -1195,54 +1484,96 @@ def scannet_profile(card, trainer, batch, ops) -> dict:
         rows = device_rows(prof)
         busy = sum(r[0] for r in rows)
         fwd_passes, passes = pass_ms(rows, FWD_PASSES), pass_ms(rows)
-        print(f"scannet_profile: mode {mode}: step {wall_ms:.1f} ms under the profiler, device busy "
+        print(f"scannet_profile {dname}: mode {mode}: step {wall_ms:.1f} ms under the profiler, device busy "
               f"{busy:.1f} ms ({100 * (1 - busy / wall_ms):.1f}% idle), {sum(r[1] for r in rows)} kernel "
               f"launches [{card}]", flush=True)
         for ms, n, key in rows[:14]:
             print(f"scannet_profile:   {ms:9.2f} ms {n:6d}x {key[:110]}")
         cumsum = pass_ms(rows, CUMSUM_PASSES)
-        for what, ps in (("forward", fwd_passes), ("backward", passes), ("prefix sum", cumsum)):
-            print(f"scannet_profile: mode {mode}: conv {what} {sum(ps.values()):.2f} ms: "
+        copies = pass_ms(rows, WEIGHT_COPY_PASSES)
+        for what, ps in (("forward", fwd_passes), ("backward", passes), ("prefix sum", cumsum),
+                         ("weights' bfloat16 copies", copies)):
+            print(f"scannet_profile {dname}: mode {mode}: conv {what} {sum(ps.values()):.2f} ms: "
                   + ", ".join(f"{p} {ms:.2f}" for p, ms in ps.items()) + f" [{card}]", flush=True)
         out[mode] = dict(wall_ms=wall_ms, busy_ms=busy, fwd_passes_ms=fwd_passes, bwd_passes_ms=passes,
-                         cumsum_ms=cumsum, top=[(k[:110], ms, n) for ms, n, k in rows[:14]])
+                         cumsum_ms=cumsum, weight_copy_ms=copies,
+                         top=[(k[:110], ms, n) for ms, n, k in rows[:14]])
     ops.BWD_SCATTER_MODE = "scatter"
     return out
 
 
-def scannet_mode_grads(card, dev, trainer, scene, ops, recorded_draws, drop_path_draws) -> None:
+def grads_ratio(grads: dict, ref: dict, norm: float) -> tuple:
+    """The worst leaf of ``max |grad - ref| / max(max |ref leaf|, GRAD_FLOOR
+    * norm)`` over the parameter gradients ``grads`` and ``ref``: ``(ratio,
+    leaf name)``."""
+    worst, worst_name = 0.0, None
+    for n, g in grads.items():
+        ratio = (g - ref[n]).abs().max().item() / max(ref[n].abs().max().item(), GRAD_FLOOR * norm)
+        if ratio > worst:
+            worst, worst_name = ratio, n
+    return worst, worst_name
+
+
+def grads_norm_ratio(grads: dict, ref: dict) -> float:
+    """``|grads - ref| / |ref|`` over every leaf at once (global norms)."""
+    diff = sum(float((g - ref[n]).double().square().sum()) for n, g in grads.items())
+    return (diff / sum(float(r.double().square().sum()) for r in ref.values())) ** 0.5
+
+
+def scannet_mode_grads(card, dev, trainer, scene, ops, recorded_draws, drop_path_draws) -> float:
     """14. one room's parameter gradients, sorted vs scatter mode, with the
-    same hierarchy and DropPath keep masks."""
+    same hierarchy and DropPath keep masks (bound ``GRAD_RTOL``, or
+    ``BF16_GRAD_RTOL`` with bfloat16 convs, which must also tell the
+    gradients of the same weights with no bfloat16 rounding apart:
+    :func:`tells_apart`)."""
     from se3conv3d_tpu_torch.train import schedule
 
     model = trainer.model
+    bf16 = bf16_convs(model)
+    rtol = BF16_GRAD_RTOL if bf16 else GRAD_RTOL
     h, f0, out_pc, out_labels, _ = trainer.build(scene, torch.Generator(device=dev).manual_seed(90))
     draws = recorded_draws(torch.Generator(device=dev).manual_seed(91))
-    ops.BWD_SCATTER_MODE = "scatter"
-    scatter_loss = float(trainer.backward(h, f0, out_pc, out_labels, draws))
-    scatter = {n: p.grad.clone() for n, p in model.named_parameters()}
-    ops.BWD_SCATTER_MODE = "sorted"
-    sorted_loss = float(trainer.backward(h, f0, out_pc, out_labels, drop_path_draws(keep_masks=draws.masks)))
-    ops.BWD_SCATTER_MODE = "scatter"
+
+    def grads(mode, keep_masks=None):
+        ops.BWD_SCATTER_MODE = mode
+        try:
+            loss = float(trainer.backward(h, f0, out_pc, out_labels,
+                                          draws if keep_masks is None else drop_path_draws(keep_masks=keep_masks)))
+        finally:
+            ops.BWD_SCATTER_MODE = "scatter"
+        got = {n: p.grad.clone() if p.grad is not None else None for n, p in model.named_parameters()}
+        bad = [n for n, g in got.items() if g is None or not torch.isfinite(g).all()]
+        if bad:
+            raise SystemExit(f"missing or non-finite {mode}-mode gradient for {bad[:5]}")
+        return loss, got
+
+    scatter_loss, scatter = grads("scatter")
+    sorted_loss, sorted_ = grads("sorted", draws.masks)
     norm = float(schedule.global_norm(list(scatter.values())))
-    worst, worst_name = 0.0, None
-    for n, p in model.named_parameters():
-        ref = scatter[n]
-        if p.grad is None or not torch.isfinite(p.grad).all():
-            raise SystemExit(f"missing or non-finite sorted-mode gradient for {n}")
-        ratio = (p.grad - ref).abs().max().item() / max(ref.abs().max().item(), GRAD_FLOOR * norm)
-        if ratio > worst:
-            worst, worst_name = ratio, n
-    print(f"scannet_grads_sorted_vs_scatter: loss {sorted_loss:.6f} vs {scatter_loss:.6f}; "
-          f"{len(scatter)} leaves, global norm {norm:.6f}, {len(draws.masks)} DropPath masks; worst "
-          f"max|sorted - scatter| / max(max|leaf|, {GRAD_FLOOR} * norm) = {worst:.3e} at {worst_name} "
-          f"(bound {GRAD_RTOL}) [{card}]", flush=True)
-    if not (worst <= GRAD_RTOL and abs(sorted_loss - scatter_loss) <= GRAD_RTOL * abs(scatter_loss)):
+    worst, worst_name = grads_ratio(sorted_, scatter, norm)
+    whole = grads_norm_ratio(sorted_, scatter)
+    control = whole_control = None
+    if bf16:  # scatter mode with the same weights and no bfloat16 rounding
+        with computing_in(model, torch.float32):
+            _, wide = grads("scatter", draws.masks)
+        control = grads_ratio(scatter, wide, float(schedule.global_norm(list(wide.values()))))[0]
+        whole_control = grads_norm_ratio(scatter, wide)
+    print(f"scannet_grads_sorted_vs_scatter {'bfloat16' if bf16 else 'float32'}: loss {sorted_loss:.6f} "
+          f"vs {scatter_loss:.6f}; {len(scatter)} leaves, global norm {norm:.6f}, {len(draws.masks)} "
+          f"DropPath masks; worst max|sorted - scatter| / max(max|leaf|, {GRAD_FLOOR} * norm) = "
+          f"{worst:.3e} at {worst_name} (bound {rtol}"
+          + (f"; scatter {control_text(worst, control)}" if bf16 else "")
+          + f"); |sorted - scatter| / |scatter| over every leaf {whole:.3e}"
+          + (f" ({control_text(whole, whole_control)})" if bf16 else "") + f" [{card}]", flush=True)
+    if not (worst <= rtol and abs(sorted_loss - scatter_loss) <= rtol * abs(scatter_loss)
+            and (not bf16 or tells_apart(whole, whole_control))):
         raise SystemExit("sorted and scatter gradients disagree")
+    return worst
 
 
 def run_scannet(card, dev, recorded_draws, drop_path_draws) -> dict:
-    """Phases 9-14 (the ScanNet slice); returns their measurements."""
+    """Phases 9-14 (the ScanNet slice), in bfloat16 (the recipe as written)
+    and in float32; returns their measurements by dtype."""
     from se3conv3d_tpu_torch.kernels import fused_equiv as kfe
     from se3conv3d_tpu_torch.kernels import segsum
     from se3conv3d_tpu_torch.models import presets
@@ -1251,44 +1582,58 @@ def run_scannet(card, dev, recorded_draws, drop_path_draws) -> dict:
     from se3conv3d_tpu_torch.train.trainer import Trainer
 
     # 9.-10. the ScanNet conv shapes, the prefix sum and the segment sums
-    scan_conv = scannet_conv_kernels(card, dev)
+    scan_conv = {dt: scannet_conv_kernels(card, dev, getattr(torch, dt)) for dt in SCANNET_DTYPES}
     scan_cumsum = scannet_cumsum(card, dev)
     torch.cuda.empty_cache()
 
     # 11.-12. the ScanNet model on synthetic rooms: grid searches, eval path
-    s_model = {**presets.SCANNET20_ROT_PCA_I_MODEL, "compute_dtype": "float32"}
+    recipes = scannet_recipes()
     s_training = presets.SCANNET20_ROT_PCA_I_TRAINING
-    s_hcfg = presets.hierarchy_config_from_model_dict(s_model, SCENE_POINTS, train=True)
-    s_eval_hcfg = presets.hierarchy_config_from_model_dict(s_model, SCENE_POINTS, train=False)
+    s_hcfg = presets.hierarchy_config_from_model_dict(recipes["bfloat16"], SCENE_POINTS, train=True)
+    s_eval_hcfg = presets.hierarchy_config_from_model_dict(recipes["bfloat16"], SCENE_POINTS, train=False)
     feats, classes = presets.SCANNET_NUM_FEATURES, presets.SCANNET20_NUM_CLASSES
     rooms = scannet_rooms(dev)
-    model = seed_gammas(build_model_from_config(s_model, feats, classes,
-                                                generator=torch.Generator().manual_seed(0)))
-    if next(model.parameters()).device.type != dev.type:
-        raise SystemExit("build_model_from_config did not put the model on the card")
-    trainer = Trainer(model, s_hcfg, s_eval_hcfg, label_smoothing=s_training["label_smoothing"],
-                      ignore_label=presets.SCANNET20_IGNORE_LABEL)
-    for i in range(SCENES):
-        h, _, out_pc, _, _ = trainer.build({k: v[i : i + 1] for k, v in rooms.items()},
-                                           torch.Generator(device=dev).manual_seed(110 + i), train=False)
-        print(f"scannet room {i}: {occupancy_line(h, out_pc)}", flush=True)
     room0 = {k: v[:1] for k, v in rooms.items()}
-    h, _, out_pc, _, _ = trainer.build(room0, torch.Generator(device=dev).manual_seed(110), train=False)
-    grid = scannet_grid_vs_brute(card, h, out_pc, s_hcfg.init_cell_size)
-    del h, out_pc
-    scan_eval = scannet_eval(card, dev, model, trainer, room0, kfe, classes)
-    del model, trainer
-    torch.cuda.empty_cache()
+    scan_eval, grid = {}, None
+    for dt in SCANNET_DTYPES:
+        model = seed_gammas(build_model_from_config(recipes[dt], feats, classes,
+                                                    generator=torch.Generator().manual_seed(0)))
+        if next(model.parameters()).device.type != dev.type:
+            raise SystemExit("build_model_from_config did not put the model on the card")
+        if bf16_convs(model) != (dt == "bfloat16"):
+            raise SystemExit(f"build_model_from_config did not build {dt} convs from the {dt} recipe")
+        trainer = Trainer(model, s_hcfg, s_eval_hcfg, label_smoothing=s_training["label_smoothing"],
+                          ignore_label=presets.SCANNET20_IGNORE_LABEL)
+        if grid is None:
+            for i in range(SCENES):
+                h, _, out_pc, _, _ = trainer.build({k: v[i : i + 1] for k, v in rooms.items()},
+                                                   torch.Generator(device=dev).manual_seed(110 + i),
+                                                   train=False)
+                print(f"scannet room {i}: {occupancy_line(h, out_pc)}", flush=True)
+            h, _, out_pc, _, _ = trainer.build(room0, torch.Generator(device=dev).manual_seed(110),
+                                               train=False)
+            grid = scannet_grid_vs_brute(card, h, out_pc, s_hcfg.init_cell_size)
+            del h, out_pc
+        scan_eval[dt] = scannet_eval(card, dev, model, trainer, room0, kfe, classes)
+        del model, trainer
+        torch.cuda.empty_cache()
 
     # 13.-14. scan_scenes training, the two backward modes in turns
-    trainer = scannet_trainer(dev, room0)
-    scan_train = scannet_train(card, dev, trainer, rooms, kfe, segsum, ops)
-    scan_train["split_ms"] = scannet_split(card, dev, trainer, rooms, ops, drop_path_draws, kfe)
-    scan_train["profile"] = scannet_profile(card, trainer, rooms, ops)
-    scannet_mode_grads(card, dev, trainer, room0, ops, recorded_draws, drop_path_draws)
-    del trainer, rooms
-    torch.cuda.empty_cache()
-    scannet_conv_passes(card, dev, scan_conv)
+    scan_train = {}
+    for dt in SCANNET_DTYPES:
+        order = SCANNET_MODE_ORDER if dt == "bfloat16" else SCANNET_F32_MODE_ORDER
+        trainer = scannet_trainer(dev, room0, recipes[dt], len(order))
+        train = scannet_train(card, dev, trainer, rooms, kfe, segsum, ops, order)
+        train["split_ms"] = scannet_split(card, dev, trainer, rooms, ops, drop_path_draws, kfe)
+        train["profile"] = scannet_profile(card, trainer, rooms, ops)
+        train["grads_sorted_vs_scatter"] = scannet_mode_grads(card, dev, trainer, room0, ops,
+                                                              recorded_draws, drop_path_draws)
+        scan_train[dt] = train
+        del trainer
+        torch.cuda.empty_cache()
+    del rooms
+    for dt in SCANNET_DTYPES:
+        scannet_conv_passes(card, dev, scan_conv[dt], getattr(torch, dt))
     cumsum_device_ms(card, dev, scan_cumsum)
 
     return dict(conv=scan_conv, cumsum=scan_cumsum, grid=grid, eval=scan_eval, train=scan_train)
@@ -1296,64 +1641,85 @@ def run_scannet(card, dev, recorded_draws, drop_path_draws) -> dict:
 
 def kernels_line(dfaust: dict, scan: dict) -> dict:
     """The ``{"kernels": [...]}`` object: every kernel with its launches on
-    the main paths, its error against its plain version, and its times."""
+    the main paths, its error against its plain version, and its times at
+    the ScanNet level-0 shape (float32), with the same for its bfloat16
+    instantiation under ``"bf16"`` (each conv kernel's errors over the
+    DFaust and ScanNet shapes of phases 2, 6 and 9 in that dtype)."""
     compared, bwd_compared = dfaust["fwd"], dfaust["bwd"]
-    scan_conv, scan_cumsum, scan_train = scan["conv"], scan["cumsum"], scan["train"]
+    scan_conv, scan_cumsum, scan_train, scan_eval = scan["conv"], scan["cumsum"], scan["train"], scan["eval"]
     lvl0 = SCANNET_SHAPES["scannet_level0_block_conv"]
-    fwd0, bwd0 = scan_conv["scannet_level0_block_conv"]["fwd"], scan_conv["scannet_level0_block_conv"]["bwd"]
-    fwd_paths = {"dfaust_eval": dfaust["eval_launches"], "dfaust_train": dfaust["train_fwd"],
-                 "scannet_eval": scan["eval"]["launches"],
-                 "scannet_train_scatter": scan_train["scatter"]["launches"][0],
-                 "scannet_train_sorted": scan_train["sorted"]["launches"][0]}
-    bwd_paths = {"dfaust_train": dfaust["train_bwd"], "scannet_train_scatter": scan_train["scatter"]["launches"][1],
-                 "scannet_train_sorted": scan_train["sorted"]["launches"][1]}
-    cumsum_paths = {"scannet_train_scatter": scan_train["scatter"]["launches"][2],
-                    "scannet_train_sorted": scan_train["sorted"]["launches"][2]}
     at = f"scannet level-0 block conv B,M,N,K,G,F,Q,C,O={lvl0}"
-    by_shape_fwd = {**compared, **{k: v["fwd"] for k, v in scan_conv.items()}}
-    by_shape_bwd = {**bwd_compared, **{k: v["bwd"] for k, v in scan_conv.items()}}
-    c0 = scan_cumsum["scannet_level0_edges"]
-    return {"kernels": [{
-        "name": "fused_equiv_fwd",
-        "route": "cuda",
-        "source": "se3conv3d_tpu_torch/kernels/csrc/fused_equiv_fwd.cu",
-        "replaces": "se3conv3d_tpu/ops/pallas/fused_equiv.py:196",
-        "launches": sum(fwd_paths.values()),
-        "launches_by_path": fwd_paths,
-        "max_abs_err": max(v["max_abs_err"] for v in by_shape_fwd.values()),
-        "ms": fwd0["ms"], "plain_ms": fwd0["plain_ms"],
-        "bound_ms": fwd0["bound_ms"], "bound_by": fwd0["bound_by"], "bound_f32_ms": fwd0["bound_f32_ms"],
-        "library_ms": fwd0["library_ms"],
-        "library_call": "torch.matmul, float32 without TF32, for the weight contraction basis . W "
-                        "over the same live rows (no PyTorch call computes the whole forward)",
-        "at": at, "by_shape": by_shape_fwd,
-    }, {
-        "name": "fused_equiv_bwd",
-        "route": "cuda",
-        "source": "se3conv3d_tpu_torch/kernels/csrc/fused_equiv_bwd.cu",
-        "replaces": "se3conv3d_tpu/ops/pallas/fused_equiv.py:227",
-        "launches": sum(bwd_paths.values()),
-        "launches_by_path": bwd_paths,
-        "max_abs_err": max(v["max_abs_err"] for v in by_shape_bwd.values()),
-        "ms": bwd0["ms"], "plain_ms": bwd0["plain_ms"],
-        "bound_ms": bwd0["bound_ms"], "bound_by": bwd0["bound_by"], "bound_f32_ms": bwd0["bound_f32_ms"],
-        "library_ms": bwd0["products_library_ms"],
-        "library_call": "torch.matmul, float32 without TF32, for the d_w and dbasis products "
-                        "over the same live rows (no PyTorch call computes the whole backward)",
-        "at": at, "by_shape": by_shape_bwd,
-    }, {
-        "name": "blocked_cumsum",
-        "route": "cuda",
-        "source": "se3conv3d_tpu_torch/kernels/csrc/segsum_cumsum.cu",
-        "replaces": "se3conv3d_tpu/ops/pallas/segsum.py:38",
-        "launches": sum(cumsum_paths.values()),
-        "launches_by_path": cumsum_paths,
-        "max_abs_err": max(v["max_abs_err"] for v in scan_cumsum.values()),
-        "ms": c0["ms"], "plain_ms": c0["plain_ms"],
-        "bound_ms": c0["bound_ms"], "bound_by": "bytes", "library_ms": c0["library_ms"],
-        "library_call": "torch.cumsum along the rows with a float32 output",
-        "at": f"scannet level-0 edges [{lvl0[1] * lvl0[3]} x {lvl0[7]}]", "by_shape": scan_cumsum,
-    }], "scannet": {"eval": scan["eval"], "train": scan_train, "grid_vs_brute": scan["grid"]}}
+
+    def paths(which):  # which: 0 forward, 1 backward, 2 prefix sum; (all, bf16) launches by path
+        every, bf16 = {}, {}
+        if which < 2:
+            every["dfaust_eval"] = dfaust["eval_launches"] if which == 0 else 0
+            every["dfaust_train"] = dfaust["train_launches"][which]
+            every["dfaust_train_bf16"] = bf16["dfaust_train_bf16"] = dfaust["bf16_train_launches"][which]
+        for dt in SCANNET_DTYPES:
+            if which == 0:
+                every[f"scannet_eval_{dt}"] = scan_eval[dt]["launches"]
+                if dt == "bfloat16":
+                    bf16[f"scannet_eval_{dt}"] = scan_eval[dt]["bf16_launches"]
+            for mode in ("scatter", "sorted"):
+                n = scan_train[dt][mode]["launches"][which]
+                every[f"scannet_train_{dt}_{mode}"] = n
+                if dt == "bfloat16":  # every launch of this path is a bfloat16 one (gated)
+                    bf16[f"scannet_train_{dt}_{mode}"] = n
+        return every, bf16
+
+    def conv_entry(kind, which, name, source, replaces, lib_key, lib_call):
+        every, bf16_paths = paths(which)
+        dfaust_shapes = compared if kind == "fwd" else bwd_compared
+        by_shape = {dt: {**dfaust_shapes[dt], **{k: v[kind] for k, v in scan_conv[dt].items()}}
+                    for dt in SCANNET_DTYPES}
+        f0, b0 = by_shape["float32"]["scannet_level0_block_conv"], by_shape["bfloat16"]["scannet_level0_block_conv"]
+        return {
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": sum(every.values()), "launches_by_path": every,
+            "max_abs_err": max(v["max_abs_err"] for v in by_shape["float32"].values()),
+            "ms": f0["ms"], "plain_ms": f0["plain_ms"], "bound_ms": f0["bound_ms"], "bound_by": f0["bound_by"],
+            "bound_f32_ms": f0["bound_f32_ms"], "library_ms": f0[lib_key],
+            "library_call": lib_call.format("float32 without TF32"), "at": at, "by_shape": by_shape["float32"],
+            "bf16": {
+                "launches": sum(bf16_paths.values()), "launches_by_path": bf16_paths,
+                "max_abs_err": max(v["max_abs_err"] for v in by_shape["bfloat16"].values()),
+                "ms": b0["ms"], "plain_ms": b0["plain_ms"], "bound_ms": b0["bound_ms"],
+                "bound_by": b0["bound_by"], "bound_split_ms": b0["bound_f32_ms"],
+                "library_ms": b0[lib_key], "library_call": lib_call.format("bfloat16"),
+                "at": at, "by_shape": by_shape["bfloat16"],
+            },
+        }
+
+    cum_every, _ = paths(2)
+    cum_bf16 = {k: v for k, v in cum_every.items() if "bfloat16" in k}  # bfloat16 rows (gated)
+    c0, c0b = scan_cumsum["scannet_level0_edges"], scan_cumsum["scannet_level0_edges_bf16"]
+    cum_at = f"scannet level-0 edges [{lvl0[1] * lvl0[3]} x {lvl0[7]}]"
+    return {"kernels": [
+        conv_entry("fwd", 0, "fused_equiv_fwd", "se3conv3d_tpu_torch/kernels/csrc/fused_equiv_fwd.cu",
+                   "se3conv3d_tpu/ops/pallas/fused_equiv.py:196", "library_ms",
+                   "torch.matmul, {}, for the weight contraction basis . W over the same live rows "
+                   "(no PyTorch call computes the whole forward)"),
+        conv_entry("bwd", 1, "fused_equiv_bwd", "se3conv3d_tpu_torch/kernels/csrc/fused_equiv_bwd.cu",
+                   "se3conv3d_tpu/ops/pallas/fused_equiv.py:227", "products_library_ms",
+                   "torch.matmul, {}, for the d_w and dbasis products over the same live rows "
+                   "(no PyTorch call computes the whole backward)"),
+        {
+            "name": "blocked_cumsum", "route": "cuda",
+            "source": "se3conv3d_tpu_torch/kernels/csrc/segsum_cumsum.cu",
+            "replaces": "se3conv3d_tpu/ops/pallas/segsum.py:38",
+            "launches": sum(cum_every.values()), "launches_by_path": cum_every,
+            "max_abs_err": max(v["max_abs_err"] for v in scan_cumsum.values()),
+            "ms": c0["ms"], "plain_ms": c0["plain_ms"],
+            "bound_ms": c0["bound_ms"], "bound_by": "bytes", "library_ms": c0["library_ms"],
+            "library_call": "torch.cumsum along the rows with a float32 output",
+            "at": cum_at, "by_shape": scan_cumsum,
+            "bf16": {"launches": sum(cum_bf16.values()), "launches_by_path": cum_bf16,
+                     "max_abs_err": c0b["max_abs_err"], "ms": c0b["ms"], "plain_ms": c0b["plain_ms"],
+                     "bound_ms": c0b["bound_ms"], "bound_by": "bytes", "library_ms": c0b["library_ms"],
+                     "at": cum_at + " bfloat16 rows"},
+        }], "scannet": {"eval": scan_eval, "train": scan_train, "grid_vs_brute": scan["grid"]},
+        "dfaust": {"train_bf16": dfaust["bf16_train"]}}
 
 
 def main() -> int:
@@ -1365,13 +1731,11 @@ def main() -> int:
         print("chip_smoke: run it from the repository that holds it", file=sys.stderr)
         return 1
     from se3conv3d_tpu_torch.core.hierarchy import rotate_cloud, rotate_hierarchy
-    from se3conv3d_tpu_torch.core.neighborhoods import Neighborhood
     from se3conv3d_tpu_torch.core.rotation import random_rotations
     from se3conv3d_tpu_torch.kernels import fused_equiv as kfe
     from se3conv3d_tpu_torch.kernels.build import build_libraries
     from se3conv3d_tpu_torch.models import presets
     from se3conv3d_tpu_torch.nn.blocks import DropPathDraws
-    from se3conv3d_tpu_torch.ops.pne_conv import backward_sort_tables
     from se3conv3d_tpu_torch.train import schedule
     from se3conv3d_tpu_torch.train.trainer import Trainer
 
@@ -1408,14 +1772,15 @@ def main() -> int:
         "level4_block_conv": (32, 128, 128, 32, 2, 2, 32, 256, 256),
         "jax_bench_conv": (1, 65536, 65536, 16, 2, 2, 32, 64, 64),
     }
-    compared = {}
-    for i, (name, shp) in enumerate(shapes.items()):
-        args = conv_inputs(*shp, seed=10 + i, dev=dev)
-        compared[name] = forward_vs_plain(card, f"kernel_vs_plain {name}", shp, args,
-                                          kfe.live_row_table(args[4]), conv_bounds(shp, args[4])["fwd"],
-                                          15 + i)
-        del args
-        torch.cuda.empty_cache()
+    compared = {dtype_name(dt): {} for dt in KERNEL_DTYPES}
+    for dt in KERNEL_DTYPES:
+        for i, (name, shp) in enumerate(shapes.items()):
+            args = as_operands(conv_inputs(*shp, seed=10 + i, dev=dev), dt)
+            compared[dtype_name(dt)][name] = forward_vs_plain(
+                card, f"kernel_vs_plain {name}", shp, args, kfe.live_row_table(args[4]),
+                conv_bounds(shp, args[4], dt)["fwd"], 15 + i)
+            del args
+            torch.cuda.empty_cache()
 
     # 3. the slice at full width
     model_dict = presets.DFAUST_I_ROT_PCA_2F_MODEL
@@ -1450,52 +1815,32 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 6. backward kernel vs plain
-    bwd_compared = {}
-    for i, (name, shp) in enumerate(shapes.items()):
-        args = conv_inputs(*shp, seed=20 + i, dev=dev)
-        b, m, _, _, g_, _, _, _, o = shp
-        gout = torch.randn(b, m, g_, o, device=dev, generator=torch.Generator(device=dev).manual_seed(30 + i))
-        got = kfe.fused_equiv_bwd(*args, gout)
-        ref = kfe.fused_equiv_bwd_reference(*args, gout)
-        # the sorted-slot output mode, and the parameter gradients bitwise
-        # equal across modes and calls
-        slot = backward_sort_tables(Neighborhood(args[3], args[4], args[4].any(-1)), shp[2]).bwd_slot
-        got_s = kfe.fused_equiv_bwd(*args, gout, sorted_slot=slot)
-        ref_s = kfe.fused_equiv_bwd_reference(*args, gout, sorted_slot=slot)
-        again = kfe.fused_equiv_bwd(*args, gout)
-        torch.cuda.synchronize()
-        errs = {what: max_rel_err(x, y) for what, x, y in
-                zip(("d_feats", "d_proj_axes", "d_proj_biases", "d_conv_weights"), got, ref)}
-        errs["d_sorted_rows"] = max_rel_err(got_s[0], ref_s[0])
-        finite = all(bool(torch.isfinite(x).all()) for x in (*got, got_s[0]))
-        same_params = all(torch.equal(x, y) and torch.equal(x, z)
-                          for x, y, z in zip(got[1:], got_s[1:], again[1:]))
-        del got, ref, got_s, ref_s, again, slot
-        ms = cuda_ms(lambda: kfe.fused_equiv_bwd(*args, gout), 10)
-        plain_ms = cuda_ms(lambda: kfe.fused_equiv_bwd_reference(*args, gout), 3)
-        bounds = conv_bounds(shp, args[4])["bwd"]
-        lib_ms = products_matmul_ms(bounds["live_rows"] * g_, args[7], 35 + i)
-        bwd_compared[name] = dict(max_abs_err=max(e[0] for e in errs.values()),
-                                  max_rel_err=max(e[1] for e in errs.values()), ms=ms, plain_ms=plain_ms,
-                                  products_library_ms=lib_ms, **bounds)
-        print(f"bwd_kernel_vs_plain {name} B,M,N,K,G,F,Q,C,O={shp}: "
-              + " ".join(f"{w}: max_abs_err={e[0]:.3e} max_rel_err={e[1]:.3e}" for w, e in errs.items())
-              + f" kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} (bound {BWD_RTOL}); bound_ms="
-              f"{bounds['bound_ms']:.4f} ({bounds['bound_by']}, the two products at the 3xTF32 "
-              f"tensor-core ceiling; {bounds['bound_f32_ms']:.4f} with every FLOP at the float32 "
-              f"peak); torch.matmul float32 for d_w and dbasis "
-              f"{lib_ms:.4f} ms; parameter gradients equal across modes and calls: {same_params} "
-              f"[{card}]", flush=True)
-        if not (finite and same_params and all(e[1] <= BWD_RTOL for e in errs.values())):
-            raise SystemExit(f"backward kernel disagrees with its plain version at {name}")
-        del args, gout
-        torch.cuda.empty_cache()
+    bwd_compared = {dtype_name(dt): {} for dt in KERNEL_DTYPES}
+    for dt in KERNEL_DTYPES:
+        for i, (name, shp) in enumerate(shapes.items()):
+            args = as_operands(conv_inputs(*shp, seed=20 + i, dev=dev), dt)
+            b, m, _, _, g_, _, _, _, o = shp
+            gout = torch.randn(b, m, g_, o, device=dev, generator=torch.Generator(device=dev).manual_seed(30 + i))
+            bwd_compared[dtype_name(dt)][name] = backward_vs_plain(
+                card, f"bwd_kernel_vs_plain {name}", shp, args, gout, kfe.live_row_table(args[4]),
+                conv_bounds(shp, args[4], dt)["bwd"], 35 + i)
+            del args, gout
+            torch.cuda.empty_cache()
 
-    # 7. the training slice at full width
+    # 7. the training slice at full width, and its steps in bfloat16 beside it
+    # (their times printed only: the DFaust recipe computes in float32)
     training = presets.DFAUST_I_ROT_PCA_2F_TRAINING
+    bf16_trainer, dfaust_bf16 = dfaust_train(
+        card, dev, batch, {**presets.DFAUST_I_ROT_PCA_2F_MODEL, "compute_dtype": "bfloat16"})
+    del bf16_trainer
+    torch.cuda.empty_cache()
     trainer, dfaust_steps = dfaust_train(card, dev, batch)
     model = trainer.model
-    train_fwd, train_bwd = dfaust_steps["launches"]
+    print(f"train: steps after the first, float32 median {dfaust_steps['steady_s']:.4f} s (range "
+          f"{min(dfaust_steps['all_s'][1:]):.4f}-{max(dfaust_steps['all_s'][1:]):.4f}), peak "
+          f"{dfaust_steps['peak_gib']:.3f} GiB; bfloat16 median {dfaust_bf16['steady_s']:.4f} s (range "
+          f"{min(dfaust_bf16['all_s'][1:]):.4f}-{max(dfaust_bf16['all_s'][1:]):.4f}), peak "
+          f"{dfaust_bf16['peak_gib']:.3f} GiB [{card}]", flush=True)
 
     # 8. parameter gradients, card vs CPU, on two clouds
     small = to_device(body_batch(2, POINTS, seed=4), dev)
@@ -1527,8 +1872,9 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     scan = run_scannet(card, dev, RecordedDraws, DropPathDraws)
-    dfaust = dict(fwd=compared, bwd=bwd_compared, eval_launches=launches, train_fwd=train_fwd,
-                  train_bwd=train_bwd)
+    dfaust = dict(fwd=compared, bwd=bwd_compared, eval_launches=launches,
+                  train_launches=dfaust_steps["launches"], bf16_train_launches=dfaust_bf16["bf16_launches"],
+                  bf16_train=dfaust_bf16)
     print(json.dumps(kernels_line(dfaust, scan)))
     print(card)
     print(json.dumps({"ok": True, "device": {

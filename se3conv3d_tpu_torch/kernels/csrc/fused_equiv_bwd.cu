@@ -1,4 +1,5 @@
-// Fused equivariant PNE-conv backward for NVIDIA Hopper (sm_90a), float32.
+// Fused equivariant PNE-conv backward for NVIDIA Hopper (sm_90a), with
+// float32 or bfloat16 operands and float32 accumulation.
 //
 // Forward (fused_equiv_fwd.cu), per query point (b, m):
 //   pre[k,g,f,q]  = P . [rel[b,m,k,g,:], rot6[b,m,k,g,f,:]] + bias[q]
@@ -60,6 +61,16 @@
 // summed apart and added to the running sum by a rounded float32 add.
 // Operand tiles are staged through shared memory by cp.async,
 // double-buffered.  Passes 1 and 4 are float32 FMA.
+//
+// With bfloat16 operands (the TPU kernel's bf16 path, `cdt`) rel, rot6 and
+// feats arrive in bfloat16 and the kernels round where the TPU kernel
+// casts: the projection and bias as read, each pne, the basis and the
+// compact gout rows (stored in bfloat16), dbasis (written over the basis
+// scratch in bfloat16), each edge's d_gathered row (before its float32
+// atomics, or stored in bfloat16 at its sorted slot) and each dpre (before
+// the d_proj / d_bias sums); the products are bf16_gemm, dbasis over a
+// bfloat16 copy of W made per call.  Every sum is float32, as are d_proj,
+// d_bias and d_w.
 
 #include "fused_equiv_common.cuh"
 
@@ -104,15 +115,18 @@ cudaError_t launch_sum_partials(const float* part, int S, long long n, float* ou
 
 // --- 4. per-edge gradients ---------------------------------------------------
 // Tiles of kETM live rows, walked grid-stride; one warp per row.  d_feats
-// by float32 atomics (or, with slot, each edge's row stored at its sorted
-// slot), d_proj / d_bias as one [10][Q] partial per block.
+// by float32 atomics into dfeats (or, with slot, each edge's row stored at
+// its sorted slot of dsorted), d_proj / d_bias as one [10][Q] partial per
+// block.  With T = bf16 the rows are rounded to bfloat16 first, and so is
+// each dpre.
+template <typename T>
 __global__ void __launch_bounds__(kEThreads)
-edge_kernel(const float* __restrict__ rel, const float* __restrict__ rot6,
-            const float* __restrict__ feats, const int64_t* __restrict__ idx,
+edge_kernel(const T* __restrict__ rel, const T* __restrict__ rot6,
+            const T* __restrict__ feats, const int64_t* __restrict__ idx,
             const uint8_t* __restrict__ mask, const float* __restrict__ proj,
-            const float* __restrict__ bias, const float* __restrict__ dbasis,
+            const float* __restrict__ bias, const T* __restrict__ dbasis,
             const int* __restrict__ live, const int64_t* __restrict__ slot,
-            float* __restrict__ dfeats, float* __restrict__ ppart,
+            float* __restrict__ dfeats, T* __restrict__ dsorted, float* __restrict__ ppart,
             int M, int N, int K, int G, int F, int Q, int C, int L, int BM) {
   extern __shared__ float smem[];
   float* projS = smem;                       // [9][Q]
@@ -124,8 +138,8 @@ edge_kernel(const float* __restrict__ rel, const float* __restrict__ rot6,
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int GQ = G * Q;
   const size_t CQ = static_cast<size_t>(C) * Q;
-  for (int i = tid; i < 9 * Q; i += kEThreads) projS[i] = proj[i];
-  for (int i = tid; i < Q; i += kEThreads) biasS[i] = bias[i];
+  for (int i = tid; i < 9 * Q; i += kEThreads) projS[i] = rnd<T>(proj[i]);
+  for (int i = tid; i < Q; i += kEThreads) biasS[i] = rnd<T>(bias[i]);
 
   float* pneW = warpS + warp * kEWarpFloats;    // [kEB][kPneStride]: pne, then dpne/dpre
   float* dbW = pneW + kSlab;                    // [kGQMax][kRowStride]: dbasis chunk [gq][c]
@@ -174,7 +188,8 @@ edge_kernel(const float* __restrict__ rel, const float* __restrict__ rot6,
               edge_geo(rel, rot6, base, g, F, f, geo);
 #pragma unroll
               for (int d = 0; d < 9; ++d) grow_s[g * 9 + d] = geo[d];
-              for (int q = 0; q < Q; ++q) prow[g * Q + q] = gelu_erf(pre_act(geo, projS, biasS, Q, q));
+              for (int q = 0; q < Q; ++q)
+                prow[g * Q + q] = rnd<T>(gelu_erf(pre_act(geo, projS, biasS, Q, q)));
             }
           }
         } else {
@@ -196,13 +211,13 @@ edge_kernel(const float* __restrict__ rel, const float* __restrict__ rot6,
         for (int i = lane; i < G * cw * Q; i += 32) {
           const int q = i % Q, t = i / Q, c = t % cw, g = t / cw;
           dbW[(g * Q + q) * kRowStride + c] =
-              __ldg(dbasis + (grow + g) * CQ + static_cast<size_t>(c0 + c) * Q + q);
+              to_f(__ldg(dbasis + (grow + g) * CQ + static_cast<size_t>(c0 + c) * Q + q));
         }
         for (int el = 0; el < kEB; ++el) {
           float v = 0.f;
           if (el < ne && lane < cw) {
             const int e = e0 + el, j = e / F, f = e - j * F;
-            v = __ldg(feats + ((static_cast<size_t>(b) * N + vN[j]) * F + f) * C + c0 + lane);
+            v = to_f(__ldg(feats + ((static_cast<size_t>(b) * N + vN[j]) * F + f) * C + c0 + lane));
           }
           featW[el * kRowStride + lane] = v;
         }
@@ -243,18 +258,18 @@ edge_kernel(const float* __restrict__ rel, const float* __restrict__ rot6,
           const int e = e0 + el, j = e / F, f = e - j * F;
           if (slot != nullptr) {
             const size_t srow = static_cast<size_t>(b) * M * K + slot[row + vK[j]];
-            float* dst = dfeats + (srow * F + f) * C + c0;
+            T* dst = dsorted + (srow * F + f) * C + c0;
 #pragma unroll
             for (int jj = 0; jj < 4; ++jj) {
               const int c = gb + 8 * jj;
-              if (c < cw) dst[c] = df[i][jj];
+              if (c < cw) dst[c] = from_f<T>(df[i][jj]);
             }
           } else {
             float* dst = dfeats + ((static_cast<size_t>(b) * N + vN[j]) * F + f) * C + c0;
 #pragma unroll
             for (int jj = 0; jj < 4; ++jj) {
               const int c = gb + 8 * jj;
-              if (c < cw) atomicAdd(dst + c, df[i][jj]);
+              if (c < cw) atomicAdd(dst + c, rnd<T>(df[i][jj]));
             }
           }
         }
@@ -276,7 +291,7 @@ edge_kernel(const float* __restrict__ rel, const float* __restrict__ rot6,
 #pragma unroll
             for (int d = 0; d < 9; ++d) geo[d] = grow_s[g * 9 + d];
             for (int q = 0; q < Q; ++q)
-              prow[g * Q + q] *= gelu_grad(pre_act(geo, projS, biasS, Q, q));
+              prow[g * Q + q] = rnd<T>(prow[g * Q + q] * gelu_grad(pre_act(geo, projS, biasS, Q, q)));
           }
         }
       }
@@ -318,21 +333,90 @@ edge_kernel(const float* __restrict__ rel, const float* __restrict__ rot6,
   }
 }
 
-// Float offset of the compact gout rows in the scratch (16-byte aligned).
-long long gout_offset(long long rows, long long cq) { return (rows * cq + 3) / 4 * 4; }
+long long round16(long long x) { return (x + 15) / 16 * 16; }
+
+// The passes of one backward call with operand type T.  The scratch holds
+// the basis / dbasis rows [L*G, C*Q] and the compact gout rows [L*G, O], in
+// T, then with bfloat16 operands the bfloat16 copy of W [C*Q, O].
+template <typename T>
+cudaError_t backward(const T* rel, const T* rot6, const T* feats, const int64_t* idx,
+                     const uint8_t* mask, const float* proj, const float* bias, const float* w,
+                     const float* gout, const int* live, const int64_t* slot, void* dfeats,
+                     float* dparams, float* dw, char* scratch, float* wpart, float* ppart, int B,
+                     int M, int N, int K, int G, int F, int Q, int C, int O, int L, int w_splits,
+                     int p_blocks, cudaStream_t stream) {
+  constexpr bool kBf16 = sizeof(T) == 2;
+  const long long rows = static_cast<long long>(L) * G;
+  const int CQ = C * Q, BM = B * M;
+  T* scr = reinterpret_cast<T*>(scratch);
+  T* gl = reinterpret_cast<T*>(scratch + round16(rows * CQ * sizeof(T)));
+  cudaError_t err;
+
+  // 1. basis and the compact gout rows
+  err = launch_basis<T>(true, rel, rot6, feats, idx, mask, proj, bias, gout, live, scr, gl, M, N,
+                        K, G, F, Q, C, O, L, BM, stream);
+  if (err != cudaSuccess) return err;
+
+  // 2. d_w[(c,q), o] = sum_rows basis[row, (c,q)] * gout[row, o], split along the rows
+  const int step = kBf16 ? kHK : kTK;
+  int k_per = static_cast<int>((rows + w_splits - 1) / w_splits);
+  k_per = ((k_per + step - 1) / step) * step;
+  const long long nw = static_cast<long long>(CQ) * O;
+  if constexpr (kBf16)
+    err = launch_bf16_gemm<float, false, false>(scr, CQ, gl, O, wpart, nw, O, CQ, O,
+                                                static_cast<int>(rows), k_per, w_splits,
+                                                CQ % 8 == 0 && O % 8 == 0, nullptr, 1, 0, stream);
+  else
+    err = launch_gemm<false, false>(scr, CQ, gl, O, wpart, nw, O, CQ, O, static_cast<int>(rows),
+                                    k_per, w_splits, CQ % 4 == 0 && O % 4 == 0, nullptr, 1, 0,
+                                    stream);
+  if (err != cudaSuccess) return err;
+  err = launch_sum_partials(wpart, w_splits, nw, dw, stream);
+  if (err != cudaSuccess) return err;
+
+  // 3. dbasis[row, (c,q)] = sum_o gout[row, o] * W[(c,q), o], over the basis scratch
+  if constexpr (kBf16) {
+    bf16* wb = reinterpret_cast<bf16*>(scratch + round16(rows * CQ * 2) + round16(rows * O * 2));
+    err = launch_round_bf16(w, wb, CQ, O, false, stream);
+    if (err == cudaSuccess)
+      err = launch_bf16_gemm<bf16, true, true>(gl, O, wb, O, scr, 0, CQ, static_cast<int>(rows),
+                                               CQ, O, O, 1, O % 8 == 0, nullptr, 1, 0, stream);
+  } else {
+    err = launch_gemm<true, true>(gl, O, w, O, scr, 0, CQ, static_cast<int>(rows), CQ, O, O, 1,
+                                  O % 4 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0, nullptr,
+                                  1, 0, stream);
+  }
+  if (err != cudaSuccess) return err;
+
+  // 4. per-edge gradients
+  const size_t smem_e = sizeof(float) * (9 * kGQMax + kGQMax + kETM * kEWarpFloats) +
+                        sizeof(int) * 2 * kETM * static_cast<size_t>(K);
+  err = cudaFuncSetAttribute(edge_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem_e));
+  if (err != cudaSuccess) return err;
+  edge_kernel<T><<<p_blocks, kEThreads, smem_e, stream>>>(
+      rel, rot6, feats, idx, mask, proj, bias, scr, live, slot,
+      slot == nullptr ? static_cast<float*>(dfeats) : nullptr,
+      slot == nullptr ? nullptr : static_cast<T*>(dfeats), ppart, M, N, K, G, F, Q, C, L, BM);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  return launch_sum_partials(ppart, p_blocks, static_cast<long long>(kPRows) * Q, dparams, stream);
+}
 
 }  // namespace
 
 // Scratch sizes the caller allocates for se3_fused_equiv_bwd, given L live
-// rows (float32 elements): the basis/dbasis scratch with the compact gout
-// rows, the d_w partials (w_splits of C*Q*O) and the d_proj partials
-// (p_blocks of 10*Q).  The d_w splits aim at kWantBlocks blocks in flight
-// with at least kMinSplitRows rows each; at least one split and one block.
-extern "C" void se3_fused_equiv_bwd_plan(int L, int G, int Q, int C, int O, long long* scratch,
-                                         int* w_splits, int* p_blocks) {
+// rows and operands of elem_bytes (4: float32, 2: bfloat16): the bytes of
+// the basis/dbasis scratch with the compact gout rows (and, in bfloat16,
+// the weights' copy), the d_w partials (w_splits of C*Q*O float32) and the
+// d_proj partials (p_blocks of 10*Q).  The d_w splits aim at kWantBlocks
+// blocks in flight with at least kMinSplitRows rows each; at least one
+// split and one block.
+extern "C" void se3_fused_equiv_bwd_plan(int L, int G, int Q, int C, int O, int elem_bytes,
+                                         long long* scratch, int* w_splits, int* p_blocks) {
   const long long rows = static_cast<long long>(L) * G;
   const long long cq = static_cast<long long>(C) * Q;
-  *scratch = gout_offset(rows, cq) + rows * O;
+  *scratch = round16(rows * cq * elem_bytes) + round16(rows * O * elem_bytes) +
+             (elem_bytes == 2 ? round16(cq * O * 2) : 0);
   const long long tiles = ((cq + kTI - 1) / kTI) * ((O + kTJ - 1) / kTJ);
   long long s = (kWantBlocks + tiles - 1) / tiles;
   const long long max_s = (rows + kMinSplitRows - 1) / kMinSplitRows;
@@ -346,70 +430,44 @@ extern "C" void se3_fused_equiv_bwd_plan(int L, int G, int Q, int C, int O, long
 // first CUDA error (0 = launched).  live is the int32 table of the L >= 1
 // query rows b*M + m that have a valid edge, ascending (a row without one
 // may be listed too; an entry outside [0, B*M) is skipped).  d_feats must
-// be zeroed by the caller: it is [B, N, F, C] when slot is null, else the
-// [B, M*K, F*C] sorted buffer;
-// d_params is [10, Q]: rows 0-8 d_proj, row 9 d_bias.  Requires G <= 2,
-// G*Q <= 64 and the workspace sizes of se3_fused_equiv_bwd_plan.
+// be zeroed by the caller: it is [B, N, F, C] float32 when slot is null,
+// else the [B, M*K, F*C] sorted buffer in the operand type; d_params is
+// [10, Q]: rows 0-8 d_proj, row 9 d_bias.  use_bf16 != 0: rel, rot6 and
+// feats are bfloat16, else float32; the parameters, gout, d_params and d_w
+// are float32 either way.  Requires G <= 2, G*Q <= 64 and the workspace
+// sizes of se3_fused_equiv_bwd_plan for the same L and operand size.
 extern "C" int se3_fused_equiv_bwd(const void* rel, const void* rot6, const void* feats,
                                    const void* idx, const void* mask, const void* proj,
                                    const void* bias, const void* w, const void* gout,
                                    const void* live, const void* slot, void* dfeats,
                                    void* dparams, void* dw, void* scratch, void* wpart,
                                    void* ppart, int B, int M, int N, int K, int G, int F, int Q,
-                                   int C, int O, int L, int w_splits, int p_blocks,
+                                   int C, int O, int L, int w_splits, int p_blocks, int use_bf16,
                                    void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const float* relf = static_cast<const float*>(rel);
-  const float* rot6f = static_cast<const float*>(rot6);
-  const float* featsf = static_cast<const float*>(feats);
-  const int64_t* idxp = static_cast<const int64_t*>(idx);
-  const uint8_t* maskp = static_cast<const uint8_t*>(mask);
-  const float* projf = static_cast<const float*>(proj);
-  const float* biasf = static_cast<const float*>(bias);
-  const int* livep = static_cast<const int*>(live);
-  float* scr = static_cast<float*>(scratch);
-  const long long rows = static_cast<long long>(L) * G;
-  const int CQ = C * Q, BM = B * M;
-  float* gl = scr + gout_offset(rows, CQ);
+  const auto* idxp = static_cast<const int64_t*>(idx);
+  const auto* maskp = static_cast<const uint8_t*>(mask);
+  const auto* projf = static_cast<const float*>(proj);
+  const auto* biasf = static_cast<const float*>(bias);
+  const auto* wf = static_cast<const float*>(w);
+  const auto* goutf = static_cast<const float*>(gout);
+  const auto* livep = static_cast<const int*>(live);
+  const auto* slotp = static_cast<const int64_t*>(slot);
+  auto* dpf = static_cast<float*>(dparams);
+  auto* dwf = static_cast<float*>(dw);
+  auto* scr = static_cast<char*>(scratch);
+  auto* wpf = static_cast<float*>(wpart);
+  auto* ppf = static_cast<float*>(ppart);
   cudaError_t err;
-
-  // 1. basis and the compact gout rows
-  err = launch_basis(true, relf, rot6f, featsf, idxp, maskp, projf, biasf,
-                     static_cast<const float*>(gout), livep, scr, gl, M, N, K, G, F, Q, C, O, L, BM,
-                     stream);
-  if (err != cudaSuccess) return static_cast<int>(err);
-
-  // 2. d_w[(c,q), o] = sum_rows basis[row, (c,q)] * gout[row, o], split along the rows
-  int k_per = static_cast<int>((rows + w_splits - 1) / w_splits);
-  k_per = ((k_per + kTK - 1) / kTK) * kTK;
-  const long long nw = static_cast<long long>(CQ) * O;
-  err = launch_gemm<false, false>(scr, CQ, gl, O, static_cast<float*>(wpart), nw, O, CQ, O,
-                                  static_cast<int>(rows), k_per, w_splits,
-                                  CQ % 4 == 0 && O % 4 == 0, nullptr, 1, 0, stream);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = launch_sum_partials(static_cast<const float*>(wpart), w_splits, nw, static_cast<float*>(dw),
-                            stream);
-  if (err != cudaSuccess) return static_cast<int>(err);
-
-  // 3. dbasis[row, (c,q)] = sum_o gout[row, o] * W[(c,q), o], over the basis scratch
-  err = launch_gemm<true, true>(gl, O, static_cast<const float*>(w), O, scr, 0, CQ,
-                                static_cast<int>(rows), CQ, O, O, 1,
-                                O % 4 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0, nullptr, 1, 0,
-                                stream);
-  if (err != cudaSuccess) return static_cast<int>(err);
-
-  // 4. per-edge gradients
-  const size_t smem_e = sizeof(float) * (9 * kGQMax + kGQMax + kETM * kEWarpFloats) +
-                        sizeof(int) * 2 * kETM * static_cast<size_t>(K);
-  err = cudaFuncSetAttribute(edge_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem_e));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  edge_kernel<<<p_blocks, kEThreads, smem_e, stream>>>(
-      relf, rot6f, featsf, idxp, maskp, projf, biasf, scr, livep,
-      static_cast<const int64_t*>(slot), static_cast<float*>(dfeats), static_cast<float*>(ppart),
-      M, N, K, G, F, Q, C, L, BM);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  const long long np = static_cast<long long>(kPRows) * Q;
-  return static_cast<int>(launch_sum_partials(static_cast<const float*>(ppart), p_blocks, np,
-                                              static_cast<float*>(dparams), stream));
+  if (use_bf16)
+    err = backward(static_cast<const bf16*>(rel), static_cast<const bf16*>(rot6),
+                   static_cast<const bf16*>(feats), idxp, maskp, projf, biasf, wf, goutf, livep,
+                   slotp, dfeats, dpf, dwf, scr, wpf, ppf, B, M, N, K, G, F, Q, C, O, L, w_splits,
+                   p_blocks, stream);
+  else
+    err = backward(static_cast<const float*>(rel), static_cast<const float*>(rot6),
+                   static_cast<const float*>(feats), idxp, maskp, projf, biasf, wf, goutf, livep,
+                   slotp, dfeats, dpf, dwf, scr, wpf, ppf, B, M, N, K, G, F, Q, C, O, L, w_splits,
+                   p_blocks, stream);
+  return static_cast<int>(err);
 }

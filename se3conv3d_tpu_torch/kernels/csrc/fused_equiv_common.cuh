@@ -1,23 +1,31 @@
 // Pieces shared by the fused equivariant PNE-conv forward
-// (fused_equiv_fwd.cu) and backward (fused_equiv_bwd.cu), float32, sm_90a.
+// (fused_equiv_fwd.cu) and backward (fused_equiv_bwd.cu), sm_90a, with
+// float32 or bfloat16 operands (T) and float32 accumulation.
 //
 //   pre[k,g,f,q]  = P . [rel[b,m,k,g,:], rot6[b,m,k,g,f,:]] + bias[q]
 //   basis[g,c,q]  = sum_{k,f: mask} gelu(pre[k,g,f,q]) * feats[b, idx[b,m,k], f, c]
 //
+// - the operand types: T = float, or __nv_bfloat16, where the kernels round
+//   to bfloat16 where the TPU kernel's bf16 path casts (rnd<T>: the
+//   projection and bias as read, each pne, each basis entry; the geometry
+//   and features arrive rounded), and accumulate in float32;
 // - the per-edge helpers (edge compaction, the 9 pne inputs, pre, gelu and
 //   its derivative);
 // - basis_kernel: the basis of every live query row (a row with a valid
-//   edge; live[r] = b*M + m) into a scratch [L*G, C*Q], live row r owning
-//   scratch rows r*G .. r*G+G-1 (depth index c*Q + q, the layout of
+//   edge; live[r] = b*M + m) into a scratch [L*G, C*Q] of T, live row r
+//   owning scratch rows r*G .. r*G+G-1 (depth index c*Q + q, the layout of
 //   W [C, Q, O]);
-// - tf32x3_gemm: a float32 product on tensor cores in the 3xTF32 form, with
-//   an optional epilogue that scatters scratch row r*G+g to output row
-//   live[r]*G + g.
+// - tf32x3_gemm: a float32 product on tensor cores in the 3xTF32 form, and
+//   bf16_gemm, its bfloat16 counterpart (one m16n8k16 product per tile and
+//   16-deep step, float32 accumulation), each with an optional epilogue
+//   that scatters scratch row r*G+g to output row live[r]*G + g;
+// - round_bf16: float32 weights rounded to a bfloat16 copy.
 // Everything here sits in an anonymous namespace: each source that includes
 // it builds into its own library with its own copy.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -29,6 +37,16 @@ constexpr int kCC = 32;                   // input channels per chunk
 constexpr int kPneStride = kGQMax + 1;    // padded rows: lane-major writes hit distinct banks
 constexpr int kSlab = kEB * kPneStride;   // a warp's pne rows for one round of edges
 constexpr int kSmemMax = 232448;          // shared memory one block may use on an H100
+
+typedef __nv_bfloat16 bf16;
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
+template <typename T> __device__ __forceinline__ T from_f(float x);
+template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <> __device__ __forceinline__ bf16 from_f<bf16>(float x) { return __float2bfloat16_rn(x); }
+// x rounded to the operand type T, as a float (the identity for T = float)
+template <typename T> __device__ __forceinline__ float rnd(float x) { return to_f(from_f<T>(x)); }
 
 __device__ __forceinline__ float gelu_erf(float x) {
   return 0.5f * x * (1.0f + erff(x * 0.70710678118654752f));
@@ -65,15 +83,15 @@ __device__ int compact_edges(const int64_t* __restrict__ idx, const uint8_t* __r
 }
 
 // The 9 pne inputs of edge (row + k, in-frame f) for out-frame g.
-__device__ __forceinline__ void edge_geo(const float* __restrict__ rel,
-                                         const float* __restrict__ rot6, size_t base, int g,
-                                         int F, int f, float* geo) {
-  const float* r = rel + (base + g) * 3;
-  const float* t = rot6 + ((base + g) * F + f) * 6;
+template <typename T>
+__device__ __forceinline__ void edge_geo(const T* __restrict__ rel, const T* __restrict__ rot6,
+                                         size_t base, int g, int F, int f, float* geo) {
+  const T* r = rel + (base + g) * 3;
+  const T* t = rot6 + ((base + g) * F + f) * 6;
 #pragma unroll
-  for (int d = 0; d < 3; ++d) geo[d] = r[d];
+  for (int d = 0; d < 3; ++d) geo[d] = to_f(r[d]);
 #pragma unroll
-  for (int d = 0; d < 6; ++d) geo[3 + d] = t[d];
+  for (int d = 0; d < 6; ++d) geo[3 + d] = to_f(t[d]);
 }
 
 __device__ __forceinline__ float pre_act(const float* geo, const float* projS,
@@ -95,9 +113,12 @@ __device__ __forceinline__ float pre_act(const float* geo, const float* projS,
 // from registers to the scratch: for one (i, j) the warp writes 4 runs of 8
 // consecutive q, each a whole 32-byte sector.  The columns of a pne row past
 // G*Q are never written; they only feed tile rows that are not stored.
-// With kGout the warp also copies gout's row to a compact [L*G, O] (the
-// backward).  A table entry outside [0, BM) (BM = B*M) reads nothing: its
-// scratch rows are zeros, which add nothing to any product.
+// With kGout the warp also copies gout's row to a compact [L*G, O] of T
+// (the backward).  A table entry outside [0, BM) (BM = B*M) reads nothing:
+// its scratch rows are zeros, which add nothing to any product.  With T =
+// bf16 the projection and bias are rounded as they are read, each pne is
+// rounded before the basis sum, and the basis and gout rows are stored
+// rounded (float32 sums in between).
 constexpr int kBWarps = 4;      // warps per block, fewer when K*F is large
 constexpr int kBEdges = 8;      // feature loads in flight per lane
 
@@ -115,14 +136,14 @@ inline int basis_warps(int K, int F) {
   return static_cast<int>(w < kBWarps ? w : kBWarps);
 }
 
-template <int NI, bool kGout>
+template <int NI, bool kGout, typename T>
 __global__ void __launch_bounds__(32 * kBWarps, 4)
-basis_kernel(const float* __restrict__ rel, const float* __restrict__ rot6,
-             const float* __restrict__ feats, const int64_t* __restrict__ idx,
+basis_kernel(const T* __restrict__ rel, const T* __restrict__ rot6,
+             const T* __restrict__ feats, const int64_t* __restrict__ idx,
              const uint8_t* __restrict__ mask, const float* __restrict__ proj,
              const float* __restrict__ bias, const float* __restrict__ gout,
-             const int* __restrict__ live, float* __restrict__ basis,
-             float* __restrict__ gout_live,
+             const int* __restrict__ live, T* __restrict__ basis,
+             T* __restrict__ gout_live,
              int M, int N, int K, int G, int F, int Q, int C, int O, int L, int BM) {
   extern __shared__ float smem[];
   const int warps = blockDim.x >> 5;
@@ -136,8 +157,8 @@ basis_kernel(const float* __restrict__ rel, const float* __restrict__ rot6,
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int r = blockIdx.x * warps + warp;
   const int GQ = G * Q;
-  for (int i = tid; i < 9 * Q; i += blockDim.x) projS[i] = proj[i];
-  for (int i = tid; i < Q; i += blockDim.x) biasS[i] = bias[i];
+  for (int i = tid; i < 9 * Q; i += blockDim.x) projS[i] = rnd<T>(proj[i]);
+  for (int i = tid; i < Q; i += blockDim.x) biasS[i] = rnd<T>(bias[i]);
   __syncthreads();
   if (r >= L) return;  // whole warp; no block barrier follows
 
@@ -145,16 +166,17 @@ basis_kernel(const float* __restrict__ rel, const float* __restrict__ rot6,
   const size_t out_row = static_cast<size_t>(r) * G;
   if (flat < 0 || flat >= BM) {
     const size_t rows_cq = static_cast<size_t>(G) * C * Q;
-    for (size_t i = lane; i < rows_cq; i += 32) basis[out_row * C * Q + i] = 0.f;
+    for (size_t i = lane; i < rows_cq; i += 32) basis[out_row * C * Q + i] = from_f<T>(0.f);
     if (kGout)
-      for (size_t i = lane; i < static_cast<size_t>(G) * O; i += 32) gout_live[out_row * O + i] = 0.f;
+      for (size_t i = lane; i < static_cast<size_t>(G) * O; i += 32)
+        gout_live[out_row * O + i] = from_f<T>(0.f);
     return;
   }
   const int b = flat / M;
   const size_t row = static_cast<size_t>(flat) * K;
   if (kGout) {
     const size_t GO = static_cast<size_t>(G) * O;
-    for (size_t i = lane; i < GO; i += 32) gout_live[out_row * O + i] = gout[flat * GO + i];
+    for (size_t i = lane; i < GO; i += 32) gout_live[out_row * O + i] = from_f<T>(gout[flat * GO + i]);
   }
 
   int* vK = validK + warp * K;
@@ -170,7 +192,8 @@ basis_kernel(const float* __restrict__ rel, const float* __restrict__ rot6,
       if (g < G) {
         float geo[9];
         edge_geo(rel, rot6, base, g, F, f, geo);
-        for (int q = 0; q < Q; ++q) prow[g * Q + q] = gelu_erf(pre_act(geo, projS, biasS, Q, q));
+        for (int q = 0; q < Q; ++q)
+          prow[g * Q + q] = rnd<T>(gelu_erf(pre_act(geo, projS, biasS, Q, q)));
       }
     }
   }
@@ -178,7 +201,7 @@ basis_kernel(const float* __restrict__ rel, const float* __restrict__ rot6,
 
   const int gqb = lane >> 2, cb = lane & 3;  // tile: gq = gqb + 8i, c = cb + 4j
   const int CQ = C * Q;
-  float* dst = basis + out_row * CQ;
+  T* dst = basis + out_row * CQ;
   int off[NI];  // offset of (g, q) = gq in the row's G scratch rows, or -1 past G*Q
 #pragma unroll
   for (int i = 0; i < NI; ++i) {
@@ -201,7 +224,7 @@ basis_kernel(const float* __restrict__ rel, const float* __restrict__ rot6,
         const int e = e0 + u, j = e / F, f = e - j * F;
         v[u] = 0.f;
         if (e < nE && lane < cw)
-          v[u] = __ldg(feats + ((static_cast<size_t>(b) * N + vN[j]) * F + f) * C + c0 + lane);
+          v[u] = to_f(__ldg(feats + ((static_cast<size_t>(b) * N + vN[j]) * F + f) * C + c0 + lane));
       }
 #pragma unroll
       for (int u = 0; u < kBEdges; ++u) {
@@ -224,25 +247,25 @@ basis_kernel(const float* __restrict__ rel, const float* __restrict__ rot6,
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int c = cb + 4 * j;
-        if (c < cw) dst[off[i] + static_cast<size_t>(c0 + c) * Q] = acc[i][j];
+        if (c < cw) dst[off[i] + static_cast<size_t>(c0 + c) * Q] = from_f<T>(acc[i][j]);
       }
     }
   }
 }
 
 // Launches basis_kernel over L live rows (the tile height from G*Q).
-inline cudaError_t launch_basis(bool with_gout, const float* rel, const float* rot6,
-                                const float* feats, const int64_t* idx, const uint8_t* mask,
-                                const float* proj, const float* bias, const float* gout,
-                                const int* live, float* basis, float* gout_live, int M, int N,
-                                int K, int G, int F, int Q, int C, int O, int L, int BM,
-                                cudaStream_t stream) {
+template <typename T>
+cudaError_t launch_basis(bool with_gout, const T* rel, const T* rot6, const T* feats,
+                         const int64_t* idx, const uint8_t* mask, const float* proj,
+                         const float* bias, const float* gout, const int* live, T* basis,
+                         T* gout_live, int M, int N, int K, int G, int F, int Q, int C, int O,
+                         int L, int BM, cudaStream_t stream) {
   const int warps = basis_warps(K, F);
   if (warps < 1) return cudaErrorInvalidValue;
   const size_t smem = basis_smem(K, F, warps);
   const bool narrow = G * Q <= 32;
-  auto kernel = with_gout ? (narrow ? basis_kernel<4, true> : basis_kernel<8, true>)
-                          : (narrow ? basis_kernel<4, false> : basis_kernel<8, false>);
+  auto kernel = with_gout ? (narrow ? basis_kernel<4, true, T> : basis_kernel<8, true, T>)
+                          : (narrow ? basis_kernel<4, false, T> : basis_kernel<8, false, T>);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
@@ -281,7 +304,7 @@ __device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a, const uint
 }
 
 // Asynchronous copy of `bytes` (< size: the rest is zero-filled) to shared memory.
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, int bytes) {
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d), "l"(src), "r"(bytes)
                : "memory");
@@ -480,6 +503,222 @@ cudaError_t launch_gemm(const float* A, long long lda, const float* Bm, long lon
     tf32x3_gemm<A_KC, B_KC, false><<<grid, kGThreads, 0, stream>>>(A, lda, Bm, ldb, Cout, sCs, ldc,
                                                                    I, J, Kd, kPer, rowmap, G,
                                                                    map_rows);
+  return cudaGetLastError();
+}
+
+// --- the bfloat16 product: C[z] = A . B on tensor cores ------------------------
+// bf16_gemm computes what tf32x3_gemm does (the same tiles, warps, depth
+// split, row map and epilogue) from bfloat16 operands: one
+// mma.sync.m16n8k16 bf16 product per m16n8 tile and 16-deep step, float32
+// accumulate.  A bfloat16 product is exact in float32, so the sums are the
+// only rounding; as in tf32x3_gemm each 16-deep step is summed by the mma
+// into a zeroed register tile and added to the running sum by a rounded
+// float32 add.  Stages are kHK deep (64 bytes of a depth-contiguous row);
+// the output is float32 or bfloat16 (TO), rounded once at the store.
+constexpr int kHK = 32;                   // depth per stage, two k16 steps
+
+// d += a . b on one m16n8k16 bf16 tile, float32 accumulate.
+__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Two bfloat16 values in one register, x in the low half (the lower depth index).
+__device__ __forceinline__ uint32_t pack_bf16(bf16 x, bf16 y) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(x)) |
+         (static_cast<uint32_t>(__bfloat16_as_ushort(y)) << 16);
+}
+
+// One operand's kHK-deep slice of a tile into shared memory, as load_slice:
+// KC keeps [ROWS][kHK + 8] (a depth pair is one 32-bit word; rows of 80
+// bytes put a warp's fragment words on 32 distinct banks), else
+// [kHK][ROWS + 8].  VEC: 16-byte cp.async copies of 8 values (ld, the base
+// and the slice start are multiples of 8 values); else plain loads and
+// stores, one value at a time.
+template <bool KC, int ROWS, bool VEC>
+__device__ __forceinline__ void load_slice_bf16(bf16* s, const bf16* __restrict__ X, long long ld,
+                                                int r0, int R, int k0, int ke, int tid) {
+  constexpr int kStride = KC ? kHK + 8 : ROWS + 8;
+  if (VEC) {
+    constexpr int kChunks = ROWS * kHK / 8;
+#pragma unroll
+    for (int c = tid; c < kChunks; c += kGThreads) {
+      int r, k;
+      if (KC) { r = c / (kHK / 8); k = (c % (kHK / 8)) * 8; } else { k = c / (ROWS / 8); r = (c % (ROWS / 8)) * 8; }
+      const int gr = r0 + r, gk = k0 + k;
+      int bytes = 0;
+      if (gr < R && gk < ke) bytes = 2 * min(8, KC ? ke - gk : R - gr);
+      const bf16* src = bytes ? X + (KC ? gr * ld + gk : gk * ld + gr) : X;
+      cp_async16(s + (KC ? r * kStride + k : k * kStride + r), src, bytes);
+    }
+  } else {
+    constexpr int kElems = ROWS * kHK;
+    const bf16 zero = __float2bfloat16_rn(0.f);
+#pragma unroll 4
+    for (int e = tid; e < kElems; e += kGThreads) {
+      int r, k;
+      if (KC) { r = e / kHK; k = e % kHK; } else { k = e / ROWS; r = e % ROWS; }
+      const int gr = r0 + r, gk = k0 + k;
+      s[KC ? r * kStride + k : k * kStride + r] =
+          gr < R && gk < ke ? X[KC ? gr * ld + gk : gk * ld + gr] : zero;
+    }
+  }
+}
+
+// Two neighbouring outputs of row `orow` at column j (j + 1 < J, 4-byte
+// aligned when `pairs`), rounded to TO.
+__device__ __forceinline__ void store_pair(float* orow, int j, int J, bool pairs, float x, float y) {
+  if (pairs && j + 1 < J) {
+    *reinterpret_cast<float2*>(orow + j) = make_float2(x, y);
+  } else {
+    if (j < J) orow[j] = x;
+    if (j + 1 < J) orow[j + 1] = y;
+  }
+}
+__device__ __forceinline__ void store_pair(bf16* orow, int j, int J, bool pairs, float x, float y) {
+  if (pairs && j + 1 < J) {
+    *reinterpret_cast<__nv_bfloat162*>(orow + j) = __floats2bfloat162_rn(x, y);
+  } else {
+    if (j < J) orow[j] = __float2bfloat16_rn(x);
+    if (j + 1 < J) orow[j + 1] = __float2bfloat16_rn(y);
+  }
+}
+
+// Cout[z] = sum over depth k in [z*kPer, min((z+1)*kPer, Kd)) of A(i, k) *
+// B(k, j), with the operand layouts, row map and depth split of
+// tf32x3_gemm; kPer is a multiple of kHK where the depth is split.
+template <typename TO, bool A_KC, bool B_KC, bool VEC>
+__global__ void __launch_bounds__(kGThreads)
+bf16_gemm(const bf16* __restrict__ A, long long lda, const bf16* __restrict__ Bm, long long ldb,
+          TO* __restrict__ Cout, long long sCs, long long ldc, int I, int J, int Kd, int kPer,
+          const int* __restrict__ rowmap, int G, int map_rows) {
+  constexpr int kSA = A_KC ? kHK + 8 : kTI + 8;
+  constexpr int kSB = B_KC ? kHK + 8 : kTJ + 8;
+  constexpr int kASize = A_KC ? kTI * kSA : kHK * kSA;
+  constexpr int kBSize = B_KC ? kTJ * kSB : kHK * kSB;
+  __shared__ __align__(16) bf16 As[2][kASize];
+  __shared__ __align__(16) bf16 Bs[2][kBSize];
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gid = lane >> 2, tig = lane & 3;  // mma fragment coordinates
+  const int wi = (warp & 3) * 32, wj = (warp >> 2) * 32;
+  const int i0 = blockIdx.y * kTI, j0 = blockIdx.x * kTJ;
+  const int kb = blockIdx.z * kPer, ke = min(Kd, kb + kPer);
+  const int nk = ke > kb ? (ke - kb + kHK - 1) / kHK : 0;
+
+  float acc[2][4][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) acc[mt][nt][v] = 0.f;
+
+  auto load = [&](int stage, int k0) {
+    load_slice_bf16<A_KC, kTI, VEC>(As[stage], A, lda, i0, I, k0, ke, tid);
+    load_slice_bf16<B_KC, kTJ, VEC>(Bs[stage], Bm, ldb, j0, J, k0, ke, tid);
+  };
+  // depth pair (k, k + 1) of row r: one word where the depth is contiguous
+  auto pair_a = [&](const bf16* as, int i, int k) -> uint32_t {
+    if (A_KC) return *reinterpret_cast<const uint32_t*>(as + i * kSA + k);
+    return pack_bf16(as[k * kSA + i], as[(k + 1) * kSA + i]);
+  };
+  auto pair_b = [&](const bf16* bs, int j, int k) -> uint32_t {
+    if (B_KC) return *reinterpret_cast<const uint32_t*>(bs + j * kSB + k);
+    return pack_bf16(bs[k * kSB + j], bs[(k + 1) * kSB + j]);
+  };
+  if (nk > 0) load(0, kb);
+  asm volatile("cp.async.commit_group;" ::: "memory");
+
+  for (int kt = 0; kt < nk; ++kt) {
+    if (kt + 1 < nk) load((kt + 1) & 1, kb + (kt + 1) * kHK);
+    asm volatile("cp.async.commit_group;" ::: "memory");
+    asm volatile("cp.async.wait_group 1;" ::: "memory");  // all but the newest group: slice kt is in
+    __syncthreads();
+    const bf16* as = As[kt & 1];
+    const bf16* bs = Bs[kt & 1];
+#pragma unroll
+    for (int ks = 0; ks < kHK; ks += 16) {
+      uint32_t a[2][4], b[4][2];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int v = 0; v < 4; ++v)
+          a[mt][v] = pair_a(as, wi + mt * 16 + gid + 8 * (v & 1), ks + 2 * tig + 8 * (v >> 1));
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int v = 0; v < 2; ++v) b[nt][v] = pair_b(bs, wj + nt * 8 + gid, ks + 2 * tig + 8 * v);
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          float part[4] = {0.f, 0.f, 0.f, 0.f};  // this step's products: the mma's own adds stay short
+          mma_bf16(part, a[mt], b[nt]);
+#pragma unroll
+          for (int v = 0; v < 4; ++v) acc[mt][nt][v] += part[v];
+        }
+    }
+    __syncthreads();  // the next iteration's copies overwrite this stage
+  }
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
+
+  // accumulator v of tile (mt, nt): row gid + 8*(v >> 1), column 2*tig + (v & 1)
+  TO* out = Cout + blockIdx.z * sCs;
+  const bool pairs = (ldc % 2 == 0) && (sCs % 2 == 0);
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = i0 + wi + mt * 16 + gid + 8 * h;
+      if (i >= I) continue;
+      const long long mi = mapped_row(rowmap, G, map_rows, i);
+      if (mi < 0) continue;
+      TO* orow = out + mi * ldc;
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+        store_pair(orow, j0 + wj + nt * 8 + 2 * tig, J, pairs, acc[mt][nt][2 * h],
+                   acc[mt][nt][2 * h + 1]);
+    }
+}
+
+template <typename TO, bool A_KC, bool B_KC>
+cudaError_t launch_bf16_gemm(const bf16* A, long long lda, const bf16* Bm, long long ldb, TO* Cout,
+                             long long sCs, long long ldc, int I, int J, int Kd, int kPer,
+                             int splits, bool vec, const int* rowmap, int G, int map_rows,
+                             cudaStream_t stream) {
+  const dim3 grid((J + kTJ - 1) / kTJ, (I + kTI - 1) / kTI, splits);
+  if (vec)
+    bf16_gemm<TO, A_KC, B_KC, true><<<grid, kGThreads, 0, stream>>>(A, lda, Bm, ldb, Cout, sCs, ldc,
+                                                                    I, J, Kd, kPer, rowmap, G,
+                                                                    map_rows);
+  else
+    bf16_gemm<TO, A_KC, B_KC, false><<<grid, kGThreads, 0, stream>>>(A, lda, Bm, ldb, Cout, sCs,
+                                                                     ldc, I, J, Kd, kPer, rowmap,
+                                                                     G, map_rows);
+  return cudaGetLastError();
+}
+
+// dst = src [R, Cc] rounded to bfloat16, as [R, Cc], or transposed to
+// [Cc, R]: the weights' operand copy of the bfloat16 products.
+__global__ void round_bf16(const float* __restrict__ src, bf16* __restrict__ dst, long long R,
+                           int Cc, bool transpose) {
+  const long long n = R * Cc;
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; i < n;
+       i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    // i indexes dst; transposed, dst[c*R + r] = src[r*Cc + c]
+    dst[i] = __float2bfloat16_rn(transpose ? src[(i % R) * Cc + i / R] : src[i]);
+  }
+}
+
+inline cudaError_t launch_round_bf16(const float* src, bf16* dst, long long R, int Cc,
+                                     bool transpose, cudaStream_t stream) {
+  const long long n = R * Cc;
+  const int blocks = static_cast<int>(n / 256 + 1 < 4096 ? n / 256 + 1 : 4096);
+  round_bf16<<<blocks, 256, 0, stream>>>(src, dst, R, Cc, transpose);
   return cudaGetLastError();
 }
 

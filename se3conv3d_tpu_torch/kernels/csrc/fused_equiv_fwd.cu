@@ -1,4 +1,5 @@
-// Fused equivariant PNE-conv forward for NVIDIA Hopper (sm_90a), float32.
+// Fused equivariant PNE-conv forward for NVIDIA Hopper (sm_90a), with
+// float32 or bfloat16 operands and float32 accumulation and output.
 //
 //   out[b,m,g,o] = sum_{q,c} W[c,q,o] * sum_{k,f: mask[b,m,k]}
 //                  gelu(P . [rel[b,m,k,g,:], rot6[b,m,k,g,f,:]] + bias)[q]
@@ -25,6 +26,13 @@
 //      to fill the card, the depth C*Q is split into partials that
 //      sum_splits adds in a fixed order, storing through the same map.
 // The result depends only on the shapes and L: two calls agree bitwise.
+//
+// With bfloat16 operands (the TPU kernel's bf16 path, `cdt`) rel, rot6 and
+// feats arrive in bfloat16; basis_kernel rounds the projection and bias,
+// each pne and each basis entry to bfloat16 (a scratch of 2-byte rows), and
+// the product is bf16_gemm over a bfloat16 copy of W, transposed to
+// [O, C*Q] so that both operands are depth-contiguous (round_bf16, made per
+// call in the scratch).  Every sum stays float32, as does the output.
 
 #include "fused_equiv_common.cuh"
 
@@ -35,7 +43,7 @@ constexpr int kSlots = 2 * kSMs;        // product blocks resident at once (two 
 constexpr int kMinSplitDepth = 256;     // least depth per split of the product
 constexpr int kSumThreads = 256;
 
-long long round4(long long x) { return (x + 3) / 4 * 4; }
+long long round16(long long x) { return (x + 15) / 16 * 16; }
 
 // out[live[r]*G + g][j] = sum_{s < S} part[s][r*G + g][j], in order of s
 // (deterministic): the depth splits of the product, stored at their rows
@@ -54,16 +62,20 @@ sum_splits(const float* __restrict__ part, int S, long long n, int J,
 
 }  // namespace
 
-// Work plan of se3_fused_equiv_fwd for L live rows within cap_floats of
-// scratch (float32 elements): live rows per chunk, depth splits of the
-// product, and the scratch the caller allocates (the chunk's basis rows,
-// then the split partials).  One eighth of the cap is kept for the
-// partials; a single live row whose basis exceeds the rest is taken alone.
-extern "C" void se3_fused_equiv_fwd_plan(int L, int G, int Q, int C, int O, long long cap_floats,
-                                         int* chunk, int* splits, long long* scratch) {
+// Work plan of se3_fused_equiv_fwd for L live rows within cap_bytes of
+// scratch, with basis rows of elem_bytes (4: float32, 2: bfloat16) per
+// value: live rows per chunk, depth splits of the product, and the scratch
+// bytes the caller allocates (with bfloat16 operands the weights' copy,
+// then the chunk's basis rows, then the float32 split partials).  One
+// eighth of the cap is kept for the partials; a single live row whose
+// basis exceeds the rest is taken alone.  The weights' copy is outside the
+// cap.
+extern "C" void se3_fused_equiv_fwd_plan(int L, int G, int Q, int C, int O, long long cap_bytes,
+                                         int elem_bytes, int* chunk, int* splits,
+                                         long long* scratch) {
   const long long cq = static_cast<long long>(C) * Q;
-  const long long part_cap = cap_floats / 8;
-  long long lc = (cap_floats - part_cap) / (G * cq);
+  const long long part_cap = cap_bytes / 8;
+  long long lc = (cap_bytes - part_cap) / (G * cq * elem_bytes);
   const long long max_lc = static_cast<long long>(kTI) * 65535 / G;  // the product's grid
   lc = lc < 1 ? 1 : (lc < max_lc ? lc : max_lc);
   if (lc > L) lc = L > 0 ? L : 1;
@@ -75,7 +87,7 @@ extern "C" void se3_fused_equiv_fwd_plan(int L, int G, int Q, int C, int O, long
   // ceil(tiles*s / kSlots) rounds, and add s partial rows of width O to
   // read back; take the s with the least of rounds / s + s*O / cq.
   const long long by_depth = (cq + kMinSplitDepth - 1) / kMinSplitDepth;
-  const long long by_room = part_cap / (rows * O);
+  const long long by_room = part_cap / (rows * O * 4);
   const long long s_max = by_depth < by_room ? by_depth : by_room;
   long long s = 1;
   double best = static_cast<double>((tiles + kSlots - 1) / kSlots);
@@ -86,54 +98,98 @@ extern "C" void se3_fused_equiv_fwd_plan(int L, int G, int Q, int C, int O, long
   }
   *chunk = static_cast<int>(lc);
   *splits = static_cast<int>(s);
-  *scratch = round4(rows * cq) + (s > 1 ? s * rows * O : 0);
+  const long long w_bytes = elem_bytes == 2 ? round16(cq * O * 2) : 0;
+  *scratch = w_bytes + round16(rows * cq * elem_bytes) + (s > 1 ? s * rows * O * 4 : 0);
 }
 
-// Plain C entry point for ctypes.  Launches on `stream` and returns the
-// first CUDA error (0 = launched).  live is the int32 table of the L >= 1
-// query rows b*M + m that have a valid edge (a row without one may be
-// listed too; an entry outside [0, B*M) is skipped); out [B, M, G, O] must
-// be zeroed by the caller (rows not listed are not written).  Requires
-// G <= 2, G*Q <= 64 and the plan of se3_fused_equiv_fwd_plan for the same L.
-extern "C" int se3_fused_equiv_fwd(const void* rel, const void* rot6, const void* feats,
-                                   const void* idx, const void* mask, const void* proj,
-                                   const void* bias, const void* w, const void* live, void* out,
-                                   void* scratch, int B, int M, int N, int K, int G, int F, int Q,
-                                   int C, int O, int L, int chunk, int splits, void* stream_ptr) {
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const float* wf = static_cast<const float*>(w);
-  float* outf = static_cast<float*>(out);
-  float* basis = static_cast<float*>(scratch);
+namespace {
+
+// The chunks of one forward call with operand type T; `wb` is the product's
+// B operand: W [C*Q, O] float32, or its bfloat16 copy [O, C*Q].
+template <typename T, typename TW>
+cudaError_t forward(const T* rel, const T* rot6, const T* feats, const int64_t* idx,
+                    const uint8_t* mask, const float* proj, const float* bias, const TW* wb,
+                    const int* live, float* outf, T* basis, float* part, int B, int M, int N,
+                    int K, int G, int F, int Q, int C, int O, int L, int chunk, int splits,
+                    cudaStream_t stream) {
+  constexpr bool kBf16 = sizeof(T) == 2;
   const int CQ = C * Q, BM = B * M;
-  float* part = basis + round4(static_cast<long long>(chunk) * G * CQ);
-  const bool vec = CQ % 4 == 0 && O % 4 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  // VEC: 16-byte copies of every operand row (4 floats, or 8 bfloat16 values)
+  const bool vec = kBf16 ? CQ % 8 == 0
+                         : CQ % 4 == 0 && O % 4 == 0 && reinterpret_cast<uintptr_t>(wb) % 16 == 0;
+  const int step = kBf16 ? kHK : kTK;
   int k_per = (CQ + splits - 1) / splits;
-  k_per = (k_per + kTK - 1) / kTK * kTK;
+  k_per = (k_per + step - 1) / step * step;
   cudaError_t err;
   for (int r0 = 0; r0 < L; r0 += chunk) {
     const int lc = L - r0 < chunk ? L - r0 : chunk;
     const int rows = lc * G;
-    const int* lv = static_cast<const int*>(live) + r0;
-    err = launch_basis(false, static_cast<const float*>(rel), static_cast<const float*>(rot6),
-                       static_cast<const float*>(feats), static_cast<const int64_t*>(idx),
-                       static_cast<const uint8_t*>(mask), static_cast<const float*>(proj),
-                       static_cast<const float*>(bias), nullptr, lv, basis, nullptr, M, N, K, G, F,
-                       Q, C, O, lc, BM, stream);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (splits == 1) {
-      err = launch_gemm<true, false>(basis, CQ, wf, O, outf, 0, O, rows, O, CQ, k_per, 1, vec, lv,
-                                     G, BM, stream);
-    } else {
-      const long long n = static_cast<long long>(rows) * O;
-      err = launch_gemm<true, false>(basis, CQ, wf, O, part, n, O, rows, O, CQ, k_per, splits, vec,
-                                     nullptr, 1, 0, stream);
-      if (err == cudaSuccess) {
-        sum_splits<<<static_cast<unsigned>((n + kSumThreads - 1) / kSumThreads), kSumThreads, 0,
-                     stream>>>(part, splits, n, O, lv, G, BM, outf);
-        err = cudaGetLastError();
-      }
+    const int* lv = live + r0;
+    err = launch_basis<T>(false, rel, rot6, feats, idx, mask, proj, bias, nullptr, lv, basis,
+                          nullptr, M, N, K, G, F, Q, C, O, lc, BM, stream);
+    if (err != cudaSuccess) return err;
+    const long long n = static_cast<long long>(rows) * O;
+    float* dst = splits == 1 ? outf : part;
+    const int* map = splits == 1 ? lv : nullptr;
+    if constexpr (kBf16)
+      err = launch_bf16_gemm<float, true, true>(basis, CQ, wb, CQ, dst, n, O, rows, O, CQ, k_per,
+                                                splits, vec, map, splits == 1 ? G : 1,
+                                                splits == 1 ? BM : 0, stream);
+    else
+      err = launch_gemm<true, false>(basis, CQ, wb, O, dst, n, O, rows, O, CQ, k_per, splits, vec,
+                                     map, splits == 1 ? G : 1, splits == 1 ? BM : 0, stream);
+    if (err == cudaSuccess && splits > 1) {
+      sum_splits<<<static_cast<unsigned>((n + kSumThreads - 1) / kSumThreads), kSumThreads, 0,
+                   stream>>>(part, splits, n, O, lv, G, BM, outf);
+      err = cudaGetLastError();
     }
-    if (err != cudaSuccess) return static_cast<int>(err);
+    if (err != cudaSuccess) return err;
   }
-  return 0;
+  return cudaSuccess;
+}
+
+}  // namespace
+
+// Plain C entry point for ctypes.  Launches on `stream` and returns the
+// first CUDA error (0 = launched).  live is the int32 table of the L >= 1
+// query rows b*M + m that have a valid edge (a row without one may be
+// listed too; an entry outside [0, B*M) is skipped); out [B, M, G, O]
+// float32 must be zeroed by the caller (rows not listed are not written).
+// use_bf16 != 0: rel, rot6 and feats are bfloat16, else float32; the
+// parameters are float32 either way.  Requires G <= 2, G*Q <= 64 and the
+// plan of se3_fused_equiv_fwd_plan for the same L and operand size.
+extern "C" int se3_fused_equiv_fwd(const void* rel, const void* rot6, const void* feats,
+                                   const void* idx, const void* mask, const void* proj,
+                                   const void* bias, const void* w, const void* live, void* out,
+                                   void* scratch, int B, int M, int N, int K, int G, int F, int Q,
+                                   int C, int O, int L, int chunk, int splits, int use_bf16,
+                                   void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const auto* idxp = static_cast<const int64_t*>(idx);
+  const auto* maskp = static_cast<const uint8_t*>(mask);
+  const auto* projf = static_cast<const float*>(proj);
+  const auto* biasf = static_cast<const float*>(bias);
+  const auto* livep = static_cast<const int*>(live);
+  const long long CQ = static_cast<long long>(C) * Q;
+  const long long basis_bytes = round16(chunk * G * CQ * (use_bf16 ? 2 : 4));
+  char* scr = static_cast<char*>(scratch);
+  cudaError_t err;
+  if (use_bf16) {
+    auto* wt = reinterpret_cast<bf16*>(scr);  // [O, C*Q]
+    scr += round16(CQ * O * 2);
+    err = launch_round_bf16(static_cast<const float*>(w), wt, CQ, O, true, stream);
+    if (err == cudaSuccess)
+      err = forward(static_cast<const bf16*>(rel), static_cast<const bf16*>(rot6),
+                    static_cast<const bf16*>(feats), idxp, maskp, projf, biasf,
+                    static_cast<const bf16*>(wt), livep, static_cast<float*>(out),
+                    reinterpret_cast<bf16*>(scr), reinterpret_cast<float*>(scr + basis_bytes), B,
+                    M, N, K, G, F, Q, C, O, L, chunk, splits, stream);
+  } else {
+    err = forward(static_cast<const float*>(rel), static_cast<const float*>(rot6),
+                  static_cast<const float*>(feats), idxp, maskp, projf, biasf,
+                  static_cast<const float*>(w), livep, static_cast<float*>(out),
+                  reinterpret_cast<float*>(scr), reinterpret_cast<float*>(scr + basis_bytes), B, M,
+                  N, K, G, F, Q, C, O, L, chunk, splits, stream);
+  }
+  return static_cast<int>(err);
 }

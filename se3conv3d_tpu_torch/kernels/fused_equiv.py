@@ -9,9 +9,26 @@ Computes, for every query point m, out-frame g and output channel o::
 
 with exact (erf) gelu, ``P = proj_axes [9, Q]`` already scaled by the
 layer's ``norm_neigh_dist`` on its three offset rows, and no normalisation
-(the caller applies ``norm_num_neighs / F``).  All operands are float32.
-Gradients flow to ``feats``, ``P``, ``bias`` and ``W``; the geometry
-(``rel``, ``rot6``, ``idx``, ``mask``) gets none, as in the reference.
+(the caller applies ``norm_num_neighs / F``).  The operands ``rel``,
+``rot6`` and ``feats`` are all float32 or all bfloat16; the parameters,
+the output and the parameter gradients are float32.  Gradients flow to
+``feats``, ``P``, ``bias`` and ``W``; the geometry (``rel``, ``rot6``,
+``idx``, ``mask``) gets none, as in the reference.
+
+bfloat16 operands follow the TPU kernels' bf16 path (the ``cdt`` argument
+of ``se3conv3d_tpu/ops/pallas/fused_equiv.py:_fwd_kernel`` /
+``_bwd_kernel``): every sum is float32, and values are rounded to bfloat16
+at exactly these points, in the kernels and in their plain versions alike
+(:func:`_rounding`): the projection ``P`` and ``bias`` and the weights
+``W`` as read; each ``pne = gelu(pre)`` (``pre`` and gelu in float32);
+each ``basis`` entry before the weight contraction; in the backward
+``gout``, ``dbasis = gout . W^T``, each edge's ``d_gathered`` row and each
+``dpre = dpne * gelu'(pre)`` (``dpne`` and gelu' in float32) before the
+``d_proj`` / ``d_bias`` sums.  The scatter mode sums the rounded rows in
+float32 (``d_feats`` float32); the sorted mode stores them in a bfloat16
+buffer, which the prefix sum reads as it is.  :class:`FusedEquivConv`
+rounds the summed feature gradient to the features' dtype, as the JAX
+package's ``.astype(feats_x.dtype)``.
 
 Forward, ``csrc/fused_equiv_fwd.cu``: replaces
 ``se3conv3d_tpu/ops/pallas/fused_equiv.py:_fwd_kernel`` (reached through
@@ -68,10 +85,14 @@ of a zeroed ``[B, M*K, F*C]`` buffer instead (the Pallas kernel's per-edge
 then reduces it in source order, deterministically.
 
 ``fused_equiv_fwd`` / ``fused_equiv_bwd`` launch the kernels for CUDA
-tensors and run ``fused_equiv_fwd_reference`` / ``fused_equiv_bwd_reference``
-for CPU tensors, over every row whatever the live-row table; there is no
-other fallback.  ``fused_equiv`` is the differentiable op.  Each kernel source is built with ``nvcc`` for
-``sm_90a`` at its first launch (``kernels/build.py``).
+tensors (the instantiation of the operands' dtype: bfloat16 operands are
+never widened to reuse the float32 kernels) and run
+``fused_equiv_fwd_reference`` / ``fused_equiv_bwd_reference`` for CPU
+tensors, over every row whatever the live-row table; there is no other
+fallback.  Each counts its launches (``launches``, and ``bf16_launches``
+for those with bfloat16 operands).  ``fused_equiv`` is the differentiable
+op.  Each kernel source is built with ``nvcc`` for ``sm_90a`` at its first
+launch (``kernels/build.py``).
 """
 from __future__ import annotations
 
@@ -96,7 +117,11 @@ __all__ = [
     "MAX_GQ",
     "MAX_EDGES",
     "FWD_SCRATCH_BYTES",
+    "OPERAND_DTYPES",
 ]
+
+# the operand types of rel, rot6 and feats (the kernels' instantiations)
+OPERAND_DTYPES = (torch.float32, torch.bfloat16)
 
 # a pne row in the kernels' shared memory holds at most 64 (g, q) columns
 MAX_GQ = 64
@@ -108,6 +133,19 @@ FWD_SCRATCH_BYTES = 128 << 20
 # the backward's dbasis product tiles its L*G rows by 128 along a grid
 # dimension of at most 65535 blocks (the forward's chunks stay below it)
 _MAX_SCRATCH_ROWS = 128 * 65535
+
+
+def _rounding(dtype):
+    """``x -> x`` rounded to the operands' ``dtype`` and widened back to
+    float32: the kernels' rounding points (the identity for float32)."""
+    if dtype == torch.bfloat16:
+        return lambda x: x.to(torch.bfloat16).float()
+    return lambda x: x
+
+
+def _wide(x):
+    """A bfloat16 operand widened to float32; any other as it is."""
+    return x.float() if x.dtype == torch.bfloat16 else x
 
 
 def _edge_geometry(rel, rot6):
@@ -124,10 +162,13 @@ def _gather(feats, idx, mask):
 
 
 def fused_equiv_fwd_reference(rel, rot6, feats, idx, mask, proj_axes, proj_biases, conv_weights):
-    """Plain PyTorch version of the forward kernel (same arguments, same result)."""
-    pne = F.gelu(_edge_geometry(rel, rot6) @ proj_axes + proj_biases)  # [B,M,K,G,F,Q], exact erf
-    basis = torch.einsum("bmkfc,bmkgfq->bmgcq", _gather(feats, idx, mask), pne)
-    return torch.einsum("bmgcq,cqo->bmgo", basis, conv_weights)
+    """Plain PyTorch version of the forward kernel (same arguments, same
+    result, rounding where the kernel rounds: :func:`_rounding`)."""
+    rnd = _rounding(feats.dtype)
+    pre = _edge_geometry(_wide(rel), _wide(rot6)) @ rnd(proj_axes) + rnd(proj_biases)
+    pne = rnd(F.gelu(pre))  # [B,M,K,G,F,Q], exact erf
+    basis = rnd(torch.einsum("bmkfc,bmkgfq->bmgcq", _gather(_wide(feats), idx, mask), pne))
+    return torch.einsum("bmgcq,cqo->bmgo", basis, rnd(conv_weights))
 
 
 def live_row_table(mask: torch.Tensor) -> torch.Tensor:
@@ -170,28 +211,32 @@ def fused_equiv_bwd_reference(rel, rot6, feats, idx, mask, proj_axes, proj_biase
     """Plain PyTorch version of the backward kernel: recomputes pne and basis
     and returns ``(d_feats, d_proj_axes, d_proj_biases, d_conv_weights)``;
     with ``sorted_slot`` the first is the sorted per-edge buffer of
-    :func:`fused_equiv_bwd` instead.
+    :func:`fused_equiv_bwd` instead (in the operands' dtype).  Rounds where
+    the kernel rounds (:func:`_rounding`).
 
     gelu' is the closed form ``Phi(x) + x * phi(x)``, as the TPU kernel
     takes it (``se3conv3d_tpu/ops/pallas/fused_equiv.py:_act_and_grad``).
     """
-    geo = _edge_geometry(rel, rot6)
-    pre = geo @ proj_axes + proj_biases
-    pne = F.gelu(pre)
+    rnd = _rounding(feats.dtype)
+    geo = _edge_geometry(_wide(rel), _wide(rot6))
+    pre = geo @ rnd(proj_axes) + rnd(proj_biases)
+    pne = rnd(F.gelu(pre))
     dact = 0.5 * (1.0 + torch.erf(pre * math.sqrt(0.5))) + pre * torch.exp(-0.5 * pre * pre) / math.sqrt(2.0 * math.pi)
-    gathered = _gather(feats, idx, mask)
-    basis = torch.einsum("bmkfc,bmkgfq->bmgcq", gathered, pne)
+    gathered = _gather(_wide(feats), idx, mask)
+    basis = rnd(torch.einsum("bmkfc,bmkgfq->bmgcq", gathered, pne))
+    gout = rnd(gout)
     d_w = torch.einsum("bmgcq,bmgo->cqo", basis, gout)
-    dbasis = torch.einsum("bmgo,cqo->bmgcq", gout, conv_weights)
+    dbasis = rnd(torch.einsum("bmgo,cqo->bmgcq", gout, rnd(conv_weights)))
     edge = mask[:, :, :, None, None]
-    d_gathered = torch.einsum("bmkgfq,bmgcq->bmkfc", pne, dbasis).masked_fill(~edge, 0.0)
+    d_gathered = rnd(torch.einsum("bmkgfq,bmgcq->bmkfc", pne, dbasis)).masked_fill(~edge, 0.0)
     if sorted_slot is not None:
-        d_feats = _sorted_rows(d_gathered, sorted_slot)
+        d_feats = _sorted_rows(d_gathered.to(feats.dtype), sorted_slot)
     else:
         bidx = torch.arange(feats.shape[0], device=feats.device)[:, None, None].expand_as(idx)
-        d_feats = torch.zeros_like(feats).index_put_((bidx, idx), d_gathered, accumulate=True)
+        d_feats = torch.zeros(feats.shape, dtype=gathered.dtype, device=feats.device).index_put_(
+            (bidx, idx), d_gathered, accumulate=True)
     dpne = torch.einsum("bmkfc,bmgcq->bmkgfq", gathered, dbasis)
-    dpre = (dpne * dact).masked_fill(~edge[..., None], 0.0)
+    dpre = rnd(dpne * dact).masked_fill(~edge[..., None], 0.0)
     d_pa = torch.einsum("bmkgfq,bmkgfd->dq", dpre, geo)
     return d_feats, d_pa, dpre.sum((0, 1, 2, 3, 4)), d_w
 
@@ -205,7 +250,12 @@ def _check(rel, rot6, feats, idx, mask, proj_axes, proj_biases, conv_weights):
             raise ValueError(f"{name} is on {t.device}, feats on {dev}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    for name in ("rel", "rot6", "feats", "proj_axes", "proj_biases", "conv_weights"):
+    if feats.dtype not in OPERAND_DTYPES:
+        raise TypeError(f"feats must be float32 or bfloat16, got {feats.dtype}")
+    for name in ("rel", "rot6"):
+        if tensors[name].dtype != feats.dtype:
+            raise TypeError(f"{name} must have the dtype of feats ({feats.dtype}), got {tensors[name].dtype}")
+    for name in ("proj_axes", "proj_biases", "conv_weights"):
         if tensors[name].dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {tensors[name].dtype}")
     if idx.dtype != torch.int64:
@@ -252,7 +302,9 @@ def fused_equiv_fwd(
     Args:
       rel: ``[B, M, K, G, 3]`` edge offsets in the receiver frames.
       rot6: ``[B, M, K, G, F, 6]`` 6D relative rotations.
-      feats: ``[B, N, F, C]`` source features.
+      feats: ``[B, N, F, C]`` source features; ``rel``, ``rot6`` and
+        ``feats`` are all float32 or all bfloat16 (the rounding points of
+        the module note).
       idx / mask: ``[B, M, K]`` int64 neighbor indices and bool validity.
       proj_axes: ``[9, Q]`` (offset rows pre-scaled); proj_biases ``[Q]``;
         conv_weights ``[C, Q, O]``.
@@ -282,34 +334,38 @@ def fused_equiv_fwd(
     if n_live == 0 or c == 0 or o == 0:
         return out
     lib = library("fwd")
+    bf16 = feats.dtype == torch.bfloat16
     chunk, splits, scratch = ctypes.c_int(), ctypes.c_int(), ctypes.c_longlong()
-    lib.se3_fused_equiv_fwd_plan(n_live, g, q, c, o, FWD_SCRATCH_BYTES // 4, ctypes.byref(chunk),
-                                 ctypes.byref(splits), ctypes.byref(scratch))
-    work = torch.empty(scratch.value, dtype=torch.float32, device=dev)
+    lib.se3_fused_equiv_fwd_plan(n_live, g, q, c, o, FWD_SCRATCH_BYTES, feats.element_size(),
+                                 ctypes.byref(chunk), ctypes.byref(splits), ctypes.byref(scratch))
+    work = torch.empty(scratch.value, dtype=torch.uint8, device=dev)  # bytes
     with torch.cuda.device(dev):
         err = lib.se3_fused_equiv_fwd(
             rel.data_ptr(), rot6.data_ptr(), feats.data_ptr(), idx.data_ptr(),
             mask.data_ptr(), proj_axes.data_ptr(), proj_biases.data_ptr(),
             conv_weights.data_ptr(), live_rows.data_ptr(), out.data_ptr(), work.data_ptr(),
-            b, m, n, k, g, f, q, c, o, n_live, chunk.value, splits.value,
+            b, m, n, k, g, f, q, c, o, n_live, chunk.value, splits.value, int(bf16),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"fused_equiv_fwd kernel launch failed: CUDA error {err}")
     fused_equiv_fwd.launches += 1
+    fused_equiv_fwd.bf16_launches += bf16
     return out
 
 
 def fused_equiv_bwd(rel, rot6, feats, idx, mask, proj_axes, proj_biases, conv_weights, gout,
                     sorted_slot=None, live_rows=None):
-    """Fused conv backward: ``gout [B, M, G, O]``, the cotangent of the
-    un-normalised output, ``-> (d_feats [B, N, F, C], d_proj_axes [9, Q],
-    d_proj_biases [Q], d_conv_weights [C, Q, O])``, all float32.
+    """Fused conv backward: ``gout [B, M, G, O]`` float32, the cotangent of
+    the un-normalised output, ``-> (d_feats [B, N, F, C], d_proj_axes [9, Q],
+    d_proj_biases [Q], d_conv_weights [C, Q, O])``, all float32 (with
+    bfloat16 operands ``d_feats`` sums the rounded per-edge rows).
 
     Same arguments as :func:`fused_equiv_fwd` plus ``gout``.  With
     ``sorted_slot [B, M*K]`` (int64, each edge's slot in source order) the
     first output is instead the ``[B, M*K, F*C]`` buffer of per-edge feature
-    gradients at their sorted slots, zero for masked edges.  ``live_rows``
+    gradients at their sorted slots, zero for masked edges, in the operands'
+    dtype.  ``live_rows``
     must be :func:`live_row_table` of this ``mask``, on the device of
     ``feats``: the kernels skip an entry outside ``[0, B*M)``, but a row
     listed twice counts twice (:func:`_live_rows`).  Without it the wrapper builds it, at the cost of one host
@@ -333,12 +389,12 @@ def fused_equiv_bwd(rel, rot6, feats, idx, mask, proj_axes, proj_biases, conv_we
         raise ValueError(f"gout has shape {tuple(gout.shape)}, expected {(b, m, g, o)}")
     dev = feats.device
     if sorted_slot is None:
-        d_feats = torch.zeros_like(feats)
+        d_feats = torch.zeros(feats.shape, dtype=torch.float32, device=dev)
     else:
         if (sorted_slot.device != dev or sorted_slot.dtype != torch.int64
                 or not sorted_slot.is_contiguous() or tuple(sorted_slot.shape) != (b, m * k)):
             raise ValueError(f"sorted_slot must be a contiguous int64 [{b}, {m * k}] tensor on {dev}")
-        d_feats = torch.zeros((b, m * k, f * c), dtype=torch.float32, device=dev)
+        d_feats = torch.zeros((b, m * k, f * c), dtype=feats.dtype, device=dev)
     live_rows = _live_rows(live_rows, mask, b * m, dev)
     n_live = live_rows.numel()
     if n_live * g > _MAX_SCRATCH_ROWS:
@@ -348,10 +404,11 @@ def fused_equiv_bwd(rel, rot6, feats, idx, mask, proj_axes, proj_biases, conv_we
     if n_live == 0 or c == 0 or o == 0:
         return d_feats, d_params[:9], d_params[9], d_w
     lib = library("bwd")
+    bf16 = feats.dtype == torch.bfloat16
     scratch, w_splits, p_blocks = ctypes.c_longlong(), ctypes.c_int(), ctypes.c_int()
-    lib.se3_fused_equiv_bwd_plan(n_live, g, q, c, o, ctypes.byref(scratch),
+    lib.se3_fused_equiv_bwd_plan(n_live, g, q, c, o, feats.element_size(), ctypes.byref(scratch),
                                  ctypes.byref(w_splits), ctypes.byref(p_blocks))
-    work = torch.empty(scratch.value, dtype=torch.float32, device=dev)
+    work = torch.empty(scratch.value, dtype=torch.uint8, device=dev)  # bytes
     w_part = torch.empty((w_splits.value, c * q * o), dtype=torch.float32, device=dev)
     p_part = torch.empty((p_blocks.value, 10 * q), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
@@ -362,17 +419,19 @@ def fused_equiv_bwd(rel, rot6, feats, idx, mask, proj_axes, proj_biases, conv_we
             None if sorted_slot is None else sorted_slot.data_ptr(), d_feats.data_ptr(),
             d_params.data_ptr(), d_w.data_ptr(), work.data_ptr(), w_part.data_ptr(),
             p_part.data_ptr(), b, m, n, k, g, f, q, c, o, n_live, w_splits.value,
-            p_blocks.value, torch.cuda.current_stream(dev).cuda_stream,
+            p_blocks.value, int(bf16), torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"fused_equiv_bwd kernel launch failed: CUDA error {err}")
     fused_equiv_bwd.launches += 1
+    fused_equiv_bwd.bf16_launches += bf16
     return d_feats, d_params[:9], d_params[9], d_w
 
 
-# kernel launches so far (CPU calls do not count); callers may reset them
-fused_equiv_fwd.launches = 0
-fused_equiv_bwd.launches = 0
+# kernel launches so far (CPU calls do not count), all and those with
+# bfloat16 operands; callers may reset them
+fused_equiv_fwd.launches = fused_equiv_fwd.bf16_launches = 0
+fused_equiv_bwd.launches = fused_equiv_bwd.bf16_launches = 0
 
 
 class FusedEquivConv(torch.autograd.Function):
@@ -386,7 +445,9 @@ class FusedEquivConv(torch.autograd.Function):
     reduced by :func:`~se3conv3d_tpu_torch.kernels.segsum.sorted_segment_sum`;
     without them, the kernel's atomic scatter.  Given ``live_rows``
     (:func:`live_row_table`), the forward and the backward use it instead of
-    each building one.
+    each building one.  The feature gradient comes back in the features'
+    dtype: with bfloat16 operands the float32 sum is rounded once, as the
+    JAX package's ``.astype(feats_x.dtype)``.
     """
 
     @staticmethod
@@ -408,6 +469,7 @@ class FusedEquivConv(torch.autograd.Function):
             *inputs, gout.contiguous(), tables[0] if tables else None, live)
         if tables:
             d_feats = sorted_segment_sum(d_feats, *tables[1:]).reshape(inputs[2].shape)
+        d_feats = d_feats.to(inputs[2].dtype)
         need = ctx.needs_input_grad
         return (None, None, d_feats if need[2] else None, None, None,
                 d_pa if need[5] else None, d_pb if need[6] else None, d_w if need[7] else None,

@@ -12,6 +12,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict
 
+import torch
+
 from ..core.hierarchy import FrameConfig, HierarchyConfig
 from ..nn.conv import ConvFactory
 from .spec import ModelSpec
@@ -30,6 +32,7 @@ __all__ = [
     "SCANNET20_IGNORE_LABEL",
     "get_model_spec",
     "spec_from_model_dict",
+    "COMPUTE_DTYPES",
     "hierarchy_config_from_model_dict",
 ]
 
@@ -161,15 +164,34 @@ def get_model_spec(name: str, **overrides) -> ModelSpec:
     return dataclasses.replace(spec, **overrides) if overrides else spec
 
 
+# a recipe's compute_dtype -> the convs' operand dtype (absent: float32)
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
 def spec_from_model_dict(model: Dict[str, Any]) -> ModelSpec:
     """``Model`` section -> ModelSpec (preset plus ``max_neighbors`` /
-    ``max_drop_path`` overrides, as ``train/config.py`` does)."""
+    ``max_drop_path`` overrides, and ``compute_dtype`` on both conv
+    factories, as ``se3conv3d_tpu/train/config.py:build_model_from_config``
+    does).  ``compute_dtype`` is ``float32``, ``bfloat16`` or absent; any
+    other raises ``NotImplementedError``."""
     overrides = {}
     if "max_neighbors" in model:
         overrides["max_neighbors"] = int(model["max_neighbors"])
     if "max_drop_path" in model:
         overrides["max_path_drop"] = float(model["max_drop_path"])
-    return get_model_spec(model["model"], **overrides)
+    spec = get_model_spec(model["model"], **overrides)
+    if "compute_dtype" in model:
+        name = model["compute_dtype"]
+        if name not in COMPUTE_DTYPES:
+            raise NotImplementedError(
+                f"compute_dtype {name!r}: the port's convs compute in {sorted(COMPUTE_DTYPES)}")
+        cdt = COMPUTE_DTYPES[name]
+        spec = dataclasses.replace(
+            spec,
+            conv=dataclasses.replace(spec.conv, compute_dtype=cdt),
+            conv_blocks=dataclasses.replace(spec.conv_blocks, compute_dtype=cdt),
+        )
+    return spec
 
 
 def hierarchy_config_from_model_dict(model: Dict[str, Any], num_points: int,

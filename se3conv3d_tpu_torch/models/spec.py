@@ -19,7 +19,7 @@ from ..kernels.fused_equiv import live_row_table
 from ..nn.conv import ConvFactory
 from ..ops import pne_conv as ops
 
-__all__ = ["ModelSpec", "NeighborhoodProvider"]
+__all__ = ["ModelSpec", "NeighborhoodProvider", "geometry_dtype_for"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,16 +64,27 @@ class ModelSpec:
             raise NotImplementedError(f"block layer {self.block_layer!r} is not ported yet")
 
 
+def geometry_dtype_for(spec: ModelSpec, self_neighborhood: bool) -> torch.dtype:
+    """The dtype of the cached edge geometry of a neighborhood: that of its
+    leading consumer, as ``se3conv3d_tpu/models/spec.py`` picks it.  A self
+    neighborhood feeds the block stack (``conv_blocks``; also the patch
+    stem's self conv, ``conv``), a cross-level one ``conv`` convs only."""
+    fac = spec.conv_blocks if self_neighborhood else spec.conv
+    return ops.geometry_dtype(fac.compute_dtype)
+
+
 class NeighborhoodProvider:
     """Neighborhood cache over one hierarchy for one forward.
 
     ``get(src, dst, radius, neigh_type, k)`` builds the table from level
     ``src`` to level ``dst`` once per key and attaches the layer-independent
     edge geometry (``equiv_rel`` / ``equiv_rot``) that every conv on it
-    shares -- the reference's rot-tensor cache.  Every neighborhood also
-    gets the live-row table its convs' forwards and backwards walk
-    (``live_rows``; one host synchronisation per neighborhood, whatever the
-    grad mode).  In the 'sorted' backward mode, with autograd on, a self
+    shares -- the reference's rot-tensor cache -- in the operand dtype of
+    the convs that read it (:func:`geometry_dtype_for`: bfloat16 halves it
+    for a bfloat16 spec; a conv of the other dtype rebuilds its own).
+    Every neighborhood also gets the live-row table its convs' forwards
+    and backwards walk (``live_rows``; one host synchronisation per
+    neighborhood, whatever the grad mode).  In the 'sorted' backward mode, with autograd on, a self
     neighborhood (``src == dst``: the block stack's) also gets the sort
     tables its convs' backwards share; a single-use one builds them in its
     conv (``ops.pne_conv``), as in the JAX package.
@@ -86,7 +97,8 @@ class NeighborhoodProvider:
         self._cache: Dict[tuple, Neighborhood] = {}
 
     def _build(self, src_pc: PointCloud, dst_pc: PointCloud, radius: float,
-               neigh_type: str, k: int, spacing: Optional[float]) -> Neighborhood:
+               neigh_type: str, k: int, spacing: Optional[float],
+               geo_dtype: torch.dtype) -> Neighborhood:
         if neigh_type == "ball_query":
             neigh = ball_query_neighborhood(
                 src_pc, dst_pc, radius, self.spec.max_neighbors, want_trunc=self.collect_trunc
@@ -98,7 +110,7 @@ class NeighborhoodProvider:
             )
         else:
             raise ValueError(f"unknown neighborhood type {neigh_type!r}")
-        rel, rot6 = ops.equiv_geometry_parts(src_pc, dst_pc, neigh)
+        rel, rot6 = ops.equiv_geometry_parts(src_pc, dst_pc, neigh, geo_dtype)
         return dataclasses.replace(neigh, equiv_rel=rel, equiv_rot=rot6,
                                    live_rows=live_row_table(neigh.mask))
 
@@ -107,7 +119,8 @@ class NeighborhoodProvider:
         if key not in self._cache:
             src_pc = self.hierarchy.levels[src]
             neigh = self._build(src_pc, self.hierarchy.levels[dst], radius, neigh_type, k,
-                                self.hierarchy.levels_radii[src])
+                                self.hierarchy.levels_radii[src],
+                                geometry_dtype_for(self.spec, self_neighborhood=src == dst))
             if src == dst and ops.sorted_backward() and torch.is_grad_enabled():
                 neigh = ops.backward_sort_tables(neigh, src_pc.capacity)
             self._cache[key] = neigh
@@ -119,5 +132,5 @@ class NeighborhoodProvider:
         segmentation output cloud)."""
         return self._build(
             self.hierarchy.levels[src], dst_pc, radius, neigh_type, k,
-            self.hierarchy.levels_radii[src],
+            self.hierarchy.levels_radii[src], geometry_dtype_for(self.spec, self_neighborhood=False),
         )

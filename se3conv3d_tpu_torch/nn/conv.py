@@ -3,7 +3,9 @@
 Ported: the locally SE(3)-equivariant conv with mlp_gelu point-neighborhood
 embeddings, 6D relative rotations and 'add' aggregation -- the conv of every
 DFaust recipe.  It runs through ``ops.pne_conv.fused_equiv_conv``, i.e. the
-CUDA kernel on the card and its plain version on the CPU.
+CUDA kernel on the card and its plain version on the CPU, in float32 or,
+with ``compute_dtype`` bfloat16, with bfloat16 operands and float32 sums
+(the ScanNet recipes' ``compute_dtype: bfloat16``).
 
 Calibration buffers (the reference's pre-process epoch,
 ``IConvLayer.py:75-97``): ``norm_neigh_dist`` and ``norm_num_neighs`` start
@@ -41,15 +43,18 @@ class PNEConv(nn.Module):
     """Equivariant point conv: ``features [B, N, F, C] -> [B, M, G, O]``.
 
     Parameters ``proj_axes [9, Q]``, ``proj_biases [Q]`` and
-    ``conv_weights [C, Q, O]``; calibration buffers ``norm_neigh_dist``,
-    ``norm_num_neighs``, ``initialized`` and ``trunc_frac``.
+    ``conv_weights [C, Q, O]`` (float32 whatever ``compute_dtype``);
+    calibration buffers ``norm_neigh_dist``, ``norm_num_neighs``,
+    ``initialized`` and ``trunc_frac``.
     """
 
     def __init__(self, in_features: int, out_features: int, num_basis: int = 32,
                  pne_type: str = "mlp_gelu", equivariant: bool = True,
-                 rel_rot_type: str = "6D", aggregation: str = "add"):
+                 rel_rot_type: str = "6D", aggregation: str = "add",
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
         _check_supported(pne_type, equivariant, rel_rot_type, aggregation)
+        self.compute_dtype = compute_dtype
         self.proj_axes = nn.Parameter(torch.empty(9, num_basis))
         self.proj_biases = nn.Parameter(torch.zeros(num_basis))
         self.conv_weights = nn.Parameter(torch.empty(in_features, num_basis, out_features))
@@ -96,22 +101,25 @@ class PNEConv(nn.Module):
             self._calibrate(pc_in, pc_out, neigh)
         return ops.fused_equiv_conv(
             pc_in, pc_out, neigh, features, self.proj_axes, self.proj_biases,
-            self.conv_weights, self.norm_neigh_dist, self.norm_num_neighs,
+            self.conv_weights, self.norm_neigh_dist, self.norm_num_neighs, self.compute_dtype,
         )
 
 
 @dataclasses.dataclass(frozen=True)
 class ConvFactory:
-    """Conv-layer spec that models use to stamp out convs."""
+    """Conv-layer spec that models use to stamp out convs.  ``compute_dtype``
+    None (float32), ``torch.float32`` or ``torch.bfloat16``: the convs'
+    operand type, as the JAX package's ``ConvFactory.compute_dtype``."""
 
     num_basis: int = 32
     pne_type: str = "mlp_gelu"
     equivariant: bool = True
     rel_rot_type: str = "6D"
     aggregation: str = "add"
+    compute_dtype: Optional[torch.dtype] = None
 
     def make(self, in_features: int, out_features: int) -> PNEConv:
         return PNEConv(
             in_features, out_features, self.num_basis, self.pne_type,
-            self.equivariant, self.rel_rot_type, self.aggregation,
+            self.equivariant, self.rel_rot_type, self.aggregation, self.compute_dtype,
         )

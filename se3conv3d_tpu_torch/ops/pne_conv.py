@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import warnings
 from typing import Callable, Optional
 
 import torch
@@ -41,9 +42,17 @@ __all__ = [
     "backward_sort_tables",
     "sorted_backward",
     "BWD_SCATTER_MODE",
+    "geometry_dtype",
 ]
 
 BWD_SCATTER_MODE = os.environ.get("SE3CONV_BWD_MODE", "scatter")
+
+
+def geometry_dtype(compute_dtype, default: torch.dtype = torch.float32) -> torch.dtype:
+    """The operand dtype of a conv of ``compute_dtype``: the edge geometry
+    and the features it reads (``default``, the features' own, for None).
+    The kernels take float32 or bfloat16 operands and raise on any other."""
+    return default if compute_dtype is None else compute_dtype
 
 
 def sorted_backward() -> bool:
@@ -105,20 +114,29 @@ def linear_pne(rel, proj_axes, proj_biases, act: Optional[Callable]):
 
 
 @torch.no_grad()
-def equiv_geometry_parts(pc_in: PointCloud, pc_out: PointCloud, neigh: Neighborhood):
+def equiv_geometry_parts(pc_in: PointCloud, pc_out: PointCloud, neigh: Neighborhood,
+                         dtype: Optional[torch.dtype] = None):
     """Per-edge geometry ``(rel_local [B,M,K,G,3], rot6 [B,M,K,G,F,6])``.
 
     The edge offset in each receiver frame g (unscaled: the layer's
     ``norm_neigh_dist`` is a scalar that commutes with the rotation) and the
     6D form of the relative rotation ``R_g^T R_f``.  Layer-independent, so
-    it is computed once per neighborhood.
+    it is computed once per neighborhood.  Computed in float32 and, with
+    ``dtype`` bfloat16, rounded at the end, as the JAX package's fused bf16
+    path does (``se3conv3d_tpu/ops/pne_conv.py:_packed_equiv_geo_from_gf``),
+    from sender frames rounded to bfloat16 as that path gathers them
+    (``_equiv_geo_table``): the relative rotations carry that rounding too.
     """
     rel = gather_rows(pc_in.positions, neigh.idx) - pc_out.positions[:, :, None, :]
     frames_out = pc_out.frames
     frames_in = gather_rows(pc_in.frames, neigh.idx)
+    if dtype == torch.bfloat16:
+        frames_in = frames_in.to(dtype).float()
     rel_local = torch.einsum("bmkd,bmgde->bmkge", rel, frames_out)
     rel_rot = torch.einsum("bmgdp,bmkfdq->bmkgfpq", frames_out, frames_in)
-    return rel_local.contiguous(), matrix_to_rotation_6d(rel_rot).contiguous()
+    dtype = dtype or rel_local.dtype
+    return (rel_local.to(dtype).contiguous(),
+            matrix_to_rotation_6d(rel_rot).to(dtype).contiguous())
 
 
 def equiv_basis_conv(pne, features, neigh: Neighborhood, conv_weights, norm_num_neighs):
@@ -143,6 +161,7 @@ def fused_equiv_conv(
     conv_weights: torch.Tensor,
     norm_dist: torch.Tensor,
     norm_num_neighs: torch.Tensor,
+    compute_dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
     """Rot-equivariant mlp_gelu conv through the fused kernel -> ``[B,M,G,O]``.
 
@@ -157,11 +176,26 @@ def fused_equiv_conv(
     none, as in ``se3conv3d_tpu/nn/conv.py``.  In 'sorted' mode the feature
     gradient goes through the neighborhood's sort tables, built here when
     it carries none.
+
+    ``compute_dtype`` bfloat16 runs the kernels' bfloat16 operand path, as
+    ``se3conv3d_tpu/ops/pne_conv.py:fused_equiv_conv`` does: the geometry
+    in bfloat16 (rounded once from float32), the features rounded to
+    bfloat16 before the gather, float32 sums, and the output in the
+    features' dtype; the feature gradient comes back rounded to bfloat16,
+    then widened to the features' dtype.  None or float32 computes in
+    float32.  A cached geometry of the other dtype is rebuilt, never
+    converted (as the JAX package does, with a warning).
     """
-    if neigh.equiv_rel is not None:
+    geo_dt = geometry_dtype(compute_dtype, features.dtype)
+    if neigh.equiv_rel is not None and neigh.equiv_rel.dtype == geo_dt:
         rel, rot6 = neigh.equiv_rel, neigh.equiv_rot
     else:
-        rel, rot6 = equiv_geometry_parts(pc_in, pc_out, neigh)
+        if neigh.equiv_rel is not None:
+            warnings.warn(
+                f"cached edge geometry is {neigh.equiv_rel.dtype} but this conv computes in "
+                f"{geo_dt}; rebuilding it per conv: align compute_dtype across the convs that "
+                "share this neighborhood to share the cache", stacklevel=2)
+        rel, rot6 = equiv_geometry_parts(pc_in, pc_out, neigh, geo_dt)
     tables = None
     if sorted_backward() and torch.is_grad_enabled() and features.requires_grad:
         n_src = features.shape[1]
@@ -170,7 +204,7 @@ def fused_equiv_conv(
         tables = (neigh.bwd_slot, neigh.bwd_run_start, neigh.bwd_run_end)
     pa_scaled = torch.cat([proj_axes[:3] * norm_dist, proj_axes[3:]], 0)
     out = fused_equiv(
-        rel, rot6, features.contiguous(), neigh.idx, neigh.mask,
+        rel, rot6, features.to(geo_dt).contiguous(), neigh.idx, neigh.mask,
         pa_scaled, proj_biases.contiguous(), conv_weights.contiguous(), tables, neigh.live_rows,
     )
-    return out * (norm_num_neighs / features.shape[2])
+    return (out * (norm_num_neighs / features.shape[2])).to(features.dtype)

@@ -24,24 +24,21 @@ def build_model_from_config(model_dict: Dict[str, Any], num_in_feats: int, num_c
     """``Model`` section -> an ``FPNSegUNet`` on ``device`` (default: the
     card), initialised from ``generator``.
 
-    Reads the preset name, ``max_neighbors`` and ``max_drop_path``.  The
-    port's kernels take float32 operands only, so ``compute_dtype`` must be
-    ``float32`` (a bf16 recipe is run in float32 by passing a copy of its
-    section with ``compute_dtype: float32``).  ``remat``, ``lean_vjp`` and
-    ``cache_equiv_geometry`` tune the JAX package's TPU memory use; they
-    are accepted and change nothing here, since the port's conv always
-    saves only its inputs and its provider always caches the geometry.
+    Reads the preset name, ``max_neighbors``, ``max_drop_path`` and
+    ``compute_dtype`` (``bfloat16``, ``float32`` or absent, put on both
+    conv factories: bfloat16 convs run the kernels' bfloat16 operand path;
+    any other dtype raises ``NotImplementedError``).  ``remat``,
+    ``lean_vjp`` and ``cache_equiv_geometry`` tune the JAX package's TPU
+    memory use; they are accepted and change nothing here, since the port's
+    conv always saves only its inputs and its provider always caches the
+    geometry.
     """
-    cdt = model_dict.get("compute_dtype")
-    if cdt not in (None, "float32"):
-        raise NotImplementedError(
-            f"compute_dtype {cdt!r}: the port's kernels are float32 only; "
-            "pass the section with compute_dtype 'float32'")
+    spec = spec_from_model_dict(model_dict)
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError("no CUDA device: the port runs on an NVIDIA GPU; "
                                "pass device='cpu' to run its plain PyTorch path on the CPU")
         device = "cuda"
-    model = FPNSegUNet(spec_from_model_dict(model_dict), num_in_feats=num_in_feats,
+    model = FPNSegUNet(spec, num_in_feats=num_in_feats,
                        num_classes=num_classes, generator=generator)
     return model.to(device)

@@ -10,7 +10,9 @@ backward's parameter gradients sum over every edge of the batch (its two
 products in 3xTF32 on the tensor cores), so ``1e-4 * max |plain|`` for each
 of its four outputs.  The prefix sum takes bfloat16 payloads at the same
 float32 bound (both sides widen the same values), and its calls are
-bitwise equal (its tile offsets are fixed sums).
+bitwise equal (its tile offsets are fixed sums).  The kernels' bfloat16
+operand path is held against the plain versions' bfloat16 rounding at the
+bounds stated beside its tests.
 """
 import pytest
 import torch
@@ -462,3 +464,198 @@ def test_kernels_skip_live_row_entries_out_of_range():
         for what, x, y in zip(("d_feats", "d_proj_axes", "d_proj_biases", "d_conv_weights"), got_b, want_b):
             assert torch.isfinite(x).all(), what
             assert (x - y).abs().max().item() <= BWD_RTOL * y.abs().max().item(), what
+
+
+# bfloat16 operands: the kernels round where their plain versions round
+# (``kernels/fused_equiv.py``), and both sum in float32 in other orders,
+# which can flip a pne, basis, dbasis, dpre or per-edge d_feats rounding by
+# one bfloat16 ulp (2^-8 relative) where a sum lies next to a rounding
+# boundary.  Such flips are rare, so each output is held within
+# ``BF16_RTOL * max |plain|`` at its worst and ``BF16_MEAN_RTOL * max
+# |plain|`` on average, and its mean error must be at most
+# ``BF16_SOUND_SHARE`` of its mean error against the plain version with no
+# bfloat16 rounding (the operands widened to float32, the float32 plain
+# version): a kernel that skipped its roundings fails.
+BF16_RTOL, BF16_MEAN_RTOL, BF16_SOUND_SHARE = 1e-2, 1e-4, 0.5
+BWD_OUTPUTS = ("d_feats", "d_proj_axes", "d_proj_biases", "d_conv_weights")
+
+
+def _bf16(args):
+    """The conv operands rel, rot6 and feats in bfloat16; the rest as they are."""
+    return [x.to(torch.bfloat16) if i < 3 else x for i, x in enumerate(args)]
+
+
+def _hold_bf16(got, ref, what, wide=None):
+    """``got`` against the bfloat16 plain version ``ref`` and, given the
+    plain version with no bfloat16 rounding (``wide``), apart from it."""
+    assert got.shape == ref.shape and got.dtype == ref.dtype, what
+    got, ref = got.float(), ref.float()
+    assert torch.isfinite(got).all(), what
+    scale = max(ref.abs().max().item(), 1e-6)
+    err = (got - ref).abs()
+    assert err.max().item() <= BF16_RTOL * scale, (what, err.max().item(), scale)
+    assert err.mean().item() <= BF16_MEAN_RTOL * scale, (what, err.mean().item(), scale)
+    if wide is not None:
+        control = (got - wide.float()).abs().mean().item()
+        assert err.mean().item() <= BF16_SOUND_SHARE * control, (what, err.mean().item(), control)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(LIVE_SHAPES))
+def test_bf16_forward_kernel_matches_bf16_plain_version(name):
+    """bfloat16 operands on the live rows: the bfloat16 instantiation (one
+    launch each, counted as bfloat16) against the plain version's bfloat16
+    rounding over every row, padded rows exactly zero, and two calls
+    bitwise equal."""
+    _needs_card()
+    args, _ = _live_inputs(name)
+    args = _bf16(args)
+    b, m = LIVE_SHAPES[name][:2]
+    live = kfe.live_row_table(args[4])
+    before = kfe.fused_equiv_fwd.launches, kfe.fused_equiv_fwd.bf16_launches
+    with torch.no_grad():
+        got = kfe.fused_equiv_fwd(*args, live_rows=live)
+        again = kfe.fused_equiv_fwd(*args, live_rows=live)
+        torch.cuda.synchronize()
+        ref = kfe.fused_equiv_fwd_reference(*args)
+        wide = kfe.fused_equiv_fwd_reference(*[x.float() if i < 3 else x for i, x in enumerate(args)])
+    assert (kfe.fused_equiv_fwd.launches, kfe.fused_equiv_fwd.bf16_launches) == (before[0] + 2, before[1] + 2)
+    assert got.dtype == torch.float32
+    _hold_bf16(got, ref, name, wide)
+    assert not got[~args[4].any(-1)].any()
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(LIVE_SHAPES))
+def test_bf16_backward_kernel_matches_bf16_plain_version(name):
+    """bfloat16 operands, both output modes: each output against the plain
+    version's bfloat16 rounding (the sorted rows in bfloat16), the
+    parameter gradients bitwise equal over two calls and across the modes,
+    and the bfloat16 sorted rows summed by the prefix sum against the
+    scatter mode's d_feats."""
+    _needs_card()
+    args, gout = _live_inputs(name)
+    args = _bf16(args)
+    n = LIVE_SHAPES[name][2]
+    live = kfe.live_row_table(args[4])
+    tabs = _sort_tables(args[3], args[4], n)
+    before = kfe.fused_equiv_bwd.bf16_launches
+    got = kfe.fused_equiv_bwd(*args, gout, live_rows=live)
+    again = kfe.fused_equiv_bwd(*args, gout, live_rows=live)
+    got_s = kfe.fused_equiv_bwd(*args, gout, sorted_slot=tabs.bwd_slot, live_rows=live)
+    torch.cuda.synchronize()
+    assert kfe.fused_equiv_bwd.bf16_launches == before + 3
+    ref = kfe.fused_equiv_bwd_reference(*args, gout)
+    ref_s = kfe.fused_equiv_bwd_reference(*args, gout, sorted_slot=tabs.bwd_slot)
+    wide_args = [x.float() if i < 3 else x for i, x in enumerate(args)]
+    wide = kfe.fused_equiv_bwd_reference(*wide_args, gout)
+    wide_s = kfe.fused_equiv_bwd_reference(*wide_args, gout, sorted_slot=tabs.bwd_slot)
+    assert got[0].dtype == torch.float32 and got_s[0].dtype == torch.bfloat16
+    for what, x, y, w in zip(BWD_OUTPUTS, got, ref, wide):
+        _hold_bf16(x, y, f"{name} {what}", w)
+    _hold_bf16(got_s[0], ref_s[0], f"{name} sorted rows", wide_s[0])
+    for x, y, z in zip(got[1:], again[1:], got_s[1:]):
+        assert torch.equal(x, y) and torch.equal(x, z)
+    before = segsum.blocked_cumsum.launches
+    summed = segsum.sorted_segment_sum(got_s[0], tabs.bwd_run_start, tabs.bwd_run_end)
+    assert segsum.blocked_cumsum.launches == before + 1
+    err = (summed.reshape(got[0].shape) - got[0]).abs().max().item()
+    assert err <= BWD_RTOL * got[0].abs().max().item(), err
+
+
+@pytest.mark.cuda
+def test_bf16_kernels_skip_live_row_entries_out_of_range():
+    _needs_card()
+    args, gout = _live_inputs("live_15pct_g2_wide")
+    args = _bf16(args)
+    b, m, n = LIVE_SHAPES["live_15pct_g2_wide"][:3]
+    live = kfe.live_row_table(args[4])
+    bad = _with_rows_out_of_range(live, b * m)
+    tabs = _sort_tables(args[3], args[4], n)
+    with torch.no_grad():
+        want = kfe.fused_equiv_fwd(*args, live_rows=live)
+        got = kfe.fused_equiv_fwd(*args, live_rows=bad)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+    assert not got[~args[4].any(-1)].any()
+    for slot in (None, tabs.bwd_slot):
+        want_b = kfe.fused_equiv_bwd(*args, gout, sorted_slot=slot, live_rows=live)
+        got_b = kfe.fused_equiv_bwd(*args, gout, sorted_slot=slot, live_rows=bad)
+        torch.cuda.synchronize()
+        for what, x, y in zip(BWD_OUTPUTS, got_b, want_b):
+            assert torch.isfinite(x.float()).all(), what
+            assert (x.float() - y.float()).abs().max().item() <= BWD_RTOL * y.float().abs().max().item(), what
+
+
+@pytest.mark.cuda
+def test_bf16_kernels_with_no_live_row_return_zeros_without_a_launch():
+    _needs_card()
+    args, gout = _live_inputs("live_count_off_tiles")
+    args = _bf16(args)
+    args[4][:] = False
+    live = kfe.live_row_table(args[4])
+    before = kfe.fused_equiv_fwd.launches, kfe.fused_equiv_bwd.launches
+    assert not kfe.fused_equiv_fwd(*args, live_rows=live).any()
+    for slot in (None, _sort_tables(args[3], args[4], LIVE_SHAPES["live_count_off_tiles"][2]).bwd_slot):
+        assert not any(x.any() for x in kfe.fused_equiv_bwd(*args, gout, sorted_slot=slot, live_rows=live))
+    assert (kfe.fused_equiv_fwd.launches, kfe.fused_equiv_bwd.launches) == before
+
+
+@pytest.mark.cuda
+def test_bf16_forward_over_several_scratch_chunks_matches_plain_version(monkeypatch):
+    """A scratch cap of 1 MiB: with basis rows of 2-byte values the forward
+    walks its live rows in several chunks and gives the one-chunk result."""
+    _needs_card()
+    args, _ = _live_inputs("live_15pct_g2_wide")
+    args = _bf16(args)
+    live = kfe.live_row_table(args[4])
+    with torch.no_grad():
+        whole = kfe.fused_equiv_fwd(*args, live_rows=live)
+        monkeypatch.setattr(kfe, "FWD_SCRATCH_BYTES", 1 << 20)
+        got = kfe.fused_equiv_fwd(*args, live_rows=live)
+        torch.cuda.synchronize()
+        ref = kfe.fused_equiv_fwd_reference(*args)
+    _hold_bf16(got, ref, "chunks")
+    assert (got - whole).abs().max().item() <= 1e-5 * whole.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sorted_mode", [False, True])
+def test_bf16_conv_function_launches_the_bf16_kernels(sorted_mode, monkeypatch):
+    """Through the autograd Function: one bfloat16 forward and backward
+    launch; the feature gradient in bfloat16; in 'sorted' mode the prefix
+    sum reads the backward's bfloat16 buffer as it is."""
+    _needs_card()
+    args = _bf16(_inputs(*SHAPES["slice_like"], seed=0))
+    args[3] = torch.where(args[4], args[3], torch.zeros_like(args[3]))
+    tabs = _sort_tables(args[3], args[4], SHAPES["slice_like"][2])
+    for i in (2, 5, 6, 7):
+        args[i].requires_grad_()
+    payloads = []
+    real = kfe.sorted_segment_sum
+    monkeypatch.setattr(kfe, "sorted_segment_sum", lambda x, *a: (payloads.append(x.dtype), real(x, *a))[1])
+    before = (kfe.fused_equiv_fwd.bf16_launches, kfe.fused_equiv_bwd.bf16_launches,
+              segsum.blocked_cumsum.launches)
+    out = kfe.fused_equiv(*args, (tabs.bwd_slot, tabs.bwd_run_start, tabs.bwd_run_end) if sorted_mode else None)
+    out.square().sum().backward()
+    assert (kfe.fused_equiv_fwd.bf16_launches, kfe.fused_equiv_bwd.bf16_launches,
+            segsum.blocked_cumsum.launches) == (before[0] + 1, before[1] + 1, before[2] + sorted_mode)
+    assert payloads == ([torch.bfloat16] if sorted_mode else [])
+    assert args[2].grad.dtype == torch.bfloat16
+    assert all(args[i].grad.dtype == torch.float32 for i in (5, 6, 7))
+
+
+@pytest.mark.cuda
+def test_bf16_wrappers_reject_mixed_operand_dtypes():
+    _needs_card()
+    args = _bf16(_inputs(*SHAPES["slice_like"], seed=0))
+    with pytest.raises(TypeError):  # rel in float32 beside bfloat16 features
+        kfe.fused_equiv_fwd(args[0].float(), *args[1:])
+    with pytest.raises(TypeError):  # parameters stay float32
+        kfe.fused_equiv_fwd(*args[:5], args[5].to(torch.bfloat16), *args[6:])
+    with pytest.raises(TypeError):
+        kfe.fused_equiv_fwd(*args[:2], args[2].half(), *args[3:])
+    gout = torch.zeros(2, 300, 2, 32, device="cuda")
+    with pytest.raises(ValueError):  # gout stays float32
+        kfe.fused_equiv_bwd(*args, gout.to(torch.bfloat16))
