@@ -73,7 +73,7 @@ def side(root: str) -> int:
     fwd_ms, bwd_ms = {}, {}
     takes_table = "live_rows" in inspect.signature(kfe.fused_equiv_fwd).parameters
     for i, (name, (shp, live)) in enumerate(CONV_SHAPES.items()):
-        args, gout = cs.scannet_conv_args(i, shp, live, dev)
+        args, gout = cs.padded_conv_args(i, shp, live, dev)
         table = {"live_rows": kfe.live_row_table(args[4])}
         with torch.no_grad():
             fwd_ms[name] = cs.cuda_ms(lambda: kfe.fused_equiv_fwd(*args, **(table if takes_table else {})), 20)

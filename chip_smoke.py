@@ -3,11 +3,15 @@
 
 Drives the port's DFaust segmentation eval and training paths
 (``se3conv3d_tpu_torch``) at the full widths of
-``configs/dfaust/dfaust_I_rot_pca_2F.yaml``, then its ScanNet-20 eval and
-``scan_scenes`` training paths at the full widths and capacities of
-``configs/scannet/scannet20_rot_pca_I.yaml``, as the recipe is written
-(``compute_dtype: bfloat16``: the conv kernels' bfloat16 operand path) and
-in float32 beside it:
+``configs/dfaust/dfaust_I_rot_pca_2F.yaml``; the Monte-Carlo mixed-frame-count
+recipe ``configs/dfaust/dfaust_I_rot_MC_mixF.yaml`` as written (random
+SO(3) frames, 1, 2 or 4 frames per micro-batch, two micro-batches per
+optimizer step), with the conv kernels at G = F = 4; the ScanNet-20 recipe
+with random planar frames, ``configs/scannet/scannet20_rot_I.yaml``; then
+the ScanNet-20 eval and ``scan_scenes`` training paths at the full widths
+and capacities of ``configs/scannet/scannet20_rot_pca_I.yaml``, as the
+recipe is written (``compute_dtype: bfloat16``: the conv kernels' bfloat16
+operand path) and in float32 beside it.  In the order they run:
 
 1. builds the three kernel sources (conv forward, conv backward, blocked
    prefix sum) from ``kernels/csrc`` with ``nvcc``, one process per source,
@@ -43,6 +47,31 @@ in float32 beside it:
 8. checks that one train-mode forward and backward at B=2 gives the same
    parameter gradients on the card and on the CPU (plain path), with the
    same hierarchy and DropPath keep masks;
+15. holds both conv kernels at G = F = 4 (their 128-column instantiations)
+    against their plain versions at the mixF recipe's level-0 (B=16,
+    M=N=4096, C=O=32) and level-4 (M=N=128, C=O=256) block convs at the
+    synthetic bodies' fill, in float32 and in bfloat16 (with the control of
+    phase 2): the forward bitwise equal over two calls, the backward in both
+    output modes with its parameter gradients bitwise equal across modes
+    and calls, each timed beside its bound, its plain version and
+    ``torch.matmul`` in the same dtype for its products;
+16. builds the mixF recipe's model with ``build_model_from_config`` (on the
+    card by default), runs a calibration step at ``train_n_frames`` and
+    eval steps at ``test_n_frames`` on 16 bodies, prints a
+    ``draw_n_frames`` sequence, then trains with the recipe's ``Training``
+    section (``accum_grads: 2``) over micro-batches at the forced frame
+    counts 4, 4, 4, 2, 2, 2, 1, 1, 1, 4, 2, 1 (six optimizer steps): per
+    micro-batch 21 forward and 21 backward launches at G = F, the
+    parameters bitwise unchanged after each first micro-batch of a step and
+    all moved after each second, the schedule advanced once per step, every
+    BN running mean moved, the micro-batch time per F (the first of each F
+    left out) and the peak; then at F = 4 on two clouds rotation invariance
+    (with the frames left unrotated as the control), card vs CPU logits and
+    card vs CPU parameter gradients, at the bounds of phases 4, 5 and 8;
+17. builds ``scannet20_rot_I``'s bfloat16 model (one random frame about z
+    per point), runs phase 12 on it with a rotation about z, and one
+    ``scan_scenes`` train step on the 6 rooms in scatter mode (192 bfloat16
+    forward and backward launches);
 9. holds the conv kernels against their plain versions at the ScanNet
    level-0 and level-4 block convs and at a padded level-0 conv (the
    first 22,563 of 131,072 rows live, as the fullest synthetic room), in
@@ -195,6 +224,21 @@ BWD_RTOL = 1e-4
 # covers leaves whose true gradient is 0 (a bias just before a train-mode
 # BN): they hold only rounding noise.
 GRAD_RTOL, GRAD_FLOOR = 1e-3, 1e-2
+# the DFaust Monte-Carlo mixed-frame-count recipe
+# (configs/dfaust/dfaust_I_rot_MC_mixF.yaml, phase 16): its batch_size of 16
+# clouds a micro-batch, two micro-batches an optimizer step (accum_grads),
+# and the forced frame count of each micro-batch: every count of its
+# mix_n_frames, in pairs of one count and of two (six optimizer steps)
+MIXF_BATCH = 16
+MIXF_FRAMES = (4, 4, 4, 2, 2, 2, 1, 1, 1, 4, 2, 1)
+MIXF_EVAL_STEPS = 2
+# phase 15's convs at G = F = 4 (128 pne columns): the mixF recipe's level-0
+# and level-4 block convs, name: (B, M, N, K, G, F, Q, C, O, hierarchy level
+# whose fill of the synthetic bodies gives the live rows per example)
+G4_SHAPES = {
+    "mixf_level0_block_conv": ((MIXF_BATCH, 4096, 4096, 32, 4, 4, 32, 32, 32), 0),
+    "mixf_level4_block_conv": ((MIXF_BATCH, 128, 128, 32, 4, 4, 32, 256, 256), 4),
+}
 
 
 def card_line() -> str:
@@ -678,17 +722,18 @@ def scannet_recipes() -> dict:
     return {"bfloat16": written, "float32": {**written, "compute_dtype": "float32"}}
 
 
-def scannet_trainer(dev, room0, model_dict, steps=len(SCANNET_MODE_ORDER)):
+def scannet_trainer(dev, room0, model_dict, steps=len(SCANNET_MODE_ORDER), s_training=None):
     """Phase 13's trainer: a fresh seeded model of the ScanNet ``Model``
-    section ``model_dict`` from ``build_model_from_config``, the recipe's
-    optimizer over ``steps`` steps and ``scan_scenes``, calibrated on
-    ``room0``."""
+    section ``model_dict`` from ``build_model_from_config``, the optimizer
+    of the ``Training`` section ``s_training`` (by default
+    ``scannet20_rot_pca_I``'s) over ``steps`` steps and ``scan_scenes``,
+    calibrated on ``room0``."""
     from se3conv3d_tpu_torch.models import presets
     from se3conv3d_tpu_torch.train import schedule
     from se3conv3d_tpu_torch.train.config import build_model_from_config
     from se3conv3d_tpu_torch.train.trainer import Trainer
 
-    s_training = presets.SCANNET20_ROT_PCA_I_TRAINING
+    s_training = s_training or presets.SCANNET20_ROT_PCA_I_TRAINING
     model = seed_gammas(build_model_from_config(model_dict, presets.SCANNET_NUM_FEATURES,
                                                 presets.SCANNET20_NUM_CLASSES,
                                                 generator=torch.Generator().manual_seed(0)))
@@ -847,7 +892,7 @@ def scannet_conv_kernels(card, dev, dtype=torch.float32) -> dict:
 
     out = {}
     for i, (name, (shp, n_live)) in enumerate(scannet_conv_cases().items()):
-        args, gout = scannet_conv_args(i, shp, n_live, dev, dtype)
+        args, gout = padded_conv_args(i, shp, n_live, dev, dtype)
         live = kfe.live_row_table(args[4])
         bounds = conv_bounds(shp, args[4], dtype)
         out[name] = dict(
@@ -868,10 +913,10 @@ def scannet_conv_cases() -> dict:
     return cases
 
 
-def scannet_conv_args(i, shp, n_live, dev, dtype=torch.float32) -> tuple:
+def padded_conv_args(i, shp, n_live, dev, dtype=torch.float32) -> tuple:
     """The seeded operands (rel, rot6 and feats in ``dtype``) and ``gout`` of
-    phase 9's ``i``-th conv; rows past ``n_live`` (if given) are padding,
-    with no valid edge."""
+    the ``i``-th conv of phase 9 (``i`` < 10) or 15; rows past ``n_live``
+    (if given) of each example are padding, with no valid edge."""
     b, m, n, k, g, f, q, c, o = shp
     args = as_operands(conv_inputs(*shp, seed=40 + i, dev=dev), dtype)
     if n_live is not None:
@@ -890,7 +935,7 @@ def scannet_conv_passes(card, dev, conv: dict, dtype=torch.float32) -> None:
     from se3conv3d_tpu_torch.kernels import fused_equiv as kfe
 
     for i, (name, (shp, n_live)) in enumerate(scannet_conv_cases().items()):
-        args, gout = scannet_conv_args(i, shp, n_live, dev, dtype)
+        args, gout = padded_conv_args(i, shp, n_live, dev, dtype)
         live = kfe.live_row_table(args[4])
         with torch.no_grad():
             runs = {"fwd": (lambda: kfe.fused_equiv_fwd(*args, live_rows=live), FWD_PASSES + WEIGHT_COPY_PASSES),
@@ -1179,18 +1224,21 @@ def computing_in(model, dtype):
 
 
 def reset_launches(kfe, segsum=None) -> None:
-    """Every kernel launch count to 0 (all, and those with bfloat16 operands)."""
+    """Every kernel launch count to 0 (all, those with bfloat16 operands, and
+    those by out-frame count G)."""
     for fn in (kfe.fused_equiv_fwd, kfe.fused_equiv_bwd):
         fn.launches = fn.bf16_launches = 0
+        fn.launches_by_g = {}
     if segsum is not None:
         segsum.blocked_cumsum.launches = 0
 
 
-def scannet_eval(card, dev, model, trainer, scene, kfe, num_classes) -> dict:
-    """12. calibration and eval steps on one room, rotation invariance, and
-    card vs CPU logits on a smaller room, in the dtype of the model's convs
+def scannet_eval(card, dev, model, trainer, scene, kfe, num_classes, rot=None, name="scannet") -> dict:
+    """12. calibration and eval steps on one room, invariance under the
+    global rotation ``rot`` (by default a seeded uniform one), and card vs
+    CPU logits on a smaller room, in the dtype of the model's convs
     (bfloat16: every forward launch is a bfloat16 one, and the logits are
-    held at the bfloat16 bounds)."""
+    held at the bfloat16 bounds); ``name`` heads the printed lines."""
     from se3conv3d_tpu_torch.core.hierarchy import Hierarchy, rotate_cloud, rotate_hierarchy
     from se3conv3d_tpu_torch.core.pointcloud import PointCloud
     from se3conv3d_tpu_torch.core.rotation import random_rotations
@@ -1219,7 +1267,7 @@ def scannet_eval(card, dev, model, trainer, scene, kfe, num_classes) -> dict:
     peak = torch.cuda.max_memory_allocated()
     median_s = statistics.median(step_s)
     logits = outs["logits"]
-    print(f"scannet_eval {dname}: calibration_step {calib_s:.4f} s, eval_step median {median_s:.4f} s (all "
+    print(f"{name}_eval {dname}: calibration_step {calib_s:.4f} s, eval_step median {median_s:.4f} s (all "
           f"{[round(s, 4) for s in step_s]}), {SCENE_POINTS / median_s:.1f} input points/s, peak "
           f"memory {peak / 2**30:.3f} GiB, loss {float(outs['loss']):.4f}; fwd kernel launches "
           f"{launches} = {calib_launches} + {launches - calib_launches}, {bf16_launches} of them "
@@ -1233,7 +1281,8 @@ def scannet_eval(card, dev, model, trainer, scene, kfe, num_classes) -> dict:
         raise SystemExit(f"bad ScanNet logits: shape {tuple(logits.shape)}")
 
     h, f0, out_pc, _, _ = trainer.build(scene, torch.Generator(device=dev).manual_seed(71), train=False)
-    rot = random_rotations(1, generator=torch.Generator().manual_seed(72))[0].to(dev)
+    if rot is None:
+        rot = random_rotations(1, generator=torch.Generator().manual_seed(72))[0].to(dev)
     searches = SharedSearches()
     with torch.no_grad(), searches.recording():
         base = model(h, f0, out_pc)
@@ -1253,7 +1302,7 @@ def scannet_eval(card, dev, model, trainer, scene, kfe, num_classes) -> dict:
     unframed_err = (base - unframed).abs()[valid].max().item()
     scale = base[valid].abs().max().item()
     rot_bound = BF16_ROT_RTOL * scale if bf16 else ROT_ATOL
-    print(f"scannet_invariance {dname}: max |logits - logits(rotated)| = {rot_err:.3e} (bound "
+    print(f"{name}_invariance {dname}: max |logits - logits(rotated)| = {rot_err:.3e} (bound "
           f"{rot_bound:.3e}{f' = {BF16_ROT_RTOL} x max|logits|' if bf16 else ''}; max |logits| "
           f"{scale:.3e}) over {int(valid.sum())} valid output points, the rotated forward reusing "
           f"the unrotated forward's neighbor tables (its geometry recomputed); with its own searches "
@@ -1271,7 +1320,7 @@ def scannet_eval(card, dev, model, trainer, scene, kfe, num_classes) -> dict:
     room = to_device({k: v[None] for k, v in room_scene(SMALL_ROOM_POINTS, 73, (4.0, 4.0, 2.5)).items()}, dev)
     h, f0, out_pc, _, _ = type(trainer)(model, small_cfg).build(
         room, torch.Generator(device=dev).manual_seed(74), train=False)
-    print(f"scannet_card_vs_cpu room: {occupancy_line(h, out_pc)}")
+    print(f"{name}_card_vs_cpu room: {occupancy_line(h, out_pc)}")
     valid = out_pc.mask.cpu()
     cpu_model, cpu_h, cpu_f0, cpu_out = copy.deepcopy(model).cpu(), h.to("cpu"), f0.cpu(), out_pc.to("cpu")
     with torch.no_grad():
@@ -1286,7 +1335,7 @@ def scannet_eval(card, dev, model, trainer, scene, kfe, num_classes) -> dict:
     diff = (card_logits - cpu_logits).abs()[valid]
     cpu_err, scale = diff.max().item(), cpu_logits[valid].abs().max().item()
     cpu_bound = BF16_CPU_RTOL * scale if bf16 else CPU_ATOL
-    print(f"scannet_card_vs_cpu {dname}: max |logits(card) - logits(cpu)| = {cpu_err:.3e} (bound "
+    print(f"{name}_card_vs_cpu {dname}: max |logits(card) - logits(cpu)| = {cpu_err:.3e} (bound "
           f"{cpu_bound:.3e}{f' = {BF16_CPU_RTOL} x max|logits|' if bf16 else ''}"
           + (f"; {control_text(cpu_err, control)}" if bf16 else "")
           + f"), mean {diff.mean().item():.3e}, max |logits| {scale:.3e}; CPU forward {cpu_s:.1f} s "
@@ -1298,10 +1347,12 @@ def scannet_eval(card, dev, model, trainer, scene, kfe, num_classes) -> dict:
                 rotation_control=unframed_err)
 
 
-def scannet_train(card, dev, trainer, batch, kfe, segsum, ops, order=SCANNET_MODE_ORDER) -> dict:
+def scannet_train(card, dev, trainer, batch, kfe, segsum, ops, order=SCANNET_MODE_ORDER,
+                  name="scannet_train") -> dict:
     """13. scan_scenes train steps, the backward modes in turns (``order``),
     in the dtype of the model's convs: with bfloat16 convs every conv launch
-    is a bfloat16 one and every prefix sum reads bfloat16 rows."""
+    is a bfloat16 one and every prefix sum reads bfloat16 rows; ``name``
+    heads the printed lines."""
     from se3conv3d_tpu_torch.nn.norm import MaskedBatchNorm
 
     model = trainer.model
@@ -1329,7 +1380,7 @@ def scannet_train(card, dev, trainer, batch, kfe, segsum, ops, order=SCANNET_MOD
         n_bf16 = (getattr(kfe.fused_equiv_fwd, "bf16_launches", 0), getattr(kfe.fused_equiv_bwd, "bf16_launches", 0))
         loss, gnorm = float(out["loss"]), float(out["grad_norm"])
         peak = torch.cuda.max_memory_allocated()
-        print(f"scannet_train {dname}: step {step} mode {mode} lr {lr:.6e} loss {loss:.6f} grad_norm "
+        print(f"{name} {dname}: step {step} mode {mode} lr {lr:.6e} loss {loss:.6f} grad_norm "
               f"{gnorm:.6f} launches fwd {n[0]} bwd {n[1]} cumsum {n[2]} (bfloat16: fwd {n_bf16[0]} bwd "
               f"{n_bf16[1]}; prefix-sum payloads {sorted(set(payloads))}) time {dt:.4f} s peak "
               f"{peak / 2**30:.3f} GiB [{card}]", flush=True)
@@ -1348,14 +1399,16 @@ def scannet_train(card, dev, trainer, batch, kfe, segsum, ops, order=SCANNET_MOD
     ops.BWD_SCATTER_MODE = "scatter"
     result = {}
     for mode in counts:
+        if not times[mode]:
+            continue
         med = statistics.median(times[mode])
-        print(f"scannet_train {dname}: mode {mode}: step median {med:.4f} s (all "
+        print(f"{name} {dname}: mode {mode}: step median {med:.4f} s (all "
               f"{[round(x, 4) for x in times[mode]]}), {SCENES * SCENE_POINTS / med:.1f} input points/s, "
               f"peak memory {peaks[mode] / 2**30:.3f} GiB [{card}]", flush=True)
         result[mode] = dict(step_s=med, all_s=times[mode], peak_gib=peaks[mode] / 2**30,
                             launches=counts[mode])
     still = [n for n, mod in bns.items() if torch.equal(mod.mean, bn_before[n])]
-    print(f"scannet_train {dname}: {len(bns) - len(still)} of {len(bns)} BN running means moved")
+    print(f"{name} {dname}: {len(bns) - len(still)} of {len(bns)} BN running means moved")
     if still:
         raise SystemExit(f"BN running mean did not move: {still[:5]}")
     return result
@@ -1394,12 +1447,14 @@ def watching_live_rows(kfe, name="fused_equiv_bwd"):
     # the wrapper counts its launches on the module's attribute `name`:
     # here that is `watched`, which carries the counts and hands them back
     watched.launches, watched.bf16_launches = real.launches, real.bf16_launches
+    watched.launches_by_g = getattr(real, "launches_by_g", {})
     setattr(kfe, name, watched)
     try:
         yield seen
     finally:
         setattr(kfe, name, real)
         real.launches, real.bf16_launches = watched.launches, watched.bf16_launches
+        real.launches_by_g = watched.launches_by_g
 
 
 def check_live_rows(card, label, seen, want) -> tuple:
@@ -1639,12 +1694,278 @@ def run_scannet(card, dev, recorded_draws, drop_path_draws) -> dict:
     return dict(conv=scan_conv, cumsum=scan_cumsum, grid=grid, eval=scan_eval, train=scan_train)
 
 
-def kernels_line(dfaust: dict, scan: dict) -> dict:
+def mixf_fill(dev, batch) -> list:
+    """Max valid points per hierarchy level of the mixF recipe's batch
+    (the positions do not depend on the frames): the live rows per example
+    of phase 15's convs."""
+    from se3conv3d_tpu_torch.core.hierarchy import build_hierarchy
+    from se3conv3d_tpu_torch.models import presets
+
+    hcfg = presets.hierarchy_config_from_model_dict(presets.DFAUST_I_ROT_MC_MIXF_MODEL, POINTS)
+    h = build_hierarchy(batch["positions"], batch["mask"], batch["features"], hcfg,
+                        generator=torch.Generator(device=dev).manual_seed(13))[0]
+    return [int(pc.mask.sum(1).max()) for pc in h.levels]
+
+
+def g4_conv_kernels(card, dev, fill) -> dict:
+    """15. both conv kernels at G = F = 4 (their 128-column instantiations)
+    vs their plain versions at the mixF recipe's level-0 and level-4 block
+    convs, ``fill[level]`` live rows per example (the synthetic bodies'
+    fill; the rows past it are padding), in float32 and in bfloat16 (with
+    the control of phase 2): the forward bitwise equal over two calls, the
+    backward in both output modes with its parameter gradients bitwise
+    equal across modes and calls, each timed beside its bound, its plain
+    version and ``torch.matmul`` in the same dtype for its products
+    (:func:`forward_vs_plain`, :func:`backward_vs_plain`)."""
+    from se3conv3d_tpu_torch.kernels import fused_equiv as kfe
+
+    out = {dtype_name(dt): {} for dt in KERNEL_DTYPES}
+    for dt in KERNEL_DTYPES:
+        for i, (name, (shp, level)) in enumerate(G4_SHAPES.items()):
+            args, gout = padded_conv_args(10 + i, shp, fill[level], dev, dt)
+            live = kfe.live_row_table(args[4])
+            bounds = conv_bounds(shp, args[4], dt)
+            out[dtype_name(dt)][name] = dict(
+                fwd=forward_vs_plain(card, f"g4_fwd_kernel_vs_plain {name}", shp, args, live,
+                                     bounds["fwd"], 66 + i),
+                bwd=backward_vs_plain(card, f"g4_bwd_kernel_vs_plain {name}", shp, args, gout, live,
+                                      bounds["bwd"], 68 + i),
+            )
+            del args, gout, live
+            torch.cuda.empty_cache()
+    return out
+
+
+def dfaust_mixf(card, dev, batch, small, recorded_draws) -> dict:
+    """16. ``configs/dfaust/dfaust_I_rot_MC_mixF.yaml`` as written: the model
+    from ``build_model_from_config`` (on the card by default) with random
+    SO(3) frames, one calibration step at ``train_n_frames`` and eval steps
+    at ``test_n_frames``, then the recipe's ``Training`` section (B = 16,
+    ``accum_grads: 2``) over the micro-batches of ``MIXF_FRAMES``, each at
+    its frame count: per micro-batch 21 forward and 21 backward launches,
+    all at G = F; after each first micro-batch of a step the parameters are
+    bitwise unchanged and the schedule stays, after each second they have
+    all moved and the schedule advanced once; every BN running mean moves.
+    Then at F = 4 on the two clouds of ``small``: rotation invariance of the
+    logits (with the frames left unrotated as the control), card vs CPU
+    logits and card vs CPU parameter gradients, at the bounds of phases 4,
+    5 and 8."""
+    from se3conv3d_tpu_torch.core.hierarchy import Hierarchy, rotate_cloud, rotate_hierarchy
+    from se3conv3d_tpu_torch.core.pointcloud import PointCloud
+    from se3conv3d_tpu_torch.core.rotation import random_rotations
+    from se3conv3d_tpu_torch.kernels import fused_equiv as kfe
+    from se3conv3d_tpu_torch.models import presets
+    from se3conv3d_tpu_torch.nn.blocks import DropPathDraws
+    from se3conv3d_tpu_torch.nn.norm import MaskedBatchNorm
+    from se3conv3d_tpu_torch.train import schedule
+    from se3conv3d_tpu_torch.train.config import build_model_from_config
+    from se3conv3d_tpu_torch.train.trainer import Trainer, draw_n_frames
+
+    model_dict, training = presets.DFAUST_I_ROT_MC_MIXF_MODEL, presets.DFAUST_I_ROT_MC_MIXF_TRAINING
+    mix, accum = presets.mix_n_frames(model_dict), int(training["accum_grads"])
+    rf = model_dict["RefFrames"]
+    if (set(MIXF_FRAMES) != set(mix) or len(MIXF_FRAMES) % accum or rf["pca"]
+            or batch["mask"].shape[0] != training["batch_size"]):
+        raise SystemExit("phase 16 does not drive the mixF recipe as written")
+    rng = np.random.default_rng(0)
+    drawn = [draw_n_frames(mix, rng) for _ in range(24)]
+    print(f"mixf: {model_dict['model']}, RefFrames {rf}; batch_size {training['batch_size']}, "
+          f"accum_grads {accum}; draw_n_frames from numpy seed 0: {drawn}; the run forces "
+          f"{list(MIXF_FRAMES)} [{card}]", flush=True)
+    model = seed_gammas(build_model_from_config(model_dict, 1, CLASSES,
+                                                generator=torch.Generator().manual_seed(0)))
+    if next(model.parameters()).device.type != dev.type:
+        raise SystemExit("build_model_from_config did not put the mixF model on the card")
+    opt = schedule.optimizer_from_training(model.parameters(), training, len(MIXF_FRAMES))
+    hcfg = presets.hierarchy_config_from_model_dict(model_dict, POINTS, train=True)
+    trainer = Trainer(model, hcfg, presets.hierarchy_config_from_model_dict(model_dict, POINTS, train=False),
+                      label_smoothing=training["label_smoothing"], optimizer=opt)
+    gen = torch.Generator(device=dev).manual_seed(14)
+
+    # calibration at train_n_frames, eval at test_n_frames
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(kfe)
+    trainer.calibration_step(batch, gen)
+    calib_by_g = dict(kfe.fused_equiv_fwd.launches_by_g)
+    eval_s, outs = [], None
+    for _ in range(MIXF_EVAL_STEPS):
+        t0 = time.perf_counter()
+        outs = trainer.eval_step(batch, gen)
+        torch.cuda.synchronize()
+        eval_s.append(time.perf_counter() - t0)
+    eval_by_g = {g: n - calib_by_g.get(g, 0) for g, n in kfe.fused_equiv_fwd.launches_by_g.items()}
+    eval_peak = torch.cuda.max_memory_allocated()
+    logits = outs["logits"]
+    print(f"mixf: calibration launches by G {calib_by_g}, {MIXF_EVAL_STEPS} eval steps' launches by G "
+          f"{eval_by_g}; eval_step {[round(x, 4) for x in eval_s]} s, peak {eval_peak / 2**30:.3f} GiB, "
+          f"loss {float(outs['loss']):.4f} [{card}]", flush=True)
+    if calib_by_g != {rf["train_n_frames"]: CONVS_PER_FORWARD} or eval_by_g != {
+            rf["test_n_frames"]: CONVS_PER_FORWARD * MIXF_EVAL_STEPS}:
+        raise SystemExit("mixF calibration or eval did not run its convs at train_n_frames / test_n_frames")
+    if tuple(logits.shape) != (training["batch_size"], POINTS, CLASSES) or not torch.isfinite(logits).all():
+        raise SystemExit(f"bad mixF logits: shape {tuple(logits.shape)}")
+    if not all(bool(m.initialized) for m in model.modules() if hasattr(m, "initialized")):
+        raise SystemExit("a mixF conv was not calibrated")
+
+    # training: one micro-batch per frame count of MIXF_FRAMES
+    params = [p for p in model.parameters() if p.requires_grad]
+    bns = {n: mod for n, mod in model.named_modules() if isinstance(mod, MaskedBatchNorm)}
+    bn_before = {n: mod.mean.clone() for n, mod in bns.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, by_g = {f: [] for f in sorted(set(MIXF_FRAMES))}, ({}, {})
+    for i, f in enumerate(MIXF_FRAMES):
+        before = [p.detach().clone() for p in params]
+        updates, lr = opt.scheduler.last_epoch, opt.lr
+        reset_launches(kfe)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = trainer.train_step(batch, gen, n_frames=f)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        fwd, bwd = dict(kfe.fused_equiv_fwd.launches_by_g), dict(kfe.fused_equiv_bwd.launches_by_g)
+        loss, gnorm = float(out["loss"]), float(out["grad_norm"])
+        moved = sum(not torch.equal(p, q) for p, q in zip(params, before))
+        advanced = opt.scheduler.last_epoch - updates
+        update = (i + 1) % accum == 0
+        print(f"mixf_train: micro-batch {i} F={f} lr {lr:.6e} loss {loss:.6f} grad_norm {gnorm:.6f} "
+              f"launches by G fwd {fwd} bwd {bwd}; {'update' if update else 'accumulate'}: {moved} of "
+              f"{len(params)} parameter leaves moved, schedule advanced {advanced} time {dt:.4f} s "
+              f"[{card}]", flush=True)
+        if fwd != {f: CONVS_PER_FORWARD} or bwd != {f: CONVS_PER_FORWARD}:
+            raise SystemExit(f"mixF micro-batch {i}: launches by G fwd {fwd} bwd {bwd}, expected "
+                             f"{CONVS_PER_FORWARD} each at G={f}")
+        if not (np.isfinite(loss) and np.isfinite(gnorm)):
+            raise SystemExit("non-finite loss or gradients in a mixF micro-batch")
+        if (moved, advanced) != ((len(params), 1) if update else (0, 0)):
+            raise SystemExit(f"mixF micro-batch {i}: {moved} leaves moved, schedule advanced {advanced}; "
+                             f"expected {'every leaf and once' if update else 'none and not'}")
+        times[f].append(dt)
+        for total, step in zip(by_g, (fwd, bwd)):
+            for g, n in step.items():
+                total[g] = total.get(g, 0) + n
+    peak = torch.cuda.max_memory_allocated()
+    still = [n for n, mod in bns.items() if torch.equal(mod.mean, bn_before[n])]
+    steady = {f: statistics.median(ts[1:]) for f, ts in times.items()}
+    print(f"mixf_train: micro-batch time by F after the first of each F "
+          + ", ".join(f"F={f} {steady[f]:.4f} s (all {[round(x, 4) for x in ts]})" for f, ts in times.items())
+          + f"; {training['batch_size'] * POINTS / steady[4]:.1f} input points/s at F=4; peak memory "
+          f"{peak / 2**30:.3f} GiB; {len(bns) - len(still)} of {len(bns)} BN running means moved "
+          f"[{card}]", flush=True)
+    if still:
+        raise SystemExit(f"mixF: BN running mean did not move: {still[:5]}")
+
+    # F = 4 on two clouds: invariance, card vs CPU logits and gradients
+    h, f0, out_pc, _, _ = trainer.build(small, torch.Generator(device=dev).manual_seed(15), train=False,
+                                        n_frames=4)
+    if h.levels[0].frames.shape[2] != 4:
+        raise SystemExit("the F = 4 checks did not build 4 frames")
+    model.eval()
+    with torch.no_grad():
+        base = model(h, f0, out_pc)
+        rot = random_rotations(1, generator=torch.Generator().manual_seed(16))[0].to(dev)
+        rotated = model(rotate_hierarchy(h, rot), f0, rotate_cloud(out_pc, rot))
+        unframed = model(Hierarchy(tuple(PointCloud(pc.positions @ rot.T, pc.mask, pc.frames)
+                                         for pc in h.levels), h.maps, h.levels_radii),
+                         f0, PointCloud(out_pc.positions @ rot.T, out_pc.mask, out_pc.frames))
+        valid = out_pc.mask
+        rot_err = (base - rotated).abs()[valid].max().item()
+        unframed_err = (base - unframed).abs()[valid].max().item()
+        cpu_model = copy.deepcopy(model).cpu()
+        cpu_logits = cpu_model(h.to("cpu"), f0.cpu(), out_pc.to("cpu"))
+        cpu_err = (base.cpu() - cpu_logits).abs()[valid.cpu()].max().item()
+    print(f"mixf_invariance F=4: max |logits - logits(rotated)| = {rot_err:.3e} (bound {ROT_ATOL}); "
+          f"control, the positions rotated and the frames not: {unframed_err:.3e} [{card}]", flush=True)
+    print(f"mixf_card_vs_cpu F=4: max |logits(card) - logits(cpu)| = {cpu_err:.3e} (bound {CPU_ATOL}), "
+          f"max |logits| {base.abs().max().item():.3e} [{card}]", flush=True)
+    if not rot_err <= ROT_ATOL < unframed_err:
+        raise SystemExit("mixF logits change under a global rotation at F = 4, or the bound does not "
+                         "tell a model that ignores the frames' rotation")
+    if not cpu_err <= CPU_ATOL:
+        raise SystemExit("mixF card and CPU logits disagree at F = 4")
+    del base, rotated, unframed, cpu_logits, h, f0, out_pc
+
+    h, f0, out_pc, out_labels, _ = trainer.build(small, torch.Generator(device=dev).manual_seed(17),
+                                                 n_frames=4)
+    draws = recorded_draws(torch.Generator(device=dev).manual_seed(18))
+    card_loss = float(trainer.backward(h, f0, out_pc, out_labels, draws))
+    cpu_trainer = Trainer(cpu_model, hcfg, label_smoothing=training["label_smoothing"])
+    cpu_loss = float(cpu_trainer.backward(h.to("cpu"), f0.cpu(), out_pc.to("cpu"), out_labels.cpu(),
+                                          DropPathDraws(keep_masks=draws.masks)))
+    cpu_grads = {n: p.grad for n, p in cpu_model.named_parameters()}
+    grads = {n: p.grad.cpu() for n, p in model.named_parameters() if p.grad is not None}
+    if set(grads) != set(cpu_grads) or not all(torch.isfinite(g).all() for g in grads.values()):
+        raise SystemExit("missing or non-finite mixF gradients at F = 4")
+    norm = float(schedule.global_norm(list(cpu_grads.values())))
+    worst, worst_name = grads_ratio(grads, cpu_grads, norm)
+    print(f"mixf_grads_card_vs_cpu F=4: loss card {card_loss:.6f} cpu {cpu_loss:.6f}; {len(cpu_grads)} "
+          f"leaves, global norm {norm:.6f}, {len(draws.masks)} DropPath masks; worst max|card - cpu| / "
+          f"max(max|cpu leaf|, {GRAD_FLOOR} * norm) = {worst:.3e} at {worst_name} (bound {GRAD_RTOL}) "
+          f"[{card}]", flush=True)
+    if not (worst <= GRAD_RTOL and abs(card_loss - cpu_loss) <= GRAD_RTOL * abs(cpu_loss)):
+        raise SystemExit("mixF card and CPU gradients disagree at F = 4")
+    return dict(eval_s=eval_s, eval_peak_gib=eval_peak / 2**30, step_s_by_f=steady, all_s_by_f=times,
+                peak_gib=peak / 2**30, eval_launches=sum(calib_by_g.values()) + sum(eval_by_g.values()),
+                train_launches=tuple(sum(x.values()) for x in by_g), train_launches_by_g=by_g,
+                rotation_max_abs_err=rot_err, rotation_control=unframed_err, card_vs_cpu_max_abs_err=cpu_err,
+                grads_card_vs_cpu=worst)
+
+
+def scannet_rot_i(card, dev) -> dict:
+    """17. ``configs/scannet/scannet20_rot_I.yaml`` as written (bfloat16
+    convs, one random planar frame about z per point): calibration and eval
+    on one room, invariance under a rotation about z (with the frames left
+    unrotated as the control) and card vs CPU logits on the small room of
+    phase 12 (:func:`scannet_eval`), then one ``scan_scenes`` train step on
+    the 6 rooms in scatter mode, 192 bfloat16 forward and backward launches
+    (:func:`scannet_train`)."""
+    from se3conv3d_tpu_torch.core.rotation import planar_rotations
+    from se3conv3d_tpu_torch.kernels import fused_equiv as kfe
+    from se3conv3d_tpu_torch.kernels import segsum
+    from se3conv3d_tpu_torch.models import presets
+    from se3conv3d_tpu_torch.ops import pne_conv as ops
+    from se3conv3d_tpu_torch.train.config import build_model_from_config
+    from se3conv3d_tpu_torch.train.trainer import Trainer
+
+    model_dict, training = presets.SCANNET20_ROT_I_MODEL, presets.SCANNET20_ROT_I_TRAINING
+    frames = presets.frame_config_from_dict(model_dict["RefFrames"])
+    if frames.pca or frames.fixed_axis != 2 or frames.n_frames != 1 or model_dict["compute_dtype"] != "bfloat16":
+        raise SystemExit("the pinned scannet20_rot_I recipe is not bfloat16 with one random frame about z")
+    rooms = scannet_rooms(dev)
+    room0 = {k: v[:1] for k, v in rooms.items()}
+    feats, classes = presets.SCANNET_NUM_FEATURES, presets.SCANNET20_NUM_CLASSES
+    model = seed_gammas(build_model_from_config(model_dict, feats, classes,
+                                                generator=torch.Generator().manual_seed(0)))
+    if next(model.parameters()).device.type != dev.type or not bf16_convs(model):
+        raise SystemExit("build_model_from_config did not build the bfloat16 scannet20_rot_I model on the card")
+    trainer = Trainer(model, presets.hierarchy_config_from_model_dict(model_dict, SCENE_POINTS, train=True),
+                      presets.hierarchy_config_from_model_dict(model_dict, SCENE_POINTS, train=False),
+                      label_smoothing=training["label_smoothing"], ignore_label=presets.SCANNET20_IGNORE_LABEL)
+    h = trainer.build(room0, torch.Generator(device=dev).manual_seed(76), train=False)[0]
+    up = h.levels[0].frames[..., :, 2]
+    if not (up == torch.tensor([0.0, 0.0, 1.0], device=dev)).all():
+        raise SystemExit("a scannet20_rot_I frame does not keep the z axis")
+    del h, up
+    rot = planar_rotations(1, 2, generator=torch.Generator().manual_seed(75))[0].to(dev)
+    ev = scannet_eval(card, dev, model, trainer, room0, kfe, classes, rot=rot, name="scannet20_rot_I")
+    del model, trainer
+    torch.cuda.empty_cache()
+    trainer = scannet_trainer(dev, room0, model_dict, 1, training)
+    train = scannet_train(card, dev, trainer, rooms, kfe, segsum, ops, ("scatter",), "scannet20_rot_I_train")
+    del trainer, rooms
+    torch.cuda.empty_cache()
+    return dict(eval=ev, train=train)
+
+
+def kernels_line(dfaust: dict, scan: dict, mixf: dict, rot_i: dict, g4: dict) -> dict:
     """The ``{"kernels": [...]}`` object: every kernel with its launches on
     the main paths, its error against its plain version, and its times at
     the ScanNet level-0 shape (float32), with the same for its bfloat16
     instantiation under ``"bf16"`` (each conv kernel's errors over the
-    DFaust and ScanNet shapes of phases 2, 6 and 9 in that dtype)."""
+    DFaust and ScanNet shapes of phases 2, 6 and 9 in that dtype), and the
+    conv kernels' G = 4 instantiations under ``"g4"`` (their launches on the
+    mixF path, their times at the mixF level-0 shape of phase 15)."""
     compared, bwd_compared = dfaust["fwd"], dfaust["bwd"]
     scan_conv, scan_cumsum, scan_train, scan_eval = scan["conv"], scan["cumsum"], scan["train"], scan["eval"]
     lvl0 = SCANNET_SHAPES["scannet_level0_block_conv"]
@@ -1656,6 +1977,13 @@ def kernels_line(dfaust: dict, scan: dict) -> dict:
             every["dfaust_eval"] = dfaust["eval_launches"] if which == 0 else 0
             every["dfaust_train"] = dfaust["train_launches"][which]
             every["dfaust_train_bf16"] = bf16["dfaust_train_bf16"] = dfaust["bf16_train_launches"][which]
+            every["dfaust_mixf_eval"] = mixf["eval_launches"] if which == 0 else 0
+            every["dfaust_mixf_train"] = mixf["train_launches"][which]
+            # every launch of the scannet20_rot_I path is a bfloat16 one (gated)
+            every["scannet20_rot_I_eval_bfloat16"] = bf16["scannet20_rot_I_eval_bfloat16"] = (
+                rot_i["eval"]["launches"] if which == 0 else 0)
+            every["scannet20_rot_I_train_bfloat16_scatter"] = bf16["scannet20_rot_I_train_bfloat16_scatter"] = (
+                rot_i["train"]["scatter"]["launches"][which])
         for dt in SCANNET_DTYPES:
             if which == 0:
                 every[f"scannet_eval_{dt}"] = scan_eval[dt]["launches"]
@@ -1674,6 +2002,16 @@ def kernels_line(dfaust: dict, scan: dict) -> dict:
         by_shape = {dt: {**dfaust_shapes[dt], **{k: v[kind] for k, v in scan_conv[dt].items()}}
                     for dt in SCANNET_DTYPES}
         f0, b0 = by_shape["float32"]["scannet_level0_block_conv"], by_shape["bfloat16"]["scannet_level0_block_conv"]
+        g4_shapes = {dt: {k: v[kind] for k, v in g4[dt].items()} for dt in SCANNET_DTYPES}
+        g4_at = f"mixf level-0 block conv B,M,N,K,G,F,Q,C,O={G4_SHAPES['mixf_level0_block_conv'][0]}"
+
+        def g4_entry(dt):
+            x = g4_shapes[dt]["mixf_level0_block_conv"]
+            return {"max_abs_err": max(v["max_abs_err"] for v in g4_shapes[dt].values()),
+                    "ms": x["ms"], "plain_ms": x["plain_ms"], "bound_ms": x["bound_ms"],
+                    "bound_by": x["bound_by"], "library_ms": x[lib_key], "at": g4_at,
+                    "by_shape": g4_shapes[dt]}
+
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(every.values()), "launches_by_path": every,
@@ -1688,6 +2026,11 @@ def kernels_line(dfaust: dict, scan: dict) -> dict:
                 "bound_by": b0["bound_by"], "bound_split_ms": b0["bound_f32_ms"],
                 "library_ms": b0[lib_key], "library_call": lib_call.format("bfloat16"),
                 "at": at, "by_shape": by_shape["bfloat16"],
+            },
+            "g4": {
+                "launches": mixf["train_launches_by_g"][which].get(4, 0),
+                "launches_by_g": {"dfaust_mixf_train": mixf["train_launches_by_g"][which]},
+                "float32": g4_entry("float32"), "bfloat16": g4_entry("bfloat16"),
             },
         }
 
@@ -1719,7 +2062,7 @@ def kernels_line(dfaust: dict, scan: dict) -> dict:
                      "bound_ms": c0b["bound_ms"], "bound_by": "bytes", "library_ms": c0b["library_ms"],
                      "at": cum_at + " bfloat16 rows"},
         }], "scannet": {"eval": scan_eval, "train": scan_train, "grid_vs_brute": scan["grid"]},
-        "dfaust": {"train_bf16": dfaust["bf16_train"]}}
+        "dfaust": {"train_bf16": dfaust["bf16_train"]}, "dfaust_mixf": mixf, "scannet20_rot_I": rot_i}
 
 
 def main() -> int:
@@ -1868,14 +2211,26 @@ def main() -> int:
     if not (worst <= GRAD_RTOL and abs(card_loss - cpu_loss) <= GRAD_RTOL * abs(cpu_loss)):
         raise SystemExit("card and CPU gradients disagree")
 
-    del model, trainer, cpu_model, h, f0, out_pc, out_labels, small, batch
+    del model, trainer, cpu_model, h, f0, out_pc, out_labels, batch
     torch.cuda.empty_cache()
+
+    # 15.-16. the DFaust Monte-Carlo mixed-frame-count recipe: the conv
+    # kernels at G = F = 4, then the recipe as written
+    mixf_batch = to_device(body_batch(MIXF_BATCH, POINTS, seed=12), dev)
+    fill = mixf_fill(dev, mixf_batch)
+    print(f"mixf: max valid points per level {fill} [{card}]", flush=True)
+    g4 = g4_conv_kernels(card, dev, fill)
+    mixf = dfaust_mixf(card, dev, mixf_batch, small, RecordedDraws)
+    del mixf_batch, small
+    torch.cuda.empty_cache()
+    # 17. the ScanNet recipe with random planar frames
+    rot_i = scannet_rot_i(card, dev)
 
     scan = run_scannet(card, dev, RecordedDraws, DropPathDraws)
     dfaust = dict(fwd=compared, bwd=bwd_compared, eval_launches=launches,
                   train_launches=dfaust_steps["launches"], bf16_train_launches=dfaust_bf16["bf16_launches"],
                   bf16_train=dfaust_bf16)
-    print(json.dumps(kernels_line(dfaust, scan)))
+    print(json.dumps(kernels_line(dfaust, scan, mixf, rot_i, g4)))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

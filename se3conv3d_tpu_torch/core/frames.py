@@ -1,4 +1,6 @@
-"""PCA local reference frames (counterpart of ``se3conv3d_tpu/core/frames.py``).
+"""Local reference frames (counterpart of ``se3conv3d_tpu/core/frames.py``):
+PCA frames from a neighborhood, global PCA frames per cloud, and uniformly
+random (Monte-Carlo) frames.
 
 The 3x3 eigensolver is the JAX package's closed form (Cardano eigenvalues,
 cross-product eigenvectors) written as elementwise torch on per-component
@@ -12,6 +14,9 @@ Conventions: eigenvalues ascending, eigenvectors as columns; a matrix with
 ``det < 0`` is negated whole; free frames use the column sign sets
 ``(1,1,1), (1,-1,-1), (-1,1,-1), (-1,-1,1)``; fixed-axis frames (axis 1 or
 2) flip to descending order and use ``(1,1,1), (-1,-1,1)``.
+
+The random parts take their draws as arguments (normals, uniforms or
+scores) or from an explicit ``torch.Generator``, never from the global RNG.
 """
 from __future__ import annotations
 
@@ -21,6 +26,7 @@ from typing import Optional, Union
 import torch
 
 from .pointcloud import gather_rows
+from .rotation import planar_rotations, random_rotations
 
 __all__ = [
     "FREE_SIGN_SETS",
@@ -28,6 +34,9 @@ __all__ = [
     "is_fixed_axis",
     "pca_frames",
     "pca_frames_from_components",
+    "global_pca_frames",
+    "shuffle_and_select_frames",
+    "random_frames",
 ]
 
 FREE_SIGN_SETS = ((1.0, 1.0, 1.0), (1.0, -1.0, -1.0), (-1.0, 1.0, -1.0), (-1.0, -1.0, 1.0))
@@ -239,3 +248,60 @@ def pca_frames_from_components(
         fixed_axis,
         select_idx=select_idx,
     )
+
+
+def global_pca_frames(positions: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """The 4 free PCA frames ``[B, 4, 3, 3]`` of each cloud's valid points
+    (``positions [B, N, 3]``, ``mask [B, N]``), shared by all its points."""
+    m = mask[..., None]
+    count = mask.sum(-1, keepdim=True).clamp(min=1)[..., None].to(positions.dtype)
+    mean = torch.where(m, positions, 0.0).sum(-2, keepdim=True) / count
+    centered = torch.where(m, positions - mean, 0.0)
+    cov = torch.einsum("bkd,bke->bde", centered, centered)
+    cov = 0.5 * (cov + cov.transpose(-1, -2))
+    return _frames_from_cov_scalars(cov[:, 0, 0], cov[:, 0, 1], cov[:, 0, 2], cov[:, 1, 1],
+                                    cov[:, 1, 2], cov[:, 2, 2], False)
+
+
+def shuffle_and_select_frames(
+    frames: torch.Tensor,
+    n_frames: int,
+    generator: Optional[torch.Generator] = None,
+    scores: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """A uniformly random order of the S candidate frames ``[..., S, 3, 3]``
+    per leading index, the first ``n_frames`` kept: ``[..., n_frames, 3, 3]``.
+    The order is ``argsort`` of uniform ``scores [..., S]`` (injected, or
+    drawn from ``generator``)."""
+    s = frames.shape[-3]
+    if n_frames > s:
+        raise ValueError(f"n_frames={n_frames} exceeds the {s} candidate frames "
+                         "(4 free / 2 fixed-axis PCA candidates)")
+    if scores is None:
+        scores = torch.rand(frames.shape[:-2], generator=generator, device=frames.device)
+    perm = torch.argsort(scores, dim=-1, stable=True)[..., :n_frames]
+    return torch.take_along_dim(frames, perm[..., None, None], dim=-3)
+
+
+def random_frames(
+    batch: int,
+    n_points: int,
+    n_frames: int,
+    fixed_axis: Union[bool, int, None] = False,
+    generator: Optional[torch.Generator] = None,
+    normals: Optional[torch.Tensor] = None,
+    uniforms: Optional[torch.Tensor] = None,
+    device=None,
+) -> torch.Tensor:
+    """Uniformly random frames ``[B, N, F, 3, 3]`` from ``B*N*F`` draws in
+    the order ``(b, n, f)``: rotations uniform on SO(3) from normals
+    ``[B*N*F, 4]``, or, with ``fixed_axis`` 1 or 2, rotations about that axis
+    from uniforms ``[B*N*F]`` (``fixed_axis=0`` is free SO(3), the
+    reference's truthiness quirk).  The draws are injected or come from
+    ``generator``."""
+    n = batch * n_points * n_frames
+    if is_fixed_axis(fixed_axis):
+        mats = planar_rotations(n, int(fixed_axis), generator, uniforms, device)
+    else:
+        mats = random_rotations(n, generator, normals, device)
+    return mats.reshape(batch, n_points, n_frames, 3, 3)

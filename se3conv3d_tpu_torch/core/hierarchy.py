@@ -4,10 +4,12 @@ Counterpart of ``se3conv3d_tpu/core/hierarchy.py``: grid-average the raw
 cloud at ``init_cell_size`` (level 0), subsample it again at each of
 ``cell_sizes``, attach fresh PCA frames to every level, and build the output
 cloud as a random-point-per-cell subsample of the raw cloud with its own
-frames.
+frames.  Frames are kNN PCA frames (a random choice of the candidates per
+point), global PCA frames (one candidate set per cloud) or uniformly random
+rotations, free or about a fixed axis (the reference's ``RefFrames``).
 
-Randomness is explicit.  :class:`HierarchyDraws` holds every uniform number a
-build consumes (the frame choice per level and for the output cloud, and
+Randomness is explicit.  :class:`HierarchyDraws` holds every random number
+a build consumes (the frame draws per level and for the output cloud, and
 the output subsample's per-cell picks); :func:`draw_hierarchy` makes them
 from a ``torch.Generator``, and tests hand in the JAX package's draws.
 """
@@ -18,7 +20,8 @@ from typing import List, Optional, Tuple
 
 import torch
 
-from .frames import is_fixed_axis, pca_frames
+from .frames import (global_pca_frames, is_fixed_axis, pca_frames, random_frames,
+                     shuffle_and_select_frames)
 from .grid import SubsampleMap, build_grid_subsample
 from .neighborhoods import SUBSAMPLED_SPACING_FACTOR, knn_neighborhood
 from .pointcloud import PointCloud
@@ -29,6 +32,7 @@ __all__ = [
     "Hierarchy",
     "HierarchyDraws",
     "draw_hierarchy",
+    "draw_frames",
     "attach_frames",
     "build_hierarchy",
     "rotate_cloud",
@@ -38,18 +42,28 @@ __all__ = [
 
 @dataclasses.dataclass(frozen=True)
 class FrameConfig:
-    """Frame sampling (the reference's ``Model.RefFrames``): PCA frames
-    from a ``neigh_k`` neighborhood, ``n_frames`` kept per point."""
+    """Frame sampling (the reference's ``Model.RefFrames``), ``n_frames``
+    per point: with ``pca``, PCA frames from a ``neigh_k`` neighborhood (or,
+    with ``global_frames``, from each whole cloud), a random choice of the
+    candidates; without it, uniformly random rotations.  ``fixed_axis``
+    False for free SO(3) frames, 1 or 2 to keep that world axis.
+    ``neigh_method`` ``'ball_query'`` (radius ``bq_radius``) is not ported:
+    no recipe uses it."""
 
     n_frames: int = 2
     pca: bool = True
     fixed_axis: object = False
     neigh_method: str = "knn"
     neigh_k: int = 16
+    bq_radius: float = 0.0
+    global_frames: bool = False
 
     @property
     def n_candidates(self) -> int:
         return 2 if is_fixed_axis(self.fixed_axis) else 4
+
+    def with_n_frames(self, n: int) -> "FrameConfig":
+        return dataclasses.replace(self, n_frames=n)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,20 +120,35 @@ class Hierarchy:
 
 @dataclasses.dataclass
 class HierarchyDraws:
-    """Uniform draws in ``[0, 1)`` consumed by one :func:`build_hierarchy`.
+    """Random numbers consumed by one :func:`build_hierarchy`.
 
     Attributes:
-      level_scores: per level, ``[B, cap_l, S]`` frame-choice scores
-        (``argsort(scores)[..., :n_frames]`` picks the frames).
+      level_frames: per level, the frame draws of a cloud of capacity
+        ``cap_l`` (:func:`draw_frames`).
       out_uniforms: ``[B, out_capacity]`` per-cell picks of the output
-        subsample.
-      out_scores: ``[B, out_capacity, S]`` frame-choice scores of the
-        output cloud.
+        subsample (uniforms in ``[0, 1)``).
+      out_frames: the frame draws of the output cloud.
     """
 
-    level_scores: List[torch.Tensor]
+    level_frames: List[torch.Tensor]
     out_uniforms: Optional[torch.Tensor]
-    out_scores: Optional[torch.Tensor]
+    out_frames: Optional[torch.Tensor]
+
+
+def draw_frames(cfg: FrameConfig, batch: int, capacity: int,
+                generator: Optional[torch.Generator] = None, device=None) -> torch.Tensor:
+    """The draws :func:`attach_frames` takes for a cloud ``[B, capacity]``:
+    kNN PCA frames, uniform scores ``[B, capacity, S]`` over the S
+    candidates (``argsort(scores)[..., :n_frames]`` picks the frames);
+    global PCA frames, scores ``[B, S]``; random SO(3) frames, normals
+    ``[B, capacity, F, 4]``; random frames about a fixed axis, uniforms
+    ``[B, capacity, F]`` (the angle over ``2 pi``)."""
+    if cfg.pca:
+        shape = (batch, cfg.n_candidates) if cfg.global_frames else (batch, capacity, cfg.n_candidates)
+        return torch.rand(*shape, generator=generator, device=device)
+    if is_fixed_axis(cfg.fixed_axis):
+        return torch.rand(batch, capacity, cfg.n_frames, generator=generator, device=device)
+    return torch.randn(batch, capacity, cfg.n_frames, 4, generator=generator, device=device)
 
 
 def draw_hierarchy(
@@ -129,42 +158,54 @@ def draw_hierarchy(
     generator: Optional[torch.Generator] = None,
     device=None,
 ) -> HierarchyDraws:
-    """All uniform draws of one build, from ``generator``."""
+    """All random draws of one build, from ``generator``."""
     caps = config.resolve_capacities(input_capacity)
     out_cap = config.out_capacity or input_capacity
-    s = config.frames.n_candidates if config.frames is not None else 0
+    cfg = config.frames
 
-    def u(*shape):
-        return torch.rand(*shape, generator=generator, device=device)
+    def frames(capacity):
+        return draw_frames(cfg, batch, capacity, generator, device) if cfg is not None else None
 
     return HierarchyDraws(
-        level_scores=[u(batch, c, s) for c in caps] if s else [],
-        out_uniforms=u(batch, out_cap) if config.out_cell_size is not None else None,
-        out_scores=u(batch, out_cap if config.out_cell_size is not None else input_capacity, s)
-        if s else None,
+        level_frames=[frames(c) for c in caps] if cfg is not None else [],
+        out_uniforms=torch.rand(batch, out_cap, generator=generator, device=device)
+        if config.out_cell_size is not None else None,
+        out_frames=frames(out_cap if config.out_cell_size is not None else input_capacity),
     )
 
 
 def attach_frames(
     pc: PointCloud,
     cfg: FrameConfig,
-    scores: torch.Tensor,
+    draws: torch.Tensor,
     spacing: Optional[float] = None,
 ) -> PointCloud:
-    """PCA frames over a self-kNN neighborhood, ``n_frames`` of the
-    candidates kept per point by ``argsort(scores)``.
-
-    Only the kNN PCA path of the JAX package is ported (every shipped
-    DFaust recipe uses it).
-    """
-    if not cfg.pca or cfg.neigh_method != "knn":
-        raise NotImplementedError("only kNN PCA frames are ported yet")
+    """Frames of ``cfg`` for every point of ``pc``, from ``draws``
+    (:func:`draw_frames`): uniformly random rotations; global PCA frames,
+    ``n_frames`` of each cloud's candidates in a random order, shared by
+    its points; or PCA frames over a self-kNN neighborhood, ``n_frames``
+    of the candidates kept per point by ``argsort(draws)``.  The PCA
+    frames' ball-query neighborhood (``neigh_method='ball_query'``) is not
+    ported and raises."""
+    b, n = pc.mask.shape
+    if not cfg.pca:
+        fixed = is_fixed_axis(cfg.fixed_axis)
+        frames = random_frames(b, n, cfg.n_frames, cfg.fixed_axis,
+                               normals=None if fixed else draws.reshape(-1, 4),
+                               uniforms=draws.reshape(-1) if fixed else None)
+        return pc.with_frames(frames)
+    if cfg.global_frames:
+        picked = shuffle_and_select_frames(global_pca_frames(pc.positions, pc.mask),
+                                           cfg.n_frames, scores=draws)
+        return pc.with_frames(picked[:, None].expand(b, n, *picked.shape[1:]).contiguous())
+    if cfg.neigh_method != "knn":
+        raise NotImplementedError(f"PCA frames over a {cfg.neigh_method!r} neighborhood are not ported")
     if cfg.n_frames > cfg.n_candidates:
         raise ValueError(
             f"n_frames={cfg.n_frames} exceeds the {cfg.n_candidates} candidate frames"
         )
     neigh = knn_neighborhood(pc, pc, cfg.neigh_k, grid_cell_size=spacing)
-    perm = torch.argsort(scores, dim=-1)[..., : cfg.n_frames]
+    perm = torch.argsort(draws, dim=-1)[..., : cfg.n_frames]
     frames = pca_frames(
         pc.positions, neigh.idx, neigh.mask, fixed_axis=cfg.fixed_axis, select_idx=perm
     )
@@ -187,7 +228,7 @@ def build_hierarchy(
       positions: ``[B, N, 3]``; mask: ``[B, N]``; features: ``[B, N, C]`` or
         None; labels: optional ``[B, N]`` int labels.
       generator / draws: the random numbers, drawn from ``generator`` when
-        ``draws`` is not given.
+        ``draws`` is not given (:func:`draw_hierarchy`).
 
     Returns:
       ``(hierarchy, level0_features, out_pc, out_labels, raw_to_out)`` as in
@@ -204,7 +245,7 @@ def build_hierarchy(
     level0_features = smap0.subsample(features, "avg") if features is not None else None
     if config.frames is not None:
         pc = attach_frames(
-            pc, config.frames, draws.level_scores[0],
+            pc, config.frames, draws.level_frames[0],
             spacing=SUBSAMPLED_SPACING_FACTOR * config.init_cell_size,
         )
     levels, maps = [pc], []
@@ -215,7 +256,7 @@ def build_hierarchy(
         nxt = PointCloud(positions=smap.subsample(pc.positions, "avg"), mask=smap.out_mask)
         if config.frames is not None:
             nxt = attach_frames(
-                nxt, config.frames, draws.level_scores[i + 1],
+                nxt, config.frames, draws.level_frames[i + 1],
                 spacing=SUBSAMPLED_SPACING_FACTOR * cell,
             )
         levels.append(nxt)
@@ -238,7 +279,7 @@ def build_hierarchy(
         out_pc, out_labels = raw, labels
     if config.frames is not None:
         out_pc = attach_frames(
-            out_pc, config.frames, draws.out_scores,
+            out_pc, config.frames, draws.out_frames,
             spacing=None if config.out_cell_size is None
             else SUBSAMPLED_SPACING_FACTOR * config.out_cell_size,
         )

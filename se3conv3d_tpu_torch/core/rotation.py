@@ -4,6 +4,7 @@ Quaternions are ``(w, x, y, z)``; a frame matrix stores its axes as columns.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -12,6 +13,7 @@ __all__ = [
     "quaternion_to_matrix",
     "random_quaternions",
     "random_rotations",
+    "planar_rotations",
     "matrix_to_rotation_6d",
     "relative_rotations",
 ]
@@ -63,6 +65,32 @@ def random_rotations(
 ) -> torch.Tensor:
     """``n`` uniformly distributed rotation matrices ``[n, 3, 3]``."""
     return quaternion_to_matrix(random_quaternions(n, generator, normals, device))
+
+
+def planar_rotations(
+    n: int,
+    axis: int,
+    generator: Optional[torch.Generator] = None,
+    uniforms: Optional[torch.Tensor] = None,
+    device=None,
+) -> torch.Tensor:
+    """``n`` random rotations ``[n, 3, 3]`` about coordinate ``axis`` (0, 1
+    or 2), by angles ``u * 2 pi`` of uniforms ``u`` in ``[0, 1)``:
+    counter-clockwise for column vectors, in the layout of the JAX
+    package's ``planar_rotations``.  ``uniforms`` ``[n]`` injects the
+    draws directly."""
+    if axis not in (0, 1, 2):
+        raise ValueError(f"axis must be 0, 1 or 2, got {axis}")
+    u = uniforms if uniforms is not None else torch.rand(n, generator=generator, device=device)
+    ang = u * (2.0 * math.pi)
+    c, s = torch.cos(ang), torch.sin(ang)
+    z, o = torch.zeros_like(ang), torch.ones_like(ang)
+    rows = {
+        0: (o, z, z, z, c, -s, z, s, c),
+        1: (c, z, s, z, o, z, -s, z, c),
+        2: (c, -s, z, s, c, z, z, z, o),
+    }[axis]
+    return torch.stack(rows, -1).reshape(-1, 3, 3)
 
 
 def matrix_to_rotation_6d(m: torch.Tensor) -> torch.Tensor:

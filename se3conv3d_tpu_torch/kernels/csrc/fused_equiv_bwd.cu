@@ -80,9 +80,22 @@ namespace {
 constexpr int kEThreads = 128;
 constexpr int kETM = 4;                   // query points per tile, one per warp
 constexpr int kRowStride = kCC + 1;       // dbasis / feature chunk rows
-constexpr int kGeoStride = 19;            // 2 frames x 9 pne inputs, padded
-constexpr int kEWarpFloats = kSlab + kGQMax * kRowStride + kEB * kRowStride + kEB * kGeoStride;
 constexpr int kPRows = 10;                // 9 projection rows + the bias
+
+// edge_kernel's shared-memory layout for pne rows of GQC columns.
+template <int GQC>
+struct EdgeCols : Cols<GQC> {
+  using Base = Cols<GQC>;
+  static constexpr int kGeoStride = 9 * Base::kGMax + 1;  // kGMax frames x 9 pne inputs, padded
+  static constexpr int kWarpFloats = Base::kSlab + GQC * kRowStride + kEB * kRowStride + kEB * kGeoStride;
+  static constexpr int kQLanes = GQC / 32;              // q = lane + 32h of the d_proj sums
+};
+
+template <int GQC>
+size_t edge_smem(int K) {
+  return sizeof(float) * (10 * GQC + kETM * EdgeCols<GQC>::kWarpFloats) +
+         sizeof(int) * 2 * kETM * static_cast<size_t>(K);
+}
 
 constexpr int kMinSplitRows = 64;         // d_w: least rows per split
 // the d_w partials aim at this many blocks in flight (4 per SM of an H100)
@@ -118,8 +131,11 @@ cudaError_t launch_sum_partials(const float* part, int S, long long n, float* ou
 // by float32 atomics into dfeats (or, with slot, each edge's row stored at
 // its sorted slot of dsorted), d_proj / d_bias as one [10][Q] partial per
 // block.  With T = bf16 the rows are rounded to bfloat16 first, and so is
-// each dpre.
-template <typename T>
+// each dpre.  The dpne register tile covers 64 (g, q) columns: a row of 128
+// (GQC = 128, G*Q > 64) takes two passes over the channel chunks, the
+// second reloading the features and its dbasis columns, and adds d_feats in
+// the first only.
+template <typename T, int GQC>
 __global__ void __launch_bounds__(kEThreads)
 edge_kernel(const T* __restrict__ rel, const T* __restrict__ rot6,
             const T* __restrict__ feats, const int64_t* __restrict__ idx,
@@ -128,11 +144,13 @@ edge_kernel(const T* __restrict__ rel, const T* __restrict__ rot6,
             const int* __restrict__ live, const int64_t* __restrict__ slot,
             float* __restrict__ dfeats, T* __restrict__ dsorted, float* __restrict__ ppart,
             int M, int N, int K, int G, int F, int Q, int C, int L, int BM) {
+  using Lay = EdgeCols<GQC>;
+  constexpr int kStride = Lay::kStride, kGeoStride = Lay::kGeoStride;
   extern __shared__ float smem[];
   float* projS = smem;                       // [9][Q]
-  float* biasS = projS + 9 * kGQMax;         // [Q]
-  float* warpS = biasS + kGQMax;             // [kETM][kEWarpFloats]
-  int* validK = reinterpret_cast<int*>(warpS + kETM * kEWarpFloats);  // [kETM][K]
+  float* biasS = projS + 9 * GQC;            // [Q]
+  float* warpS = biasS + GQC;                // [kETM][Lay::kWarpFloats]
+  int* validK = reinterpret_cast<int*>(warpS + kETM * Lay::kWarpFloats);  // [kETM][K]
   int* validN = validK + kETM * K;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -141,20 +159,20 @@ edge_kernel(const T* __restrict__ rel, const T* __restrict__ rot6,
   for (int i = tid; i < 9 * Q; i += kEThreads) projS[i] = rnd<T>(proj[i]);
   for (int i = tid; i < Q; i += kEThreads) biasS[i] = rnd<T>(bias[i]);
 
-  float* pneW = warpS + warp * kEWarpFloats;    // [kEB][kPneStride]: pne, then dpne/dpre
-  float* dbW = pneW + kSlab;                    // [kGQMax][kRowStride]: dbasis chunk [gq][c]
-  float* featW = dbW + kGQMax * kRowStride;     // [kEB][kRowStride]: features [e][c]
+  float* pneW = warpS + warp * Lay::kWarpFloats;  // [kEB][kStride]: pne, then dpne/dpre
+  float* dbW = pneW + Lay::kSlab;                 // [GQC][kRowStride]: dbasis chunk [gq][c]
+  float* featW = dbW + GQC * kRowStride;        // [kEB][kRowStride]: features [e][c]
   float* geoW = featW + kEB * kRowStride;       // [kEB][kGeoStride]
   int* vK = validK + warp * K;
   int* vN = validN + warp * K;
   // rows gq >= G*Q of the dbasis chunk stay zero
-  for (int i = GQ * kRowStride + lane; i < kGQMax * kRowStride; i += 32) dbW[i] = 0.f;
+  for (int i = GQ * kRowStride + lane; i < GQC * kRowStride; i += 32) dbW[i] = 0.f;
   __syncthreads();
 
-  const int eb = lane >> 3, gb = lane & 7;  // dpne tile: e = eb + 4i, gq = gb + 8j
-  float accP[2][kPRows];                    // d_proj / d_bias for q = lane, lane + 32
+  const int eb = lane >> 3, gb = lane & 7;  // dpne tile: e = eb + 4i, gq = h0 + gb + 8j
+  float accP[Lay::kQLanes][kPRows];           // d_proj / d_bias for q = lane + 32h
 #pragma unroll
-  for (int h = 0; h < 2; ++h)
+  for (int h = 0; h < Lay::kQLanes; ++h)
 #pragma unroll
     for (int d = 0; d < kPRows; ++d) accP[h][d] = 0.f;
 
@@ -176,13 +194,13 @@ edge_kernel(const T* __restrict__ rel, const T* __restrict__ rot6,
       __syncwarp();
       // geometry and pne of edge e0 + lane
       {
-        float* prow = pneW + lane * kPneStride;
+        float* prow = pneW + lane * kStride;
         float* grow_s = geoW + lane * kGeoStride;
         if (lane < ne) {
           const int e = e0 + lane, j = e / F, f = e - j * F;
           const size_t base = (row + vK[j]) * G;
 #pragma unroll
-          for (int g = 0; g < 2; ++g) {
+          for (int g = 0; g < Lay::kGMax; ++g) {
             if (g < G) {
               float geo[9];
               edge_geo(rel, rot6, base, g, F, f, geo);
@@ -195,97 +213,106 @@ edge_kernel(const T* __restrict__ rel, const T* __restrict__ rot6,
         } else {
           for (int gq = 0; gq < GQ; ++gq) prow[gq] = 0.f;
         }
-        for (int gq = GQ; gq < kGQMax; ++gq) prow[gq] = 0.f;
+        for (int gq = GQ; gq < GQC; ++gq) prow[gq] = 0.f;
       }
 
-      float dp[8][8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) dp[i][j] = 0.f;
-
-      for (int c0 = 0; c0 < C; c0 += kCC) {
-        const int cw = min(kCC, C - c0);
-        __syncwarp();
-        // dbasis chunk [gq][c] of this point, and the gathered features [e][c]
-        for (int i = lane; i < G * cw * Q; i += 32) {
-          const int q = i % Q, t = i / Q, c = t % cw, g = t / cw;
-          dbW[(g * Q + q) * kRowStride + c] =
-              to_f(__ldg(dbasis + (grow + g) * CQ + static_cast<size_t>(c0 + c) * Q + q));
-        }
-        for (int el = 0; el < kEB; ++el) {
-          float v = 0.f;
-          if (el < ne && lane < cw) {
-            const int e = e0 + el, j = e / F, f = e - j * F;
-            v = to_f(__ldg(feats + ((static_cast<size_t>(b) * N + vN[j]) * F + f) * C + c0 + lane));
-          }
-          featW[el * kRowStride + lane] = v;
-        }
-        __syncwarp();
-        // dpne[e][gq] += sum_c feat[e][c] * dbasis[gq][c]
-        for (int c = 0; c < cw; ++c) {
-          float x[8], y[8];
-#pragma unroll
-          for (int i = 0; i < 8; ++i) x[i] = featW[(eb + 4 * i) * kRowStride + c];
-#pragma unroll
-          for (int j = 0; j < 8; ++j) y[j] = dbW[(gb + 8 * j) * kRowStride + c];
-#pragma unroll
-          for (int i = 0; i < 8; ++i)
-#pragma unroll
-            for (int j = 0; j < 8; ++j) dp[i][j] = fmaf(x[i], y[j], dp[i][j]);
-        }
-        // d_feats[e][c] += sum_gq pne[e][gq] * dbasis[gq][c]; tile e = eb + 4i, c = gb + 8j
-        float df[8][4];
+      // dpne columns h0 .. h0 + 63 over every channel chunk, into the slab
+      // (the pne it overwrites was read for the last time); the first
+      // pass also adds the edges' feature gradients.  One pass where
+      // G*Q <= 64 (a constant bound: the loop unrolls away), two at 128
+      // columns (the second reloads the chunks)
+      const int h_end = Lay::kPasses == 1 ? 64 : GQ;
+      for (int h0 = 0; h0 < h_end; h0 += 64) {
+        float dp[8][8];
 #pragma unroll
         for (int i = 0; i < 8; ++i)
 #pragma unroll
-          for (int j = 0; j < 4; ++j) df[i][j] = 0.f;
-        for (int gq = 0; gq < GQ; ++gq) {
-          float p[8], y[4];
+          for (int j = 0; j < 8; ++j) dp[i][j] = 0.f;
+
+        for (int c0 = 0; c0 < C; c0 += kCC) {
+          const int cw = min(kCC, C - c0);
+          __syncwarp();
+          // dbasis chunk [gq][c] of this point, and the gathered features [e][c]
+          for (int i = lane; i < G * cw * Q; i += 32) {
+            const int q = i % Q, t = i / Q, c = t % cw, g = t / cw;
+            dbW[(g * Q + q) * kRowStride + c] =
+                to_f(__ldg(dbasis + (grow + g) * CQ + static_cast<size_t>(c0 + c) * Q + q));
+          }
+          for (int el = 0; el < kEB; ++el) {
+            float v = 0.f;
+            if (el < ne && lane < cw) {
+              const int e = e0 + el, j = e / F, f = e - j * F;
+              v = to_f(__ldg(feats + ((static_cast<size_t>(b) * N + vN[j]) * F + f) * C + c0 + lane));
+            }
+            featW[el * kRowStride + lane] = v;
+          }
+          __syncwarp();
+          // dpne[e][gq] += sum_c feat[e][c] * dbasis[gq][c]
+          for (int c = 0; c < cw; ++c) {
+            float x[8], y[8];
 #pragma unroll
-          for (int i = 0; i < 8; ++i) p[i] = pneW[(eb + 4 * i) * kPneStride + gq];
+            for (int i = 0; i < 8; ++i) x[i] = featW[(eb + 4 * i) * kRowStride + c];
 #pragma unroll
-          for (int j = 0; j < 4; ++j) y[j] = dbW[gq * kRowStride + gb + 8 * j];
+            for (int j = 0; j < 8; ++j) y[j] = dbW[(h0 + gb + 8 * j) * kRowStride + c];
+#pragma unroll
+            for (int i = 0; i < 8; ++i)
+#pragma unroll
+              for (int j = 0; j < 8; ++j) dp[i][j] = fmaf(x[i], y[j], dp[i][j]);
+          }
+          if (h0 > 0) continue;  // d_feats once, in the first pass
+          // d_feats[e][c] += sum_gq pne[e][gq] * dbasis[gq][c]; tile e = eb + 4i, c = gb + 8j
+          float df[8][4];
 #pragma unroll
           for (int i = 0; i < 8; ++i)
 #pragma unroll
-            for (int j = 0; j < 4; ++j) df[i][j] = fmaf(p[i], y[j], df[i][j]);
-        }
+            for (int j = 0; j < 4; ++j) df[i][j] = 0.f;
+          for (int gq = 0; gq < GQ; ++gq) {
+            float p[8], y[4];
 #pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          const int el = eb + 4 * i;
-          if (el >= ne) continue;
-          const int e = e0 + el, j = e / F, f = e - j * F;
-          if (slot != nullptr) {
-            const size_t srow = static_cast<size_t>(b) * M * K + slot[row + vK[j]];
-            T* dst = dsorted + (srow * F + f) * C + c0;
+            for (int i = 0; i < 8; ++i) p[i] = pneW[(eb + 4 * i) * kStride + gq];
 #pragma unroll
-            for (int jj = 0; jj < 4; ++jj) {
-              const int c = gb + 8 * jj;
-              if (c < cw) dst[c] = from_f<T>(df[i][jj]);
-            }
-          } else {
-            float* dst = dfeats + ((static_cast<size_t>(b) * N + vN[j]) * F + f) * C + c0;
+            for (int j = 0; j < 4; ++j) y[j] = dbW[gq * kRowStride + gb + 8 * j];
 #pragma unroll
-            for (int jj = 0; jj < 4; ++jj) {
-              const int c = gb + 8 * jj;
-              if (c < cw) atomicAdd(dst + c, rnd<T>(df[i][jj]));
+            for (int i = 0; i < 8; ++i)
+#pragma unroll
+              for (int j = 0; j < 4; ++j) df[i][j] = fmaf(p[i], y[j], df[i][j]);
+          }
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            const int el = eb + 4 * i;
+            if (el >= ne) continue;
+            const int e = e0 + el, j = e / F, f = e - j * F;
+            if (slot != nullptr) {
+              const size_t srow = static_cast<size_t>(b) * M * K + slot[row + vK[j]];
+              T* dst = dsorted + (srow * F + f) * C + c0;
+#pragma unroll
+              for (int jj = 0; jj < 4; ++jj) {
+                const int c = gb + 8 * jj;
+                if (c < cw) dst[c] = from_f<T>(df[i][jj]);
+              }
+            } else {
+              float* dst = dfeats + ((static_cast<size_t>(b) * N + vN[j]) * F + f) * C + c0;
+#pragma unroll
+              for (int jj = 0; jj < 4; ++jj) {
+                const int c = gb + 8 * jj;
+                if (c < cw) atomicAdd(dst + c, rnd<T>(df[i][jj]));
+              }
             }
           }
         }
+        __syncwarp();
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) pneW[(eb + 4 * i) * kStride + h0 + gb + 8 * j] = dp[i][j];
       }
       __syncwarp();
-      // dpne -> slab, then dpre = dpne * gelu'(pre) on each lane's own edge
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) pneW[(eb + 4 * i) * kPneStride + gb + 8 * j] = dp[i][j];
-      __syncwarp();
+      // dpre = dpne * gelu'(pre) on each lane's own edge
       if (lane < ne) {
-        float* prow = pneW + lane * kPneStride;
+        float* prow = pneW + lane * kStride;
         const float* grow_s = geoW + lane * kGeoStride;
 #pragma unroll
-        for (int g = 0; g < 2; ++g) {
+        for (int g = 0; g < Lay::kGMax; ++g) {
           if (g < G) {
             float geo[9];
 #pragma unroll
@@ -298,12 +325,12 @@ edge_kernel(const T* __restrict__ rel, const T* __restrict__ rot6,
       __syncwarp();
       // d_proj[d][q] += sum_{e,g} dpre[e][g,q] * geo[e][g,d]; d_bias[q] += sum dpre
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
+      for (int h = 0; h < Lay::kQLanes; ++h) {
         const int q = lane + 32 * h;
         if (q >= Q) continue;
         for (int el = 0; el < ne; ++el) {
           for (int g = 0; g < G; ++g) {
-            const float v = pneW[el * kPneStride + g * Q + q];
+            const float v = pneW[el * kStride + g * Q + q];
             const float* geo = geoW + el * kGeoStride + g * 9;
 #pragma unroll
             for (int d = 0; d < 9; ++d) accP[h][d] = fmaf(v, geo[d], accP[h][d]);
@@ -316,19 +343,19 @@ edge_kernel(const T* __restrict__ rel, const T* __restrict__ rot6,
 
   // block partial: the warps' sums in a fixed order
   __syncthreads();
-  float* red = warpS;  // [kETM][kPRows][kGQMax]
+  float* red = warpS;  // [kETM][kPRows][GQC]
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
+  for (int h = 0; h < Lay::kQLanes; ++h) {
     const int q = lane + 32 * h;
     if (q < Q)
 #pragma unroll
-      for (int d = 0; d < kPRows; ++d) red[(warp * kPRows + d) * kGQMax + q] = accP[h][d];
+      for (int d = 0; d < kPRows; ++d) red[(warp * kPRows + d) * GQC + q] = accP[h][d];
   }
   __syncthreads();
   for (int i = tid; i < kPRows * Q; i += kEThreads) {
     const int d = i / Q, q = i - d * Q;
     float s = 0.f;
-    for (int w = 0; w < kETM; ++w) s += red[(w * kPRows + d) * kGQMax + q];
+    for (int w = 0; w < kETM; ++w) s += red[(w * kPRows + d) * GQC + q];
     ppart[static_cast<size_t>(blockIdx.x) * kPRows * Q + i] = s;
   }
 }
@@ -388,13 +415,14 @@ cudaError_t backward(const T* rel, const T* rot6, const T* feats, const int64_t*
   }
   if (err != cudaSuccess) return err;
 
-  // 4. per-edge gradients
-  const size_t smem_e = sizeof(float) * (9 * kGQMax + kGQMax + kETM * kEWarpFloats) +
-                        sizeof(int) * 2 * kETM * static_cast<size_t>(K);
-  err = cudaFuncSetAttribute(edge_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  // 4. per-edge gradients, in the column capacity of G and G*Q
+  const bool wide = column_capacity(G, Q) == 128;
+  auto kernel = wide ? edge_kernel<T, 128> : edge_kernel<T, 64>;
+  const size_t smem_e = wide ? edge_smem<128>(K) : edge_smem<64>(K);
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem_e));
   if (err != cudaSuccess) return err;
-  edge_kernel<T><<<p_blocks, kEThreads, smem_e, stream>>>(
+  kernel<<<p_blocks, kEThreads, smem_e, stream>>>(
       rel, rot6, feats, idx, mask, proj, bias, scr, live, slot,
       slot == nullptr ? static_cast<float*>(dfeats) : nullptr,
       slot == nullptr ? nullptr : static_cast<T*>(dfeats), ppart, M, N, K, G, F, Q, C, L, BM);
@@ -434,8 +462,9 @@ extern "C" void se3_fused_equiv_bwd_plan(int L, int G, int Q, int C, int O, int 
 // else the [B, M*K, F*C] sorted buffer in the operand type; d_params is
 // [10, Q]: rows 0-8 d_proj, row 9 d_bias.  use_bf16 != 0: rel, rot6 and
 // feats are bfloat16, else float32; the parameters, gout, d_params and d_w
-// are float32 either way.  Requires G <= 2, G*Q <= 64 and the workspace
-// sizes of se3_fused_equiv_bwd_plan for the same L and operand size.
+// are float32 either way.  Requires G <= 4, G*Q <= 128 (column_capacity)
+// and the workspace sizes of se3_fused_equiv_bwd_plan for the same L and
+// operand size.
 extern "C" int se3_fused_equiv_bwd(const void* rel, const void* rot6, const void* feats,
                                    const void* idx, const void* mask, const void* proj,
                                    const void* bias, const void* w, const void* gout,
@@ -444,6 +473,7 @@ extern "C" int se3_fused_equiv_bwd(const void* rel, const void* rot6, const void
                                    void* ppart, int B, int M, int N, int K, int G, int F, int Q,
                                    int C, int O, int L, int w_splits, int p_blocks, int use_bf16,
                                    void* stream_ptr) {
+  if (column_capacity(G, Q) == 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const auto* idxp = static_cast<const int64_t*>(idx);
   const auto* maskp = static_cast<const uint8_t*>(mask);

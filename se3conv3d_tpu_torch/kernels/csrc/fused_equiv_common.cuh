@@ -15,6 +15,10 @@
 //   edge; live[r] = b*M + m) into a scratch [L*G, C*Q] of T, live row r
 //   owning scratch rows r*G .. r*G+G-1 (depth index c*Q + q, the layout of
 //   W [C, Q, O]);
+// - the two column capacities of a pne row (Cols<GQC>): 64 columns for
+//   G <= 2 and G*Q <= 64, 128 for G <= 4 and G*Q <= 128 (the mixed frame
+//   counts' F = 4); each kernel that keeps pne rows in shared memory is
+//   built for both, so a G <= 2 conv keeps its footprint and occupancy;
 // - tf32x3_gemm: a float32 product on tensor cores in the 3xTF32 form, and
 //   bf16_gemm, its bfloat16 counterpart (one m16n8k16 product per tile and
 //   16-deep step, float32 accumulation), each with an optional epilogue
@@ -31,12 +35,28 @@
 
 namespace {
 
-constexpr int kGQMax = 64;                // G * Q columns of a pne row
 constexpr int kEB = 32;                   // edges per round, one per lane
 constexpr int kCC = 32;                   // input channels per chunk
-constexpr int kPneStride = kGQMax + 1;    // padded rows: lane-major writes hit distinct banks
-constexpr int kSlab = kEB * kPneStride;   // a warp's pne rows for one round of edges
 constexpr int kSmemMax = 232448;          // shared memory one block may use on an H100
+
+// A pne row of GQC (g, q) columns: GQC = 64 takes G <= 2 and G*Q <= 64,
+// GQC = 128 takes G <= 4 and G*Q <= 128.
+template <int GQC>
+struct Cols {
+  static_assert(GQC == 64 || GQC == 128, "a pne row holds 64 or 128 columns");
+  static constexpr int kGMax = GQC == 64 ? 2 : 4;  // out-frames
+  static constexpr int kStride = GQC + 1;          // padded rows: lane-major writes hit distinct banks
+  static constexpr int kSlab = kEB * kStride;      // a warp's pne rows for one round of edges
+  static constexpr int kPasses = GQC / 64;         // 64-column passes of the register tiles
+};
+
+// The column capacity a conv with G out-frames and Q basis functions takes,
+// or 0 past G = 4 or G*Q = 128.
+inline int column_capacity(int G, int Q) {
+  if (G <= 2 && G * Q <= 64) return 64;
+  if (G <= 4 && G * Q <= 128) return 128;
+  return 0;
+}
 
 typedef __nv_bfloat16 bf16;
 
@@ -109,7 +129,10 @@ __device__ __forceinline__ float pre_act(const float* geo, const float* projS,
 // channels 32 at a time: per edge, lane c loads feature channel c0 + c
 // (one coalesced 128-byte row), and lane (gqb, cb) adds pne[e][gqb + 8i] *
 // feat[e][cb + 4j] into its NI x 8 register tile (NI = 4 covers G*Q <= 32,
-// 8 covers 64), the features passed by shuffles.  The tile goes straight
+// 8 covers 64), the features passed by shuffles.  A row of 128 columns
+// (GQC = 128, G*Q > 64) is walked in two passes of 64 columns over the
+// same pne rows: only the feature loads repeat, where one tile of 128
+// columns would hold 128 accumulators a lane.  The tile goes straight
 // from registers to the scratch: for one (i, j) the warp writes 4 runs of 8
 // consecutive q, each a whole 32-byte sector.  The columns of a pne row past
 // G*Q are never written; they only feed tile rows that are not stored.
@@ -122,21 +145,21 @@ __device__ __forceinline__ float pre_act(const float* geo, const float* projS,
 constexpr int kBWarps = 4;      // warps per block, fewer when K*F is large
 constexpr int kBEdges = 8;      // feature loads in flight per lane
 
-inline size_t basis_warp_bytes(int K, int F) {
-  return sizeof(float) * static_cast<size_t>(K) * F * kPneStride + sizeof(int) * 2 * static_cast<size_t>(K);
+inline size_t basis_warp_bytes(int K, int F, int gqc) {
+  return sizeof(float) * static_cast<size_t>(K) * F * (gqc + 1) + sizeof(int) * 2 * static_cast<size_t>(K);
 }
-inline size_t basis_smem(int K, int F, int warps) {
-  return sizeof(float) * 10 * kGQMax + warps * basis_warp_bytes(K, F);
+inline size_t basis_smem(int K, int F, int gqc, int warps) {
+  return sizeof(float) * 10 * gqc + warps * basis_warp_bytes(K, F, gqc);
 }
-// Warps per block of basis_kernel at K neighbors x F in-frames; 0 if one
-// warp's pne rows do not fit.
-inline int basis_warps(int K, int F) {
-  const size_t room = kSmemMax - sizeof(float) * 10 * kGQMax;
-  const size_t w = room / basis_warp_bytes(K, F);
+// Warps per block of basis_kernel at K neighbors x F in-frames and gqc
+// columns; 0 if one warp's pne rows do not fit.
+inline int basis_warps(int K, int F, int gqc) {
+  const size_t room = kSmemMax - sizeof(float) * 10 * gqc;
+  const size_t w = room / basis_warp_bytes(K, F, gqc);
   return static_cast<int>(w < kBWarps ? w : kBWarps);
 }
 
-template <int NI, bool kGout, typename T>
+template <int NI, bool kGout, typename T, int GQC>
 __global__ void __launch_bounds__(32 * kBWarps, 4)
 basis_kernel(const T* __restrict__ rel, const T* __restrict__ rot6,
              const T* __restrict__ feats, const int64_t* __restrict__ idx,
@@ -145,13 +168,14 @@ basis_kernel(const T* __restrict__ rel, const T* __restrict__ rot6,
              const int* __restrict__ live, T* __restrict__ basis,
              T* __restrict__ gout_live,
              int M, int N, int K, int G, int F, int Q, int C, int O, int L, int BM) {
+  using Lay = Cols<GQC>;
   extern __shared__ float smem[];
   const int warps = blockDim.x >> 5;
   const size_t pne_rows = static_cast<size_t>(K) * F;
   float* projS = smem;                       // [9][Q]
-  float* biasS = projS + 9 * kGQMax;         // [Q]
-  float* pneS = biasS + kGQMax;              // [warps][K*F][kPneStride]
-  int* validK = reinterpret_cast<int*>(pneS + warps * pne_rows * kPneStride);  // [warps][K]
+  float* biasS = projS + 9 * GQC;            // [Q]
+  float* pneS = biasS + GQC;                 // [warps][K*F][Lay::kStride]
+  int* validK = reinterpret_cast<int*>(pneS + warps * pne_rows * Lay::kStride);  // [warps][K]
   int* validN = validK + warps * K;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -182,13 +206,13 @@ basis_kernel(const T* __restrict__ rel, const T* __restrict__ rot6,
   int* vK = validK + warp * K;
   int* vN = validN + warp * K;
   const int nE = compact_edges(idx, mask, row, K, N, lane, vK, vN) * F;
-  float* pneW = pneS + warp * pne_rows * kPneStride;
+  float* pneW = pneS + warp * pne_rows * Lay::kStride;
   for (int e = lane; e < nE; e += 32) {
     const int j = e / F, f = e - j * F;
     const size_t base = (row + vK[j]) * G;
-    float* prow = pneW + e * kPneStride;
+    float* prow = pneW + e * Lay::kStride;
 #pragma unroll
-    for (int g = 0; g < 2; ++g) {
+    for (int g = 0; g < Lay::kGMax; ++g) {
       if (g < G) {
         float geo[9];
         edge_geo(rel, rot6, base, g, F, f, geo);
@@ -199,73 +223,80 @@ basis_kernel(const T* __restrict__ rel, const T* __restrict__ rot6,
   }
   __syncwarp();
 
-  const int gqb = lane >> 2, cb = lane & 3;  // tile: gq = gqb + 8i, c = cb + 4j
+  const int gqb = lane >> 2, cb = lane & 3;  // tile: gq = h0 + gqb + 8i, c = cb + 4j
   const int CQ = C * Q;
   T* dst = basis + out_row * CQ;
-  int off[NI];  // offset of (g, q) = gq in the row's G scratch rows, or -1 past G*Q
-#pragma unroll
-  for (int i = 0; i < NI; ++i) {
-    const int gq = gqb + 8 * i, g = gq / Q;
-    off[i] = gq < GQ ? g * CQ + (gq - g * Q) : -1;
-  }
-
-  for (int c0 = 0; c0 < C; c0 += kCC) {
-    const int cw = min(kCC, C - c0);
-    float acc[NI][8];
-#pragma unroll
-    for (int i = 0; i < NI; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-    for (int e0 = 0; e0 < nE; e0 += kBEdges) {  // warp-uniform
-      float v[kBEdges];
-#pragma unroll
-      for (int u = 0; u < kBEdges; ++u) {
-        const int e = e0 + u, j = e / F, f = e - j * F;
-        v[u] = 0.f;
-        if (e < nE && lane < cw)
-          v[u] = to_f(__ldg(feats + ((static_cast<size_t>(b) * N + vN[j]) * F + f) * C + c0 + lane));
-      }
-#pragma unroll
-      for (int u = 0; u < kBEdges; ++u) {
-        if (e0 + u >= nE) break;  // warp-uniform
-        const float* prow = pneW + (e0 + u) * kPneStride;
-        float p[NI], x[8];
-#pragma unroll
-        for (int i = 0; i < NI; ++i) p[i] = prow[gqb + 8 * i];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) x[j] = __shfl_sync(0xffffffffu, v[u], cb + 4 * j);
-#pragma unroll
-        for (int i = 0; i < NI; ++i)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(p[i], x[j], acc[i][j]);
-      }
-    }
+  // the columns h0 .. h0 + 8*NI - 1 of the row's G*Q: one pass where G*Q
+  // <= 64 (a constant bound: the loop unrolls away), two at 128 columns
+  // (only the feature loads repeat)
+  const int h_end = Lay::kPasses == 1 ? 8 * NI : GQ;
+  for (int h0 = 0; h0 < h_end; h0 += 8 * NI) {
+    int off[NI];  // offset of (g, q) = gq in the row's G scratch rows, or -1 past G*Q
 #pragma unroll
     for (int i = 0; i < NI; ++i) {
-      if (off[i] < 0) continue;
+      const int gq = h0 + gqb + 8 * i, g = gq / Q;
+      off[i] = gq < GQ ? g * CQ + (gq - g * Q) : -1;
+    }
+
+    for (int c0 = 0; c0 < C; c0 += kCC) {
+      const int cw = min(kCC, C - c0);
+      float acc[NI][8];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int c = cb + 4 * j;
-        if (c < cw) dst[off[i] + static_cast<size_t>(c0 + c) * Q] = from_f<T>(acc[i][j]);
+      for (int i = 0; i < NI; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+      for (int e0 = 0; e0 < nE; e0 += kBEdges) {  // warp-uniform
+        float v[kBEdges];
+#pragma unroll
+        for (int u = 0; u < kBEdges; ++u) {
+          const int e = e0 + u, j = e / F, f = e - j * F;
+          v[u] = 0.f;
+          if (e < nE && lane < cw)
+            v[u] = to_f(__ldg(feats + ((static_cast<size_t>(b) * N + vN[j]) * F + f) * C + c0 + lane));
+        }
+#pragma unroll
+        for (int u = 0; u < kBEdges; ++u) {
+          if (e0 + u >= nE) break;  // warp-uniform
+          const float* prow = pneW + (e0 + u) * Lay::kStride + h0;
+          float p[NI], x[8];
+#pragma unroll
+          for (int i = 0; i < NI; ++i) p[i] = prow[gqb + 8 * i];
+#pragma unroll
+          for (int j = 0; j < 8; ++j) x[j] = __shfl_sync(0xffffffffu, v[u], cb + 4 * j);
+#pragma unroll
+          for (int i = 0; i < NI; ++i)
+#pragma unroll
+            for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(p[i], x[j], acc[i][j]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < NI; ++i) {
+        if (off[i] < 0) continue;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int c = cb + 4 * j;
+          if (c < cw) dst[off[i] + static_cast<size_t>(c0 + c) * Q] = from_f<T>(acc[i][j]);
+        }
       }
     }
   }
 }
 
-// Launches basis_kernel over L live rows (the tile height from G*Q).
-template <typename T>
-cudaError_t launch_basis(bool with_gout, const T* rel, const T* rot6, const T* feats,
-                         const int64_t* idx, const uint8_t* mask, const float* proj,
-                         const float* bias, const float* gout, const int* live, T* basis,
-                         T* gout_live, int M, int N, int K, int G, int F, int Q, int C, int O,
-                         int L, int BM, cudaStream_t stream) {
-  const int warps = basis_warps(K, F);
+// Launches basis_kernel over L live rows (the column capacity and the tile
+// height from G and G*Q).
+template <typename T, int GQC>
+cudaError_t launch_basis_cols(bool with_gout, const T* rel, const T* rot6, const T* feats,
+                              const int64_t* idx, const uint8_t* mask, const float* proj,
+                              const float* bias, const float* gout, const int* live, T* basis,
+                              T* gout_live, int M, int N, int K, int G, int F, int Q, int C, int O,
+                              int L, int BM, cudaStream_t stream) {
+  const int warps = basis_warps(K, F, GQC);
   if (warps < 1) return cudaErrorInvalidValue;
-  const size_t smem = basis_smem(K, F, warps);
+  const size_t smem = basis_smem(K, F, GQC, warps);
   const bool narrow = G * Q <= 32;
-  auto kernel = with_gout ? (narrow ? basis_kernel<4, true, T> : basis_kernel<8, true, T>)
-                          : (narrow ? basis_kernel<4, false, T> : basis_kernel<8, false, T>);
+  auto kernel = with_gout ? (narrow ? basis_kernel<4, true, T, GQC> : basis_kernel<8, true, T, GQC>)
+                          : (narrow ? basis_kernel<4, false, T, GQC> : basis_kernel<8, false, T, GQC>);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
@@ -273,6 +304,24 @@ cudaError_t launch_basis(bool with_gout, const T* rel, const T* rot6, const T* f
       rel, rot6, feats, idx, mask, proj, bias, gout, live, basis, gout_live, M, N, K, G, F, Q, C,
       O, L, BM);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_basis(bool with_gout, const T* rel, const T* rot6, const T* feats,
+                         const int64_t* idx, const uint8_t* mask, const float* proj,
+                         const float* bias, const float* gout, const int* live, T* basis,
+                         T* gout_live, int M, int N, int K, int G, int F, int Q, int C, int O,
+                         int L, int BM, cudaStream_t stream) {
+  switch (column_capacity(G, Q)) {
+    case 64:
+      return launch_basis_cols<T, 64>(with_gout, rel, rot6, feats, idx, mask, proj, bias, gout,
+                                      live, basis, gout_live, M, N, K, G, F, Q, C, O, L, BM, stream);
+    case 128:
+      return launch_basis_cols<T, 128>(with_gout, rel, rot6, feats, idx, mask, proj, bias, gout,
+                                       live, basis, gout_live, M, N, K, G, F, Q, C, O, L, BM, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 // --- C[z] = A . B over the depth slice z, on tensor cores --------------------

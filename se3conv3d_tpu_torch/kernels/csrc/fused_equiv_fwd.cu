@@ -156,14 +156,16 @@ cudaError_t forward(const T* rel, const T* rot6, const T* feats, const int64_t* 
 // listed too; an entry outside [0, B*M) is skipped); out [B, M, G, O]
 // float32 must be zeroed by the caller (rows not listed are not written).
 // use_bf16 != 0: rel, rot6 and feats are bfloat16, else float32; the
-// parameters are float32 either way.  Requires G <= 2, G*Q <= 64 and the
-// plan of se3_fused_equiv_fwd_plan for the same L and operand size.
+// parameters are float32 either way.  Requires G <= 4, G*Q <= 128
+// (column_capacity) and the plan of se3_fused_equiv_fwd_plan for the same
+// L and operand size.
 extern "C" int se3_fused_equiv_fwd(const void* rel, const void* rot6, const void* feats,
                                    const void* idx, const void* mask, const void* proj,
                                    const void* bias, const void* w, const void* live, void* out,
                                    void* scratch, int B, int M, int N, int K, int G, int F, int Q,
                                    int C, int O, int L, int chunk, int splits, int use_bf16,
                                    void* stream_ptr) {
+  if (column_capacity(G, Q) == 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const auto* idxp = static_cast<const int64_t*>(idx);
   const auto* maskp = static_cast<const uint8_t*>(mask);

@@ -89,10 +89,18 @@ tensors (the instantiation of the operands' dtype: bfloat16 operands are
 never widened to reuse the float32 kernels) and run
 ``fused_equiv_fwd_reference`` / ``fused_equiv_bwd_reference`` for CPU
 tensors, over every row whatever the live-row table; there is no other
-fallback.  Each counts its launches (``launches``, and ``bf16_launches``
-for those with bfloat16 operands).  ``fused_equiv`` is the differentiable
-op.  Each kernel source is built with ``nvcc`` for ``sm_90a`` at its first
-launch (``kernels/build.py``).
+fallback.  Each counts its launches (``launches``, ``bf16_launches`` for
+those with bfloat16 operands, and ``launches_by_g`` by out-frame count).
+``fused_equiv`` is the differentiable op.  Each kernel source is built
+with ``nvcc`` for ``sm_90a`` at its first launch (``kernels/build.py``).
+
+Out-frames: the kernels take G <= 4 and G*Q <= 128 (``column_capacity``):
+a pne row in shared memory holds 64 columns where G <= 2 and G*Q <= 64,
+and 128 otherwise (the mixed-frame-count recipes' F = G = 4 at Q = 32), each
+capacity its own instantiation, so the G <= 2 convs keep their layout and
+occupancy.  A 128-column row is walked in two 64-column passes of the
+register tiles (the basis pass's features and the backward's dbasis
+columns are read twice); its shared memory lets fewer warps run per SM.
 """
 from __future__ import annotations
 
@@ -114,6 +122,8 @@ __all__ = [
     "fused_equiv_bwd",
     "fused_equiv_bwd_reference",
     "live_row_table",
+    "column_capacity",
+    "MAX_G",
     "MAX_GQ",
     "MAX_EDGES",
     "FWD_SCRATCH_BYTES",
@@ -123,16 +133,31 @@ __all__ = [
 # the operand types of rel, rot6 and feats (the kernels' instantiations)
 OPERAND_DTYPES = (torch.float32, torch.bfloat16)
 
-# a pne row in the kernels' shared memory holds at most 64 (g, q) columns
-MAX_GQ = 64
-# the basis pass keeps a row's K*F pne rows in shared memory
-MAX_EDGES = 768
+# a pne row in the kernels' shared memory holds 64 (g, q) columns for G <= 2
+# and G*Q <= 64, or 128 for G <= 4 and G*Q <= 128 (``column_capacity``;
+# csrc/fused_equiv_common.cuh ``Cols``): the kernels take G <= MAX_G and
+# G*Q <= MAX_GQ
+MAX_G, MAX_GQ = 4, 128
+# the basis pass keeps one row's K*F pne rows in a warp's shared memory:
+# the most K*F that fits, by column capacity (about 227 KB / (4 * 129) at 128)
+MAX_EDGES = {64: 768, 128: 432}
 # the forward walks its live rows in chunks whose scratch (basis rows and
 # depth-split partials) stays within this many bytes
 FWD_SCRATCH_BYTES = 128 << 20
 # the backward's dbasis product tiles its L*G rows by 128 along a grid
 # dimension of at most 65535 blocks (the forward's chunks stay below it)
 _MAX_SCRATCH_ROWS = 128 * 65535
+
+
+def column_capacity(g: int, q: int) -> int:
+    """The pne-row column capacity the kernels take ``G`` out-frames and
+    ``Q`` basis functions in (64 or 128), or 0 past ``MAX_G`` / ``MAX_GQ``
+    (``column_capacity`` of ``csrc/fused_equiv_common.cuh``)."""
+    if g <= 2 and g * q <= 64:
+        return 64
+    if g <= MAX_G and g * q <= MAX_GQ:
+        return 128
+    return 0
 
 
 def _rounding(dtype):
@@ -279,10 +304,12 @@ def _check(rel, rot6, feats, idx, mask, proj_axes, proj_biases, conv_weights):
     for name, shape in want.items():
         if tuple(tensors[name].shape) != shape:
             raise ValueError(f"{name} has shape {tuple(tensors[name].shape)}, expected {shape}")
-    if g > 2 or g * q > MAX_GQ:
-        raise ValueError(f"kernel takes G <= 2 and G*Q <= {MAX_GQ}, got G={g}, Q={q}")
-    if k * f > MAX_EDGES:
-        raise ValueError(f"kernel takes K*F <= {MAX_EDGES}, got K={k}, F={f}")
+    cols = column_capacity(g, q)
+    if cols == 0:
+        raise ValueError(f"kernel takes G <= {MAX_G} and G*Q <= {MAX_GQ}, got G={g}, Q={q}")
+    if k * f > MAX_EDGES[cols]:
+        raise ValueError(f"kernel takes K*F <= {MAX_EDGES[cols]} at G={g}, G*Q={g * q} "
+                         f"({cols} pne columns), got K={k}, F={f}")
     return b, m, n, k, g, f, q, c, o
 
 
@@ -351,6 +378,7 @@ def fused_equiv_fwd(
         raise RuntimeError(f"fused_equiv_fwd kernel launch failed: CUDA error {err}")
     fused_equiv_fwd.launches += 1
     fused_equiv_fwd.bf16_launches += bf16
+    fused_equiv_fwd.launches_by_g[g] = fused_equiv_fwd.launches_by_g.get(g, 0) + 1
     return out
 
 
@@ -425,13 +453,15 @@ def fused_equiv_bwd(rel, rot6, feats, idx, mask, proj_axes, proj_biases, conv_we
         raise RuntimeError(f"fused_equiv_bwd kernel launch failed: CUDA error {err}")
     fused_equiv_bwd.launches += 1
     fused_equiv_bwd.bf16_launches += bf16
+    fused_equiv_bwd.launches_by_g[g] = fused_equiv_bwd.launches_by_g.get(g, 0) + 1
     return d_feats, d_params[:9], d_params[9], d_w
 
 
-# kernel launches so far (CPU calls do not count), all and those with
-# bfloat16 operands; callers may reset them
+# kernel launches so far (CPU calls do not count): all, those with bfloat16
+# operands, and all by G (out-frames: {G: launches}); callers may reset them
 fused_equiv_fwd.launches = fused_equiv_fwd.bf16_launches = 0
 fused_equiv_bwd.launches = fused_equiv_bwd.bf16_launches = 0
+fused_equiv_fwd.launches_by_g, fused_equiv_bwd.launches_by_g = {}, {}
 
 
 class FusedEquivConv(torch.autograd.Function):

@@ -1,16 +1,21 @@
 """Segmentation model presets and the pinned recipes (counterpart of
 ``se3conv3d_tpu/models/presets.py`` for the FAUST and ScanNet seg models).
 
-``DFAUST_I_ROT_PCA_2F_MODEL`` / ``_TRAINING`` and
-``SCANNET20_ROT_PCA_I_MODEL`` / ``_TRAINING`` are the ``Model`` and
-``Training`` sections of ``configs/dfaust/dfaust_I_rot_pca_2F.yaml`` and
-``configs/scannet/scannet20_rot_pca_I.yaml`` as Python dicts, so the card
-needs no YAML reader; tests hold them equal to the files.
+The pinned recipes are the ``Model`` and ``Training`` sections of YAML
+files under ``configs/`` as Python dicts, so the card needs no YAML reader;
+tests hold them equal to the files:
+
+- ``DFAUST_I_ROT_PCA_2F_*``: ``configs/dfaust/dfaust_I_rot_pca_2F.yaml``;
+- ``DFAUST_I_ROT_PCA_MIXF_*``: ``configs/dfaust/dfaust_I_rot_pca_mixF.yaml``;
+- ``DFAUST_I_ROT_MC_2F_*``: ``configs/dfaust/dfaust_I_rot_MC_2F.yaml``;
+- ``DFAUST_I_ROT_MC_MIXF_*``: ``configs/dfaust/dfaust_I_rot_MC_mixF.yaml``;
+- ``SCANNET20_ROT_PCA_I_*``: ``configs/scannet/scannet20_rot_pca_I.yaml``;
+- ``SCANNET20_ROT_I_*``: ``configs/scannet/scannet20_rot_I.yaml``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -22,10 +27,18 @@ __all__ = [
     "SEG_PRESETS",
     "DFAUST_I_ROT_PCA_2F_MODEL",
     "DFAUST_I_ROT_PCA_2F_TRAINING",
+    "DFAUST_I_ROT_PCA_MIXF_MODEL",
+    "DFAUST_I_ROT_PCA_MIXF_TRAINING",
+    "DFAUST_I_ROT_MC_2F_MODEL",
+    "DFAUST_I_ROT_MC_2F_TRAINING",
+    "DFAUST_I_ROT_MC_MIXF_MODEL",
+    "DFAUST_I_ROT_MC_MIXF_TRAINING",
     "DFAUST_NUM_POINTS",
     "DFAUST_NUM_CLASSES",
     "SCANNET20_ROT_PCA_I_MODEL",
     "SCANNET20_ROT_PCA_I_TRAINING",
+    "SCANNET20_ROT_I_MODEL",
+    "SCANNET20_ROT_I_TRAINING",
     "SCANNET_SCENE_MAX_POINTS",
     "SCANNET_NUM_FEATURES",
     "SCANNET20_NUM_CLASSES",
@@ -33,7 +46,9 @@ __all__ = [
     "get_model_spec",
     "spec_from_model_dict",
     "COMPUTE_DTYPES",
+    "frame_config_from_dict",
     "hierarchy_config_from_model_dict",
+    "mix_n_frames",
 ]
 
 DFAUST_I_ROT_PCA_2F_MODEL: Dict[str, Any] = {
@@ -67,6 +82,41 @@ DFAUST_I_ROT_PCA_2F_TRAINING: Dict[str, Any] = {
     "label_smoothing": 0.2,
     "save_models_frequency": 50,
     "val_freq": 5,
+}
+# the DFaust recipes share their Model section but for RefFrames, and their
+# Training section but for log_folder, batch_size and accum_grads
+_DFAUST_MODEL_BASE = {k: v for k, v in DFAUST_I_ROT_PCA_2F_MODEL.items() if k != "RefFrames"}
+_MIX_N_FRAMES = {4: 0.15, 2: 0.35, 1: 0.50}
+DFAUST_I_ROT_PCA_MIXF_MODEL: Dict[str, Any] = {
+    **_DFAUST_MODEL_BASE,
+    "RefFrames": {
+        "pca": True,
+        "neigh_method": "knn",
+        "neigh_kwargs": {"neigh_k": 16},
+        "fixed_axis": False,
+        "train_n_frames": 1,
+        "test_n_frames": 1,
+        "mix_n_frames": dict(_MIX_N_FRAMES),
+    },
+}
+DFAUST_I_ROT_PCA_MIXF_TRAINING: Dict[str, Any] = {
+    **DFAUST_I_ROT_PCA_2F_TRAINING, "log_folder": "./logs/dfaust_RotEq_I_OOD_mixF"}
+DFAUST_I_ROT_MC_2F_MODEL: Dict[str, Any] = {
+    **_DFAUST_MODEL_BASE,
+    "RefFrames": {"pca": False, "fixed_axis": False, "train_n_frames": 2, "test_n_frames": 2},
+}
+DFAUST_I_ROT_MC_2F_TRAINING: Dict[str, Any] = {
+    **DFAUST_I_ROT_PCA_2F_TRAINING, "log_folder": "./logs/dfaust_RotEq_I_MC_2F"}
+DFAUST_I_ROT_MC_MIXF_MODEL: Dict[str, Any] = {
+    **_DFAUST_MODEL_BASE,
+    "RefFrames": {"pca": False, "fixed_axis": False, "train_n_frames": 1, "test_n_frames": 1,
+                  "mix_n_frames": dict(_MIX_N_FRAMES)},
+}
+DFAUST_I_ROT_MC_MIXF_TRAINING: Dict[str, Any] = {
+    **DFAUST_I_ROT_PCA_2F_TRAINING,
+    "log_folder": "./logs/dfaust_RotEq_I_OOD_MC_mixF",
+    "batch_size": 16,
+    "accum_grads": 2,
 }
 DFAUST_NUM_POINTS = 4096   # Dataset.num_points of the recipe
 DFAUST_NUM_CLASSES = 20    # DFaust body-part labels
@@ -107,6 +157,12 @@ SCANNET20_ROT_PCA_I_TRAINING: Dict[str, Any] = {
     "save_models_frequency": 50,
     "val_freq": 5,
 }
+SCANNET20_ROT_I_MODEL: Dict[str, Any] = {
+    **{k: v for k, v in SCANNET20_ROT_PCA_I_MODEL.items() if k != "RefFrames"},
+    "RefFrames": {"pca": False, "fixed_axis": 2, "train_n_frames": 1, "test_n_frames": 1},
+}
+SCANNET20_ROT_I_TRAINING: Dict[str, Any] = {
+    **SCANNET20_ROT_PCA_I_TRAINING, "log_folder": "./logs/scannet20_RotEq_I"}
 SCANNET_SCENE_MAX_POINTS = 120000  # Dataset.train_scene_max_pts of the recipe
 SCANNET_NUM_FEATURES = 6           # normals + rgb (se3conv3d_tpu/data/loaders.py:431)
 SCANNET20_NUM_CLASSES = 21         # 20 classes + unlabelled (loaders.py:319)
@@ -194,21 +250,45 @@ def spec_from_model_dict(model: Dict[str, Any]) -> ModelSpec:
     return spec
 
 
+def frame_config_from_dict(ref_frames: Optional[Dict[str, Any]],
+                           train: bool = True) -> Optional[FrameConfig]:
+    """``Model.RefFrames`` -> FrameConfig, each key read with the JAX
+    package's default (``se3conv3d_tpu/train/config.py:
+    frame_config_from_dict``): ``train_n_frames`` / ``test_n_frames`` (else
+    ``n_frames``, else 2), ``pca`` True, ``fixed_axis`` False,
+    ``neigh_method`` ``'knn'``, ``neigh_kwargs.neigh_k`` 16 and
+    ``.bq_radius`` 0.  No section: None (the standard models)."""
+    if not ref_frames:
+        return None
+    kwargs = ref_frames.get("neigh_kwargs", {}) or {}
+    n_frames = ref_frames.get("train_n_frames" if train else "test_n_frames",
+                              ref_frames.get("n_frames", 2))
+    return FrameConfig(
+        n_frames=int(n_frames),
+        pca=bool(ref_frames.get("pca", True)),
+        fixed_axis=ref_frames.get("fixed_axis", False),
+        neigh_method=ref_frames.get("neigh_method", "knn"),
+        neigh_k=int(kwargs.get("neigh_k", 16)),
+        bq_radius=float(kwargs.get("bq_radius", 0.0)),
+    )
+
+
 def hierarchy_config_from_model_dict(model: Dict[str, Any], num_points: int,
                                      train: bool = True) -> HierarchyConfig:
     """``Model`` section -> HierarchyConfig (explicit capacities only)."""
-    rf = model["RefFrames"]
     return HierarchyConfig(
         init_cell_size=float(model["init_subsample"]),
         cell_sizes=tuple(float(c) for c in model["grid_subsamples"]),
         capacities=tuple(int(c) for c in model["capacities"]),
         out_cell_size=float(model["output_subsample"]),
         out_capacity=int(model.get("out_capacity", num_points)),
-        frames=FrameConfig(
-            n_frames=int(rf["train_n_frames" if train else "test_n_frames"]),
-            pca=bool(rf["pca"]),
-            fixed_axis=rf["fixed_axis"],
-            neigh_method=rf["neigh_method"],
-            neigh_k=int(rf["neigh_kwargs"]["neigh_k"]),
-        ),
+        frames=frame_config_from_dict(model.get("RefFrames"), train),
     )
+
+
+def mix_n_frames(model: Dict[str, Any]) -> Optional[Dict[int, float]]:
+    """A recipe's ``RefFrames.mix_n_frames`` as ``{frame count:
+    probability}`` (the train run's per-micro-batch draw,
+    ``se3conv3d_tpu/train/run.py``), or None where the recipe has none."""
+    mix = (model.get("RefFrames") or {}).get("mix_n_frames")
+    return {int(k): float(v) for k, v in mix.items()} if mix else None

@@ -3,7 +3,9 @@
 AdamW with decoupled weight decay on every parameter, a clamped one-cycle
 schedule stepped per optimizer step, and clipping by global norm -- the
 optax chain ``clip_by_global_norm -> adamw(onecycle)`` of the JAX package,
-written with ``torch.optim.AdamW`` and a ``LambdaLR``.
+written with ``torch.optim.AdamW`` and a ``LambdaLR`` -- optionally
+accumulating the gradients of ``accum_steps`` micro-batches per optimizer
+step, as the JAX package's ``optax.MultiSteps`` wrapper.
 """
 from __future__ import annotations
 
@@ -57,31 +59,67 @@ class Optimizer:
     """AdamW (betas 0.9 / 0.999, eps 1e-8) whose learning rate follows
     ``schedule(step)``, after clipping the gradients to a global norm of at
     most ``clip_grad_norm`` (optax's rule: scaled by ``clip / norm`` when
-    ``norm >= clip``)."""
+    ``norm >= clip``).
+
+    With ``accum_steps = k > 1`` each :meth:`step` call is one micro-batch,
+    with ``optax.MultiSteps(k)`` semantics: the call adds the parameters'
+    gradients to an accumulator; every k-th call takes the accumulator's
+    mean over the k micro-batches as the gradient, clips it, updates,
+    advances the schedule and clears the accumulator; the other calls
+    leave the parameters, the AdamW state and the schedule untouched.  The
+    count lives here, so any caller that sets ``.grad`` and calls
+    :meth:`step` (the plain and the scene-sequential train steps alike)
+    shares it.
+    """
 
     def __init__(self, params: Iterable[torch.nn.Parameter], schedule: Callable[[int], float],
-                 weight_decay: float = 1e-4, clip_grad_norm: Optional[float] = None):
+                 weight_decay: float = 1e-4, clip_grad_norm: Optional[float] = None,
+                 accum_steps: int = 1):
+        if accum_steps < 1:
+            raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
         self.params = [p for p in params if p.requires_grad]
         self.clip_grad_norm = clip_grad_norm
+        self.accum_steps = accum_steps
+        self.micro_step = 0  # micro-batches in the accumulator
+        self._acc: Optional[List[Optional[torch.Tensor]]] = None
         self.adamw = torch.optim.AdamW(self.params, lr=1.0, betas=(0.9, 0.999), eps=1e-8,
                                        weight_decay=weight_decay)
         self.scheduler = torch.optim.lr_scheduler.LambdaLR(self.adamw, schedule)
 
     @property
     def lr(self) -> float:
-        """Learning rate of the next step."""
+        """Learning rate of the next update."""
         return self.adamw.param_groups[0]["lr"]
 
     @torch.no_grad()
     def step(self) -> torch.Tensor:
-        """Clip, update, advance the schedule; returns the global gradient
-        norm before clipping (a device tensor: no host sync)."""
+        """One micro-batch: returns the global norm of this call's gradients
+        (a device tensor: no host sync).  Without accumulation, or at the
+        k-th call, clips the (mean) gradient, updates and advances the
+        schedule."""
         grads = [p.grad for p in self.params if p.grad is not None]
         norm = global_norm(grads)
+        if self.accum_steps > 1:
+            if self._acc is None:
+                self._acc = [None if p.grad is None else p.grad.clone() for p in self.params]
+            else:
+                for i, p in enumerate(self.params):
+                    if p.grad is not None:
+                        self._acc[i] = p.grad.clone() if self._acc[i] is None else self._acc[i].add_(p.grad)
+            self.micro_step += 1
+            if self.micro_step < self.accum_steps:
+                return norm
+            for p, acc in zip(self.params, self._acc):
+                p.grad = None if acc is None else acc.div_(self.accum_steps)
+            self._acc, self.micro_step = None, 0
+            grads = [p.grad for p in self.params if p.grad is not None]
+            mean_norm = global_norm(grads)
+        else:
+            mean_norm = norm
         if self.clip_grad_norm is not None:
-            keep = norm < self.clip_grad_norm
+            keep = mean_norm < self.clip_grad_norm
             for g in grads:
-                g.copy_(torch.where(keep, g, g / norm * self.clip_grad_norm))
+                g.copy_(torch.where(keep, g, g / mean_norm * self.clip_grad_norm))
         self.adamw.step()
         self.scheduler.step()
         return norm
@@ -91,25 +129,27 @@ def make_optimizer(params: Iterable[torch.nn.Parameter], max_lr: float, total_st
                    weight_decay: float = 1e-4, clip_grad_norm: Optional[float] = None,
                    accum_steps: int = 1, pct_start: float = 0.3, div_factor: float = 25.0,
                    final_div_factor: float = 1e4) -> Optimizer:
-    """AdamW + one-cycle (+ clipping), as the JAX ``make_optimizer``.
+    """AdamW + one-cycle (+ clipping, + gradient accumulation over
+    ``accum_steps`` micro-batches), as the JAX ``make_optimizer``.
 
-    ``div_factor`` / ``final_div_factor`` default to the JAX package's
-    values; the recipes' ``Training`` sections set their own.  Gradient
-    accumulation (``accum_steps > 1``, ``optax.MultiSteps`` in JAX) is not
-    ported and raises.
+    ``total_steps`` counts :meth:`Optimizer.step` calls (micro-batches);
+    the one-cycle runs over the ``max(total_steps // accum_steps, 1)`` real
+    updates, as in JAX.  ``div_factor`` / ``final_div_factor`` default to
+    the JAX package's values; the recipes' ``Training`` sections set their
+    own.
     """
-    if accum_steps != 1:
-        raise NotImplementedError("gradient accumulation is not ported yet")
-    schedule = onecycle(max_lr, total_steps, pct_start, div_factor, final_div_factor)
-    return Optimizer(params, schedule, weight_decay, clip_grad_norm)
+    schedule = onecycle(max_lr, max(int(total_steps) // max(accum_steps, 1), 1), pct_start,
+                        div_factor, final_div_factor)
+    return Optimizer(params, schedule, weight_decay, clip_grad_norm, accum_steps)
 
 
 def optimizer_from_training(params: Iterable[torch.nn.Parameter], training: Dict[str, Any],
                             total_steps: int) -> Optimizer:
     """A recipe's ``Training`` section (e.g. ``models.presets.
-    DFAUST_I_ROT_PCA_2F_TRAINING``) -> :func:`make_optimizer`.  Unlike the
-    JAX package's ``train/run.py``, the section's ``div_factor`` and
-    ``final_div_factor`` are honoured."""
+    DFAUST_I_ROT_PCA_2F_TRAINING``) -> :func:`make_optimizer`, with
+    ``accum_grads`` micro-batches per update and ``total_steps``
+    micro-batches in all.  Unlike the JAX package's ``train/run.py``, the
+    section's ``div_factor`` and ``final_div_factor`` are honoured."""
     return make_optimizer(
         params, float(training["max_lr"]), total_steps,
         weight_decay=float(training.get("weight_decay", 0.0)),

@@ -16,11 +16,21 @@ and the backward of the masked loss *sum*, so activations are those of one
 scene and BN statistics update scene after scene; then every gradient is
 divided by the summed count of valid points, and one clipped optimizer step
 follows.  The steps run on the model's device and move the batch there.
+
+A train step may take its own frame count (``n_frames``): the recipes with
+``RefFrames.mix_n_frames`` draw one per micro-batch (:func:`draw_n_frames`,
+as the JAX package's ``train/run.py``).  The parameters do not depend on
+it, so one ``Trainer`` serves every count; calibration and eval keep the
+recipe's ``train_n_frames`` / ``test_n_frames``.  With an optimizer that
+accumulates gradients (``Training.accum_grads``), each train step is one
+micro-batch and every k-th one updates the parameters.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+import dataclasses
+from typing import Dict, Optional, Sequence
 
+import numpy as np
 import torch
 
 from ..core.hierarchy import HierarchyConfig, HierarchyDraws, build_hierarchy
@@ -28,7 +38,17 @@ from ..nn.blocks import DropPathDraws
 from .losses import masked_segmentation_loss_parts
 from .schedule import Optimizer
 
-__all__ = ["Trainer"]
+__all__ = ["Trainer", "draw_n_frames"]
+
+
+def draw_n_frames(mix: Dict[int, float], rng: np.random.Generator) -> int:
+    """One micro-batch's frame count from ``mix`` (``{count: probability}``,
+    ``models.presets.mix_n_frames``): ``rng.choice`` over the sorted counts
+    with the probabilities normalised, the expression of the JAX package's
+    ``train/run.py``, so the same numpy seed gives the same sequence."""
+    counts = sorted(mix)
+    probs = np.asarray([mix[c] for c in counts])
+    return int(rng.choice(counts, p=probs / probs.sum()))
 
 
 class Trainer:
@@ -60,10 +80,14 @@ class Trainer:
         self.step = 0
 
     def build(self, batch: dict, generator: Optional[torch.Generator] = None,
-              draws: Optional[HierarchyDraws] = None, train: bool = True):
+              draws: Optional[HierarchyDraws] = None, train: bool = True,
+              n_frames: Optional[int] = None):
         """Hierarchy, frame-repeated level-0 features, output cloud, output
-        labels and the raw -> output subsample map."""
+        labels and the raw -> output subsample map; ``n_frames`` replaces the
+        config's frame count."""
         hcfg = self.hcfg if train else self.eval_hcfg
+        if n_frames is not None and hcfg.frames is not None:
+            hcfg = dataclasses.replace(hcfg, frames=hcfg.frames.with_n_frames(n_frames))
         batch = {k: v.to(self.device) for k, v in batch.items()}
         h, f0, out_pc, out_labels, raw_to_out = build_hierarchy(
             batch["positions"], batch["mask"], batch.get("features"), hcfg,
@@ -92,23 +116,28 @@ class Trainer:
 
     def train_step(self, batch: dict, generator: Optional[torch.Generator] = None,
                    draws: Optional[HierarchyDraws] = None,
-                   drop_masks: Optional[Sequence[torch.Tensor]] = None) -> dict:
-        """One optimizer step on a labelled batch.
+                   drop_masks: Optional[Sequence[torch.Tensor]] = None,
+                   n_frames: Optional[int] = None) -> dict:
+        """One optimizer step (one micro-batch of it, with an accumulating
+        optimizer) on a labelled batch.
 
         The hierarchy draws come from ``draws`` or ``generator``, the
         DropPath keep masks (``[B]`` each, in call order) from
         ``drop_masks`` or ``generator``; under ``scan_scenes`` with B > 1,
         ``draws`` and ``drop_masks`` are lists with one entry per scene
-        (``[1]`` masks).  Returns ``{"loss", "grad_norm"}`` as device
-        scalars; ``grad_norm`` is the global norm before clipping.  BN
+        (``[1]`` masks).  ``n_frames`` builds the hierarchy with that many
+        frames per point instead of the recipe's ``train_n_frames``.
+        Returns ``{"loss", "grad_norm"}`` as device scalars; ``grad_norm``
+        is the global norm of this batch's gradients before clipping.  BN
         running statistics are updated in place.
         """
         if self.optimizer is None:
             raise ValueError("train_step needs a Trainer built with an optimizer")
         if self.scan_scenes and batch["mask"].shape[0] > 1:
-            loss = self.backward_scenes(batch, generator, draws, drop_masks)
+            loss = self.backward_scenes(batch, generator, draws, drop_masks, n_frames)
         else:
-            h, f0, out_pc, out_labels, _ = self.build(batch, generator, draws, train=True)
+            h, f0, out_pc, out_labels, _ = self.build(batch, generator, draws, train=True,
+                                                      n_frames=n_frames)
             loss = self.backward(h, f0, out_pc, out_labels, DropPathDraws(generator, drop_masks))
         grad_norm = self.optimizer.step()
         self.step += 1
@@ -126,8 +155,8 @@ class Trainer:
 
     def backward_scenes(self, batch: dict, generator: Optional[torch.Generator] = None,
                         draws: Optional[Sequence[HierarchyDraws]] = None,
-                        drop_masks: Optional[Sequence[Sequence[torch.Tensor]]] = None
-                        ) -> torch.Tensor:
+                        drop_masks: Optional[Sequence[Sequence[torch.Tensor]]] = None,
+                        n_frames: Optional[int] = None) -> torch.Tensor:
         """Scene-sequential forward and backward (``scan_scenes``): sets
         every parameter's ``.grad`` to the count-weighted mean gradient over
         the scenes of ``batch`` and returns ``sum(total) / sum(count)``."""
@@ -137,7 +166,8 @@ class Trainer:
         for i in range(batch["mask"].shape[0]):
             scene = {k: v[i : i + 1] for k, v in batch.items()}
             h, f0, out_pc, out_labels, _ = self.build(
-                scene, generator, None if draws is None else draws[i], train=True)
+                scene, generator, None if draws is None else draws[i], train=True,
+                n_frames=n_frames)
             drops = DropPathDraws(generator, None if drop_masks is None else drop_masks[i])
             t, c = self._loss_parts(self.model(h, f0, out_pc, drops=drops), out_labels, out_pc)
             t.backward()

@@ -29,6 +29,12 @@ SHAPES = {
     "g1_wide_out": (1, 40, 64, 12, 1, 1, 32, 70, 300, 0.8),  # two output blocks
     "many_neighbors_deep": (2, 33, 128, 40, 2, 2, 32, 256, 256, 0.5),
     "all_masked_tiles": (2, 64, 64, 16, 2, 2, 32, 32, 32, 0.0),
+    # G > 2 or G*Q > 64: pne rows of 128 columns (two 64-column passes where G*Q > 64)
+    "g4_mixf_like": (2, 200, 180, 32, 4, 4, 32, 32, 32, 0.7),
+    "g3_ragged_q24": (2, 61, 50, 9, 3, 3, 24, 20, 18, 0.6),
+    "g4_q16_one_pass": (2, 70, 60, 10, 4, 4, 16, 24, 20, 0.6),
+    "g1_q128": (1, 50, 64, 12, 1, 1, 128, 24, 20, 0.7),
+    "g4_most_edges": (1, 24, 400, 108, 4, 4, 32, 16, 16, 0.8),  # K*F = MAX_EDGES[128]
 }
 BWD_RTOL = 1e-4
 
@@ -298,6 +304,9 @@ LIVE_SHAPES = {
     "live_unaligned_widths": (2, 150, 120, 10, 2, 2, 9, 37, 70, 0.6, 0.5),
     # O = 7: the forward's product copies W 4 bytes at a time
     "live_narrow_c5_o7_q8": (2, 90, 70, 10, 2, 2, 8, 5, 7, 0.6, 0.4),
+    # the mixed-frame-count recipes at F = G = 4 (128 pne columns)
+    "live_g4_level0_like": (2, 1024, 1024, 32, 4, 4, 32, 32, 32, 0.7, 0.28),
+    "live_g4_level4_like": (2, 128, 128, 32, 4, 4, 32, 256, 256, 0.7, 0.3),
 }
 
 

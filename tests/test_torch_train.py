@@ -5,13 +5,18 @@
   and a record of the JAX package's deviation from it at F > 1;
 * train-mode ``DropPath`` with injected uniforms;
 * the one-cycle schedule and the clipped AdamW against the JAX package's
-  ``onecycle`` / ``make_optimizer`` optax chain;
+  ``onecycle`` / ``make_optimizer`` optax chain, and gradient accumulation
+  against its ``optax.MultiSteps`` wrapper;
 * one whole ``Trainer.train_step`` of the tiny FPNSegUNetMLPGeluRotEqFAUST
   against the JAX ``Trainer.train_step``: the same weights (``from_flax``),
   hierarchy draws and DropPath keep masks (captured from the JAX run with
-  ``flax.linen.intercept_methods``).  At F=2 the JAX run goes through an
+  ``flax.linen.intercept_methods``), with PCA frames at F = 1, 2, 4 and
+  random SO(3) frames at F = 4.  At F > 1 the JAX run goes through an
   interceptor that gives its ``MaskedBatchNorm`` the reference's row count;
-  no file of the JAX package changes.
+  no file of the JAX package changes;
+* one accumulated optimizer step (two micro-batches, at F = 1 and F = 4,
+  random frames) of one port ``Trainer`` against two JAX trainers that
+  share one state under ``optax.MultiSteps(k=2)``.
 """
 import dataclasses
 import os
@@ -162,8 +167,56 @@ def test_clipped_adamw_matches_the_jax_optax_chain():
             np.testing.assert_allclose(p.detach().numpy(), np.asarray(jparams[k]), rtol=1e-6,
                                        err_msg=f"step {step} leaf {k}")
     assert max(norms) > 1.5 > min(norms)  # both clipped and unclipped steps
-    with pytest.raises(NotImplementedError):
-        schedule.make_optimizer(tparams.values(), 5e-3, 12, accum_steps=2)
+    with pytest.raises(ValueError):  # accumulation takes at least one micro-batch a step
+        schedule.make_optimizer(tparams.values(), 5e-3, 12, accum_steps=0)
+
+
+@pytest.mark.parametrize("k", [2, 3])
+def test_accumulating_adamw_matches_optax_multisteps(k):
+    """``make_optimizer(..., accum_steps=k)`` against the JAX package's
+    ``make_optimizer(..., accum_steps=k)`` (``optax.MultiSteps``) on the same
+    gradients: the calls between updates leave the parameters bitwise
+    unchanged and the schedule where it was; every k-th call applies the
+    clipped mean, and the one-cycle runs over ``total_steps // k`` updates.
+    The mean is a sum over k here and a running mean in optax, so the
+    parameters agree to float32 rounding (rtol 1e-6)."""
+    rng = np.random.default_rng(3)
+    shapes = {"a": (3, 4), "b": (5,), "c": (2, 3, 2)}
+    params = {key: rng.normal(size=s).astype(np.float32) for key, s in shapes.items()}
+    total = 6 * k
+    tx = jschedule.make_optimizer(5e-3, total_steps=total, weight_decay=1e-4, clip_grad_norm=1.0,
+                                  accum_steps=k, pct_start=0.25)
+    jparams = {key: jnp.asarray(v) for key, v in params.items()}
+    jstate = tx.init(jparams)
+    tparams = {key: torch.nn.Parameter(t(v)) for key, v in params.items()}
+    opt = schedule.make_optimizer(tparams.values(), 5e-3, total_steps=total, weight_decay=1e-4,
+                                  clip_grad_norm=1.0, accum_steps=k, pct_start=0.25)
+    lrs = [opt.lr]
+    for call in range(3 * k):
+        grads = {key: (rng.normal(size=s) * (0.1 if call < k else 1.0)).astype(np.float32)
+                 for key, s in shapes.items()}
+        updates, jstate = tx.update({key: jnp.asarray(v) for key, v in grads.items()}, jstate, jparams)
+        jparams = optax.apply_updates(jparams, updates)
+        before = {key: p.detach().clone() for key, p in tparams.items()}
+        for key, p in tparams.items():
+            p.grad = t(grads[key])
+        norm = float(opt.step())
+        np.testing.assert_allclose(norm, float(optax.global_norm(grads)), rtol=1e-6)
+        update = (call + 1) % k == 0
+        assert opt.micro_step == (call + 1) % k
+        for key, p in tparams.items():
+            if not update:
+                assert torch.equal(p, before[key]), (call, key)
+            np.testing.assert_allclose(p.detach().numpy(), np.asarray(jparams[key]), rtol=1e-6,
+                                       atol=1e-7, err_msg=f"call {call} leaf {key}")
+        lrs.append(opt.lr)
+    # the schedule advanced once per update, over total // k updates
+    want = [schedule.onecycle(5e-3, total // k, 0.25)(call // k) for call in range(3 * k + 1)]
+    np.testing.assert_allclose(lrs, want, rtol=1e-12)
+    assert len(set(lrs)) == 4
+    opt = schedule.optimizer_from_training([torch.nn.Parameter(torch.zeros(3))],
+                                           presets.DFAUST_I_ROT_MC_MIXF_TRAINING, 1000)
+    assert opt.accum_steps == 2 and opt.clip_grad_norm == 100.0
 
 
 def test_pinned_training_matches_yaml():
@@ -187,17 +240,12 @@ def test_pinned_training_matches_yaml():
 GRAD_TOL, GRAD_FLOOR, BN_RTOL = 1e-4, 1e-2, 1e-5
 
 
-@pytest.mark.parametrize("frames", [1, 2])
-def test_train_step_matches_jax_trainer(frames):
+def _jax_start(cfg, jbatch, tx):
+    """The JAX tiny model's randomized, calibrated state (``tx`` state
+    fresh) and the model."""
     spec = dataclasses.replace(jget_spec("FPNSegUNetMLPGeluRotEqFAUST"), **TINY, max_path_drop=0.5)
-    cfg = jhier.HierarchyConfig(**HCFG, frames=jhier.FrameConfig(n_frames=frames, neigh_k=8))
-    pts, mask, feats, labels = tiny_batch()
-    jbatch = {"positions": jnp.asarray(pts), "mask": jnp.asarray(mask),
-              "features": jnp.asarray(feats), "labels": jnp.asarray(labels)}
-
     model = JNet(spec, num_in_feats=1, num_classes=NUM_CLASSES)
-    jtrainer = JTrainer(model, cfg, capture_grads(), TrainSettings(label_smoothing=0.2),
-                        donate_state=False)
+    jtrainer = JTrainer(model, cfg, tx, TrainSettings(label_smoothing=0.2), donate_state=False)
     h, f0, out_pc, _, _ = jax.jit(jtrainer._build)(jax.random.PRNGKey(3), jbatch)
     v = jax.jit(model.init, static_argnames=("train",))(
         {"params": jax.random.PRNGKey(1), "droppath": jax.random.PRNGKey(2)}, h, f0, out_pc,
@@ -208,7 +256,40 @@ def test_train_step_matches_jax_trainer(frames):
         {"params": params, "batch_stats": stats, "calib": v["calib"]}, h, f0, out_pc,
         train=False, calibrate=True, mutable=("calib",))
     state = TrainState(step=jnp.zeros((), jnp.int32), params=params, batch_stats=stats,
-                       calib=mut["calib"], opt_state=capture_grads().init(params))
+                       calib=mut["calib"], opt_state=tx.init(params))
+    return model, state
+
+
+def _port_model(params, stats, calib):
+    tspec = dataclasses.replace(get_model_spec("FPNSegUNetMLPGeluRotEqFAUST"), **TINY,
+                                max_path_drop=0.5)
+    tmodel = FPNSegUNet(tspec, num_in_feats=1, num_classes=NUM_CLASSES)
+    tmodel.load_state_dict(from_flax(*(jax.device_get(x) for x in (params, stats, calib))))
+    return tmodel
+
+
+def _torch_batch(pts, mask, feats, labels):
+    return {k: t(x) for k, x in zip(("positions", "mask", "features", "labels"),
+                                    (pts, mask, feats, labels))}
+
+
+# the train-step cases: (frames F, PCA frames or random SO(3) ones)
+TRAIN_STEP_CASES = [pytest.param(1, True, id="1"), pytest.param(2, True, id="2"),
+                    pytest.param(4, True, id="4"), pytest.param(4, False, id="4-mc")]
+
+
+@pytest.mark.parametrize("frames,pca", TRAIN_STEP_CASES)
+def test_train_step_matches_jax_trainer(frames, pca):
+    fkw = dict(n_frames=frames, neigh_k=8, pca=pca)
+    cfg = jhier.HierarchyConfig(**HCFG, frames=jhier.FrameConfig(**fkw))
+    pts, mask, feats, labels = tiny_batch()
+    jbatch = {"positions": jnp.asarray(pts), "mask": jnp.asarray(mask),
+              "features": jnp.asarray(feats), "labels": jnp.asarray(labels)}
+
+    model, state = _jax_start(cfg, jbatch, capture_grads())
+    jtrainer = JTrainer(model, cfg, capture_grads(), TrainSettings(label_smoothing=0.2),
+                        donate_state=False)
+    params, stats, calib = state.params, state.batch_stats, state.calib
     order = []
     key = jax.random.PRNGKey(7)
     with fnn.intercept_methods(droppath_interceptor(order, reference_bn=frames > 1)):
@@ -216,16 +297,13 @@ def test_train_step_matches_jax_trainer(frames):
     keep_masks, new_stats = pop_keep_masks(new_state.batch_stats, order)
     assert len(keep_masks) == 2  # the two skips of the one block with drop probability 0.5
 
-    tspec = dataclasses.replace(get_model_spec("FPNSegUNetMLPGeluRotEqFAUST"), **TINY,
-                                max_path_drop=0.5)
-    tmodel = FPNSegUNet(tspec, num_in_feats=1, num_classes=NUM_CLASSES)
-    tmodel.load_state_dict(from_flax(*(jax.device_get(x) for x in (params, stats, mut["calib"]))))
+    tmodel = _port_model(params, stats, calib)
     opt = schedule.make_optimizer(tmodel.parameters(), 5e-3, 100, clip_grad_norm=100.0)
-    tcfg = thier.HierarchyConfig(**HCFG, frames=thier.FrameConfig(n_frames=frames, neigh_k=8))
+    tcfg = thier.HierarchyConfig(**HCFG, frames=thier.FrameConfig(**fkw))
     trainer = Trainer(tmodel, tcfg, label_smoothing=0.2, optimizer=opt)
     rng_h, _ = jax.random.split(jax.random.fold_in(key, 0))
     out = trainer.train_step(
-        {k: t(x) for k, x in zip(("positions", "mask", "features", "labels"), (pts, mask, feats, labels))},
+        _torch_batch(pts, mask, feats, labels),
         draws=jax_hierarchy_draws(rng_h, cfg, 2, pts.shape[1]),
         drop_masks=[t(m) for m in keep_masks],
     )
@@ -247,3 +325,77 @@ def test_train_step_matches_jax_trainer(frames):
         np.testing.assert_allclose(got, ref, rtol=BN_RTOL, atol=1e-6, err_msg=name)
         moved += not np.allclose(ref, flat_tree(stats)[name])
     assert moved == len(flat_tree(stats))  # every BN statistic moved
+
+
+def test_accumulated_step_matches_jax_multisteps():
+    """One optimizer step of two micro-batches (``accum_grads: 2``), random
+    SO(3) frames, the first at F = 1 and the second at F = 4 (a
+    ``mix_n_frames`` draw): one port ``Trainer`` whose ``train_step`` takes
+    the frame count, against two JAX trainers (F = 1, F = 4) sharing one
+    state under ``optax.MultiSteps(k=2)``, with the same hierarchy draws and
+    DropPath keep masks.  After the first micro-batch the parameters are
+    bitwise unchanged and the BN statistics equal JAX's; after the second,
+    AdamW's first moment (0.1 x the clipped mean gradient) and the
+    parameters agree with JAX's within the ``GRAD_TOL`` rule (per leaf, with
+    the floor taken from the tree's global norm).  The learning rate is
+    small (2e-6 at this step), so a parameter whose mean gradient is only
+    rounding noise (a bias before a train-mode BN), which AdamW moves by
+    about the learning rate in either direction, stays within the rule; the
+    first moment holds the gradients themselves."""
+    max_lr, total = 5e-5, 20
+    pts, mask, feats, labels = tiny_batch()
+    pts2, mask2, feats2, labels2 = tiny_batch(seed=1)
+    cfgs = {f: jhier.HierarchyConfig(**HCFG, frames=jhier.FrameConfig(n_frames=f, pca=False))
+            for f in (1, 4)}
+    batches = [(pts, mask, feats, labels), (pts2, mask2, feats2, labels2)]
+    jbatches = [{k: jnp.asarray(x) for k, x in zip(("positions", "mask", "features", "labels"), b)}
+                for b in batches]
+    tx = jschedule.make_optimizer(max_lr, total, weight_decay=1e-4, clip_grad_norm=100.0,
+                                  accum_steps=2)
+    model, state = _jax_start(cfgs[1], jbatches[0], tx)
+    params0, stats0 = state.params, state.batch_stats
+    tmodel = _port_model(params0, stats0, state.calib)
+    opt = schedule.make_optimizer(tmodel.parameters(), max_lr, total, weight_decay=1e-4,
+                                  clip_grad_norm=100.0, accum_steps=2)
+    tcfg = thier.HierarchyConfig(**HCFG, frames=thier.FrameConfig(n_frames=1, pca=False))
+    trainer = Trainer(tmodel, tcfg, label_smoothing=0.2, optimizer=opt)
+    key = jax.random.PRNGKey(9)
+    for step, f in enumerate((1, 4)):
+        jtrainer = JTrainer(model, cfgs[f], tx, TrainSettings(label_smoothing=0.2), donate_state=False)
+        order = []
+        with fnn.intercept_methods(droppath_interceptor(order, reference_bn=f > 1)):
+            state, metrics = jtrainer.train_step(state, jbatches[step], key)
+        keep_masks, stats = pop_keep_masks(state.batch_stats, order)
+        state = state.replace(batch_stats=stats)
+        rng_h, _ = jax.random.split(jax.random.fold_in(key, step))
+        out = trainer.train_step(_torch_batch(*batches[step]), n_frames=f,
+                                 draws=jax_hierarchy_draws(rng_h, cfgs[f], 2, pts.shape[1]),
+                                 drop_masks=[t(m) for m in keep_masks])
+        np.testing.assert_allclose(float(out["loss"]), float(metrics["loss"]), rtol=1e-5)
+        np.testing.assert_allclose(float(out["grad_norm"]), float(metrics["grad_norm"]), rtol=1e-4)
+        for name, ref in flat_tree(stats).items():
+            np.testing.assert_allclose(tmodel.get_buffer(name).numpy(), ref, rtol=BN_RTOL, atol=1e-6,
+                                       err_msg=f"micro-batch {step} {name}")
+        ref_params = flat_tree(state.params)
+        if step == 0:  # nothing applied yet: both sides hold the first parameters bitwise
+            for name, p in tmodel.named_parameters():
+                assert np.array_equal(p.detach().numpy(), ref_params[name]), name
+                assert np.array_equal(ref_params[name], flat_tree(params0)[name]), name
+            assert opt.micro_step == 1 and opt.lr == pytest.approx(max_lr / 25)
+    assert trainer.step == 2 and opt.micro_step == 0
+
+    def hold(ours, ref, what):
+        norm = float(np.sqrt(sum(np.square(r.astype(np.float64)).sum() for r in ref.values())))
+        assert set(ours) == set(ref)
+        for name, r in ref.items():
+            err = np.abs(ours[name] - r).max()
+            assert err <= GRAD_TOL * max(np.abs(r).max(), GRAD_FLOOR * norm), (what, name, err)
+
+    mu = flat_tree(state.opt_state.inner_opt_state[1][0].mu)
+    hold({n: opt.adamw.state[p]["exp_avg"].numpy() for n, p in tmodel.named_parameters()}, mu,
+         "first moment")
+    assert max(np.abs(m).max() for m in mu.values()) > 0
+    ref_params = flat_tree(state.params)
+    hold({n: p.detach().numpy() for n, p in tmodel.named_parameters()}, ref_params, "parameters")
+    moved = sum(not np.array_equal(ref_params[n], flat_tree(params0)[n]) for n in ref_params)
+    assert moved == len(ref_params)  # the update reached every leaf

@@ -45,19 +45,34 @@ def to_torch_hierarchy(h) -> Hierarchy:
     )
 
 
+def jax_frame_draws(key, fcfg, batch: int, cap: int) -> torch.Tensor:
+    """The draws ``se3conv3d_tpu.core.hierarchy.attach_frames(key, ...)``
+    makes for a cloud ``[batch, cap]``, in the port's injected form
+    (``se3conv3d_tpu_torch.core.hierarchy.draw_frames``)."""
+    s = 2 if fcfg.fixed_axis else 4
+    f = fcfg.n_frames
+    if not fcfg.pca:
+        if fcfg.fixed_axis:  # planar_rotations: one uniform angle per (b, n, f)
+            return t(jax.random.uniform(key, (batch * cap * f,))).reshape(batch, cap, f)
+        # random_quaternions: one normal 4-vector per (b, n, f)
+        return t(jax.random.normal(key, (batch * cap * f, 4))).reshape(batch, cap, f, 4)
+    if fcfg.global_frames:  # shuffle_and_select_frames over [B, 4] candidates
+        return t(jax.random.uniform(key, (batch, s)))
+    return t(jax.random.uniform(key, (batch, cap, s)))
+
+
 def jax_hierarchy_draws(key, cfg, batch: int, n: int) -> HierarchyDraws:
-    """The uniforms ``se3conv3d_tpu.core.hierarchy.build_hierarchy(key, ...)``
-    draws, in the port's injected form."""
+    """The random numbers ``se3conv3d_tpu.core.hierarchy.build_hierarchy(key,
+    ...)`` draws, in the port's injected form."""
     num = cfg.num_levels
     keys = jax.random.split(key, 2 * num + 2)
     caps = cfg.resolve_capacities(n)
-    s = 2 if cfg.frames.fixed_axis else 4
     out_cap = cfg.out_capacity or n
     rngs = jax.random.split(keys[num], batch)
     return HierarchyDraws(
-        level_scores=[t(jax.random.uniform(keys[i], (batch, caps[i], s))) for i in range(num)],
+        level_frames=[jax_frame_draws(keys[i], cfg.frames, batch, caps[i]) for i in range(num)],
         out_uniforms=t(jnp.stack([jax.random.uniform(r, (out_cap,)) for r in rngs])),
-        out_scores=t(jax.random.uniform(keys[num + 1], (batch, out_cap, s))),
+        out_frames=jax_frame_draws(keys[num + 1], cfg.frames, batch, out_cap),
     )
 
 
