@@ -11,7 +11,11 @@ with random planar frames, ``configs/scannet/scannet20_rot_I.yaml``; then
 the ScanNet-20 eval and ``scan_scenes`` training paths at the full widths
 and capacities of ``configs/scannet/scannet20_rot_pca_I.yaml``, as the
 recipe is written (``compute_dtype: bfloat16``: the conv kernels' bfloat16
-operand path) and in float32 beside it.  In the order they run:
+operand path) and in float32 beside it; and the standard (non-equivariant)
+models of ``configs/dfaust/dfaust_I_standard.yaml`` and
+``configs/scannet/scannet20_standard_I.yaml`` (bfloat16 convs), whose
+convs run both kernels' standard-geometry (kD = 3) instantiations.  In the
+order they run:
 
 1. builds the three kernel sources (conv forward, conv backward, blocked
    prefix sum) from ``kernels/csrc`` with ``nvcc``, one process per source,
@@ -72,6 +76,22 @@ operand path) and in float32 beside it.  In the order they run:
     per point), runs phase 12 on it with a rotation about z, and one
     ``scan_scenes`` train step on the 6 rooms in scatter mode (192 bfloat16
     forward and backward launches);
+18. holds both conv kernels' standard-geometry (kD = 3: G = F = 1, the
+    raw offsets as the 3 pne inputs, no rot6) instantiations against their
+    plain versions at the DFaust standard recipe's level-1 and level-4
+    block convs (B=32, the synthetic bodies' fill) and at the ScanNet
+    level-0 block conv, padded and fully live, and its level-4 block conv,
+    in float32 and in bfloat16 (with the control of phase 2), with the
+    gates of phases 2 and 6, each timed beside its bound, its plain version
+    and ``torch.matmul``; every launch counted at D = 3;
+19. builds ``dfaust_I_standard`` with ``build_model_from_config`` (on the
+    card by default): a calibration step and eval steps on the 32 bodies,
+    21 forward launches per forward, all at kD = 3; card vs CPU logits at
+    B=2 (phase 5; phase 4 does not apply: a standard model is not rotation
+    invariant); the recipe's ``Training`` section, 21 + 21 launches per
+    step at kD = 3, finite losses, moved BN means; card vs CPU parameter
+    gradients at B=2 (phase 8's bound); the step time and peak beside
+    phase 7's equivariant step;
 9. holds the conv kernels against their plain versions at the ScanNet
    level-0 and level-4 block convs and at a padded level-0 conv (the
    first 22,563 of 131,072 rows live, as the fullest synthetic room), in
@@ -115,7 +135,15 @@ operand path) and in float32 beside it.  In the order they run:
 14. checks that the two modes give the same parameter gradients on one
     room, with the same hierarchy and DropPath keep masks (in bfloat16 also
     apart from the gradients with float32 convs, the control); then 13-14
-    in float32, one train step per mode.
+    in float32, one train step per mode;
+20. builds ``scannet20_standard_I`` from its pinned ``Model`` section as
+    written (bfloat16 convs): phase 12 on room 0 without the rotation check
+    (32 bfloat16 kD = 3 forward launches per forward; card vs CPU logits on
+    the smaller room with the float32-conv control), one ``scan_scenes``
+    step per feature-gradient mode on the 6 rooms (192 forward and 192
+    backward bfloat16 kD = 3 launches, 192 prefix sums in sorted mode
+    only), phase 14 on one room, and one scatter step under
+    ``torch.profiler`` (device ms per conv forward and backward pass).
 
 Run from the repository root: ``python3 chip_smoke.py``.  Exits non-zero,
 printing no result, without a CUDA device or outside the repository.  The
@@ -369,14 +397,20 @@ def to_device(batch: dict, dev) -> dict:
     return {k: v.to(dev) for k, v in batch.items()}
 
 
-def seeded_model(model_cls, spec, dev):
-    """The recipe's model with a seeded init and seeded skip gammas."""
-    model = model_cls(spec, num_in_feats=1, num_classes=CLASSES,
-                      generator=torch.Generator().manual_seed(0))
-    return seed_gammas(model).to(dev)
+def seeded_model(model_dict, dev, num_in_feats=1, num_classes=CLASSES):
+    """The model of the ``Model`` section ``model_dict`` from
+    ``build_model_from_config`` (on the card by default, which it must
+    take) with a seeded init and seeded skip gammas."""
+    from se3conv3d_tpu_torch.train.config import build_model_from_config
+
+    model = seed_gammas(build_model_from_config(model_dict, num_in_feats, num_classes,
+                                                generator=torch.Generator().manual_seed(0)))
+    if next(model.parameters()).device.type != dev.type:
+        raise SystemExit(f"build_model_from_config did not put {model_dict['model']} on the card")
+    return model
 
 
-def conv_bounds(shape, mask, dtype=torch.float32) -> dict:
+def conv_bounds(shape, mask, dtype=torch.float32, d=9) -> dict:
     """Least times of one conv forward and backward on the card: the larger
     of bytes / HBM rate (each input read once, each output written once)
     and FLOPs / peak, counting the valid edges of ``mask`` and its live
@@ -384,11 +418,13 @@ def conv_bounds(shape, mask, dtype=torch.float32) -> dict:
     its geometry, ``gout`` row and products are not counted.
 
     FLOPs as in ``PERF.md``: per valid edge and frame pair the pne
-    (``2*9*Q``) and basis (``2*Q*C``) products, per live point and
-    out-frame the weight contraction (``2*C*Q*O``).  The backward counts,
-    per edge, pne and basis once, ``dpne`` and ``d_feats`` (``2*Q*C`` each)
-    and ``d_proj``/``d_bias`` (``2*10*Q``), and per live point the ``d_w``
-    and ``dbasis`` products (``2*C*Q*O`` each).  The forward's weight
+    (``2*D*Q``, D = 9 pne inputs, or 3 for the standard geometry) and basis
+    (``2*Q*C``) products, per live point and out-frame the weight
+    contraction (``2*C*Q*O``).  The backward counts, per edge, pne and
+    basis once, ``dpne`` and ``d_feats`` (``2*Q*C`` each) and
+    ``d_proj``/``d_bias`` (``2*(D+1)*Q``), and per live point the ``d_w``
+    and ``dbasis`` products (``2*C*Q*O`` each).  The standard geometry reads
+    the offsets and no ``rot6``.  The forward's weight
     contraction and the backward's two products run on tensor cores in
     3xTF32, so the bounds take them at that ceiling (``PEAK_TF32_FLOPS /
     3``) and the rest at the float32 peak; ``bound_f32_ms`` takes every FLOP
@@ -403,13 +439,14 @@ def conv_bounds(shape, mask, dtype=torch.float32) -> dict:
     edges = float(mask.sum()) * g * f
     live = float(mask.any(-1).sum())
     point_flops = 2.0 * live * g * c * q * o
-    fwd_flops = 2 * edges * q * (9 + c) + point_flops
-    bwd_edge_flops = 2 * edges * q * (9 + 3 * c + 10)
+    fwd_flops = 2 * edges * q * (d + c) + point_flops
+    bwd_edge_flops = 2 * edges * q * (d + 3 * c + d + 1)
     bwd_flops = bwd_edge_flops + 2 * point_flops
     bf16 = dtype == torch.bfloat16
     op = 2.0 if bf16 else 4.0  # bytes of an operand value
-    geo = live * (op * k * g * (3 + 6 * f) + 9.0 * k)  # rel, rot6, idx, mask of the live rows
-    params = 4.0 * (10 * q + c * q * o)
+    rot = 6 * f if d == 9 else 0
+    geo = live * (op * k * g * (3 + rot) + 9.0 * k)  # rel, rot6, idx, mask of the live rows
+    params = 4.0 * ((d + 1) * q + c * q * o)
     fwd_bytes = geo + op * b * n * f * c + params + 4.0 * b * m * g * o
     # + gout's live rows, d_feats, d_params
     bwd_bytes = geo + op * b * n * f * c + params + 4.0 * live * g * o + 4.0 * b * n * f * c + params
@@ -496,8 +533,9 @@ def bound_text(dtype, rtol) -> str:
 
 
 def as_operands(args, dtype) -> list:
-    """A conv's operands with rel, rot6 and feats in ``dtype``."""
-    return [x.to(dtype) if i < 3 else x for i, x in enumerate(args)]
+    """A conv's operands with rel, rot6 (None at the standard geometry) and
+    feats in ``dtype``."""
+    return [x.to(dtype) if i < 3 and x is not None else x for i, x in enumerate(args)]
 
 
 def seed_gammas(model):
@@ -576,17 +614,19 @@ def pass_ms(rows, passes=BWD_PASSES) -> dict:
             for name, alts in passes}
 
 
-def dfaust_eval(card, dev, batch) -> tuple:
-    """3. the DFaust recipe's eval path at full width: a seeded model, one
-    calibration step and ``EVAL_STEPS`` eval steps on ``batch``, counting 21
-    forward conv launches per forward and checking the logits and the
-    calibration.  Returns ``(trainer, {step_s, all_s, peak_gib, launches})``."""
+def dfaust_eval(card, dev, batch, model_dict=None, label="slice") -> tuple:
+    """3. the DFaust recipe's eval path at full width (``model_dict``, by
+    default ``dfaust_I_rot_pca_2F``'s): a seeded model, one calibration step
+    and ``EVAL_STEPS`` eval steps on ``batch``, counting 21 forward conv
+    launches per forward and checking the logits and the calibration;
+    ``label`` heads the printed lines.  Returns ``(trainer, {step_s, all_s,
+    peak_gib, launches})``."""
     from se3conv3d_tpu_torch.kernels import fused_equiv as kfe
-    from se3conv3d_tpu_torch.models import FPNSegUNet, presets
+    from se3conv3d_tpu_torch.models import presets
     from se3conv3d_tpu_torch.train.trainer import Trainer
 
-    model_dict = presets.DFAUST_I_ROT_PCA_2F_MODEL
-    model = seeded_model(FPNSegUNet, presets.spec_from_model_dict(model_dict), dev).eval()
+    model_dict = model_dict or presets.DFAUST_I_ROT_PCA_2F_MODEL
+    model = seeded_model(model_dict, dev).eval()
     trainer = Trainer(model, presets.hierarchy_config_from_model_dict(model_dict, POINTS, train=True),
                       presets.hierarchy_config_from_model_dict(model_dict, POINTS, train=False),
                       label_smoothing=0.2)
@@ -595,7 +635,7 @@ def dfaust_eval(card, dev, batch) -> tuple:
     h, _, out_pc, _, _ = trainer.build(batch, gen, train=False)
     occupancy = [int(pc.mask.sum(1).max()) for pc in h.levels] + [int(out_pc.mask.sum(1).max())]
     caps = [pc.capacity for pc in h.levels] + [out_pc.capacity]
-    print(f"slice: max valid points per level {occupancy} of capacities {caps}")
+    print(f"{label}: max valid points per level {occupancy} of capacities {caps}")
     if any(o > c or o == 0 for o, c in zip(occupancy, caps)):
         raise SystemExit("synthetic batch overflows (or empties) a level")
     del h, out_pc
@@ -618,10 +658,10 @@ def dfaust_eval(card, dev, batch) -> tuple:
     peak = torch.cuda.max_memory_allocated()
     logits = outs["logits"]
     median_s = statistics.median(step_s)
-    print(f"slice: calibration_step {calib_s:.4f} s, eval_step median {median_s:.4f} s "
+    print(f"{label}: calibration_step {calib_s:.4f} s, eval_step median {median_s:.4f} s "
           f"(all {[round(s, 4) for s in step_s]}), {BATCH * POINTS / median_s:.1f} input points/s, "
           f"peak memory {peak / 2**30:.3f} GiB, loss {float(outs['loss']):.4f} [{card}]")
-    print(f"slice: kernel launches {launches} = {after_calib} (calibration) + "
+    print(f"{label}: kernel launches {launches} = {after_calib} (calibration) + "
           f"{launches - after_calib} ({EVAL_STEPS} eval steps) [{card}]")
     if after_calib != CONVS_PER_FORWARD or launches != CONVS_PER_FORWARD * (1 + EVAL_STEPS):
         raise SystemExit(f"expected {CONVS_PER_FORWARD} kernel launches per forward")
@@ -632,10 +672,11 @@ def dfaust_eval(card, dev, batch) -> tuple:
     return trainer, dict(step_s=median_s, all_s=step_s, peak_gib=peak / 2**30, launches=launches)
 
 
-def dfaust_train(card, dev, batch, model_dict=None) -> tuple:
+def dfaust_train(card, dev, batch, model_dict=None, training=None) -> tuple:
     """7. the DFaust recipe's training at full width: a fresh seeded model
-    (of ``model_dict``, by default the recipe's) and the recipe's
-    ``Training`` section, one calibration step, then ``TRAIN_STEPS`` train
+    (of ``model_dict``, by default the recipe's) and the ``Training``
+    section ``training`` (by default the recipe's), one calibration step,
+    then ``TRAIN_STEPS`` train
     steps on ``batch``, counting 21 forward and 21 backward conv launches
     per step (all of them bfloat16 ones with bfloat16 convs, none
     otherwise) and checking finite losses and moved BN means.  Returns
@@ -644,15 +685,15 @@ def dfaust_train(card, dev, batch, model_dict=None) -> tuple:
     first, which alone carries one-time costs (allocator growth, library
     handles)."""
     from se3conv3d_tpu_torch.kernels import fused_equiv as kfe
-    from se3conv3d_tpu_torch.models import FPNSegUNet, presets
+    from se3conv3d_tpu_torch.models import presets
     from se3conv3d_tpu_torch.nn.norm import MaskedBatchNorm
     from se3conv3d_tpu_torch.train import schedule
     from se3conv3d_tpu_torch.train.trainer import Trainer
 
     model_dict = model_dict or presets.DFAUST_I_ROT_PCA_2F_MODEL
-    training = presets.DFAUST_I_ROT_PCA_2F_TRAINING
-    label = f"train {model_dict.get('compute_dtype', 'float32')}"
-    model = seeded_model(FPNSegUNet, presets.spec_from_model_dict(model_dict), dev)
+    training = training or presets.DFAUST_I_ROT_PCA_2F_TRAINING
+    label = f"train {model_dict['model']} {model_dict.get('compute_dtype', 'float32')}"
+    model = seeded_model(model_dict, dev)
     opt = schedule.optimizer_from_training(model.parameters(), training, TRAIN_STEPS)
     trainer = Trainer(model, presets.hierarchy_config_from_model_dict(model_dict, POINTS, train=True),
                       presets.hierarchy_config_from_model_dict(model_dict, POINTS, train=False),
@@ -705,6 +746,73 @@ def dfaust_train(card, dev, batch, model_dict=None) -> tuple:
     return trainer, result
 
 
+def dfaust_card_vs_cpu(card, dev, trainer, small, label="") -> float:
+    """4.-5. on the two clouds of ``small``: with an equivariant model the
+    logits unchanged by a global rotation of the hierarchy (``ROT_ATOL``; a
+    standard model is not rotation invariant and is not checked), then the
+    same model and hierarchy on the CPU (plain path) within ``CPU_ATOL`` of
+    the card's logits.  Returns the card vs CPU error."""
+    from se3conv3d_tpu_torch.core.hierarchy import rotate_cloud, rotate_hierarchy
+    from se3conv3d_tpu_torch.core.rotation import random_rotations
+
+    model = trainer.model
+    h, f0, out_pc, _, _ = trainer.build(small, torch.Generator(device=dev).manual_seed(5), train=False)
+    with torch.no_grad():
+        base = model(h, f0, out_pc)
+        valid = out_pc.mask
+        if model.spec.equivariant:
+            rot = random_rotations(1, generator=torch.Generator().manual_seed(6))[0].to(dev)
+            rotated = model(rotate_hierarchy(h, rot), f0, rotate_cloud(out_pc, rot))
+            rot_err = (base - rotated).abs()[valid].max().item()
+            spread = (base[valid].max() - base[valid].min()).item()
+            print(f"{label}invariance: max |logits - logits(rotated)| = {rot_err:.3e} (bound {ROT_ATOL}); "
+                  f"logits span {spread:.3e} over the valid points [{card}]")
+            if not rot_err <= ROT_ATOL:
+                raise SystemExit("logits change under a global rotation")
+        cpu_model = copy.deepcopy(model).cpu()
+        cpu_logits = cpu_model(h.to("cpu"), f0.cpu(), out_pc.to("cpu"))
+        cpu_err = (base.cpu() - cpu_logits).abs()[valid.cpu()].max().item()
+        print(f"{label}card_vs_cpu: max |logits(card) - logits(cpu)| = {cpu_err:.3e} "
+              f"(bound {CPU_ATOL}), max |logits| = {base.abs().max().item():.3e} [{card}]")
+        if not cpu_err <= CPU_ATOL:
+            raise SystemExit(f"{label}card and CPU logits disagree")
+    return cpu_err
+
+
+def dfaust_grads_card_vs_cpu(card, dev, trainer, small, recorded_draws, training, label="") -> float:
+    """8. one train-mode forward and backward on the two clouds of
+    ``small``: the card's parameter gradients against the same model's on
+    the CPU (plain path) with the same hierarchy and DropPath keep masks,
+    per leaf within ``GRAD_RTOL`` (``grads_ratio``).  Returns the worst
+    ratio."""
+    from se3conv3d_tpu_torch.nn.blocks import DropPathDraws
+    from se3conv3d_tpu_torch.train import schedule
+    from se3conv3d_tpu_torch.train.trainer import Trainer
+
+    model = trainer.model
+    h, f0, out_pc, out_labels, _ = trainer.build(small, torch.Generator(device=dev).manual_seed(8))
+    cpu_model = copy.deepcopy(model).cpu()
+    draws = recorded_draws(torch.Generator(device=dev).manual_seed(9))
+    card_loss = float(trainer.backward(h, f0, out_pc, out_labels, draws))
+    cpu_trainer = Trainer(cpu_model, trainer.hcfg, label_smoothing=training["label_smoothing"])
+    cpu_loss = float(cpu_trainer.backward(h.to("cpu"), f0.cpu(), out_pc.to("cpu"), out_labels.cpu(),
+                                          DropPathDraws(keep_masks=draws.masks)))
+    cpu_grads = {n: p.grad for n, p in cpu_model.named_parameters()}
+    grads = {n: p.grad for n, p in model.named_parameters()}
+    bad = [n for n, g in grads.items() if g is None or cpu_grads[n] is None or not torch.isfinite(g).all()]
+    if bad:
+        raise SystemExit(f"missing or non-finite gradient for {bad[:5]}")
+    norm = float(schedule.global_norm(list(cpu_grads.values())))
+    worst, worst_name = grads_ratio({n: g.cpu() for n, g in grads.items()}, cpu_grads, norm)
+    print(f"{label}grads_card_vs_cpu: loss card {card_loss:.6f} cpu {cpu_loss:.6f}; {len(cpu_grads)} leaves, "
+          f"global norm {norm:.6f}, {len(draws.masks)} DropPath masks; worst max|card - cpu| / "
+          f"max(max|cpu leaf|, {GRAD_FLOOR} * norm) = {worst:.3e} at {worst_name} "
+          f"(bound {GRAD_RTOL}) [{card}]", flush=True)
+    if not (worst <= GRAD_RTOL and abs(card_loss - cpu_loss) <= GRAD_RTOL * abs(cpu_loss)):
+        raise SystemExit(f"{label}card and CPU gradients disagree")
+    return worst
+
+
 def scannet_rooms(dev) -> dict:
     """The ``SCENES`` synthetic rooms of ``SCENE_POINTS`` points of the
     ScanNet phases (numpy seeds 100-105), stacked on the card."""
@@ -730,13 +838,10 @@ def scannet_trainer(dev, room0, model_dict, steps=len(SCANNET_MODE_ORDER), s_tra
     calibrated on ``room0``."""
     from se3conv3d_tpu_torch.models import presets
     from se3conv3d_tpu_torch.train import schedule
-    from se3conv3d_tpu_torch.train.config import build_model_from_config
     from se3conv3d_tpu_torch.train.trainer import Trainer
 
     s_training = s_training or presets.SCANNET20_ROT_PCA_I_TRAINING
-    model = seed_gammas(build_model_from_config(model_dict, presets.SCANNET_NUM_FEATURES,
-                                                presets.SCANNET20_NUM_CLASSES,
-                                                generator=torch.Generator().manual_seed(0)))
+    model = seeded_model(model_dict, dev, presets.SCANNET_NUM_FEATURES, presets.SCANNET20_NUM_CLASSES)
     opt = schedule.optimizer_from_training(model.parameters(), s_training, steps)
     trainer = Trainer(model, presets.hierarchy_config_from_model_dict(model_dict, SCENE_POINTS, train=True),
                       presets.hierarchy_config_from_model_dict(model_dict, SCENE_POINTS, train=False),
@@ -851,7 +956,8 @@ def backward_vs_plain(card, label, shp, args, gout, live, bounds, seed) -> dict:
     del got, got_s, again
     ms = cuda_ms(lambda: kfe.fused_equiv_bwd(*args, gout, live_rows=live), 10)
     sorted_ms = cuda_ms(lambda: kfe.fused_equiv_bwd(*args, gout, sorted_slot=tabs.bwd_slot, live_rows=live), 10)
-    plain_ms = cuda_ms(lambda: kfe.fused_equiv_bwd_reference(*args, gout), 3)
+    # one timed call of the plain version: 0.7-2 s each at the ScanNet level 0
+    plain_ms = cuda_ms(lambda: kfe.fused_equiv_bwd_reference(*args, gout), 1)
     lib_ms = products_matmul_ms(live.numel() * g, args[7], seed, dtype)
     for mode, e in (("scatter", errs), ("sorted", errs_s)):
         print(f"{label} {dname} mode {mode}: "
@@ -1224,62 +1330,25 @@ def computing_in(model, dtype):
 
 
 def reset_launches(kfe, segsum=None) -> None:
-    """Every kernel launch count to 0 (all, those with bfloat16 operands, and
-    those by out-frame count G)."""
+    """Every kernel launch count to 0 (all, those with bfloat16 operands,
+    those by out-frame count G and those by pne input width D)."""
     for fn in (kfe.fused_equiv_fwd, kfe.fused_equiv_bwd):
         fn.launches = fn.bf16_launches = 0
-        fn.launches_by_g = {}
+        fn.launches_by_g, fn.launches_by_d = {}, {}
     if segsum is not None:
         segsum.blocked_cumsum.launches = 0
 
 
-def scannet_eval(card, dev, model, trainer, scene, kfe, num_classes, rot=None, name="scannet") -> dict:
-    """12. calibration and eval steps on one room, invariance under the
-    global rotation ``rot`` (by default a seeded uniform one), and card vs
-    CPU logits on a smaller room, in the dtype of the model's convs
-    (bfloat16: every forward launch is a bfloat16 one, and the logits are
-    held at the bfloat16 bounds); ``name`` heads the printed lines."""
+def scannet_invariance(card, dev, model, trainer, scene, rot, name, bf16) -> tuple:
+    """Phase 12's rotation check of an equivariant model: the logits on one
+    room and on the room rotated by ``rot`` (by default a seeded uniform
+    rotation), at the bound of the model's dtype, with the frames left
+    unrotated as the control; returns ``(error, control)``."""
     from se3conv3d_tpu_torch.core.hierarchy import Hierarchy, rotate_cloud, rotate_hierarchy
     from se3conv3d_tpu_torch.core.pointcloud import PointCloud
     from se3conv3d_tpu_torch.core.rotation import random_rotations
 
-    bf16 = bf16_convs(model)
     dname = "bfloat16" if bf16 else "float32"
-    gen = torch.Generator(device=dev).manual_seed(70)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_launches(kfe)
-    with watching_live_rows(kfe, "fused_equiv_fwd") as seen:
-        t0 = time.perf_counter()
-        trainer.calibration_step(scene, gen)
-        torch.cuda.synchronize()
-        calib_s = time.perf_counter() - t0
-        calib_launches = kfe.fused_equiv_fwd.launches
-        step_s, outs = [], None
-        for _ in range(SCANNET_EVAL_STEPS):
-            t0 = time.perf_counter()
-            outs = trainer.eval_step(scene, gen)
-            torch.cuda.synchronize()
-            step_s.append(time.perf_counter() - t0)
-    launches, bf16_launches = kfe.fused_equiv_fwd.launches, kfe.fused_equiv_fwd.bf16_launches
-    check_live_rows(card, f"{dname} calibration and eval, conv forwards", seen,
-                    SCANNET_CONVS * (1 + SCANNET_EVAL_STEPS))
-    peak = torch.cuda.max_memory_allocated()
-    median_s = statistics.median(step_s)
-    logits = outs["logits"]
-    print(f"{name}_eval {dname}: calibration_step {calib_s:.4f} s, eval_step median {median_s:.4f} s (all "
-          f"{[round(s, 4) for s in step_s]}), {SCENE_POINTS / median_s:.1f} input points/s, peak "
-          f"memory {peak / 2**30:.3f} GiB, loss {float(outs['loss']):.4f}; fwd kernel launches "
-          f"{launches} = {calib_launches} + {launches - calib_launches}, {bf16_launches} of them "
-          f"bfloat16 [{card}]", flush=True)
-    if calib_launches != SCANNET_CONVS or launches != SCANNET_CONVS * (1 + SCANNET_EVAL_STEPS):
-        raise SystemExit(f"expected {SCANNET_CONVS} forward kernel launches per ScanNet forward")
-    if bf16_launches != (launches if bf16 else 0):
-        raise SystemExit(f"ScanNet eval in {dname}: {bf16_launches} of {launches} forward launches bfloat16")
-    if tuple(logits.shape) != (1, trainer.eval_hcfg.out_capacity, num_classes) \
-            or not torch.isfinite(logits).all():
-        raise SystemExit(f"bad ScanNet logits: shape {tuple(logits.shape)}")
-
     h, f0, out_pc, _, _ = trainer.build(scene, torch.Generator(device=dev).manual_seed(71), train=False)
     if rot is None:
         rot = random_rotations(1, generator=torch.Generator().manual_seed(72))[0].to(dev)
@@ -1313,7 +1382,60 @@ def scannet_eval(card, dev, model, trainer, scene, kfe, num_classes, rot=None, n
     if not (rot_err <= rot_bound < unframed_err):
         raise SystemExit(f"ScanNet logits change under a global rotation ({dname}), or the bound "
                          "does not tell a model that ignores the frames' rotation")
-    del base, rotated, rotated_shared, unframed, h, f0, out_pc
+    return rot_err, unframed_err
+
+
+def scannet_eval(card, dev, model, trainer, scene, kfe, num_classes, rot=None, name="scannet") -> dict:
+    """12. calibration and eval steps on one room, invariance under the
+    global rotation ``rot`` (by default a seeded uniform one; equivariant
+    models only), and card vs CPU logits on a smaller room, in the dtype of
+    the model's convs (bfloat16: every forward launch is a bfloat16 one,
+    and the logits are held at the bfloat16 bounds); ``name`` heads the
+    printed lines.  The result's ``launches_by_d`` are the calibration's
+    and eval steps' forward launches by pne input width."""
+    bf16 = bf16_convs(model)
+    dname = "bfloat16" if bf16 else "float32"
+    gen = torch.Generator(device=dev).manual_seed(70)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(kfe)
+    with watching_live_rows(kfe, "fused_equiv_fwd") as seen:
+        t0 = time.perf_counter()
+        trainer.calibration_step(scene, gen)
+        torch.cuda.synchronize()
+        calib_s = time.perf_counter() - t0
+        calib_launches = kfe.fused_equiv_fwd.launches
+        step_s, outs = [], None
+        for _ in range(SCANNET_EVAL_STEPS):
+            t0 = time.perf_counter()
+            outs = trainer.eval_step(scene, gen)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+    launches, bf16_launches = kfe.fused_equiv_fwd.launches, kfe.fused_equiv_fwd.bf16_launches
+    by_d = dict(kfe.fused_equiv_fwd.launches_by_d)
+    check_live_rows(card, f"{dname} calibration and eval, conv forwards", seen,
+                    SCANNET_CONVS * (1 + SCANNET_EVAL_STEPS))
+    peak = torch.cuda.max_memory_allocated()
+    median_s = statistics.median(step_s)
+    logits = outs["logits"]
+    print(f"{name}_eval {dname}: calibration_step {calib_s:.4f} s, eval_step median {median_s:.4f} s (all "
+          f"{[round(s, 4) for s in step_s]}), {SCENE_POINTS / median_s:.1f} input points/s, peak "
+          f"memory {peak / 2**30:.3f} GiB, loss {float(outs['loss']):.4f}; fwd kernel launches "
+          f"{launches} = {calib_launches} + {launches - calib_launches}, {bf16_launches} of them "
+          f"bfloat16 [{card}]", flush=True)
+    if calib_launches != SCANNET_CONVS or launches != SCANNET_CONVS * (1 + SCANNET_EVAL_STEPS):
+        raise SystemExit(f"expected {SCANNET_CONVS} forward kernel launches per ScanNet forward")
+    if bf16_launches != (launches if bf16 else 0):
+        raise SystemExit(f"ScanNet eval in {dname}: {bf16_launches} of {launches} forward launches bfloat16")
+    if tuple(logits.shape) != (1, trainer.eval_hcfg.out_capacity, num_classes) \
+            or not torch.isfinite(logits).all():
+        raise SystemExit(f"bad ScanNet logits: shape {tuple(logits.shape)}")
+
+    rot_err = unframed_err = None  # a standard model is not rotation invariant
+    if model.spec.equivariant:
+        rot_err, unframed_err = scannet_invariance(card, dev, model, trainer, scene, rot, name, bf16)
+    else:
+        print(f"{name}_invariance {dname}: not checked, the model is not equivariant [{card}]", flush=True)
 
     small_cfg = dataclasses.replace(trainer.eval_hcfg, capacities=tuple(SMALL_CAPS),
                                     out_capacity=SMALL_CAPS[0])
@@ -1342,8 +1464,8 @@ def scannet_eval(card, dev, model, trainer, scene, kfe, num_classes, rot=None, n
           f"[{card}]", flush=True)
     if not (cpu_err <= cpu_bound and (not bf16 or tells_apart(cpu_err, control))):
         raise SystemExit(f"ScanNet card and CPU logits disagree ({dname})")
-    return dict(launches=launches, bf16_launches=bf16_launches, eval_s=median_s, peak_gib=peak / 2**30,
-                card_vs_cpu_max_abs_err=cpu_err, card_vs_cpu_control=control, rotation_max_abs_err=rot_err,
+    return dict(launches=launches, bf16_launches=bf16_launches, launches_by_d=by_d, eval_s=median_s,
+                peak_gib=peak / 2**30, card_vs_cpu_max_abs_err=cpu_err, card_vs_cpu_control=control, rotation_max_abs_err=rot_err,
                 rotation_control=unframed_err)
 
 
@@ -1448,13 +1570,14 @@ def watching_live_rows(kfe, name="fused_equiv_bwd"):
     # here that is `watched`, which carries the counts and hands them back
     watched.launches, watched.bf16_launches = real.launches, real.bf16_launches
     watched.launches_by_g = getattr(real, "launches_by_g", {})
+    watched.launches_by_d = getattr(real, "launches_by_d", {})
     setattr(kfe, name, watched)
     try:
         yield seen
     finally:
         setattr(kfe, name, real)
         real.launches, real.bf16_launches = watched.launches, watched.bf16_launches
-        real.launches_by_g = watched.launches_by_g
+        real.launches_by_g, real.launches_by_d = watched.launches_by_g, watched.launches_by_d
 
 
 def check_live_rows(card, label, seen, want) -> tuple:
@@ -1518,17 +1641,17 @@ def scannet_split(card, dev, trainer, batch, ops, drop_path_draws, kfe) -> dict:
     return out
 
 
-def scannet_profile(card, trainer, batch, ops) -> dict:
+def scannet_profile(card, trainer, batch, ops, modes=("scatter", "sorted"), name="scannet_profile") -> dict:
     """Device time by kernel over one scan_scenes train step per backward
-    mode (``torch.profiler``): the busy total, the idle share of the
-    step's wall time, the kernels that take the most, and the conv
-    forward's and backward's passes."""
+    mode of ``modes`` (``torch.profiler``): the busy total, the idle share
+    of the step's wall time, the kernels that take the most, and the conv
+    forward's and backward's passes; ``name`` heads the printed lines."""
     from torch.profiler import ProfilerActivity, profile
 
     gen = torch.Generator(device=batch["mask"].device).manual_seed(87)
     dname = "bfloat16" if bf16_convs(trainer.model) else "float32"
     out = {}
-    for mode in ("scatter", "sorted"):
+    for mode in modes:
         ops.BWD_SCATTER_MODE = mode
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1539,16 +1662,16 @@ def scannet_profile(card, trainer, batch, ops) -> dict:
         rows = device_rows(prof)
         busy = sum(r[0] for r in rows)
         fwd_passes, passes = pass_ms(rows, FWD_PASSES), pass_ms(rows)
-        print(f"scannet_profile {dname}: mode {mode}: step {wall_ms:.1f} ms under the profiler, device busy "
+        print(f"{name} {dname}: mode {mode}: step {wall_ms:.1f} ms under the profiler, device busy "
               f"{busy:.1f} ms ({100 * (1 - busy / wall_ms):.1f}% idle), {sum(r[1] for r in rows)} kernel "
               f"launches [{card}]", flush=True)
         for ms, n, key in rows[:14]:
-            print(f"scannet_profile:   {ms:9.2f} ms {n:6d}x {key[:110]}")
+            print(f"{name}:   {ms:9.2f} ms {n:6d}x {key[:110]}")
         cumsum = pass_ms(rows, CUMSUM_PASSES)
         copies = pass_ms(rows, WEIGHT_COPY_PASSES)
         for what, ps in (("forward", fwd_passes), ("backward", passes), ("prefix sum", cumsum),
                          ("weights' bfloat16 copies", copies)):
-            print(f"scannet_profile {dname}: mode {mode}: conv {what} {sum(ps.values()):.2f} ms: "
+            print(f"{name} {dname}: mode {mode}: conv {what} {sum(ps.values()):.2f} ms: "
                   + ", ".join(f"{p} {ms:.2f}" for p, ms in ps.items()) + f" [{card}]", flush=True)
         out[mode] = dict(wall_ms=wall_ms, busy_ms=busy, fwd_passes_ms=fwd_passes, bwd_passes_ms=passes,
                          cumsum_ms=cumsum, weight_copy_ms=copies,
@@ -1633,7 +1756,6 @@ def run_scannet(card, dev, recorded_draws, drop_path_draws) -> dict:
     from se3conv3d_tpu_torch.kernels import segsum
     from se3conv3d_tpu_torch.models import presets
     from se3conv3d_tpu_torch.ops import pne_conv as ops
-    from se3conv3d_tpu_torch.train.config import build_model_from_config
     from se3conv3d_tpu_torch.train.trainer import Trainer
 
     # 9.-10. the ScanNet conv shapes, the prefix sum and the segment sums
@@ -1651,10 +1773,7 @@ def run_scannet(card, dev, recorded_draws, drop_path_draws) -> dict:
     room0 = {k: v[:1] for k, v in rooms.items()}
     scan_eval, grid = {}, None
     for dt in SCANNET_DTYPES:
-        model = seed_gammas(build_model_from_config(recipes[dt], feats, classes,
-                                                    generator=torch.Generator().manual_seed(0)))
-        if next(model.parameters()).device.type != dev.type:
-            raise SystemExit("build_model_from_config did not put the model on the card")
+        model = seeded_model(recipes[dt], dev, feats, classes)
         if bf16_convs(model) != (dt == "bfloat16"):
             raise SystemExit(f"build_model_from_config did not build {dt} convs from the {dt} recipe")
         trainer = Trainer(model, s_hcfg, s_eval_hcfg, label_smoothing=s_training["label_smoothing"],
@@ -1694,14 +1813,16 @@ def run_scannet(card, dev, recorded_draws, drop_path_draws) -> dict:
     return dict(conv=scan_conv, cumsum=scan_cumsum, grid=grid, eval=scan_eval, train=scan_train)
 
 
-def mixf_fill(dev, batch) -> list:
-    """Max valid points per hierarchy level of the mixF recipe's batch
-    (the positions do not depend on the frames): the live rows per example
-    of phase 15's convs."""
+def mixf_fill(dev, batch, model_dict=None) -> list:
+    """Max valid points per hierarchy level of ``batch`` under the DFaust
+    recipe ``model_dict`` (by default the mixF one; the positions do not
+    depend on the frames): the live rows per example of phase 15's and
+    phase 18's DFaust convs."""
     from se3conv3d_tpu_torch.core.hierarchy import build_hierarchy
     from se3conv3d_tpu_torch.models import presets
 
-    hcfg = presets.hierarchy_config_from_model_dict(presets.DFAUST_I_ROT_MC_MIXF_MODEL, POINTS)
+    model_dict = model_dict or presets.DFAUST_I_ROT_MC_MIXF_MODEL
+    hcfg = presets.hierarchy_config_from_model_dict(model_dict, POINTS)
     h = build_hierarchy(batch["positions"], batch["mask"], batch["features"], hcfg,
                         generator=torch.Generator(device=dev).manual_seed(13))[0]
     return [int(pc.mask.sum(1).max()) for pc in h.levels]
@@ -1758,7 +1879,6 @@ def dfaust_mixf(card, dev, batch, small, recorded_draws) -> dict:
     from se3conv3d_tpu_torch.nn.blocks import DropPathDraws
     from se3conv3d_tpu_torch.nn.norm import MaskedBatchNorm
     from se3conv3d_tpu_torch.train import schedule
-    from se3conv3d_tpu_torch.train.config import build_model_from_config
     from se3conv3d_tpu_torch.train.trainer import Trainer, draw_n_frames
 
     model_dict, training = presets.DFAUST_I_ROT_MC_MIXF_MODEL, presets.DFAUST_I_ROT_MC_MIXF_TRAINING
@@ -1772,10 +1892,7 @@ def dfaust_mixf(card, dev, batch, small, recorded_draws) -> dict:
     print(f"mixf: {model_dict['model']}, RefFrames {rf}; batch_size {training['batch_size']}, "
           f"accum_grads {accum}; draw_n_frames from numpy seed 0: {drawn}; the run forces "
           f"{list(MIXF_FRAMES)} [{card}]", flush=True)
-    model = seed_gammas(build_model_from_config(model_dict, 1, CLASSES,
-                                                generator=torch.Generator().manual_seed(0)))
-    if next(model.parameters()).device.type != dev.type:
-        raise SystemExit("build_model_from_config did not put the mixF model on the card")
+    model = seeded_model(model_dict, dev)
     opt = schedule.optimizer_from_training(model.parameters(), training, len(MIXF_FRAMES))
     hcfg = presets.hierarchy_config_from_model_dict(model_dict, POINTS, train=True)
     trainer = Trainer(model, hcfg, presets.hierarchy_config_from_model_dict(model_dict, POINTS, train=False),
@@ -1925,7 +2042,6 @@ def scannet_rot_i(card, dev) -> dict:
     from se3conv3d_tpu_torch.kernels import segsum
     from se3conv3d_tpu_torch.models import presets
     from se3conv3d_tpu_torch.ops import pne_conv as ops
-    from se3conv3d_tpu_torch.train.config import build_model_from_config
     from se3conv3d_tpu_torch.train.trainer import Trainer
 
     model_dict, training = presets.SCANNET20_ROT_I_MODEL, presets.SCANNET20_ROT_I_TRAINING
@@ -1935,9 +2051,8 @@ def scannet_rot_i(card, dev) -> dict:
     rooms = scannet_rooms(dev)
     room0 = {k: v[:1] for k, v in rooms.items()}
     feats, classes = presets.SCANNET_NUM_FEATURES, presets.SCANNET20_NUM_CLASSES
-    model = seed_gammas(build_model_from_config(model_dict, feats, classes,
-                                                generator=torch.Generator().manual_seed(0)))
-    if next(model.parameters()).device.type != dev.type or not bf16_convs(model):
+    model = seeded_model(model_dict, dev, feats, classes)
+    if not bf16_convs(model):
         raise SystemExit("build_model_from_config did not build the bfloat16 scannet20_rot_I model on the card")
     trainer = Trainer(model, presets.hierarchy_config_from_model_dict(model_dict, SCENE_POINTS, train=True),
                       presets.hierarchy_config_from_model_dict(model_dict, SCENE_POINTS, train=False),
@@ -1958,14 +2073,170 @@ def scannet_rot_i(card, dev) -> dict:
     return dict(eval=ev, train=train)
 
 
-def kernels_line(dfaust: dict, scan: dict, mixf: dict, rot_i: dict, g4: dict) -> dict:
+# phase 18's convs at the standard geometry (kD = 3: G = F = 1, the raw
+# offsets, no rot6), name: ((B, M, N, K, G, F, Q, C, O), live rows per
+# example): the DFaust standard recipe's level-1 and level-4 block convs at
+# the synthetic bodies' fill (("fill", hierarchy level)), and the ScanNet
+# standard recipe's level-0 block conv padded (the fullest synthetic room)
+# and fully live, and its level-4 block conv
+STD_SHAPES = {
+    "dfaust_std_level1_block_conv": ((BATCH, 2048, 2048, 32, 1, 1, 32, 32, 32), ("fill", 1)),
+    "dfaust_std_level4_block_conv": ((BATCH, 128, 128, 32, 1, 1, 32, 256, 256), ("fill", 4)),
+    "scannet_std_level0_padded_block_conv": (SCANNET_SHAPES["scannet_level0_block_conv"], 22_563),
+    "scannet_std_level0_block_conv": (SCANNET_SHAPES["scannet_level0_block_conv"], None),
+    "scannet_std_level4_block_conv": (SCANNET_SHAPES["scannet_level4_block_conv"], None),
+}
+
+
+def std_conv_args(i, shp, n_live, dev, dtype) -> tuple:
+    """Phase 18's seeded operands of the ``i``-th standard conv (rel and
+    feats in ``dtype``, ``rot6`` None, ``proj_axes [3, Q]``) and ``gout``;
+    rows past ``n_live`` of each example are padding."""
+    args, gout = padded_conv_args(20 + i, shp, n_live, dev, dtype)
+    args[1], args[5] = None, args[5][:3].contiguous()
+    return args, gout
+
+
+def std_conv_kernels(card, dev, fill) -> dict:
+    """18. both conv kernels' standard-geometry (kD = 3) instantiations vs
+    their plain versions at ``STD_SHAPES`` (the DFaust ones at
+    ``fill[level]`` live rows per example), in float32 and in bfloat16
+    (with the control of phase 2): the forward bitwise equal over two
+    calls, the backward in both output modes with its parameter gradients
+    bitwise equal across modes and calls, each timed beside its bound, its
+    plain version and ``torch.matmul`` in the same dtype for its products
+    (:func:`forward_vs_plain`, :func:`backward_vs_plain`)."""
+    from se3conv3d_tpu_torch.kernels import fused_equiv as kfe
+
+    out = {dtype_name(dt): {} for dt in KERNEL_DTYPES}
+    for dt in KERNEL_DTYPES:
+        for i, (name, (shp, live_rows)) in enumerate(STD_SHAPES.items()):
+            n_live = fill[live_rows[1]] if isinstance(live_rows, tuple) else live_rows
+            args, gout = std_conv_args(i, shp, n_live, dev, dt)
+            live = kfe.live_row_table(args[4])
+            bounds = conv_bounds(shp, args[4], dt, d=3)
+            before = dict(kfe.fused_equiv_fwd.launches_by_d), dict(kfe.fused_equiv_bwd.launches_by_d)
+            out[dtype_name(dt)][name] = dict(
+                fwd=forward_vs_plain(card, f"std_fwd_kernel_vs_plain {name}", shp, args, live,
+                                     bounds["fwd"], 90 + i),
+                bwd=backward_vs_plain(card, f"std_bwd_kernel_vs_plain {name}", shp, args, gout, live,
+                                      bounds["bwd"], 95 + i),
+            )
+            grew = [{d: n - b.get(d, 0) for d, n in fn.launches_by_d.items() if n != b.get(d, 0)}
+                    for fn, b in zip((kfe.fused_equiv_fwd, kfe.fused_equiv_bwd), before)]
+            if any(set(x) != {3} for x in grew):
+                raise SystemExit(f"phase 18 at {name}: launches by D {grew}, expected kD = 3 only")
+            del args, gout, live
+            torch.cuda.empty_cache()
+    return out
+
+
+def check_by_d(label, kfe, fwd, bwd=0) -> None:
+    """Fails the run unless the launches since the last reset were ``fwd``
+    forward and ``bwd`` backward ones, all at the standard geometry."""
+    by_d = (dict(kfe.fused_equiv_fwd.launches_by_d), dict(kfe.fused_equiv_bwd.launches_by_d))
+    want = ({3: fwd} if fwd else {}, {3: bwd} if bwd else {})
+    if by_d != want:
+        raise SystemExit(f"{label}: launches by D fwd {by_d[0]} bwd {by_d[1]}, expected {want}")
+
+
+def dfaust_standard(card, dev, batch, small, recorded_draws, equivariant) -> dict:
+    """19. ``configs/dfaust/dfaust_I_standard.yaml``: the model from
+    ``build_model_from_config`` (on the card by default); a calibration step
+    and eval steps on the 32 bodies, 21 forward launches per forward, all at
+    kD = 3 (phase 3); card vs CPU logits at B=2 (phase 5; a standard model
+    is not rotation invariant, so phase 4 does not apply); training with the
+    recipe's ``Training`` section, 21 + 21 launches per step at kD = 3,
+    finite losses and moved BN means (phase 7); card vs CPU parameter
+    gradients at B=2 (phase 8).  Prints the step time and the peak beside
+    the equivariant B=32 step of phase 7 (``equivariant``)."""
+    from se3conv3d_tpu_torch.kernels import fused_equiv as kfe
+    from se3conv3d_tpu_torch.models import presets
+
+    model_dict, training = presets.DFAUST_I_STANDARD_MODEL, presets.DFAUST_I_STANDARD_TRAINING
+    if "RefFrames" in model_dict or model_dict["model"] != "FPNSegUNetMLPGeluFAUST":
+        raise SystemExit("the pinned dfaust_I_standard recipe is not the standard model")
+    trainer, ev = dfaust_eval(card, dev, batch, model_dict, "dfaust_std")
+    check_by_d("dfaust_std eval", kfe, CONVS_PER_FORWARD * (1 + EVAL_STEPS))
+    if trainer.model.spec.equivariant:
+        raise SystemExit("build_model_from_config built an equivariant model from dfaust_I_standard")
+    cpu_err = dfaust_card_vs_cpu(card, dev, trainer, small, "dfaust_std_")
+    del trainer
+    torch.cuda.empty_cache()
+    trainer, steps = dfaust_train(card, dev, batch, model_dict, training)
+    check_by_d("dfaust_std train", kfe, CONVS_PER_FORWARD * (1 + TRAIN_STEPS), CONVS_PER_FORWARD * TRAIN_STEPS)
+    print(f"dfaust_std_train: steps after the first, median {steps['steady_s']:.4f} s (range "
+          f"{min(steps['all_s'][1:]):.4f}-{max(steps['all_s'][1:]):.4f}), peak {steps['peak_gib']:.3f} GiB; "
+          f"the equivariant dfaust_I_rot_pca_2F step of phase 7 {equivariant['steady_s']:.4f} s (range "
+          f"{min(equivariant['all_s'][1:]):.4f}-{max(equivariant['all_s'][1:]):.4f}), peak "
+          f"{equivariant['peak_gib']:.3f} GiB [{card}]", flush=True)
+    grads = dfaust_grads_card_vs_cpu(card, dev, trainer, small, recorded_draws, training, "dfaust_std_")
+    del trainer
+    torch.cuda.empty_cache()
+    return dict(eval=ev, train=steps, eval_launches=ev["launches"], train_launches=steps["launches"],
+                card_vs_cpu_max_abs_err=cpu_err, grads_card_vs_cpu=grads)
+
+
+def scannet_standard(card, dev, recorded_draws, drop_path_draws) -> dict:
+    """20. ``configs/scannet/scannet20_standard_I.yaml`` as written
+    (bfloat16 convs, no frames), from its pinned ``Model`` section: eval on
+    room 0, 32 bfloat16 kD = 3 forward launches per forward, and card vs
+    CPU logits on phase 12's smaller room at the bfloat16 bound with the
+    float32-conv control (:func:`scannet_eval`; no rotation check); one
+    ``scan_scenes`` step per feature-gradient mode on the 6 rooms, 192
+    forward and 192 backward bfloat16 kD = 3 launches each, 192 prefix sums
+    in sorted mode only (:func:`scannet_train`); the two modes' gradients on
+    one room at phase 14's bound (:func:`scannet_mode_grads`); one scatter
+    step under ``torch.profiler`` (device ms per conv forward and backward
+    pass, :func:`scannet_profile`)."""
+    from se3conv3d_tpu_torch.kernels import fused_equiv as kfe
+    from se3conv3d_tpu_torch.kernels import segsum
+    from se3conv3d_tpu_torch.models import presets
+    from se3conv3d_tpu_torch.ops import pne_conv as ops
+    from se3conv3d_tpu_torch.train.trainer import Trainer
+
+    model_dict, training = presets.SCANNET20_STANDARD_I_MODEL, presets.SCANNET20_STANDARD_I_TRAINING
+    if "RefFrames" in model_dict or model_dict.get("compute_dtype") != "bfloat16":
+        raise SystemExit("the pinned scannet20_standard_I recipe is not the bfloat16 standard model")
+    feats, classes = presets.SCANNET_NUM_FEATURES, presets.SCANNET20_NUM_CLASSES
+    rooms = scannet_rooms(dev)
+    room0 = {k: v[:1] for k, v in rooms.items()}
+    model = seeded_model(model_dict, dev, feats, classes)
+    if not bf16_convs(model) or model.spec.equivariant:
+        raise SystemExit("build_model_from_config did not build the bfloat16 standard ScanNet model")
+    trainer = Trainer(model, presets.hierarchy_config_from_model_dict(model_dict, SCENE_POINTS, train=True),
+                      presets.hierarchy_config_from_model_dict(model_dict, SCENE_POINTS, train=False),
+                      label_smoothing=training["label_smoothing"], ignore_label=presets.SCANNET20_IGNORE_LABEL)
+    ev = scannet_eval(card, dev, model, trainer, room0, kfe, classes, name="scannet_std")
+    if ev["launches_by_d"] != {3: ev["launches"]}:
+        raise SystemExit(f"scannet_std eval: launches by D {ev['launches_by_d']}, expected kD = 3 only")
+    del model, trainer
+    torch.cuda.empty_cache()
+    trainer = scannet_trainer(dev, room0, model_dict, len(SCANNET_F32_MODE_ORDER), training)
+    train = {}
+    for mode in SCANNET_F32_MODE_ORDER:
+        train.update(scannet_train(card, dev, trainer, rooms, kfe, segsum, ops, (mode,), "scannet_std_train"))
+        check_by_d(f"scannet_std train {mode}", kfe, SCANNET_CONVS * SCENES, SCANNET_CONVS * SCENES)
+    train["grads_sorted_vs_scatter"] = scannet_mode_grads(card, dev, trainer, room0, ops, recorded_draws,
+                                                          drop_path_draws)
+    train["profile"] = scannet_profile(card, trainer, rooms, ops, ("scatter",), "scannet_std_profile")
+    del trainer, rooms
+    torch.cuda.empty_cache()
+    return dict(eval=ev, train=train)
+
+
+def kernels_line(dfaust: dict, scan: dict, mixf: dict, rot_i: dict, g4: dict, std: dict) -> dict:
     """The ``{"kernels": [...]}`` object: every kernel with its launches on
     the main paths, its error against its plain version, and its times at
     the ScanNet level-0 shape (float32), with the same for its bfloat16
     instantiation under ``"bf16"`` (each conv kernel's errors over the
     DFaust and ScanNet shapes of phases 2, 6 and 9 in that dtype), and the
     conv kernels' G = 4 instantiations under ``"g4"`` (their launches on the
-    mixF path, their times at the mixF level-0 shape of phase 15)."""
+    mixF path, their times at the mixF level-0 shape of phase 15); then the
+    conv kernels' standard-geometry (kD = 3) instantiations, their launches
+    on the standard paths of phases 19-20 and their times at the fully live
+    ScanNet level-0 shape of phase 18 (every phase-18 shape under
+    ``"by_shape"``)."""
     compared, bwd_compared = dfaust["fwd"], dfaust["bwd"]
     scan_conv, scan_cumsum, scan_train, scan_eval = scan["conv"], scan["cumsum"], scan["train"], scan["eval"]
     lvl0 = SCANNET_SHAPES["scannet_level0_block_conv"]
@@ -2034,19 +2305,48 @@ def kernels_line(dfaust: dict, scan: dict, mixf: dict, rot_i: dict, g4: dict) ->
             },
         }
 
+    def std_entry(kind, which, name, source, replaces, lib_key, lib_call):
+        sd, ss = std["dfaust"], std["scannet"]
+        every = {"dfaust_std_eval": sd["eval_launches"] if which == 0 else 0,
+                 "dfaust_std_train": sd["train_launches"][which],
+                 "scannet_std_eval_bfloat16": ss["eval"]["launches"] if which == 0 else 0}
+        for mode in SCANNET_F32_MODE_ORDER:
+            every[f"scannet_std_train_bfloat16_{mode}"] = ss["train"][mode]["launches"][which]
+        bf16_paths = {k: v for k, v in every.items() if "bfloat16" in k}  # gated: every launch bf16
+        by_shape = {dt: {k: v[kind] for k, v in std["conv"][dt].items()} for dt in SCANNET_DTYPES}
+        f0, b0 = (by_shape[dt]["scannet_std_level0_block_conv"] for dt in ("float32", "bfloat16"))
+        std_at = f"scannet level-0 block conv B,M,N,K,G,F,Q,C,O={lvl0}, standard geometry (D = 3)"
+        return {
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": sum(every.values()), "launches_by_path": every,
+            "max_abs_err": max(v["max_abs_err"] for v in by_shape["float32"].values()),
+            "ms": f0["ms"], "plain_ms": f0["plain_ms"], "bound_ms": f0["bound_ms"], "bound_by": f0["bound_by"],
+            "library_ms": f0[lib_key], "library_call": lib_call.format("float32 without TF32"),
+            "at": std_at, "by_shape": by_shape["float32"],
+            "bf16": {
+                "launches": sum(bf16_paths.values()), "launches_by_path": bf16_paths,
+                "max_abs_err": max(v["max_abs_err"] for v in by_shape["bfloat16"].values()),
+                "ms": b0["ms"], "plain_ms": b0["plain_ms"], "bound_ms": b0["bound_ms"],
+                "bound_by": b0["bound_by"], "library_ms": b0[lib_key], "library_call": lib_call.format("bfloat16"),
+                "at": std_at, "by_shape": by_shape["bfloat16"],
+            },
+        }
+
     cum_every, _ = paths(2)
     cum_bf16 = {k: v for k, v in cum_every.items() if "bfloat16" in k}  # bfloat16 rows (gated)
     c0, c0b = scan_cumsum["scannet_level0_edges"], scan_cumsum["scannet_level0_edges_bf16"]
     cum_at = f"scannet level-0 edges [{lvl0[1] * lvl0[3]} x {lvl0[7]}]"
+    fwd_call = ("torch.matmul, {}, for the weight contraction basis . W over the same live rows "
+                "(no PyTorch call computes the whole forward)")
+    bwd_call = ("torch.matmul, {}, for the d_w and dbasis products over the same live rows "
+                "(no PyTorch call computes the whole backward)")
+    fwd_src, bwd_src = (f"se3conv3d_tpu_torch/kernels/csrc/fused_equiv_{x}.cu" for x in ("fwd", "bwd"))
+    fwd_tpu, bwd_tpu = "se3conv3d_tpu/ops/pallas/fused_equiv.py:196", "se3conv3d_tpu/ops/pallas/fused_equiv.py:227"
     return {"kernels": [
-        conv_entry("fwd", 0, "fused_equiv_fwd", "se3conv3d_tpu_torch/kernels/csrc/fused_equiv_fwd.cu",
-                   "se3conv3d_tpu/ops/pallas/fused_equiv.py:196", "library_ms",
-                   "torch.matmul, {}, for the weight contraction basis . W over the same live rows "
-                   "(no PyTorch call computes the whole forward)"),
-        conv_entry("bwd", 1, "fused_equiv_bwd", "se3conv3d_tpu_torch/kernels/csrc/fused_equiv_bwd.cu",
-                   "se3conv3d_tpu/ops/pallas/fused_equiv.py:227", "products_library_ms",
-                   "torch.matmul, {}, for the d_w and dbasis products over the same live rows "
-                   "(no PyTorch call computes the whole backward)"),
+        conv_entry("fwd", 0, "fused_equiv_fwd", fwd_src, fwd_tpu, "library_ms", fwd_call),
+        conv_entry("bwd", 1, "fused_equiv_bwd", bwd_src, bwd_tpu, "products_library_ms", bwd_call),
+        std_entry("fwd", 0, "fused_equiv_fwd[kD=3]", fwd_src, fwd_tpu, "library_ms", fwd_call),
+        std_entry("bwd", 1, "fused_equiv_bwd[kD=3]", bwd_src, bwd_tpu, "products_library_ms", bwd_call),
         {
             "name": "blocked_cumsum", "route": "cuda",
             "source": "se3conv3d_tpu_torch/kernels/csrc/segsum_cumsum.cu",
@@ -2062,7 +2362,8 @@ def kernels_line(dfaust: dict, scan: dict, mixf: dict, rot_i: dict, g4: dict) ->
                      "bound_ms": c0b["bound_ms"], "bound_by": "bytes", "library_ms": c0b["library_ms"],
                      "at": cum_at + " bfloat16 rows"},
         }], "scannet": {"eval": scan_eval, "train": scan_train, "grid_vs_brute": scan["grid"]},
-        "dfaust": {"train_bf16": dfaust["bf16_train"]}, "dfaust_mixf": mixf, "scannet20_rot_I": rot_i}
+        "dfaust": {"train_bf16": dfaust["bf16_train"]}, "dfaust_mixf": mixf, "scannet20_rot_I": rot_i,
+        "standard": {"dfaust": std["dfaust"], "scannet": std["scannet"]}}
 
 
 def main() -> int:
@@ -2073,14 +2374,10 @@ def main() -> int:
     if Path(se3conv3d_tpu_torch.__file__).resolve().parent.parent != REPO:
         print("chip_smoke: run it from the repository that holds it", file=sys.stderr)
         return 1
-    from se3conv3d_tpu_torch.core.hierarchy import rotate_cloud, rotate_hierarchy
-    from se3conv3d_tpu_torch.core.rotation import random_rotations
     from se3conv3d_tpu_torch.kernels import fused_equiv as kfe
     from se3conv3d_tpu_torch.kernels.build import build_libraries
     from se3conv3d_tpu_torch.models import presets
     from se3conv3d_tpu_torch.nn.blocks import DropPathDraws
-    from se3conv3d_tpu_torch.train import schedule
-    from se3conv3d_tpu_torch.train.trainer import Trainer
 
     class RecordedDraws(DropPathDraws):
         """Generator draws, kept (on the CPU) in call order for a replay."""
@@ -2126,35 +2423,14 @@ def main() -> int:
             torch.cuda.empty_cache()
 
     # 3. the slice at full width
-    model_dict = presets.DFAUST_I_ROT_PCA_2F_MODEL
-    hcfg = presets.hierarchy_config_from_model_dict(model_dict, POINTS, train=True)
     batch = to_device(body_batch(BATCH, POINTS, seed=2), dev)
     trainer, dfaust_eval_run = dfaust_eval(card, dev, batch)
-    model, launches = trainer.model, dfaust_eval_run["launches"]
+    launches = dfaust_eval_run["launches"]
 
     # 4. rotation invariance and 5. card vs CPU, on two clouds
     small = to_device(body_batch(2, POINTS, seed=4), dev)
-    h, f0, out_pc, _, _ = trainer.build(small, torch.Generator(device=dev).manual_seed(5), train=False)
-    with torch.no_grad():
-        base = model(h, f0, out_pc)
-        rot = random_rotations(1, generator=torch.Generator().manual_seed(6))[0].to(dev)
-        rotated = model(rotate_hierarchy(h, rot), f0, rotate_cloud(out_pc, rot))
-        valid = out_pc.mask
-        rot_err = (base - rotated).abs()[valid].max().item()
-        spread = (base[valid].max() - base[valid].min()).item()
-        print(f"invariance: max |logits - logits(rotated)| = {rot_err:.3e} (bound {ROT_ATOL}); "
-              f"logits span {spread:.3e} over the valid points [{card}]")
-        if not rot_err <= ROT_ATOL:
-            raise SystemExit("logits change under a global rotation")
-        cpu_model = copy.deepcopy(model).cpu()
-        cpu_logits = cpu_model(h.to("cpu"), f0.cpu(), out_pc.to("cpu"))
-        cpu_err = (base.cpu() - cpu_logits).abs()[valid.cpu()].max().item()
-        print(f"card_vs_cpu: max |logits(card) - logits(cpu)| = {cpu_err:.3e} "
-              f"(bound {CPU_ATOL}), max |logits| = {base.abs().max().item():.3e} [{card}]")
-        if not cpu_err <= CPU_ATOL:
-            raise SystemExit("card and CPU logits disagree")
-
-    del model, trainer, base, rotated, cpu_model, cpu_logits, h, f0, out_pc
+    dfaust_card_vs_cpu(card, dev, trainer, small)
+    del trainer
     torch.cuda.empty_cache()
 
     # 6. backward kernel vs plain
@@ -2178,7 +2454,6 @@ def main() -> int:
     del bf16_trainer
     torch.cuda.empty_cache()
     trainer, dfaust_steps = dfaust_train(card, dev, batch)
-    model = trainer.model
     print(f"train: steps after the first, float32 median {dfaust_steps['steady_s']:.4f} s (range "
           f"{min(dfaust_steps['all_s'][1:]):.4f}-{max(dfaust_steps['all_s'][1:]):.4f}), peak "
           f"{dfaust_steps['peak_gib']:.3f} GiB; bfloat16 median {dfaust_bf16['steady_s']:.4f} s (range "
@@ -2187,31 +2462,8 @@ def main() -> int:
 
     # 8. parameter gradients, card vs CPU, on two clouds
     small = to_device(body_batch(2, POINTS, seed=4), dev)
-    h, f0, out_pc, out_labels, _ = trainer.build(small, torch.Generator(device=dev).manual_seed(8))
-    cpu_model = copy.deepcopy(model).cpu()
-    draws = RecordedDraws(torch.Generator(device=dev).manual_seed(9))
-    card_loss = float(trainer.backward(h, f0, out_pc, out_labels, draws))
-    cpu_trainer = Trainer(cpu_model, hcfg, label_smoothing=training["label_smoothing"])
-    cpu_loss = float(cpu_trainer.backward(h.to("cpu"), f0.cpu(), out_pc.to("cpu"), out_labels.cpu(),
-                                          DropPathDraws(keep_masks=draws.masks)))
-    cpu_grads = {n: p.grad for n, p in cpu_model.named_parameters()}
-    norm = float(schedule.global_norm(list(cpu_grads.values())))
-    worst, worst_name = 0.0, None
-    for n, p in model.named_parameters():
-        ref = cpu_grads[n]
-        if p.grad is None or ref is None or not torch.isfinite(p.grad).all():
-            raise SystemExit(f"missing or non-finite gradient for {n}")
-        ratio = (p.grad.cpu() - ref).abs().max().item() / max(ref.abs().max().item(), GRAD_FLOOR * norm)
-        if ratio > worst:
-            worst, worst_name = ratio, n
-    print(f"grads_card_vs_cpu: loss card {card_loss:.6f} cpu {cpu_loss:.6f}; {len(cpu_grads)} leaves, "
-          f"global norm {norm:.6f}, {len(draws.masks)} DropPath masks; worst max|card - cpu| / "
-          f"max(max|cpu leaf|, {GRAD_FLOOR} * norm) = {worst:.3e} at {worst_name} "
-          f"(bound {GRAD_RTOL}) [{card}]", flush=True)
-    if not (worst <= GRAD_RTOL and abs(card_loss - cpu_loss) <= GRAD_RTOL * abs(cpu_loss)):
-        raise SystemExit("card and CPU gradients disagree")
-
-    del model, trainer, cpu_model, h, f0, out_pc, out_labels, batch
+    dfaust_grads_card_vs_cpu(card, dev, trainer, small, RecordedDraws, training)
+    del trainer
     torch.cuda.empty_cache()
 
     # 15.-16. the DFaust Monte-Carlo mixed-frame-count recipe: the conv
@@ -2221,16 +2473,26 @@ def main() -> int:
     print(f"mixf: max valid points per level {fill} [{card}]", flush=True)
     g4 = g4_conv_kernels(card, dev, fill)
     mixf = dfaust_mixf(card, dev, mixf_batch, small, RecordedDraws)
-    del mixf_batch, small
+    del mixf_batch
     torch.cuda.empty_cache()
     # 17. the ScanNet recipe with random planar frames
     rot_i = scannet_rot_i(card, dev)
 
+    # 18.-19. the standard geometry (kD = 3) and the DFaust standard recipe
+    fill = mixf_fill(dev, batch, presets.DFAUST_I_STANDARD_MODEL)
+    print(f"dfaust_std: max valid points per level {fill} [{card}]", flush=True)
+    std = {"conv": std_conv_kernels(card, dev, fill),
+           "dfaust": dfaust_standard(card, dev, batch, small, RecordedDraws, dfaust_steps)}
+    del batch, small
+    torch.cuda.empty_cache()
+
     scan = run_scannet(card, dev, RecordedDraws, DropPathDraws)
+    # 20. the ScanNet standard recipe as written (bfloat16)
+    std["scannet"] = scannet_standard(card, dev, RecordedDraws, DropPathDraws)
     dfaust = dict(fwd=compared, bwd=bwd_compared, eval_launches=launches,
                   train_launches=dfaust_steps["launches"], bf16_train_launches=dfaust_bf16["bf16_launches"],
                   bf16_train=dfaust_bf16)
-    print(json.dumps(kernels_line(dfaust, scan, mixf, rot_i, g4)))
+    print(json.dumps(kernels_line(dfaust, scan, mixf, rot_i, g4, std)))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -95,6 +95,9 @@ class Neighborhood:
         with at least one valid edge, ascending
         (``kernels.fused_equiv.live_row_table``): the rows the conv
         kernels work on.
+      std_rel: optional ``[B, M, K, 1, 3]`` raw edge offsets, the standard
+        convs' geometry (``ops.pne_conv.std_geometry``), shared by every
+        standard conv on this neighborhood.
     """
 
     idx: torch.Tensor
@@ -110,6 +113,7 @@ class Neighborhood:
     bwd_run_start: Optional[torch.Tensor] = None
     bwd_run_end: Optional[torch.Tensor] = None
     live_rows: Optional[torch.Tensor] = None
+    std_rel: Optional[torch.Tensor] = None
 
 
 def _chunked_topk_neighbors(src_pos, src_mask, query_pos, query_mask, k, radius2, chunk,

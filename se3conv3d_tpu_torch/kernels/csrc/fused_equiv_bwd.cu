@@ -11,7 +11,9 @@
 //   d_feats[b,idx,f,c] += sum_{g,q} pne[k,g,f,q] * dbasis[g,c,q]  (valid edges only)
 //   dpre[k,g,f,q] = (sum_c feat[k,f,c] * dbasis[g,c,q]) * gelu'(pre)
 //   d_proj[d,q]   = sum dpre * geo[d],  d_bias[q] = sum dpre
-// with gelu'(x) = Phi(x) + x * phi(x) in closed form.
+// with gelu'(x) = Phi(x) + x * phi(x) in closed form.  The standard
+// (non-equivariant) conv is the same at G = F = 1 with the kD = 3 pne
+// inputs, the raw offsets and no rot6 (se3_fused_std_bwd; d_proj [3, Q]).
 //
 // Replaces the TPU Pallas kernel se3conv3d_tpu/ops/pallas/fused_equiv.py:
 // _bwd_kernel (with the XLA scatter-add of the per-edge feature gradients
@@ -80,20 +82,21 @@ namespace {
 constexpr int kEThreads = 128;
 constexpr int kETM = 4;                   // query points per tile, one per warp
 constexpr int kRowStride = kCC + 1;       // dbasis / feature chunk rows
-constexpr int kPRows = 10;                // 9 projection rows + the bias
 
-// edge_kernel's shared-memory layout for pne rows of GQC columns.
-template <int GQC>
+// edge_kernel's shared-memory layout for pne rows of GQC columns and kD pne
+// inputs.
+template <int GQC, int kD>
 struct EdgeCols : Cols<GQC> {
   using Base = Cols<GQC>;
-  static constexpr int kGeoStride = 9 * Base::kGMax + 1;  // kGMax frames x 9 pne inputs, padded
+  static constexpr int kPRows = kD + 1;                  // kD projection rows + the bias
+  static constexpr int kGeoStride = kD * Base::kGMax + 1;  // kGMax frames x kD pne inputs, padded
   static constexpr int kWarpFloats = Base::kSlab + GQC * kRowStride + kEB * kRowStride + kEB * kGeoStride;
   static constexpr int kQLanes = GQC / 32;              // q = lane + 32h of the d_proj sums
 };
 
-template <int GQC>
+template <int GQC, int kD>
 size_t edge_smem(int K) {
-  return sizeof(float) * (10 * GQC + kETM * EdgeCols<GQC>::kWarpFloats) +
+  return sizeof(float) * ((kD + 1) * GQC + kETM * EdgeCols<GQC, kD>::kWarpFloats) +
          sizeof(int) * 2 * kETM * static_cast<size_t>(K);
 }
 
@@ -129,13 +132,13 @@ cudaError_t launch_sum_partials(const float* part, int S, long long n, float* ou
 // --- 4. per-edge gradients ---------------------------------------------------
 // Tiles of kETM live rows, walked grid-stride; one warp per row.  d_feats
 // by float32 atomics into dfeats (or, with slot, each edge's row stored at
-// its sorted slot of dsorted), d_proj / d_bias as one [10][Q] partial per
-// block.  With T = bf16 the rows are rounded to bfloat16 first, and so is
+// its sorted slot of dsorted), d_proj / d_bias as one [kD + 1][Q] partial
+// per block.  With T = bf16 the rows are rounded to bfloat16 first, and so is
 // each dpre.  The dpne register tile covers 64 (g, q) columns: a row of 128
 // (GQC = 128, G*Q > 64) takes two passes over the channel chunks, the
 // second reloading the features and its dbasis columns, and adds d_feats in
 // the first only.
-template <typename T, int GQC>
+template <typename T, int GQC, int kD>
 __global__ void __launch_bounds__(kEThreads)
 edge_kernel(const T* __restrict__ rel, const T* __restrict__ rot6,
             const T* __restrict__ feats, const int64_t* __restrict__ idx,
@@ -144,11 +147,11 @@ edge_kernel(const T* __restrict__ rel, const T* __restrict__ rot6,
             const int* __restrict__ live, const int64_t* __restrict__ slot,
             float* __restrict__ dfeats, T* __restrict__ dsorted, float* __restrict__ ppart,
             int M, int N, int K, int G, int F, int Q, int C, int L, int BM) {
-  using Lay = EdgeCols<GQC>;
-  constexpr int kStride = Lay::kStride, kGeoStride = Lay::kGeoStride;
+  using Lay = EdgeCols<GQC, kD>;
+  constexpr int kStride = Lay::kStride, kGeoStride = Lay::kGeoStride, kPRows = Lay::kPRows;
   extern __shared__ float smem[];
-  float* projS = smem;                       // [9][Q]
-  float* biasS = projS + 9 * GQC;            // [Q]
+  float* projS = smem;                       // [kD][Q]
+  float* biasS = projS + kD * GQC;           // [Q]
   float* warpS = biasS + GQC;                // [kETM][Lay::kWarpFloats]
   int* validK = reinterpret_cast<int*>(warpS + kETM * Lay::kWarpFloats);  // [kETM][K]
   int* validN = validK + kETM * K;
@@ -156,7 +159,7 @@ edge_kernel(const T* __restrict__ rel, const T* __restrict__ rot6,
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int GQ = G * Q;
   const size_t CQ = static_cast<size_t>(C) * Q;
-  for (int i = tid; i < 9 * Q; i += kEThreads) projS[i] = rnd<T>(proj[i]);
+  for (int i = tid; i < kD * Q; i += kEThreads) projS[i] = rnd<T>(proj[i]);
   for (int i = tid; i < Q; i += kEThreads) biasS[i] = rnd<T>(bias[i]);
 
   float* pneW = warpS + warp * Lay::kWarpFloats;  // [kEB][kStride]: pne, then dpne/dpre
@@ -202,12 +205,12 @@ edge_kernel(const T* __restrict__ rel, const T* __restrict__ rot6,
 #pragma unroll
           for (int g = 0; g < Lay::kGMax; ++g) {
             if (g < G) {
-              float geo[9];
-              edge_geo(rel, rot6, base, g, F, f, geo);
+              float geo[kD];
+              edge_geo<kD>(rel, rot6, base, g, F, f, geo);
 #pragma unroll
-              for (int d = 0; d < 9; ++d) grow_s[g * 9 + d] = geo[d];
+              for (int d = 0; d < kD; ++d) grow_s[g * kD + d] = geo[d];
               for (int q = 0; q < Q; ++q)
-                prow[g * Q + q] = rnd<T>(gelu_erf(pre_act(geo, projS, biasS, Q, q)));
+                prow[g * Q + q] = rnd<T>(gelu_erf(pre_act<kD>(geo, projS, biasS, Q, q)));
             }
           }
         } else {
@@ -314,11 +317,11 @@ edge_kernel(const T* __restrict__ rel, const T* __restrict__ rot6,
 #pragma unroll
         for (int g = 0; g < Lay::kGMax; ++g) {
           if (g < G) {
-            float geo[9];
+            float geo[kD];
 #pragma unroll
-            for (int d = 0; d < 9; ++d) geo[d] = grow_s[g * 9 + d];
+            for (int d = 0; d < kD; ++d) geo[d] = grow_s[g * kD + d];
             for (int q = 0; q < Q; ++q)
-              prow[g * Q + q] = rnd<T>(prow[g * Q + q] * gelu_grad(pre_act(geo, projS, biasS, Q, q)));
+              prow[g * Q + q] = rnd<T>(prow[g * Q + q] * gelu_grad(pre_act<kD>(geo, projS, biasS, Q, q)));
           }
         }
       }
@@ -331,10 +334,10 @@ edge_kernel(const T* __restrict__ rel, const T* __restrict__ rot6,
         for (int el = 0; el < ne; ++el) {
           for (int g = 0; g < G; ++g) {
             const float v = pneW[el * kStride + g * Q + q];
-            const float* geo = geoW + el * kGeoStride + g * 9;
+            const float* geo = geoW + el * kGeoStride + g * kD;
 #pragma unroll
-            for (int d = 0; d < 9; ++d) accP[h][d] = fmaf(v, geo[d], accP[h][d]);
-            accP[h][9] += v;
+            for (int d = 0; d < kD; ++d) accP[h][d] = fmaf(v, geo[d], accP[h][d]);
+            accP[h][kD] += v;
           }
         }
       }
@@ -362,10 +365,11 @@ edge_kernel(const T* __restrict__ rel, const T* __restrict__ rot6,
 
 long long round16(long long x) { return (x + 15) / 16 * 16; }
 
-// The passes of one backward call with operand type T.  The scratch holds
-// the basis / dbasis rows [L*G, C*Q] and the compact gout rows [L*G, O], in
-// T, then with bfloat16 operands the bfloat16 copy of W [C*Q, O].
-template <typename T>
+// The passes of one backward call with operand type T and kD pne inputs.
+// The scratch holds the basis / dbasis rows [L*G, C*Q] and the compact gout
+// rows [L*G, O], in T, then with bfloat16 operands the bfloat16 copy of W
+// [C*Q, O].
+template <int kD, typename T>
 cudaError_t backward(const T* rel, const T* rot6, const T* feats, const int64_t* idx,
                      const uint8_t* mask, const float* proj, const float* bias, const float* w,
                      const float* gout, const int* live, const int64_t* slot, void* dfeats,
@@ -380,7 +384,7 @@ cudaError_t backward(const T* rel, const T* rot6, const T* feats, const int64_t*
   cudaError_t err;
 
   // 1. basis and the compact gout rows
-  err = launch_basis<T>(true, rel, rot6, feats, idx, mask, proj, bias, gout, live, scr, gl, M, N,
+  err = launch_basis<T, kD>(true, rel, rot6, feats, idx, mask, proj, bias, gout, live, scr, gl, M, N,
                         K, G, F, Q, C, O, L, BM, stream);
   if (err != cudaSuccess) return err;
 
@@ -415,10 +419,15 @@ cudaError_t backward(const T* rel, const T* rot6, const T* feats, const int64_t*
   }
   if (err != cudaSuccess) return err;
 
-  // 4. per-edge gradients, in the column capacity of G and G*Q
+  // 4. per-edge gradients, in the column capacity of G and G*Q (kD = 3: 64)
   const bool wide = column_capacity(G, Q) == 128;
-  auto kernel = wide ? edge_kernel<T, 128> : edge_kernel<T, 64>;
-  const size_t smem_e = wide ? edge_smem<128>(K) : edge_smem<64>(K);
+  auto kernel = edge_kernel<T, 64, kD>;
+  size_t smem_e = edge_smem<64, kD>(K);
+  if constexpr (kD == 9) {
+    if (wide) kernel = edge_kernel<T, 128, kD>, smem_e = edge_smem<128, kD>(K);
+  } else if (wide) {
+    return cudaErrorInvalidValue;
+  }
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem_e));
   if (err != cudaSuccess) return err;
@@ -427,7 +436,7 @@ cudaError_t backward(const T* rel, const T* rot6, const T* feats, const int64_t*
       slot == nullptr ? static_cast<float*>(dfeats) : nullptr,
       slot == nullptr ? nullptr : static_cast<T*>(dfeats), ppart, M, N, K, G, F, Q, C, L, BM);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  return launch_sum_partials(ppart, p_blocks, static_cast<long long>(kPRows) * Q, dparams, stream);
+  return launch_sum_partials(ppart, p_blocks, static_cast<long long>(kD + 1) * Q, dparams, stream);
 }
 
 }  // namespace
@@ -436,9 +445,9 @@ cudaError_t backward(const T* rel, const T* rot6, const T* feats, const int64_t*
 // rows and operands of elem_bytes (4: float32, 2: bfloat16): the bytes of
 // the basis/dbasis scratch with the compact gout rows (and, in bfloat16,
 // the weights' copy), the d_w partials (w_splits of C*Q*O float32) and the
-// d_proj partials (p_blocks of 10*Q).  The d_w splits aim at kWantBlocks
-// blocks in flight with at least kMinSplitRows rows each; at least one
-// split and one block.
+// d_proj partials (p_blocks of (D + 1)*Q for D pne inputs).  The d_w
+// splits aim at kWantBlocks blocks in flight with at least kMinSplitRows
+// rows each; at least one split and one block.
 extern "C" void se3_fused_equiv_bwd_plan(int L, int G, int Q, int C, int O, int elem_bytes,
                                          long long* scratch, int* w_splits, int* p_blocks) {
   const long long rows = static_cast<long long>(L) * G;
@@ -454,26 +463,16 @@ extern "C" void se3_fused_equiv_bwd_plan(int L, int G, int Q, int C, int O, int 
   *p_blocks = static_cast<int>(num_tiles < 1024 ? (num_tiles < 1 ? 1 : num_tiles) : 1024);
 }
 
-// Plain C entry point for ctypes.  Launches on `stream` and returns the
-// first CUDA error (0 = launched).  live is the int32 table of the L >= 1
-// query rows b*M + m that have a valid edge, ascending (a row without one
-// may be listed too; an entry outside [0, B*M) is skipped).  d_feats must
-// be zeroed by the caller: it is [B, N, F, C] float32 when slot is null,
-// else the [B, M*K, F*C] sorted buffer in the operand type; d_params is
-// [10, Q]: rows 0-8 d_proj, row 9 d_bias.  use_bf16 != 0: rel, rot6 and
-// feats are bfloat16, else float32; the parameters, gout, d_params and d_w
-// are float32 either way.  Requires G <= 4, G*Q <= 128 (column_capacity)
-// and the workspace sizes of se3_fused_equiv_bwd_plan for the same L and
-// operand size.
-extern "C" int se3_fused_equiv_bwd(const void* rel, const void* rot6, const void* feats,
-                                   const void* idx, const void* mask, const void* proj,
-                                   const void* bias, const void* w, const void* gout,
-                                   const void* live, const void* slot, void* dfeats,
-                                   void* dparams, void* dw, void* scratch, void* wpart,
-                                   void* ppart, int B, int M, int N, int K, int G, int F, int Q,
-                                   int C, int O, int L, int w_splits, int p_blocks, int use_bf16,
-                                   void* stream_ptr) {
-  if (column_capacity(G, Q) == 0) return static_cast<int>(cudaErrorInvalidValue);
+namespace {
+
+// One backward call with kD pne inputs (rot6 unread at kD = 3).
+template <int kD>
+int backward_call(const void* rel, const void* rot6, const void* feats, const void* idx,
+                  const void* mask, const void* proj, const void* bias, const void* w,
+                  const void* gout, const void* live, const void* slot, void* dfeats,
+                  void* dparams, void* dw, void* scratch, void* wpart, void* ppart, int B, int M,
+                  int N, int K, int G, int F, int Q, int C, int O, int L, int w_splits,
+                  int p_blocks, int use_bf16, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const auto* idxp = static_cast<const int64_t*>(idx);
   const auto* maskp = static_cast<const uint8_t*>(mask);
@@ -490,14 +489,57 @@ extern "C" int se3_fused_equiv_bwd(const void* rel, const void* rot6, const void
   auto* ppf = static_cast<float*>(ppart);
   cudaError_t err;
   if (use_bf16)
-    err = backward(static_cast<const bf16*>(rel), static_cast<const bf16*>(rot6),
-                   static_cast<const bf16*>(feats), idxp, maskp, projf, biasf, wf, goutf, livep,
-                   slotp, dfeats, dpf, dwf, scr, wpf, ppf, B, M, N, K, G, F, Q, C, O, L, w_splits,
-                   p_blocks, stream);
+    err = backward<kD>(static_cast<const bf16*>(rel), static_cast<const bf16*>(rot6),
+                       static_cast<const bf16*>(feats), idxp, maskp, projf, biasf, wf, goutf, livep,
+                       slotp, dfeats, dpf, dwf, scr, wpf, ppf, B, M, N, K, G, F, Q, C, O, L,
+                       w_splits, p_blocks, stream);
   else
-    err = backward(static_cast<const float*>(rel), static_cast<const float*>(rot6),
-                   static_cast<const float*>(feats), idxp, maskp, projf, biasf, wf, goutf, livep,
-                   slotp, dfeats, dpf, dwf, scr, wpf, ppf, B, M, N, K, G, F, Q, C, O, L, w_splits,
-                   p_blocks, stream);
+    err = backward<kD>(static_cast<const float*>(rel), static_cast<const float*>(rot6),
+                       static_cast<const float*>(feats), idxp, maskp, projf, biasf, wf, goutf,
+                       livep, slotp, dfeats, dpf, dwf, scr, wpf, ppf, B, M, N, K, G, F, Q, C, O, L,
+                       w_splits, p_blocks, stream);
   return static_cast<int>(err);
+}
+
+}  // namespace
+
+// Plain C entry points for ctypes.  Each launches on `stream` and returns
+// the first CUDA error (0 = launched).  live is the int32 table of the
+// L >= 1 query rows b*M + m that have a valid edge, ascending (a row
+// without one may be listed too; an entry outside [0, B*M) is skipped).
+// d_feats must be zeroed by the caller: it is [B, N, F, C] float32 when
+// slot is null, else the [B, M*K, F*C] sorted buffer in the operand type;
+// d_params is [D + 1, Q]: rows 0 .. D-1 d_proj, row D d_bias.  use_bf16 !=
+// 0: rel, rot6 and feats are bfloat16, else float32; the parameters, gout,
+// d_params and d_w are float32 either way.  Each requires the workspace
+// sizes of se3_fused_equiv_bwd_plan for the same L, G and operand size.
+//
+// The equivariant conv: proj [9, Q]; G <= 4, G*Q <= 128 (column_capacity).
+extern "C" int se3_fused_equiv_bwd(const void* rel, const void* rot6, const void* feats,
+                                   const void* idx, const void* mask, const void* proj,
+                                   const void* bias, const void* w, const void* gout,
+                                   const void* live, const void* slot, void* dfeats,
+                                   void* dparams, void* dw, void* scratch, void* wpart,
+                                   void* ppart, int B, int M, int N, int K, int G, int F, int Q,
+                                   int C, int O, int L, int w_splits, int p_blocks, int use_bf16,
+                                   void* stream_ptr) {
+  if (column_capacity(G, Q) == 0) return static_cast<int>(cudaErrorInvalidValue);
+  return backward_call<9>(rel, rot6, feats, idx, mask, proj, bias, w, gout, live, slot, dfeats,
+                          dparams, dw, scratch, wpart, ppart, B, M, N, K, G, F, Q, C, O, L,
+                          w_splits, p_blocks, use_bf16, stream_ptr);
+}
+
+// The standard conv: rel [B, M, K, 1, 3], feats [B, N, 1, C], proj [3, Q],
+// gout [B, M, 1, O]; G = F = 1 and Q <= 32.
+extern "C" int se3_fused_std_bwd(const void* rel, const void* feats, const void* idx,
+                                 const void* mask, const void* proj, const void* bias,
+                                 const void* w, const void* gout, const void* live,
+                                 const void* slot, void* dfeats, void* dparams, void* dw,
+                                 void* scratch, void* wpart, void* ppart, int B, int M, int N,
+                                 int K, int Q, int C, int O, int L, int w_splits, int p_blocks,
+                                 int use_bf16, void* stream_ptr) {
+  if (Q > 32) return static_cast<int>(cudaErrorInvalidValue);
+  return backward_call<3>(rel, nullptr, feats, idx, mask, proj, bias, w, gout, live, slot, dfeats,
+                          dparams, dw, scratch, wpart, ppart, B, M, N, K, 1, 1, Q, C, O, L,
+                          w_splits, p_blocks, use_bf16, stream_ptr);
 }

@@ -5,11 +5,16 @@
 //   pre[k,g,f,q]  = P . [rel[b,m,k,g,:], rot6[b,m,k,g,f,:]] + bias[q]
 //   basis[g,c,q]  = sum_{k,f: mask} gelu(pre[k,g,f,q]) * feats[b, idx[b,m,k], f, c]
 //
+// The pne input width kD is a template parameter: 9 for the equivariant
+// geometry (3 offsets in the receiver frame + the 6D relative rotation), 3
+// for the standard one (the raw offsets alone, no rot6; G = F = 1, taken at
+// the 64-column capacity with G*Q <= 32 only).
+//
 // - the operand types: T = float, or __nv_bfloat16, where the kernels round
 //   to bfloat16 where the TPU kernel's bf16 path casts (rnd<T>: the
 //   projection and bias as read, each pne, each basis entry; the geometry
 //   and features arrive rounded), and accumulate in float32;
-// - the per-edge helpers (edge compaction, the 9 pne inputs, pre, gelu and
+// - the per-edge helpers (edge compaction, the kD pne inputs, pre, gelu and
 //   its derivative);
 // - basis_kernel: the basis of every live query row (a row with a valid
 //   edge; live[r] = b*M + m) into a scratch [L*G, C*Q] of T, live row r
@@ -102,23 +107,29 @@ __device__ int compact_edges(const int64_t* __restrict__ idx, const uint8_t* __r
   return nvalid;
 }
 
-// The 9 pne inputs of edge (row + k, in-frame f) for out-frame g.
-template <typename T>
+// The kD pne inputs of edge (row + k, in-frame f) for out-frame g: the 3
+// offsets and, at kD = 9, the 6D relative rotation (rot6 is not read at
+// kD = 3).
+template <int kD, typename T>
 __device__ __forceinline__ void edge_geo(const T* __restrict__ rel, const T* __restrict__ rot6,
                                          size_t base, int g, int F, int f, float* geo) {
+  static_assert(kD == 9 || kD == 3, "the pne inputs are 9 (equivariant) or 3 (standard)");
   const T* r = rel + (base + g) * 3;
-  const T* t = rot6 + ((base + g) * F + f) * 6;
 #pragma unroll
   for (int d = 0; d < 3; ++d) geo[d] = to_f(r[d]);
+  if constexpr (kD == 9) {
+    const T* t = rot6 + ((base + g) * F + f) * 6;
 #pragma unroll
-  for (int d = 0; d < 6; ++d) geo[3 + d] = to_f(t[d]);
+    for (int d = 0; d < 6; ++d) geo[3 + d] = to_f(t[d]);
+  }
 }
 
+template <int kD>
 __device__ __forceinline__ float pre_act(const float* geo, const float* projS,
                                          const float* biasS, int Q, int q) {
   float pre = biasS[q];
 #pragma unroll
-  for (int d = 0; d < 9; ++d) pre = fmaf(geo[d], projS[d * Q + q], pre);
+  for (int d = 0; d < kD; ++d) pre = fmaf(geo[d], projS[d * Q + q], pre);
   return pre;
 }
 
@@ -148,18 +159,19 @@ constexpr int kBEdges = 8;      // feature loads in flight per lane
 inline size_t basis_warp_bytes(int K, int F, int gqc) {
   return sizeof(float) * static_cast<size_t>(K) * F * (gqc + 1) + sizeof(int) * 2 * static_cast<size_t>(K);
 }
-inline size_t basis_smem(int K, int F, int gqc, int warps) {
-  return sizeof(float) * 10 * gqc + warps * basis_warp_bytes(K, F, gqc);
+// the projection [D][gqc] and bias [gqc], then each warp's pne rows and edges
+inline size_t basis_smem(int K, int F, int gqc, int D, int warps) {
+  return sizeof(float) * (D + 1) * gqc + warps * basis_warp_bytes(K, F, gqc);
 }
-// Warps per block of basis_kernel at K neighbors x F in-frames and gqc
-// columns; 0 if one warp's pne rows do not fit.
-inline int basis_warps(int K, int F, int gqc) {
-  const size_t room = kSmemMax - sizeof(float) * 10 * gqc;
+// Warps per block of basis_kernel at K neighbors x F in-frames, gqc
+// columns and D pne inputs; 0 if one warp's pne rows do not fit.
+inline int basis_warps(int K, int F, int gqc, int D) {
+  const size_t room = kSmemMax - sizeof(float) * (D + 1) * gqc;
   const size_t w = room / basis_warp_bytes(K, F, gqc);
   return static_cast<int>(w < kBWarps ? w : kBWarps);
 }
 
-template <int NI, bool kGout, typename T, int GQC>
+template <int NI, bool kGout, typename T, int GQC, int kD>
 __global__ void __launch_bounds__(32 * kBWarps, 4)
 basis_kernel(const T* __restrict__ rel, const T* __restrict__ rot6,
              const T* __restrict__ feats, const int64_t* __restrict__ idx,
@@ -172,8 +184,8 @@ basis_kernel(const T* __restrict__ rel, const T* __restrict__ rot6,
   extern __shared__ float smem[];
   const int warps = blockDim.x >> 5;
   const size_t pne_rows = static_cast<size_t>(K) * F;
-  float* projS = smem;                       // [9][Q]
-  float* biasS = projS + 9 * GQC;            // [Q]
+  float* projS = smem;                       // [kD][Q]
+  float* biasS = projS + kD * GQC;           // [Q]
   float* pneS = biasS + GQC;                 // [warps][K*F][Lay::kStride]
   int* validK = reinterpret_cast<int*>(pneS + warps * pne_rows * Lay::kStride);  // [warps][K]
   int* validN = validK + warps * K;
@@ -181,7 +193,7 @@ basis_kernel(const T* __restrict__ rel, const T* __restrict__ rot6,
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int r = blockIdx.x * warps + warp;
   const int GQ = G * Q;
-  for (int i = tid; i < 9 * Q; i += blockDim.x) projS[i] = rnd<T>(proj[i]);
+  for (int i = tid; i < kD * Q; i += blockDim.x) projS[i] = rnd<T>(proj[i]);
   for (int i = tid; i < Q; i += blockDim.x) biasS[i] = rnd<T>(bias[i]);
   __syncthreads();
   if (r >= L) return;  // whole warp; no block barrier follows
@@ -214,10 +226,10 @@ basis_kernel(const T* __restrict__ rel, const T* __restrict__ rot6,
 #pragma unroll
     for (int g = 0; g < Lay::kGMax; ++g) {
       if (g < G) {
-        float geo[9];
-        edge_geo(rel, rot6, base, g, F, f, geo);
+        float geo[kD];
+        edge_geo<kD>(rel, rot6, base, g, F, f, geo);
         for (int q = 0; q < Q; ++q)
-          prow[g * Q + q] = rnd<T>(gelu_erf(pre_act(geo, projS, biasS, Q, q)));
+          prow[g * Q + q] = rnd<T>(gelu_erf(pre_act<kD>(geo, projS, biasS, Q, q)));
       }
     }
   }
@@ -284,19 +296,25 @@ basis_kernel(const T* __restrict__ rel, const T* __restrict__ rot6,
 }
 
 // Launches basis_kernel over L live rows (the column capacity and the tile
-// height from G and G*Q).
-template <typename T, int GQC>
+// height from G and G*Q; kD = 3 has the narrow tile only, G*Q <= 32).
+template <typename T, int GQC, int kD>
 cudaError_t launch_basis_cols(bool with_gout, const T* rel, const T* rot6, const T* feats,
                               const int64_t* idx, const uint8_t* mask, const float* proj,
                               const float* bias, const float* gout, const int* live, T* basis,
                               T* gout_live, int M, int N, int K, int G, int F, int Q, int C, int O,
                               int L, int BM, cudaStream_t stream) {
-  const int warps = basis_warps(K, F, GQC);
+  const int warps = basis_warps(K, F, GQC, kD);
   if (warps < 1) return cudaErrorInvalidValue;
-  const size_t smem = basis_smem(K, F, GQC, warps);
+  const size_t smem = basis_smem(K, F, GQC, kD, warps);
   const bool narrow = G * Q <= 32;
-  auto kernel = with_gout ? (narrow ? basis_kernel<4, true, T, GQC> : basis_kernel<8, true, T, GQC>)
-                          : (narrow ? basis_kernel<4, false, T, GQC> : basis_kernel<8, false, T, GQC>);
+  decltype(&basis_kernel<4, true, T, GQC, kD>) kernel;
+  if constexpr (kD == 3) {
+    if (!narrow) return cudaErrorInvalidValue;
+    kernel = with_gout ? basis_kernel<4, true, T, GQC, kD> : basis_kernel<4, false, T, GQC, kD>;
+  } else {
+    kernel = with_gout ? (narrow ? basis_kernel<4, true, T, GQC, kD> : basis_kernel<8, true, T, GQC, kD>)
+                       : (narrow ? basis_kernel<4, false, T, GQC, kD> : basis_kernel<8, false, T, GQC, kD>);
+  }
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
@@ -306,7 +324,8 @@ cudaError_t launch_basis_cols(bool with_gout, const T* rel, const T* rot6, const
   return cudaGetLastError();
 }
 
-template <typename T>
+// (kD = 3: the 64-column capacity only)
+template <typename T, int kD>
 cudaError_t launch_basis(bool with_gout, const T* rel, const T* rot6, const T* feats,
                          const int64_t* idx, const uint8_t* mask, const float* proj,
                          const float* bias, const float* gout, const int* live, T* basis,
@@ -314,11 +333,14 @@ cudaError_t launch_basis(bool with_gout, const T* rel, const T* rot6, const T* f
                          int L, int BM, cudaStream_t stream) {
   switch (column_capacity(G, Q)) {
     case 64:
-      return launch_basis_cols<T, 64>(with_gout, rel, rot6, feats, idx, mask, proj, bias, gout,
-                                      live, basis, gout_live, M, N, K, G, F, Q, C, O, L, BM, stream);
+      return launch_basis_cols<T, 64, kD>(with_gout, rel, rot6, feats, idx, mask, proj, bias, gout,
+                                          live, basis, gout_live, M, N, K, G, F, Q, C, O, L, BM, stream);
     case 128:
-      return launch_basis_cols<T, 128>(with_gout, rel, rot6, feats, idx, mask, proj, bias, gout,
-                                       live, basis, gout_live, M, N, K, G, F, Q, C, O, L, BM, stream);
+      if constexpr (kD == 9)
+        return launch_basis_cols<T, 128, kD>(with_gout, rel, rot6, feats, idx, mask, proj, bias, gout,
+                                             live, basis, gout_live, M, N, K, G, F, Q, C, O, L, BM, stream);
+      else
+        return cudaErrorInvalidValue;
     default:
       return cudaErrorInvalidValue;
   }

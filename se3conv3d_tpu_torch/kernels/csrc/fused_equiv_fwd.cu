@@ -27,6 +27,13 @@
 //      sum_splits adds in a fixed order, storing through the same map.
 // The result depends only on the shapes and L: two calls agree bitwise.
 //
+// The standard (non-equivariant) conv is the same function at G = F = 1
+// with 3 pne inputs, the raw offsets (se3conv3d_tpu/ops/pne_conv.py:
+// fused_conv, whose _std_geo_chunk packs them for the same TPU kernel):
+// se3_fused_std_fwd takes rel [B, M, K, 1, 3] and no rot6, and runs the
+// kD = 3 instantiation of basis_kernel (a third of the pne inputs, a
+// quarter of the G = F = 2 basis work per row) before the same product.
+//
 // With bfloat16 operands (the TPU kernel's bf16 path, `cdt`) rel, rot6 and
 // feats arrive in bfloat16; basis_kernel rounds the projection and bias,
 // each pne and each basis entry to bfloat16 (a scratch of 2-byte rows), and
@@ -104,9 +111,10 @@ extern "C" void se3_fused_equiv_fwd_plan(int L, int G, int Q, int C, int O, long
 
 namespace {
 
-// The chunks of one forward call with operand type T; `wb` is the product's
-// B operand: W [C*Q, O] float32, or its bfloat16 copy [O, C*Q].
-template <typename T, typename TW>
+// The chunks of one forward call with operand type T and kD pne inputs;
+// `wb` is the product's B operand: W [C*Q, O] float32, or its bfloat16 copy
+// [O, C*Q].
+template <int kD, typename T, typename TW>
 cudaError_t forward(const T* rel, const T* rot6, const T* feats, const int64_t* idx,
                     const uint8_t* mask, const float* proj, const float* bias, const TW* wb,
                     const int* live, float* outf, T* basis, float* part, int B, int M, int N,
@@ -125,7 +133,7 @@ cudaError_t forward(const T* rel, const T* rot6, const T* feats, const int64_t* 
     const int lc = L - r0 < chunk ? L - r0 : chunk;
     const int rows = lc * G;
     const int* lv = live + r0;
-    err = launch_basis<T>(false, rel, rot6, feats, idx, mask, proj, bias, nullptr, lv, basis,
+    err = launch_basis<T, kD>(false, rel, rot6, feats, idx, mask, proj, bias, nullptr, lv, basis,
                           nullptr, M, N, K, G, F, Q, C, O, lc, BM, stream);
     if (err != cudaSuccess) return err;
     const long long n = static_cast<long long>(rows) * O;
@@ -148,24 +156,13 @@ cudaError_t forward(const T* rel, const T* rot6, const T* feats, const int64_t* 
   return cudaSuccess;
 }
 
-}  // namespace
-
-// Plain C entry point for ctypes.  Launches on `stream` and returns the
-// first CUDA error (0 = launched).  live is the int32 table of the L >= 1
-// query rows b*M + m that have a valid edge (a row without one may be
-// listed too; an entry outside [0, B*M) is skipped); out [B, M, G, O]
-// float32 must be zeroed by the caller (rows not listed are not written).
-// use_bf16 != 0: rel, rot6 and feats are bfloat16, else float32; the
-// parameters are float32 either way.  Requires G <= 4, G*Q <= 128
-// (column_capacity) and the plan of se3_fused_equiv_fwd_plan for the same
-// L and operand size.
-extern "C" int se3_fused_equiv_fwd(const void* rel, const void* rot6, const void* feats,
-                                   const void* idx, const void* mask, const void* proj,
-                                   const void* bias, const void* w, const void* live, void* out,
-                                   void* scratch, int B, int M, int N, int K, int G, int F, int Q,
-                                   int C, int O, int L, int chunk, int splits, int use_bf16,
-                                   void* stream_ptr) {
-  if (column_capacity(G, Q) == 0) return static_cast<int>(cudaErrorInvalidValue);
+// One forward call with kD pne inputs (rot6 unread at kD = 3).
+template <int kD>
+int forward_call(const void* rel, const void* rot6, const void* feats, const void* idx,
+                 const void* mask, const void* proj, const void* bias, const void* w,
+                 const void* live, void* out, void* scratch, int B, int M, int N, int K, int G,
+                 int F, int Q, int C, int O, int L, int chunk, int splits, int use_bf16,
+                 void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const auto* idxp = static_cast<const int64_t*>(idx);
   const auto* maskp = static_cast<const uint8_t*>(mask);
@@ -181,17 +178,52 @@ extern "C" int se3_fused_equiv_fwd(const void* rel, const void* rot6, const void
     scr += round16(CQ * O * 2);
     err = launch_round_bf16(static_cast<const float*>(w), wt, CQ, O, true, stream);
     if (err == cudaSuccess)
-      err = forward(static_cast<const bf16*>(rel), static_cast<const bf16*>(rot6),
-                    static_cast<const bf16*>(feats), idxp, maskp, projf, biasf,
-                    static_cast<const bf16*>(wt), livep, static_cast<float*>(out),
-                    reinterpret_cast<bf16*>(scr), reinterpret_cast<float*>(scr + basis_bytes), B,
-                    M, N, K, G, F, Q, C, O, L, chunk, splits, stream);
+      err = forward<kD>(static_cast<const bf16*>(rel), static_cast<const bf16*>(rot6),
+                        static_cast<const bf16*>(feats), idxp, maskp, projf, biasf,
+                        static_cast<const bf16*>(wt), livep, static_cast<float*>(out),
+                        reinterpret_cast<bf16*>(scr), reinterpret_cast<float*>(scr + basis_bytes), B,
+                        M, N, K, G, F, Q, C, O, L, chunk, splits, stream);
   } else {
-    err = forward(static_cast<const float*>(rel), static_cast<const float*>(rot6),
-                  static_cast<const float*>(feats), idxp, maskp, projf, biasf,
-                  static_cast<const float*>(w), livep, static_cast<float*>(out),
-                  reinterpret_cast<float*>(scr), reinterpret_cast<float*>(scr + basis_bytes), B, M,
-                  N, K, G, F, Q, C, O, L, chunk, splits, stream);
+    err = forward<kD>(static_cast<const float*>(rel), static_cast<const float*>(rot6),
+                      static_cast<const float*>(feats), idxp, maskp, projf, biasf,
+                      static_cast<const float*>(w), livep, static_cast<float*>(out),
+                      reinterpret_cast<float*>(scr), reinterpret_cast<float*>(scr + basis_bytes), B, M,
+                      N, K, G, F, Q, C, O, L, chunk, splits, stream);
   }
   return static_cast<int>(err);
+}
+
+}  // namespace
+
+// Plain C entry points for ctypes.  Each launches on `stream` and returns
+// the first CUDA error (0 = launched).  live is the int32 table of the
+// L >= 1 query rows b*M + m that have a valid edge (a row without one may
+// be listed too; an entry outside [0, B*M) is skipped); out [B, M, G, O]
+// float32 must be zeroed by the caller (rows not listed are not written).
+// use_bf16 != 0: rel, rot6 and feats are bfloat16, else float32; the
+// parameters are float32 either way.  Each requires the plan of
+// se3_fused_equiv_fwd_plan for the same L, G and operand size.
+//
+// The equivariant conv: proj [9, Q]; G <= 4, G*Q <= 128 (column_capacity).
+extern "C" int se3_fused_equiv_fwd(const void* rel, const void* rot6, const void* feats,
+                                   const void* idx, const void* mask, const void* proj,
+                                   const void* bias, const void* w, const void* live, void* out,
+                                   void* scratch, int B, int M, int N, int K, int G, int F, int Q,
+                                   int C, int O, int L, int chunk, int splits, int use_bf16,
+                                   void* stream_ptr) {
+  if (column_capacity(G, Q) == 0) return static_cast<int>(cudaErrorInvalidValue);
+  return forward_call<9>(rel, rot6, feats, idx, mask, proj, bias, w, live, out, scratch, B, M, N,
+                         K, G, F, Q, C, O, L, chunk, splits, use_bf16, stream_ptr);
+}
+
+// The standard conv: rel [B, M, K, 1, 3], feats [B, N, 1, C], proj [3, Q],
+// out [B, M, 1, O]; G = F = 1 and Q <= 32.
+extern "C" int se3_fused_std_fwd(const void* rel, const void* feats, const void* idx,
+                                 const void* mask, const void* proj, const void* bias,
+                                 const void* w, const void* live, void* out, void* scratch, int B,
+                                 int M, int N, int K, int Q, int C, int O, int L, int chunk,
+                                 int splits, int use_bf16, void* stream_ptr) {
+  if (Q > 32) return static_cast<int>(cudaErrorInvalidValue);
+  return forward_call<3>(rel, nullptr, feats, idx, mask, proj, bias, w, live, out, scratch, B, M,
+                         N, K, 1, 1, Q, C, O, L, chunk, splits, use_bf16, stream_ptr);
 }

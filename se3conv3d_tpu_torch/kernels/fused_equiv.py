@@ -15,6 +15,15 @@ the output and the parameter gradients are float32.  Gradients flow to
 ``feats``, ``P``, ``bias`` and ``W``; the geometry (``rel``, ``rot6``,
 ``idx``, ``mask``) gets none, as in the reference.
 
+The standard (non-equivariant) geometry is the same function with
+``rot6=None``: G = F = 1 and the D = 3 raw offsets ``rel [B, M, K, 1, 3]``
+as the pne inputs, ``P = proj_axes [3, Q]`` (all three rows scaled by the
+caller), as the TPU kernels compute it for
+``se3conv3d_tpu/ops/pne_conv.py:fused_conv``.  The pne input width D is
+9 with ``rot6`` and 3 without (``proj_axes`` is ``[D, Q]``); the kernels
+take the standard geometry in their ``kD = 3`` instantiations, at
+G*Q <= 32 (:data:`STD_MAX_Q`).
+
 bfloat16 operands follow the TPU kernels' bf16 path (the ``cdt`` argument
 of ``se3conv3d_tpu/ops/pallas/fused_equiv.py:_fwd_kernel`` /
 ``_bwd_kernel``): every sum is float32, and values are rounded to bfloat16
@@ -90,7 +99,8 @@ never widened to reuse the float32 kernels) and run
 ``fused_equiv_fwd_reference`` / ``fused_equiv_bwd_reference`` for CPU
 tensors, over every row whatever the live-row table; there is no other
 fallback.  Each counts its launches (``launches``, ``bf16_launches`` for
-those with bfloat16 operands, and ``launches_by_g`` by out-frame count).
+those with bfloat16 operands, ``launches_by_g`` by out-frame count and
+``launches_by_d`` by pne input width: 9 equivariant, 3 standard).
 ``fused_equiv`` is the differentiable op.  Each kernel source is built
 with ``nvcc`` for ``sm_90a`` at its first launch (``kernels/build.py``).
 
@@ -126,6 +136,7 @@ __all__ = [
     "MAX_G",
     "MAX_GQ",
     "MAX_EDGES",
+    "STD_MAX_Q",
     "FWD_SCRATCH_BYTES",
     "OPERAND_DTYPES",
 ]
@@ -139,8 +150,12 @@ OPERAND_DTYPES = (torch.float32, torch.bfloat16)
 # G*Q <= MAX_GQ
 MAX_G, MAX_GQ = 4, 128
 # the basis pass keeps one row's K*F pne rows in a warp's shared memory:
-# the most K*F that fits, by column capacity (about 227 KB / (4 * 129) at 128)
+# the most K*F that fits, by column capacity (about 227 KB / (4 * 129) at 128;
+# the standard geometry's smaller projection leaves at least as much room)
 MAX_EDGES = {64: 768, 128: 432}
+# the standard geometry's instantiation (kD = 3) has the narrow basis tile
+# only: G = 1 and Q <= 32 (every recipe's num_basis)
+STD_MAX_Q = 32
 # the forward walks its live rows in chunks whose scratch (basis rows and
 # depth-split partials) stays within this many bytes
 FWD_SCRATCH_BYTES = 128 << 20
@@ -169,15 +184,17 @@ def _rounding(dtype):
 
 
 def _wide(x):
-    """A bfloat16 operand widened to float32; any other as it is."""
-    return x.float() if x.dtype == torch.bfloat16 else x
+    """A bfloat16 operand widened to float32; any other (or None) as it is."""
+    return x.float() if x is not None and x.dtype == torch.bfloat16 else x
 
 
-def _edge_geometry(rel, rot6):
-    """``[B, M, K, G, F, 9]`` pne inputs: offsets repeated over in-frames."""
+def _edge_geometry(rel, rot6, f):
+    """``[B, M, K, G, F, D]`` pne inputs: offsets repeated over the ``f``
+    in-frames, then the 6D relative rotations (D = 9), or the offsets
+    alone where ``rot6`` is None (D = 3)."""
     b, m, k, g, _ = rel.shape
-    f = rot6.shape[4]
-    return torch.cat([rel[:, :, :, :, None, :].expand(b, m, k, g, f, 3), rot6], -1)
+    offsets = rel[:, :, :, :, None, :].expand(b, m, k, g, f, 3)
+    return offsets if rot6 is None else torch.cat([offsets, rot6], -1)
 
 
 def _gather(feats, idx, mask):
@@ -188,9 +205,11 @@ def _gather(feats, idx, mask):
 
 def fused_equiv_fwd_reference(rel, rot6, feats, idx, mask, proj_axes, proj_biases, conv_weights):
     """Plain PyTorch version of the forward kernel (same arguments, same
-    result, rounding where the kernel rounds: :func:`_rounding`)."""
+    result, rounding where the kernel rounds: :func:`_rounding`; ``rot6``
+    None for the standard geometry)."""
     rnd = _rounding(feats.dtype)
-    pre = _edge_geometry(_wide(rel), _wide(rot6)) @ rnd(proj_axes) + rnd(proj_biases)
+    geo = _edge_geometry(_wide(rel), _wide(rot6), feats.shape[2])
+    pre = geo @ rnd(proj_axes) + rnd(proj_biases)
     pne = rnd(F.gelu(pre))  # [B,M,K,G,F,Q], exact erf
     basis = rnd(torch.einsum("bmkfc,bmkgfq->bmgcq", _gather(_wide(feats), idx, mask), pne))
     return torch.einsum("bmgcq,cqo->bmgo", basis, rnd(conv_weights))
@@ -243,7 +262,7 @@ def fused_equiv_bwd_reference(rel, rot6, feats, idx, mask, proj_axes, proj_biase
     takes it (``se3conv3d_tpu/ops/pallas/fused_equiv.py:_act_and_grad``).
     """
     rnd = _rounding(feats.dtype)
-    geo = _edge_geometry(_wide(rel), _wide(rot6))
+    geo = _edge_geometry(_wide(rel), _wide(rot6), feats.shape[2])
     pre = geo @ rnd(proj_axes) + rnd(proj_biases)
     pne = rnd(F.gelu(pre))
     dact = 0.5 * (1.0 + torch.erf(pre * math.sqrt(0.5))) + pre * torch.exp(-0.5 * pre * pre) / math.sqrt(2.0 * math.pi)
@@ -267,8 +286,12 @@ def fused_equiv_bwd_reference(rel, rot6, feats, idx, mask, proj_axes, proj_biase
 
 
 def _check(rel, rot6, feats, idx, mask, proj_axes, proj_biases, conv_weights):
+    """The kernels' contract; returns ``(B, M, N, K, G, F, Q, C, O, D)``
+    (D: 9 pne inputs with ``rot6``, 3 without: the standard geometry)."""
     tensors = dict(rel=rel, rot6=rot6, feats=feats, idx=idx, mask=mask,
                    proj_axes=proj_axes, proj_biases=proj_biases, conv_weights=conv_weights)
+    if rot6 is None:
+        del tensors["rot6"]
     dev = feats.device
     for name, t in tensors.items():
         if t.device != dev:
@@ -277,7 +300,7 @@ def _check(rel, rot6, feats, idx, mask, proj_axes, proj_biases, conv_weights):
             raise ValueError(f"{name} must be contiguous")
     if feats.dtype not in OPERAND_DTYPES:
         raise TypeError(f"feats must be float32 or bfloat16, got {feats.dtype}")
-    for name in ("rel", "rot6"):
+    for name in ("rel", "rot6")[: 1 if rot6 is None else 2]:
         if tensors[name].dtype != feats.dtype:
             raise TypeError(f"{name} must have the dtype of feats ({feats.dtype}), got {tensors[name].dtype}")
     for name in ("proj_axes", "proj_biases", "conv_weights"):
@@ -291,26 +314,31 @@ def _check(rel, rot6, feats, idx, mask, proj_axes, proj_biases, conv_weights):
     bn, n, f, c = feats.shape
     q = proj_biases.shape[0]
     o = conv_weights.shape[2]
+    d = 3 if rot6 is None else 9
     want = {
         "rel": (b, m, k, g, 3),
         "rot6": (b, m, k, g, f, 6),
         "feats": (b, n, f, c),
         "idx": (b, m, k),
         "mask": (b, m, k),
-        "proj_axes": (9, q),
+        "proj_axes": (d, q),
         "proj_biases": (q,),
         "conv_weights": (c, q, o),
     }
     for name, shape in want.items():
-        if tuple(tensors[name].shape) != shape:
-            raise ValueError(f"{name} has shape {tuple(tensors[name].shape)}, expected {shape}")
+        if name in tensors and tuple(tensors[name].shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(tensors[name].shape)}, expected {shape}"
+                             + (" (the standard geometry: no rot6)" if rot6 is None else ""))
+    if rot6 is None and ((g, f) != (1, 1) or q > STD_MAX_Q):
+        raise ValueError(f"the standard geometry (no rot6) takes G = F = 1 and Q <= {STD_MAX_Q}, "
+                         f"got G={g}, F={f}, Q={q}")
     cols = column_capacity(g, q)
     if cols == 0:
         raise ValueError(f"kernel takes G <= {MAX_G} and G*Q <= {MAX_GQ}, got G={g}, Q={q}")
     if k * f > MAX_EDGES[cols]:
         raise ValueError(f"kernel takes K*F <= {MAX_EDGES[cols]} at G={g}, G*Q={g * q} "
                          f"({cols} pne columns), got K={k}, F={f}")
-    return b, m, n, k, g, f, q, c, o
+    return b, m, n, k, g, f, q, c, o, d
 
 
 def fused_equiv_fwd(
@@ -327,14 +355,17 @@ def fused_equiv_fwd(
     """Fused conv forward ``-> [B, M, G, O]`` float32, un-normalised.
 
     Args:
-      rel: ``[B, M, K, G, 3]`` edge offsets in the receiver frames.
-      rot6: ``[B, M, K, G, F, 6]`` 6D relative rotations.
+      rel: ``[B, M, K, G, 3]`` edge offsets in the receiver frames (the
+        standard geometry: ``[B, M, K, 1, 3]`` raw offsets).
+      rot6: ``[B, M, K, G, F, 6]`` 6D relative rotations, or None for the
+        standard geometry (G = F = 1).
       feats: ``[B, N, F, C]`` source features; ``rel``, ``rot6`` and
         ``feats`` are all float32 or all bfloat16 (the rounding points of
         the module note).
       idx / mask: ``[B, M, K]`` int64 neighbor indices and bool validity.
-      proj_axes: ``[9, Q]`` (offset rows pre-scaled); proj_biases ``[Q]``;
-        conv_weights ``[C, Q, O]``.
+      proj_axes: ``[9, Q]`` (offset rows pre-scaled), or ``[3, Q]`` for
+        the standard geometry; proj_biases ``[Q]``; conv_weights
+        ``[C, Q, O]``.
       live_rows: :func:`live_row_table` of ``mask`` on the device of
         ``feats``, as for :func:`fused_equiv_bwd` (see :func:`_live_rows`);
         built here, at the cost of one host synchronisation, when absent.
@@ -351,7 +382,7 @@ def fused_equiv_fwd(
         )
     if feats.device.type != "cuda":
         raise ValueError(f"unsupported device {feats.device}")
-    b, m, n, k, g, f, q, c, o = _check(
+    b, m, n, k, g, f, q, c, o, d = _check(
         rel, rot6, feats, idx, mask, proj_axes, proj_biases, conv_weights
     )
     dev = feats.device
@@ -366,28 +397,29 @@ def fused_equiv_fwd(
     lib.se3_fused_equiv_fwd_plan(n_live, g, q, c, o, FWD_SCRATCH_BYTES, feats.element_size(),
                                  ctypes.byref(chunk), ctypes.byref(splits), ctypes.byref(scratch))
     work = torch.empty(scratch.value, dtype=torch.uint8, device=dev)  # bytes
+    ptrs = (feats.data_ptr(), idx.data_ptr(), mask.data_ptr(), proj_axes.data_ptr(),
+            proj_biases.data_ptr(), conv_weights.data_ptr(), live_rows.data_ptr(), out.data_ptr(),
+            work.data_ptr())
+    plan = (n_live, chunk.value, splits.value, int(bf16), torch.cuda.current_stream(dev).cuda_stream)
     with torch.cuda.device(dev):
-        err = lib.se3_fused_equiv_fwd(
-            rel.data_ptr(), rot6.data_ptr(), feats.data_ptr(), idx.data_ptr(),
-            mask.data_ptr(), proj_axes.data_ptr(), proj_biases.data_ptr(),
-            conv_weights.data_ptr(), live_rows.data_ptr(), out.data_ptr(), work.data_ptr(),
-            b, m, n, k, g, f, q, c, o, n_live, chunk.value, splits.value, int(bf16),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
+        if rot6 is None:
+            err = lib.se3_fused_std_fwd(rel.data_ptr(), *ptrs, b, m, n, k, q, c, o, *plan)
+        else:
+            err = lib.se3_fused_equiv_fwd(rel.data_ptr(), rot6.data_ptr(), *ptrs,
+                                          b, m, n, k, g, f, q, c, o, *plan)
     if err != 0:
         raise RuntimeError(f"fused_equiv_fwd kernel launch failed: CUDA error {err}")
-    fused_equiv_fwd.launches += 1
-    fused_equiv_fwd.bf16_launches += bf16
-    fused_equiv_fwd.launches_by_g[g] = fused_equiv_fwd.launches_by_g.get(g, 0) + 1
+    _count(fused_equiv_fwd, bf16, g, d)
     return out
 
 
 def fused_equiv_bwd(rel, rot6, feats, idx, mask, proj_axes, proj_biases, conv_weights, gout,
                     sorted_slot=None, live_rows=None):
     """Fused conv backward: ``gout [B, M, G, O]`` float32, the cotangent of
-    the un-normalised output, ``-> (d_feats [B, N, F, C], d_proj_axes [9, Q],
+    the un-normalised output, ``-> (d_feats [B, N, F, C], d_proj_axes [D, Q],
     d_proj_biases [Q], d_conv_weights [C, Q, O])``, all float32 (with
-    bfloat16 operands ``d_feats`` sums the rounded per-edge rows).
+    bfloat16 operands ``d_feats`` sums the rounded per-edge rows; D = 9, or
+    3 for the standard geometry, ``rot6`` None).
 
     Same arguments as :func:`fused_equiv_fwd` plus ``gout``.  With
     ``sorted_slot [B, M*K]`` (int64, each edge's slot in source order) the
@@ -408,7 +440,7 @@ def fused_equiv_bwd(rel, rot6, feats, idx, mask, proj_axes, proj_biases, conv_we
         )
     if feats.device.type != "cuda":
         raise ValueError(f"unsupported device {feats.device}")
-    b, m, n, k, g, f, q, c, o = _check(
+    b, m, n, k, g, f, q, c, o, d = _check(
         rel, rot6, feats, idx, mask, proj_axes, proj_biases, conv_weights
     )
     if gout.device != feats.device or gout.dtype != torch.float32 or not gout.is_contiguous():
@@ -427,10 +459,10 @@ def fused_equiv_bwd(rel, rot6, feats, idx, mask, proj_axes, proj_biases, conv_we
     n_live = live_rows.numel()
     if n_live * g > _MAX_SCRATCH_ROWS:
         raise ValueError(f"kernel takes at most {_MAX_SCRATCH_ROWS} live rows x G, got {n_live * g}")
-    d_params = torch.zeros((10, q), dtype=torch.float32, device=dev)  # 9 proj rows + bias
+    d_params = torch.zeros((d + 1, q), dtype=torch.float32, device=dev)  # D proj rows + bias
     d_w = torch.zeros_like(conv_weights)
     if n_live == 0 or c == 0 or o == 0:
-        return d_feats, d_params[:9], d_params[9], d_w
+        return d_feats, d_params[:d], d_params[d], d_w
     lib = library("bwd")
     bf16 = feats.dtype == torch.bfloat16
     scratch, w_splits, p_blocks = ctypes.c_longlong(), ctypes.c_int(), ctypes.c_int()
@@ -438,34 +470,46 @@ def fused_equiv_bwd(rel, rot6, feats, idx, mask, proj_axes, proj_biases, conv_we
                                  ctypes.byref(w_splits), ctypes.byref(p_blocks))
     work = torch.empty(scratch.value, dtype=torch.uint8, device=dev)  # bytes
     w_part = torch.empty((w_splits.value, c * q * o), dtype=torch.float32, device=dev)
-    p_part = torch.empty((p_blocks.value, 10 * q), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        err = lib.se3_fused_equiv_bwd(
-            rel.data_ptr(), rot6.data_ptr(), feats.data_ptr(), idx.data_ptr(),
-            mask.data_ptr(), proj_axes.data_ptr(), proj_biases.data_ptr(),
-            conv_weights.data_ptr(), gout.data_ptr(), live_rows.data_ptr(),
+    p_part = torch.empty((p_blocks.value, (d + 1) * q), dtype=torch.float32, device=dev)
+    ptrs = (feats.data_ptr(), idx.data_ptr(), mask.data_ptr(), proj_axes.data_ptr(),
+            proj_biases.data_ptr(), conv_weights.data_ptr(), gout.data_ptr(), live_rows.data_ptr(),
             None if sorted_slot is None else sorted_slot.data_ptr(), d_feats.data_ptr(),
             d_params.data_ptr(), d_w.data_ptr(), work.data_ptr(), w_part.data_ptr(),
-            p_part.data_ptr(), b, m, n, k, g, f, q, c, o, n_live, w_splits.value,
-            p_blocks.value, int(bf16), torch.cuda.current_stream(dev).cuda_stream,
-        )
+            p_part.data_ptr())
+    plan = (n_live, w_splits.value, p_blocks.value, int(bf16),
+            torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):
+        if rot6 is None:
+            err = lib.se3_fused_std_bwd(rel.data_ptr(), *ptrs, b, m, n, k, q, c, o, *plan)
+        else:
+            err = lib.se3_fused_equiv_bwd(rel.data_ptr(), rot6.data_ptr(), *ptrs,
+                                          b, m, n, k, g, f, q, c, o, *plan)
     if err != 0:
         raise RuntimeError(f"fused_equiv_bwd kernel launch failed: CUDA error {err}")
-    fused_equiv_bwd.launches += 1
-    fused_equiv_bwd.bf16_launches += bf16
-    fused_equiv_bwd.launches_by_g[g] = fused_equiv_bwd.launches_by_g.get(g, 0) + 1
-    return d_feats, d_params[:9], d_params[9], d_w
+    _count(fused_equiv_bwd, bf16, g, d)
+    return d_feats, d_params[:d], d_params[d], d_w
+
+
+def _count(wrapper, bf16, g, d):
+    """One more kernel launch of ``wrapper``: all, bfloat16, by G and by D."""
+    wrapper.launches += 1
+    wrapper.bf16_launches += bf16
+    wrapper.launches_by_g[g] = wrapper.launches_by_g.get(g, 0) + 1
+    wrapper.launches_by_d[d] = wrapper.launches_by_d.get(d, 0) + 1
 
 
 # kernel launches so far (CPU calls do not count): all, those with bfloat16
-# operands, and all by G (out-frames: {G: launches}); callers may reset them
+# operands, all by G (out-frames: {G: launches}) and all by D (pne inputs:
+# 9 equivariant, 3 standard); callers may reset them
 fused_equiv_fwd.launches = fused_equiv_fwd.bf16_launches = 0
 fused_equiv_bwd.launches = fused_equiv_bwd.bf16_launches = 0
 fused_equiv_fwd.launches_by_g, fused_equiv_bwd.launches_by_g = {}, {}
+fused_equiv_fwd.launches_by_d, fused_equiv_bwd.launches_by_d = {}, {}
 
 
 class FusedEquivConv(torch.autograd.Function):
-    """:func:`fused_equiv_fwd` with :func:`fused_equiv_bwd` as its backward.
+    """:func:`fused_equiv_fwd` with :func:`fused_equiv_bwd` as its backward
+    (``rot6`` None: the standard geometry).
 
     Saves only its inputs (the lean-VJP residuals of
     ``se3conv3d_tpu/ops/pne_conv.py:_lean_equiv``) and the tables it is
@@ -508,7 +552,8 @@ class FusedEquivConv(torch.autograd.Function):
 
 def fused_equiv(rel, rot6, feats, idx, mask, proj_axes, proj_biases, conv_weights,
                 sort_tables=None, live_rows=None):
-    """Differentiable fused conv ``-> [B, M, G, O]`` (see :func:`fused_equiv_fwd`);
+    """Differentiable fused conv ``-> [B, M, G, O]`` (see :func:`fused_equiv_fwd`;
+    ``rot6`` None for the standard geometry);
     ``sort_tables = (sorted_slot, run_start, run_end)`` selects the 'sorted'
     feature-gradient reduction; ``live_rows`` is :func:`live_row_table` of
     ``mask``, built by the forward and again by the backward when absent."""

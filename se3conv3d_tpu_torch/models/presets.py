@@ -10,7 +10,12 @@ tests hold them equal to the files:
 - ``DFAUST_I_ROT_MC_2F_*``: ``configs/dfaust/dfaust_I_rot_MC_2F.yaml``;
 - ``DFAUST_I_ROT_MC_MIXF_*``: ``configs/dfaust/dfaust_I_rot_MC_mixF.yaml``;
 - ``SCANNET20_ROT_PCA_I_*``: ``configs/scannet/scannet20_rot_pca_I.yaml``;
-- ``SCANNET20_ROT_I_*``: ``configs/scannet/scannet20_rot_I.yaml``.
+- ``SCANNET20_ROT_I_*``: ``configs/scannet/scannet20_rot_I.yaml``;
+- the standard (non-equivariant) models: ``DFAUST_I_STANDARD_*``
+  (``configs/dfaust/dfaust_I_standard.yaml``), ``SCANNET20_STANDARD_I_*``
+  and ``SCANNET20_STANDARD_SO2_*`` (``configs/scannet/
+  scannet20_standard_{I,SO2}.yaml``, which differ only in ``log_folder``
+  and in their augmentation files, which the port does not read).
 """
 from __future__ import annotations
 
@@ -33,12 +38,18 @@ __all__ = [
     "DFAUST_I_ROT_MC_2F_TRAINING",
     "DFAUST_I_ROT_MC_MIXF_MODEL",
     "DFAUST_I_ROT_MC_MIXF_TRAINING",
+    "DFAUST_I_STANDARD_MODEL",
+    "DFAUST_I_STANDARD_TRAINING",
     "DFAUST_NUM_POINTS",
     "DFAUST_NUM_CLASSES",
     "SCANNET20_ROT_PCA_I_MODEL",
     "SCANNET20_ROT_PCA_I_TRAINING",
     "SCANNET20_ROT_I_MODEL",
     "SCANNET20_ROT_I_TRAINING",
+    "SCANNET20_STANDARD_I_MODEL",
+    "SCANNET20_STANDARD_I_TRAINING",
+    "SCANNET20_STANDARD_SO2_MODEL",
+    "SCANNET20_STANDARD_SO2_TRAINING",
     "SCANNET_SCENE_MAX_POINTS",
     "SCANNET_NUM_FEATURES",
     "SCANNET20_NUM_CLASSES",
@@ -118,6 +129,9 @@ DFAUST_I_ROT_MC_MIXF_TRAINING: Dict[str, Any] = {
     "batch_size": 16,
     "accum_grads": 2,
 }
+DFAUST_I_STANDARD_MODEL: Dict[str, Any] = {**_DFAUST_MODEL_BASE, "model": "FPNSegUNetMLPGeluFAUST"}
+DFAUST_I_STANDARD_TRAINING: Dict[str, Any] = {
+    **DFAUST_I_ROT_PCA_2F_TRAINING, "log_folder": "./logs/dfaust_standard_I"}
 DFAUST_NUM_POINTS = 4096   # Dataset.num_points of the recipe
 DFAUST_NUM_CLASSES = 20    # DFaust body-part labels
 
@@ -163,6 +177,17 @@ SCANNET20_ROT_I_MODEL: Dict[str, Any] = {
 }
 SCANNET20_ROT_I_TRAINING: Dict[str, Any] = {
     **SCANNET20_ROT_PCA_I_TRAINING, "log_folder": "./logs/scannet20_RotEq_I"}
+# the standard ScanNet recipes: the rot recipes' Model section without
+# RefFrames (bfloat16 convs), and their Training section but for log_folder
+SCANNET20_STANDARD_I_MODEL: Dict[str, Any] = {
+    **{k: v for k, v in SCANNET20_ROT_PCA_I_MODEL.items() if k != "RefFrames"},
+    "model": "FPNSegUNetMLPGeluScanNet",
+}
+SCANNET20_STANDARD_I_TRAINING: Dict[str, Any] = {
+    **SCANNET20_ROT_PCA_I_TRAINING, "log_folder": "./logs/scannet20_standard_I"}
+SCANNET20_STANDARD_SO2_MODEL: Dict[str, Any] = dict(SCANNET20_STANDARD_I_MODEL)
+SCANNET20_STANDARD_SO2_TRAINING: Dict[str, Any] = {
+    **SCANNET20_ROT_PCA_I_TRAINING, "log_folder": "./logs/scannet20_standard_SO2"}
 SCANNET_SCENE_MAX_POINTS = 120000  # Dataset.train_scene_max_pts of the recipe
 SCANNET_NUM_FEATURES = 6           # normals + rgb (se3conv3d_tpu/data/loaders.py:431)
 SCANNET20_NUM_CLASSES = 21         # 20 classes + unlabelled (loaders.py:319)
@@ -187,11 +212,11 @@ def _faust_spec(equivariant: bool) -> ModelSpec:
     )
 
 
-def _scannet_spec() -> ModelSpec:
-    """Reference ``FPNSegUNetScanNet`` (``seg_models.py:39-59``), equivariant:
-    no patch stem, five trunk levels."""
+def _scannet_spec(equivariant: bool) -> ModelSpec:
+    """Reference ``FPNSegUNetScanNet`` (``seg_models.py:39-59``): no patch
+    stem, five trunk levels."""
     return ModelSpec(
-        conv=ConvFactory(num_basis=32, pne_type="mlp_gelu", equivariant=True),
+        conv=ConvFactory(num_basis=32, pne_type="mlp_gelu", equivariant=equivariant),
         patch_num_levels=0,
         patch_num_features=(),
         patch_radius_scale=2.0,
@@ -206,10 +231,10 @@ def _scannet_spec() -> ModelSpec:
 
 
 SEG_PRESETS = {
-    # the standard (non-equivariant) conv is not ported yet: building it raises
     "FPNSegUNetMLPGeluFAUST": lambda: _faust_spec(False),
     "FPNSegUNetMLPGeluRotEqFAUST": lambda: _faust_spec(True),
-    "FPNSegUNetMLPGeluRotEqScanNet": _scannet_spec,
+    "FPNSegUNetMLPGeluScanNet": lambda: _scannet_spec(False),
+    "FPNSegUNetMLPGeluRotEqScanNet": lambda: _scannet_spec(True),
 }
 
 

@@ -1,6 +1,6 @@
-"""FPN segmentation U-Net (counterpart of ``se3conv3d_tpu/models/seg_unet.py``,
-equivariant path): encoder + FPN decoder + segmentation head, logits
-averaged over the output cloud's frames."""
+"""FPN segmentation U-Net (counterpart of ``se3conv3d_tpu/models/seg_unet.py``):
+encoder + FPN decoder + segmentation head; an equivariant model's logits
+are averaged over the output cloud's frames."""
 from __future__ import annotations
 
 from typing import Optional
@@ -28,8 +28,10 @@ def init_parameters(module: nn.Module, generator: Optional[torch.Generator] = No
 
 
 class FPNSegUNet(nn.Module):
-    """``model(hierarchy, features [B, N0, F, C], out_pc, calibrate=False,
-    drops=None) -> [B, M, num_classes]`` frame-averaged logits.
+    """``model(hierarchy, features, out_pc, calibrate=False, drops=None) ->
+    [B, M, num_classes]`` logits: the level-0 features are ``[B, N0, F, C]``
+    for an equivariant spec (the logits frame-averaged) and ``[B, N0, C]``
+    for a standard one.
 
     ``model.train()`` selects batch statistics in every BN and stochastic
     depth in every block; the DropPath keep masks then come from ``drops``.
@@ -61,4 +63,4 @@ class FPNSegUNet(nn.Module):
         x = self.seg_conv(hierarchy.levels[0], out_pc, x, neigh_out, calibrate)
         x = gelu_tanh(self.seg_norm(x, out_pc.mask))
         x = self.seg_linear(x)
-        return frame_pool(x, self.frame_pooling)
+        return frame_pool(x, self.frame_pooling) if s.equivariant else x

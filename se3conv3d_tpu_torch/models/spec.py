@@ -53,6 +53,11 @@ class ModelSpec:
     max_path_dec_drop: float = 0.0
     max_neighbors: int = 24
 
+    @property
+    def equivariant(self) -> bool:
+        """Whether the convs are the equivariant ones (frames per point)."""
+        return self.conv.equivariant
+
     def __post_init__(self):
         if self.conv_blocks is None:
             object.__setattr__(self, "conv_blocks", self.conv)
@@ -78,10 +83,13 @@ class NeighborhoodProvider:
 
     ``get(src, dst, radius, neigh_type, k)`` builds the table from level
     ``src`` to level ``dst`` once per key and attaches the layer-independent
-    edge geometry (``equiv_rel`` / ``equiv_rot``) that every conv on it
-    shares -- the reference's rot-tensor cache -- in the operand dtype of
-    the convs that read it (:func:`geometry_dtype_for`: bfloat16 halves it
-    for a bfloat16 spec; a conv of the other dtype rebuilds its own).
+    edge geometry that every conv on it shares -- the reference's rot-tensor
+    cache -- in the operand dtype of the convs that read it
+    (:func:`geometry_dtype_for`: bfloat16 halves it for a bfloat16 spec; a
+    conv of the other dtype rebuilds its own): ``equiv_rel`` / ``equiv_rot``
+    for an equivariant spec, the raw offsets ``std_rel`` for a standard one
+    (the JAX package gathers those per conv; the cache computes the same
+    function).
     Every neighborhood also gets the live-row table its convs' forwards
     and backwards walk (``live_rows``; one host synchronisation per
     neighborhood, whatever the grad mode).  In the 'sorted' backward mode, with autograd on, a self
@@ -110,9 +118,12 @@ class NeighborhoodProvider:
             )
         else:
             raise ValueError(f"unknown neighborhood type {neigh_type!r}")
-        rel, rot6 = ops.equiv_geometry_parts(src_pc, dst_pc, neigh, geo_dtype)
-        return dataclasses.replace(neigh, equiv_rel=rel, equiv_rot=rot6,
-                                   live_rows=live_row_table(neigh.mask))
+        if self.spec.equivariant:
+            rel, rot6 = ops.equiv_geometry_parts(src_pc, dst_pc, neigh, geo_dtype)
+            geometry = dict(equiv_rel=rel, equiv_rot=rot6)
+        else:
+            geometry = dict(std_rel=ops.std_geometry(src_pc, dst_pc, neigh, geo_dtype))
+        return dataclasses.replace(neigh, **geometry, live_rows=live_row_table(neigh.mask))
 
     def get(self, src: int, dst: int, radius: float, neigh_type: str, k: int) -> Neighborhood:
         key = (src, dst, round(float(radius), 9), neigh_type, k)

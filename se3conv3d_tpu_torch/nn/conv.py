@@ -1,11 +1,13 @@
 """Point convolution layer (counterpart of ``se3conv3d_tpu/nn/conv.py``).
 
-Ported: the locally SE(3)-equivariant conv with mlp_gelu point-neighborhood
-embeddings, 6D relative rotations and 'add' aggregation -- the conv of every
-DFaust recipe.  It runs through ``ops.pne_conv.fused_equiv_conv``, i.e. the
-CUDA kernel on the card and its plain version on the CPU, in float32 or,
-with ``compute_dtype`` bfloat16, with bfloat16 operands and float32 sums
-(the ScanNet recipes' ``compute_dtype: bfloat16``).
+Ported: the mlp_gelu conv with 'add' aggregation in both of its forms:
+the locally SE(3)-equivariant one with 6D relative rotations (the rot
+recipes), through ``ops.pne_conv.fused_equiv_conv``, and the standard
+(non-equivariant) one (the standard recipes), through
+``ops.pne_conv.fused_conv``; each runs the CUDA kernels on the card and
+their plain versions on the CPU, in float32 or, with ``compute_dtype``
+bfloat16, with bfloat16 operands and float32 sums (the ScanNet recipes'
+``compute_dtype: bfloat16``).
 
 Calibration buffers (the reference's pre-process epoch,
 ``IConvLayer.py:75-97``): ``norm_neigh_dist`` and ``norm_num_neighs`` start
@@ -31,18 +33,21 @@ __all__ = ["PNEConv", "ConvFactory"]
 
 
 def _check_supported(pne_type: str, equivariant: bool, rel_rot_type: str, aggregation: str):
-    if (pne_type, equivariant, rel_rot_type, aggregation) != ("mlp_gelu", True, "6D", "add"):
+    # the standard conv has no relative rotation: its rel_rot_type is unread
+    if (pne_type, aggregation) != ("mlp_gelu", "add") or (equivariant and rel_rot_type != "6D"):
         raise NotImplementedError(
-            "only the equivariant mlp_gelu / 6D / 'add' conv is ported, got "
+            "only the mlp_gelu / 'add' conv is ported (6D rotations where equivariant), got "
             f"pne_type={pne_type!r}, equivariant={equivariant}, "
             f"rel_rot_type={rel_rot_type!r}, aggregation={aggregation!r}"
         )
 
 
 class PNEConv(nn.Module):
-    """Equivariant point conv: ``features [B, N, F, C] -> [B, M, G, O]``.
+    """Point conv: ``features [B, N, F, C] -> [B, M, G, O]`` (equivariant)
+    or ``[B, N, C] -> [B, M, O]`` (standard).
 
-    Parameters ``proj_axes [9, Q]``, ``proj_biases [Q]`` and
+    Parameters ``proj_axes [9, Q]`` (equivariant: 3 offset rows and the 6D
+    rotation) or ``[3, Q]`` (standard), ``proj_biases [Q]`` and
     ``conv_weights [C, Q, O]`` (float32 whatever ``compute_dtype``);
     calibration buffers ``norm_neigh_dist``, ``norm_num_neighs``,
     ``initialized`` and ``trunc_frac``.
@@ -54,8 +59,9 @@ class PNEConv(nn.Module):
                  compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
         _check_supported(pne_type, equivariant, rel_rot_type, aggregation)
+        self.equivariant = equivariant
         self.compute_dtype = compute_dtype
-        self.proj_axes = nn.Parameter(torch.empty(9, num_basis))
+        self.proj_axes = nn.Parameter(torch.empty(9 if equivariant else 3, num_basis))
         self.proj_biases = nn.Parameter(torch.zeros(num_basis))
         self.conv_weights = nn.Parameter(torch.empty(in_features, num_basis, out_features))
         self.register_buffer("norm_neigh_dist", torch.ones(()))
@@ -99,7 +105,8 @@ class PNEConv(nn.Module):
                 neigh: Neighborhood, calibrate: bool = False) -> torch.Tensor:
         if calibrate:
             self._calibrate(pc_in, pc_out, neigh)
-        return ops.fused_equiv_conv(
+        conv = ops.fused_equiv_conv if self.equivariant else ops.fused_conv
+        return conv(
             pc_in, pc_out, neigh, features, self.proj_axes, self.proj_biases,
             self.conv_weights, self.norm_neigh_dist, self.norm_num_neighs, self.compute_dtype,
         )

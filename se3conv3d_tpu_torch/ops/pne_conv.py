@@ -1,5 +1,6 @@
 """Point-neighborhood-embedding conv ops (counterpart of
-``se3conv3d_tpu/ops/pne_conv.py``, equivariant mlp path).
+``se3conv3d_tpu/ops/pne_conv.py``, the fused mlp paths: the equivariant
+conv, :func:`fused_equiv_conv`, and the standard one, :func:`fused_conv`).
 
 Shape glossary: B batch, M query points, N source points, K neighbors,
 G out-frames, F in-frames, Q basis functions, C/O channels.  Geometry never
@@ -39,6 +40,8 @@ __all__ = [
     "equiv_geometry_parts",
     "equiv_basis_conv",
     "fused_equiv_conv",
+    "std_geometry",
+    "fused_conv",
     "backward_sort_tables",
     "sorted_backward",
     "BWD_SCATTER_MODE",
@@ -187,24 +190,89 @@ def fused_equiv_conv(
     converted (as the JAX package does, with a warning).
     """
     geo_dt = geometry_dtype(compute_dtype, features.dtype)
-    if neigh.equiv_rel is not None and neigh.equiv_rel.dtype == geo_dt:
+    if _serves(neigh.equiv_rel, geo_dt):
         rel, rot6 = neigh.equiv_rel, neigh.equiv_rot
     else:
-        if neigh.equiv_rel is not None:
-            warnings.warn(
-                f"cached edge geometry is {neigh.equiv_rel.dtype} but this conv computes in "
-                f"{geo_dt}; rebuilding it per conv: align compute_dtype across the convs that "
-                "share this neighborhood to share the cache", stacklevel=2)
         rel, rot6 = equiv_geometry_parts(pc_in, pc_out, neigh, geo_dt)
-    tables = None
-    if sorted_backward() and torch.is_grad_enabled() and features.requires_grad:
-        n_src = features.shape[1]
-        if neigh.bwd_slot is None or neigh.bwd_run_start.shape[1] != n_src:
-            neigh = backward_sort_tables(neigh, n_src)
-        tables = (neigh.bwd_slot, neigh.bwd_run_start, neigh.bwd_run_end)
     pa_scaled = torch.cat([proj_axes[:3] * norm_dist, proj_axes[3:]], 0)
     out = fused_equiv(
         rel, rot6, features.to(geo_dt).contiguous(), neigh.idx, neigh.mask,
-        pa_scaled, proj_biases.contiguous(), conv_weights.contiguous(), tables, neigh.live_rows,
+        pa_scaled, proj_biases.contiguous(), conv_weights.contiguous(),
+        _sort_tables(neigh, features), neigh.live_rows,
     )
     return (out * (norm_num_neighs / features.shape[2])).to(features.dtype)
+
+
+def _serves(cached: Optional[torch.Tensor], geo_dt: torch.dtype) -> bool:
+    """Whether a neighborhood's cached edge geometry ``cached`` serves a conv
+    whose operands are ``geo_dt``.  A cache of the other dtype is rebuilt
+    per conv, never converted (as the JAX package does), with a warning."""
+    if cached is None:
+        return False
+    if cached.dtype != geo_dt:
+        warnings.warn(
+            f"cached edge geometry is {cached.dtype} but this conv computes in "
+            f"{geo_dt}; rebuilding it per conv: align compute_dtype across the convs that "
+            "share this neighborhood to share the cache", stacklevel=3)
+    return cached.dtype == geo_dt
+
+
+def _sort_tables(neigh: Neighborhood, features: torch.Tensor):
+    """The sort tables ``(slot, run_start, run_end)`` of the 'sorted'
+    reduction where this conv's backward will run it (built here when the
+    neighborhood carries none for ``features``' source count), else None."""
+    if not (sorted_backward() and torch.is_grad_enabled() and features.requires_grad):
+        return None
+    n_src = features.shape[1]
+    if neigh.bwd_slot is None or neigh.bwd_run_start.shape[1] != n_src:
+        neigh = backward_sort_tables(neigh, n_src)
+    return neigh.bwd_slot, neigh.bwd_run_start, neigh.bwd_run_end
+
+
+@torch.no_grad()
+def std_geometry(pc_in: PointCloud, pc_out: PointCloud, neigh: Neighborhood,
+                 dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Per-edge geometry of the standard conv, ``[B, M, K, 1, 3]``: the raw
+    edge offsets ``pos_in[idx] - pos_out`` (unscaled: the layer's
+    ``norm_neigh_dist`` scales the projection), computed in float32 and
+    rounded once to ``dtype``, as ``se3conv3d_tpu/ops/pne_conv.py:
+    _std_geo_chunk`` packs them.  Layer-independent, so it is computed once
+    per neighborhood: the counterpart of :func:`equiv_geometry_parts`."""
+    rel = gather_rows(pc_in.positions, neigh.idx) - pc_out.positions[:, :, None, :]
+    return rel[:, :, :, None, :].to(dtype or rel.dtype).contiguous()
+
+
+def fused_conv(
+    pc_in: PointCloud,
+    pc_out: PointCloud,
+    neigh: Neighborhood,
+    features: torch.Tensor,
+    proj_axes: torch.Tensor,
+    proj_biases: torch.Tensor,
+    conv_weights: torch.Tensor,
+    norm_dist: torch.Tensor,
+    norm_num_neighs: torch.Tensor,
+    compute_dtype: Optional[torch.dtype] = None,
+) -> torch.Tensor:
+    """Standard (non-equivariant) mlp_gelu conv through the fused kernel:
+    ``features [B, N, C] -> [B, M, O]`` (``se3conv3d_tpu/ops/pne_conv.py:
+    fused_conv``).
+
+    The kernels' standard geometry: G = F = 1 (the features viewed as
+    ``[B, N, 1, C]``), the raw offsets (:func:`std_geometry`, the
+    neighborhood's cached ``std_rel`` when present) as the 3 pne inputs,
+    ``norm_dist`` folded into all three rows of ``proj_axes [3, Q]``, and
+    the output scaled by ``norm_num_neighs`` (there is no frame count to
+    divide by).  Gradients reach ``features``, ``proj_axes``,
+    ``proj_biases`` and ``conv_weights``; the calibration buffers get none.
+    ``compute_dtype``, the 'sorted' feature-gradient tables and the
+    live-row table as in :func:`fused_equiv_conv`.
+    """
+    geo_dt = geometry_dtype(compute_dtype, features.dtype)
+    rel = neigh.std_rel if _serves(neigh.std_rel, geo_dt) else std_geometry(pc_in, pc_out, neigh, geo_dt)
+    out = fused_equiv(
+        rel, None, features[:, :, None, :].to(geo_dt).contiguous(), neigh.idx, neigh.mask,
+        (proj_axes * norm_dist).contiguous(), proj_biases.contiguous(), conv_weights.contiguous(),
+        _sort_tables(neigh, features), neigh.live_rows,
+    )
+    return (out[:, :, 0] * norm_num_neighs).to(features.dtype)

@@ -668,3 +668,136 @@ def test_bf16_wrappers_reject_mixed_operand_dtypes():
     gout = torch.zeros(2, 300, 2, 32, device="cuda")
     with pytest.raises(ValueError):  # gout stays float32
         kfe.fused_equiv_bwd(*args, gout.to(torch.bfloat16))
+
+
+# --- the standard geometry (kD = 3: G = F = 1, the raw offsets, no rot6) -------
+
+STD_SHAPES = {
+    # name: B, M, N, K, Q, C, O, valid-edge fraction, live-prefix fraction
+    "std_dfaust_level1_like": (4, 2048, 2048, 32, 32, 32, 32, 0.7, 0.6),
+    "std_scannet_level0_like": (1, 8192, 8192, 24, 32, 64, 64, 0.7, 0.17),
+    "std_level4_like": (2, 128, 128, 32, 32, 256, 256, 0.7, 0.5),
+    "std_ragged_q16_unaligned": (3, 77, 50, 9, 16, 37, 70, 0.6, 0.8),
+}
+
+
+def _std_inputs(name, dtype):
+    """Seeded operands of the standard conv (``rot6`` None, ``proj_axes
+    [3, Q]``; rel and feats in ``dtype``) and ``gout``; the rows past each
+    example's live prefix are fully masked."""
+    b, m, n, k, q, c, o, frac, live = STD_SHAPES[name]
+    gen = torch.Generator(device="cuda").manual_seed(60 + sorted(STD_SHAPES).index(name))
+
+    def rnd(*s):
+        return torch.randn(*s, generator=gen, device="cuda")
+
+    mask = torch.rand(b, m, k, generator=gen, device="cuda") < frac
+    mask[:, int(live * m):] = False
+    idx = torch.where(mask, torch.randint(0, n, (b, m, k), generator=gen, device="cuda"), 0)
+    args = [(rnd(b, m, k, 1, 3) * 0.5).to(dtype), None, rnd(b, n, 1, c).to(dtype), idx, mask,
+            rnd(3, q) * 0.3, rnd(q) * 0.1, rnd(c, q, o) * (c * q) ** -0.5]
+    return args, torch.randn(b, m, 1, o, device="cuda", generator=gen)
+
+
+def _hold_std(got, ref, what, dtype, rtol, wide=None):
+    if dtype == torch.bfloat16:
+        _hold_bf16(got, ref, what, wide)
+        return
+    assert got.shape == ref.shape and torch.isfinite(got).all(), what
+    err = (got - ref).abs().max().item()
+    assert err <= rtol * max(ref.abs().max().item(), 1e-6), (what, err, ref.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("name", sorted(STD_SHAPES))
+def test_std_kernels_match_plain_versions(name, dtype):
+    """The kD = 3 instantiations against their plain versions: the forward
+    on the live rows (padded rows exactly zero, two calls bitwise equal),
+    the backward in both output modes with its parameter gradients ([3, Q]
+    projection) bitwise equal across modes and calls; each launch counted at
+    D = 3 (and as bfloat16 for bfloat16 operands); bfloat16 against the
+    plain version's bfloat16 rounding and apart from its float32 control."""
+    _needs_card()
+    args, gout = _std_inputs(name, dtype)
+    n = STD_SHAPES[name][2]
+    bf16 = dtype == torch.bfloat16
+    wide = [x.float() if i in (0, 2) else x for i, x in enumerate(args)] if bf16 else None
+    live = kfe.live_row_table(args[4])
+    tabs = _sort_tables(args[3], args[4], n)
+    before = (dict(kfe.fused_equiv_fwd.launches_by_d), dict(kfe.fused_equiv_bwd.launches_by_d),
+              kfe.fused_equiv_fwd.bf16_launches, kfe.fused_equiv_bwd.bf16_launches)
+    with torch.no_grad():
+        got = kfe.fused_equiv_fwd(*args, live_rows=live)
+        again = kfe.fused_equiv_fwd(*args, live_rows=live)
+    grads = kfe.fused_equiv_bwd(*args, gout, live_rows=live)
+    grads_again = kfe.fused_equiv_bwd(*args, gout, live_rows=live)
+    grads_s = kfe.fused_equiv_bwd(*args, gout, sorted_slot=tabs.bwd_slot, live_rows=live)
+    torch.cuda.synchronize()
+    fwd_d, bwd_d = kfe.fused_equiv_fwd.launches_by_d, kfe.fused_equiv_bwd.launches_by_d
+    assert fwd_d.get(3, 0) == before[0].get(3, 0) + 2 and fwd_d.get(9, 0) == before[0].get(9, 0)
+    assert bwd_d.get(3, 0) == before[1].get(3, 0) + 3 and bwd_d.get(9, 0) == before[1].get(9, 0)
+    assert (kfe.fused_equiv_fwd.bf16_launches, kfe.fused_equiv_bwd.bf16_launches) == (
+        before[2] + 2 * bf16, before[3] + 3 * bf16)
+    with torch.no_grad():
+        ref = kfe.fused_equiv_fwd_reference(*args)
+    _hold_std(got, ref, f"{name} forward", dtype, 1e-5,
+              kfe.fused_equiv_fwd_reference(*wide) if bf16 else None)
+    assert got.shape == (*args[4].shape[:2], 1, args[7].shape[2])
+    assert not got[~args[4].any(-1)].any()
+    assert torch.equal(got, again)
+    ref_b = kfe.fused_equiv_bwd_reference(*args, gout)
+    ref_s = kfe.fused_equiv_bwd_reference(*args, gout, sorted_slot=tabs.bwd_slot)
+    wide_b = kfe.fused_equiv_bwd_reference(*wide, gout) if bf16 else [None] * 4
+    wide_s = kfe.fused_equiv_bwd_reference(*wide, gout, sorted_slot=tabs.bwd_slot) if bf16 else [None]
+    assert tuple(grads[1].shape) == (3, STD_SHAPES[name][4])
+    for what, x, y, w in zip(BWD_OUTPUTS, grads, ref_b, wide_b):
+        _hold_std(x, y, f"{name} {what}", dtype, BWD_RTOL, w)
+    _hold_std(grads_s[0], ref_s[0], f"{name} sorted rows", dtype, BWD_RTOL, wide_s[0])
+    assert grads_s[0].dtype == dtype
+    for x, y, z in zip(grads[1:], grads_again[1:], grads_s[1:]):
+        assert torch.equal(x, y) and torch.equal(x, z)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sorted_mode", [False, True])
+def test_std_conv_function_launches_the_std_kernels(sorted_mode):
+    """Through the autograd Function with ``rot6`` None: one D = 3 forward
+    and backward launch, a prefix sum in 'sorted' mode, and gradients for
+    the features and the three parameters, on the card."""
+    _needs_card()
+    args, _ = _std_inputs("std_ragged_q16_unaligned", torch.float32)
+    tabs = _sort_tables(args[3], args[4], STD_SHAPES["std_ragged_q16_unaligned"][2])
+    for i in (2, 5, 6, 7):
+        args[i].requires_grad_()
+    before = (kfe.fused_equiv_fwd.launches_by_d.get(3, 0), kfe.fused_equiv_bwd.launches_by_d.get(3, 0),
+              segsum.blocked_cumsum.launches)
+    out = kfe.fused_equiv(*args, (tabs.bwd_slot, tabs.bwd_run_start, tabs.bwd_run_end) if sorted_mode else None)
+    out.square().sum().backward()
+    assert (kfe.fused_equiv_fwd.launches_by_d.get(3, 0), kfe.fused_equiv_bwd.launches_by_d.get(3, 0),
+            segsum.blocked_cumsum.launches) == (before[0] + 1, before[1] + 1, before[2] + sorted_mode)
+    assert all(args[i].grad is not None and args[i].grad.is_cuda for i in (2, 5, 6, 7))
+    assert tuple(args[5].grad.shape) == (3, STD_SHAPES["std_ragged_q16_unaligned"][4])
+
+
+@pytest.mark.cuda
+def test_std_wrappers_reject_what_the_std_kernels_do_not_take():
+    """Without rot6: a [9, Q] projection, G = 2 offsets, F = 2 features or
+    Q > 32 raise before any launch."""
+    _needs_card()
+    args, gout = _std_inputs("std_ragged_q16_unaligned", torch.float32)
+    q, c, o = STD_SHAPES["std_ragged_q16_unaligned"][4:7]
+    bad = [
+        [*args[:5], torch.zeros(9, q, device="cuda"), *args[6:]],
+        [args[0].expand(-1, -1, -1, 2, -1).contiguous(), *args[1:]],
+        [*args[:2], args[2].expand(-1, -1, 2, -1).contiguous(), *args[3:]],
+        [*args[:5], torch.zeros(3, 64, device="cuda"), torch.zeros(64, device="cuda"),
+         torch.zeros(c, 64, o, device="cuda")],
+    ]
+    before = kfe.fused_equiv_fwd.launches, kfe.fused_equiv_bwd.launches
+    for a in bad:
+        with pytest.raises(ValueError):
+            kfe.fused_equiv_fwd(*a)
+        with pytest.raises(ValueError):
+            kfe.fused_equiv_bwd(*a, gout)
+    assert (kfe.fused_equiv_fwd.launches, kfe.fused_equiv_bwd.launches) == before

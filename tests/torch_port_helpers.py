@@ -63,16 +63,19 @@ def jax_frame_draws(key, fcfg, batch: int, cap: int) -> torch.Tensor:
 
 def jax_hierarchy_draws(key, cfg, batch: int, n: int) -> HierarchyDraws:
     """The random numbers ``se3conv3d_tpu.core.hierarchy.build_hierarchy(key,
-    ...)`` draws, in the port's injected form."""
+    ...)`` draws, in the port's injected form (no frame draws where
+    ``cfg.frames`` is None: the standard models)."""
     num = cfg.num_levels
     keys = jax.random.split(key, 2 * num + 2)
     caps = cfg.resolve_capacities(n)
     out_cap = cfg.out_capacity or n
     rngs = jax.random.split(keys[num], batch)
+    framed = cfg.frames is not None
     return HierarchyDraws(
-        level_frames=[jax_frame_draws(keys[i], cfg.frames, batch, caps[i]) for i in range(num)],
+        level_frames=[jax_frame_draws(keys[i], cfg.frames, batch, caps[i]) for i in range(num)]
+        if framed else [],
         out_uniforms=t(jnp.stack([jax.random.uniform(r, (out_cap,)) for r in rngs])),
-        out_frames=jax_frame_draws(keys[num + 1], cfg.frames, batch, out_cap),
+        out_frames=jax_frame_draws(keys[num + 1], cfg.frames, batch, out_cap) if framed else None,
     )
 
 
