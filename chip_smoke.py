@@ -14,8 +14,10 @@ recipe is written (``compute_dtype: bfloat16``: the conv kernels' bfloat16
 operand path) and in float32 beside it; and the standard (non-equivariant)
 models of ``configs/dfaust/dfaust_I_standard.yaml`` and
 ``configs/scannet/scannet20_standard_I.yaml`` (bfloat16 convs), whose
-convs run both kernels' standard-geometry (kD = 3) instantiations.  In the
-order they run:
+convs run both kernels' standard-geometry (kD = 3) instantiations; and the
+ModelNet40 classification recipes
+``configs/modelnet40/modelnet40_{pca_2F,MC_2F,standard}.yaml`` (ClassNet,
+widths up to 512).  In the order they run:
 
 1. builds the three kernel sources (conv forward, conv backward, blocked
    prefix sum) from ``kernels/csrc`` with ``nvcc``, one process per source,
@@ -92,6 +94,28 @@ order they run:
     step at kD = 3, finite losses, moved BN means; card vs CPU parameter
     gradients at B=2 (phase 8's bound); the step time and peak beside
     phase 7's equivariant step;
+21. on 12 synthetic ModelNet40-like shapes of 4096 points (triangle meshes
+    of five families sampled by area, in the unit sphere, ones features,
+    labels 0..39; the fill per hierarchy level printed) holds both conv
+    kernels against their plain versions in float32 (the recipes' dtype)
+    at the level-5 block conv (B=12, M=N=256, K=32, G=F=2, C=O=512: product
+    depth C*Q = 16,384) at the shapes' fill and fully live, at
+    ``down_conv_3`` (N=512, C=256, O=512) and at the standard recipe's
+    level-5 block conv (kD = 3), with the gates of phases 2 and 6, each
+    timed beside its bound, its plain version and ``torch.matmul``, and
+    prints each conv's forward and backward plans (chunks, depth splits,
+    ``d_w`` splits, scratch) and the memory one call of each adds;
+22. runs ``modelnet40_pca_2F``, ``modelnet40_MC_2F`` and
+    ``modelnet40_standard`` as written, each built with
+    ``build_model_from_config`` (on the card by default) as a ClassNet with
+    the classification ``Trainer``: a calibration step and eval steps at
+    ``test_n_frames`` (25 forward launches per forward: 2 patch, 19 block,
+    4 down, all at G = F = 2 and kD = 9, or kD = 3), the logits unchanged
+    by a global rotation (with the frames left unrotated as the control;
+    equivariant recipes), card vs CPU logits at B=2; a fresh model trained
+    with the recipe's ``Training`` section (25 + 25 launches per step,
+    finite losses, every BN running mean moved; the step times and the
+    peak) and card vs CPU parameter gradients at B=2 (phase 8's bound);
 9. holds the conv kernels against their plain versions at the ScanNet
    level-0 and level-4 block convs and at a padded level-0 conv (the
    first 22,563 of 131,072 rows live, as the fullest synthetic room), in
@@ -105,7 +129,8 @@ order they run:
    live rows beside them;
 10. holds the prefix-sum kernel against its plain version on the sorted
     buffers of the ScanNet level-0 and level-4 block convs (level 0 in
-    bfloat16 too) and of the DFaust level-0 conv (B=32), checks that 10
+    bfloat16 too), of the DFaust level-0 conv (B=32) and of the ModelNet40
+    level-5 block conv (B=12, 1024 columns), checks that 10
     more calls give the same bits, times ``torch.cumsum`` and a float32
     copy of the same rows beside it with each shape's share of its bound,
     and holds ``sorted_segment_sum`` against ``index_add_`` on the same
@@ -143,7 +168,11 @@ order they run:
     step per feature-gradient mode on the 6 rooms (192 forward and 192
     backward bfloat16 kD = 3 launches, 192 prefix sums in sorted mode
     only), phase 14 on one room, and one scatter step under
-    ``torch.profiler`` (device ms per conv forward and backward pass).
+    ``torch.profiler`` (device ms per conv forward and backward pass);
+
+and last, one ``modelnet40_pca_2F`` train step under ``torch.profiler``
+(device ms by kernel, per conv pass, in PyTorch's reductions, and the idle
+share).
 
 Run from the repository root: ``python3 chip_smoke.py``.  Exits non-zero,
 printing no result, without a CUDA device or outside the repository.  The
@@ -575,14 +604,17 @@ BWD_PASSES = (("basis_kernel", (("basis_kernel<", ", true, "),)),
 WEIGHT_COPY_PASSES = (("round_bf16", (("round_bf16",),)),)
 # the prefix sum's single kernel ('sorted' mode only)
 CUMSUM_PASSES = (("scan_kernel", (("scan_kernel<",),)),)
+# PyTorch's reduction kernels (BN statistics, masked sums and means)
+REDUCTION_PASSES = (("reduce_kernel", (("reduce_kernel",),)),)
 
 
 def cumsum_cases() -> dict:
     """Phase 10's prefix-sum inputs, ``name: ((B, E, C), payload dtype)``.
     A conv's sorted buffer is ``[B, M*K, F*C]``: the ScanNet level-0 and
     level-4 block convs (level 0 in bfloat16 too, the recipe's compute
-    dtype), and the DFaust recipe's level-0 conv (capacity x max_neighbors
-    edges, in-frames x the level-0 width, B=32)."""
+    dtype), the DFaust recipe's level-0 conv (capacity x max_neighbors
+    edges, in-frames x the level-0 width, B=32) and the ModelNet40 recipes'
+    level-5 block conv (B=12, 512 channels x 2 in-frames)."""
     from se3conv3d_tpu_torch.models import presets
 
     cases = {name.replace("block_conv", "edges"): ((b, m * k, f * c), torch.float32)
@@ -592,6 +624,10 @@ def cumsum_cases() -> dict:
     width = presets.spec_from_model_dict(model).num_features[0]
     cases["dfaust_level0_edges"] = ((BATCH, model["capacities"][0] * model["max_neighbors"],
                                      model["RefFrames"]["train_n_frames"] * width), torch.float32)
+    model = presets.MODELNET40_PCA_2F_MODEL
+    width = presets.spec_from_model_dict(model).num_features[-1]
+    cases["modelnet_level5_edges"] = ((MN_BATCH, model["capacities"][-1] * model["max_neighbors"],
+                                       model["RefFrames"]["train_n_frames"] * width), torch.float32)
     return cases
 
 
@@ -1021,8 +1057,9 @@ def scannet_conv_cases() -> dict:
 
 def padded_conv_args(i, shp, n_live, dev, dtype=torch.float32) -> tuple:
     """The seeded operands (rel, rot6 and feats in ``dtype``) and ``gout`` of
-    the ``i``-th conv of phase 9 (``i`` < 10) or 15; rows past ``n_live``
-    (if given) of each example are padding, with no valid edge."""
+    the conv of seed index ``i`` (phase 9: ``i`` < 10; 15: 10-11; 18: 20-24;
+    21: 30-33); rows past ``n_live`` (if given) of each example are
+    padding, with no valid edge."""
     b, m, n, k, g, f, q, c, o = shp
     args = as_operands(conv_inputs(*shp, seed=40 + i, dev=dev), dtype)
     if n_live is not None:
@@ -1669,12 +1706,13 @@ def scannet_profile(card, trainer, batch, ops, modes=("scatter", "sorted"), name
             print(f"{name}:   {ms:9.2f} ms {n:6d}x {key[:110]}")
         cumsum = pass_ms(rows, CUMSUM_PASSES)
         copies = pass_ms(rows, WEIGHT_COPY_PASSES)
+        reductions = pass_ms(rows, REDUCTION_PASSES)
         for what, ps in (("forward", fwd_passes), ("backward", passes), ("prefix sum", cumsum),
-                         ("weights' bfloat16 copies", copies)):
+                         ("weights' bfloat16 copies", copies), ("PyTorch reductions", reductions)):
             print(f"{name} {dname}: mode {mode}: conv {what} {sum(ps.values()):.2f} ms: "
                   + ", ".join(f"{p} {ms:.2f}" for p, ms in ps.items()) + f" [{card}]", flush=True)
         out[mode] = dict(wall_ms=wall_ms, busy_ms=busy, fwd_passes_ms=fwd_passes, bwd_passes_ms=passes,
-                         cumsum_ms=cumsum, weight_copy_ms=copies,
+                         cumsum_ms=cumsum, weight_copy_ms=copies, reductions_ms=reductions,
                          top=[(k[:110], ms, n) for ms, n, k in rows[:14]])
     ops.BWD_SCATTER_MODE = "scatter"
     return out
@@ -2131,13 +2169,21 @@ def std_conv_kernels(card, dev, fill) -> dict:
     return out
 
 
-def check_by_d(label, kfe, fwd, bwd=0) -> None:
+def read_launches(kfe) -> tuple:
+    """The ``(forward, backward)`` conv kernel launches since the last
+    reset."""
+    return kfe.fused_equiv_fwd.launches, kfe.fused_equiv_bwd.launches
+
+
+def check_by_d(label, kfe, fwd, bwd=0, d=3, g=1) -> None:
     """Fails the run unless the launches since the last reset were ``fwd``
-    forward and ``bwd`` backward ones, all at the standard geometry."""
-    by_d = (dict(kfe.fused_equiv_fwd.launches_by_d), dict(kfe.fused_equiv_bwd.launches_by_d))
-    want = ({3: fwd} if fwd else {}, {3: bwd} if bwd else {})
-    if by_d != want:
-        raise SystemExit(f"{label}: launches by D fwd {by_d[0]} bwd {by_d[1]}, expected {want}")
+    forward and ``bwd`` backward ones, all at pne input width ``d`` and
+    ``g`` out-frames (by default the standard geometry)."""
+    got = tuple(dict(getattr(fn, attr)) for fn in (kfe.fused_equiv_fwd, kfe.fused_equiv_bwd)
+                for attr in ("launches_by_d", "launches_by_g"))
+    want = tuple({key: n} if n else {} for n in (fwd, bwd) for key in (d, g))
+    if got != want:
+        raise SystemExit(f"{label}: launches by D and G (fwd, fwd, bwd, bwd) {got}, expected {want}")
 
 
 def dfaust_standard(card, dev, batch, small, recorded_draws, equivariant) -> dict:
@@ -2225,7 +2271,432 @@ def scannet_standard(card, dev, recorded_draws, drop_path_draws) -> dict:
     return dict(eval=ev, train=train)
 
 
-def kernels_line(dfaust: dict, scan: dict, mixf: dict, rot_i: dict, g4: dict, std: dict) -> dict:
+# --- ModelNet40 classification (phases 21-22) -------------------------------------
+
+# the three ModelNet40 recipes; models.presets pins each as NAME_MODEL and
+# NAME_TRAINING, NAME the recipe's name in upper case
+MN_RECIPES = ("modelnet40_pca_2F", "modelnet40_MC_2F", "modelnet40_standard")
+# the recipes' batch_size of synthetic shapes and their classes; 25 convs per
+# forward (2 patch, 19 block, 4 down); eval steps and train steps per recipe
+MN_BATCH, MN_CLASSES, MN_CONVS = 12, 40, 25
+MN_EVAL_STEPS, MN_TRAIN_STEPS = 3, 4
+# phase 21's convs, name: ((B, M, N, K, G, F, Q, C, O), live rows per example:
+# "fill" (the synthetic shapes' fill of the queried level 5) or None (every row
+# live)): the level-5 block conv (512 -> 512 channels, product depth C*Q =
+# 16,384), the same fully live, down_conv_3 (256 -> 512, level 4 -> 5) and the
+# standard recipe's level-5 block conv (kD = 3)
+MN_SHAPES = {
+    "modelnet_level5_block_conv": ((MN_BATCH, 256, 256, 32, 2, 2, 32, 512, 512), "fill", 9),
+    "modelnet_level5_block_conv_live": ((MN_BATCH, 256, 256, 32, 2, 2, 32, 512, 512), None, 9),
+    "modelnet_down_conv_3": ((MN_BATCH, 256, 512, 32, 2, 2, 32, 256, 512), "fill", 9),
+    "modelnet_std_level5_block_conv": ((MN_BATCH, 256, 256, 32, 1, 1, 32, 512, 512), "fill", 3),
+}
+
+
+def _grid_faces(nu, nv, wrap_u=False, wrap_v=False):
+    """Triangles of an ``nu x nv`` vertex lattice (two per quad)."""
+    faces = []
+    for i in range(nu if wrap_u else nu - 1):
+        for j in range(nv if wrap_v else nv - 1):
+            a, b = i * nv + j, ((i + 1) % nu) * nv + j
+            c, d = ((i + 1) % nu) * nv + (j + 1) % nv, i * nv + (j + 1) % nv
+            faces += [(a, b, c), (a, c, d)]
+    return np.asarray(faces, np.int64)
+
+
+def _ellipsoid(a, b, c, n=12):
+    th, ph = np.meshgrid(np.linspace(0, np.pi, n), np.linspace(0, 2 * np.pi, 2 * n, endpoint=False),
+                         indexing="ij")
+    v = np.stack([np.sin(th) * np.cos(ph), np.sin(th) * np.sin(ph), np.cos(th)], -1).reshape(-1, 3)
+    return v * np.asarray((a, b, c)), _grid_faces(n, 2 * n, wrap_v=True)
+
+
+def _box(w, h, d):
+    v = np.array([(sx * w, sy * h, sz * d) for sx in (-0.5, 0.5) for sy in (-0.5, 0.5) for sz in (-0.5, 0.5)])
+    f = np.array([(0, 1, 3), (0, 3, 2), (4, 6, 7), (4, 7, 5), (0, 4, 5), (0, 5, 1),
+                  (2, 3, 7), (2, 7, 6), (0, 2, 6), (0, 6, 4), (1, 5, 7), (1, 7, 3)], np.int64)
+    return v, f
+
+
+def _cylinder(r, h, cone=False, n=24):
+    """Lateral surface and caps (a cone: apex at the top, bottom cap only)."""
+    ph = np.linspace(0, 2 * np.pi, n, endpoint=False)
+    lo = np.stack([r * np.cos(ph), r * np.sin(ph), np.full(n, -h / 2)], -1)
+    hi = np.tile([[0.0, 0.0, h / 2]], (n, 1)) if cone else lo + [0, 0, h]
+    v = np.concatenate([lo, hi, [[0, 0, -h / 2]], [[0, 0, h / 2]]])
+    faces = []
+    for i in range(n):
+        j = (i + 1) % n
+        faces += [(i, j, n + i), (j, i, 2 * n)]
+        if not cone:
+            faces += [(j, n + j, n + i), (n + i, n + j, 2 * n + 1)]
+    return v, np.asarray(faces, np.int64)
+
+
+def _torus(ring_r, tube_r, n=24, m=12):
+    th, ph = np.meshgrid(np.linspace(0, 2 * np.pi, n, endpoint=False),
+                         np.linspace(0, 2 * np.pi, m, endpoint=False), indexing="ij")
+    r = ring_r + tube_r * np.cos(ph)
+    v = np.stack([r * np.cos(th), r * np.sin(th), tube_r * np.sin(ph)], -1).reshape(-1, 3)
+    return v, _grid_faces(n, m, wrap_u=True, wrap_v=True)
+
+
+# five mesh families; a shape parameter s in [0, 1) sets the variant
+SHAPE_FAMILIES = (
+    lambda s: _ellipsoid(1.0, 0.4 + 0.6 * s, 0.3 + 0.3 * s),
+    lambda s: _box(1.0, 0.3 + 0.7 * s, 0.15 + 0.5 * s),
+    lambda s: _cylinder(0.2 + 0.4 * s, 1.2 - 0.6 * s),
+    lambda s: _cylinder(0.3 + 0.4 * s, 1.1 - 0.5 * s, cone=True),
+    lambda s: _torus(0.45, 0.08 + 0.12 * s),
+)
+
+
+def shape_batch(b: int, n: int, seed: int) -> dict:
+    """Synthetic ModelNet40-format batch: ``b`` triangle meshes of the
+    families above (label ``l``: family ``l % 5``, variant ``l // 5`` of 8,
+    each parameter jittered by U(0.9, 1.1)), ``n`` points each sampled
+    uniformly by triangle area (the sampler of ``experiments/
+    synthetic_shapes.py``), centred and scaled into the unit sphere as the
+    ModelNet40 files are; the loader's ones features, labels 0..39."""
+    rng = np.random.default_rng(seed)
+    labels = (np.arange(b) * 7 + 3) % MN_CLASSES
+    pts = np.empty((b, n, 3), np.float32)
+    for i, label in enumerate(labels):
+        verts, faces = SHAPE_FAMILIES[label % len(SHAPE_FAMILIES)](label // len(SHAPE_FAMILIES) / 8.0)
+        verts = verts * rng.uniform(0.9, 1.1, size=3)
+        tri = verts[faces]
+        e1, e2 = tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0]
+        area = 0.5 * np.linalg.norm(np.cross(e1, e2), axis=1)
+        pick = rng.choice(len(faces), n, p=area / area.sum())
+        u, v = rng.uniform(size=(2, n))
+        flip = u + v > 1
+        u, v = np.where(flip, 1 - u, u), np.where(flip, 1 - v, v)
+        p = tri[pick, 0] + u[:, None] * e1[pick] + v[:, None] * e2[pick]
+        p -= p.mean(0)
+        pts[i] = p / np.linalg.norm(p, axis=1).max()
+    return {
+        "positions": torch.from_numpy(pts),
+        "mask": torch.ones(b, n, dtype=torch.bool),
+        "features": torch.ones(b, n, 1),
+        "labels": torch.from_numpy(labels.astype(np.int64)),
+    }
+
+
+def modelnet_recipe(name: str) -> tuple:
+    """The pinned ``(Model, Training)`` sections of ModelNet40 recipe ``name``."""
+    from se3conv3d_tpu_torch.models import presets
+
+    return getattr(presets, f"{name.upper()}_MODEL"), getattr(presets, f"{name.upper()}_TRAINING")
+
+
+def conv_plan(shp, n_live, elem_bytes=4) -> dict:
+    """The forward's and backward's work plans of a conv of shape ``shp``
+    with ``n_live`` live rows (``se3_fused_equiv_fwd_plan`` /
+    ``se3_fused_equiv_bwd_plan``): rows per chunk, chunks, depth splits and
+    scratch bytes of the forward; scratch bytes, ``d_w`` row splits (and
+    their partials' bytes) and ``d_proj`` blocks of the backward."""
+    import ctypes
+
+    from se3conv3d_tpu_torch.kernels.build import library
+    from se3conv3d_tpu_torch.kernels.fused_equiv import FWD_SCRATCH_BYTES
+
+    _, _, _, _, g, _, q, c, o = shp
+    chunk, splits, fwd_scratch = ctypes.c_int(), ctypes.c_int(), ctypes.c_longlong()
+    library("fwd").se3_fused_equiv_fwd_plan(n_live, g, q, c, o, FWD_SCRATCH_BYTES, elem_bytes,
+                                            ctypes.byref(chunk), ctypes.byref(splits),
+                                            ctypes.byref(fwd_scratch))
+    bwd_scratch, w_splits, p_blocks = ctypes.c_longlong(), ctypes.c_int(), ctypes.c_int()
+    library("bwd").se3_fused_equiv_bwd_plan(n_live, g, q, c, o, elem_bytes, ctypes.byref(bwd_scratch),
+                                            ctypes.byref(w_splits), ctypes.byref(p_blocks))
+    return dict(chunk=chunk.value, chunks=-(-n_live // chunk.value), splits=splits.value,
+                fwd_scratch_mib=fwd_scratch.value / 2**20, bwd_scratch_mib=bwd_scratch.value / 2**20,
+                w_splits=w_splits.value, w_partials_mib=w_splits.value * c * q * o * 4 / 2**20,
+                p_blocks=p_blocks.value)
+
+
+def call_peak_mib(fn) -> float:
+    """Device memory that one call of ``fn`` adds at its peak, MiB."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del out
+    return peak / 2**20
+
+
+def modelnet_conv_kernels(card, dev, fill) -> dict:
+    """21. both conv kernels vs their plain versions at ``MN_SHAPES``
+    (float32, the recipes' dtype; the live rows ``fill[5]`` per example or
+    all), with the gates of phases 2 and 6: the forward bitwise equal over
+    two calls, the backward in both output modes with its parameter
+    gradients bitwise equal across modes and calls, each timed beside its
+    bound, its plain version and ``torch.matmul`` for its products
+    (:func:`forward_vs_plain`, :func:`backward_vs_plain`); each conv's
+    forward and backward plans and the memory one call of each adds."""
+    from se3conv3d_tpu_torch.kernels import fused_equiv as kfe
+
+    out = {}
+    for i, (name, (shp, rows, d)) in enumerate(MN_SHAPES.items()):
+        n_live = fill[5] if rows == "fill" else None
+        args, gout = padded_conv_args(30 + i, shp, n_live, dev)
+        if d == 3:
+            args[1], args[5] = None, args[5][:3].contiguous()
+        live = kfe.live_row_table(args[4])
+        plan = conv_plan(shp, live.numel())
+        with torch.no_grad():
+            plan["fwd_peak_mib"] = call_peak_mib(lambda: kfe.fused_equiv_fwd(*args, live_rows=live))
+        plan["bwd_peak_mib"] = call_peak_mib(lambda: kfe.fused_equiv_bwd(*args, gout, live_rows=live))
+        print(f"modelnet_conv_plan {name} B,M,N,K,G,F,Q,C,O={shp} kD={d}: {live.numel()} live rows; forward "
+              f"{plan['chunks']} chunk(s) of <= {plan['chunk']} rows, {plan['splits']} depth split(s) of "
+              f"C*Q = {shp[7] * shp[6]}, scratch {plan['fwd_scratch_mib']:.1f} MiB, one call's peak "
+              f"{plan['fwd_peak_mib']:.1f} MiB; backward scratch {plan['bwd_scratch_mib']:.1f} MiB, "
+              f"w_splits {plan['w_splits']} ({plan['w_partials_mib']:.1f} MiB of d_w partials), p_blocks "
+              f"{plan['p_blocks']}, one call's peak {plan['bwd_peak_mib']:.1f} MiB [{card}]", flush=True)
+        bounds = conv_bounds(shp, args[4], torch.float32, d=d)
+        reset_launches(kfe)
+        out[name] = dict(
+            plan=plan,
+            fwd=forward_vs_plain(card, f"modelnet_fwd_kernel_vs_plain {name}", shp, args, live,
+                                 bounds["fwd"], 100 + i),
+            bwd=backward_vs_plain(card, f"modelnet_bwd_kernel_vs_plain {name}", shp, args, gout, live,
+                                  bounds["bwd"], 105 + i),
+        )
+        by_d = [fn.launches_by_d for fn in (kfe.fused_equiv_fwd, kfe.fused_equiv_bwd)]
+        if any(set(x) != {d} for x in by_d):
+            raise SystemExit(f"phase 21 at {name}: launches by D {by_d}, expected kD = {d} only")
+        del args, gout, live
+        torch.cuda.empty_cache()
+    return out
+
+
+def modelnet_trainer(dev, model_dict, training, optimizer_steps=0):
+    """A classification ``Trainer`` of a fresh seeded model of ``model_dict``
+    (``build_model_from_config``, on the card by default) on the recipe's
+    hierarchy without an output subsample, with the optimizer of
+    ``training`` over ``optimizer_steps`` steps (none at 0)."""
+    from se3conv3d_tpu_torch.models import presets
+    from se3conv3d_tpu_torch.train import schedule
+    from se3conv3d_tpu_torch.train.trainer import Trainer
+
+    model = seeded_model(model_dict, dev, presets.MODELNET40_NUM_FEATURES, presets.MODELNET40_NUM_CLASSES)
+    hcfg = [presets.hierarchy_config_from_model_dict(model_dict, presets.MODELNET40_NUM_POINTS, train=t)
+            for t in (True, False)]
+    opt = (schedule.optimizer_from_training(model.parameters(), training, optimizer_steps)
+           if optimizer_steps else None)
+    return Trainer(model, *hcfg, label_smoothing=training["label_smoothing"], optimizer=opt)
+
+
+def seed_class_norm(trainer, batch, gen) -> None:
+    """``class_norm``'s running statistics from the pooled rows of one eval
+    forward on ``batch``, so the head sees unit-variance rows: at init
+    (mean 0, var 1) the pooled vectors, averages over hundreds of points and
+    frames, reach the head much smaller than the per-point features, and so
+    do the logits, too small for the rotation gate's control to show (a
+    degenerate init, as the skip gammas' of :func:`seed_gammas`)."""
+    rows = []
+    norm = trainer.model.class_norm
+    hook = norm.register_forward_hook(lambda mod, args, out: rows.append(args[0][:, 0].detach()))
+    try:
+        trainer.eval_step(batch, gen)
+    finally:
+        hook.remove()
+    with torch.no_grad():
+        norm.mean.copy_(rows[0].mean(0))
+        norm.var.copy_(rows[0].var(0))
+
+
+def modelnet_invariance_and_cpu(card, dev, trainer, small, label) -> dict:
+    """Phases 4-5 for a classification model on the two clouds of ``small``:
+    an equivariant model's logits unchanged by a global rotation of the
+    hierarchy (``ROT_ATOL``), and changed past it when the positions are
+    rotated and the frames are not (the control); the same model and
+    hierarchy on the CPU (plain path) within ``CPU_ATOL`` of the card."""
+    from se3conv3d_tpu_torch.core.hierarchy import Hierarchy, rotate_hierarchy
+    from se3conv3d_tpu_torch.core.pointcloud import PointCloud
+    from se3conv3d_tpu_torch.core.rotation import random_rotations
+
+    model = trainer.model.eval()
+    h, f0, _, _, _ = trainer.build(small, torch.Generator(device=dev).manual_seed(110), train=False)
+    out = {}
+    with torch.no_grad():
+        base = model(h, f0)
+        if model.spec.equivariant:
+            rot = random_rotations(1, generator=torch.Generator().manual_seed(111))[0].to(dev)
+            rotated = model(rotate_hierarchy(h, rot), f0)
+            unframed = model(Hierarchy(tuple(PointCloud(pc.positions @ rot.T, pc.mask, pc.frames)
+                                             for pc in h.levels), h.maps, h.levels_radii), f0)
+            out["rotation_max_abs_err"] = rot_err = (base - rotated).abs().max().item()
+            out["rotation_control"] = control = (base - unframed).abs().max().item()
+            print(f"{label}_invariance: max |logits - logits(rotated)| = {rot_err:.3e} (bound {ROT_ATOL}); "
+                  f"control, the positions rotated and the frames not: {control:.3e}; max |logits| "
+                  f"{base.abs().max().item():.3e} [{card}]", flush=True)
+            if not rot_err <= ROT_ATOL < control:
+                raise SystemExit(f"{label}: logits change under a global rotation, or the bound does not "
+                                 "tell a model that ignores the frames' rotation")
+        cpu_logits = copy.deepcopy(model).cpu()(h.to("cpu"), f0.cpu())
+        out["card_vs_cpu_max_abs_err"] = cpu_err = (base.cpu() - cpu_logits).abs().max().item()
+    print(f"{label}_card_vs_cpu: max |logits(card) - logits(cpu)| = {cpu_err:.3e} (bound {CPU_ATOL}), "
+          f"max |logits| = {base.abs().max().item():.3e} [{card}]", flush=True)
+    if not (tuple(base.shape) == (2, MN_CLASSES) and cpu_err <= CPU_ATOL):
+        raise SystemExit(f"{label}: card and CPU logits disagree")
+    return out
+
+
+def modelnet_run(card, dev, name, batch, small, recorded_draws) -> dict:
+    """22. ModelNet40 recipe ``name`` as written, on ``batch`` (the recipe's
+    batch_size of synthetic shapes): a calibration step, ``class_norm``
+    seeded (:func:`seed_class_norm`, one more forward) and eval steps at
+    ``test_n_frames`` (25 forward launches each, all at G = F and kD = 9,
+    or kD = 3 for the standard model), the logits' rotation invariance with
+    its control (equivariant recipes) and card vs CPU logits at B = 2; then
+    a fresh model trained with the recipe's ``Training`` section, 25 + 25
+    launches per step, finite losses, every BN running mean moved; card vs
+    CPU parameter gradients at B = 2 (phase 8's bound).  Returns the eval
+    and train-step times, peaks and gate readings, and the launches read
+    from the counters: ``eval_launches`` the forward ones of the two
+    calibration steps, the seed forward and the eval steps,
+    ``train_launches`` the train steps' ``(forward, backward)``."""
+    from se3conv3d_tpu_torch.kernels import fused_equiv as kfe
+    from se3conv3d_tpu_torch.nn.norm import MaskedBatchNorm
+
+    model_dict, training = modelnet_recipe(name)
+    frames = model_dict.get("RefFrames")
+    d, g = (9, frames["test_n_frames"]) if frames else (3, 1)
+    g_train = frames["train_n_frames"] if frames else 1
+    if training["batch_size"] != batch["mask"].shape[0]:
+        raise SystemExit(f"{name}: the batch is not the recipe's batch_size")
+    points = MN_BATCH * batch["mask"].shape[1]
+    trainer = modelnet_trainer(dev, model_dict, training)
+    model = trainer.model
+    print(f"{name}: {model_dict['model']}, RefFrames {frames}, max_drop_path {model_dict['max_drop_path']}; "
+          f"{sum(p.numel() for p in model.parameters())} parameters [{card}]", flush=True)
+    gen = torch.Generator(device=dev).manual_seed(112)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(kfe)
+    t0 = time.perf_counter()
+    trainer.calibration_step(batch, gen)
+    torch.cuda.synchronize()
+    calib_s = time.perf_counter() - t0
+    check_by_d(f"{name} calibration", kfe, MN_CONVS, 0, d, g_train)
+    forward_launches = [read_launches(kfe)]
+    reset_launches(kfe)
+    seed_class_norm(trainer, batch, gen)
+    check_by_d(f"{name} class_norm seed forward", kfe, MN_CONVS, 0, d, g)
+    forward_launches.append(read_launches(kfe))
+    reset_launches(kfe)
+    eval_s, outs = [], None
+    for _ in range(MN_EVAL_STEPS):
+        t0 = time.perf_counter()
+        outs = trainer.eval_step(batch, gen)
+        torch.cuda.synchronize()
+        eval_s.append(time.perf_counter() - t0)
+    eval_peak = torch.cuda.max_memory_allocated() / 2**30
+    check_by_d(f"{name} eval", kfe, MN_CONVS * MN_EVAL_STEPS, 0, d, g)
+    forward_launches.append(read_launches(kfe))
+    logits = outs["logits"]
+    print(f"{name}_eval: calibration_step {calib_s:.4f} s, eval_step {[round(x, 4) for x in eval_s]} s "
+          f"(median {statistics.median(eval_s):.4f} s, {points / statistics.median(eval_s):.1f} input "
+          f"points/s), peak {eval_peak:.3f} GiB, loss {float(outs['loss']):.4f}; (forward, backward) launches of the "
+          f"calibration, the seed forward and the eval steps {forward_launches}, at kD = {d}, G = {g} "
+          f"[{card}]", flush=True)
+    if tuple(logits.shape) != (MN_BATCH, MN_CLASSES) or not torch.isfinite(logits).all():
+        raise SystemExit(f"{name}: bad logits, shape {tuple(logits.shape)}")
+    if not all(bool(m.initialized) for m in model.modules() if hasattr(m, "initialized")):
+        raise SystemExit(f"{name}: a conv was not calibrated")
+    checks = modelnet_invariance_and_cpu(card, dev, trainer, small, name)
+    del trainer, model, outs, logits
+    torch.cuda.empty_cache()
+
+    trainer = modelnet_trainer(dev, model_dict, training, MN_TRAIN_STEPS)
+    opt = trainer.optimizer
+    print(f"{name}_train: Training max_lr {training['max_lr']} div_factor {training['div_factor']} "
+          f"final_div_factor {training['final_div_factor']} pct_start {training['pct_start']} clip_grads "
+          f"{opt.clip_grad_norm} label_smoothing {trainer.label_smoothing} weight_decay "
+          f"{opt.adamw.defaults['weight_decay']} [{card}]", flush=True)
+    bns = {n: mod for n, mod in trainer.model.named_modules() if isinstance(mod, MaskedBatchNorm)}
+    reset_launches(kfe)
+    trainer.calibration_step(batch, gen)
+    check_by_d(f"{name} train calibration", kfe, MN_CONVS, 0, d, g_train)
+    forward_launches.append(read_launches(kfe))
+    bn_before = {n: mod.mean.clone() for n, mod in bns.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_s, train_launches = [], []
+    for step in range(MN_TRAIN_STEPS):
+        lr = opt.lr
+        reset_launches(kfe)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = trainer.train_step(batch, gen)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        loss, gnorm = float(res["loss"]), float(res["grad_norm"])
+        print(f"{name}_train: step {step} lr {lr:.6e} loss {loss:.6f} grad_norm {gnorm:.6f} time "
+              f"{step_s[-1]:.4f} s [{card}]", flush=True)
+        check_by_d(f"{name} train step {step}", kfe, MN_CONVS, MN_CONVS, d, g_train)
+        train_launches.append(read_launches(kfe))
+        if not (np.isfinite(loss) and np.isfinite(gnorm)):
+            raise SystemExit(f"{name}: non-finite loss or gradients in a train step")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    still = [n for n, mod in bns.items() if torch.equal(mod.mean, bn_before[n])]
+    steady = statistics.median(step_s[1:])
+    print(f"{name}_train: train_step after the first, median {steady:.4f} s (all "
+          f"{[round(x, 4) for x in step_s]}), {points / steady:.1f} input points/s, peak {peak:.3f} GiB; "
+          f"(forward, backward) launches by step {train_launches} at kD = {d}, G = {g_train}; "
+          f"{len(bns) - len(still)} of "
+          f"{len(bns)} BN running means moved [{card}]", flush=True)
+    if still:
+        raise SystemExit(f"{name}: BN running mean did not move: {still[:5]}")
+    grads = dfaust_grads_card_vs_cpu(card, dev, trainer, small, recorded_draws, training, f"{name}_")
+    del trainer
+    torch.cuda.empty_cache()
+    return dict(eval_s=eval_s, eval_peak_gib=eval_peak, calib_s=calib_s, train_s=step_s, steady_s=steady,
+                peak_gib=peak, d=d, eval_launches=sum(f for f, _ in forward_launches),
+                train_launches=tuple(map(sum, zip(*train_launches))),
+                grads_card_vs_cpu=grads, **checks)
+
+
+def modelnet_profile(card, dev, batch) -> dict:
+    """One ``torch.profiler`` train step of ``modelnet40_pca_2F`` (a fresh
+    model, calibrated, after one unprofiled step): device ms by kernel, the
+    conv passes, the PyTorch reductions and the idle share
+    (:func:`scannet_profile`).  It runs last: a profiled run slows the
+    launches after it."""
+    from se3conv3d_tpu_torch.ops import pne_conv as ops
+
+    model_dict, training = modelnet_recipe("modelnet40_pca_2F")
+    trainer = modelnet_trainer(dev, model_dict, training, 2)
+    gen = torch.Generator(device=dev).manual_seed(113)
+    trainer.calibration_step(batch, gen)
+    trainer.train_step(batch, gen)
+    out = scannet_profile(card, trainer, batch, ops, ("scatter",), "modelnet_profile")
+    del trainer
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_modelnet(card, dev, recorded_draws) -> tuple:
+    """21.-22.: the shapes, their fill, the kernels at ModelNet's shapes and
+    the three recipes; returns ``(conv, runs, batch)``."""
+    from se3conv3d_tpu_torch.models import presets
+
+    if (presets.MODELNET40_NUM_CLASSES, presets.MODELNET40_NUM_POINTS) != (MN_CLASSES, POINTS):
+        raise SystemExit("the ModelNet40 phases do not run the recipes' classes and points")
+    batch = to_device(shape_batch(MN_BATCH, POINTS, seed=114), dev)
+    small = to_device(shape_batch(2, POINTS, seed=115), dev)
+    fill = mixf_fill(dev, batch, modelnet_recipe("modelnet40_pca_2F")[0])
+    print(f"modelnet: {MN_BATCH} synthetic shapes of {POINTS} points, labels "
+          f"{batch['labels'].tolist()}; max valid points per level {fill} of capacities "
+          f"{modelnet_recipe('modelnet40_pca_2F')[0]['capacities']} [{card}]", flush=True)
+    conv = modelnet_conv_kernels(card, dev, fill)
+    runs = {name: modelnet_run(card, dev, name, batch, small, recorded_draws) for name in MN_RECIPES}
+    return conv, runs, batch
+
+
+def kernels_line(dfaust: dict, scan: dict, mixf: dict, rot_i: dict, g4: dict, std: dict, mn: dict) -> dict:
     """The ``{"kernels": [...]}`` object: every kernel with its launches on
     the main paths, its error against its plain version, and its times at
     the ScanNet level-0 shape (float32), with the same for its bfloat16
@@ -2236,7 +2707,9 @@ def kernels_line(dfaust: dict, scan: dict, mixf: dict, rot_i: dict, g4: dict, st
     conv kernels' standard-geometry (kD = 3) instantiations, their launches
     on the standard paths of phases 19-20 and their times at the fully live
     ScanNet level-0 shape of phase 18 (every phase-18 shape under
-    ``"by_shape"``)."""
+    ``"by_shape"``); each conv entry's ModelNet40 launches (phase 22) are in
+    its ``launches``, and its times at phase 21's shapes, with their plans,
+    under ``"modelnet"``."""
     compared, bwd_compared = dfaust["fwd"], dfaust["bwd"]
     scan_conv, scan_cumsum, scan_train, scan_eval = scan["conv"], scan["cumsum"], scan["train"], scan["eval"]
     lvl0 = SCANNET_SHAPES["scannet_level0_block_conv"]
@@ -2255,6 +2728,10 @@ def kernels_line(dfaust: dict, scan: dict, mixf: dict, rot_i: dict, g4: dict, st
                 rot_i["eval"]["launches"] if which == 0 else 0)
             every["scannet20_rot_I_train_bfloat16_scatter"] = bf16["scannet20_rot_I_train_bfloat16_scatter"] = (
                 rot_i["train"]["scatter"]["launches"][which])
+            for name, run in mn["runs"].items():
+                if run["d"] == 9:
+                    every[f"{name}_eval"] = run["eval_launches"] if which == 0 else 0
+                    every[f"{name}_train"] = run["train_launches"][which]
         for dt in SCANNET_DTYPES:
             if which == 0:
                 every[f"scannet_eval_{dt}"] = scan_eval[dt]["launches"]
@@ -2266,6 +2743,19 @@ def kernels_line(dfaust: dict, scan: dict, mixf: dict, rot_i: dict, g4: dict, st
                 if dt == "bfloat16":  # every launch of this path is a bfloat16 one (gated)
                     bf16[f"scannet_train_{dt}_{mode}"] = n
         return every, bf16
+
+    def mn_entry(kind, lib_key, shapes):
+        """The kernel at phase 21's shapes ``shapes`` (float32), the first
+        one's times at the top."""
+        by_shape = {k: {**mn["conv"][k][kind], "plan": mn["conv"][k]["plan"]} for k in shapes}
+        x = by_shape[shapes[0]]
+        return {"max_abs_err": max(v["max_abs_err"] for v in by_shape.values()), "ms": x["ms"],
+                "plain_ms": x["plain_ms"], "bound_ms": x["bound_ms"], "bound_by": x["bound_by"],
+                "library_ms": x[lib_key], "at": f"{shapes[0]} B,M,N,K,G,F,Q,C,O={MN_SHAPES[shapes[0]][0]} "
+                "at the synthetic shapes' fill", "by_shape": by_shape}
+
+    mn_equiv = [k for k, v in MN_SHAPES.items() if v[2] == 9]
+    mn_std = [k for k, v in MN_SHAPES.items() if v[2] == 3]
 
     def conv_entry(kind, which, name, source, replaces, lib_key, lib_call):
         every, bf16_paths = paths(which)
@@ -2303,6 +2793,8 @@ def kernels_line(dfaust: dict, scan: dict, mixf: dict, rot_i: dict, g4: dict, st
                 "launches_by_g": {"dfaust_mixf_train": mixf["train_launches_by_g"][which]},
                 "float32": g4_entry("float32"), "bfloat16": g4_entry("bfloat16"),
             },
+            "modelnet": {"launches": sum(v for k, v in every.items() if k.startswith("modelnet40")),
+                         "float32": mn_entry(kind, lib_key, mn_equiv)},
         }
 
     def std_entry(kind, which, name, source, replaces, lib_key, lib_call):
@@ -2312,6 +2804,10 @@ def kernels_line(dfaust: dict, scan: dict, mixf: dict, rot_i: dict, g4: dict, st
                  "scannet_std_eval_bfloat16": ss["eval"]["launches"] if which == 0 else 0}
         for mode in SCANNET_F32_MODE_ORDER:
             every[f"scannet_std_train_bfloat16_{mode}"] = ss["train"][mode]["launches"][which]
+        for mname, run in mn["runs"].items():
+            if run["d"] == 3:
+                every[f"{mname}_eval"] = run["eval_launches"] if which == 0 else 0
+                every[f"{mname}_train"] = run["train_launches"][which]
         bf16_paths = {k: v for k, v in every.items() if "bfloat16" in k}  # gated: every launch bf16
         by_shape = {dt: {k: v[kind] for k, v in std["conv"][dt].items()} for dt in SCANNET_DTYPES}
         f0, b0 = (by_shape[dt]["scannet_std_level0_block_conv"] for dt in ("float32", "bfloat16"))
@@ -2330,6 +2826,8 @@ def kernels_line(dfaust: dict, scan: dict, mixf: dict, rot_i: dict, g4: dict, st
                 "bound_by": b0["bound_by"], "library_ms": b0[lib_key], "library_call": lib_call.format("bfloat16"),
                 "at": std_at, "by_shape": by_shape["bfloat16"],
             },
+            "modelnet": {"launches": sum(v for k, v in every.items() if k.startswith("modelnet40")),
+                         "float32": mn_entry(kind, lib_key, mn_std)},
         }
 
     cum_every, _ = paths(2)
@@ -2363,7 +2861,8 @@ def kernels_line(dfaust: dict, scan: dict, mixf: dict, rot_i: dict, g4: dict, st
                      "at": cum_at + " bfloat16 rows"},
         }], "scannet": {"eval": scan_eval, "train": scan_train, "grid_vs_brute": scan["grid"]},
         "dfaust": {"train_bf16": dfaust["bf16_train"]}, "dfaust_mixf": mixf, "scannet20_rot_I": rot_i,
-        "standard": {"dfaust": std["dfaust"], "scannet": std["scannet"]}}
+        "standard": {"dfaust": std["dfaust"], "scannet": std["scannet"]},
+        "modelnet40": {"runs": mn["runs"], "profile": mn["profile"]}}
 
 
 def main() -> int:
@@ -2486,13 +2985,20 @@ def main() -> int:
     del batch, small
     torch.cuda.empty_cache()
 
+    # 21.-22. the ModelNet40 classification recipes: the conv kernels at
+    # their shapes (512 channels), then the three recipes
+    mn_conv, mn_runs, mn_batch = run_modelnet(card, dev, RecordedDraws)
+
     scan = run_scannet(card, dev, RecordedDraws, DropPathDraws)
     # 20. the ScanNet standard recipe as written (bfloat16)
     std["scannet"] = scannet_standard(card, dev, RecordedDraws, DropPathDraws)
+    # the profiled ModelNet40 train step last: a profiled run slows the launches after it
+    mn = dict(conv=mn_conv, runs=mn_runs, profile=modelnet_profile(card, dev, mn_batch))
+    del mn_batch
     dfaust = dict(fwd=compared, bwd=bwd_compared, eval_launches=launches,
                   train_launches=dfaust_steps["launches"], bf16_train_launches=dfaust_bf16["bf16_launches"],
                   bf16_train=dfaust_bf16)
-    print(json.dumps(kernels_line(dfaust, scan, mixf, rot_i, g4, std)))
+    print(json.dumps(kernels_line(dfaust, scan, mixf, rot_i, g4, std, mn)))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

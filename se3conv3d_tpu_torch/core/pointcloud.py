@@ -18,6 +18,7 @@ __all__ = [
     "masked_mean",
     "masked_max",
     "masked_min",
+    "global_pool",
     "frame_pool",
     "gather_rows",
 ]
@@ -64,6 +65,14 @@ def masked_min(x: torch.Tensor, mask: torch.Tensor, dim: int) -> torch.Tensor:
     return filled.amin(dim)
 
 
+_POOLERS = {
+    "sum": masked_sum,
+    "avg": masked_mean,
+    "max": masked_max,
+    "min": masked_min,
+}
+
+
 @dataclasses.dataclass
 class PointCloud:
     """A batch of (optionally framed) padded point clouds.
@@ -91,6 +100,21 @@ class PointCloud:
             self.mask.to(device),
             None if self.frames is None else self.frames.to(device),
         )
+
+
+def global_pool(pc: PointCloud, x: torch.Tensor, method: str = "avg") -> torch.Tensor:
+    """Pool per-point features to one vector per batch element: ``x [B, N,
+    C]`` over N, ``[B, N, F, C]`` over N and F jointly, padded points left
+    out by ``pc.mask``.  An all-masked cloud gives 0 (``sum``, ``avg``) or
+    the dtype's most negative (``max``) or largest (``min``) value, as the
+    JAX package's masked reductions."""
+    if method not in _POOLERS:
+        raise ValueError(f"unknown pooling method {method!r}")
+    pool = _POOLERS[method]
+    if x.dim() == 4:
+        b, n, f, c = x.shape
+        return pool(x.reshape(b, n * f, c), pc.mask.repeat_interleave(f, dim=1), 1)
+    return pool(x, pc.mask, 1)
 
 
 def frame_pool(x: torch.Tensor, method: str = "avg") -> torch.Tensor:

@@ -1,4 +1,5 @@
-"""Segmentation model of the port (layout mirrors ``se3conv3d_tpu.models``)."""
-from .presets import SEG_PRESETS, get_model_spec
+"""Models of the port (layout mirrors ``se3conv3d_tpu.models``)."""
+from .class_net import ClassNet
+from .presets import CLASS_PRESETS, SEG_PRESETS, get_model_spec
 from .seg_unet import FPNSegUNet, init_parameters
 from .spec import ModelSpec, NeighborhoodProvider

@@ -1,5 +1,6 @@
-"""Segmentation model presets and the pinned recipes (counterpart of
-``se3conv3d_tpu/models/presets.py`` for the FAUST and ScanNet seg models).
+"""Model presets and the pinned recipes (counterpart of
+``se3conv3d_tpu/models/presets.py``: the FAUST and ScanNet segmentation
+models and the ModelNet40 classification nets).
 
 The pinned recipes are the ``Model`` and ``Training`` sections of YAML
 files under ``configs/`` as Python dicts, so the card needs no YAML reader;
@@ -15,7 +16,10 @@ tests hold them equal to the files:
   (``configs/dfaust/dfaust_I_standard.yaml``), ``SCANNET20_STANDARD_I_*``
   and ``SCANNET20_STANDARD_SO2_*`` (``configs/scannet/
   scannet20_standard_{I,SO2}.yaml``, which differ only in ``log_folder``
-  and in their augmentation files, which the port does not read).
+  and in their augmentation files, which the port does not read);
+- the ModelNet40 classification recipes: ``MODELNET40_PCA_2F_*``,
+  ``MODELNET40_MC_2F_*`` and ``MODELNET40_STANDARD_*``
+  (``configs/modelnet40/modelnet40_{pca_2F,MC_2F,standard}.yaml``).
 """
 from __future__ import annotations
 
@@ -30,6 +34,7 @@ from .spec import ModelSpec
 
 __all__ = [
     "SEG_PRESETS",
+    "CLASS_PRESETS",
     "DFAUST_I_ROT_PCA_2F_MODEL",
     "DFAUST_I_ROT_PCA_2F_TRAINING",
     "DFAUST_I_ROT_PCA_MIXF_MODEL",
@@ -54,6 +59,15 @@ __all__ = [
     "SCANNET_NUM_FEATURES",
     "SCANNET20_NUM_CLASSES",
     "SCANNET20_IGNORE_LABEL",
+    "MODELNET40_PCA_2F_MODEL",
+    "MODELNET40_PCA_2F_TRAINING",
+    "MODELNET40_MC_2F_MODEL",
+    "MODELNET40_MC_2F_TRAINING",
+    "MODELNET40_STANDARD_MODEL",
+    "MODELNET40_STANDARD_TRAINING",
+    "MODELNET40_NUM_POINTS",
+    "MODELNET40_NUM_FEATURES",
+    "MODELNET40_NUM_CLASSES",
     "get_model_spec",
     "spec_from_model_dict",
     "COMPUTE_DTYPES",
@@ -193,6 +207,53 @@ SCANNET_NUM_FEATURES = 6           # normals + rgb (se3conv3d_tpu/data/loaders.p
 SCANNET20_NUM_CLASSES = 21         # 20 classes + unlabelled (loaders.py:319)
 SCANNET20_IGNORE_LABEL = 0         # the loss skips unlabelled points (train/run.py:150)
 
+MODELNET40_PCA_2F_MODEL: Dict[str, Any] = {
+    "model": "ClassNetRotEquivMLPGELU19Former",
+    "max_drop_path": 0.2,
+    "init_subsample": 0.05,
+    "grid_subsamples": [0.05, 0.1, 0.2, 0.3, 0.4],
+    "capacities": [4096, 4096, 2048, 1024, 512, 256],
+    "max_neighbors": 32,
+    "RefFrames": {
+        "pca": True,
+        "neigh_method": "knn",
+        "neigh_kwargs": {"neigh_k": 16},
+        "fixed_axis": False,
+        "train_n_frames": 2,
+        "test_n_frames": 2,
+    },
+}
+MODELNET40_PCA_2F_TRAINING: Dict[str, Any] = {
+    "log_folder": "./logs/mn40_I_2F_pca_rot_equiv",
+    "num_epochs": 500,
+    "batch_size": 12,
+    "weight_decay": 0.0001,
+    "max_lr": 0.01,
+    "div_factor": 100.0,
+    "final_div_factor": 10000.0,
+    "pct_start": 0.02,
+    "clip_grads": 100.0,
+    "label_smoothing": 0.2,
+    "save_models_frequency": 20,
+    "val_freq": 5,
+}
+# the ModelNet40 recipes share their Model section but for the preset,
+# max_drop_path and RefFrames, and their Training section but for log_folder
+_MODELNET40_MODEL_BASE = {k: v for k, v in MODELNET40_PCA_2F_MODEL.items() if k != "RefFrames"}
+MODELNET40_MC_2F_MODEL: Dict[str, Any] = {
+    **_MODELNET40_MODEL_BASE,
+    "max_drop_path": 0.5,
+    "RefFrames": {"pca": False, "fixed_axis": False, "train_n_frames": 2, "test_n_frames": 2},
+}
+MODELNET40_MC_2F_TRAINING: Dict[str, Any] = {
+    **MODELNET40_PCA_2F_TRAINING, "log_folder": "./logs/mn40_MC_2F"}
+MODELNET40_STANDARD_MODEL: Dict[str, Any] = {**_MODELNET40_MODEL_BASE, "model": "ClassNetMLPGELU19Former"}
+MODELNET40_STANDARD_TRAINING: Dict[str, Any] = {
+    **MODELNET40_PCA_2F_TRAINING, "log_folder": "./logs/mn40_standard"}
+MODELNET40_NUM_POINTS = 4096   # Dataset.num_points of the recipes
+MODELNET40_NUM_FEATURES = 1    # the loader's ones features (se3conv3d_tpu/data/loaders.py:205,274)
+MODELNET40_NUM_CLASSES = 40
+
 
 def _faust_spec(equivariant: bool) -> ModelSpec:
     """Reference ``FPNSegUNetFAUST`` (``seg_models.py:16-36``)."""
@@ -230,6 +291,25 @@ def _scannet_spec(equivariant: bool) -> ModelSpec:
     )
 
 
+def _classnet19_spec(equivariant: bool, frame_pooling: Optional[str] = None) -> ModelSpec:
+    """Reference ``ClassNet19Former`` / ``...Max`` (``class_models.py:15-59``):
+    a patch stem and five trunk levels up to 512 channels, average pooling
+    over the points (after max pooling over the frames for ``...Max``)."""
+    return ModelSpec(
+        conv=ConvFactory(num_basis=32, pne_type="mlp_gelu", equivariant=equivariant),
+        patch_num_levels=1,
+        patch_num_features=(32,),
+        patch_radius_scale=2.0,
+        num_blocks=(2, 3, 4, 6, 4),
+        num_features=(32, 64, 128, 256, 512),
+        radius_scale=2.0,
+        radius_scale_blocks=2.0,
+        pooling_method="avg",
+        frame_pooling_method=frame_pooling,
+        max_neighbors=32,
+    )
+
+
 SEG_PRESETS = {
     "FPNSegUNetMLPGeluFAUST": lambda: _faust_spec(False),
     "FPNSegUNetMLPGeluRotEqFAUST": lambda: _faust_spec(True),
@@ -237,11 +317,19 @@ SEG_PRESETS = {
     "FPNSegUNetMLPGeluRotEqScanNet": lambda: _scannet_spec(True),
 }
 
+CLASS_PRESETS = {
+    "ClassNetMLPGELU19Former": lambda: _classnet19_spec(False),
+    "ClassNetRotEquivMLPGELU19Former": lambda: _classnet19_spec(True),
+    "ClassNetRotEquivMLPGELU19FormerMax": lambda: _classnet19_spec(True, frame_pooling="max"),
+}
+
 
 def get_model_spec(name: str, **overrides) -> ModelSpec:
-    if name not in SEG_PRESETS:
-        raise KeyError(f"unknown model preset {name!r}; available: {sorted(SEG_PRESETS)}")
-    spec = SEG_PRESETS[name]()
+    """A preset of either table by its reference model-class name."""
+    table = {**SEG_PRESETS, **CLASS_PRESETS}
+    if name not in table:
+        raise KeyError(f"unknown model preset {name!r}; available: {sorted(table)}")
+    spec = table[name]()
     return dataclasses.replace(spec, **overrides) if overrides else spec
 
 
@@ -299,13 +387,21 @@ def frame_config_from_dict(ref_frames: Optional[Dict[str, Any]],
 
 
 def hierarchy_config_from_model_dict(model: Dict[str, Any], num_points: int,
-                                     train: bool = True) -> HierarchyConfig:
-    """``Model`` section -> HierarchyConfig (explicit capacities only)."""
+                                     train: bool = True,
+                                     with_output: Optional[bool] = None) -> HierarchyConfig:
+    """``Model`` section -> HierarchyConfig (explicit capacities only), as
+    ``se3conv3d_tpu/train/config.py:hierarchy_config_from_model_dict``: a
+    section without ``output_subsample`` (the ModelNet40 recipes), or
+    ``with_output=False`` (the classification task), makes the raw cloud
+    the output cloud (``out_cell_size`` None)."""
+    out_cell = model.get("output_subsample")
+    if with_output is False:
+        out_cell = None
     return HierarchyConfig(
         init_cell_size=float(model["init_subsample"]),
         cell_sizes=tuple(float(c) for c in model["grid_subsamples"]),
         capacities=tuple(int(c) for c in model["capacities"]),
-        out_cell_size=float(model["output_subsample"]),
+        out_cell_size=None if out_cell is None else float(out_cell),
         out_capacity=int(model.get("out_capacity", num_points)),
         frames=frame_config_from_dict(model.get("RefFrames"), train),
     )

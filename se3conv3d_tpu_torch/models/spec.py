@@ -24,10 +24,14 @@ __all__ = ["ModelSpec", "NeighborhoodProvider", "geometry_dtype_for"]
 
 @dataclasses.dataclass(frozen=True)
 class ModelSpec:
-    """Architecture hyperparameters of the segmentation U-Net.
+    """Architecture hyperparameters of the segmentation U-Net and of the
+    classification net.
 
     ``max_neighbors`` is the static cap of the padded ball-query tables
     (the reference's ball query is unbounded; the nearest ones are kept).
+    ``pooling_method`` pools a classification net's last level over its
+    points, after ``frame_pooling_method`` (if set) has pooled its frames;
+    ``global_equiv_featurevector`` (set by no recipe) is not ported.
     """
 
     conv: ConvFactory
@@ -51,6 +55,9 @@ class ModelSpec:
     num_hidden_seg_head: int = 0
     max_path_drop: float = 0.2
     max_path_dec_drop: float = 0.0
+    pooling_method: str = "avg"
+    frame_pooling_method: Optional[str] = None
+    global_equiv_featurevector: bool = False
     max_neighbors: int = 24
 
     @property

@@ -8,11 +8,12 @@ never falls back to the CPU.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Union
 
 import torch
 
-from ..models.presets import spec_from_model_dict
+from ..models.class_net import ClassNet
+from ..models.presets import CLASS_PRESETS, spec_from_model_dict
 from ..models.seg_unet import FPNSegUNet
 
 __all__ = ["build_model_from_config"]
@@ -20,8 +21,10 @@ __all__ = ["build_model_from_config"]
 
 def build_model_from_config(model_dict: Dict[str, Any], num_in_feats: int, num_classes: int,
                             device=None,
-                            generator: Optional[torch.Generator] = None) -> FPNSegUNet:
-    """``Model`` section -> an ``FPNSegUNet`` on ``device`` (default: the
+                            generator: Optional[torch.Generator] = None
+                            ) -> Union[FPNSegUNet, ClassNet]:
+    """``Model`` section -> an ``FPNSegUNet`` (a segmentation preset) or a
+    ``ClassNet`` (a classification preset) on ``device`` (default: the
     card), initialised from ``generator``.
 
     Reads the preset name, ``max_neighbors``, ``max_drop_path`` and
@@ -39,6 +42,6 @@ def build_model_from_config(model_dict: Dict[str, Any], num_in_feats: int, num_c
             raise RuntimeError("no CUDA device: the port runs on an NVIDIA GPU; "
                                "pass device='cpu' to run its plain PyTorch path on the CPU")
         device = "cuda"
-    model = FPNSegUNet(spec, num_in_feats=num_in_feats,
-                       num_classes=num_classes, generator=generator)
+    net = ClassNet if model_dict["model"] in CLASS_PRESETS else FPNSegUNet
+    model = net(spec, num_in_feats=num_in_feats, num_classes=num_classes, generator=generator)
     return model.to(device)

@@ -1,8 +1,12 @@
-"""Calibration, train and eval steps (counterpart of the segmentation path
-of ``se3conv3d_tpu/train/trainer.py``).
+"""Calibration, train and eval steps (counterpart of
+``se3conv3d_tpu/train/trainer.py``), for segmentation and classification.
 
 A batch is a dict of tensors: ``positions [B, N, 3]``, ``mask [B, N]``,
-``features [B, N, C]`` and optionally ``labels [B, N]``.  Each step builds
+``features [B, N, C]`` and optionally ``labels``: ``[B, N]`` per point for
+segmentation, ``[B]`` per cloud for classification.  A classification
+model takes no output cloud: its hierarchy is built without labels, and
+its loss is the cross entropy of its ``[B, classes]`` logits over the
+clouds that hold a point (a filler cloud with none counts for nothing).  Each step builds
 the hierarchy (random draws from ``generator``, or injected ``draws``) and
 repeats the level-0 features over the frames.  Calibration and eval run the
 model in eval mode without autograd; the train step runs it in train mode
@@ -34,8 +38,9 @@ import numpy as np
 import torch
 
 from ..core.hierarchy import HierarchyConfig, HierarchyDraws, build_hierarchy
+from ..models.class_net import ClassNet
 from ..nn.blocks import DropPathDraws
-from .losses import masked_segmentation_loss_parts
+from .losses import classification_loss_parts, masked_segmentation_loss_parts
 from .schedule import Optimizer
 
 __all__ = ["Trainer", "draw_n_frames"]
@@ -52,23 +57,29 @@ def draw_n_frames(mix: Dict[int, float], rng: np.random.Generator) -> int:
 
 
 class Trainer:
-    """Steps of one (segmentation model, hierarchy config, optimizer).
+    """Steps of one (model, hierarchy config, optimizer).
 
     Args:
-      model: an ``FPNSegUNet``; its parameters, BN statistics and
-        calibration buffers are the state the steps read and update.
+      model: an ``FPNSegUNet`` (the segmentation task) or a ``ClassNet``
+        (the classification task, ``self.task``); its parameters, BN
+        statistics and calibration buffers are the state the steps read
+        and update.
       hierarchy_config: used by the calibration and train steps.
       eval_hierarchy_config: used by the eval step (default: the same).
       label_smoothing / ignore_label: loss settings.
       optimizer: ``train.schedule.Optimizer`` over the model's parameters;
         needed by :meth:`train_step` only.
-      scan_scenes: scene-sequential train steps (see the module docstring).
+      scan_scenes: scene-sequential train steps (see the module docstring);
+        segmentation only, as in every recipe.
     """
 
     def __init__(self, model, hierarchy_config: HierarchyConfig,
                  eval_hierarchy_config: Optional[HierarchyConfig] = None,
                  label_smoothing: float = 0.0, ignore_label: Optional[int] = None,
                  optimizer: Optional[Optimizer] = None, scan_scenes: bool = False):
+        self.task = "classification" if isinstance(model, ClassNet) else "segmentation"
+        if scan_scenes and self.task == "classification":
+            raise ValueError("scan_scenes is a segmentation option: no classification recipe sets it")
         self.model = model
         self.device = next(model.parameters()).device
         self.scan_scenes = scan_scenes
@@ -83,21 +94,35 @@ class Trainer:
               draws: Optional[HierarchyDraws] = None, train: bool = True,
               n_frames: Optional[int] = None):
         """Hierarchy, frame-repeated level-0 features, output cloud, output
-        labels and the raw -> output subsample map; ``n_frames`` replaces the
-        config's frame count."""
+        labels (classification: the batch's per-cloud labels) and the raw ->
+        output subsample map; ``n_frames`` replaces the config's frame
+        count."""
         hcfg = self.hcfg if train else self.eval_hcfg
         if n_frames is not None and hcfg.frames is not None:
             hcfg = dataclasses.replace(hcfg, frames=hcfg.frames.with_n_frames(n_frames))
         batch = {k: v.to(self.device) for k, v in batch.items()}
+        seg = self.task == "segmentation"
         h, f0, out_pc, out_labels, raw_to_out = build_hierarchy(
             batch["positions"], batch["mask"], batch.get("features"), hcfg,
-            batch.get("labels"), generator=generator, draws=draws,
+            batch.get("labels") if seg else None, generator=generator, draws=draws,
         )
+        if not seg:
+            out_labels = batch.get("labels")
         if hcfg.frames is not None and f0 is not None:
             f0 = f0[:, :, None, :].repeat(1, 1, hcfg.frames.n_frames, 1)
         return h, f0, out_pc, out_labels, raw_to_out
 
+    def _forward(self, h, f0, out_pc, **kwargs):
+        """The model on a built hierarchy (a classification model takes no
+        output cloud)."""
+        if self.task == "segmentation":
+            return self.model(h, f0, out_pc, **kwargs)
+        return self.model(h, f0, **kwargs)
+
     def _loss_parts(self, logits, out_labels, out_pc):
+        if self.task == "classification":
+            return classification_loss_parts(logits, out_labels, self.label_smoothing,
+                                             example_mask=out_pc.mask.any(1))
         return masked_segmentation_loss_parts(
             logits, out_labels, out_pc.mask, self.label_smoothing, self.ignore_label
         )
@@ -112,7 +137,7 @@ class Trainer:
         """Update every conv's calibration buffers from one batch."""
         h, f0, out_pc, _, _ = self.build(batch, generator, draws)
         self.model.eval()
-        self.model(h, f0, out_pc, calibrate=True)
+        self._forward(h, f0, out_pc, calibrate=True)
 
     def train_step(self, batch: dict, generator: Optional[torch.Generator] = None,
                    draws: Optional[HierarchyDraws] = None,
@@ -149,7 +174,7 @@ class Trainer:
         loss (updating the BN running statistics) and returns the loss."""
         self.model.train()
         self.model.zero_grad(set_to_none=True)
-        loss = self._loss(self.model(h, f0, out_pc, drops=drops), out_labels, out_pc)
+        loss = self._loss(self._forward(h, f0, out_pc, drops=drops), out_labels, out_pc)
         loss.backward()
         return loss.detach()
 
@@ -169,7 +194,7 @@ class Trainer:
                 scene, generator, None if draws is None else draws[i], train=True,
                 n_frames=n_frames)
             drops = DropPathDraws(generator, None if drop_masks is None else drop_masks[i])
-            t, c = self._loss_parts(self.model(h, f0, out_pc, drops=drops), out_labels, out_pc)
+            t, c = self._loss_parts(self._forward(h, f0, out_pc, drops=drops), out_labels, out_pc)
             t.backward()
             total = t.detach() if total is None else total + t.detach()
             count = c if count is None else count + c
@@ -183,11 +208,12 @@ class Trainer:
     @torch.no_grad()
     def eval_step(self, batch: dict, generator: Optional[torch.Generator] = None,
                   draws: Optional[HierarchyDraws] = None) -> dict:
-        """Logits ``[B, M, classes]``, output mask, and (with labels) the
-        loss and output labels; ``out_idx`` maps output points to raw ones."""
+        """Logits (``[B, M, classes]``; classification ``[B, classes]``),
+        output mask, and (with labels) the loss and output labels;
+        ``out_idx`` maps output points to raw ones."""
         h, f0, out_pc, out_labels, raw_to_out = self.build(batch, generator, draws, train=False)
         self.model.eval()
-        logits = self.model(h, f0, out_pc)
+        logits = self._forward(h, f0, out_pc)
         out = {"logits": logits, "mask": out_pc.mask}
         if out_labels is not None:
             out["loss"] = self._loss(logits, out_labels, out_pc)

@@ -307,6 +307,10 @@ LIVE_SHAPES = {
     # the mixed-frame-count recipes at F = G = 4 (128 pne columns)
     "live_g4_level0_like": (2, 1024, 1024, 32, 4, 4, 32, 32, 32, 0.7, 0.28),
     "live_g4_level4_like": (2, 128, 128, 32, 4, 4, 32, 256, 256, 0.7, 0.3),
+    # the ModelNet40 ClassNet's level-5 block conv (C = O = 512: product depth
+    # C*Q = 16,384) and its down_conv_3 (256 -> 512 channels, N = 2 M)
+    "live_modelnet_level5_block": (2, 256, 256, 32, 2, 2, 32, 512, 512, 0.7, 0.3),
+    "live_modelnet_down_conv_3": (2, 256, 512, 32, 2, 2, 32, 256, 512, 0.7, 0.4),
 }
 
 
@@ -678,6 +682,7 @@ STD_SHAPES = {
     "std_scannet_level0_like": (1, 8192, 8192, 24, 32, 64, 64, 0.7, 0.17),
     "std_level4_like": (2, 128, 128, 32, 32, 256, 256, 0.7, 0.5),
     "std_ragged_q16_unaligned": (3, 77, 50, 9, 16, 37, 70, 0.6, 0.8),
+    "std_modelnet_level5_like": (2, 256, 256, 32, 32, 512, 512, 0.7, 0.3),
 }
 
 
