@@ -170,13 +170,37 @@ widths up to 512).  In the order they run:
     only), phase 14 on one room, and one scatter step under
     ``torch.profiler`` (device ms per conv forward and backward pass);
 
+23. trains ``configs/dfaust/dfaust_I_rot_pca_2F.yaml`` as written through
+    the training CLI (``se3conv3d_tpu_torch.tasks.train.main``, in this
+    process) on a DFaust fixture in the loader's format (64 train and 8
+    test synthetic bodies of 4096 points): calibration, one epoch of two
+    B = 32 steps, validation, a checkpoint, ``config.yaml``; then again with
+    ``--resume``, the restored state held bitwise against the checkpoint
+    file; finite losses, mIoU in [0, 1], the conv launches counted against
+    the steps taken (21 per forward, 21 per backward), the host-clock split
+    of each step (load and augment, collate, host-to-device copy,
+    ``train_step``), epoch times and the peak;
+24. the same for ``configs/modelnet40/modelnet40_pca_2F.yaml`` (B = 12) on
+    24 train and 12 test synthetic shapes in the ModelNet40 txt format:
+    validation accuracy, the loader's ``.npz`` cache written on the first
+    run and read on the second (a resume);
+25. the same for ``configs/scannet/scannet20_rot_pca_I.yaml`` as written
+    (bf16, ``scan_scenes``, the 750,000-point budget, its augmentation
+    modules and ``train_scene_max_pts``) but for one epoch of two batches,
+    on 8 train and 2 val synthetic rooms of 120,000 points in the npz
+    format; the second train step in sorted mode (its prefix sums
+    counted), every conv launch a bfloat16 one, and the native ``pcprep``
+    library built and called (elastic distortion, nearest-point crop);
+
 and last, one ``modelnet40_pca_2F`` train step under ``torch.profiler``
 (device ms by kernel, per conv pass, in PyTorch's reductions, and the idle
 share).
 
 Run from the repository root: ``python3 chip_smoke.py``.  Exits non-zero,
 printing no result, without a CUDA device or outside the repository.  The
-last line of a passing run is ``{"ok": true, "device": {...}}``.
+last line of a passing run is ``{"ok": true, "device": {...}}``.  Phases
+23-25 run after phase 20 and before the last profile, in temporary
+directories that they remove.
 """
 from __future__ import annotations
 
@@ -2696,7 +2720,284 @@ def run_modelnet(card, dev, recorded_draws) -> tuple:
     return conv, runs, batch
 
 
-def kernels_line(dfaust: dict, scan: dict, mixf: dict, rot_i: dict, g4: dict, std: dict, mn: dict) -> dict:
+# the CLI phases (23-25): the recipes through ``python -m
+# se3conv3d_tpu_torch.tasks.train``'s ``main``, on fixtures in each loader's
+# format: DFaust bodies (train, test), ModelNet40 shapes (train, test) and
+# ScanNet rooms (train, val), with the numpy seed of each fixture
+CLI_DFAUST = ("configs/dfaust/dfaust_I_rot_pca_2F.yaml", 64, 8, 23)
+CLI_MODELNET = ("configs/modelnet40/modelnet40_pca_2F.yaml", 24, 12, 24)
+CLI_SCANNET = ("configs/scannet/scannet20_rot_pca_I.yaml", 8, 2, 250)
+# the ScanNet recipe's two cuts of scale for the phase: one epoch of two batches
+CLI_SCANNET_CUTS = {"num_epochs": 1, "num_batches": 2}
+
+
+def write_dfaust_fixture(root: Path, n_train: int, n_test: int, seed: int) -> None:
+    """Synthetic bodies (:func:`body_batch`) as DFaust ``model_{i}_pc.pt`` /
+    ``model_{i}_labels.pt``; the 20 height bands are stored as the raw
+    labels the loader shifts (those above 9 plus 2)."""
+    for split, n, s in (("train", n_train, seed), ("test", n_test, seed + 1)):
+        d = root / split
+        d.mkdir(parents=True)
+        batch = body_batch(n, POINTS, s)
+        for i in range(n):
+            band = batch["labels"][i]
+            torch.save(batch["positions"][i].clone(), d / f"model_{i}_pc.pt")
+            torch.save(torch.where(band > 9, band + 2, band), d / f"model_{i}_labels.pt")
+
+
+def write_modelnet_fixture(root: Path, n_train: int, n_test: int, seed: int) -> None:
+    """Synthetic shapes (:func:`shape_batch`) in the ModelNet40 txt format:
+    ``modelnet40_shape_names.txt`` (40 classes), the split lists and one
+    ``x,y,z,nx,ny,nz`` file per shape (the normals, which the recipes'
+    ones features never read, set to the unit position vectors)."""
+    root.mkdir(parents=True)
+    names = [f"shape{c:02d}" for c in range(MN_CLASSES)]
+    (root / "modelnet40_shape_names.txt").write_text("\n".join(names) + "\n")
+    k = 0
+    for split, n, s in (("train", n_train, seed), ("test", n_test, seed + 1)):
+        batch = shape_batch(n, POINTS, s)
+        listed = []
+        for i in range(n):
+            cls = names[int(batch["labels"][i])]
+            k += 1
+            name = f"{cls}_{k:04d}"
+            (root / cls).mkdir(exist_ok=True)
+            p = batch["positions"][i].numpy().astype(np.float64)
+            nrm = p / np.maximum(np.linalg.norm(p, axis=1, keepdims=True), 1e-9)
+            np.savetxt(root / cls / f"{name}.txt", np.concatenate([p, nrm], 1), fmt="%.6f", delimiter=",")
+            listed.append(name)
+        (root / f"modelnet40_{split}.txt").write_text("\n".join(listed) + "\n")
+
+
+def write_scannet_fixture(root: Path, n_train: int, n_val: int, seed: int) -> None:
+    """Synthetic rooms (:func:`room_scene`, ``SCENE_POINTS`` each) in the
+    ScanNet npz format (``points``, ``normals``, ``colors``, ``labels_20``),
+    with the split lists and ``color_stats.txt``."""
+    root.mkdir(parents=True)
+    (root / "color_stats.txt").write_text("0.5,0.5,0.5\n0.29,0.29,0.29\n")
+    k = 0
+    for split, n in (("train", n_train), ("val", n_val)):
+        (root / split).mkdir()
+        names = []
+        for _ in range(n):
+            room = room_scene(SCENE_POINTS, seed + k)
+            name = f"scene{k:04d}_00"
+            k += 1
+            feats = room["features"].numpy()
+            np.savez(root / split / f"{name}.npz", points=room["positions"].numpy(),
+                     normals=feats[:, :3], colors=feats[:, 3:],
+                     labels_20=room["labels"].numpy().astype(np.int32))
+            names.append(name)
+        (root / f"scannet_{split}.txt").write_text("\n".join(names) + "\n")
+
+
+@contextlib.contextmanager
+def counting_steps(modes=None):
+    """Records each ``Trainer`` step the CLI takes as ``(kind, clouds)``;
+    with ``modes``, train step i runs in feature-gradient mode ``modes[i]``."""
+    from se3conv3d_tpu_torch.ops import pne_conv as ops
+    from se3conv3d_tpu_torch.train.trainer import Trainer
+
+    seen = []
+    originals = {k: getattr(Trainer, k) for k in ("calibration_step", "train_step", "eval_step")}
+
+    def wrap(kind):
+        def step(self, batch, *args, **kwargs):
+            clouds = int(batch["mask"].shape[0])
+            if kind == "train_step" and modes is not None:
+                ops.BWD_SCATTER_MODE = modes[sum(k == kind for k, _ in seen)]
+            seen.append((kind, clouds))
+            return originals[kind](self, batch, *args, **kwargs)
+        return step
+
+    try:
+        for k in originals:
+            setattr(Trainer, k, wrap(k))
+        yield seen
+    finally:
+        for k, fn in originals.items():
+            setattr(Trainer, k, fn)
+        ops.BWD_SCATTER_MODE = "scatter"
+
+
+@contextlib.contextmanager
+def checking_restore(checked):
+    """Holds the state each ``Experiment.restore`` loads against the
+    checkpoint file it read, bitwise (every parameter, buffer and AdamW
+    moment, the schedule's and the trainer's steps); appends the step."""
+    from se3conv3d_tpu_torch.train import run as trun
+
+    original = trun.Experiment.restore
+
+    def restore(self, step=None):
+        meta = original(self, step)
+        saved = self.ckpt.load(step, map_location=self.device)["state"]
+        now = self.state_payload()
+        bad = [k for k, v in saved["model"].items() if not torch.equal(now["model"][k], v)]
+        for i, s in saved["optimizer"]["adamw"]["state"].items():
+            bad += [f"adamw {i} {k}" for k in ("step", "exp_avg", "exp_avg_sq")
+                    if not torch.equal(now["optimizer"]["adamw"]["state"][i][k], s[k])]
+        if (now["optimizer"]["scheduler"] != saved["optimizer"]["scheduler"]
+                or now["trainer_step"] != saved["trainer_step"]
+                or now["model"].keys() != saved["model"].keys()):
+            bad.append("schedule, trainer step or keys")
+        if bad:
+            raise SystemExit(f"resume: restored state differs from the checkpoint: {bad[:5]}")
+        checked.append((self.ckpt.latest_step() if step is None else step,
+                        len(saved["model"]), len(saved["optimizer"]["adamw"]["state"])))
+        return meta
+
+    trun.Experiment.restore = restore
+    try:
+        yield checked
+    finally:
+        trun.Experiment.restore = original
+
+
+def cli_run(card, label, argv, convs, modes=None) -> dict:
+    """One ``main(argv)`` on the card: the Experiment, the steps it took,
+    its conv launches (read from the counters, reset just before), the
+    prefix sums, the native library's calls, its wall time and peak."""
+    from se3conv3d_tpu_torch import native
+    from se3conv3d_tpu_torch.kernels import fused_equiv as kfe
+    from se3conv3d_tpu_torch.kernels import segsum
+    from se3conv3d_tpu_torch.tasks.train import main as train_main
+
+    native_before = dict(native.calls)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(kfe, segsum)
+    t0 = time.perf_counter()
+    with counting_steps(modes) as steps:
+        exp = train_main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches(kfe)
+    bf16 = (kfe.fused_equiv_fwd.bf16_launches, kfe.fused_equiv_bwd.bf16_launches)
+    cumsum = segsum.blocked_cumsum.launches
+    if next(exp.model.parameters()).device.type != "cuda":
+        raise SystemExit(f"{label}: the CLI did not train on the card")
+    losses = [x for h in exp.history for x in h["losses"]]
+    if not losses or not all(np.isfinite(losses)):
+        raise SystemExit(f"{label}: non-finite or missing losses {losses}")
+    # each forward launches every conv once; scan_scenes steps run their clouds one by one
+    per_train = [n if exp.trainer.scan_scenes else 1 for k, n in steps if k == "train_step"]
+    want_fwd = convs * (sum(k != "train_step" for k, _ in steps) + sum(per_train))
+    if launches != (want_fwd, convs * sum(per_train)):
+        raise SystemExit(f"{label}: conv launches {launches}, expected {(want_fwd, convs * sum(per_train))} "
+                         f"from the steps {steps}")
+    split = {k: statistics.median(v) for k, v in exp.host_split.items()}
+    host = split["load"] + split["collate"] + split["copy"]
+    result = dict(steps=steps, launches=launches, bf16_launches=bf16, cumsum_launches=cumsum,
+                  wall_s=wall, peak_gib=torch.cuda.max_memory_allocated() / 2**30, losses=losses,
+                  history=[{k: v for k, v in h.items() if k != "val"} for h in exp.history],
+                  val={k: v for k, v in exp.history[-1].get("val", {}).items()
+                       if k not in ("iou_per_class", "acc_per_class")},
+                  host_split_s=exp.host_split, host_split_median_s=split,
+                  host_share=host / (host + split["step"]),
+                  native_calls={k: native.calls[k] - native_before[k] for k in native.calls})
+    print(f"{label}: steps {steps}; conv launches (fwd, bwd) {launches}, bf16 {bf16}, prefix sums {cumsum}; "
+          f"losses {[round(x, 4) for x in losses]}; epochs {[(h['epoch'], round(h['epoch_time_s'], 3)) for h in exp.history]} s; "
+          f"validation {result['val']}; wall {wall:.2f} s; peak {result['peak_gib']:.3f} GiB [{card}]", flush=True)
+    print(f"{label}: host clock per train batch, median s: load+augment {split['load']:.4f}, collate "
+          f"{split['collate']:.4f}, host-to-device copy {split['copy']:.4f}, train_step {split['step']:.4f} "
+          f"(host share {result['host_share']:.3f}); all {exp.host_split}; native calls "
+          f"{result['native_calls']} [{card}]", flush=True)
+    return exp, result
+
+
+def run_cli(card, dev) -> dict:
+    """23.-25. The training CLI on the card (see the module docstring)."""
+    import tempfile
+
+    from se3conv3d_tpu_torch import native
+    from se3conv3d_tpu_torch.train.config import dump_yaml_config, load_yaml_config
+
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="se3conv_cli_") as tmp:
+        tmp = Path(tmp)
+        # 23. DFaust: the recipe as written, B = 32, then a resume
+        conf, n_train, n_test, seed = CLI_DFAUST
+        t0 = time.perf_counter()
+        write_dfaust_fixture(tmp / "dfaust", n_train, n_test, seed)
+        print(f"cli_dfaust: fixture {n_train} train and {n_test} test bodies of {POINTS} points "
+              f"(numpy seeds {seed}, {seed + 1}) in {time.perf_counter() - t0:.2f} s", flush=True)
+        argv = ["--conf_file", conf, "--data_folder", str(tmp / "dfaust"), "--log_folder", str(tmp / "dfaust_log")]
+        exp, first = cli_run(card, "cli_dfaust", argv + ["--max_epochs", "1"], CONVS_PER_FORWARD)
+        saved = exp.ckpt.all_steps()
+        miou = first["val"].get("miou", float("nan"))
+        if saved != [0] or not 0.0 <= miou <= 1.0:
+            raise SystemExit(f"cli_dfaust: checkpoints {saved}, mIoU {miou}")
+        if load_yaml_config(str(tmp / "dfaust_log" / "config.yaml")) != exp.cfg:
+            raise SystemExit("cli_dfaust: config.yaml does not read back")
+        del exp
+        checked = []
+        with checking_restore(checked):
+            exp, resumed = cli_run(card, "cli_dfaust_resume", argv + ["--resume", "--max_epochs", "1"],
+                                   CONVS_PER_FORWARD)
+        if len(checked) != 1 or [h["epoch"] for h in exp.history] != [1]:
+            raise SystemExit(f"cli_dfaust_resume: restored {checked}, epochs {exp.history}")
+        print(f"cli_dfaust_resume: checkpoint {checked[0][0]} restored bitwise ({checked[0][1]} tensors of "
+              f"the model, {checked[0][2]} AdamW states); schedule at step "
+              f"{exp.optimizer.scheduler.last_epoch} [{card}]", flush=True)
+        out["dfaust"], out["dfaust_resume"] = first, resumed
+        del exp
+        torch.cuda.empty_cache()
+
+        # 24. ModelNet40: the recipe as written, B = 12; the npz cache written, then read
+        conf, n_train, n_test, seed = CLI_MODELNET
+        t0 = time.perf_counter()
+        write_modelnet_fixture(tmp / "modelnet", n_train, n_test, seed)
+        print(f"cli_modelnet40: fixture {n_train} train and {n_test} test shapes of {POINTS} points "
+              f"(numpy seeds {seed}, {seed + 1}) in {time.perf_counter() - t0:.2f} s", flush=True)
+        argv = ["--conf_file", conf, "--data_folder", str(tmp / "modelnet"), "--log_folder",
+                str(tmp / "modelnet_log"), "--max_epochs", "1"]
+        exp, mn = cli_run(card, "cli_modelnet40", argv, MN_CONVS)
+        acc = mn["val"].get("accuracy", float("nan"))
+        caches = sorted(p.name for p in (tmp / "modelnet").glob("tmp_*"))
+        if exp.train_ds.from_cache or caches != [f"tmp_test_{POINTS}.npz", f"tmp_train_{POINTS}.npz"] or not 0 <= acc <= 1:
+            raise SystemExit(f"cli_modelnet40: caches {caches}, accuracy {acc}")
+        del exp
+        exp, mn_again = cli_run(card, "cli_modelnet40_cached", argv + ["--resume"], MN_CONVS)
+        if not (exp.train_ds.from_cache and exp.val_ds.from_cache):
+            raise SystemExit("cli_modelnet40_cached: the npz cache was not read")
+        out["modelnet40"], out["modelnet40_cached"] = mn, mn_again
+        del exp
+        torch.cuda.empty_cache()
+
+        # 25. ScanNet-20: the recipe as written (bf16, scan_scenes, 750,000-point
+        # budget) but for its two cuts; train step 2 in sorted mode
+        conf, n_train, n_val, seed = CLI_SCANNET
+        t0 = time.perf_counter()
+        write_scannet_fixture(tmp / "scannet", n_train, n_val, seed)
+        cfg = load_yaml_config(conf)
+        cfg["Training"].update(CLI_SCANNET_CUTS)
+        dump_yaml_config(cfg, str(tmp / "scannet20_rot_pca_I.yaml"))
+        print(f"cli_scannet20: fixture {n_train} train and {n_val} val rooms of {SCENE_POINTS} points "
+              f"(numpy seeds {seed}-{seed + n_train + n_val - 1}) in {time.perf_counter() - t0:.2f} s; "
+              f"{conf} as written but for Training {CLI_SCANNET_CUTS} [{card}]", flush=True)
+        argv = ["--conf_file", str(tmp / "scannet20_rot_pca_I.yaml"), "--data_folder", str(tmp / "scannet"),
+                "--log_folder", str(tmp / "scannet_log")]
+        exp, scan = cli_run(card, "cli_scannet20", argv, SCANNET_CONVS, modes=("scatter", "sorted"))
+        train_clouds = [n for k, n in scan["steps"] if k == "train_step"]
+        if scan["bf16_launches"] != scan["launches"] or scan["cumsum_launches"] != SCANNET_CONVS * train_clouds[1]:
+            raise SystemExit(f"cli_scannet20: bf16 launches {scan['bf16_launches']} of {scan['launches']}, "
+                             f"prefix sums {scan['cumsum_launches']} for {train_clouds}")
+        calls = scan["native_calls"]
+        if native.load_library() is None or not native.library_path().exists() or min(
+                calls["elastic_distortion"], calls["select_nearest"]) < 1:
+            raise SystemExit(f"cli_scannet20: the native library was not built or not used: {calls}")
+        if not exp.trainer.scan_scenes or not 0.0 <= scan["val"].get("miou", -1.0) <= 1.0:
+            raise SystemExit(f"cli_scannet20: scan_scenes {exp.trainer.scan_scenes}, val {scan['val']}")
+        scan["cuts"] = CLI_SCANNET_CUTS
+        out["scannet20"] = scan
+        del exp
+        torch.cuda.empty_cache()
+    return out
+
+
+def kernels_line(dfaust: dict, scan: dict, mixf: dict, rot_i: dict, g4: dict, std: dict, mn: dict,
+                 cli: dict) -> dict:
     """The ``{"kernels": [...]}`` object: every kernel with its launches on
     the main paths, its error against its plain version, and its times at
     the ScanNet level-0 shape (float32), with the same for its bfloat16
@@ -2709,7 +3010,8 @@ def kernels_line(dfaust: dict, scan: dict, mixf: dict, rot_i: dict, g4: dict, st
     ScanNet level-0 shape of phase 18 (every phase-18 shape under
     ``"by_shape"``); each conv entry's ModelNet40 launches (phase 22) are in
     its ``launches``, and its times at phase 21's shapes, with their plans,
-    under ``"modelnet"``."""
+    under ``"modelnet"``; the launches of the CLI runs of phases 23-25 are
+    in each entry's ``launches`` (``cli_*`` paths)."""
     compared, bwd_compared = dfaust["fwd"], dfaust["bwd"]
     scan_conv, scan_cumsum, scan_train, scan_eval = scan["conv"], scan["cumsum"], scan["train"], scan["eval"]
     lvl0 = SCANNET_SHAPES["scannet_level0_block_conv"]
@@ -2732,6 +3034,12 @@ def kernels_line(dfaust: dict, scan: dict, mixf: dict, rot_i: dict, g4: dict, st
                 if run["d"] == 9:
                     every[f"{name}_eval"] = run["eval_launches"] if which == 0 else 0
                     every[f"{name}_train"] = run["train_launches"][which]
+            for name, run in cli.items():  # the CLI runs of phases 23-25 (kD = 9)
+                every[f"cli_{name}"] = run["launches"][which]
+                if name.startswith("scannet"):  # every launch a bfloat16 one (gated)
+                    bf16[f"cli_{name}"] = run["launches"][which]
+        else:
+            every["cli_scannet20_sorted_step"] = cli["scannet20"]["cumsum_launches"]
         for dt in SCANNET_DTYPES:
             if which == 0:
                 every[f"scannet_eval_{dt}"] = scan_eval[dt]["launches"]
@@ -2831,7 +3139,7 @@ def kernels_line(dfaust: dict, scan: dict, mixf: dict, rot_i: dict, g4: dict, st
         }
 
     cum_every, _ = paths(2)
-    cum_bf16 = {k: v for k, v in cum_every.items() if "bfloat16" in k}  # bfloat16 rows (gated)
+    cum_bf16 = {k: v for k, v in cum_every.items() if "bfloat16" in k or k.startswith("cli_scannet")}  # bf16 rows
     c0, c0b = scan_cumsum["scannet_level0_edges"], scan_cumsum["scannet_level0_edges_bf16"]
     cum_at = f"scannet level-0 edges [{lvl0[1] * lvl0[3]} x {lvl0[7]}]"
     fwd_call = ("torch.matmul, {}, for the weight contraction basis . W over the same live rows "
@@ -2862,7 +3170,7 @@ def kernels_line(dfaust: dict, scan: dict, mixf: dict, rot_i: dict, g4: dict, st
         }], "scannet": {"eval": scan_eval, "train": scan_train, "grid_vs_brute": scan["grid"]},
         "dfaust": {"train_bf16": dfaust["bf16_train"]}, "dfaust_mixf": mixf, "scannet20_rot_I": rot_i,
         "standard": {"dfaust": std["dfaust"], "scannet": std["scannet"]},
-        "modelnet40": {"runs": mn["runs"], "profile": mn["profile"]}}
+        "modelnet40": {"runs": mn["runs"], "profile": mn["profile"]}, "cli": cli}
 
 
 def main() -> int:
@@ -2992,13 +3300,16 @@ def main() -> int:
     scan = run_scannet(card, dev, RecordedDraws, DropPathDraws)
     # 20. the ScanNet standard recipe as written (bfloat16)
     std["scannet"] = scannet_standard(card, dev, RecordedDraws, DropPathDraws)
+    # 23.-25. the training CLI on the DFaust, ModelNet40 and ScanNet recipes
+    torch.cuda.empty_cache()
+    cli = run_cli(card, dev)
     # the profiled ModelNet40 train step last: a profiled run slows the launches after it
     mn = dict(conv=mn_conv, runs=mn_runs, profile=modelnet_profile(card, dev, mn_batch))
     del mn_batch
     dfaust = dict(fwd=compared, bwd=bwd_compared, eval_launches=launches,
                   train_launches=dfaust_steps["launches"], bf16_train_launches=dfaust_bf16["bf16_launches"],
                   bf16_train=dfaust_bf16)
-    print(json.dumps(kernels_line(dfaust, scan, mixf, rot_i, g4, std, mn)))
+    print(json.dumps(kernels_line(dfaust, scan, mixf, rot_i, g4, std, mn, cli)))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

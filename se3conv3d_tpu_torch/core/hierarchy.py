@@ -90,6 +90,17 @@ class HierarchyConfig:
             caps.append(prev)
         return tuple(caps)
 
+    def with_capacity(self, capacity: int) -> "HierarchyConfig":
+        """Every static level capacity rescaled for an input of ``capacity``
+        points (at least 32 each), as the JAX package's ``with_capacity``:
+        full-scene inference runs each scene at a capacity bucket."""
+        base = self.out_capacity or (self.capacities[0] if self.capacities[0] else capacity)
+        ratio = capacity / max(int(base), 1)
+        caps = tuple(None if c is None else max(int(-(-int(c) * ratio // 1)), 32)
+                     for c in self.capacities)
+        return dataclasses.replace(self, capacities=caps,
+                                   out_capacity=capacity if self.out_capacity else None)
+
 
 @dataclasses.dataclass
 class Hierarchy:

@@ -3,8 +3,9 @@
 models and the ModelNet40 classification nets).
 
 The pinned recipes are the ``Model`` and ``Training`` sections of YAML
-files under ``configs/`` as Python dicts, so the card needs no YAML reader;
-tests hold them equal to the files:
+files under ``configs/`` as Python dicts, for the smoke runs that build a
+model without a recipe file; tests hold them equal to the files as the
+port's reader (``train/config.load_yaml_config``) and PyYAML read them:
 
 - ``DFAUST_I_ROT_PCA_2F_*``: ``configs/dfaust/dfaust_I_rot_pca_2F.yaml``;
 - ``DFAUST_I_ROT_PCA_MIXF_*``: ``configs/dfaust/dfaust_I_rot_pca_mixF.yaml``;

@@ -20,7 +20,8 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+import warnings
+from typing import Dict, Mapping, Optional, Union
 
 import torch
 from torch import nn
@@ -29,7 +30,44 @@ from ..core.neighborhoods import Neighborhood
 from ..core.pointcloud import PointCloud, gather_rows
 from ..ops import pne_conv as ops
 
-__all__ = ["PNEConv", "ConvFactory"]
+__all__ = ["PNEConv", "ConvFactory", "check_neighbor_caps"]
+
+
+def check_neighbor_caps(calib: Union[nn.Module, Mapping[str, torch.Tensor]],
+                        threshold: float = 0.01, warn: bool = True) -> Dict[str, float]:
+    """Neighbor-cap certificate (``se3conv3d_tpu/nn/conv.py:check_neighbor_caps``):
+    the convs whose calibration saw ball-query truncation.
+
+    The reference's ball query is unbounded; the port keeps the nearest
+    ``ModelSpec.max_neighbors``.  Each conv's ``trunc_frac`` buffer holds the
+    largest fraction of query rows whose ball held more than the cap during
+    calibration; this turns those buffers into a report.
+
+    Args:
+      calib: a calibrated model, or its ``state_dict``.
+      threshold: least truncated-row fraction reported.
+      warn: emit one ``UserWarning`` naming the offending convs.
+
+    Returns:
+      ``{conv path: truncated fraction}`` above ``threshold``, the path
+      written as the JAX package writes it (``encoder/level_1/conv_0``).
+    """
+    tensors = dict(calib.state_dict()) if isinstance(calib, nn.Module) else dict(calib)
+    bad = {
+        name.rpartition(".")[0].replace(".", "/"): float(value)
+        for name, value in tensors.items()
+        if name.rpartition(".")[2] == "trunc_frac" and float(value) > threshold
+    }
+    if bad and warn:
+        listing = ", ".join(f"{p}: {f:.1%}" for p, f in sorted(bad.items()))
+        warnings.warn(
+            "ball-query neighbor cap truncated real neighborhoods during "
+            f"calibration ({listing}); the reference's ball query is "
+            "unbounded — raise Model.max_neighbors or shrink the radii "
+            "to keep parity",
+            UserWarning,
+        )
+    return bad
 
 
 def _check_supported(pne_type: str, equivariant: bool, rel_rot_type: str, aggregation: str):

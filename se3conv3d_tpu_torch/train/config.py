@@ -1,5 +1,9 @@
-"""Model building from a recipe's ``Model`` section (counterpart of
-``se3conv3d_tpu/train/config.py:build_model_from_config``).
+"""Recipes (counterpart of ``se3conv3d_tpu/train/config.py``): reading and
+writing a recipe's YAML file, its augmentation modules, and building the
+model from its ``Model`` section.
+
+The recipes are read by the port's own reader of the YAML subset they use
+(``utils/yaml_subset.py``), not by PyYAML.
 
 The port's entry point runs on the card: :func:`build_model_from_config`
 puts the model on ``cuda`` unless the caller asks for the CPU with
@@ -8,15 +12,42 @@ never falls back to the CPU.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Union
+import importlib
+from typing import Any, Dict, List, Optional, Union
 
 import torch
 
 from ..models.class_net import ClassNet
 from ..models.presets import CLASS_PRESETS, spec_from_model_dict
 from ..models.seg_unet import FPNSegUNet
+from ..utils import yaml_subset
 
-__all__ = ["build_model_from_config"]
+__all__ = ["load_yaml_config", "dump_yaml_config", "load_augmentations", "build_model_from_config"]
+
+
+def load_yaml_config(path: str) -> Dict[str, Any]:
+    """A recipe's YAML file as a dict, with empty ``Training`` / ``Dataset``
+    / ``Model`` sections where it has none (as the JAX package reads it with
+    ``yaml.safe_load``)."""
+    cfg = yaml_subset.load(path)
+    for section in ("Training", "Dataset", "Model"):
+        cfg.setdefault(section, {})
+    return cfg
+
+
+def dump_yaml_config(cfg: Dict[str, Any], path: str) -> None:
+    """Write ``cfg`` as YAML that :func:`load_yaml_config` (and PyYAML's
+    ``safe_load``) read back equal."""
+    yaml_subset.dump(cfg, path)
+
+
+def load_augmentations(dotted_path: Optional[str]) -> List[dict]:
+    """The ``DS_AUGMENTS`` list of the module at ``dotted_path`` (e.g.
+    ``configs.dfaust.DFaust_DS_Aug``, importable from the repository root);
+    ``'None'`` or empty gives no augmentations."""
+    if not dotted_path or dotted_path == "None":
+        return []
+    return list(importlib.import_module(dotted_path).DS_AUGMENTS)
 
 
 def build_model_from_config(model_dict: Dict[str, Any], num_in_feats: int, num_classes: int,

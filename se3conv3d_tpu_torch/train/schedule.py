@@ -86,6 +86,20 @@ class Optimizer:
                                        weight_decay=weight_decay)
         self.scheduler = torch.optim.lr_scheduler.LambdaLR(self.adamw, schedule)
 
+    def state_dict(self) -> Dict[str, Any]:
+        """AdamW's moments and step, the schedule's step, and the
+        accumulation counter and accumulator (a checkpoint's optimizer)."""
+        return {"adamw": self.adamw.state_dict(), "scheduler": self.scheduler.state_dict(),
+                "micro_step": self.micro_step, "acc": self._acc}
+
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        self.adamw.load_state_dict(state["adamw"])
+        self.scheduler.load_state_dict(state["scheduler"])
+        self.micro_step = int(state["micro_step"])
+        acc = state["acc"]
+        self._acc = None if acc is None else [
+            None if a is None else a.to(p.device) for a, p in zip(acc, self.params)]
+
     @property
     def lr(self) -> float:
         """Learning rate of the next update."""

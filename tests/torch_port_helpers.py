@@ -183,3 +183,137 @@ def pop_keep_masks(batch_stats, order):
         if not node[path[-1]]:
             del node[path[-1]]
     return masks, stats
+
+
+# --- on-disk dataset fixtures, in each loader's format ------------------------
+
+
+def write_dfaust(root, n_train=4, n_test=2, n_pts=96, seed=0):
+    """DFaust ``{train,test}/model_{i}_{pc,labels}.pt`` (labels 0..21, so the
+    loader's shift of labels above 9 shows)."""
+    import os
+    rng = np.random.default_rng(seed)
+    for split, n_models in (("train", n_train), ("test", n_test)):
+        d = os.path.join(str(root), split)
+        os.makedirs(d, exist_ok=True)
+        for i in range(n_models):
+            pts = rng.standard_normal((n_pts, 3)).astype(np.float32) * 0.3
+            pts[:, 1] *= 2.5
+            labels = rng.integers(0, 22, n_pts).astype(np.int64)
+            torch.save(torch.from_numpy(pts), os.path.join(d, f"model_{i}_pc.pt"))
+            torch.save(torch.from_numpy(labels), os.path.join(d, f"model_{i}_labels.pt"))
+    return str(root)
+
+
+def write_modelnet(root, classes=("airplane", "night_stand", "car"), per_class=(2, 1),
+                   n_pts=80, seed=1):
+    """ModelNet40 txt format: ``modelnet40_shape_names.txt``, the split lists
+    and ``{class}/{class}_{k:04d}.txt`` rows ``x,y,z,nx,ny,nz``;
+    ``per_class`` shapes of each class for (train, test)."""
+    import os
+    rng = np.random.default_rng(seed)
+    root = str(root)
+    os.makedirs(root, exist_ok=True)
+    with open(os.path.join(root, "modelnet40_shape_names.txt"), "w") as f:
+        f.write("\n".join(classes) + "\n")
+    k = 0
+    for split, count in zip(("train", "test"), per_class):
+        names = []
+        for cls in classes:
+            os.makedirs(os.path.join(root, cls), exist_ok=True)
+            for _ in range(count):
+                k += 1
+                name = f"{cls}_{k:04d}"
+                data = rng.standard_normal((n_pts, 6)).astype(np.float32)
+                np.savetxt(os.path.join(root, cls, name + ".txt"), data, delimiter=",")
+                names.append(name)
+        with open(os.path.join(root, f"modelnet40_{split}.txt"), "w") as f:
+            f.write("\n".join(names) + "\n")
+    return root
+
+
+def write_scannet(root, n_train=3, n_val=2, n_pts=(400, 700), seed=0, segments=True):
+    """ScanNet npz scenes (``points``, ``normals``, ``colors``,
+    ``labels_20``) under ``{train,val}/``, the split lists,
+    ``color_stats.txt`` and, with ``segments``, ``segments/*_seg.npz``;
+    scene i holds ``n_pts[0] + i * step`` points in a room of 3 x 2.5 x 1.5."""
+    import os
+    rng = np.random.default_rng(seed)
+    root = str(root)
+    os.makedirs(os.path.join(root, "segments"), exist_ok=True)
+    with open(os.path.join(root, "color_stats.txt"), "w") as f:
+        f.write("0.5,0.45,0.4\n0.25,0.2,0.3\n")
+    k = 0
+    for split, count in (("train", n_train), ("val", n_val)):
+        os.makedirs(os.path.join(root, split), exist_ok=True)
+        names = []
+        for i in range(count):
+            n = int(np.linspace(n_pts[0], n_pts[1], max(count, 2))[i])
+            name = f"scene{k:04d}_00"
+            k += 1
+            pts = rng.uniform(0, 1, (n, 3)) * np.array([3.0, 2.5, 1.5])
+            np.savez(os.path.join(root, split, name + ".npz"),
+                     points=pts.astype(np.float32),
+                     normals=rng.standard_normal((n, 3)).astype(np.float32),
+                     colors=rng.uniform(0, 1, (n, 3)).astype(np.float32),
+                     labels_20=rng.integers(0, 21, n).astype(np.int32))
+            if segments:
+                np.savez(os.path.join(root, "segments", name + "_seg.npz"),
+                         segments=rng.integers(0, 40, n).astype(np.int64))
+            names.append(name)
+        with open(os.path.join(root, f"scannet_{split}.txt"), "w") as f:
+            f.write("\n".join(names) + "\n")
+    return root
+
+
+# --- tiny recipes of the run-loop tests (each loader's dataset, tiny capacities) ---
+
+RF_PCA = {"pca": True, "neigh_method": "knn", "neigh_kwargs": {"neigh_k": 8}, "fixed_axis": False,
+          "train_n_frames": 1, "test_n_frames": 1}
+TRAINING = {"num_epochs": 3, "weight_decay": 0.0001, "max_lr": 0.005, "pct_start": 0.3,
+            "div_factor": 10.0, "final_div_factor": 1000.0, "clip_grads": 100.0,
+            "label_smoothing": 0.2, "save_models_frequency": 1, "val_freq": 1}
+
+
+def dfaust_recipe(mix=False):
+    rf = dict(RF_PCA, pca=not mix, mix_n_frames={4: 0.15, 2: 0.35, 1: 0.5}) if mix else RF_PCA
+    return {
+        "Training": dict(TRAINING, batch_size=2),
+        "Dataset": {"dataset": "dfaust", "num_points": 96,
+                    "train_aug_file": "configs.dfaust.DFaust_DS_Aug_SO3",
+                    "test_aug_file": "configs.dfaust.DFaust_DS_Aug_Val"},
+        "Model": {"model": "FPNSegUNetMLPGeluRotEqFAUST", "max_drop_path": 0.2,
+                  "init_subsample": 0.1, "output_subsample": 0.12,
+                  "grid_subsamples": [0.2, 0.4, 0.6, 0.8], "capacities": [96, 48, 24, 16, 8],
+                  "out_capacity": 96, "max_neighbors": 8, "RefFrames": rf},
+    }
+
+
+def modelnet_recipe():
+    return {
+        "Training": dict(TRAINING, batch_size=2, div_factor=100.0, final_div_factor=10000.0),
+        "Dataset": {"dataset": "modelnet40", "num_points": 64,
+                    "train_aug_file": "configs.modelnet40.MN40_DS_Aug",
+                    "test_aug_file": "configs.modelnet40.MN40_DS_Aug_test"},
+        "Model": {"model": "ClassNetRotEquivMLPGELU19Former", "max_drop_path": 0.2,
+                  "init_subsample": 0.05, "grid_subsamples": [0.1, 0.2, 0.4, 0.8, 1.2],
+                  "capacities": [64, 64, 32, 16, 8, 8], "max_neighbors": 8,
+                  "RefFrames": dict(RF_PCA, train_n_frames=2, test_n_frames=2)},
+    }
+
+
+def scannet_recipe():
+    return {
+        "Training": dict(TRAINING, num_batches=3, pts_per_batch=2000, scan_scenes=True),
+        "Dataset": {"dataset": "scannet20", "train_split": "train", "test_split": "val",
+                    "train_aug_file": "configs.scannet.ScanNet_DS_Aug",
+                    "train_aug_color_file": "configs.scannet.ScanNet_Color_DS_Aug",
+                    "test_aug_file": "configs.scannet.ScanNet_DS_Aug_Val",
+                    "test_aug_color_file": "None", "prob_mix3d": 0.5,
+                    "train_scene_crop_ratio": 0.8, "train_scene_max_pts": 900},
+        "Model": {"model": "FPNSegUNetMLPGeluRotEqScanNet", "compute_dtype": "bfloat16",
+                  "max_drop_path": 0.2, "init_subsample": 0.1, "output_subsample": 0.1,
+                  "grid_subsamples": [0.2, 0.4, 0.8, 1.6], "capacities": [1024, 256, 64, 32, 32],
+                  "out_capacity": 1024, "max_neighbors": 8,
+                  "RefFrames": dict(RF_PCA, fixed_axis=2)},
+    }
