@@ -191,6 +191,40 @@ widths up to 512).  In the order they run:
     format; the second train step in sorted mode (its prefix sums
     counted), every conv launch a bfloat16 one, and the native ``pcprep``
     library built and called (elastic distortion, nearest-point crop);
+26. evaluates phase 23's run through the segmentation eval CLI
+    (``se3conv3d_tpu_torch.tasks.test_seg.main``) under
+    ``configs/dfaust/dfaust_test.yaml`` as written (one vote over the 8 test
+    bodies) with a 2-checkpoint ensemble (phase 23 saves the resumed state
+    as a second checkpoint where the resume found no better mIoU): 21
+    forward launches per member per body, no backward, no prefix sum, every
+    forward given its live-row table; body 0's accumulated logits equal, to
+    float64 rounding, the sum of one ``eval_step`` per checkpoint on its
+    batch with its generator seed, and the sum of each checkpoint alone on
+    the voter's hierarchy; the ensemble swap's time;
+27. evaluates phase 24's run through ``tasks.test_class.main`` under
+    ``configs/modelnet40/modelnet40_test_rot.yaml`` (SO(3) test rotations,
+    batches of 24) but for two vote epochs (the file: 50): each batch pads
+    the 12 test shapes with copies of the last, and the accumulator holds
+    exactly the 12 real rows' logits summed over the votes;
+28. evaluates phase 25's run under
+    ``configs/scannet/scannet20_test_pca_I_SO2.yaml`` (PCA frames about z,
+    kNN 16, the 30-angle z sweep) but for two vote epochs, with segment
+    smoothing and the benchmark files, on whole val rooms of 120,000,
+    400,000 and 1,500,000 points (numpy seeds 260-262, segments the 0.2 m
+    voxels): the two larger run at capacity buckets of 409,600 and
+    1,507,328 points; 32 bfloat16 forward launches per room and vote, no
+    backward, no prefix sum; exactly two bucket trainers; the 400,000-point
+    room voted again with the same draws on its real rows, through its
+    bucket (bitwise the voter's accumulator, twice) and through a trainer
+    one bucket larger (within 1e-4 of max |accum|), and, as the control,
+    twice with the grid averages summed by float32 atomics; one label file
+    per room with one ScanNet-20 id per raw point; per vote and room the
+    host-clock time, its build / forward split, points per second and
+    peak, the share of points with a logit, the accumulation time; the
+    1.5M-point room's level-0 grid average, summed in a fixed order and by
+    atomics, timed; then the forward kernel against its plain version at
+    that room's level-0 shape and live fill (bfloat16), with its bound and
+    ``torch.matmul``, and the shape's int32 index ranges;
 
 and last, one ``modelnet40_pca_2F`` train step under ``torch.profiler``
 (device ms by kernel, per conv pass, in PyTorch's reductions, and the idle
@@ -199,8 +233,8 @@ share).
 Run from the repository root: ``python3 chip_smoke.py``.  Exits non-zero,
 printing no result, without a CUDA device or outside the repository.  The
 last line of a passing run is ``{"ok": true, "device": {...}}``.  Phases
-23-25 run after phase 20 and before the last profile, in temporary
-directories that they remove.
+23-28 run after phase 20 and before the last profile, in one temporary
+directory, removed at their end.
 """
 from __future__ import annotations
 
@@ -211,6 +245,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -463,12 +498,14 @@ def seeded_model(model_dict, dev, num_in_feats=1, num_classes=CLASSES):
     return model
 
 
-def conv_bounds(shape, mask, dtype=torch.float32, d=9) -> dict:
+def conv_bounds(shape, idx, mask, dtype=torch.float32, d=9) -> dict:
     """Least times of one conv forward and backward on the card: the larger
     of bytes / HBM rate (each input read once, each output written once)
     and FLOPs / peak, counting the valid edges of ``mask`` and its live
     rows (the query rows with a valid edge): a padded row needs no work, so
-    its geometry, ``gout`` row and products are not counted.
+    its geometry, ``gout`` row and products are not counted, and of the
+    features only the source rows that a valid edge gathers (``idx[mask]``,
+    each once) are read.
 
     FLOPs as in ``PERF.md``: per valid edge and frame pair the pne
     (``2*D*Q``, D = 9 pne inputs, or 3 for the standard geometry) and basis
@@ -500,9 +537,11 @@ def conv_bounds(shape, mask, dtype=torch.float32, d=9) -> dict:
     rot = 6 * f if d == 9 else 0
     geo = live * (op * k * g * (3 + rot) + 9.0 * k)  # rel, rot6, idx, mask of the live rows
     params = 4.0 * ((d + 1) * q + c * q * o)
-    fwd_bytes = geo + op * b * n * f * c + params + 4.0 * b * m * g * o
-    # + gout's live rows, d_feats, d_params
-    bwd_bytes = geo + op * b * n * f * c + params + 4.0 * live * g * o + 4.0 * b * n * f * c + params
+    example = torch.arange(b, device=idx.device).reshape(b, 1, 1) * n
+    gathered = float(torch.unique((idx.long() + example)[mask]).numel())  # distinct source rows read
+    fwd_bytes = geo + op * gathered * f * c + params + 4.0 * b * m * g * o
+    # + gout's live rows, d_feats (every row), d_params
+    bwd_bytes = geo + op * gathered * f * c + params + 4.0 * live * g * o + 4.0 * b * n * f * c + params
     if bf16:
         fwd_ops_s, bwd_ops_s = fwd_flops / PEAK_BF16_FLOPS, bwd_flops / PEAK_BF16_FLOPS
         fma_s = {"fwd": (fwd_flops - point_flops) / PEAK_F32_FLOPS + point_flops / PEAK_BF16_FLOPS,
@@ -517,7 +556,7 @@ def conv_bounds(shape, mask, dtype=torch.float32, d=9) -> dict:
                                        ("bwd", bwd_flops, bwd_ops_s, bwd_bytes)):
         t_ops, t_bytes = ops_s * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
         out[name] = dict(bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes
-                         else "bytes", gflop=flops / 1e9, live_rows=int(live),
+                         else "bytes", gflop=flops / 1e9, live_rows=int(live), gathered_rows=int(gathered),
                          bound_f32_ms=max(fma_s[name], nbytes / PEAK_BYTES_PER_S) * 1e3)
     return out
 
@@ -1060,7 +1099,7 @@ def scannet_conv_kernels(card, dev, dtype=torch.float32) -> dict:
     for i, (name, (shp, n_live)) in enumerate(scannet_conv_cases().items()):
         args, gout = padded_conv_args(i, shp, n_live, dev, dtype)
         live = kfe.live_row_table(args[4])
-        bounds = conv_bounds(shp, args[4], dtype)
+        bounds = conv_bounds(shp, args[3], args[4], dtype)
         out[name] = dict(
             fwd=forward_vs_plain(card, f"scannet_fwd_kernel_vs_plain {name}", shp, args, live,
                                  bounds["fwd"], 57 + i),
@@ -1907,7 +1946,7 @@ def g4_conv_kernels(card, dev, fill) -> dict:
         for i, (name, (shp, level)) in enumerate(G4_SHAPES.items()):
             args, gout = padded_conv_args(10 + i, shp, fill[level], dev, dt)
             live = kfe.live_row_table(args[4])
-            bounds = conv_bounds(shp, args[4], dt)
+            bounds = conv_bounds(shp, args[3], args[4], dt)
             out[dtype_name(dt)][name] = dict(
                 fwd=forward_vs_plain(card, f"g4_fwd_kernel_vs_plain {name}", shp, args, live,
                                      bounds["fwd"], 66 + i),
@@ -2176,7 +2215,7 @@ def std_conv_kernels(card, dev, fill) -> dict:
             n_live = fill[live_rows[1]] if isinstance(live_rows, tuple) else live_rows
             args, gout = std_conv_args(i, shp, n_live, dev, dt)
             live = kfe.live_row_table(args[4])
-            bounds = conv_bounds(shp, args[4], dt, d=3)
+            bounds = conv_bounds(shp, args[3], args[4], dt, d=3)
             before = dict(kfe.fused_equiv_fwd.launches_by_d), dict(kfe.fused_equiv_bwd.launches_by_d)
             out[dtype_name(dt)][name] = dict(
                 fwd=forward_vs_plain(card, f"std_fwd_kernel_vs_plain {name}", shp, args, live,
@@ -2478,7 +2517,7 @@ def modelnet_conv_kernels(card, dev, fill) -> dict:
               f"{plan['fwd_peak_mib']:.1f} MiB; backward scratch {plan['bwd_scratch_mib']:.1f} MiB, "
               f"w_splits {plan['w_splits']} ({plan['w_partials_mib']:.1f} MiB of d_w partials), p_blocks "
               f"{plan['p_blocks']}, one call's peak {plan['bwd_peak_mib']:.1f} MiB [{card}]", flush=True)
-        bounds = conv_bounds(shp, args[4], torch.float32, d=d)
+        bounds = conv_bounds(shp, args[3], args[4], torch.float32, d=d)
         reset_launches(kfe)
         out[name] = dict(
             plan=plan,
@@ -2769,10 +2808,17 @@ def write_modelnet_fixture(root: Path, n_train: int, n_test: int, seed: int) -> 
         (root / f"modelnet40_{split}.txt").write_text("\n".join(listed) + "\n")
 
 
+def write_room(path: Path, room: dict) -> None:
+    """One room of :func:`room_scene` in the ScanNet npz format (``points``,
+    ``normals``, ``colors``, ``labels_20``)."""
+    feats = room["features"].numpy()
+    np.savez(path, points=room["positions"].numpy(), normals=feats[:, :3], colors=feats[:, 3:],
+             labels_20=room["labels"].numpy().astype(np.int32))
+
+
 def write_scannet_fixture(root: Path, n_train: int, n_val: int, seed: int) -> None:
     """Synthetic rooms (:func:`room_scene`, ``SCENE_POINTS`` each) in the
-    ScanNet npz format (``points``, ``normals``, ``colors``, ``labels_20``),
-    with the split lists and ``color_stats.txt``."""
+    ScanNet npz format, with the split lists and ``color_stats.txt``."""
     root.mkdir(parents=True)
     (root / "color_stats.txt").write_text("0.5,0.5,0.5\n0.29,0.29,0.29\n")
     k = 0
@@ -2780,13 +2826,9 @@ def write_scannet_fixture(root: Path, n_train: int, n_val: int, seed: int) -> No
         (root / split).mkdir()
         names = []
         for _ in range(n):
-            room = room_scene(SCENE_POINTS, seed + k)
             name = f"scene{k:04d}_00"
+            write_room(root / split / f"{name}.npz", room_scene(SCENE_POINTS, seed + k))
             k += 1
-            feats = room["features"].numpy()
-            np.savez(root / split / f"{name}.npz", points=room["positions"].numpy(),
-                     normals=feats[:, :3], colors=feats[:, 3:],
-                     labels_20=room["labels"].numpy().astype(np.int32))
             names.append(name)
         (root / f"scannet_{split}.txt").write_text("\n".join(names) + "\n")
 
@@ -2906,98 +2948,550 @@ def cli_run(card, label, argv, convs, modes=None) -> dict:
     return exp, result
 
 
-def run_cli(card, dev) -> dict:
-    """23.-25. The training CLI on the card (see the module docstring)."""
-    import tempfile
-
+def run_cli(card, dev, tmp: Path) -> dict:
+    """23.-25. The training CLI on the card (see the module docstring), its
+    fixtures and log folders under ``tmp``, which phases 26-28 evaluate."""
     from se3conv3d_tpu_torch import native
     from se3conv3d_tpu_torch.train.config import dump_yaml_config, load_yaml_config
 
     out = {}
-    with tempfile.TemporaryDirectory(prefix="se3conv_cli_") as tmp:
-        tmp = Path(tmp)
-        # 23. DFaust: the recipe as written, B = 32, then a resume
-        conf, n_train, n_test, seed = CLI_DFAUST
-        t0 = time.perf_counter()
-        write_dfaust_fixture(tmp / "dfaust", n_train, n_test, seed)
-        print(f"cli_dfaust: fixture {n_train} train and {n_test} test bodies of {POINTS} points "
-              f"(numpy seeds {seed}, {seed + 1}) in {time.perf_counter() - t0:.2f} s", flush=True)
-        argv = ["--conf_file", conf, "--data_folder", str(tmp / "dfaust"), "--log_folder", str(tmp / "dfaust_log")]
-        exp, first = cli_run(card, "cli_dfaust", argv + ["--max_epochs", "1"], CONVS_PER_FORWARD)
-        saved = exp.ckpt.all_steps()
-        miou = first["val"].get("miou", float("nan"))
-        if saved != [0] or not 0.0 <= miou <= 1.0:
-            raise SystemExit(f"cli_dfaust: checkpoints {saved}, mIoU {miou}")
-        if load_yaml_config(str(tmp / "dfaust_log" / "config.yaml")) != exp.cfg:
-            raise SystemExit("cli_dfaust: config.yaml does not read back")
-        del exp
-        checked = []
-        with checking_restore(checked):
-            exp, resumed = cli_run(card, "cli_dfaust_resume", argv + ["--resume", "--max_epochs", "1"],
-                                   CONVS_PER_FORWARD)
-        if len(checked) != 1 or [h["epoch"] for h in exp.history] != [1]:
-            raise SystemExit(f"cli_dfaust_resume: restored {checked}, epochs {exp.history}")
-        print(f"cli_dfaust_resume: checkpoint {checked[0][0]} restored bitwise ({checked[0][1]} tensors of "
-              f"the model, {checked[0][2]} AdamW states); schedule at step "
-              f"{exp.optimizer.scheduler.last_epoch} [{card}]", flush=True)
-        out["dfaust"], out["dfaust_resume"] = first, resumed
-        del exp
-        torch.cuda.empty_cache()
+    # 23. DFaust: the recipe as written, B = 32, then a resume
+    conf, n_train, n_test, seed = CLI_DFAUST
+    t0 = time.perf_counter()
+    write_dfaust_fixture(tmp / "dfaust", n_train, n_test, seed)
+    print(f"cli_dfaust: fixture {n_train} train and {n_test} test bodies of {POINTS} points "
+          f"(numpy seeds {seed}, {seed + 1}) in {time.perf_counter() - t0:.2f} s", flush=True)
+    argv = ["--conf_file", conf, "--data_folder", str(tmp / "dfaust"), "--log_folder", str(tmp / "dfaust_log")]
+    exp, first = cli_run(card, "cli_dfaust", argv + ["--max_epochs", "1"], CONVS_PER_FORWARD)
+    saved = exp.ckpt.all_steps()
+    miou = first["val"].get("miou", float("nan"))
+    if saved != [0] or not 0.0 <= miou <= 1.0:
+        raise SystemExit(f"cli_dfaust: checkpoints {saved}, mIoU {miou}")
+    if load_yaml_config(str(tmp / "dfaust_log" / "config.yaml")) != exp.cfg:
+        raise SystemExit("cli_dfaust: config.yaml does not read back")
+    del exp
+    checked = []
+    with checking_restore(checked):
+        exp, resumed = cli_run(card, "cli_dfaust_resume", argv + ["--resume", "--max_epochs", "1"],
+                               CONVS_PER_FORWARD)
+    if len(checked) != 1 or [h["epoch"] for h in exp.history] != [1]:
+        raise SystemExit(f"cli_dfaust_resume: restored {checked}, epochs {exp.history}")
+    if exp.ckpt.all_steps() == [0]:  # no better mIoU: phase 26 ensembles two checkpoints
+        exp.save(1, float(resumed["val"].get("miou", float("nan"))))
+    print(f"cli_dfaust_resume: checkpoint {checked[0][0]} restored bitwise ({checked[0][1]} tensors of "
+          f"the model, {checked[0][2]} AdamW states); schedule at step "
+          f"{exp.optimizer.scheduler.last_epoch} [{card}]", flush=True)
+    out["dfaust"], out["dfaust_resume"] = first, resumed
+    del exp
+    torch.cuda.empty_cache()
 
-        # 24. ModelNet40: the recipe as written, B = 12; the npz cache written, then read
-        conf, n_train, n_test, seed = CLI_MODELNET
-        t0 = time.perf_counter()
-        write_modelnet_fixture(tmp / "modelnet", n_train, n_test, seed)
-        print(f"cli_modelnet40: fixture {n_train} train and {n_test} test shapes of {POINTS} points "
-              f"(numpy seeds {seed}, {seed + 1}) in {time.perf_counter() - t0:.2f} s", flush=True)
-        argv = ["--conf_file", conf, "--data_folder", str(tmp / "modelnet"), "--log_folder",
-                str(tmp / "modelnet_log"), "--max_epochs", "1"]
-        exp, mn = cli_run(card, "cli_modelnet40", argv, MN_CONVS)
-        acc = mn["val"].get("accuracy", float("nan"))
-        caches = sorted(p.name for p in (tmp / "modelnet").glob("tmp_*"))
-        if exp.train_ds.from_cache or caches != [f"tmp_test_{POINTS}.npz", f"tmp_train_{POINTS}.npz"] or not 0 <= acc <= 1:
-            raise SystemExit(f"cli_modelnet40: caches {caches}, accuracy {acc}")
-        del exp
-        exp, mn_again = cli_run(card, "cli_modelnet40_cached", argv + ["--resume"], MN_CONVS)
-        if not (exp.train_ds.from_cache and exp.val_ds.from_cache):
-            raise SystemExit("cli_modelnet40_cached: the npz cache was not read")
-        out["modelnet40"], out["modelnet40_cached"] = mn, mn_again
-        del exp
-        torch.cuda.empty_cache()
+    # 24. ModelNet40: the recipe as written, B = 12; the npz cache written, then read
+    conf, n_train, n_test, seed = CLI_MODELNET
+    t0 = time.perf_counter()
+    write_modelnet_fixture(tmp / "modelnet", n_train, n_test, seed)
+    print(f"cli_modelnet40: fixture {n_train} train and {n_test} test shapes of {POINTS} points "
+          f"(numpy seeds {seed}, {seed + 1}) in {time.perf_counter() - t0:.2f} s", flush=True)
+    argv = ["--conf_file", conf, "--data_folder", str(tmp / "modelnet"), "--log_folder",
+            str(tmp / "modelnet_log"), "--max_epochs", "1"]
+    exp, mn = cli_run(card, "cli_modelnet40", argv, MN_CONVS)
+    acc = mn["val"].get("accuracy", float("nan"))
+    caches = sorted(p.name for p in (tmp / "modelnet").glob("tmp_*"))
+    if exp.train_ds.from_cache or caches != [f"tmp_test_{POINTS}.npz", f"tmp_train_{POINTS}.npz"] or not 0 <= acc <= 1:
+        raise SystemExit(f"cli_modelnet40: caches {caches}, accuracy {acc}")
+    del exp
+    exp, mn_again = cli_run(card, "cli_modelnet40_cached", argv + ["--resume"], MN_CONVS)
+    if not (exp.train_ds.from_cache and exp.val_ds.from_cache):
+        raise SystemExit("cli_modelnet40_cached: the npz cache was not read")
+    out["modelnet40"], out["modelnet40_cached"] = mn, mn_again
+    del exp
+    torch.cuda.empty_cache()
 
-        # 25. ScanNet-20: the recipe as written (bf16, scan_scenes, 750,000-point
-        # budget) but for its two cuts; train step 2 in sorted mode
-        conf, n_train, n_val, seed = CLI_SCANNET
-        t0 = time.perf_counter()
-        write_scannet_fixture(tmp / "scannet", n_train, n_val, seed)
-        cfg = load_yaml_config(conf)
-        cfg["Training"].update(CLI_SCANNET_CUTS)
-        dump_yaml_config(cfg, str(tmp / "scannet20_rot_pca_I.yaml"))
-        print(f"cli_scannet20: fixture {n_train} train and {n_val} val rooms of {SCENE_POINTS} points "
-              f"(numpy seeds {seed}-{seed + n_train + n_val - 1}) in {time.perf_counter() - t0:.2f} s; "
-              f"{conf} as written but for Training {CLI_SCANNET_CUTS} [{card}]", flush=True)
-        argv = ["--conf_file", str(tmp / "scannet20_rot_pca_I.yaml"), "--data_folder", str(tmp / "scannet"),
-                "--log_folder", str(tmp / "scannet_log")]
-        exp, scan = cli_run(card, "cli_scannet20", argv, SCANNET_CONVS, modes=("scatter", "sorted"))
-        train_clouds = [n for k, n in scan["steps"] if k == "train_step"]
-        if scan["bf16_launches"] != scan["launches"] or scan["cumsum_launches"] != SCANNET_CONVS * train_clouds[1]:
-            raise SystemExit(f"cli_scannet20: bf16 launches {scan['bf16_launches']} of {scan['launches']}, "
-                             f"prefix sums {scan['cumsum_launches']} for {train_clouds}")
-        calls = scan["native_calls"]
-        if native.load_library() is None or not native.library_path().exists() or min(
-                calls["elastic_distortion"], calls["select_nearest"]) < 1:
-            raise SystemExit(f"cli_scannet20: the native library was not built or not used: {calls}")
-        if not exp.trainer.scan_scenes or not 0.0 <= scan["val"].get("miou", -1.0) <= 1.0:
-            raise SystemExit(f"cli_scannet20: scan_scenes {exp.trainer.scan_scenes}, val {scan['val']}")
-        scan["cuts"] = CLI_SCANNET_CUTS
-        out["scannet20"] = scan
-        del exp
-        torch.cuda.empty_cache()
+    # 25. ScanNet-20: the recipe as written (bf16, scan_scenes, 750,000-point
+    # budget) but for its two cuts; train step 2 in sorted mode
+    conf, n_train, n_val, seed = CLI_SCANNET
+    t0 = time.perf_counter()
+    write_scannet_fixture(tmp / "scannet", n_train, n_val, seed)
+    cfg = load_yaml_config(conf)
+    cfg["Training"].update(CLI_SCANNET_CUTS)
+    dump_yaml_config(cfg, str(tmp / "scannet20_rot_pca_I.yaml"))
+    print(f"cli_scannet20: fixture {n_train} train and {n_val} val rooms of {SCENE_POINTS} points "
+          f"(numpy seeds {seed}-{seed + n_train + n_val - 1}) in {time.perf_counter() - t0:.2f} s; "
+          f"{conf} as written but for Training {CLI_SCANNET_CUTS} [{card}]", flush=True)
+    argv = ["--conf_file", str(tmp / "scannet20_rot_pca_I.yaml"), "--data_folder", str(tmp / "scannet"),
+            "--log_folder", str(tmp / "scannet_log")]
+    exp, scan = cli_run(card, "cli_scannet20", argv, SCANNET_CONVS, modes=("scatter", "sorted"))
+    train_clouds = [n for k, n in scan["steps"] if k == "train_step"]
+    if scan["bf16_launches"] != scan["launches"] or scan["cumsum_launches"] != SCANNET_CONVS * train_clouds[1]:
+        raise SystemExit(f"cli_scannet20: bf16 launches {scan['bf16_launches']} of {scan['launches']}, "
+                         f"prefix sums {scan['cumsum_launches']} for {train_clouds}")
+    calls = scan["native_calls"]
+    if native.load_library() is None or not native.library_path().exists() or min(
+            calls["elastic_distortion"], calls["select_nearest"]) < 1:
+        raise SystemExit(f"cli_scannet20: the native library was not built or not used: {calls}")
+    if not exp.trainer.scan_scenes or not 0.0 <= scan["val"].get("miou", -1.0) <= 1.0:
+        raise SystemExit(f"cli_scannet20: scan_scenes {exp.trainer.scan_scenes}, val {scan['val']}")
+    scan["cuts"] = CLI_SCANNET_CUTS
+    out["scannet20"] = scan
+    del exp
+    torch.cuda.empty_cache()
     return out
 
 
+# the eval phases (26-28): the test CLIs (``python -m
+# se3conv3d_tpu_torch.tasks.test_seg`` / ``.test_class``, their ``main``) on
+# the log folders of phases 23-25, each recipe's test regime from
+# ``configs/``: DFaust as written with a 2-checkpoint ensemble; ModelNet40
+# and ScanNet with their vote epochs cut (the files: 50 and 30)
+EVAL_DFAUST = ("configs/dfaust/dfaust_test.yaml", 2)  # conf, checkpoints
+EVAL_MODELNET = ("configs/modelnet40/modelnet40_test_rot.yaml", 2)  # conf, vote epochs
+EVAL_SCANNET = ("configs/scannet/scannet20_test_pca_I_SO2.yaml", 2)  # conf, vote epochs
+# phase 28's whole val rooms (points, numpy seed): one within the recipe's
+# capacity of 131,072, two above it (buckets of 409,600 and 1,507,328); their
+# segments are the voxels of SEGMENT_VOXEL m they fall in
+EVAL_ROOMS = ((120_000, 260), (400_000, 261), (1_500_000, 262))
+SEGMENT_VOXEL = 0.2
+# the bucket-consistency check: the 400,000-point room voted again through
+# its bucket (bitwise the voter's) and through a trainer one bucket larger,
+# within BUCKET_RTOL of max |accum| (two readings, 0 and 1.423e-5, on
+# NVIDIA H100 80GB HBM3 at 700 W)
+BUCKET_ROOM = 1
+BUCKET_RTOL = 1e-4
+
+
+@contextlib.contextmanager
+def watching_evals(keep=lambda index, n_raw: False):
+    """Within: each ``Trainer.eval_ensemble`` call records its clouds,
+    members, generator seed, raw points, capacity, host-clock seconds in
+    all, in the hierarchy build and in ``live_row_table`` (its host
+    synchronisations), the peak device memory of the call (reset before
+    it), its logits on the host, and its batch and the hierarchy its build
+    gave (``built``) where ``keep(call index, n_raw)``; each
+    ``Trainer.load_member`` (an ensemble swap) and each
+    ``SegmentationVoter._accumulate`` records its seconds.  Every boundary
+    synchronises the card."""
+    from se3conv3d_tpu_torch.models import spec as spec_mod
+    from se3conv3d_tpu_torch.train.evaluate import SegmentationVoter
+    from se3conv3d_tpu_torch.train.trainer import Trainer
+
+    seen = {"calls": [], "swap_s": [], "accumulate_s": []}
+    originals = dict(build=Trainer.build, eval_ensemble=Trainer.eval_ensemble, load_member=Trainer.load_member,
+                     accumulate=SegmentationVoter._accumulate, live=spec_mod.live_row_table)
+    current, built = {}, {}
+
+    def build(self, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = originals["build"](self, *args, **kwargs)
+        torch.cuda.synchronize()
+        current["build_s"] = current.get("build_s", 0.0) + time.perf_counter() - t0
+        built["last"] = out
+        return out
+
+    def live(mask):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = originals["live"](mask)
+        current["live_rows_s"] = current.get("live_rows_s", 0.0) + time.perf_counter() - t0
+        current["live_rows_calls"] = current.get("live_rows_calls", 0) + 1
+        return out
+
+    def eval_ensemble(self, batch, members, generator=None, draws=None):
+        current.clear()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        outs = originals["eval_ensemble"](self, batch, members, generator, draws)
+        torch.cuda.synchronize()
+        n_raw = int(batch["mask"].sum())
+        rec = dict(clouds=int(batch["mask"].shape[0]), members=len(members), seed=generator.initial_seed(),
+                   n_raw=n_raw, capacity=int(batch["mask"].shape[1]), wall_s=time.perf_counter() - t0,
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                   logits=[o["logits"].float().cpu() for o in outs], **current)
+        rec["forward_s"] = rec["wall_s"] - rec.get("build_s", 0.0)
+        if keep(len(seen["calls"]), n_raw):
+            rec["batch"] = {k: v.clone() for k, v in batch.items()}
+            rec["built"] = built["last"]
+        built.clear()
+        seen["calls"].append(rec)
+        return outs
+
+    def load_member(self, state_dict):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        originals["load_member"](self, state_dict)
+        torch.cuda.synchronize()
+        seen["swap_s"].append(time.perf_counter() - t0)
+
+    def accumulate(self, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        originals["accumulate"](self, *args, **kwargs)
+        torch.cuda.synchronize()
+        seen["accumulate_s"].append(time.perf_counter() - t0)
+
+    try:
+        Trainer.build, Trainer.eval_ensemble, Trainer.load_member = build, eval_ensemble, load_member
+        SegmentationVoter._accumulate = accumulate
+        spec_mod.live_row_table = live
+        yield seen
+    finally:
+        Trainer.build, Trainer.eval_ensemble = originals["build"], originals["eval_ensemble"]
+        Trainer.load_member, SegmentationVoter._accumulate = originals["load_member"], originals["accumulate"]
+        spec_mod.live_row_table = originals["live"]
+
+
+def eval_run(card, label, cli, argv, convs, keep=lambda index, n_raw: False) -> tuple:
+    """One evaluation CLI ``main(argv)`` on the card, watched
+    (:func:`watching_evals`, the forwards' live-row tables): its voter and
+    summary, the launches (read from the counters, reset just before; every
+    forward is one eval step of one member), the records, wall time and
+    peak.  Fails the run on a backward or prefix-sum launch, on a forward
+    count other than ``convs`` per member per eval step, or on a forward
+    without its live-row table."""
+    from se3conv3d_tpu_torch.kernels import fused_equiv as kfe
+    from se3conv3d_tpu_torch.kernels import segsum
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(kfe, segsum)
+    t0 = time.perf_counter()
+    with watching_evals(keep) as seen, \
+            watching_live_rows(kfe, "fused_equiv_fwd") as live:
+        voter, summary = cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches(kfe)
+    bf16 = kfe.fused_equiv_fwd.bf16_launches
+    forwards = sum(c["members"] for c in seen["calls"])
+    if next(voter.trainer.model.parameters()).device.type != "cuda":
+        raise SystemExit(f"{label}: the CLI did not evaluate on the card")
+    if launches != (convs * forwards, 0) or segsum.blocked_cumsum.launches:
+        raise SystemExit(f"{label}: conv launches {launches}, prefix sums {segsum.blocked_cumsum.launches}; "
+                         f"expected ({convs * forwards}, 0) and none for {forwards} forwards")
+    check_live_rows(card, label, live, convs * forwards)
+    calls = seen["calls"]
+    print(f"{label}: {len(calls)} eval steps x members {[c['members'] for c in calls][:1]}, {forwards} forwards; "
+          f"conv launches (fwd, bwd) {launches}, bf16 {bf16}, prefix sums 0; wall {wall:.2f} s; peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; ensemble swaps {len(seen['swap_s'])} "
+          f"({1e3 * statistics.median(seen['swap_s']) if seen['swap_s'] else 0.0:.3f} ms median); "
+          f"live_row_table {sum(c.get('live_rows_calls', 0) for c in calls)} calls, "
+          f"{sum(c.get('live_rows_s', 0.0) for c in calls):.4f} s [{card}]", flush=True)
+    return voter, summary, dict(launches=launches, bf16_launches=bf16, forwards=forwards, wall_s=wall,
+                                peak_gib=torch.cuda.max_memory_allocated() / 2**30, seen=seen, live=live)
+
+
+def accumulate_direct(acc, out, n_raw) -> None:
+    """One eval output of one cloud (batch row 0) into ``acc`` as the voter
+    adds it: each valid output row's logits at its raw point."""
+    rows = torch.nonzero(out["mask"][0]).reshape(-1)
+    idx = out["out_idx"][0][rows]
+    ok = idx < n_raw
+    acc.index_add_(0, idx[ok].long(), out["logits"][0][rows[ok]].double())
+
+
+def write_eval_rooms(root: Path, train_from: Path) -> list:
+    """Phase 28's data folder: phase 25's train rooms (linked), and the
+    whole val rooms of ``EVAL_ROOMS`` with their segment files; returns the
+    val rooms' point counts."""
+    root.mkdir()
+    (root / "train").symlink_to(train_from / "train", target_is_directory=True)
+    for f in ("scannet_train.txt", "color_stats.txt"):
+        (root / f).write_text((train_from / f).read_text())
+    (root / "val").mkdir()
+    (root / "segments").mkdir()
+    names = []
+    for k, (n, seed) in enumerate(EVAL_ROOMS):
+        room = room_scene(n, seed)
+        name = f"scene{100 + k:04d}_00"
+        write_room(root / "val" / f"{name}.npz", room)
+        voxel = np.floor(room["positions"].numpy() / SEGMENT_VOXEL).astype(np.int64)
+        segments = np.unique(voxel, axis=0, return_inverse=True)[1].reshape(-1)
+        np.savez(root / "segments" / f"{name}_seg.npz", segments=segments)
+        names.append(name)
+    (root / "scannet_val.txt").write_text("\n".join(names) + "\n")
+    return [n for n, _ in EVAL_ROOMS]
+
+
+def pad_rows(x: torch.Tensor, rows: int, dim: int = 1) -> torch.Tensor:
+    """``x`` zero-padded along ``dim`` to ``rows``."""
+    pad = list(x.shape)
+    pad[dim] = rows - x.shape[dim]
+    return torch.cat([x, torch.zeros(pad, dtype=x.dtype, device=x.device)], dim)
+
+
+def atomic_sums(vm, s, mask, out_shape):
+    """The grid average's cell sums by ``scatter_add_`` on the card: float32
+    atomics, in no fixed order (the control of ``grid._cell_sums``)."""
+    from se3conv3d_tpu_torch.core import grid
+
+    return vm.new_zeros(out_shape).scatter_add_(1, grid._seg_index(s, vm), vm)
+
+
+@contextlib.contextmanager
+def atomic_cell_sums():
+    """Within: every grid average of the build sums its cells by
+    :func:`atomic_sums`."""
+    from se3conv3d_tpu_torch.core import grid
+
+    ordered = grid._cell_sums
+    grid._cell_sums = atomic_sums
+    try:
+        yield
+    finally:
+        grid._cell_sums = ordered
+
+
+def bucket_consistency(card, dev, voter, seen) -> dict:
+    """The 400,000-point room voted again with the voter's batches and
+    random draws (its generator seeds; the draws padded to the larger
+    capacities), as the CLI runs: twice through its own bucket, each the
+    voter's accumulator bitwise, and once through a trainer one bucket
+    larger, within ``BUCKET_RTOL`` of max |accum|.  Beside them, the
+    control: two votes through its bucket with the grid averages summed by
+    float32 atomics (:func:`atomic_cell_sums`), and how far apart they
+    land."""
+    from se3conv3d_tpu_torch.core.hierarchy import HierarchyDraws, draw_hierarchy
+    from se3conv3d_tpu_torch.train.evaluate import CAPACITY_BUCKET
+
+    n_raw, _ = EVAL_ROOMS[BUCKET_ROOM]
+    small_cap = -(-n_raw // CAPACITY_BUCKET) * CAPACITY_BUCKET
+    big_cap = small_cap + CAPACITY_BUCKET
+    small, big = voter.bucket_trainers[small_cap], voter.trainer_factory(big_cap)
+    recs = [c for c in seen["calls"] if c["n_raw"] == n_raw]
+
+    def vote(trainer, cap):
+        acc = torch.zeros_like(voter.accum[BUCKET_ROOM])
+        caps = trainer.eval_hcfg.resolve_capacities(cap)
+        out_cap = trainer.eval_hcfg.out_capacity
+        for rec in recs:
+            gen = torch.Generator(device=dev).manual_seed(rec["seed"])
+            d = draw_hierarchy(small.eval_hcfg, 1, small_cap, gen, dev)
+            draws = HierarchyDraws(level_frames=[pad_rows(x, c) for x, c in zip(d.level_frames, caps)],
+                                   out_uniforms=pad_rows(d.out_uniforms, out_cap),
+                                   out_frames=pad_rows(d.out_frames, out_cap))
+            batch = {k: pad_rows(v, cap) for k, v in rec["batch"].items()}
+            accumulate_direct(acc, trainer.eval_ensemble(batch, [None], draws=draws)[0], n_raw)
+        return acc
+
+    ref, again, acc = vote(small, small_cap), vote(small, small_cap), vote(big, big_cap)
+    with atomic_cell_sums():
+        atomic = [vote(small, small_cap) for _ in range(2)]
+    err, rel, _ = max_rel_err(acc, ref)
+    repeats, voters = torch.equal(ref, again), torch.equal(voter.accum[BUCKET_ROOM], ref)
+    atomic_rel = max_rel_err(atomic[1], atomic[0])[1]
+    print(f"eval_scannet20: the {n_raw}-point room voted again ({len(recs)} votes, the same draws): through "
+          f"bucket {small_cap} twice, bitwise the voter's accumulator: {voters}, a vote repeats bitwise: "
+          f"{repeats}; through bucket {big_cap}: max_abs_err={err:.3e} max_rel_err={rel:.3e} (bound "
+          f"{BUCKET_RTOL:.0e} of max |accum| {ref.abs().max().item():.4f}); control, the grid averages summed "
+          f"by float32 atomics: two votes {atomic_rel:.3e} of max apart, bitwise equal: "
+          f"{torch.equal(atomic[0], atomic[1])} [{card}]", flush=True)
+    if len(recs) != EVAL_SCANNET[1] or not (repeats and voters) or not rel <= BUCKET_RTOL:
+        raise SystemExit(f"eval_scannet20: a vote does not repeat ({repeats}, {voters}) or bucket {big_cap} "
+                         f"disagrees with bucket {small_cap} ({rel})")
+    return dict(buckets=[small_cap, big_cap], max_abs_err=err, max_rel_err=rel, repeats_bitwise=repeats,
+                voter_bitwise=voters, atomic_max_rel_err=atomic_rel)
+
+
+def grid_average_cost(card, dev, hcfg, cap) -> dict:
+    """Device ms of the 1.5M-point room's grid averages at its bucket
+    ``cap``: its raw positions into the level-0 cells, and the level-0
+    cloud (capacity rows, most of them padding) into the level-1 cells;
+    each with the cells summed in a fixed order (``grid._cell_sums``, what
+    the build runs) and by float32 atomics (:func:`atomic_sums`), and
+    whether each gives the same bits twice."""
+    from se3conv3d_tpu_torch.core import grid
+    from se3conv3d_tpu_torch.core.pointcloud import PointCloud
+
+    n, seed = EVAL_ROOMS[-1]
+    caps = hcfg.resolve_capacities(cap)
+    pos = pad_rows(room_scene(n, seed)["positions"].to(dev, torch.float32)[None], cap)
+    pc = PointCloud(positions=pos, mask=torch.arange(cap, device=dev)[None] < n)
+    out = {}
+    for level, cell in enumerate((hcfg.init_cell_size, hcfg.cell_sizes[0])):
+        smap = grid.build_grid_subsample(pc, cell, capacity=caps[level])
+        vm, mask = pc.positions * pc.mask[..., None], pc.mask
+        s = torch.where(mask, smap.cell_id, torch.zeros_like(smap.cell_id))
+        shape = (1, smap.capacity, 3)
+        for name, fn in (("ordered", grid._cell_sums), ("atomic", atomic_sums)):
+            first, second = fn(vm, s, mask, shape), fn(vm, s, mask, shape)
+            out[f"level{level}_{name}"] = dict(ms=cuda_ms(lambda: fn(vm, s, mask, shape), 20),
+                                               repeats_bitwise=torch.equal(first, second))
+        ordered, atomic = out[f"level{level}_ordered"], out[f"level{level}_atomic"]
+        print(f"eval_scannet20: the {n}-point room's level-{level} grid average ({int(mask.sum())} points of "
+              f"{mask.shape[1]} rows into {int(smap.n_cells[0])} cells of {smap.capacity}): cells summed in a "
+              f"fixed order {ordered['ms']:.4f} ms, repeats bitwise {ordered['repeats_bitwise']}; by float32 "
+              f"atomics {atomic['ms']:.4f} ms, repeats bitwise {atomic['repeats_bitwise']} [{card}]", flush=True)
+        if not ordered["repeats_bitwise"]:
+            raise SystemExit(f"eval_scannet20: the level-{level} grid average does not repeat bitwise")
+        pc = PointCloud(positions=smap.subsample(pc.positions), mask=smap.out_mask)
+    return out
+
+
+def whole_scene_forward(card, dev, live_seen) -> dict:
+    """The forward kernel at the whole 1.5M-point room's level-0 block conv
+    (bucket capacity, bfloat16 as the recipe computes) at that room's live
+    fill, each valid edge's source among the live rows, against its plain
+    version, with its bound and ``torch.matmul``
+    (:func:`forward_vs_plain`); the int32 index ranges of the shape."""
+    from se3conv3d_tpu_torch.kernels import fused_equiv as kfe
+    from se3conv3d_tpu_torch.train.evaluate import CAPACITY_BUCKET
+
+    cap = -(-EVAL_ROOMS[-1][0] // CAPACITY_BUCKET) * CAPACITY_BUCKET
+    n_live = max(live for live, rows in live_seen if rows == cap)
+    shp = (1, cap, cap, 24, 1, 1, 32, 64, 64)
+    b, m, n, k, g, f, q, c, o = shp
+    ranges = {"B*M*K": b * m * k, "B*N*F*C": b * n * f * c, "B*M*G*O": b * m * g * o}
+    args, gout = padded_conv_args(40, shp, n_live, dev, torch.bfloat16)
+    del gout
+    # as in the room, where the level-0 cloud is both the query and the
+    # source: a live point's neighbours are live points
+    args[3] = torch.where(args[4], args[3] % n_live, torch.zeros_like(args[3]))
+    live = kfe.live_row_table(args[4])
+    res = forward_vs_plain(card, "whole_scene_fwd_kernel_vs_plain scannet_1.5M_level0_block_conv", shp, args,
+                           live, conv_bounds(shp, args[3], args[4], torch.bfloat16)["fwd"], 70)
+    print(f"whole_scene: level-0 live rows {n_live} of {cap}; index ranges {ranges} (int32 limit "
+          f"{2**31 - 1}) [{card}]", flush=True)
+    if max(ranges.values()) >= 2**31:
+        raise SystemExit(f"whole_scene: an index range reaches 2**31: {ranges}")
+    del args, live
+    torch.cuda.empty_cache()
+    return dict(res, shape=shp, live_rows=n_live, index_ranges=ranges)
+
+
+def run_eval(card, dev, tmp: Path) -> dict:
+    """26.-28. The evaluation CLIs on the runs of phases 23-25 (see the
+    module docstring)."""
+    from se3conv3d_tpu_torch.tasks import test_class, test_seg
+    from se3conv3d_tpu_torch.train.checkpoint import CheckpointManager
+    from se3conv3d_tpu_torch.train.evaluate import CAPACITY_BUCKET
+    from se3conv3d_tpu_torch.utils.scannet_io import SCANNET_CLASS_IDS_20
+
+    out = {}
+    # 26. DFaust: the test regime as written (one vote over the 8 test
+    # bodies), a 2-checkpoint ensemble
+    conf, n_ckpt = EVAL_DFAUST
+    log = tmp / "dfaust_log"
+    argv = ["--conf_file", str(REPO / conf), "--data_folder", str(tmp / "dfaust"), "--log_folder", str(log),
+            "--checkpoints", str(n_ckpt)]
+    voter, summary, run = eval_run(card, "eval_dfaust", test_seg, argv, CONVS_PER_FORWARD,
+                                   keep=lambda index, n_raw: index == 0)
+    calls = run["seen"]["calls"]
+    steps = CheckpointManager(str(log / "ckpt")).all_steps()
+    if len(steps) < n_ckpt or [c["members"] for c in calls] != [n_ckpt] * len(voter.dataset):
+        raise SystemExit(f"eval_dfaust: checkpoints {steps}, members per step {[c['members'] for c in calls]}")
+    # the ensemble is the sum of its members: one eval_step per checkpoint
+    # (a build of its own, with the voter's seed), and each member alone on
+    # the voter's hierarchy of body 0
+    first = calls[0]
+    members = [CheckpointManager(str(log / "ckpt")).load(s, map_location=dev)["state"]["model"]
+               for s in steps[-n_ckpt:][::-1]]
+    h, f0, out_pc, _, raw_to_out = first["built"]
+    acc, rebuilt = torch.zeros_like(voter.accum[0]), torch.zeros_like(voter.accum[0])
+    with torch.no_grad():
+        for sd in members:
+            voter.trainer.load_member(sd)
+            accumulate_direct(acc, {"logits": voter.trainer._forward(h, f0, out_pc), "mask": out_pc.mask,
+                                    "out_idx": raw_to_out.chosen_idx}, first["n_raw"])
+            gen = torch.Generator(device=dev).manual_seed(0 * 100003 + 0)
+            accumulate_direct(rebuilt, voter.trainer.eval_step(first["batch"], gen), first["n_raw"])
+    # in float64: the sums of two float32 logits per point
+    scale = max(voter.accum[0].abs().max().item(), 1e-30)
+    build_err = (voter.accum[0] - rebuilt).abs().max().item() / scale
+    rel = (voter.accum[0] - acc).abs().max().item() / scale
+    print(f"eval_dfaust: {conf} as written, checkpoints {steps[-n_ckpt:][::-1]} (newest first): mIoU "
+          f"{summary['miou']:.4f}; body 0's accumulator (seed {first['seed']}) against the sum of one "
+          f"eval_step per checkpoint, each with a build of its own: max_rel_err={build_err:.3e}; against each "
+          f"checkpoint alone on its hierarchy: max_rel_err={rel:.3e} (bound 1e-12 each) [{card}]", flush=True)
+    if first["seed"] != 0 or not max(rel, build_err) <= 1e-12 or not 0.0 <= summary["miou"] <= 1.0:
+        raise SystemExit(f"eval_dfaust: the ensemble is not the sum of its members ({build_err}, {rel}) "
+                         f"or mIoU {summary['miou']}")
+    out["dfaust"] = dict(summary={k: summary[k] for k in ("miou", "macc", "overall_acc")}, checkpoints=steps,
+                         ensemble_max_rel_err=rel, rebuilt_max_rel_err=build_err, **eval_summary(run))
+    del voter, members, first, h, f0, out_pc, raw_to_out
+    torch.cuda.empty_cache()
+
+    # 27. ModelNet40: SO(3) test rotations, batches of 24 (12 real shapes and
+    # 12 copies of the last), two vote epochs in place of the file's 50
+    conf, votes = EVAL_MODELNET
+    argv = ["--conf_file", str(REPO / conf), "--data_folder", str(tmp / "modelnet"), "--log_folder", str(tmp / "modelnet_log"),
+            "--vote_epochs", str(votes)]
+    voter, summary, run = eval_run(card, "eval_modelnet40", test_class, argv, MN_CONVS)
+    calls = run["seen"]["calls"]
+    n_real = len(voter.dataset)
+    want = sum(c["logits"][0][:n_real].double() for c in calls).numpy()
+    if ([c["clouds"] for c in calls] != [voter.batch_size] * votes or voter.accum.shape != (n_real, MN_CLASSES)
+            or not np.array_equal(voter.accum, want) or not 0.0 <= summary["accuracy"] <= 1.0):
+        raise SystemExit(f"eval_modelnet40: batches {[c['clouds'] for c in calls]}, accum {voter.accum.shape}, "
+                         f"accumulated only the real shapes: {np.array_equal(voter.accum, want)}")
+    print(f"eval_modelnet40: {conf} but --vote_epochs {votes} (the file: 50), batch_size {voter.batch_size} "
+          f"from the file: {votes} batches of {voter.batch_size} clouds, {n_real} real shapes accumulated; "
+          f"accuracy {summary['accuracy']:.4f}, class accuracy {summary['class_accuracy']:.4f} [{card}]", flush=True)
+    out["modelnet40"] = dict(summary=summary, cut={"vote_epochs": votes}, **eval_summary(run))
+    del voter
+    torch.cuda.empty_cache()
+
+    # 28. ScanNet-20: whole rooms of 120,000, 400,000 and 1,500,000 points,
+    # PCA frames about z, two vote epochs in place of the file's 30, segment
+    # smoothing, the benchmark files
+    conf, votes = EVAL_SCANNET
+    t0 = time.perf_counter()
+    sizes = write_eval_rooms(tmp / "scannet_eval", tmp / "scannet")
+    print(f"eval_scannet20: val rooms of {sizes} points (numpy seeds {[s for _, s in EVAL_ROOMS]}) with "
+          f"{SEGMENT_VOXEL} m voxel segments written in {time.perf_counter() - t0:.2f} s; {conf} but "
+          f"--vote_epochs {votes} (the file: 30) [{card}]", flush=True)
+    preds = tmp / "scannet_preds"
+    argv = ["--conf_file", str(REPO / conf), "--data_folder", str(tmp / "scannet_eval"), "--log_folder", str(tmp / "scannet_log"),
+            "--vote_epochs", str(votes), "--smooth_segments", "--save_output", str(preds)]
+    voter, summary, run = eval_run(card, "eval_scannet20", test_seg, argv, SCANNET_CONVS,
+                                   keep=lambda index, n_raw: n_raw == EVAL_ROOMS[BUCKET_ROOM][0])
+    buckets = sorted(voter.bucket_trainers)
+    want_buckets = [-(-n // CAPACITY_BUCKET) * CAPACITY_BUCKET for n, _ in EVAL_ROOMS[1:]]
+    if run["bf16_launches"] != run["launches"][0] or buckets != want_buckets:
+        raise SystemExit(f"eval_scannet20: bf16 launches {run['bf16_launches']} of {run['launches']}, buckets {buckets}")
+    if voter.trainer.eval_hcfg.frames.fixed_axis != 2 or voter.trainer.eval_hcfg.frames.neigh_k != 16:
+        raise SystemExit(f"eval_scannet20: frames {voter.trainer.eval_hcfg.frames} are not the test regime's")
+    files = []
+    for name, n in zip(voter.dataset.file_list, sizes):
+        ids = np.loadtxt(preds / f"{name}.txt", dtype=np.int64)
+        files.append(int(ids.shape[0]))
+        if ids.shape != (n,) or not np.isin(ids, SCANNET_CLASS_IDS_20).all():
+            raise SystemExit(f"eval_scannet20: {name}.txt holds {ids.shape} ids, not one ScanNet-20 id per point")
+        if not (preds / f"{name}_colored.txt").exists():
+            raise SystemExit(f"eval_scannet20: no {name}_colored.txt")
+    if not 0.0 <= summary["miou"] <= 1.0:
+        raise SystemExit(f"eval_scannet20: mIoU {summary['miou']}")
+    seen_share = [float((a.sum(-1) != 0).double().mean()) for a in voter.accum]
+    for rec in run["seen"]["calls"]:
+        print(f"eval_scannet20: vote seed {rec['seed']} room of {rec['n_raw']} points at capacity {rec['capacity']}: "
+              f"{rec['wall_s']:.4f} s (build {rec['build_s']:.4f}, forward {rec['forward_s']:.4f}; "
+              f"live_row_table {rec.get('live_rows_calls', 0)} calls {rec.get('live_rows_s', 0.0):.4f} s), "
+              f"{rec['n_raw'] / rec['wall_s']:.1f} points/s, peak {rec['peak_gib']:.3f} GiB [{card}]", flush=True)
+    acc_s = run["seen"]["accumulate_s"]
+    print(f"eval_scannet20: buckets {buckets}; mIoU {summary['miou']:.4f} (segment-smoothed); share of raw points "
+          f"with a logit per room {[round(x, 4) for x in seen_share]}; accumulation {[round(x, 4) for x in acc_s]} s; "
+          f"label files of {files} lines [{card}]", flush=True)
+    consistency = bucket_consistency(card, dev, voter, run["seen"])
+    grid_avg = grid_average_cost(card, dev, voter.bucket_trainers[buckets[-1]].eval_hcfg, buckets[-1])
+    out["scannet20"] = dict(summary={k: summary[k] for k in ("miou", "macc", "overall_acc")}, buckets=buckets,
+                            cut={"vote_epochs": votes}, seen_share=seen_share, accumulate_s=acc_s,
+                            bucket_consistency=consistency, grid_average=grid_avg, **eval_summary(run))
+    live = run["live"]
+    del voter, run
+    torch.cuda.empty_cache()
+    out["whole_scene_fwd"] = whole_scene_forward(card, dev, live)
+    return out
+
+
+def eval_summary(run) -> dict:
+    """What the ``kernels`` line keeps of an eval run: launches, steps,
+    times and peaks (no logits, no batches)."""
+    calls = [{k: v for k, v in c.items() if k not in ("logits", "batch", "built")} for c in run["seen"]["calls"]]
+    return dict(launches=run["launches"], bf16_launches=run["bf16_launches"], forwards=run["forwards"],
+                wall_s=run["wall_s"], peak_gib=run["peak_gib"], steps=calls, swap_s=run["seen"]["swap_s"])
+
+
 def kernels_line(dfaust: dict, scan: dict, mixf: dict, rot_i: dict, g4: dict, std: dict, mn: dict,
-                 cli: dict) -> dict:
+                 cli: dict, evals: dict) -> dict:
     """The ``{"kernels": [...]}`` object: every kernel with its launches on
     the main paths, its error against its plain version, and its times at
     the ScanNet level-0 shape (float32), with the same for its bfloat16
@@ -3011,7 +3505,10 @@ def kernels_line(dfaust: dict, scan: dict, mixf: dict, rot_i: dict, g4: dict, st
     ``"by_shape"``); each conv entry's ModelNet40 launches (phase 22) are in
     its ``launches``, and its times at phase 21's shapes, with their plans,
     under ``"modelnet"``; the launches of the CLI runs of phases 23-25 are
-    in each entry's ``launches`` (``cli_*`` paths)."""
+    in each entry's ``launches`` (``cli_*`` paths), and those of the eval
+    CLIs of phases 26-28 (``eval_*`` paths, forwards only), with the
+    forward's times at the whole 1.5M-point room's level-0 shape of phase 28
+    under ``"whole_scene_bf16"``."""
     compared, bwd_compared = dfaust["fwd"], dfaust["bwd"]
     scan_conv, scan_cumsum, scan_train, scan_eval = scan["conv"], scan["cumsum"], scan["train"], scan["eval"]
     lvl0 = SCANNET_SHAPES["scannet_level0_block_conv"]
@@ -3038,6 +3535,9 @@ def kernels_line(dfaust: dict, scan: dict, mixf: dict, rot_i: dict, g4: dict, st
                 every[f"cli_{name}"] = run["launches"][which]
                 if name.startswith("scannet"):  # every launch a bfloat16 one (gated)
                     bf16[f"cli_{name}"] = run["launches"][which]
+            for name in ("dfaust", "modelnet40", "scannet20"):  # the eval CLIs of phases 26-28
+                every[f"eval_{name}"] = evals[name]["launches"][which]
+            bf16["eval_scannet20"] = evals["scannet20"]["bf16_launches"] if which == 0 else 0
         else:
             every["cli_scannet20_sorted_step"] = cli["scannet20"]["cumsum_launches"]
         for dt in SCANNET_DTYPES:
@@ -3103,7 +3603,14 @@ def kernels_line(dfaust: dict, scan: dict, mixf: dict, rot_i: dict, g4: dict, st
             },
             "modelnet": {"launches": sum(v for k, v in every.items() if k.startswith("modelnet40")),
                          "float32": mn_entry(kind, lib_key, mn_equiv)},
+            **({"whole_scene_bf16": whole_scene} if kind == "fwd" else {}),
         }
+
+    ws = evals["whole_scene_fwd"]
+    whole_scene = {k: ws[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                      "live_rows", "index_ranges")}
+    whole_scene["at"] = (f"whole 1.5M-point room's level-0 block conv B,M,N,K,G,F,Q,C,O={ws['shape']} at its "
+                         f"live fill, bfloat16")
 
     def std_entry(kind, which, name, source, replaces, lib_key, lib_call):
         sd, ss = std["dfaust"], std["scannet"]
@@ -3170,7 +3677,8 @@ def kernels_line(dfaust: dict, scan: dict, mixf: dict, rot_i: dict, g4: dict, st
         }], "scannet": {"eval": scan_eval, "train": scan_train, "grid_vs_brute": scan["grid"]},
         "dfaust": {"train_bf16": dfaust["bf16_train"]}, "dfaust_mixf": mixf, "scannet20_rot_I": rot_i,
         "standard": {"dfaust": std["dfaust"], "scannet": std["scannet"]},
-        "modelnet40": {"runs": mn["runs"], "profile": mn["profile"]}, "cli": cli}
+        "modelnet40": {"runs": mn["runs"], "profile": mn["profile"]}, "cli": cli,
+        "eval": {k: v for k, v in evals.items() if k != "whole_scene_fwd"}}
 
 
 def main() -> int:
@@ -3225,7 +3733,7 @@ def main() -> int:
             args = as_operands(conv_inputs(*shp, seed=10 + i, dev=dev), dt)
             compared[dtype_name(dt)][name] = forward_vs_plain(
                 card, f"kernel_vs_plain {name}", shp, args, kfe.live_row_table(args[4]),
-                conv_bounds(shp, args[4], dt)["fwd"], 15 + i)
+                conv_bounds(shp, args[3], args[4], dt)["fwd"], 15 + i)
             del args
             torch.cuda.empty_cache()
 
@@ -3249,7 +3757,7 @@ def main() -> int:
             gout = torch.randn(b, m, g_, o, device=dev, generator=torch.Generator(device=dev).manual_seed(30 + i))
             bwd_compared[dtype_name(dt)][name] = backward_vs_plain(
                 card, f"bwd_kernel_vs_plain {name}", shp, args, gout, kfe.live_row_table(args[4]),
-                conv_bounds(shp, args[4], dt)["bwd"], 35 + i)
+                conv_bounds(shp, args[3], args[4], dt)["bwd"], 35 + i)
             del args, gout
             torch.cuda.empty_cache()
 
@@ -3300,16 +3808,19 @@ def main() -> int:
     scan = run_scannet(card, dev, RecordedDraws, DropPathDraws)
     # 20. the ScanNet standard recipe as written (bfloat16)
     std["scannet"] = scannet_standard(card, dev, RecordedDraws, DropPathDraws)
-    # 23.-25. the training CLI on the DFaust, ModelNet40 and ScanNet recipes
+    # 23.-25. the training CLI on the DFaust, ModelNet40 and ScanNet recipes,
+    # 26.-28. the evaluation CLIs on their runs
     torch.cuda.empty_cache()
-    cli = run_cli(card, dev)
+    with tempfile.TemporaryDirectory(prefix="se3conv_cli_") as tmp:
+        cli = run_cli(card, dev, Path(tmp))
+        evals = run_eval(card, dev, Path(tmp))
     # the profiled ModelNet40 train step last: a profiled run slows the launches after it
     mn = dict(conv=mn_conv, runs=mn_runs, profile=modelnet_profile(card, dev, mn_batch))
     del mn_batch
     dfaust = dict(fwd=compared, bwd=bwd_compared, eval_launches=launches,
                   train_launches=dfaust_steps["launches"], bf16_train_launches=dfaust_bf16["bf16_launches"],
                   bf16_train=dfaust_bf16)
-    print(json.dumps(kernels_line(dfaust, scan, mixf, rot_i, g4, std, mn, cli)))
+    print(json.dumps(kernels_line(dfaust, scan, mixf, rot_i, g4, std, mn, cli, evals)))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -62,12 +62,40 @@ def _seg_index(seg: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
     return seg.reshape(seg.shape + (1,) * (values.dim() - 2)).expand_as(values)
 
 
+def _cell_sums(vm: torch.Tensor, s: torch.Tensor, mask: torch.Tensor, out_shape) -> torch.Tensor:
+    """``vm [B, N, ...]`` (zero at padded points) summed into ``out_shape
+    [B, cells, ...]`` by cell ``s [B, N]``, in a fixed order.
+
+    On the CPU ``scatter_add_`` adds a cell's points in index order.  On a
+    GPU its float atomics add them in an order that changes from call to
+    call, and a PCA frame of a flat patch can turn with the last bit of a
+    cell average: there the sums come from :func:`_sorted_cell_sums`.
+    """
+    if vm.is_cuda:
+        return _sorted_cell_sums(vm, s, mask, out_shape)
+    return vm.new_zeros(out_shape).scatter_add_(1, _seg_index(s, vm), vm)
+
+
+def _sorted_cell_sums(vm, s, mask, out_shape):
+    """:func:`_cell_sums` by ``index_put_`` with ``accumulate``, which sorts
+    the indices and adds each cell's points in one thread, so every call
+    gives the same bits.  Each padded point (``~mask``) gets a spare cell
+    of its own past the real ones, dropped after: a capacity-padded cloud
+    would otherwise add all its padding into one cell, serially."""
+    b, n = s.shape
+    cells = out_shape[1]
+    seg = torch.where(mask, s, cells + torch.arange(n, device=s.device))
+    rows = torch.arange(b, device=s.device)[:, None].expand_as(s)
+    out = vm.new_zeros((b, cells + n) + tuple(out_shape[2:]))
+    return out.index_put_((rows, seg), vm, accumulate=True)[:, :cells]
+
+
 def _segment_mean(values, seg_ids, mask, num_segments):
     mf = mask.to(values.dtype)
     vm = values * mf.reshape(mask.shape + (1,) * (values.dim() - 2))
     s = torch.where(mask, seg_ids, torch.zeros_like(seg_ids))
     out_shape = (values.shape[0], num_segments) + values.shape[2:]
-    total = values.new_zeros(out_shape).scatter_add_(1, _seg_index(s, vm), vm)
+    total = _cell_sums(vm, s, mask, out_shape)
     count = values.new_zeros(values.shape[0], num_segments).scatter_add_(1, s, mf)
     count = count.clamp(min=1.0).reshape(count.shape + (1,) * (values.dim() - 2))
     return total / count

@@ -44,9 +44,11 @@ class ClassNet(nn.Module):
         init_parameters(self, generator)
 
     def forward(self, hierarchy: Hierarchy, features: torch.Tensor, *, calibrate: bool = False,
-                drops: Optional[DropPathDraws] = None) -> torch.Tensor:
+                drops: Optional[DropPathDraws] = None,
+                provider: Optional[NeighborhoodProvider] = None) -> torch.Tensor:
         s = self.spec
-        provider = NeighborhoodProvider(hierarchy, s, collect_trunc=calibrate)
+        if provider is None:
+            provider = NeighborhoodProvider(hierarchy, s, collect_trunc=calibrate)
         feats = self.encoder(hierarchy, features, provider, calibrate, drops)[-1]
         if feats.dim() == 4 and s.frame_pooling_method is not None:
             feats = frame_pool(feats, s.frame_pooling_method)

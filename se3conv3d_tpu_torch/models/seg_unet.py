@@ -52,9 +52,13 @@ class FPNSegUNet(nn.Module):
         init_parameters(self, generator)
 
     def forward(self, hierarchy: Hierarchy, features: torch.Tensor, out_pc: PointCloud,
-                calibrate: bool = False, drops: Optional[DropPathDraws] = None) -> torch.Tensor:
+                calibrate: bool = False, drops: Optional[DropPathDraws] = None,
+                provider: Optional[NeighborhoodProvider] = None) -> torch.Tensor:
+        """``provider``: the neighborhood cache of ``hierarchy`` to read (a
+        checkpoint ensemble shares one); by default a new one."""
         s = self.spec
-        provider = NeighborhoodProvider(hierarchy, s, collect_trunc=calibrate)
+        if provider is None:
+            provider = NeighborhoodProvider(hierarchy, s, collect_trunc=calibrate)
         enc = self.encoder(hierarchy, features, provider, calibrate, drops)
         x = self.fpn_decoder(hierarchy, enc, provider, calibrate, drops)
         neigh_out = provider.to_cloud(

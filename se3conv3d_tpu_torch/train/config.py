@@ -1,6 +1,7 @@
 """Recipes (counterpart of ``se3conv3d_tpu/train/config.py``): reading and
-writing a recipe's YAML file, its augmentation modules, and building the
-model from its ``Model`` section.
+writing a recipe's YAML file, overlaying a test-regime YAML on the training
+recipe it evaluates, its augmentation modules, and building the model from
+its ``Model`` section.
 
 The recipes are read by the port's own reader of the YAML subset they use
 (``utils/yaml_subset.py``), not by PyYAML.
@@ -12,8 +13,9 @@ never falls back to the CPU.
 """
 from __future__ import annotations
 
+import copy
 import importlib
-from typing import Any, Dict, List, Optional, Union
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
 
@@ -22,7 +24,8 @@ from ..models.presets import CLASS_PRESETS, spec_from_model_dict
 from ..models.seg_unet import FPNSegUNet
 from ..utils import yaml_subset
 
-__all__ = ["load_yaml_config", "dump_yaml_config", "load_augmentations", "build_model_from_config"]
+__all__ = ["load_yaml_config", "dump_yaml_config", "is_test_config", "merge_test_config",
+           "load_augmentations", "build_model_from_config"]
 
 
 def load_yaml_config(path: str) -> Dict[str, Any]:
@@ -39,6 +42,42 @@ def dump_yaml_config(cfg: Dict[str, Any], path: str) -> None:
     """Write ``cfg`` as YAML that :func:`load_yaml_config` (and PyYAML's
     ``safe_load``) read back equal."""
     yaml_subset.dump(cfg, path)
+
+
+def is_test_config(cfg: Dict[str, Any]) -> bool:
+    """True for a test-regime YAML: a ``Testing`` section and no ``Model``
+    section (e.g. ``configs/scannet/scannet20_test_pca_I_SO2.yaml``)."""
+    return bool(cfg.get("Testing")) and not cfg.get("Model")
+
+
+def merge_test_config(train_cfg: Dict[str, Any], test_cfg: Dict[str, Any]
+                      ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """Overlay a test-regime YAML on the training recipe it evaluates, as
+    the JAX package's ``merge_test_config``: the model comes from the
+    training recipe; the eval split (``Dataset.split`` becomes
+    ``test_split``) and augmentation modules from the test YAML's
+    ``Dataset``; ``Testing.RefFrames`` overrides the model's frames (its
+    ``n_frames`` becomes ``test_n_frames``) and ``Testing.batch_size``
+    becomes ``Training.batch_size``.  Returns ``(merged, testing)``, with
+    ``testing`` the raw ``Testing`` section (``num_epochs``: the votes;
+    ``save_folder``: where predictions go)."""
+    merged = copy.deepcopy(train_cfg)
+    testing = dict(test_cfg.get("Testing") or {})
+    ds = dict(test_cfg.get("Dataset") or {})
+    out_ds = merged.setdefault("Dataset", {})
+    if "split" in ds:
+        out_ds["test_split"] = ds.pop("split")
+    out_ds.update(ds)
+    rf = testing.get("RefFrames")
+    if rf:
+        model_rf = dict(merged.setdefault("Model", {}).get("RefFrames") or {})
+        model_rf.update({k: v for k, v in rf.items() if k != "n_frames"})
+        if "n_frames" in rf:
+            model_rf["test_n_frames"] = int(rf["n_frames"])
+        merged["Model"]["RefFrames"] = model_rf
+    if "batch_size" in testing:
+        merged.setdefault("Training", {})["batch_size"] = testing["batch_size"]
+    return merged, testing
 
 
 def load_augmentations(dotted_path: Optional[str]) -> List[dict]:

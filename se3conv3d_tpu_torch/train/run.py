@@ -47,14 +47,11 @@ from .checkpoint import CheckpointManager
 from .config import build_model_from_config, dump_yaml_config, load_augmentations, load_yaml_config
 from .metrics import SemSegMetrics, dataset_class_mask
 from .schedule import optimizer_from_training
-from .trainer import Trainer, draw_n_frames
+from .trainer import Trainer, draw_n_frames, to_tensors
 
-__all__ = ["Experiment", "make_datasets"]
+__all__ = ["Experiment", "make_datasets", "restore_ensemble"]
 
 _NUM_CLASSES = {"dfaust": 20, "scannet20": 21, "scannet200": 201, "modelnet40": 40}
-# the batch keys a step reads, and the dtypes the Trainer takes
-_TENSOR_KEYS = {"positions": torch.float32, "mask": torch.bool, "features": torch.float32,
-                "labels": torch.int64}
 # the run's seed: the model's init and the hierarchy and DropPath draws
 # (the JAX run loop's keys are PRNGKey(0)-style constants too)
 SEED = 0
@@ -235,8 +232,7 @@ class Experiment:
 
     def _put(self, batch: dict) -> dict:
         """The keys a step reads, as tensors on the model's device."""
-        return {k: torch.from_numpy(np.asarray(batch[k])).to(self.device, dt)
-                for k, dt in _TENSOR_KEYS.items() if k in batch}
+        return to_tensors(batch, self.device)
 
     # --------------------------------------------------------------- phases
     def init_state(self) -> None:
@@ -400,3 +396,15 @@ class Experiment:
             print(line, flush=True)
         wandb.finish()
         return val
+
+
+def restore_ensemble(exp: Experiment, n_checkpoints: int) -> List[dict]:
+    """The model ``state_dict`` of each of the newest ``n_checkpoints``
+    checkpoints of ``exp``, newest first, on its device: a checkpoint
+    ensemble (reference ``tasks/Classification/test_rot.py:73-156``, the
+    JAX package's ``tasks/test_seg.py:restore_ensemble``)."""
+    steps = exp.ckpt.all_steps()
+    if not steps:
+        raise SystemExit(f"no checkpoint under {exp.ckpt.directory}")
+    return [exp.ckpt.load(step, map_location=exp.device)["state"]["model"]
+            for step in steps[-n_checkpoints:][::-1]]

@@ -21,6 +21,12 @@ scene and BN statistics update scene after scene; then every gradient is
 divided by the summed count of valid points, and one clipped optimizer step
 follows.  The steps run on the model's device and move the batch there.
 
+An eval step may serve a checkpoint ensemble (:meth:`Trainer.eval_ensemble`):
+the hierarchy is built once, with one draw of its random numbers, and each
+member's weights are loaded into the model in turn and run on it with one
+shared neighborhood cache, so every member sees the same hierarchy and
+frames, as every member of a JAX ensemble gets the same key.
+
 A train step may take its own frame count (``n_frames``): the recipes with
 ``RefFrames.mix_n_frames`` draw one per micro-batch (:func:`draw_n_frames`,
 as the JAX package's ``train/run.py``).  The parameters do not depend on
@@ -32,18 +38,30 @@ micro-batch and every k-th one updates the parameters.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..core.hierarchy import HierarchyConfig, HierarchyDraws, build_hierarchy
 from ..models.class_net import ClassNet
+from ..models.spec import NeighborhoodProvider
 from ..nn.blocks import DropPathDraws
 from .losses import classification_loss_parts, masked_segmentation_loss_parts
 from .schedule import Optimizer
 
-__all__ = ["Trainer", "draw_n_frames"]
+__all__ = ["Trainer", "draw_n_frames", "to_tensors"]
+
+# the batch keys a step reads, and the dtypes the Trainer takes
+_TENSOR_KEYS = {"positions": torch.float32, "mask": torch.bool, "features": torch.float32,
+                "labels": torch.int64}
+
+
+def to_tensors(batch: dict, device) -> dict:
+    """The keys a step reads of a numpy batch (``data.pad_collate``), as
+    tensors on ``device``."""
+    return {k: torch.from_numpy(np.asarray(batch[k])).to(device, dt)
+            for k, dt in _TENSOR_KEYS.items() if k in batch}
 
 
 def draw_n_frames(mix: Dict[int, float], rng: np.random.Generator) -> int:
@@ -211,13 +229,33 @@ class Trainer:
         """Logits (``[B, M, classes]``; classification ``[B, classes]``),
         output mask, and (with labels) the loss and output labels;
         ``out_idx`` maps output points to raw ones."""
+        return self.eval_ensemble(batch, [None], generator, draws)[0]
+
+    def load_member(self, state_dict: dict) -> None:
+        """Load one ensemble member's weights (a model ``state_dict``)."""
+        self.model.load_state_dict(state_dict)
+
+    @torch.no_grad()
+    def eval_ensemble(self, batch: dict, members: Sequence[Optional[dict]],
+                      generator: Optional[torch.Generator] = None,
+                      draws: Optional[HierarchyDraws] = None) -> List[dict]:
+        """:meth:`eval_step` of each member of a checkpoint ensemble, in
+        order, on one hierarchy built once: a member is a model
+        ``state_dict``, loaded before its forward, or None for the weights
+        the model holds.  The members share the neighborhood cache."""
         h, f0, out_pc, out_labels, raw_to_out = self.build(batch, generator, draws, train=False)
         self.model.eval()
-        logits = self._forward(h, f0, out_pc)
-        out = {"logits": logits, "mask": out_pc.mask}
-        if out_labels is not None:
-            out["loss"] = self._loss(logits, out_labels, out_pc)
-            out["labels"] = out_labels
-        if raw_to_out is not None:
-            out["out_idx"] = raw_to_out.chosen_idx
-        return out
+        provider = NeighborhoodProvider(h, self.model.spec)
+        outs = []
+        for member in members:
+            if member is not None:
+                self.load_member(member)
+            logits = self._forward(h, f0, out_pc, provider=provider)
+            out = {"logits": logits, "mask": out_pc.mask}
+            if out_labels is not None:
+                out["loss"] = self._loss(logits, out_labels, out_pc)
+                out["labels"] = out_labels
+            if raw_to_out is not None:
+                out["out_idx"] = raw_to_out.chosen_idx
+            outs.append(out)
+        return outs

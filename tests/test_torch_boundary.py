@@ -1,5 +1,5 @@
 """Boundaries of the PyTorch port: it runs without JAX, PyYAML, h5py or the
-JAX package (its training CLI too), importing it touches no triton and no
+JAX package (its training and evaluation CLIs too), importing it touches no triton and no
 CUDA, its native library builds only into its git-ignored directory, and
 ``chip_smoke.py`` refuses to report a result without a GPU."""
 import os
@@ -33,6 +33,7 @@ def test_cpu_slice_runs_with_jax_poisoned(tmp_path):
     conf = tmp_path / "recipe.yaml"
     conf.write_text(yaml.safe_dump(recipe))
     argv = ["--conf_file", str(conf), "--data_folder", root, "--log_folder", str(tmp_path / "log")]
+    test_argv = ["--conf_file", "configs/dfaust/dfaust_test.yaml"] + argv[2:]
     code = textwrap.dedent(f"""
         import sys
         for name in {FORBIDDEN!r}:
@@ -64,6 +65,9 @@ def test_cpu_slice_runs_with_jax_poisoned(tmp_path):
         from se3conv3d_tpu_torch.tasks.train import main
         exp = main({argv!r}, device="cpu")
         assert exp.ckpt.all_steps() == [0] and exp.trainer.step == 1
+        from se3conv3d_tpu_torch.tasks.test_seg import main as test_seg
+        voter, summary = test_seg({test_argv!r}, device="cpu")
+        assert 0.0 <= summary["miou"] <= 1.0 and voter.accum[0].shape == (96, 20)
         assert "triton" not in sys.modules or sys.modules["triton"] is None
         assert not torch.cuda.is_initialized()
         print("port-ok")

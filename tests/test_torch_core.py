@@ -63,6 +63,22 @@ def test_grid_avg_point_sets(cell):
         np.testing.assert_allclose(_sorted_rows(ours), _sorted_rows(ref), atol=1e-6, rtol=0)
 
 
+@pytest.mark.parametrize("cell,cap", [(0.08, 160), (0.2, 160), (0.08, 48)])  # 48: overflow clip
+def test_sorted_cell_sums_match_scatter_add(cell, cap):
+    """The grid average's cell sums as a GPU computes them (sorted
+    ``index_put_``, a spare cell per padded point), run here, against the
+    CPU's ``scatter_add_`` on the same cells."""
+    pts, mask = _cloud(3, tail=(0, 120))
+    tm = grid.build_grid_subsample(PointCloud(t(pts), t(mask)), cell, capacity=cap)
+    m = t(mask)
+    vm = t(pts) * m[..., None]
+    s = torch.where(m, tm.cell_id, torch.zeros_like(tm.cell_id))
+    shape = (2, cap, 3)
+    ours = grid._sorted_cell_sums(vm, s, m, shape)
+    assert ours.shape == shape
+    np.testing.assert_allclose(ours.numpy(), grid._cell_sums(vm, s, m, shape).numpy(), atol=1e-6, rtol=0)
+
+
 def test_grid_rnd_with_injected_uniforms_and_overflow_clip():
     pts, mask = _cloud(1)
     cap = 48  # fewer than the occupied cells: overflow clips into the last cell
