@@ -17,7 +17,10 @@ models of ``configs/dfaust/dfaust_I_standard.yaml`` and
 convs run both kernels' standard-geometry (kD = 3) instantiations; and the
 ModelNet40 classification recipes
 ``configs/modelnet40/modelnet40_{pca_2F,MC_2F,standard}.yaml`` (ClassNet,
-widths up to 512).  In the order they run:
+widths up to 512); and the other conv kinds of the JAX ``PNEConv`` on the
+DFaust models: the relu, sin and linear activations and the kernel-point
+convs through the kernels, the XLA-path kinds in PyTorch ops.  In the
+order they run:
 
 1. builds the three kernel sources (conv forward, conv backward, blocked
    prefix sum) from ``kernels/csrc`` with ``nvcc``, one process per source,
@@ -35,7 +38,11 @@ widths up to 512).  In the order they run:
 4. checks that a global rotation of the hierarchy leaves the logits
    unchanged;
 5. checks that the same model and hierarchy on the CPU (plain path) give
-   the same logits at B=2;
+   the same logits at B=2; then 4 and 5 again with every BN's running
+   statistics seeded from its own input (the logits of a fresh model
+   hardly depend on its convs), each beside a control it must fail: the
+   frames left unrotated, the first conv's kernel planted with another
+   activation (:func:`dfaust_model_gates`);
 6. holds the backward kernel against its plain PyTorch version at the
    three shapes of phase 2, in float32 and in bfloat16 (with the control of
    phase 2), in both feature-gradient output modes (atomic scatter; rows at
@@ -94,6 +101,40 @@ widths up to 512).  In the order they run:
     step at kD = 3, finite losses, moved BN means; card vs CPU parameter
     gradients at B=2 (phase 8's bound); the step time and peak beside
     phase 7's equivariant step;
+29. holds both conv kernels with each pne activation, gelu, then relu, sin
+    and linear (the TPU kernel's ``_ACTS``), then gelu's kernels timed again,
+    against their plain versions at the ScanNet level-0 block conv, fully
+    live, in the equivariant geometry (kD = 9) in float32 and bfloat16 and in
+    the standard one (kD = 3) in bfloat16, and where phase 31's models run
+    them, the DFaust level-0 and level-4 convs in both geometries (G = F =
+    2 and 1) in float32 at the bodies' fill, with the gates of phases 2 and
+    6, each timed beside its bound, its plain version and ``torch.matmul``;
+    the gelu times, taken in turns with the others, show what the run-time
+    activation switch costs the recipes' path;
+30. holds both kernels' kernel-point instantiation (the P correlation
+    weights of each edge computed in the kernel from its float32 offset)
+    for gauss, linear and box at P = 13 and P = 55 against their plain
+    versions at the DFaust standard model's level-0 shape (B=32, M=N=4096,
+    K=32, C=O=32, the bodies' level-0 fill; float32), at its level-4 block
+    conv (M=N=128, C=O=256, the level-4 fill; float32) and at the standard
+    ScanNet level-0 block conv (bfloat16), with the same gates and times;
+31. builds ``dfaust_I_standard`` with both conv factories swapped (as a user
+    does with ``get_model_spec(..., conv=..., conv_blocks=...)``) to
+    ``kp_gauss`` and ``kp_linear_double``: a calibration step and eval
+    steps, card vs CPU logits at B=2, train steps in scatter mode and one in
+    sorted mode (its prefix sums counted), 21 forward and 21 backward
+    launches per step, all at their (correlation, P); the other four kp
+    types, and ``dfaust_I_rot_pca_2F`` and ``dfaust_I_standard`` with
+    ``mlp_relu``, ``mlp_sin`` and ``mlp_linear``, one calibration and one
+    train step each, then card vs CPU logits at B=2 and the equivariant
+    ones' logits unchanged by a global rotation.  These model gates run with
+    every BN's running statistics seeded from its own input (at init the
+    logits hardly depend on the convs), each beside a control it must fail:
+    the first conv's kernel planted with another activation or correlation
+    (card vs CPU), the frames left unrotated (rotation); then one conv of
+    each plain-path kind (``mlp_softmax``,
+    'max', quaternion, matrix: the JAX package's XLA path, which no Pallas
+    kernel serves) on the card against the CPU;
 21. on 12 synthetic ModelNet40-like shapes of 4096 points (triangle meshes
     of five families sampled by area, in the unit sphere, ones features,
     labels 0..39; the fill per hierarchy level printed) holds both conv
@@ -292,6 +333,11 @@ PEAK_TF32_FLOPS = 495e12
 # the dense bf16 tensor-core peak of the same sheet: the bound of the
 # bfloat16 kernels takes every FLOP there
 PEAK_BF16_FLOPS = 989e12
+# the kernel-point correlation's FLOPs per point and edge (conv_bounds): 3
+# differences, 3 squares, 2 sums, the 1/sigma^2 scale, the exp (gauss),
+# sqrt (linear) or compare (box) as one, and one more scale, subtract or
+# select
+KP_FLOPS = 11
 # bfloat16 kernels vs their bfloat16 plain versions, each output (as
 # tests/test_torch_kernel_cuda.py): both round at the same points and sum in
 # float32 in other orders, which can flip a rounding by one bfloat16 ulp
@@ -485,20 +531,32 @@ def to_device(batch: dict, dev) -> dict:
     return {k: v.to(dev) for k, v in batch.items()}
 
 
-def seeded_model(model_dict, dev, num_in_feats=1, num_classes=CLASSES):
+def seeded_model(model_dict, dev, num_in_feats=1, num_classes=CLASSES, kind=None):
     """The model of the ``Model`` section ``model_dict`` from
     ``build_model_from_config`` (on the card by default, which it must
-    take) with a seeded init and seeded skip gammas."""
+    take) with a seeded init and seeded skip gammas; with ``kind``, a dict
+    of ``ConvFactory`` fields, the segmentation model of that section's
+    spec with both conv factories of that kind (``ModelSpec`` has copied
+    ``conv`` into ``conv_blocks``, so both are replaced), as a user builds
+    one with ``get_model_spec(..., conv=..., conv_blocks=...)``."""
+    from se3conv3d_tpu_torch.models import FPNSegUNet, presets
     from se3conv3d_tpu_torch.train.config import build_model_from_config
 
-    model = seed_gammas(build_model_from_config(model_dict, num_in_feats, num_classes,
-                                                generator=torch.Generator().manual_seed(0)))
+    gen = torch.Generator().manual_seed(0)
+    if kind:
+        spec = presets.spec_from_model_dict(model_dict)
+        spec = dataclasses.replace(spec, conv=dataclasses.replace(spec.conv, **kind),
+                                   conv_blocks=dataclasses.replace(spec.conv_blocks, **kind))
+        model = FPNSegUNet(spec, num_in_feats=num_in_feats, num_classes=num_classes, generator=gen).to(dev)
+    else:
+        model = build_model_from_config(model_dict, num_in_feats, num_classes, generator=gen)
+    model = seed_gammas(model)
     if next(model.parameters()).device.type != dev.type:
         raise SystemExit(f"build_model_from_config did not put {model_dict['model']} on the card")
     return model
 
 
-def conv_bounds(shape, idx, mask, dtype=torch.float32, d=9) -> dict:
+def conv_bounds(shape, idx, mask, dtype=torch.float32, d=9, kp=False) -> dict:
     """Least times of one conv forward and backward on the card: the larger
     of bytes / HBM rate (each input read once, each output written once)
     and FLOPs / peak, counting the valid edges of ``mask`` and its live
@@ -523,19 +581,25 @@ def conv_bounds(shape, idx, mask, dtype=torch.float32, d=9) -> dict:
     ``d_feats`` and the output stay float32), every FLOP counts at the dense
     bf16 tensor-core peak, and ``bound_f32_ms`` takes the per-edge FLOPs
     (float32 FMA in these kernels) at the float32 peak and the products at
-    the bf16 peak.
+    the bf16 peak.  ``kp``: the kernel-point geometry, D = P weights per
+    edge computed from the float32 offsets (4 bytes a value whatever
+    ``dtype``), ``KP_FLOPS`` per point and edge for the correlation (and 3
+    for the ``norm_dist`` scale) in the forward and again in the backward,
+    which recomputes them.
     """
     b, m, n, k, g, f, q, c, o = shape
     edges = float(mask.sum()) * g * f
     live = float(mask.any(-1).sum())
     point_flops = 2.0 * live * g * c * q * o
-    fwd_flops = 2 * edges * q * (d + c) + point_flops
-    bwd_edge_flops = 2 * edges * q * (d + 3 * c + d + 1)
+    corr_flops = edges * (KP_FLOPS * d + 3) if kp else 0.0
+    fwd_flops = 2 * edges * q * (d + c) + point_flops + corr_flops
+    bwd_edge_flops = 2 * edges * q * (d + 3 * c + d + 1) + corr_flops
     bwd_flops = bwd_edge_flops + 2 * point_flops
     bf16 = dtype == torch.bfloat16
     op = 2.0 if bf16 else 4.0  # bytes of an operand value
-    rot = 6 * f if d == 9 else 0
-    geo = live * (op * k * g * (3 + rot) + 9.0 * k)  # rel, rot6, idx, mask of the live rows
+    rot = 6 * f if d == 9 and not kp else 0
+    # rel (float32 at the kernel points), rot6, idx, mask of the live rows
+    geo = live * ((4.0 if kp else op) * k * g * 3 + op * k * g * rot + 9.0 * k)
     params = 4.0 * ((d + 1) * q + c * q * o)
     example = torch.arange(b, device=idx.device).reshape(b, 1, 1) * n
     gathered = float(torch.unique((idx.long() + example)[mask]).numel())  # distinct source rows read
@@ -713,10 +777,11 @@ def pass_ms(rows, passes=BWD_PASSES) -> dict:
             for name, alts in passes}
 
 
-def dfaust_eval(card, dev, batch, model_dict=None, label="slice") -> tuple:
+def dfaust_eval(card, dev, batch, model_dict=None, label="slice", kind=None, steps=EVAL_STEPS) -> tuple:
     """3. the DFaust recipe's eval path at full width (``model_dict``, by
-    default ``dfaust_I_rot_pca_2F``'s): a seeded model, one calibration step
-    and ``EVAL_STEPS`` eval steps on ``batch``, counting 21 forward conv
+    default ``dfaust_I_rot_pca_2F``'s; its convs of ``kind``, as
+    :func:`seeded_model` takes it): a seeded model, one calibration step
+    and ``steps`` eval steps on ``batch``, counting 21 forward conv
     launches per forward and checking the logits and the calibration;
     ``label`` heads the printed lines.  Returns ``(trainer, {step_s, all_s,
     peak_gib, launches})``."""
@@ -725,7 +790,7 @@ def dfaust_eval(card, dev, batch, model_dict=None, label="slice") -> tuple:
     from se3conv3d_tpu_torch.train.trainer import Trainer
 
     model_dict = model_dict or presets.DFAUST_I_ROT_PCA_2F_MODEL
-    model = seeded_model(model_dict, dev).eval()
+    model = seeded_model(model_dict, dev, kind=kind).eval()
     trainer = Trainer(model, presets.hierarchy_config_from_model_dict(model_dict, POINTS, train=True),
                       presets.hierarchy_config_from_model_dict(model_dict, POINTS, train=False),
                       label_smoothing=0.2)
@@ -748,7 +813,7 @@ def dfaust_eval(card, dev, batch, model_dict=None, label="slice") -> tuple:
     calib_s = time.perf_counter() - t0
     after_calib = kfe.fused_equiv_fwd.launches
     step_s, outs = [], None
-    for _ in range(EVAL_STEPS):
+    for _ in range(steps):
         t0 = time.perf_counter()
         outs = trainer.eval_step(batch, gen)
         torch.cuda.synchronize()
@@ -761,8 +826,8 @@ def dfaust_eval(card, dev, batch, model_dict=None, label="slice") -> tuple:
           f"(all {[round(s, 4) for s in step_s]}), {BATCH * POINTS / median_s:.1f} input points/s, "
           f"peak memory {peak / 2**30:.3f} GiB, loss {float(outs['loss']):.4f} [{card}]")
     print(f"{label}: kernel launches {launches} = {after_calib} (calibration) + "
-          f"{launches - after_calib} ({EVAL_STEPS} eval steps) [{card}]")
-    if after_calib != CONVS_PER_FORWARD or launches != CONVS_PER_FORWARD * (1 + EVAL_STEPS):
+          f"{launches - after_calib} ({steps} eval steps) [{card}]")
+    if after_calib != CONVS_PER_FORWARD or launches != CONVS_PER_FORWARD * (1 + steps):
         raise SystemExit(f"expected {CONVS_PER_FORWARD} kernel launches per forward")
     if tuple(logits.shape) != (BATCH, POINTS, CLASSES) or not torch.isfinite(logits).all():
         raise SystemExit(f"bad logits: shape {tuple(logits.shape)}")
@@ -771,11 +836,11 @@ def dfaust_eval(card, dev, batch, model_dict=None, label="slice") -> tuple:
     return trainer, dict(step_s=median_s, all_s=step_s, peak_gib=peak / 2**30, launches=launches)
 
 
-def dfaust_train(card, dev, batch, model_dict=None, training=None) -> tuple:
+def dfaust_train(card, dev, batch, model_dict=None, training=None, kind=None, steps=TRAIN_STEPS) -> tuple:
     """7. the DFaust recipe's training at full width: a fresh seeded model
-    (of ``model_dict``, by default the recipe's) and the ``Training``
-    section ``training`` (by default the recipe's), one calibration step,
-    then ``TRAIN_STEPS`` train
+    (of ``model_dict``, by default the recipe's; its convs of ``kind``) and
+    the ``Training`` section ``training`` (by default the recipe's), one
+    calibration step, then ``steps`` train
     steps on ``batch``, counting 21 forward and 21 backward conv launches
     per step (all of them bfloat16 ones with bfloat16 convs, none
     otherwise) and checking finite losses and moved BN means.  Returns
@@ -791,9 +856,10 @@ def dfaust_train(card, dev, batch, model_dict=None, training=None) -> tuple:
 
     model_dict = model_dict or presets.DFAUST_I_ROT_PCA_2F_MODEL
     training = training or presets.DFAUST_I_ROT_PCA_2F_TRAINING
-    label = f"train {model_dict['model']} {model_dict.get('compute_dtype', 'float32')}"
-    model = seeded_model(model_dict, dev)
-    opt = schedule.optimizer_from_training(model.parameters(), training, TRAIN_STEPS)
+    label = f"train {model_dict['model']} {model_dict.get('compute_dtype', 'float32')}" + (
+        f" {kind}" if kind else "")
+    model = seeded_model(model_dict, dev, kind=kind)
+    opt = schedule.optimizer_from_training(model.parameters(), training, steps)
     trainer = Trainer(model, presets.hierarchy_config_from_model_dict(model_dict, POINTS, train=True),
                       presets.hierarchy_config_from_model_dict(model_dict, POINTS, train=False),
                       label_smoothing=training["label_smoothing"], optimizer=opt)
@@ -806,7 +872,7 @@ def dfaust_train(card, dev, batch, model_dict=None, training=None) -> tuple:
     bn_before = {n: mod.mean.clone() for n, mod in bns.items()}
     train_fwd_calib = kfe.fused_equiv_fwd.launches
     step_s, per_step = [], []
-    for step in range(TRAIN_STEPS):
+    for step in range(steps):
         lr = opt.lr
         before = kfe.fused_equiv_fwd.launches, kfe.fused_equiv_bwd.launches
         torch.cuda.synchronize()
@@ -823,7 +889,7 @@ def dfaust_train(card, dev, batch, model_dict=None, training=None) -> tuple:
     train_fwd, train_bwd = kfe.fused_equiv_fwd.launches, kfe.fused_equiv_bwd.launches
     bf16_n = (kfe.fused_equiv_fwd.bf16_launches, kfe.fused_equiv_bwd.bf16_launches)
     train_peak = torch.cuda.max_memory_allocated()
-    train_median, steady = statistics.median(step_s), statistics.median(step_s[1:])
+    train_median, steady = statistics.median(step_s), statistics.median(step_s[1:] or step_s)
     print(f"{label}: calibration launches {train_fwd_calib}; train_step median {train_median:.4f} s, "
           f"after the first {steady:.4f} s (all {[round(x, 4) for x in step_s]}), "
           f"{BATCH * POINTS / train_median:.1f} input points/s, "
@@ -845,29 +911,40 @@ def dfaust_train(card, dev, batch, model_dict=None, training=None) -> tuple:
     return trainer, result
 
 
-def dfaust_card_vs_cpu(card, dev, trainer, small, label="") -> float:
-    """4.-5. on the two clouds of ``small``: with an equivariant model the
-    logits unchanged by a global rotation of the hierarchy (``ROT_ATOL``; a
-    standard model is not rotation invariant and is not checked), then the
-    same model and hierarchy on the CPU (plain path) within ``CPU_ATOL`` of
-    the card's logits.  Returns the card vs CPU error."""
+def dfaust_invariance(card, dev, model, h, f0, out_pc, base, label="") -> float:
+    """4. the logits ``base`` of an equivariant ``model`` on ``h`` unchanged
+    by a global rotation of the hierarchy (``ROT_ATOL``).  Returns the
+    error."""
     from se3conv3d_tpu_torch.core.hierarchy import rotate_cloud, rotate_hierarchy
     from se3conv3d_tpu_torch.core.rotation import random_rotations
 
+    valid = out_pc.mask
+    rot = random_rotations(1, generator=torch.Generator().manual_seed(6))[0].to(dev)
+    with torch.no_grad():
+        rotated = model(rotate_hierarchy(h, rot), f0, rotate_cloud(out_pc, rot))
+    rot_err = (base - rotated).abs()[valid].max().item()
+    spread = (base[valid].max() - base[valid].min()).item()
+    print(f"{label}invariance: max |logits - logits(rotated)| = {rot_err:.3e} (bound {ROT_ATOL}); "
+          f"logits span {spread:.3e} over the valid points [{card}]")
+    if not rot_err <= ROT_ATOL:
+        raise SystemExit(f"{label}logits change under a global rotation")
+    return rot_err
+
+
+def dfaust_card_vs_cpu(card, dev, trainer, small, label="") -> float:
+    """4.-5. on the two clouds of ``small``: with an equivariant model the
+    logits unchanged by a global rotation of the hierarchy
+    (:func:`dfaust_invariance`; a standard model is not rotation invariant
+    and is not checked), then the same model and hierarchy on the CPU
+    (plain path) within ``CPU_ATOL`` of the card's logits.  Returns the card
+    vs CPU error."""
     model = trainer.model
     h, f0, out_pc, _, _ = trainer.build(small, torch.Generator(device=dev).manual_seed(5), train=False)
     with torch.no_grad():
         base = model(h, f0, out_pc)
         valid = out_pc.mask
         if model.spec.equivariant:
-            rot = random_rotations(1, generator=torch.Generator().manual_seed(6))[0].to(dev)
-            rotated = model(rotate_hierarchy(h, rot), f0, rotate_cloud(out_pc, rot))
-            rot_err = (base - rotated).abs()[valid].max().item()
-            spread = (base[valid].max() - base[valid].min()).item()
-            print(f"{label}invariance: max |logits - logits(rotated)| = {rot_err:.3e} (bound {ROT_ATOL}); "
-                  f"logits span {spread:.3e} over the valid points [{card}]")
-            if not rot_err <= ROT_ATOL:
-                raise SystemExit("logits change under a global rotation")
+            dfaust_invariance(card, dev, model, h, f0, out_pc, base, label)
         cpu_model = copy.deepcopy(model).cpu()
         cpu_logits = cpu_model(h.to("cpu"), f0.cpu(), out_pc.to("cpu"))
         cpu_err = (base.cpu() - cpu_logits).abs()[valid.cpu()].max().item()
@@ -961,30 +1038,33 @@ def product_text(dtype) -> str:
             "the products at the 3xTF32 tensor-core ceiling; {:.4f} with every FLOP at the float32 peak")
 
 
-def forward_vs_plain(card, label, shp, args, live, bounds, seed) -> dict:
+def forward_vs_plain(card, label, shp, args, live, bounds, seed, opts=None) -> dict:
     """The forward kernel on the live rows ``live`` vs its plain version
     (over every row; for bfloat16 operands its bfloat16 rounding, with the
     control of :func:`tells_apart`), two calls bitwise equal, and its time
     beside the plain version's and ``torch.matmul``'s (in the operands'
     dtype) for its weight contraction over the same live rows; fails the run
-    on a disagreement."""
+    on a disagreement.  ``opts``: the activation and kernel-point keywords
+    (``act``, ``kp``) of both versions."""
     from se3conv3d_tpu_torch.kernels import fused_equiv as kfe
 
     g, dtype = shp[4], args[2].dtype
     bf16 = dtype == torch.bfloat16
+    opts = opts or {}
     with torch.no_grad():
-        got = kfe.fused_equiv_fwd(*args, live_rows=live)
-        again = kfe.fused_equiv_fwd(*args, live_rows=live)
-        ref = kfe.fused_equiv_fwd_reference(*args)
+        got = kfe.fused_equiv_fwd(*args, live_rows=live, **opts)
+        again = kfe.fused_equiv_fwd(*args, live_rows=live, **opts)
+        ref = kfe.fused_equiv_fwd_reference(*args, **opts)
         torch.cuda.synchronize()
         err = max_rel_err(got, ref)
         finite, same = bool(torch.isfinite(got).all()), torch.equal(got, again)
         del again, ref
-        control = (max_rel_err(got, kfe.fused_equiv_fwd_reference(*as_operands(args, torch.float32)))[2]
+        control = (max_rel_err(got, kfe.fused_equiv_fwd_reference(*as_operands(args, torch.float32),
+                                                                  **opts))[2]
                    if bf16 else None)
         del got
-        ms = cuda_ms(lambda: kfe.fused_equiv_fwd(*args, live_rows=live), 20)
-        plain_ms = cuda_ms(lambda: kfe.fused_equiv_fwd_reference(*args), 3)
+        ms = cuda_ms(lambda: kfe.fused_equiv_fwd(*args, live_rows=live, **opts), 20)
+        plain_ms = cuda_ms(lambda: kfe.fused_equiv_fwd_reference(*args, **opts), 3)
     lib_ms = product_matmul_ms(live.numel() * g, args[7], seed, dtype)
     print(f"{label} {dtype_name(dtype)} B,M,N,K,G,F,Q,C,O={shp}: {live.numel()} live of "
           f"{shp[0] * shp[1]} rows; max_abs_err={err[0]:.3e} max_rel_err={err[1]:.3e} mean_rel_err="
@@ -1003,7 +1083,7 @@ def forward_vs_plain(card, label, shp, args, live, bounds, seed) -> dict:
                 mean_rel_err=err[2], control_mean_rel_err=control, library_ms=lib_ms, **bounds)
 
 
-def backward_vs_plain(card, label, shp, args, gout, live, bounds, seed) -> dict:
+def backward_vs_plain(card, label, shp, args, gout, live, bounds, seed, opts=None) -> dict:
     """The backward kernel on the live rows ``live`` vs its plain version
     (over every row; for bfloat16 operands its bfloat16 rounding, with the
     control of :func:`tells_apart`) in both feature-gradient output modes
@@ -1011,7 +1091,8 @@ def backward_vs_plain(card, label, shp, args, gout, live, bounds, seed) -> dict:
     ``sorted_segment_sum``), its parameter gradients bitwise equal across
     modes and calls, and its time beside the plain version's and
     ``torch.matmul``'s (in the operands' dtype) for its two products over
-    the same live rows; fails the run on a disagreement."""
+    the same live rows; fails the run on a disagreement.  ``opts`` as in
+    :func:`forward_vs_plain`."""
     from se3conv3d_tpu_torch.core.neighborhoods import Neighborhood
     from se3conv3d_tpu_torch.kernels import fused_equiv as kfe
     from se3conv3d_tpu_torch.kernels import segsum
@@ -1021,11 +1102,12 @@ def backward_vs_plain(card, label, shp, args, gout, live, bounds, seed) -> dict:
     b, m, n, k, g, f, q, c, o = shp
     dtype = args[2].dtype
     dname, bf16 = dtype_name(dtype), dtype == torch.bfloat16
+    opts = opts or {}
     tabs = backward_sort_tables(Neighborhood(args[3], args[4], args[4].any(-1)), n)
-    got = kfe.fused_equiv_bwd(*args, gout, live_rows=live)
-    ref = kfe.fused_equiv_bwd_reference(*args, gout)
-    got_s = kfe.fused_equiv_bwd(*args, gout, sorted_slot=tabs.bwd_slot, live_rows=live)
-    ref_s = kfe.fused_equiv_bwd_reference(*args, gout, sorted_slot=tabs.bwd_slot)
+    got = kfe.fused_equiv_bwd(*args, gout, live_rows=live, **opts)
+    ref = kfe.fused_equiv_bwd_reference(*args, gout, **opts)
+    got_s = kfe.fused_equiv_bwd(*args, gout, sorted_slot=tabs.bwd_slot, live_rows=live, **opts)
+    ref_s = kfe.fused_equiv_bwd_reference(*args, gout, sorted_slot=tabs.bwd_slot, **opts)
     summed = segsum.sorted_segment_sum(got_s[0], tabs.bwd_run_start, tabs.bwd_run_end)
     prefix_scale = float(segsum.blocked_cumsum(got_s[0]).abs().max())
     torch.cuda.synchronize()
@@ -1043,20 +1125,21 @@ def backward_vs_plain(card, label, shp, args, gout, live, bounds, seed) -> dict:
     if bf16:  # the plain version on the widened operands: no bfloat16 rounding
         wide = as_operands(args, torch.float32)
         control = {w: max_rel_err(x, y)[2] for w, x, y in
-                   zip(names, got, kfe.fused_equiv_bwd_reference(*wide, gout))}
+                   zip(names, got, kfe.fused_equiv_bwd_reference(*wide, gout, **opts))}
         control["d_sorted_rows"] = max_rel_err(
-            got_s[0], kfe.fused_equiv_bwd_reference(*wide, gout, sorted_slot=tabs.bwd_slot)[0])[2]
+            got_s[0], kfe.fused_equiv_bwd_reference(*wide, gout, sorted_slot=tabs.bwd_slot, **opts)[0])[2]
         del wide
     finite = all(bool(torch.isfinite(x.float()).all()) for x in (*got, *got_s))
     sorted_dtype = got_s[0].dtype
-    again = kfe.fused_equiv_bwd(*args, gout, live_rows=live)
+    again = kfe.fused_equiv_bwd(*args, gout, live_rows=live, **opts)
     same_params = all(torch.equal(x, y) and torch.equal(x, z)
                       for x, y, z in zip(got[1:], got_s[1:], again[1:]))
     del got, got_s, again
-    ms = cuda_ms(lambda: kfe.fused_equiv_bwd(*args, gout, live_rows=live), 10)
-    sorted_ms = cuda_ms(lambda: kfe.fused_equiv_bwd(*args, gout, sorted_slot=tabs.bwd_slot, live_rows=live), 10)
+    ms = cuda_ms(lambda: kfe.fused_equiv_bwd(*args, gout, live_rows=live, **opts), 10)
+    sorted_ms = cuda_ms(lambda: kfe.fused_equiv_bwd(*args, gout, sorted_slot=tabs.bwd_slot, live_rows=live,
+                                                    **opts), 10)
     # one timed call of the plain version: 0.7-2 s each at the ScanNet level 0
-    plain_ms = cuda_ms(lambda: kfe.fused_equiv_bwd_reference(*args, gout), 1)
+    plain_ms = cuda_ms(lambda: kfe.fused_equiv_bwd_reference(*args, gout, **opts), 1)
     lib_ms = products_matmul_ms(live.numel() * g, args[7], seed, dtype)
     for mode, e in (("scatter", errs), ("sorted", errs_s)):
         print(f"{label} {dname} mode {mode}: "
@@ -1431,10 +1514,13 @@ def computing_in(model, dtype):
 
 def reset_launches(kfe, segsum=None) -> None:
     """Every kernel launch count to 0 (all, those with bfloat16 operands,
-    those by out-frame count G and those by pne input width D)."""
+    and those by out-frame count G, by pne input width D, by activation and
+    by kernel-point kind where the package counts them)."""
     for fn in (kfe.fused_equiv_fwd, kfe.fused_equiv_bwd):
         fn.launches = fn.bf16_launches = 0
         fn.launches_by_g, fn.launches_by_d = {}, {}
+        if hasattr(fn, "launches_by_act"):
+            fn.launches_by_act, fn.launches_by_kp = {}, {}
     if segsum is not None:
         segsum.blocked_cumsum.launches = 0
 
@@ -1668,16 +1754,17 @@ def watching_live_rows(kfe, name="fused_equiv_bwd"):
 
     # the wrapper counts its launches on the module's attribute `name`:
     # here that is `watched`, which carries the counts and hands them back
-    watched.launches, watched.bf16_launches = real.launches, real.bf16_launches
-    watched.launches_by_g = getattr(real, "launches_by_g", {})
-    watched.launches_by_d = getattr(real, "launches_by_d", {})
+    counts = [a for a in ("launches", "bf16_launches", "launches_by_g", "launches_by_d",
+                          "launches_by_act", "launches_by_kp") if hasattr(real, a)]
+    for attr in counts:
+        setattr(watched, attr, getattr(real, attr))
     setattr(kfe, name, watched)
     try:
         yield seen
     finally:
         setattr(kfe, name, real)
-        real.launches, real.bf16_launches = watched.launches, watched.bf16_launches
-        real.launches_by_g, real.launches_by_d = watched.launches_by_g, watched.launches_by_d
+        for attr in counts:
+            setattr(real, attr, getattr(watched, attr))
 
 
 def check_live_rows(card, label, seen, want) -> tuple:
@@ -2238,15 +2325,18 @@ def read_launches(kfe) -> tuple:
     return kfe.fused_equiv_fwd.launches, kfe.fused_equiv_bwd.launches
 
 
-def check_by_d(label, kfe, fwd, bwd=0, d=3, g=1) -> None:
+def check_by_d(label, kfe, fwd, bwd=0, d=3, g=1, act="gelu", kp=None) -> None:
     """Fails the run unless the launches since the last reset were ``fwd``
-    forward and ``bwd`` backward ones, all at pne input width ``d`` and
-    ``g`` out-frames (by default the standard geometry)."""
+    forward and ``bwd`` backward ones, all at pne input width ``d``, ``g``
+    out-frames and activation ``act`` (by default the standard geometry's
+    gelu), and, given ``kp`` (``(corr, P)``), all of that kernel-point
+    kind."""
+    attrs = ("launches_by_d", "launches_by_g", "launches_by_act", "launches_by_kp")
     got = tuple(dict(getattr(fn, attr)) for fn in (kfe.fused_equiv_fwd, kfe.fused_equiv_bwd)
-                for attr in ("launches_by_d", "launches_by_g"))
-    want = tuple({key: n} if n else {} for n in (fwd, bwd) for key in (d, g))
+                for attr in attrs)
+    want = tuple({key: n} if n and key is not None else {} for n in (fwd, bwd) for key in (d, g, act, kp))
     if got != want:
-        raise SystemExit(f"{label}: launches by D and G (fwd, fwd, bwd, bwd) {got}, expected {want}")
+        raise SystemExit(f"{label}: launches by D, G, act and kp (fwd x4, bwd x4) {got}, expected {want}")
 
 
 def dfaust_standard(card, dev, batch, small, recorded_draws, equivariant) -> dict:
@@ -2254,7 +2344,8 @@ def dfaust_standard(card, dev, batch, small, recorded_draws, equivariant) -> dic
     ``build_model_from_config`` (on the card by default); a calibration step
     and eval steps on the 32 bodies, 21 forward launches per forward, all at
     kD = 3 (phase 3); card vs CPU logits at B=2 (phase 5; a standard model
-    is not rotation invariant, so phase 4 does not apply); training with the
+    is not rotation invariant, so phase 4 does not apply), also with the
+    norms seeded beside a planted kernel (:func:`dfaust_model_gates`); training with the
     recipe's ``Training`` section, 21 + 21 launches per step at kD = 3,
     finite losses and moved BN means (phase 7); card vs CPU parameter
     gradients at B=2 (phase 8).  Prints the step time and the peak beside
@@ -2270,6 +2361,7 @@ def dfaust_standard(card, dev, batch, small, recorded_draws, equivariant) -> dic
     if trainer.model.spec.equivariant:
         raise SystemExit("build_model_from_config built an equivariant model from dfaust_I_standard")
     cpu_err = dfaust_card_vs_cpu(card, dev, trainer, small, "dfaust_std_")
+    seeded = dfaust_model_gates(card, dev, trainer, small, "dfaust_std")
     del trainer
     torch.cuda.empty_cache()
     trainer, steps = dfaust_train(card, dev, batch, model_dict, training)
@@ -2283,7 +2375,7 @@ def dfaust_standard(card, dev, batch, small, recorded_draws, equivariant) -> dic
     del trainer
     torch.cuda.empty_cache()
     return dict(eval=ev, train=steps, eval_launches=ev["launches"], train_launches=steps["launches"],
-                card_vs_cpu_max_abs_err=cpu_err, grads_card_vs_cpu=grads)
+                card_vs_cpu_max_abs_err=cpu_err, seeded_gates=seeded, grads_card_vs_cpu=grads)
 
 
 def scannet_standard(card, dev, recorded_draws, drop_path_draws) -> dict:
@@ -3490,8 +3582,457 @@ def eval_summary(run) -> dict:
                 wall_s=run["wall_s"], peak_gib=run["peak_gib"], steps=calls, swap_s=run["seen"]["swap_s"])
 
 
+# --- the other conv kinds (phases 29-31) -------------------------------------------
+
+# the mlp activations of the kernels other than gelu (phases 29, 31)
+MODE_ACTS = ("relu", "sin", "linear")
+# phase 29's shapes: name: ((B, M, N, K, G, F, Q, C, O), operand dtypes, pne
+# inputs D, hierarchy level whose fill of the DFaust bodies gives the live
+# rows per example (None: every row live)): the ScanNet level-0 block conv
+# in the equivariant geometry (kD = 9, one frame) and in the standard one
+# (kD = 3), fully live; the shapes and the dtype at which phase 31's models
+# run the activations: the DFaust level-0 and level-4 convs in the
+# equivariant geometry (G = F = 2) and in the standard one, float32, at the
+# bodies' fill
+ACT_SHAPES = {
+    "scannet_level0_block_conv": (SCANNET_SHAPES["scannet_level0_block_conv"], KERNEL_DTYPES, 9, None),
+    "scannet_std_level0_block_conv": (SCANNET_SHAPES["scannet_level0_block_conv"], (torch.bfloat16,), 3, None),
+    "dfaust_level0_conv": ((BATCH, 4096, 4096, 32, 2, 2, 32, 32, 32), (torch.float32,), 9, 0),
+    "dfaust_level4_block_conv": ((BATCH, 128, 128, 32, 2, 2, 32, 256, 256), (torch.float32,), 9, 4),
+    "dfaust_std_level0_conv": ((BATCH, 4096, 4096, 32, 1, 1, 32, 32, 32), (torch.float32,), 3, 0),
+    "dfaust_std_level4_block_conv": ((BATCH, 128, 128, 32, 1, 1, 32, 256, 256), (torch.float32,), 3, 4),
+}
+# the kernel-point types: each correlation at P = 13 and (_double) P = 55
+KP_TYPES = ("kp_gauss", "kp_linear", "kp_box", "kp_gauss_double", "kp_linear_double", "kp_box_double")
+# phase 30's shapes: name: ((B, M, N, K, G, F, Q, C, O), hierarchy level
+# whose fill of the DFaust bodies gives the live rows per example (None:
+# every row live), operand dtype): the DFaust standard model's level-0 and
+# level-4 block shapes in float32 (its recipe's dtype) and the standard
+# ScanNet level-0 block conv in bfloat16 (its recipe's)
+KP_SHAPES = {
+    "dfaust_std_level0_conv": ((BATCH, 4096, 4096, 32, 1, 1, 32, 32, 32), 0, torch.float32),
+    "scannet_std_level0_block_conv": (SCANNET_SHAPES["scannet_level0_block_conv"], None, torch.bfloat16),
+    "dfaust_std_level4_block_conv": ((BATCH, 128, 128, 32, 1, 1, 32, 256, 256), 4, torch.float32),
+}
+# the norm_dist of phase 30's kernel points (its offsets are N(0, 0.25))
+KP_NORM_DIST = 1.3
+# phase 31: the kp types run in full (eval steps, scatter train steps, one
+# sorted step, card vs CPU logits), the others for one calibration and one
+# train step each
+KP_MODEL_TYPES = ("kp_gauss", "kp_linear_double")
+KP_EVAL_STEPS, KP_TRAIN_STEPS = 3, 3
+# phase 31's plain-path convs on the card against the CPU: name: ConvFactory
+# fields (the JAX package runs them in XLA: no Pallas kernel serves them)
+PLAIN_KINDS = {
+    "mlp_softmax": dict(pne_type="mlp_softmax", equivariant=False),
+    "max": dict(aggregation="max", equivariant=False),
+    "quaternion": dict(rel_rot_type="quaternion", equivariant=True),
+    "matrix": dict(rel_rot_type="matrix", equivariant=True),
+}
+
+
+def conv_kernel_points(pne_type, dev, norm_dist=KP_NORM_DIST):
+    """The ``KernelPoints`` of a ``pne_type`` conv on ``dev`` (the points
+    and sigma ``PNEConv`` gives it) with the scalar ``norm_dist``."""
+    from se3conv3d_tpu_torch.kernels.fused_equiv import KernelPoints
+    from se3conv3d_tpu_torch.nn.conv import PNEConv
+
+    conv = PNEConv(1, 1, 1, pne_type, equivariant=False)
+    return KernelPoints(conv.kernel_points.to(dev), conv.sigma, conv.corr,
+                        torch.tensor(norm_dist, device=dev))
+
+
+def launches_grew(kfe, before) -> list:
+    """The launches by activation and by kernel-point kind (forward,
+    backward) since ``before`` (:func:`launch_tables`)."""
+    return [{k: n - b.get(k, 0) for k, n in now.items() if n != b.get(k, 0)}
+            for now, b in zip(launch_tables(kfe), before)]
+
+
+def launch_tables(kfe) -> tuple:
+    return tuple(dict(getattr(fn, attr)) for attr in ("launches_by_act", "launches_by_kp")
+                 for fn in (kfe.fused_equiv_fwd, kfe.fused_equiv_bwd))
+
+
+def act_conv_kernels(card, dev, fill) -> dict:
+    """29. both conv kernels with each activation (gelu, then relu, sin and
+    linear, then gelu's kernels timed again) against their plain versions at
+    ``ACT_SHAPES`` (ScanNet's in float32 and bfloat16 or bfloat16 alone,
+    the DFaust ones, at ``fill[level]`` live rows per example, in float32),
+    with the gates and times of phases 2 and 6 (:func:`forward_vs_plain`,
+    :func:`backward_vs_plain`); every launch counted at its activation.
+    gelu's times, taken in turns with the new ones in this call, are the
+    check that the run-time switch cost the recipes' path nothing."""
+    from se3conv3d_tpu_torch.kernels import fused_equiv as kfe
+
+    out = {}
+    for i, (name, (shp, dtypes, d, level)) in enumerate(ACT_SHAPES.items()):
+        for dt in dtypes:
+            args, gout = padded_conv_args(60 + i, shp, None if level is None else fill[level], dev, dt)
+            if d == 3:
+                args[1], args[5] = None, args[5][:3].contiguous()
+            live = kfe.live_row_table(args[4])
+            bounds = conv_bounds(shp, args[3], args[4], dt, d=d)
+            cases = {}
+            for j, act in enumerate(("gelu",) + MODE_ACTS):
+                before = launch_tables(kfe)
+                opts = dict(act=act)
+                cases[act] = dict(
+                    fwd=forward_vs_plain(card, f"act_fwd_kernel_vs_plain {name} {act}", shp, args, live,
+                                         bounds["fwd"], 100 + j, opts),
+                    bwd=backward_vs_plain(card, f"act_bwd_kernel_vs_plain {name} {act}", shp, args, gout,
+                                          live, bounds["bwd"], 105 + j, opts))
+                grew = launches_grew(kfe, before)
+                if grew[0].keys() != {act} or grew[1].keys() != {act} or grew[2] or grew[3]:
+                    raise SystemExit(f"phase 29 at {name} {act}: launches by act and kp grew by {grew}")
+            with torch.no_grad():
+                again_fwd = cuda_ms(lambda: kfe.fused_equiv_fwd(*args, live_rows=live), 20)
+            again_bwd = cuda_ms(lambda: kfe.fused_equiv_bwd(*args, gout, live_rows=live), 10)
+            cases["gelu"].update(fwd_again_ms=again_fwd, bwd_again_ms=again_bwd)
+            print(f"act_kernels {name} {dtype_name(dt)}: kernel ms forward / backward (scatter), in turns: "
+                  + ", ".join(f"{act} {cases[act]['fwd']['ms']:.4f} / {cases[act]['bwd']['ms']:.4f}"
+                              for act in ("gelu",) + MODE_ACTS)
+                  + f", gelu again {again_fwd:.4f} / {again_bwd:.4f} [{card}]", flush=True)
+            out.setdefault(name, {})[dtype_name(dt)] = cases
+            del args, gout, live
+            torch.cuda.empty_cache()
+    return out
+
+
+def kp_conv_kernels(card, dev, fill) -> dict:
+    """30. both conv kernels' kernel-point instantiation (``kD = kKP``)
+    against their plain versions for each of ``KP_TYPES`` at ``KP_SHAPES``
+    (the DFaust one at ``fill[level]`` live rows per example), with the
+    gates and times of phases 2 and 6: float32 raw offsets, ``proj_axes
+    [P, Q]``, the features in the shape's dtype; every launch counted at
+    its correlation and P."""
+    from se3conv3d_tpu_torch.kernels import fused_equiv as kfe
+
+    out = {}
+    for i, (name, (shp, level, dt)) in enumerate(KP_SHAPES.items()):
+        b, m, n, k, g, f, q, c, o = shp
+        base, gout = padded_conv_args(70 + i, shp, None if level is None else fill[level], dev, torch.float32)
+        for j, pne_type in enumerate(KP_TYPES):
+            kp = conv_kernel_points(pne_type, dev)
+            p = kp.points.shape[0]
+            gen = torch.Generator(device=dev).manual_seed(110 + j)
+            args = [base[0], None, base[2].to(dt), base[3], base[4],
+                    torch.randn(p, q, device=dev, generator=gen) * 0.3, base[6], base[7]]
+            live = kfe.live_row_table(args[4])
+            bounds = conv_bounds(shp, args[3], args[4], dt, d=p, kp=True)
+            before = launch_tables(kfe)
+            opts = dict(act="linear", kp=kp)
+            out.setdefault(name, {})[pne_type] = dict(
+                fwd=forward_vs_plain(card, f"kp_fwd_kernel_vs_plain {name} {pne_type}", shp, args, live,
+                                     bounds["fwd"], 115 + j, opts),
+                bwd=backward_vs_plain(card, f"kp_bwd_kernel_vs_plain {name} {pne_type}", shp, args, gout,
+                                      live, bounds["bwd"], 125 + j, opts))
+            grew = launches_grew(kfe, before)
+            if grew[2].keys() != {(kp.corr, p)} or grew[3].keys() != {(kp.corr, p)}:
+                raise SystemExit(f"phase 30 at {name} {pne_type}: launches by kp grew by {grew}")
+            del args, live
+        del base, gout
+        torch.cuda.empty_cache()
+    return out
+
+
+def kp_models(card, dev, batch, small) -> dict:
+    """31a. ``dfaust_I_standard`` with both conv factories of each kernel-point
+    type (B = 32 x 4096, full widths): for ``KP_MODEL_TYPES`` a calibration
+    step and ``KP_EVAL_STEPS`` eval steps (21 forward launches per forward),
+    card vs CPU logits at B = 2 with their control (:func:`dfaust_model_gates`,
+    phase 5's bound), ``KP_TRAIN_STEPS`` train
+    steps in scatter mode (21 + 21 launches per step, finite losses, moved BN
+    means) and one in sorted mode, whose prefix sums are counted; for the
+    other types one calibration and one train step.  Every launch counted at
+    its (correlation, P), D = P, the identity activation."""
+    from se3conv3d_tpu_torch.kernels import fused_equiv as kfe
+    from se3conv3d_tpu_torch.kernels import segsum
+    from se3conv3d_tpu_torch.models import presets
+    from se3conv3d_tpu_torch.ops import pne_conv as ops
+
+    model_dict, training = presets.DFAUST_I_STANDARD_MODEL, presets.DFAUST_I_STANDARD_TRAINING
+    out = {}
+    for pne_type in KP_TYPES:
+        kp = conv_kernel_points(pne_type, dev)
+        key, p = (kp.corr, kp.points.shape[0]), kp.points.shape[0]
+        kind, label, full = dict(pne_type=pne_type), f"dfaust_std_{pne_type}", pne_type in KP_MODEL_TYPES
+        run = {}
+        if full:
+            trainer, run["eval"] = dfaust_eval(card, dev, batch, model_dict, label, kind, KP_EVAL_STEPS)
+            check_by_d(f"{label} eval", kfe, CONVS_PER_FORWARD * (1 + KP_EVAL_STEPS), 0, p, 1, "linear", key)
+            run["gates"] = dfaust_model_gates(card, dev, trainer, small, label)
+            del trainer
+            torch.cuda.empty_cache()
+        steps = KP_TRAIN_STEPS if full else 1
+        trainer, run["train"] = dfaust_train(card, dev, batch, model_dict, training, kind, steps)
+        check_by_d(f"{label} train", kfe, CONVS_PER_FORWARD * (1 + steps), CONVS_PER_FORWARD * steps, p, 1,
+                   "linear", key)
+        run["launches"] = (read_launches(kfe)[0] + (run["eval"]["launches"] if full else 0),
+                           read_launches(kfe)[1])
+        if full:  # one step in sorted mode: the prefix sum on this path
+            reset_launches(kfe, segsum)
+            saved = ops.BWD_SCATTER_MODE
+            ops.BWD_SCATTER_MODE = "sorted"
+            try:
+                t0 = time.perf_counter()
+                res = trainer.train_step(batch, torch.Generator(device=dev).manual_seed(8))
+                torch.cuda.synchronize()
+                sorted_s = time.perf_counter() - t0
+            finally:
+                ops.BWD_SCATTER_MODE = saved
+            cums = segsum.blocked_cumsum.launches
+            check_by_d(f"{label} sorted step", kfe, CONVS_PER_FORWARD, CONVS_PER_FORWARD, p, 1, "linear", key)
+            print(f"{label}: one train step in sorted mode: loss {float(res['loss']):.6f} grad_norm "
+                  f"{float(res['grad_norm']):.6f}, {cums} prefix sums, {sorted_s:.4f} s [{card}]", flush=True)
+            if not (cums > 0 and np.isfinite(float(res["loss"])) and np.isfinite(float(res["grad_norm"]))):
+                raise SystemExit(f"{label}: the sorted step ran no prefix sum or was not finite")
+            run["sorted"] = dict(cumsum_launches=cums, step_s=sorted_s,
+                                 launches=(CONVS_PER_FORWARD, CONVS_PER_FORWARD))
+            run["launches"] = tuple(x + CONVS_PER_FORWARD for x in run["launches"])
+        out[pne_type] = run
+        del trainer
+        torch.cuda.empty_cache()
+    return out
+
+
+def act_models(card, dev, batch, small) -> dict:
+    """31b. ``dfaust_I_rot_pca_2F`` (equivariant, G = F = 2, float32) and
+    ``dfaust_I_standard`` with both conv factories of each of ``MODE_ACTS``:
+    one calibration and one train step each (21 + 21 launches, all at that
+    activation, D = 9 or 3), finite, moved BN means; then the trained
+    model's gates with their controls (:func:`dfaust_model_gates`): card vs
+    CPU logits on two clouds, and the equivariant model's unchanged by a
+    global rotation (phase 4's and 5's bounds)."""
+    from se3conv3d_tpu_torch.kernels import fused_equiv as kfe
+    from se3conv3d_tpu_torch.models import presets
+
+    out = {}
+    for act in MODE_ACTS:
+        kind = dict(pne_type=f"mlp_{act}")
+        run = {}
+        for geometry, model_dict, training, d, g in (
+                ("equivariant", presets.DFAUST_I_ROT_PCA_2F_MODEL, presets.DFAUST_I_ROT_PCA_2F_TRAINING, 9, 2),
+                ("standard", presets.DFAUST_I_STANDARD_MODEL, presets.DFAUST_I_STANDARD_TRAINING, 3, 1)):
+            trainer, steps = dfaust_train(card, dev, batch, model_dict, training, kind, 1)
+            check_by_d(f"mlp_{act} {geometry} train", kfe, 2 * CONVS_PER_FORWARD, CONVS_PER_FORWARD, d, g, act)
+            run[geometry] = dict(train=steps, launches=read_launches(kfe),
+                                 gates=dfaust_model_gates(card, dev, trainer, small, f"mlp_{act} {geometry}"))
+            del trainer
+            torch.cuda.empty_cache()
+        out[act] = run
+    return out
+
+
+def seed_norms(model, h, f0, out_pc) -> None:
+    """Every ``MaskedBatchNorm``'s running statistics from its own input (the
+    valid rows) in one eval forward of ``model``, each set just before it
+    normalises, so the later ones see the earlier ones seeded.  At init
+    (mean 0, var 1) each block's conv path reaches the next block far
+    smaller than its skip path: the fresh DFaust models' logits vary by
+    ~1e-5 over the points, and zeroing a conv moves them by less than the
+    card-vs-CPU bound (``PERF.md`` §6).  A degenerate init, as the
+    skip gammas' of :func:`seed_gammas` and ``class_norm``'s of
+    :func:`seed_class_norm`."""
+    from se3conv3d_tpu_torch.nn.norm import MaskedBatchNorm
+
+    def seed(norm, args):
+        x, mask = args
+        rows = mask.reshape(mask.shape + (1,) * (x.ndim - mask.ndim)).expand(*x.shape[:-1], 1).to(x.dtype)
+        dims = tuple(range(x.ndim - 1))
+        mean = (x * rows).sum(dims) / rows.sum()
+        norm.mean.copy_(mean)
+        norm.var.copy_((rows * (x - mean) ** 2).sum(dims) / rows.sum())
+
+    hooks = [m.register_forward_pre_hook(seed) for m in model.modules() if isinstance(m, MaskedBatchNorm)]
+    try:
+        with torch.no_grad():
+            model(h, f0, out_pc)
+    finally:
+        for hook in hooks:
+            hook.remove()
+
+
+def dfaust_model_gates(card, dev, trainer, small, label) -> dict:
+    """31d. phase 31's model gates, each with a control that a wrong result
+    fails, on a copy of ``trainer``'s model with its norms seeded
+    (:func:`seed_norms`) on the two clouds of ``small``: an equivariant
+    model's logits unchanged by a global rotation of the hierarchy
+    (``ROT_ATOL``), and changed past it when the positions are rotated and
+    the frames are not; the card's logits within ``CPU_ATOL`` of the CPU's
+    (plain path), and the card's with the kernel of the first conv (the
+    farthest from the logits) planted wrong, another activation (gelu, or
+    relu for gelu) or correlation, past it.  Before the norms are seeded it prints how far
+    that planted kernel moves the logits of the model as it is (the
+    reading that calls for the seeding).  Returns the readings."""
+    from se3conv3d_tpu_torch.core.hierarchy import Hierarchy, rotate_cloud, rotate_hierarchy
+    from se3conv3d_tpu_torch.core.pointcloud import PointCloud
+    from se3conv3d_tpu_torch.core.rotation import random_rotations
+    from se3conv3d_tpu_torch.nn.conv import PNEConv
+
+    model = copy.deepcopy(trainer.model).eval()
+    h, f0, out_pc, _, _ = trainer.build(small, torch.Generator(device=dev).manual_seed(5), train=False)
+    valid, out = out_pc.mask, {}
+    conv = next(m for m in model.modules() if isinstance(m, PNEConv))
+    attr, wrong = (("corr", "linear" if conv.corr == "gauss" else "gauss") if hasattr(conv, "corr")
+                   else ("pne_type", "mlp_relu" if conv.pne_type == "mlp_gelu" else "mlp_gelu"))
+    right = getattr(conv, attr)
+
+    @torch.no_grad()
+    def planted():
+        setattr(conv, attr, wrong)
+        try:
+            return model(h, f0, out_pc)
+        finally:
+            setattr(conv, attr, right)
+
+    with torch.no_grad():  # the norms as the model has them: what the control moves there
+        base = model(h, f0, out_pc)
+        out["unseeded_logits_std_over_points"] = (base[valid].std(0).mean().item())
+        out["unseeded_control"] = (planted() - base).abs()[valid].max().item()
+    print(f"{label} norms as trained: logits std over the points {out['unseeded_logits_std_over_points']:.3e}; "
+          f"the first conv's kernel with {attr} {wrong} for {right} moves them by {out['unseeded_control']:.3e} "
+          f"[{card}]", flush=True)
+    seed_norms(model, h, f0, out_pc)
+    with torch.no_grad():
+        base = model(h, f0, out_pc)
+        out["logits_std_over_points"] = spread = base[valid].std(0).mean().item()
+        if model.spec.equivariant:
+            rot = random_rotations(1, generator=torch.Generator().manual_seed(6))[0].to(dev)
+            rotated = model(rotate_hierarchy(h, rot), f0, rotate_cloud(out_pc, rot))
+            unframed = model(Hierarchy(tuple(PointCloud(pc.positions @ rot.T, pc.mask, pc.frames)
+                                             for pc in h.levels), h.maps, h.levels_radii), f0,
+                             PointCloud(out_pc.positions @ rot.T, out_pc.mask, out_pc.frames))
+            out["rotation_max_abs_err"] = rot_err = (base - rotated).abs()[valid].max().item()
+            out["rotation_control"] = rot_control = (base - unframed).abs()[valid].max().item()
+            print(f"{label} invariance (norms seeded): max |logits - logits(rotated)| = {rot_err:.3e} (bound "
+                  f"{ROT_ATOL}); control, the positions rotated and the frames not: {rot_control:.3e} [{card}]",
+                  flush=True)
+            if not rot_err <= ROT_ATOL < rot_control:
+                raise SystemExit(f"{label}: logits change under a global rotation, or the bound does not tell "
+                                 "a model that ignores the frames' rotation")
+        cpu_logits = copy.deepcopy(model).cpu()(h.to("cpu"), f0.cpu(), out_pc.to("cpu"))
+        out["card_vs_cpu_max_abs_err"] = err = (base.cpu() - cpu_logits).abs()[valid.cpu()].max().item()
+        out["card_vs_cpu_control"] = control = (planted().cpu() - cpu_logits).abs()[valid.cpu()].max().item()
+    print(f"{label} card_vs_cpu (norms seeded): max |logits(card) - logits(cpu)| = {err:.3e} (bound {CPU_ATOL}); "
+          f"control, the first conv's kernel with {attr} {wrong} for {right}: {control:.3e}; max |logits| "
+          f"{base.abs().max().item():.3e}, std over the points {spread:.3e} [{card}]", flush=True)
+    if not err <= CPU_ATOL < control:
+        raise SystemExit(f"{label}: card and CPU logits disagree, or the bound does not tell a wrong kernel")
+    return out
+
+
+def plain_kinds_card_vs_cpu(card, dev) -> dict:
+    """31c. one conv of each of ``PLAIN_KINDS`` (the JAX package's XLA path:
+    ``mlp_softmax``, 'max' aggregation, quaternion and matrix rotations; no
+    Pallas kernel serves them, and the port runs them in PyTorch ops, not as
+    a fallback) on the card against the same conv on the CPU: 2 clouds of
+    2,048 sources and 1,024 queries (two random frames per point where
+    equivariant), kNN 16, C = O = 32, Q = 32; a calibration pass, the
+    forward within ``KERNEL_RTOL`` of its largest value (float32 sums in
+    other orders) and the parameter gradients within ``GRAD_RTOL`` per leaf;
+    no conv kernel launched."""
+    from se3conv3d_tpu_torch.core.neighborhoods import knn_neighborhood
+    from se3conv3d_tpu_torch.core.pointcloud import PointCloud
+    from se3conv3d_tpu_torch.core.rotation import random_rotations
+    from se3conv3d_tpu_torch.kernels import fused_equiv as kfe
+    from se3conv3d_tpu_torch.nn.conv import ConvFactory
+    from se3conv3d_tpu_torch.train import schedule
+
+    gen = torch.Generator().manual_seed(140)
+    out = {}
+    for name, kind in PLAIN_KINDS.items():
+        f = 2 if kind["equivariant"] else 0
+
+        def cloud(n):
+            frames = random_rotations(2 * n * f, generator=gen).reshape(2, n, f, 3, 3) if f else None
+            return PointCloud(torch.rand(2, n, 3, generator=gen) * 2.0, torch.ones(2, n, dtype=torch.bool),
+                              frames)
+
+        pc_in, pc_out = cloud(2048), cloud(1024)
+        feats = torch.randn((2, 2048, f, 32) if f else (2, 2048, 32), generator=gen)
+        conv = ConvFactory(**kind).make(32, 32)
+        conv.reset_parameters(gen)
+        sides = {}
+        before = read_launches(kfe)
+        for where in ("card", "cpu"):
+            d = dev if where == "card" else torch.device("cpu")
+            c = copy.deepcopy(conv).to(d)
+            src, dst = pc_in.to(d), pc_out.to(d)
+            neigh = knn_neighborhood(src, dst, 16)
+            x = feats.to(d).requires_grad_()
+            with torch.no_grad():
+                c(src, dst, x, neigh, calibrate=True)
+            y = c(src, dst, x, neigh)
+            (y * torch.cos(y)).sum().backward()
+            sides[where] = (y.detach().cpu(), {n: q.grad.cpu() for n, q in c.named_parameters()})
+        if conv.fused or read_launches(kfe) != before:
+            raise SystemExit(f"plain kind {name}: took the kernel path")
+        err = max_rel_err(sides["card"][0], sides["cpu"][0])
+        norm = float(schedule.global_norm(list(sides["cpu"][1].values())))
+        worst, worst_name = grads_ratio(sides["card"][1], sides["cpu"][1], norm)
+        print(f"plain_kind {name}: max |out(card) - out(cpu)| = {err[0]:.3e}, relative {err[1]:.3e} (bound "
+              f"{KERNEL_RTOL}); parameter gradients worst {worst:.3e} at {worst_name} (bound {GRAD_RTOL}) "
+              f"[{card}]", flush=True)
+        if not (err[1] <= KERNEL_RTOL and worst <= GRAD_RTOL):
+            raise SystemExit(f"plain kind {name}: card and CPU disagree")
+        out[name] = dict(max_abs_err=err[0], max_rel_err=err[1], grads_ratio=worst)
+    return out
+
+
+def run_modes(card, dev, batch, small, fill) -> dict:
+    """29.-31. the other conv kinds: their kernels, then their models;
+    ``fill``: the live rows per level of ``batch`` (the DFaust standard and
+    equivariant recipes subsample alike)."""
+    return dict(act_conv=act_conv_kernels(card, dev, fill), kp_conv=kp_conv_kernels(card, dev, fill),
+                kp_models=kp_models(card, dev, batch, small), act_models=act_models(card, dev, batch, small),
+                plain_kinds=plain_kinds_card_vs_cpu(card, dev))
+
+
+def mode_entries(modes: dict) -> list:
+    """The ``{"kernels": [...]}`` entries of the activations and of the
+    kernel-point geometry (phases 29-31): per kernel, activation and
+    correlation, its launches on phase 31's model paths and its times at
+    the first of its shapes (float32), the others under ``"by_case"``."""
+    ack, kpk, acm, kpm = modes["act_conv"], modes["kp_conv"], modes["act_models"], modes["kp_models"]
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
+    src = {kind: f"se3conv3d_tpu_torch/kernels/csrc/fused_equiv_{kind}.cu" for kind in ("fwd", "bwd")}
+    tpu = {"fwd": "se3conv3d_tpu/ops/pallas/fused_equiv.py:196", "bwd": "se3conv3d_tpu/ops/pallas/fused_equiv.py:227"}
+    lib = {"fwd": "library_ms", "bwd": "products_library_ms"}
+    lvl0 = SCANNET_SHAPES["scannet_level0_block_conv"]
+    entries = []
+    for kind, which in (("fwd", 0), ("bwd", 1)):
+        for act in MODE_ACTS:
+            cases = {f"{name} {dt}": c[act][kind] for name, by_dt in ack.items() for dt, c in by_dt.items()}
+            gelu = {f"{name} {dt}": {k: c["gelu"][kind][k] for k in ("ms", "plain_ms")}
+                    | {"again_ms": c["gelu"][f"{kind}_again_ms"]} for name, by_dt in ack.items()
+                    for dt, c in by_dt.items()}
+            every = {f"dfaust_{g}_mlp_{act}_train": acm[act][g]["launches"][which]
+                     for g in ("equivariant", "standard")}
+            top = cases["scannet_level0_block_conv float32"]
+            entries.append({
+                "name": f"fused_equiv_{kind}[act={act}]", "route": "cuda", "source": src[kind],
+                "replaces": tpu[kind], "launches": sum(every.values()), "launches_by_path": every,
+                **{k: top[k] for k in keys}, "max_abs_err": max(c["max_abs_err"] for c in cases.values()),
+                "library_ms": top[lib[kind]], "at": f"scannet level-0 block conv B,M,N,K,G,F,Q,C,O={lvl0}, "
+                "kD = 9, float32", "by_case": cases, "gelu_same_call": gelu})
+        for corr in ("gauss", "linear", "box"):
+            types = (f"kp_{corr}", f"kp_{corr}_double")
+            cases = {f"{name} {t}": by_t[t][kind] for name, by_t in kpk.items() for t in types}
+            every = {f"dfaust_std_{t}": kpm[t]["launches"][which] for t in types}
+            top = cases[f"dfaust_std_level0_conv kp_{corr}"]
+            entries.append({
+                "name": f"fused_equiv_{kind}[kp={corr}]", "route": "cuda", "source": src[kind],
+                "replaces": tpu[kind], "launches": sum(every.values()), "launches_by_path": every,
+                **{k: top[k] for k in keys}, "max_abs_err": max(c["max_abs_err"] for c in cases.values()),
+                "library_ms": top[lib[kind]], "at": f"dfaust standard level-0 shape "
+                f"B,M,N,K,G,F,Q,C,O={KP_SHAPES['dfaust_std_level0_conv'][0]} at the bodies' fill, P = 13, "
+                "float32", "by_case": cases})
+    return entries
+
+
 def kernels_line(dfaust: dict, scan: dict, mixf: dict, rot_i: dict, g4: dict, std: dict, mn: dict,
-                 cli: dict, evals: dict) -> dict:
+                 cli: dict, evals: dict, modes: dict) -> dict:
     """The ``{"kernels": [...]}`` object: every kernel with its launches on
     the main paths, its error against its plain version, and its times at
     the ScanNet level-0 shape (float32), with the same for its bfloat16
@@ -3508,7 +4049,8 @@ def kernels_line(dfaust: dict, scan: dict, mixf: dict, rot_i: dict, g4: dict, st
     in each entry's ``launches`` (``cli_*`` paths), and those of the eval
     CLIs of phases 26-28 (``eval_*`` paths, forwards only), with the
     forward's times at the whole 1.5M-point room's level-0 shape of phase 28
-    under ``"whole_scene_bf16"``."""
+    under ``"whole_scene_bf16"``; then the activations' and the kernel-point
+    geometry's entries of phases 29-31 (:func:`mode_entries`)."""
     compared, bwd_compared = dfaust["fwd"], dfaust["bwd"]
     scan_conv, scan_cumsum, scan_train, scan_eval = scan["conv"], scan["cumsum"], scan["train"], scan["eval"]
     lvl0 = SCANNET_SHAPES["scannet_level0_block_conv"]
@@ -3674,7 +4216,9 @@ def kernels_line(dfaust: dict, scan: dict, mixf: dict, rot_i: dict, g4: dict, st
                      "max_abs_err": c0b["max_abs_err"], "ms": c0b["ms"], "plain_ms": c0b["plain_ms"],
                      "bound_ms": c0b["bound_ms"], "bound_by": "bytes", "library_ms": c0b["library_ms"],
                      "at": cum_at + " bfloat16 rows"},
-        }], "scannet": {"eval": scan_eval, "train": scan_train, "grid_vs_brute": scan["grid"]},
+        }, *mode_entries(modes)], "other_conv_kinds": {k: modes[k] for k in ("kp_models", "act_models",
+                                                                              "plain_kinds")},
+        "scannet": {"eval": scan_eval, "train": scan_train, "grid_vs_brute": scan["grid"]},
         "dfaust": {"train_bf16": dfaust["bf16_train"]}, "dfaust_mixf": mixf, "scannet20_rot_I": rot_i,
         "standard": {"dfaust": std["dfaust"], "scannet": std["scannet"]},
         "modelnet40": {"runs": mn["runs"], "profile": mn["profile"]}, "cli": cli,
@@ -3745,6 +4289,8 @@ def main() -> int:
     # 4. rotation invariance and 5. card vs CPU, on two clouds
     small = to_device(body_batch(2, POINTS, seed=4), dev)
     dfaust_card_vs_cpu(card, dev, trainer, small)
+    # and both with the norms seeded, each beside a control it must fail
+    dfaust_model_gates(card, dev, trainer, small, "dfaust")
     del trainer
     torch.cuda.empty_cache()
 
@@ -3798,6 +4344,8 @@ def main() -> int:
     print(f"dfaust_std: max valid points per level {fill} [{card}]", flush=True)
     std = {"conv": std_conv_kernels(card, dev, fill),
            "dfaust": dfaust_standard(card, dev, batch, small, RecordedDraws, dfaust_steps)}
+    # 29.-31. the other conv kinds: the activations and the kernel points
+    modes = run_modes(card, dev, batch, small, fill)
     del batch, small
     torch.cuda.empty_cache()
 
@@ -3820,7 +4368,7 @@ def main() -> int:
     dfaust = dict(fwd=compared, bwd=bwd_compared, eval_launches=launches,
                   train_launches=dfaust_steps["launches"], bf16_train_launches=dfaust_bf16["bf16_launches"],
                   bf16_train=dfaust_bf16)
-    print(json.dumps(kernels_line(dfaust, scan, mixf, rot_i, g4, std, mn, cli, evals)))
+    print(json.dumps(kernels_line(dfaust, scan, mixf, rot_i, g4, std, mn, cli, evals, modes)))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

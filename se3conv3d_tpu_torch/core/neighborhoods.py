@@ -96,8 +96,13 @@ class Neighborhood:
         (``kernels.fused_equiv.live_row_table``): the rows the conv
         kernels work on.
       std_rel: optional ``[B, M, K, 1, 3]`` raw edge offsets, the standard
-        convs' geometry (``ops.pne_conv.std_geometry``), shared by every
-        standard conv on this neighborhood.
+        and kernel-point convs' geometry (``ops.pne_conv.std_geometry``),
+        shared by every standard conv on this neighborhood.
+      plain_rel / plain_rot: optional float32 ``[B, M, K, G, 3]`` offsets in
+        the receiver frames and ``[B, M, K, G, F, R]`` relative rotations
+        (R = 6, 4 or 9): the geometry of the equivariant convs on the plain
+        path (``ops.pne_conv.equiv_geometry``), beside ``equiv_rel`` /
+        ``equiv_rot``, the kernel path's.
     """
 
     idx: torch.Tensor
@@ -114,6 +119,8 @@ class Neighborhood:
     bwd_run_end: Optional[torch.Tensor] = None
     live_rows: Optional[torch.Tensor] = None
     std_rel: Optional[torch.Tensor] = None
+    plain_rel: Optional[torch.Tensor] = None
+    plain_rot: Optional[torch.Tensor] = None
 
 
 def _chunked_topk_neighbors(src_pos, src_mask, query_pos, query_mask, k, radius2, chunk,

@@ -15,6 +15,7 @@ __all__ = [
     "random_rotations",
     "planar_rotations",
     "matrix_to_rotation_6d",
+    "matrix_to_quaternion",
     "relative_rotations",
 ]
 
@@ -96,6 +97,34 @@ def planar_rotations(
 def matrix_to_rotation_6d(m: torch.Tensor) -> torch.Tensor:
     """First two *rows* of the matrix flattened -> ``[..., 6]``."""
     return m[..., :2, :].reshape(m.shape[:-2] + (6,))
+
+
+def _sqrt_positive_part(x: torch.Tensor) -> torch.Tensor:
+    return torch.sqrt(torch.clamp(x, min=0.0))
+
+
+def matrix_to_quaternion(m: torch.Tensor) -> torch.Tensor:
+    """Rotation matrices ``[..., 3, 3]`` -> quaternions ``[..., 4]`` (w
+    first): of the four candidates, the one built from the largest ``|q_i|``
+    (``se3conv3d_tpu/core/rotation.py:matrix_to_quaternion``, reference
+    ``pc/RotationFunctions.py:114-173``)."""
+    batch = m.shape[:-2]
+    m00, m01, m02, m10, m11, m12, m20, m21, m22 = m.reshape(batch + (9,)).unbind(-1)
+    q_abs = _sqrt_positive_part(torch.stack([
+        1.0 + m00 + m11 + m22,
+        1.0 + m00 - m11 - m22,
+        1.0 - m00 + m11 - m22,
+        1.0 - m00 - m11 + m22,
+    ], -1))
+    quat_by_rijk = torch.stack([
+        torch.stack([q_abs[..., 0] ** 2, m21 - m12, m02 - m20, m10 - m01], -1),
+        torch.stack([m21 - m12, q_abs[..., 1] ** 2, m10 + m01, m02 + m20], -1),
+        torch.stack([m02 - m20, m10 + m01, q_abs[..., 2] ** 2, m12 + m21], -1),
+        torch.stack([m10 - m01, m20 + m02, m21 + m12, q_abs[..., 3] ** 2], -1),
+    ], -2)
+    quat_candidates = quat_by_rijk / (2.0 * torch.clamp(q_abs[..., None], min=0.1))
+    best = torch.argmax(q_abs, -1)
+    return torch.take_along_dim(quat_candidates, best[..., None, None], -2).squeeze(-2)
 
 
 def relative_rotations(frames_a: torch.Tensor, frames_b: torch.Tensor) -> torch.Tensor:

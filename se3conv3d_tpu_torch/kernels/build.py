@@ -38,13 +38,16 @@ NVCC_FLAGS = [
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
 # name: [(symbol, argtypes, restype)]
 _SIGNATURES = {
-    "fwd": [("se3_fused_equiv_fwd", [_P] * 11 + [_I] * 13 + [_P], _I),
-            ("se3_fused_std_fwd", [_P] * 10 + [_I] * 11 + [_P], _I),
+    "fwd": [("se3_fused_equiv_fwd", [_P] * 11 + [_I] * 14 + [_P], _I),
+            ("se3_fused_std_fwd", [_P] * 10 + [_I] * 12 + [_P], _I),
+            ("se3_fused_kp_fwd", [_P] * 12 + [_I] * 13 + [_F, _I, _P], _I),
             ("se3_fused_equiv_fwd_plan", [_I] * 5 + [_L, _I] + [_P] * 3, None)],
-    "bwd": [("se3_fused_equiv_bwd", [_P] * 17 + [_I] * 13 + [_P], _I),
-            ("se3_fused_std_bwd", [_P] * 16 + [_I] * 11 + [_P], _I),
+    "bwd": [("se3_fused_equiv_bwd", [_P] * 17 + [_I] * 14 + [_P], _I),
+            ("se3_fused_std_bwd", [_P] * 16 + [_I] * 12 + [_P], _I),
+            ("se3_fused_kp_bwd", [_P] * 18 + [_I] * 13 + [_F, _I, _P], _I),
             ("se3_fused_equiv_bwd_plan", [_I] * 6 + [_P] * 3, None)],
     "cumsum": [("se3_blocked_cumsum", [_P] * 3 + [_I, _L, _I, _I, _P], _I),
                ("se3_blocked_cumsum_words", [_I, _L, _I], _L)],

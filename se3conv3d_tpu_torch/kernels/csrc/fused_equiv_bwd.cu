@@ -1,19 +1,25 @@
-// Fused equivariant PNE-conv backward for NVIDIA Hopper (sm_90a), with
-// float32 or bfloat16 operands and float32 accumulation.
+// Fused PNE-conv backward for NVIDIA Hopper (sm_90a), with float32 or
+// bfloat16 operands and float32 accumulation.
 //
-// Forward (fused_equiv_fwd.cu), per query point (b, m):
-//   pre[k,g,f,q]  = P . [rel[b,m,k,g,:], rot6[b,m,k,g,f,:]] + bias[q]
-//   basis[g,c,q]  = sum_{k,f: mask} gelu(pre[k,g,f,q]) * feats[b, idx[b,m,k], f, c]
+// Forward (fused_equiv_fwd.cu), per query point (b, m), x the edge's pne
+// inputs (fused_equiv_common.cuh: kD = 9 equivariant, 3 standard, kKP the
+// kernel-point weights) and act gelu, relu, sin or the identity:
+//   pre[k,g,f,q]  = P . x[k,g,f,:] + bias[q]
+//   basis[g,c,q]  = sum_{k,f: mask} act(pre[k,g,f,q]) * feats[b, idx[b,m,k], f, c]
 //   out[b,m,g,o]  = sum_{c,q} basis[g,c,q] * W[c,q,o]
 // Given gout = d loss / d out, this computes
 //   d_w[c,q,o]    = sum_{b,m,g} basis[g,c,q] * gout[b,m,g,o]
 //   dbasis[g,c,q] = sum_o gout[b,m,g,o] * W[c,q,o]
 //   d_feats[b,idx,f,c] += sum_{g,q} pne[k,g,f,q] * dbasis[g,c,q]  (valid edges only)
-//   dpre[k,g,f,q] = (sum_c feat[k,f,c] * dbasis[g,c,q]) * gelu'(pre)
-//   d_proj[d,q]   = sum dpre * geo[d],  d_bias[q] = sum dpre
-// with gelu'(x) = Phi(x) + x * phi(x) in closed form.  The standard
-// (non-equivariant) conv is the same at G = F = 1 with the kD = 3 pne
-// inputs, the raw offsets and no rot6 (se3_fused_std_bwd; d_proj [3, Q]).
+//   dpre[k,g,f,q] = (sum_c feat[k,f,c] * dbasis[g,c,q]) * act'(pre)
+//   d_proj[d,q]   = sum dpre * x[d],  d_bias[q] = sum dpre
+// with act' in closed form (gelu' = Phi(x) + x * phi(x), relu' a step with
+// 0 at 0, sin' = cos, linear' = 1).  The standard (non-equivariant) conv is
+// the same at G = F = 1 with the kD = 3 pne inputs, the raw offsets and no
+// rot6 (se3_fused_std_bwd; d_proj [3, Q]); the kernel-point conv at G = F =
+// 1 with the P weights of each edge recomputed from its float32 raw offset
+// (se3_fused_kp_bwd; d_proj [P, Q]); the weights, like all geometry, get no
+// gradient.
 //
 // Replaces the TPU Pallas kernel se3conv3d_tpu/ops/pallas/fused_equiv.py:
 // _bwd_kernel (with the XLA scatter-add of the per-edge feature gradients
@@ -22,8 +28,8 @@
 // PyTorch version and the design note.
 //
 // What bounds it: per query point the backward needs basis and dbasis
-// ([G, C, Q], 64 KB at C=256) and, per edge, pne, gelu' and dpne
-// ([G, Q]); at the slice's widths the per-edge tensors are several GB per
+// ([G, C, Q], 64 KB at C=256) and, per edge, pne, act' and dpne ([G, Q];
+// at kD = kKP also the P weights); at the slice's widths the per-edge tensors are several GB per
 // conv if written out.  The TPU summed d_w and d_proj across a sequential
 // grid in VMEM; Hopper blocks run in parallel and in no order, and d_w
 // (C*Q*O floats, 8 MB at C=O=256) fits in no block's shared memory.  So the
@@ -44,11 +50,14 @@
 //      them into per-split partials, then sum_partials adds the splits in a
 //      fixed order (deterministic: the splits depend only on L);
 //   3. tf32x3_gemm: dbasis = gout . W^T, written over the basis scratch;
-//   4. edge_kernel: one warp per live row recomputes pne and gelu' for its
+//   4. edge_kernel: one warp per live row recomputes pne and act' for its
 //      valid edges, contracts them with dbasis and the gathered features,
 //      adds d_feats with float32 atomics straight into [B, N, F, C]
 //      (masked edges are skipped) and sums d_proj / d_bias per block;
-//      sum_partials adds the blocks in a fixed order.  Given the sort tables
+//      sum_partials adds the blocks in a fixed order (at kD = kKP the
+//      [P + 1, Q] sums of a warp live in shared memory: a lane owns column
+//      q and adds one round of 32 edges per row at a time, where P + 1 = 56
+//      register accumulators a lane would spill).  Given the sort tables
 //      of the 'sorted' reduction (slot[b, m*K + k], the edge's position in
 //      source order), the edge's row d_gathered[F*C] is stored plainly at
 //      row b*M*K + slot of a zeroed [B, M*K, F*C] buffer instead of the
@@ -84,7 +93,7 @@ constexpr int kETM = 4;                   // query points per tile, one per warp
 constexpr int kRowStride = kCC + 1;       // dbasis / feature chunk rows
 
 // edge_kernel's shared-memory layout for pne rows of GQC columns and kD pne
-// inputs.
+// inputs (kD = 3 or 9; kD = kKP sizes its geometry rows at run time).
 template <int GQC, int kD>
 struct EdgeCols : Cols<GQC> {
   using Base = Cols<GQC>;
@@ -94,8 +103,22 @@ struct EdgeCols : Cols<GQC> {
   static constexpr int kQLanes = GQC / 32;              // q = lane + 32h of the d_proj sums
 };
 
+// kD = kKP: an edge's geometry row holds its P weights, an odd stride
+__host__ __device__ inline int kp_geo_stride(int P) { return P | 1; }
+template <int GQC>
+__host__ __device__ int kp_warp_floats(int P) {
+  return Cols<GQC>::kSlab + GQC * kRowStride + kEB * kRowStride + kEB * kp_geo_stride(P);
+}
+
+// the projection [D][GQC] and bias [GQC] (D = P at kD = kKP, then the
+// kernel points [P][3]), kETM warp slabs (at kD = kKP then the d_proj sums
+// [kETM][P + 1][32]), and the edge lists
 template <int GQC, int kD>
-size_t edge_smem(int K) {
+size_t edge_smem(int K, int P) {
+  if (kD == kKP)
+    return sizeof(float) * ((P + 1) * static_cast<size_t>(GQC) + 3 * P +
+                            kETM * static_cast<size_t>(kp_warp_floats<GQC>(P)) + kETM * (P + 1) * kEB) +
+           sizeof(int) * 2 * kETM * static_cast<size_t>(K);
   return sizeof(float) * ((kD + 1) * GQC + kETM * EdgeCols<GQC, kD>::kWarpFloats) +
          sizeof(int) * 2 * kETM * static_cast<size_t>(K);
 }
@@ -132,13 +155,17 @@ cudaError_t launch_sum_partials(const float* part, int S, long long n, float* ou
 // --- 4. per-edge gradients ---------------------------------------------------
 // Tiles of kETM live rows, walked grid-stride; one warp per row.  d_feats
 // by float32 atomics into dfeats (or, with slot, each edge's row stored at
-// its sorted slot of dsorted), d_proj / d_bias as one [kD + 1][Q] partial
+// its sorted slot of dsorted), d_proj / d_bias as one [D + 1][Q] partial
 // per block.  With T = bf16 the rows are rounded to bfloat16 first, and so is
 // each dpre.  The dpne register tile covers 64 (g, q) columns: a row of 128
 // (GQC = 128, G*Q > 64) takes two passes over the channel chunks, the
 // second reloading the features and its dbasis columns, and adds d_feats in
-// the first only.
-template <typename T, int GQC, int kD>
+// the first only.  kAnyAct: the activation switch (act); without it the
+// kernel is gelu's alone, the code of the gelu convs on every recipe's path,
+// which a switch in this kernel slowed by 5-10% on an H100 (timed in turns
+// with a build without the switch).  The kernel-point instantiation always
+// switches.
+template <typename T, int GQC, int kD, bool kAnyAct>
 __global__ void __launch_bounds__(kEThreads)
 edge_kernel(const T* __restrict__ rel, const T* __restrict__ rot6,
             const T* __restrict__ feats, const int64_t* __restrict__ idx,
@@ -146,34 +173,47 @@ edge_kernel(const T* __restrict__ rel, const T* __restrict__ rot6,
             const float* __restrict__ bias, const T* __restrict__ dbasis,
             const int* __restrict__ live, const int64_t* __restrict__ slot,
             float* __restrict__ dfeats, T* __restrict__ dsorted, float* __restrict__ ppart,
-            int M, int N, int K, int G, int F, int Q, int C, int L, int BM) {
+            int M, int N, int K, int G, int F, int Q, int C, int L, int BM, int act, KpGeo kp) {
   using Lay = EdgeCols<GQC, kD>;
-  constexpr int kStride = Lay::kStride, kGeoStride = Lay::kGeoStride, kPRows = Lay::kPRows;
+  constexpr bool kKp = kD == kKP;
+  static_assert(kAnyAct || !kKp, "the kernel-point instantiation switches its activation");
+  constexpr int kStride = Lay::kStride, kPRows = Lay::kPRows;
+  const int D = kKp ? kp.P : kD;
+  const int kGeoStride = kKp ? kp_geo_stride(kp.P) : Lay::kGeoStride;
+  const int warpFloats = kKp ? kp_warp_floats<GQC>(kp.P) : Lay::kWarpFloats;
   extern __shared__ float smem[];
-  float* projS = smem;                       // [kD][Q]
-  float* biasS = projS + kD * GQC;           // [Q]
-  float* warpS = biasS + GQC;                // [kETM][Lay::kWarpFloats]
-  int* validK = reinterpret_cast<int*>(warpS + kETM * Lay::kWarpFloats);  // [kETM][K]
+  float* projS = smem;                       // [D][Q]
+  float* biasS = projS + D * GQC;            // [Q]
+  float* kpS = biasS + GQC;                  // [P][3] (kD = kKP)
+  float* warpS = kpS + (kKp ? 3 * kp.P : 0);  // [kETM][warpFloats]
+  float* accS = warpS + kETM * warpFloats;   // [kETM][P + 1][32] (kD = kKP)
+  int* validK = reinterpret_cast<int*>(accS + (kKp ? kETM * (kp.P + 1) * kEB : 0));  // [kETM][K]
   int* validN = validK + kETM * K;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int GQ = G * Q;
   const size_t CQ = static_cast<size_t>(C) * Q;
-  for (int i = tid; i < kD * Q; i += kEThreads) projS[i] = rnd<T>(proj[i]);
+  for (int i = tid; i < D * Q; i += kEThreads) projS[i] = rnd<T>(proj[i]);
   for (int i = tid; i < Q; i += kEThreads) biasS[i] = rnd<T>(bias[i]);
+  if constexpr (kKp)
+    for (int i = tid; i < 3 * kp.P; i += kEThreads) kpS[i] = kp.points[i];
 
-  float* pneW = warpS + warp * Lay::kWarpFloats;  // [kEB][kStride]: pne, then dpne/dpre
+  float* pneW = warpS + warp * warpFloats;        // [kEB][kStride]: pne, then dpne/dpre
   float* dbW = pneW + Lay::kSlab;                 // [GQC][kRowStride]: dbasis chunk [gq][c]
   float* featW = dbW + GQC * kRowStride;        // [kEB][kRowStride]: features [e][c]
   float* geoW = featW + kEB * kRowStride;       // [kEB][kGeoStride]
+  float* accW = accS + warp * (kKp ? (kp.P + 1) * kEB : 0);  // [P + 1][32] (kD = kKP)
   int* vK = validK + warp * K;
   int* vN = validN + warp * K;
   // rows gq >= G*Q of the dbasis chunk stay zero
   for (int i = GQ * kRowStride + lane; i < GQC * kRowStride; i += 32) dbW[i] = 0.f;
+  if constexpr (kKp)
+    for (int i = lane; i < (kp.P + 1) * kEB; i += 32) accW[i] = 0.f;
+  const float nd = kKp ? __ldg(kp.norm_dist) : 0.f;
   __syncthreads();
 
   const int eb = lane >> 3, gb = lane & 7;  // dpne tile: e = eb + 4i, gq = h0 + gb + 8j
-  float accP[Lay::kQLanes][kPRows];           // d_proj / d_bias for q = lane + 32h
+  float accP[Lay::kQLanes][kPRows];           // d_proj / d_bias for q = lane + 32h (kD = 3, 9)
 #pragma unroll
   for (int h = 0; h < Lay::kQLanes; ++h)
 #pragma unroll
@@ -201,16 +241,28 @@ edge_kernel(const T* __restrict__ rel, const T* __restrict__ rot6,
         float* grow_s = geoW + lane * kGeoStride;
         if (lane < ne) {
           const int e = e0 + lane, j = e / F, f = e - j * F;
-          const size_t base = (row + vK[j]) * G;
+          if constexpr (kKp) {  // G = F = 1
+            kp_weights<T>(kp.rel + (row + vK[j]) * 3, nd, kpS, kp.inv_s2, kp.P, kp.corr, grow_s, 1);
+            fill_pne<T>(act, Q, prow, [&](int q) { return pre_kp(grow_s, 1, projS, biasS, kp.P, Q, q); },
+                        [&](int q) { return pre_kp<true>(grow_s, 1, projS, biasS, kp.P, Q, q); });
+          } else {
+            const size_t base = (row + vK[j]) * G;
 #pragma unroll
-          for (int g = 0; g < Lay::kGMax; ++g) {
-            if (g < G) {
-              float geo[kD];
-              edge_geo<kD>(rel, rot6, base, g, F, f, geo);
+            for (int g = 0; g < Lay::kGMax; ++g) {
+              if (g < G) {
+                float geo[kD];
+                edge_geo<kD>(rel, rot6, base, g, F, f, geo);
 #pragma unroll
-              for (int d = 0; d < kD; ++d) grow_s[g * kD + d] = geo[d];
-              for (int q = 0; q < Q; ++q)
-                prow[g * Q + q] = rnd<T>(gelu_erf(pre_act<kD>(geo, projS, biasS, Q, q)));
+                for (int d = 0; d < kD; ++d) grow_s[g * kD + d] = geo[d];
+                if constexpr (kAnyAct) {
+                  fill_pne<T>(act, Q, prow + g * Q,
+                              [&](int q) { return pre_act<kD>(geo, projS, biasS, Q, q); },
+                              [&](int q) { return pre_act<kD, true>(geo, projS, biasS, Q, q); });
+                } else {
+                  for (int q = 0; q < Q; ++q)
+                    prow[g * Q + q] = rnd<T>(gelu_erf(pre_act<kD>(geo, projS, biasS, Q, q)));
+                }
+              }
             }
           }
         } else {
@@ -218,7 +270,6 @@ edge_kernel(const T* __restrict__ rel, const T* __restrict__ rot6,
         }
         for (int gq = GQ; gq < GQC; ++gq) prow[gq] = 0.f;
       }
-
       // dpne columns h0 .. h0 + 63 over every channel chunk, into the slab
       // (the pne it overwrites was read for the last time); the first
       // pass also adds the edges' feature gradients.  One pass where
@@ -310,34 +361,60 @@ edge_kernel(const T* __restrict__ rel, const T* __restrict__ rot6,
           for (int j = 0; j < 8; ++j) pneW[(eb + 4 * i) * kStride + h0 + gb + 8 * j] = dp[i][j];
       }
       __syncwarp();
-      // dpre = dpne * gelu'(pre) on each lane's own edge
+      // dpre = dpne * act'(pre) on each lane's own edge
       if (lane < ne) {
         float* prow = pneW + lane * kStride;
         const float* grow_s = geoW + lane * kGeoStride;
+        if constexpr (kKp) {
+          scale_by_act_grad<T>(act, Q, prow,
+                               [&](int q) { return pre_kp(grow_s, 1, projS, biasS, kp.P, Q, q); },
+                               [&](int q) { return pre_kp<true>(grow_s, 1, projS, biasS, kp.P, Q, q); });
+        } else {
 #pragma unroll
-        for (int g = 0; g < Lay::kGMax; ++g) {
-          if (g < G) {
-            float geo[kD];
+          for (int g = 0; g < Lay::kGMax; ++g) {
+            if (g < G) {
+              float geo[kD];
 #pragma unroll
-            for (int d = 0; d < kD; ++d) geo[d] = grow_s[g * kD + d];
-            for (int q = 0; q < Q; ++q)
-              prow[g * Q + q] = rnd<T>(prow[g * Q + q] * gelu_grad(pre_act<kD>(geo, projS, biasS, Q, q)));
+              for (int d = 0; d < kD; ++d) geo[d] = grow_s[g * kD + d];
+              if constexpr (kAnyAct) {
+                scale_by_act_grad<T>(act, Q, prow + g * Q,
+                                     [&](int q) { return pre_act<kD>(geo, projS, biasS, Q, q); },
+                                     [&](int q) { return pre_act<kD, true>(geo, projS, biasS, Q, q); });
+              } else {
+                for (int q = 0; q < Q; ++q)
+                  prow[g * Q + q] = rnd<T>(prow[g * Q + q] * gelu_grad(pre_act<kD>(geo, projS, biasS, Q, q)));
+              }
+            }
           }
         }
       }
       __syncwarp();
       // d_proj[d][q] += sum_{e,g} dpre[e][g,q] * geo[e][g,d]; d_bias[q] += sum dpre
+      if constexpr (kKp) {  // G = 1, Q <= 32: lane q adds each row's sum over this round
+        if (lane < Q) {
+          for (int d = 0; d < kp.P; ++d) {
+            float sum = 0.f;
+            for (int el = 0; el < ne; ++el)
+              sum = fmaf(pneW[el * kStride + lane], geoW[el * kGeoStride + d], sum);
+            accW[d * kEB + lane] += sum;
+          }
+          float sum = 0.f;
+          for (int el = 0; el < ne; ++el) sum += pneW[el * kStride + lane];
+          accW[kp.P * kEB + lane] += sum;
+        }
+      } else {
 #pragma unroll
-      for (int h = 0; h < Lay::kQLanes; ++h) {
-        const int q = lane + 32 * h;
-        if (q >= Q) continue;
-        for (int el = 0; el < ne; ++el) {
-          for (int g = 0; g < G; ++g) {
-            const float v = pneW[el * kStride + g * Q + q];
-            const float* geo = geoW + el * kGeoStride + g * kD;
+        for (int h = 0; h < Lay::kQLanes; ++h) {
+          const int q = lane + 32 * h;
+          if (q >= Q) continue;
+          for (int el = 0; el < ne; ++el) {
+            for (int g = 0; g < G; ++g) {
+              const float v = pneW[el * kStride + g * Q + q];
+              const float* geo = geoW + el * kGeoStride + g * kD;
 #pragma unroll
-            for (int d = 0; d < kD; ++d) accP[h][d] = fmaf(v, geo[d], accP[h][d]);
-            accP[h][kD] += v;
+              for (int d = 0; d < kD; ++d) accP[h][d] = fmaf(v, geo[d], accP[h][d]);
+              accP[h][kD] += v;
+            }
           }
         }
       }
@@ -346,27 +423,37 @@ edge_kernel(const T* __restrict__ rel, const T* __restrict__ rot6,
 
   // block partial: the warps' sums in a fixed order
   __syncthreads();
-  float* red = warpS;  // [kETM][kPRows][GQC]
+  if constexpr (kKp) {
+    const int rows = kp.P + 1;
+    for (int i = tid; i < rows * Q; i += kEThreads) {
+      const int d = i / Q, q = i - d * Q;
+      float s = 0.f;
+      for (int w = 0; w < kETM; ++w) s += accS[(w * rows + d) * kEB + q];
+      ppart[static_cast<size_t>(blockIdx.x) * rows * Q + i] = s;
+    }
+  } else {
+    float* red = warpS;  // [kETM][kPRows][GQC]
 #pragma unroll
-  for (int h = 0; h < Lay::kQLanes; ++h) {
-    const int q = lane + 32 * h;
-    if (q < Q)
+    for (int h = 0; h < Lay::kQLanes; ++h) {
+      const int q = lane + 32 * h;
+      if (q < Q)
 #pragma unroll
-      for (int d = 0; d < kPRows; ++d) red[(warp * kPRows + d) * GQC + q] = accP[h][d];
-  }
-  __syncthreads();
-  for (int i = tid; i < kPRows * Q; i += kEThreads) {
-    const int d = i / Q, q = i - d * Q;
-    float s = 0.f;
-    for (int w = 0; w < kETM; ++w) s += red[(w * kPRows + d) * GQC + q];
-    ppart[static_cast<size_t>(blockIdx.x) * kPRows * Q + i] = s;
+        for (int d = 0; d < kPRows; ++d) red[(warp * kPRows + d) * GQC + q] = accP[h][d];
+    }
+    __syncthreads();
+    for (int i = tid; i < kPRows * Q; i += kEThreads) {
+      const int d = i / Q, q = i - d * Q;
+      float s = 0.f;
+      for (int w = 0; w < kETM; ++w) s += red[(w * kPRows + d) * GQC + q];
+      ppart[static_cast<size_t>(blockIdx.x) * kPRows * Q + i] = s;
+    }
   }
 }
 
 long long round16(long long x) { return (x + 15) / 16 * 16; }
 
-// The passes of one backward call with operand type T and kD pne inputs.
-// The scratch holds the basis / dbasis rows [L*G, C*Q] and the compact gout
+// The passes of one backward call with operand type T in the geometry kD
+// (kp: the kernel-point geometry's arguments at kD = kKP).  The scratch holds the basis / dbasis rows [L*G, C*Q] and the compact gout
 // rows [L*G, O], in T, then with bfloat16 operands the bfloat16 copy of W
 // [C*Q, O].
 template <int kD, typename T>
@@ -375,8 +462,9 @@ cudaError_t backward(const T* rel, const T* rot6, const T* feats, const int64_t*
                      const float* gout, const int* live, const int64_t* slot, void* dfeats,
                      float* dparams, float* dw, char* scratch, float* wpart, float* ppart, int B,
                      int M, int N, int K, int G, int F, int Q, int C, int O, int L, int w_splits,
-                     int p_blocks, cudaStream_t stream) {
+                     int p_blocks, int act, const KpGeo& kp, cudaStream_t stream) {
   constexpr bool kBf16 = sizeof(T) == 2;
+  const int D = kD == kKP ? kp.P : kD;
   const long long rows = static_cast<long long>(L) * G;
   const int CQ = C * Q, BM = B * M;
   T* scr = reinterpret_cast<T*>(scratch);
@@ -385,7 +473,7 @@ cudaError_t backward(const T* rel, const T* rot6, const T* feats, const int64_t*
 
   // 1. basis and the compact gout rows
   err = launch_basis<T, kD>(true, rel, rot6, feats, idx, mask, proj, bias, gout, live, scr, gl, M, N,
-                        K, G, F, Q, C, O, L, BM, stream);
+                            K, G, F, Q, C, O, L, BM, act, kp, stream);
   if (err != cudaSuccess) return err;
 
   // 2. d_w[(c,q), o] = sum_rows basis[row, (c,q)] * gout[row, o], split along the rows
@@ -419,14 +507,21 @@ cudaError_t backward(const T* rel, const T* rot6, const T* feats, const int64_t*
   }
   if (err != cudaSuccess) return err;
 
-  // 4. per-edge gradients, in the column capacity of G and G*Q (kD = 3: 64)
+  // 4. per-edge gradients, in the column capacity of G and G*Q (kD = 3 and
+  // kD = kKP: 64), gelu's own instantiation for gelu (not kD = kKP)
   const bool wide = column_capacity(G, Q) == 128;
-  auto kernel = edge_kernel<T, 64, kD>;
-  size_t smem_e = edge_smem<64, kD>(K);
-  if constexpr (kD == 9) {
-    if (wide) kernel = edge_kernel<T, 128, kD>, smem_e = edge_smem<128, kD>(K);
-  } else if (wide) {
-    return cudaErrorInvalidValue;
+  if (wide && kD != 9) return cudaErrorInvalidValue;
+  auto kernel = edge_kernel<T, 64, kD, true>;
+  size_t smem_e = edge_smem<64, kD>(K, kp.P);
+  if constexpr (kD != kKP) {
+    const bool gelu = act == kActGelu;
+    if (gelu) kernel = edge_kernel<T, 64, kD, false>;
+    if constexpr (kD == 9) {
+      if (wide) {
+        kernel = gelu ? edge_kernel<T, 128, kD, false> : edge_kernel<T, 128, kD, true>;
+        smem_e = edge_smem<128, kD>(K, kp.P);
+      }
+    }
   }
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem_e));
@@ -434,9 +529,10 @@ cudaError_t backward(const T* rel, const T* rot6, const T* feats, const int64_t*
   kernel<<<p_blocks, kEThreads, smem_e, stream>>>(
       rel, rot6, feats, idx, mask, proj, bias, scr, live, slot,
       slot == nullptr ? static_cast<float*>(dfeats) : nullptr,
-      slot == nullptr ? nullptr : static_cast<T*>(dfeats), ppart, M, N, K, G, F, Q, C, L, BM);
+      slot == nullptr ? nullptr : static_cast<T*>(dfeats), ppart, M, N, K, G, F, Q, C, L, BM, act,
+      kp);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  return launch_sum_partials(ppart, p_blocks, static_cast<long long>(kD + 1) * Q, dparams, stream);
+  return launch_sum_partials(ppart, p_blocks, static_cast<long long>(D + 1) * Q, dparams, stream);
 }
 
 }  // namespace
@@ -465,14 +561,15 @@ extern "C" void se3_fused_equiv_bwd_plan(int L, int G, int Q, int C, int O, int 
 
 namespace {
 
-// One backward call with kD pne inputs (rot6 unread at kD = 3).
+// One backward call in the geometry kD (rot6 unread at kD = 3, rel and
+// rot6 unread at kD = kKP, which reads kp).
 template <int kD>
 int backward_call(const void* rel, const void* rot6, const void* feats, const void* idx,
                   const void* mask, const void* proj, const void* bias, const void* w,
                   const void* gout, const void* live, const void* slot, void* dfeats,
                   void* dparams, void* dw, void* scratch, void* wpart, void* ppart, int B, int M,
                   int N, int K, int G, int F, int Q, int C, int O, int L, int w_splits,
-                  int p_blocks, int use_bf16, void* stream_ptr) {
+                  int p_blocks, int use_bf16, int act, const KpGeo& kp, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const auto* idxp = static_cast<const int64_t*>(idx);
   const auto* maskp = static_cast<const uint8_t*>(mask);
@@ -492,12 +589,12 @@ int backward_call(const void* rel, const void* rot6, const void* feats, const vo
     err = backward<kD>(static_cast<const bf16*>(rel), static_cast<const bf16*>(rot6),
                        static_cast<const bf16*>(feats), idxp, maskp, projf, biasf, wf, goutf, livep,
                        slotp, dfeats, dpf, dwf, scr, wpf, ppf, B, M, N, K, G, F, Q, C, O, L,
-                       w_splits, p_blocks, stream);
+                       w_splits, p_blocks, act, kp, stream);
   else
     err = backward<kD>(static_cast<const float*>(rel), static_cast<const float*>(rot6),
                        static_cast<const float*>(feats), idxp, maskp, projf, biasf, wf, goutf,
                        livep, slotp, dfeats, dpf, dwf, scr, wpf, ppf, B, M, N, K, G, F, Q, C, O, L,
-                       w_splits, p_blocks, stream);
+                       w_splits, p_blocks, act, kp, stream);
   return static_cast<int>(err);
 }
 
@@ -511,8 +608,9 @@ int backward_call(const void* rel, const void* rot6, const void* feats, const vo
 // slot is null, else the [B, M*K, F*C] sorted buffer in the operand type;
 // d_params is [D + 1, Q]: rows 0 .. D-1 d_proj, row D d_bias.  use_bf16 !=
 // 0: rel, rot6 and feats are bfloat16, else float32; the parameters, gout,
-// d_params and d_w are float32 either way.  Each requires the workspace
-// sizes of se3_fused_equiv_bwd_plan for the same L, G and operand size.
+// d_params and d_w are float32 either way.  act is the activation (Act: 0
+// gelu, 1 relu, 2 sin, 3 linear).  Each requires the workspace sizes of
+// se3_fused_equiv_bwd_plan for the same L, G and operand size.
 //
 // The equivariant conv: proj [9, Q]; G <= 4, G*Q <= 128 (column_capacity).
 extern "C" int se3_fused_equiv_bwd(const void* rel, const void* rot6, const void* feats,
@@ -522,11 +620,11 @@ extern "C" int se3_fused_equiv_bwd(const void* rel, const void* rot6, const void
                                    void* dparams, void* dw, void* scratch, void* wpart,
                                    void* ppart, int B, int M, int N, int K, int G, int F, int Q,
                                    int C, int O, int L, int w_splits, int p_blocks, int use_bf16,
-                                   void* stream_ptr) {
+                                   int act, void* stream_ptr) {
   if (column_capacity(G, Q) == 0) return static_cast<int>(cudaErrorInvalidValue);
   return backward_call<9>(rel, rot6, feats, idx, mask, proj, bias, w, gout, live, slot, dfeats,
                           dparams, dw, scratch, wpart, ppart, B, M, N, K, G, F, Q, C, O, L,
-                          w_splits, p_blocks, use_bf16, stream_ptr);
+                          w_splits, p_blocks, use_bf16, act, KpGeo{}, stream_ptr);
 }
 
 // The standard conv: rel [B, M, K, 1, 3], feats [B, N, 1, C], proj [3, Q],
@@ -537,9 +635,31 @@ extern "C" int se3_fused_std_bwd(const void* rel, const void* feats, const void*
                                  const void* slot, void* dfeats, void* dparams, void* dw,
                                  void* scratch, void* wpart, void* ppart, int B, int M, int N,
                                  int K, int Q, int C, int O, int L, int w_splits, int p_blocks,
-                                 int use_bf16, void* stream_ptr) {
+                                 int use_bf16, int act, void* stream_ptr) {
   if (Q > 32) return static_cast<int>(cudaErrorInvalidValue);
   return backward_call<3>(rel, nullptr, feats, idx, mask, proj, bias, w, gout, live, slot, dfeats,
                           dparams, dw, scratch, wpart, ppart, B, M, N, K, 1, 1, Q, C, O, L,
-                          w_splits, p_blocks, use_bf16, stream_ptr);
+                          w_splits, p_blocks, use_bf16, act, KpGeo{}, stream_ptr);
+}
+
+// The kernel-point conv: rel [B, M, K, 1, 3] float32 raw offsets whatever
+// use_bf16, points [P, 3] float32, norm_dist one float32, proj [P, Q],
+// feats [B, N, 1, C], gout [B, M, 1, O], d_params [P + 1, Q]; G = F = 1,
+// Q <= 32, P <= kMaxKP; inv_s2 = 1 / sigma^2, corr the correlation (Corr:
+// 0 gauss, 1 linear, 2 box).
+extern "C" int se3_fused_kp_bwd(const void* rel, const void* points, const void* norm_dist,
+                                const void* feats, const void* idx, const void* mask,
+                                const void* proj, const void* bias, const void* w,
+                                const void* gout, const void* live, const void* slot,
+                                void* dfeats, void* dparams, void* dw, void* scratch, void* wpart,
+                                void* ppart, int B, int M, int N, int K, int P, int Q, int C, int O,
+                                int L, int w_splits, int p_blocks, int use_bf16, int act,
+                                float inv_s2, int corr, void* stream_ptr) {
+  if (Q > 32 || P < 1 || P > kMaxKP || corr < kCorrGauss || corr > kCorrBox)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const KpGeo kp{static_cast<const float*>(rel), static_cast<const float*>(points),
+                 static_cast<const float*>(norm_dist), inv_s2, P, corr};
+  return backward_call<kKP>(nullptr, nullptr, feats, idx, mask, proj, bias, w, gout, live, slot,
+                            dfeats, dparams, dw, scratch, wpart, ppart, B, M, N, K, 1, 1, Q, C, O,
+                            L, w_splits, p_blocks, use_bf16, act, kp, stream_ptr);
 }

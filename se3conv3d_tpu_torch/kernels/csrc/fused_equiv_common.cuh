@@ -1,21 +1,31 @@
-// Pieces shared by the fused equivariant PNE-conv forward
-// (fused_equiv_fwd.cu) and backward (fused_equiv_bwd.cu), sm_90a, with
-// float32 or bfloat16 operands (T) and float32 accumulation.
+// Pieces shared by the fused PNE-conv forward (fused_equiv_fwd.cu) and
+// backward (fused_equiv_bwd.cu), sm_90a, with float32 or bfloat16 operands
+// (T) and float32 accumulation.
 //
-//   pre[k,g,f,q]  = P . [rel[b,m,k,g,:], rot6[b,m,k,g,f,:]] + bias[q]
-//   basis[g,c,q]  = sum_{k,f: mask} gelu(pre[k,g,f,q]) * feats[b, idx[b,m,k], f, c]
+//   pre[k,g,f,q]  = P . x[b,m,k,g,f,:] + bias[q]
+//   basis[g,c,q]  = sum_{k,f: mask} act(pre[k,g,f,q]) * feats[b, idx[b,m,k], f, c]
 //
-// The pne input width kD is a template parameter: 9 for the equivariant
-// geometry (3 offsets in the receiver frame + the 6D relative rotation), 3
-// for the standard one (the raw offsets alone, no rot6; G = F = 1, taken at
-// the 64-column capacity with G*Q <= 32 only).
+// x, the edge's pne inputs, come in three geometries, each a value of the
+// template parameter kD:
+//   kD = 9: the equivariant one, [rel[b,m,k,g,:], rot6[b,m,k,g,f,:]] (3
+//           offsets in the receiver frame + the 6D relative rotation);
+//   kD = 3: the standard one, the raw offsets rel[b,m,k,0,:] (G = F = 1);
+//   kD = kKP: the kernel-point one (G = F = 1): the P correlation weights
+//           of the edge against P kernel points, computed here from its
+//           float32 raw offset (kp_weights; P <= kMaxKP at run time).
+// The standard and kernel-point geometries take the 64-column capacity with
+// G*Q <= 32 only.  The activation act is gelu (exact, erf), relu, sin or
+// the identity ("linear"), a run-time argument the same for every lane
+// (the Act codes), switched outside the per-edge loops; the kernel-point
+// convs of the JAX package run with the identity.
 //
 // - the operand types: T = float, or __nv_bfloat16, where the kernels round
 //   to bfloat16 where the TPU kernel's bf16 path casts (rnd<T>: the
-//   projection and bias as read, each pne, each basis entry; the geometry
-//   and features arrive rounded), and accumulate in float32;
-// - the per-edge helpers (edge compaction, the kD pne inputs, pre, gelu and
-//   its derivative);
+//   projection and bias as read, each kernel-point weight, each pne, each
+//   basis entry; the geometry and features arrive rounded), and accumulate
+//   in float32;
+// - the per-edge helpers (edge compaction, the pne inputs, pre, each
+//   activation and its derivative);
 // - basis_kernel: the basis of every live query row (a row with a valid
 //   edge; live[r] = b*M + m) into a scratch [L*G, C*Q] of T, live row r
 //   owning scratch rows r*G .. r*G+G-1 (depth index c*Q + q, the layout of
@@ -82,6 +92,118 @@ __device__ __forceinline__ float gelu_grad(float x) {
   return cdf + x * 0.39894228040143268f * expf(-0.5f * x * x);
 }
 
+// The activations of the pne (the TPU kernel's _ACTS), by run-time code.
+enum Act : int { kActGelu = 0, kActRelu = 1, kActSin = 2, kActLinear = 3 };
+
+// dst[q] = act(pre(q)) rounded to T, q < Q: one loop per activation, the
+// switch outside it (act is the same for every lane).  relu takes pre from
+// pre_rn, whose products and sums are each rounded on their own in order of
+// d: relu's derivative steps at 0, so the kernels and their plain version
+// must round pre alike for the step to fall the same way on every edge.
+template <typename T, typename Pre, typename PreRn>
+__device__ __forceinline__ void fill_pne(int act, int Q, float* dst, Pre pre, PreRn pre_rn) {
+  switch (act) {
+    case kActRelu:
+      for (int q = 0; q < Q; ++q) dst[q] = rnd<T>(fmaxf(pre_rn(q), 0.f));
+      break;
+    case kActSin:
+      for (int q = 0; q < Q; ++q) dst[q] = rnd<T>(sinf(pre(q)));
+      break;
+    case kActLinear:
+      for (int q = 0; q < Q; ++q) dst[q] = rnd<T>(pre(q));
+      break;
+    default:
+      for (int q = 0; q < Q; ++q) dst[q] = rnd<T>(gelu_erf(pre(q)));
+  }
+}
+
+// row[q] = row[q] * act'(pre(q)) rounded to T (dpre from dpne), q < Q, in
+// the closed forms of the TPU kernel's _act_and_grad: gelu' = Phi + x phi,
+// relu' a step with 0 at 0 (jax.jvp of jax.nn.relu), sin' = cos, linear' = 1
+// (relu's pre from pre_rn, as in fill_pne).
+template <typename T, typename Pre, typename PreRn>
+__device__ __forceinline__ void scale_by_act_grad(int act, int Q, float* row, Pre pre, PreRn pre_rn) {
+  switch (act) {
+    case kActRelu:
+      for (int q = 0; q < Q; ++q) row[q] = rnd<T>(row[q] * (pre_rn(q) > 0.f ? 1.f : 0.f));
+      break;
+    case kActSin:
+      for (int q = 0; q < Q; ++q) row[q] = rnd<T>(row[q] * cosf(pre(q)));
+      break;
+    case kActLinear:
+      for (int q = 0; q < Q; ++q) row[q] = rnd<T>(row[q]);
+      break;
+    default:
+      for (int q = 0; q < Q; ++q) row[q] = rnd<T>(row[q] * gelu_grad(pre(q)));
+  }
+}
+
+// --- the kernel-point geometry ------------------------------------------------
+// kD = kKP: an edge's pne inputs are its P correlation weights against the
+// kernel points kp[P][3] (se3conv3d_tpu/ops/pne_conv.py:_kp_geo_chunk, which
+// the TPU kernel read as its geometry rows, with the identity activation):
+//   rel_c = off_c * norm_dist       (off: the float32 raw offset p_src - p_ctr)
+//   d2_p  = ((rel_0 - kp_p0)^2 + (rel_1 - kp_p1)^2 + (rel_2 - kp_p2)^2) * inv_s2
+//   w_p   = exp(-d2_p / 2) (gauss), max(1 - sqrt(d2_p), 0) (linear), or the
+//           one-hot of the first argmin of d2 (box),
+// each w_p rounded to T.  Every operation is rounded on its own (the _rn
+// intrinsics are never contracted into an FMA), in this order, so the plain
+// PyTorch version computes the same weights bit for bit and the box one-hot
+// picks the same point.  norm_dist is read from device memory: it is a
+// calibration buffer, and reading it on the host would cost a
+// synchronisation per conv.  The weights get no gradient.
+constexpr int kKP = 0;       // the value of kD that selects this geometry
+constexpr int kMaxKP = 64;   // kernel points a conv may have
+enum Corr : int { kCorrGauss = 0, kCorrLinear = 1, kCorrBox = 2 };
+
+struct KpGeo {
+  const float* rel;        // [B, M, K, 1, 3] float32 raw offsets
+  const float* points;     // [P, 3] float32 kernel points
+  const float* norm_dist;  // the layer's norm_neigh_dist, one float32 on the device
+  float inv_s2;            // 1 / sigma^2, rounded to float32
+  int P;
+  int corr;                // Corr
+};
+
+// w[p * stride] = the P weights of the edge whose raw offset is off
+// (kpS: the kernel points in shared memory, [P][3]).
+template <typename T>
+__device__ __forceinline__ void kp_weights(const float* __restrict__ off, float nd, const float* kpS,
+                                           float inv_s2, int P, int corr, float* w, int stride) {
+  const float r0 = __fmul_rn(off[0], nd), r1 = __fmul_rn(off[1], nd), r2 = __fmul_rn(off[2], nd);
+  float best = __int_as_float(0x7f800000);  // +inf
+  int arg = 0;
+  for (int p = 0; p < P; ++p) {
+    const float t0 = __fsub_rn(r0, kpS[3 * p]), t1 = __fsub_rn(r1, kpS[3 * p + 1]),
+                t2 = __fsub_rn(r2, kpS[3 * p + 2]);
+    const float d2 = __fmul_rn(
+        __fadd_rn(__fadd_rn(__fmul_rn(t0, t0), __fmul_rn(t1, t1)), __fmul_rn(t2, t2)), inv_s2);
+    float v = 0.f;
+    if (corr == kCorrGauss) {
+      v = expf(__fmul_rn(d2, -0.5f));
+    } else if (corr == kCorrLinear) {
+      v = fmaxf(__fsub_rn(1.f, __fsqrt_rn(d2)), 0.f);
+    } else if (d2 < best) {
+      best = d2;
+      arg = p;
+    }
+    w[p * stride] = rnd<T>(v);
+  }
+  if (corr == kCorrBox) w[arg * stride] = 1.f;
+}
+
+// pre = bias[q] + sum_p w[p * stride] * proj[p][q], in order of p (kRn:
+// each product and sum rounded on its own, for relu).
+template <bool kRn = false>
+__device__ __forceinline__ float pre_kp(const float* w, int stride, const float* projS,
+                                        const float* biasS, int P, int Q, int q) {
+  float pre = biasS[q];
+  for (int p = 0; p < P; ++p)
+    pre = kRn ? __fadd_rn(pre, __fmul_rn(w[p * stride], projS[p * Q + q]))
+              : fmaf(w[p * stride], projS[p * Q + q], pre);
+  return pre;
+}
+
 // Warp-cooperative compaction of the valid edges of one query row
 // (out-of-range indices count as invalid); returns their number.
 __device__ int compact_edges(const int64_t* __restrict__ idx, const uint8_t* __restrict__ mask,
@@ -124,19 +246,22 @@ __device__ __forceinline__ void edge_geo(const T* __restrict__ rel, const T* __r
   }
 }
 
-template <int kD>
+// pre = bias[q] + sum_d geo[d] * proj[d][q], in order of d (kRn: each
+// product and sum rounded on its own, for relu).
+template <int kD, bool kRn = false>
 __device__ __forceinline__ float pre_act(const float* geo, const float* projS,
                                          const float* biasS, int Q, int q) {
   float pre = biasS[q];
 #pragma unroll
-  for (int d = 0; d < kD; ++d) pre = fmaf(geo[d], projS[d * Q + q], pre);
+  for (int d = 0; d < kD; ++d)
+    pre = kRn ? __fadd_rn(pre, __fmul_rn(geo[d], projS[d * Q + q])) : fmaf(geo[d], projS[d * Q + q], pre);
   return pre;
 }
 
 // --- basis -> scratch [L*G, C*Q] ---------------------------------------------
 // One warp per live row r = blockIdx.x * warps + warp.  The warp compacts the
-// row's valid edges, evaluates each edge's pne row (G*Q gelus; lane e takes
-// edges e, e + 32, ...) once into shared memory, then walks the input
+// row's valid edges, evaluates each edge's pne row (G*Q activations; lane e
+// takes edges e, e + 32, ...) once into shared memory, then walks the input
 // channels 32 at a time: per edge, lane c loads feature channel c0 + c
 // (one coalesced 128-byte row), and lane (gqb, cb) adds pne[e][gqb + 8i] *
 // feat[e][cb + 4j] into its NI x 8 register tile (NI = 4 covers G*Q <= 32,
@@ -152,26 +277,38 @@ __device__ __forceinline__ float pre_act(const float* geo, const float* projS,
 // its scratch rows are zeros, which add nothing to any product.  With T =
 // bf16 the projection and bias are rounded as they are read, each pne is
 // rounded before the basis sum, and the basis and gout rows are stored
-// rounded (float32 sums in between).
+// rounded (float32 sums in between).  At kD = kKP a lane first writes its
+// edge's P weights to the warp's [P][32] slab (lane-major: no bank
+// conflict), then its pne row from them.  kAnyAct: the activation switch
+// (act); without it the kernel is gelu's alone, the code of the gelu convs
+// on every recipe's path (a switch here cost the DFaust forward 2-5% on an
+// H100, timed in turns with a build without it); the kernel-point
+// instantiation always switches.
 constexpr int kBWarps = 4;      // warps per block, fewer when K*F is large
 constexpr int kBEdges = 8;      // feature loads in flight per lane
 
-inline size_t basis_warp_bytes(int K, int F, int gqc) {
-  return sizeof(float) * static_cast<size_t>(K) * F * (gqc + 1) + sizeof(int) * 2 * static_cast<size_t>(K);
+inline size_t basis_warp_bytes(int K, int F, int gqc, int kp_p) {
+  return sizeof(float) * (static_cast<size_t>(K) * F * (gqc + 1) + static_cast<size_t>(kEB) * kp_p) +
+         sizeof(int) * 2 * static_cast<size_t>(K);
 }
-// the projection [D][gqc] and bias [gqc], then each warp's pne rows and edges
-inline size_t basis_smem(int K, int F, int gqc, int D, int warps) {
-  return sizeof(float) * (D + 1) * gqc + warps * basis_warp_bytes(K, F, gqc);
+// the projection [D][gqc] and bias [gqc] (and at kD = kKP the kernel points
+// [P][3]), then each warp's pne rows (and weight slab) and edges; D = P at
+// kD = kKP, whose kp_p is P (0 otherwise)
+inline size_t basis_fixed_bytes(int gqc, int D, int kp_p) {
+  return sizeof(float) * ((D + 1) * static_cast<size_t>(gqc) + 3 * static_cast<size_t>(kp_p));
+}
+inline size_t basis_smem(int K, int F, int gqc, int D, int warps, int kp_p) {
+  return basis_fixed_bytes(gqc, D, kp_p) + warps * basis_warp_bytes(K, F, gqc, kp_p);
 }
 // Warps per block of basis_kernel at K neighbors x F in-frames, gqc
 // columns and D pne inputs; 0 if one warp's pne rows do not fit.
-inline int basis_warps(int K, int F, int gqc, int D) {
-  const size_t room = kSmemMax - sizeof(float) * (D + 1) * gqc;
-  const size_t w = room / basis_warp_bytes(K, F, gqc);
+inline int basis_warps(int K, int F, int gqc, int D, int kp_p) {
+  const size_t room = kSmemMax - basis_fixed_bytes(gqc, D, kp_p);
+  const size_t w = room / basis_warp_bytes(K, F, gqc, kp_p);
   return static_cast<int>(w < kBWarps ? w : kBWarps);
 }
 
-template <int NI, bool kGout, typename T, int GQC, int kD>
+template <int NI, bool kGout, typename T, int GQC, int kD, bool kAnyAct>
 __global__ void __launch_bounds__(32 * kBWarps, 4)
 basis_kernel(const T* __restrict__ rel, const T* __restrict__ rot6,
              const T* __restrict__ feats, const int64_t* __restrict__ idx,
@@ -179,22 +316,29 @@ basis_kernel(const T* __restrict__ rel, const T* __restrict__ rot6,
              const float* __restrict__ bias, const float* __restrict__ gout,
              const int* __restrict__ live, T* __restrict__ basis,
              T* __restrict__ gout_live,
-             int M, int N, int K, int G, int F, int Q, int C, int O, int L, int BM) {
+             int M, int N, int K, int G, int F, int Q, int C, int O, int L, int BM,
+             int act, KpGeo kp) {
   using Lay = Cols<GQC>;
+  constexpr bool kKp = kD == kKP;
   extern __shared__ float smem[];
   const int warps = blockDim.x >> 5;
   const size_t pne_rows = static_cast<size_t>(K) * F;
-  float* projS = smem;                       // [kD][Q]
-  float* biasS = projS + kD * GQC;           // [Q]
-  float* pneS = biasS + GQC;                 // [warps][K*F][Lay::kStride]
-  int* validK = reinterpret_cast<int*>(pneS + warps * pne_rows * Lay::kStride);  // [warps][K]
+  const int D = kKp ? kp.P : kD;             // pne inputs
+  float* projS = smem;                       // [D][Q]
+  float* biasS = projS + D * GQC;            // [Q]
+  float* kpS = biasS + GQC;                  // [P][3] (kD = kKP)
+  float* pneS = kpS + (kKp ? 3 * kp.P : 0);  // [warps][K*F][Lay::kStride]
+  float* kpW = pneS + warps * pne_rows * Lay::kStride;  // [warps][P][32] (kD = kKP)
+  int* validK = reinterpret_cast<int*>(kpW + (kKp ? warps * kEB * kp.P : 0));  // [warps][K]
   int* validN = validK + warps * K;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int r = blockIdx.x * warps + warp;
   const int GQ = G * Q;
-  for (int i = tid; i < kD * Q; i += blockDim.x) projS[i] = rnd<T>(proj[i]);
+  for (int i = tid; i < D * Q; i += blockDim.x) projS[i] = rnd<T>(proj[i]);
   for (int i = tid; i < Q; i += blockDim.x) biasS[i] = rnd<T>(bias[i]);
+  if constexpr (kKp)
+    for (int i = tid; i < 3 * kp.P; i += blockDim.x) kpS[i] = kp.points[i];
   __syncthreads();
   if (r >= L) return;  // whole warp; no block barrier follows
 
@@ -219,17 +363,34 @@ basis_kernel(const T* __restrict__ rel, const T* __restrict__ rot6,
   int* vN = validN + warp * K;
   const int nE = compact_edges(idx, mask, row, K, N, lane, vK, vN) * F;
   float* pneW = pneS + warp * pne_rows * Lay::kStride;
-  for (int e = lane; e < nE; e += 32) {
-    const int j = e / F, f = e - j * F;
-    const size_t base = (row + vK[j]) * G;
-    float* prow = pneW + e * Lay::kStride;
+  if constexpr (kKp) {  // G = F = 1
+    const float nd = __ldg(kp.norm_dist);
+    float* wl = kpW + warp * kEB * kp.P + lane;  // this lane's weights, stride 32
+    for (int e = lane; e < nE; e += 32) {
+      kp_weights<T>(kp.rel + (row + vK[e]) * 3, nd, kpS, kp.inv_s2, kp.P, kp.corr, wl, kEB);
+      fill_pne<T>(act, Q, pneW + e * Lay::kStride,
+                  [&](int q) { return pre_kp(wl, kEB, projS, biasS, kp.P, Q, q); },
+                  [&](int q) { return pre_kp<true>(wl, kEB, projS, biasS, kp.P, Q, q); });
+    }
+  } else {
+    for (int e = lane; e < nE; e += 32) {
+      const int j = e / F, f = e - j * F;
+      const size_t base = (row + vK[j]) * G;
+      float* prow = pneW + e * Lay::kStride;
 #pragma unroll
-    for (int g = 0; g < Lay::kGMax; ++g) {
-      if (g < G) {
-        float geo[kD];
-        edge_geo<kD>(rel, rot6, base, g, F, f, geo);
-        for (int q = 0; q < Q; ++q)
-          prow[g * Q + q] = rnd<T>(gelu_erf(pre_act<kD>(geo, projS, biasS, Q, q)));
+      for (int g = 0; g < Lay::kGMax; ++g) {
+        if (g < G) {
+          float geo[kD];
+          edge_geo<kD>(rel, rot6, base, g, F, f, geo);
+          if constexpr (kAnyAct) {
+            fill_pne<T>(act, Q, prow + g * Q,
+                        [&](int q) { return pre_act<kD>(geo, projS, biasS, Q, q); },
+                        [&](int q) { return pre_act<kD, true>(geo, projS, biasS, Q, q); });
+          } else {
+            for (int q = 0; q < Q; ++q)
+              prow[g * Q + q] = rnd<T>(gelu_erf(pre_act<kD>(geo, projS, biasS, Q, q)));
+          }
+        }
       }
     }
   }
@@ -295,50 +456,67 @@ basis_kernel(const T* __restrict__ rel, const T* __restrict__ rot6,
   }
 }
 
+// basis_kernel's instantiation for the activation switch or gelu's alone
+// (any: act is not gelu; kD = kKP always switches).
+template <int NI, bool kGout, typename T, int GQC, int kD>
+auto basis_instance(bool any) -> decltype(&basis_kernel<NI, kGout, T, GQC, kD, true>) {
+  if constexpr (kD == kKP)
+    return basis_kernel<NI, kGout, T, GQC, kD, true>;
+  else
+    return any ? basis_kernel<NI, kGout, T, GQC, kD, true> : basis_kernel<NI, kGout, T, GQC, kD, false>;
+}
+
 // Launches basis_kernel over L live rows (the column capacity and the tile
-// height from G and G*Q; kD = 3 has the narrow tile only, G*Q <= 32).
+// height from G and G*Q; kD = 3 and kD = kKP have the narrow tile only,
+// G*Q <= 32).
 template <typename T, int GQC, int kD>
 cudaError_t launch_basis_cols(bool with_gout, const T* rel, const T* rot6, const T* feats,
                               const int64_t* idx, const uint8_t* mask, const float* proj,
                               const float* bias, const float* gout, const int* live, T* basis,
                               T* gout_live, int M, int N, int K, int G, int F, int Q, int C, int O,
-                              int L, int BM, cudaStream_t stream) {
-  const int warps = basis_warps(K, F, GQC, kD);
+                              int L, int BM, int act, const KpGeo& kp, cudaStream_t stream) {
+  const int kp_p = kD == kKP ? kp.P : 0;
+  const int D = kD == kKP ? kp.P : kD;
+  const int warps = basis_warps(K, F, GQC, D, kp_p);
   if (warps < 1) return cudaErrorInvalidValue;
-  const size_t smem = basis_smem(K, F, GQC, kD, warps);
-  const bool narrow = G * Q <= 32;
-  decltype(&basis_kernel<4, true, T, GQC, kD>) kernel;
-  if constexpr (kD == 3) {
+  const size_t smem = basis_smem(K, F, GQC, D, warps, kp_p);
+  const bool narrow = G * Q <= 32, any = act != kActGelu;
+  decltype(&basis_kernel<4, true, T, GQC, kD, true>) kernel;
+  if constexpr (kD != 9) {
     if (!narrow) return cudaErrorInvalidValue;
-    kernel = with_gout ? basis_kernel<4, true, T, GQC, kD> : basis_kernel<4, false, T, GQC, kD>;
+    kernel = with_gout ? basis_instance<4, true, T, GQC, kD>(any) : basis_instance<4, false, T, GQC, kD>(any);
   } else {
-    kernel = with_gout ? (narrow ? basis_kernel<4, true, T, GQC, kD> : basis_kernel<8, true, T, GQC, kD>)
-                       : (narrow ? basis_kernel<4, false, T, GQC, kD> : basis_kernel<8, false, T, GQC, kD>);
+    kernel = with_gout ? (narrow ? basis_instance<4, true, T, GQC, kD>(any)
+                                 : basis_instance<8, true, T, GQC, kD>(any))
+                       : (narrow ? basis_instance<4, false, T, GQC, kD>(any)
+                                 : basis_instance<8, false, T, GQC, kD>(any));
   }
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   kernel<<<(L + warps - 1) / warps, 32 * warps, smem, stream>>>(
       rel, rot6, feats, idx, mask, proj, bias, gout, live, basis, gout_live, M, N, K, G, F, Q, C,
-      O, L, BM);
+      O, L, BM, act, kp);
   return cudaGetLastError();
 }
 
-// (kD = 3: the 64-column capacity only)
+// (kD = 3 and kD = kKP: the 64-column capacity only)
 template <typename T, int kD>
 cudaError_t launch_basis(bool with_gout, const T* rel, const T* rot6, const T* feats,
                          const int64_t* idx, const uint8_t* mask, const float* proj,
                          const float* bias, const float* gout, const int* live, T* basis,
                          T* gout_live, int M, int N, int K, int G, int F, int Q, int C, int O,
-                         int L, int BM, cudaStream_t stream) {
+                         int L, int BM, int act, const KpGeo& kp, cudaStream_t stream) {
   switch (column_capacity(G, Q)) {
     case 64:
       return launch_basis_cols<T, 64, kD>(with_gout, rel, rot6, feats, idx, mask, proj, bias, gout,
-                                          live, basis, gout_live, M, N, K, G, F, Q, C, O, L, BM, stream);
+                                          live, basis, gout_live, M, N, K, G, F, Q, C, O, L, BM, act,
+                                          kp, stream);
     case 128:
       if constexpr (kD == 9)
         return launch_basis_cols<T, 128, kD>(with_gout, rel, rot6, feats, idx, mask, proj, bias, gout,
-                                             live, basis, gout_live, M, N, K, G, F, Q, C, O, L, BM, stream);
+                                             live, basis, gout_live, M, N, K, G, F, Q, C, O, L, BM,
+                                             act, kp, stream);
       else
         return cudaErrorInvalidValue;
     default:

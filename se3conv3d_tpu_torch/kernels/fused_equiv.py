@@ -1,43 +1,54 @@
-"""Fused equivariant PNE conv: Hopper CUDA kernels (forward and backward),
-their plain PyTorch versions and the autograd Function that joins them.
+"""Fused PNE conv: Hopper CUDA kernels (forward and backward), their plain
+PyTorch versions and the autograd Function that joins them.
 
 Computes, for every query point m, out-frame g and output channel o::
 
     out[b,m,g,o] = sum_{q,c} W[c,q,o] * sum_{k,f: mask[b,m,k]}
-                   gelu(P . [rel[b,m,k,g], rot6[b,m,k,g,f]] + bias)[q]
-                   * feats[b, idx[b,m,k], f, c]
+                   act(P . x[b,m,k,g,f] + bias)[q] * feats[b, idx[b,m,k], f, c]
 
-with exact (erf) gelu, ``P = proj_axes [9, Q]`` already scaled by the
-layer's ``norm_neigh_dist`` on its three offset rows, and no normalisation
-(the caller applies ``norm_num_neighs / F``).  The operands ``rel``,
-``rot6`` and ``feats`` are all float32 or all bfloat16; the parameters,
+with ``act`` one of :data:`ACTS` (gelu in its exact erf form, relu, sin,
+or ``linear``, the identity: the TPU kernel's ``_ACTS``), no
+normalisation (the caller applies ``norm_num_neighs / F``) and ``x`` the
+edge's pne inputs in one of three geometries, ``P = proj_axes [D, Q]``:
+
+* equivariant, D = 9: ``x = [rel[b,m,k,g], rot6[b,m,k,g,f]]``, the offset
+  in the receiver frame and the 6D relative rotation, ``P`` already scaled
+  by the layer's ``norm_neigh_dist`` on its three offset rows;
+* standard, D = 3 (``rot6=None``): G = F = 1 and ``x`` the raw offsets
+  ``rel [B, M, K, 1, 3]``, all three rows of ``P`` scaled by the caller, as
+  the TPU kernels compute it for ``se3conv3d_tpu/ops/pne_conv.py:fused_conv``;
+* kernel-point, D = P (``kp`` a :class:`KernelPoints`): G = F = 1 and ``x``
+  the P correlation weights of the edge against the kernel points
+  (:func:`kp_weights`: ``rel * norm_dist`` against each point, gauss,
+  linear or box), computed inside the kernels from the float32 raw offsets
+  ``rel [B, M, K, 1, 3]``, as ``se3conv3d_tpu/ops/pne_conv.py:
+  fused_kp_conv`` computes them in XLA for the TPU kernel (which it runs
+  with ``act='linear'``).  The kernels read 3 floats an edge where a table
+  of weights would be P + 1, and ``norm_dist`` from the device, with no
+  host synchronisation.
+
+The operands ``rel``, ``rot6`` and ``feats`` are all float32 or all
+bfloat16 (the kernel-point ``rel`` is float32 either way); the parameters,
 the output and the parameter gradients are float32.  Gradients flow to
-``feats``, ``P``, ``bias`` and ``W``; the geometry (``rel``, ``rot6``,
-``idx``, ``mask``) gets none, as in the reference.
-
-The standard (non-equivariant) geometry is the same function with
-``rot6=None``: G = F = 1 and the D = 3 raw offsets ``rel [B, M, K, 1, 3]``
-as the pne inputs, ``P = proj_axes [3, Q]`` (all three rows scaled by the
-caller), as the TPU kernels compute it for
-``se3conv3d_tpu/ops/pne_conv.py:fused_conv``.  The pne input width D is
-9 with ``rot6`` and 3 without (``proj_axes`` is ``[D, Q]``); the kernels
-take the standard geometry in their ``kD = 3`` instantiations, at
-G*Q <= 32 (:data:`STD_MAX_Q`).
+``feats``, ``P``, ``bias`` and ``W``; the geometry (``rel``, ``rot6``, the
+kernel-point weights, ``idx``, ``mask``) gets none, as in the reference.
+The standard and kernel-point geometries run at G*Q <= 32
+(:data:`STD_MAX_Q`), P <= :data:`MAX_KP`.
 
 bfloat16 operands follow the TPU kernels' bf16 path (the ``cdt`` argument
 of ``se3conv3d_tpu/ops/pallas/fused_equiv.py:_fwd_kernel`` /
 ``_bwd_kernel``): every sum is float32, and values are rounded to bfloat16
 at exactly these points, in the kernels and in their plain versions alike
 (:func:`_rounding`): the projection ``P`` and ``bias`` and the weights
-``W`` as read; each ``pne = gelu(pre)`` (``pre`` and gelu in float32);
-each ``basis`` entry before the weight contraction; in the backward
-``gout``, ``dbasis = gout . W^T``, each edge's ``d_gathered`` row and each
-``dpre = dpne * gelu'(pre)`` (``dpne`` and gelu' in float32) before the
-``d_proj`` / ``d_bias`` sums.  The scatter mode sums the rounded rows in
-float32 (``d_feats`` float32); the sorted mode stores them in a bfloat16
-buffer, which the prefix sum reads as it is.  :class:`FusedEquivConv`
-rounds the summed feature gradient to the features' dtype, as the JAX
-package's ``.astype(feats_x.dtype)``.
+``W`` as read; each kernel-point weight; each ``pne = act(pre)`` (``pre``
+and ``act`` in float32); each ``basis`` entry before the weight
+contraction; in the backward ``gout``, ``dbasis = gout . W^T``, each edge's
+``d_gathered`` row and each ``dpre = dpne * act'(pre)`` (``dpne`` and
+``act'`` in float32) before the ``d_proj`` / ``d_bias`` sums.  The scatter
+mode sums the rounded rows in float32 (``d_feats`` float32); the sorted
+mode stores them in a bfloat16 buffer, which the prefix sum reads as it
+is.  :class:`FusedEquivConv` rounds the summed feature gradient to the
+features' dtype, as the JAX package's ``.astype(feats_x.dtype)``.
 
 Forward, ``csrc/fused_equiv_fwd.cu``: replaces
 ``se3conv3d_tpu/ops/pallas/fused_equiv.py:_fwd_kernel`` (reached through
@@ -63,8 +74,8 @@ The chunks keep the scratch within :data:`FWD_SCRATCH_BYTES`.  Two calls
 give the same bits.
 
 Backward, ``csrc/fused_equiv_bwd.cu``: replaces ``_bwd_kernel`` (reached
-through ``_fused_single_bwd`` / ``fused_pne_conv_bwd`` and the lean VJP of
-``ops/pne_conv.py``) together with the XLA scatter-add of per-edge feature
+through ``_fused_single_bwd`` / ``fused_pne_conv_bwd``, the lean VJPs of
+``ops/pne_conv.py`` and the custom VJP under ``fused_kp_conv``) together with the XLA scatter-add of per-edge feature
 gradients that followed it.  The TPU summed ``dW`` and ``dproj`` across a
 sequential grid; Hopper blocks run in parallel, and ``dW`` (8 MB at
 C=O=256) fits in no block's shared memory.  So the backward is four
@@ -76,7 +87,8 @@ ScanNet level 0).  The forward's first half writes ``basis`` to an
 ``[L*G, C*Q]`` scratch for the ``L`` live rows; a product ``basis^T .
 gout`` gives ``d_w`` in per-row-split partials summed in a fixed order; a
 product ``gout . W^T`` gives ``dbasis`` over the same scratch; and a
-per-point pass recomputes pne and gelu', adds ``d_feats`` with float32
+per-point pass recomputes pne and act' (and the kernel-point weights),
+adds ``d_feats`` with float32
 atomics straight into ``[B, N, F, C]`` (no per-edge ``[M, E, C]`` output,
 masked edges skipped) and sums ``d_proj`` / ``d_bias`` per block, again
 added in a fixed order.  The basis pass is the forward's, and the two
@@ -99,8 +111,10 @@ never widened to reuse the float32 kernels) and run
 ``fused_equiv_fwd_reference`` / ``fused_equiv_bwd_reference`` for CPU
 tensors, over every row whatever the live-row table; there is no other
 fallback.  Each counts its launches (``launches``, ``bf16_launches`` for
-those with bfloat16 operands, ``launches_by_g`` by out-frame count and
-``launches_by_d`` by pne input width: 9 equivariant, 3 standard).
+those with bfloat16 operands, ``launches_by_g`` by out-frame count,
+``launches_by_d`` by pne input width: 9 equivariant, 3 standard, P
+kernel-point; ``launches_by_act`` by activation and ``launches_by_kp`` by
+correlation and P of the kernel-point ones).
 ``fused_equiv`` is the differentiable op.  Each kernel source is built
 with ``nvcc`` for ``sm_90a`` at its first launch (``kernels/build.py``).
 
@@ -111,11 +125,26 @@ capacity its own instantiation, so the G <= 2 convs keep their layout and
 occupancy.  A 128-column row is walked in two 64-column passes of the
 register tiles (the basis pass's features and the backward's dbasis
 columns are read twice); its shared memory lets fewer warps run per SM.
+
+Activations and the kernel-point geometry: the activation is a run-time
+switch the same for every lane, outside the per-edge loops, in the basis
+pass; the backward's per-edge pass keeps an instantiation of gelu's alone
+(its code on every recipe's path: a switch there cost it 5-10% on an
+H100) beside one that switches.  relu's ``pre`` is summed with each
+product and sum rounded on its own, in the kernels and the plain versions
+alike (:func:`_pre`): its derivative steps at 0.  The kernel-point geometry
+is its own instantiation (``kD = kKP`` of
+``csrc/fused_equiv_common.cuh``), whose backward sums ``d_proj [P + 1, Q]``
+per warp in shared memory (a lane per column q) where P + 1 register
+accumulators a lane would spill.  What bounds them on an H100: the same
+products as the gelu kernels, plus at the kernel points about 10 FLOPs,
+an exp or a sqrt per point and edge and the ``2*P*Q`` projection.
 """
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -127,6 +156,11 @@ from .segsum import sorted_segment_sum
 __all__ = [
     "fused_equiv",
     "FusedEquivConv",
+    "KernelPoints",
+    "kp_weights",
+    "ACTS",
+    "CORRELATIONS",
+    "MAX_KP",
     "fused_equiv_fwd",
     "fused_equiv_fwd_reference",
     "fused_equiv_bwd",
@@ -143,6 +177,12 @@ __all__ = [
 
 # the operand types of rel, rot6 and feats (the kernels' instantiations)
 OPERAND_DTYPES = (torch.float32, torch.bfloat16)
+# the pne activations by their codes in the kernels (csrc Act)
+ACTS = {"gelu": 0, "relu": 1, "sin": 2, "linear": 3}
+# the kernel-point correlations by their codes (csrc Corr), and the most
+# kernel points a conv may have (csrc kMaxKP)
+CORRELATIONS = {"gauss": 0, "linear": 1, "box": 2}
+MAX_KP = 64
 
 # a pne row in the kernels' shared memory holds 64 (g, q) columns for G <= 2
 # and G*Q <= 64, or 128 for G <= 4 and G*Q <= 128 (``column_capacity``;
@@ -188,13 +228,94 @@ def _wide(x):
     return x.float() if x is not None and x.dtype == torch.bfloat16 else x
 
 
-def _edge_geometry(rel, rot6, f):
+class KernelPoints(NamedTuple):
+    """The kernel-point geometry of a conv (``ops.pne_conv.fused_kp_conv``):
+    ``points [P, 3]`` float32 on the operands' device, ``sigma``, the
+    correlation ``corr`` ('gauss', 'linear' or 'box') and the layer's
+    ``norm_dist``, a float32 scalar tensor on the same device (read by the
+    kernels from device memory)."""
+
+    points: torch.Tensor
+    sigma: float
+    corr: str
+    norm_dist: torch.Tensor
+
+
+def _inv_s2(sigma: float) -> float:
+    """``1 / sigma^2`` rounded to float32, as the kernels take it (and as
+    JAX's weak-typed float32 product takes the Python float)."""
+    return float(torch.tensor(1.0 / (sigma * sigma), dtype=torch.float32))
+
+
+def kp_weights(rel: torch.Tensor, kp: KernelPoints) -> torch.Tensor:
+    """``[..., P]`` float32 correlation weights of the raw offsets ``rel
+    [..., 3]`` (float32) against ``kp.points``, in the operations and the
+    order of ``se3conv3d_tpu/ops/pne_conv.py:_kp_geo_chunk`` and of the
+    kernels (``kp_weights`` of ``csrc/fused_equiv_common.cuh``), each
+    rounded on its own: ``rel * norm_dist``, the squared distances summed
+    over x, y, z in that order and scaled by ``1 / sigma^2``, then gauss
+    ``exp(-d2 / 2)``, linear ``max(1 - sqrt(d2), 0)`` or box, the one-hot of
+    the first argmin."""
+    t = (rel * kp.norm_dist)[..., None, :] - kp.points  # [..., P, 3]
+    d2 = (t[..., 0] * t[..., 0] + t[..., 1] * t[..., 1] + t[..., 2] * t[..., 2]) * _inv_s2(kp.sigma)
+    if kp.corr == "gauss":
+        return torch.exp(-d2 / 2.0)
+    if kp.corr == "linear":
+        return torch.clamp(1.0 - torch.sqrt(d2), min=0.0)
+    if kp.corr == "box":
+        return F.one_hot(torch.argmin(d2, -1), d2.shape[-1]).to(d2.dtype)
+    raise ValueError(f"unknown correlation {kp.corr!r}")
+
+
+def _edge_geometry(rel, rot6, f, kp, rnd):
     """``[B, M, K, G, F, D]`` pne inputs: offsets repeated over the ``f``
     in-frames, then the 6D relative rotations (D = 9), or the offsets
-    alone where ``rot6`` is None (D = 3)."""
+    alone where ``rot6`` is None (D = 3), or the kernel-point weights
+    rounded to the operands' dtype (D = P, G = F = 1)."""
+    if kp is not None:
+        return rnd(kp_weights(rel, kp))[:, :, :, :, None, :]
+    rel, rot6 = _wide(rel), _wide(rot6)
     b, m, k, g, _ = rel.shape
     offsets = rel[:, :, :, :, None, :].expand(b, m, k, g, f, 3)
     return offsets if rot6 is None else torch.cat([offsets, rot6], -1)
+
+
+def _pre(geo, proj_axes, proj_biases, act):
+    """``pre = geo . proj_axes + proj_biases``; for relu, whose derivative
+    steps at 0, in the kernels' order with each product and sum rounded on
+    its own (``pre_act`` / ``pre_kp`` with ``kRn``), so that the step falls
+    on the same side on every edge in the kernels and here."""
+    if act != "relu":
+        return geo @ proj_axes + proj_biases
+    pre = proj_biases.expand(geo.shape[:-1] + proj_biases.shape)
+    for d in range(geo.shape[-1]):
+        pre = pre + geo[..., d, None] * proj_axes[d]
+    return pre
+
+
+def _activation(act: str, pre: torch.Tensor) -> torch.Tensor:
+    """``act(pre)`` (gelu exact, relu ``max(pre, 0)``, sin, linear)."""
+    if act == "gelu":
+        return F.gelu(pre)
+    if act == "relu":
+        return torch.relu(pre)
+    if act == "sin":
+        return torch.sin(pre)
+    return pre
+
+
+def _activation_grad(act: str, pre: torch.Tensor) -> torch.Tensor:
+    """``act'(pre)`` in the closed forms of the TPU kernel's
+    ``_act_and_grad``: gelu ``Phi(x) + x * phi(x)``, relu a step with 0 at
+    0 (``jax.jvp`` of ``jax.nn.relu``), sin ``cos``, linear 1."""
+    if act == "gelu":
+        return (0.5 * (1.0 + torch.erf(pre * math.sqrt(0.5)))
+                + pre * torch.exp(-0.5 * pre * pre) / math.sqrt(2.0 * math.pi))
+    if act == "relu":
+        return (pre > 0).to(pre.dtype)
+    if act == "sin":
+        return torch.cos(pre)
+    return torch.ones_like(pre)
 
 
 def _gather(feats, idx, mask):
@@ -203,14 +324,15 @@ def _gather(feats, idx, mask):
     return feats[bidx, idx] * mask[:, :, :, None, None].to(feats.dtype)
 
 
-def fused_equiv_fwd_reference(rel, rot6, feats, idx, mask, proj_axes, proj_biases, conv_weights):
+def fused_equiv_fwd_reference(rel, rot6, feats, idx, mask, proj_axes, proj_biases, conv_weights,
+                              act="gelu", kp=None):
     """Plain PyTorch version of the forward kernel (same arguments, same
     result, rounding where the kernel rounds: :func:`_rounding`; ``rot6``
-    None for the standard geometry)."""
+    None for the standard and kernel-point geometries)."""
     rnd = _rounding(feats.dtype)
-    geo = _edge_geometry(_wide(rel), _wide(rot6), feats.shape[2])
-    pre = geo @ rnd(proj_axes) + rnd(proj_biases)
-    pne = rnd(F.gelu(pre))  # [B,M,K,G,F,Q], exact erf
+    geo = _edge_geometry(rel, rot6, feats.shape[2], kp, rnd)
+    pre = _pre(geo, rnd(proj_axes), rnd(proj_biases), act)
+    pne = rnd(_activation(act, pre))  # [B,M,K,G,F,Q]
     basis = rnd(torch.einsum("bmkfc,bmkgfq->bmgcq", _gather(_wide(feats), idx, mask), pne))
     return torch.einsum("bmgcq,cqo->bmgo", basis, rnd(conv_weights))
 
@@ -251,21 +373,22 @@ def _sorted_rows(d_gathered, sorted_slot):
 
 
 def fused_equiv_bwd_reference(rel, rot6, feats, idx, mask, proj_axes, proj_biases,
-                              conv_weights, gout, sorted_slot=None):
+                              conv_weights, gout, sorted_slot=None, act="gelu", kp=None):
     """Plain PyTorch version of the backward kernel: recomputes pne and basis
     and returns ``(d_feats, d_proj_axes, d_proj_biases, d_conv_weights)``;
     with ``sorted_slot`` the first is the sorted per-edge buffer of
     :func:`fused_equiv_bwd` instead (in the operands' dtype).  Rounds where
     the kernel rounds (:func:`_rounding`).
 
-    gelu' is the closed form ``Phi(x) + x * phi(x)``, as the TPU kernel
-    takes it (``se3conv3d_tpu/ops/pallas/fused_equiv.py:_act_and_grad``).
+    ``act'`` is the closed form the TPU kernel takes
+    (``se3conv3d_tpu/ops/pallas/fused_equiv.py:_act_and_grad``,
+    :func:`_activation_grad`).
     """
     rnd = _rounding(feats.dtype)
-    geo = _edge_geometry(_wide(rel), _wide(rot6), feats.shape[2])
-    pre = geo @ rnd(proj_axes) + rnd(proj_biases)
-    pne = rnd(F.gelu(pre))
-    dact = 0.5 * (1.0 + torch.erf(pre * math.sqrt(0.5))) + pre * torch.exp(-0.5 * pre * pre) / math.sqrt(2.0 * math.pi)
+    geo = _edge_geometry(rel, rot6, feats.shape[2], kp, rnd)
+    pre = _pre(geo, rnd(proj_axes), rnd(proj_biases), act)
+    pne = rnd(_activation(act, pre))
+    dact = _activation_grad(act, pre)
     gathered = _gather(_wide(feats), idx, mask)
     basis = rnd(torch.einsum("bmkfc,bmkgfq->bmgcq", gathered, pne))
     gout = rnd(gout)
@@ -285,11 +408,21 @@ def fused_equiv_bwd_reference(rel, rot6, feats, idx, mask, proj_axes, proj_biase
     return d_feats, d_pa, dpre.sum((0, 1, 2, 3, 4)), d_w
 
 
-def _check(rel, rot6, feats, idx, mask, proj_axes, proj_biases, conv_weights):
+def _check(rel, rot6, feats, idx, mask, proj_axes, proj_biases, conv_weights, act="gelu",
+           kp=None):
     """The kernels' contract; returns ``(B, M, N, K, G, F, Q, C, O, D)``
-    (D: 9 pne inputs with ``rot6``, 3 without: the standard geometry)."""
+    (D: 9 pne inputs with ``rot6``, 3 without: the standard geometry; P
+    with ``kp``: the kernel-point geometry)."""
     tensors = dict(rel=rel, rot6=rot6, feats=feats, idx=idx, mask=mask,
                    proj_axes=proj_axes, proj_biases=proj_biases, conv_weights=conv_weights)
+    if act not in ACTS:
+        raise ValueError(f"act must be one of {tuple(ACTS)}, got {act!r}")
+    if kp is not None:
+        if rot6 is not None:
+            raise ValueError("the kernel-point geometry takes no rot6")
+        if kp.corr not in CORRELATIONS:
+            raise ValueError(f"kp.corr must be one of {tuple(CORRELATIONS)}, got {kp.corr!r}")
+        tensors.update(kp_points=kp.points, kp_norm_dist=kp.norm_dist)
     if rot6 is None:
         del tensors["rot6"]
     dev = feats.device
@@ -300,9 +433,17 @@ def _check(rel, rot6, feats, idx, mask, proj_axes, proj_biases, conv_weights):
             raise ValueError(f"{name} must be contiguous")
     if feats.dtype not in OPERAND_DTYPES:
         raise TypeError(f"feats must be float32 or bfloat16, got {feats.dtype}")
-    for name in ("rel", "rot6")[: 1 if rot6 is None else 2]:
-        if tensors[name].dtype != feats.dtype:
-            raise TypeError(f"{name} must have the dtype of feats ({feats.dtype}), got {tensors[name].dtype}")
+    if kp is not None:  # the raw offsets stay float32: the weights are computed from them
+        for name in ("rel", "kp_points", "kp_norm_dist"):
+            if tensors[name].dtype != torch.float32:
+                raise TypeError(f"{name} must be float32 in the kernel-point geometry, "
+                                f"got {tensors[name].dtype}")
+        if kp.norm_dist.numel() != 1:
+            raise ValueError("kp.norm_dist must hold one value")
+    else:
+        for name in ("rel", "rot6")[: 1 if rot6 is None else 2]:
+            if tensors[name].dtype != feats.dtype:
+                raise TypeError(f"{name} must have the dtype of feats ({feats.dtype}), got {tensors[name].dtype}")
     for name in ("proj_axes", "proj_biases", "conv_weights"):
         if tensors[name].dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {tensors[name].dtype}")
@@ -314,7 +455,13 @@ def _check(rel, rot6, feats, idx, mask, proj_axes, proj_biases, conv_weights):
     bn, n, f, c = feats.shape
     q = proj_biases.shape[0]
     o = conv_weights.shape[2]
-    d = 3 if rot6 is None else 9
+    if kp is not None:
+        d = kp.points.shape[0]
+        if tuple(kp.points.shape) != (d, 3) or not 1 <= d <= MAX_KP:
+            raise ValueError(f"kp.points must be [P, 3] with 1 <= P <= {MAX_KP}, "
+                             f"got {tuple(kp.points.shape)}")
+    else:
+        d = 3 if rot6 is None else 9
     want = {
         "rel": (b, m, k, g, 3),
         "rot6": (b, m, k, g, f, 6),
@@ -328,10 +475,11 @@ def _check(rel, rot6, feats, idx, mask, proj_axes, proj_biases, conv_weights):
     for name, shape in want.items():
         if name in tensors and tuple(tensors[name].shape) != shape:
             raise ValueError(f"{name} has shape {tuple(tensors[name].shape)}, expected {shape}"
-                             + (" (the standard geometry: no rot6)" if rot6 is None else ""))
+                             + (" (the standard geometry: no rot6)" if rot6 is None and kp is None
+                                else " (the kernel-point geometry: P rows)" if kp is not None else ""))
     if rot6 is None and ((g, f) != (1, 1) or q > STD_MAX_Q):
-        raise ValueError(f"the standard geometry (no rot6) takes G = F = 1 and Q <= {STD_MAX_Q}, "
-                         f"got G={g}, F={f}, Q={q}")
+        geometry = "the kernel-point geometry" if kp is not None else "the standard geometry (no rot6)"
+        raise ValueError(f"{geometry} takes G = F = 1 and Q <= {STD_MAX_Q}, got G={g}, F={f}, Q={q}")
     cols = column_capacity(g, q)
     if cols == 0:
         raise ValueError(f"kernel takes G <= {MAX_G} and G*Q <= {MAX_GQ}, got G={g}, Q={q}")
@@ -343,7 +491,7 @@ def _check(rel, rot6, feats, idx, mask, proj_axes, proj_biases, conv_weights):
 
 def fused_equiv_fwd(
     rel: torch.Tensor,
-    rot6: torch.Tensor,
+    rot6: Optional[torch.Tensor],
     feats: torch.Tensor,
     idx: torch.Tensor,
     mask: torch.Tensor,
@@ -351,24 +499,29 @@ def fused_equiv_fwd(
     proj_biases: torch.Tensor,
     conv_weights: torch.Tensor,
     live_rows: torch.Tensor = None,
+    act: str = "gelu",
+    kp: Optional[KernelPoints] = None,
 ) -> torch.Tensor:
     """Fused conv forward ``-> [B, M, G, O]`` float32, un-normalised.
 
     Args:
       rel: ``[B, M, K, G, 3]`` edge offsets in the receiver frames (the
-        standard geometry: ``[B, M, K, 1, 3]`` raw offsets).
+        standard and kernel-point geometries: ``[B, M, K, 1, 3]`` raw
+        offsets, float32 in the kernel-point one).
       rot6: ``[B, M, K, G, F, 6]`` 6D relative rotations, or None for the
-        standard geometry (G = F = 1).
+        standard and kernel-point geometries (G = F = 1).
       feats: ``[B, N, F, C]`` source features; ``rel``, ``rot6`` and
         ``feats`` are all float32 or all bfloat16 (the rounding points of
         the module note).
       idx / mask: ``[B, M, K]`` int64 neighbor indices and bool validity.
-      proj_axes: ``[9, Q]`` (offset rows pre-scaled), or ``[3, Q]`` for
-        the standard geometry; proj_biases ``[Q]``; conv_weights
-        ``[C, Q, O]``.
+      proj_axes: ``[9, Q]`` (offset rows pre-scaled), ``[3, Q]`` for the
+        standard geometry, ``[P, Q]`` for the kernel-point one;
+        proj_biases ``[Q]``; conv_weights ``[C, Q, O]``.
       live_rows: :func:`live_row_table` of ``mask`` on the device of
         ``feats``, as for :func:`fused_equiv_bwd` (see :func:`_live_rows`);
         built here, at the cost of one host synchronisation, when absent.
+      act: the pne activation, one of :data:`ACTS`.
+      kp: the kernel-point geometry (:class:`KernelPoints`), or None.
 
     CPU tensors run :func:`fused_equiv_fwd_reference` over every row,
     whatever the table; CUDA tensors launch the kernels over the live rows
@@ -378,12 +531,12 @@ def fused_equiv_fwd(
     """
     if feats.device.type == "cpu":
         return fused_equiv_fwd_reference(
-            rel, rot6, feats, idx, mask, proj_axes, proj_biases, conv_weights
+            rel, rot6, feats, idx, mask, proj_axes, proj_biases, conv_weights, act, kp
         )
     if feats.device.type != "cuda":
         raise ValueError(f"unsupported device {feats.device}")
     b, m, n, k, g, f, q, c, o, d = _check(
-        rel, rot6, feats, idx, mask, proj_axes, proj_biases, conv_weights
+        rel, rot6, feats, idx, mask, proj_axes, proj_biases, conv_weights, act, kp
     )
     dev = feats.device
     live_rows = _live_rows(live_rows, mask, b * m, dev)
@@ -400,26 +553,32 @@ def fused_equiv_fwd(
     ptrs = (feats.data_ptr(), idx.data_ptr(), mask.data_ptr(), proj_axes.data_ptr(),
             proj_biases.data_ptr(), conv_weights.data_ptr(), live_rows.data_ptr(), out.data_ptr(),
             work.data_ptr())
-    plan = (n_live, chunk.value, splits.value, int(bf16), torch.cuda.current_stream(dev).cuda_stream)
+    plan = (n_live, chunk.value, splits.value, int(bf16), ACTS[act])
+    stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        if rot6 is None:
-            err = lib.se3_fused_std_fwd(rel.data_ptr(), *ptrs, b, m, n, k, q, c, o, *plan)
+        if kp is not None:
+            err = lib.se3_fused_kp_fwd(rel.data_ptr(), kp.points.data_ptr(), kp.norm_dist.data_ptr(),
+                                       *ptrs, b, m, n, k, d, q, c, o, *plan, _inv_s2(kp.sigma),
+                                       CORRELATIONS[kp.corr], stream)
+        elif rot6 is None:
+            err = lib.se3_fused_std_fwd(rel.data_ptr(), *ptrs, b, m, n, k, q, c, o, *plan, stream)
         else:
             err = lib.se3_fused_equiv_fwd(rel.data_ptr(), rot6.data_ptr(), *ptrs,
-                                          b, m, n, k, g, f, q, c, o, *plan)
+                                          b, m, n, k, g, f, q, c, o, *plan, stream)
     if err != 0:
         raise RuntimeError(f"fused_equiv_fwd kernel launch failed: CUDA error {err}")
-    _count(fused_equiv_fwd, bf16, g, d)
+    _count(fused_equiv_fwd, bf16, g, d, act, kp)
     return out
 
 
 def fused_equiv_bwd(rel, rot6, feats, idx, mask, proj_axes, proj_biases, conv_weights, gout,
-                    sorted_slot=None, live_rows=None):
+                    sorted_slot=None, live_rows=None, act="gelu", kp=None):
     """Fused conv backward: ``gout [B, M, G, O]`` float32, the cotangent of
     the un-normalised output, ``-> (d_feats [B, N, F, C], d_proj_axes [D, Q],
     d_proj_biases [Q], d_conv_weights [C, Q, O])``, all float32 (with
-    bfloat16 operands ``d_feats`` sums the rounded per-edge rows; D = 9, or
-    3 for the standard geometry, ``rot6`` None).
+    bfloat16 operands ``d_feats`` sums the rounded per-edge rows; D = 9, 3
+    for the standard geometry, ``rot6`` None, or P for the kernel-point one,
+    ``kp`` given).
 
     Same arguments as :func:`fused_equiv_fwd` plus ``gout``.  With
     ``sorted_slot [B, M*K]`` (int64, each edge's slot in source order) the
@@ -436,12 +595,13 @@ def fused_equiv_bwd(rel, rot6, feats, idx, mask, proj_axes, proj_biases, conv_we
     """
     if feats.device.type == "cpu":
         return fused_equiv_bwd_reference(
-            rel, rot6, feats, idx, mask, proj_axes, proj_biases, conv_weights, gout, sorted_slot
+            rel, rot6, feats, idx, mask, proj_axes, proj_biases, conv_weights, gout, sorted_slot,
+            act, kp
         )
     if feats.device.type != "cuda":
         raise ValueError(f"unsupported device {feats.device}")
     b, m, n, k, g, f, q, c, o, d = _check(
-        rel, rot6, feats, idx, mask, proj_axes, proj_biases, conv_weights
+        rel, rot6, feats, idx, mask, proj_axes, proj_biases, conv_weights, act, kp
     )
     if gout.device != feats.device or gout.dtype != torch.float32 or not gout.is_contiguous():
         raise ValueError("gout must be a contiguous float32 tensor on the device of feats")
@@ -476,40 +636,51 @@ def fused_equiv_bwd(rel, rot6, feats, idx, mask, proj_axes, proj_biases, conv_we
             None if sorted_slot is None else sorted_slot.data_ptr(), d_feats.data_ptr(),
             d_params.data_ptr(), d_w.data_ptr(), work.data_ptr(), w_part.data_ptr(),
             p_part.data_ptr())
-    plan = (n_live, w_splits.value, p_blocks.value, int(bf16),
-            torch.cuda.current_stream(dev).cuda_stream)
+    plan = (n_live, w_splits.value, p_blocks.value, int(bf16), ACTS[act])
+    stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        if rot6 is None:
-            err = lib.se3_fused_std_bwd(rel.data_ptr(), *ptrs, b, m, n, k, q, c, o, *plan)
+        if kp is not None:
+            err = lib.se3_fused_kp_bwd(rel.data_ptr(), kp.points.data_ptr(), kp.norm_dist.data_ptr(),
+                                       *ptrs, b, m, n, k, d, q, c, o, *plan, _inv_s2(kp.sigma),
+                                       CORRELATIONS[kp.corr], stream)
+        elif rot6 is None:
+            err = lib.se3_fused_std_bwd(rel.data_ptr(), *ptrs, b, m, n, k, q, c, o, *plan, stream)
         else:
             err = lib.se3_fused_equiv_bwd(rel.data_ptr(), rot6.data_ptr(), *ptrs,
-                                          b, m, n, k, g, f, q, c, o, *plan)
+                                          b, m, n, k, g, f, q, c, o, *plan, stream)
     if err != 0:
         raise RuntimeError(f"fused_equiv_bwd kernel launch failed: CUDA error {err}")
-    _count(fused_equiv_bwd, bf16, g, d)
+    _count(fused_equiv_bwd, bf16, g, d, act, kp)
     return d_feats, d_params[:d], d_params[d], d_w
 
 
-def _count(wrapper, bf16, g, d):
-    """One more kernel launch of ``wrapper``: all, bfloat16, by G and by D."""
+def _count(wrapper, bf16, g, d, act, kp):
+    """One more kernel launch of ``wrapper``: all, bfloat16, by G, by D, by
+    activation and, for the kernel-point geometry, by (correlation, P)."""
     wrapper.launches += 1
     wrapper.bf16_launches += bf16
-    wrapper.launches_by_g[g] = wrapper.launches_by_g.get(g, 0) + 1
-    wrapper.launches_by_d[d] = wrapper.launches_by_d.get(d, 0) + 1
+    for table, key in ((wrapper.launches_by_g, g), (wrapper.launches_by_d, d),
+                       (wrapper.launches_by_act, act)):
+        table[key] = table.get(key, 0) + 1
+    if kp is not None:
+        key = (kp.corr, d)
+        wrapper.launches_by_kp[key] = wrapper.launches_by_kp.get(key, 0) + 1
 
 
 # kernel launches so far (CPU calls do not count): all, those with bfloat16
-# operands, all by G (out-frames: {G: launches}) and all by D (pne inputs:
-# 9 equivariant, 3 standard); callers may reset them
-fused_equiv_fwd.launches = fused_equiv_fwd.bf16_launches = 0
-fused_equiv_bwd.launches = fused_equiv_bwd.bf16_launches = 0
-fused_equiv_fwd.launches_by_g, fused_equiv_bwd.launches_by_g = {}, {}
-fused_equiv_fwd.launches_by_d, fused_equiv_bwd.launches_by_d = {}, {}
+# operands, all by G (out-frames: {G: launches}), by D (pne inputs: 9
+# equivariant, 3 standard, P kernel-point), by activation ({act: launches})
+# and the kernel-point ones by ({(corr, P): launches}); callers may reset them
+for _wrapper in (fused_equiv_fwd, fused_equiv_bwd):
+    _wrapper.launches = _wrapper.bf16_launches = 0
+    _wrapper.launches_by_g, _wrapper.launches_by_d = {}, {}
+    _wrapper.launches_by_act, _wrapper.launches_by_kp = {}, {}
 
 
 class FusedEquivConv(torch.autograd.Function):
     """:func:`fused_equiv_fwd` with :func:`fused_equiv_bwd` as its backward
-    (``rot6`` None: the standard geometry).
+    (``rot6`` None: the standard geometry, or with ``kp`` the kernel-point
+    one; ``act`` the activation).
 
     Saves only its inputs (the lean-VJP residuals of
     ``se3conv3d_tpu/ops/pne_conv.py:_lean_equiv``) and the tables it is
@@ -526,12 +697,13 @@ class FusedEquivConv(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, rel, rot6, feats, idx, mask, proj_axes, proj_biases, conv_weights,
-                sorted_slot=None, run_start=None, run_end=None, live_rows=None):
+                sorted_slot=None, run_start=None, run_end=None, live_rows=None, act="gelu",
+                kp=None):
         inputs = (rel, rot6, feats, idx, mask, proj_axes, proj_biases, conv_weights)
         tables = () if sorted_slot is None else (sorted_slot, run_start, run_end)
-        ctx.has_live = live_rows is not None
+        ctx.has_live, ctx.act, ctx.kp = live_rows is not None, act, kp
         ctx.save_for_backward(*inputs, *tables, *((live_rows,) if ctx.has_live else ()))
-        return fused_equiv_fwd(*inputs, live_rows)
+        return fused_equiv_fwd(*inputs, live_rows, act, kp)
 
     @staticmethod
     @once_differentiable
@@ -540,22 +712,24 @@ class FusedEquivConv(torch.autograd.Function):
         live = rest[-1] if ctx.has_live else None
         tables = rest[:-1] if ctx.has_live else rest
         d_feats, d_pa, d_pb, d_w = fused_equiv_bwd(
-            *inputs, gout.contiguous(), tables[0] if tables else None, live)
+            *inputs, gout.contiguous(), tables[0] if tables else None, live, ctx.act, ctx.kp)
         if tables:
             d_feats = sorted_segment_sum(d_feats, *tables[1:]).reshape(inputs[2].shape)
         d_feats = d_feats.to(inputs[2].dtype)
         need = ctx.needs_input_grad
         return (None, None, d_feats if need[2] else None, None, None,
                 d_pa if need[5] else None, d_pb if need[6] else None, d_w if need[7] else None,
-                None, None, None, None)
+                None, None, None, None, None, None)
 
 
 def fused_equiv(rel, rot6, feats, idx, mask, proj_axes, proj_biases, conv_weights,
-                sort_tables=None, live_rows=None):
+                sort_tables=None, live_rows=None, act="gelu", kp=None):
     """Differentiable fused conv ``-> [B, M, G, O]`` (see :func:`fused_equiv_fwd`;
-    ``rot6`` None for the standard geometry);
+    ``rot6`` None for the standard and kernel-point geometries, ``kp`` the
+    latter's :class:`KernelPoints`, ``act`` the activation);
     ``sort_tables = (sorted_slot, run_start, run_end)`` selects the 'sorted'
     feature-gradient reduction; ``live_rows`` is :func:`live_row_table` of
     ``mask``, built by the forward and again by the backward when absent."""
     return FusedEquivConv.apply(rel, rot6, feats, idx, mask, proj_axes, proj_biases,
-                                conv_weights, *(sort_tables or (None, None, None)), live_rows)
+                                conv_weights, *(sort_tables or (None, None, None)), live_rows,
+                                act, kp)

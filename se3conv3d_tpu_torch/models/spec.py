@@ -19,7 +19,7 @@ from ..kernels.fused_equiv import live_row_table
 from ..nn.conv import ConvFactory
 from ..ops import pne_conv as ops
 
-__all__ = ["ModelSpec", "NeighborhoodProvider", "geometry_dtype_for"]
+__all__ = ["ModelSpec", "NeighborhoodProvider", "consumers"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,13 +76,12 @@ class ModelSpec:
             raise NotImplementedError(f"block layer {self.block_layer!r} is not ported yet")
 
 
-def geometry_dtype_for(spec: ModelSpec, self_neighborhood: bool) -> torch.dtype:
-    """The dtype of the cached edge geometry of a neighborhood: that of its
-    leading consumer, as ``se3conv3d_tpu/models/spec.py`` picks it.  A self
-    neighborhood feeds the block stack (``conv_blocks``; also the patch
-    stem's self conv, ``conv``), a cross-level one ``conv`` convs only."""
-    fac = spec.conv_blocks if self_neighborhood else spec.conv
-    return ops.geometry_dtype(fac.compute_dtype)
+def consumers(spec: ModelSpec, self_neighborhood: bool) -> tuple:
+    """The conv factories whose convs read a neighborhood, the leading one
+    first, as ``se3conv3d_tpu/models/spec.py`` lists them: a self
+    neighborhood feeds the block stack (``conv_blocks``) and the patch
+    stem's self conv (``conv``), a cross-level one ``conv`` convs only."""
+    return (spec.conv_blocks, spec.conv) if self_neighborhood else (spec.conv,)
 
 
 class NeighborhoodProvider:
@@ -91,15 +90,26 @@ class NeighborhoodProvider:
     ``get(src, dst, radius, neigh_type, k)`` builds the table from level
     ``src`` to level ``dst`` once per key and attaches the layer-independent
     edge geometry that every conv on it shares -- the reference's rot-tensor
-    cache -- in the operand dtype of the convs that read it
-    (:func:`geometry_dtype_for`: bfloat16 halves it for a bfloat16 spec; a
-    conv of the other dtype rebuilds its own): ``equiv_rel`` / ``equiv_rot``
-    for an equivariant spec, the raw offsets ``std_rel`` for a standard one
-    (the JAX package gathers those per conv; the cache computes the same
-    function).
-    Every neighborhood also gets the live-row table its convs' forwards
-    and backwards walk (``live_rows``; one host synchronisation per
-    neighborhood, whatever the grad mode).  In the 'sorted' backward mode, with autograd on, a self
+    cache -- as each of its consumers (:func:`consumers`) reads it, decided
+    from :func:`~se3conv3d_tpu_torch.nn.conv.fused_dispatch` of each factory
+    as ``se3conv3d_tpu/models/spec.py:_attach_equiv_geometry`` decides it:
+
+    * equivariant kernel-path convs: ``equiv_rel`` / ``equiv_rot`` (6D), in
+      the operand dtype of the leading such consumer (bfloat16 halves it for
+      a bfloat16 spec);
+    * equivariant plain-path convs: ``plain_rel`` / ``plain_rot``, float32,
+      in the leading such consumer's ``rel_rot_type``;
+    * standard convs: the raw offsets ``std_rel``, in the leading consumer's
+      operand dtype where it is a kernel-path mlp conv, else float32 (the
+      kernel-point weights and the plain path are computed from float32
+      offsets; the JAX package gathers those per conv, the cache computes
+      the same function).
+
+    A conv that the payload does not serve (the other dtype or
+    representation) rebuilds its own, with a warning.  Every neighborhood
+    also gets the live-row table its convs' forwards and backwards walk
+    (``live_rows``; one host synchronisation per neighborhood, whatever the
+    grad mode).  In the 'sorted' backward mode, with autograd on, a self
     neighborhood (``src == dst``: the block stack's) also gets the sort
     tables its convs' backwards share; a single-use one builds them in its
     conv (``ops.pne_conv``), as in the JAX package.
@@ -112,8 +122,7 @@ class NeighborhoodProvider:
         self._cache: Dict[tuple, Neighborhood] = {}
 
     def _build(self, src_pc: PointCloud, dst_pc: PointCloud, radius: float,
-               neigh_type: str, k: int, spacing: Optional[float],
-               geo_dtype: torch.dtype) -> Neighborhood:
+               neigh_type: str, k: int, spacing: Optional[float], facs: tuple) -> Neighborhood:
         if neigh_type == "ball_query":
             neigh = ball_query_neighborhood(
                 src_pc, dst_pc, radius, self.spec.max_neighbors, want_trunc=self.collect_trunc
@@ -125,11 +134,21 @@ class NeighborhoodProvider:
             )
         else:
             raise ValueError(f"unknown neighborhood type {neigh_type!r}")
+        geometry = {}
         if self.spec.equivariant:
-            rel, rot6 = ops.equiv_geometry_parts(src_pc, dst_pc, neigh, geo_dtype)
-            geometry = dict(equiv_rel=rel, equiv_rot=rot6)
+            kernel = [fac for fac in facs if fac.fused]
+            plain = [fac for fac in facs if not fac.fused]
+            if kernel:
+                geometry["equiv_rel"], geometry["equiv_rot"] = ops.equiv_geometry_parts(
+                    src_pc, dst_pc, neigh, ops.geometry_dtype(kernel[0].compute_dtype))
+            if plain:
+                geometry["plain_rel"], geometry["plain_rot"] = ops.equiv_geometry_parts(
+                    src_pc, dst_pc, neigh, None, plain[0].rel_rot_type)
         else:
-            geometry = dict(std_rel=ops.std_geometry(src_pc, dst_pc, neigh, geo_dtype))
+            lead = facs[0]
+            dtype = (ops.geometry_dtype(lead.compute_dtype) if lead.fused and "mlp" in lead.pne_type
+                     else torch.float32)
+            geometry["std_rel"] = ops.std_geometry(src_pc, dst_pc, neigh, dtype)
         return dataclasses.replace(neigh, **geometry, live_rows=live_row_table(neigh.mask))
 
     def get(self, src: int, dst: int, radius: float, neigh_type: str, k: int) -> Neighborhood:
@@ -137,8 +156,7 @@ class NeighborhoodProvider:
         if key not in self._cache:
             src_pc = self.hierarchy.levels[src]
             neigh = self._build(src_pc, self.hierarchy.levels[dst], radius, neigh_type, k,
-                                self.hierarchy.levels_radii[src],
-                                geometry_dtype_for(self.spec, self_neighborhood=src == dst))
+                                self.hierarchy.levels_radii[src], consumers(self.spec, src == dst))
             if src == dst and ops.sorted_backward() and torch.is_grad_enabled():
                 neigh = ops.backward_sort_tables(neigh, src_pc.capacity)
             self._cache[key] = neigh
@@ -150,5 +168,5 @@ class NeighborhoodProvider:
         segmentation output cloud)."""
         return self._build(
             self.hierarchy.levels[src], dst_pc, radius, neigh_type, k,
-            self.hierarchy.levels_radii[src], geometry_dtype_for(self.spec, self_neighborhood=False),
+            self.hierarchy.levels_radii[src], consumers(self.spec, self_neighborhood=False),
         )

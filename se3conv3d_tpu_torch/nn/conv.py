@@ -1,13 +1,25 @@
 """Point convolution layer (counterpart of ``se3conv3d_tpu/nn/conv.py``).
 
-Ported: the mlp_gelu conv with 'add' aggregation in both of its forms:
-the locally SE(3)-equivariant one with 6D relative rotations (the rot
-recipes), through ``ops.pne_conv.fused_equiv_conv``, and the standard
-(non-equivariant) one (the standard recipes), through
-``ops.pne_conv.fused_conv``; each runs the CUDA kernels on the card and
-their plain versions on the CPU, in float32 or, with ``compute_dtype``
-bfloat16, with bfloat16 operands and float32 sums (the ScanNet recipes'
-``compute_dtype: bfloat16``).
+``PNEConv`` takes every ``pne_type`` (``mlp_{relu,gelu,sin,softmax,linear}``,
+``kp_{gauss,linear,box}[_double]``), ``aggregation`` ('add', 'max') and
+``rel_rot_type`` ('6D', 'quaternion', 'matrix') that the JAX ``PNEConv``
+takes, and dispatches as it does (:func:`fused_dispatch`):
+
+* the kernel path, where the JAX package runs its Pallas kernels: the mlp
+  convs but softmax with 'add' (equivariant ones with 6D rotations), through
+  ``ops.pne_conv.fused_equiv_conv`` / ``fused_conv`` with the activation,
+  and the standard kernel-point convs with 'add', through
+  ``ops.pne_conv.fused_kp_conv``; each runs the CUDA kernels on the card
+  and their plain versions on the CPU, in float32 or, with
+  ``compute_dtype`` bfloat16, with bfloat16 operands and float32 sums;
+* the plain path, in PyTorch ops on whichever device holds the tensors,
+  where the JAX package runs XLA: ``mlp_softmax``, 'max' aggregation, the
+  quaternion and matrix rotations, and ``use_fused=False``.
+
+An equivariant kernel-point conv raises ``NotImplementedError``, as in the
+JAX package (reference ``PNEConvLayerRotEquiv.py:221-222``).  The kernel
+points carry no random rotation, as the JAX package's do not (the
+reference rotates them at init).
 
 Calibration buffers (the reference's pre-process epoch,
 ``IConvLayer.py:75-97``): ``norm_neigh_dist`` and ``norm_num_neighs`` start
@@ -29,8 +41,9 @@ from torch import nn
 from ..core.neighborhoods import Neighborhood
 from ..core.pointcloud import PointCloud, gather_rows
 from ..ops import pne_conv as ops
+from .icosphere import icosphere_points
 
-__all__ = ["PNEConv", "ConvFactory", "check_neighbor_caps"]
+__all__ = ["PNEConv", "ConvFactory", "check_neighbor_caps", "fused_dispatch"]
 
 
 def check_neighbor_caps(calib: Union[nn.Module, Mapping[str, torch.Tensor]],
@@ -70,42 +83,90 @@ def check_neighbor_caps(calib: Union[nn.Module, Mapping[str, torch.Tensor]],
     return bad
 
 
-def _check_supported(pne_type: str, equivariant: bool, rel_rot_type: str, aggregation: str):
-    # the standard conv has no relative rotation: its rel_rot_type is unread
-    if (pne_type, aggregation) != ("mlp_gelu", "add") or (equivariant and rel_rot_type != "6D"):
-        raise NotImplementedError(
-            "only the mlp_gelu / 'add' conv is ported (6D rotations where equivariant), got "
-            f"pne_type={pne_type!r}, equivariant={equivariant}, "
-            f"rel_rot_type={rel_rot_type!r}, aggregation={aggregation!r}"
-        )
+def fused_dispatch(pne_type: str, aggregation: str, equivariant: bool, rel_rot_type: str,
+                   use_fused: Optional[bool]) -> bool:
+    """Whether a conv of this kind runs the kernel path: the predicate of
+    ``se3conv3d_tpu/nn/conv.py:fused_dispatch`` where the Pallas kernels run
+    (a TPU).  Kernel-point convs with 'add' in the standard form; mlp convs
+    but softmax with 'add', equivariant ones with 6D rotations.
+    ``use_fused`` False forces the plain path; True takes the kernel path
+    wherever the kind allows it (on the CPU it runs the kernels' plain
+    versions).  None means the same as True: in the JAX package it picks
+    by backend, and the port, whose kernels serve every tensor on the card,
+    keeps it only to take the JAX package's arguments as they are.  It
+    depends on the kind only, so the neighborhood provider's choice of
+    payload agrees with every conv."""
+    if pne_type.startswith("kp"):
+        kernel_ok = aggregation == "add" and not equivariant
+    else:
+        kernel_ok = ("mlp" in pne_type and not pne_type.endswith("softmax") and aggregation == "add"
+                     and (not equivariant or rel_rot_type == "6D"))
+    return kernel_ok and use_fused is not False
+
+
+def _kernel_points(pne_type: str):
+    """``([P, 3] float32 kernel points, sigma)`` by pne type, as
+    ``se3conv3d_tpu/nn/conv.py:_kernel_points`` (reference
+    ``PNEConvLayer.py:102-134``, without its random rotation): the
+    icosahedron's 12 vertices and the center (P = 13), or with ``_double``
+    the vertices at 0.35, the 42 of the once-subdivided icosphere at 0.7 and
+    the center (P = 55)."""
+    if "double" in pne_type:
+        kp_scale = 0.35
+        kp = torch.cat([torch.tensor(icosphere_points(0) * kp_scale, dtype=torch.float32),
+                        torch.tensor(icosphere_points(1) * kp_scale * 2, dtype=torch.float32),
+                        torch.zeros(1, 3)])
+        sigma = {"kp_linear_double": 0.2, "kp_gauss_double": 0.16, "kp_box_double": 1.0}[pne_type]
+    else:
+        kp = torch.cat([torch.tensor(icosphere_points(0), dtype=torch.float32), torch.zeros(1, 3)]) * 0.6
+        sigma = {"kp_linear": 0.4, "kp_gauss": 0.3, "kp_box": 1.0}[pne_type]
+    return kp, sigma
 
 
 class PNEConv(nn.Module):
     """Point conv: ``features [B, N, F, C] -> [B, M, G, O]`` (equivariant)
     or ``[B, N, C] -> [B, M, O]`` (standard).
 
-    Parameters ``proj_axes [9, Q]`` (equivariant: 3 offset rows and the 6D
-    rotation) or ``[3, Q]`` (standard), ``proj_biases [Q]`` and
-    ``conv_weights [C, Q, O]`` (float32 whatever ``compute_dtype``);
-    calibration buffers ``norm_neigh_dist``, ``norm_num_neighs``,
-    ``initialized`` and ``trunc_frac``.
+    Parameters ``proj_axes`` (``[3 + R, Q]`` equivariant, R = 6, 4 or 9 by
+    ``rel_rot_type``; ``[3, Q]`` standard mlp; ``[P, Q]`` kernel-point, P =
+    13 or 55), ``proj_biases [Q]`` and ``conv_weights [C, Q, O]`` (float32
+    whatever ``compute_dtype``); calibration buffers ``norm_neigh_dist``,
+    ``norm_num_neighs``, ``initialized`` and ``trunc_frac``; a kernel-point
+    conv also holds its ``kernel_points`` (a buffer outside the
+    ``state_dict``: the JAX package computes them, it does not store them).
+    ``use_fused`` as in :func:`fused_dispatch`.
     """
 
     def __init__(self, in_features: int, out_features: int, num_basis: int = 32,
                  pne_type: str = "mlp_gelu", equivariant: bool = True,
                  rel_rot_type: str = "6D", aggregation: str = "add",
-                 compute_dtype: Optional[torch.dtype] = None):
+                 compute_dtype: Optional[torch.dtype] = None, use_fused: Optional[bool] = None):
         super().__init__()
-        _check_supported(pne_type, equivariant, rel_rot_type, aggregation)
-        self.equivariant = equivariant
-        self.compute_dtype = compute_dtype
-        self.proj_axes = nn.Parameter(torch.empty(9 if equivariant else 3, num_basis))
+        if equivariant and "kp" in pne_type:
+            raise NotImplementedError(
+                "kernel-point PNE is not defined for the equivariant path "
+                "(reference PNEConvLayerRotEquiv.py:221-222)"
+            )
+        rot_dims = ops.ROT_DIMS[rel_rot_type]
+        self.pne_type, self.equivariant, self.rel_rot_type = pne_type, equivariant, rel_rot_type
+        self.aggregation, self.compute_dtype = aggregation, compute_dtype
+        self.fused = fused_dispatch(pne_type, aggregation, equivariant, rel_rot_type, use_fused)
+        if "mlp" in pne_type:
+            self.act = ops.pne_activation(pne_type)
+            p_dims = 3 + rot_dims if equivariant else 3
+        else:
+            kernel_points, self.sigma = _kernel_points(pne_type)
+            self.corr = "gauss" if "gauss" in pne_type else "box" if "box" in pne_type else "linear"
+            p_dims = kernel_points.shape[0]
+        self.proj_axes = nn.Parameter(torch.empty(p_dims, num_basis))
         self.proj_biases = nn.Parameter(torch.zeros(num_basis))
         self.conv_weights = nn.Parameter(torch.empty(in_features, num_basis, out_features))
         self.register_buffer("norm_neigh_dist", torch.ones(()))
         self.register_buffer("norm_num_neighs", torch.ones(()))
         self.register_buffer("initialized", torch.zeros((), dtype=torch.bool))
         self.register_buffer("trunc_frac", torch.zeros(()))
+        if "mlp" not in pne_type:
+            self.register_buffer("kernel_points", kernel_points, persistent=False)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         p_dims, q = self.proj_axes.shape
@@ -143,18 +204,41 @@ class PNEConv(nn.Module):
                 neigh: Neighborhood, calibrate: bool = False) -> torch.Tensor:
         if calibrate:
             self._calibrate(pc_in, pc_out, neigh)
-        conv = ops.fused_equiv_conv if self.equivariant else ops.fused_conv
-        return conv(
-            pc_in, pc_out, neigh, features, self.proj_axes, self.proj_biases,
-            self.conv_weights, self.norm_neigh_dist, self.norm_num_neighs, self.compute_dtype,
-        )
+        pa, pb, w = self.proj_axes, self.proj_biases, self.conv_weights
+        nd, nn_ = self.norm_neigh_dist, self.norm_num_neighs
+        if self.fused and "mlp" not in self.pne_type:
+            return ops.fused_kp_conv(pc_in, pc_out, neigh, features, self.kernel_points, self.sigma,
+                                     self.corr, pa, pb, w, nd, nn_, self.compute_dtype)
+        if self.fused:
+            conv = ops.fused_equiv_conv if self.equivariant else ops.fused_conv
+            return conv(pc_in, pc_out, neigh, features, pa, pb, w, nd, nn_, self.compute_dtype,
+                        self.pne_type.split("_")[-1])
+        mask = neigh.mask
+        if self.equivariant:  # the plain path, as the JAX package's XLA path
+            geo = ops.equiv_geometry(pc_in, pc_out, neigh, nd, self.rel_rot_type)
+            pne = ops.linear_pne(geo, pa, pb, self.act) * mask[:, :, :, None, None, None]
+            return ops.equiv_basis_conv(pne, features, neigh, w, nn_, self.compute_dtype)
+        rel = ops.relative_offsets(pc_in, pc_out, neigh, nd)
+        if "mlp" in self.pne_type:
+            pne = ops.linear_pne(rel, pa, pb, self.act)
+        else:
+            pne = ops.kp_pne(rel, self.kernel_points, self.sigma, self.corr, pa, pb)
+        pne = pne * mask[..., None]
+        if self.aggregation == "max":  # reference PNEConvLayer.py:224-227
+            per_edge = torch.einsum("bmkc,bmkq,cqo->bmko", gather_rows(features, neigh.idx), pne, w)
+            per_edge = torch.where(mask[..., None], per_edge, torch.finfo(per_edge.dtype).min)
+            out = torch.where(mask.any(2)[..., None], per_edge.max(2).values, 0.0)
+            return out * nn_
+        return ops.basis_conv(pne, features, neigh, w, nn_, self.compute_dtype)
 
 
 @dataclasses.dataclass(frozen=True)
 class ConvFactory:
-    """Conv-layer spec that models use to stamp out convs.  ``compute_dtype``
-    None (float32), ``torch.float32`` or ``torch.bfloat16``: the convs'
-    operand type, as the JAX package's ``ConvFactory.compute_dtype``."""
+    """Conv-layer spec that models use to stamp out convs (the JAX
+    package's ``ConvFactory``).  ``compute_dtype`` None (float32),
+    ``torch.float32`` or ``torch.bfloat16``: the convs' operand type;
+    ``use_fused`` as in :func:`fused_dispatch` (False: the plain path; None,
+    the JAX package's default, as True)."""
 
     num_basis: int = 32
     pne_type: str = "mlp_gelu"
@@ -162,9 +246,16 @@ class ConvFactory:
     rel_rot_type: str = "6D"
     aggregation: str = "add"
     compute_dtype: Optional[torch.dtype] = None
+    use_fused: Optional[bool] = None
+
+    @property
+    def fused(self) -> bool:
+        """Whether the convs it makes run the kernel path."""
+        return fused_dispatch(self.pne_type, self.aggregation, self.equivariant,
+                              self.rel_rot_type, self.use_fused)
 
     def make(self, in_features: int, out_features: int) -> PNEConv:
         return PNEConv(
-            in_features, out_features, self.num_basis, self.pne_type,
-            self.equivariant, self.rel_rot_type, self.aggregation, self.compute_dtype,
+            in_features, out_features, self.num_basis, self.pne_type, self.equivariant,
+            self.rel_rot_type, self.aggregation, self.compute_dtype, self.use_fused,
         )

@@ -1,6 +1,16 @@
 """Point-neighborhood-embedding conv ops (counterpart of
-``se3conv3d_tpu/ops/pne_conv.py``, the fused mlp paths: the equivariant
-conv, :func:`fused_equiv_conv`, and the standard one, :func:`fused_conv`).
+``se3conv3d_tpu/ops/pne_conv.py``).
+
+The kernel paths run the CUDA kernels (their plain versions for CPU
+tensors): the equivariant mlp conv with 6D rotations,
+:func:`fused_equiv_conv`; the standard mlp conv, :func:`fused_conv`; the
+kernel-point conv, :func:`fused_kp_conv`; each mlp one with any activation
+the kernels take (gelu, relu, sin, linear).  The plain path, in PyTorch ops
+on whichever device holds the tensors, is what the JAX package runs in XLA
+where no Pallas kernel serves (``mlp_softmax``, ``'max'`` aggregation, the
+quaternion and matrix rotations, or ``use_fused=False``):
+:func:`relative_offsets`, :func:`linear_pne`, :func:`kp_pne`,
+:func:`basis_conv`, :func:`equiv_geometry` and :func:`equiv_basis_conv`.
 
 Shape glossary: B batch, M query points, N source points, K neighbors,
 G out-frames, F in-frames, Q basis functions, C/O channels.  Geometry never
@@ -31,17 +41,23 @@ import torch.nn.functional as F
 
 from ..core.neighborhoods import Neighborhood
 from ..core.pointcloud import PointCloud, gather_rows
-from ..core.rotation import matrix_to_rotation_6d
-from ..kernels.fused_equiv import fused_equiv
+from ..core.rotation import matrix_to_quaternion, matrix_to_rotation_6d
+from ..kernels.fused_equiv import KernelPoints, _rounding, fused_equiv, kp_weights
 
 __all__ = [
     "pne_activation",
+    "relative_offsets",
     "linear_pne",
+    "kp_pne",
+    "basis_conv",
     "equiv_geometry_parts",
+    "equiv_geometry",
     "equiv_basis_conv",
     "fused_equiv_conv",
     "std_geometry",
     "fused_conv",
+    "fused_kp_conv",
+    "ROT_DIMS",
     "backward_sort_tables",
     "sorted_backward",
     "BWD_SCATTER_MODE",
@@ -49,6 +65,8 @@ __all__ = [
 ]
 
 BWD_SCATTER_MODE = os.environ.get("SE3CONV_BWD_MODE", "scatter")
+# the relative rotation's features by representation
+ROT_DIMS = {"6D": 6, "quaternion": 4, "matrix": 9}
 
 
 def geometry_dtype(compute_dtype, default: torch.dtype = torch.float32) -> torch.dtype:
@@ -110,24 +128,62 @@ def pne_activation(name: str) -> Optional[Callable]:
     raise ValueError(f"unknown pne type {name!r}")
 
 
+@torch.no_grad()
+def relative_offsets(pc_in: PointCloud, pc_out: PointCloud, neigh: Neighborhood,
+                     norm_dist: torch.Tensor) -> torch.Tensor:
+    """Normalised edge offsets ``(src - center) * norm_dist -> [B, M, K, 3]``
+    (``se3conv3d_tpu/ops/pne_conv.py:relative_offsets``), from the
+    neighborhood's raw offsets ``std_rel`` where they are float32 (others
+    are rebuilt, with a warning)."""
+    rel = (neigh.std_rel if _serves(neigh.std_rel, torch.float32)
+           else std_geometry(pc_in, pc_out, neigh, torch.float32))
+    return rel[:, :, :, 0] * norm_dist
+
+
 def linear_pne(rel, proj_axes, proj_biases, act: Optional[Callable]):
     """MLP point-neighborhood embedding ``[..., D] -> [..., Q]``."""
     out = rel @ proj_axes + proj_biases
     return out if act is None else act(out)
 
 
+def kp_pne(rel, kernel_pts, sigma: float, corr: str, proj_axes, proj_biases):
+    """Kernel-point embedding ``[..., 3] -> [..., Q]`` of normalised offsets
+    (``se3conv3d_tpu/ops/pne_conv.py:kp_pne``, reference
+    ``custom_ops/PNE.py:108-127``): correlation weights against ``kernel_pts
+    [P, 3]`` ('gauss', 'linear' or 'box'), as the kernels' plain version
+    computes them (:func:`kernels.fused_equiv.kp_weights`, here on offsets
+    already normalised), then the linear projection."""
+    unit = torch.ones((), dtype=rel.dtype, device=rel.device)
+    return kp_weights(rel, KernelPoints(kernel_pts, sigma, corr, unit)) @ proj_axes + proj_biases
+
+
+def basis_conv(pne, features, neigh: Neighborhood, conv_weights, norm_num_neighs,
+               compute_dtype: Optional[torch.dtype] = None):
+    """Standard basis-projection conv ``out[b,m,o] = norm * sum pne[b,m,k,q]
+    feat[b,nbr,c] W[c,q,o]`` (``se3conv3d_tpu/ops/pne_conv.py:basis_conv``);
+    ``pne [B, M, K, Q]`` must already be zero on invalid edges.  With
+    ``compute_dtype`` the features, pne, weights and basis are rounded to it
+    (float32 sums), as the JAX package's plain bf16 path (autograd rounds
+    the cotangents at the same points, as JAX's ``astype`` does)."""
+    rnd = _rounding(compute_dtype)
+    basis = rnd(torch.einsum("bmkc,bmkq->bmcq", gather_rows(rnd(features), neigh.idx), rnd(pne)))
+    return torch.einsum("bmcq,cqo->bmo", basis, rnd(conv_weights)) * norm_num_neighs
+
+
 @torch.no_grad()
 def equiv_geometry_parts(pc_in: PointCloud, pc_out: PointCloud, neigh: Neighborhood,
-                         dtype: Optional[torch.dtype] = None):
-    """Per-edge geometry ``(rel_local [B,M,K,G,3], rot6 [B,M,K,G,F,6])``.
+                         dtype: Optional[torch.dtype] = None, rel_rot_type: str = "6D"):
+    """Per-edge geometry ``(rel_local [B,M,K,G,3], rot [B,M,K,G,F,R])``.
 
     The edge offset in each receiver frame g (unscaled: the layer's
     ``norm_neigh_dist`` is a scalar that commutes with the rotation) and the
-    6D form of the relative rotation ``R_g^T R_f``.  Layer-independent, so
-    it is computed once per neighborhood.  Computed in float32 and, with
-    ``dtype`` bfloat16, rounded at the end, as the JAX package's fused bf16
-    path does (``se3conv3d_tpu/ops/pne_conv.py:_packed_equiv_geo_from_gf``),
-    from sender frames rounded to bfloat16 as that path gathers them
+    relative rotation ``R_g^T R_f`` in ``rel_rot_type`` (6D, R = 6;
+    quaternion, 4; matrix, 9).  Layer-independent, so it is computed once
+    per neighborhood.  Computed in float32 and, with ``dtype`` bfloat16
+    (the kernel path's bf16 operands), rounded at the end, as the JAX
+    package's fused bf16 path does
+    (``se3conv3d_tpu/ops/pne_conv.py:_packed_equiv_geo_from_gf``), from
+    sender frames rounded to bfloat16 as that path gathers them
     (``_equiv_geo_table``): the relative rotations carry that rounding too.
     """
     rel = gather_rows(pc_in.positions, neigh.idx) - pc_out.positions[:, :, None, :]
@@ -137,21 +193,54 @@ def equiv_geometry_parts(pc_in: PointCloud, pc_out: PointCloud, neigh: Neighborh
         frames_in = frames_in.to(dtype).float()
     rel_local = torch.einsum("bmkd,bmgde->bmkge", rel, frames_out)
     rel_rot = torch.einsum("bmgdp,bmkfdq->bmkgfpq", frames_out, frames_in)
+    if rel_rot_type == "6D":
+        rot = matrix_to_rotation_6d(rel_rot)
+    elif rel_rot_type == "quaternion":
+        rot = matrix_to_quaternion(rel_rot)
+    elif rel_rot_type == "matrix":
+        rot = rel_rot.reshape(rel_rot.shape[:-2] + (9,))
+    else:
+        raise ValueError(f"unknown rel_rot_type {rel_rot_type!r}")
     dtype = dtype or rel_local.dtype
-    return (rel_local.to(dtype).contiguous(),
-            matrix_to_rotation_6d(rel_rot).to(dtype).contiguous())
+    return rel_local.to(dtype).contiguous(), rot.to(dtype).contiguous()
 
 
-def equiv_basis_conv(pne, features, neigh: Neighborhood, conv_weights, norm_num_neighs):
-    """``out[b,m,g,o] = norm/F * sum pne[b,m,k,g,f,q] feat[b,nbr,f,c] W[c,q,o]``.
+def equiv_geometry(pc_in: PointCloud, pc_out: PointCloud, neigh: Neighborhood,
+                   norm_dist: torch.Tensor, rel_rot_type: str = "6D") -> torch.Tensor:
+    """The plain equivariant path's pne inputs ``[B, M, K, G, F, 3 + R]``:
+    :func:`equiv_geometry_parts` in float32, the offsets scaled by
+    ``norm_dist`` and repeated over the in-frames
+    (``se3conv3d_tpu/ops/pne_conv.py:equiv_geometry``).  Uses the
+    neighborhood's plain payload ``plain_rel`` / ``plain_rot`` where it is
+    float32 in this representation (a payload that does not serve is
+    rebuilt per conv, with a warning)."""
+    cached = neigh.plain_rot
+    if cached is not None and cached.shape[-1] != ROT_DIMS[rel_rot_type]:
+        warnings.warn(f"cached relative rotations have {cached.shape[-1]} features but this conv "
+                      f"reads {rel_rot_type!r}; rebuilding them per conv", stacklevel=3)
+        cached = None
+    if _serves(cached, torch.float32):
+        rel_local, rot = neigh.plain_rel, neigh.plain_rot
+    else:
+        rel_local, rot = equiv_geometry_parts(pc_in, pc_out, neigh, None, rel_rot_type)
+    f = rot.shape[4]
+    rel_scaled = (rel_local * norm_dist)[:, :, :, :, None, :]
+    return torch.cat([rel_scaled.expand(rel_scaled.shape[:4] + (f, 3)), rot], -1)
 
-    ``pne [B, M, K, G, F, Q]`` must already be zero on invalid edges.
+
+def equiv_basis_conv(pne, features, neigh: Neighborhood, conv_weights, norm_num_neighs,
+                     compute_dtype: Optional[torch.dtype] = None):
+    """``out[b,m,g,o] = norm/F * sum pne[b,m,k,g,f,q] feat[b,nbr,f,c] W[c,q,o]``
+    (``se3conv3d_tpu/ops/pne_conv.py:equiv_basis_conv``).
+
+    ``pne [B, M, K, G, F, Q]`` must already be zero on invalid edges;
+    ``compute_dtype`` as in :func:`basis_conv`.
     """
-    f_in = features.shape[2]
-    gathered = gather_rows(features, neigh.idx)  # [B, M, K, F, C]
-    basis = torch.einsum("bmkfc,bmkgfq->bmgcq", gathered, pne)
-    out = torch.einsum("bmgcq,cqo->bmgo", basis, conv_weights)
-    return out * (norm_num_neighs / f_in)
+    rnd = _rounding(compute_dtype)
+    gathered = gather_rows(rnd(features), neigh.idx)  # [B, M, K, F, C]
+    basis = rnd(torch.einsum("bmkfc,bmkgfq->bmgcq", gathered, rnd(pne)))
+    out = torch.einsum("bmgcq,cqo->bmgo", basis, rnd(conv_weights))
+    return out * (norm_num_neighs / features.shape[2])
 
 
 def fused_equiv_conv(
@@ -165,8 +254,11 @@ def fused_equiv_conv(
     norm_dist: torch.Tensor,
     norm_num_neighs: torch.Tensor,
     compute_dtype: Optional[torch.dtype] = None,
+    act: str = "gelu",
 ) -> torch.Tensor:
-    """Rot-equivariant mlp_gelu conv through the fused kernel -> ``[B,M,G,O]``.
+    """Rot-equivariant mlp conv (6D relative rotations) through the fused
+    kernel -> ``[B,M,G,O]``, with the pne activation ``act`` (gelu, relu,
+    sin or linear).
 
     ``norm_dist`` folds into the three offset rows of the projection
     (``act((s*rel) @ A + rot @ B + b) == act(rel @ (s*A) + ...)``), invalid
@@ -198,7 +290,7 @@ def fused_equiv_conv(
     out = fused_equiv(
         rel, rot6, features.to(geo_dt).contiguous(), neigh.idx, neigh.mask,
         pa_scaled, proj_biases.contiguous(), conv_weights.contiguous(),
-        _sort_tables(neigh, features), neigh.live_rows,
+        _sort_tables(neigh, features), neigh.live_rows, act,
     )
     return (out * (norm_num_neighs / features.shape[2])).to(features.dtype)
 
@@ -253,10 +345,11 @@ def fused_conv(
     norm_dist: torch.Tensor,
     norm_num_neighs: torch.Tensor,
     compute_dtype: Optional[torch.dtype] = None,
+    act: str = "gelu",
 ) -> torch.Tensor:
-    """Standard (non-equivariant) mlp_gelu conv through the fused kernel:
+    """Standard (non-equivariant) mlp conv through the fused kernel:
     ``features [B, N, C] -> [B, M, O]`` (``se3conv3d_tpu/ops/pne_conv.py:
-    fused_conv``).
+    fused_conv``), with the pne activation ``act``.
 
     The kernels' standard geometry: G = F = 1 (the features viewed as
     ``[B, N, 1, C]``), the raw offsets (:func:`std_geometry`, the
@@ -273,6 +366,51 @@ def fused_conv(
     out = fused_equiv(
         rel, None, features[:, :, None, :].to(geo_dt).contiguous(), neigh.idx, neigh.mask,
         (proj_axes * norm_dist).contiguous(), proj_biases.contiguous(), conv_weights.contiguous(),
-        _sort_tables(neigh, features), neigh.live_rows,
+        _sort_tables(neigh, features), neigh.live_rows, act,
+    )
+    return (out[:, :, 0] * norm_num_neighs).to(features.dtype)
+
+
+def fused_kp_conv(
+    pc_in: PointCloud,
+    pc_out: PointCloud,
+    neigh: Neighborhood,
+    features: torch.Tensor,
+    kernel_pts: torch.Tensor,
+    sigma: float,
+    corr: str,
+    proj_axes: torch.Tensor,
+    proj_biases: torch.Tensor,
+    conv_weights: torch.Tensor,
+    norm_dist: torch.Tensor,
+    norm_num_neighs: torch.Tensor,
+    compute_dtype: Optional[torch.dtype] = None,
+) -> torch.Tensor:
+    """Kernel-point (kp_*) conv through the fused kernel: ``features [B, N,
+    C] -> [B, M, O]`` (``se3conv3d_tpu/ops/pne_conv.py:fused_kp_conv``).
+
+    The kernels' kernel-point geometry: G = F = 1, the pne inputs the P
+    correlation weights of each edge against ``kernel_pts [P, 3]`` (float32
+    on the features' device; ``sigma``, ``corr`` 'gauss', 'linear' or
+    'box'), computed by the kernels from the float32 raw offsets (the
+    neighborhood's ``std_rel`` where it is float32, else
+    :func:`std_geometry`) scaled by ``norm_dist``, read on the device;
+    ``proj_axes [P, Q]`` unscaled and the identity activation, so the
+    projection is the kp ``[P] -> [Q]`` linear map.  The output is scaled by
+    ``norm_num_neighs``.  With ``compute_dtype`` bfloat16 the features and
+    each weight are rounded to bfloat16 (the weights from float32 offsets,
+    as JAX computes them before its cast).  Gradients reach ``features``,
+    ``proj_axes``, ``proj_biases`` and ``conv_weights``; the weights and
+    the calibration buffers get none.  The sort tables and the live-row
+    table as in :func:`fused_equiv_conv`.
+    """
+    geo_dt = geometry_dtype(compute_dtype, features.dtype)
+    rel = neigh.std_rel if _serves(neigh.std_rel, torch.float32) else std_geometry(
+        pc_in, pc_out, neigh, torch.float32)
+    kp = KernelPoints(kernel_pts, sigma, corr, norm_dist.detach().reshape(()).float())
+    out = fused_equiv(
+        rel, None, features[:, :, None, :].to(geo_dt).contiguous(), neigh.idx, neigh.mask,
+        proj_axes.contiguous(), proj_biases.contiguous(), conv_weights.contiguous(),
+        _sort_tables(neigh, features), neigh.live_rows, "linear", kp,
     )
     return (out[:, :, 0] * norm_num_neighs).to(features.dtype)

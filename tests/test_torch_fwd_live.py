@@ -79,7 +79,9 @@ def test_cpu_forward_wrapper_runs_the_plain_version_whatever_the_table(monkeypat
     live = kfe.live_row_table(args[4])
     for table in (live, None, live[:3], live.long()):  # a CPU call never reads it
         kfe.fused_equiv_fwd(*args, live_rows=table)
-    assert len(calls) == 4 and all(x is y for a in calls for x, y in zip(a, args, strict=True))
+    # the very arguments, with the default activation and geometry (gelu, no kernel points)
+    assert len(calls) == 4 and all(a[-2:] == ("gelu", None) for a in calls)
+    assert all(x is y for a in calls for x, y in zip(a[:-2], args, strict=True))
     assert kfe.fused_equiv_fwd.launches == before  # CPU tensors launch no kernel
 
 

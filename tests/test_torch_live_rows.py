@@ -144,7 +144,9 @@ def test_plain_backward_is_the_same_with_or_without_the_table(mode, g, monkeypat
     monkeypatch.setattr(kfe, "fused_equiv_bwd_reference",
                         lambda *a: (calls.append(a), real(*a))[1])
     wrapped = kfe.fused_equiv_bwd(*args, gout, sorted_slot=slot, live_rows=live)
-    assert len(calls) == 1 and all(x is y for x, y in zip(calls[0], (*args, gout, slot), strict=True))
+    # ... and the default activation and geometry (gelu, no kernel points)
+    assert len(calls) == 1 and calls[0][-2:] == ("gelu", None)
+    assert all(x is y for x, y in zip(calls[0][:-2], (*args, gout, slot), strict=True))
     # two CPU calls of the same einsums need not agree bitwise (their
     # threads split the sums by the machine's load), so SAME_RTOL again
     for x, y, z in zip(whole, on_live, wrapped):
