@@ -22,9 +22,24 @@ DFaust models: the relu, sin and linear activations and the kernel-point
 convs through the kernels, the XLA-path kinds in PyTorch ops.  In the
 order they run:
 
-1. builds the three kernel sources (conv forward, conv backward, blocked
-   prefix sum) from ``kernels/csrc`` with ``nvcc``, one process per source,
-   in parallel;
+1. builds the six kernel sources (conv forward, conv backward, blocked
+   prefix sum, and the three probe sources) from ``kernels/csrc`` with
+   ``nvcc``, one process per source, in parallel;
+32. (right after phase 1) the probe kernels that replace the Pallas
+   kernels of ``experiments/chip_stage_time.py``, ``bisect_fused.py`` and
+   ``chip_stream.py``: first the three entry points as a user runs them
+   (``python -m se3conv3d_tpu_torch.experiments.chip_stage_time`` for each
+   stage in float32 and bfloat16 at M = 65,536, ``.bisect_fused`` with
+   every probe, ``.chip_stream``), with every launch counter at 0 before
+   and each kernel required after; then the staged forward in tile-sum
+   mode at that size, every stage in float32 and bfloat16, against its
+   plain version (scalars within 1e-6 / 1e-5 of the sum of their terms'
+   magnitudes, bfloat16 under half its no-rounding control), two calls
+   bitwise equal, the stage split; ``bisect_fused``'s stage tensors at MP =
+   1024 and b1-b5 within 1e-5 of max |plain|, bitwise repeats; the column
+   sums of ``chip_stream``'s three arrays against float64 (1e-6 of each
+   column's sum of |x|), bitwise repeats, the read rate beside
+   ``torch.sum``; the staged forward's registers per instantiation;
 2. holds the forward kernel against its plain PyTorch version at the
    slice's two extreme conv shapes and at the JAX bench's conv shape, in
    float32 and in bfloat16 (against the plain version's bfloat16 rounding,
@@ -4031,8 +4046,324 @@ def mode_entries(modes: dict) -> list:
     return entries
 
 
+# phase 32: the probe kernels of experiments/chip_stage_time.py,
+# bisect_fused.py and chip_stream.py.  The staged forward's scalars against
+# its plain version, relative to the sum of their terms' magnitudes (a sum
+# of ~1e8 values that cancel): float32 sums in other orders; bfloat16 may
+# flip a rounding by one ulp (with the control of tells_apart).  The stage
+# tensors and b1-b5 at bisect_fused.RTOL of max |plain|, and the whole
+# forward's [G, M, O] output of tile-sum mode at M = 65,536 value by value
+# as the conv kernels' (KERNEL_RTOL; bfloat16 at BF16_RTOL, BF16_MEAN_RTOL
+# and tells_apart); the column sums per column against a float64 sum,
+# relative to the column's sum of |x|
+PROBE_SCALAR_RTOL = {torch.float32: 1e-6, torch.bfloat16: 1e-5}
+STREAM_RTOL = 1e-6
+PROBE_SRC = "se3conv3d_tpu_torch/kernels/csrc/probe_{}.cu"
+# the JAX scripts' default sizes: chip_stage_time's M and TM, chip_stream's M
+PROBE_M, PROBE_TM = 65536, 64
+
+
+def probe_bound(work: dict, dtype=torch.float32) -> dict:
+    """Least time of a probe kernel: the larger of bytes / HBM rate and
+    FLOPs / peak (float32: the pne and aggregation FMAs at the float32 peak,
+    the weight contraction at the 3xTF32 ceiling; bfloat16: every FLOP at
+    the dense bf16 peak, as :func:`conv_bounds`)."""
+    fma, prod = work.get("fma_flops", 0.0), work.get("product_flops", 0.0)
+    if dtype == torch.bfloat16:
+        t_ops = (fma + prod) / PEAK_BF16_FLOPS
+    else:
+        t_ops = fma / PEAK_F32_FLOPS + prod / (PEAK_TF32_FLOPS / 3)
+    t_bytes = work["bytes"] / PEAK_BYTES_PER_S
+    return dict(bound_ms=max(t_ops, t_bytes) * 1e3, bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+
+def probe_main_path(card) -> dict:
+    """32a. the three probe entry points as a user runs them, every launch
+    counter at 0 before and read after: ``chip_stage_time`` for each stage
+    in float32 and in bfloat16 (``CDT=bf16``) at its default M and TM,
+    ``bisect_fused`` with every probe, ``chip_stream``.  Fails if a probe
+    failed or a kernel of the path was not launched."""
+    from se3conv3d_tpu_torch.experiments import bisect_fused, chip_stage_time, chip_stream
+    from se3conv3d_tpu_torch.kernels import probes
+
+    counters = (probes.stage_sum, probes.stage_forward, probes.gelu_jvp, probes.expand_groups,
+                probes.batched_contract, probes.rank3_accum, probes.merge_back, probes.column_sums)
+    for fn in counters:
+        fn.launches = 0
+        if hasattr(fn, "launches_by"):
+            fn.launches_by.clear()
+    split = {}
+    for dt, env in (("float32", {}), ("bfloat16", {"CDT": "bf16"})):
+        split[dt] = {stage: chip_stage_time.main([stage], env=env) for stage in chip_stage_time.STAGES}
+    failed = bisect_fused.main([])
+    rates = chip_stream.main()
+    launches = {fn.__name__: fn.launches for fn in counters}
+    by = {fn.__name__: {str(k): v for k, v in fn.launches_by.items()} for fn in counters
+          if hasattr(fn, "launches_by")}
+    want_by = {"stage_sum": [f"('{s}', '{dt}')" for s in ("pne", "agg", "swap", "reduce")
+                             for dt in ("float32", "bfloat16")],
+               "stage_forward": ["pne", "agg", "swap", "wcontract", "reduce", "reduce[batch]"],
+               "column_sums": ["64", "19", "128"]}
+    missing = [k for k, v in launches.items() if v == 0]
+    missing += [f"{name}[{k}]" for name, keys in want_by.items() for k in keys if not by[name].get(k)]
+    print(f"probes main path: launches {launches}, by {by}; bisect_fused failures {failed} [{card}]", flush=True)
+    if failed or missing:
+        raise SystemExit(f"phase 32: bisect_fused failures {failed}, kernels not launched {missing}")
+    return dict(split=split, rates=rates, launches=launches, launches_by=by)
+
+
+def probe_stage_cases(card, dev) -> dict:
+    """32b. the staged forward in tile-sum mode at ``chip_stage_time``'s
+    size, every stage, float32 and bfloat16: kernel vs plain (bfloat16 with
+    its no-rounding control), the whole forward's ``[G, M, O]`` output also
+    value by value (``KERNEL_RTOL``; bfloat16 at the kernels' bounds and
+    under half its control's mean error), two calls bitwise equal, times beside the
+    bound and, for the whole forward, ``torch.matmul`` for its weight
+    contraction.  Kernel times are device ms per call from a CUDA graph
+    (:func:`graph_ms`), the one-call CUDA-event time with its host time
+    beside them (``call_ms``)."""
+    from se3conv3d_tpu_torch.experiments import chip_stage_time as cst
+    from se3conv3d_tpu_torch.kernels import probes
+
+    args = cst.make_inputs(PROBE_M, 32, dev)
+    side = torch.cuda.Stream(dev)
+    cases = {}
+    for dtype in KERNEL_DTYPES:
+        dt = dtype_name(dtype)
+        cases[dt] = {}
+        for stage, kstage in cst.STAGES.items():
+            with torch.no_grad():
+                fwd = (torch.empty(cst.G, PROBE_M, cst.O, device=dev) if kstage == "reduce" else None)
+                got = probes.stage_sum(*args, stage=kstage, cdt=dtype, out=fwd)
+                again = probes.stage_sum(*args, stage=kstage, cdt=dtype)
+                ref_t = probes.stage_forward_reference(*args[:3], args[3], None, kstage, dtype)
+                terms = float(ref_t.double().abs().sum())
+                ref = ref_t.sum()
+                ref_f32 = (probes.stage_forward_reference(*args[:3], args[3], None, kstage)
+                           if dtype == torch.bfloat16 else ref_t)
+                err = abs(float(got) - float(ref))
+                control = (abs(float(got) - float(ref_f32.sum())) / terms if dtype == torch.bfloat16 else None)
+                fwd_err = fwd_control = None
+                if fwd is not None:  # the [G, M, O] output, each value
+                    fwd_err = max_rel_err(fwd, ref_t)
+                    fwd_control = max_rel_err(fwd, ref_f32)[2] if dtype == torch.bfloat16 else None
+                del ref_t, ref_f32, fwd
+                same = torch.equal(got, again)
+                ms = graph_ms(lambda: probes.stage_sum(*args, stage=kstage, cdt=dtype), side)
+                call_ms = cuda_ms(lambda: probes.stage_sum(*args, stage=kstage, cdt=dtype), 10)
+                plain_ms = cuda_ms(lambda: probes.stage_sum_reference(*args, stage=kstage, cdt=dtype), 3)
+            lib_ms = None
+            if stage == "full":  # torch.matmul for out[g] = basis_b[g] [M, Q*C] . W[g] [Q*C, O]
+                gen = torch.Generator(device=dev).manual_seed(33)
+                basis = torch.randn(cst.G, PROBE_M, cst.Q * cst.C, device=dev, generator=gen).to(dtype)
+                w2 = args[3].reshape(cst.G, cst.Q * cst.C, cst.O).to(dtype)
+                lib_ms = cuda_ms(lambda: torch.matmul(basis, w2), 10)
+                del basis, w2
+            bound = probe_bound(cst.stage_work(stage, PROBE_M), dtype)
+            rel = err / terms
+            print(f"probe_stage_fwd tile-sum {stage} {dt} M={PROBE_M}: |kernel - plain| = {err:.4e} "
+                  f"({rel:.3e} of sum |terms| {terms:.4e}, bound {PROBE_SCALAR_RTOL[dtype]:g}"
+                  + (f"; {control_text(rel, control)}" if control is not None else "")
+                  + ")" + (f"; the [G, M, O] output: max_abs_err={fwd_err[0]:.3e} max_rel_err={fwd_err[1]:.3e} "
+                           f"mean_rel_err={fwd_err[2]:.3e} ({bound_text(dtype, KERNEL_RTOL)}"
+                           + (f"; mean_rel_err {control_text(fwd_err[2], fwd_control)}" if fwd_control is not None else "")
+                           + ")" if fwd_err else "")
+                  + f"; two calls bitwise equal: {same}; kernel_ms={ms:.4f} (device, one call with its host "
+                  f"time {call_ms:.4f}) plain_ms={plain_ms:.4f} bound_ms={bound['bound_ms']:.4f} ({bound['bound_by']})"
+                  + (f"; torch.matmul {dt} for the weight contraction {lib_ms:.4f} ms" if lib_ms else "")
+                  + f" [{card}]", flush=True)
+            fwd_ok = fwd_err is None or (within(fwd_err, dtype, KERNEL_RTOL)
+                                         and (fwd_control is None or tells_apart(fwd_err[2], fwd_control)))
+            if not (bool(torch.isfinite(got)) and same and rel <= PROBE_SCALAR_RTOL[dtype]
+                    and (control is None or tells_apart(rel, control)) and fwd_ok):
+                raise SystemExit(f"phase 32: the staged forward disagrees with its plain version at {stage} {dt}")
+            cases[dt][stage] = dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms, max_abs_err=err, rel_err=rel, terms=terms,
+                                    control_rel_err=control, library_ms=lib_ms, **bound)
+            if fwd_err is not None:
+                cases[dt][stage].update(out_max_abs_err=fwd_err[0], out_max_rel_err=fwd_err[1],
+                                        out_mean_rel_err=fwd_err[2], out_control_mean_rel_err=fwd_control)
+    del args
+    torch.cuda.empty_cache()
+    return cases
+
+
+def probe_bisect_cases(card, dev) -> dict:
+    """32c. ``bisect_fused``'s stage tensors at MP = 1024 (s1-s6) and the
+    backward blocks b1-b5 at its shapes: kernel vs plain, two calls
+    bitwise equal (b4: the block partials added in a fixed order), times
+    beside the bound and the one PyTorch call that computes the same
+    function where there is one."""
+    from se3conv3d_tpu_torch.experiments import bisect_fused as bf
+    from se3conv3d_tpu_torch.kernels import probes
+
+    library = {"b2_gexp": lambda a: a.repeat_interleave(bf.Q, 0),
+               "b3_dw2_contract11": lambda a, b: torch.bmm(a.transpose(1, 2), b),
+               "b5_merge_back": lambda a: torch.mul(a, 2.0)}
+    kstage = {"s1_pne": "pne", "s2_agg": "agg", "s3_swap": "swap", "s4_wcontract": "wcontract",
+              "s5_reduce": "reduce", "s6_vmap": "reduce"}
+    side = torch.cuda.Stream(dev)
+    cases = {}
+    for i, name in enumerate(bf.STAGES):
+        inputs = bf.draw(name, 40 + i, dev)
+        fn, plain = bf.STAGES[name], bf.REFERENCES[name]
+        with torch.no_grad():
+            got, again = fn(*inputs), fn(*inputs)
+            ref = plain(*inputs)
+            torch.cuda.synchronize()
+            try:
+                rel = bf.check(got, ref)
+            except ValueError as e:
+                raise SystemExit(f"phase 32: {name} disagrees with its plain version: {e}")
+            err, same = float((got - ref).abs().max()), torch.equal(got, again)
+            ms, call_ms = graph_ms(lambda: fn(*inputs), side), cuda_ms(lambda: fn(*inputs), 20)
+            plain_ms = cuda_ms(lambda: plain(*inputs), 5)
+            lib_ms = graph_ms(lambda: library[name](*inputs), side) if name in library else None
+        nin = sum(x.numel() for x in inputs)
+        if name in kstage:  # the stage's inputs read once (bias too), its tensor written once
+            work = probes.stage_work(kstage[name], bf.MP, bf.GD, got.numel())
+            work["bytes"] += 4.0 * bf.GQ
+        elif name == "b3_dw2_contract11":
+            gq, r, c = inputs[0].shape
+            work = {"fma_flops": 2.0 * gq * r * c * inputs[1].shape[2], "bytes": 4.0 * (nin + got.numel())}
+        else:  # elementwise and copies: bytes
+            work = {"bytes": 4.0 * (nin + got.numel())}
+        bound = probe_bound(work)
+        print(f"probe {name}: shape {tuple(got.shape)} max_abs_err={err:.3e} max_rel_err={rel:.3e} (bound "
+              f"{bf.RTOL:g}); two calls bitwise equal: {same}; kernel_ms={ms:.4f} (device, one call with its host "
+              f"time {call_ms:.4f}) plain_ms={plain_ms:.4f} "
+              f"bound_ms={bound['bound_ms']:.4f} ({bound['bound_by']})"
+              + (f"; one PyTorch call {lib_ms:.4f} ms" if lib_ms is not None else "") + f" [{card}]", flush=True)
+        if not same:
+            raise SystemExit(f"phase 32: {name} gave other bits on a second call")
+        cases[name] = dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms, max_abs_err=err, max_rel_err=rel,
+                           library_ms=lib_ms, **bound)
+    torch.cuda.empty_cache()
+    return cases
+
+
+def probe_stream_cases(card, dev) -> dict:
+    """32d. the column sums of ``chip_stream``'s three arrays (feat as
+    ``[M*E, 64]``, the ``[M*E, 19]`` and ``[M*E, 128]`` tables): each column
+    against a float64 sum, the total, two calls bitwise equal, the read rate
+    and its share of the nominal 3.35 TB/s beside ``torch.sum`` over the
+    rows (the same column sums, one PyTorch call); and ``sum_feat`` against
+    ``C * sum(x[..., C-1])``, what the JAX ``pallas_sum_feat`` returns."""
+    from se3conv3d_tpu_torch.experiments import chip_stream
+    from se3conv3d_tpu_torch.kernels import probes
+
+    feat, geo, geo128 = chip_stream.make_inputs(chip_stream.M, 50, dev)
+    side = torch.cuda.Stream(dev)
+    cases = {}
+    for name, x in (("feat", feat.reshape(-1, chip_stream.C)), ("geo19", geo), ("geo128", geo128)):
+        width = x.shape[1]
+        got, again = probes.column_sums(x), probes.column_sums(x)
+        ref, terms = x.double().sum(0), x.double().abs().sum(0)
+        col_err = float(((got[:width].double() - ref).abs() / terms).max())
+        tot_err = abs(float(got[width]) - float(ref.sum())) / float(terms.sum())
+        same = torch.equal(got, again)
+        ms, call_ms = graph_ms(lambda: probes.column_sums(x), side), cuda_ms(lambda: probes.column_sums(x), 20)
+        plain_ms = cuda_ms(lambda: probes.column_sums_reference(x), 5)
+        lib_ms = graph_ms(lambda: torch.sum(x, 0), side)
+        nbytes = 4.0 * x.numel()
+        bound = probe_bound({"bytes": nbytes})
+        rate, lib_rate = nbytes / ms / 1e6, nbytes / lib_ms / 1e6
+        print(f"probe column_sums {name} [{x.shape[0]}, {width}]: max column error {col_err:.3e} of its sum "
+              f"|x|, total {tot_err:.3e} (bound {STREAM_RTOL:g}); two calls bitwise equal: {same}; "
+              f"kernel_ms={ms:.4f} (device; {rate:.1f} GB/s, {rate * 1e9 / PEAK_BYTES_PER_S:.1%} of 3.35 TB/s; "
+              f"one call with its host time {call_ms:.4f}) "
+              f"plain_ms={plain_ms:.4f} bound_ms={bound['bound_ms']:.4f}; torch.sum over the rows "
+              f"{lib_ms:.4f} ms ({lib_rate:.1f} GB/s, {lib_rate * 1e9 / PEAK_BYTES_PER_S:.1%}) [{card}]", flush=True)
+        if not (same and col_err <= STREAM_RTOL and tot_err <= STREAM_RTOL):
+            raise SystemExit(f"phase 32: the column sums of {name} disagree with float64 or repeat other bits")
+        cases[name] = dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                           max_abs_err=float((got[:width].double() - ref).abs().max()),
+                           max_rel_err=col_err, library_ms=lib_ms, gb_s=rate, library_gb_s=lib_rate, **bound)
+    c = chip_stream.C
+    last = feat[..., -1].double()
+    got = float(chip_stream.sum_feat(feat))
+    err = abs(got - c * float(last.sum())) / (c * float(last.abs().sum()))
+    print(f"probe sum_feat: C * sum(x[..., C-1]) within {err:.3e} of its terms (bound {STREAM_RTOL:g}) [{card}]",
+          flush=True)
+    if err > STREAM_RTOL:
+        raise SystemExit("phase 32: sum_feat is not C * sum(x[..., C-1])")
+    del feat, geo, geo128
+    torch.cuda.empty_cache()
+    return cases
+
+
+def probe_registers(card) -> dict:
+    """32e. registers, local (stack and spill) bytes and shared memory of
+    every instantiation of the staged forward (``cudaFuncGetAttributes``,
+    the counterpart of ``-Xptxas -v``, which phase 1 prints)."""
+    from se3conv3d_tpu_torch.kernels import probes
+
+    regs = {}
+    for stage in probes.STAGES:
+        regs[f"{stage} tensor float32"] = probes.stage_kernel_attributes(stage, False)
+        if stage != "wcontract":
+            for dtype in KERNEL_DTYPES:
+                regs[f"{stage} tile-sum {dtype_name(dtype)}"] = probes.stage_kernel_attributes(stage, True, dtype)
+    for key, a in regs.items():
+        print(f"probe_stage_fwd {key}: {a['registers']} registers, {a['local_bytes']} local bytes, "
+              f"{a['dynamic_smem']} bytes of dynamic shared memory [{card}]", flush=True)
+    return regs
+
+
+def run_probes(card, dev) -> dict:
+    """32. the probe kernels: the main path, then each kernel against its
+    plain version, the stage split, the read rates and the registers."""
+    main_path = probe_main_path(card)
+    stage = probe_stage_cases(card, dev)
+    split = {dt: {s: stage[dt][s]["ms"] for s in stage[dt]} for dt in stage}
+    print(f"probe stage split (ms; each stage's time minus the one before is its cost): {split} [{card}]",
+          flush=True)
+    return dict(main=main_path, stage=stage, bisect=probe_bisect_cases(card, dev),
+                stream=probe_stream_cases(card, dev), registers=probe_registers(card))
+
+
+def probe_entries(pr: dict) -> list:
+    """The ``{"kernels": [...]}`` entries of phase 32: one per ported
+    ``pl.pallas_call`` site, its launches on the probes' main path (32a)
+    and its times at the JAX script's default size."""
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    main, launches = pr["main"]["launches"], pr["main"]["launches_by"]
+    st, bis, stream = pr["stage"], pr["bisect"], pr["stream"]
+
+    def entry(name, source, replaces, n, case, at, **extra):
+        return {"name": name, "route": "cuda", "source": PROBE_SRC.format(source), "replaces": replaces,
+                "launches": n, **{k: case[k] for k in keys}, "at": at, **extra}
+
+    fwd_by = launches["stage_forward"]
+    s_names = ("s1_pne", "s2_agg", "s3_swap", "s4_wcontract", "s5_reduce")
+    b_rows = (("gelu_jvp", "b1_jvp_gelu", 218), ("expand_groups", "b2_gexp", 232),
+              ("batched_contract", "b3_dw2_contract11", 249), ("rank3_accum", "b4_rank3_accum", 265),
+              ("merge_back", "b5_merge_back", 283))
+    width = launches["column_sums"]
+    return [
+        entry("probe_stage_fwd[tile_sum]", "stage_fwd", "experiments/chip_stage_time.py:17", main["stage_sum"],
+              {**st["float32"]["full"], "max_abs_err": max(c["max_abs_err"] for c in st["float32"].values())},
+              f"chip_stage_time full stage M={PROBE_M}, float32 (torch.matmul: the weight contraction alone)",
+              by_stage=st, launches_by_stage=launches["stage_sum"], main_path_ms=pr["main"]["split"]),
+        entry("probe_stage_fwd[tensor]", "stage_fwd", "experiments/bisect_fused.py:46",
+              sum(fwd_by.get(k, 0) for k in ("pne", "agg", "swap", "wcontract", "reduce")),
+              {**bis["s5_reduce"], "max_abs_err": max(bis[k]["max_abs_err"] for k in s_names)},
+              "bisect_fused s5_reduce MP=1024", by_stage={k: bis[k] for k in s_names}, launches_by_stage=fwd_by),
+        entry("probe_stage_fwd[tensor,batch]", "stage_fwd", "experiments/bisect_fused.py:193",
+              fwd_by.get("reduce[batch]", 0), bis["s6_vmap"], "bisect_fused s6_vmap MP=1024, batch 1"),
+        *(entry(f"probe_{fn}", "bwd_ops", f"experiments/bisect_fused.py:{line}", main[fn], bis[name],
+                f"bisect_fused {name}") for fn, name, line in b_rows),
+        entry("probe_column_sums[feat]", "stream", "experiments/chip_stream.py:37", width.get("64", 0),
+              stream["feat"], f"chip_stream feat [{PROBE_M * 32}, 64] (torch.sum over the rows)",
+              gb_s=stream["feat"]["gb_s"], library_gb_s=stream["feat"]["library_gb_s"]),
+        entry("probe_column_sums[geo]", "stream", "experiments/chip_stream.py:45",
+              width.get("19", 0) + width.get("128", 0), stream["geo19"],
+              f"chip_stream geo [{PROBE_M * 32}, 19] (torch.sum over the rows)",
+              by_shape={k: stream[k] for k in ("geo19", "geo128")}),
+    ]
+
+
 def kernels_line(dfaust: dict, scan: dict, mixf: dict, rot_i: dict, g4: dict, std: dict, mn: dict,
-                 cli: dict, evals: dict, modes: dict) -> dict:
+                 cli: dict, evals: dict, modes: dict, probes: dict) -> dict:
     """The ``{"kernels": [...]}`` object: every kernel with its launches on
     the main paths, its error against its plain version, and its times at
     the ScanNet level-0 shape (float32), with the same for its bfloat16
@@ -4050,7 +4381,8 @@ def kernels_line(dfaust: dict, scan: dict, mixf: dict, rot_i: dict, g4: dict, st
     CLIs of phases 26-28 (``eval_*`` paths, forwards only), with the
     forward's times at the whole 1.5M-point room's level-0 shape of phase 28
     under ``"whole_scene_bf16"``; then the activations' and the kernel-point
-    geometry's entries of phases 29-31 (:func:`mode_entries`)."""
+    geometry's entries of phases 29-31 (:func:`mode_entries`); last the
+    probe kernels' entries of phase 32 (:func:`probe_entries`)."""
     compared, bwd_compared = dfaust["fwd"], dfaust["bwd"]
     scan_conv, scan_cumsum, scan_train, scan_eval = scan["conv"], scan["cumsum"], scan["train"], scan["eval"]
     lvl0 = SCANNET_SHAPES["scannet_level0_block_conv"]
@@ -4216,7 +4548,8 @@ def kernels_line(dfaust: dict, scan: dict, mixf: dict, rot_i: dict, g4: dict, st
                      "max_abs_err": c0b["max_abs_err"], "ms": c0b["ms"], "plain_ms": c0b["plain_ms"],
                      "bound_ms": c0b["bound_ms"], "bound_by": "bytes", "library_ms": c0b["library_ms"],
                      "at": cum_at + " bfloat16 rows"},
-        }, *mode_entries(modes)], "other_conv_kinds": {k: modes[k] for k in ("kp_models", "act_models",
+        }, *mode_entries(modes), *probe_entries(probes)], "probe_registers": probes["registers"],
+        "other_conv_kinds": {k: modes[k] for k in ("kp_models", "act_models",
                                                                               "plain_kinds")},
         "scannet": {"eval": scan_eval, "train": scan_train, "grid_vs_brute": scan["grid"]},
         "dfaust": {"train_bf16": dfaust["bf16_train"]}, "dfaust_mixf": mixf, "scannet20_rot_I": rot_i,
@@ -4263,6 +4596,9 @@ def main() -> int:
     libs = build_libraries(verbose=True)
     print(f"build: {time.perf_counter() - t0:.2f} s -> "
           f"{[str(p.relative_to(REPO)) for p in libs.values()]} [{card}]", flush=True)
+    # 32. the probe kernels of experiments/chip_stage_time.py, bisect_fused.py
+    # and chip_stream.py, at their scripts' default sizes
+    probes = run_probes(card, dev)
 
     # 2. kernel vs plain
     shapes = {
@@ -4368,7 +4704,7 @@ def main() -> int:
     dfaust = dict(fwd=compared, bwd=bwd_compared, eval_launches=launches,
                   train_launches=dfaust_steps["launches"], bf16_train_launches=dfaust_bf16["bf16_launches"],
                   bf16_train=dfaust_bf16)
-    print(json.dumps(kernels_line(dfaust, scan, mixf, rot_i, g4, std, mn, cli, evals, modes)))
+    print(json.dumps(kernels_line(dfaust, scan, mixf, rot_i, g4, std, mn, cli, evals, modes, probes)))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -28,6 +28,9 @@ SOURCES = {
     "fwd": _HERE / "csrc" / "fused_equiv_fwd.cu",
     "bwd": _HERE / "csrc" / "fused_equiv_bwd.cu",
     "cumsum": _HERE / "csrc" / "segsum_cumsum.cu",
+    "probe_stage": _HERE / "csrc" / "probe_stage_fwd.cu",
+    "probe_bwd": _HERE / "csrc" / "probe_bwd_ops.cu",
+    "probe_stream": _HERE / "csrc" / "probe_stream.cu",
 }
 BUILD_DIR = _HERE / "_build"
 NVCC_FLAGS = [
@@ -51,6 +54,16 @@ _SIGNATURES = {
             ("se3_fused_equiv_bwd_plan", [_I] * 6 + [_P] * 3, None)],
     "cumsum": [("se3_blocked_cumsum", [_P] * 3 + [_I, _L, _I, _I, _P], _I),
                ("se3_blocked_cumsum_words", [_I, _L, _I], _L)],
+    "probe_stage": [("se3_probe_stage_fwd", [_P] * 8 + [_I] * 6 + [_P], _I),
+                    ("se3_probe_stage_rows", [], _I),
+                    ("se3_probe_stage_attrs", [_I] * 3 + [_P], _I)],
+    "probe_bwd": [("se3_probe_gelu_jvp", [_P, _P, _L, _P], _I),
+                  ("se3_probe_expand_groups", [_P, _P, _I, _I, _L, _P], _I),
+                  ("se3_probe_batched_contract", [_P] * 3 + [_I] * 4 + [_P], _I),
+                  ("se3_probe_rank3_accum", [_P] * 3 + [_I] * 5 + [_P], _I),
+                  ("se3_probe_scale2", [_P, _P, _L, _P], _I)],
+    "probe_stream": [("se3_probe_column_sums", [_P, _L, _I, _P, _P, _P], _I),
+                     ("se3_probe_stream_blocks", [], _I)],
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}
