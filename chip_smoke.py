@@ -298,6 +298,7 @@ import contextlib
 import copy
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -1665,9 +1666,13 @@ def scannet_eval(card, dev, model, trainer, scene, kfe, num_classes, rot=None, n
           f"[{card}]", flush=True)
     if not (cpu_err <= cpu_bound and (not bf16 or tells_apart(cpu_err, control))):
         raise SystemExit(f"ScanNet card and CPU logits disagree ({dname})")
+    gate = {}
+    if not bf16:  # float32: the control is the first conv's kernel planted wrong
+        gate = card_vs_cpu_with_control(card, f"{name}_{dname}", model, (h, f0, out_pc), out_pc.mask, cpu_logits)
+        control = gate["card_vs_cpu_control"]
     return dict(launches=launches, bf16_launches=bf16_launches, launches_by_d=by_d, eval_s=median_s,
                 peak_gib=peak / 2**30, card_vs_cpu_max_abs_err=cpu_err, card_vs_cpu_control=control, rotation_max_abs_err=rot_err,
-                rotation_control=unframed_err)
+                rotation_control=unframed_err, card_vs_cpu_gate=gate)
 
 
 def scannet_train(card, dev, trainer, batch, kfe, segsum, ops, order=SCANNET_MODE_ORDER,
@@ -2194,16 +2199,12 @@ def dfaust_mixf(card, dev, batch, small, recorded_draws) -> dict:
         unframed_err = (base - unframed).abs()[valid].max().item()
         cpu_model = copy.deepcopy(model).cpu()
         cpu_logits = cpu_model(h.to("cpu"), f0.cpu(), out_pc.to("cpu"))
-        cpu_err = (base.cpu() - cpu_logits).abs()[valid.cpu()].max().item()
     print(f"mixf_invariance F=4: max |logits - logits(rotated)| = {rot_err:.3e} (bound {ROT_ATOL}); "
           f"control, the positions rotated and the frames not: {unframed_err:.3e} [{card}]", flush=True)
-    print(f"mixf_card_vs_cpu F=4: max |logits(card) - logits(cpu)| = {cpu_err:.3e} (bound {CPU_ATOL}), "
-          f"max |logits| {base.abs().max().item():.3e} [{card}]", flush=True)
     if not rot_err <= ROT_ATOL < unframed_err:
         raise SystemExit("mixF logits change under a global rotation at F = 4, or the bound does not "
                          "tell a model that ignores the frames' rotation")
-    if not cpu_err <= CPU_ATOL:
-        raise SystemExit("mixF card and CPU logits disagree at F = 4")
+    cpu_gate = card_vs_cpu_with_control(card, "mixf F=4", model, (h, f0, out_pc), valid, cpu_logits)
     del base, rotated, unframed, cpu_logits, h, f0, out_pc
 
     h, f0, out_pc, out_labels, _ = trainer.build(small, torch.Generator(device=dev).manual_seed(17),
@@ -2228,8 +2229,8 @@ def dfaust_mixf(card, dev, batch, small, recorded_draws) -> dict:
     return dict(eval_s=eval_s, eval_peak_gib=eval_peak / 2**30, step_s_by_f=steady, all_s_by_f=times,
                 peak_gib=peak / 2**30, eval_launches=sum(calib_by_g.values()) + sum(eval_by_g.values()),
                 train_launches=tuple(sum(x.values()) for x in by_g), train_launches_by_g=by_g,
-                rotation_max_abs_err=rot_err, rotation_control=unframed_err, card_vs_cpu_max_abs_err=cpu_err,
-                grads_card_vs_cpu=worst)
+                rotation_max_abs_err=rot_err, rotation_control=unframed_err, card_vs_cpu=cpu_gate,
+                card_vs_cpu_max_abs_err=cpu_gate["card_vs_cpu_max_abs_err"], grads_card_vs_cpu=worst)
 
 
 def scannet_rot_i(card, dev) -> dict:
@@ -2682,7 +2683,9 @@ def modelnet_invariance_and_cpu(card, dev, trainer, small, label) -> dict:
     an equivariant model's logits unchanged by a global rotation of the
     hierarchy (``ROT_ATOL``), and changed past it when the positions are
     rotated and the frames are not (the control); the same model and
-    hierarchy on the CPU (plain path) within ``CPU_ATOL`` of the card."""
+    hierarchy on the CPU (plain path) within ``CPU_ATOL`` of the card, the
+    first conv's kernel planted wrong past it
+    (:func:`card_vs_cpu_with_control`)."""
     from se3conv3d_tpu_torch.core.hierarchy import Hierarchy, rotate_hierarchy
     from se3conv3d_tpu_torch.core.pointcloud import PointCloud
     from se3conv3d_tpu_torch.core.rotation import random_rotations
@@ -2705,12 +2708,9 @@ def modelnet_invariance_and_cpu(card, dev, trainer, small, label) -> dict:
             if not rot_err <= ROT_ATOL < control:
                 raise SystemExit(f"{label}: logits change under a global rotation, or the bound does not "
                                  "tell a model that ignores the frames' rotation")
-        cpu_logits = copy.deepcopy(model).cpu()(h.to("cpu"), f0.cpu())
-        out["card_vs_cpu_max_abs_err"] = cpu_err = (base.cpu() - cpu_logits).abs().max().item()
-    print(f"{label}_card_vs_cpu: max |logits(card) - logits(cpu)| = {cpu_err:.3e} (bound {CPU_ATOL}), "
-          f"max |logits| = {base.abs().max().item():.3e} [{card}]", flush=True)
-    if not (tuple(base.shape) == (2, MN_CLASSES) and cpu_err <= CPU_ATOL):
-        raise SystemExit(f"{label}: card and CPU logits disagree")
+    if tuple(base.shape) != (2, MN_CLASSES):
+        raise SystemExit(f"{label}: logits of shape {tuple(base.shape)}")
+    out.update(card_vs_cpu_with_control(card, label, model, (h, f0)))
     return out
 
 
@@ -3839,7 +3839,7 @@ def act_models(card, dev, batch, small) -> dict:
     return out
 
 
-def seed_norms(model, h, f0, out_pc) -> None:
+def seed_norms(model, h, f0, out_pc=None) -> None:
     """Every ``MaskedBatchNorm``'s running statistics from its own input (the
     valid rows) in one eval forward of ``model``, each set just before it
     normalises, so the later ones see the earlier ones seeded.  At init
@@ -3848,7 +3848,8 @@ def seed_norms(model, h, f0, out_pc) -> None:
     ~1e-5 over the points, and zeroing a conv moves them by less than the
     card-vs-CPU bound (``PERF.md`` §6).  A degenerate init, as the
     skip gammas' of :func:`seed_gammas` and ``class_norm``'s of
-    :func:`seed_class_norm`."""
+    :func:`seed_class_norm`.  ``out_pc`` None: a model called as
+    ``model(h, f0)`` (a ``ClassNet``)."""
     from se3conv3d_tpu_torch.nn.norm import MaskedBatchNorm
 
     def seed(norm, args):
@@ -3862,10 +3863,68 @@ def seed_norms(model, h, f0, out_pc) -> None:
     hooks = [m.register_forward_pre_hook(seed) for m in model.modules() if isinstance(m, MaskedBatchNorm)]
     try:
         with torch.no_grad():
-            model(h, f0, out_pc)
+            model(h, f0) if out_pc is None else model(h, f0, out_pc)
     finally:
         for hook in hooks:
             hook.remove()
+
+
+@contextlib.contextmanager
+def planted_first_conv(model):
+    """``model`` with the kernel of its first conv (the farthest from the
+    logits) planted wrong while the block runs: another activation (gelu,
+    or relu for gelu) or, for kernel points, another correlation.  Yields
+    a description of the plant."""
+    from se3conv3d_tpu_torch.nn.conv import PNEConv
+
+    conv = next(m for m in model.modules() if isinstance(m, PNEConv))
+    attr, wrong = (("corr", "linear" if conv.corr == "gauss" else "gauss") if hasattr(conv, "corr")
+                   else ("pne_type", "mlp_relu" if conv.pne_type == "mlp_gelu" else "mlp_gelu"))
+    right = getattr(conv, attr)
+    setattr(conv, attr, wrong)
+    try:
+        yield f"the first conv's kernel with {attr} {wrong} for {right}"
+    finally:
+        setattr(conv, attr, right)
+
+
+def card_vs_cpu_with_control(card, label, model, inputs, valid=None, cpu_logits=None) -> dict:
+    """Card-vs-CPU logits (``CPU_ATOL``) beside a control they must fail:
+    the card's logits with the first conv's kernel planted wrong
+    (:func:`planted_first_conv`) past the bound from the CPU's.  ``inputs``
+    are the card's ``(h, f0[, out_pc])``; ``valid`` the rows compared (all
+    where None); ``cpu_logits`` the CPU's logits of ``model`` where already
+    computed.  Where the plant does not get past the bound on the model as
+    it is (its norms shrink the conv path, as :func:`seed_norms` says), it prints
+    that unseeded reading, then gates a copy with every norm seeded from its
+    own input (:func:`seed_norms`).  Returns the readings."""
+    def readings(m, cpu):
+        with torch.no_grad():
+            if cpu is None:
+                cpu = copy.deepcopy(m).cpu()(*(x.to("cpu") for x in inputs))
+            keep = (lambda x: x) if valid is None else (lambda x: x[valid.cpu()])
+            base = m(*inputs)
+            err = keep((base.cpu() - cpu).abs()).max().item()
+            with planted_first_conv(m) as what:
+                control = keep((m(*inputs).cpu() - cpu).abs()).max().item()
+        return err, control, what, base.abs().max().item()
+
+    err, control, what, scale = readings(model, cpu_logits)
+    out = dict(card_vs_cpu_max_abs_err=err, card_vs_cpu_control=control, norms_seeded=False)
+    print(f"{label} card_vs_cpu: max |logits(card) - logits(cpu)| = {err:.3e} (bound {CPU_ATOL}); control, {what}: "
+          f"{control:.3e}; max |logits| {scale:.3e} [{card}]", flush=True)
+    if err <= CPU_ATOL and control <= CPU_ATOL:
+        model = copy.deepcopy(model)
+        seed_norms(model, *inputs)
+        out.update(unseeded_max_abs_err=err, unseeded_control=control, norms_seeded=True)
+        err, control, what, scale = readings(model, None)
+        out.update(card_vs_cpu_max_abs_err=err, card_vs_cpu_control=control)
+        print(f"{label} card_vs_cpu (norms seeded, the control above does not pass the bound): max |logits(card) - "
+              f"logits(cpu)| = {err:.3e} (bound {CPU_ATOL}); control, {what}: {control:.3e}; max |logits| "
+              f"{scale:.3e} [{card}]", flush=True)
+    if not err <= CPU_ATOL < control:
+        raise SystemExit(f"{label}: card and CPU logits disagree, or the bound does not tell a wrong kernel")
+    return out
 
 
 def dfaust_model_gates(card, dev, trainer, small, label) -> dict:
@@ -3883,31 +3942,23 @@ def dfaust_model_gates(card, dev, trainer, small, label) -> dict:
     from se3conv3d_tpu_torch.core.hierarchy import Hierarchy, rotate_cloud, rotate_hierarchy
     from se3conv3d_tpu_torch.core.pointcloud import PointCloud
     from se3conv3d_tpu_torch.core.rotation import random_rotations
-    from se3conv3d_tpu_torch.nn.conv import PNEConv
 
     model = copy.deepcopy(trainer.model).eval()
     h, f0, out_pc, _, _ = trainer.build(small, torch.Generator(device=dev).manual_seed(5), train=False)
     valid, out = out_pc.mask, {}
-    conv = next(m for m in model.modules() if isinstance(m, PNEConv))
-    attr, wrong = (("corr", "linear" if conv.corr == "gauss" else "gauss") if hasattr(conv, "corr")
-                   else ("pne_type", "mlp_relu" if conv.pne_type == "mlp_gelu" else "mlp_gelu"))
-    right = getattr(conv, attr)
 
     @torch.no_grad()
     def planted():
-        setattr(conv, attr, wrong)
-        try:
-            return model(h, f0, out_pc)
-        finally:
-            setattr(conv, attr, right)
+        with planted_first_conv(model) as what:
+            return model(h, f0, out_pc), what
 
     with torch.no_grad():  # the norms as the model has them: what the control moves there
         base = model(h, f0, out_pc)
         out["unseeded_logits_std_over_points"] = (base[valid].std(0).mean().item())
-        out["unseeded_control"] = (planted() - base).abs()[valid].max().item()
+        wrong, what = planted()
+        out["unseeded_control"] = (wrong - base).abs()[valid].max().item()
     print(f"{label} norms as trained: logits std over the points {out['unseeded_logits_std_over_points']:.3e}; "
-          f"the first conv's kernel with {attr} {wrong} for {right} moves them by {out['unseeded_control']:.3e} "
-          f"[{card}]", flush=True)
+          f"{what} moves them by {out['unseeded_control']:.3e} [{card}]", flush=True)
     seed_norms(model, h, f0, out_pc)
     with torch.no_grad():
         base = model(h, f0, out_pc)
@@ -3928,9 +3979,9 @@ def dfaust_model_gates(card, dev, trainer, small, label) -> dict:
                                  "a model that ignores the frames' rotation")
         cpu_logits = copy.deepcopy(model).cpu()(h.to("cpu"), f0.cpu(), out_pc.to("cpu"))
         out["card_vs_cpu_max_abs_err"] = err = (base.cpu() - cpu_logits).abs()[valid.cpu()].max().item()
-        out["card_vs_cpu_control"] = control = (planted().cpu() - cpu_logits).abs()[valid.cpu()].max().item()
+        out["card_vs_cpu_control"] = control = (planted()[0].cpu() - cpu_logits).abs()[valid.cpu()].max().item()
     print(f"{label} card_vs_cpu (norms seeded): max |logits(card) - logits(cpu)| = {err:.3e} (bound {CPU_ATOL}); "
-          f"control, the first conv's kernel with {attr} {wrong} for {right}: {control:.3e}; max |logits| "
+          f"control, {what}: {control:.3e}; max |logits| "
           f"{base.abs().max().item():.3e}, std over the points {spread:.3e} [{card}]", flush=True)
     if not err <= CPU_ATOL < control:
         raise SystemExit(f"{label}: card and CPU logits disagree, or the bound does not tell a wrong kernel")
@@ -4362,8 +4413,334 @@ def probe_entries(pr: dict) -> list:
     ]
 
 
+# phase 33: the Mosaic probe sites of experiments/bisect_accum.py,
+# bisect_accum2.py, probe_cellconv.py and probe_mosaic.py, held by the
+# CLIs' own checks: gathers, copies, 2a and the r-ordered sums bitwise; the
+# accumulators' totals within 1e-9 of sum |a| of the float64 total (a
+# bound that passes the plain version's total and rejects planted wrong
+# ones, accum_controls), the column sums within 1e-6 of each column's sum
+# |a| (float32 sums in other orders); products within 1e-5 of
+# max |plain| (TF32 off; p10's bfloat16 products are exact in float32);
+# p3's pne bitwise, so no mask disagreement; every fixed-order sum two
+# calls bitwise equal
+SITE_SRC = "se3conv3d_tpu_torch/kernels/csrc/probe_{}.cu"
+
+
+def site_counters() -> dict:
+    """Every launch counter of phase 33's kernels, by name: the two
+    accumulators, the three cell-conv kernels and the 16 Mosaic probes'
+    wrappers (p11 counts on ``grid_column_accum``)."""
+    from se3conv3d_tpu_torch.kernels import cellconv_probes as cc, mosaic_probes as mp, probes
+
+    return {"block_total_accum": probes.block_total_accum, "grid_column_accum": probes.grid_column_accum,
+            "gather_blocks": cc.gather_blocks, "gather_sum_blocks": cc.gather_sum_blocks,
+            "masked_dist_product": cc.masked_dist_product,
+            **{name: fn for name, fn in mp.PROBES.items() if name != "p11_grid_accum"}}
+
+
+def mosaic_sites_main_path(card) -> dict:
+    """33a. the four CLIs as a user runs them, every counter at 0 before
+    and read after each: ``bisect_accum`` (six trials), ``bisect_accum2``
+    (seven combinations), ``probe_cellconv`` once per part, ``probe_mosaic``
+    (17 probes).  Fails if a probe failed, or a kernel, an accumulator
+    combination or a part's kernel was not launched."""
+    from se3conv3d_tpu_torch.experiments import bisect_accum, bisect_accum2, probe_cellconv, probe_mosaic
+    from se3conv3d_tpu_torch.kernels import probes
+
+    counters = site_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    probes.block_total_accum.launches_by.clear()
+    read = lambda: {k: fn.launches for k, fn in counters.items()}  # noqa: E731
+    failed, by_cli = {}, {}
+    t0 = time.perf_counter()
+    for name, run in (("bisect_accum", lambda: bisect_accum.main([])),
+                      ("bisect_accum2", lambda: bisect_accum2.main([])),
+                      *((f"probe_cellconv {p}", lambda p=p: probe_cellconv.main(["--part", p], env={}))
+                        for p in probe_cellconv.PARTS),
+                      ("probe_mosaic", lambda: probe_mosaic.main([]))):
+        before = read()
+        failed[name] = run()
+        by_cli[name] = {k: v - before[k] for k, v in read().items() if v != before[k]}
+    seconds = time.perf_counter() - t0
+    launches, accum_by = read(), dict(probes.block_total_accum.launches_by)
+    want_tags = {probes.accum_tag(bisect_accum.SHAPES[:n], d) for _, n, d in bisect_accum.TRIALS.values()}
+    want_tags |= {probes.accum_tag([bisect_accum2.SHAPES[n] for n in names], d)
+                  for names, d in bisect_accum2.COMBINATIONS}
+    part_kernel = {"p1": "gather_blocks", "p2": "gather_sum_blocks", "p3": "masked_dist_product",
+                   "p4": "gather_sum_blocks"}
+    missing = [k for k, v in launches.items() if v == 0]
+    missing += [f"block_total_accum[{t}]" for t in sorted(want_tags) if not accum_by.get(t)]
+    missing += [f"probe_cellconv {p}: {k}" for p, k in part_kernel.items()
+                if not by_cli[f"probe_cellconv {p}"].get(k)]
+    print(f"mosaic sites main path: {seconds:.2f} s; launches {launches}; block_total_accum by outputs "
+          f"{accum_by}; by CLI {by_cli}; failures {failed} [{card}]", flush=True)
+    if any(failed.values()) or missing:
+        raise SystemExit(f"phase 33: failures {failed}, kernels not launched {missing}")
+    return dict(launches=launches, accum_by=accum_by, by_cli=by_cli, seconds=seconds)
+
+
+def site_case(card, label, fn, plain, check, work, side, library=None, dtype=torch.float32) -> dict:
+    """33b-c for one kernel call ``fn()``: its result held by ``check(got)``
+    (which raises ``ValueError``; returns the relative error it reads, 0
+    for a bitwise check), ``max |kernel - plain|`` over every output, two
+    calls bitwise equal, device ms from a CUDA graph beside the one-call
+    CUDA-event time, the plain version's and the library call's times, the
+    bound."""
+    with torch.no_grad():
+        got, again = fn(), fn()
+        torch.cuda.synchronize()
+        try:
+            rel = check(got)
+        except ValueError as e:
+            raise SystemExit(f"phase 33: {label} disagrees with its plain version: {e}")
+        pairs = list(zip(got, again)) if isinstance(got, list) else [(got, again)]
+        same = all(torch.equal(x, y) for x, y in pairs)
+        ref = plain()
+        err = max(float((x.float() - r.float()).abs().max()) if x.numel() else 0.0
+                  for x, r in zip([x for x, _ in pairs], ref if isinstance(ref, list) else [ref]))
+        ms, call_ms = graph_ms(fn, side), cuda_ms(fn, 20)
+        plain_ms = cuda_ms(plain, 5)
+        lib_ms = graph_ms(library, side) if library is not None else None
+    bound = probe_bound(work, dtype)
+    print(f"site {label}: max_abs_err={err:.3e} max_rel_err={rel:.3e}; two calls bitwise equal: {same}; "
+          f"kernel_ms={ms:.4f} (device, one call with "
+          f"its host time {call_ms:.4f}) plain_ms={plain_ms:.4f} bound_ms={bound['bound_ms']:.4f} "
+          f"({bound['bound_by']})" + (f"; one PyTorch call {lib_ms:.4f} ms" if lib_ms is not None else "")
+          + f" [{card}]", flush=True)
+    if not same:
+        raise SystemExit(f"phase 33: {label} gave other bits on a second call")
+    return dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms, max_abs_err=err, max_rel_err=rel, library_ms=lib_ms,
+                **bound)
+
+
+def accum_controls(label, a) -> dict:
+    """33b's controls of a total's bound: the plain version's total and
+    :func:`bisect_accum.planted_totals`' wrong ones, each read as
+    ``|total - float64 total| / sum |a|``; ``check_accum`` must pass the
+    first and reject the others."""
+    from se3conv3d_tpu_torch.experiments import bisect_accum
+    from se3conv3d_tpu_torch.kernels import probes
+
+    exact, terms = float(a.double().sum()), float(a.double().abs().sum())
+    totals = {"plain": probes.block_total_accum_reference(a, [(1,)], False)[0], **bisect_accum.planted_totals(a)}
+    readings, passed = {}, {}
+    for k, v in totals.items():
+        readings[k] = abs(float(v.reshape(())) - exact) / terms
+        try:
+            bisect_accum.check_accum(a, [v.reshape(1)], [(1,)], False)
+            passed[k] = True
+        except ValueError:
+            passed[k] = False
+    print(f"site {label} controls: |total - float64 total| / sum |a| {readings} (bound {bisect_accum.SUM_RTOL:g}); "
+          f"passed {passed}", flush=True)
+    if not passed["plain"] or passed["bf16_partials"] or passed["dropped_chunk"]:
+        raise SystemExit(f"phase 33: {label}: the total's bound does not tell the controls apart: {passed}")
+    return readings
+
+
+def accum_site_cases(card, dev, side) -> dict:
+    """33b-c. ``block_total_accum`` at each of ``bisect_accum``'s trials and
+    ``bisect_accum2``'s combinations (library: ``a * 2`` where dfeat is
+    written and ``torch.sum(a)``), and ``grid_column_accum`` at p11's
+    ``[1024, 32]`` (library: ``torch.sum(a, 0)``)."""
+    from se3conv3d_tpu_torch.experiments import bisect_accum, bisect_accum2, probe_mosaic
+    from se3conv3d_tpu_torch.kernels import probes
+
+    def accum(label, a, shapes, with_dfeat):
+        n_out = sum(math.prod(s) for s in shapes)
+        work = {"bytes": 4.0 * (a.numel() * (2 if with_dfeat else 1) + n_out)}
+        check = lambda got: bisect_accum.check_accum(a, got, shapes, with_dfeat)  # noqa: E731
+        lib = (lambda: (a * 2.0, torch.sum(a))) if with_dfeat else (lambda: torch.sum(a))
+        case = site_case(card, label, lambda: probes.block_total_accum(a, shapes, with_dfeat),
+                         lambda: probes.block_total_accum_reference(a, shapes, with_dfeat), check, work, side, lib)
+        case["controls"] = accum_controls(label, a)
+        return case
+
+    out = {"bisect_accum": {}, "bisect_accum2": {}}
+    for i, (name, (grid_n, n_accum, with_dfeat)) in enumerate(bisect_accum.TRIALS.items()):
+        a = bisect_accum.draw(grid_n, 400 + i, dev)
+        out["bisect_accum"][name] = accum(f"bisect_accum {name}", a, bisect_accum.SHAPES[:n_accum], with_dfeat)
+        del a
+    for i, (names, with_dfeat) in enumerate(bisect_accum2.COMBINATIONS):
+        a = bisect_accum.draw(bisect_accum2.GRID, 420 + i, dev)
+        tag = bisect_accum2.tag(names, with_dfeat)
+        out["bisect_accum2"][tag] = accum(f"bisect_accum2 {tag}", a, [bisect_accum2.SHAPES[n] for n in names],
+                                          with_dfeat)
+        del a
+    (a,) = probe_mosaic.draw("p11_grid_accum", 440, dev)
+    out["p11_grid_accum"] = site_case(
+        card, "p11_grid_accum (grid_column_accum)", lambda: probes.grid_column_accum(a),
+        lambda: probes.grid_column_accum_reference(a), lambda got: probe_mosaic.check("p11_grid_accum", [a], got),
+        {"bytes": 4.0 * (a.numel() + a.shape[1])}, side, lambda: torch.sum(a, 0))
+    torch.cuda.empty_cache()
+    return out
+
+
+def cellconv_site_cases(card, dev, side) -> dict:
+    """33b-c. the four cell-conv parts at the JAX script's sizes: p1, p2
+    and p4 bitwise, p3's pne bitwise and its product within
+    ``probe_cellconv.P3_RTOL``; the bytes of the table blocks the ids name, each
+    once; libraries: the indexed copy times 2, the indexed sum over r, and
+    ``torch.matmul(pne, cf)`` for p3's product alone."""
+    from se3conv3d_tpu_torch.experiments import probe_cellconv as pc
+    from se3conv3d_tpu_torch.kernels import cellconv_probes as cc
+
+    out = {}
+    for i, part in enumerate(pc.PARTS):
+        x = pc.draw(part, 460 + i, dev)
+        if part == "p3":
+            pne = torch.empty(pc.QB3 * pc.Q3, pc.CAND, device=dev)
+            pc.check(part, x, pc.run(part, x, pne), pne)  # no mask disagreement, pne bitwise
+            flops = 2.0 * pc.QB3 * pc.Q3 * pc.CAND * pc.C
+            work = {"fma_flops": flops, "bytes": 4.0 * (x["qp"].numel() + x["cp"].numel() + x["cf"].numel()
+                                                         + pc.QB3 * pc.Q3 * pc.C)}
+            lib = lambda pne=pne, x=x: torch.matmul(pne, x["cf"])  # noqa: E731
+        else:
+            tab = x["tab"] if "tab" in x else x["g"]
+            t3 = tab.view(-1, pc.P, pc.C)
+            blocks = int(torch.unique(x["ids"]).numel())
+            work = {"bytes": 4.0 * (x["ids"].numel() + (blocks + x["ids"].shape[0]) * pc.P * pc.C)}
+            lib = ((lambda t3=t3, x=x: t3[x["ids"].long()] * 2.0) if part == "p1"
+                   else (lambda t3=t3, x=x: t3[x["ids"].long()].sum(1)))
+        out[part] = site_case(card, f"probe_cellconv {part}", lambda x=x, part=part: pc.run(part, x),
+                              lambda x=x, part=part: pc.reference(part, x),
+                              lambda got, x=x, part=part: pc.check(part, x, got), work, side, lib)
+        del x
+    torch.cuda.empty_cache()
+    return out
+
+
+def mosaic_library(device) -> dict:
+    """The one PyTorch call per Mosaic probe, its constants made here, out
+    of the timed graph: p9's block diagonal as an ``einsum`` with ``eye(2)``,
+    p14's ``a * q`` for q < 4 as one broadcast product."""
+    from se3conv3d_tpu_torch.kernels import mosaic_probes as mp
+
+    eye2 = torch.eye(2, device=device)
+    qs = torch.arange(4.0, device=device).view(1, 4, 1)
+    p, c, e = mp.TM // 2, mp.C, mp.E  # p9: [TM, C, E] as TM / 2 pairs of [C, E]
+    return {
+        "p1_plain_2d": lambda a, b: torch.matmul(a, b),
+        "p2_leading_batch": lambda a, b: torch.einsum("mec,meq->mcq", a, b),
+        "p3_multi_contract": lambda a, b: torch.tensordot(a, b, dims=([1, 2], [0, 1])),
+        "p4_free_dims_rhs": lambda a, b: torch.einsum("mec,megq->mcgq", a, b),
+        "p5_lane_merge": lambda a: a.reshape(mp.TM, mp.E, mp.G * mp.Q).clone(),
+        "p6_sublane_split": lambda a: a.reshape(mp.TM, mp.E * mp.G, mp.Q).clone(),
+        "p7_mid_slice": lambda a: a[:, :, 1, :].contiguous(),
+        "p8_blockdiag_batched": lambda a, b: torch.bmm(a, b),
+        "p9_concat_blockdiag_build": lambda a: torch.einsum("phce,hk->phcke", a.view(p, 2, c, e),
+                                                            eye2).reshape(p, 2 * c, 2 * e),
+        "p10_bf16_batched": lambda a, b: torch.einsum("mec,meq->mcq", a, b),
+        "p12_transpose_last2": lambda a: a.transpose(1, 2).contiguous(),
+        "p13_nt_contract": lambda a, b: torch.einsum("pec,pmc->pem", a, b),
+        "p14_mid_write": lambda a: a[:, None, :] * qs,
+        "p15_dim0_contract": lambda a, b: torch.matmul(a.t(), b),
+        "p16_leading_split_rank2": lambda a: a.reshape(mp.TM, mp.E, 2 * mp.Q).clone(),
+        "p17_outer_swap": lambda a: a.transpose(0, 1).contiguous(),
+    }
+
+
+def mosaic_site_cases(card, dev, side) -> dict:
+    """33b-c. the 16 probes of ``run_kernel`` at the JAX script's shapes:
+    copies bitwise, products within ``probe_mosaic.PRODUCT_RTOL`` of max |plain|;
+    bounds from each probe's bytes and FLOPs (p10's at the bfloat16 peak);
+    libraries (:func:`mosaic_library`): ``torch.matmul`` / ``einsum`` /
+    ``bmm`` / ``tensordot`` (p10 in bfloat16 with a bfloat16 result),
+    ``.contiguous()`` / ``.clone()``, p9's ``einsum`` with ``eye(2)`` and
+    p14's broadcast product."""
+    from se3conv3d_tpu_torch.experiments import probe_mosaic
+    from se3conv3d_tpu_torch.kernels import mosaic_probes as mp
+
+    out = {}
+    for i, (name, lib) in enumerate(mosaic_library(dev).items()):
+        xs = probe_mosaic.draw(name, 480 + i, dev)
+        fn = mp.PROBES[name]
+        work = mp.probe_work(name, xs, fn(*xs))
+        out[name] = site_case(card, f"probe_mosaic {name}", lambda fn=fn, xs=xs: fn(*xs),
+                              lambda name=name, xs=xs: mp.REFERENCES[name](*xs),
+                              lambda got, name=name, xs=xs: probe_mosaic.check(name, xs, got), work, side,
+                              lambda lib=lib, xs=xs: lib(*xs), xs[0].dtype)
+        del xs
+    torch.cuda.empty_cache()
+    return out
+
+
+def mosaic_sites_registers(card) -> dict:
+    """33d. registers, local bytes and shared memory of every kernel of the
+    three sources (``cudaFuncGetAttributes``)."""
+    from se3conv3d_tpu_torch.kernels import cellconv_probes as cc, mosaic_probes as mp, probes
+
+    regs = {"accum": probes.accum_kernel_attributes(), "cellconv": cc.cellconv_kernel_attributes(),
+            "mosaic": mp.mosaic_kernel_attributes()}
+    for src, kernels in regs.items():
+        print(f"probe_{src}.cu: " + "; ".join(f"{k} {a['registers']} registers, {a['local_bytes']} local bytes, "
+                                              f"{a['static_smem']} bytes of static shared memory"
+                                              for k, a in kernels.items()) + f" [{card}]", flush=True)
+    return regs
+
+
+def run_mosaic_sites(card, dev) -> dict:
+    """33. the last eight Mosaic probe sites: the CLIs as the main path,
+    then each kernel against its plain version with its times, and the
+    registers."""
+    t0 = time.perf_counter()
+    main_path = mosaic_sites_main_path(card)
+    side = torch.cuda.Stream(dev)
+    out = dict(main=main_path, accum=accum_site_cases(card, dev, side), cellconv=cellconv_site_cases(card, dev, side),
+               mosaic=mosaic_site_cases(card, dev, side), registers=mosaic_sites_registers(card))
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 33: {out['seconds']:.2f} s [{card}]", flush=True)
+    return out
+
+
+def mosaic_site_entries(ms: dict) -> list:
+    """The ``{"kernels": [...]}`` entries of phase 33: one per ported
+    ``pl.pallas_call`` site, its launches on the CLIs' run (33a) and its
+    times at the JAX script's sizes.  ``max_abs_err`` is ``max |kernel -
+    plain|``; ``max_rel_err`` what the site's check reads: a total's error
+    against the float64 total over ``sum |a|``, a column sum's over its
+    column's ``sum |a|``, a product's over ``max |plain|``, 0 where the check
+    is bitwise."""
+    keys = ("max_abs_err", "max_rel_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    by_cli = ms["main"]["by_cli"]
+    cell = {p: by_cli[f"probe_cellconv {p}"] for p in ("p1", "p2", "p3", "p4")}
+
+    def entry(name, source, replaces, n, case, at, **extra):
+        return {"name": name, "route": "cuda", "source": SITE_SRC.format(source), "replaces": replaces,
+                "launches": n, **{k: case[k] for k in keys}, "at": at, **extra}
+
+    mosaic = ms["mosaic"]
+    return [
+        entry("probe_block_total_accum[bisect_accum]", "accum", "experiments/bisect_accum.py:46",
+              by_cli["bisect_accum"]["block_total_accum"], ms["accum"]["bisect_accum"]["grid64_accum3_dfeat"],
+              "bisect_accum grid64_accum3_dfeat, a [8192, 32, 64] (library: a * 2 and torch.sum(a))",
+              by_trial=ms["accum"]["bisect_accum"]),
+        entry("probe_block_total_accum[bisect_accum2]", "accum", "experiments/bisect_accum2.py:40",
+              by_cli["bisect_accum2"]["block_total_accum"], ms["accum"]["bisect_accum2"]["dproj+dbias+dw2"],
+              "bisect_accum2 dproj+dbias+dw2, a [4096, 32, 64] (library: torch.sum(a))",
+              by_combination=ms["accum"]["bisect_accum2"], launches_by_outputs=ms["main"]["accum_by"]),
+        entry("probe_gather_blocks", "cellconv", "experiments/probe_cellconv.py:47", cell["p1"]["gather_blocks"],
+              ms["cellconv"]["p1"], "probe_cellconv p1 (library: tab[ids] * 2)"),
+        entry("probe_gather_sum_blocks[p2]", "cellconv", "experiments/probe_cellconv.py:82",
+              cell["p2"]["gather_sum_blocks"], ms["cellconv"]["p2"], "probe_cellconv p2 (library: tab[ids].sum(1))"),
+        entry("probe_masked_dist_product", "cellconv", "experiments/probe_cellconv.py:120",
+              cell["p3"]["masked_dist_product"], ms["cellconv"]["p3"],
+              "probe_cellconv p3 (library: torch.matmul(pne, cf), the product alone)"),
+        entry("probe_gather_sum_blocks[p4]", "cellconv", "experiments/probe_cellconv.py:160",
+              cell["p4"]["gather_sum_blocks"], ms["cellconv"]["p4"], "probe_cellconv p4 (library: g[ids].sum(1))"),
+        entry("probe_mosaic[run_kernel]", "mosaic", "experiments/probe_mosaic.py:53",
+              sum(by_cli["probe_mosaic"].get(k, 0) for k in mosaic), mosaic["p8_blockdiag_batched"],
+              "probe_mosaic p8_blockdiag_batched (every probe under by_probe)", by_probe=mosaic,
+              launches_by_probe={k: by_cli["probe_mosaic"].get(k, 0) for k in mosaic}),
+        entry("probe_grid_column_accum", "accum", "experiments/probe_mosaic.py:218",
+              by_cli["probe_mosaic"].get("grid_column_accum", 0), ms["accum"]["p11_grid_accum"],
+              "probe_mosaic p11_grid_accum, [1024, 32] (library: torch.sum(a, 0))"),
+    ]
+
+
 def kernels_line(dfaust: dict, scan: dict, mixf: dict, rot_i: dict, g4: dict, std: dict, mn: dict,
-                 cli: dict, evals: dict, modes: dict, probes: dict) -> dict:
+                 cli: dict, evals: dict, modes: dict, probes: dict, sites: dict) -> dict:
     """The ``{"kernels": [...]}`` object: every kernel with its launches on
     the main paths, its error against its plain version, and its times at
     the ScanNet level-0 shape (float32), with the same for its bfloat16
@@ -4381,8 +4758,9 @@ def kernels_line(dfaust: dict, scan: dict, mixf: dict, rot_i: dict, g4: dict, st
     CLIs of phases 26-28 (``eval_*`` paths, forwards only), with the
     forward's times at the whole 1.5M-point room's level-0 shape of phase 28
     under ``"whole_scene_bf16"``; then the activations' and the kernel-point
-    geometry's entries of phases 29-31 (:func:`mode_entries`); last the
-    probe kernels' entries of phase 32 (:func:`probe_entries`)."""
+    geometry's entries of phases 29-31 (:func:`mode_entries`); then the
+    probe kernels' entries of phase 32 (:func:`probe_entries`); last those
+    of the Mosaic probe sites of phase 33 (:func:`mosaic_site_entries`)."""
     compared, bwd_compared = dfaust["fwd"], dfaust["bwd"]
     scan_conv, scan_cumsum, scan_train, scan_eval = scan["conv"], scan["cumsum"], scan["train"], scan["eval"]
     lvl0 = SCANNET_SHAPES["scannet_level0_block_conv"]
@@ -4548,7 +4926,8 @@ def kernels_line(dfaust: dict, scan: dict, mixf: dict, rot_i: dict, g4: dict, st
                      "max_abs_err": c0b["max_abs_err"], "ms": c0b["ms"], "plain_ms": c0b["plain_ms"],
                      "bound_ms": c0b["bound_ms"], "bound_by": "bytes", "library_ms": c0b["library_ms"],
                      "at": cum_at + " bfloat16 rows"},
-        }, *mode_entries(modes), *probe_entries(probes)], "probe_registers": probes["registers"],
+        }, *mode_entries(modes), *probe_entries(probes), *mosaic_site_entries(sites)],
+        "probe_registers": probes["registers"], "mosaic_site_registers": sites["registers"],
         "other_conv_kinds": {k: modes[k] for k in ("kp_models", "act_models",
                                                                               "plain_kinds")},
         "scannet": {"eval": scan_eval, "train": scan_train, "grid_vs_brute": scan["grid"]},
@@ -4599,6 +4978,9 @@ def main() -> int:
     # 32. the probe kernels of experiments/chip_stage_time.py, bisect_fused.py
     # and chip_stream.py, at their scripts' default sizes
     probes = run_probes(card, dev)
+    # 33. the Mosaic probe sites of experiments/bisect_accum.py,
+    # bisect_accum2.py, probe_cellconv.py and probe_mosaic.py
+    sites = run_mosaic_sites(card, dev)
 
     # 2. kernel vs plain
     shapes = {
@@ -4704,7 +5086,7 @@ def main() -> int:
     dfaust = dict(fwd=compared, bwd=bwd_compared, eval_launches=launches,
                   train_launches=dfaust_steps["launches"], bf16_train_launches=dfaust_bf16["bf16_launches"],
                   bf16_train=dfaust_bf16)
-    print(json.dumps(kernels_line(dfaust, scan, mixf, rot_i, g4, std, mn, cli, evals, modes, probes)))
+    print(json.dumps(kernels_line(dfaust, scan, mixf, rot_i, g4, std, mn, cli, evals, modes, probes, sites)))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

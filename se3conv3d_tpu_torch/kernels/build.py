@@ -31,6 +31,9 @@ SOURCES = {
     "probe_stage": _HERE / "csrc" / "probe_stage_fwd.cu",
     "probe_bwd": _HERE / "csrc" / "probe_bwd_ops.cu",
     "probe_stream": _HERE / "csrc" / "probe_stream.cu",
+    "probe_accum": _HERE / "csrc" / "probe_accum.cu",
+    "probe_cellconv": _HERE / "csrc" / "probe_cellconv.cu",
+    "probe_mosaic": _HERE / "csrc" / "probe_mosaic.cu",
 }
 BUILD_DIR = _HERE / "_build"
 NVCC_FLAGS = [
@@ -64,6 +67,19 @@ _SIGNATURES = {
                   ("se3_probe_scale2", [_P, _P, _L, _P], _I)],
     "probe_stream": [("se3_probe_column_sums", [_P, _L, _I, _P, _P, _P], _I),
                      ("se3_probe_stream_blocks", [], _I)],
+    "probe_accum": [("se3_probe_accum_parts", [_L], _L),
+                    ("se3_probe_block_total_accum", [_P, _L, _P, _P] + [_P, _L] * 3 + [_P], _I),
+                    ("se3_probe_grid_column_accum", [_P, _I, _I, _I, _P, _P, _P], _I),
+                    ("se3_probe_accum_attrs", [_I, _P], _I)],
+    "probe_cellconv": [("se3_probe_gather_blocks", [_P, _I, _P, _I, _L, _F, _P, _P], _I),
+                       ("se3_probe_gather_sum_blocks", [_P, _I, _I, _P, _I, _L, _P, _P], _I),
+                       ("se3_probe_masked_dist_product", [_P, _I, _I, _P, _I, _I, _P, _I, _P, _P, _P], _I),
+                       ("se3_probe_cellconv_attrs", [_I, _P], _I)],
+    "probe_mosaic": [("se3_probe_strided_product", [_P, _P, _I] + [_L] * 6 + [_I] * 6 + [_P] * 3, _I),
+                     ("se3_probe_strided_copy", [_P] + [_L] * 8 + [_P, _P], _I),
+                     ("se3_probe_blockdiag_build", [_P, _I, _I, _I, _P, _P], _I),
+                     ("se3_probe_mid_write", [_P, _I, _I, _I, _P, _P], _I),
+                     ("se3_probe_mosaic_attrs", [_I, _P], _I)],
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

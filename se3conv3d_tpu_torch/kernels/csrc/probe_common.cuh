@@ -1,7 +1,8 @@
 // Pieces shared by the probe kernels (probe_stage_fwd.cu, probe_bwd_ops.cu,
-// probe_stream.cu), sm_90a: the tanh form of GELU that jax.nn.gelu computes
+// probe_stream.cu, probe_accum.cu, probe_cellconv.cu, probe_mosaic.cu), sm_90a: the tanh form of GELU that jax.nn.gelu computes
 // by default (approximate=True) and its derivative, and sums of per-block
-// partials in a fixed order, so that two calls give the same bits.
+// partials in a fixed order, so that two calls give the same bits, and a
+// kernel's registers, local bytes and shared memory for the wrappers.
 // Everything here sits in an anonymous namespace: each source that includes
 // it builds into its own library with its own copy.
 
@@ -53,6 +54,31 @@ sum_partials_fixed(const float* __restrict__ part, int P, int L, float* __restri
   for (int p = threadIdx.x; p < P; p += kPartThreads) s += part[static_cast<long long>(p) * L + j];
   s = block_sum(s, red);
   if (threadIdx.x == 0) out[j] = s;
+}
+
+// out[j] = ((0 + part[0*L + j]) + part[1*L + j]) + ... + part[(P-1)*L + j],
+// one thread a column j < L, the partials in order p = 0, 1, ..., P-1.
+__global__ void __launch_bounds__(kPartThreads)
+sum_rows_ordered(const float* __restrict__ part, int P, int L, float* __restrict__ out) {
+  const int j = blockIdx.x * kPartThreads + threadIdx.x;
+  if (j >= L) return;
+  float s = 0.f;
+  for (int p = 0; p < P; ++p) s += part[static_cast<long long>(p) * L + j];
+  out[j] = s;
+}
+
+// attrs[0..3] = registers a thread, local (stack and spill) bytes, static
+// and dynamic shared memory bytes of kernel fn (cudaFuncGetAttributes).
+template <typename F>
+int kernel_attrs(F* fn, int dynamic_smem, int* attrs) {
+  cudaFuncAttributes a;
+  const cudaError_t err = cudaFuncGetAttributes(&a, fn);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  attrs[0] = a.numRegs;
+  attrs[1] = static_cast<int>(a.localSizeBytes);
+  attrs[2] = static_cast<int>(a.sharedSizeBytes);
+  attrs[3] = dynamic_smem;
+  return 0;
 }
 
 }  // namespace

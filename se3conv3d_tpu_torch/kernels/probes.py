@@ -1,8 +1,12 @@
 """The probe kernels: the fused forward stage by stage, the five backward
-building blocks and the streaming column sum, each a Hopper CUDA kernel
-beside its plain PyTorch version (counterparts of the Pallas kernels of
-``experiments/chip_stage_time.py``, ``experiments/bisect_fused.py`` and
-``experiments/chip_stream.py``).
+building blocks, the streaming column sum and the accumulators into a
+revisited output, each a Hopper CUDA kernel beside its plain PyTorch
+version (counterparts of the Pallas kernels of
+``experiments/chip_stage_time.py``, ``experiments/bisect_fused.py``,
+``experiments/chip_stream.py``, ``experiments/bisect_accum.py``,
+``experiments/bisect_accum2.py`` and ``probe_mosaic.py``'s
+``p11_grid_accum``; the cell-conv and the other Mosaic probes are in
+``cellconv_probes.py`` and ``mosaic_probes.py``).
 
 The staged forward (``csrc/probe_stage_fwd.cu``; replaces
 ``chip_stage_time.py:kern`` and the kernels of ``bisect_fused.py``'s s1-s6)
@@ -34,16 +38,23 @@ what ``jax.jvp`` with a tangent of ones gives), :func:`expand_groups`,
 TPU grid revisited, here per-block partials added in block order) and
 :func:`merge_back`.  The streaming sum (``csrc/probe_stream.cu``; replaces
 ``chip_stream.py:k_sum``): :func:`column_sums` of a row-major ``[R, L]``
-array read once with 16-byte loads.
+array read once with 16-byte loads.  The accumulators
+(``csrc/probe_accum.cu``): :func:`block_total_accum` (the sum of every
+value of ``a`` broadcast into up to three outputs, and ``2a`` where asked:
+``bisect_accum.py`` and ``bisect_accum2.py``) and
+:func:`grid_column_accum` (column sums over blocks of rows added in block
+order: ``probe_mosaic.py``'s ``p11_grid_accum``).
 
 Each wrapper launches its kernel for CUDA tensors and runs its plain
 version (``*_reference``) for CPU tensors; there is no other fallback.
 Each counts its launches (``launches``; in ``launches_by`` also
 :func:`stage_forward`'s by stage, ``"[batch]"`` for a batched call,
 :func:`stage_sum`'s by stage and compute dtype, :func:`column_sums`' by
-width).  The kernels' sums run in other orders than the plain versions';
-:func:`rank3_accum`, :func:`column_sums` and :func:`stage_sum` add their
-partials in a fixed order, so two calls give the same bits.
+width, :func:`block_total_accum`'s by its outputs, :func:`accum_tag`).  The
+kernels' sums run in other orders than the plain versions';
+:func:`rank3_accum`, :func:`column_sums`, :func:`stage_sum`,
+:func:`block_total_accum` and :func:`grid_column_accum` add their partials
+in a fixed order, so two calls give the same bits.
 """
 from __future__ import annotations
 
@@ -63,6 +74,8 @@ __all__ = [
     "gelu_jvp", "gelu_jvp_reference", "expand_groups", "expand_groups_reference",
     "batched_contract", "batched_contract_reference", "rank3_accum", "rank3_accum_reference",
     "merge_back", "merge_back_reference", "column_sums", "column_sums_reference",
+    "accum_tag", "block_total_accum", "block_total_accum_reference", "grid_column_accum",
+    "grid_column_accum_reference", "TM", "ACCUM_KERNELS", "kernel_attributes", "accum_kernel_attributes",
 ]
 
 # the stages by their codes in the kernel (csrc Stage); "reduce" is the whole forward
@@ -440,3 +453,108 @@ def column_sums(x: torch.Tensor) -> torch.Tensor:
 
 column_sums.launches = 0
 column_sums.launches_by = {}
+
+
+# --- the accumulators into a revisited output -------------------------------------
+
+# the kernels of csrc/probe_accum.cu by their index in se3_probe_accum_attrs
+ACCUM_KERNELS = ("chunk_totals", "broadcast_total", "block_column_sums", "sum_rows_ordered")
+_MAX_ACCUM_OUTS = 3
+# rows of a's leading dimension in one TPU grid block, in every accumulator probe
+TM = 128
+
+
+def accum_tag(shapes, with_dfeat: bool) -> str:
+    """:func:`block_total_accum`'s key in ``launches_by``: the outputs'
+    shapes, then ``dfeat``, e.g. ``"18x64+1x64+64x64x64+dfeat"``."""
+    return "+".join(["x".join(map(str, s)) for s in shapes] + (["dfeat"] if with_dfeat else []))
+
+
+def block_total_accum_reference(a: torch.Tensor, shapes, with_dfeat: bool = True) -> list:
+    """Plain PyTorch version of :func:`block_total_accum`: the blocks of
+    :data:`TM` rows summed on their own and added in block order from zero,
+    as the TPU grid did."""
+    s = torch.zeros((), dtype=torch.float32, device=a.device)
+    for blk in a.split(TM, 0):
+        s = s + blk.sum()
+    outs = [s.expand(shape).clone() for shape in shapes]
+    return ([a * 2.0] if with_dfeat else []) + outs
+
+
+def block_total_accum(a: torch.Tensor, shapes, with_dfeat: bool = True) -> list:
+    """``[dfeat] + outs``: ``dfeat = 2a`` (where ``with_dfeat``) and one
+    float32 tensor per shape of ``shapes`` (at most three), every element
+    the sum of every value of ``a [S*TM, ...]``: the accumulators of
+    ``experiments/bisect_accum.py`` and ``bisect_accum2.py``, which added
+    each grid block's total into outputs zeroed at step 0 (``bisect_accum``
+    writes its dW2 as ``broadcast(red[...]) * 0 + sum(red)``, the block
+    total for finite values: the ``* 0`` term only turns an infinite one
+    into NaN).  CUDA tensors launch ``csrc/probe_accum.cu``: chunk sums
+    in one pass over ``a`` (which also writes ``dfeat``), then the total
+    of the chunk sums in a fixed order broadcast into the outputs."""
+    if a.dim() < 1 or a.shape[0] % TM or len(shapes) > _MAX_ACCUM_OUTS:
+        raise ValueError(f"a must be [S * {TM}, ...] and at most {_MAX_ACCUM_OUTS} outputs, got "
+                         f"{tuple(a.shape)} and {len(shapes)}")
+    if not _on_card("block_total_accum", a):
+        return block_total_accum_reference(a, shapes, with_dfeat)
+    n = a.numel()
+    lib = library("probe_accum")
+    part = torch.empty(lib.se3_probe_accum_parts(n), dtype=torch.float32, device=a.device)
+    dfeat = torch.empty_like(a) if with_dfeat else None
+    outs = [torch.empty(tuple(shape), dtype=torch.float32, device=a.device) for shape in shapes]
+    slots = [(o.data_ptr(), o.numel()) for o in outs] + [(None, 0)] * (_MAX_ACCUM_OUTS - len(outs))
+    with torch.cuda.device(a.device):
+        _check(lib.se3_probe_block_total_accum(a.data_ptr(), n, None if dfeat is None else dfeat.data_ptr(),
+                                               part.data_ptr(), *[v for slot in slots for v in slot], _stream(a)),
+               "block_total_accum")
+    key = accum_tag(shapes, with_dfeat)
+    block_total_accum.launches += 1
+    block_total_accum.launches_by[key] = block_total_accum.launches_by.get(key, 0) + 1
+    return ([dfeat] if with_dfeat else []) + outs
+
+
+def grid_column_accum_reference(a: torch.Tensor) -> torch.Tensor:
+    s = torch.zeros(a.shape[1], dtype=torch.float32, device=a.device)
+    for blk in a.split(TM, 0):  # the TPU grid's steps, in order
+        s = s + blk.sum(0)
+    return s[None]
+
+
+def grid_column_accum(a: torch.Tensor) -> torch.Tensor:
+    """``[1, C]``: the column sums of ``a [S*TM, C]``, each block of
+    :data:`TM` rows summed on its own (in row order on the card) and the
+    block sums added in block order from zero, as the TPU grid's revisited
+    output did (``probe_mosaic.py``'s ``p11_grid_accum``)."""
+    if a.dim() != 2 or a.shape[0] % TM or a.shape[0] == 0:
+        raise ValueError(f"a must be [S * {TM}, C], got {tuple(a.shape)}")
+    if not _on_card("grid_column_accum", a):
+        return grid_column_accum_reference(a)
+    s, c = a.shape[0] // TM, a.shape[1]
+    part = torch.empty(s, c, dtype=torch.float32, device=a.device)
+    out = torch.empty(1, c, dtype=torch.float32, device=a.device)
+    with torch.cuda.device(a.device):
+        _check(library("probe_accum").se3_probe_grid_column_accum(a.data_ptr(), s, TM, c, part.data_ptr(),
+                                                                  out.data_ptr(), _stream(a)), "grid_column_accum")
+    grid_column_accum.launches += 1
+    return out
+
+
+block_total_accum.launches = 0
+block_total_accum.launches_by = {}
+grid_column_accum.launches = 0
+
+
+def kernel_attributes(lib_name: str, symbol: str, which: int) -> dict:
+    """Registers, local (stack and spill) bytes and shared memory of kernel
+    ``which`` of a probe library, through its ``*_attrs`` entry
+    (``cudaFuncGetAttributes``; needs the card)."""
+    attrs = (ctypes.c_int * 4)()
+    err = getattr(library(lib_name), symbol)(which, ctypes.cast(attrs, ctypes.c_void_p))
+    if err != 0:
+        raise RuntimeError(f"{symbol}({which}) failed: CUDA error {err}")
+    return {"registers": attrs[0], "local_bytes": attrs[1], "static_smem": attrs[2], "dynamic_smem": attrs[3]}
+
+
+def accum_kernel_attributes() -> dict:
+    """:func:`kernel_attributes` of every kernel of ``csrc/probe_accum.cu``."""
+    return {k: kernel_attributes("probe_accum", "se3_probe_accum_attrs", i) for i, k in enumerate(ACCUM_KERNELS)}
