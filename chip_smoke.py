@@ -282,6 +282,32 @@ order they run:
     that room's level-0 shape and live fill (bfloat16), with its bound and
     ``torch.matmul``, and the shape's int32 index ranges;
 
+34. (after phase 28) the rest of the model zoo at full widths, with every
+    launch count at 0 before each path and read after it:
+    ``dfaust_I_rot_pca_2F`` (B = 32) with ``block_layer`` ``resnetb``, with
+    ``resconvnext`` and two hidden seg-head layers, and as the plain
+    ``SegUNet``: a calibration step, three train steps (the median after the
+    first, the peak), an eval step, every conv launching once a pass; then
+    on two bodies the rotation gate and card vs CPU logits, each beside its
+    control (the frames left unrotated; the first conv's kernel planted
+    wrong), the norms seeded where a control does not pass; the same recipe
+    with PCA frames over a ball query (radius ``BQ_RADIUS``): the frames card
+    vs CPU from the same draws beside the kNN frames as the control, then
+    the same train, eval and gates; ``modelnet40_pca_2F`` (B = 12, 512
+    channels) with ClassNet's global equivariant feature vector into one
+    extra grid level: forward, the backward of a seeded projection, the
+    O = 1024 conv's kernels against their plain versions at its shape with
+    their plans and peaks, the feature vector's rotation gate and card vs
+    CPU, each with its control; both conv kernels at Q = 64 against their
+    plain versions at DFaust's level 0 (standard geometry in float32 and
+    bfloat16, kernel points at P = 13 and 55, the equivariant geometry at
+    G = F = 2), and one train step each of ``dfaust_I_standard`` at
+    ``num_basis: 64`` (mlp gelu and ``kp_gauss_double``) and of
+    ``dfaust_I_rot_pca_2F`` at ``num_basis: 64``, every launch counted at
+    (D, 64); ``MultiHeadAttConv`` and ``LoRAttConv`` on DFaust's level 0 (kNN
+    16, 32 channels, 16 basis functions, 4 heads): forward and gradients
+    card vs CPU at B = 2, their times at B = 32;
+
 and last, one ``modelnet40_pca_2F`` train step under ``torch.profiler``
 (device ms by kernel, per conv pass, in PyTorch's reductions, and the idle
 share).
@@ -1530,13 +1556,15 @@ def computing_in(model, dtype):
 
 def reset_launches(kfe, segsum=None) -> None:
     """Every kernel launch count to 0 (all, those with bfloat16 operands,
-    and those by out-frame count G, by pne input width D, by activation and
-    by kernel-point kind where the package counts them)."""
+    and those by out-frame count G, by pne input width D, by activation, by
+    kernel-point kind and by (D, Q) where the package counts them)."""
     for fn in (kfe.fused_equiv_fwd, kfe.fused_equiv_bwd):
         fn.launches = fn.bf16_launches = 0
         fn.launches_by_g, fn.launches_by_d = {}, {}
         if hasattr(fn, "launches_by_act"):
             fn.launches_by_act, fn.launches_by_kp = {}, {}
+        if hasattr(fn, "launches_by_q"):
+            fn.launches_by_q = {}
     if segsum is not None:
         segsum.blocked_cumsum.launches = 0
 
@@ -1774,8 +1802,7 @@ def watching_live_rows(kfe, name="fused_equiv_bwd"):
 
     # the wrapper counts its launches on the module's attribute `name`:
     # here that is `watched`, which carries the counts and hands them back
-    counts = [a for a in ("launches", "bf16_launches", "launches_by_g", "launches_by_d",
-                          "launches_by_act", "launches_by_kp") if hasattr(real, a)]
+    counts = [a for a in vars(real) if a.endswith("launches") or a.startswith("launches_by_")]
     for attr in counts:
         setattr(watched, attr, getattr(real, attr))
     setattr(kfe, name, watched)
@@ -4739,8 +4766,550 @@ def mosaic_site_entries(ms: dict) -> list:
     ]
 
 
+# phase 34: the rest of the model zoo at full widths: the other residual
+# blocks, the hidden seg-head layers and the plain SegUNet, ball-query PCA
+# frames, ClassNet's global equivariant feature vector, 64 basis functions
+# in every geometry, and the attention convs
+ZOO_TRAIN_STEPS = 3
+# dfaust_I_rot_pca_2F's variants: label: (ModelSpec fields, net)
+ZOO_VARIANTS = {
+    "dfaust_resnetb": (dict(block_layer="resnetb"), "FPNSegUNet"),
+    "dfaust_resconvnext_hidden2": (dict(block_layer="resconvnext", num_hidden_seg_head=2), "FPNSegUNet"),
+    "dfaust_segunet": ({}, "SegUNet"),
+}
+# ball-query PCA frames on the bodies (level 0 at 0.04 m cells, about 625
+# points a square meter of surface): a ball of 0.09 m holds about
+# neigh_k = 16 of them.  The radius is the same on every level, as the
+# recipe key is: on the coarser levels the balls hold a few points
+BQ_RADIUS, BQ_NEIGH_K = 0.09, 16
+# frames card vs CPU where the neighborhood's PCA axes are determined
+# (eigenvalues apart by at least BQ_EIG_GAP of their span; elsewhere the
+# axes are not fixed by the data): float32 sums in other orders move an
+# axis by about eps over the gap
+BQ_EIG_GAP, FRAMES_ATOL = 5e-2, 1e-4
+# ClassNet's global feature vector: one extra grid level past
+# modelnet40_pca_2F's trunk (cells of 0.8 on the unit-sphere shapes)
+MN_EXTRA_CELL, MN_EXTRA_CAP = 0.8, 64
+# Q = 64: name: ((B, M, N, K, G, F, Q, C, O), pne type, operand dtypes):
+# DFaust's level-0 conv in the standard and kernel-point geometries
+# (G = F = 1, one pne row of 64 columns, the wide basis tile) and in the
+# equivariant one at G = F = 2 (G*Q = 128: the 128-column instantiations),
+# at the bodies' level-0 fill
+Q64_SHAPES = {
+    "dfaust_std_level0_conv_q64": ((BATCH, 4096, 4096, 32, 1, 1, 64, 32, 32), "mlp_gelu", KERNEL_DTYPES),
+    "dfaust_std_level0_conv_q64_kp_gauss": ((BATCH, 4096, 4096, 32, 1, 1, 64, 32, 32), "kp_gauss",
+                                            (torch.float32,)),
+    "dfaust_std_level0_conv_q64_kp_gauss_double": ((BATCH, 4096, 4096, 32, 1, 1, 64, 32, 32), "kp_gauss_double",
+                                                   (torch.float32,)),
+    "dfaust_level0_conv_q64_g2": ((BATCH, 4096, 4096, 32, 2, 2, 64, 32, 32), "mlp_gelu", (torch.float32,)),
+}
+# the Q = 64 models, one train step each: label: (recipe, ConvFactory
+# fields, pne inputs D)
+Q64_MODELS = {
+    "dfaust_std_q64": ("DFAUST_I_STANDARD", dict(num_basis=64), 3),
+    "dfaust_std_kp_gauss_double_q64": ("DFAUST_I_STANDARD", dict(pne_type="kp_gauss_double", num_basis=64), 55),
+    "dfaust_rot_pca_2F_q64": ("DFAUST_I_ROT_PCA_2F", dict(num_basis=64), 9),
+}
+# the attention convs on DFaust's level 0: kNN, channels in = out, basis
+# functions, heads
+ATT_K, ATT_C, ATT_Q, ATT_HEADS = 16, 32, 16, 4
+
+
+def fused_convs(model) -> int:
+    """The convs of ``model`` that launch the conv kernels (one forward and
+    one backward launch each per pass)."""
+    from se3conv3d_tpu_torch.nn.conv import PNEConv
+
+    return sum(1 for m in model.modules() if isinstance(m, PNEConv) and m.fused)
+
+
+def zoo_model(spec, net, dev, num_in_feats=1, num_classes=CLASSES):
+    """A ``net`` (``FPNSegUNet``, ``SegUNet`` or ``ClassNet``) of ``spec`` on
+    ``dev`` with a seeded init and seeded skip gammas, as a user builds one
+    with ``get_model_spec`` and ``dataclasses.replace``."""
+    from se3conv3d_tpu_torch import models
+
+    model = getattr(models, net)(spec, num_in_feats, num_classes, generator=torch.Generator().manual_seed(0))
+    return seed_gammas(model.to(dev))
+
+
+def by_q(kfe) -> tuple:
+    """The launches by (D, Q) since the last reset, forward and backward."""
+    return tuple(dict(getattr(fn, "launches_by_q", {})) for fn in (kfe.fused_equiv_fwd, kfe.fused_equiv_bwd))
+
+
+def rotation_with_control(card, label, model, h, f0, out_pc=None, valid=None) -> dict:
+    """Phase 4's gate beside its control: the output of an equivariant
+    ``model`` (logits, or ``ClassNet``'s feature vector in its frames, where
+    ``out_pc`` is None) unchanged by a global rotation of the hierarchy
+    (``ROT_ATOL``), and changed past it when the positions are rotated and
+    the frames are not.  Where that control does not get past the bound on
+    the model as it is (its norms shrink the conv path), a copy with every
+    norm seeded from its own input (:func:`seed_norms`) is gated.  ``valid``:
+    the rows compared (all where None).  Returns the readings, each key
+    prefixed ``rotation_`` (the card-vs-CPU gate's share a dict with them)."""
+    from se3conv3d_tpu_torch.core.hierarchy import Hierarchy, rotate_cloud, rotate_hierarchy
+    from se3conv3d_tpu_torch.core.pointcloud import PointCloud
+    from se3conv3d_tpu_torch.core.rotation import random_rotations
+
+    rot = random_rotations(1, generator=torch.Generator().manual_seed(6))[0].to(f0.device)
+
+    def unframed(pc):
+        return PointCloud(pc.positions @ rot.T, pc.mask, pc.frames)
+
+    def readings(m):
+        def call(hh, oo):
+            return m(hh, f0) if out_pc is None else m(hh, f0, oo)
+
+        keep = (lambda x: x) if valid is None else (lambda x: x[valid])
+        with torch.no_grad():
+            base = call(h, out_pc)
+            rotated = call(rotate_hierarchy(h, rot), None if out_pc is None else rotate_cloud(out_pc, rot))
+            control = call(Hierarchy(tuple(unframed(pc) for pc in h.levels), h.maps, h.levels_radii),
+                           None if out_pc is None else unframed(out_pc))
+        return (keep((base - rotated).abs()).max().item(), keep((base - control).abs()).max().item(),
+                base.abs().max().item())
+
+    err, control, scale = readings(model)
+    out = dict(rotation_max_abs_err=err, rotation_control=control, rotation_norms_seeded=False)
+    print(f"{label} invariance: max |out - out(rotated)| = {err:.3e} (bound {ROT_ATOL}); control, the positions "
+          f"rotated and the frames not: {control:.3e}; max |out| {scale:.3e} [{card}]", flush=True)
+    if control <= ROT_ATOL:
+        model = copy.deepcopy(model)
+        seed_norms(model, h, f0, out_pc)
+        out.update(rotation_unseeded_max_abs_err=err, rotation_unseeded_control=control,
+                   rotation_norms_seeded=True)
+        err, control, scale = readings(model)
+        out.update(rotation_max_abs_err=err, rotation_control=control)
+        print(f"{label} invariance (norms seeded, the control above does not pass the bound): max |out - "
+              f"out(rotated)| = {err:.3e} (bound {ROT_ATOL}); control {control:.3e}; max |out| {scale:.3e} "
+              f"[{card}]", flush=True)
+    if not err <= ROT_ATOL < control:
+        raise SystemExit(f"{label}: the output changes under a global rotation, or the bound does not tell a "
+                         "model that ignores the frames' rotation")
+    return out
+
+
+def zoo_dfaust_run(card, dev, label, model, model_dict, batch, small, steps=ZOO_TRAIN_STEPS) -> dict:
+    """34a-b. one segmentation model on ``batch`` at full width with the
+    hierarchy of the ``Model`` section ``model_dict`` and the DFaust
+    recipe's ``Training`` section: with every launch count at 0, a
+    calibration step, ``steps`` train steps (the median after the first,
+    the peak) and one eval step, each forward and backward launching every
+    conv's kernel once, all at (D, Q) = (9, 32); finite losses, the logits'
+    shape.  Then on the two clouds of ``small`` the rotation gate
+    (:func:`rotation_with_control`) and card vs CPU logits
+    (:func:`card_vs_cpu_with_control`), each beside its control."""
+    from se3conv3d_tpu_torch.kernels import fused_equiv as kfe
+    from se3conv3d_tpu_torch.models import presets
+    from se3conv3d_tpu_torch.train import schedule
+    from se3conv3d_tpu_torch.train.trainer import Trainer
+
+    training = presets.DFAUST_I_ROT_PCA_2F_TRAINING
+    trainer = Trainer(model, presets.hierarchy_config_from_model_dict(model_dict, POINTS, train=True),
+                      presets.hierarchy_config_from_model_dict(model_dict, POINTS, train=False),
+                      label_smoothing=training["label_smoothing"],
+                      optimizer=schedule.optimizer_from_training(model.parameters(), training, steps))
+    n = fused_convs(model)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(kfe)
+    trainer.calibration_step(batch, gen)
+    step_s, losses = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        res = trainer.train_step(batch, gen)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append((float(res["loss"]), float(res["grad_norm"])))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    t0 = time.perf_counter()
+    ev = trainer.eval_step(batch, gen)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    launches, q_launches = read_launches(kfe), by_q(kfe)
+    steady = statistics.median(step_s[1:])
+    print(f"{label}: {type(model).__name__} block {model.spec.block_layer}, hidden seg-head layers "
+          f"{model.spec.num_hidden_seg_head}, {n} convs; train steps {[round(s, 4) for s in step_s]} s, median "
+          f"after the first {steady:.4f} s, peak {peak:.3f} GiB; eval step {eval_s:.4f} s; losses "
+          f"{[round(lo, 4) for lo, _ in losses]}; launches fwd {launches[0]} bwd {launches[1]}, by (D, Q) "
+          f"{q_launches} [{card}]", flush=True)
+    want = (n * (steps + 2), n * steps)
+    if launches != want or q_launches != ({(9, 32): want[0]}, {(9, 32): want[1]}):
+        raise SystemExit(f"{label}: launches {launches} by (D, Q) {q_launches}, expected {want} at (9, 32)")
+    if not (all(np.isfinite(x) for pair in losses for x in pair) and torch.isfinite(ev["logits"]).all()
+            and tuple(ev["logits"].shape) == (BATCH, model_dict["out_capacity"], CLASSES)):
+        raise SystemExit(f"{label}: non-finite losses or bad logits")
+    model.eval()
+    h, f0, out_pc, _, _ = trainer.build(small, torch.Generator(device=dev).manual_seed(5), train=False)
+    gates = rotation_with_control(card, label, model, h, f0, out_pc, out_pc.mask)
+    gates.update(card_vs_cpu_with_control(card, label, model, (h, f0, out_pc), out_pc.mask))
+    return dict(step_s=step_s, steady_s=steady, peak_gib=peak, eval_s=eval_s, launches=launches, convs=n,
+                gates=gates)
+
+
+def well_posed_frames(pc, cfg) -> tuple:
+    """The points of ``pc`` whose frame neighborhood (``cfg``'s ball query,
+    invalid neighbors filled with the center as the solver fills them) has
+    PCA eigenvalues apart by at least ``BQ_EIG_GAP`` of their span, and
+    each valid point's neighbor count."""
+    from se3conv3d_tpu_torch.core.neighborhoods import ball_query_neighborhood
+
+    nb = ball_query_neighborhood(pc, pc, cfg.bq_radius, cfg.neigh_k)
+    pos = pc.positions.double()
+    x = pos[torch.arange(pos.shape[0], device=pos.device)[:, None, None], nb.idx]
+    x = torch.where(nb.mask[..., None], x, pos[:, :, None, :])
+    c = x - x.mean(2, keepdim=True)
+    w = torch.linalg.eigvalsh(torch.einsum("bnki,bnkj->bnij", c, c))
+    span = (w[..., 2] - w[..., 0]).clamp(min=1e-30)
+    gap = torch.diff(w, dim=-1).min(-1).values / span
+    return (gap >= BQ_EIG_GAP) & pc.mask, nb.mask.sum(-1)[pc.mask]
+
+
+def bq_frames_card_vs_cpu(card, dev, hcfg, small) -> dict:
+    """34b. the hierarchy of the two clouds of ``small`` with PCA frames over
+    a ball query (``hcfg``), built on the card and on the CPU from the same
+    draws: every level's and the output cloud's frames within
+    ``FRAMES_ATOL`` where the neighborhood fixes the axes
+    (:func:`well_posed_frames`), beside the control: the card's frames over
+    the kNN neighborhood of the same ``neigh_k``, past it.  Prints the
+    balls' mean valid count on level 0."""
+    from se3conv3d_tpu_torch.core.hierarchy import HierarchyDraws, build_hierarchy, draw_hierarchy
+
+    draws = draw_hierarchy(hcfg, 2, POINTS, torch.Generator().manual_seed(21))
+
+    def build(cfg, where):
+        d = HierarchyDraws([x.to(where) for x in draws.level_frames], draws.out_uniforms.to(where),
+                           draws.out_frames.to(where))
+        b = {k: v.to(where) for k, v in small.items()}
+        h, _, out_pc, _, _ = build_hierarchy(b["positions"], b["mask"], b["features"], cfg, draws=d)
+        return list(h.levels) + [out_pc]
+
+    card_pcs, cpu_pcs = build(hcfg, dev), build(hcfg, torch.device("cpu"))
+    knn_pcs = build(dataclasses.replace(hcfg, frames=dataclasses.replace(hcfg.frames, neigh_method="knn")), dev)
+    levels = []
+    for i, (a, b, k) in enumerate(zip(card_pcs, cpu_pcs, knn_pcs)):
+        ok, count = well_posed_frames(b, hcfg.frames)
+        err = (a.frames.cpu() - b.frames).abs()[ok].max().item() if ok.any() else 0.0
+        control = (k.frames.cpu() - b.frames).abs()[ok].max().item() if ok.any() else 0.0
+        levels.append(dict(max_abs_err=err, control=control, well_posed=int(ok.sum()), valid=int(b.mask.sum()),
+                           mean_valid_count=float(count.float().mean()) if count.numel() else 0.0))
+    err, control = max(x["max_abs_err"] for x in levels), max(x["control"] for x in levels)
+    share = levels[0]["well_posed"] / levels[0]["valid"]
+    print(f"ball_query_frames: radius {hcfg.frames.bq_radius}, neigh_k {hcfg.frames.neigh_k}; mean valid count on "
+          f"level 0 {levels[0]['mean_valid_count']:.2f}, per level "
+          f"{[round(x['mean_valid_count'], 2) for x in levels]}; well-posed points per level "
+          f"{[(x['well_posed'], x['valid']) for x in levels]}; max |frames(card) - frames(cpu)| there = {err:.3e} "
+          f"(bound {FRAMES_ATOL}); control, the kNN frames: {control:.3e} [{card}]", flush=True)
+    if not (err <= FRAMES_ATOL < control and share >= 0.5):
+        raise SystemExit("ball_query_frames: card and CPU frames disagree, the control passes, or level 0 has too "
+                         "few well-posed points")
+    return dict(levels=levels, max_abs_err=err, control=control, level0_well_posed_share=share)
+
+
+def modelnet_global(card, dev, batch) -> dict:
+    """34c. ``modelnet40_pca_2F`` at full widths with
+    ``global_equiv_featurevector`` and one extra grid level (``MN_EXTRA_CELL``,
+    capacity ``MN_EXTRA_CAP``): with every count at 0, a calibration pass,
+    the forward on ``batch`` (``[B, M_extra, F, 2C]``, 2C = 1024) and the
+    backward of a seeded random projection of it, timed (host clock,
+    synchronised) with their peak, every conv launching once a pass at
+    (D, Q) = (9, 32); the O = 1024 conv's forward and backward kernels at
+    its shape and live rows against their plain versions, with their plans
+    and the memory one call adds; then on two shapes the rotation gate of
+    the feature vector and card vs CPU, each beside its control."""
+    from se3conv3d_tpu_torch.kernels import fused_equiv as kfe
+    from se3conv3d_tpu_torch.models import presets
+    from se3conv3d_tpu_torch.train.trainer import Trainer
+
+    base = presets.MODELNET40_PCA_2F_MODEL
+    model_dict = {**base, "grid_subsamples": base["grid_subsamples"] + [MN_EXTRA_CELL],
+                  "capacities": base["capacities"] + [MN_EXTRA_CAP]}
+    spec = dataclasses.replace(presets.spec_from_model_dict(model_dict), global_equiv_featurevector=True)
+    model = zoo_model(spec, "ClassNet", dev, presets.MODELNET40_NUM_FEATURES, presets.MODELNET40_NUM_CLASSES)
+    trainer = Trainer(model, *(presets.hierarchy_config_from_model_dict(model_dict, POINTS, train=t)
+                               for t in (True, False)))
+    h, f0, _, _, _ = trainer.build(batch, torch.Generator(device=dev).manual_seed(116), train=False)
+    trunk, extra = h.levels[-2], h.levels[-1]
+    fill = [int(pc.mask.sum(1).max()) for pc in h.levels]
+    c = spec.num_features[-1]
+    n = fused_convs(model)
+    model.eval()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(kfe)
+    with torch.no_grad():
+        model(h, f0, calibrate=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = model(h, f0)
+    torch.cuda.synchronize()
+    fwd_s = time.perf_counter() - t0
+    proj = torch.randn(out.shape, device=dev, generator=torch.Generator(device=dev).manual_seed(117))
+    t0 = time.perf_counter()
+    (out * proj).sum().backward()
+    torch.cuda.synchronize()
+    bwd_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches, q_launches = read_launches(kfe), by_q(kfe)
+    grad = model.global_conv_down.conv_weights.grad
+    print(f"modelnet_global: {n} convs, levels' max valid points {fill} of capacities "
+          f"{[pc.capacity for pc in h.levels]}; output {tuple(out.shape)}; forward {fwd_s:.4f} s, backward of a "
+          f"seeded projection {bwd_s:.4f} s, peak {peak:.3f} GiB; launches fwd {launches[0]} bwd {launches[1]}, "
+          f"by (D, Q) {q_launches} [{card}]", flush=True)
+    want = (2 * n, n)
+    if (tuple(out.shape) != (MN_BATCH, MN_EXTRA_CAP, 2, 2 * c) or not torch.isfinite(out).all()
+            or launches != want or q_launches != ({(9, 32): want[0]}, {(9, 32): want[1]})
+            or not (torch.isfinite(grad).all() and grad.abs().max() > 0)
+            or any(p.grad is None for p in model.parameters())):
+        raise SystemExit(f"modelnet_global: output {tuple(out.shape)}, launches {launches} {q_launches}, or a "
+                         "missing or non-finite gradient")
+    del out, proj
+    model.zero_grad(set_to_none=True)
+    # the O = 1024 conv at its shape and live rows
+    shp = (MN_BATCH, MN_EXTRA_CAP, trunk.capacity, trunk.capacity, 2, 2, spec.conv.num_basis, c, 2 * c)
+    args, gout = padded_conv_args(140, shp, fill[-1], dev)
+    live = kfe.live_row_table(args[4])
+    plan = conv_plan(shp, live.numel())
+    with torch.no_grad():
+        plan["fwd_peak_mib"] = call_peak_mib(lambda: kfe.fused_equiv_fwd(*args, live_rows=live))
+    plan["bwd_peak_mib"] = call_peak_mib(lambda: kfe.fused_equiv_bwd(*args, gout, live_rows=live))
+    print(f"modelnet_global_conv_plan B,M,N,K,G,F,Q,C,O={shp}: {live.numel()} live rows; forward {plan['chunks']} "
+          f"chunk(s), {plan['splits']} depth split(s), scratch {plan['fwd_scratch_mib']:.1f} MiB, one call's peak "
+          f"{plan['fwd_peak_mib']:.1f} MiB; backward scratch {plan['bwd_scratch_mib']:.1f} MiB, w_splits "
+          f"{plan['w_splits']} ({plan['w_partials_mib']:.1f} MiB of d_w partials), one call's peak "
+          f"{plan['bwd_peak_mib']:.1f} MiB [{card}]", flush=True)
+    bounds = conv_bounds(shp, args[3], args[4])
+    conv = dict(shape=shp, plan=plan,
+                fwd=forward_vs_plain(card, "modelnet_global_conv_fwd_kernel_vs_plain", shp, args, live,
+                                     bounds["fwd"], 141),
+                bwd=backward_vs_plain(card, "modelnet_global_conv_bwd_kernel_vs_plain", shp, args, gout, live,
+                                      bounds["bwd"], 142))
+    del args, gout, live
+    torch.cuda.empty_cache()
+    small = to_device(shape_batch(2, POINTS, seed=115), dev)
+    h2, f2, _, _, _ = trainer.build(small, torch.Generator(device=dev).manual_seed(118), train=False)
+    valid = h2.levels[-1].mask
+    gates = rotation_with_control(card, "modelnet_global", model, h2, f2, None, valid)
+    gates.update(card_vs_cpu_with_control(card, "modelnet_global", model, (h2, f2), valid))
+    return dict(forward_s=fwd_s, backward_s=bwd_s, peak_gib=peak, launches=launches, convs=n, fill=fill,
+                conv=conv, gates=gates)
+
+
+def q64_kernels(card, dev, fill) -> dict:
+    """34d. both conv kernels at Q = 64 (``Q64_SHAPES``, DFaust's level 0 at
+    the bodies' fill ``fill[0]``) against their plain versions with the
+    gates and times of phases 2 and 6: the standard geometry in float32
+    and bfloat16, kernel points (gauss at P = 13 and 55, float32 offsets),
+    the equivariant geometry at G = F = 2; every launch counted at (D, 64)."""
+    from se3conv3d_tpu_torch.kernels import fused_equiv as kfe
+
+    out = {}
+    for i, (name, (shp, pne_type, dtypes)) in enumerate(Q64_SHAPES.items()):
+        b, m, n, k, g, f, q, c, o = shp
+        for dt in dtypes:
+            kp = conv_kernel_points(pne_type, dev) if pne_type.startswith("kp") else None
+            args, gout = padded_conv_args(150 + i, shp, fill[0], dev, torch.float32 if kp else dt)
+            d = 9 if g > 1 else 3
+            if kp is not None:
+                d = kp.points.shape[0]
+                gen = torch.Generator(device=dev).manual_seed(160 + i)
+                args = [args[0], None, args[2].to(dt), args[3], args[4],
+                        torch.randn(d, q, device=dev, generator=gen) * 0.3, args[6], args[7]]
+            elif d == 3:
+                args[1], args[5] = None, args[5][:3].contiguous()
+            live = kfe.live_row_table(args[4])
+            bounds = conv_bounds(shp, args[3], args[4], dt, d=d, kp=kp is not None)
+            opts = dict(act="linear", kp=kp) if kp is not None else {}
+            reset_launches(kfe)
+            out.setdefault(name, {})[dtype_name(dt)] = dict(
+                fwd=forward_vs_plain(card, f"q64_fwd_kernel_vs_plain {name}", shp, args, live, bounds["fwd"],
+                                     165 + i, opts),
+                bwd=backward_vs_plain(card, f"q64_bwd_kernel_vs_plain {name}", shp, args, gout, live,
+                                      bounds["bwd"], 170 + i, opts))
+            if any(set(x) != {(d, 64)} for x in by_q(kfe)):
+                raise SystemExit(f"phase 34 at {name}: launches by (D, Q) {by_q(kfe)}, expected ({d}, 64) only")
+            del args, gout, live
+            torch.cuda.empty_cache()
+    return out
+
+
+def q64_models(card, dev, batch) -> dict:
+    """34d. the DFaust recipes with 64 basis functions (``Q64_MODELS``): one
+    calibration and one train step each (:func:`dfaust_train`: 21 forward
+    and 21 backward launches a step), every launch at (D, 64) and none on
+    the plain path."""
+    from se3conv3d_tpu_torch.kernels import fused_equiv as kfe
+    from se3conv3d_tpu_torch.models import presets
+
+    out = {}
+    for label, (recipe, kind, d) in Q64_MODELS.items():
+        model_dict, training = (getattr(presets, f"{recipe}_{part}") for part in ("MODEL", "TRAINING"))
+        trainer, steps = dfaust_train(card, dev, batch, model_dict, training, kind, 1)
+        launches, q_launches = read_launches(kfe), by_q(kfe)
+        print(f"{label}: launches fwd {launches[0]} bwd {launches[1]}, by (D, Q) {q_launches} [{card}]", flush=True)
+        if q_launches != ({(d, 64): launches[0]}, {(d, 64): launches[1]}):
+            raise SystemExit(f"{label}: launches by (D, Q) {q_launches}, expected every one at ({d}, 64)")
+        out[label] = dict(train=steps, launches=launches, d=d)
+        del trainer
+        torch.cuda.empty_cache()
+    return out
+
+
+def attention_layers(card, dev, batch) -> dict:
+    """34e. ``MultiHeadAttConv`` and ``LoRAttConv`` (PyTorch ops, as the JAX
+    layers' XLA einsums) on DFaust's level 0 (``batch``'s bodies, kNN
+    ``ATT_K``, ``ATT_C`` -> ``ATT_C`` channels, ``ATT_Q`` basis functions,
+    ``ATT_HEADS`` heads), calibrated on the card: the forward and the
+    gradients of a seeded projection (every parameter and the features) on
+    the card against the CPU at B = 2 (``KERNEL_RTOL`` of max |out|,
+    ``GRAD_RTOL`` per leaf), then the forward and forward + backward times
+    at the full batch and the peak; no conv kernel launched."""
+    from se3conv3d_tpu_torch.core.hierarchy import build_hierarchy
+    from se3conv3d_tpu_torch.core.neighborhoods import Neighborhood, knn_neighborhood
+    from se3conv3d_tpu_torch.core.pointcloud import PointCloud
+    from se3conv3d_tpu_torch.kernels import fused_equiv as kfe
+    from se3conv3d_tpu_torch.models import init_parameters, presets
+    from se3conv3d_tpu_torch.nn import LoRAttConv, MultiHeadAttConv
+    from se3conv3d_tpu_torch.train import schedule
+
+    hcfg = presets.hierarchy_config_from_model_dict(presets.DFAUST_I_STANDARD_MODEL, POINTS)
+    h = build_hierarchy(batch["positions"], batch["mask"], batch["features"], hcfg,
+                        generator=torch.Generator(device=dev).manual_seed(13))[0]
+    pc = h.levels[0]
+    neigh = knn_neighborhood(pc, pc, ATT_K)
+    gen = torch.Generator(device=dev).manual_seed(162)
+    x = torch.randn(*pc.mask.shape, ATT_C, device=dev, generator=gen)
+    proj = torch.randn(*pc.mask.shape, ATT_C, device=dev, generator=gen)
+    pc2 = PointCloud(pc.positions[:2].contiguous(), pc.mask[:2].contiguous())
+    nb2 = knn_neighborhood(pc2, pc2, ATT_K)
+    out = {}
+    for name, cls in (("MultiHeadAttConv", MultiHeadAttConv), ("LoRAttConv", LoRAttConv)):
+        layer = cls(ATT_C, ATT_C, num_basis=ATT_Q, num_heads=ATT_HEADS)
+        init_gen = torch.Generator().manual_seed(163)
+        layer.reset_parameters(init_gen)
+        init_parameters(layer, init_gen)
+        layer = layer.to(dev)
+        before = read_launches(kfe)
+        with torch.no_grad():
+            layer(pc, pc, x, neigh, calibrate=True)
+        sides = {}
+        for side, where in (("card", dev), ("cpu", torch.device("cpu"))):
+            lyr = copy.deepcopy(layer).to(where)
+            src = pc2.to(where)
+            nb = Neighborhood(nb2.idx.to(where), nb2.mask.to(where), nb2.query_mask.to(where), nb2.method,
+                              nb2.radius)
+            xs = x[:2].to(where).requires_grad_()
+            y = lyr(src, src, xs, nb)
+            (y * proj[:2].to(where)).sum().backward()
+            grads = {n: p.grad.cpu() for n, p in lyr.named_parameters()}
+            grads["features"] = xs.grad.cpu()
+            sides[side] = (y.detach().cpu(), grads)
+        err = max_rel_err(sides["card"][0], sides["cpu"][0])
+        norm = float(schedule.global_norm(list(sides["cpu"][1].values())))
+        worst, worst_name = grads_ratio(sides["card"][1], sides["cpu"][1], norm)
+        with torch.no_grad():
+            fwd_ms = cuda_ms(lambda: layer(pc, pc, x, neigh), 10)
+        xg = x.clone().requires_grad_()
+
+        def step():
+            y = layer(pc, pc, xg, neigh)
+            (y * proj).sum().backward()
+
+        step_ms = cuda_ms(step, 5)
+        peak_mib = call_peak_mib(step)
+        layer.zero_grad(set_to_none=True)
+        kernels = [a - b for a, b in zip(read_launches(kfe), before)]
+        print(f"attention {name}: B,N,K,C,Q,heads = {tuple(pc.mask.shape) + (ATT_K, ATT_C, ATT_Q, ATT_HEADS)}; "
+              f"card vs cpu at B = 2: max |out| diff {err[0]:.3e}, relative {err[1]:.3e} (bound {KERNEL_RTOL}); "
+              f"gradients worst {worst:.3e} at {worst_name} (bound {GRAD_RTOL}); forward {fwd_ms:.4f} ms, forward "
+              f"+ backward {step_ms:.4f} ms, its peak {peak_mib:.1f} MiB; conv kernel launches {kernels} "
+              f"[{card}]", flush=True)
+        if not (err[1] <= KERNEL_RTOL and worst <= GRAD_RTOL and kernels == [0, 0]):
+            raise SystemExit(f"attention {name}: card and CPU disagree, or a conv kernel ran")
+        out[name] = dict(max_abs_err=err[0], max_rel_err=err[1], grads_ratio=worst, forward_ms=fwd_ms,
+                         forward_backward_ms=step_ms, peak_mib=peak_mib)
+    return out
+
+
+def run_zoo(card, dev, mn_batch) -> dict:
+    """34. the rest of the model zoo at full widths: the DFaust variants
+    (``ZOO_VARIANTS``), PCA frames over a ball query, ClassNet's global
+    feature vector on ``mn_batch``, 64 basis functions and the attention
+    convs."""
+    from se3conv3d_tpu_torch.models import presets
+
+    t0 = time.perf_counter()
+    batch = to_device(body_batch(BATCH, POINTS, seed=2), dev)
+    small = to_device(body_batch(2, POINTS, seed=4), dev)
+    model_dict = presets.DFAUST_I_ROT_PCA_2F_MODEL
+    spec = presets.spec_from_model_dict(model_dict)
+    out = {"variants": {}}
+    for label, (fields, net) in ZOO_VARIANTS.items():
+        model = zoo_model(dataclasses.replace(spec, **fields), net, dev)
+        out["variants"][label] = zoo_dfaust_run(card, dev, label, model, model_dict, batch, small)
+        del model
+        torch.cuda.empty_cache()
+    bq_dict = {**model_dict, "RefFrames": {**model_dict["RefFrames"], "neigh_method": "ball_query",
+                                           "neigh_kwargs": {"neigh_k": BQ_NEIGH_K, "bq_radius": BQ_RADIUS}}}
+    frames = bq_frames_card_vs_cpu(card, dev, presets.hierarchy_config_from_model_dict(bq_dict, POINTS), small)
+    out["ball_query"] = dict(frames=frames, run=zoo_dfaust_run(
+        card, dev, "dfaust_ball_query_frames", zoo_model(spec, "FPNSegUNet", dev), bq_dict, batch, small))
+    torch.cuda.empty_cache()
+    out["modelnet_global"] = modelnet_global(card, dev, mn_batch)
+    torch.cuda.empty_cache()
+    out["q64_conv"] = q64_kernels(card, dev, mixf_fill(dev, batch, presets.DFAUST_I_STANDARD_MODEL))
+    out["q64_models"] = q64_models(card, dev, batch)
+    out["attention"] = attention_layers(card, dev, batch)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 34: {out['seconds']:.2f} s [{card}]", flush=True)
+    return out
+
+
+def zoo_entries(zoo: dict) -> list:
+    """The ``{"kernels": [...]}`` entries of phase 34: the conv kernels'
+    instantiations at Q = 64 (the standard geometry with the wide basis
+    tile, its bfloat16 under ``"bf16"``; the kernel points, P = 55 at the
+    top and P = 13 under ``"by_case"``; the equivariant geometry at G = F =
+    2), each with its launches on the Q = 64 model paths; and the O = 1024
+    conv of ClassNet's global feature vector (the kD = 9 instantiation at
+    G*Q = 64) with the launches of that path."""
+    qc, qm, mg = zoo["q64_conv"], zoo["q64_models"], zoo["modelnet_global"]
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
+    src = {kind: f"se3conv3d_tpu_torch/kernels/csrc/fused_equiv_{kind}.cu" for kind in ("fwd", "bwd")}
+    tpu = {"fwd": "se3conv3d_tpu/ops/pallas/fused_equiv.py:196", "bwd": "se3conv3d_tpu/ops/pallas/fused_equiv.py:227"}
+    lib = {"fwd": "library_ms", "bwd": "products_library_ms"}
+    tops = {"kD=3,Q=64": ("dfaust_std_level0_conv_q64", "dfaust_std_q64"),
+            "kp,Q=64": ("dfaust_std_level0_conv_q64_kp_gauss_double", "dfaust_std_kp_gauss_double_q64"),
+            "kD=9,G=2,Q=64": ("dfaust_level0_conv_q64_g2", "dfaust_rot_pca_2F_q64")}
+    entries = []
+    for kind, which in (("fwd", 0), ("bwd", 1)):
+        for tag, (shape, path) in tops.items():
+            top = qc[shape]["float32"][kind]
+            entry = {"name": f"fused_equiv_{kind}[{tag}]", "route": "cuda", "source": src[kind],
+                     "replaces": tpu[kind], "launches": qm[path]["launches"][which],
+                     "launches_by_path": {f"{path}_train": qm[path]["launches"][which]},
+                     **{k: top[k] for k in keys}, "library_ms": top[lib[kind]],
+                     "at": f"{shape} B,M,N,K,G,F,Q,C,O={Q64_SHAPES[shape][0]} at the bodies' level-0 fill, float32"}
+            if tag == "kD=3,Q=64":
+                b0 = qc[shape]["bfloat16"][kind]
+                entry["bf16"] = {**{k: b0[k] for k in keys}, "library_ms": b0[lib[kind]]}
+            if tag == "kp,Q=64":
+                entry["by_case"] = {s: qc[s]["float32"][kind] for s in Q64_SHAPES if "_kp_" in s}
+            entries.append(entry)
+        top = mg["conv"][kind]
+        entries.append({"name": f"fused_equiv_{kind}[modelnet_global,O=1024]", "route": "cuda", "source": src[kind],
+                        "replaces": tpu[kind], "launches": mg["launches"][which],
+                        "launches_by_path": {"modelnet_global": mg["launches"][which]},
+                        **{k: top[k] for k in keys}, "library_ms": top[lib[kind]], "plan": mg["conv"]["plan"],
+                        "at": f"global_conv_down B,M,N,K,G,F,Q,C,O={mg['conv']['shape']} at the extra level's "
+                              "fill, float32"})
+    return entries
+
+
 def kernels_line(dfaust: dict, scan: dict, mixf: dict, rot_i: dict, g4: dict, std: dict, mn: dict,
-                 cli: dict, evals: dict, modes: dict, probes: dict, sites: dict) -> dict:
+                 cli: dict, evals: dict, modes: dict, probes: dict, sites: dict, zoo: dict) -> dict:
     """The ``{"kernels": [...]}`` object: every kernel with its launches on
     the main paths, its error against its plain version, and its times at
     the ScanNet level-0 shape (float32), with the same for its bfloat16
@@ -4759,8 +5328,10 @@ def kernels_line(dfaust: dict, scan: dict, mixf: dict, rot_i: dict, g4: dict, st
     forward's times at the whole 1.5M-point room's level-0 shape of phase 28
     under ``"whole_scene_bf16"``; then the activations' and the kernel-point
     geometry's entries of phases 29-31 (:func:`mode_entries`); then the
-    probe kernels' entries of phase 32 (:func:`probe_entries`); last those
-    of the Mosaic probe sites of phase 33 (:func:`mosaic_site_entries`)."""
+    probe kernels' entries of phase 32 (:func:`probe_entries`); then those
+    of the Mosaic probe sites of phase 33 (:func:`mosaic_site_entries`);
+    last the Q = 64 instantiations and the O = 1024 conv of phase 34
+    (:func:`zoo_entries`)."""
     compared, bwd_compared = dfaust["fwd"], dfaust["bwd"]
     scan_conv, scan_cumsum, scan_train, scan_eval = scan["conv"], scan["cumsum"], scan["train"], scan["eval"]
     lvl0 = SCANNET_SHAPES["scannet_level0_block_conv"]
@@ -4926,7 +5497,7 @@ def kernels_line(dfaust: dict, scan: dict, mixf: dict, rot_i: dict, g4: dict, st
                      "max_abs_err": c0b["max_abs_err"], "ms": c0b["ms"], "plain_ms": c0b["plain_ms"],
                      "bound_ms": c0b["bound_ms"], "bound_by": "bytes", "library_ms": c0b["library_ms"],
                      "at": cum_at + " bfloat16 rows"},
-        }, *mode_entries(modes), *probe_entries(probes), *mosaic_site_entries(sites)],
+        }, *mode_entries(modes), *probe_entries(probes), *mosaic_site_entries(sites), *zoo_entries(zoo)],
         "probe_registers": probes["registers"], "mosaic_site_registers": sites["registers"],
         "other_conv_kinds": {k: modes[k] for k in ("kp_models", "act_models",
                                                                               "plain_kinds")},
@@ -4934,7 +5505,9 @@ def kernels_line(dfaust: dict, scan: dict, mixf: dict, rot_i: dict, g4: dict, st
         "dfaust": {"train_bf16": dfaust["bf16_train"]}, "dfaust_mixf": mixf, "scannet20_rot_I": rot_i,
         "standard": {"dfaust": std["dfaust"], "scannet": std["scannet"]},
         "modelnet40": {"runs": mn["runs"], "profile": mn["profile"]}, "cli": cli,
-        "eval": {k: v for k, v in evals.items() if k != "whole_scene_fwd"}}
+        "eval": {k: v for k, v in evals.items() if k != "whole_scene_fwd"},
+        "model_zoo": {k: zoo[k] for k in ("variants", "ball_query", "q64_models", "attention", "seconds")}
+        | {"modelnet_global": {k: v for k, v in zoo["modelnet_global"].items() if k != "conv"}}}
 
 
 def main() -> int:
@@ -5080,13 +5653,17 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="se3conv_cli_") as tmp:
         cli = run_cli(card, dev, Path(tmp))
         evals = run_eval(card, dev, Path(tmp))
+    # 34. the rest of the model zoo: the other blocks and heads, ball-query
+    # frames, ClassNet's global feature vector, Q = 64, the attention convs
+    zoo = run_zoo(card, dev, mn_batch)
+    torch.cuda.empty_cache()
     # the profiled ModelNet40 train step last: a profiled run slows the launches after it
     mn = dict(conv=mn_conv, runs=mn_runs, profile=modelnet_profile(card, dev, mn_batch))
     del mn_batch
     dfaust = dict(fwd=compared, bwd=bwd_compared, eval_launches=launches,
                   train_launches=dfaust_steps["launches"], bf16_train_launches=dfaust_bf16["bf16_launches"],
                   bf16_train=dfaust_bf16)
-    print(json.dumps(kernels_line(dfaust, scan, mixf, rot_i, g4, std, mn, cli, evals, modes, probes, sites)))
+    print(json.dumps(kernels_line(dfaust, scan, mixf, rot_i, g4, std, mn, cli, evals, modes, probes, sites, zoo)))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

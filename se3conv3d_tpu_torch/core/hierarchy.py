@@ -23,7 +23,7 @@ import torch
 from .frames import (global_pca_frames, is_fixed_axis, pca_frames, random_frames,
                      shuffle_and_select_frames)
 from .grid import SubsampleMap, build_grid_subsample
-from .neighborhoods import SUBSAMPLED_SPACING_FACTOR, knn_neighborhood
+from .neighborhoods import SUBSAMPLED_SPACING_FACTOR, ball_query_neighborhood, knn_neighborhood
 from .pointcloud import PointCloud
 
 __all__ = [
@@ -47,8 +47,9 @@ class FrameConfig:
     with ``global_frames``, from each whole cloud), a random choice of the
     candidates; without it, uniformly random rotations.  ``fixed_axis``
     False for free SO(3) frames, 1 or 2 to keep that world axis.
-    ``neigh_method`` ``'ball_query'`` (radius ``bq_radius``) is not ported:
-    no recipe uses it."""
+    ``neigh_method`` ``'knn'`` (the ``neigh_k`` nearest points) or
+    ``'ball_query'`` (up to ``neigh_k`` points, nearest first, strictly
+    within ``bq_radius``)."""
 
     n_frames: int = 2
     pca: bool = True
@@ -194,10 +195,9 @@ def attach_frames(
     """Frames of ``cfg`` for every point of ``pc``, from ``draws``
     (:func:`draw_frames`): uniformly random rotations; global PCA frames,
     ``n_frames`` of each cloud's candidates in a random order, shared by
-    its points; or PCA frames over a self-kNN neighborhood, ``n_frames``
-    of the candidates kept per point by ``argsort(draws)``.  The PCA
-    frames' ball-query neighborhood (``neigh_method='ball_query'``) is not
-    ported and raises."""
+    its points; or PCA frames over a self-kNN or ball-query neighborhood
+    (``cfg.neigh_method``), ``n_frames`` of the candidates kept per point
+    by ``argsort(draws)``."""
     b, n = pc.mask.shape
     if not cfg.pca:
         fixed = is_fixed_axis(cfg.fixed_axis)
@@ -209,13 +209,16 @@ def attach_frames(
         picked = shuffle_and_select_frames(global_pca_frames(pc.positions, pc.mask),
                                            cfg.n_frames, scores=draws)
         return pc.with_frames(picked[:, None].expand(b, n, *picked.shape[1:]).contiguous())
-    if cfg.neigh_method != "knn":
-        raise NotImplementedError(f"PCA frames over a {cfg.neigh_method!r} neighborhood are not ported")
+    if cfg.neigh_method == "knn":
+        neigh = knn_neighborhood(pc, pc, cfg.neigh_k, grid_cell_size=spacing)
+    elif cfg.neigh_method == "ball_query":
+        neigh = ball_query_neighborhood(pc, pc, cfg.bq_radius, cfg.neigh_k)
+    else:
+        raise ValueError(f"unknown frame neigh_method {cfg.neigh_method!r}")
     if cfg.n_frames > cfg.n_candidates:
         raise ValueError(
             f"n_frames={cfg.n_frames} exceeds the {cfg.n_candidates} candidate frames"
         )
-    neigh = knn_neighborhood(pc, pc, cfg.neigh_k, grid_cell_size=spacing)
     perm = torch.argsort(draws, dim=-1)[..., : cfg.n_frames]
     frames = pca_frames(
         pc.positions, neigh.idx, neigh.mask, fixed_axis=cfg.fixed_axis, select_idx=perm

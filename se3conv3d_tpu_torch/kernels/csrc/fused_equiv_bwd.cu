@@ -55,9 +55,10 @@
 //      adds d_feats with float32 atomics straight into [B, N, F, C]
 //      (masked edges are skipped) and sums d_proj / d_bias per block;
 //      sum_partials adds the blocks in a fixed order (at kD = kKP the
-//      [P + 1, Q] sums of a warp live in shared memory: a lane owns column
-//      q and adds one round of 32 edges per row at a time, where P + 1 = 56
-//      register accumulators a lane would spill).  Given the sort tables
+//      [P + 1, Q] sums of a warp live in shared memory, rows of 32 columns
+//      for Q <= 32 and of 64 for Q <= 64: a lane owns columns q = lane and
+//      lane + 32 and adds one round of 32 edges per row at a time, where
+//      P + 1 = 56 register accumulators a lane would spill).  Given the sort tables
 //      of the 'sorted' reduction (slot[b, m*K + k], the edge's position in
 //      source order), the edge's row d_gathered[F*C] is stored plainly at
 //      row b*M*K + slot of a zeroed [B, M*K, F*C] buffer instead of the
@@ -110,14 +111,21 @@ __host__ __device__ int kp_warp_floats(int P) {
   return Cols<GQC>::kSlab + GQC * kRowStride + kEB * kRowStride + kEB * kp_geo_stride(P);
 }
 
+// kD = kKP: the columns of a row of the d_proj sums in shared memory, 32
+// for Q <= 32 (one q a lane), else 64 (two)
+__host__ __device__ inline int kp_acc_stride(int Q) { return Q <= kEB ? kEB : 2 * kEB; }
+
 // the projection [D][GQC] and bias [GQC] (D = P at kD = kKP, then the
 // kernel points [P][3]), kETM warp slabs (at kD = kKP then the d_proj sums
-// [kETM][P + 1][32]), and the edge lists
+// [kETM][P + 1][kp_acc_stride(Q)]), and the edge lists.  At P = 55, K = 32
+// the kernel-point instantiation takes 156.8 KB at Q <= 32 and 185.5 KB at
+// Q = 64, within the 227 KB of one block.
 template <int GQC, int kD>
-size_t edge_smem(int K, int P) {
+size_t edge_smem(int K, int P, int Q) {
   if (kD == kKP)
     return sizeof(float) * ((P + 1) * static_cast<size_t>(GQC) + 3 * P +
-                            kETM * static_cast<size_t>(kp_warp_floats<GQC>(P)) + kETM * (P + 1) * kEB) +
+                            kETM * static_cast<size_t>(kp_warp_floats<GQC>(P)) +
+                            kETM * (P + 1) * static_cast<size_t>(kp_acc_stride(Q))) +
            sizeof(int) * 2 * kETM * static_cast<size_t>(K);
   return sizeof(float) * ((kD + 1) * GQC + kETM * EdgeCols<GQC, kD>::kWarpFloats) +
          sizeof(int) * 2 * kETM * static_cast<size_t>(K);
@@ -186,8 +194,9 @@ edge_kernel(const T* __restrict__ rel, const T* __restrict__ rot6,
   float* biasS = projS + D * GQC;            // [Q]
   float* kpS = biasS + GQC;                  // [P][3] (kD = kKP)
   float* warpS = kpS + (kKp ? 3 * kp.P : 0);  // [kETM][warpFloats]
-  float* accS = warpS + kETM * warpFloats;   // [kETM][P + 1][32] (kD = kKP)
-  int* validK = reinterpret_cast<int*>(accS + (kKp ? kETM * (kp.P + 1) * kEB : 0));  // [kETM][K]
+  const int accStride = kKp ? kp_acc_stride(Q) : 0;
+  float* accS = warpS + kETM * warpFloats;   // [kETM][P + 1][accStride] (kD = kKP)
+  int* validK = reinterpret_cast<int*>(accS + kETM * (kp.P + 1) * accStride);  // [kETM][K]
   int* validN = validK + kETM * K;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -202,13 +211,13 @@ edge_kernel(const T* __restrict__ rel, const T* __restrict__ rot6,
   float* dbW = pneW + Lay::kSlab;                 // [GQC][kRowStride]: dbasis chunk [gq][c]
   float* featW = dbW + GQC * kRowStride;        // [kEB][kRowStride]: features [e][c]
   float* geoW = featW + kEB * kRowStride;       // [kEB][kGeoStride]
-  float* accW = accS + warp * (kKp ? (kp.P + 1) * kEB : 0);  // [P + 1][32] (kD = kKP)
+  float* accW = accS + warp * (kp.P + 1) * accStride;  // [P + 1][accStride] (kD = kKP)
   int* vK = validK + warp * K;
   int* vN = validN + warp * K;
   // rows gq >= G*Q of the dbasis chunk stay zero
   for (int i = GQ * kRowStride + lane; i < GQC * kRowStride; i += 32) dbW[i] = 0.f;
   if constexpr (kKp)
-    for (int i = lane; i < (kp.P + 1) * kEB; i += 32) accW[i] = 0.f;
+    for (int i = lane; i < (kp.P + 1) * accStride; i += 32) accW[i] = 0.f;
   const float nd = kKp ? __ldg(kp.norm_dist) : 0.f;
   __syncthreads();
 
@@ -390,17 +399,17 @@ edge_kernel(const T* __restrict__ rel, const T* __restrict__ rot6,
       }
       __syncwarp();
       // d_proj[d][q] += sum_{e,g} dpre[e][g,q] * geo[e][g,d]; d_bias[q] += sum dpre
-      if constexpr (kKp) {  // G = 1, Q <= 32: lane q adds each row's sum over this round
-        if (lane < Q) {
+      if constexpr (kKp) {  // G = 1: lanes q = lane, lane + 32 add each row's sum over this round
+        for (int q = lane; q < Q; q += kEB) {
           for (int d = 0; d < kp.P; ++d) {
             float sum = 0.f;
             for (int el = 0; el < ne; ++el)
-              sum = fmaf(pneW[el * kStride + lane], geoW[el * kGeoStride + d], sum);
-            accW[d * kEB + lane] += sum;
+              sum = fmaf(pneW[el * kStride + q], geoW[el * kGeoStride + d], sum);
+            accW[d * accStride + q] += sum;
           }
           float sum = 0.f;
-          for (int el = 0; el < ne; ++el) sum += pneW[el * kStride + lane];
-          accW[kp.P * kEB + lane] += sum;
+          for (int el = 0; el < ne; ++el) sum += pneW[el * kStride + q];
+          accW[kp.P * accStride + q] += sum;
         }
       } else {
 #pragma unroll
@@ -428,7 +437,7 @@ edge_kernel(const T* __restrict__ rel, const T* __restrict__ rot6,
     for (int i = tid; i < rows * Q; i += kEThreads) {
       const int d = i / Q, q = i - d * Q;
       float s = 0.f;
-      for (int w = 0; w < kETM; ++w) s += accS[(w * rows + d) * kEB + q];
+      for (int w = 0; w < kETM; ++w) s += accS[(w * rows + d) * accStride + q];
       ppart[static_cast<size_t>(blockIdx.x) * rows * Q + i] = s;
     }
   } else {
@@ -512,14 +521,14 @@ cudaError_t backward(const T* rel, const T* rot6, const T* feats, const int64_t*
   const bool wide = column_capacity(G, Q) == 128;
   if (wide && kD != 9) return cudaErrorInvalidValue;
   auto kernel = edge_kernel<T, 64, kD, true>;
-  size_t smem_e = edge_smem<64, kD>(K, kp.P);
+  size_t smem_e = edge_smem<64, kD>(K, kp.P, Q);
   if constexpr (kD != kKP) {
     const bool gelu = act == kActGelu;
     if (gelu) kernel = edge_kernel<T, 64, kD, false>;
     if constexpr (kD == 9) {
       if (wide) {
         kernel = gelu ? edge_kernel<T, 128, kD, false> : edge_kernel<T, 128, kD, true>;
-        smem_e = edge_smem<128, kD>(K, kp.P);
+        smem_e = edge_smem<128, kD>(K, kp.P, Q);
       }
     }
   }
@@ -628,7 +637,7 @@ extern "C" int se3_fused_equiv_bwd(const void* rel, const void* rot6, const void
 }
 
 // The standard conv: rel [B, M, K, 1, 3], feats [B, N, 1, C], proj [3, Q],
-// gout [B, M, 1, O]; G = F = 1 and Q <= 32.
+// gout [B, M, 1, O]; G = F = 1 and Q <= 64.
 extern "C" int se3_fused_std_bwd(const void* rel, const void* feats, const void* idx,
                                  const void* mask, const void* proj, const void* bias,
                                  const void* w, const void* gout, const void* live,
@@ -636,7 +645,7 @@ extern "C" int se3_fused_std_bwd(const void* rel, const void* feats, const void*
                                  void* scratch, void* wpart, void* ppart, int B, int M, int N,
                                  int K, int Q, int C, int O, int L, int w_splits, int p_blocks,
                                  int use_bf16, int act, void* stream_ptr) {
-  if (Q > 32) return static_cast<int>(cudaErrorInvalidValue);
+  if (Q > 64) return static_cast<int>(cudaErrorInvalidValue);
   return backward_call<3>(rel, nullptr, feats, idx, mask, proj, bias, w, gout, live, slot, dfeats,
                           dparams, dw, scratch, wpart, ppart, B, M, N, K, 1, 1, Q, C, O, L,
                           w_splits, p_blocks, use_bf16, act, KpGeo{}, stream_ptr);
@@ -645,7 +654,7 @@ extern "C" int se3_fused_std_bwd(const void* rel, const void* feats, const void*
 // The kernel-point conv: rel [B, M, K, 1, 3] float32 raw offsets whatever
 // use_bf16, points [P, 3] float32, norm_dist one float32, proj [P, Q],
 // feats [B, N, 1, C], gout [B, M, 1, O], d_params [P + 1, Q]; G = F = 1,
-// Q <= 32, P <= kMaxKP; inv_s2 = 1 / sigma^2, corr the correlation (Corr:
+// Q <= 64, P <= kMaxKP; inv_s2 = 1 / sigma^2, corr the correlation (Corr:
 // 0 gauss, 1 linear, 2 box).
 extern "C" int se3_fused_kp_bwd(const void* rel, const void* points, const void* norm_dist,
                                 const void* feats, const void* idx, const void* mask,
@@ -655,7 +664,7 @@ extern "C" int se3_fused_kp_bwd(const void* rel, const void* points, const void*
                                 void* ppart, int B, int M, int N, int K, int P, int Q, int C, int O,
                                 int L, int w_splits, int p_blocks, int use_bf16, int act,
                                 float inv_s2, int corr, void* stream_ptr) {
-  if (Q > 32 || P < 1 || P > kMaxKP || corr < kCorrGauss || corr > kCorrBox)
+  if (Q > 64 || P < 1 || P > kMaxKP || corr < kCorrGauss || corr > kCorrBox)
     return static_cast<int>(cudaErrorInvalidValue);
   const KpGeo kp{static_cast<const float*>(rel), static_cast<const float*>(points),
                  static_cast<const float*>(norm_dist), inv_s2, P, corr};

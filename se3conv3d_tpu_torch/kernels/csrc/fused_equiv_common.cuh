@@ -13,8 +13,8 @@
 //   kD = kKP: the kernel-point one (G = F = 1): the P correlation weights
 //           of the edge against P kernel points, computed here from its
 //           float32 raw offset (kp_weights; P <= kMaxKP at run time).
-// The standard and kernel-point geometries take the 64-column capacity with
-// G*Q <= 32 only.  The activation act is gelu (exact, erf), relu, sin or
+// The standard and kernel-point geometries take the 64-column capacity
+// (G = F = 1, Q <= 64).  The activation act is gelu (exact, erf), relu, sin or
 // the identity ("linear"), a run-time argument the same for every lane
 // (the Act codes), switched outside the per-edge loops; the kernel-point
 // convs of the JAX package run with the identity.
@@ -467,8 +467,8 @@ auto basis_instance(bool any) -> decltype(&basis_kernel<NI, kGout, T, GQC, kD, t
 }
 
 // Launches basis_kernel over L live rows (the column capacity and the tile
-// height from G and G*Q; kD = 3 and kD = kKP have the narrow tile only,
-// G*Q <= 32).
+// height from G and G*Q: the narrow tile, NI = 4, for G*Q <= 32, the wide
+// one, NI = 8, for 64 columns; kD = 3 and kD = kKP, at G = 1, take Q <= 64).
 template <typename T, int GQC, int kD>
 cudaError_t launch_basis_cols(bool with_gout, const T* rel, const T* rot6, const T* feats,
                               const int64_t* idx, const uint8_t* mask, const float* proj,
@@ -481,16 +481,10 @@ cudaError_t launch_basis_cols(bool with_gout, const T* rel, const T* rot6, const
   if (warps < 1) return cudaErrorInvalidValue;
   const size_t smem = basis_smem(K, F, GQC, D, warps, kp_p);
   const bool narrow = G * Q <= 32, any = act != kActGelu;
-  decltype(&basis_kernel<4, true, T, GQC, kD, true>) kernel;
-  if constexpr (kD != 9) {
-    if (!narrow) return cudaErrorInvalidValue;
-    kernel = with_gout ? basis_instance<4, true, T, GQC, kD>(any) : basis_instance<4, false, T, GQC, kD>(any);
-  } else {
-    kernel = with_gout ? (narrow ? basis_instance<4, true, T, GQC, kD>(any)
-                                 : basis_instance<8, true, T, GQC, kD>(any))
-                       : (narrow ? basis_instance<4, false, T, GQC, kD>(any)
-                                 : basis_instance<8, false, T, GQC, kD>(any));
-  }
+  const auto kernel = with_gout ? (narrow ? basis_instance<4, true, T, GQC, kD>(any)
+                                          : basis_instance<8, true, T, GQC, kD>(any))
+                                : (narrow ? basis_instance<4, false, T, GQC, kD>(any)
+                                          : basis_instance<8, false, T, GQC, kD>(any));
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;

@@ -233,20 +233,20 @@ extern "C" int se3_fused_equiv_fwd(const void* rel, const void* rot6, const void
 }
 
 // The standard conv: rel [B, M, K, 1, 3], feats [B, N, 1, C], proj [3, Q],
-// out [B, M, 1, O]; G = F = 1 and Q <= 32.
+// out [B, M, 1, O]; G = F = 1 and Q <= 64.
 extern "C" int se3_fused_std_fwd(const void* rel, const void* feats, const void* idx,
                                  const void* mask, const void* proj, const void* bias,
                                  const void* w, const void* live, void* out, void* scratch, int B,
                                  int M, int N, int K, int Q, int C, int O, int L, int chunk,
                                  int splits, int use_bf16, int act, void* stream_ptr) {
-  if (Q > 32) return static_cast<int>(cudaErrorInvalidValue);
+  if (Q > 64) return static_cast<int>(cudaErrorInvalidValue);
   return forward_call<3>(rel, nullptr, feats, idx, mask, proj, bias, w, live, out, scratch, B, M,
                          N, K, 1, 1, Q, C, O, L, chunk, splits, use_bf16, act, KpGeo{}, stream_ptr);
 }
 
 // The kernel-point conv: rel [B, M, K, 1, 3] float32 raw offsets whatever
 // use_bf16, points [P, 3] float32, norm_dist one float32, proj [P, Q],
-// feats [B, N, 1, C], out [B, M, 1, O]; G = F = 1, Q <= 32, P <= kMaxKP;
+// feats [B, N, 1, C], out [B, M, 1, O]; G = F = 1, Q <= 64, P <= kMaxKP;
 // inv_s2 = 1 / sigma^2, corr the correlation (Corr: 0 gauss, 1 linear,
 // 2 box).
 extern "C" int se3_fused_kp_fwd(const void* rel, const void* points, const void* norm_dist,
@@ -255,7 +255,7 @@ extern "C" int se3_fused_kp_fwd(const void* rel, const void* points, const void*
                                 const void* live, void* out, void* scratch, int B, int M, int N,
                                 int K, int P, int Q, int C, int O, int L, int chunk, int splits,
                                 int use_bf16, int act, float inv_s2, int corr, void* stream_ptr) {
-  if (Q > 32 || P < 1 || P > kMaxKP || corr < kCorrGauss || corr > kCorrBox)
+  if (Q > 64 || P < 1 || P > kMaxKP || corr < kCorrGauss || corr > kCorrBox)
     return static_cast<int>(cudaErrorInvalidValue);
   const KpGeo kp{static_cast<const float*>(rel), static_cast<const float*>(points),
                  static_cast<const float*>(norm_dist), inv_s2, P, corr};

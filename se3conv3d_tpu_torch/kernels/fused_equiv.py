@@ -32,8 +32,8 @@ bfloat16 (the kernel-point ``rel`` is float32 either way); the parameters,
 the output and the parameter gradients are float32.  Gradients flow to
 ``feats``, ``P``, ``bias`` and ``W``; the geometry (``rel``, ``rot6``, the
 kernel-point weights, ``idx``, ``mask``) gets none, as in the reference.
-The standard and kernel-point geometries run at G*Q <= 32
-(:data:`STD_MAX_Q`), P <= :data:`MAX_KP`.
+The standard and kernel-point geometries run at G = F = 1, Q <=
+:data:`STD_MAX_Q` (64), P <= :data:`MAX_KP`.
 
 bfloat16 operands follow the TPU kernels' bf16 path (the ``cdt`` argument
 of ``se3conv3d_tpu/ops/pallas/fused_equiv.py:_fwd_kernel`` /
@@ -193,9 +193,10 @@ MAX_G, MAX_GQ = 4, 128
 # the most K*F that fits, by column capacity (about 227 KB / (4 * 129) at 128;
 # the standard geometry's smaller projection leaves at least as much room)
 MAX_EDGES = {64: 768, 128: 432}
-# the standard geometry's instantiation (kD = 3) has the narrow basis tile
-# only: G = 1 and Q <= 32 (every recipe's num_basis)
-STD_MAX_Q = 32
+# the standard and kernel-point geometries (kD = 3, kKP) take G = F = 1 and
+# one pne row of 64 columns: Q <= 64, the narrow basis tile for Q <= 32
+# (every recipe's num_basis), the wide one above
+STD_MAX_Q = 64
 # the forward walks its live rows in chunks whose scratch (basis rows and
 # depth-split partials) stays within this many bytes
 FWD_SCRATCH_BYTES = 128 << 20
@@ -567,7 +568,7 @@ def fused_equiv_fwd(
                                           b, m, n, k, g, f, q, c, o, *plan, stream)
     if err != 0:
         raise RuntimeError(f"fused_equiv_fwd kernel launch failed: CUDA error {err}")
-    _count(fused_equiv_fwd, bf16, g, d, act, kp)
+    _count(fused_equiv_fwd, bf16, g, d, q, act, kp)
     return out
 
 
@@ -650,17 +651,18 @@ def fused_equiv_bwd(rel, rot6, feats, idx, mask, proj_axes, proj_biases, conv_we
                                           b, m, n, k, g, f, q, c, o, *plan, stream)
     if err != 0:
         raise RuntimeError(f"fused_equiv_bwd kernel launch failed: CUDA error {err}")
-    _count(fused_equiv_bwd, bf16, g, d, act, kp)
+    _count(fused_equiv_bwd, bf16, g, d, q, act, kp)
     return d_feats, d_params[:d], d_params[d], d_w
 
 
-def _count(wrapper, bf16, g, d, act, kp):
+def _count(wrapper, bf16, g, d, q, act, kp):
     """One more kernel launch of ``wrapper``: all, bfloat16, by G, by D, by
-    activation and, for the kernel-point geometry, by (correlation, P)."""
+    (D, Q), by activation and, for the kernel-point geometry, by
+    (correlation, P)."""
     wrapper.launches += 1
     wrapper.bf16_launches += bf16
     for table, key in ((wrapper.launches_by_g, g), (wrapper.launches_by_d, d),
-                       (wrapper.launches_by_act, act)):
+                       (wrapper.launches_by_q, (d, q)), (wrapper.launches_by_act, act)):
         table[key] = table.get(key, 0) + 1
     if kp is not None:
         key = (kp.corr, d)
@@ -669,11 +671,12 @@ def _count(wrapper, bf16, g, d, act, kp):
 
 # kernel launches so far (CPU calls do not count): all, those with bfloat16
 # operands, all by G (out-frames: {G: launches}), by D (pne inputs: 9
-# equivariant, 3 standard, P kernel-point), by activation ({act: launches})
+# equivariant, 3 standard, P kernel-point), by (D, Q) (the basis functions
+# of each geometry: {(D, Q): launches}), by activation ({act: launches})
 # and the kernel-point ones by ({(corr, P): launches}); callers may reset them
 for _wrapper in (fused_equiv_fwd, fused_equiv_bwd):
     _wrapper.launches = _wrapper.bf16_launches = 0
-    _wrapper.launches_by_g, _wrapper.launches_by_d = {}, {}
+    _wrapper.launches_by_g, _wrapper.launches_by_d, _wrapper.launches_by_q = {}, {}, {}
     _wrapper.launches_by_act, _wrapper.launches_by_kp = {}, {}
 
 

@@ -1,6 +1,7 @@
 """Classification network (counterpart of ``se3conv3d_tpu/models/class_net.py``):
 encoder, pooling of the last level to one vector per cloud, BN and a linear
-head."""
+head; or, with ``spec.global_equiv_featurevector``, an equivariant feature
+vector per point and frame of one extra hierarchy level."""
 from __future__ import annotations
 
 from typing import Optional
@@ -30,17 +31,30 @@ class ClassNet(nn.Module):
     pooling is set); each pooled vector is one row of ``class_norm``.
     Submodule names follow the flax module, so a JAX ClassNet's variables
     load strictly through ``utils.weights.from_flax``.
+
+    With ``spec.global_equiv_featurevector`` the hierarchy carries one
+    level past the trunk, and the net returns ``[B, M_extra, F, 2C]``
+    instead of logits (C = ``num_features[-1]``): ``almost_last_norm`` over
+    the last trunk level, a conv into the extra level whose kNN
+    neighborhood holds every point of the trunk level (k = its capacity;
+    ``global_conv_down``, C -> 2C), ``last_norm`` and ``last_linear``.
+    There is no ``class_norm`` and no ``class_head`` then.
     """
 
     def __init__(self, spec: ModelSpec, num_in_feats: int, num_classes: int,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if spec.global_equiv_featurevector:
-            raise NotImplementedError("ClassNet's global equivariant feature vector is not ported yet")
         self.spec = spec
         self.encoder = Encoder(spec, num_in_feats)
-        self.class_norm = MaskedBatchNorm(spec.num_features[-1])
-        self.class_head = TorchLinear(spec.num_features[-1], num_classes)
+        c = spec.num_features[-1]
+        if spec.global_equiv_featurevector:
+            self.almost_last_norm = MaskedBatchNorm(c)
+            self.global_conv_down = spec.conv.make(c, 2 * c)
+            self.last_norm = MaskedBatchNorm(2 * c)
+            self.last_linear = TorchLinear(2 * c, 2 * c)
+        else:
+            self.class_norm = MaskedBatchNorm(c)
+            self.class_head = TorchLinear(c, num_classes)
         init_parameters(self, generator)
 
     def forward(self, hierarchy: Hierarchy, features: torch.Tensor, *, calibrate: bool = False,
@@ -50,6 +64,13 @@ class ClassNet(nn.Module):
         if provider is None:
             provider = NeighborhoodProvider(hierarchy, s, collect_trunc=calibrate)
         feats = self.encoder(hierarchy, features, provider, calibrate, drops)[-1]
+        if s.global_equiv_featurevector:
+            trunk = hierarchy.num_levels - 2
+            pc, extra = hierarchy.levels[trunk], hierarchy.levels[trunk + 1]
+            x = self.almost_last_norm(feats, pc.mask)
+            neigh = provider.get(trunk, trunk + 1, 0.0, "knn", pc.capacity)
+            x = self.global_conv_down(pc, extra, x, neigh, calibrate)
+            return self.last_linear(self.last_norm(x, extra.mask))
         if feats.dim() == 4 and s.frame_pooling_method is not None:
             feats = frame_pool(feats, s.frame_pooling_method)
         x = global_pool(hierarchy.levels[-1], feats, s.pooling_method)  # [B, C]

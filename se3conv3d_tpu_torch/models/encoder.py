@@ -10,11 +10,17 @@ import torch
 from torch import nn
 
 from ..core.hierarchy import Hierarchy
-from ..nn.blocks import DropPathDraws, ResNetFormer, TorchLinear, gelu_tanh
+from ..nn.blocks import DropPathDraws, ResConvNeXt, ResNetB, ResNetFormer, TorchLinear, gelu_tanh
 from ..nn.norm import MaskedBatchNorm
 from .spec import ModelSpec, NeighborhoodProvider
 
-__all__ = ["PatchEncoder", "Encoder"]
+__all__ = ["PatchEncoder", "Encoder", "BLOCK_LAYERS"]
+
+BLOCK_LAYERS = {
+    "resnetformer": ResNetFormer,
+    "resnetb": ResNetB,
+    "resconvnext": ResConvNeXt,
+}
 
 
 class PatchEncoder(nn.Module):
@@ -56,21 +62,23 @@ class PatchEncoder(nn.Module):
 
 
 class Encoder(nn.Module):
-    """Patch stem + per-level ResNetFormer stacks with down-convs between
-    levels; returns the per-level features, finest trunk level first."""
+    """Patch stem + per-level stacks of ``spec.block_layer`` blocks
+    (:data:`BLOCK_LAYERS`) with down-convs between levels; returns the
+    per-level features, finest trunk level first."""
 
     def __init__(self, spec: ModelSpec, num_in_feats: int):
         super().__init__()
         self.spec = spec
         s = spec
         self.patch_encoder = PatchEncoder(s, num_in_feats)
+        block_cls = BLOCK_LAYERS[s.block_layer]
         drop_paths = np.linspace(0.0, s.max_path_drop, int(np.sum(s.num_blocks)))
         block_id = 0
         for lvl, feats in enumerate(s.num_features):
             for i in range(s.num_blocks[lvl]):
                 self.add_module(
                     f"block_{lvl}_{i}",
-                    ResNetFormer(feats, feats, s.conv_blocks, float(drop_paths[block_id])),
+                    block_cls(feats, feats, s.conv_blocks, float(drop_paths[block_id])),
                 )
                 block_id += 1
             if lvl < len(s.num_features) - 1:

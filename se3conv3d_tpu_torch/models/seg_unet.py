@@ -1,6 +1,7 @@
-"""FPN segmentation U-Net (counterpart of ``se3conv3d_tpu/models/seg_unet.py``):
-encoder + FPN decoder + segmentation head; an equivariant model's logits
-are averaged over the output cloud's frames."""
+"""Segmentation U-Nets (counterpart of ``se3conv3d_tpu/models/seg_unet.py``):
+``FPNSegUNet`` (encoder + FPN decoder + segmentation head) and the plain
+``SegUNet`` (encoder + top-down decoder + head); an equivariant model's
+logits are averaged over the output cloud's frames."""
 from __future__ import annotations
 
 from typing import Optional
@@ -12,11 +13,11 @@ from ..core.hierarchy import Hierarchy
 from ..core.pointcloud import PointCloud, frame_pool
 from ..nn.blocks import DropPathDraws, TorchLinear, gelu_tanh
 from ..nn.norm import MaskedBatchNorm
-from .decoder import FPNDecoder
+from .decoder import Decoder, FPNDecoder
 from .encoder import Encoder
 from .spec import ModelSpec, NeighborhoodProvider
 
-__all__ = ["FPNSegUNet", "init_parameters"]
+__all__ = ["FPNSegUNet", "SegUNet", "init_parameters"]
 
 
 def init_parameters(module: nn.Module, generator: Optional[torch.Generator] = None) -> None:
@@ -35,6 +36,9 @@ class FPNSegUNet(nn.Module):
 
     ``model.train()`` selects batch statistics in every BN and stochastic
     depth in every block; the DropPath keep masks then come from ``drops``.
+    The head is ``seg_conv``, then ``spec.num_hidden_seg_head`` times BN ->
+    GELU -> linear (``seg_hidden_norm_{i}``, ``seg_hidden_linear_{i}``),
+    then BN -> GELU -> ``seg_linear``.
     """
 
     def __init__(self, spec: ModelSpec, num_in_feats: int, num_classes: int,
@@ -42,11 +46,13 @@ class FPNSegUNet(nn.Module):
         super().__init__()
         self.spec = spec
         self.frame_pooling = frame_pooling
-        if spec.num_hidden_seg_head:
-            raise NotImplementedError("hidden seg-head layers are not ported yet")
         self.encoder = Encoder(spec, num_in_feats)
         self.fpn_decoder = FPNDecoder(spec)
         self.seg_conv = spec.conv.make(spec.fpn_dec_feats, spec.fpn_dec_feats)
+        for i in range(spec.num_hidden_seg_head):
+            self.add_module(f"seg_hidden_norm_{i}", MaskedBatchNorm(spec.fpn_dec_feats))
+            self.add_module(f"seg_hidden_linear_{i}",
+                            TorchLinear(spec.fpn_dec_feats, spec.fpn_dec_feats))
         self.seg_norm = MaskedBatchNorm(spec.fpn_dec_feats)
         self.seg_linear = TorchLinear(spec.fpn_dec_feats, num_classes)
         init_parameters(self, generator)
@@ -65,6 +71,48 @@ class FPNSegUNet(nn.Module):
             0, out_pc, s.radius_scale * hierarchy.levels_radii[0], s.neigh_type, s.num_knn
         )
         x = self.seg_conv(hierarchy.levels[0], out_pc, x, neigh_out, calibrate)
+        for i in range(s.num_hidden_seg_head):
+            x = gelu_tanh(getattr(self, f"seg_hidden_norm_{i}")(x, out_pc.mask))
+            x = getattr(self, f"seg_hidden_linear_{i}")(x)
         x = gelu_tanh(self.seg_norm(x, out_pc.mask))
+        x = self.seg_linear(x)
+        return frame_pool(x, self.frame_pooling) if s.equivariant else x
+
+
+class SegUNet(nn.Module):
+    """The plain (non-FPN) segmentation U-Net, called as :class:`FPNSegUNet`:
+    encoder, top-down ``Decoder``, then the head on the finest trunk level
+    ``P = spec.patch_num_levels``: BN (``seg_norm_1``) -> conv to the output
+    cloud (``seg_conv``, ``num_features[0] -> seg_head_feats``) -> BN
+    (``seg_norm_2``) -> GELU -> ``seg_linear``."""
+
+    def __init__(self, spec: ModelSpec, num_in_feats: int, num_classes: int,
+                 frame_pooling: str = "avg", generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.spec = spec
+        self.frame_pooling = frame_pooling
+        self.encoder = Encoder(spec, num_in_feats)
+        self.decoder = Decoder(spec)
+        self.seg_norm_1 = MaskedBatchNorm(spec.num_features[0])
+        self.seg_conv = spec.conv.make(spec.num_features[0], spec.seg_head_feats)
+        self.seg_norm_2 = MaskedBatchNorm(spec.seg_head_feats)
+        self.seg_linear = TorchLinear(spec.seg_head_feats, num_classes)
+        init_parameters(self, generator)
+
+    def forward(self, hierarchy: Hierarchy, features: torch.Tensor, out_pc: PointCloud,
+                calibrate: bool = False, drops: Optional[DropPathDraws] = None,
+                provider: Optional[NeighborhoodProvider] = None) -> torch.Tensor:
+        s = self.spec
+        if provider is None:
+            provider = NeighborhoodProvider(hierarchy, s, collect_trunc=calibrate)
+        enc = self.encoder(hierarchy, features, provider, calibrate, drops)
+        x = self.decoder(hierarchy, enc, provider, calibrate, drops)[-1]
+        p = s.patch_num_levels
+        x = self.seg_norm_1(x, hierarchy.levels[p].mask)
+        neigh_out = provider.to_cloud(
+            p, out_pc, s.radius_scale * hierarchy.levels_radii[p], s.neigh_type, s.num_knn
+        )
+        x = self.seg_conv(hierarchy.levels[p], out_pc, x, neigh_out, calibrate)
+        x = gelu_tanh(self.seg_norm_2(x, out_pc.mask))
         x = self.seg_linear(x)
         return frame_pool(x, self.frame_pooling) if s.equivariant else x

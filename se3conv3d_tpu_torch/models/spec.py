@@ -29,9 +29,13 @@ class ModelSpec:
 
     ``max_neighbors`` is the static cap of the padded ball-query tables
     (the reference's ball query is unbounded; the nearest ones are kept).
-    ``pooling_method`` pools a classification net's last level over its
-    points, after ``frame_pooling_method`` (if set) has pooled its frames;
-    ``global_equiv_featurevector`` (set by no recipe) is not ported.
+    ``block_layer`` names the encoder's residual block
+    (``models.encoder.BLOCK_LAYERS``).  ``seg_head_feats`` is the width of
+    the plain ``SegUNet``'s head.  ``pooling_method`` pools a
+    classification net's last level over its points, after
+    ``frame_pooling_method`` (if set) has pooled its frames;
+    ``global_equiv_featurevector`` instead maps the last trunk level into
+    one extra hierarchy level by an all-points conv (``ClassNet``).
     """
 
     conv: ConvFactory
@@ -53,6 +57,7 @@ class ModelSpec:
     num_knn_dec: int = 16
     fpn_dec_feats: int = 128
     num_hidden_seg_head: int = 0
+    seg_head_feats: int = 128
     max_path_drop: float = 0.2
     max_path_dec_drop: float = 0.0
     pooling_method: str = "avg"
@@ -72,8 +77,6 @@ class ModelSpec:
             raise ValueError("patch_num_features must have patch_num_levels entries")
         if len(self.num_blocks) != len(self.num_features):
             raise ValueError("num_blocks and num_features must align")
-        if self.block_layer != "resnetformer":
-            raise NotImplementedError(f"block layer {self.block_layer!r} is not ported yet")
 
 
 def consumers(spec: ModelSpec, self_neighborhood: bool) -> tuple:

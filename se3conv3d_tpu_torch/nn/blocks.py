@@ -1,5 +1,6 @@
-"""Linear layer, stochastic depth, skip connection and the ResNetFormer block
-(counterparts of ``se3conv3d_tpu/nn/blocks.py``).
+"""Linear layer, stochastic depth, skip connection and the residual blocks
+ResNetFormer, ResNetB and ResConvNeXt (counterparts of
+``se3conv3d_tpu/nn/blocks.py``).
 
 The JAX blocks call ``jax.nn.gelu`` with its default, the tanh
 approximation, so the port does too (``approximate="tanh"``); only the PNE
@@ -18,7 +19,8 @@ from ..core.neighborhoods import Neighborhood
 from ..core.pointcloud import PointCloud
 from .norm import MaskedBatchNorm
 
-__all__ = ["TorchLinear", "DropPath", "DropPathDraws", "SkipConnection", "ResNetFormer", "gelu_tanh"]
+__all__ = ["TorchLinear", "DropPath", "DropPathDraws", "SkipConnection", "ResNetFormer", "ResNetB",
+           "ResConvNeXt", "gelu_tanh"]
 
 
 def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
@@ -127,3 +129,52 @@ class ResNetFormer(nn.Module):
         y = self.linear_2(gelu_tanh(self.linear_1(y)))
         skip = self.skip_conv(x) if self.skip_conv is not None else x
         return self.skip_path_2(y, skip, drops)
+
+
+class ResNetB(nn.Module):
+    """Bottleneck residual block: norm -> linear (C/2) -> conv (C/2 -> C/2)
+    -> GELU -> linear (C_out) -> skip."""
+
+    def __init__(self, in_features: int, out_features: int, conv_factory, drop_prob: float = 0.0):
+        super().__init__()
+        hidden = in_features // 2
+        self.norm = MaskedBatchNorm(in_features)
+        self.linear_1 = TorchLinear(in_features, hidden)
+        self.spatial_conv = conv_factory.make(hidden, hidden)
+        self.linear_2 = TorchLinear(hidden, out_features)
+        self.skip_conv = (
+            TorchLinear(in_features, out_features) if in_features != out_features else None
+        )
+        self.skip_path = SkipConnection(out_features, drop_prob)
+
+    def forward(self, pc: PointCloud, features, neigh: Neighborhood, calibrate: bool = False,
+                drops: Optional[DropPathDraws] = None):
+        x = self.linear_1(self.norm(features, pc.mask))
+        x = gelu_tanh(self.spatial_conv(pc, pc, x, neigh, calibrate))
+        x = self.linear_2(x)
+        skip = self.skip_conv(features) if self.skip_conv is not None else features
+        return self.skip_path(x, skip, drops)
+
+
+class ResConvNeXt(nn.Module):
+    """ConvNeXt-style block: conv -> norm -> linear (2C) -> GELU -> linear
+    (C_out) -> skip."""
+
+    def __init__(self, in_features: int, out_features: int, conv_factory, drop_prob: float = 0.0):
+        super().__init__()
+        self.spatial_conv = conv_factory.make(in_features, in_features)
+        self.norm = MaskedBatchNorm(in_features)
+        self.linear_1 = TorchLinear(in_features, in_features * 2)
+        self.linear_2 = TorchLinear(in_features * 2, out_features)
+        self.skip_conv = (
+            TorchLinear(in_features, out_features) if in_features != out_features else None
+        )
+        self.skip_path = SkipConnection(out_features, drop_prob)
+
+    def forward(self, pc: PointCloud, features, neigh: Neighborhood, calibrate: bool = False,
+                drops: Optional[DropPathDraws] = None):
+        x = self.spatial_conv(pc, pc, features, neigh, calibrate)
+        x = self.linear_1(self.norm(x, pc.mask))
+        x = self.linear_2(gelu_tanh(x))
+        skip = self.skip_conv(features) if self.skip_conv is not None else features
+        return self.skip_path(x, skip, drops)

@@ -43,7 +43,7 @@ from ..core.pointcloud import PointCloud, gather_rows
 from ..ops import pne_conv as ops
 from .icosphere import icosphere_points
 
-__all__ = ["PNEConv", "ConvFactory", "check_neighbor_caps", "fused_dispatch"]
+__all__ = ["PNEConv", "ConvFactory", "calibrate_norms", "check_neighbor_caps", "fused_dispatch"]
 
 
 def check_neighbor_caps(calib: Union[nn.Module, Mapping[str, torch.Tensor]],
@@ -123,6 +123,35 @@ def _kernel_points(pne_type: str):
     return kp, sigma
 
 
+@torch.no_grad()
+def calibrate_norms(layer: nn.Module, pc_in: PointCloud, pc_out: PointCloud,
+                    neigh: Neighborhood) -> torch.Tensor:
+    """One calibration pass of ``layer``'s buffers ``norm_neigh_dist``,
+    ``norm_num_neighs`` and ``initialized`` (module note): ``1/radius`` for a
+    ball query, else ``1 / (2 * mean edge length)``; query rows per valid
+    edge; set on the first pass, then a 0.9/0.1 EMA.  Returns the number of
+    query rows."""
+    if neigh.method == "ball_query":
+        new_dist = torch.tensor(1.0 / neigh.radius, device=layer.norm_neigh_dist.device)
+    else:
+        src = gather_rows(pc_in.positions, neigh.idx)
+        dist = (src - pc_out.positions[:, :, None, :]).pow(2).sum(-1).sqrt()
+        edges = neigh.mask.sum().clamp(min=1)
+        mean_dist = torch.where(neigh.mask, dist, torch.zeros_like(dist)).sum() / edges
+        new_dist = 1.0 / (2.0 * mean_dist)
+    rows = neigh.query_mask.sum()
+    new_neighs = rows / neigh.mask.sum().clamp(min=1)
+    seen = layer.initialized
+    layer.norm_neigh_dist.copy_(
+        torch.where(seen, 0.9 * layer.norm_neigh_dist + 0.1 * new_dist, new_dist)
+    )
+    layer.norm_num_neighs.copy_(
+        torch.where(seen, 0.9 * layer.norm_num_neighs + 0.1 * new_neighs, new_neighs)
+    )
+    layer.initialized.fill_(True)
+    return rows
+
+
 class PNEConv(nn.Module):
     """Point conv: ``features [B, N, F, C] -> [B, M, G, O]`` (equivariant)
     or ``[B, N, C] -> [B, M, O]`` (standard).
@@ -178,24 +207,7 @@ class PNEConv(nn.Module):
 
     @torch.no_grad()
     def _calibrate(self, pc_in: PointCloud, pc_out: PointCloud, neigh: Neighborhood) -> None:
-        if neigh.method == "ball_query":
-            new_dist = torch.tensor(1.0 / neigh.radius, device=self.norm_neigh_dist.device)
-        else:
-            src = gather_rows(pc_in.positions, neigh.idx)
-            dist = (src - pc_out.positions[:, :, None, :]).pow(2).sum(-1).sqrt()
-            edges = neigh.mask.sum().clamp(min=1)
-            mean_dist = torch.where(neigh.mask, dist, torch.zeros_like(dist)).sum() / edges
-            new_dist = 1.0 / (2.0 * mean_dist)
-        rows = neigh.query_mask.sum()
-        new_neighs = rows / neigh.mask.sum().clamp(min=1)
-        seen = self.initialized
-        self.norm_neigh_dist.copy_(
-            torch.where(seen, 0.9 * self.norm_neigh_dist + 0.1 * new_dist, new_dist)
-        )
-        self.norm_num_neighs.copy_(
-            torch.where(seen, 0.9 * self.norm_num_neighs + 0.1 * new_neighs, new_neighs)
-        )
-        self.initialized.fill_(True)
+        rows = calibrate_norms(self, pc_in, pc_out, neigh)
         if neigh.trunc is not None:
             frac = neigh.trunc.sum() / rows.clamp(min=1)
             self.trunc_frac.copy_(torch.maximum(self.trunc_frac, frac))

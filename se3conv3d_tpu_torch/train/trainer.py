@@ -78,10 +78,10 @@ class Trainer:
     """Steps of one (model, hierarchy config, optimizer).
 
     Args:
-      model: an ``FPNSegUNet`` (the segmentation task) or a ``ClassNet``
-        (the classification task, ``self.task``); its parameters, BN
-        statistics and calibration buffers are the state the steps read
-        and update.
+      model: an ``FPNSegUNet`` or a ``SegUNet`` (the segmentation task)
+        or a ``ClassNet`` (the classification task, ``self.task``); its
+        parameters, BN statistics and calibration buffers are the state
+        the steps read and update.
       hierarchy_config: used by the calibration and train steps.
       eval_hierarchy_config: used by the eval step (default: the same).
       label_smoothing / ignore_label: loss settings.

@@ -239,10 +239,14 @@ def test_tiny_classnet_calibration_and_logits_match_jax(name):
 
 
 def test_global_equiv_featurevector_is_not_ported():
+    """The option once raised here; it now builds the global feature-vector
+    layers in place of the classification head
+    (``tests/test_torch_global_featurevector.py`` holds them against JAX)."""
     spec = dataclasses.replace(get_model_spec("ClassNetRotEquivMLPGELU19Former"), **TINY,
                                global_equiv_featurevector=True)
-    with pytest.raises(NotImplementedError):
-        ClassNet(spec, num_in_feats=1, num_classes=CLASSES)
+    names = set(ClassNet(spec, num_in_feats=1, num_classes=CLASSES).state_dict())
+    assert "global_conv_down.conv_weights" in names
+    assert not any(k.startswith(("class_norm.", "class_head.")) for k in names)
 
 
 # --- one classification train step ------------------------------------------------

@@ -788,7 +788,7 @@ def test_std_conv_function_launches_the_std_kernels(sorted_mode):
 @pytest.mark.cuda
 def test_std_wrappers_reject_what_the_std_kernels_do_not_take():
     """Without rot6: a [9, Q] projection, G = 2 offsets, F = 2 features or
-    Q > 32 raise before any launch."""
+    Q > 64 raise before any launch."""
     _needs_card()
     args, gout = _std_inputs("std_ragged_q16_unaligned", torch.float32)
     q, c, o = STD_SHAPES["std_ragged_q16_unaligned"][4:7]
@@ -796,8 +796,8 @@ def test_std_wrappers_reject_what_the_std_kernels_do_not_take():
         [*args[:5], torch.zeros(9, q, device="cuda"), *args[6:]],
         [args[0].expand(-1, -1, -1, 2, -1).contiguous(), *args[1:]],
         [*args[:2], args[2].expand(-1, -1, 2, -1).contiguous(), *args[3:]],
-        [*args[:5], torch.zeros(3, 64, device="cuda"), torch.zeros(64, device="cuda"),
-         torch.zeros(c, 64, o, device="cuda")],
+        [*args[:5], torch.zeros(3, 65, device="cuda"), torch.zeros(65, device="cuda"),
+         torch.zeros(c, 65, o, device="cuda")],
     ]
     before = kfe.fused_equiv_fwd.launches, kfe.fused_equiv_bwd.launches
     for a in bad:

@@ -180,7 +180,7 @@ def test_kernel_point_conv_function_reads_norm_dist_on_the_device(sorted_mode):
 
 @pytest.mark.cuda
 def test_kernel_point_wrappers_reject_what_the_kernels_do_not_take():
-    """bfloat16 offsets, a rot6, G = 2, Q > 32, P > MAX_KP, a [P', Q]
+    """bfloat16 offsets, a rot6, G = 2, Q > 64, P > MAX_KP, a [P', Q]
     projection of the wrong height or an unknown correlation or activation
     raise before any launch."""
     _needs_card()
@@ -191,8 +191,8 @@ def test_kernel_point_wrappers_reject_what_the_kernels_do_not_take():
         ([args[0].to(torch.bfloat16), *args[1:]], kp),
         ([args[0], torch.zeros(*args[0].shape[:4], 1, 6, device="cuda"), *args[2:]], kp),
         ([args[0].expand(-1, -1, -1, 2, -1).contiguous(), *args[1:]], kp),
-        ([*args[:5], torch.zeros(13, 64, device="cuda"), torch.zeros(64, device="cuda"),
-          torch.zeros(c, 64, o, device="cuda")], kp),
+        ([*args[:5], torch.zeros(13, 65, device="cuda"), torch.zeros(65, device="cuda"),
+          torch.zeros(c, 65, o, device="cuda")], kp),
         ([*args[:5], torch.zeros(65, q, device="cuda"), *args[6:]],
          kp._replace(points=torch.zeros(65, 3, device="cuda"))),
         ([*args[:5], torch.zeros(55, q, device="cuda"), *args[6:]], kp),

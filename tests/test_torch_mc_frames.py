@@ -216,10 +216,15 @@ def test_draw_hierarchy_gives_each_frame_kind_its_draws():
         d = hierarchy.draw_hierarchy(cfg, 2, 200, torch.Generator().manual_seed(0))
         assert tuple(d.level_frames[0].shape) == shape, fcfg
         assert len(d.level_frames) == 3 and d.out_uniforms.shape == (2, 128)
-    # the PCA frames' ball-query neighborhood is not ported
+    # the PCA frames' ball-query neighborhood builds (held against JAX in
+    # tests/test_torch_frames_ball_query.py); an unknown method raises
     pts, mask, feats, _ = tiny_batch()
-    cfg = hierarchy.HierarchyConfig(**HCFG, frames=hierarchy.FrameConfig(neigh_method="ball_query"))
-    with pytest.raises(NotImplementedError):
+    cfg = hierarchy.HierarchyConfig(**HCFG, frames=hierarchy.FrameConfig(
+        neigh_method="ball_query", bq_radius=0.2))
+    h = hierarchy.build_hierarchy(t(pts), t(mask), t(feats), cfg, generator=torch.Generator())[0]
+    assert tuple(h.levels[0].frames.shape) == (2, 128, 2, 3, 3)
+    cfg = hierarchy.HierarchyConfig(**HCFG, frames=hierarchy.FrameConfig(neigh_method="radius"))
+    with pytest.raises(ValueError):
         hierarchy.build_hierarchy(t(pts), t(mask), t(feats), cfg, generator=torch.Generator())
 
 

@@ -219,7 +219,7 @@ def test_standard_kernel_function_gradcheck_float64():
 
 def test_standard_geometry_contract_and_cpu_dispatch():
     """The wrappers' checks take the standard shapes (D = 3 from
-    ``proj_axes``, G = F = 1, Q <= 32) and reject the equivariant ones
+    ``proj_axes``, G = F = 1, Q <= 64) and reject the equivariant ones
     without ``rot6``; CPU tensors run the plain versions and count no
     launch."""
     pc_in, pc_out, neigh, feats, pa, pb, w = _case("ragged_m_masked_tail")
@@ -236,8 +236,8 @@ def test_standard_geometry_contract_and_cpu_dispatch():
         kfe._check(*args[:5], torch.zeros(9, Q), *args[6:])
     with pytest.raises(ValueError, match="proj_axes"):  # the equivariant conv takes 9 rows
         kfe._check(args[0], torch.zeros(2, 70, K, 1, 1, 6), *args[2:])
-    with pytest.raises(ValueError, match="standard geometry"):  # Q > 32
-        kfe._check(*args[:5], torch.zeros(3, 64), torch.zeros(64), torch.zeros(C, 64, O))
+    with pytest.raises(ValueError, match="standard geometry"):  # Q > 64
+        kfe._check(*args[:5], torch.zeros(3, 65), torch.zeros(65), torch.zeros(C, 65, O))
     with pytest.raises(ValueError, match="standard geometry"):  # G = 2
         kfe._check(rel.expand(-1, -1, -1, 2, -1).contiguous(), *args[1:])
     gout = torch.randn(2, 70, 1, O, generator=torch.Generator().manual_seed(1))
