@@ -308,13 +308,46 @@ order they run:
     16, 32 channels, 16 basis functions, 4 heads): forward and gradients
     card vs CPU at B = 2, their times at B = 32;
 
+35. (after phase 34) data parallelism on ``dfaust_I_rot_pca_2F`` at full
+    width, B = 32 bodies, the last 25% of the points of the first 8 masked
+    off, the hierarchy draws and DropPath keep masks recorded once and
+    injected at each process's bodies: (a) one process, no group, twice (its
+    own repeat spread); (b) a one-rank NCCL group on the card, whose state
+    after a calibration pass and one step must equal (a)'s bitwise where (a)
+    repeats itself bitwise, else within twice (a)'s spread (that step in
+    the deterministic 'sorted' backward mode, in which (a) repeats itself
+    bitwise; the timed steps in the default 'scatter' mode); (c) two ranks on
+    the card over gloo (``parallel.launch``), 16 bodies each, rank 0's
+    holding the masked ones: the loss within 1e-5 relative of (a)'s, every
+    parameter's gradient within ``GRAD_RTOL`` of its leaf (the gradient gate
+    of phase 8), the BN running statistics and calibration buffers within
+    1e-5, the ranks' states bitwise equal; two controls that must fail that
+    gate (each rank's own mean loss with DDP's averaged gradients; each
+    rank's own BN statistics); the dry-run contract of
+    ``__graft_entry__.py`` (three steps of (c) on one batch lower the loss,
+    the ranks stay bitwise equal); the validation counts summed by
+    ``cross_host_sum`` over (c) equal to (a)'s; the step medians of (a),
+    (b) and (c), the all-reduce share of a (c) step, each rank's peak, and
+    the conv kernels' launches of every configuration and rank;
+36. ``MinkUNet34A`` at the module's defaults (grid (96, 48, 96), cell 0.1,
+    20 classes, 3 input features) on two synthetic rooms of 120,000 points:
+    the forward and one train step with cuDNN's TF32 on and off, the peak;
+    then the card (TF32 off) against the CPU on one room at a grid of (32,
+    16, 32) within 2e-4 of max |logits|, beside the control with the
+    transposed convs' kernels unflipped;
+37. farthest-point sampling, B = 32 bodies x 4096 points -> 1024: ``ids``,
+    ``out_mask`` and ``nearest`` on the card equal the CPU's exactly, timed,
+    and the same with two bodies left with 300 and 1 valid points (the tied
+    picks past the valid count);
+
 and last, one ``modelnet40_pca_2F`` train step under ``torch.profiler``
 (device ms by kernel, per conv pass, in PyTorch's reductions, and the idle
 share).
 
 Run from the repository root: ``python3 chip_smoke.py``.  Exits non-zero,
 printing no result, without a CUDA device or outside the repository.  The
-last line of a passing run is ``{"ok": true, "device": {...}}``.  Phases
+last line of a passing run is ``{"ok": true, "device": {...}}``, after
+the run's total time and the card's line.  Phases
 23-28 run after phase 20 and before the last profile, in one temporary
 directory, removed at their end.
 """
@@ -5308,8 +5341,533 @@ def zoo_entries(zoo: dict) -> list:
     return entries
 
 
+# phase 35: data parallelism on the DFaust recipe at full width, in three
+# configurations: (a) one process, no group; (b) a one-rank NCCL group on the
+# card; (c) two ranks on the card over gloo, 16 bodies each.  The first
+# DDP_MASKED bodies lose their last 25% of points, so rank 0's half holds
+# fewer valid points than rank 1's.
+DDP_BATCH, DDP_MASKED, DDP_TIMED_STEPS, DDP_DRYRUN_STEPS = 32, 8, 3, 3
+DDP_LOSS_RTOL, DDP_STATE_RTOL = 1e-5, 1e-5
+# the BN statistics and calibration buffers a state comparison reads
+STAT_NAMES = ("mean", "var", "norm_neigh_dist", "norm_num_neighs", "trunc_frac")
+
+
+def ddp_batch() -> dict:
+    """Phase 35's global batch (on the CPU): ``body_batch`` with the last
+    25% of the points of the first ``DDP_MASKED`` bodies masked off."""
+    batch = body_batch(DDP_BATCH, POINTS, seed=35)
+    batch["mask"][:DDP_MASKED, POINTS * 3 // 4:] = False
+    return batch
+
+
+def ddp_draws(dev, batch) -> dict:
+    """The global batch's random numbers, recorded once on the CPU: the
+    hierarchy draws of the calibration pass, of the train step and of the
+    eval pass, and the train step's DropPath keep masks (from a train-mode
+    forward of a seeded model)."""
+    from se3conv3d_tpu_torch.core.hierarchy import draw_hierarchy
+    from se3conv3d_tpu_torch.nn.blocks import DropPathDraws
+
+    class Keeping(DropPathDraws):
+        def __init__(self, generator):
+            super().__init__(generator)
+            self.masks = []
+
+        def keep_mask(self, b, keep, like):
+            mask = super().keep_mask(b, keep, like)
+            self.masks.append(mask.cpu())
+            return mask
+
+    trainer = ddp_trainer(dev)
+    gen = torch.Generator().manual_seed(350)
+    b, n = batch["mask"].shape
+    out = {k: draw_hierarchy(cfg, b, n, gen) for k, cfg in
+           (("calib", trainer.hcfg), ("step", trainer.hcfg), ("eval", trainer.eval_hcfg))}
+    keeping = Keeping(torch.Generator(device=dev).manual_seed(351))
+    h, f0, out_pc, out_labels, _ = trainer.build(to_device(batch, dev), draws=draws_at(out["step"], range(b), dev))
+    with torch.no_grad():
+        trainer.model.train()
+        trainer._forward(h, f0, out_pc, drops=keeping)
+    out["masks"] = keeping.masks
+    return out
+
+
+def draws_at(draws, idx, dev):
+    """Hierarchy draws at examples ``idx``, on ``dev``."""
+    from se3conv3d_tpu_torch.core.hierarchy import HierarchyDraws
+
+    idx = list(idx)
+    pick = (lambda x: None if x is None else x[idx].to(dev))
+    return HierarchyDraws([pick(x) for x in draws.level_frames], pick(draws.out_uniforms), pick(draws.out_frames))
+
+
+def ddp_trainer(dev, per_rank_mean=False):
+    """A seeded ``dfaust_I_rot_pca_2F`` model and its trainer, the recipe's
+    optimizer over ``1 + DDP_TIMED_STEPS`` steps (its peak rate from the
+    first step on); ``per_rank_mean``: the control whose loss is each rank's
+    own mean, its gradients averaged over the ranks (DDP's rule)."""
+    from se3conv3d_tpu_torch.models import presets
+    from se3conv3d_tpu_torch.parallel import mesh
+    from se3conv3d_tpu_torch.train import schedule
+    from se3conv3d_tpu_torch.train.trainer import Trainer
+
+    class PerRankMean(Trainer):
+        def backward(self, h, f0, out_pc, out_labels, drops):
+            self.model.train()
+            self.model.zero_grad(set_to_none=True)
+            total, count = self._loss_parts(self._forward(h, f0, out_pc, drops=drops), out_labels, out_pc)
+            loss = total / count.clamp(min=1.0)
+            loss.backward()
+            self.sum_grads()
+            for p in self.model.parameters():
+                if p.grad is not None:
+                    p.grad.div_(mesh.world_size())
+            return mesh.group_sum_(loss.detach().clone()) / mesh.world_size()
+
+    md, training = presets.DFAUST_I_ROT_PCA_2F_MODEL, presets.DFAUST_I_ROT_PCA_2F_TRAINING
+    model = seeded_model(md, dev)
+    opt = schedule.optimizer_from_training(model.parameters(), training, 1 + DDP_TIMED_STEPS)
+    cls = PerRankMean if per_rank_mean else Trainer
+    return cls(model, presets.hierarchy_config_from_model_dict(md, POINTS, train=True),
+               presets.hierarchy_config_from_model_dict(md, POINTS, train=False),
+               label_smoothing=training["label_smoothing"], optimizer=opt)
+
+
+@contextlib.contextmanager
+def per_rank_bn():
+    """The control whose BN layers take their own rank's rows only."""
+    from se3conv3d_tpu_torch.nn import norm
+
+    saved = norm.rank_sum
+    norm.rank_sum = lambda x, dims, *extras: (x.sum(dims),) + extras
+    try:
+        yield
+    finally:
+        norm.rank_sum = saved
+
+
+def cpu_state(model) -> dict:
+    return {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+
+
+def ddp_val_counts(dev, batch, draws, halves) -> object:
+    """The validation counts (``SemSegMetrics``) of a fresh seeded model,
+    before calibration, so that every process holds it bit for bit: one
+    eval pass per half of the global batch in ``halves`` (16 bodies each,
+    with the recorded eval draws), summed over them and over the ranks
+    (``cross_host_sum``)."""
+    from se3conv3d_tpu_torch.parallel.multihost import cross_host_sum
+    from se3conv3d_tpu_torch.train.metrics import SemSegMetrics
+
+    trainer = ddp_trainer(dev)
+    counts = SemSegMetrics.empty(CLASSES)
+    for idx in halves:
+        local = to_device({k: v[list(idx)] for k, v in batch.items()}, dev)
+        ev = trainer.eval_step(local, draws=draws_at(draws["eval"], idx, dev))
+        counts = counts.update(ev["logits"].argmax(-1), ev["labels"], ev["mask"])
+    return cross_host_sum(counts)
+
+
+def ddp_step(dev, batch, draws, idx, variant="sound", timed_steps=0, mode="scatter") -> dict:
+    """One calibration pass and one train step of a fresh seeded trainer on
+    the examples ``idx`` of the global batch, with the recorded draws at
+    those examples; ``variant``: "sound", "per_rank_mean" or "per_rank_bn"
+    (a control); ``mode``: the conv backward's mode for that step ('sorted'
+    is deterministic).  Returns the loss, the gradients (after the sum over
+    the ranks), the state after the step, the launches of the conv kernels,
+    and with ``timed_steps`` the host-clock seconds of that many more steps
+    (generator draws, the default 'scatter' mode) and the peak."""
+    from se3conv3d_tpu_torch.kernels import fused_equiv as kfe
+    from se3conv3d_tpu_torch.ops import pne_conv as ops
+
+    trainer = ddp_trainer(dev, per_rank_mean=variant == "per_rank_mean")
+    local = to_device({k: v[list(idx)] for k, v in batch.items()}, dev)
+    out = {}
+    with per_rank_bn() if variant == "per_rank_bn" else contextlib.nullcontext():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches(kfe)
+        trainer.calibration_step(local, draws=draws_at(draws["calib"], idx, dev))
+        ops.BWD_SCATTER_MODE = mode
+        try:
+            res = trainer.train_step(local, draws=draws_at(draws["step"], idx, dev),
+                                     drop_masks=[m[list(idx)] for m in draws["masks"]])
+        finally:
+            ops.BWD_SCATTER_MODE = "scatter"
+        out["loss"], out["grad_norm"] = float(res["loss"]), float(res["grad_norm"])
+        out["launches"] = (kfe.fused_equiv_fwd.launches, kfe.fused_equiv_bwd.launches)
+        out["grads"] = {n: p.grad.detach().cpu().clone() for n, p in trainer.model.named_parameters()}
+        out["state"] = cpu_state(trainer.model)
+        gen = torch.Generator(device=dev).manual_seed(352)
+        times = []
+        for _ in range(timed_steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer.train_step(local, gen)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        out["step_s"], out["peak_gib"] = times, torch.cuda.max_memory_allocated() / 2**30
+    return out
+
+
+def ddp_dryrun(dev, batch, draws, idx) -> dict:
+    """``__graft_entry__._dryrun_impl``'s contract on this rank: three steps
+    on one batch (the same draws each step): the losses and the final
+    state."""
+    trainer = ddp_trainer(dev)
+    local = to_device({k: v[list(idx)] for k, v in batch.items()}, dev)
+    trainer.calibration_step(local, draws=draws_at(draws["calib"], idx, dev))
+    losses = [float(trainer.train_step(local, draws=draws_at(draws["step"], idx, dev),
+                                       drop_masks=[m[list(idx)] for m in draws["masks"]])["loss"])
+              for _ in range(DDP_DRYRUN_STEPS)]
+    return {"losses": losses, "state": cpu_state(trainer.model)}
+
+
+@contextlib.contextmanager
+def timing_all_reduce(seconds: list):
+    """Every ``torch.distributed.all_reduce`` timed on the host clock
+    between two device syncs, into ``seconds``."""
+    import torch.distributed as dist
+
+    plain = dist.all_reduce
+
+    def timed(tensor, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = plain(tensor, *args, **kwargs)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        return out
+
+    dist.all_reduce = timed
+    try:
+        yield
+    finally:
+        dist.all_reduce = plain
+
+
+def ddp_rank(rank: int, batch: dict, draws: dict) -> dict:
+    """Phase 35 (c), one rank of two on the card: the sound step (timed),
+    the two controls, the all-reduce share of one more step, the dry-run's
+    three steps, and its half's validation counts summed over the ranks."""
+    from se3conv3d_tpu_torch.parallel import mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = mesh.rank_device()
+    idx = range(rank * DDP_BATCH // 2, (rank + 1) * DDP_BATCH // 2)
+    out = {"sound": ddp_step(dev, batch, draws, idx, timed_steps=DDP_TIMED_STEPS),
+           "val_counts": ddp_val_counts(dev, batch, draws, [idx])}
+    for variant in ("per_rank_mean", "per_rank_bn"):
+        out[variant] = ddp_step(dev, batch, draws, idx, variant)
+    reduce_s = []
+    trainer = ddp_trainer(dev)
+    local = to_device({k: v[list(idx)] for k, v in batch.items()}, dev)
+    trainer.calibration_step(local, draws=draws_at(draws["calib"], idx, dev))
+    gen = torch.Generator(device=dev).manual_seed(353)
+    trainer.train_step(local, gen)
+    with timing_all_reduce(reduce_s):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train_step(local, gen)
+        torch.cuda.synchronize()
+        out["reduce"] = {"step_s": time.perf_counter() - t0, "all_reduce_s": sum(reduce_s),
+                         "calls": len(reduce_s)}
+    del trainer
+    out["dryrun"] = ddp_dryrun(dev, batch, draws, idx)
+    return out
+
+
+def stat_errors(state: dict, ref: dict) -> tuple:
+    """The worst error of the BN running statistics and calibration
+    buffers over each leaf's scale (a running mean's: the larger of its max
+    |value| and the root of its variance's max): ``(error, leaf)``."""
+    worst = (0.0, "")
+    for k, x in ref.items():
+        name = k.rpartition(".")[2]
+        if name not in STAT_NAMES:
+            continue
+        x = x.double()
+        scale = max(x.abs().max().item(), 1e-30)
+        if name == "mean":
+            scale = max(scale, ref[k[:-4] + "var"].double().max().item() ** 0.5)
+        worst = max(worst, ((state[k].double() - x).abs().max().item() / scale, k))
+    return worst
+
+
+def ddp_gate(card, label, got: dict, ref: dict) -> dict:
+    """(c)'s gate against (a): the loss within ``DDP_LOSS_RTOL`` relative,
+    every parameter's gradient within ``GRAD_RTOL`` of its leaf
+    (``grads_ratio``), the BN statistics and calibration buffers within
+    ``DDP_STATE_RTOL`` (``stat_errors``)."""
+    loss_err = abs(got["loss"] - ref["loss"]) / abs(ref["loss"])
+    norm = float(torch.sqrt(sum(g.double().square().sum() for g in ref["grads"].values())))
+    grad_err, grad_leaf = grads_ratio(got["grads"], ref["grads"], norm)
+    stat_err, stat_leaf = stat_errors(got["state"], ref["state"])
+    ok = loss_err <= DDP_LOSS_RTOL and grad_err <= GRAD_RTOL and stat_err <= DDP_STATE_RTOL
+    print(f"phase 35 {label}: loss {got['loss']:.7f} vs (a) {ref['loss']:.7f}, rel {loss_err:.3e} (bound "
+          f"{DDP_LOSS_RTOL}); gradients worst {grad_err:.3e} at {grad_leaf} (bound {GRAD_RTOL}, floor "
+          f"{GRAD_FLOOR} * norm {norm:.4f}); BN statistics and calibration buffers worst {stat_err:.3e} at "
+          f"{stat_leaf} (bound {DDP_STATE_RTOL}): {'within' if ok else 'outside'} the gate [{card}]", flush=True)
+    return dict(loss_rel=loss_err, grad_ratio=grad_err, grad_leaf=grad_leaf, stat_err=stat_err,
+                stat_leaf=stat_leaf, ok=ok)
+
+
+def repeat_gate(card, b: dict, a1: dict, a2: dict) -> dict:
+    """(b) against (a): bitwise where (a) repeats itself bitwise, else within
+    twice (a)'s own repeat spread, leaf by leaf (parameters, BN statistics,
+    calibration buffers after the step)."""
+    worst, bitwise_leaves, spread_leaves = (0.0, ""), 0, 0
+    for k, x in a1["state"].items():
+        spread = (a2["state"][k].double() - x.double()).abs().max().item() if x.numel() else 0.0
+        err = (b["state"][k].double() - x.double()).abs().max().item() if x.numel() else 0.0
+        if spread == 0.0:
+            bitwise_leaves += 1
+            if not torch.equal(b["state"][k], x):
+                grad = (b["grads"][k] - a1["grads"][k]).abs().max().item() if k in a1["grads"] else None
+                raise SystemExit(f"phase 35 (b): {k} differs from (a), which repeats it bitwise: max "
+                                 f"|b - a| {err:.3e}, its gradient's {grad}; loss (a) {a1['loss']!r} (b) "
+                                 f"{b['loss']!r}")
+        else:
+            spread_leaves += 1
+            worst = max(worst, (err / spread, k))
+    loss_same = b["loss"] == a1["loss"]
+    print(f"phase 35 (b) one-rank NCCL group vs (a): {bitwise_leaves} leaves bitwise (as (a) repeats them), "
+          f"{spread_leaves} within twice (a)'s repeat spread, worst {worst[0]:.3f} x the spread at {worst[1]} "
+          f"(bound 2); loss {'bitwise' if loss_same else 'differs'} [{card}]", flush=True)
+    if worst[0] > 2.0:
+        raise SystemExit("phase 35: the one-rank group's step is not the one-process step")
+    return dict(bitwise_leaves=bitwise_leaves, spread_leaves=spread_leaves, worst_spread_ratio=worst[0],
+                loss_bitwise=loss_same)
+
+
+def rank_card() -> torch.device:
+    """The card phase 35's groups put their ranks on: this process's."""
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def run_ddp(card, dev) -> dict:
+    """35. data parallelism: ``dfaust_I_rot_pca_2F`` at full width, B = 32,
+    in configurations (a), (b) and (c) (module note); the gates and
+    controls of ``ddp_gate`` / ``repeat_gate``, the dry-run contract, the
+    validation counts; step medians, the all-reduce share of (c), peaks."""
+    from se3conv3d_tpu_torch.parallel import launch, make_group
+    from se3conv3d_tpu_torch.parallel.mesh import joined
+
+    t0 = time.perf_counter()
+    batch = ddp_batch()
+    draws = ddp_draws(dev, batch)
+    every = range(DDP_BATCH)
+    # (a) and (b) take their gated step in the deterministic 'sorted' mode,
+    # so that (a) repeats itself bitwise; (c) in the default 'scatter' mode
+    a1 = ddp_step(dev, batch, draws, every, timed_steps=DDP_TIMED_STEPS, mode="sorted")
+    a2 = ddp_step(dev, batch, draws, every, mode="sorted")
+    card0 = rank_card()
+    with joined(make_group(1, devices=[card0])):
+        b = ddp_step(dev, batch, draws, every, timed_steps=DDP_TIMED_STEPS, mode="sorted")
+    out = {"b_vs_a": repeat_gate(card, b, a1, a2)}
+    group = make_group(2, devices=[card0, card0], backend="gloo")
+    t1 = time.perf_counter()
+    ranks = launch(group, ddp_rank, batch, draws)
+    print(f"phase 35 (c): two ranks on {card0} over gloo in {time.perf_counter() - t1:.2f} s [{card}]", flush=True)
+    c = ranks[0]
+    for name, x in c["sound"]["state"].items():
+        if not torch.equal(x, ranks[1]["sound"]["state"][name]):
+            raise SystemExit(f"phase 35 (c): the ranks' {name} differ after the step")
+    out["c_vs_a"] = ddp_gate(card, "(c) two ranks vs (a)", c["sound"], a1)
+    if not out["c_vs_a"]["ok"]:
+        raise SystemExit("phase 35: the two-rank step is not the one-process step")
+    for variant in ("per_rank_mean", "per_rank_bn"):
+        ctl = ddp_gate(card, f"control {variant} (must fail)", ranks[0][variant], a1)
+        out[f"control_{variant}"] = ctl
+        if ctl["ok"]:
+            raise SystemExit(f"phase 35: the control {variant} passes the gate")
+    dry = [r["dryrun"] for r in ranks]
+    same = all(torch.equal(x, dry[1]["state"][k]) for k, x in dry[0]["state"].items())
+    print(f"phase 35 dry-run: losses over {DDP_DRYRUN_STEPS} steps on one batch {dry[0]['losses']} (rank 1 "
+          f"{dry[1]['losses']}); ranks' parameters and statistics bitwise equal: {same} [{card}]", flush=True)
+    if not (same and dry[0]["losses"][-1] < dry[0]["losses"][0]):
+        raise SystemExit("phase 35: the dry-run contract fails")
+    counts = [r["val_counts"] for r in ranks]
+    half = DDP_BATCH // 2
+    ref = ddp_val_counts(dev, batch, draws, [range(half), range(half, DDP_BATCH)])
+    equal = all(np.array_equal(getattr(c_, f), getattr(ref, f)) for c_ in counts
+                for f in ("intersection", "union", "gt_count", "pred_count"))
+    sums = {name: [int(getattr(x, f).sum()) for f in ("intersection", "union", "gt_count", "pred_count")]
+            for name, x in (("(c)", counts[0]), ("(a)", ref))}
+    print(f"phase 35 validation counts (intersection, union, ground truth, predicted) summed over the "
+          f"classes: cross_host_sum over (c) {sums['(c)']}, (a) {sums['(a)']}; equal class by class: "
+          f"{equal} [{card}]", flush=True)
+    if not equal:
+        raise SystemExit("phase 35: the summed validation counts are not the one-process ones")
+    med = {k: statistics.median(v["step_s"]) for k, v in (("a", a1), ("b", b), ("c_rank0", c["sound"]),
+                                                            ("c_rank1", ranks[1]["sound"]))}
+    share = [r["reduce"]["all_reduce_s"] / r["reduce"]["step_s"] for r in ranks]
+    print(f"phase 35 step medians (host clock, {DDP_TIMED_STEPS} steps): (a) {med['a']:.4f} s at B = 32, (b) "
+          f"{med['b']:.4f} s (NCCL world 1, {100 * (med['b'] / med['a'] - 1):+.1f}% against (a)), (c) rank 0 "
+          f"{med['c_rank0']:.4f} s / rank 1 {med['c_rank1']:.4f} s at 16 bodies each, both ranks on one card; "
+          f"all-reduce share of a (c) step {100 * share[0]:.1f}% / {100 * share[1]:.1f}% "
+          f"({ranks[0]['reduce']['calls']} calls, {ranks[0]['reduce']['all_reduce_s']:.4f} s of "
+          f"{ranks[0]['reduce']['step_s']:.4f} s, with a device sync around each); peaks (a) "
+          f"{a1['peak_gib']:.3f} GiB, (b) {b['peak_gib']:.3f} GiB, (c) {c['sound']['peak_gib']:.3f} / "
+          f"{ranks[1]['sound']['peak_gib']:.3f} GiB [{card}]", flush=True)
+    launches = {"ddp_a_train": a1["launches"], "ddp_b_train_nccl_world1": b["launches"],
+                "ddp_c_train_rank0": c["sound"]["launches"], "ddp_c_train_rank1": ranks[1]["sound"]["launches"]}
+    for name, (fwd, bwd) in launches.items():
+        if fwd != 2 * CONVS_PER_FORWARD or bwd != CONVS_PER_FORWARD:
+            raise SystemExit(f"phase 35 {name}: launches fwd {fwd} bwd {bwd}, expected "
+                             f"{2 * CONVS_PER_FORWARD} / {CONVS_PER_FORWARD} (calibration and one step)")
+    out.update(launches=launches, step_median_s=med, all_reduce_share=share,
+               all_reduce_calls=ranks[0]["reduce"]["calls"],
+               peak_gib={"a": a1["peak_gib"], "b": b["peak_gib"], "c_rank0": c["sound"]["peak_gib"],
+                         "c_rank1": ranks[1]["sound"]["peak_gib"]},
+               dryrun_losses=dry[0]["losses"], seconds=time.perf_counter() - t0)
+    print(f"phase 35: {out['seconds']:.2f} s [{card}]", flush=True)
+    return out
+
+
+# phase 36: the dense-voxel MinkUNet34A at its defaults on two synthetic
+# rooms, and card vs CPU on one room at MINK_SMALL_GRID
+MINK_ROOMS, MINK_ROOM_POINTS, MINK_SMALL_GRID, MINK_RTOL = (100, 101), 120_000, (32, 16, 32), 2e-4
+
+
+def mink_room(seed: int) -> dict:
+    """A ``room_scene`` on the grid's axes: its height on the 48-voxel axis,
+    its colors as the 3 input features, labels taken modulo 20."""
+    room = room_scene(MINK_ROOM_POINTS, seed)
+    return {"positions": room["positions"][:, [0, 2, 1]].contiguous(), "mask": room["mask"],
+            "features": room["features"][:, 3:].contiguous(), "labels": room["labels"] % CLASSES}
+
+
+@contextlib.contextmanager
+def cudnn_tf32(on: bool):
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = on
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+
+
+def mink_times(model, batch, tf32: bool) -> dict:
+    """The forward (eval) and one AdamW train step, host clock, median of
+    3 after one warm-up each, and the step's peak."""
+    with cudnn_tf32(tf32):
+        model.eval()
+        with torch.no_grad():
+            fwd = cuda_ms(lambda: model(batch["positions"], batch["mask"], batch["features"]), 3)
+        model.train()
+        opt = torch.optim.AdamW(model.parameters(), 1e-3)
+
+        def step():
+            logits = model(batch["positions"], batch["mask"], batch["features"])
+            loss = torch.nn.functional.cross_entropy(logits[batch["mask"]], batch["labels"][batch["mask"]])
+            opt.zero_grad(set_to_none=True)
+            loss.backward()
+            opt.step()
+            return loss.detach()
+
+        step()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        train = cuda_ms(step, 3)
+        loss = float(step())
+    return {"fwd_ms": fwd, "step_ms": train, "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "loss": loss}
+
+
+def run_minkunet(card, dev) -> dict:
+    """36. ``MinkUNet34A`` at the module's defaults (grid (96, 48, 96), cell
+    0.1, 20 classes, 3 input features) on two rooms of 120,000 points: the
+    forward and one train step, cuDNN's TF32 on and off; then card (TF32
+    off) vs CPU logits on one room at ``MINK_SMALL_GRID``, beside the
+    control with the transposed convs' kernels unflipped."""
+    from se3conv3d_tpu_torch.models.minkunet import MinkUNet34A
+
+    t0 = time.perf_counter()
+    rooms = [mink_room(s) for s in MINK_ROOMS]
+    batch = to_device(stack_scenes(rooms), dev)
+    model = MinkUNet34A(CLASSES, 3, generator=torch.Generator().manual_seed(36)).to(dev)
+    times = {f"tf32_{on}": mink_times(model, batch, on) for on in (True, False)}
+    for k, v in times.items():
+        if not np.isfinite(v["loss"]):
+            raise SystemExit(f"phase 36: non-finite MinkUNet loss with {k}")
+    print(f"phase 36 MinkUNet34A grid (96, 48, 96), 2 rooms x {MINK_ROOM_POINTS} points: forward "
+          f"{times['tf32_True']['fwd_ms']:.2f} ms (cuDNN TF32 on) / {times['tf32_False']['fwd_ms']:.2f} ms (off); "
+          f"train step {times['tf32_True']['step_ms']:.2f} / {times['tf32_False']['step_ms']:.2f} ms; peak "
+          f"{times['tf32_True']['peak_gib']:.3f} / {times['tf32_False']['peak_gib']:.3f} GiB; "
+          f"{sum(p.numel() for p in model.parameters())} parameters [{card}]", flush=True)
+    del model, batch
+    torch.cuda.empty_cache()
+
+    small = MinkUNet34A(CLASSES, 3, grid_dims=MINK_SMALL_GRID, generator=torch.Generator().manual_seed(37))
+    room = stack_scenes(rooms[:1])
+    with torch.no_grad():
+        cpu_logits = small.eval()(room["positions"], room["mask"], room["features"])
+        card_model = copy.deepcopy(small).to(dev).eval()
+        with cudnn_tf32(False):
+            on_card = card_model(*(room[k].to(dev) for k in ("positions", "mask", "features"))).cpu()
+            for conv, _ in card_model.ups:
+                conv.weight.copy_(conv.weight.flip(2, 3, 4))
+            control = card_model(*(room[k].to(dev) for k in ("positions", "mask", "features"))).cpu()
+        with cudnn_tf32(True):
+            for conv, _ in card_model.ups:
+                conv.weight.copy_(conv.weight.flip(2, 3, 4))
+            tf32 = card_model(*(room[k].to(dev) for k in ("positions", "mask", "features"))).cpu()
+    span = cpu_logits.abs().max().item()
+    err, ctl_err, tf32_err = ((x - cpu_logits).abs().max().item() / span for x in (on_card, control, tf32))
+    print(f"phase 36 card vs CPU, one room at grid {MINK_SMALL_GRID}: max |card - cpu| / max |cpu| = "
+          f"{err:.3e} (bound {MINK_RTOL}, cuDNN allow_tf32 False); control, the ups' kernels unflipped: "
+          f"{ctl_err:.3e} (must exceed the bound); with allow_tf32 True: {tf32_err:.3e} [{card}]", flush=True)
+    if not (err <= MINK_RTOL < ctl_err):
+        raise SystemExit("phase 36: MinkUNet34A card vs CPU gate failed, or its control passed")
+    out = dict(times=times, card_vs_cpu=err, control=ctl_err, tf32_vs_cpu=tf32_err, seconds=time.perf_counter() - t0)
+    print(f"phase 36: {out['seconds']:.2f} s [{card}]", flush=True)
+    return out
+
+
+# phase 37: farthest-point sampling at the DFaust shape
+FPS_SAMPLES, FPS_TIE_VALID = 1024, (300, 1)
+
+
+def run_fps(card, dev) -> dict:
+    """37. ``fps_subsample`` of B = 32 bodies x 4096 points -> 1024 on the
+    card: ``ids`` and ``nearest`` equal the CPU's exactly, timed; then the
+    ties: two bodies left with ``FPS_TIE_VALID`` valid points, so every
+    later pick is the first valid point again."""
+    from se3conv3d_tpu_torch.core.fps import fps_subsample
+    from se3conv3d_tpu_torch.core.pointcloud import PointCloud
+
+    t0 = time.perf_counter()
+    batch = body_batch(BATCH, POINTS, seed=37)
+    out = {}
+    for case in ("bodies", "ties"):
+        mask = batch["mask"].clone()
+        if case == "ties":
+            for i, v in enumerate(FPS_TIE_VALID):
+                mask[i, v:] = False
+        pc = PointCloud(batch["positions"], mask)
+        on_card = PointCloud(pc.positions.to(dev), pc.mask.to(dev))
+        ms = cuda_ms(lambda: fps_subsample(on_card, FPS_SAMPLES), 3)
+        got = fps_subsample(on_card, FPS_SAMPLES)
+        t1 = time.perf_counter()
+        ref = fps_subsample(pc, FPS_SAMPLES)
+        cpu_s = time.perf_counter() - t1
+        same = all(torch.equal(getattr(got, k).cpu(), getattr(ref, k)) for k in ("ids", "out_mask", "nearest"))
+        if case == "ties":
+            same = same and all(bool((got.ids[i, v:] == 0).all()) for i, v in enumerate(FPS_TIE_VALID))
+        print(f"phase 37 fps {case}: B = {BATCH} x {POINTS} -> {FPS_SAMPLES}: card {ms:.2f} ms, CPU {cpu_s:.2f} s; "
+              f"ids, out_mask and nearest equal the CPU's: {same} [{card}]", flush=True)
+        if not same:
+            raise SystemExit(f"phase 37: FPS on the card differs from the CPU ({case})")
+        out[case] = {"ms": ms, "cpu_s": cpu_s}
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 37: {out['seconds']:.2f} s [{card}]", flush=True)
+    return out
+
+
 def kernels_line(dfaust: dict, scan: dict, mixf: dict, rot_i: dict, g4: dict, std: dict, mn: dict,
-                 cli: dict, evals: dict, modes: dict, probes: dict, sites: dict, zoo: dict) -> dict:
+                 cli: dict, evals: dict, modes: dict, probes: dict, sites: dict, zoo: dict,
+                 ddp: dict, mink: dict, fps: dict) -> dict:
     """The ``{"kernels": [...]}`` object: every kernel with its launches on
     the main paths, its error against its plain version, and its times at
     the ScanNet level-0 shape (float32), with the same for its bfloat16
@@ -5330,8 +5888,11 @@ def kernels_line(dfaust: dict, scan: dict, mixf: dict, rot_i: dict, g4: dict, st
     geometry's entries of phases 29-31 (:func:`mode_entries`); then the
     probe kernels' entries of phase 32 (:func:`probe_entries`); then those
     of the Mosaic probe sites of phase 33 (:func:`mosaic_site_entries`);
-    last the Q = 64 instantiations and the O = 1024 conv of phase 34
-    (:func:`zoo_entries`)."""
+    the Q = 64 instantiations and the O = 1024 conv of phase 34
+    (:func:`zoo_entries`); the conv entries' launches include phase 35's
+    data-parallel paths (``ddp_*``: one calibration pass and one step each,
+    rank by rank); phases 36-37 (MinkUNet34A's cuDNN convs, FPS in PyTorch
+    ops) launch no kernel of the port, and their readings close the line."""
     compared, bwd_compared = dfaust["fwd"], dfaust["bwd"]
     scan_conv, scan_cumsum, scan_train, scan_eval = scan["conv"], scan["cumsum"], scan["train"], scan["eval"]
     lvl0 = SCANNET_SHAPES["scannet_level0_block_conv"]
@@ -5360,6 +5921,8 @@ def kernels_line(dfaust: dict, scan: dict, mixf: dict, rot_i: dict, g4: dict, st
                     bf16[f"cli_{name}"] = run["launches"][which]
             for name in ("dfaust", "modelnet40", "scannet20"):  # the eval CLIs of phases 26-28
                 every[f"eval_{name}"] = evals[name]["launches"][which]
+            for name, n in ddp["launches"].items():  # phase 35, per configuration and rank
+                every[name] = n[which]
             bf16["eval_scannet20"] = evals["scannet20"]["bf16_launches"] if which == 0 else 0
         else:
             every["cli_scannet20_sorted_step"] = cli["scannet20"]["cumsum_launches"]
@@ -5507,10 +6070,12 @@ def kernels_line(dfaust: dict, scan: dict, mixf: dict, rot_i: dict, g4: dict, st
         "modelnet40": {"runs": mn["runs"], "profile": mn["profile"]}, "cli": cli,
         "eval": {k: v for k, v in evals.items() if k != "whole_scene_fwd"},
         "model_zoo": {k: zoo[k] for k in ("variants", "ball_query", "q64_models", "attention", "seconds")}
-        | {"modelnet_global": {k: v for k, v in zoo["modelnet_global"].items() if k != "conv"}}}
+        | {"modelnet_global": {k: v for k, v in zoo["modelnet_global"].items() if k != "conv"}},
+        "data_parallel": ddp, "minkunet": mink, "fps": fps}
 
 
 def main() -> int:
+    started = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on an NVIDIA GPU", file=sys.stderr)
         return 1
@@ -5657,13 +6222,23 @@ def main() -> int:
     # frames, ClassNet's global feature vector, Q = 64, the attention convs
     zoo = run_zoo(card, dev, mn_batch)
     torch.cuda.empty_cache()
+    # 35. data parallelism: one process, a one-rank NCCL group, two ranks
+    ddp = run_ddp(card, dev)
+    torch.cuda.empty_cache()
+    # 36. the dense-voxel MinkUNet34A, 37. farthest-point sampling
+    mink = run_minkunet(card, dev)
+    torch.cuda.empty_cache()
+    fps = run_fps(card, dev)
+    torch.cuda.empty_cache()
     # the profiled ModelNet40 train step last: a profiled run slows the launches after it
     mn = dict(conv=mn_conv, runs=mn_runs, profile=modelnet_profile(card, dev, mn_batch))
     del mn_batch
     dfaust = dict(fwd=compared, bwd=bwd_compared, eval_launches=launches,
                   train_launches=dfaust_steps["launches"], bf16_train_launches=dfaust_bf16["bf16_launches"],
                   bf16_train=dfaust_bf16)
-    print(json.dumps(kernels_line(dfaust, scan, mixf, rot_i, g4, std, mn, cli, evals, modes, probes, sites, zoo)))
+    print(f"chip_smoke: total {time.perf_counter() - started:.1f} s, the build included [{card}]", flush=True)
+    print(json.dumps(kernels_line(dfaust, scan, mixf, rot_i, g4, std, mn, cli, evals, modes, probes, sites, zoo,
+                                  ddp, mink, fps)))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

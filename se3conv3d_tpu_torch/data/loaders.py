@@ -12,8 +12,8 @@ pipelines, valid-id tracking through crops, Mix3D scene mixing) and
 The one departure: ``ModelNet40Dataset`` caches the parsed txt files as
 ``tmp_{split}_{num_pts}.npz`` (numpy), where the JAX package writes
 ``tmp_{split}_{num_pts}.h5``, an HDF5 file, which would need a package the
-port does not use.  Also here: :func:`pad_samples_to`, the single-process
-part of ``se3conv3d_tpu/parallel/multihost.py:pad_samples_to``.
+port does not use.  :func:`pad_samples_to` lives in ``parallel.multihost``
+(as in the JAX package) and is exported here too.
 """
 from __future__ import annotations
 
@@ -23,6 +23,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..parallel.multihost import pad_samples_to
 from .augment import AugPipeline
 
 __all__ = [
@@ -571,38 +572,3 @@ class MaxPointsBatchSampler:
 
     def __len__(self):
         return self.num_batches
-
-
-def _empty_like_sample(sample: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
-    """An all-masked filler with ``sample``'s keys: zero rows of each
-    per-point array, zeros of each scalar."""
-    n = sample["positions"].shape[0]
-    out: Dict[str, np.ndarray] = {}
-    for k, v in sample.items():
-        if isinstance(v, np.ndarray) and v.ndim >= 1 and v.shape[0] == n:
-            out[k] = np.zeros((0,) + v.shape[1:], v.dtype)
-        else:
-            out[k] = np.zeros_like(np.asarray(v))
-    return out
-
-
-def pad_samples_to(
-    samples: List[Dict[str, np.ndarray]],
-    target: int,
-    template: Optional[Dict[str, np.ndarray]] = None,
-) -> List[Dict[str, np.ndarray]]:
-    """Pad a sample list to ``target`` with empty (all-masked) samples;
-    no-op when already there.  ``template`` gives the filler's keys and
-    shapes when the list is empty."""
-    if len(samples) > target:
-        raise ValueError(
-            f"{len(samples)} samples exceed the agreed count {target}"
-        )
-    if not samples:
-        if template is None:
-            raise ValueError(
-                "cannot pad an empty sample list without a template"
-            )
-        return [_empty_like_sample(template) for _ in range(target)]
-    filler = _empty_like_sample(samples[0])
-    return samples + [filler] * (target - len(samples))

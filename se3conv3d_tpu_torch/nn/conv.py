@@ -26,7 +26,8 @@ Calibration buffers (the reference's pre-process epoch,
 at 1.0, the first calibration pass sets them directly and later passes take
 a 0.9/0.1 EMA; ball-query neighborhoods use ``1/radius``.  ``trunc_frac``
 keeps the largest fraction of query rows whose ball held more than the
-neighbor cap.
+neighbor cap.  In a data-parallel group every sum of the calibration is the
+global batch's, as on a JAX mesh.
 """
 from __future__ import annotations
 
@@ -41,6 +42,7 @@ from torch import nn
 from ..core.neighborhoods import Neighborhood
 from ..core.pointcloud import PointCloud, gather_rows
 from ..ops import pne_conv as ops
+from ..parallel.mesh import group_sum_, in_group
 from .icosphere import icosphere_points
 
 __all__ = ["PNEConv", "ConvFactory", "calibrate_norms", "check_neighbor_caps", "fused_dispatch"]
@@ -129,18 +131,21 @@ def calibrate_norms(layer: nn.Module, pc_in: PointCloud, pc_out: PointCloud,
     """One calibration pass of ``layer``'s buffers ``norm_neigh_dist``,
     ``norm_num_neighs`` and ``initialized`` (module note): ``1/radius`` for a
     ball query, else ``1 / (2 * mean edge length)``; query rows per valid
-    edge; set on the first pass, then a 0.9/0.1 EMA.  Returns the number of
-    query rows."""
+    edge; set on the first pass, then a 0.9/0.1 EMA.  In a data-parallel
+    group (``parallel.mesh``) the sums are the global batch's, summed over
+    the ranks before they divide, so every rank sets the same buffers.
+    Returns the number of query rows (the global batch's)."""
+    edges, rows = neigh.mask.sum(), neigh.query_mask.sum()
+    if in_group():  # the global batch's sums (module note)
+        edges, rows = group_sum_(torch.stack([edges, rows]))
     if neigh.method == "ball_query":
         new_dist = torch.tensor(1.0 / neigh.radius, device=layer.norm_neigh_dist.device)
     else:
         src = gather_rows(pc_in.positions, neigh.idx)
         dist = (src - pc_out.positions[:, :, None, :]).pow(2).sum(-1).sqrt()
-        edges = neigh.mask.sum().clamp(min=1)
-        mean_dist = torch.where(neigh.mask, dist, torch.zeros_like(dist)).sum() / edges
-        new_dist = 1.0 / (2.0 * mean_dist)
-    rows = neigh.query_mask.sum()
-    new_neighs = rows / neigh.mask.sum().clamp(min=1)
+        dist_sum = group_sum_(torch.where(neigh.mask, dist, torch.zeros_like(dist)).sum())
+        new_dist = 1.0 / (2.0 * (dist_sum / edges.clamp(min=1)))
+    new_neighs = rows / edges.clamp(min=1)
     seen = layer.initialized
     layer.norm_neigh_dist.copy_(
         torch.where(seen, 0.9 * layer.norm_neigh_dist + 0.1 * new_dist, new_dist)
@@ -209,7 +214,7 @@ class PNEConv(nn.Module):
     def _calibrate(self, pc_in: PointCloud, pc_out: PointCloud, neigh: Neighborhood) -> None:
         rows = calibrate_norms(self, pc_in, pc_out, neigh)
         if neigh.trunc is not None:
-            frac = neigh.trunc.sum() / rows.clamp(min=1)
+            frac = group_sum_(neigh.trunc.sum()) / rows.clamp(min=1)
             self.trunc_frac.copy_(torch.maximum(self.trunc_frac, frac))
 
     def forward(self, pc_in: PointCloud, pc_out: PointCloud, features: torch.Tensor,

@@ -12,11 +12,22 @@ biased variance normalises, the unbiased one enters the running update
 reference's ``(n * F, C)`` layout.  (The JAX package counts only the valid
 points there, so its batch statistics at F > 1 are F times too large;
 ``tests/test_torch_train.py`` records that deviation.)
+
+In a data-parallel group (``parallel.mesh``) the batch is the global one, as
+on a JAX mesh, where GSPMD runs one program over the global batch: each
+rank's sum and count of valid rows are summed over the ranks before the
+mean, and its sums of squared deviations from that mean before the
+variance (the two passes of the one-process formula), through
+``rank_sum``, whose gradient is summed over the ranks too and which takes
+the place of the one-process sum node for node, so a group of one gives
+the one-process bits; the running update takes the global count.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
+
+from ..parallel.mesh import rank_sum
 
 __all__ = ["MaskedBatchNorm"]
 
@@ -41,9 +52,10 @@ class MaskedBatchNorm(nn.Module):
             rows = mask.reshape(mask.shape + (1,) * (x.ndim - mask.ndim)).to(x.dtype)
             rows = rows.expand(*x.shape[:-1], 1)  # one weight per (point, frame) row
             dims = tuple(range(x.ndim - 1))
-            count = rows.sum().clamp(min=1.0)
-            mean = (x * rows).sum(dims) / count
-            var = (rows * (x - mean) ** 2).sum(dims) / count
+            total, count = rank_sum(x * rows, dims, rows.sum())
+            count = count.clamp(min=1.0)
+            mean = total / count
+            var = rank_sum(rows * (x - mean) ** 2, dims)[0] / count
             with torch.no_grad():
                 unbiased = var * (count / (count - 1.0).clamp(min=1.0))
                 self.mean.mul_(1.0 - self.momentum).add_(self.momentum * mean)

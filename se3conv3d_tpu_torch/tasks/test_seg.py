@@ -5,7 +5,8 @@ optional checkpoint ensemble and segment smoothing, on the card.
     python -m se3conv3d_tpu_torch.tasks.test_seg \\
         --conf_file configs/scannet/scannet20_test_pca_I_SO2.yaml \\
         --log_folder <training run> --data_folder <data> \\
-        [--vote_epochs N] [--checkpoints N] [--smooth_segments] [--save_output DIR]
+        [--vote_epochs N] [--checkpoints N] [--smooth_segments] [--save_output DIR] \\
+        [--n_devices N]
 
 ``--conf_file`` is a training recipe, or a test-regime YAML (``Testing`` and
 ``Dataset`` sections) overlaid on the training recipe of the run under
@@ -19,7 +20,10 @@ benchmark label file ``<scene>.txt`` and one coloured cloud
 predictions only.  Run it from the repository root (the recipes name their
 augmentation modules by dotted path).  Without a CUDA device it raises; it
 never evaluates on the CPU unless the caller asks (``main(argv,
-device="cpu")``).
+device="cpu")``).  ``--n_devices N`` (N >= 2) votes over N ranks, one
+process per card (``tasks.train.group_from``): each votes its strided share
+of the scenes, the metrics are summed over the ranks, rank 0 prints and
+writes them, and each rank writes the benchmark files of its own scenes.
 """
 from __future__ import annotations
 
@@ -31,6 +35,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..parallel.mesh import launch, rank
 from ..train.config import is_test_config, load_yaml_config, merge_test_config
 from ..train.evaluate import SegmentationVoter
 from ..train.metrics import dataset_class_mask
@@ -64,6 +69,8 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--save_output", nargs="?", const="__from_conf__", default=None,
                     help="directory for the results (and, on ScanNet, per-scene benchmark label "
                          "files and coloured clouds); with no value, Testing.save_folder")
+    ap.add_argument("--n_devices", type=int, default=None,
+                    help="vote over this many ranks, one process per card (data parallelism)")
     return ap
 
 
@@ -114,20 +121,40 @@ def load_segments(exp: Experiment, data_folder: str) -> None:
         exp.val_ds = make_datasets(exp.ds_cfg, data_folder, "val", load_segments=True)
 
 
-def main(argv: Optional[Sequence[str]] = None, **experiment_kwargs) -> tuple:
+def main(argv: Optional[Sequence[str]] = None, **experiment_kwargs):
     """Parse ``argv`` (default: the command line), vote, report; returns
     ``(voter, summary)`` (summary None for a split without labels).
     ``experiment_kwargs`` go to ``Experiment`` (the tests pass
-    ``device="cpu"``; the command line has no such flag)."""
-    args = _parser().parse_args(argv)
+    ``device="cpu"``; the command line has no such flag).  With
+    ``--n_devices`` N >= 2 the ranks vote in N new processes and this
+    returns each rank's ``{"rank", "summary", "scenes"}`` (the scenes it
+    voted), in rank order."""
+    argv = list(sys.argv[1:] if argv is None else argv)
     require_device(experiment_kwargs)
+    n = _parser().parse_args(argv).n_devices
+    if n is not None and n > 1:
+        from .train import group_from
+        return launch(group_from(n, experiment_kwargs), _vote_rank, argv, experiment_kwargs)
+    return _vote(argv, experiment_kwargs)
+
+
+def _vote_rank(rank_index: int, argv, experiment_kwargs: dict) -> dict:
+    voter, summary = _vote(argv, experiment_kwargs)
+    return {"rank": rank_index, "summary": summary,
+            "scenes": [i for i, a in enumerate(voter.accum) if a is not None]}
+
+
+def _vote(argv, experiment_kwargs: dict) -> tuple:
+    args = _parser().parse_args(argv)
+    lead = rank() == 0
     if REPO_ROOT not in sys.path:
         sys.path.insert(0, REPO_ROOT)
     cfg, testing = resolve_config(args)
     vote_epochs = args.vote_epochs if args.vote_epochs is not None else int(testing.get("num_epochs", 30))
     out_dir = save_folder(args, testing)
 
-    exp = Experiment(cfg, args.data_folder, log_folder=args.log_folder, **experiment_kwargs)
+    exp = Experiment(cfg, args.data_folder, n_devices=args.n_devices, log_folder=args.log_folder,
+                     **experiment_kwargs)
     if args.smooth_segments:
         load_segments(exp, args.data_folder)
     states = restore_ensemble(exp, args.checkpoints)
@@ -138,7 +165,8 @@ def main(argv: Optional[Sequence[str]] = None, **experiment_kwargs) -> tuple:
     for epoch, votes in enumerate(vote_groups(vote_epochs, args.votes_per_step)):
         voter.run_epoch(states, epoch, votes)
         done += votes
-        print(f"vote epoch {done}/{vote_epochs}", flush=True)
+        if lead:
+            print(f"vote epoch {done}/{vote_epochs}", flush=True)
 
     if hasattr(exp.val_ds, "scenes"):
         full_labels = [s.get("labels") for s in exp.val_ds.scenes]
@@ -152,16 +180,17 @@ def main(argv: Optional[Sequence[str]] = None, **experiment_kwargs) -> tuple:
         summary = voter.metrics(full_labels, segments, class_mask, smooth=args.smooth_segments)
         # per-class table, reference format (test_dfaust_rot.py:346-365)
         names = getattr(exp.val_ds, "class_names", None) or [f"class_{i}" for i in range(exp.num_classes)]
-        for i in range(exp.num_classes):
+        for i in range(exp.num_classes if lead else 0):
             masked = "" if class_mask is None or class_mask[i] else "  (masked)"
             print(f"{names[i][:24]:>24} | acc {summary['acc_per_class'][i] * 100:6.2f}"
                   f" | iou {summary['iou_per_class'][i] * 100:6.2f}{masked}")
-        print(f"mIoU: {summary['miou']:.4f}  mAcc: {summary['macc']:.4f}  OA: {summary['overall_acc']:.4f}")
-    else:
+        if lead:
+            print(f"mIoU: {summary['miou']:.4f}  mAcc: {summary['macc']:.4f}  OA: {summary['overall_acc']:.4f}")
+    elif lead:
         # an unlabeled split (the ScanNet benchmark test set): predictions only
         print("no labels in the evaluation split; skipping metrics")
 
-    if out_dir and summary is not None:
+    if out_dir and summary is not None and lead:
         # the reference's save_results format (test_dfaust_rot.py:164-172)
         os.makedirs(out_dir, exist_ok=True)
         np.savetxt(os.path.join(out_dir, "per_class_iou.txt"), summary["iou_per_class"])
@@ -181,7 +210,8 @@ def main(argv: Optional[Sequence[str]] = None, **experiment_kwargs) -> tuple:
             save_scannet20_scene_labels(os.path.join(out_dir, f"{name}.txt"), pred)
             save_scannet20_scene_colors(os.path.join(out_dir, f"{name}_colored.txt"),
                                         exp.val_ds.scenes[i]["points"][:, :3], pred)
-        print(f"saved predictions for {len(exp.val_ds.file_list)} scenes to {out_dir}")
+        print(f"saved predictions for the {sum(a is not None for a in voter.accum)} scenes voted here "
+              f"to {out_dir}")
     return voter, summary
 
 

@@ -3,12 +3,14 @@ point driven by a recipe's YAML file, on the card.
 
     python -m se3conv3d_tpu_torch.tasks.train \\
         --conf_file configs/dfaust/dfaust_I_rot_pca_2F.yaml \\
-        --data_folder /path/to/dfaust [--resume] [--max_epochs N]
+        --data_folder /path/to/dfaust [--resume] [--max_epochs N] [--n_devices N]
 
 Run it from the repository root: the recipes name their augmentation
 modules by dotted path (``configs.dfaust.DFaust_DS_Aug``), so the root is
 put on ``sys.path`` when :func:`main` runs.  Without a CUDA device it
-raises; it never trains on the CPU.
+raises; it never trains on the CPU.  ``--n_devices N`` (N >= 2) trains over
+N ranks, one process per card on ``cuda:0`` ... ``cuda:N-1`` over NCCL
+(``parallel.mesh``), and raises where the machine has fewer cards.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ import os
 import sys
 from typing import Optional, Sequence
 
+from ..parallel.mesh import launch, make_group
 from ..train.run import Experiment
 
 __all__ = ["main"]
@@ -31,7 +34,7 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--data_folder", required=True)
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--n_devices", type=int, default=None,
-                    help="one card only: values above 1 raise (data parallelism is not ported)")
+                    help="train over this many ranks, one process per card (data parallelism)")
     ap.add_argument("--max_epochs", type=int, default=None)
     ap.add_argument("--log_folder", default=None)
     ap.add_argument("--profile_dir", default=None,
@@ -40,10 +43,25 @@ def _parser() -> argparse.ArgumentParser:
     return ap
 
 
-def main(argv: Optional[Sequence[str]] = None, **experiment_kwargs) -> Experiment:
-    """Parse ``argv`` (default: the command line), train, and return the
-    ``Experiment``.  ``experiment_kwargs`` go to ``Experiment`` (the tests
-    pass ``device="cpu"``; the command line has no such flag)."""
+def group_from(n_devices: int, experiment_kwargs: dict):
+    """The CLIs' data-parallel group of ``n_devices`` ranks: every card by
+    default, or ``experiment_kwargs``' ``devices`` and ``backend`` (popped),
+    or ``n_devices`` ranks on its ``device`` (gloo on the CPU)."""
+    devices = experiment_kwargs.pop("devices", None)
+    backend = experiment_kwargs.pop("backend", None)
+    device = experiment_kwargs.pop("device", None)
+    if devices is None and device is not None:
+        devices = [device] * n_devices
+    return make_group(n_devices, devices=devices, backend=backend)
+
+
+def _train_rank(rank_index: int, argv, experiment_kwargs: dict) -> dict:
+    exp = _train(argv, experiment_kwargs)
+    return {"rank": rank_index, "history": exp.history, "trainer_step": exp.trainer.step,
+            "checkpoints": exp.ckpt.all_steps()}
+
+
+def _train(argv, experiment_kwargs: dict) -> Experiment:
     args = _parser().parse_args(argv)
     if REPO_ROOT not in sys.path:
         sys.path.insert(0, REPO_ROOT)
@@ -51,6 +69,21 @@ def main(argv: Optional[Sequence[str]] = None, **experiment_kwargs) -> Experimen
                      log_folder=args.log_folder, **experiment_kwargs)
     exp.run(resume=args.resume, max_epochs=args.max_epochs, profile_dir=args.profile_dir)
     return exp
+
+
+def main(argv: Optional[Sequence[str]] = None, **experiment_kwargs):
+    """Parse ``argv`` (default: the command line), train, and return the
+    ``Experiment``.  ``experiment_kwargs`` go to ``Experiment`` (the tests
+    pass ``device="cpu"``; the command line has no such flag).  With
+    ``--n_devices`` N >= 2 the ranks train in N new processes (their group:
+    :func:`group_from`) and this returns each rank's ``{"rank", "history",
+    "trainer_step", "checkpoints"}``, in rank order."""
+    argv = list(sys.argv[1:] if argv is None else argv)
+    n = _parser().parse_args(argv).n_devices
+    if n is not None and n > 1:
+        group = group_from(n, experiment_kwargs)
+        return launch(group, _train_rank, argv, experiment_kwargs)
+    return _train(argv, experiment_kwargs)
 
 
 if __name__ == "__main__":

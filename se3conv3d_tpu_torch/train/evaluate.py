@@ -21,10 +21,13 @@ map each draw to the JAX key (``generator.initial_seed()``); an ensemble's
 members share one hierarchy build per scene and vote
 (``Trainer.eval_ensemble``); the segmentation accumulators are float64
 tensors on the trainer's device (within one vote no raw point receives two
-output rows, so ``index_add_`` gives the JAX sums bitwise).  One process:
-``process_index`` / ``process_count`` stay plain ints, defaulting to 0 and
-1, only to keep the JAX voters' arguments (the multi-host
-``cross_host_sum`` is not ported, and no caller of the port sets them).
+output rows, so ``index_add_`` gives the JAX sums bitwise).  In a
+data-parallel group (``parallel.mesh``) ``process_index`` /
+``process_count`` default to the rank and the number of ranks, as the JAX
+voters' default to the process's: each rank votes its strided share of the
+scenes, and the metrics (segmentation) and the accumulator and labels
+(classification) are summed over the ranks with ``cross_host_sum``, so
+every rank reports the global numbers; each rank must call them.
 
 Two deviations from the JAX package, both its defects: a scene's buffer is
 sized by the dataset's ``get_num_pts`` where it has one, else by the first
@@ -42,6 +45,9 @@ import numpy as np
 import torch
 
 from ..data.loaders import pad_collate
+from ..parallel.multihost import cross_host_sum
+from ..parallel.multihost import process_count as _process_count
+from ..parallel.multihost import process_index as _process_index
 from .metrics import SemSegMetrics
 from .trainer import to_tensors
 
@@ -95,16 +101,17 @@ class SegmentationVoter:
     """
 
     def __init__(self, trainer, dataset, num_classes: int, capacity: int,
-                 trainer_factory=None, process_index: int = 0,
-                 process_count: int = 1, votes_per_step: int = 1):
+                 trainer_factory=None, process_index: Optional[int] = None,
+                 process_count: Optional[int] = None, votes_per_step: int = 1):
         self.trainer = trainer
         self.dataset = dataset
         self.num_classes = num_classes
         self.capacity = capacity
         # per scene: float64 [points, classes] on the trainer's device
         self.accum: List[Optional[torch.Tensor]] = [None] * len(dataset)
-        self.process_index = process_index
-        self.process_count = process_count
+        # each rank votes scenes rank, rank + ranks, ... (module note)
+        self.process_index = _process_index() if process_index is None else process_index
+        self.process_count = _process_count() if process_count is None else process_count
         # One eval step carries V copies of a scene on the batch axis: the
         # frames are drawn per point and the host augmentations per copy, so
         # they are V independent votes.  An epoch-scheduled augmentation
@@ -192,7 +199,8 @@ class SegmentationVoter:
             if smooth and segments is not None:
                 logits = segment_smooth(logits, segments[i])
             m = m.update(logits.argmax(-1), labels, logits.sum(-1) != 0)
-        return m.summary(class_mask)
+        # each scene is voted by one rank: the sum is the global count
+        return cross_host_sum(m).summary(class_mask)
 
 
 class ClassificationVoter:
@@ -201,7 +209,7 @@ class ClassificationVoter:
     arrays on the host."""
 
     def __init__(self, trainer, dataset, num_classes: int, capacity: int, batch_size: int = 8,
-                 process_index: int = 0, process_count: int = 1):
+                 process_index: Optional[int] = None, process_count: Optional[int] = None):
         self.trainer = trainer
         self.dataset = dataset
         self.num_classes = num_classes
@@ -209,8 +217,8 @@ class ClassificationVoter:
         self.batch_size = batch_size
         self.accum = np.zeros((len(dataset), num_classes), np.float64)
         self.labels = np.zeros((len(dataset),), np.int64)
-        self.process_index = process_index
-        self.process_count = process_count
+        self.process_index = _process_index() if process_index is None else process_index
+        self.process_count = _process_count() if process_count is None else process_count
 
     def run_epoch(self, states=None, epoch: int = 0) -> None:
         """One vote of every shape, in batches of ``batch_size``; the
@@ -231,8 +239,15 @@ class ClassificationVoter:
                 self.accum[idx] += out["logits"][: len(idx)].cpu().numpy()
             self.labels[idx] = [int(s["label"]) for s in samples[: len(idx)]]
 
+    def global_accum(self) -> tuple:
+        """``(accum, labels)`` over every rank: each shape is voted by one
+        rank and the others hold zeros, so their sum is the global buffers
+        (``accum`` and ``labels`` themselves outside a group)."""
+        return cross_host_sum((self.accum, self.labels))
+
     def accuracy(self) -> float:
-        return float((self.accum.argmax(-1) == self.labels).mean())
+        accum, labels = self.global_accum()
+        return float((accum.argmax(-1) == labels).mean())
 
     def class_accuracy(self) -> float:
         """Class-balanced accuracy: the mean of the per-class accuracies of
@@ -240,6 +255,7 @@ class ClassificationVoter:
         return float(np.mean(self.per_class_accuracy()))
 
     def per_class_accuracy(self) -> np.ndarray:
-        equal = self.accum.argmax(-1) == self.labels
-        return np.array([equal[self.labels == c].mean() for c in range(self.num_classes)
-                         if (self.labels == c).any()])
+        accum, labels = self.global_accum()
+        equal = accum.argmax(-1) == labels
+        return np.array([equal[labels == c].mean() for c in range(self.num_classes)
+                         if (labels == c).any()])

@@ -17,9 +17,23 @@ loop trains every recipe with 25 / 1e4); one ``Trainer`` serves every frame
 count; batches become tensors on the model's device; the hierarchy and
 DropPath draws come from one explicit ``torch.Generator``, reseeded from
 the run's seed at the start of calibration, of each epoch and of each
-validation, so a resumed run draws what an uninterrupted one would; a
-resumed run keeps the checkpoint's best metric.  There is no device mesh:
-``n_devices`` above 1 raises.
+validation (and offset by the rank), so a resumed run draws what an
+uninterrupted one would; a resumed run keeps the checkpoint's best metric.
+
+Data parallelism (``n_devices`` N > 1): the ``Experiment`` is one of N
+ranks of a ``parallel.mesh`` group (the training CLI's ``--n_devices``
+starts them, one process per card; ``parallel.launch`` does it from
+Python), on the rank's device.  Every rank runs the same seeded sampler,
+so all draw the same epoch order, the same ScanNet batches and the same
+``mix_n_frames`` counts, and each takes its ``process_slice`` of every
+global batch, padded with all-masked fillers to ``local_batch_size`` (the
+JAX package's multi-host ``_batches``, Mix3D merging inside the local
+slice); the train step is the global batch's (``train.trainer``);
+validation counts each rank's slice and sums with ``cross_host_sum``.  Rank
+0 alone writes ``config.yaml`` and the checkpoints, the others wait at a
+barrier, and every rank restores (the JAX package writes from every
+process, a race on a shared disk; ``tests/test_torch_ddp.py`` records the
+deviation).  The ``(data, points)`` mesh is not ported.
 """
 from __future__ import annotations
 
@@ -42,6 +56,8 @@ from ..data import (
 )
 from ..models.presets import hierarchy_config_from_model_dict, mix_n_frames
 from ..nn.conv import check_neighbor_caps
+from ..parallel.mesh import barrier, in_group, rank, rank_device, world_size
+from ..parallel.multihost import cross_host_sum, local_batch_size, process_slice
 from ..utils.logging import StepTimer, WandbLogger
 from .checkpoint import CheckpointManager
 from .config import build_model_from_config, dump_yaml_config, load_augmentations, load_yaml_config
@@ -86,6 +102,8 @@ def make_datasets(ds_cfg: dict, data_folder: str, split: str, load_segments: boo
 
 
 def _resolve_device(device) -> torch.device:
+    if device is None and in_group():
+        return rank_device()
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError("no CUDA device: the port trains on an NVIDIA GPU; pass "
@@ -100,7 +118,8 @@ class Experiment:
     Args:
       conf_file: the recipe's YAML file, or its dict.
       data_folder: the dataset's folder, in its loader's format.
-      n_devices: None or 1 (data parallelism is not ported).
+      n_devices: None or 1, or N > 1: this process is one of the N ranks
+        of a data-parallel group (module note), which must be joined.
       log_folder: where ``config.yaml`` and ``ckpt/`` go (default: the
         recipe's ``Training.log_folder``).
       device: None (the card, which must exist) or a device to run on, e.g.
@@ -109,10 +128,11 @@ class Experiment:
 
     def __init__(self, conf_file, data_folder: str, n_devices: Optional[int] = None,
                  log_folder: Optional[str] = None, device=None):
-        if n_devices is not None and n_devices > 1:
-            raise NotImplementedError(
-                f"n_devices={n_devices}: the port trains on one card; data parallelism is "
-                "ROADMAP.md Queue 1 #10")
+        if n_devices is not None and n_devices > 1 and world_size() != n_devices:
+            raise RuntimeError(
+                f"Experiment(n_devices={n_devices}) runs as one of {n_devices} ranks: start them "
+                f"with parallel.launch(parallel.make_group({n_devices}), fn), as the training "
+                f"CLI's --n_devices does (this process is one of {world_size()})")
         self.cfg = dict(conf_file) if isinstance(conf_file, dict) else load_yaml_config(conf_file)
         self.tr = self.cfg["Training"]
         self.ds_cfg = self.cfg["Dataset"]
@@ -169,7 +189,9 @@ class Experiment:
                        **self._trainer_kwargs)
 
     def _reseed(self, kind: int, index: int) -> torch.Generator:
-        return self.generator.manual_seed(SEED * 1_000_003 + kind * 100_003 + index)
+        # each rank draws for its own clouds
+        return self.generator.manual_seed(SEED * 1_000_003 + kind * 100_003 + index
+                                          + rank() * 10_000_019)
 
     # ------------------------------------------------------------- batching
     def _batch_capacity(self) -> int:
@@ -216,15 +238,28 @@ class Experiment:
             )
             keep = ("positions", "features", "labels", "scene_id")
             for scene_ids in sampler:
-                samples = mix3d_merge(self._load(dataset, scene_ids, times), capacity=self.capacity)
+                # every rank draws the same global batch and loads its slice;
+                # Mix3D merges within the slice
+                target = local_batch_size(len(scene_ids))
+                samples = mix3d_merge(self._load(dataset, process_slice(scene_ids), times),
+                                      capacity=self.capacity)
                 samples = [{k: v for k, v in s.items() if k in keep} for s in samples]
-                yield self._collate(samples, times)
+                if world_size() == 1:  # one process: whatever Mix3D left
+                    target = len(samples)
+                # an empty slice still gives all-masked fillers shaped like a sample
+                template = samples[0] if samples else {
+                    k: v for k, v in dataset[scene_ids[0]].items() if k in keep}
+                yield self._collate(pad_samples_to(samples, max(target, len(samples)), template),
+                                    times)
         else:
             bs = int(self.tr["batch_size"])
             order = self.rng.permutation(len(dataset)) if train else np.arange(len(dataset))
             for i in range(0, len(order) - bs + 1 if train else len(order), bs):
-                samples = self._load(dataset, order[i : i + bs], times)
-                samples = pad_samples_to(samples, min(bs, len(order) - i))
+                samples = self._load(dataset, process_slice(order[i : i + bs]), times)
+                # a rank with an empty slice of a tail batch: any example is the template
+                template = samples[0] if samples else dataset[int(order[i])]
+                samples = pad_samples_to(samples, local_batch_size(min(bs, len(order) - i)),
+                                         template)
                 batch = self._collate(samples, times)
                 if "label" in batch and "labels" not in batch:
                     batch["labels"] = batch.pop("label")  # classification: one label per cloud
@@ -290,7 +325,9 @@ class Experiment:
                 pred = out["logits"].argmax(-1)
                 correct += int(((pred == out["labels"]) & valid).sum())
                 total += int(valid.sum())
-            return {"accuracy": correct / max(total, 1)}
+            # each rank counted its slices (no-op in one process)
+            correct, total = cross_host_sum((correct, total))
+            return {"accuracy": int(correct) / max(int(total), 1)}
         metrics = SemSegMetrics.empty(self.num_classes)
         self._last_val_cloud = None
         for batch in self._batches(self.val_ds, False):
@@ -309,6 +346,7 @@ class Experiment:
                 self._last_val_cloud = (pos[: len(m0)][m0][:n_keep], pred[0][m0][:n_keep],
                                         labels[0][m0][:n_keep])
             metrics = metrics.update(pred, labels, mask)
+        metrics = cross_host_sum(metrics)
         return metrics.summary(dataset_class_mask(self.val_ds, self.num_classes))
 
     # ---------------------------------------------------------- checkpoints
@@ -318,7 +356,11 @@ class Experiment:
                 "trainer_step": self.trainer.step}
 
     def save(self, epoch: int, best: float) -> str:
-        return self.ckpt.save(epoch, self.state_payload(), {"epoch": epoch, "best": best}, self.cfg)
+        """Rank 0 writes checkpoint ``epoch``; every rank waits for it."""
+        if rank() == 0:
+            self.ckpt.save(epoch, self.state_payload(), {"epoch": epoch, "best": best}, self.cfg)
+        barrier()
+        return self.ckpt.path(epoch)
 
     def restore(self, step: Optional[int] = None) -> Optional[dict]:
         """Load checkpoint ``step`` (default: the latest) into the model, the
@@ -341,9 +383,12 @@ class Experiment:
         (the second, or the first when only one runs) into
         ``{profile_dir}/trace.json``.
         """
-        os.makedirs(self.log_folder, exist_ok=True)
-        # the resolved recipe beside the checkpoints, for the eval CLIs
-        dump_yaml_config(self.cfg, os.path.join(self.log_folder, "config.yaml"))
+        lead = rank() == 0
+        if lead:
+            os.makedirs(self.log_folder, exist_ok=True)
+            # the resolved recipe beside the checkpoints, for the eval CLIs
+            dump_yaml_config(self.cfg, os.path.join(self.log_folder, "config.yaml"))
+        barrier()
 
         self.init_state()
         start_epoch, best = 0, -float("inf")
@@ -360,9 +405,9 @@ class Experiment:
             num_epochs = min(num_epochs, start_epoch + max_epochs)
         val_freq = int(self.tr.get("val_freq", 5))
         save_freq = int(self.tr.get("save_models_frequency", 50))
-        wandb = WandbLogger(project=self.tr.get("wandb_project"), config=self.cfg,
+        wandb = WandbLogger(project=self.tr.get("wandb_project") if lead else None, config=self.cfg,
                             name=os.path.basename(self.log_folder))
-        profile_epoch = min(start_epoch + 1, num_epochs - 1) if profile_dir else None
+        profile_epoch = min(start_epoch + 1, num_epochs - 1) if profile_dir and lead else None
         val: dict = {}
         key = "accuracy" if self.task == "classification" else "miou"
         for epoch in range(start_epoch, num_epochs):
@@ -393,7 +438,8 @@ class Experiment:
             self.history.append({"epoch": epoch, **train_metrics,
                                  **({"val": val} if f"val/{key}" in log else {})})
             wandb.log(log, step=epoch)
-            print(line, flush=True)
+            if lead:
+                print(line, flush=True)
         wandb.finish()
         return val
 

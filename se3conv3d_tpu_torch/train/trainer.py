@@ -34,10 +34,26 @@ it, so one ``Trainer`` serves every count; calibration and eval keep the
 recipe's ``train_n_frames`` / ``test_n_frames``.  With an optimizer that
 accumulates gradients (``Training.accum_grads``), each train step is one
 micro-batch and every k-th one updates the parameters.
+
+In a data-parallel group (``parallel.mesh``: N ranks, each with its share of
+the global batch) a train step takes the step of the global batch, as the
+JAX package's one program on a mesh does: the loss is the masked sum over
+the global batch over its global valid count, so each rank back-propagates
+its local sum over the global count (summed over the ranks, no gradient),
+and the gradients are then summed over the ranks in one flattened buffer;
+the BN statistics and calibration sums are the global batch's
+(``nn.norm``, ``nn.conv``).  A per-rank mean followed by an average over
+the ranks (DDP's rule) would weigh the ranks' points unequally whenever they
+hold different numbers of valid points (a filler, a masked tail).  Every
+rank then clips and updates from the same gradients, so the parameters stay
+bitwise equal; ``loss`` and ``grad_norm`` are the global values.
+``scan_scenes`` is ignored in a group of several ranks, with the JAX
+package's warning.
 """
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -47,6 +63,7 @@ from ..core.hierarchy import HierarchyConfig, HierarchyDraws, build_hierarchy
 from ..models.class_net import ClassNet
 from ..models.spec import NeighborhoodProvider
 from ..nn.blocks import DropPathDraws
+from ..parallel.mesh import group_sum_, in_group, world_size
 from .losses import classification_loss_parts, masked_segmentation_loss_parts
 from .schedule import Optimizer
 
@@ -98,6 +115,12 @@ class Trainer:
         self.task = "classification" if isinstance(model, ClassNet) else "segmentation"
         if scan_scenes and self.task == "classification":
             raise ValueError("scan_scenes is a segmentation option: no classification recipe sets it")
+        if scan_scenes and world_size() > 1:
+            warnings.warn(
+                "scan_scenes is ignored in a data-parallel group (the batch axis is split over the "
+                "ranks instead); each rank runs its multi-scene share as one batch: size "
+                "pts_per_batch so that each card's share fits its memory", RuntimeWarning, stacklevel=2)
+            scan_scenes = False
         self.model = model
         self.device = next(model.parameters()).device
         self.scan_scenes = scan_scenes
@@ -192,9 +215,29 @@ class Trainer:
         loss (updating the BN running statistics) and returns the loss."""
         self.model.train()
         self.model.zero_grad(set_to_none=True)
-        loss = self._loss(self._forward(h, f0, out_pc, drops=drops), out_labels, out_pc)
-        loss.backward()
-        return loss.detach()
+        total, count = self._loss_parts(self._forward(h, f0, out_pc, drops=drops), out_labels, out_pc)
+        if not in_group():
+            loss = total / count.clamp(min=1.0)
+            loss.backward()
+            return loss.detach()
+        # the global batch's loss: the local sum over the global count
+        sums = group_sum_(torch.stack([total.detach(), count.to(total.dtype)]))
+        count = sums[1].clamp(min=1.0)
+        (total / count).backward()
+        self.sum_grads()
+        return sums[0] / count
+
+    def sum_grads(self) -> None:
+        """Sum every parameter's ``.grad`` over the group's ranks, in one
+        flattened buffer (no-op outside a group)."""
+        grads = [p.grad for p in self.model.parameters() if p.grad is not None]
+        if not in_group() or not grads:
+            return
+        flat = group_sum_(torch.cat([g.reshape(-1) for g in grads]))
+        start = 0
+        for g in grads:
+            g.copy_(flat[start : start + g.numel()].view_as(g))
+            start += g.numel()
 
     def backward_scenes(self, batch: dict, generator: Optional[torch.Generator] = None,
                         draws: Optional[Sequence[HierarchyDraws]] = None,

@@ -269,5 +269,6 @@ def test_no_card_means_no_silent_cpu_run(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(["--conf_file", str(conf), "--data_folder", root, "--log_folder", str(tmp_path / "log")])
     assert not (tmp_path / "log").exists()
-    with pytest.raises(NotImplementedError, match="Queue 1 #10"):
+    # data parallelism: an Experiment of N ranks runs inside one of them
+    with pytest.raises(RuntimeError, match="runs as one of 2 ranks"):
         Experiment(str(conf), root, n_devices=2, device="cpu")
