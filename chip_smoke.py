@@ -339,6 +339,31 @@ order they run:
     ``out_mask`` and ``nearest`` on the card equal the CPU's exactly, timed,
     and the same with two bodies left with 300 and 1 valid points (the tied
     picks past the valid count);
+38. the ``(data, points)`` mesh (``parallel.mesh`` with ``points=2``): (a)
+    one process on one synthetic room of 120,000 points (numpy seed 100) of
+    ``scannet20_rot_pca_I`` as written (bf16, full widths and capacities),
+    a calibration pass and one train step in the 'sorted' mode, then the
+    same in float32, and in float32 at the capacity bucket of 32,768 points
+    (``HierarchyConfig.with_capacity``: the room then fills both halves of
+    every level, which at the recipe's capacities its second half never
+    does); the bf16 gradients of the same step in the 'scatter' mode beside
+    it (its own spread); (b) the same over a ``(data=1, points=2)`` group of
+    two gloo ranks on the card (``shard_points``: 60,000 raw points a rank),
+    each configuration against (a)'s: float32 at phase 35's loss and state
+    bounds and gradients within ``POINTS_GRAD_RTOL`` a leaf; bf16 with its
+    loss and state within ``BF16_GRAD_RTOL`` and its gradients as far from
+    the float32 step's as (a)'s, within ``POINTS_BF16_PARITY`` either way
+    (the per-leaf distance from (a) printed, not gated), beside two float32
+    controls that must fail (each rank's convs reading only the source rows
+    it owns; each rank's own BN statistics) and a bf16 one, the ranks' states
+    bitwise equal; the step medians of (a) and (b), each rank's peak beside
+    (a)'s, the collectives' share and bytes of a (b) step, the rows and
+    valid rows each holds per level, the launches per rank (every conv on a
+    rank that holds live rows of its queries); (c) ``__graft_entry__``'s
+    dry-run configuration, ``(data=2, points=2)``, four gloo ranks on the
+    card, ``dfaust_I_rot_pca_2F`` at full width on four bodies (numpy seed
+    38, two a data row): three steps on one batch lower the loss and leave
+    the four ranks bitwise equal;
 
 and last, one ``modelnet40_pca_2F`` train step under ``torch.profiler``
 (device ms by kernel, per conv pass, in PyTorch's reductions, and the idle
@@ -363,6 +388,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -5524,26 +5550,32 @@ def ddp_dryrun(dev, batch, draws, idx) -> dict:
 
 
 @contextlib.contextmanager
-def timing_all_reduce(seconds: list):
-    """Every ``torch.distributed.all_reduce`` timed on the host clock
-    between two device syncs, into ``seconds``."""
+def timing_collectives(calls: list):
+    """Every ``torch.distributed.all_gather`` and ``all_reduce`` timed on
+    the host clock between two device syncs, with the bytes it moved (an
+    all-gather: the bytes it received), into ``calls`` as ``(kind, seconds,
+    bytes)``."""
     import torch.distributed as dist
 
-    plain = dist.all_reduce
+    plain = {"all_gather": dist.all_gather, "all_reduce": dist.all_reduce}
 
-    def timed(tensor, *args, **kwargs):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = plain(tensor, *args, **kwargs)
-        torch.cuda.synchronize()
-        seconds.append(time.perf_counter() - t0)
-        return out
+    def timed(kind):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = plain[kind](*args, **kwargs)
+            torch.cuda.synchronize()
+            moved = (sum(t.numel() * t.element_size() for t in args[0]) if kind == "all_gather"
+                     else args[0].numel() * args[0].element_size())
+            calls.append((kind, time.perf_counter() - t0, moved))
+            return out
+        return call
 
-    dist.all_reduce = timed
+    dist.all_gather, dist.all_reduce = timed("all_gather"), timed("all_reduce")
     try:
         yield
     finally:
-        dist.all_reduce = plain
+        dist.all_gather, dist.all_reduce = plain["all_gather"], plain["all_reduce"]
 
 
 def ddp_rank(rank: int, batch: dict, draws: dict) -> dict:
@@ -5560,17 +5592,18 @@ def ddp_rank(rank: int, batch: dict, draws: dict) -> dict:
            "val_counts": ddp_val_counts(dev, batch, draws, [idx])}
     for variant in ("per_rank_mean", "per_rank_bn"):
         out[variant] = ddp_step(dev, batch, draws, idx, variant)
-    reduce_s = []
+    calls = []
     trainer = ddp_trainer(dev)
     local = to_device({k: v[list(idx)] for k, v in batch.items()}, dev)
     trainer.calibration_step(local, draws=draws_at(draws["calib"], idx, dev))
     gen = torch.Generator(device=dev).manual_seed(353)
     trainer.train_step(local, gen)
-    with timing_all_reduce(reduce_s):
+    with timing_collectives(calls):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         trainer.train_step(local, gen)
         torch.cuda.synchronize()
+        reduce_s = [c[1] for c in calls if c[0] == "all_reduce"]
         out["reduce"] = {"step_s": time.perf_counter() - t0, "all_reduce_s": sum(reduce_s),
                          "calls": len(reduce_s)}
     del trainer
@@ -5595,18 +5628,18 @@ def stat_errors(state: dict, ref: dict) -> tuple:
     return worst
 
 
-def ddp_gate(card, label, got: dict, ref: dict) -> dict:
+def ddp_gate(card, label, got: dict, ref: dict, phase: int = 35, grad_rtol: float = GRAD_RTOL) -> dict:
     """(c)'s gate against (a): the loss within ``DDP_LOSS_RTOL`` relative,
-    every parameter's gradient within ``GRAD_RTOL`` of its leaf
+    every parameter's gradient within ``grad_rtol`` of its leaf
     (``grads_ratio``), the BN statistics and calibration buffers within
     ``DDP_STATE_RTOL`` (``stat_errors``)."""
     loss_err = abs(got["loss"] - ref["loss"]) / abs(ref["loss"])
     norm = float(torch.sqrt(sum(g.double().square().sum() for g in ref["grads"].values())))
     grad_err, grad_leaf = grads_ratio(got["grads"], ref["grads"], norm)
     stat_err, stat_leaf = stat_errors(got["state"], ref["state"])
-    ok = loss_err <= DDP_LOSS_RTOL and grad_err <= GRAD_RTOL and stat_err <= DDP_STATE_RTOL
-    print(f"phase 35 {label}: loss {got['loss']:.7f} vs (a) {ref['loss']:.7f}, rel {loss_err:.3e} (bound "
-          f"{DDP_LOSS_RTOL}); gradients worst {grad_err:.3e} at {grad_leaf} (bound {GRAD_RTOL}, floor "
+    ok = loss_err <= DDP_LOSS_RTOL and grad_err <= grad_rtol and stat_err <= DDP_STATE_RTOL
+    print(f"phase {phase} {label}: loss {got['loss']:.7f} vs (a) {ref['loss']:.7f}, rel {loss_err:.3e} (bound "
+          f"{DDP_LOSS_RTOL}); gradients worst {grad_err:.3e} at {grad_leaf} (bound {grad_rtol}, floor "
           f"{GRAD_FLOOR} * norm {norm:.4f}); BN statistics and calibration buffers worst {stat_err:.3e} at "
           f"{stat_leaf} (bound {DDP_STATE_RTOL}): {'within' if ok else 'outside'} the gate [{card}]", flush=True)
     return dict(loss_rel=loss_err, grad_ratio=grad_err, grad_leaf=grad_leaf, stat_err=stat_err,
@@ -5865,9 +5898,403 @@ def run_fps(card, dev) -> dict:
     return out
 
 
+# phase 38: the (data, points) mesh on the card.  (a) one process, no group,
+# on one synthetic room of SCENE_POINTS points (numpy seed 100) of the ScanNet
+# recipe as written (bfloat16) and in float32; (b) the same room over a
+# (data=1, points=2) group of two gloo ranks on the card, each holding half
+# of the raw points, the gated step of each dtype against (a)'s beside two
+# controls (each rank's convs reading only the source rows it owns; each
+# rank's own BN statistics); (c) the dry-run configuration of
+# __graft_entry__.py, (data=2, points=2), four gloo ranks on the card on the
+# DFaust recipe at full width, POINTS_BODIES bodies (numpy seed 38).  Every
+# gated step runs in the deterministic 'sorted' mode.  A level's valid rows
+# come first (the grid subsample's order), and the room fills about a sixth
+# of the recipe's capacities, so at those capacities the second rank of (b)
+# holds padding rows only; (a) and (b) therefore also run the float32 step at
+# the capacity bucket POINTS_BUCKET (``HierarchyConfig.with_capacity``, the
+# eval CLI's rescaling of every level), where both ranks hold valid rows.
+POINTS_ROOM_SEED, POINTS_TIMED_STEPS, POINTS_BODIES, POINTS_DRYRUN_STEPS = 100, 1, 4, 3
+POINTS_BUCKET = 32768
+# the float32 gate of (b): every parameter's gradient within this much of
+# max(max |leaf|, GRAD_FLOOR * global norm) of (a)'s (grads_ratio); the
+# sound step reads 3.60e-6 at the recipe's capacities and 7.81e-6 at the
+# bucket (NVIDIA H100 80GB HBM3, 700 W), the own-rows control 0.4-0.53
+POINTS_GRAD_RTOL = 5e-5
+# the bfloat16 gate of (b): its gradients' distance from the float32 step's
+# over every leaf, over (a)'s, within this factor either way (points_gate)
+POINTS_BF16_PARITY = 1.25
+# the configurations of (a) and (b): name: (dtype, at POINTS_BUCKET)
+POINTS_CONFIGS = {"bfloat16": ("bfloat16", False), "float32": ("float32", False),
+                  "bfloat16_bucket": ("bfloat16", True), "float32_bucket": ("float32", True)}
+# (b)'s controls, which must fail the gate of their configuration: (variant,
+# configuration); at the recipe's capacities the first rank holds every
+# valid row, so neither control would change a thing there
+POINTS_CONTROLS = (("own_rows_only", "float32_bucket"), ("per_rank_bn", "float32_bucket"),
+                   ("own_rows_only", "bfloat16_bucket"))
+
+
+def points_room() -> dict:
+    """Phase 38's room (on the CPU), ``[1, SCENE_POINTS, ...]``."""
+    return stack_scenes([room_scene(SCENE_POINTS, POINTS_ROOM_SEED)])
+
+
+def points_room_draws(dev, room) -> dict:
+    """The room's random numbers, recorded once on the CPU, at the recipe's
+    capacities (``"full"``) and at ``POINTS_BUCKET`` (``"bucket"``): the
+    hierarchy draws of the calibration pass and of the step, and the step's
+    DropPath keep masks (from a train-mode forward of a seeded model)."""
+    from se3conv3d_tpu_torch.core.hierarchy import draw_hierarchy
+    from se3conv3d_tpu_torch.nn.blocks import DropPathDraws
+
+    class Keeping(DropPathDraws):
+        def __init__(self, generator):
+            super().__init__(generator)
+            self.masks = []
+
+        def keep_mask(self, b, keep, like):
+            mask = super().keep_mask(b, keep, like)
+            self.masks.append(mask.cpu())
+            return mask
+
+    out = {}
+    for key, bucket in (("full", None), ("bucket", POINTS_BUCKET)):
+        trainer = points_trainer(dev, "bfloat16", bucket)
+        gen = torch.Generator().manual_seed(380)
+        draws = {k: draw_hierarchy(trainer.hcfg, 1, SCENE_POINTS, gen) for k in ("calib", "step")}
+        keeping = Keeping(torch.Generator(device=dev).manual_seed(381))
+        h, f0, out_pc, _, _ = trainer.build(to_device(room, dev), draws=draws_at(draws["step"], [0], dev))
+        with torch.no_grad():
+            trainer.model.train()
+            trainer._forward(h, f0, out_pc, drops=keeping)
+        out[key] = dict(draws, masks=keeping.masks)
+        del trainer, h, f0, out_pc
+    return out
+
+
+def points_trainer(dev, dt: str, bucket=None):
+    """A seeded ``scannet20_rot_pca_I`` model in ``dt`` (the recipe as
+    written is bfloat16) and its trainer, the recipe's optimizer over
+    ``1 + POINTS_TIMED_STEPS`` steps; ``bucket``: every level's capacity
+    rescaled for that many points (``HierarchyConfig.with_capacity``)."""
+    from se3conv3d_tpu_torch.models import presets
+    from se3conv3d_tpu_torch.train import schedule
+    from se3conv3d_tpu_torch.train.trainer import Trainer
+
+    md, training = scannet_recipes()[dt], presets.SCANNET20_ROT_PCA_I_TRAINING
+    model = seeded_model(md, dev, presets.SCANNET_NUM_FEATURES, presets.SCANNET20_NUM_CLASSES)
+    opt = schedule.optimizer_from_training(model.parameters(), training, 1 + POINTS_TIMED_STEPS)
+    hcfg = presets.hierarchy_config_from_model_dict(md, SCENE_POINTS, train=True)
+    with warnings.catch_warnings():  # scan_scenes is ignored in a group, with a warning
+        warnings.simplefilter("ignore", RuntimeWarning)
+        return Trainer(model, hcfg if bucket is None else hcfg.with_capacity(bucket),
+                       label_smoothing=training["label_smoothing"], ignore_label=presets.SCANNET20_IGNORE_LABEL,
+                       optimizer=opt, scan_scenes=training["scan_scenes"])
+
+
+@contextlib.contextmanager
+def own_rows_only():
+    """The control whose conv layers read only the source rows their rank
+    owns (the other ranks' rows of each gathered level are zeros)."""
+    from se3conv3d_tpu_torch.kernels import fused_equiv as kfe
+    from se3conv3d_tpu_torch.parallel import mesh
+
+    saved = kfe.gather_points
+
+    def own(x, dim, total):
+        start, stop = mesh.local_rows(total)
+        shape = list(x.shape)
+        shape[dim] = total
+        whole = x.new_zeros(shape)
+        whole.narrow(dim, start, stop - start).copy_(x)
+        return whole
+
+    kfe.gather_points = own
+    try:
+        yield
+    finally:
+        kfe.gather_points = saved
+
+
+def points_step(dev, room, all_draws, config: str, variant: str = "sound", timed_steps: int = 0,
+                spread: bool = False) -> dict:
+    """One calibration pass and one train step in the 'sorted' mode of a
+    fresh seeded trainer of ``POINTS_CONFIGS[config]`` on this process's
+    share of the room (all of it outside a points group, its rows in one:
+    ``shard_points``), with the recorded draws; ``variant`` "sound",
+    "own_rows_only" or "per_rank_bn" (a control); ``spread``: first, on a
+    trainer of its own, the gradients of the same calibration pass and step
+    in the 'scatter' mode, for the spread of two orders of summation.
+    Returns the loss, the gradients (summed over the group),
+    the state, the launches of the conv kernels and of the prefix sum (all,
+    and the bfloat16 ones), each level's valid rows that this process holds,
+    its peak, and with ``timed_steps`` the host-clock seconds of that many
+    more steps (generator draws, the same on every rank of a points row)."""
+    from se3conv3d_tpu_torch.kernels import fused_equiv as kfe
+    from se3conv3d_tpu_torch.kernels import segsum
+    from se3conv3d_tpu_torch.nn.blocks import DropPathDraws
+    from se3conv3d_tpu_torch.ops import pne_conv as ops
+    from se3conv3d_tpu_torch.parallel import mesh
+    from se3conv3d_tpu_torch.parallel.multihost import shard_points
+
+    dt, bucket = POINTS_CONFIGS[config]
+    draws = all_draws["bucket" if bucket else "full"]
+    trainer = points_trainer(dev, dt, POINTS_BUCKET if bucket else None)
+    local = to_device(shard_points(room), dev)
+    control = {"own_rows_only": own_rows_only, "per_rank_bn": per_rank_bn}.get(variant, contextlib.nullcontext)
+    out = {}
+    if spread:
+        other = points_trainer(dev, dt, POINTS_BUCKET if bucket else None)
+        other.calibration_step(local, draws=draws_at(draws["calib"], [0], dev))
+        h, f0, out_pc, out_labels, _ = other.build(local, draws=draws_at(draws["step"], [0], dev))
+        other.backward(h, f0, out_pc, out_labels, DropPathDraws(keep_masks=draws["masks"]))
+        out["scatter_grads"] = {n: p.grad.detach().float().cpu().clone() for n, p in other.model.named_parameters()}
+        del other, h, f0, out_pc, out_labels
+        torch.cuda.empty_cache()
+    with control():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches(kfe, segsum)
+        trainer.calibration_step(local, draws=draws_at(draws["calib"], [0], dev))
+        if dt == "float32" and variant == "sound":  # the rows this process holds, by level
+            h, _, out_pc, _, _ = trainer.build(local, draws=draws_at(draws["step"], [0], dev))
+            out["valid_rows"] = [int(pc.mask.sum()) for pc in h.levels] + [int(out_pc.mask.sum())]
+            out["rows"] = [pc.capacity for pc in h.levels] + [out_pc.capacity]
+            del h, out_pc
+        ops.BWD_SCATTER_MODE = "sorted"
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = trainer.train_step(local, draws=draws_at(draws["step"], [0], dev), drop_masks=draws["masks"])
+            torch.cuda.synchronize()
+            out["step_s"] = [time.perf_counter() - t0]
+            out["loss"] = float(res["loss"])
+            out["launches"] = (kfe.fused_equiv_fwd.launches, kfe.fused_equiv_bwd.launches,
+                               segsum.blocked_cumsum.launches)
+            out["bf16_launches"] = (kfe.fused_equiv_fwd.bf16_launches, kfe.fused_equiv_bwd.bf16_launches)
+            out["grads"] = {n: p.grad.detach().float().cpu().clone() for n, p in trainer.model.named_parameters()}
+            out["state"] = cpu_state(trainer.model)
+            gen = torch.Generator(device=dev).manual_seed(382)
+            for _ in range(timed_steps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                trainer.train_step(local, gen)
+                torch.cuda.synchronize()
+                out["step_s"].append(time.perf_counter() - t0)
+        finally:
+            ops.BWD_SCATTER_MODE = "scatter"
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    if timed_steps and mesh.points_size() > 1:  # the collectives' share of one more step
+        calls = []
+        with timing_collectives(calls):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer.train_step(local, gen)
+            torch.cuda.synchronize()
+            out["collectives"] = {"step_s": time.perf_counter() - t0, "calls": len(calls)}
+        for kind in ("all_gather", "all_reduce"):
+            picked = [c for c in calls if c[0] == kind]
+            out["collectives"][kind] = {"calls": len(picked), "s": sum(c[1] for c in picked),
+                                        "bytes": sum(c[2] for c in picked)}
+    return out
+
+
+def points_group_rank(rank: int, room: dict, draws: dict) -> dict:
+    """Phase 38 (b), one rank of a (data=1, points=2) group on the card: the
+    sound step of each configuration (bfloat16 timed, with the collectives'
+    share of one more step), then the controls ``POINTS_CONTROLS``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from se3conv3d_tpu_torch.parallel import mesh
+
+    dev = mesh.rank_device()
+    out = {c: points_step(dev, room, draws, c, timed_steps=POINTS_TIMED_STEPS if c == "bfloat16" else 0)
+           for c in POINTS_CONFIGS}
+    for variant, config in POINTS_CONTROLS:
+        out[f"{variant}_{config}"] = points_step(dev, room, draws, config, variant)
+    return out
+
+
+def points_dryrun_rank(rank: int, batch: dict, draws: dict) -> dict:
+    """Phase 38 (c), one rank of a (data=2, points=2) group on the card:
+    ``__graft_entry__``'s dry-run contract, three steps on one batch (the
+    same draws each step) of the DFaust recipe at full width on its data
+    row's bodies (``process_slice``) and its rows of them (``shard_points``):
+    the losses, the final state and the launches."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from se3conv3d_tpu_torch.kernels import fused_equiv as kfe
+    from se3conv3d_tpu_torch.parallel import mesh
+    from se3conv3d_tpu_torch.parallel.multihost import process_slice, shard_points
+
+    dev = mesh.rank_device()
+    idx = process_slice(list(range(POINTS_BODIES)))
+    trainer = ddp_trainer(dev)
+    local = to_device(shard_points({k: v[idx] for k, v in batch.items()}), dev)
+    reset_launches(kfe)
+    trainer.calibration_step(local, draws=draws_at(draws["calib"], idx, dev))
+    losses = [float(trainer.train_step(local, draws=draws_at(draws["step"], idx, dev),
+                                       drop_masks=[m[idx] for m in draws["masks"]])["loss"])
+              for _ in range(POINTS_DRYRUN_STEPS)]
+    return {"losses": losses, "state": cpu_state(trainer.model), "coords": (mesh.data_rank(), mesh.points_rank()),
+            "launches": (kfe.fused_equiv_fwd.launches, kfe.fused_equiv_bwd.launches)}
+
+
+def points_gate(card, label, got: dict, ref: dict, control=None) -> dict:
+    """(b)'s gate against (a): float32 by ``ddp_gate`` (loss
+    ``DDP_LOSS_RTOL``, gradients ``POINTS_GRAD_RTOL`` a leaf, BN statistics
+    and calibration buffers ``DDP_STATE_RTOL``).  bfloat16, given ``control``
+    ((a)'s float32 step of the same weights): the loss, BN statistics and
+    calibration buffers within ``BF16_GRAD_RTOL``, and the gradients as far
+    from the float32 step's as (a)'s are, over every leaf, within a factor
+    ``POINTS_BF16_PARITY`` either way: a path that skipped a bfloat16
+    rounding comes closer, a wrong one goes farther.  (A bfloat16 step
+    diverges from itself under any change in the order of its float32 sums,
+    which flips roundings: (a)'s own 'scatter' and 'sorted' gradients differ
+    by twice ``BF16_GRAD_RTOL`` a leaf, so that per-leaf bound is printed
+    beside the gate, not gated.)"""
+    if control is None:
+        return ddp_gate(card, label, got, ref, phase=38, grad_rtol=POINTS_GRAD_RTOL)
+    loss_err = abs(got["loss"] - ref["loss"]) / abs(ref["loss"])
+    norm = float(torch.sqrt(sum(g.double().square().sum() for g in ref["grads"].values())))
+    grad_err, grad_leaf = grads_ratio(got["grads"], ref["grads"], norm)
+    stat_err, stat_leaf = stat_errors(got["state"], ref["state"])
+    whole = grads_norm_ratio(got["grads"], ref["grads"])
+    off_b, off_a = grads_norm_ratio(got["grads"], control), grads_norm_ratio(ref["grads"], control)
+    parity = off_b / off_a
+    ok = (max(loss_err, stat_err) <= BF16_GRAD_RTOL
+          and 1.0 / POINTS_BF16_PARITY <= parity <= POINTS_BF16_PARITY)
+    print(f"phase 38 {label}: loss {got['loss']:.7f} vs (a) {ref['loss']:.7f}, rel {loss_err:.3e}; BN statistics "
+          f"and calibration buffers worst {stat_err:.3e} at {stat_leaf} (bound {BF16_GRAD_RTOL} each); gradients "
+          f"against the float32 step over every leaf: (b) {off_b:.3e}, (a) {off_a:.3e}, ratio {parity:.3f} (bound "
+          f"{POINTS_BF16_PARITY} either way); (b) vs (a) worst {grad_err:.3e} a leaf at {grad_leaf} ({BF16_GRAD_RTOL}"
+          f" printed, not gated), {whole:.3e} over every leaf: {'within' if ok else 'outside'} the gate "
+          f"[{card}]", flush=True)
+    return dict(loss_rel=loss_err, grad_ratio=grad_err, grad_leaf=grad_leaf, stat_err=stat_err,
+                stat_leaf=stat_leaf, whole=whole, off_float32=off_b, a_off_float32=off_a, parity=parity, ok=ok)
+
+
+def run_points(card, dev) -> dict:
+    """38. the (data, points) mesh: (a) one process, (b) a (1, 2) group and
+    (c) a (2, 2) group on the card (module note); the gates and controls,
+    the step medians, each rank's peak beside (a)'s, the collectives' share
+    and bytes, the valid rows per rank and level, the launches."""
+    from se3conv3d_tpu_torch.parallel import launch, make_group
+
+    t0 = time.perf_counter()
+    room = points_room()
+    draws = points_room_draws(dev, room)
+    a = {c: points_step(dev, room, draws, c, timed_steps=POINTS_TIMED_STEPS if c == "bfloat16" else 0,
+                        spread=c == "bfloat16") for c in POINTS_CONFIGS}
+    ab = a["bfloat16"]
+    norm = float(torch.sqrt(sum(g.double().square().sum() for g in ab["grads"].values())))
+    spread = grads_ratio(ab["scatter_grads"], ab["grads"], norm)
+    out = {"a_bf16_scatter_vs_sorted": {"grad_ratio": spread[0], "grad_leaf": spread[1],
+                                        "whole": grads_norm_ratio(ab["scatter_grads"], ab["grads"])}}
+    print(f"phase 38 (a) bfloat16, the same step's gradients in the 'scatter' mode against the 'sorted' one (its "
+          f"own spread over two orders of summation): worst {spread[0]:.3e} at {spread[1]}, over every leaf "
+          f"{out['a_bf16_scatter_vs_sorted']['whole']:.3e} [{card}]", flush=True)
+    torch.cuda.empty_cache()
+    card0 = rank_card()
+    t1 = time.perf_counter()
+    ranks = launch(make_group(2, devices=[card0, card0], backend="gloo", points=2), points_group_rank, room,
+                   draws)
+    print(f"phase 38 (b): a (data=1, points=2) group of two gloo ranks on {card0} in "
+          f"{time.perf_counter() - t1:.2f} s [{card}]", flush=True)
+    for c, (dt, _) in POINTS_CONFIGS.items():
+        for name, x in ranks[0][c]["state"].items():
+            if not torch.equal(x, ranks[1][c]["state"][name]):
+                raise SystemExit(f"phase 38 (b): the ranks' {name} differ after the {c} step")
+        gate = points_gate(card, f"(b) points=2 vs (a), {c}", ranks[0][c], a[c],
+                           a[c.replace("bfloat16", "float32")]["grads"] if dt == "bfloat16" else None)
+        out[f"b_vs_a_{c}"] = gate
+        if not gate["ok"]:
+            raise SystemExit(f"phase 38: the (1, 2) group's {c} step is not the one-process step")
+        if dt == "bfloat16":
+            for who, run in [("(a)", a[c])] + [(f"(b) rank {r}", ranks[r][c]) for r in range(2)]:
+                if run["bf16_launches"] != run["launches"][:2]:
+                    raise SystemExit(f"phase 38 {who}: {run['bf16_launches']} of {run['launches'][:2]} conv "
+                                     "launches took bfloat16 operands")
+    for variant, c in POINTS_CONTROLS:
+        bf16 = POINTS_CONFIGS[c][0] == "bfloat16"
+        ctl = points_gate(card, f"control {variant}, {c} (must fail)", ranks[0][f"{variant}_{c}"], a[c],
+                          a[c.replace("bfloat16", "float32")]["grads"] if bf16 else None)
+        out[f"control_{variant}_{c}"] = ctl
+        if ctl["ok"]:
+            raise SystemExit(f"phase 38: the control {variant} passes the {c} gate")
+    rows = {c: {"(a)": (a[c]["rows"], a[c]["valid_rows"]),
+                **{f"(b) rank {r}": (ranks[r][c]["rows"], ranks[r][c]["valid_rows"]) for r in range(2)}}
+            for c in ("float32", "float32_bucket")}
+    for c, by in rows.items():
+        print(f"phase 38 rows per level, {c} (levels 0-4, then the output cloud): held {by['(a)'][0]} / "
+              f"{by['(b) rank 0'][0]} / {by['(b) rank 1'][0]}, valid {by['(a)'][1]} / {by['(b) rank 0'][1]} / "
+              f"{by['(b) rank 1'][1]} ((a) / (b) rank 0 / rank 1) [{card}]", flush=True)
+    bf = "bfloat16"
+    med = {"a": statistics.median(a[bf]["step_s"][1:]),
+           **{f"b_rank{r}": statistics.median(ranks[r][bf]["step_s"][1:]) for r in range(2)}}
+    coll = [ranks[r][bf]["collectives"] for r in range(2)]
+    share = [(c["all_gather"]["s"] + c["all_reduce"]["s"]) / c["step_s"] for c in coll]
+    peaks = {"a": {c: a[c]["peak_gib"] for c in POINTS_CONFIGS},
+             **{f"b_rank{r}": {c: ranks[r][c]["peak_gib"] for c in POINTS_CONFIGS} for r in range(2)}}
+    bucket_s = {"a": a["float32_bucket"]["step_s"][0],
+                **{f"b_rank{r}": ranks[r]["float32_bucket"]["step_s"][0] for r in range(2)}}
+    print(f"phase 38 step medians (host clock, bfloat16, 'sorted', the {POINTS_TIMED_STEPS} timed step(s) after "
+          f"the gated one): (a) {med['a']:.4f} s, (b) rank 0 {med['b_rank0']:.4f} s / rank 1 {med['b_rank1']:.4f} s "
+          f"(both ranks on one card); collectives' share of a (b) step {100 * share[0]:.1f}% / "
+          f"{100 * share[1]:.1f}% (all-gather {coll[0]['all_gather']['calls']} calls "
+          f"{coll[0]['all_gather']['s']:.4f} s {coll[0]['all_gather']['bytes'] / 2**20:.1f} MiB received, "
+          f"all-reduce {coll[0]['all_reduce']['calls']} calls {coll[0]['all_reduce']['s']:.4f} s "
+          f"{coll[0]['all_reduce']['bytes'] / 2**20:.1f} MiB, of {coll[0]['step_s']:.4f} s, a device sync "
+          f"around each); the gated float32 step at the bucket: (a) {bucket_s['a']:.4f} s, (b) "
+          f"{bucket_s['b_rank0']:.4f} / {bucket_s['b_rank1']:.4f} s; peaks (GiB, {list(POINTS_CONFIGS)}): "
+          f"{ {k: [round(v[c], 3) for c in POINTS_CONFIGS] for k, v in peaks.items()} } [{card}]", flush=True)
+    launches = {f"points_a_train_{c}": a[c]["launches"] for c in POINTS_CONFIGS}
+    launches.update({f"points_b_train_{c}_rank{r}": ranks[r][c]["launches"]
+                     for c in POINTS_CONFIGS for r in range(2)})
+    print(f"phase 38 launches (conv forward, backward, prefix sum) of the calibration pass and the gated step: "
+          f"{launches} [{card}]", flush=True)
+    # a conv launches on each process that holds a live row of its queries:
+    # every conv on (a) and on (b)'s first rank (which holds every level's
+    # first rows), some on the second at the bucket
+    full = (2 * SCANNET_CONVS, SCANNET_CONVS)
+    must = [f"points_a_train_{c}" for c in POINTS_CONFIGS] + [f"points_b_train_{c}_rank0" for c in POINTS_CONFIGS]
+    for name in must:
+        if launches[name][:2] != full or launches[name][2] == 0:
+            raise SystemExit(f"phase 38 {name}: launches {launches[name]}, expected {full} and some prefix sums")
+    for c in ("bfloat16_bucket", "float32_bucket"):
+        if min(launches[f"points_b_train_{c}_rank1"]) == 0:
+            raise SystemExit(f"phase 38: (b)'s second rank launched no conv at the bucket ({c}), where it holds "
+                             "live rows")
+    del ranks
+    torch.cuda.empty_cache()
+    # (c) the dry run's (data=2, points=2) configuration
+    bodies = body_batch(POINTS_BODIES, POINTS, seed=38)
+    dd = ddp_draws(dev, bodies)
+    t1 = time.perf_counter()
+    dry = launch(make_group(4, devices=[card0] * 4, backend="gloo", points=2), points_dryrun_rank, bodies, dd)
+    same = all(torch.equal(x, r["state"][k]) for r in dry[1:] for k, x in dry[0]["state"].items())
+    print(f"phase 38 (c): (data=2, points=2), four gloo ranks on {card0} in {time.perf_counter() - t1:.2f} s; "
+          f"coordinates {[r['coords'] for r in dry]}; losses over {POINTS_DRYRUN_STEPS} steps on one batch "
+          f"{[r['losses'] for r in dry]}; the four ranks' parameters and statistics bitwise equal: {same} "
+          f"[{card}]", flush=True)
+    if not (same and all(r["losses"] == dry[0]["losses"] for r in dry)
+            and dry[0]["losses"][-1] < dry[0]["losses"][0]):
+        raise SystemExit("phase 38: the (2, 2) dry-run contract fails")
+    for r, run in enumerate(dry):
+        launches[f"points_c_dryrun_rank{r}"] = run["launches"] + (0,)
+    want = ((1 + POINTS_DRYRUN_STEPS) * CONVS_PER_FORWARD, POINTS_DRYRUN_STEPS * CONVS_PER_FORWARD)
+    print(f"phase 38 (c) launches (conv forward, backward) by rank: {[r['launches'] for r in dry]} (every conv "
+          f"on a rank that holds live rows of its queries: {want}) [{card}]", flush=True)
+    if any(r["launches"] != want for r in dry if r["coords"][1] == 0):
+        raise SystemExit("phase 38 (c): a first points rank did not launch every conv")
+    out.update(launches=launches, step_median_s=med, collectives=coll, collective_share=share, peak_gib=peaks,
+               rows=rows, dryrun_losses=dry[0]["losses"], seconds=time.perf_counter() - t0)
+    print(f"phase 38: {out['seconds']:.2f} s [{card}]", flush=True)
+    return out
+
+
 def kernels_line(dfaust: dict, scan: dict, mixf: dict, rot_i: dict, g4: dict, std: dict, mn: dict,
                  cli: dict, evals: dict, modes: dict, probes: dict, sites: dict, zoo: dict,
-                 ddp: dict, mink: dict, fps: dict) -> dict:
+                 ddp: dict, mink: dict, fps: dict, points: dict) -> dict:
     """The ``{"kernels": [...]}`` object: every kernel with its launches on
     the main paths, its error against its plain version, and its times at
     the ScanNet level-0 shape (float32), with the same for its bfloat16
@@ -5891,8 +6318,12 @@ def kernels_line(dfaust: dict, scan: dict, mixf: dict, rot_i: dict, g4: dict, st
     the Q = 64 instantiations and the O = 1024 conv of phase 34
     (:func:`zoo_entries`); the conv entries' launches include phase 35's
     data-parallel paths (``ddp_*``: one calibration pass and one step each,
-    rank by rank); phases 36-37 (MinkUNet34A's cuDNN convs, FPS in PyTorch
-    ops) launch no kernel of the port, and their readings close the line."""
+    rank by rank) and phase 38's point-parallel ones (``points_*``: the
+    calibration pass and the gated 'sorted' step of (a) and of each rank of
+    (b) by dtype, the prefix sum's launches among them, and each rank of
+    (c)'s dry run); phases 36-37 (MinkUNet34A's cuDNN convs, FPS in PyTorch
+    ops) launch no kernel of the port, and their readings close the line
+    with phase 38's."""
     compared, bwd_compared = dfaust["fwd"], dfaust["bwd"]
     scan_conv, scan_cumsum, scan_train, scan_eval = scan["conv"], scan["cumsum"], scan["train"], scan["eval"]
     lvl0 = SCANNET_SHAPES["scannet_level0_block_conv"]
@@ -5926,6 +6357,11 @@ def kernels_line(dfaust: dict, scan: dict, mixf: dict, rot_i: dict, g4: dict, st
             bf16["eval_scannet20"] = evals["scannet20"]["bf16_launches"] if which == 0 else 0
         else:
             every["cli_scannet20_sorted_step"] = cli["scannet20"]["cumsum_launches"]
+        for name, n in points["launches"].items():  # phase 38, per configuration, dtype and rank
+            if which < 2 or n[2]:
+                every[name] = n[which]
+                if "bfloat16" in name:  # every launch of this path is a bfloat16 one (gated)
+                    bf16[name] = n[which]
         for dt in SCANNET_DTYPES:
             if which == 0:
                 every[f"scannet_eval_{dt}"] = scan_eval[dt]["launches"]
@@ -6071,7 +6507,8 @@ def kernels_line(dfaust: dict, scan: dict, mixf: dict, rot_i: dict, g4: dict, st
         "eval": {k: v for k, v in evals.items() if k != "whole_scene_fwd"},
         "model_zoo": {k: zoo[k] for k in ("variants", "ball_query", "q64_models", "attention", "seconds")}
         | {"modelnet_global": {k: v for k, v in zoo["modelnet_global"].items() if k != "conv"}},
-        "data_parallel": ddp, "minkunet": mink, "fps": fps}
+        "data_parallel": ddp, "minkunet": mink, "fps": fps,
+        "points_parallel": points}
 
 
 def main() -> int:
@@ -6230,6 +6667,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     fps = run_fps(card, dev)
     torch.cuda.empty_cache()
+    # 38. the (data, points) mesh: one process, (1, 2) and (2, 2) groups
+    points = run_points(card, dev)
+    torch.cuda.empty_cache()
     # the profiled ModelNet40 train step last: a profiled run slows the launches after it
     mn = dict(conv=mn_conv, runs=mn_runs, profile=modelnet_profile(card, dev, mn_batch))
     del mn_batch
@@ -6238,7 +6678,7 @@ def main() -> int:
                   bf16_train=dfaust_bf16)
     print(f"chip_smoke: total {time.perf_counter() - started:.1f} s, the build included [{card}]", flush=True)
     print(json.dumps(kernels_line(dfaust, scan, mixf, rot_i, g4, std, mn, cli, evals, modes, probes, sites, zoo,
-                                  ddp, mink, fps)))
+                                  ddp, mink, fps, points)))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,6 +8,10 @@ frames.  Frames are kNN PCA frames (a random choice of the candidates per
 point), global PCA frames (one candidate set per cloud) or uniformly random
 rotations, free or about a fixed axis (the reference's ``RefFrames``).
 
+On a points group (``parallel.mesh``) every rank of a points row builds the
+whole hierarchy from the raw cloud gathered over the row, with the same
+draws, and keeps its row slices (:meth:`Hierarchy.row_slices`).
+
 Randomness is explicit.  :class:`HierarchyDraws` holds every random number
 a build consumes (the frame draws per level and for the output cloud, and
 the output subsample's per-cell picks); :func:`draw_hierarchy` makes them
@@ -24,6 +28,7 @@ from .frames import (global_pca_frames, is_fixed_axis, pca_frames, random_frames
                      shuffle_and_select_frames)
 from .grid import SubsampleMap, build_grid_subsample
 from .neighborhoods import SUBSAMPLED_SPACING_FACTOR, ball_query_neighborhood, knn_neighborhood
+from ..parallel.mesh import local_rows
 from .pointcloud import PointCloud
 
 __all__ = [
@@ -115,6 +120,15 @@ class Hierarchy:
     @property
     def num_levels(self) -> int:
         return len(self.levels)
+
+    def row_slices(self, index: int, size: int) -> "Hierarchy":
+        """Points coordinate ``index`` of ``size``'s view of this (whole)
+        hierarchy: every level cut to its rows :func:`~se3conv3d_tpu_torch.
+        parallel.mesh.local_rows` (each slice keeps its whole level, which
+        the neighbour searches and the conv gathers read); the subsample
+        maps stay whole."""
+        return Hierarchy(tuple(pc.row_slice(*local_rows(pc.capacity, index, size)) for pc in self.levels),
+                         self.maps, self.levels_radii)
 
     def to(self, device) -> "Hierarchy":
         return Hierarchy(

@@ -133,7 +133,7 @@ def _chunked_topk_neighbors(src_pos, src_mask, query_pos, query_mask, k, radius2
     idx_parts, d2_parts, cnt_parts = [], [], []
     inf = torch.tensor(float("inf"), dtype=src_pos.dtype, device=src_pos.device)
     s = src_pos[:, None, :, :]  # [B, 1, N, 3]
-    for q0 in range(0, query_pos.shape[1], chunk):
+    for q0 in range(0, max(query_pos.shape[1], 1), chunk):  # an empty query gives empty tables
         q = query_pos[:, q0 : q0 + chunk, None, :]  # [B, c, 1, 3]
         # per-component sum, no [B, c, N, 3] temporary
         d2 = (q[..., 0] - s[..., 0]) ** 2
@@ -318,7 +318,9 @@ def grid_knn_neighborhood(src: PointCloud, query: PointCloud, k: int,
 
 
 def _use_grid(src: PointCloud, query: PointCloud) -> bool:
-    return src.capacity >= GRID_AUTO_THRESHOLD or query.capacity >= GRID_AUTO_THRESHOLD
+    """Grid or brute force, by the whole clouds' capacities (a points
+    group's row slice searches as its whole cloud does)."""
+    return src.source.capacity >= GRID_AUTO_THRESHOLD or query.source.capacity >= GRID_AUTO_THRESHOLD
 
 
 def knn_neighborhood(

@@ -4,6 +4,11 @@ Counterpart of ``se3conv3d_tpu/core/pointcloud.py``: every batch element
 occupies one row of a dense ``[B, N, ...]`` tensor padded to a static ``N``
 with a boolean validity mask.  Frames are ``[B, N, F, 3, 3]`` with the frame
 axes as columns; a world row-vector ``v`` reads ``v @ R`` in the frame.
+
+On a points group (``parallel.mesh``) a rank's cloud is a row slice of the
+whole one (:meth:`PointCloud.row_slice`): its rows are the rank's queries
+and its ``whole`` cloud the sources they read; :func:`global_pool` over a
+slice reduces over the points row.
 """
 from __future__ import annotations
 
@@ -11,6 +16,8 @@ import dataclasses
 from typing import Optional
 
 import torch
+
+from ..parallel.mesh import points_extreme, points_sum
 
 __all__ = [
     "PointCloud",
@@ -81,20 +88,39 @@ class PointCloud:
       positions: ``[B, N, 3]`` float coordinates; padded rows arbitrary.
       mask: ``[B, N]`` bool, True for real points.
       frames: optional ``[B, N, F, 3, 3]`` local reference frames.
+      whole: for a row slice, the whole cloud it is rows ``[start, start +
+        N)`` of (None for a whole cloud).
+      start: the slice's first row in ``whole``.
     """
 
     positions: torch.Tensor
     mask: torch.Tensor
     frames: Optional[torch.Tensor] = None
+    whole: Optional["PointCloud"] = None
+    start: int = 0
 
     @property
     def capacity(self) -> int:
         return self.positions.shape[1]
 
+    @property
+    def source(self) -> "PointCloud":
+        """The whole cloud: ``whole`` for a row slice, else the cloud itself."""
+        return self if self.whole is None else self.whole
+
     def with_frames(self, frames: torch.Tensor) -> "PointCloud":
         return dataclasses.replace(self, frames=frames)
 
+    def row_slice(self, start: int, stop: int) -> "PointCloud":
+        """Rows ``[start, stop)`` of this (whole) cloud, which it keeps as
+        ``whole``."""
+        cut = slice(start, stop)
+        return PointCloud(self.positions[:, cut], self.mask[:, cut],
+                          None if self.frames is None else self.frames[:, cut], self, start)
+
     def to(self, device) -> "PointCloud":
+        if self.whole is not None:
+            return self.whole.to(device).row_slice(self.start, self.start + self.capacity)
         return PointCloud(
             self.positions.to(device),
             self.mask.to(device),
@@ -107,14 +133,28 @@ def global_pool(pc: PointCloud, x: torch.Tensor, method: str = "avg") -> torch.T
     C]`` over N, ``[B, N, F, C]`` over N and F jointly, padded points left
     out by ``pc.mask``.  An all-masked cloud gives 0 (``sum``, ``avg``) or
     the dtype's most negative (``max``) or largest (``min``) value, as the
-    JAX package's masked reductions."""
+    JAX package's masked reductions.  For a row slice (``x`` this rank's
+    rows of a points group) the pool runs over the whole cloud: each rank's
+    sums (and, for ``avg``, counts), maxima or minima are reduced over the
+    points row, the max's and min's gradient going to the owning ranks
+    (split over the row's tied elements, as over one process's)."""
     if method not in _POOLERS:
         raise ValueError(f"unknown pooling method {method!r}")
-    pool = _POOLERS[method]
+    mask = pc.mask
     if x.dim() == 4:
         b, n, f, c = x.shape
-        return pool(x.reshape(b, n * f, c), pc.mask.repeat_interleave(f, dim=1), 1)
-    return pool(x, pc.mask, 1)
+        x, mask = x.reshape(b, n * f, c), mask.repeat_interleave(f, dim=1)
+    if pc.whole is None:
+        return _POOLERS[method](x, mask, 1)
+    if method in ("max", "min"):
+        local = _POOLERS[method](x, mask, 1)
+        ties = (_expand_mask(mask, x) & (x == local[:, None])).sum(1)
+        return points_extreme(local, ties, method == "max")
+    total = points_sum(masked_sum(x, mask, 1))
+    if method == "sum":
+        return total
+    count = points_sum(_expand_mask(mask, x).sum(1).to(x.dtype))
+    return total / count.clamp(min=1)
 
 
 def frame_pool(x: torch.Tensor, method: str = "avg") -> torch.Tensor:

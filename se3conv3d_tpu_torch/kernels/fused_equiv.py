@@ -150,6 +150,7 @@ import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
+from ..parallel.mesh import gather_points, sum_points_rows
 from .build import library
 from .segsum import sorted_segment_sum
 
@@ -696,16 +697,25 @@ class FusedEquivConv(torch.autograd.Function):
     each building one.  The feature gradient comes back in the features'
     dtype: with bfloat16 operands the float32 sum is rounded once, as the
     JAX package's ``.astype(feats_x.dtype)``.
+
+    Given ``points_total`` (a points group, ``parallel.mesh``), ``feats`` is
+    this rank's rows of a source level of that many rows: the forward
+    gathers the whole level over the points row, and so does the backward
+    again, while only the rank's rows are saved; the backward's float32
+    feature gradient of the whole level is summed over the row and cut to
+    the rank's rows before its rounding.
     """
 
     @staticmethod
     def forward(ctx, rel, rot6, feats, idx, mask, proj_axes, proj_biases, conv_weights,
                 sorted_slot=None, run_start=None, run_end=None, live_rows=None, act="gelu",
-                kp=None):
+                kp=None, points_total=None):
         inputs = (rel, rot6, feats, idx, mask, proj_axes, proj_biases, conv_weights)
         tables = () if sorted_slot is None else (sorted_slot, run_start, run_end)
-        ctx.has_live, ctx.act, ctx.kp = live_rows is not None, act, kp
+        ctx.has_live, ctx.act, ctx.kp, ctx.points_total = live_rows is not None, act, kp, points_total
         ctx.save_for_backward(*inputs, *tables, *((live_rows,) if ctx.has_live else ()))
+        if points_total is not None:
+            inputs = inputs[:2] + (gather_points(feats, 1, points_total),) + inputs[3:]
         return fused_equiv_fwd(*inputs, live_rows, act, kp)
 
     @staticmethod
@@ -714,25 +724,32 @@ class FusedEquivConv(torch.autograd.Function):
         inputs, rest = ctx.saved_tensors[:8], ctx.saved_tensors[8:]
         live = rest[-1] if ctx.has_live else None
         tables = rest[:-1] if ctx.has_live else rest
+        dtype, total = inputs[2].dtype, ctx.points_total
+        if total is not None:
+            inputs = inputs[:2] + (gather_points(inputs[2], 1, total),) + inputs[3:]
         d_feats, d_pa, d_pb, d_w = fused_equiv_bwd(
             *inputs, gout.contiguous(), tables[0] if tables else None, live, ctx.act, ctx.kp)
         if tables:
             d_feats = sorted_segment_sum(d_feats, *tables[1:]).reshape(inputs[2].shape)
-        d_feats = d_feats.to(inputs[2].dtype)
+        if total is not None:
+            d_feats = sum_points_rows(d_feats.float(), 1, total)
+        d_feats = d_feats.to(dtype)
         need = ctx.needs_input_grad
         return (None, None, d_feats if need[2] else None, None, None,
                 d_pa if need[5] else None, d_pb if need[6] else None, d_w if need[7] else None,
-                None, None, None, None, None, None)
+                None, None, None, None, None, None, None)
 
 
 def fused_equiv(rel, rot6, feats, idx, mask, proj_axes, proj_biases, conv_weights,
-                sort_tables=None, live_rows=None, act="gelu", kp=None):
+                sort_tables=None, live_rows=None, act="gelu", kp=None, points_total=None):
     """Differentiable fused conv ``-> [B, M, G, O]`` (see :func:`fused_equiv_fwd`;
     ``rot6`` None for the standard and kernel-point geometries, ``kp`` the
     latter's :class:`KernelPoints`, ``act`` the activation);
     ``sort_tables = (sorted_slot, run_start, run_end)`` selects the 'sorted'
     feature-gradient reduction; ``live_rows`` is :func:`live_row_table` of
-    ``mask``, built by the forward and again by the backward when absent."""
+    ``mask``, built by the forward and again by the backward when absent;
+    ``points_total``: ``feats`` is this rank's rows of a source level of
+    that many rows on a points group (:class:`FusedEquivConv`)."""
     return FusedEquivConv.apply(rel, rot6, feats, idx, mask, proj_axes, proj_biases,
                                 conv_weights, *(sort_tables or (None, None, None)), live_rows,
-                                act, kp)
+                                act, kp, points_total)

@@ -39,6 +39,12 @@ class ClassNet(nn.Module):
     neighborhood holds every point of the trunk level (k = its capacity;
     ``global_conv_down``, C -> 2C), ``last_norm`` and ``last_linear``.
     There is no ``class_norm`` and no ``class_head`` then.
+
+    On a points group (``parallel.mesh``) the hierarchy's levels are this
+    rank's row slices: the pool reduces over the points row
+    (``core.pointcloud.global_pool``), so every rank of the row gets the same
+    logits; the extra level's one row belongs to the first slice (the others
+    are empty), and its kNN reads the whole trunk level.
     """
 
     def __init__(self, spec: ModelSpec, num_in_feats: int, num_classes: int,
@@ -68,12 +74,15 @@ class ClassNet(nn.Module):
             trunk = hierarchy.num_levels - 2
             pc, extra = hierarchy.levels[trunk], hierarchy.levels[trunk + 1]
             x = self.almost_last_norm(feats, pc.mask)
-            neigh = provider.get(trunk, trunk + 1, 0.0, "knn", pc.capacity)
+            neigh = provider.get(trunk, trunk + 1, 0.0, "knn", pc.source.capacity)
             x = self.global_conv_down(pc, extra, x, neigh, calibrate)
             return self.last_linear(self.last_norm(x, extra.mask))
         if feats.dim() == 4 and s.frame_pooling_method is not None:
             feats = frame_pool(feats, s.frame_pooling_method)
         x = global_pool(hierarchy.levels[-1], feats, s.pooling_method)  # [B, C]
-        rows = torch.ones(x.shape[0], 1, dtype=torch.bool, device=x.device)
+        # on a points group every rank holds the pooled rows; the slice that
+        # starts at row 0 counts them in class_norm's statistics
+        rows = torch.full((x.shape[0], 1), hierarchy.levels[-1].start == 0, dtype=torch.bool,
+                          device=x.device)
         x = self.class_norm(x[:, None, :], rows)[:, 0]
         return self.class_head(x)

@@ -116,6 +116,12 @@ class NeighborhoodProvider:
     neighborhood (``src == dst``: the block stack's) also gets the sort
     tables its convs' backwards share; a single-use one builds them in its
     conv (``ops.pne_conv``), as in the JAX package.
+
+    On a points group the hierarchy's levels are this rank's row slices
+    (``core.hierarchy.Hierarchy.row_slices``): a table is searched for the
+    destination's rows of this rank against the whole source level
+    (``PointCloud.source``): its indices and sort tables address the whole
+    source level, its edge geometry and live-row table this rank's rows.
     """
 
     def __init__(self, hierarchy: Hierarchy, spec: ModelSpec, collect_trunc: bool = False):
@@ -157,7 +163,7 @@ class NeighborhoodProvider:
     def get(self, src: int, dst: int, radius: float, neigh_type: str, k: int) -> Neighborhood:
         key = (src, dst, round(float(radius), 9), neigh_type, k)
         if key not in self._cache:
-            src_pc = self.hierarchy.levels[src]
+            src_pc = self.hierarchy.levels[src].source
             neigh = self._build(src_pc, self.hierarchy.levels[dst], radius, neigh_type, k,
                                 self.hierarchy.levels_radii[src], consumers(self.spec, src == dst))
             if src == dst and ops.sorted_backward() and torch.is_grad_enabled():
@@ -170,6 +176,6 @@ class NeighborhoodProvider:
         """Neighborhood from a hierarchy level to an external cloud (the
         segmentation output cloud)."""
         return self._build(
-            self.hierarchy.levels[src], dst_pc, radius, neigh_type, k,
+            self.hierarchy.levels[src].source, dst_pc, radius, neigh_type, k,
             self.hierarchy.levels_radii[src], consumers(self.spec, self_neighborhood=False),
         )

@@ -8,7 +8,11 @@ embedding ``pe`` added to the queries), and ``LoRAttConv`` adds a parallel
 basis-weighted conv term.  The JAX layer runs XLA einsums, not a Pallas
 kernel, so these are PyTorch ops on whichever device holds the tensors.
 Same-cloud only, as in the JAX package (the reference asserts ``p_pc_in ==
-p_pc_out``).  Calibration follows :class:`~se3conv3d_tpu_torch.nn.conv.PNEConv`
+p_pc_out``).  On a points group (``parallel.mesh``) the clouds are this
+rank's row slice: the neighbours' query and value projections come from the
+whole level through one gather over the points row
+(``parallel.mesh.points_gather``), each point's key from its own row.
+Calibration follows :class:`~se3conv3d_tpu_torch.nn.conv.PNEConv`
 (:func:`~se3conv3d_tpu_torch.nn.conv.calibrate_norms`); the kernel points
 carry the reference's random rotation, a ``numpy`` draw from ``kp_seed``
 (:func:`rotated_kernel_points`), the same bits as the JAX package's.
@@ -25,6 +29,7 @@ from torch import nn
 from ..core.neighborhoods import Neighborhood
 from ..core.pointcloud import PointCloud, gather_rows
 from ..ops import pne_conv as ops
+from ..parallel.mesh import points_gather
 from .blocks import TorchLinear
 from .conv import calibrate_norms
 from .icosphere import icosphere_points
@@ -103,15 +108,18 @@ class _AttBase(nn.Module):
 
     def forward(self, pc_in: PointCloud, pc_out: PointCloud, features: torch.Tensor,
                 neigh: Neighborhood, calibrate: bool = False) -> torch.Tensor:
+        src = pc_in.source
         if calibrate:
-            calibrate_norms(self, pc_in, pc_out, neigh)
+            calibrate_norms(self, src, pc_out, neigh)
         v = features.shape[-1]
-        rel = ops.relative_offsets(pc_in, pc_out, neigh, self.norm_neigh_dist)
+        rel = ops.relative_offsets(src, pc_out, neigh, self.norm_neigh_dist)
         pne = ops.kp_pne(rel, self.kernel_points, self.sigma, "gauss", self.proj_axes, self.proj_biases)
         pne = pne * neigh.mask[..., None]  # [B, M, K, Q]
 
         x = self.linear_kqv(features)
         qv, k = x[..., : 2 * v], x[..., 2 * v:]
+        if pc_in.whole is not None:
+            qv = points_gather(qv, 1, src.capacity)
         agg_qv = torch.einsum("bmkc,bmkq->bmcq", gather_rows(qv, neigh.idx), pne)
         agg_v = agg_qv[:, :, :v].transpose(-1, -2)  # [B, M, Q, V]
         agg_q = agg_qv[:, :, v:].transpose(-1, -2) + self.pe

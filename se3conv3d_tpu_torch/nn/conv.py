@@ -28,6 +28,14 @@ a 0.9/0.1 EMA; ball-query neighborhoods use ``1/radius``.  ``trunc_frac``
 keeps the largest fraction of query rows whose ball held more than the
 neighbor cap.  In a data-parallel group every sum of the calibration is the
 global batch's, as on a JAX mesh.
+
+On a points group (``parallel.mesh``) ``pc_in`` and ``pc_out`` are this
+rank's row slices of their levels and the features its rows of ``pc_in``:
+the conv reads the whole source level (``pc_in.source``) through one
+gather over the points row, inside the kernels' autograd node on the kernel
+path (``ops.pne_conv``'s ``points_total``) and by
+``parallel.mesh.points_gather`` on the plain path, and writes the rank's
+query rows.  Its calibration sums the rank's rows over the group.
 """
 from __future__ import annotations
 
@@ -42,7 +50,7 @@ from torch import nn
 from ..core.neighborhoods import Neighborhood
 from ..core.pointcloud import PointCloud, gather_rows
 from ..ops import pne_conv as ops
-from ..parallel.mesh import group_sum_, in_group
+from ..parallel.mesh import group_sum_, in_group, points_gather
 from .icosphere import icosphere_points
 
 __all__ = ["PNEConv", "ConvFactory", "calibrate_norms", "check_neighbor_caps", "fused_dispatch"]
@@ -219,17 +227,21 @@ class PNEConv(nn.Module):
 
     def forward(self, pc_in: PointCloud, pc_out: PointCloud, features: torch.Tensor,
                 neigh: Neighborhood, calibrate: bool = False) -> torch.Tensor:
+        # on a points group: the whole source level, and its rows to gather
+        pc_in, total = pc_in.source, (None if pc_in.whole is None else pc_in.whole.capacity)
         if calibrate:
             self._calibrate(pc_in, pc_out, neigh)
         pa, pb, w = self.proj_axes, self.proj_biases, self.conv_weights
         nd, nn_ = self.norm_neigh_dist, self.norm_num_neighs
         if self.fused and "mlp" not in self.pne_type:
             return ops.fused_kp_conv(pc_in, pc_out, neigh, features, self.kernel_points, self.sigma,
-                                     self.corr, pa, pb, w, nd, nn_, self.compute_dtype)
+                                     self.corr, pa, pb, w, nd, nn_, self.compute_dtype, total)
         if self.fused:
             conv = ops.fused_equiv_conv if self.equivariant else ops.fused_conv
             return conv(pc_in, pc_out, neigh, features, pa, pb, w, nd, nn_, self.compute_dtype,
-                        self.pne_type.split("_")[-1])
+                        self.pne_type.split("_")[-1], total)
+        if total is not None:
+            features = points_gather(features, 1, total)
         mask = neigh.mask
         if self.equivariant:  # the plain path, as the JAX package's XLA path
             geo = ops.equiv_geometry(pc_in, pc_out, neigh, nd, self.rel_rot_type)

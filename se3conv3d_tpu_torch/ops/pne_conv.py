@@ -255,6 +255,7 @@ def fused_equiv_conv(
     norm_num_neighs: torch.Tensor,
     compute_dtype: Optional[torch.dtype] = None,
     act: str = "gelu",
+    points_total: Optional[int] = None,
 ) -> torch.Tensor:
     """Rot-equivariant mlp conv (6D relative rotations) through the fused
     kernel -> ``[B,M,G,O]``, with the pne activation ``act`` (gelu, relu,
@@ -280,6 +281,12 @@ def fused_equiv_conv(
     then widened to the features' dtype.  None or float32 computes in
     float32.  A cached geometry of the other dtype is rebuilt, never
     converted (as the JAX package does, with a warning).
+
+    ``points_total``: on a points group (``parallel.mesh``), ``features``
+    are this rank's rows of ``pc_in``, a source level of that many rows,
+    which the kernels' autograd node gathers over the points row
+    (``kernels.fused_equiv.FusedEquivConv``); the same in
+    :func:`fused_conv` and :func:`fused_kp_conv`.
     """
     geo_dt = geometry_dtype(compute_dtype, features.dtype)
     if _serves(neigh.equiv_rel, geo_dt):
@@ -290,7 +297,7 @@ def fused_equiv_conv(
     out = fused_equiv(
         rel, rot6, features.to(geo_dt).contiguous(), neigh.idx, neigh.mask,
         pa_scaled, proj_biases.contiguous(), conv_weights.contiguous(),
-        _sort_tables(neigh, features), neigh.live_rows, act,
+        _sort_tables(neigh, features, points_total), neigh.live_rows, act, points_total=points_total,
     )
     return (out * (norm_num_neighs / features.shape[2])).to(features.dtype)
 
@@ -309,13 +316,14 @@ def _serves(cached: Optional[torch.Tensor], geo_dt: torch.dtype) -> bool:
     return cached.dtype == geo_dt
 
 
-def _sort_tables(neigh: Neighborhood, features: torch.Tensor):
+def _sort_tables(neigh: Neighborhood, features: torch.Tensor, points_total: Optional[int] = None):
     """The sort tables ``(slot, run_start, run_end)`` of the 'sorted'
     reduction where this conv's backward will run it (built here when the
-    neighborhood carries none for ``features``' source count), else None."""
+    neighborhood carries none for the source count: ``points_total``, else
+    ``features``' rows), else None."""
     if not (sorted_backward() and torch.is_grad_enabled() and features.requires_grad):
         return None
-    n_src = features.shape[1]
+    n_src = points_total or features.shape[1]
     if neigh.bwd_slot is None or neigh.bwd_run_start.shape[1] != n_src:
         neigh = backward_sort_tables(neigh, n_src)
     return neigh.bwd_slot, neigh.bwd_run_start, neigh.bwd_run_end
@@ -346,6 +354,7 @@ def fused_conv(
     norm_num_neighs: torch.Tensor,
     compute_dtype: Optional[torch.dtype] = None,
     act: str = "gelu",
+    points_total: Optional[int] = None,
 ) -> torch.Tensor:
     """Standard (non-equivariant) mlp conv through the fused kernel:
     ``features [B, N, C] -> [B, M, O]`` (``se3conv3d_tpu/ops/pne_conv.py:
@@ -358,15 +367,15 @@ def fused_conv(
     the output scaled by ``norm_num_neighs`` (there is no frame count to
     divide by).  Gradients reach ``features``, ``proj_axes``,
     ``proj_biases`` and ``conv_weights``; the calibration buffers get none.
-    ``compute_dtype``, the 'sorted' feature-gradient tables and the
-    live-row table as in :func:`fused_equiv_conv`.
+    ``compute_dtype``, the 'sorted' feature-gradient tables, the live-row
+    table and ``points_total`` as in :func:`fused_equiv_conv`.
     """
     geo_dt = geometry_dtype(compute_dtype, features.dtype)
     rel = neigh.std_rel if _serves(neigh.std_rel, geo_dt) else std_geometry(pc_in, pc_out, neigh, geo_dt)
     out = fused_equiv(
         rel, None, features[:, :, None, :].to(geo_dt).contiguous(), neigh.idx, neigh.mask,
         (proj_axes * norm_dist).contiguous(), proj_biases.contiguous(), conv_weights.contiguous(),
-        _sort_tables(neigh, features), neigh.live_rows, act,
+        _sort_tables(neigh, features, points_total), neigh.live_rows, act, points_total=points_total,
     )
     return (out[:, :, 0] * norm_num_neighs).to(features.dtype)
 
@@ -385,6 +394,7 @@ def fused_kp_conv(
     norm_dist: torch.Tensor,
     norm_num_neighs: torch.Tensor,
     compute_dtype: Optional[torch.dtype] = None,
+    points_total: Optional[int] = None,
 ) -> torch.Tensor:
     """Kernel-point (kp_*) conv through the fused kernel: ``features [B, N,
     C] -> [B, M, O]`` (``se3conv3d_tpu/ops/pne_conv.py:fused_kp_conv``).
@@ -401,8 +411,8 @@ def fused_kp_conv(
     each weight are rounded to bfloat16 (the weights from float32 offsets,
     as JAX computes them before its cast).  Gradients reach ``features``,
     ``proj_axes``, ``proj_biases`` and ``conv_weights``; the weights and
-    the calibration buffers get none.  The sort tables and the live-row
-    table as in :func:`fused_equiv_conv`.
+    the calibration buffers get none.  The sort tables, the live-row table
+    and ``points_total`` as in :func:`fused_equiv_conv`.
     """
     geo_dt = geometry_dtype(compute_dtype, features.dtype)
     rel = neigh.std_rel if _serves(neigh.std_rel, torch.float32) else std_geometry(
@@ -411,6 +421,6 @@ def fused_kp_conv(
     out = fused_equiv(
         rel, None, features[:, :, None, :].to(geo_dt).contiguous(), neigh.idx, neigh.mask,
         proj_axes.contiguous(), proj_biases.contiguous(), conv_weights.contiguous(),
-        _sort_tables(neigh, features), neigh.live_rows, "linear", kp,
+        _sort_tables(neigh, features, points_total), neigh.live_rows, "linear", kp, points_total,
     )
     return (out[:, :, 0] * norm_num_neighs).to(features.dtype)

@@ -7,13 +7,19 @@ list; each takes its round-robin slice of every global batch
 (:func:`process_slice`), loads only those examples, and pads its local
 count to the count all ranks agree on (:func:`local_batch_size`,
 :func:`pad_samples_to`, with all-masked fillers that count for nothing).
-The rank and the number of ranks come from the process's group
-(:mod:`.mesh`), or from explicit arguments as in JAX.
+The examples are split over the group's data axis: the ranks of one points
+row (:mod:`.mesh`) take the same examples, and :func:`shard_points` then
+gives each its contiguous share of every per-point array, the counterpart
+of ``shard_batch``'s per-point rule on a ``(data, points)`` mesh.  The data
+coordinate and the data-axis size come from the process's group, or from
+explicit arguments as in JAX.
 
 What changes for PyTorch: there is no global array to assemble
 (``global_batch``): each rank's batch already is its share, and the model's
-reductions run over the group.  :func:`host_local` is the identity: each
-rank holds only its own rows.  :func:`cross_host_sum` is one ``all_reduce``
+reductions run over the group.  :func:`host_local` returns a rank's own
+examples: the identity in a data-only group, the points row's rows put
+back together along the point axis in a points group (the JAX package's
+``_combine_local_shards``).  :func:`cross_host_sum` is one ``all_reduce``
 per dtype over the accumulators, in float64 and int64 (the JAX one gathers
 through 32-bit arrays unless x64 is enabled, its own note; the port does
 the sum it intends, ``tests/test_torch_multihost.py`` records it).
@@ -30,7 +36,7 @@ import torch.distributed as dist
 from . import mesh
 
 __all__ = ["process_index", "process_count", "process_slice", "local_batch_size",
-           "pad_samples_to", "host_local", "cross_host_sum"]
+           "pad_samples_to", "shard_points", "host_local", "cross_host_sum"]
 
 
 def process_index() -> int:
@@ -46,17 +52,19 @@ def process_count() -> int:
 def process_slice(batch_indices: Sequence[int], process_index: Optional[int] = None,
                   process_count: Optional[int] = None) -> List[int]:
     """This rank's examples of one global batch, round-robin
-    (``batch[r::count]``): the point-budget sampler packs large scenes
-    first, so striding balances the points per rank."""
-    pi = mesh.rank() if process_index is None else process_index
-    pc = mesh.world_size() if process_count is None else process_count
+    (``batch[r::count]``) over the data axis (default: this rank's data
+    coordinate and the group's data-axis size, so the ranks of one points
+    row take the same examples): the point-budget sampler packs large
+    scenes first, so striding balances the points per rank."""
+    pi = mesh.data_rank() if process_index is None else process_index
+    pc = mesh.data_size() if process_count is None else process_count
     return list(batch_indices[pi::pc])
 
 
 def local_batch_size(global_batch_size: int, process_count: Optional[int] = None) -> int:
-    """Examples every rank supplies: ``ceil(B / ranks)``, the same on every
-    rank without communication."""
-    pc = mesh.world_size() if process_count is None else process_count
+    """Examples every rank supplies: ``ceil(B / D)`` over the data axis,
+    the same on every rank without communication."""
+    pc = mesh.data_size() if process_count is None else process_count
     return -(-global_batch_size // pc)
 
 
@@ -90,9 +98,38 @@ def pad_samples_to(samples: List[Dict[str, np.ndarray]], target: int,
     return samples + [filler] * (target - len(samples))
 
 
+def shard_points(batch: Dict[str, Any]) -> Dict[str, Any]:
+    """This rank's share of a batch on a points group: every per-point array
+    (``ndim >= 2``: positions, mask, features, per-point labels ``[B, N,
+    ...]``) cut to this rank's contiguous rows :func:`~.mesh.local_rows`
+    ``(N)``; per-example arrays (``[B]``) whole.  Numpy arrays or tensors;
+    the identity outside a points group."""
+    if mesh.points_size() == 1:
+        return batch
+
+    def cut(x):
+        if x.ndim < 2:
+            return x
+        start, stop = mesh.local_rows(x.shape[1])
+        return x[:, start:stop]
+
+    return {k: cut(v) for k, v in batch.items()}
+
+
 def host_local(x):
-    """This rank's rows of ``x``: ``x`` itself (a rank holds only its own)."""
-    return x
+    """This rank's examples of a per-point array ``x`` (``[B, rows, ...]``):
+    in a data-only group ``x`` itself (a rank holds only its own); in a
+    points group the points row's rows gathered back into the whole cloud,
+    in points order.  A tensor or a numpy array (returned as it came)."""
+    if mesh.points_size() == 1:
+        return x
+    as_numpy = isinstance(x, np.ndarray)
+    t = torch.from_numpy(x) if as_numpy else x
+    if dist.get_backend() == "nccl":
+        t = t.to(mesh.rank_device())
+    with torch.no_grad():
+        whole = mesh.points_gather(t, 1)
+    return whole.cpu().numpy() if as_numpy else whole.to(x.device)
 
 
 def _flatten(tree) -> tuple:

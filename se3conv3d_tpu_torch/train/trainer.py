@@ -49,21 +49,39 @@ rank then clips and updates from the same gradients, so the parameters stay
 bitwise equal; ``loss`` and ``grad_norm`` are the global values.
 ``scan_scenes`` is ignored in a group of several ranks, with the JAX
 package's warning.
+
+On a ``(data, points)`` group (``parallel.mesh`` with P > 1) a batch holds
+this rank's examples (its data coordinate's) and, of each per-point array,
+its contiguous rows (``parallel.multihost.shard_points``).  :meth:`build`
+gathers the raw arrays over the points row, builds the whole hierarchy and
+output cloud (every rank of the row draws the same hierarchy draws and
+DropPath keep masks: one checksum collective per build checks them and
+raises where they differ), and hands the model this rank's row slices of
+every level, of the level-0 features, of the output cloud and of its
+labels.  The loss, its valid count and the gradients then sum over the
+group as above (the rows are disjoint), and an eval step returns the rank's
+rows of the logits (``parallel.multihost.host_local`` puts a row back
+together).  A classification loss reads the whole cloud's mask: every rank
+of a row holds the same pooled logits, so each counts the row's clouds,
+and the sums over the group scale the loss's numerator and denominator
+alike.
 """
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import warnings
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
-from ..core.hierarchy import HierarchyConfig, HierarchyDraws, build_hierarchy
+from ..core.hierarchy import HierarchyConfig, HierarchyDraws, build_hierarchy, draw_hierarchy
 from ..models.class_net import ClassNet
 from ..models.spec import NeighborhoodProvider
 from ..nn.blocks import DropPathDraws
-from ..parallel.mesh import group_sum_, in_group, world_size
+from ..parallel.mesh import (gather_points, group_sum_, in_group, local_rows, points_agree, points_lengths,
+                             points_rank, points_size, world_size)
 from .losses import classification_loss_parts, masked_segmentation_loss_parts
 from .schedule import Optimizer
 
@@ -133,25 +151,74 @@ class Trainer:
 
     def build(self, batch: dict, generator: Optional[torch.Generator] = None,
               draws: Optional[HierarchyDraws] = None, train: bool = True,
-              n_frames: Optional[int] = None):
+              n_frames: Optional[int] = None, drop_masks: Optional[Sequence[torch.Tensor]] = None):
         """Hierarchy, frame-repeated level-0 features, output cloud, output
         labels (classification: the batch's per-cloud labels) and the raw ->
         output subsample map; ``n_frames`` replaces the config's frame
-        count."""
+        count.  On a points group (module note) the rank's row slices of
+        each, and ``drop_masks`` (the step's injected DropPath keep masks)
+        join the draws that the points row's checksum compares."""
         hcfg = self.hcfg if train else self.eval_hcfg
         if n_frames is not None and hcfg.frames is not None:
             hcfg = dataclasses.replace(hcfg, frames=hcfg.frames.with_n_frames(n_frames))
         batch = {k: v.to(self.device) for k, v in batch.items()}
         seg = self.task == "segmentation"
+        sharded = points_size() > 1
+        if sharded:  # the whole scenes of this rank's points row
+            batch = self._gather_raw(batch)
+        if draws is None:
+            b, n = batch["mask"].shape
+            draws = draw_hierarchy(hcfg, b, n, generator, batch["positions"].device)
+        if sharded:
+            self._check_same_draws(draws, generator, drop_masks)
         h, f0, out_pc, out_labels, raw_to_out = build_hierarchy(
             batch["positions"], batch["mask"], batch.get("features"), hcfg,
             batch.get("labels") if seg else None, generator=generator, draws=draws,
         )
+        if sharded:  # this rank's rows
+            h = h.row_slices(points_rank(), points_size())
+            start, stop = local_rows(out_pc.capacity)
+            out_pc = out_pc.row_slice(start, stop)
+            if f0 is not None:
+                f0 = f0[:, slice(*local_rows(f0.shape[1]))].clone()
+            if seg and out_labels is not None:
+                out_labels = out_labels[:, start:stop].clone()
+            if raw_to_out is not None:
+                raw_to_out = dataclasses.replace(raw_to_out,
+                                                 chosen_idx=raw_to_out.chosen_idx[:, start:stop].clone())
         if not seg:
             out_labels = batch.get("labels")
         if hcfg.frames is not None and f0 is not None:
             f0 = f0[:, :, None, :].repeat(1, 1, hcfg.frames.n_frames, 1)
         return h, f0, out_pc, out_labels, raw_to_out
+
+    @staticmethod
+    def _gather_raw(batch: dict) -> dict:
+        """Every per-point array (``ndim >= 2``) of a points group's batch
+        gathered over the points row: the whole raw clouds, in points order.
+        The ranks' rows must follow ``local_rows`` (``shard_points``)."""
+        lengths = points_lengths(batch["mask"].shape[1])
+        total = sum(lengths)
+        if lengths != [b - a for a, b in (local_rows(total, i) for i in range(len(lengths)))]:
+            raise ValueError(f"the points row holds {lengths} raw rows: not the contiguous slices of "
+                             f"{total} that shard_points cuts")
+        return {k: gather_points(v, 1, total) if v.dim() >= 2 else v for k, v in batch.items()}
+
+    @staticmethod
+    def _check_same_draws(draws: HierarchyDraws, generator: Optional[torch.Generator],
+                          drop_masks: Optional[Sequence[torch.Tensor]]) -> None:
+        """Raise unless every rank of the points row holds the same hierarchy
+        draws, DropPath keep masks and generator state (from which the
+        forward's keep masks come): one checksum, one small collective."""
+        digest = hashlib.sha256()
+        for t in [*draws.level_frames, draws.out_uniforms, draws.out_frames, *(drop_masks or ())]:
+            if t is not None:
+                digest.update(t.detach().float().cpu().numpy().tobytes())
+        if generator is not None:
+            digest.update(generator.get_state().numpy().tobytes())
+        if not points_agree(int.from_bytes(digest.digest()[:7], "little")):
+            raise RuntimeError("the ranks of a points row hold different hierarchy draws or DropPath keep "
+                               "masks: give every rank of the row the same generator seed or draws")
 
     def _forward(self, h, f0, out_pc, **kwargs):
         """The model on a built hierarchy (a classification model takes no
@@ -161,9 +228,9 @@ class Trainer:
         return self.model(h, f0, **kwargs)
 
     def _loss_parts(self, logits, out_labels, out_pc):
-        if self.task == "classification":
+        if self.task == "classification":  # the whole cloud's mask on a points group
             return classification_loss_parts(logits, out_labels, self.label_smoothing,
-                                             example_mask=out_pc.mask.any(1))
+                                             example_mask=out_pc.source.mask.any(1))
         return masked_segmentation_loss_parts(
             logits, out_labels, out_pc.mask, self.label_smoothing, self.ignore_label
         )
@@ -203,7 +270,7 @@ class Trainer:
             loss = self.backward_scenes(batch, generator, draws, drop_masks, n_frames)
         else:
             h, f0, out_pc, out_labels, _ = self.build(batch, generator, draws, train=True,
-                                                      n_frames=n_frames)
+                                                      n_frames=n_frames, drop_masks=drop_masks)
             loss = self.backward(h, f0, out_pc, out_labels, DropPathDraws(generator, drop_masks))
         grad_norm = self.optimizer.step()
         self.step += 1

@@ -125,9 +125,11 @@ def dfaust_setup(steps: int, lr_from_max: bool = False) -> dict:
     return R.record_reference(setup)
 
 
-def jax_standard_mesh() -> tuple:
-    """The tiny JAX standard model's one train step on a 2-device mesh, and
-    the port's setup for the same step (weights, draws, keep masks)."""
+def jax_standard_mesh(points: int = 1) -> tuple:
+    """The tiny JAX standard model's one train step on a 2-device mesh (with
+    ``points`` 2, the ``(data=1, points=2)`` mesh), and the port's setup for
+    the same step (weights, draws, keep masks, each data coordinate's
+    examples)."""
     cfg = jhier.HierarchyConfig(**HCFG)
     rng = np.random.default_rng(5)
     b, n = 4, 200
@@ -154,7 +156,7 @@ def jax_standard_mesh() -> tuple:
     state = TrainState(step=np.zeros((), np.int32), params=jax.device_get(params),
                        batch_stats=jax.device_get(stats), calib=calib,
                        opt_state=jax.device_get(tx.init(params)))
-    mesh = make_mesh(2)
+    mesh = make_mesh(2, points=points)
     jtrainer = JTrainer(model, cfg, tx, TrainSettings(label_smoothing=0.2), mesh=mesh, donate_state=False)
     order = []
     key = jax.random.PRNGKey(7)
@@ -166,7 +168,7 @@ def jax_standard_mesh() -> tuple:
                  hcfg=HCFG, state=from_flax(jax.device_get(params), jax.device_get(stats), calib),
                  batch={"positions": pts, "mask": mask, "features": feats, "labels": labels.astype(np.int64)},
                  draws=jax_hierarchy_draws(rng_h, cfg, b, n), masks=[t(m) for m in keep_masks],
-                 slices=[process_slice(list(range(b)), r, 2) for r in range(2)])
+                 slices=[process_slice(list(range(b)), r, 2 // points) for r in range(2 // points)])
     ref = {"loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]),
            "grads": {k: torch.from_numpy(v) for k, v in flat_tree(new_state.opt_state).items()},
            "stats": {k: torch.from_numpy(v) for k, v in flat_tree(new_stats).items()}}

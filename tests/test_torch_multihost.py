@@ -8,7 +8,9 @@ JAX side with ``jax.process_index`` / ``jax.process_count`` patched to
 one-scene eval batches leave rank 1 an empty slice); ``cross_host_sum``
 over two gloo ranks sums in float64 / int64 (the JAX one gathers through
 32-bit arrays without x64, its own note: a recorded deviation) and is the
-identity in one process; ``points > 1`` raises."""
+identity in one process; ``points > 1`` describes a ``(data, points)``
+grid, with the JAX package's error where ``points`` does not divide the
+devices (``tests/test_torch_points.py`` runs it)."""
 import dataclasses
 
 import jax
@@ -140,9 +142,14 @@ def test_cross_host_sum_is_float64_and_int64_over_two_ranks():
     assert multihost.cross_host_sum(tree) is tree
 
 
-def test_points_axis_is_not_ported():
-    with pytest.raises(NotImplementedError, match="points"):
-        mesh.make_group(2, devices=["cpu", "cpu"], points=2)
+def test_points_axis_builds_a_grid():
+    g = mesh.make_group(2, devices=["cpu", "cpu"], points=2)
+    assert (g.size, g.data, g.points) == (2, 1, 2)
+    assert mesh.make_group(4, devices=["cpu"] * 4).points == 1
+    with pytest.raises(ValueError, match="2 devices not divisible by points=3"):
+        mesh.make_group(2, devices=["cpu", "cpu"], points=3)
+    assert mesh.local_rows(7, 0, 2) == (0, 4) and mesh.local_rows(7, 1, 2) == (4, 7)
+    assert mesh.local_rows(1, 1, 2) == (1, 1) and mesh.points_size() == 1 and mesh.points_rank() == 0
     with pytest.raises(ValueError, match="requested 3 devices, have 2"):
         mesh.make_group(3, devices=["cpu", "cpu"])
     with pytest.raises(ValueError, match="one rank per card"):

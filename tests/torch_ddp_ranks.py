@@ -125,13 +125,15 @@ def recipe_steps(rank: int, setup: dict, variant: str = "sound") -> dict:
     return out
 
 
-def record_reference(setup: dict) -> dict:
+def record_reference(setup: dict, trainer: Optional[Trainer] = None) -> dict:
     """``setup`` with the global batch's draws for ``recipe_steps``:
     hierarchy draws for calibration and each step, and each step's DropPath
-    keep masks, recorded from a seeded one-process forward."""
+    keep masks, recorded from a seeded one-process forward (of ``trainer``,
+    default the recipe's)."""
     from se3conv3d_tpu_torch.core.hierarchy import draw_hierarchy
 
-    trainer = recipe_trainer(setup["md"], setup["training"], setup["capacity"], setup["classes"])
+    if trainer is None:
+        trainer = recipe_trainer(setup["md"], setup["training"], setup["capacity"], setup["classes"])
     batch = take(setup["batch"], range(len(setup["batch"]["mask"])))
     b, n = batch["mask"].shape
     gen = torch.Generator().manual_seed(11)
