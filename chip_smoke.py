@@ -861,15 +861,15 @@ def cumsum_cases() -> dict:
 
 def device_rows(prof) -> list:
     """``(device ms, launches, kernel name)`` of a ``torch.profiler`` run,
-    largest first."""
-    rows = []
-    for ev in prof.key_averages():
-        dev_us = getattr(ev, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(ev, "self_cuda_time_total", 0.0)
-        if dev_us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
-            rows.append((dev_us / 1e3, ev.count, ev.key))
-    return sorted(rows, reverse=True)
+    largest first.  Read from the profiler's raw events: ``key_averages``
+    first builds the tree of every host event, about half a minute for a
+    ScanNet step's 80,000 launches, where this takes about two seconds."""
+    by_name = {}
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() == torch.autograd.DeviceType.CUDA and not ev.is_user_annotation():
+            ms, n = by_name.get(ev.name(), (0.0, 0))
+            by_name[ev.name()] = (ms + ev.duration_ns() / 1e6, n + 1)
+    return sorted(((ms, n, key) for key, (ms, n) in by_name.items() if ms > 0), reverse=True)
 
 
 def pass_ms(rows, passes=BWD_PASSES) -> dict:
@@ -4200,14 +4200,18 @@ PROBE_SRC = "se3conv3d_tpu_torch/kernels/csrc/probe_{}.cu"
 PROBE_M, PROBE_TM = 65536, 64
 
 
-def probe_bound(work: dict, dtype=torch.float32) -> dict:
+def probe_bound(work: dict, dtype=torch.float32, tensor_cores: bool = False) -> dict:
     """Least time of a probe kernel: the larger of bytes / HBM rate and
-    FLOPs / peak (float32: the pne and aggregation FMAs at the float32 peak,
-    the weight contraction at the 3xTF32 ceiling; bfloat16: every FLOP at
-    the dense bf16 peak, as :func:`conv_bounds`)."""
+    FLOPs / peak (float32: ``product_flops`` at the 3xTF32 ceiling, a third
+    of the TF32 peak, and ``fma_flops`` at the float32 peak, or at the
+    3xTF32 ceiling too where ``tensor_cores``: the tile-sum forward runs its
+    pne and aggregation products there; bfloat16: every FLOP at the dense
+    bf16 peak, as :func:`conv_bounds`)."""
     fma, prod = work.get("fma_flops", 0.0), work.get("product_flops", 0.0)
     if dtype == torch.bfloat16:
         t_ops = (fma + prod) / PEAK_BF16_FLOPS
+    elif tensor_cores:
+        t_ops = (fma + prod) / (PEAK_TF32_FLOPS / 3)
     else:
         t_ops = fma / PEAK_F32_FLOPS + prod / (PEAK_TF32_FLOPS / 3)
     t_bytes = work["bytes"] / PEAK_BYTES_PER_S
@@ -4255,8 +4259,11 @@ def probe_stage_cases(card, dev) -> dict:
     its no-rounding control), the whole forward's ``[G, M, O]`` output also
     value by value (``KERNEL_RTOL``; bfloat16 at the kernels' bounds and
     under half its control's mean error), two calls bitwise equal, times beside the
-    bound and, for the whole forward, ``torch.matmul`` for its weight
-    contraction.  Kernel times are device ms per call from a CUDA graph
+    bound (every product on tensor cores) and, for the whole forward,
+    ``torch.matmul`` for its weight contraction, the instantiation's
+    registers, spills, shared memory and blocks an SM, and the bytes of W it
+    reads from L2 (:func:`probes.stage_w_l2_bytes`, from the tiling).
+    Kernel times are device ms per call from a CUDA graph
     (:func:`graph_ms`), the one-call CUDA-event time with its host time
     beside them (``call_ms``)."""
     from se3conv3d_tpu_torch.experiments import chip_stage_time as cst
@@ -4296,7 +4303,9 @@ def probe_stage_cases(card, dev) -> dict:
                 w2 = args[3].reshape(cst.G, cst.Q * cst.C, cst.O).to(dtype)
                 lib_ms = cuda_ms(lambda: torch.matmul(basis, w2), 10)
                 del basis, w2
-            bound = probe_bound(cst.stage_work(stage, PROBE_M), dtype)
+            bound = probe_bound(cst.stage_work(stage, PROBE_M), dtype, tensor_cores=True)
+            attrs = probes.stage_kernel_attributes(kstage, True, dtype)
+            w_l2 = probes.stage_w_l2_bytes(1, PROBE_M, dtype) if kstage == "reduce" else 0
             rel = err / terms
             print(f"probe_stage_fwd tile-sum {stage} {dt} M={PROBE_M}: |kernel - plain| = {err:.4e} "
                   f"({rel:.3e} of sum |terms| {terms:.4e}, bound {PROBE_SCALAR_RTOL[dtype]:g}"
@@ -4308,14 +4317,17 @@ def probe_stage_cases(card, dev) -> dict:
                   + f"; two calls bitwise equal: {same}; kernel_ms={ms:.4f} (device, one call with its host "
                   f"time {call_ms:.4f}) plain_ms={plain_ms:.4f} bound_ms={bound['bound_ms']:.4f} ({bound['bound_by']})"
                   + (f"; torch.matmul {dt} for the weight contraction {lib_ms:.4f} ms" if lib_ms else "")
-                  + f" [{card}]", flush=True)
+                  + f"; {attrs['registers']} registers, {attrs['local_bytes']} local bytes, "
+                  f"{attrs['dynamic_smem']} bytes of shared memory, {attrs['blocks_per_sm']} block(s) an SM"
+                  + (f"; W read from L2 {w_l2 / 2**30:.3f} GiB" if w_l2 else "") + f" [{card}]", flush=True)
             fwd_ok = fwd_err is None or (within(fwd_err, dtype, KERNEL_RTOL)
                                          and (fwd_control is None or tells_apart(fwd_err[2], fwd_control)))
             if not (bool(torch.isfinite(got)) and same and rel <= PROBE_SCALAR_RTOL[dtype]
                     and (control is None or tells_apart(rel, control)) and fwd_ok):
                 raise SystemExit(f"phase 32: the staged forward disagrees with its plain version at {stage} {dt}")
             cases[dt][stage] = dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms, max_abs_err=err, rel_err=rel, terms=terms,
-                                    control_rel_err=control, library_ms=lib_ms, **bound)
+                                    control_rel_err=control, library_ms=lib_ms, attributes=attrs,
+                                    w_l2_bytes=w_l2, **bound)
             if fwd_err is not None:
                 cases[dt][stage].update(out_max_abs_err=fwd_err[0], out_max_rel_err=fwd_err[1],
                                         out_mean_rel_err=fwd_err[2], out_control_mean_rel_err=fwd_control)
@@ -4359,9 +4371,9 @@ def probe_bisect_cases(card, dev) -> dict:
         if name in kstage:  # the stage's inputs read once (bias too), its tensor written once
             work = probes.stage_work(kstage[name], bf.MP, bf.GD, got.numel())
             work["bytes"] += 4.0 * bf.GQ
-        elif name == "b3_dw2_contract11":
+        elif name == "b3_dw2_contract11":  # on tensor cores, 3xTF32
             gq, r, c = inputs[0].shape
-            work = {"fma_flops": 2.0 * gq * r * c * inputs[1].shape[2], "bytes": 4.0 * (nin + got.numel())}
+            work = {"product_flops": 2.0 * gq * r * c * inputs[1].shape[2], "bytes": 4.0 * (nin + got.numel())}
         else:  # elementwise and copies: bytes
             work = {"bytes": 4.0 * (nin + got.numel())}
         bound = probe_bound(work)
@@ -4442,7 +4454,8 @@ def probe_registers(card) -> dict:
                 regs[f"{stage} tile-sum {dtype_name(dtype)}"] = probes.stage_kernel_attributes(stage, True, dtype)
     for key, a in regs.items():
         print(f"probe_stage_fwd {key}: {a['registers']} registers, {a['local_bytes']} local bytes, "
-              f"{a['dynamic_smem']} bytes of dynamic shared memory [{card}]", flush=True)
+              f"{a['dynamic_smem']} bytes of dynamic shared memory, {a['blocks_per_sm']} block(s) an SM "
+              f"[{card}]", flush=True)
     return regs
 
 
@@ -4451,9 +4464,9 @@ def run_probes(card, dev) -> dict:
     plain version, the stage split, the read rates and the registers."""
     main_path = probe_main_path(card)
     stage = probe_stage_cases(card, dev)
-    split = {dt: {s: stage[dt][s]["ms"] for s in stage[dt]} for dt in stage}
-    print(f"probe stage split (ms; each stage's time minus the one before is its cost): {split} [{card}]",
-          flush=True)
+    split = {dt: {s: (stage[dt][s]["ms"], stage[dt][s]["bound_ms"]) for s in stage[dt]} for dt in stage}
+    print(f"probe stage split ((kernel ms, bound ms); each stage's time minus the one before is its cost): "
+          f"{split} [{card}]", flush=True)
     return dict(main=main_path, stage=stage, bisect=probe_bisect_cases(card, dev),
                 stream=probe_stream_cases(card, dev), registers=probe_registers(card))
 

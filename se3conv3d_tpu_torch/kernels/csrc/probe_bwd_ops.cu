@@ -18,14 +18,21 @@
 //
 // What bounds them: bytes for b1, b2, b4 and b5 (b1 a tanh per value, the
 // rest copies and adds); b3 is 2*GQ*C*O*R FLOPs (67 MFLOP at GQ = C = O =
-// 64, R = 128) over 4 MiB of operands: a block per gq keeps a 4 x 4 tile of
-// (c, o) per thread and walks the rows in order, its operand rows read
-// from L1.  b4 runs on the TPU as a sequential grid whose output block
-// every step revisits; Hopper blocks run in parallel, so each block sums
-// its rows (column by column, in row order) into a partial row, and
-// broadcast_colsum adds the partials in block order, as the TPU grid did,
-// and writes the broadcast: no atomics, two calls give the same bits.
+// 64, R = 128) over 4 MiB of operands, so bytes too on tensor cores: each
+// block takes one 32 x 32 quadrant of one gq's output (256 blocks at GQ =
+// 64, against 132 SMs), stages 32-row slices of its operand columns in
+// shared memory with cp.async (double-buffered; rows padded to 40 floats,
+// so that the fragment reads hit 32 banks) and runs the product on
+// mma.sync in the port's 3xTF32 form, each 8-deep slice summed into a
+// zeroed tile and added by a rounded float32 add.  No sum crosses blocks:
+// two calls give the same bits.  b4 runs on the TPU as a sequential grid
+// whose output block every step revisits; Hopper blocks run in parallel,
+// so each block sums its rows (column by column, in row order) into a
+// partial row, and broadcast_colsum adds the partials in block order, as
+// the TPU grid did, and writes the broadcast: no atomics, two calls give
+// the same bits.
 
+#include "fused_equiv_common.cuh"
 #include "probe_common.cuh"
 
 namespace {
@@ -59,32 +66,74 @@ expand_groups(const float4* __restrict__ a, float4* __restrict__ out, int Q, lon
   }
 }
 
-// block gq: out[gq] [C, O] = a[gq]^T [C, R] . b[gq] [R, O]; thread tile 4 x 4
-__global__ void __launch_bounds__(kThreads)
-batched_contract(const float* __restrict__ a, const float* __restrict__ b, float* __restrict__ out,
-                 int R, int C, int O) {
-  const int gq = blockIdx.x;
+// b3 on tensor cores: block (quadrant x, gq y) owns out[gq][c0 .. c0+31][o0 ..
+// o0+31] = a[gq]^T . b[gq]; warp w of 4 the 16 x 16 at c0 + 16 (w / 2), o0 +
+// 16 (w % 2) as two m16n8k8 tiles.  Operand slices [32 rows][32 columns],
+// columns past C or O and rows past R zero-filled.
+constexpr int kB3Tile = 32, kB3Depth = 32, kB3Threads = 128, kB3Stride = kB3Tile + 8;
+
+__device__ __forceinline__ void b3_slice(float (*s)[kB3Stride], const float* __restrict__ x, int R, int W,
+                                         int col0, int r0, int tid) {
+  for (int i = tid; i < kB3Depth * kB3Tile / 4; i += kB3Threads) {
+    const int r = i / (kB3Tile / 4), c = (i % (kB3Tile / 4)) * 4;
+    const bool in = r0 + r < R && col0 + c < W;
+    cp_async16(&s[r][c], in ? x + static_cast<long long>(r0 + r) * W + col0 + c : x, in ? 16 : 0);
+  }
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+__global__ void __launch_bounds__(kB3Threads)
+batched_contract(const float* __restrict__ a, const float* __restrict__ b, float* __restrict__ out, int R,
+                 int C, int O, int tiles_o) {
+  __shared__ __align__(16) float as[2][kB3Depth][kB3Stride], bs[2][kB3Depth][kB3Stride];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, gid = lane >> 2, tig = lane & 3;
+  const int gq = blockIdx.y, c0 = (blockIdx.x / tiles_o) * kB3Tile, o0 = (blockIdx.x % tiles_o) * kB3Tile;
   const float* ag = a + static_cast<long long>(gq) * R * C;
   const float* bg = b + static_cast<long long>(gq) * R * O;
-  float* og = out + static_cast<long long>(gq) * C * O;
-  const int tc = C / 4, to = O / 4;
-  for (int t = threadIdx.x; t < tc * to; t += kThreads) {
-    const int c0 = (t / to) * 4, o0 = (t % to) * 4;
-    float acc[4][4] = {};
-    for (int m = 0; m < R; ++m) {
-      const float4 x = __ldg(reinterpret_cast<const float4*>(ag + static_cast<long long>(m) * C + c0));
-      const float4 y = __ldg(reinterpret_cast<const float4*>(bg + static_cast<long long>(m) * O + o0));
-      const float xv[4] = {x.x, x.y, x.z, x.w}, yv[4] = {y.x, y.y, y.z, y.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(xv[i], yv[j], acc[i][j]);
+  const int mc = 16 * (warp >> 1), no = 16 * (warp & 1);
+  float acc[2][4] = {};
+  const int slices = (R + kB3Depth - 1) / kB3Depth;
+  b3_slice(as[0], ag, R, C, c0, 0, tid);
+  b3_slice(bs[0], bg, R, O, o0, 0, tid);
+  for (int sl = 0; sl < slices; ++sl) {
+    const int cur = sl & 1;
+    if (sl + 1 < slices) {
+      b3_slice(as[cur ^ 1], ag, R, C, c0, (sl + 1) * kB3Depth, tid);
+      b3_slice(bs[cur ^ 1], bg, R, O, o0, (sl + 1) * kB3Depth, tid);
+      asm volatile("cp.async.wait_group 2;" ::: "memory");
+    } else {
+      asm volatile("cp.async.wait_group 0;" ::: "memory");
     }
+    __syncthreads();
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-      *reinterpret_cast<float4*>(og + static_cast<long long>(c0 + i) * O + o0) =
-          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    for (int k0 = 0; k0 < kB3Depth; k0 += 8) {
+      uint32_t ah[4], al[4];
+#pragma unroll
+      for (int v = 0; v < 4; ++v)  // A = a^T: A[c][r] = as[r][c]
+        split_tf32(as[cur][k0 + tig + 4 * (v >> 1)][mc + gid + 8 * (v & 1)], ah[v], al[v]);
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        uint32_t bh[2], bl[2];
+#pragma unroll
+        for (int v = 0; v < 2; ++v) split_tf32(bs[cur][k0 + tig + 4 * v][no + 8 * n + gid], bh[v], bl[v]);
+        float part[4] = {0.f, 0.f, 0.f, 0.f};
+        mma_tf32(part, al, bh);
+        mma_tf32(part, ah, bl);
+        mma_tf32(part, ah, bh);
+#pragma unroll
+        for (int v = 0; v < 4; ++v) acc[n][v] += part[v];
+      }
+    }
+    __syncthreads();  // the next slice's copies overwrite this buffer
   }
+  float* og = out + static_cast<long long>(gq) * C * O;
+#pragma unroll
+  for (int n = 0; n < 2; ++n)
+#pragma unroll
+    for (int v = 0; v < 4; ++v) {
+      const int c = c0 + mc + gid + 8 * (v >> 1), o = o0 + no + 8 * n + 2 * tig + (v & 1);
+      if (c < C && o < O) og[static_cast<long long>(c) * O + o] = acc[n][v];
+    }
 }
 
 // part[s, c] = sum of a[r, c] over block s's rows r in [s*rows, (s+1)*rows), in row order
@@ -144,9 +193,10 @@ extern "C" int se3_probe_expand_groups(const void* a, void* out, int G, int Q, l
 // a [GQ, R, C], b [GQ, R, O], out [GQ, C, O]
 extern "C" int se3_probe_batched_contract(const void* a, const void* b, void* out, int GQ, int R,
                                           int C, int O, void* stream_ptr) {
-  if (C % 4 != 0 || O % 4 != 0 || GQ < 1) return static_cast<int>(cudaErrorInvalidValue);
-  batched_contract<<<GQ, kThreads, 0, static_cast<cudaStream_t>(stream_ptr)>>>(
-      static_cast<const float*>(a), static_cast<const float*>(b), static_cast<float*>(out), R, C, O);
+  if (C % 4 != 0 || O % 4 != 0 || GQ < 1 || R < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int tiles_c = (C + kB3Tile - 1) / kB3Tile, tiles_o = (O + kB3Tile - 1) / kB3Tile;
+  batched_contract<<<dim3(tiles_c * tiles_o, GQ), kB3Threads, 0, static_cast<cudaStream_t>(stream_ptr)>>>(
+      static_cast<const float*>(a), static_cast<const float*>(b), static_cast<float*>(out), R, C, O, tiles_o);
   return static_cast<int>(cudaGetLastError());
 }
 

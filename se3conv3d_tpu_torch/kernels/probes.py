@@ -23,8 +23,11 @@ basis functions and C = O = 64 channels, with D = 18 or 19 pne inputs::
 and stops after one of :data:`STAGES`.  :func:`stage_forward` returns the
 stage's whole tensor (``bisect_fused``'s probes; a leading batch gives
 s6); :func:`stage_sum` returns the sum of the stage's values, the kernel
-adding one partial per block of 16 rows in a fixed order, so that the
-stage's intermediate never reaches HBM (``chip_stage_time``'s probes).
+summing each tile of :data:`STAGE_ROWS` rows into one partial and adding
+the partials in tile order, so that the stage's intermediate never
+reaches HBM (``chip_stage_time``'s probes; a persistent block per SM
+walks the tiles, with every product on tensor cores and W streamed
+through shared memory, see the source).
 With ``cdt=torch.bfloat16`` values are rounded to bfloat16 where the JAX
 script casts (``CDT=bf16``): geo and proj before the first product, pne
 before the aggregation, feat, basis_b before the weight product, and W;
@@ -70,7 +73,7 @@ __all__ = [
     "STAGES", "STAGE_E", "STAGE_G", "STAGE_Q", "STAGE_C", "STAGE_O", "STAGE_MAX_D",
     "gelu_tanh", "gelu_tanh_grad",
     "stage_forward", "stage_forward_reference", "stage_sum", "stage_sum_reference",
-    "stage_work", "stage_kernel_attributes",
+    "stage_work", "stage_kernel_attributes", "STAGE_ROWS", "stage_tiles", "stage_w_l2_bytes",
     "gelu_jvp", "gelu_jvp_reference", "expand_groups", "expand_groups_reference",
     "batched_contract", "batched_contract_reference", "rank3_accum", "rank3_accum_reference",
     "merge_back", "merge_back_reference", "column_sums", "column_sums_reference",
@@ -86,6 +89,9 @@ _TENSOR, _TILE_SUM = 0, 1
 STAGE_E, STAGE_G, STAGE_Q, STAGE_C, STAGE_O = 32, 2, 32, 64, 64
 STAGE_GQ = STAGE_G * STAGE_Q
 STAGE_MAX_D = 19
+# query rows a block of the whole-tensor mode and a tile of the tile-sum
+# mode hold (csrc/probe_stage_fwd.cu's kRows): M must be a multiple
+STAGE_ROWS = 16
 _SQRT_2_OVER_PI = math.sqrt(2.0 / math.pi)
 _GELU_CUBIC = 0.044715
 
@@ -163,7 +169,7 @@ def _stage_shapes(geo, feat, proj, w, bias):
     feat4 = feat if feat.dim() == 4 else feat[None]
     b, m, e, c = feat4.shape
     d = geo3.shape[2]
-    rows = library("probe_stage").se3_probe_stage_rows()
+    rows = STAGE_ROWS
     if (e, c) != (STAGE_E, STAGE_C) or geo3.shape[:2] != (b, m * e) or m % rows or not 1 <= d <= STAGE_MAX_D:
         raise ValueError(f"the kernel takes E = {STAGE_E}, C = {STAGE_C}, D <= {STAGE_MAX_D} and M a "
                          f"multiple of {rows}; got geo {tuple(geo.shape)}, feat {tuple(feat.shape)}")
@@ -175,13 +181,13 @@ def _stage_shapes(geo, feat, proj, w, bias):
     return b, m, d, rows
 
 
-def _stage_launch(geo, feat, proj, w, bias, out, part, total, b, m, d, stage, mode, cdt) -> None:
+def _stage_launch(geo, feat, proj, w, bias, out, part, total, b, m, d, stage, mode, cdt, wimg=None) -> None:
     lib = library("probe_stage")
     stream = torch.cuda.current_stream(geo.device)
     ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
     with torch.cuda.device(geo.device):
         err = lib.se3_probe_stage_fwd(geo.data_ptr(), feat.data_ptr(), proj.data_ptr(), ptr(bias),
-                                      w.data_ptr(), ptr(out), ptr(part), ptr(total), b, m, d,
+                                      w.data_ptr(), ptr(wimg), ptr(out), ptr(part), ptr(total), b, m, d,
                                       STAGES[stage], mode, int(cdt == torch.bfloat16), stream.cuda_stream)
     if err != 0:
         raise RuntimeError(f"probe_stage_fwd kernel ({stage}) launch failed: CUDA error {err}")
@@ -220,8 +226,9 @@ def stage_sum(geo, feat, proj, w, stage="reduce", cdt=torch.float32, out=None) -
     """The sum of the staged forward's values at ``stage`` (0-d float32),
     float32 or bfloat16 compute (``cdt``) on float32 operands, no bias.
     CPU tensors run :func:`stage_sum_reference`; CUDA tensors launch
-    ``csrc/probe_stage_fwd.cu`` in its tile-sum mode, then add the blocks'
-    partial sums in a fixed order.  The 'reduce' stage also writes the
+    ``csrc/probe_stage_fwd.cu`` in its tile-sum mode (for 'reduce' after
+    the W image, a relayout of W into the kernel's shared-memory slices),
+    then add the tiles' partial sums in tile order.  The 'reduce' stage also writes the
     forward's output ``[G, M, O]`` (``[B, G, M, O]`` with a batch), as the
     JAX script's does: into ``out`` where given (contiguous float32 on the
     operands' device), else into a tensor of its own."""
@@ -247,9 +254,11 @@ def stage_sum(geo, feat, proj, w, stage="reduce", cdt=torch.float32, out=None) -
               or out.numel() != math.prod(shape)):
             raise ValueError(f"out must be a contiguous float32 tensor of {shape[1:] if geo.dim() == 2 else shape} "
                              f"on {dev}, got {tuple(out.shape)} {out.dtype} on {out.device}")
-    part = torch.empty(b * m // rows, dtype=torch.float32, device=dev)
+    part = torch.empty(stage_tiles(b, m), dtype=torch.float32, device=dev)
     total = torch.empty((), dtype=torch.float32, device=dev)
-    _stage_launch(geo, feat, proj, w, None, out, part, total, b, m, d, stage, _TILE_SUM, cdt)
+    wimg = (torch.empty(STAGE_GQ * STAGE_C * STAGE_O, dtype=torch.float32, device=dev)
+            if stage == "reduce" else None)
+    _stage_launch(geo, feat, proj, w, None, out, part, total, b, m, d, stage, _TILE_SUM, cdt, wimg)
     key = (stage, "bfloat16" if cdt == torch.bfloat16 else "float32")
     stage_sum.launches += 1
     stage_sum.launches_by[key] = stage_sum.launches_by.get(key, 0) + 1
@@ -275,19 +284,39 @@ def stage_work(stage: str, m: int, d: int, written: int = 0) -> dict:
     return {"fma_flops": fma, "product_flops": product, "bytes": nbytes}
 
 
+def stage_tiles(b: int, m: int) -> int:
+    """The tile-sum mode's tiles of :data:`STAGE_ROWS` rows over ``b``
+    batches of ``m`` rows (rows batch-flat; M a multiple of the tile, so no
+    tile is partial), one partial sum each, indexed by the tile whichever
+    block ran it and added in tile order."""
+    if m % STAGE_ROWS:
+        raise ValueError(f"M must be a multiple of {STAGE_ROWS}, got {m}")
+    return b * m // STAGE_ROWS
+
+
+def stage_w_l2_bytes(b: int, m: int, cdt=torch.float32) -> int:
+    """Bytes of W the tile-sum forward reads from L2 at ``b`` x ``m`` rows:
+    every tile streams the whole W image (float32, or bfloat16 rounded)
+    through its shared memory once, shared by the tile's rows."""
+    return stage_tiles(b, m) * STAGE_GQ * STAGE_C * STAGE_O * (2 if cdt == torch.bfloat16 else 4)
+
+
 def stage_kernel_attributes(stage: str, tile_sum: bool, cdt=torch.float32) -> dict:
-    """Registers, local (stack and spill) bytes and shared memory of one
-    instantiation of the staged forward (``cudaFuncGetAttributes``; needs
-    the card): whole-tensor mode in float32 with the bias, or tile-sum mode
-    in ``cdt`` without it."""
-    attrs = (ctypes.c_int * 4)()
+    """Registers, local (stack and spill) bytes, shared memory and blocks
+    an SM of one instantiation of the staged forward
+    (``cudaFuncGetAttributes``, ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``;
+    needs the card): whole-tensor mode in float32 with the bias, or
+    tile-sum mode in ``cdt`` without it, whose persistent grid is at most
+    ``grid_blocks`` (blocks an SM times the SMs; 0 in whole-tensor mode)."""
+    attrs = (ctypes.c_int * 6)()
     err = library("probe_stage").se3_probe_stage_attrs(
         STAGES[stage], _TILE_SUM if tile_sum else _TENSOR, int(cdt == torch.bfloat16),
         ctypes.cast(attrs, ctypes.c_void_p))
     if err != 0:
         raise RuntimeError(f"probe_stage_fwd has no instantiation for {stage} tile_sum={tile_sum} "
                            f"{cdt}: CUDA error {err}")
-    return {"registers": attrs[0], "local_bytes": attrs[1], "static_smem": attrs[2], "dynamic_smem": attrs[3]}
+    return {"registers": attrs[0], "local_bytes": attrs[1], "static_smem": attrs[2], "dynamic_smem": attrs[3],
+            "blocks_per_sm": attrs[4], "grid_blocks": attrs[5]}
 
 
 stage_forward.launches = 0

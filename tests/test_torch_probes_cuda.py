@@ -14,6 +14,10 @@ output of the tile-sum mode is also held value by value: float32 within
 ``1e-5 * max |plain|``, bfloat16 within ``1e-2`` (max) and ``1e-4`` (mean)
 of ``max |plain|`` and its mean error at most half its control's, as the
 conv kernels' card tests.  The fixed-order sums give the same bits twice.
+The tile-sum kernel is also held at ``chip_stage_time``'s M = 65,536 and at
+M = 65,536 + 48 (a multiple of its 16-row tile, not of 64), and b3 on
+tensor cores against its plain version and ``torch.bmm`` within ``1e-5 *
+max |plain|`` (3xTF32), bitwise equal twice.
 """
 import pytest
 import torch
@@ -44,8 +48,21 @@ def test_bisect_probe_kernel_matches_plain(name):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("stage", list(chip_stage_time.STAGES))
 def test_stage_sum_kernel_matches_plain(stage, dtype):
+    _check_stage_sum(stage, dtype, 2048)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [65536, 65536 + 48])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("stage", list(chip_stage_time.STAGES))
+def test_stage_sum_kernel_matches_plain_at_bench_sizes(stage, dtype, m):
+    _check_stage_sum(stage, dtype, m)
+    torch.cuda.empty_cache()
+
+
+def _check_stage_sum(stage, dtype, m):
     _needs_card()
-    args = chip_stage_time.make_inputs(2048, 5, "cuda")
+    args = chip_stage_time.make_inputs(m, 5, "cuda")
     kstage = chip_stage_time.STAGES[stage]
     got = probes.stage_sum(*args, stage=kstage, cdt=dtype)
     again = probes.stage_sum(*args, stage=kstage, cdt=dtype)
@@ -59,7 +76,7 @@ def test_stage_sum_kernel_matches_plain(stage, dtype):
         control = abs(float(got) - float(probes.stage_sum_reference(*args, stage=kstage))) / terms
         assert err <= 0.5 * control
     if kstage == "reduce":  # the [G, M, O] output the tile-sum mode writes, each value
-        out = torch.empty(chip_stage_time.G, 2048, chip_stage_time.O, device="cuda")
+        out = torch.empty(chip_stage_time.G, m, chip_stage_time.O, device="cuda")
         assert torch.equal(probes.stage_sum(*args, stage=kstage, cdt=dtype, out=out), got)
         ref_t = probes.stage_forward_reference(*args[:3], args[3], None, kstage, dtype)
         diff = (out - ref_t).abs()
@@ -87,6 +104,21 @@ def test_column_sums_kernel_matches_plain(width):
 
 
 @pytest.mark.cuda
+def test_batched_contract_on_tensor_cores_matches_plain_and_bmm():
+    _needs_card()
+    a, b = bisect_fused.draw("b3_dw2_contract11", 8, "cuda")
+    got, again = probes.batched_contract(a, b), probes.batched_contract(a, b)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    for ref in (probes.batched_contract_reference(a, b), torch.bmm(a.transpose(1, 2), b)):
+        assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+    # a shape that is not a multiple of the 32 x 32 quadrant or the 32-row slice
+    a, b = a[:3, :77, :36].contiguous(), b[:3, :77, :20].contiguous()
+    ref = probes.batched_contract_reference(a, b)
+    assert float((probes.batched_contract(a, b) - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+@pytest.mark.cuda
 def test_rank3_accum_kernel_repeats_its_bits():
     _needs_card()
     (a,) = bisect_fused.draw("b4_rank3_accum", 4, "cuda")
@@ -105,10 +137,22 @@ def test_stage_forward_kernel_takes_a_bias():
 
 @pytest.mark.cuda
 def test_stage_kernel_attributes():
+    """The whole-tensor kernel as before; the tile-sum kernel: one
+    persistent block of 384 threads an SM (the W ring, the basis blocks,
+    the feat ring and the tile's pne in shared memory: 230,592 bytes in
+    float32, 206,112 in bfloat16), at most 168 registers a thread at
+    launch (65,536 over 384 threads; the consumers take 232 of them with
+    setmaxnreg), at most 16 local bytes (ptxas spills 8-16 bytes in the
+    float32 instantiations, none in bfloat16), and a grid of every SM's
+    block."""
     _needs_card()
     for stage in probes.STAGES:
         attrs = probes.stage_kernel_attributes(stage, False)
         assert 0 < attrs["registers"] <= 255 and attrs["dynamic_smem"] > 0
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for stage in ("pne", "agg", "swap", "reduce"):
         for dtype in (torch.float32, torch.bfloat16):
-            assert probes.stage_kernel_attributes(stage, True, dtype)["registers"] > 0
+            attrs = probes.stage_kernel_attributes(stage, True, dtype)
+            assert 0 < attrs["registers"] <= 168 and attrs["local_bytes"] <= 16
+            assert attrs["dynamic_smem"] == (230592 if dtype == torch.float32 else 206112)
+            assert attrs["blocks_per_sm"] == 1 and attrs["grid_blocks"] == sms
