@@ -37,7 +37,8 @@ SHAPES = ((GD, GQ), (1, GQ), (GQ, C, O))
 # a total against the float64 one, over sum |a|: float32 sums in other
 # orders read about 1e-10, planted_totals' 6e-8 or more (PERF.md)
 SUM_RTOL = 1e-9
-# values in one chunk partial of csrc/probe_accum.cu (its kChunk)
+# values in one chunk of planted_totals' wrong totals: chunk sums rounded
+# to bfloat16, or one chunk left out, must fail check_accum
 CHUNK = 16384
 # name: (grid_n, n_accum, with_dfeat), in the JAX script's order
 TRIALS = {f"grid{gn}_accum3_dfeat": (gn, 3, True) for gn in (16, 32, 64)}

@@ -69,15 +69,16 @@ _SIGNATURES = {
                   ("se3_probe_scale2", [_P, _P, _L, _P], _I)],
     "probe_stream": [("se3_probe_column_sums", [_P, _L, _I, _P, _P, _P], _I),
                      ("se3_probe_stream_blocks", [], _I)],
-    "probe_accum": [("se3_probe_accum_parts", [_L], _L),
-                    ("se3_probe_block_total_accum", [_P, _L, _P, _P] + [_P, _L] * 3 + [_P], _I),
+    "probe_accum": [("se3_probe_accum_blocks", [], _I),
+                    ("se3_probe_block_total_accum", [_P, _L, _P, _P, _I, _L] + [_P, _L] * 3 + [_P], _I),
                     ("se3_probe_grid_column_accum", [_P, _I, _I, _I, _P, _P, _P], _I),
                     ("se3_probe_accum_attrs", [_I, _P], _I)],
     "probe_cellconv": [("se3_probe_gather_blocks", [_P, _I, _P, _I, _L, _F, _P, _P], _I),
                        ("se3_probe_gather_sum_blocks", [_P, _I, _I, _P, _I, _L, _P, _P], _I),
                        ("se3_probe_masked_dist_product", [_P, _I, _I, _P, _I, _I, _P, _I, _P, _P, _P], _I),
                        ("se3_probe_cellconv_attrs", [_I, _P], _I)],
-    "probe_mosaic": [("se3_probe_strided_product", [_P, _P, _I] + [_L] * 6 + [_I] * 6 + [_P] * 3, _I),
+    "probe_mosaic": [("se3_probe_strided_product", [_P, _P, _I] + [_L] * 6 + [_I] * 14 + [_P] * 2, _I),
+                     ("se3_probe_product_attrs", [_I] * 5 + [_P], _I),
                      ("se3_probe_strided_copy", [_P] + [_L] * 8 + [_P, _P], _I),
                      ("se3_probe_blockdiag_build", [_P, _I, _I, _I, _P, _P], _I),
                      ("se3_probe_mid_write", [_P, _I, _I, _I, _P, _P], _I),

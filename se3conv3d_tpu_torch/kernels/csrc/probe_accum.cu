@@ -15,85 +15,125 @@
 // experiments/probe_mosaic.py:218 (p11_grid_accum: the column sum of
 // [1024, 32] over 8 blocks of 128 rows into one revisited [1, 32]).  Each
 // checked whether Mosaic lowered an output block that every grid step
-// revisits.  See se3conv3d_tpu_torch/kernels/probes.py for the wrappers and
-// the plain PyTorch versions.
+// revisits.  See se3conv3d_tpu_torch/kernels/probes.py for the wrappers, the
+// plain PyTorch versions, the share plan (accum_plan) and the kernel's
+// summation order written out in PyTorch (block_total_in_kernel_order).
 //
 // What bounds them: bytes.  block_total_accum at grid 64 reads a (67.1 MB)
-// once and writes dfeat (67.1 MB) and the three outputs (1.1 MB): 0.041 ms
+// once and writes dfeat (67.1 MB) and the three outputs (1.1 MB): 0.040 ms
 // at 3.35 TB/s, 0.020 ms without dfeat.  grid_column_accum moves 128 KB and
 // is bound by launch latency.  On the TPU the grid ran in order, so the
 // revisited output carried a running sum; Hopper blocks run in parallel, in
-// no order.  So, as probe_bwd_ops.cu's b4: one pass reads each value once
-// with 16-byte loads (and writes 2a in the same pass), each block of 256
-// threads summing a chunk of kChunk values into one partial; a second pass
-// adds the partials in a fixed order (sum_partials' order: thread t the
-// partials t, t + 256, ..., then block_sum) in every block and broadcasts
-// the total into the outputs.  No atomics: two calls give the same bits.
-// The column form keeps the TPU's order exactly: each block sums its rows
-// column by column in row order, and sum_rows_ordered adds the blocks'
-// rows in block order from zero, as the grid's += did.
+// no order.  block_total_accum is one pass in one launch: a persistent grid
+// of as many blocks as fit the card at once (at most kMaxBlocksPerSM an SM,
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor), launched cooperatively.
+// Each block streams one contiguous share of a, each thread kUnroll
+// 16-byte loads in flight (the bounds test out of the main loop), writes
+// 2a with streaming stores in the same pass, and sums its values into one
+// float32 run (at most a few hundred values), then the block's runs by a
+// fixed tree (block_sum) into its partial.  One grid-wide step
+// (cooperative_groups' grid.sync) follows; then every block adds all the
+// partials in the same fixed order (thread t the partials t, t + 512, ...,
+// then block_sum), so each gets the same bits of the total, and writes its
+// share of the outputs.  No atomics on data, no counter of our own: two
+// calls give the same bits.  The cooperative launch was kept over a
+// programmatic dependent pair (a second kernel waiting in
+// cudaGridDependencySynchronize) because it is one launch and captures into
+// a CUDA graph (chip_smoke.graph_ms times through one).  The column form
+// keeps the TPU's order exactly: each block sums its rows column by column in
+// row order, and sum_rows_ordered adds the blocks' rows in block order from
+// zero, as the grid's += did.
 
 #include <stdint.h>
 
 #include "probe_common.cuh"
 
+#include <cooperative_groups.h>
+
+namespace cg = cooperative_groups;
+
 namespace {
 
 constexpr int kThreads = 256;
-// values a block of chunk_totals sums: 16 float4 loads a thread
-constexpr int kChunk = 16384;
+// block_total_accum: threads a block, float4 loads a thread in flight,
+// blocks an SM at most (every block reads every partial after the grid
+// step, so the grid stays a few hundred blocks)
+constexpr int kAccThreads = 512;
+constexpr int kUnroll = 8;
+constexpr int kMaxBlocksPerSM = 2;
 constexpr int kMaxOuts = 3;
-
-// part[b] = the sum of a's b-th chunk of kChunk values (the last may be
-// short): each thread its float4s in order, then block_sum; dfeat, where
-// not null, = 2a.
-__global__ void __launch_bounds__(kThreads)
-chunk_totals(const float4* __restrict__ a, long long n4, float4* __restrict__ dfeat,
-             float* __restrict__ part) {
-  __shared__ float red[32];
-  const long long base = static_cast<long long>(blockIdx.x) * (kChunk / 4);
-  float s = 0.f;
-#pragma unroll 4
-  for (int u = 0; u < kChunk / 4 / kThreads; ++u) {
-    const long long i = base + u * kThreads + threadIdx.x;
-    if (i < n4) {
-      const float4 v = __ldcs(a + i);
-      if (dfeat != nullptr) __stcs(dfeat + i, make_float4(2.f * v.x, 2.f * v.y, 2.f * v.z, 2.f * v.w));
-      s += (v.x + v.y) + (v.z + v.w);
-    }
-  }
-  s = block_sum(s, red);
-  if (threadIdx.x == 0) part[blockIdx.x] = s;
-}
 
 struct Outs {
   float* ptr[kMaxOuts];
   long long n[kMaxOuts];
 };
 
-// every element of every output = the sum of part[0..P) in a fixed order,
-// the same in every block
-__global__ void __launch_bounds__(kThreads)
-broadcast_total(const float* __restrict__ part, int P, Outs outs, long long n_all) {
+__device__ __forceinline__ float quad_sum(float4 v) { return (v.x + v.y) + (v.z + v.w); }
+
+// Every element of outs[k] = t: float4 stores where the output's length
+// allows, this block's share of a grid-strided walk.
+__device__ __forceinline__ void fill_output(float* o, long long n, float t) {
+  const long long n4 = n / 4, stride = static_cast<long long>(gridDim.x) * kAccThreads;
+  const float4 t4 = make_float4(t, t, t, t);
+  for (long long j = blockIdx.x * static_cast<long long>(kAccThreads) + threadIdx.x; j < n4; j += stride)
+    reinterpret_cast<float4*>(o)[j] = t4;
+  for (long long j = 4 * n4 + blockIdx.x * static_cast<long long>(kAccThreads) + threadIdx.x; j < n; j += stride)
+    o[j] = t;
+}
+
+// Block b sums a's float4s [b*per, (b+1)*per) (clipped to n4): thread t the
+// float4s b*per + t + j*kAccThreads, j = 0, 1, ..., into one run s +=
+// (x + y) + (z + w), then block_sum into part[b]; dfeat = 2a on the way.
+// Rounds of kUnroll loads a thread, all issued before the first is used;
+// the bounds test only in the last, partial round.
+// After grid.sync every block adds part[0..gridDim.x) in a fixed order and
+// fills the outputs (skipped, with the grid step, where there are none).
+template <bool kDfeat>
+__global__ void __launch_bounds__(kAccThreads)
+block_total_accum(const float4* __restrict__ a, long long n4, long long per, float4* __restrict__ dfeat,
+                  float* __restrict__ part, Outs outs) {
   __shared__ float red[32];
   __shared__ float total;
+  const long long beg = min(n4, blockIdx.x * per), end = min(n4, beg + per);
   float s = 0.f;
-  for (int p = threadIdx.x; p < P; p += kThreads) s += part[p];
-  s = block_sum(s, red);
-  if (threadIdx.x == 0) total = s;
-  __syncthreads();
-  const float t = total;
-  for (long long i = blockIdx.x * static_cast<long long>(kThreads) + threadIdx.x; i < n_all;
-       i += static_cast<long long>(gridDim.x) * kThreads) {
-    // the output that element i falls in, by selects (an index into the
-    // parameter struct would copy it to local memory)
-    if (i < outs.n[0])
-      outs.ptr[0][i] = t;
-    else if (i < outs.n[0] + outs.n[1])
-      outs.ptr[1][i - outs.n[0]] = t;
-    else
-      outs.ptr[2][i - outs.n[0] - outs.n[1]] = t;
+  long long i = beg + threadIdx.x;
+  for (; i + (kUnroll - 1) * kAccThreads < end; i += kUnroll * kAccThreads) {
+    float4 v[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) v[u] = __ldcs(a + i + u * kAccThreads);
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      if (kDfeat)
+        __stcs(dfeat + i + u * kAccThreads, make_float4(2.f * v[u].x, 2.f * v[u].y, 2.f * v[u].z, 2.f * v[u].w));
+      s += quad_sum(v[u]);
+    }
   }
+  if (i < end) {  // the last, partial round: its loads issued together, as the full rounds' are
+    float4 v[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u)
+      if (i + u * kAccThreads < end) v[u] = __ldcs(a + i + u * kAccThreads);
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      if (i + u * kAccThreads >= end) break;
+      if (kDfeat)
+        __stcs(dfeat + i + u * kAccThreads, make_float4(2.f * v[u].x, 2.f * v[u].y, 2.f * v[u].z, 2.f * v[u].w));
+      s += quad_sum(v[u]);
+    }
+  }
+  if (outs.n[0] + outs.n[1] + outs.n[2] == 0) return;  // dfeat alone: no total to broadcast
+  s = block_sum(s, red);
+  if (threadIdx.x == 0) part[blockIdx.x] = s;
+  cg::this_grid().sync();
+  float t = 0.f;
+  for (int q = threadIdx.x; q < static_cast<int>(gridDim.x); q += kAccThreads) t += __ldcg(part + q);
+  __syncthreads();  // red is free again
+  t = block_sum(t, red);
+  if (threadIdx.x == 0) total = t;
+  __syncthreads();
+  const float tot = total;
+#pragma unroll
+  for (int k = 0; k < kMaxOuts; ++k) fill_output(outs.ptr[k], outs.n[k], tot);
 }
 
 // part[s, c] = sum of a[r, c] over block s's rows r in [s*rows, (s+1)*rows), in row order
@@ -114,32 +154,58 @@ inline unsigned blocks_for(long long n, long long per_block, long long cap) {
 
 }  // namespace
 
-// Partials block_total_accum needs for n values: part holds this many floats.
-extern "C" long long se3_probe_accum_parts(long long n) { return (n + kChunk - 1) / kChunk; }
+// The persistent grid of block_total_accum on the current device: the
+// blocks of either instantiation that fit an SM at once, at most
+// kMaxBlocksPerSM, times the SMs; a negative CUDA error on failure.
+extern "C" int se3_probe_accum_blocks() {
+  int dev = 0, sms = 0, occ = 0, occ_dfeat = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, block_total_accum<false>, kAccThreads, 0);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ_dfeat, block_total_accum<true>, kAccThreads, 0);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  if (occ_dfeat < occ) occ = occ_dfeat;
+  if (occ > kMaxBlocksPerSM) occ = kMaxBlocksPerSM;
+  return occ < 1 ? -static_cast<int>(cudaErrorInvalidConfiguration) : occ * sms;
+}
 
 // a [n] float32, 16-byte aligned, n a multiple of 4; dfeat [n] or null;
-// part [se3_probe_accum_parts(n)] scratch; out_k [n_k] for k < 3, null
-// with n_k = 0 where absent.
-extern "C" int se3_probe_block_total_accum(const void* a, long long n, void* dfeat, void* part,
-                                           void* out0, long long n0, void* out1, long long n1,
+// part [blocks] scratch; block b streams a's float4s [b*per, (b+1)*per)
+// (probes.accum_plan; blocks at most se3_probe_accum_blocks()); out_k
+// [n_k] for k < 3, 16-byte aligned, null with n_k = 0 where absent.  One
+// cooperative launch.
+extern "C" int se3_probe_block_total_accum(const void* a, long long n, void* dfeat, void* part, int blocks,
+                                           long long per, void* out0, long long n0, void* out1, long long n1,
                                            void* out2, long long n2, void* stream_ptr) {
-  if (n < 4 || n % 4 != 0 || reinterpret_cast<uintptr_t>(a) % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(dfeat) % 16 != 0 || n0 < 0 || n1 < 0 || n2 < 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const long long parts = se3_probe_accum_parts(n);
-  if (parts > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const void* outs_p[kMaxOuts] = {out0, out1, out2};
+  const long long outs_n[kMaxOuts] = {n0, n1, n2};
+  bool ok = n >= 4 && n % 4 == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
+            reinterpret_cast<uintptr_t>(dfeat) % 16 == 0 && part != nullptr && blocks >= 1 && per >= 1 &&
+            per * blocks >= n / 4;
+  for (int k = 0; k < kMaxOuts; ++k)
+    ok = ok && outs_n[k] >= 0 && (outs_n[k] == 0 || (outs_p[k] != nullptr &&
+                                                     reinterpret_cast<uintptr_t>(outs_p[k]) % 16 == 0));
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  const Outs outs{{static_cast<float*>(out0), static_cast<float*>(out1), static_cast<float*>(out2)}, {n0, n1, n2}};
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(kAccThreads);
+  cfg.stream = static_cast<cudaStream_t>(stream_ptr);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const float4* a4 = static_cast<const float4*>(a);
   float* p = static_cast<float*>(part);
-  chunk_totals<<<static_cast<unsigned>(parts), kThreads, 0, stream>>>(
-      static_cast<const float4*>(a), n / 4, static_cast<float4*>(dfeat), p);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long n_all = n0 + n1 + n2;
-  if (n_all == 0) return 0;
-  Outs outs{{static_cast<float*>(out0), static_cast<float*>(out1), static_cast<float*>(out2)}, {n0, n1, n2}};
-  broadcast_total<<<blocks_for(n_all, 4LL * kThreads, 1024), kThreads, 0, stream>>>(
-      p, static_cast<int>(parts), outs, n_all);
-  return static_cast<int>(cudaGetLastError());
+  const cudaError_t err =
+      dfeat != nullptr
+          ? cudaLaunchKernelEx(&cfg, block_total_accum<true>, a4, n / 4, per, static_cast<float4*>(dfeat), p, outs)
+          : cudaLaunchKernelEx(&cfg, block_total_accum<false>, a4, n / 4, per, static_cast<float4*>(nullptr), p,
+                               outs);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 // a [S*rows, C] float32, part [S, C] scratch, out [C]
@@ -156,12 +222,13 @@ extern "C" int se3_probe_grid_column_accum(const void* a, int S, int rows, int C
   return static_cast<int>(cudaGetLastError());
 }
 
-// attrs[0..3] of kernel `which`: 0 chunk_totals, 1 broadcast_total,
-// 2 block_column_sums, 3 sum_rows_ordered (probe_common.cuh: kernel_attrs).
+// attrs[0..3] of kernel `which`: 0 block_total_accum<dfeat>, 1
+// block_total_accum, 2 block_column_sums, 3 sum_rows_ordered
+// (probe_common.cuh: kernel_attrs).
 extern "C" int se3_probe_accum_attrs(int which, int* attrs) {
   switch (which) {
-    case 0: return kernel_attrs(chunk_totals, 0, attrs);
-    case 1: return kernel_attrs(broadcast_total, 0, attrs);
+    case 0: return kernel_attrs(block_total_accum<true>, 0, attrs);
+    case 1: return kernel_attrs(block_total_accum<false>, 0, attrs);
     case 2: return kernel_attrs(block_column_sums, 0, attrs);
     case 3: return kernel_attrs(sum_rows_ordered, 0, attrs);
     default: return static_cast<int>(cudaErrorInvalidValue);

@@ -78,7 +78,8 @@ __all__ = [
     "batched_contract", "batched_contract_reference", "rank3_accum", "rank3_accum_reference",
     "merge_back", "merge_back_reference", "column_sums", "column_sums_reference",
     "accum_tag", "block_total_accum", "block_total_accum_reference", "grid_column_accum",
-    "grid_column_accum_reference", "TM", "ACCUM_KERNELS", "kernel_attributes", "accum_kernel_attributes",
+    "grid_column_accum_reference", "TM", "ACCUM_KERNELS", "ACCUM_THREADS", "accum_plan", "accum_blocks",
+    "block_total_in_kernel_order", "kernel_attributes", "accum_kernel_attributes",
 ]
 
 # the stages by their codes in the kernel (csrc Stage); "reduce" is the whole forward
@@ -487,10 +488,15 @@ column_sums.launches_by = {}
 # --- the accumulators into a revisited output -------------------------------------
 
 # the kernels of csrc/probe_accum.cu by their index in se3_probe_accum_attrs
-ACCUM_KERNELS = ("chunk_totals", "broadcast_total", "block_column_sums", "sum_rows_ordered")
+ACCUM_KERNELS = ("block_total_accum<dfeat>", "block_total_accum", "block_column_sums", "sum_rows_ordered")
 _MAX_ACCUM_OUTS = 3
 # rows of a's leading dimension in one TPU grid block, in every accumulator probe
 TM = 128
+# block_total_accum's threads a block (csrc/probe_accum.cu: kAccThreads)
+ACCUM_THREADS = 512
+# a block's share of a starts on a 128-byte line: a multiple of 8 float4s
+_SHARE_ALIGN = 8
+_accum_blocks = {}
 
 
 def accum_tag(shapes, with_dfeat: bool) -> str:
@@ -510,6 +516,74 @@ def block_total_accum_reference(a: torch.Tensor, shapes, with_dfeat: bool = True
     return ([a * 2.0] if with_dfeat else []) + outs
 
 
+def accum_plan(n: int, blocks: int) -> dict:
+    """How :func:`block_total_accum`'s persistent grid of ``blocks`` blocks
+    splits ``a``'s ``n`` values (``n % 4 == 0``): ``per`` float4s a block
+    (a multiple of 8, so each share starts on a 128-byte line), block b
+    streaming ``[b * per, (b + 1) * per)`` clipped to ``n / 4`` (``shares``;
+    the last may be short, later ones empty)."""
+    if n < 4 or n % 4 or blocks < 1:
+        raise ValueError(f"n must be a positive multiple of 4 and blocks positive, got {n} and {blocks}")
+    n4 = n // 4
+    per = -(-n4 // blocks)
+    per = -(-per // _SHARE_ALIGN) * _SHARE_ALIGN
+    return {"blocks": blocks, "per": per, "shares": [(min(n4, b * per), min(n4, (b + 1) * per)) for b in range(blocks)]}
+
+
+def _block_sum(v: torch.Tensor) -> torch.Tensor:
+    """``probe_common.cuh``'s ``block_sum`` of each row of ``v [B, T]``
+    (T threads): a warp's xor-shuffle tree (lane 0 adds its own value and
+    its partner's, 16 lanes apart, then 8, ...), then the warps' sums in
+    warp order from zero."""
+    w = v.reshape(v.shape[0], -1, 32)
+    for o in (16, 8, 4, 2, 1):
+        w = w[..., :o] + w[..., o:2 * o]
+    s = torch.zeros(v.shape[0], dtype=v.dtype, device=v.device)
+    for k in range(w.shape[1]):
+        s = s + w[:, k, 0]
+    return s
+
+
+def block_total_in_kernel_order(a: torch.Tensor, blocks: int) -> torch.Tensor:
+    """The float32 total :func:`block_total_accum`'s kernel computes with a
+    grid of ``blocks``, in its order (``csrc/probe_accum.cu``): thread t of
+    block b adds ``(x + y) + (z + w)`` of the float4s ``b*per + t +
+    j*512``, j = 0, 1, ..., into one run from zero; each block's runs by
+    :func:`_block_sum` into a partial; then thread t adds the partials t, t
+    + 512, ... from zero and :func:`_block_sum` gives the total.  Padding
+    the shares with zeros changes no run.  Plain PyTorch, on any device."""
+    plan = accum_plan(a.numel(), blocks)
+    per, t = plan["per"], ACCUM_THREADS
+    x = a.reshape(-1).float()
+    x = F.pad(x, (0, 4 * blocks * per - x.numel())).view(blocks, per, 4)
+    x = F.pad(x, (0, 0, 0, -(-per // t) * t - per)).view(blocks, -1, t, 4)
+    quads = (x[..., 0] + x[..., 1]) + (x[..., 2] + x[..., 3])
+    run = torch.zeros(blocks, t, dtype=torch.float32, device=a.device)
+    for j in range(quads.shape[1]):
+        run = run + quads[:, j]
+    part = _block_sum(run)
+    part = F.pad(part, (0, -(-blocks // t) * t - blocks)).view(-1, t)
+    run = torch.zeros(1, t, dtype=torch.float32, device=a.device)
+    for q in range(part.shape[0]):
+        run = run + part[q]
+    return _block_sum(run)[0]
+
+
+def accum_blocks(device) -> int:
+    """The persistent grid of :func:`block_total_accum` on CUDA ``device``
+    (``se3_probe_accum_blocks``: blocks an SM that fit at once, at most 2,
+    times the SMs), asked once per device."""
+    dev = torch.device(device)
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    if idx not in _accum_blocks:
+        with torch.cuda.device(idx):
+            blocks = library("probe_accum").se3_probe_accum_blocks()
+        if blocks < 1:
+            raise RuntimeError(f"se3_probe_accum_blocks failed: CUDA error {-blocks}")
+        _accum_blocks[idx] = blocks
+    return _accum_blocks[idx]
+
+
 def block_total_accum(a: torch.Tensor, shapes, with_dfeat: bool = True) -> list:
     """``[dfeat] + outs``: ``dfeat = 2a`` (where ``with_dfeat``) and one
     float32 tensor per shape of ``shapes`` (at most three), every element
@@ -518,23 +592,28 @@ def block_total_accum(a: torch.Tensor, shapes, with_dfeat: bool = True) -> list:
     each grid block's total into outputs zeroed at step 0 (``bisect_accum``
     writes its dW2 as ``broadcast(red[...]) * 0 + sum(red)``, the block
     total for finite values: the ``* 0`` term only turns an infinite one
-    into NaN).  CUDA tensors launch ``csrc/probe_accum.cu``: chunk sums
-    in one pass over ``a`` (which also writes ``dfeat``), then the total
-    of the chunk sums in a fixed order broadcast into the outputs."""
+    into NaN).  CUDA tensors launch ``csrc/probe_accum.cu`` once: a
+    persistent cooperative grid (:func:`accum_blocks`, shares by
+    :func:`accum_plan`) streams ``a`` once (writing ``dfeat`` on the way),
+    then, after one grid-wide step, every block adds the block partials in
+    a fixed order (:func:`block_total_in_kernel_order`) and writes its share
+    of the outputs."""
     if a.dim() < 1 or a.shape[0] % TM or len(shapes) > _MAX_ACCUM_OUTS:
         raise ValueError(f"a must be [S * {TM}, ...] and at most {_MAX_ACCUM_OUTS} outputs, got "
                          f"{tuple(a.shape)} and {len(shapes)}")
     if not _on_card("block_total_accum", a):
         return block_total_accum_reference(a, shapes, with_dfeat)
     n = a.numel()
+    plan = accum_plan(n, accum_blocks(a.device))
     lib = library("probe_accum")
-    part = torch.empty(lib.se3_probe_accum_parts(n), dtype=torch.float32, device=a.device)
+    part = torch.empty(plan["blocks"], dtype=torch.float32, device=a.device)
     dfeat = torch.empty_like(a) if with_dfeat else None
     outs = [torch.empty(tuple(shape), dtype=torch.float32, device=a.device) for shape in shapes]
     slots = [(o.data_ptr(), o.numel()) for o in outs] + [(None, 0)] * (_MAX_ACCUM_OUTS - len(outs))
     with torch.cuda.device(a.device):
         _check(lib.se3_probe_block_total_accum(a.data_ptr(), n, None if dfeat is None else dfeat.data_ptr(),
-                                               part.data_ptr(), *[v for slot in slots for v in slot], _stream(a)),
+                                               part.data_ptr(), plan["blocks"], plan["per"],
+                                               *[v for slot in slots for v in slot], _stream(a)),
                "block_total_accum")
     key = accum_tag(shapes, with_dfeat)
     block_total_accum.launches += 1

@@ -218,18 +218,18 @@ def test_block_total_accum_plain_version_adds_blocks_in_order():
 @pytest.mark.parametrize("grid_n,seed", [(4, 0), (4, 1), (8, 2)])
 def test_check_accum_holds_totals_to_the_float64_total(grid_n, seed):
     """The bound on a total tells sound float32 sums from wrong ones: the
-    plain version and the kernel's order (chunk totals of 16,384 values
-    added in order) read at most half of ``SUM_RTOL``; chunk totals rounded
-    to bfloat16 and a dropped chunk read ten times it or more, and
-    ``check_accum`` rejects them."""
+    plain version and the kernel's order (``block_total_in_kernel_order``
+    on the card's grid of 2 x 132 blocks) read at most half of
+    ``SUM_RTOL``; chunk totals rounded to bfloat16 and a dropped chunk read
+    ten times it or more, and ``check_accum`` rejects them."""
     a = bisect_accum.draw(grid_n, seed, "cpu")
     shapes = bisect_accum.SHAPES
     sound = probes.block_total_accum(a, shapes, True)
     assert bisect_accum.check_accum(a, sound, shapes, True) <= bisect_accum.SUM_RTOL / 2
-    in_chunks = a.reshape(-1, bisect_accum.CHUNK).sum(1).sum()
+    in_kernel_order = probes.block_total_in_kernel_order(a, 2 * 132)
     planted = bisect_accum.planted_totals(a)
     exact, terms = float(a.double().sum()), float(a.double().abs().sum())
-    assert abs(float(in_chunks) - exact) / terms <= bisect_accum.SUM_RTOL / 2
+    assert abs(float(in_kernel_order) - exact) / terms <= bisect_accum.SUM_RTOL / 2
     for name, total in planted.items():
         assert abs(float(total) - exact) / terms >= 10 * bisect_accum.SUM_RTOL, name
         wrong = sound[:1] + [total.expand(s).clone() for s in shapes]

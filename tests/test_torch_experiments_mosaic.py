@@ -90,21 +90,25 @@ def test_mosaic_probe_matches_jax_kernel(jax_mosaic, monkeypatch, name):
 
 
 def test_probe_work_counts_the_products():
-    """p8 is the largest: 64 x 128 x 128 outputs of 64 terms, 134 MFLOP."""
+    """p8 is the largest: 64 x 128 x 128 outputs of 64 terms, 134 MFLOP,
+    on tensor cores (``product_flops``)."""
     xs = probe_mosaic.draw("p8_blockdiag_batched", 0, "cpu")
     w = mp.probe_work("p8_blockdiag_batched", xs, mp.PROBES["p8_blockdiag_batched"](*xs))
-    assert w["fma_flops"] == 2.0 * 64 * 128 * 128 * 64
+    assert w["product_flops"] == 2.0 * 64 * 128 * 128 * 64
     assert w["bytes"] == 4.0 * (64 * 128 * 64 + 64 * 64 * 128 + 64 * 128 * 128)
     xs = probe_mosaic.draw("p5_lane_merge", 0, "cpu")
-    assert mp.probe_work("p5_lane_merge", xs, mp.PROBES["p5_lane_merge"](*xs)) == {"fma_flops": 0.0,
+    assert mp.probe_work("p5_lane_merge", xs, mp.PROBES["p5_lane_merge"](*xs)) == {"product_flops": 0.0,
                                                                                    "bytes": 2.0 * 4 * 128 * 32 * 64}
 
 
 def test_split_k_covers_k():
     for batch, m, n, k in ((1, 128, 64, 2048), (1, 18, 64, 4096), (1, 8192, 32, 9), (128, 64, 32, 32)):
-        splits, per = mp._splits(batch, m, n, k)
-        assert splits * per >= k and (splits == 1 or (per % 32 == 0 and (splits - 1) * per < k))
-    assert mp._splits(1, 128, 64, 2048) == (16, 128) and mp._splits(1, 18, 64, 4096) == (64, 64)
+        plan = mp.product_plan(batch, m, n, k, torch.float32, (m * k, k, 1), (k * n, n, 1))
+        splits, per = plan["splits"], plan["k_per_split"]
+        assert splits * per >= k and per % 32 == 0 and (splits - 1) * per < k
+    # the two long depths split over a full cluster of 8, in one launch
+    assert mp.product_plans()["p3_multi_contract"]["splits"] == 8
+    assert mp.product_plans()["p15_dim0_contract"]["splits"] == 8
 
 
 def test_mosaic_wrappers_refuse_other_shapes():

@@ -5,7 +5,10 @@ against their plain PyTorch versions, on the card.
 Needs an NVIDIA GPU and ``nvcc`` (``cuda`` marker): skipped elsewhere.  The
 file imports torch only, so the card runs it without JAX:
 ``python -m pytest --noconftest -q tests/test_torch_mosaic_probes_cuda.py``.
-Tolerances, as the CLIs hold them: gathers, copies, ``2a`` and the r-ordered
+The products and the accumulator run as one launch a call (the kernel
+nodes of a call captured into a CUDA graph); the accumulator's total is the
+order its source states, bit for bit, and its cooperative launch replays
+from a CUDA graph.  Tolerances, as the CLIs hold them: gathers, copies, ``2a`` and the r-ordered
 sums bit for bit; the accumulators' totals within ``1e-9 * sum |a|`` of
 the float64 total and the column sums within ``1e-6`` of each column's ``sum |a|`` (float32 sums
 in other orders); products within ``1e-5 * max |plain|`` (float32 sums in
@@ -13,6 +16,8 @@ other orders, TF32 off; bfloat16 products are exact in float32); p3's pne
 bit for bit (no mask disagreement).  Every fixed-order sum gives the same
 bits on a second call.
 """
+import ctypes
+
 import pytest
 import torch
 
@@ -41,6 +46,69 @@ def test_block_total_accum_matches_plain(combo):
     assert probes.block_total_accum.launches == before + 2
     bisect_accum.check_accum(a, got, shapes, with_dfeat)
     assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+def _graph_node_types(fn) -> list:
+    """The node types of one call of ``fn`` captured into a CUDA graph
+    (read with ``cuGraphGetNodes`` / ``cuGraphNodeGetType`` of
+    ``libcuda``; 0 is a kernel): what the call launches."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm-up on the capture stream
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, stream=side):
+        fn()
+    cu = ctypes.CDLL("libcuda.so.1")
+    handle, n = ctypes.c_void_p(graph.raw_cuda_graph()), ctypes.c_size_t(0)
+    assert cu.cuGraphGetNodes(handle, None, ctypes.byref(n)) == 0
+    nodes = (ctypes.c_void_p * n.value)()
+    assert cu.cuGraphGetNodes(handle, nodes, ctypes.byref(n)) == 0
+    types = []
+    for node in nodes:
+        t = ctypes.c_int(-1)
+        assert cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(t)) == 0
+        types.append(t.value)
+    return types
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_dfeat", [True, False])
+def test_block_total_accum_is_one_launch(with_dfeat):
+    _needs_card()
+    a = bisect_accum.draw(32, 8, "cuda")
+    assert _graph_node_types(lambda: probes.block_total_accum(a, bisect_accum.SHAPES, with_dfeat)) == [0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid_n", [16, 64])
+def test_block_total_accum_sums_in_its_stated_order(grid_n):
+    """The kernel's total is :func:`probes.block_total_in_kernel_order`'s
+    bit for bit: the order its source states, written out in PyTorch."""
+    _needs_card()
+    a = bisect_accum.draw(grid_n, 9, "cuda")
+    (out,) = probes.block_total_accum(a, [(1, 64)], False)
+    want = probes.block_total_in_kernel_order(a, probes.accum_blocks(a.device))
+    assert torch.equal(out, want.expand(1, 64))
+
+
+@pytest.mark.cuda
+def test_block_total_accum_replays_from_a_cuda_graph():
+    """The cooperative launch captures into a CUDA graph, and two replays
+    give the eager call's bits."""
+    _needs_card()
+    a = bisect_accum.draw(16, 10, "cuda")
+    eager = probes.block_total_accum(a, bisect_accum.SHAPES, True)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        got = probes.block_total_accum(a, bisect_accum.SHAPES, True)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(got, eager))
 
 
 @pytest.mark.cuda
@@ -119,6 +187,20 @@ def test_mosaic_probe_matches_plain(name):
     assert counter.launches == before + 2
     probe_mosaic.check(name, xs, got)
     assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["p3_multi_contract", "p15_dim0_contract"])
+def test_split_depth_products_are_one_launch(name):
+    """p3 and p15 split K over a cluster and add the partial tiles in the
+    same launch: one kernel a call, no second pass."""
+    _needs_card()
+    assert mosaic_probes.product_plans()[name]["splits"] > 1
+    xs = probe_mosaic.draw(name, 14, "cuda")
+    fn = mosaic_probes.PROBES[name]
+    before = fn.launches
+    assert _graph_node_types(lambda: fn(*xs)) == [0]
+    assert fn.launches == before + 2
 
 
 @pytest.mark.cuda
