@@ -4655,7 +4655,8 @@ def accum_site_cases(card, dev, side) -> dict:
     """33b-c. ``block_total_accum`` at each of ``bisect_accum``'s trials and
     ``bisect_accum2``'s combinations (library: ``a * 2`` where dfeat is
     written and ``torch.sum(a)``), and ``grid_column_accum`` at p11's
-    ``[1024, 32]`` (library: ``torch.sum(a, 0)``)."""
+    ``[1024, 32]``, also held bit for bit to its stated order
+    (``probes.grid_column_in_kernel_order``; library: ``torch.sum(a, 0)``)."""
     from se3conv3d_tpu_torch.experiments import bisect_accum, bisect_accum2, probe_mosaic
     from se3conv3d_tpu_torch.kernels import probes
 
@@ -4681,22 +4682,45 @@ def accum_site_cases(card, dev, side) -> dict:
                                           with_dfeat)
         del a
     (a,) = probe_mosaic.draw("p11_grid_accum", 440, dev)
+
+    def column_check(got):
+        rel = probe_mosaic.check("p11_grid_accum", [a], got)
+        if not torch.equal(got, probes.grid_column_in_kernel_order(a)):
+            raise ValueError("the column sums are not the kernel's stated order's bit for bit")
+        return rel
+
     out["p11_grid_accum"] = site_case(
         card, "p11_grid_accum (grid_column_accum)", lambda: probes.grid_column_accum(a),
-        lambda: probes.grid_column_accum_reference(a), lambda got: probe_mosaic.check("p11_grid_accum", [a], got),
+        lambda: probes.grid_column_accum_reference(a), column_check,
         {"bytes": 4.0 * (a.numel() + a.shape[1])}, side, lambda: torch.sum(a, 0))
     torch.cuda.empty_cache()
     return out
 
 
+def cellconv_work(part: str, x: dict) -> dict:
+    """A cell-conv part's work for :func:`probe_bound`: the bytes of its
+    inputs and output, each once (p1, p2, p4: the table blocks its ids name),
+    and p3's product as ``product_flops`` (on tensor cores, charged at the
+    3xTF32 ceiling; :func:`mosaic_fma_bound_ms` gives its bound at the float32
+    FMA peak)."""
+    from se3conv3d_tpu_torch.experiments import probe_cellconv as pc
+
+    if part == "p3":
+        nq, c = x["qp"].shape[0], x["cf"].shape[1]
+        return {"product_flops": 2.0 * nq * x["cp"].shape[0] * c,
+                "bytes": 4.0 * (x["qp"].numel() + x["cp"].numel() + x["cf"].numel() + nq * c)}
+    blocks = int(torch.unique(x["ids"]).numel())
+    return {"bytes": 4.0 * (x["ids"].numel() + (blocks + x["ids"].shape[0]) * pc.P * pc.C)}
+
+
 def cellconv_site_cases(card, dev, side) -> dict:
     """33b-c. the four cell-conv parts at the JAX script's sizes: p1, p2
     and p4 bitwise, p3's pne bitwise and its product within
-    ``probe_cellconv.P3_RTOL``; the bytes of the table blocks the ids name, each
-    once; libraries: the indexed copy times 2, the indexed sum over r, and
+    ``probe_cellconv.P3_RTOL``; bounds from :func:`cellconv_work` (p3 on
+    tensor cores, its FMA bound beside it as ``bound_fma_ms``); libraries:
+    the indexed copy times 2, the indexed sum over r, and
     ``torch.matmul(pne, cf)`` for p3's product alone."""
     from se3conv3d_tpu_torch.experiments import probe_cellconv as pc
-    from se3conv3d_tpu_torch.kernels import cellconv_probes as cc
 
     out = {}
     for i, part in enumerate(pc.PARTS):
@@ -4704,20 +4728,20 @@ def cellconv_site_cases(card, dev, side) -> dict:
         if part == "p3":
             pne = torch.empty(pc.QB3 * pc.Q3, pc.CAND, device=dev)
             pc.check(part, x, pc.run(part, x, pne), pne)  # no mask disagreement, pne bitwise
-            flops = 2.0 * pc.QB3 * pc.Q3 * pc.CAND * pc.C
-            work = {"fma_flops": flops, "bytes": 4.0 * (x["qp"].numel() + x["cp"].numel() + x["cf"].numel()
-                                                         + pc.QB3 * pc.Q3 * pc.C)}
             lib = lambda pne=pne, x=x: torch.matmul(pne, x["cf"])  # noqa: E731
         else:
-            tab = x["tab"] if "tab" in x else x["g"]
-            t3 = tab.view(-1, pc.P, pc.C)
-            blocks = int(torch.unique(x["ids"]).numel())
-            work = {"bytes": 4.0 * (x["ids"].numel() + (blocks + x["ids"].shape[0]) * pc.P * pc.C)}
+            t3 = (x["tab"] if "tab" in x else x["g"]).view(-1, pc.P, pc.C)
             lib = ((lambda t3=t3, x=x: t3[x["ids"].long()] * 2.0) if part == "p1"
                    else (lambda t3=t3, x=x: t3[x["ids"].long()].sum(1)))
+        work = cellconv_work(part, x)
         out[part] = site_case(card, f"probe_cellconv {part}", lambda x=x, part=part: pc.run(part, x),
                               lambda x=x, part=part: pc.reference(part, x),
                               lambda got, x=x, part=part: pc.check(part, x, got), work, side, lib)
+        if part == "p3":
+            out[part]["bound_fma_ms"] = mosaic_fma_bound_ms(work)
+            print(f"site probe_cellconv p3: {work['product_flops'] / 1e6:.1f} MFLOP on tensor cores (3xTF32), "
+                  f"bound {out[part]['bound_ms']:.4f} ms; the FMA bound (every product FLOP at the float32 FMA "
+                  f"peak) {out[part]['bound_fma_ms']:.4f} ms [{card}]", flush=True)
         del x
     torch.cuda.empty_cache()
     return out
@@ -4792,10 +4816,14 @@ def mosaic_sites_registers(card) -> dict:
 
     regs = {"accum": probes.accum_kernel_attributes(), "cellconv": cc.cellconv_kernel_attributes(),
             "mosaic": mp.mosaic_kernel_attributes()}
+    # grid_column_accum's dynamic shared memory is the call's: p11's S * C block sums
+    regs["accum"]["grid_column_accum"]["dynamic_smem"] = probes.column_partials_bytes(
+        mp.SHAPES["p11_grid_accum"][0][0])
     for src, kernels in regs.items():
         print(f"probe_{src}.cu: " + "; ".join(f"{k} {a['registers']} registers, {a['local_bytes']} local bytes, "
-                                              f"{a['static_smem']} bytes of static shared memory"
-                                              for k, a in kernels.items()) + f" [{card}]", flush=True)
+                                              f"{a['static_smem']} + {a['dynamic_smem']} bytes of static + "
+                                              f"dynamic shared memory" for k, a in kernels.items())
+              + f" [{card}]", flush=True)
     return regs
 
 
@@ -4845,7 +4873,8 @@ def mosaic_site_entries(ms: dict) -> list:
               cell["p2"]["gather_sum_blocks"], ms["cellconv"]["p2"], "probe_cellconv p2 (library: tab[ids].sum(1))"),
         entry("probe_masked_dist_product", "cellconv", "experiments/probe_cellconv.py:120",
               cell["p3"]["masked_dist_product"], ms["cellconv"]["p3"],
-              "probe_cellconv p3 (library: torch.matmul(pne, cf), the product alone)"),
+              "probe_cellconv p3 (library: torch.matmul(pne, cf), the product alone)",
+              bound_fma_ms=ms["cellconv"]["p3"]["bound_fma_ms"]),
         entry("probe_gather_sum_blocks[p4]", "cellconv", "experiments/probe_cellconv.py:160",
               cell["p4"]["gather_sum_blocks"], ms["cellconv"]["p4"], "probe_cellconv p4 (library: g[ids].sum(1))"),
         entry("probe_strided_product[run_kernel]", "mosaic", "experiments/probe_mosaic.py:53",

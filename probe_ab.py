@@ -2,7 +2,7 @@
 """Old against new on one NVIDIA GPU: the probe kernels redesigned for
 Hopper, each checkout timed through its own wrappers, in turn.
 
-    python3 probe_ab.py ROOT [ROOT ...] [--rounds 2] [--m 65536] [--sets stage,mosaic]
+    python3 probe_ab.py ROOT [ROOT ...] [--rounds 2] [--m 65536] [--sets stage,mosaic,cellconv]
 
 Each ``ROOT`` is a checkout of this repository: ``.`` for this one, and
 for instance a parent commit unpacked beside it with ``git archive`` into
@@ -16,22 +16,29 @@ median of 5 replays):
 - ``stage``: ``probes.stage_sum`` on ``chip_stage_time``'s inputs at ``M``
   rows (every stage, float32 and bfloat16) and b3 ``probes.batched_contract``
   on ``bisect_fused``'s inputs, beside ``torch.bmm``;
-- ``mosaic``: every product probe of ``mosaic_probes`` (``strided_product``)
-  at the JAX script's shapes, beside its one PyTorch call
-  (``chip_smoke.mosaic_library``: ``torch.matmul`` / ``einsum`` / ``bmm`` /
-  ``tensordot``), and ``probes.block_total_accum`` at every ``bisect_accum``
-  trial and ``bisect_accum2`` combination, beside ``torch.sum(a)`` (and
-  ``a * 2`` where dfeat is written).
+- ``mosaic``: every probe of ``mosaic_probes`` at the JAX script's shapes
+  (the products of ``strided_product``, the six strided copies, p9 and
+  p14), each beside its one PyTorch call (``chip_smoke.mosaic_library``:
+  ``torch.matmul`` / ``einsum`` / ``bmm`` / ``tensordot``, ``clone`` /
+  ``contiguous``, p9's ``einsum`` with ``eye(2)``, p14's broadcast
+  product), p11 (``probes.grid_column_accum``) beside ``torch.sum(a, 0)``,
+  and ``probes.block_total_accum`` at every ``bisect_accum`` trial and
+  ``bisect_accum2`` combination, beside ``torch.sum(a)`` (and ``a * 2``
+  where dfeat is written);
+- ``cellconv``: p3 (``cellconv_probes.masked_dist_product``) at the JAX
+  script's shape, beside ``torch.matmul(pne, cf)`` (its product alone).
 
 A root's first process also reports its build's seconds (the sources at
 once), per kernel the HGMMA (wgmma) and HMMA (mma.sync) instructions in the
 libraries' SASS (``cuobjdump --dump-sass``; ``strided_product`` summed by
-operand type as well), and, with ``mosaic``, each kernel's registers and
-shared memory (``cudaFuncGetAttributes``).  Every root's stage sums must
-agree with the first root's within ``chip_smoke.PROBE_SCALAR_RTOL`` of the
-stage's sum of |values|, its b3 and product probes with their plain
-versions within 1e-5 of the plain version's largest value, its totals with
-the float64 total within ``bisect_accum.SUM_RTOL`` of sum |a|.  The last
+operand type as well), and, with ``mosaic`` or ``cellconv``, each
+kernel's registers and shared memory (``cudaFuncGetAttributes``).  Every
+root's stage sums must agree with the first root's within
+``chip_smoke.PROBE_SCALAR_RTOL`` of the stage's sum of |values|, its b3,
+p3 and product probes with their plain versions within 1e-5 of the plain
+version's largest value (p3's pne bit for bit), its copies bit for bit,
+p11's column sums within ``1e-6`` of each column's sum of |a|, its totals
+with the float64 total within ``bisect_accum.SUM_RTOL`` of sum |a|.  The last
 line is one JSON object: each median, its range, and the card's name and
 power limit.  It runs on the card only.
 """
@@ -50,7 +57,8 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
 B3_RTOL = 1e-5
-SETS = {"stage": ("probe_stage", "probe_bwd"), "mosaic": ("probe_mosaic", "probe_accum")}
+SETS = {"stage": ("probe_stage", "probe_bwd"), "mosaic": ("probe_mosaic", "probe_accum"),
+        "cellconv": ("probe_cellconv",)}
 
 
 def load_smoke():
@@ -64,7 +72,7 @@ def demangle(name: str) -> str:
     """The kernel and template arguments of a mangled tile_fwd / stage_fwd /
     strided_product name, shortened (tile_fwd<4,bf16>,
     strided_product<f32,0,1,0>: tile id and the two layouts)."""
-    for kern in ("tile_fwd", "stage_fwd", "batched_contract", "strided_product"):
+    for kern in ("tile_fwd", "stage_fwd", "batched_contract", "strided_product", "masked_dist_product"):
         if kern in name:
             rest = name.rsplit(kern, 1)[1]
             if not rest.startswith("I"):
@@ -117,8 +125,9 @@ def mosaic_times(res: dict, smoke, dev, side) -> None:
     from se3conv3d_tpu_torch.experiments import bisect_accum, bisect_accum2, probe_mosaic
     from se3conv3d_tpu_torch.kernels import mosaic_probes as mp, probes
 
-    library = smoke.mosaic_library(dev)
-    for i, name in enumerate(n for n, kind in mp.KIND.items() if kind == "product"):
+    library = {**smoke.mosaic_library(dev), "p11_grid_accum": lambda a: torch.sum(a, 0)}
+    names = [n for n, kind in mp.KIND.items() if kind == "product"]  # the products first, as before
+    for i, name in enumerate(names + [n for n in library if n not in names]):
         xs = probe_mosaic.draw(name, 500 + i, dev)
         fn = mp.PROBES[name]
         res["rel_err"][name] = probe_mosaic.check(name, xs, fn(*xs))
@@ -134,7 +143,20 @@ def mosaic_times(res: dict, smoke, dev, side) -> None:
         lib = (lambda: (a * 2.0, torch.sum(a))) if d else (lambda: torch.sum(a))
         res["ms"][f"{key} library"] = smoke.graph_ms(lib, side)
         del a
-    res["attrs"] = {**mp.mosaic_kernel_attributes(), **probes.accum_kernel_attributes()}
+    res["attrs"].update({**mp.mosaic_kernel_attributes(), **probes.accum_kernel_attributes()})
+
+
+def cellconv_times(res: dict, smoke, dev, side) -> None:
+    import torch
+    from se3conv3d_tpu_torch.experiments import probe_cellconv as pc
+    from se3conv3d_tpu_torch.kernels import cellconv_probes as cc
+
+    x = pc.draw("p3", 540, dev)
+    pne = torch.empty(x["qp"].shape[0], x["cp"].shape[0], device=dev)
+    res["rel_err"]["p3"] = pc.check("p3", x, pc.run("p3", x, pne), pne)
+    res["ms"]["p3"] = smoke.graph_ms(lambda: pc.run("p3", x), side)
+    res["ms"]["p3 library"] = smoke.graph_ms(lambda: torch.matmul(pne, x["cf"]), side)
+    res["attrs"].update(cc.cellconv_kernel_attributes())
 
 
 def worker(root: Path, m: int, first: bool, sets: list) -> dict:
@@ -148,7 +170,7 @@ def worker(root: Path, m: int, first: bool, sets: list) -> dict:
 
     if not Path(probes.__file__).resolve().is_relative_to(root):
         raise SystemExit(f"probe_ab: imported {probes.__file__}, not the one under {root}")
-    res = {"ms": {}, "sums": {}, "terms": {}, "rel_err": {}}
+    res = {"ms": {}, "sums": {}, "terms": {}, "rel_err": {}, "attrs": {}}
     if first:
         t0 = time.perf_counter()
         libs = build.build_libraries(names=tuple(lib for s in sets for lib in SETS[s]))
@@ -160,6 +182,8 @@ def worker(root: Path, m: int, first: bool, sets: list) -> dict:
         stage_times(res, smoke, m, dev, side)
     if "mosaic" in sets:
         mosaic_times(res, smoke, dev, side)
+    if "cellconv" in sets:
+        cellconv_times(res, smoke, dev, side)
     return res
 
 

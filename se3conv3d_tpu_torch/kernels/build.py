@@ -71,7 +71,7 @@ _SIGNATURES = {
                      ("se3_probe_stream_blocks", [], _I)],
     "probe_accum": [("se3_probe_accum_blocks", [], _I),
                     ("se3_probe_block_total_accum", [_P, _L, _P, _P, _I, _L] + [_P, _L] * 3 + [_P], _I),
-                    ("se3_probe_grid_column_accum", [_P, _I, _I, _I, _P, _P, _P], _I),
+                    ("se3_probe_grid_column_accum", [_P, _I, _I, _I, _P, _P], _I),
                     ("se3_probe_accum_attrs", [_I, _P], _I)],
     "probe_cellconv": [("se3_probe_gather_blocks", [_P, _I, _P, _I, _L, _F, _P, _P], _I),
                        ("se3_probe_gather_sum_blocks", [_P, _I, _I, _P, _I, _L, _P, _P], _I),

@@ -12,7 +12,12 @@ its plain PyTorch version: counterparts of the four Pallas kernels of
 - :func:`masked_dist_product` (p3): ``pne = (d2 < 0.04) * (3 d2 + 1)``
   over the pairwise squared distances ``d2 = (dx^2 + dy^2) + dz^2`` of the
   queries' and candidates' xyz (each square rounded before the add, as the
-  JAX kernel computes it), then ``pne @ cf``.
+  JAX kernel computes it), then ``pne @ cf``.  The kernel runs the product
+  on tensor cores in 3xTF32, a block a tile of 64 queries x 32 channels:
+  each thread computes the pne values of its own mma fragment from the
+  xyz, the candidates' features stream through shared memory by
+  ``cp.async``, and 4 groups of warps over the candidates add their
+  partial tiles in group order (no atomics: two calls give the same bits).
 
 An id outside ``[0, NB)`` is an error: the kernels never clamp or read
 through it and write NaN over its output block; :func:`bad_ids` counts
@@ -29,7 +34,7 @@ from .build import library
 from .probes import _check, _on_card, _stream, kernel_attributes
 
 __all__ = [
-    "RADIUS2", "GATHER_SCALE", "CELLCONV_KERNELS", "bad_ids", "gather_blocks", "gather_blocks_reference", "gather_sum_blocks",
+    "RADIUS2", "GATHER_SCALE", "CELLCONV_KERNELS", "P3_TILE_Q", "P3_SLICE", "P3_TILE_C", "bad_ids", "gather_blocks", "gather_blocks_reference", "gather_sum_blocks",
     "gather_sum_blocks_reference", "masked_dist_pne", "masked_dist_product", "masked_dist_product_reference",
     "cellconv_kernel_attributes",
 ]
@@ -40,8 +45,9 @@ RADIUS2 = 0.04
 CELLCONV_KERNELS = ("gather_blocks", "gather_sum_blocks", "masked_dist_product")
 # p1's factor: the JAX kernel writes tab_ref[:] * 2.0
 GATHER_SCALE = 2.0
-# masked_dist_product's tiles: queries, candidates, channels
-_TQ, _KC, _TC = 16, 64, 128
+# masked_dist_product's kernel takes NQ, NC and C in multiples of these: a
+# block's queries, a staged slice's candidates, a block's channels
+P3_TILE_Q, P3_SLICE, P3_TILE_C = 64, 32, 32
 
 
 def bad_ids(ids: torch.Tensor, nb: int) -> int:
@@ -136,7 +142,8 @@ def masked_dist_product(qp: torch.Tensor, cp: torch.Tensor, cf: torch.Tensor, pn
     """``[NQ, C]``: :func:`masked_dist_pne` ``@ cf [NC, C]`` (p3), float32.
     ``pne_out [NQ, NC]``, where given, receives the pne the call used, so a
     check can count mask disagreements.  The kernel takes NQ a multiple of
-    16, NC of 64 and C of 128."""
+    64, NC of 32 and C of 32 (:data:`P3_TILE_Q`, :data:`P3_SLICE`,
+    :data:`P3_TILE_C`) and refuses other shapes."""
     if qp.dim() != 2 or cp.dim() != 2 or cf.dim() != 2 or qp.shape[1] < 3 or cp.shape[1] < 3 \
             or cf.shape[0] != cp.shape[0]:
         raise ValueError(f"qp [NQ, >=3], cp [NC, >=3] and cf [NC, C], got {tuple(qp.shape)}, {tuple(cp.shape)} "
@@ -150,8 +157,9 @@ def masked_dist_product(qp: torch.Tensor, cp: torch.Tensor, cf: torch.Tensor, pn
         if pne_out is not None:
             pne_out.copy_(pne)
         return torch.matmul(pne, cf)
-    if nq % _TQ or nc % _KC or c % _TC:
-        raise ValueError(f"the kernel takes NQ a multiple of {_TQ}, NC of {_KC} and C of {_TC}; got {nq}, {nc}, {c}")
+    if nq % P3_TILE_Q or nc % P3_SLICE or c % P3_TILE_C or 0 in (nq, nc, c):
+        raise ValueError(f"the kernel takes NQ a multiple of {P3_TILE_Q}, NC of {P3_SLICE} and C of {P3_TILE_C}; "
+                         f"got {nq}, {nc}, {c}")
     out = torch.empty(nq, c, dtype=torch.float32, device=qp.device)
     with torch.cuda.device(qp.device):
         _check(library("probe_cellconv").se3_probe_masked_dist_product(

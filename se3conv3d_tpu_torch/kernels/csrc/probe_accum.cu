@@ -16,15 +16,19 @@
 // [1024, 32] over 8 blocks of 128 rows into one revisited [1, 32]).  Each
 // checked whether Mosaic lowered an output block that every grid step
 // revisits.  See se3conv3d_tpu_torch/kernels/probes.py for the wrappers, the
-// plain PyTorch versions, the share plan (accum_plan) and the kernel's
-// summation order written out in PyTorch (block_total_in_kernel_order).
+// plain PyTorch versions, the share plan (accum_plan) and the kernels'
+// summation orders written out in PyTorch (block_total_in_kernel_order,
+// grid_column_in_kernel_order).
 //
 // What bounds them: bytes.  block_total_accum at grid 64 reads a (67.1 MB)
 // once and writes dfeat (67.1 MB) and the three outputs (1.1 MB): 0.040 ms
-// at 3.35 TB/s, 0.020 ms without dfeat.  grid_column_accum moves 128 KB and
-// is bound by launch latency.  On the TPU the grid ran in order, so the
-// revisited output carried a running sum; Hopper blocks run in parallel, in
-// no order.  block_total_accum is one pass in one launch: a persistent grid
+// at 3.35 TB/s, 0.020 ms without dfeat.  grid_column_accum moves 128 KB
+// (0.04 us at 3.35 TB/s) and is bound by launch latency, about 2 us, so it
+// is one launch of one block with no scratch in device memory.  On the TPU
+// the grid ran in order, so the revisited output carried a running sum;
+// Hopper blocks run in parallel, in no order.
+//
+// block_total_accum is one pass in one launch: a persistent grid
 // of as many blocks as fit the card at once (at most kMaxBlocksPerSM an SM,
 // cudaOccupancyMaxActiveBlocksPerMultiprocessor), launched cooperatively.
 // Each block streams one contiguous share of a, each thread kUnroll
@@ -39,10 +43,17 @@
 // calls give the same bits.  The cooperative launch was kept over a
 // programmatic dependent pair (a second kernel waiting in
 // cudaGridDependencySynchronize) because it is one launch and captures into
-// a CUDA graph (chip_smoke.graph_ms times through one).  The column form
-// keeps the TPU's order exactly: each block sums its rows column by column in
-// row order, and sum_rows_ordered adds the blocks' rows in block order from
-// zero, as the grid's += did.
+// a CUDA graph (chip_smoke.graph_ms times through one).
+//
+// grid_column_accum keeps the TPU's order exactly: each block of TM rows
+// summed column by column in row order from zero, then the block sums added
+// in block order from zero, as the grid's += did.  One block of 8 warps:
+// warp w takes the (row block, 32 columns) items w, w + 8, ..., lane c
+// column c of the item, its loads issued 64 rows ahead into registers (a
+// row's slot refilled with the row 64 further on as soon as it is added)
+// while the adds run in row order; the block sums go to shared memory
+// [S][C], and thread c adds column c's in block order.  The wrapper takes every [S*TM, C] whose
+// S*C block sums fit the block's shared memory.
 
 #include <stdint.h>
 
@@ -54,7 +65,6 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 256;
 // block_total_accum: threads a block, float4 loads a thread in flight,
 // blocks an SM at most (every block reads every partial after the grid
 // step, so the grid stays a few hundred blocks)
@@ -62,6 +72,11 @@ constexpr int kAccThreads = 512;
 constexpr int kUnroll = 8;
 constexpr int kMaxBlocksPerSM = 2;
 constexpr int kMaxOuts = 3;
+// grid_column_accum: threads of its one block, rows a lane loads ahead,
+// shared memory the block's partials may take (an H100's 227 KB)
+constexpr int kColThreads = 256;
+constexpr int kColAhead = 64;
+constexpr int kColMaxSmem = 232448;
 
 struct Outs {
   float* ptr[kMaxOuts];
@@ -136,20 +151,39 @@ block_total_accum(const float4* __restrict__ a, long long n4, long long per, flo
   for (int k = 0; k < kMaxOuts; ++k) fill_output(outs.ptr[k], outs.n[k], tot);
 }
 
-// part[s, c] = sum of a[r, c] over block s's rows r in [s*rows, (s+1)*rows), in row order
-__global__ void __launch_bounds__(kThreads)
-block_column_sums(const float* __restrict__ a, int rows, int C, float* __restrict__ part) {
-  const long long r0 = static_cast<long long>(blockIdx.x) * rows;
-  for (int c = threadIdx.x; c < C; c += kThreads) {
-    float s = 0.f;
-    for (int r = 0; r < rows; ++r) s += a[(r0 + r) * C + c];
-    part[static_cast<long long>(blockIdx.x) * C + c] = s;
+// out[c] = sum over s < S, in order from zero, of the sum over r < rows, in
+// order from zero, of a[s*rows + r, c]; one block of kColThreads, S*C*4
+// bytes of dynamic shared memory; rows a multiple of kColAhead.
+__global__ void __launch_bounds__(kColThreads)
+grid_column_accum(const float* __restrict__ a, int S, int rows, int C, float* __restrict__ out) {
+  extern __shared__ float part[];  // [S][C]: each row block's column sums
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, chunks = (C + 31) / 32;
+  for (int item = warp; item < S * chunks; item += kColThreads / 32) {
+    const int s = item / chunks, c = 32 * (item - s * chunks) + lane;
+    if (c >= C) continue;
+    const float* p = a + static_cast<long long>(s) * rows * C + c;
+    // rows r .. r + kColAhead - 1 in v, each slot refilled with the row
+    // kColAhead further on as soon as it is added
+    float v[kColAhead], sum = 0.f;
+#pragma unroll
+    for (int u = 0; u < kColAhead; ++u) v[u] = __ldg(p + static_cast<long long>(u) * C);
+    for (int r = kColAhead;; r += kColAhead) {
+      const bool more = r < rows;
+#pragma unroll
+      for (int u = 0; u < kColAhead; ++u) {
+        sum += v[u];
+        if (more) v[u] = __ldg(p + static_cast<long long>(r + u) * C);
+      }
+      if (!more) break;
+    }
+    part[static_cast<long long>(s) * C + c] = sum;
   }
-}
-
-inline unsigned blocks_for(long long n, long long per_block, long long cap) {
-  const long long b = (n + per_block - 1) / per_block;
-  return static_cast<unsigned>(b < 1 ? 1 : (b < cap ? b : cap));
+  __syncthreads();
+  for (int c = threadIdx.x; c < C; c += kColThreads) {
+    float t = 0.f;
+    for (int s = 0; s < S; ++s) t += part[static_cast<long long>(s) * C + c];
+    out[c] = t;
+  }
 }
 
 }  // namespace
@@ -208,29 +242,31 @@ extern "C" int se3_probe_block_total_accum(const void* a, long long n, void* dfe
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
-// a [S*rows, C] float32, part [S, C] scratch, out [C]
-extern "C" int se3_probe_grid_column_accum(const void* a, int S, int rows, int C, void* part, void* out,
-                                           void* stream_ptr) {
-  if (S < 1 || rows < 1 || C < 1) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  float* p = static_cast<float*>(part);
-  block_column_sums<<<S, kThreads, 0, stream>>>(static_cast<const float*>(a), rows, C, p);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  sum_rows_ordered<<<blocks_for(C, kPartThreads, 1 << 30), kPartThreads, 0, stream>>>(
-      p, S, C, static_cast<float*>(out));
+// a [S*rows, C] float32, out [C]; rows a multiple of 64, S*C*4 bytes at
+// most kColMaxSmem.  One launch of one block.
+extern "C" int se3_probe_grid_column_accum(const void* a, int S, int rows, int C, void* out, void* stream_ptr) {
+  if (S < 1 || rows < kColAhead || rows % kColAhead != 0 || C < 1 ||
+      static_cast<long long>(S) * C * 4 > kColMaxSmem)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = S * C * 4;
+  static bool raised[kMaxDevices] = {};
+  if (smem > 48 * 1024) {
+    const cudaError_t err = allow_dynamic_smem(grid_column_accum, kColMaxSmem, raised);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  grid_column_accum<<<1, kColThreads, smem, static_cast<cudaStream_t>(stream_ptr)>>>(
+      static_cast<const float*>(a), S, rows, C, static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 
 // attrs[0..3] of kernel `which`: 0 block_total_accum<dfeat>, 1
-// block_total_accum, 2 block_column_sums, 3 sum_rows_ordered
-// (probe_common.cuh: kernel_attrs).
+// block_total_accum, 2 grid_column_accum (its dynamic shared memory, S*C*4
+// bytes, is the call's: 0 here) (probe_common.cuh: kernel_attrs).
 extern "C" int se3_probe_accum_attrs(int which, int* attrs) {
   switch (which) {
     case 0: return kernel_attrs(block_total_accum<true>, 0, attrs);
     case 1: return kernel_attrs(block_total_accum<false>, 0, attrs);
-    case 2: return kernel_attrs(block_column_sums, 0, attrs);
-    case 3: return kernel_attrs(sum_rows_ordered, 0, attrs);
+    case 2: return kernel_attrs(grid_column_accum, 0, attrs);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -1,8 +1,9 @@
 // Pieces shared by the probe kernels (probe_stage_fwd.cu, probe_bwd_ops.cu,
 // probe_stream.cu, probe_accum.cu, probe_cellconv.cu, probe_mosaic.cu), sm_90a: the tanh form of GELU that jax.nn.gelu computes
-// by default (approximate=True) and its derivative, and sums of per-block
-// partials in a fixed order, so that two calls give the same bits, and a
-// kernel's registers, local bytes and shared memory for the wrappers.
+// by default (approximate=True) and its derivative, sums of per-block
+// partials in a fixed order, so that two calls give the same bits, a
+// kernel's registers, local bytes and shared memory for the wrappers, and
+// the dynamic shared memory a kernel may take past 48 KB.
 // Everything here sits in an anonymous namespace: each source that includes
 // it builds into its own library with its own copy.
 
@@ -56,15 +57,17 @@ sum_partials_fixed(const float* __restrict__ part, int P, int L, float* __restri
   if (threadIdx.x == 0) out[j] = s;
 }
 
-// out[j] = ((0 + part[0*L + j]) + part[1*L + j]) + ... + part[(P-1)*L + j],
-// one thread a column j < L, the partials in order p = 0, 1, ..., P-1.
-__global__ void __launch_bounds__(kPartThreads)
-sum_rows_ordered(const float* __restrict__ part, int P, int L, float* __restrict__ out) {
-  const int j = blockIdx.x * kPartThreads + threadIdx.x;
-  if (j >= L) return;
-  float s = 0.f;
-  for (int p = 0; p < P; ++p) s += part[static_cast<long long>(p) * L + j];
-  out[j] = s;
+// Lets kernel fn take `bytes` of dynamic shared memory past the default 48
+// KB (cudaFuncSetAttribute), once per device: raised[d] records device d.
+constexpr int kMaxDevices = 64;
+template <typename F>
+cudaError_t allow_dynamic_smem(F* fn, int bytes, bool* raised) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || bytes <= 48 * 1024 || (dev < kMaxDevices && raised[dev])) return err;
+  err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess && dev < kMaxDevices) raised[dev] = true;
+  return err;
 }
 
 // attrs[0..3] = registers a thread, local (stack and spill) bytes, static

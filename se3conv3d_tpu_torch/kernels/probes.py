@@ -46,7 +46,7 @@ array read once with 16-byte loads.  The accumulators
 value of ``a`` broadcast into up to three outputs, and ``2a`` where asked:
 ``bisect_accum.py`` and ``bisect_accum2.py``) and
 :func:`grid_column_accum` (column sums over blocks of rows added in block
-order: ``probe_mosaic.py``'s ``p11_grid_accum``).
+order, one launch of one block: ``probe_mosaic.py``'s ``p11_grid_accum``).
 
 Each wrapper launches its kernel for CUDA tensors and runs its plain
 version (``*_reference``) for CPU tensors; there is no other fallback.
@@ -78,7 +78,8 @@ __all__ = [
     "batched_contract", "batched_contract_reference", "rank3_accum", "rank3_accum_reference",
     "merge_back", "merge_back_reference", "column_sums", "column_sums_reference",
     "accum_tag", "block_total_accum", "block_total_accum_reference", "grid_column_accum",
-    "grid_column_accum_reference", "TM", "ACCUM_KERNELS", "ACCUM_THREADS", "accum_plan", "accum_blocks",
+    "grid_column_accum_reference", "grid_column_in_kernel_order", "column_partials_bytes",
+    "COLUMN_PARTIALS_MAX_BYTES", "TM", "ACCUM_KERNELS", "ACCUM_THREADS", "accum_plan", "accum_blocks",
     "block_total_in_kernel_order", "kernel_attributes", "accum_kernel_attributes",
 ]
 
@@ -488,12 +489,15 @@ column_sums.launches_by = {}
 # --- the accumulators into a revisited output -------------------------------------
 
 # the kernels of csrc/probe_accum.cu by their index in se3_probe_accum_attrs
-ACCUM_KERNELS = ("block_total_accum<dfeat>", "block_total_accum", "block_column_sums", "sum_rows_ordered")
+ACCUM_KERNELS = ("block_total_accum<dfeat>", "block_total_accum", "grid_column_accum")
 _MAX_ACCUM_OUTS = 3
 # rows of a's leading dimension in one TPU grid block, in every accumulator probe
 TM = 128
 # block_total_accum's threads a block (csrc/probe_accum.cu: kAccThreads)
 ACCUM_THREADS = 512
+# grid_column_accum's block keeps S * C float32 partials in shared memory
+# (csrc/probe_accum.cu: kColMaxSmem, an H100 block's 227 KB)
+COLUMN_PARTIALS_MAX_BYTES = 232448
 # a block's share of a starts on a 128-byte line: a multiple of 8 float4s
 _SHARE_ALIGN = 8
 _accum_blocks = {}
@@ -628,20 +632,49 @@ def grid_column_accum_reference(a: torch.Tensor) -> torch.Tensor:
     return s[None]
 
 
+def grid_column_in_kernel_order(a: torch.Tensor) -> torch.Tensor:
+    """``[1, C]``: the column sums :func:`grid_column_accum`'s kernel
+    computes, in its order (``csrc/probe_accum.cu``): each block of
+    :data:`TM` rows summed column by column in row order from zero, then the
+    block sums added in block order from zero.  Plain PyTorch, on any
+    device."""
+    blocks = a.float().reshape(-1, TM, a.shape[1])
+    run = torch.zeros(blocks.shape[0], a.shape[1], dtype=torch.float32, device=a.device)
+    for r in range(TM):
+        run = run + blocks[:, r]
+    s = torch.zeros(a.shape[1], dtype=torch.float32, device=a.device)
+    for blk in run:
+        s = s + blk
+    return s[None]
+
+
+def column_partials_bytes(a_shape) -> int:
+    """Shared memory :func:`grid_column_accum`'s block takes for ``a
+    [S*TM, C]``: its S * C float32 block sums."""
+    return 4 * (a_shape[0] // TM) * a_shape[1]
+
+
 def grid_column_accum(a: torch.Tensor) -> torch.Tensor:
     """``[1, C]``: the column sums of ``a [S*TM, C]``, each block of
-    :data:`TM` rows summed on its own (in row order on the card) and the
-    block sums added in block order from zero, as the TPU grid's revisited
-    output did (``probe_mosaic.py``'s ``p11_grid_accum``)."""
+    :data:`TM` rows summed on its own and the block sums added in block
+    order from zero, as the TPU grid's revisited output did
+    (``probe_mosaic.py``'s ``p11_grid_accum``).  CUDA tensors launch one
+    block of ``csrc/probe_accum.cu`` once, no scratch: its warps sum the
+    row blocks' columns in row order, their loads issued ahead, into shared
+    memory, then each column's block sums are added in block order
+    (:func:`grid_column_in_kernel_order`, bit for bit).  The kernel takes
+    every ``a`` whose block sums fit the block's shared memory
+    (:data:`COLUMN_PARTIALS_MAX_BYTES`) and refuses a larger one."""
     if a.dim() != 2 or a.shape[0] % TM or a.shape[0] == 0:
         raise ValueError(f"a must be [S * {TM}, C], got {tuple(a.shape)}")
     if not _on_card("grid_column_accum", a):
         return grid_column_accum_reference(a)
-    s, c = a.shape[0] // TM, a.shape[1]
-    part = torch.empty(s, c, dtype=torch.float32, device=a.device)
-    out = torch.empty(1, c, dtype=torch.float32, device=a.device)
+    if column_partials_bytes(a.shape) > COLUMN_PARTIALS_MAX_BYTES:
+        raise ValueError(f"grid_column_accum keeps {a.shape[0] // TM} x {a.shape[1]} block sums in "
+                         f"{COLUMN_PARTIALS_MAX_BYTES} bytes of shared memory at most, got {tuple(a.shape)}")
+    out = torch.empty(1, a.shape[1], dtype=torch.float32, device=a.device)
     with torch.cuda.device(a.device):
-        _check(library("probe_accum").se3_probe_grid_column_accum(a.data_ptr(), s, TM, c, part.data_ptr(),
+        _check(library("probe_accum").se3_probe_grid_column_accum(a.data_ptr(), a.shape[0] // TM, TM, a.shape[1],
                                                                   out.data_ptr(), _stream(a)), "grid_column_accum")
     grid_column_accum.launches += 1
     return out
@@ -664,5 +697,7 @@ def kernel_attributes(lib_name: str, symbol: str, which: int) -> dict:
 
 
 def accum_kernel_attributes() -> dict:
-    """:func:`kernel_attributes` of every kernel of ``csrc/probe_accum.cu``."""
+    """:func:`kernel_attributes` of every kernel of ``csrc/probe_accum.cu``
+    (``grid_column_accum``'s dynamic shared memory is a call's,
+    :func:`column_partials_bytes`, and reads 0 here)."""
     return {k: kernel_attributes("probe_accum", "se3_probe_accum_attrs", i) for i, k in enumerate(ACCUM_KERNELS)}

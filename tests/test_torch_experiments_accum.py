@@ -24,7 +24,9 @@ read about 1e-10, and ``bisect_accum.planted_totals``' wrong totals, which
 the JAX kernel's (its own float32 sums in another order), and every element
 of an accumulator equal to the others.  The column sums of p11 within
 ``1e-6`` of each column's ``sum |a|`` of the float64 oracle and of the JAX
-kernel's.
+kernel's; the card kernel's summation order
+(``probes.grid_column_in_kernel_order``) within ``1e-6`` of the JAX
+kernel's too.
 """
 import ast
 import functools
@@ -198,6 +200,9 @@ def test_p11_grid_accum_matches_jax_kernel(jax_mosaic, seed):
     assert got.shape == want.shape == (1, jax_mosaic.Q)
     assert (np.abs(got[0] - a64.sum(0)) <= JAX_SUM_RTOL * terms).all()
     assert (np.abs(got[0] - want[0]) <= JAX_SUM_RTOL * terms).all()
+    # the card kernel's order (probes.grid_column_in_kernel_order) against the JAX kernel
+    order = probes.grid_column_in_kernel_order(torch.from_numpy(a)).numpy()
+    assert (np.abs(order[0] - want[0]) <= JAX_SUM_RTOL * terms).all()
 
 
 def test_block_total_accum_plain_version_adds_blocks_in_order():

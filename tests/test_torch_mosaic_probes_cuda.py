@@ -5,10 +5,13 @@ against their plain PyTorch versions, on the card.
 Needs an NVIDIA GPU and ``nvcc`` (``cuda`` marker): skipped elsewhere.  The
 file imports torch only, so the card runs it without JAX:
 ``python -m pytest --noconftest -q tests/test_torch_mosaic_probes_cuda.py``.
-The products and the accumulator run as one launch a call (the kernel
-nodes of a call captured into a CUDA graph); the accumulator's total is the
-order its source states, bit for bit, and its cooperative launch replays
-from a CUDA graph.  Tolerances, as the CLIs hold them: gathers, copies, ``2a`` and the r-ordered
+The products, the accumulator, p3's masked distance product and p11's
+column sums run as one launch a call (the kernel nodes of a call captured
+into a CUDA graph); the accumulator's total and the column sums are the
+orders their source states, bit for bit, and the accumulator's cooperative
+launch replays from a CUDA graph.  p3 also runs at two more shapes it takes
+(one whose rings wrap around), and both p3 and p11 refuse shapes they do
+not take, in the wrapper and in the C entry.  Tolerances, as the CLIs hold them: gathers, copies, ``2a`` and the r-ordered
 sums bit for bit; the accumulators' totals within ``1e-9 * sum |a|`` of
 the float64 total and the column sums within ``1e-6`` of each column's ``sum |a|`` (float32 sums
 in other orders); products within ``1e-5 * max |plain|`` (float32 sums in
@@ -23,6 +26,7 @@ import torch
 
 from se3conv3d_tpu_torch.experiments import bisect_accum, bisect_accum2, probe_cellconv, probe_mosaic
 from se3conv3d_tpu_torch.kernels import cellconv_probes, mosaic_probes, probes
+from se3conv3d_tpu_torch.kernels.build import library
 
 
 def _needs_card():
@@ -156,6 +160,114 @@ def test_masked_dist_product_at_the_radius_matches_plain():
     assert torch.equal(pne, plain) and torch.equal(pne.cpu(), cellconv_probes.masked_dist_pne(qp, cp))
     ref = cellconv_probes.masked_dist_product_reference(x["qp"], x["cp"], x["cf"])
     assert float((got - ref).abs().max()) <= probe_cellconv.P3_RTOL * float(ref.abs().max())
+
+
+# (NQ, NC, C, xyz row length): a shape whose candidates fill no group's
+# ring (3 slices for 4 groups, 3 channel tiles), and one whose rings wrap
+# around 8 times (1,024 candidates), beside the script's (2,048, 512, 128)
+P3_SHAPES = [(192, 96, 96, 3), (128, 1024, 64, 8)]
+
+
+def _p3_inputs(nq, nc, c, ld, seed):
+    """Uniform [0, 1) xyz (rows of ``ld``), standard normal features, with
+    every 7th candidate planted within the radius of a query, on the card."""
+    gen = torch.Generator().manual_seed(seed)
+    qp, cp = torch.rand(nq, ld, generator=gen), torch.rand(nc, ld, generator=gen)
+    near = torch.arange(0, nc, 7)
+    cp[near, :3] = qp[(near * 5) % nq, :3] + 0.05 * torch.rand(near.numel(), 3, generator=gen)
+    return qp.cuda(), cp.cuda(), torch.randn(nc, c, generator=gen).cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", P3_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_masked_dist_product_at_other_shapes_matches_plain(shape):
+    """At shapes the kernel takes besides the script's: pne bit for bit,
+    the product within ``P3_RTOL * max |plain|``, two calls the same bits."""
+    _needs_card()
+    qp, cp, cf = _p3_inputs(*shape, seed=15)
+    pne = torch.empty(qp.shape[0], cp.shape[0], device="cuda")
+    got = cellconv_probes.masked_dist_product(qp, cp, cf, pne)
+    again = cellconv_probes.masked_dist_product(qp, cp, cf)
+    torch.cuda.synchronize()
+    plain = cellconv_probes.masked_dist_pne(qp, cp)
+    assert int((plain != 0).sum()) > 0
+    assert torch.equal(pne, plain) and torch.equal(got, again)
+    ref = cellconv_probes.masked_dist_product_reference(qp, cp, cf)
+    assert float((got - ref).abs().max()) <= probe_cellconv.P3_RTOL * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+def test_masked_dist_product_is_one_launch():
+    _needs_card()
+    x = probe_cellconv.draw("p3", 16, "cuda")
+    pne = torch.empty(probe_cellconv.QB3 * probe_cellconv.Q3, probe_cellconv.CAND, device="cuda")
+    before = cellconv_probes.masked_dist_product.launches
+    assert _graph_node_types(lambda: cellconv_probes.masked_dist_product(x["qp"], x["cp"], x["cf"])) == [0]
+    assert _graph_node_types(lambda: cellconv_probes.masked_dist_product(x["qp"], x["cp"], x["cf"], pne)) == [0]
+    assert cellconv_probes.masked_dist_product.launches == before + 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(96, 96, 96), (128, 48, 64), (128, 96, 48), (0, 96, 64)])
+def test_masked_dist_product_refuses_shapes_it_does_not_take(shape):
+    """NQ not a multiple of 64, NC not of 32, C not of 32, or empty: the
+    wrapper raises ``ValueError`` and the C entry returns
+    ``cudaErrorInvalidValue`` (1); neither falls back to the plain version."""
+    _needs_card()
+    nq, nc, c = shape
+    qp, cp, cf = torch.rand(nq, 8, device="cuda"), torch.rand(nc, 8, device="cuda"), torch.randn(nc, c, device="cuda")
+    before = cellconv_probes.masked_dist_product.launches
+    with pytest.raises(ValueError, match="the kernel takes"):
+        cellconv_probes.masked_dist_product(qp, cp, cf)
+    out = torch.empty(max(nq, 1), c, device="cuda")
+    err = library("probe_cellconv").se3_probe_masked_dist_product(
+        qp.data_ptr(), 8, nq, cp.data_ptr(), 8, nc, cf.data_ptr(), c, out.data_ptr(), None,
+        torch.cuda.current_stream().cuda_stream)
+    assert err == 1 and cellconv_probes.masked_dist_product.launches == before
+
+
+# [S * TM, C]: p11's, odd widths (a partial 32-column chunk), many blocks,
+# and block sums past 48 KB of shared memory (the raised limit)
+COLUMN_SHAPES = [(8, 32), (3, 40), (16, 100), (2, 3000), (64, 256)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", COLUMN_SHAPES, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_grid_column_accum_sums_in_its_stated_order(shape):
+    """The kernel's column sums are :func:`probes.grid_column_in_kernel_order`'s
+    bit for bit (rows in order within each block of TM, then the blocks in
+    order, each from zero), and a second call gives the same bits."""
+    _needs_card()
+    s, c = shape
+    a = torch.randn(s * probes.TM, c, generator=torch.Generator().manual_seed(s + c)).cuda()
+    got, again = probes.grid_column_accum(a), probes.grid_column_accum(a)
+    assert torch.equal(got, probes.grid_column_in_kernel_order(a)) and torch.equal(got, again)
+
+
+@pytest.mark.cuda
+def test_grid_column_accum_is_one_launch():
+    _needs_card()
+    (a,) = probe_mosaic.draw("p11_grid_accum", 17, "cuda")
+    before = probes.grid_column_accum.launches
+    assert _graph_node_types(lambda: probes.grid_column_accum(a)) == [0]
+    assert probes.grid_column_accum.launches == before + 2
+
+
+@pytest.mark.cuda
+def test_grid_column_accum_refuses_block_sums_past_shared_memory():
+    """S * C block sums past the block's 227 KB: the wrapper raises
+    ``ValueError`` and the C entry returns ``cudaErrorInvalidValue`` (1)."""
+    _needs_card()
+    s = 2
+    c = probes.COLUMN_PARTIALS_MAX_BYTES // (4 * s) + 1
+    a = torch.zeros(s * probes.TM, c, device="cuda")
+    before = probes.grid_column_accum.launches
+    with pytest.raises(ValueError, match="block sums"):
+        probes.grid_column_accum(a)
+    out = torch.empty(1, c, device="cuda")
+    err = library("probe_accum").se3_probe_grid_column_accum(a.data_ptr(), s, probes.TM, c, out.data_ptr(),
+                                                             torch.cuda.current_stream().cuda_stream)
+    assert err == 1 and probes.grid_column_accum.launches == before
 
 
 @pytest.mark.cuda
