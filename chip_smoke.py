@@ -4349,18 +4349,52 @@ def probe_stage_cases(card, dev) -> dict:
     return cases
 
 
+# bisect_fused's probes with no single PyTorch call for the same function,
+# and why (printed where the library time would stand)
+BISECT_NO_LIBRARY = {
+    "s1_pne": "pne = gelu(geo . proj + bias) takes a product, the bias and a GELU: no one call",
+    "s2_agg": "the aggregation needs pne first (a product and a GELU), then a batched product: no one call",
+    "s3_swap": "pne, the aggregation and the relayout to [GQ, M, C]: no one call",
+    "b1_jvp_gelu": "gelu(a) + gelu'(a): no PyTorch call gives a GELU and its derivative together",
+    "b4_rank3_accum": "column sums broadcast to [GQ, C, O]: torch.sum, then a copy of the broadcast",
+}
+# the stages that end in the weight contraction: their library time is the
+# contraction alone (torch.bmm of a [GQ, MP, C] basis with W)
+BISECT_PRODUCT_ALONE = ("s4_wcontract", "s5_reduce", "s6_vmap")
+
+
+def bisect_stage_bounds(stage: str, mp: int, gd: int, written: int) -> dict:
+    """A ``bisect_fused`` stage's bound in whole-tensor mode: its inputs
+    read once (the bias too), its tensor written once, every product FLOP
+    (pne, the aggregation, the weight contraction) at the 3xTF32 ceiling,
+    where the kernel runs them (``bound_ms``); ``bound_fma_ms`` beside it is
+    the bound of a design that runs pne and the aggregation on the float32
+    FMA units, at their peak."""
+    from se3conv3d_tpu_torch.kernels import probes
+
+    work = probes.stage_work(stage, mp, gd, written)
+    work["bytes"] += 4.0 * probes.STAGE_GQ
+    return dict(**probe_bound(work, tensor_cores=True), bound_fma_ms=probe_bound(work)["bound_ms"])
+
+
 def probe_bisect_cases(card, dev) -> dict:
     """32c. ``bisect_fused``'s stage tensors at MP = 1024 (s1-s6) and the
     backward blocks b1-b5 at its shapes: kernel vs plain, two calls
     bitwise equal (b4: the block partials added in a fixed order), times
-    beside the bound and the one PyTorch call that computes the same
-    function where there is one."""
+    beside the bound (the stages on tensor cores, :func:`bisect_stage_bounds`,
+    with the FMA bound beside it) and the one PyTorch call that computes
+    the same function where there is one (s4-s6: the weight contraction
+    alone as ``torch.bmm``), or why there is none
+    (:data:`BISECT_NO_LIBRARY`)."""
     from se3conv3d_tpu_torch.experiments import bisect_fused as bf
     from se3conv3d_tpu_torch.kernels import probes
 
+    gen = torch.Generator(device=dev).manual_seed(39)
+    basis = torch.randn(bf.GQ, bf.MP, bf.C, device=dev, generator=gen)
     library = {"b2_gexp": lambda a: a.repeat_interleave(bf.Q, 0),
                "b3_dw2_contract11": lambda a, b: torch.bmm(a.transpose(1, 2), b),
-               "b5_merge_back": lambda a: torch.mul(a, 2.0)}
+               "b5_merge_back": lambda a: torch.mul(a, 2.0),
+               **{name: (lambda *xs: torch.bmm(basis, xs[4])) for name in BISECT_PRODUCT_ALONE}}
     kstage = {"s1_pne": "pne", "s2_agg": "agg", "s3_swap": "swap", "s4_wcontract": "wcontract",
               "s5_reduce": "reduce", "s6_vmap": "reduce"}
     side = torch.cuda.Stream(dev)
@@ -4381,24 +4415,37 @@ def probe_bisect_cases(card, dev) -> dict:
             plain_ms = cuda_ms(lambda: plain(*inputs), 5)
             lib_ms = graph_ms(lambda: library[name](*inputs), side) if name in library else None
         nin = sum(x.numel() for x in inputs)
+        fma_ms = None
         if name in kstage:  # the stage's inputs read once (bias too), its tensor written once
-            work = probes.stage_work(kstage[name], bf.MP, bf.GD, got.numel())
-            work["bytes"] += 4.0 * bf.GQ
+            bound = bisect_stage_bounds(kstage[name], bf.MP, bf.GD, got.numel())
+            fma_ms = bound.pop("bound_fma_ms")
         elif name == "b3_dw2_contract11":  # on tensor cores, 3xTF32
             gq, r, c = inputs[0].shape
-            work = {"product_flops": 2.0 * gq * r * c * inputs[1].shape[2], "bytes": 4.0 * (nin + got.numel())}
+            bound = probe_bound({"product_flops": 2.0 * gq * r * c * inputs[1].shape[2],
+                                 "bytes": 4.0 * (nin + got.numel())})
         else:  # elementwise and copies: bytes
-            work = {"bytes": 4.0 * (nin + got.numel())}
-        bound = probe_bound(work)
+            bound = probe_bound({"bytes": 4.0 * (nin + got.numel())})
+        if lib_ms is not None:
+            lib_text = (f"; the weight contraction alone (torch.bmm, the product alone) {lib_ms:.4f} ms"
+                        if name in BISECT_PRODUCT_ALONE else f"; one PyTorch call {lib_ms:.4f} ms")
+        else:
+            lib_text = f"; no single PyTorch call: {BISECT_NO_LIBRARY[name]}"
         print(f"probe {name}: shape {tuple(got.shape)} max_abs_err={err:.3e} max_rel_err={rel:.3e} (bound "
               f"{bf.RTOL:g}); two calls bitwise equal: {same}; kernel_ms={ms:.4f} (device, one call with its host "
               f"time {call_ms:.4f}) plain_ms={plain_ms:.4f} "
-              f"bound_ms={bound['bound_ms']:.4f} ({bound['bound_by']})"
-              + (f"; one PyTorch call {lib_ms:.4f} ms" if lib_ms is not None else "") + f" [{card}]", flush=True)
+              f"bound_ms={bound['bound_ms']:.4f} ({bound['bound_by']}"
+              + (f", tensor cores; FMA bound {fma_ms:.4f}, {100 * bound['bound_ms'] / ms:.1f}% of the bound reached"
+                 if fma_ms is not None else "") + ")"
+              + lib_text + f" [{card}]", flush=True)
         if not same:
             raise SystemExit(f"phase 32: {name} gave other bits on a second call")
         cases[name] = dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms, max_abs_err=err, max_rel_err=rel,
                            library_ms=lib_ms, **bound)
+        if fma_ms is not None:
+            cases[name]["bound_fma_ms"] = fma_ms
+        if lib_ms is None:
+            cases[name]["no_library"] = BISECT_NO_LIBRARY[name]
+    del basis
     torch.cuda.empty_cache()
     return cases
 
@@ -4456,7 +4503,9 @@ def probe_stream_cases(card, dev) -> dict:
 def probe_registers(card) -> dict:
     """32e. registers, local (stack and spill) bytes and shared memory of
     every instantiation of the staged forward (``cudaFuncGetAttributes``,
-    the counterpart of ``-Xptxas -v``, which phase 1 prints)."""
+    the counterpart of ``-Xptxas -v``, which phase 1 prints), and the
+    whole-tensor mode's grid at ``bisect_fused``'s MP."""
+    from se3conv3d_tpu_torch.experiments import bisect_fused
     from se3conv3d_tpu_torch.kernels import probes
 
     regs = {}
@@ -4466,8 +4515,10 @@ def probe_registers(card) -> dict:
             for dtype in KERNEL_DTYPES:
                 regs[f"{stage} tile-sum {dtype_name(dtype)}"] = probes.stage_kernel_attributes(stage, True, dtype)
     for key, a in regs.items():
+        grid = (f", {probes.stage_tensor_grid(key.split()[0], 1, bisect_fused.MP)['blocks']} blocks at MP = "
+                f"{bisect_fused.MP}" if " tensor " in key else "")
         print(f"probe_stage_fwd {key}: {a['registers']} registers, {a['local_bytes']} local bytes, "
-              f"{a['dynamic_smem']} bytes of dynamic shared memory, {a['blocks_per_sm']} block(s) an SM "
+              f"{a['dynamic_smem']} bytes of dynamic shared memory, {a['blocks_per_sm']} block(s) an SM{grid} "
               f"[{card}]", flush=True)
     return regs
 
@@ -4510,9 +4561,12 @@ def probe_entries(pr: dict) -> list:
         entry("probe_stage_fwd[tensor]", "stage_fwd", "experiments/bisect_fused.py:46",
               sum(fwd_by.get(k, 0) for k in ("pne", "agg", "swap", "wcontract", "reduce")),
               {**bis["s5_reduce"], "max_abs_err": max(bis[k]["max_abs_err"] for k in s_names)},
-              "bisect_fused s5_reduce MP=1024", by_stage={k: bis[k] for k in s_names}, launches_by_stage=fwd_by),
+              "bisect_fused s5_reduce MP=1024 (bound on tensor cores; library: the weight contraction alone, "
+              "torch.bmm)", bound_fma_ms=bis["s5_reduce"]["bound_fma_ms"], by_stage={k: bis[k] for k in s_names},
+              launches_by_stage=fwd_by),
         entry("probe_stage_fwd[tensor,batch]", "stage_fwd", "experiments/bisect_fused.py:193",
-              fwd_by.get("reduce[batch]", 0), bis["s6_vmap"], "bisect_fused s6_vmap MP=1024, batch 1"),
+              fwd_by.get("reduce[batch]", 0), bis["s6_vmap"], "bisect_fused s6_vmap MP=1024, batch 1 (library: the "
+              "weight contraction alone, torch.bmm)", bound_fma_ms=bis["s6_vmap"]["bound_fma_ms"]),
         *(entry(f"probe_{fn}", "bwd_ops", f"experiments/bisect_fused.py:{line}", main[fn], bis[name],
                 f"bisect_fused {name}") for fn, name, line in b_rows),
         entry("probe_column_sums[feat]", "stream", "experiments/chip_stream.py:37", width.get("64", 0),
@@ -4779,7 +4833,8 @@ def mosaic_library(device) -> dict:
 
 def mosaic_site_cases(card, dev, side) -> dict:
     """33b-c. the 16 probes of ``run_kernel`` at the JAX script's shapes:
-    copies bitwise, products within ``probe_mosaic.PRODUCT_RTOL`` of max |plain|;
+    copies bitwise (each with the path of its collapsed view,
+    ``mosaic_probes.copy_plan``), products within ``probe_mosaic.PRODUCT_RTOL`` of max |plain|;
     bounds from each probe's bytes and FLOPs (the products on tensor cores:
     float32 at the 3xTF32 ceiling, p10 at the bfloat16 peak; the FMA
     bound, every product FLOP at the float32 FMA peak, beside it as
@@ -4804,6 +4859,13 @@ def mosaic_site_cases(card, dev, side) -> dict:
             out[name]["bound_fma_ms"] = mosaic_fma_bound_ms(work)
             print(f"site probe_mosaic {name}: plan {mp.product_plans()[name]}; the FMA bound (every product FLOP "
                   f"at the float32 FMA peak) {out[name]['bound_fma_ms']:.4f} ms [{card}]", flush=True)
+        elif name in mp.COPY_VIEWS:  # strided_copy: the path of the collapsed view
+            view = mp.COPY_VIEWS[name](xs[0])
+            plan = mp.copy_plan(view.shape, view.stride(), mp._align(view.data_ptr()))
+            out[name]["copy_path"] = plan["path"]
+            print(f"site probe_mosaic {name}: view {tuple(view.shape)} strides {view.stride()} collapsed to "
+                  f"{plan['dims']} strides {plan['strides']}, the {plan['path']} path; {out[name]['ms']:.4f} ms "
+                  f"against the library's {out[name]['library_ms']:.4f} [{card}]", flush=True)
         del xs
     torch.cuda.empty_cache()
     return out

@@ -2,7 +2,7 @@
 """Old against new on one NVIDIA GPU: the probe kernels redesigned for
 Hopper, each checkout timed through its own wrappers, in turn.
 
-    python3 probe_ab.py ROOT [ROOT ...] [--rounds 2] [--m 65536] [--sets stage,mosaic,cellconv]
+    python3 probe_ab.py ROOT [ROOT ...] [--rounds 2] [--m 65536] [--sets stage,bisect,mosaic,copies,cellconv]
 
 Each ``ROOT`` is a checkout of this repository: ``.`` for this one, and
 for instance a parent commit unpacked beside it with ``git archive`` into
@@ -16,6 +16,10 @@ median of 5 replays):
 - ``stage``: ``probes.stage_sum`` on ``chip_stage_time``'s inputs at ``M``
   rows (every stage, float32 and bfloat16) and b3 ``probes.batched_contract``
   on ``bisect_fused``'s inputs, beside ``torch.bmm``;
+- ``bisect``: ``bisect_fused``'s s1-s6 (``probes.stage_forward``, the
+  whole-tensor mode, at MP = 1024), each two calls bit for bit, beside the
+  weight product alone (``torch.bmm`` of a ``[GQ, MP, C]`` basis with W),
+  and each stage's registers, local bytes, shared memory and blocks an SM;
 - ``mosaic``: every probe of ``mosaic_probes`` at the JAX script's shapes
   (the products of ``strided_product``, the six strided copies, p9 and
   p14), each beside its one PyTorch call (``chip_smoke.mosaic_library``:
@@ -25,6 +29,8 @@ median of 5 replays):
   and ``probes.block_total_accum`` at every ``bisect_accum`` trial and
   ``bisect_accum2`` combination, beside ``torch.sum(a)`` (and ``a * 2``
   where dfeat is written);
+- ``copies``: the six strided copies, p9 and p14 of ``mosaic`` alone
+  (cheap enough for many rounds);
 - ``cellconv``: p3 (``cellconv_probes.masked_dist_product``) at the JAX
   script's shape, beside ``torch.matmul(pne, cf)`` (its product alone).
 
@@ -36,7 +42,8 @@ kernel's registers and shared memory (``cudaFuncGetAttributes``).  Every
 root's stage sums must agree with the first root's within
 ``chip_smoke.PROBE_SCALAR_RTOL`` of the stage's sum of |values|, its b3,
 p3 and product probes with their plain versions within 1e-5 of the plain
-version's largest value (p3's pne bit for bit), its copies bit for bit,
+version's largest value (p3's pne bit for bit), its s1-s6 with theirs
+within ``bisect_fused.RTOL`` of the same, its copies bit for bit,
 p11's column sums within ``1e-6`` of each column's sum of |a|, its totals
 with the float64 total within ``bisect_accum.SUM_RTOL`` of sum |a|.  The last
 line is one JSON object: each median, its range, and the card's name and
@@ -57,8 +64,8 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
 B3_RTOL = 1e-5
-SETS = {"stage": ("probe_stage", "probe_bwd"), "mosaic": ("probe_mosaic", "probe_accum"),
-        "cellconv": ("probe_cellconv",)}
+SETS = {"stage": ("probe_stage", "probe_bwd"), "bisect": ("probe_stage",),
+        "mosaic": ("probe_mosaic", "probe_accum"), "copies": ("probe_mosaic",), "cellconv": ("probe_cellconv",)}
 
 
 def load_smoke():
@@ -120,19 +127,44 @@ def stage_times(res: dict, smoke, m: int, dev, side) -> None:
     res["ms"]["b3 torch.bmm"] = smoke.graph_ms(lambda: torch.bmm(x.transpose(1, 2), y), side)
 
 
-def mosaic_times(res: dict, smoke, dev, side) -> None:
+def bisect_times(res: dict, smoke, dev, side) -> None:
+    import torch
+    from se3conv3d_tpu_torch.experiments import bisect_fused as bf
+    from se3conv3d_tpu_torch.kernels import probes
+
+    names = [n for n in bf.STAGES if n.startswith("s")]
+    for i, name in enumerate(names):
+        inputs = bf.draw(name, 60 + i, dev)
+        fn = bf.STAGES[name]
+        got = fn(*inputs)
+        res["rel_err"][name] = bf.check(got, bf.REFERENCES[name](*inputs))
+        if not torch.equal(got, fn(*inputs)):
+            raise SystemExit(f"probe_ab: {name} gave other bits on a second call")
+        res["ms"][name] = smoke.graph_ms(lambda: fn(*inputs), side)
+    gen = torch.Generator(device=dev).manual_seed(66)
+    basis = torch.randn(bf.GQ, bf.MP, bf.C, device=dev, generator=gen)
+    res["ms"]["s4-s6 weight product alone torch.bmm"] = smoke.graph_ms(lambda: torch.bmm(basis, inputs[4]), side)
+    res["attrs"].update({f"stage_fwd<{s}>": probes.stage_kernel_attributes(s, False) for s in probes.STAGES})
+
+
+def mosaic_times(res: dict, smoke, dev, side, copies_only: bool = False) -> None:
     import torch
     from se3conv3d_tpu_torch.experiments import bisect_accum, bisect_accum2, probe_mosaic
     from se3conv3d_tpu_torch.kernels import mosaic_probes as mp, probes
 
     library = {**smoke.mosaic_library(dev), "p11_grid_accum": lambda a: torch.sum(a, 0)}
     names = [n for n, kind in mp.KIND.items() if kind == "product"]  # the products first, as before
-    for i, name in enumerate(names + [n for n in library if n not in names]):
+    names += [n for n in library if n not in names]
+    for i, name in enumerate(names):
+        if copies_only and mp.KIND[name] != "copy":
+            continue
         xs = probe_mosaic.draw(name, 500 + i, dev)
         fn = mp.PROBES[name]
         res["rel_err"][name] = probe_mosaic.check(name, xs, fn(*xs))
         res["ms"][name] = smoke.graph_ms(lambda: fn(*xs), side)
         res["ms"][f"{name} library"] = smoke.graph_ms(lambda: library[name](*xs), side)
+    if copies_only:
+        return
     cases = [(f"bisect_accum {name}", gn, bisect_accum.SHAPES[:n], d) for name, (gn, n, d) in bisect_accum.TRIALS.items()]
     cases += [(f"bisect_accum2 {bisect_accum2.tag(names, d)}", bisect_accum2.GRID,
                [bisect_accum2.SHAPES[n] for n in names], d) for names, d in bisect_accum2.COMBINATIONS]
@@ -173,15 +205,19 @@ def worker(root: Path, m: int, first: bool, sets: list) -> dict:
     res = {"ms": {}, "sums": {}, "terms": {}, "rel_err": {}, "attrs": {}}
     if first:
         t0 = time.perf_counter()
-        libs = build.build_libraries(names=tuple(lib for s in sets for lib in SETS[s]))
+        libs = build.build_libraries(names=tuple(dict.fromkeys(lib for s in sets for lib in SETS[s])))
         res["build_s"] = time.perf_counter() - t0
         res["sass"] = {name: sass_counts(path) for name, path in libs.items()}
     torch.backends.cuda.matmul.allow_tf32 = False
     dev, side = torch.device("cuda"), torch.cuda.Stream()
     if "stage" in sets:
         stage_times(res, smoke, m, dev, side)
+    if "bisect" in sets:
+        bisect_times(res, smoke, dev, side)
     if "mosaic" in sets:
         mosaic_times(res, smoke, dev, side)
+    elif "copies" in sets:
+        mosaic_times(res, smoke, dev, side, copies_only=True)
     if "cellconv" in sets:
         cellconv_times(res, smoke, dev, side)
     return res
@@ -234,7 +270,8 @@ def main() -> int:
                 print(sass_line(root, res), flush=True)
                 for k, v in res.get("attrs", {}).items():
                     print(f"[{root}] {k}: {v['registers']} registers, {v['local_bytes']} local bytes, "
-                          f"{v['static_smem']} + {v['dynamic_smem']} bytes of shared memory", flush=True)
+                          f"{v['static_smem']} + {v['dynamic_smem']} bytes of shared memory"
+                          + (f", {v['blocks_per_sm']} block(s) an SM" if "blocks_per_sm" in v else ""), flush=True)
             runs[root].append(res)
     first = runs[a.roots[0]][0]
     from se3conv3d_tpu_torch.experiments import bisect_accum

@@ -2,7 +2,7 @@
 """Variants of one probe kernel's source, built side by side and timed in
 turns on one NVIDIA GPU.
 
-    python3 probe_variants.py p3|p11 [--rounds 4]
+    python3 probe_variants.py p3|p11|stage|copy [--rounds 4] [--skip-diagnostics]
 
 Each variant is the kernel's source in this checkout with a few lines
 replaced (``KERNELS``); the first is the source as it stands.  Every
@@ -11,12 +11,16 @@ into its own library under the git-ignored ``kernels/_build/variants/``, and
 called through the same C entry as the wrapper calls on the same inputs;
 device ms per call from ``chip_smoke.graph_ms`` (a CUDA graph of 5 calls),
 round r in the listed order on even rounds and reversed on odd ones, the
-one PyTorch call (``torch.matmul(pne, cf)``, ``torch.sum(a, 0)``) timed
-after each round.  A variant marked ``diagnostic`` computes something else
+one PyTorch call (``torch.matmul(pne, cf)``, ``torch.sum(a, 0)``, the
+stage's weight product alone as ``torch.bmm``) timed after each round;
+``stage`` times the whole-tensor forward at each of s1-s5
+(``bisect_fused``'s inputs), ``copy`` the strided copy at each copy
+probe's view, beside ``.contiguous()`` of the same view.  A variant marked ``diagnostic`` computes something else
 (it drops work to show what that work costs) and is timed only; every
 other must give the plain version's result as the wrapper's checks hold
 it (p3: pne bit for bit, the product within ``P3_RTOL`` of max |plain|;
-p11: bit for bit ``probes.grid_column_in_kernel_order``).  Prints each
+p11: bit for bit ``probes.grid_column_in_kernel_order``; stage: each
+stage within ``bisect_fused.RTOL`` of max |plain|; copy: bit for bit).  Prints each
 variant's registers and spills (``-Xptxas -v``), its check, and the median
 and range of its times beside the card's name and power limit.  It runs on
 the card only.
@@ -43,6 +47,53 @@ _LO_RAW = [("// (d2 < 0.04) * (3 d2 + 1)", "__device__ __forceinline__ void spli
             "{\n  hi = to_tf32(x);\n  lo = __float_as_uint(x - __uint_as_float(hi));\n}\n\n// (d2 < 0.04) * (3 d2 + 1)"),
            ("split_tf32(", "split_raw(")]
 _AHEAD = "constexpr int kColAhead = 64;"
+_HI_ONLY = [("mma_tf32(p, al[ks], bh);", ""), ("mma_tf32(p, ah[ks], bl);", ""),
+            ("mma_tf32(p, pl[rr][n], bh);", ""), ("mma_tf32(p, ph[rr][n], bl);", ""),
+            ("        mma_tf32(p, al, bh);\n        mma_tf32(p, ah, bl);\n        mma_tf32(p, ah, bh);",
+             "        mma_tf32(p, ah, bh);")]
+_RING = "constexpr int ring_slots(int stage) { return stage >= kWcontract ? 2 : 3; }"
+_HI_ONLY = [("mma_tf32(p, al[ks], bh);", ""), ("mma_tf32(p, ah[ks], bl);", ""),
+            ("mma_tf32(p, pl[rr][n], bh);", ""), ("mma_tf32(p, ph[rr][n], bl);", ""),
+            ("        mma_tf32(p, al, bh);\n        mma_tf32(p, ah, bl);\n        mma_tf32(p, ah, bh);",
+             "        mma_tf32(p, ah, bh);")]
+_NO_AGG_MMA = [("mma_tf32(p, pl[rr][n], bh);", ""), ("mma_tf32(p, ph[rr][n], bl);", ""),
+               ("mma_tf32(p, ph[rr][n], bh);", "")]
+_NO_FEAT = [("    if (s + kRing - 1 < kSteps) load_step(s + kRing - 1);",
+             "    if (s + kRing - 1 < kSteps && s + kRing - 1 >= kFeat) load_step(s + kRing - 1);"),
+            ("    if (s < kSteps) load_step(s);", "    if (s < kSteps && s >= kFeat) load_step(s);")]
+_NO_STORES = [("          *reinterpret_cast<float4*>(dst) = v;", "          if (v.x == 12345.f) *reinterpret_cast<float4*>(dst) = v;")]
+_NO_W = [("    if (s + kRing - 1 < kSteps) load_step(s + kRing - 1);",
+          "    if (s + kRing - 1 < kFeat) load_step(s + kRing - 1);"),
+         ("    if (s < kSteps) load_step(s);", "    if (s < kFeat) load_step(s);")]
+_NOT_UNROLLED = [("#pragma unroll 2\n    for (int t = 0; t < kFeatSteps; ++t) {",
+                   "#pragma unroll 1\n    for (int t = 0; t < kFeatSteps; ++t) {"),
+                  ("#pragma unroll 2\n    for (int ks = 0; ks < kPC / kCT; ++ks) {",
+                   "#pragma unroll 1\n    for (int ks = 0; ks < kPC / kCT; ++ks) {")]
+_RAW_PNE = [("""    uint32_t ph[2][4][4], pl[2][4][4];
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr)
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        split_tf32(pne[rr][n][0], ph[rr][n][0], pl[rr][n][0]);
+        split_tf32(pne[rr][n][2], ph[rr][n][1], pl[rr][n][1]);
+        split_tf32(pne[rr][n][1], ph[rr][n][2], pl[rr][n][2]);
+        split_tf32(pne[rr][n][3], ph[rr][n][3], pl[rr][n][3]);
+      }
+""", ""), ("""          float p[4] = {0.f, 0.f, 0.f, 0.f};
+          mma_tf32(p, pl[rr][n], bh);
+          mma_tf32(p, ph[rr][n], bl);
+          mma_tf32(p, ph[rr][n], bh);""", """          uint32_t ph[4], pl[4];
+          split_tf32(pne[rr][n][0], ph[0], pl[0]);
+          split_tf32(pne[rr][n][2], ph[1], pl[1]);
+          split_tf32(pne[rr][n][1], ph[2], pl[2]);
+          split_tf32(pne[rr][n][3], ph[3], pl[3]);
+          float p[4] = {0.f, 0.f, 0.f, 0.f};
+          mma_tf32(p, pl, bh);
+          mma_tf32(p, ph, bl);
+          mma_tf32(p, ph, bh);""")]
+_COPY_THREADS = ("constexpr int kCopyThreads = 128;", "constexpr int kCopyThreads = 256;")
+_COPY_UNROLL2 = ("constexpr int kCopyUnroll = 4;", "constexpr int kCopyUnroll = 2;")
+_COPY_UNROLL8 = ("constexpr int kCopyUnroll = 4;", "constexpr int kCopyUnroll = 8;")
 KERNELS = {
     "p3": ("probe_cellconv.cu", "se3_probe_masked_dist_product",
            [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
@@ -59,6 +110,22 @@ KERNELS = {
             {"as built (64 rows ahead)": ([], False),
              "32 rows ahead": ([(_AHEAD, "constexpr int kColAhead = 32;")], False),
              "128 rows ahead": ([(_AHEAD, "constexpr int kColAhead = 128;")], False)}),
+    "stage": ("probe_stage_fwd.cu", "se3_probe_stage_fwd", [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+              {"as built": ([], False),
+               "feat and W steps not unrolled": (_NOT_UNROLLED, False),
+               "pne split at each use": (_RAW_PNE, False),
+               "W stages' ring of 3 slots": ([(_RING, _RING.replace("? 2 : 3", "? 3 : 3"))], False),
+               "one product a tile (hi.hi)": (_HI_ONLY, True),
+               "no W copies (W slots stale)": (_NO_W, True),
+               "no aggregation products": (_NO_AGG_MMA, True),
+               "no feat copies (feat slots stale)": (_NO_FEAT, True),
+               "s2 / s3 store nothing": (_NO_STORES, True)}),
+    "copy": ("probe_mosaic.cu", "se3_probe_strided_copy", [ctypes.c_void_p] + [ctypes.c_longlong] * 8
+             + [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p],
+             {"as built (128 threads, 4 float4s each)": ([], False),
+              "256 threads, 4 float4s each": ([_COPY_THREADS], False),
+              "128 threads, 2 float4s each": ([_COPY_UNROLL2], False),
+              "128 threads, 8 float4s each": ([_COPY_UNROLL8], False)}),
 }
 
 
@@ -77,12 +144,14 @@ def variant_source(src: str, edits) -> str:
     return src
 
 
-def build_variants(kernel: str) -> dict:
+def build_variants(kernel: str, skip_diagnostics: bool = False) -> dict:
     """{variant: (C entry, ptxas lines of the kernel)}, every variant
-    compiled at once."""
+    (but the diagnostic ones where ``skip_diagnostics``) compiled at once."""
     from se3conv3d_tpu_torch.kernels import build
 
     source, entry, argtypes, variants = KERNELS[kernel]
+    if skip_diagnostics:
+        variants = {k: v for k, v in variants.items() if not v[1]}
     csrc = build.SOURCES["probe_accum"].parent
     out_dir = build.BUILD_DIR / "variants"
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -94,7 +163,8 @@ def build_variants(kernel: str) -> dict:
         procs[name] = (path, subprocess.Popen([build._nvcc(), "-Xptxas=-v", *build.NVCC_FLAGS, "-I", str(csrc),
                                                "-o", str(path.with_suffix(".so")), str(path)],
                                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    kern_name = {"p3": "masked_dist_product", "p11": "grid_column_accum"}[kernel]
+    kern_name = {"p3": "masked_dist_product", "p11": "grid_column_accum", "stage": "stage_fwd",
+                 "copy": "copy_"}[kernel]
     built = {}
     for name, (path, proc) in procs.items():
         log, _ = proc.communicate()
@@ -106,6 +176,7 @@ def build_variants(kernel: str) -> dict:
                 on = kern_name in line
             elif on and ("registers" in line or "spill" in line):
                 lines.append(line.split(":", 1)[-1].strip())
+                on = on and "registers" not in line
         fn = getattr(ctypes.CDLL(str(path.with_suffix(".so"))), entry)
         fn.argtypes, fn.restype = argtypes, ctypes.c_int
         built[name] = (fn, "; ".join(lines))
@@ -164,10 +235,61 @@ def p11_calls(dev):
     return call, check, ("torch.sum(a, 0)", lambda: torch.sum(a, 0))
 
 
+def stage_calls(dev):
+    import torch
+    from se3conv3d_tpu_torch.experiments import bisect_fused as bf
+    from se3conv3d_tpu_torch.kernels import probes
+
+    geo, feat, proj, bias, w2 = bf.draw("s5_reduce", 464, dev)
+    refs = {s: probes.stage_forward_reference(geo, feat, proj, w2, bias, s) for s in probes.STAGES}
+
+    def call(fn, stage="reduce"):
+        out = torch.empty(refs[stage].shape, device=dev)
+        err = fn(geo.data_ptr(), feat.data_ptr(), proj.data_ptr(), bias.data_ptr(), w2.data_ptr(), None,
+                 out.data_ptr(), None, None, 1, bf.MP, bf.GD, probes.STAGES[stage], 0, 0,
+                 torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise SystemExit(f"probe_variants: CUDA error {err}")
+        return out
+
+    def check(fn):
+        errs = {s: float((call(fn, s) - r).abs().max() / r.abs().max()) for s, r in refs.items()}
+        return max(errs.values()) <= bf.RTOL, "max |kernel - plain| / max |plain| " + ", ".join(
+            f"{s} {e:.3e}" for s, e in errs.items())
+
+    basis = torch.randn(bf.GQ, bf.MP, bf.C, device=dev)
+    return call, check, ("s4-s6 weight product alone torch.bmm", lambda: torch.bmm(basis, w2))
+
+
+def copy_calls(dev):
+    import torch
+    from se3conv3d_tpu_torch.experiments import probe_mosaic
+    from se3conv3d_tpu_torch.kernels import mosaic_probes as mp
+
+    views = {name: view(probe_mosaic.draw(name, 466, dev)[0]) for name, view in mp.COPY_VIEWS.items()}
+
+    def call(fn, name="p5_lane_merge"):
+        v = views[name]
+        plan = mp.copy_plan(v.shape, v.stride(), mp._align(v.data_ptr()))
+        out = torch.empty(v.shape, device=dev)
+        err = fn(v.data_ptr(), *plan["dims"], *plan["strides"], mp.COPY_PATHS.index(plan["path"]), out.data_ptr(),
+                 torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise SystemExit(f"probe_variants: CUDA error {err}")
+        return out
+
+    def check(fn):
+        same = {name: torch.equal(call(fn, name), v.contiguous()) for name, v in views.items()}
+        return all(same.values()), f"bit for bit {same}"
+
+    return call, check, ("p5 .contiguous()", lambda: views["p5_lane_merge"].clone())
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("kernel", choices=sorted(KERNELS))
     ap.add_argument("--rounds", type=int, default=4)
+    ap.add_argument("--skip-diagnostics", action="store_true", help="time only the variants that keep the result")
     a = ap.parse_args()
     import torch
 
@@ -177,9 +299,10 @@ def main() -> int:
     smoke = load_smoke()
     card = smoke.card_line()
     torch.backends.cuda.matmul.allow_tf32 = False
-    built = build_variants(a.kernel)
+    built = build_variants(a.kernel, a.skip_diagnostics)
     dev, side = torch.device("cuda"), torch.cuda.Stream()
-    call, check, (lib_name, lib) = (p3_calls if a.kernel == "p3" else p11_calls)(dev)
+    call, check, (lib_name, lib) = {"p3": p3_calls, "p11": p11_calls, "stage": stage_calls,
+                                    "copy": copy_calls}[a.kernel](dev)
     diagnostic = {name: d for name, (_, d) in KERNELS[a.kernel][3].items()}
     for name, (fn, ptxas) in built.items():
         ok, what = check(fn)
@@ -187,11 +310,18 @@ def main() -> int:
         print(f"{name}: {ptxas}; {what}" + (" (diagnostic)" if diagnostic[name] else ""), flush=True)
         if not ok and not diagnostic[name]:
             raise SystemExit(f"probe_variants: {name!r} disagrees with the plain version")
-    ms = {name: [] for name in list(built) + [lib_name]}
-    names = list(built)
+    from se3conv3d_tpu_torch.kernels import mosaic_probes
+
+    stages = {"stage": ["pne", "agg", "swap", "wcontract", "reduce"],
+              "copy": list(mosaic_probes.COPY_VIEWS)}.get(a.kernel, [None])
+    names = [(name, st) for name in built for st in stages]
+    label = lambda name, st: name if st is None else f"{name} [{st}]"  # noqa: E731
+    ms = {label(*n): [] for n in names}
+    ms[lib_name] = []
     for r in range(a.rounds):
-        for name in (names if r % 2 == 0 else names[::-1]):
-            ms[name].append(smoke.graph_ms(lambda fn=built[name][0]: call(fn), side))
+        for name, st in (names if r % 2 == 0 else names[::-1]):
+            run = (lambda fn=built[name][0]: call(fn)) if st is None else (lambda fn=built[name][0], st=st: call(fn, st))
+            ms[label(name, st)].append(smoke.graph_ms(run, side))
         ms[lib_name].append(smoke.graph_ms(lib, side))
     for name, v in ms.items():
         print(f"{name:55s} median {statistics.median(v):.4f} ms, range {min(v):.4f}-{max(v):.4f} [{card}]",

@@ -79,7 +79,7 @@ _SIGNATURES = {
                        ("se3_probe_cellconv_attrs", [_I, _P], _I)],
     "probe_mosaic": [("se3_probe_strided_product", [_P, _P, _I] + [_L] * 6 + [_I] * 14 + [_P] * 2, _I),
                      ("se3_probe_product_attrs", [_I] * 5 + [_P], _I),
-                     ("se3_probe_strided_copy", [_P] + [_L] * 8 + [_P, _P], _I),
+                     ("se3_probe_strided_copy", [_P] + [_L] * 8 + [_I, _P, _P], _I),
                      ("se3_probe_blockdiag_build", [_P, _I, _I, _I, _P, _P], _I),
                      ("se3_probe_mid_write", [_P, _I, _I, _I, _P, _P], _I),
                      ("se3_probe_mosaic_attrs", [_I, _P], _I)],

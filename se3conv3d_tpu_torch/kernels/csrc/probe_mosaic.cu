@@ -1,5 +1,5 @@
 // The Mosaic pattern probes' sixteen one-block kernels, for NVIDIA Hopper
-// (sm_90a), as four kernels over a grid of tiles:
+// (sm_90a), as four functions over a grid of tiles:
 //
 //   strided_product:  out[b, i, j] = sum over k of A[b, i, k] * B[b, k, j], A and
 //                     B read through given strides, float32 or bfloat16
@@ -7,7 +7,7 @@
 //                     p10, p13, p15)
 //   strided_copy:     out[i0, i1, i2, i3] = x[sum_d i_d * s_d], the
 //                     reshapes, the slice and the transposes (p5-p7, p12,
-//                     p16, p17)
+//                     p16, p17), one of four kernels by the view's path
 //   blockdiag_build:  out[p, h*C + c, h'*E + e] = x[2p + h, c, e] if h == h',
 //                     else 0 (p9)
 //   mid_write:        out[m, q, :] = a[m, :] * q for q < Q (p14)
@@ -20,8 +20,9 @@
 // lower.  The port ports the function, not the one-block layout: these
 // arrays do not fit one block's 227 KB.  See
 // se3conv3d_tpu_torch/kernels/mosaic_probes.py for the wrappers, one per
-// probe, the plain PyTorch versions and product_plan, which picks each
-// product's tile, layouts, copy widths, depth split and stages.
+// probe, the plain PyTorch versions, product_plan, which picks each
+// product's tile, layouts, copy widths, depth split and stages, and
+// copy_plan, which collapses each copy's view and picks its path.
 //
 // What bounds them: each probe reads and writes at most a few MB and runs
 // at most 134 MFLOP (p8), so every bound is a few microseconds or less
@@ -63,9 +64,26 @@
 //   shared memory in rank order from zero.  One launch, no scratch in
 //   device memory, no atomics: two calls give the same bits.
 //
-// strided_copy moves 16 bytes a thread where the source's inner stride is 1
-// (every probe but p12's transpose, which reads 4 bytes a thread and writes
-// coalesced).
+// strided_copy moves at most 2 MB (p5, p6, p16: 1 MB in, 1 MB out), a
+// byte bound of 0.0006 ms, so a launch's latency (about 2 us) sets its
+// floor and what it adds per element decides whether it loses to clone /
+// contiguous.  The host collapses the view first (mosaic_probes.copy_plan:
+// size-1 dimensions dropped, a dimension merged into the next where its
+// stride is the next one's extent times stride), and the launch takes the
+// path the collapsed view allows:
+//
+// - kFlat (p5, p6, p16: one contiguous run): float4s with no index math;
+// - kRows (p7: rows of 32 floats at stride 64; p17: runs of 32 floats
+//   permuted): float4s, the index split by the collapsed extents with a
+//   32-bit multiply-high each (FastDiv), no division;
+// - kTile (p12's transpose): a 32 x 32 tile through shared memory (rows
+//   padded to 33), read along the source's contiguous axis and written
+//   along the output's, 128 bytes a warp each way;
+// - kScalar: any other view (an unaligned base, a stride not a multiple of
+//   4), a float a thread.
+//
+// kFlat and kRows issue 4 float4 loads a thread before their stores, with a
+// grid of at most 1,024 blocks of 128 threads (p5: 128 blocks).
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -476,33 +494,140 @@ bool copies_fit(const void* x, int esize, bool kc, long long s_b, long long s_r,
 // (cudaFuncSetAttribute, past the default 48 KB)
 int g_smem_max[2][kTiles][2][2];
 
+// --- strided_copy ----------------------------------------------------------------
+
+// The copy's paths, by the collapsed view (mosaic_probes.copy_plan: size-1
+// dimensions dropped, each dimension merged into the next where its stride
+// is the next one's extent times stride, at most 4 left):
+enum CopyPath : int {
+  kFlat = 0,    // one contiguous run: float4s, no index math
+  kRows = 1,    // rows of a multiple of 4 contiguous floats: float4s, 32-bit index math
+  kTile = 2,    // the second-to-last dimension contiguous, the last strided: a transpose
+                // through a 32 x 33 shared-memory tile, reads and writes 128 bytes a warp
+  kScalar = 3,  // any other view: a float a thread, 64-bit index math
+};
+constexpr int kCopyThreads = 128;   // kFlat, kRows
+constexpr int kCopyUnroll = 4;      // float4 loads a thread issues before its stores
+constexpr int kCopyMaxBlocks = 1024;
+constexpr int kTileThreads = 256;   // kTile: 32 x 8 threads over a 32 x 32 tile
+
 struct CopyDims {
   long long d[4];  // out's shape, contiguous
   long long s[4];  // the source's strides, in elements
 };
 
-// kVec: d[3] % 4 == 0, s[3] == 1, the other strides multiples of 4 and x
-// 16-byte aligned: one float4 a thread.
-template <bool kVec>
+// n / d for n < 2^31 by a multiply-high, an add and a shift: m and l from
+// the host (fast_div), l = ceil(log2 d), m = 2^32 (2^l - d) / d + 1
+struct FastDiv {
+  uint32_t d, m, l;
+};
+
+FastDiv fast_div(uint32_t d) {
+  uint32_t l = 0;
+  while ((1ULL << l) < d) ++l;
+  const uint64_t m = ((1ULL << 32) * ((1ULL << l) - d)) / d + 1;
+  return FastDiv{d, static_cast<uint32_t>(m), l};
+}
+
+__device__ __forceinline__ uint32_t div_of(uint32_t n, FastDiv f) { return (__umulhi(n, f.m) + n) >> f.l; }
+
+// out[i] = x[i], n4 float4s (x and out 16-byte aligned), then the n % 4
+// tail; block b copies runs of kCopyUnroll x kCopyThreads float4s, its
+// loads issued before its stores
+__global__ void __launch_bounds__(kCopyThreads)
+copy_flat(const float4* __restrict__ x, float4* __restrict__ out, int n4, int tail) {
+  constexpr int kPer = kCopyThreads * kCopyUnroll;
+  for (int base = blockIdx.x * kPer + threadIdx.x; base < n4; base += gridDim.x * kPer) {
+    float4 v[kCopyUnroll];
+#pragma unroll
+    for (int k = 0; k < kCopyUnroll; ++k)
+      if (base + k * kCopyThreads < n4) v[k] = __ldg(x + base + k * kCopyThreads);
+#pragma unroll
+    for (int k = 0; k < kCopyUnroll; ++k)
+      if (base + k * kCopyThreads < n4) out[base + k * kCopyThreads] = v[k];
+  }
+  if (blockIdx.x == 0 && static_cast<int>(threadIdx.x) < tail)
+    reinterpret_cast<float*>(out + n4)[threadIdx.x] = __ldg(reinterpret_cast<const float*>(x + n4) + threadIdx.x);
+}
+
+// out [d0, d1, d2, d3] = x[i0 s0 + i1 s1 + i2 s2 + i3], d3 = 4 q3, the
+// strides multiples of 4, x 16-byte aligned: float4 i of out is (i0, i1, i2,
+// 4 i3), every offset below 2^31
+struct RowsArgs {
+  FastDiv q3, d2, d1;
+  int s0, s1, s2, n4;
+};
+
+__global__ void __launch_bounds__(kCopyThreads)
+copy_rows(const float* __restrict__ x, RowsArgs a, float4* __restrict__ out) {
+  constexpr int kPer = kCopyThreads * kCopyUnroll;
+  for (int base = blockIdx.x * kPer + threadIdx.x; base < a.n4; base += gridDim.x * kPer) {
+    float4 v[kCopyUnroll];
+#pragma unroll
+    for (int k = 0; k < kCopyUnroll; ++k) {
+      const uint32_t i = static_cast<uint32_t>(base + k * kCopyThreads);
+      if (i < static_cast<uint32_t>(a.n4)) {
+        const uint32_t r = div_of(i, a.q3), r2 = div_of(r, a.d2), i0 = div_of(r2, a.d1);
+        const int src = static_cast<int>(i0) * a.s0 + static_cast<int>(r2 - i0 * a.d1.d) * a.s1 +
+                        static_cast<int>(r - r2 * a.d2.d) * a.s2 + 4 * static_cast<int>(i - r * a.q3.d);
+        v[k] = __ldg(reinterpret_cast<const float4*>(x + src));
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kCopyUnroll; ++k)
+      if (base + k * kCopyThreads < a.n4) out[base + k * kCopyThreads] = v[k];
+  }
+}
+
+// out [d0, d1, A, B] = x[i0 s0 + i1 s1 + a + b sB]: block (batch, tile)
+// moves one 32 x 32 tile of out[i0, i1] through shared memory, reading
+// along a (x's stride 1) and writing along b, every offset below 2^31
+struct TileArgs {
+  FastDiv d1, tiles, tiles_b;
+  int A, B, sB, s0, s1;
+};
+
+__global__ void __launch_bounds__(kTileThreads)
+copy_tile(const float* __restrict__ x, TileArgs p, float* __restrict__ out) {
+  __shared__ float tile[32][33];
+  const uint32_t blk = blockIdx.x, batch = div_of(blk, p.tiles), t = blk - batch * p.tiles.d;
+  const uint32_t ta = div_of(t, p.tiles_b), i0 = div_of(batch, p.d1);
+  const int a0 = 32 * static_cast<int>(ta), b0 = 32 * static_cast<int>(t - ta * p.tiles_b.d);
+  const float* src = x + static_cast<int>(i0) * p.s0 + static_cast<int>(batch - i0 * p.d1.d) * p.s1;
+  float* dst = out + static_cast<int>(batch) * p.A * p.B;
+  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int a = a0 + tx, b = b0 + ty + 8 * k;
+    if (a < p.A && b < p.B) tile[ty + 8 * k][tx] = __ldg(src + a + b * p.sB);
+  }
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int a = a0 + ty + 8 * k, b = b0 + tx;
+    if (a < p.A && b < p.B) dst[a * p.B + b] = tile[tx][ty + 8 * k];
+  }
+}
+
+// any strides: one float a thread, 64-bit index math
 __global__ void __launch_bounds__(kThreads)
-strided_copy(const float* __restrict__ x, CopyDims c, float* __restrict__ out, long long n) {
-  const int w = kVec ? 4 : 1;
-  const long long d3 = c.d[3] / w;
+copy_scalar(const float* __restrict__ x, CopyDims c, float* __restrict__ out, long long n) {
   for (long long i = blockIdx.x * static_cast<long long>(kThreads) + threadIdx.x; i < n;
        i += static_cast<long long>(gridDim.x) * kThreads) {
     long long r = i;
-    const long long i3 = r % d3;
-    r /= d3;
+    const long long i3 = r % c.d[3];
+    r /= c.d[3];
     const long long i2 = r % c.d[2];
     r /= c.d[2];
     const long long i1 = r % c.d[1];
     const long long i0 = r / c.d[1];
-    const long long src = i0 * c.s[0] + i1 * c.s[1] + i2 * c.s[2] + i3 * w * c.s[3];
-    if (kVec)
-      reinterpret_cast<float4*>(out)[i] = __ldg(reinterpret_cast<const float4*>(x + src));
-    else
-      out[i] = __ldg(x + src);
+    out[i] = __ldg(x + i0 * c.s[0] + i1 * c.s[1] + i2 * c.s[2] + i3 * c.s[3]);
   }
+}
+
+inline unsigned copy_grid(long long n4) {
+  const long long b = (n4 + kCopyThreads * kCopyUnroll - 1) / (kCopyThreads * kCopyUnroll);
+  return static_cast<unsigned>(b < 1 ? 1 : (b < kCopyMaxBlocks ? b : kCopyMaxBlocks));
 }
 
 // x [2P, C, E] -> out [P, 2C, 2E], one float4 of out a thread; E % 4 == 0
@@ -596,22 +721,54 @@ extern "C" int se3_probe_product_attrs(int use_bf16, int tile, int a_kc, int b_k
 }
 
 // out [d0, d1, d2, d3] float32 contiguous = x[i0*s0 + i1*s1 + i2*s2 + i3*s3]
+// by `path` (CopyPath), the view collapsed as mosaic_probes.copy_plan does;
+// cudaErrorInvalidValue where the path does not fit the view (kFlat: d0 =
+// d1 = d2 = 1, s3 = 1; kRows: s3 = 1, d3 a multiple of 4 and the other
+// strides of 4; kTile: s2 = 1; both vector paths x and out 16-byte aligned,
+// every path but kScalar every offset below 2^31)
 extern "C" int se3_probe_strided_copy(const void* x, long long d0, long long d1, long long d2, long long d3,
-                                      long long s0, long long s1, long long s2, long long s3, void* out,
+                                      long long s0, long long s1, long long s2, long long s3, int path, void* out,
                                       void* stream_ptr) {
-  if (d0 < 1 || d1 < 1 || d2 < 1 || d3 < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const CopyDims c{{d0, d1, d2, d3}, {s0, s1, s2, s3}};
+  if (d0 < 1 || d1 < 1 || d2 < 1 || d3 < 1 || s0 < 0 || s1 < 0 || s2 < 0 || s3 < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   const long long n = d0 * d1 * d2 * d3;
-  const bool vec = d3 % 4 == 0 && s3 == 1 && s0 % 4 == 0 && s1 % 4 == 0 && s2 % 4 == 0 &&
-                   reinterpret_cast<uintptr_t>(x) % 16 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  const long long top = (d0 - 1) * s0 + (d1 - 1) * s1 + (d2 - 1) * s2 + (d3 - 1) * s3;
+  const bool small = n < (1LL << 31) && top < (1LL << 31);
+  const bool aligned = reinterpret_cast<uintptr_t>(x) % 16 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  if (vec)
-    strided_copy<true><<<grid_for(n / 4), kThreads, 0, stream>>>(static_cast<const float*>(x), c,
-                                                                 static_cast<float*>(out), n / 4);
-  else
-    strided_copy<false><<<grid_for(n), kThreads, 0, stream>>>(static_cast<const float*>(x), c,
-                                                              static_cast<float*>(out), n);
-  return static_cast<int>(cudaGetLastError());
+  const float* xf = static_cast<const float*>(x);
+  float* of = static_cast<float*>(out);
+  switch (path) {
+    case kFlat:
+      if (d0 != 1 || d1 != 1 || d2 != 1 || s3 != 1 || !small || !aligned) break;
+      copy_flat<<<copy_grid(n / 4), kCopyThreads, 0, stream>>>(static_cast<const float4*>(x),
+                                                                static_cast<float4*>(out), static_cast<int>(n / 4),
+                                                                static_cast<int>(n % 4));
+      return static_cast<int>(cudaGetLastError());
+    case kRows: {
+      if (s3 != 1 || d3 % 4 != 0 || s0 % 4 != 0 || s1 % 4 != 0 || s2 % 4 != 0 || !small || !aligned) break;
+      const RowsArgs a{fast_div(static_cast<uint32_t>(d3 / 4)), fast_div(static_cast<uint32_t>(d2)),
+                       fast_div(static_cast<uint32_t>(d1)), static_cast<int>(s0), static_cast<int>(s1),
+                       static_cast<int>(s2), static_cast<int>(n / 4)};
+      copy_rows<<<copy_grid(n / 4), kCopyThreads, 0, stream>>>(xf, a, static_cast<float4*>(out));
+      return static_cast<int>(cudaGetLastError());
+    }
+    case kTile: {
+      if (s2 != 1 || !small) break;
+      const long long tiles_a = (d2 + 31) / 32, tiles_b = (d3 + 31) / 32;
+      const TileArgs p{fast_div(static_cast<uint32_t>(d1)), fast_div(static_cast<uint32_t>(tiles_a * tiles_b)),
+                       fast_div(static_cast<uint32_t>(tiles_b)), static_cast<int>(d2), static_cast<int>(d3),
+                       static_cast<int>(s3), static_cast<int>(s0), static_cast<int>(s1)};
+      copy_tile<<<static_cast<unsigned>(d0 * d1 * tiles_a * tiles_b), kTileThreads, 0, stream>>>(xf, p, of);
+      return static_cast<int>(cudaGetLastError());
+    }
+    case kScalar:
+      copy_scalar<<<grid_for(n), kThreads, 0, stream>>>(xf, CopyDims{{d0, d1, d2, d3}, {s0, s1, s2, s3}}, of, n);
+      return static_cast<int>(cudaGetLastError());
+    default:
+      break;
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // x [2P, C, E] -> out [P, 2C, 2E], float32, 16-byte aligned, E % 4 == 0
@@ -632,15 +789,18 @@ extern "C" int se3_probe_mid_write(const void* a, int M, int Q, int C, void* out
   return static_cast<int>(cudaGetLastError());
 }
 
-// attrs[0..3] of kernel `which`: 0 strided_copy<vec>, 1
-// strided_copy<scalar>, 2 blockdiag_build, 3 mid_write (probe_common.cuh:
-// kernel_attrs; the products' by se3_probe_product_attrs).
+// attrs[0..3] of kernel `which`: 0-3 strided_copy's copy_flat,
+// copy_rows, copy_tile, copy_scalar, 4 blockdiag_build, 5 mid_write
+// (probe_common.cuh: kernel_attrs; the products' by
+// se3_probe_product_attrs).
 extern "C" int se3_probe_mosaic_attrs(int which, int* attrs) {
   switch (which) {
-    case 0: return kernel_attrs(strided_copy<true>, 0, attrs);
-    case 1: return kernel_attrs(strided_copy<false>, 0, attrs);
-    case 2: return kernel_attrs(blockdiag_build, 0, attrs);
-    case 3: return kernel_attrs(mid_write, 0, attrs);
+    case 0: return kernel_attrs(copy_flat, 0, attrs);
+    case 1: return kernel_attrs(copy_rows, 0, attrs);
+    case 2: return kernel_attrs(copy_tile, 0, attrs);
+    case 3: return kernel_attrs(copy_scalar, 0, attrs);
+    case 4: return kernel_attrs(blockdiag_build, 0, attrs);
+    case 5: return kernel_attrs(mid_write, 0, attrs);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -32,6 +32,57 @@
 // See se3conv3d_tpu_torch/kernels/probes.py for the wrapper and the plain
 // PyTorch version.
 //
+// What bounds the tensor mode (MP = 1024 rows, D = 18): s1 writes 8.4 MB
+// of pne and s2-s4 16.8 MB of basis or per_gq beside 2.4 MB of geo and 8.4
+// MB of feat, so they are bound by bytes (0.003-0.009 ms at 3.35 TB/s);
+// s5 / s6 write 0.5 MB and run 0.88 GFLOP (pne 0.08, aggregation 0.27,
+// weight product 0.54), bound by operations at the 3xTF32 ceiling (0.005
+// ms at a third of 495 TFLOP/s).  At these sizes a launch costs about 2
+// us, mma.sync reaches a fraction of that ceiling, and each block's loads,
+// products and stores follow one another, so what decides the time is how
+// many SMs work and how much of each block's chain overlaps.  The design
+// (stage_fwd):
+//
+// - the whole card: a block of 8 warps for each (16-row tile, chunk of 16
+//   gq), 256 blocks at MP = 1024, two resident an SM (at most 112 KB of
+//   shared memory, at most 128 registers a thread, no local memory); warp w
+//   owns tile rows 2w, 2w + 1.  The reduce stage sums over the out-frame's
+//   two chunks: their blocks form a cluster of 2 and add their partial
+//   tiles through distributed shared memory in chunk order, so no sum
+//   crosses a launch and no atomic is needed.  Each block reads its tile's
+//   geo and feat (the 4 chunks of a tile from L2) and its chunk's 256 KB of
+//   W (64 MB from L2 at MP = 1024 for s4-s6, what a 16-row tile costs).
+// - geo reaches each warp's scratch in shared memory by cp.async, a row a
+//   group, so that row 0's pne starts while row 1's lands.  pne on mma.sync
+//   m16n8k8 in 3xTF32: pre^T[16 gq][32 edges] a row, the bias folded in as
+//   row D of the product (geo reads a one there, depth padded with zeros to
+//   24), GELU (tanh form) applied to the accumulator.  pne stays in
+//   registers, split into its TF32 halves once: the aggregation reads each
+//   lane's own accumulator values as its A fragment (the depth index
+//   relabelled, edge 2 tig + {0, 1}).  s1 stages each row in the scratch
+//   and writes it with 16-byte stores.
+// - the aggregation basis[16 gq][8 c] = pne^T . feat per row and feat
+//   group on mma.sync 3xTF32.  feat streams through a ring of slots of 2 KB
+//   a warp (cp.async, the warp's own two rows, so no block barrier; the
+//   32-byte edge rows of each line permuted for conflict-free fragment
+//   reads), never held whole.  s2 and s3 write each group from registers:
+//   lanes tig, tig ^ 1 trade a pair, so that each stores 4 channels of one
+//   q as a 16-byte store along C, and the stores stream while the next
+//   groups compute; s4 / s5 put it in the chunk's basis in shared memory
+//   ([16 q][16 rows][64 c], 64 KB, 16-byte chunks XOR-swizzled).
+// - the weight contraction D[16 rows][64 o] += basis[q][rows][8 c] .
+//   W[gq0 + q][8 c][64 o] on mma.sync 3xTF32, warp w over its q = 2w, 2w +
+//   1; W's 2 KB k-steps come through the same ring as feat (3 slots for
+//   the feat-only stages, 2 beside the basis, which measured faster than
+//   3), the rows of a slot swizzled for the B fragments.  s4 writes each
+//   q's tile through its own dead basis rows as a 4 KB run of 16-byte
+//   stores along O; s5 / s6 add the 8 warps' tiles in warp order, then the
+//   cluster's.
+// - each 8-deep product slice is summed into a zeroed tile and added to the
+//   running sum by a rounded float32 add (the tensor cores' own adds
+//   truncate), as the port's conv kernels; every sum runs in a fixed
+//   order, so two calls give the same bits.
+//
 // What bounds the tile-sum forward (chip_stage_time's M = 65,536): 5.10 +
 // 17.18 + 34.36 GFLOP (pne, aggregation, weight product), against 159 MB
 // of geo, 537 MB of feat and 34 MB of output (0.22 ms at 3.35 TB/s).  On
@@ -80,232 +131,30 @@
 //   ran it, and the partials are added in tile order (sum_partials_fixed):
 //   two calls give the same bits.
 
+#include <cooperative_groups.h>
 #include <stdint.h>
 
 #include "fused_equiv_common.cuh"
 #include "probe_common.cuh"
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kPE = 32, kPGQ = 64, kPQ = 32, kPG = 2, kPC = 64, kPO = 64;
+constexpr int kPE = 32, kPGQ = 64, kPG = 2, kPC = 64, kPO = 64;
 constexpr int kDMax = 19;
 
 enum Stage : int { kPne = 0, kAgg = 1, kSwap = 2, kWcontract = 3, kReduce = 4 };
 enum Mode : int { kTensor = 0, kTileSum = 1 };
 
-__device__ __forceinline__ void cp_wait_all_but_one() { asm volatile("cp.async.wait_group 1;" ::: "memory"); }
-__device__ __forceinline__ void cp_wait_all() { asm volatile("cp.async.wait_group 0;" ::: "memory"); }
+// wait until at most N of this thread's newest cp.async groups are pending
+template <int N>
+__device__ __forceinline__ void cp_wait_but() { asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory"); }
+__device__ __forceinline__ void cp_wait_all() { cp_wait_but<0>(); }
 __device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;" ::: "memory"); }
 
-// ============================================================================
-// Tensor mode: stage_fwd, float32 with the bias (the first design).  A block
-// of 256 threads owns kRows = 16 query rows, stages their geo and feat in
-// shared memory with cp.async and walks the GQ columns in chunks of kQL = 8:
-// pne by float FMAs, the aggregation as an 8 x 4 FMA tile a thread, the
-// swap into shared memory as [ql][rows][C] (rows padded to 68 floats), the
-// contraction on mma.sync 3xTF32 with W fragments from L2.
-// ============================================================================
-
-constexpr int kRows = 16;                // query rows per block (and per tile-sum tile)
+constexpr int kRows = 16;                // query rows a tile (both modes)
 constexpr int kEdges = kRows * kPE;      // 512
-constexpr int kQL = 8;                   // gq columns per chunk
-constexpr int kChunks = kPGQ / kQL;
-constexpr int kThreads = 256;
-constexpr int kBStride = kPC + 4;        // a basis row in shared memory
-
-// shared memory, in floats; every region starts on 16 bytes
-constexpr int kOffProj = 0;                               // [D][GQ]
-constexpr int kOffBias = kOffProj + kDMax * kPGQ;         // [GQ]
-constexpr int kOffGeo = kOffBias + kPGQ;                  // [kEdges][D]
-constexpr int kOffPne = kOffGeo + kEdges * kDMax;         // [kEdges][kQL]
-constexpr int kOffFeat = kOffPne + kEdges * kQL;          // [kRows][E][C]
-constexpr int kOffBasis = kOffFeat + kRows * kPE * kPC;   // [kQL][kRows][kBStride]
-constexpr int kSmemFloats = kOffBasis + kQL * kRows * kBStride;
-static_assert(kOffGeo % 4 == 0 && kOffPne % 4 == 0 && kOffFeat % 4 == 0 && kOffBasis % 4 == 0,
-              "16-byte regions");
-static_assert(kSmemFloats * 4 <= kSmemMax, "one block's shared memory");
-
-constexpr int stage_smem_bytes(int stage) {
-  return 4 * (stage == kPne ? kOffFeat : (stage == kAgg ? kOffBasis : kSmemFloats));
-}
-
-// acc (this warp's m16n8 tile: rows 0..15, columns n0 .. n0+7) += as [16][64]
-// (row stride kBStride) . wq [64][kPO], 3xTF32.
-__device__ __forceinline__ void contract_chunk_row(float* acc, const float* as, const float* __restrict__ wq,
-                                                   int n0, int gid, int tig) {
-#pragma unroll
-  for (int k0 = 0; k0 < kPC; k0 += 8) {
-    uint32_t ah[4], al[4], bh[2], bl[2];
-#pragma unroll
-    for (int v = 0; v < 4; ++v)
-      split_tf32(as[(gid + 8 * (v & 1)) * kBStride + k0 + tig + 4 * (v >> 1)], ah[v], al[v]);
-#pragma unroll
-    for (int v = 0; v < 2; ++v) split_tf32(__ldg(wq + (k0 + tig + 4 * v) * kPO + n0 + gid), bh[v], bl[v]);
-    float part[4] = {0.f, 0.f, 0.f, 0.f};
-    mma_tf32(part, al, bh);
-    mma_tf32(part, ah, bl);
-    mma_tf32(part, ah, bh);
-#pragma unroll
-    for (int v = 0; v < 4; ++v) acc[v] += part[v];
-  }
-}
-
-// Block (x, y) owns query rows m0 = 16x .. 16x + 15 of batch y.  Tensors,
-// batch leading: geo [B, M*E, D], feat [B, M, E, C], proj [D, GQ], bias
-// [GQ], W [GQ, C, O]; out by stage: pne [B, M*E, GQ], basis_t [B, M, GQ, C],
-// basis_b [B, GQ, M, C], per_gq [B, GQ, M, O], out [B, G, M, O].
-template <int kStage>
-__global__ void __launch_bounds__(kThreads, 1)
-stage_fwd(const float* __restrict__ geo, const float* __restrict__ feat, const float* __restrict__ proj,
-          const float* __restrict__ bias, const float* __restrict__ w, float* __restrict__ out, int M,
-          int D) {
-  extern __shared__ __align__(16) float smem[];
-  float* projS = smem + kOffProj;
-  float* biasS = smem + kOffBias;
-  float* geoS = smem + kOffGeo;
-  float* pneS = smem + kOffPne;
-  float* featS = smem + kOffFeat;
-  float* basisS = smem + kOffBasis;
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int b = blockIdx.y, m0 = blockIdx.x * kRows;
-  const long long row0 = static_cast<long long>(b) * M + m0;  // the block's first row, batch-flat
-
-  // geo (copy group 0), then feat (group 1)
-  {
-    const float* src = geo + row0 * kPE * D;
-    for (int i = tid; i < kEdges * D / 4; i += kThreads) cp_async16(geoS + 4 * i, src + 4 * i, 16);
-  }
-  cp_commit();
-  if constexpr (kStage >= kAgg) {
-    const float* src = feat + row0 * kPE * kPC;
-    for (int i = tid; i < kRows * kPE * kPC / 4; i += kThreads) cp_async16(featS + 4 * i, src + 4 * i, 16);
-  }
-  cp_commit();
-  for (int i = tid; i < D * kPGQ; i += kThreads) projS[i] = proj[i];
-  for (int i = tid; i < kPGQ; i += kThreads) biasS[i] = bias[i];
-  cp_wait_all_but_one();
-  __syncthreads();
-
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};       // the weight product's m16n8 tile
-  const int gid = lane >> 2, tig = lane & 3, n0 = warp * 8;
-  const int ar = tid >> 4, c4 = (tid & 15) * 4;  // aggregation: row ar, channels c4 .. c4+3
-
-  for (int ch = 0; ch < kChunks; ++ch) {
-    const int gq0 = ch * kQL;
-    // 1. pne of the chunk's kQL columns for edges tid and tid + 256
-#pragma unroll
-    for (int h = 0; h < kEdges / kThreads; ++h) {
-      const int e = tid + h * kThreads;
-      const float* gr = geoS + e * D;
-      float pre[kQL];
-#pragma unroll
-      for (int j = 0; j < kQL; ++j) pre[j] = 0.f;
-      for (int k = 0; k < D; ++k) {
-        const float x = gr[k];
-        const float4 q0 = *reinterpret_cast<const float4*>(projS + k * kPGQ + gq0);
-        const float4 q1 = *reinterpret_cast<const float4*>(projS + k * kPGQ + gq0 + 4);
-        const float pk[kQL] = {q0.x, q0.y, q0.z, q0.w, q1.x, q1.y, q1.z, q1.w};
-#pragma unroll
-        for (int j = 0; j < kQL; ++j) pre[j] = fmaf(x, pk[j], pre[j]);
-      }
-      float p[kQL];
-#pragma unroll
-      for (int j = 0; j < kQL; ++j) p[j] = gelu_tanh(pre[j] + biasS[gq0 + j]);
-      float4* dst = reinterpret_cast<float4*>(kStage == kPne ? out + (row0 * kPE + e) * kPGQ + gq0
-                                                             : pneS + e * kQL);
-      dst[0] = make_float4(p[0], p[1], p[2], p[3]);
-      dst[1] = make_float4(p[4], p[5], p[6], p[7]);
-    }
-    if constexpr (kStage != kPne) {
-      if (ch == 0) cp_wait_all();
-      __syncthreads();  // the chunk's pne rows (and, first, feat) are in
-      // 2. basis[ql][ar][c4 + i] = sum_e pne[ar, e, ql] * feat[ar, e, c4 + i]
-      float a[kQL][4];
-#pragma unroll
-      for (int j = 0; j < kQL; ++j)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) a[j][i] = 0.f;
-      const float* pr = pneS + ar * kPE * kQL;
-      const float* fr = featS + ar * kPE * kPC + c4;
-#pragma unroll 4
-      for (int e = 0; e < kPE; ++e) {
-        const float4 f = *reinterpret_cast<const float4*>(fr + e * kPC);
-        const float4 p0 = *reinterpret_cast<const float4*>(pr + e * kQL);
-        const float4 p1 = *reinterpret_cast<const float4*>(pr + e * kQL + 4);
-        const float pv[kQL] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
-        const float fv[4] = {f.x, f.y, f.z, f.w};
-#pragma unroll
-        for (int j = 0; j < kQL; ++j)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) a[j][i] = fmaf(pv[j], fv[i], a[j][i]);
-      }
-      if constexpr (kStage == kAgg) {
-#pragma unroll
-        for (int j = 0; j < kQL; ++j)
-          *reinterpret_cast<float4*>(out + ((row0 + ar) * kPGQ + gq0 + j) * kPC + c4) =
-              make_float4(a[j][0], a[j][1], a[j][2], a[j][3]);
-      } else {
-        // 3. the swap: the chunk's basis into shared memory as [ql][rows][C]
-#pragma unroll
-        for (int j = 0; j < kQL; ++j)
-          *reinterpret_cast<float4*>(basisS + (j * kRows + ar) * kBStride + c4) =
-              make_float4(a[j][0], a[j][1], a[j][2], a[j][3]);
-        __syncthreads();
-        if constexpr (kStage == kSwap) {
-          // read back in another mapping: float4 f of the chunk's [kQL][kRows][C]
-#pragma unroll
-          for (int i = 0; i < kQL * kRows * kPC / 4 / kThreads; ++i) {
-            const int f = tid + i * kThreads;
-            const int ql = f / (kRows * kPC / 4), r = (f / (kPC / 4)) % kRows, c = (f % (kPC / 4)) * 4;
-            *reinterpret_cast<float4*>(out + ((static_cast<long long>(b) * kPGQ + gq0 + ql) * M + m0 + r) * kPC + c) =
-                *reinterpret_cast<const float4*>(basisS + (ql * kRows + r) * kBStride + c);
-          }
-        } else {
-          // 4. the weight contraction: warp w, columns n0 .. n0 + 7 of the 16 rows
-#pragma unroll 1
-          for (int ql = 0; ql < kQL; ++ql) {
-            const int gq = gq0 + ql;
-            contract_chunk_row(acc, basisS + ql * kRows * kBStride, w + static_cast<long long>(gq) * kPC * kPO,
-                               n0, gid, tig);
-            if constexpr (kStage == kWcontract) {  // per_gq [B, GQ, M, O]
-              float* orow = out + ((static_cast<long long>(b) * kPGQ + gq) * M + m0) * kPO + n0 + 2 * tig;
-              *reinterpret_cast<float2*>(orow + gid * kPO) = make_float2(acc[0], acc[1]);
-              *reinterpret_cast<float2*>(orow + (gid + 8) * kPO) = make_float2(acc[2], acc[3]);
-#pragma unroll
-              for (int v = 0; v < 4; ++v) acc[v] = 0.f;
-            }
-          }
-          if constexpr (kStage == kReduce) {
-            if ((gq0 + kQL) % kPQ == 0) {  // 5. out-frame g is summed over its q
-              const int g = gq0 / kPQ;
-              float* orow = out + ((static_cast<long long>(b) * kPG + g) * M + m0) * kPO + n0 + 2 * tig;
-              *reinterpret_cast<float2*>(orow + gid * kPO) = make_float2(acc[0], acc[1]);
-              *reinterpret_cast<float2*>(orow + (gid + 8) * kPO) = make_float2(acc[2], acc[3]);
-#pragma unroll
-              for (int v = 0; v < 4; ++v) acc[v] = 0.f;
-            }
-          }
-        }
-      }
-    }
-    __syncthreads();  // the next chunk overwrites pneS and basisS
-  }
-}
-
-typedef void (*StageKernel)(const float*, const float*, const float*, const float*, const float*, float*, int,
-                            int);
-
-StageKernel tensor_kernel(int stage) {
-  switch (stage) {
-    case kPne: return stage_fwd<kPne>;
-    case kAgg: return stage_fwd<kAgg>;
-    case kSwap: return stage_fwd<kSwap>;
-    case kWcontract: return stage_fwd<kWcontract>;
-    case kReduce: return stage_fwd<kReduce>;
-    default: return nullptr;
-  }
-}
 
 // ============================================================================
 // Tile-sum mode: tile_fwd (see the design at the top of the file).
@@ -952,6 +801,390 @@ cudaError_t tile_occupancy(TileKernel kern, int stage, bool use_bf16, int* per_s
   return cudaSuccess;
 }
 
+// ============================================================================
+// Tensor mode: stage_fwd (see the design at the top of the file).
+// ============================================================================
+
+constexpr int kTThreads = 256;                 // 8 warps; warp w owns tile rows 2w, 2w + 1
+constexpr int kTWarps = kTThreads / 32;
+constexpr int kTChunks = kPGQ / kQC;           // 4 blocks a tile, one per chunk of 16 gq
+constexpr int kSlice = 2 * kPE * kCT;          // 512 floats: a warp's feat group or a W k-step
+static_assert(kCT * kPO == kSlice, "a W k-step (8 c x 64 o) fills one ring slot");
+constexpr int kFeatSteps = kNCT;               // 8 feat groups of 8 channels
+constexpr int kWSteps = 2 * (kPC / kCT);       // the warp's 2 q x 8 k-steps of 8 channels
+constexpr int kBasisFloats = kQC * kTR * kPC;  // the chunk's basis, 64 KB (wcontract, reduce)
+constexpr int kGeoFloats = 2 * kPE * kDMax;    // a warp's two rows of geo, at most
+constexpr int kPneStride = kQC + 4;            // s1's staging row: one edge's 16 gq, padded
+static_assert(kTWarps * kGeoFloats <= kBasisFloats, "the warps' geo fits the basis region");
+
+// a warp's scratch: its rows' geo, then (pne) one row's staging
+__host__ __device__ constexpr int scratch_floats(int stage) {
+  return kGeoFloats + (stage == kPne ? kPE * kPneStride : 0);
+}
+
+// the slots of a warp's ring by stage: feat only (agg, swap), or feat then
+// W (wcontract, reduce, beside the 64 KB basis)
+__host__ __device__ constexpr int ring_slots(int stage) { return stage >= kWcontract ? 2 : 3; }
+// shared memory in floats: the scratch (or the basis holding it), then the
+// rings
+__host__ __device__ constexpr int ring_offset(int stage) {
+  return stage >= kWcontract ? kBasisFloats : kTWarps * scratch_floats(stage);
+}
+constexpr int tensor_smem_bytes(int stage) {
+  return 4 * (ring_offset(stage) + (stage == kPne ? 0 : kTWarps * ring_slots(stage) * kSlice));
+}
+static_assert(tensor_smem_bytes(kAgg) <= kSmemMax / 2 - 1024 && tensor_smem_bytes(kReduce) <= kSmemMax / 2 - 1024,
+              "two blocks an SM");
+
+// Float offset of basis[q][row][c] in the chunk's basis: [16 q][16 rows][64
+// c], each row's 16-byte chunks XORed with (row + q) % 8, so that the
+// contraction's A fragment reads (rows gid, + 8; c = tig, + 4) and the
+// aggregation's stores (q = gid, + 8; c pairs) fall on distinct banks.
+__device__ __forceinline__ int basis_off(int q, int row, int c) {
+  return (q * kTR + row) * kPC + (c ^ (((row + q) & 7) << 2));
+}
+
+// Float offset of W[c][o] in a W k-step slice (8 c x 64 o), each row's
+// 8-float groups XORed with c % 4: the B fragment reads (c = tig, tig + 4;
+// o = 8 nt + gid) fall on distinct banks.
+__device__ __forceinline__ int w_off(int c, int o) { return c * kPO + (o ^ ((c & 3) << 3)); }
+
+// Float offset of element (row, o) of a 16 x 64 output tile staged for
+// 16-byte stores, each row's 8-float groups XORed with row % 8.
+__device__ __forceinline__ int tile_off(int row, int o) { return row * kPO + (o ^ ((row & 7) << 3)); }
+
+// pre^T[gq][e] = [proj; bias]^T[gq][k] . [geo, 1]^T[k][e] for the 32 edges
+// of one query row (its geo rows at gr, in shared memory), then gelu:
+// pne[n][v] at gq = gq0 + gid
+// (+8 for v >= 2), edge 8n + 2 tig (+1 for odd v) (the mma accumulator).
+// The bias is row k = D of the product: geo reads a one there and (ah, al),
+// the A fragments of proj by depth step, hold the bias; k > D are zeros.
+__device__ __forceinline__ void pne_row(float (&pne)[4][4], const float* gr, int D,
+                                        const uint32_t (&ah)[3][4], const uint32_t (&al)[3][4], int gid,
+                                        int tig) {
+  float x[4][3][2];
+#pragma unroll
+  for (int n = 0; n < 4; ++n)
+#pragma unroll
+    for (int ks = 0; ks < 3; ++ks)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int k = 8 * ks + tig + 4 * h;
+        x[n][ks][h] = k < D ? gr[(8 * n + gid) * D + k] : (k == D ? 1.f : 0.f);
+      }
+#pragma unroll
+  for (int n = 0; n < 4; ++n) {
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int ks = 0; ks < 3; ++ks) {
+      uint32_t bh[2], bl[2];
+      split_tf32(x[n][ks][0], bh[0], bl[0]);
+      split_tf32(x[n][ks][1], bh[1], bl[1]);
+      float p[4] = {0.f, 0.f, 0.f, 0.f};
+      mma_tf32(p, al[ks], bh);
+      mma_tf32(p, ah[ks], bl);
+      mma_tf32(p, ah[ks], bh);
+#pragma unroll
+      for (int v = 0; v < 4; ++v) acc[v] += p[v];
+    }
+#pragma unroll
+    for (int v = 0; v < 4; ++v) pne[n][v] = gelu_tanh_exp(acc[v]);
+  }
+}
+
+// Block (x, y): tile x / 4 (query rows m0 = 16 (x / 4) ..) of batch y,
+// chunk j = x % 4 (gq0 = 16 j); the reduce stage runs in clusters of 2
+// blocks, the two chunks of out-frame j / 2.  Tensors, batch leading: geo
+// [B, M*E, D], feat [B, M, E, C], proj [D, GQ], bias [GQ], W [GQ, C, O];
+// out by stage: pne [B, M*E, GQ], basis_t [B, M, GQ, C], basis_b [B, GQ, M,
+// C], per_gq [B, GQ, M, O], out [B, G, M, O].
+template <int kStage>
+__global__ void __launch_bounds__(kTThreads, 2)
+stage_fwd(const float* __restrict__ geo, const float* __restrict__ feat, const float* __restrict__ proj,
+          const float* __restrict__ bias, const float* __restrict__ w, float* __restrict__ out, int M, int D) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr int kFeat = kStage >= kAgg ? kFeatSteps : 0;
+  constexpr int kSteps = kFeat + (kStage >= kWcontract ? kWSteps : 0);
+  constexpr int kRing = ring_slots(kStage);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, gid = lane >> 2, tig = lane & 3;
+  const int j = static_cast<int>(blockIdx.x) & (kTChunks - 1), gq0 = kQC * j;
+  const int b = static_cast<int>(blockIdx.y), m0 = static_cast<int>(blockIdx.x / kTChunks) * kTR;
+  const long long row0 = static_cast<long long>(b) * M + m0;  // the tile's first row, batch-flat
+  const int lr0 = 2 * warp;
+  float* basis = smem;
+  float* scratch = smem + warp * scratch_floats(kStage);
+  float* ring = smem + ring_offset(kStage) + warp * kRing * kSlice;
+
+  // the warp's ring: steps 0-7 feat group t of its two rows, then (wcontract,
+  // reduce) the W k-steps of its two q; one cp.async group a step
+  auto load_step = [&](int s) {
+    float* dst = ring + (s % kRing) * kSlice;
+    if (s < kFeat) {  // (row, edge) i / 2, channels 4 (i & 1) .. + 3 of group s
+      const float* src = feat + (row0 + lr0) * kPE * kPC + kCT * s;
+#pragma unroll
+      for (int k = 0; k < 2 * kPE * 2 / 32; ++k) {
+        const int i = lane + 32 * k, re = i >> 1, c = 4 * (i & 1);
+        cp_async16(dst + feat_off(re / kPE, re % kPE, c), src + re * kPC + c, 16);
+      }
+    } else {  // W[gq0 + q][8 ks + c][o]: row c = i / 16, o = 4 (i % 16) .. + 3
+      const int ws = s - kFeat, q = lr0 + ws / (kPC / kCT), c0 = kCT * (ws % (kPC / kCT));
+      const float* src = w + (static_cast<long long>(gq0 + q) * kPC + c0) * kPO;
+#pragma unroll
+      for (int k = 0; k < kCT * kPO / 4 / 32; ++k) {
+        const int i = lane + 32 * k, c = i >> 4, o = 4 * (i & 15);
+        cp_async16(dst + w_off(c, o), src + c * kPO + o, 16);
+      }
+    }
+  };
+  // before step s: the slot of step s - 1 is free (every lane is past it),
+  // step s + kRing - 1 is issued and step s has landed
+  auto next_step = [&](int s) {
+    __syncwarp();
+    if (s + kRing - 1 < kSteps) load_step(s + kRing - 1);
+    cp_commit();
+    cp_wait_but<kRing - 1>();
+    __syncwarp();
+  };
+  // the warp's rows' geo into its scratch, 8 D float4s a row: the first two
+  // cp.async groups, so that row 0's pne starts while row 1's geo lands
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const float* src = geo + (row0 + lr0 + rr) * kPE * D;
+    for (int i = lane; i < kPE * D / 4; i += 32) cp_async16(scratch + rr * kPE * D + 4 * i, src + 4 * i, 16);
+    cp_commit();
+  }
+#pragma unroll
+  for (int s = 0; s < kRing - 1; ++s) {
+    if (s < kSteps) load_step(s);
+    cp_commit();
+  }
+
+  // 1. pne of the warp's rows for the chunk's 16 gq on mma.sync 3xTF32
+  float pne[2][4][4];
+  {
+    uint32_t ah[3][4], al[3][4];
+    auto P = [&](int k, int dg) {
+      const int gq = gq0 + gid + dg;
+      return k < D ? __ldg(proj + k * kPGQ + gq) : (k == D ? __ldg(bias + gq) : 0.f);
+    };
+#pragma unroll
+    for (int ks = 0; ks < 3; ++ks) {
+      const int k = 8 * ks + tig;
+      split_tf32(P(k, 0), ah[ks][0], al[ks][0]);
+      split_tf32(P(k, 8), ah[ks][1], al[ks][1]);
+      split_tf32(P(k + 4, 0), ah[ks][2], al[ks][2]);
+      split_tf32(P(k + 4, 8), ah[ks][3], al[ks][3]);
+    }
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      if (rr == 0)
+        cp_wait_but<kRing>();  // row 0's geo (row 1's and the ring's first groups may be in flight)
+      else
+        cp_wait_but<kRing - 1>();
+      __syncwarp();
+      pne_row(pne[rr], scratch + rr * kPE * D, D, ah, al, gid, tig);
+      if constexpr (kStage == kPne) {
+        // the row's pne through staging rows [32 edges][16 gq + 4] of the
+        // warp's scratch (past its geo) to 16-byte stores
+        float* st = scratch + 2 * kPE * D;
+        __syncwarp();  // every lane is past the last row's staging
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
+#pragma unroll
+          for (int v = 0; v < 4; ++v) st[(8 * n + 2 * tig + (v & 1)) * kPneStride + gid + 8 * (v >> 1)] = pne[rr][n][v];
+        __syncwarp();
+        float* dst = out + (row0 + lr0 + rr) * kPE * kPGQ + gq0;
+#pragma unroll
+        for (int k = 0; k < kPE * (kQC / 4) / 32; ++k) {
+          const int i = lane + 32 * k, e = i >> 2, q4 = 4 * (i & 3);
+          *reinterpret_cast<float4*>(dst + e * kPGQ + q4) = *reinterpret_cast<const float4*>(st + e * kPneStride + q4);
+        }
+      }
+    }
+  }
+  if constexpr (kStage == kPne) return;
+
+  // 2. the aggregation, feat group by group: basis[q][row][c] of the
+  // warp's rows on mma.sync 3xTF32, pne's accumulator tile the A fragment
+  // with the depth relabelled (position tig <-> edge 2 tig, tig + 4 <-> 2
+  // tig + 1); s2 / s3 write it out group by group, s4 / s5 into the
+  // chunk's basis in shared memory (over the warps' scratch: a barrier
+  // first)
+  if constexpr (kStage >= kWcontract) __syncthreads();
+  {
+    uint32_t ph[2][4][4], pl[2][4][4];
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr)
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        split_tf32(pne[rr][n][0], ph[rr][n][0], pl[rr][n][0]);
+        split_tf32(pne[rr][n][2], ph[rr][n][1], pl[rr][n][1]);
+        split_tf32(pne[rr][n][1], ph[rr][n][2], pl[rr][n][2]);
+        split_tf32(pne[rr][n][3], ph[rr][n][3], pl[rr][n][3]);
+      }
+#pragma unroll 2
+    for (int t = 0; t < kFeatSteps; ++t) {
+      next_step(t);
+      const float* fg = ring + (t % kRing) * kSlice;
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+          const int e = 8 * n + 2 * tig;
+          uint32_t bh[2], bl[2];
+          split_tf32(fg[feat_off(rr, e, gid)], bh[0], bl[0]);
+          split_tf32(fg[feat_off(rr, e + 1, gid)], bh[1], bl[1]);
+          float p[4] = {0.f, 0.f, 0.f, 0.f};
+          mma_tf32(p, pl[rr][n], bh);
+          mma_tf32(p, ph[rr][n], bl);
+          mma_tf32(p, ph[rr][n], bh);
+#pragma unroll
+          for (int v = 0; v < 4; ++v) acc[v] += p[v];
+        }
+        const int row = lr0 + rr;
+        if constexpr (kStage == kAgg || kStage == kSwap) {
+          // 3. basis_t [.., M, GQ, C] or basis_b [.., GQ, M, C]: lanes tig,
+          // tig ^ 1 trade a pair, so that each holds 4 channels of one q
+          // (even tig: q = gid, odd: gid + 8), one 16-byte store a row
+          const bool odd = tig & 1;
+          const float r0 = __shfl_xor_sync(0xffffffffu, odd ? acc[0] : acc[2], 1);
+          const float r1 = __shfl_xor_sync(0xffffffffu, odd ? acc[1] : acc[3], 1);
+          const float4 v = odd ? make_float4(r0, r1, acc[2], acc[3]) : make_float4(acc[0], acc[1], r0, r1);
+          const int q = gid + (odd ? 8 : 0), c = kCT * t + 4 * (tig >> 1);
+          float* dst = kStage == kAgg
+                           ? out + ((row0 + row) * kPGQ + gq0 + q) * kPC + c
+                           : out + ((static_cast<long long>(b) * kPGQ + gq0 + q) * M + m0 + row) * kPC + c;
+          *reinterpret_cast<float4*>(dst) = v;
+        } else {
+          const int c = kCT * t + 2 * tig;
+          *reinterpret_cast<float2*>(basis + basis_off(gid, row, c)) = make_float2(acc[0], acc[1]);
+          *reinterpret_cast<float2*>(basis + basis_off(gid + 8, row, c)) = make_float2(acc[2], acc[3]);
+        }
+      }
+    }
+  }
+  if constexpr (kStage == kAgg || kStage == kSwap) return;
+  __syncthreads();  // the chunk's basis is whole
+
+  // 4. the weight contraction, warp w over its q = 2w, 2w + 1: D[16 rows][64
+  // o] += basis[q][rows][8 c] . W[gq0 + q][8 c][64 o], each 8-deep slice
+  // summed into a zeroed tile; W's k-steps come through the warp's ring
+  float acc[8][4];
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int v = 0; v < 4; ++v) acc[nt][v] = 0.f;
+#pragma unroll 1
+  for (int qi = 0; qi < 2; ++qi) {
+    const int q = lr0 + qi;
+#pragma unroll 2
+    for (int ks = 0; ks < kPC / kCT; ++ks) {
+      const int s = kFeat + qi * (kPC / kCT) + ks;
+      next_step(s);
+      const float* ws = ring + (s % kRing) * kSlice;
+      const int c = kCT * ks + tig;
+      uint32_t ah[4], al[4];
+      split_tf32(basis[basis_off(q, gid, c)], ah[0], al[0]);
+      split_tf32(basis[basis_off(q, gid + 8, c)], ah[1], al[1]);
+      split_tf32(basis[basis_off(q, gid, c + 4)], ah[2], al[2]);
+      split_tf32(basis[basis_off(q, gid + 8, c + 4)], ah[3], al[3]);
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        uint32_t bh[2], bl[2];
+        split_tf32(ws[w_off(tig, 8 * nt + gid)], bh[0], bl[0]);
+        split_tf32(ws[w_off(tig + 4, 8 * nt + gid)], bh[1], bl[1]);
+        float p[4] = {0.f, 0.f, 0.f, 0.f};
+        mma_tf32(p, al, bh);
+        mma_tf32(p, ah, bl);
+        mma_tf32(p, ah, bh);
+#pragma unroll
+        for (int v = 0; v < 4; ++v) acc[nt][v] += p[v];
+      }
+    }
+    if (kStage == kWcontract || qi == 1) {
+      // the warp's tile into its own q's basis rows (no other warp reads
+      // them; reduce: its q = 2w + 1's)
+      __syncwarp();
+      float* st = basis + q * kTR * kPC;
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        *reinterpret_cast<float2*>(st + tile_off(gid, 8 * nt + 2 * tig)) = make_float2(acc[nt][0], acc[nt][1]);
+        *reinterpret_cast<float2*>(st + tile_off(gid + 8, 8 * nt + 2 * tig)) = make_float2(acc[nt][2], acc[nt][3]);
+      }
+      __syncwarp();
+      if constexpr (kStage == kWcontract) {  // per_gq [.., GQ, M, O]: the q's 16 rows, one 4 KB run
+        float* dst = out + ((static_cast<long long>(b) * kPGQ + gq0 + q) * M + m0) * kPO;
+#pragma unroll
+        for (int k = 0; k < kTR * kPO / 4 / 32; ++k) {
+          const int i = lane + 32 * k, row = i >> 4, o = 4 * (i & 15);
+          *reinterpret_cast<float4*>(dst + row * kPO + o) = *reinterpret_cast<const float4*>(st + tile_off(row, o));
+        }
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+          for (int v = 0; v < 4; ++v) acc[nt][v] = 0.f;
+      }
+    }
+  }
+
+  if constexpr (kStage == kReduce) {
+    // 5. out-frame j / 2: the 8 warps' tiles added in warp order into the
+    // block's partial, then the cluster's two partials in rank order (chunk
+    // 2g, then 2g + 1) through distributed shared memory, each block writing
+    // 8 of the 16 rows
+    __syncthreads();
+    float* part = smem + kBasisFloats;  // the rings are spent
+    {
+      const int row = tid >> 4, o = 4 * (tid & 15);
+      float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int wq = 0; wq < kTWarps; ++wq) {
+        const float4 x = *reinterpret_cast<const float4*>(basis + (2 * wq + 1) * kTR * kPC + tile_off(row, o));
+        s.x += x.x;
+        s.y += x.y;
+        s.z += x.z;
+        s.w += x.w;
+      }
+      *reinterpret_cast<float4*>(part + row * kPO + o) = s;
+    }
+    cg::cluster_group cluster = cg::this_cluster();
+    cluster.sync();
+    const int rank = static_cast<int>(cluster.block_rank());
+    if (tid < kTR * kPO / 8) {
+      const int f = rank * (kTR * kPO / 8) + tid, row = f >> 4, o = 4 * (f & 15);
+      const float4 x = reinterpret_cast<const float4*>(cluster.map_shared_rank(part, 0))[f];
+      const float4 y = reinterpret_cast<const float4*>(cluster.map_shared_rank(part, 1))[f];
+      *reinterpret_cast<float4*>(out + ((static_cast<long long>(b) * kPG + (j >> 1)) * M + m0 + row) * kPO + o) =
+          make_float4(x.x + y.x, x.y + y.y, x.z + y.z, x.w + y.w);
+    }
+    cluster.sync();  // no block leaves while its partner still reads its partial
+  }
+}
+
+typedef void (*StageKernel)(const float*, const float*, const float*, const float*, const float*, float*, int,
+                            int);
+
+StageKernel tensor_kernel(int stage) {
+  switch (stage) {
+    case kPne: return stage_fwd<kPne>;
+    case kAgg: return stage_fwd<kAgg>;
+    case kSwap: return stage_fwd<kSwap>;
+    case kWcontract: return stage_fwd<kWcontract>;
+    case kReduce: return stage_fwd<kReduce>;
+    default: return nullptr;
+  }
+}
+
+// the tensor-mode instantiation's dynamic shared memory, raised past 48 KB
+// with the carveout at its most (two blocks an SM)
+cudaError_t tensor_prepare(StageKernel kern, int stage) {
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, tensor_smem_bytes(stage));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout, cudaSharedmemCarveoutMaxShared);
+  return err;
+}
+
 }  // namespace
 
 // The instantiation's registers, local (stack and spill) bytes, static and
@@ -962,10 +1195,10 @@ extern "C" int se3_probe_stage_attrs(int stage, int mode, int use_bf16, int* att
   if (mode == kTensor) {
     const StageKernel kern = use_bf16 ? nullptr : tensor_kernel(stage);
     if (kern == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-    const int smem = stage_smem_bytes(stage);
-    cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    const int smem = tensor_smem_bytes(stage);
+    cudaError_t err = tensor_prepare(kern, stage);
     if (err == cudaSuccess) err = static_cast<cudaError_t>(kernel_attrs(kern, smem, attrs));
-    if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(attrs + 4, kern, kThreads, smem);
+    if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(attrs + 4, kern, kTThreads, smem);
     attrs[5] = 0;
     return static_cast<int>(err);
   }
@@ -983,7 +1216,7 @@ extern "C" int se3_probe_stage_attrs(int stage, int mode, int use_bf16, int* att
 // swap in tile-sum mode); part [B*M/16] and total [1] in tile-sum mode:
 // total = the sum of the stage's values, the tiles' partials added in tile
 // order.  M a multiple of 16 rows; E = 32, GQ = 64 (G = 2, Q = 32), C = O =
-// 64, D <= 19.
+// 64, D <= 19; in tensor mode geo, feat, w and out 16-byte aligned.
 extern "C" int se3_probe_stage_fwd(const void* geo, const void* feat, const void* proj, const void* bias,
                                    const void* w, void* wimg, void* out, void* part, void* total, int B, int M,
                                    int D, int stage, int mode, int use_bf16, void* stream_ptr) {
@@ -993,14 +1226,28 @@ extern "C" int se3_probe_stage_fwd(const void* geo, const void* feat, const void
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (mode == kTensor) {
     const StageKernel kern = use_bf16 ? nullptr : tensor_kernel(stage);
-    if (kern == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-    const int smem = stage_smem_bytes(stage);
-    const cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    const bool aligned = (reinterpret_cast<uintptr_t>(geo) | reinterpret_cast<uintptr_t>(feat) |
+                          reinterpret_cast<uintptr_t>(w) | reinterpret_cast<uintptr_t>(out)) % 16 == 0;
+    if (kern == nullptr || !aligned || B > 65535 || static_cast<long long>(M / kRows) * kTChunks > 0x7fffffffLL)
+      return static_cast<int>(cudaErrorInvalidValue);
+    cudaError_t err = tensor_prepare(kern, stage);
     if (err != cudaSuccess) return static_cast<int>(err);
-    kern<<<dim3(M / kRows, B), kThreads, smem, stream>>>(
-        static_cast<const float*>(geo), static_cast<const float*>(feat), static_cast<const float*>(proj),
-        static_cast<const float*>(bias), static_cast<const float*>(w), static_cast<float*>(out), M, D);
-    return static_cast<int>(cudaGetLastError());
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3((M / kRows) * kTChunks, B);
+    cfg.blockDim = dim3(kTThreads);
+    cfg.dynamicSmemBytes = tensor_smem_bytes(stage);
+    cfg.stream = stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = 2;  // reduce: the two chunks of an out-frame
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = stage == kReduce ? 1 : 0;
+    err = cudaLaunchKernelEx(&cfg, kern, static_cast<const float*>(geo), static_cast<const float*>(feat),
+                             static_cast<const float*>(proj), static_cast<const float*>(bias),
+                             static_cast<const float*>(w), static_cast<float*>(out), M, D);
+    return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
   }
   const bool bf = use_bf16 != 0;
   const TileKernel kern = mode == kTileSum ? tile_kernel(stage, bf) : nullptr;

@@ -16,8 +16,14 @@ kernels over a grid of tiles:
   p15), a split of K over a thread-block cluster whose partial tiles are
   added in rank order in the same launch;
 - ``strided_copy`` (p5-p7, p12, p16, p17): the reshape, slice or transpose
-  as a copy of a strided view, 16 bytes a thread where the view's inner
-  stride is 1;
+  as a copy of a strided view.  Its 2 MB at most take a fraction of a
+  microsecond at the card's byte rate, so launch latency and the work per
+  element decide its time: :func:`copy_plan` collapses the view on the host
+  (p5, p6 and p16 to one contiguous run, copied as float4s with no index
+  math; p7 and p17 to rows of 32 floats, float4s with 32-bit index math by
+  multiply-high; p12's transpose through a 32 x 33 shared-memory tile,
+  128-byte reads and writes), each thread issuing 4 loads before its
+  stores; any other view takes a scalar path;
 - ``blockdiag_build`` (p9) and ``mid_write`` (p14).
 
 :data:`PROBES` maps the JAX names to one wrapper per probe, each counting
@@ -41,14 +47,18 @@ from .probes import _check, _stream, kernel_attributes
 
 __all__ = ["TM", "E", "G", "D", "Q", "C", "O", "SHAPES", "KIND", "PROBES", "REFERENCES", "MOSAIC_KERNELS",
            "PRODUCT_TILES", "PRODUCT_TILE_GROUPS", "PRODUCT_SLICE", "PRODUCT_MAX_CLUSTER", "SMEM_MAX", "PRODUCT_OPERANDS",
-           "product_plan", "probe_work", "mosaic_kernel_attributes"]
+           "COPY_PATHS", "COPY_VIEWS", "copy_plan", "product_plan", "probe_work", "mosaic_kernel_attributes"]
 
 TM, E, G, D, Q, C, O = 128, 32, 2, 9, 32, 64, 64
 _P = TM // 2
 _F32, _BF16 = torch.float32, torch.bfloat16
 # the kernels of csrc/probe_mosaic.cu by their index in se3_probe_mosaic_attrs
 # (strided_product's instantiations by se3_probe_product_attrs)
-MOSAIC_KERNELS = ("strided_copy<vec>", "strided_copy<scalar>", "blockdiag_build", "mid_write")
+MOSAIC_KERNELS = ("strided_copy[flat]", "strided_copy[rows]", "strided_copy[tile]", "strided_copy[scalar]",
+                  "blockdiag_build", "mid_write")
+# strided_copy's paths by their codes in the kernel (csrc CopyPath)
+COPY_PATHS = ("flat", "rows", "tile", "scalar")
+_INT32 = 2 ** 31
 # strided_product (csrc/probe_mosaic.cu): block tiles (rows, columns) by
 # id, 4 warps each; the depth of a staged slice; the portable cluster size;
 # the shared memory one block may use on an H100
@@ -215,13 +225,67 @@ def _product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def copy_plan(shape, strides, align: int = 16) -> dict:
+    """How ``strided_copy`` copies a float32 view of ``shape`` and element
+    ``strides`` whose base is aligned to ``align`` bytes into a contiguous
+    output: the view collapsed (size-1 dimensions dropped, each dimension
+    merged into the next where its stride is the next one's extent times
+    stride), at most 4 dimensions left, padded in front with extent 1 and
+    stride 0 (``dims``, ``strides``), and the ``path`` it allows
+    (:data:`COPY_PATHS`): ``flat`` for one contiguous run, ``rows`` where
+    the last dimension is contiguous with a multiple of 4 floats and the
+    other strides are multiples of 4, ``tile`` where the second-to-last
+    dimension is the contiguous one (a transpose), else ``scalar``; every
+    path but ``scalar`` with offsets below 2^31, the vector paths with a
+    16-byte aligned base.  Pure Python: the CPU tests check it, and the C
+    entry refuses a path that does not fit."""
+    merged = []
+    for d, s in zip(shape, strides):
+        if d == 1:
+            continue
+        if merged and merged[-1][1] == s * d:
+            merged[-1] = (merged[-1][0] * d, s)
+        else:
+            merged.append((d, s))
+    merged = merged or [(1, 1)]
+    if len(merged) > 4:
+        raise ValueError(f"strided_copy takes views that collapse to at most 4 dimensions, got {tuple(shape)} "
+                         f"with strides {tuple(strides)}")
+    dims = [1] * (4 - len(merged)) + [d for d, _ in merged]
+    strd = [0] * (4 - len(merged)) + [s for _, s in merged]
+    n = math.prod(dims)
+    small = n < _INT32 and sum((d - 1) * s for d, s in merged) < _INT32
+    vec = align % 16 == 0
+    if len(merged) == 1 and strd[3] == 1 and small and vec:
+        path = "flat"
+    elif strd[3] == 1 and dims[3] % 4 == 0 and all(x % 4 == 0 for x in strd[:3]) and small and vec:
+        path = "rows"
+    elif len(merged) >= 2 and strd[2] == 1 and small:
+        path = "tile"
+    else:
+        path = "scalar"
+    return {"dims": dims, "strides": strd, "path": path, "n": n}
+
+
+# each copy probe's view of its input, as strided_copy takes it
+COPY_VIEWS = {
+    "p5_lane_merge": lambda a: a.reshape(TM, E, G * Q),
+    "p6_sublane_split": lambda a: a.reshape(TM, E * G, Q),
+    "p7_mid_slice": lambda a: a[:, :, 1, :],
+    "p12_transpose_last2": lambda a: a.transpose(1, 2),
+    "p16_leading_split_rank2": lambda a: a.reshape(TM, E, 2 * Q),
+    "p17_outer_swap": lambda a: a.transpose(0, 1),
+}
+
+
 def _copy(view: torch.Tensor) -> torch.Tensor:
-    """A contiguous copy of a strided float32 view of up to 4 dims."""
-    shape, strides = list(view.shape), list(view.stride())
-    shape, strides = [1] * (4 - len(shape)) + shape, [0] * (4 - len(strides)) + strides
+    """A contiguous copy of a strided float32 view, in one launch of the
+    path :func:`copy_plan` picks."""
+    plan = copy_plan(view.shape, view.stride(), _align(view.data_ptr()))
     out = torch.empty(view.shape, dtype=torch.float32, device=view.device)
     with torch.cuda.device(view.device):
-        _check(library("probe_mosaic").se3_probe_strided_copy(view.data_ptr(), *shape, *strides, out.data_ptr(),
+        _check(library("probe_mosaic").se3_probe_strided_copy(view.data_ptr(), *plan["dims"], *plan["strides"],
+                                                              COPY_PATHS.index(plan["path"]), out.data_ptr(),
                                                               _stream(view)), "strided_copy")
     return out
 
@@ -268,14 +332,9 @@ def _product_probe(name: str):
 
 _LAUNCH = {
     **{name: _product_probe(name) for name in PRODUCT_OPERANDS},
-    "p5_lane_merge": lambda a: _copy(a.reshape(TM, E, G * Q)),
-    "p6_sublane_split": lambda a: _copy(a.reshape(TM, E * G, Q)),
-    "p7_mid_slice": lambda a: _copy(a[:, :, 1, :]),
+    **{name: (lambda a, view=view: _copy(view(a))) for name, view in COPY_VIEWS.items()},
     "p9_concat_blockdiag_build": _blockdiag,
-    "p12_transpose_last2": lambda a: _copy(a.transpose(1, 2)),
     "p14_mid_write": _mid_write,
-    "p16_leading_split_rank2": lambda a: _copy(a.reshape(TM, E, 2 * Q)),
-    "p17_outer_swap": lambda a: _copy(a.transpose(0, 1)),
 }
 
 

@@ -22,7 +22,13 @@ basis functions and C = O = 64 channels, with D = 18 or 19 pne inputs::
 
 and stops after one of :data:`STAGES`.  :func:`stage_forward` returns the
 stage's whole tensor (``bisect_fused``'s probes; a leading batch gives
-s6); :func:`stage_sum` returns the sum of the stage's values, the kernel
+s6): one block for each tile of :data:`STAGE_ROWS` rows and chunk of
+:data:`STAGE_CHUNK` gq (:func:`stage_tensor_grid`, 256 blocks at 1024
+rows, two an SM), pne, the aggregation and the weight contraction on
+tensor cores in 3xTF32 with feat and W streamed through each warp's
+``cp.async`` ring; s1 is bound by the bytes it writes, s5 / s6 by
+operations, and at these sizes by a launch's latency as much (see the
+source).  :func:`stage_sum` returns the sum of the stage's values, the kernel
 summing each tile of :data:`STAGE_ROWS` rows into one partial and adding
 the partials in tile order, so that the stage's intermediate never
 reaches HBM (``chip_stage_time``'s probes; a persistent block per SM
@@ -73,7 +79,8 @@ __all__ = [
     "STAGES", "STAGE_E", "STAGE_G", "STAGE_Q", "STAGE_C", "STAGE_O", "STAGE_MAX_D",
     "gelu_tanh", "gelu_tanh_grad",
     "stage_forward", "stage_forward_reference", "stage_sum", "stage_sum_reference",
-    "stage_work", "stage_kernel_attributes", "STAGE_ROWS", "stage_tiles", "stage_w_l2_bytes",
+    "stage_work", "stage_kernel_attributes", "STAGE_ROWS", "STAGE_CHUNK", "stage_tiles", "stage_w_l2_bytes",
+    "stage_tensor_grid", "stage_tensor_writes",
     "gelu_jvp", "gelu_jvp_reference", "expand_groups", "expand_groups_reference",
     "batched_contract", "batched_contract_reference", "rank3_accum", "rank3_accum_reference",
     "merge_back", "merge_back_reference", "column_sums", "column_sums_reference",
@@ -94,6 +101,10 @@ STAGE_MAX_D = 19
 # query rows a block of the whole-tensor mode and a tile of the tile-sum
 # mode hold (csrc/probe_stage_fwd.cu's kRows): M must be a multiple
 STAGE_ROWS = 16
+# gq a block of the whole-tensor mode computes (csrc kQC): the 16 rows of
+# the pne and aggregation products; an out-frame is two chunks
+STAGE_CHUNK = 16
+_TENSOR_THREADS = 256
 _SQRT_2_OVER_PI = math.sqrt(2.0 / math.pi)
 _GELU_CUBIC = 0.044715
 
@@ -205,8 +216,9 @@ def stage_forward(geo, feat, proj, w, bias, stage="reduce"):
     """The staged forward's tensor at ``stage`` (float32 operands and
     output), as :func:`stage_forward_reference` describes.  CPU tensors run
     the plain version; CUDA tensors launch ``csrc/probe_stage_fwd.cu`` in
-    its whole-tensor mode, which adds the bias (``[GQ]`` or ``[1, GQ]``;
-    the plain version also takes None)."""
+    its whole-tensor mode once (:func:`stage_tensor_grid`), which adds the
+    bias (``[GQ]`` or ``[1, GQ]``; the plain version also takes None) as
+    row D of the pne product and refuses operands not 16-byte aligned."""
     if stage not in STAGES:
         raise ValueError(f"stage must be one of {tuple(STAGES)}, got {stage!r}")
     if geo.device.type == "cpu":
@@ -286,6 +298,43 @@ def stage_work(stage: str, m: int, d: int, written: int = 0) -> dict:
     return {"fma_flops": fma, "product_flops": product, "bytes": nbytes}
 
 
+def stage_tensor_grid(stage: str, b: int, m: int) -> dict:
+    """The whole-tensor mode's launch over ``b`` batches of ``m`` rows (the
+    C entry's): a block of 256 threads for each (tile of
+    :data:`STAGE_ROWS` rows, chunk of :data:`STAGE_CHUNK` gq), ``grid`` x
+    the tile times 4 plus the chunk, y the batch; the reduce stage in
+    clusters of 2 blocks along x (``cluster``), the two chunks of one
+    out-frame, which add their partial tiles in chunk order.  Pure Python:
+    the CPU tests check that :func:`stage_tensor_writes` of its blocks
+    covers the stage's output once."""
+    if stage not in STAGES:
+        raise ValueError(f"stage must be one of {tuple(STAGES)}, got {stage!r}")
+    chunks = STAGE_GQ // STAGE_CHUNK
+    grid = (chunks * stage_tiles(1, m), b)
+    return {"grid": grid, "threads": _TENSOR_THREADS, "cluster": 2 if stage == "reduce" else 1,
+            "blocks": grid[0] * grid[1]}
+
+
+def stage_tensor_writes(stage: str, x: int, y: int, m: int) -> tuple:
+    """The part of the stage's output ``[B, ...]`` (:func:`stage_forward`'s
+    batched shape) that block ``(x, y)`` of :func:`stage_tensor_grid`
+    writes, as a tuple of slices: batch y, rows ``m0 = 16 (x // 4)`` .. +
+    16 and gq ``16 (x % 4)`` .. + 16 of pne (as edges), basis_t, basis_b or
+    per_gq; for reduce, rank ``x % 2`` of the cluster writes rows 8 (x % 2)
+    .. + 8 of the tile in out-frame ``(x % 4) // 2``."""
+    chunks = STAGE_GQ // STAGE_CHUNK
+    m0, j = STAGE_ROWS * (x // chunks), x % chunks
+    rows, gq = slice(m0, m0 + STAGE_ROWS), slice(STAGE_CHUNK * j, STAGE_CHUNK * (j + 1))
+    if stage == "pne":
+        return (y, slice(m0 * STAGE_E, (m0 + STAGE_ROWS) * STAGE_E), gq)
+    if stage == "agg":
+        return (y, rows, gq, slice(None))
+    if stage in ("swap", "wcontract"):
+        return (y, gq, rows, slice(None))
+    half = STAGE_ROWS // 2
+    return (y, j // 2, slice(m0 + half * (j % 2), m0 + half * (j % 2 + 1)), slice(None))
+
+
 def stage_tiles(b: int, m: int) -> int:
     """The tile-sum mode's tiles of :data:`STAGE_ROWS` rows over ``b``
     batches of ``m`` rows (rows batch-flat; M a multiple of the tile, so no
@@ -307,9 +356,10 @@ def stage_kernel_attributes(stage: str, tile_sum: bool, cdt=torch.float32) -> di
     """Registers, local (stack and spill) bytes, shared memory and blocks
     an SM of one instantiation of the staged forward
     (``cudaFuncGetAttributes``, ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``;
-    needs the card): whole-tensor mode in float32 with the bias, or
-    tile-sum mode in ``cdt`` without it, whose persistent grid is at most
-    ``grid_blocks`` (blocks an SM times the SMs; 0 in whole-tensor mode)."""
+    needs the card): whole-tensor mode in float32 with the bias (its grid
+    by :func:`stage_tensor_grid`), or tile-sum mode in ``cdt`` without it,
+    whose persistent grid is at most ``grid_blocks`` (blocks an SM times
+    the SMs; 0 in whole-tensor mode)."""
     attrs = (ctypes.c_int * 6)()
     err = library("probe_stage").se3_probe_stage_attrs(
         STAGES[stage], _TILE_SUM if tile_sum else _TENSOR, int(cdt == torch.bfloat16),

@@ -11,7 +11,10 @@ into a CUDA graph); the accumulator's total and the column sums are the
 orders their source states, bit for bit, and the accumulator's cooperative
 launch replays from a CUDA graph.  p3 also runs at two more shapes it takes
 (one whose rings wrap around), and both p3 and p11 refuse shapes they do
-not take, in the wrapper and in the C entry.  Tolerances, as the CLIs hold them: gathers, copies, ``2a`` and the r-ordered
+not take, in the wrapper and in the C entry.  The strided copy runs each
+probe view in one launch by the path its collapsed view takes, copies it
+and its views from a base one float off 16 bytes (the scalar path) bit for
+bit, and its C entry refuses a path the view does not fit.  Tolerances, as the CLIs hold them: gathers, copies, ``2a`` and the r-ordered
 sums bit for bit; the accumulators' totals within ``1e-9 * sum |a|`` of
 the float64 total and the column sums within ``1e-6`` of each column's ``sum |a|`` (float32 sums
 in other orders); products within ``1e-5 * max |plain|`` (float32 sums in
@@ -313,6 +316,48 @@ def test_split_depth_products_are_one_launch(name):
     before = fn.launches
     assert _graph_node_types(lambda: fn(*xs)) == [0]
     assert fn.launches == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(mosaic_probes.COPY_VIEWS))
+def test_strided_copy_is_one_launch_and_copies_unaligned_views(name):
+    _needs_card()
+    (x,) = probe_mosaic.draw(name, 15, "cuda")
+    fn = mosaic_probes.PROBES[name]
+    before = fn.launches
+    assert _graph_node_types(lambda: fn(x)) == [0]
+    assert fn.launches == before + 2
+    view = mosaic_probes.COPY_VIEWS[name](x)
+    assert torch.equal(fn(x), view.contiguous())
+    shifted = torch.empty(x.numel() + 1, device="cuda")[1:].view(x.shape).copy_(x)
+    sview = mosaic_probes.COPY_VIEWS[name](shifted)
+    plan = mosaic_probes.copy_plan(sview.shape, sview.stride(), mosaic_probes._align(sview.data_ptr()))
+    assert plan["path"] in ("scalar", "tile")
+    got, again = mosaic_probes._copy(sview), mosaic_probes._copy(sview)
+    torch.cuda.synchronize()
+    assert torch.equal(got, view.contiguous()) and torch.equal(got, again)
+
+
+@pytest.mark.cuda
+def test_strided_copy_refuses_a_path_the_view_does_not_fit():
+    _needs_card()
+    x = torch.randn(128, 32, 64, device="cuda")
+    out = torch.empty_like(x)
+    lib = library("probe_mosaic")
+    stream = torch.cuda.current_stream().cuda_stream
+    flat, rows, tile = (mosaic_probes.COPY_PATHS.index(p) for p in ("flat", "rows", "tile"))
+    # a transpose is not one run, not rows, and its last stride is not the tile's
+    t = x.transpose(1, 2)
+    assert lib.se3_probe_strided_copy(t.data_ptr(), 1, 128, 64, 32, 0, 2048, 1, 64, flat, out.data_ptr(), stream) == 1
+    assert lib.se3_probe_strided_copy(t.data_ptr(), 1, 128, 64, 32, 0, 2048, 1, 64, rows, out.data_ptr(), stream) == 1
+    assert lib.se3_probe_strided_copy(x.data_ptr(), 1, 1, 1, x.numel(), 0, 0, 0, 1, tile, out.data_ptr(), stream) == 1
+    # the vector paths take no base off 16 bytes; no path takes a negative stride or an empty extent
+    assert lib.se3_probe_strided_copy(x.data_ptr() + 4, 1, 1, 1, 64, 0, 0, 0, 1, flat, out.data_ptr(), stream) == 1
+    assert lib.se3_probe_strided_copy(x.data_ptr(), 1, 1, 2, 64, 0, 0, -64, 1, rows, out.data_ptr(), stream) == 1
+    assert lib.se3_probe_strided_copy(x.data_ptr(), 1, 1, 0, 64, 0, 0, 64, 1, rows, out.data_ptr(), stream) == 1
+    assert lib.se3_probe_strided_copy(x.data_ptr(), 1, 1, 1, x.numel(), 0, 0, 0, 1, flat, out.data_ptr(), stream) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(out, x)
 
 
 @pytest.mark.cuda

@@ -17,13 +17,19 @@ conv kernels' card tests.  The fixed-order sums give the same bits twice.
 The tile-sum kernel is also held at ``chip_stage_time``'s M = 65,536 and at
 M = 65,536 + 48 (a multiple of its 16-row tile, not of 64), and b3 on
 tensor cores against its plain version and ``torch.bmm`` within ``1e-5 *
-max |plain|`` (3xTF32), bitwise equal twice.
+max |plain|`` (3xTF32), bitwise equal twice.  The whole-tensor kernel is
+held at every stage at M = 16, 48 and 1040, B = 1 and 2, D = 9, 18 and 19
+(two calls bitwise equal, one kernel node a call in a CUDA graph), refuses
+bfloat16, M not a multiple of 16, D > 19 and an unaligned operand, and
+runs two blocks an SM with no local memory.
 """
 import pytest
 import torch
 
 from se3conv3d_tpu_torch.experiments import bisect_fused, chip_stage_time
 from se3conv3d_tpu_torch.kernels import probes
+from se3conv3d_tpu_torch.kernels.build import library
+from test_torch_mosaic_probes_cuda import _graph_node_types
 
 SCALAR_RTOL = {torch.float32: 1e-6, torch.bfloat16: 1e-5}
 
@@ -127,6 +133,63 @@ def test_rank3_accum_kernel_repeats_its_bits():
     assert torch.equal(got, again)
 
 
+def _stage_inputs(b, m, d, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return (torch.randn(b, m * probes.STAGE_E, d, device="cuda", generator=gen),
+            torch.randn(b, m, probes.STAGE_E, probes.STAGE_C, device="cuda", generator=gen),
+            torch.randn(d, probes.STAGE_GQ, device="cuda", generator=gen) * 0.2,
+            torch.randn(probes.STAGE_GQ, probes.STAGE_C, probes.STAGE_O, device="cuda", generator=gen) * 0.1,
+            torch.randn(1, probes.STAGE_GQ, device="cuda", generator=gen) * 0.1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stage", list(probes.STAGES))
+@pytest.mark.parametrize("b, m, d", [(1, 16, 18), (2, 48, 9), (2, 1040, 19), (1, 1040, 18), (2, 16, 19)])
+def test_stage_forward_matches_plain_at_other_shapes(stage, b, m, d):
+    _needs_card()
+    geo, feat, proj, w, bias = _stage_inputs(b, m, d, m + d + b)
+    got, again = (probes.stage_forward(geo, feat, proj, w, bias, stage) for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    bisect_fused.check(got, probes.stage_forward_reference(geo, feat, proj, w, bias, stage))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stage", list(probes.STAGES))
+def test_stage_forward_is_one_launch(stage):
+    _needs_card()
+    geo, feat, proj, w, bias = _stage_inputs(1, 64, 18, 9)
+    before = probes.stage_forward.launches
+    assert _graph_node_types(lambda: probes.stage_forward(geo, feat, proj, w, bias, stage)) == [0]
+    assert probes.stage_forward.launches == before + 2
+
+
+@pytest.mark.cuda
+def test_stage_forward_refuses_what_it_does_not_take():
+    _needs_card()
+    geo, feat, proj, w, bias = _stage_inputs(1, 48, 18, 10)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        probes.stage_forward(geo[:, :40 * probes.STAGE_E], feat[:, :40].contiguous(), proj, w, bias, "reduce")
+    g20, _, p20, _, _ = _stage_inputs(1, 48, 20, 11)
+    with pytest.raises(ValueError, match="D <= 19"):
+        probes.stage_forward(g20, feat, p20, w, bias, "reduce")
+    # geo one float past a 16-byte boundary: the C entry refuses it
+    shifted = torch.empty(geo.numel() + 1, device="cuda")[1:].view(geo.shape).copy_(geo)
+    with pytest.raises(RuntimeError, match="CUDA error 1"):
+        probes.stage_forward(shifted, feat, proj, w, bias, "agg")
+    out = torch.empty(1, probes.STAGE_G, 48, probes.STAGE_O, device="cuda")
+    lib = library("probe_stage")
+    stream = torch.cuda.current_stream().cuda_stream
+    args = lambda m, d, bf16: (geo.data_ptr(), feat.data_ptr(), proj.data_ptr(), bias.data_ptr(),  # noqa: E731
+                               w.data_ptr(), None, out.data_ptr(), None, None, 1, m, d, probes.STAGES["reduce"],
+                               0, bf16, stream)
+    assert lib.se3_probe_stage_fwd(*args(48, 18, 1)) == 1   # bfloat16 in whole-tensor mode
+    assert lib.se3_probe_stage_fwd(*args(40, 18, 0)) == 1   # M not a multiple of 16
+    assert lib.se3_probe_stage_fwd(*args(48, 20, 0)) == 1   # D > 19
+    assert lib.se3_probe_stage_fwd(*args(48, 18, 0)) == 0
+    torch.cuda.synchronize()
+
+
 @pytest.mark.cuda
 def test_stage_forward_kernel_takes_a_bias():
     _needs_card()
@@ -137,7 +200,9 @@ def test_stage_forward_kernel_takes_a_bias():
 
 @pytest.mark.cuda
 def test_stage_kernel_attributes():
-    """The whole-tensor kernel as before; the tile-sum kernel: one
+    """The whole-tensor kernel: two blocks an SM (at most 128 registers a
+    thread, at most 115,200 bytes of shared memory a block), no local
+    memory; the tile-sum kernel: one
     persistent block of 384 threads an SM (the W ring, the basis blocks,
     the feat ring and the tile's pne in shared memory: 230,592 bytes in
     float32, 206,112 in bfloat16), at most 168 registers a thread at
@@ -148,7 +213,8 @@ def test_stage_kernel_attributes():
     _needs_card()
     for stage in probes.STAGES:
         attrs = probes.stage_kernel_attributes(stage, False)
-        assert 0 < attrs["registers"] <= 255 and attrs["dynamic_smem"] > 0
+        assert 0 < attrs["registers"] <= 128 and 0 < attrs["dynamic_smem"] <= 115200
+        assert attrs["local_bytes"] == 0 and attrs["blocks_per_sm"] >= 2
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for stage in ("pne", "agg", "swap", "reduce"):
         for dtype in (torch.float32, torch.bfloat16):
