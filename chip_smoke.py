@@ -4356,7 +4356,12 @@ BISECT_NO_LIBRARY = {
     "s2_agg": "the aggregation needs pne first (a product and a GELU), then a batched product: no one call",
     "s3_swap": "pne, the aggregation and the relayout to [GQ, M, C]: no one call",
     "b1_jvp_gelu": "gelu(a) + gelu'(a): no PyTorch call gives a GELU and its derivative together",
-    "b4_rank3_accum": "column sums broadcast to [GQ, C, O]: torch.sum, then a copy of the broadcast",
+    "b4_rank3_accum": "column sums broadcast to [GQ, C, O]: torch.sum, then a copy of the broadcast "
+                      "(the two calls timed as yardstick_ms)",
+}
+# b4's two-call yardstick: the column sums, then a copy of their broadcast
+BISECT_YARDSTICK = {
+    "b4_rank3_accum": lambda a, gq, c, o: torch.sum(a, 0)[None, :, None].expand(gq, c, o).contiguous(),
 }
 # the stages that end in the weight contraction: their library time is the
 # contraction alone (torch.bmm of a [GQ, MP, C] basis with W)
@@ -4385,7 +4390,8 @@ def probe_bisect_cases(card, dev) -> dict:
     with the FMA bound beside it) and the one PyTorch call that computes
     the same function where there is one (s4-s6: the weight contraction
     alone as ``torch.bmm``), or why there is none
-    (:data:`BISECT_NO_LIBRARY`)."""
+    (:data:`BISECT_NO_LIBRARY`; b4 with its two-call yardstick,
+    :data:`BISECT_YARDSTICK`)."""
     from se3conv3d_tpu_torch.experiments import bisect_fused as bf
     from se3conv3d_tpu_torch.kernels import probes
 
@@ -4414,6 +4420,8 @@ def probe_bisect_cases(card, dev) -> dict:
             ms, call_ms = graph_ms(lambda: fn(*inputs), side), cuda_ms(lambda: fn(*inputs), 20)
             plain_ms = cuda_ms(lambda: plain(*inputs), 5)
             lib_ms = graph_ms(lambda: library[name](*inputs), side) if name in library else None
+            yard_ms = (graph_ms(lambda: BISECT_YARDSTICK[name](*inputs, *got.shape), side)
+                       if name in BISECT_YARDSTICK else None)
         nin = sum(x.numel() for x in inputs)
         fma_ms = None
         if name in kstage:  # the stage's inputs read once (bias too), its tensor written once
@@ -4430,6 +4438,8 @@ def probe_bisect_cases(card, dev) -> dict:
                         if name in BISECT_PRODUCT_ALONE else f"; one PyTorch call {lib_ms:.4f} ms")
         else:
             lib_text = f"; no single PyTorch call: {BISECT_NO_LIBRARY[name]}"
+        if yard_ms is not None:
+            lib_text += f"; the two calls {yard_ms:.4f} ms"
         print(f"probe {name}: shape {tuple(got.shape)} max_abs_err={err:.3e} max_rel_err={rel:.3e} (bound "
               f"{bf.RTOL:g}); two calls bitwise equal: {same}; kernel_ms={ms:.4f} (device, one call with its host "
               f"time {call_ms:.4f}) plain_ms={plain_ms:.4f} "
@@ -4445,6 +4455,8 @@ def probe_bisect_cases(card, dev) -> dict:
             cases[name]["bound_fma_ms"] = fma_ms
         if lib_ms is None:
             cases[name]["no_library"] = BISECT_NO_LIBRARY[name]
+        if yard_ms is not None:
+            cases[name]["yardstick_ms"] = yard_ms
     del basis
     torch.cuda.empty_cache()
     return cases
@@ -4568,7 +4580,9 @@ def probe_entries(pr: dict) -> list:
               fwd_by.get("reduce[batch]", 0), bis["s6_vmap"], "bisect_fused s6_vmap MP=1024, batch 1 (library: the "
               "weight contraction alone, torch.bmm)", bound_fma_ms=bis["s6_vmap"]["bound_fma_ms"]),
         *(entry(f"probe_{fn}", "bwd_ops", f"experiments/bisect_fused.py:{line}", main[fn], bis[name],
-                f"bisect_fused {name}") for fn, name, line in b_rows),
+                f"bisect_fused {name}", **({"yardstick_ms": bis[name]["yardstick_ms"]}
+                                           if "yardstick_ms" in bis[name] else {}))
+          for fn, name, line in b_rows),
         entry("probe_column_sums[feat]", "stream", "experiments/chip_stream.py:37", width.get("64", 0),
               stream["feat"], f"chip_stream feat [{PROBE_M * 32}, 64] (torch.sum over the rows)",
               gb_s=stream["feat"]["gb_s"], library_gb_s=stream["feat"]["library_gb_s"]),
@@ -4773,7 +4787,9 @@ def cellconv_site_cases(card, dev, side) -> dict:
     ``probe_cellconv.P3_RTOL``; bounds from :func:`cellconv_work` (p3 on
     tensor cores, its FMA bound beside it as ``bound_fma_ms``); libraries:
     the indexed copy times 2, the indexed sum over r, and
-    ``torch.matmul(pne, cf)`` for p3's product alone."""
+    ``torch.matmul(pne, cf)`` for p3's product alone; beside each gather a
+    ``clone`` of its output (``clone_ms``: the same bytes written, half of
+    p1's and fewer of p2's and p4's read)."""
     from se3conv3d_tpu_torch.experiments import probe_cellconv as pc
 
     out = {}
@@ -4791,6 +4807,12 @@ def cellconv_site_cases(card, dev, side) -> dict:
         out[part] = site_case(card, f"probe_cellconv {part}", lambda x=x, part=part: pc.run(part, x),
                               lambda x=x, part=part: pc.reference(part, x),
                               lambda got, x=x, part=part: pc.check(part, x, got), work, side, lib)
+        if part != "p3":
+            got = pc.run(part, x)
+            out[part]["clone_ms"] = graph_ms(lambda got=got: got.clone(), side)
+            print(f"site probe_cellconv {part}: block_gather {out[part]['ms']:.4f} ms, a clone of its "
+                  f"{got.numel() * 4 // 1024} KB output {out[part]['clone_ms']:.4f} ms [{card}]", flush=True)
+            del got
         if part == "p3":
             out[part]["bound_fma_ms"] = mosaic_fma_bound_ms(work)
             print(f"site probe_cellconv p3: {work['product_flops'] / 1e6:.1f} MFLOP on tensor cores (3xTF32), "
@@ -4929,16 +4951,19 @@ def mosaic_site_entries(ms: dict) -> list:
               by_cli["bisect_accum2"]["block_total_accum"], ms["accum"]["bisect_accum2"]["dproj+dbias+dw2"],
               "bisect_accum2 dproj+dbias+dw2, a [4096, 32, 64] (library: torch.sum(a))",
               by_combination=ms["accum"]["bisect_accum2"], launches_by_outputs=ms["main"]["accum_by"]),
-        entry("probe_gather_blocks", "cellconv", "experiments/probe_cellconv.py:47", cell["p1"]["gather_blocks"],
-              ms["cellconv"]["p1"], "probe_cellconv p1 (library: tab[ids] * 2)"),
-        entry("probe_gather_sum_blocks[p2]", "cellconv", "experiments/probe_cellconv.py:82",
-              cell["p2"]["gather_sum_blocks"], ms["cellconv"]["p2"], "probe_cellconv p2 (library: tab[ids].sum(1))"),
+        entry("probe_block_gather[p1]", "cellconv", "experiments/probe_cellconv.py:47", cell["p1"]["gather_blocks"],
+              ms["cellconv"]["p1"], "probe_cellconv p1 (library: tab[ids] * 2)",
+              clone_ms=ms["cellconv"]["p1"]["clone_ms"]),
+        entry("probe_block_gather[p2]", "cellconv", "experiments/probe_cellconv.py:82",
+              cell["p2"]["gather_sum_blocks"], ms["cellconv"]["p2"], "probe_cellconv p2 (library: tab[ids].sum(1))",
+              clone_ms=ms["cellconv"]["p2"]["clone_ms"]),
         entry("probe_masked_dist_product", "cellconv", "experiments/probe_cellconv.py:120",
               cell["p3"]["masked_dist_product"], ms["cellconv"]["p3"],
               "probe_cellconv p3 (library: torch.matmul(pne, cf), the product alone)",
               bound_fma_ms=ms["cellconv"]["p3"]["bound_fma_ms"]),
-        entry("probe_gather_sum_blocks[p4]", "cellconv", "experiments/probe_cellconv.py:160",
-              cell["p4"]["gather_sum_blocks"], ms["cellconv"]["p4"], "probe_cellconv p4 (library: g[ids].sum(1))"),
+        entry("probe_block_gather[p4]", "cellconv", "experiments/probe_cellconv.py:160",
+              cell["p4"]["gather_sum_blocks"], ms["cellconv"]["p4"], "probe_cellconv p4 (library: g[ids].sum(1))",
+              clone_ms=ms["cellconv"]["p4"]["clone_ms"]),
         entry("probe_strided_product[run_kernel]", "mosaic", "experiments/probe_mosaic.py:53",
               sum(by_cli["probe_mosaic"].get(k, 0) for k in mosaic), mosaic["p8_blockdiag_batched"],
               "probe_mosaic p8_blockdiag_batched (every probe under by_probe)", by_probe=mosaic,

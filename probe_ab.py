@@ -20,6 +20,10 @@ median of 5 replays):
   whole-tensor mode, at MP = 1024), each two calls bit for bit, beside the
   weight product alone (``torch.bmm`` of a ``[GQ, MP, C]`` basis with W),
   and each stage's registers, local bytes, shared memory and blocks an SM;
+  b4 (``probes.rank3_accum``, two calls bit for bit) beside its two-call
+  yardstick (``chip_smoke.BISECT_YARDSTICK``: ``torch.sum``, then a copy of
+  the broadcast) and b2 (``probes.expand_groups``) beside
+  ``repeat_interleave``;
 - ``mosaic``: every probe of ``mosaic_probes`` at the JAX script's shapes
   (the products of ``strided_product``, the six strided copies, p9 and
   p14), each beside its one PyTorch call (``chip_smoke.mosaic_library``:
@@ -32,7 +36,10 @@ median of 5 replays):
 - ``copies``: the six strided copies, p9 and p14 of ``mosaic`` alone
   (cheap enough for many rounds);
 - ``cellconv``: p3 (``cellconv_probes.masked_dist_product``) at the JAX
-  script's shape, beside ``torch.matmul(pne, cf)`` (its product alone).
+  script's shape, beside ``torch.matmul(pne, cf)`` (its product alone),
+  and the gathers p1, p2 and p4 (``gather_blocks``, ``gather_sum_blocks``,
+  bit for bit) beside their indexed calls (``tab[ids] * 2``,
+  ``tab[ids].sum(1)``) and a ``clone`` of the same output.
 
 A root's first process also reports its build's seconds (the sources at
 once), per kernel the HGMMA (wgmma) and HMMA (mma.sync) instructions in the
@@ -64,7 +71,7 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
 B3_RTOL = 1e-5
-SETS = {"stage": ("probe_stage", "probe_bwd"), "bisect": ("probe_stage",),
+SETS = {"stage": ("probe_stage", "probe_bwd"), "bisect": ("probe_stage", "probe_bwd"),
         "mosaic": ("probe_mosaic", "probe_accum"), "copies": ("probe_mosaic",), "cellconv": ("probe_cellconv",)}
 
 
@@ -145,6 +152,18 @@ def bisect_times(res: dict, smoke, dev, side) -> None:
     basis = torch.randn(bf.GQ, bf.MP, bf.C, device=dev, generator=gen)
     res["ms"]["s4-s6 weight product alone torch.bmm"] = smoke.graph_ms(lambda: torch.bmm(basis, inputs[4]), side)
     res["attrs"].update({f"stage_fwd<{s}>": probes.stage_kernel_attributes(s, False) for s in probes.STAGES})
+    (a,) = bf.draw("b4_rank3_accum", 68, dev)
+    got = bf.STAGES["b4_rank3_accum"](a)
+    res["rel_err"]["b4"] = bf.check(got, bf.REFERENCES["b4_rank3_accum"](a))
+    if not torch.equal(got, bf.STAGES["b4_rank3_accum"](a)):
+        raise SystemExit("probe_ab: b4 gave other bits on a second call")
+    res["ms"]["b4"] = smoke.graph_ms(lambda: bf.STAGES["b4_rank3_accum"](a), side)
+    yardstick = smoke.BISECT_YARDSTICK["b4_rank3_accum"]
+    res["ms"]["b4 yardstick (torch.sum, a copy)"] = smoke.graph_ms(lambda: yardstick(a, *got.shape), side)
+    (x,) = bf.draw("b2_gexp", 69, dev)
+    res["rel_err"]["b2"] = bf.check(bf.STAGES["b2_gexp"](x), bf.REFERENCES["b2_gexp"](x))
+    res["ms"]["b2"] = smoke.graph_ms(lambda: bf.STAGES["b2_gexp"](x), side)
+    res["ms"]["b2 library"] = smoke.graph_ms(lambda: x.repeat_interleave(bf.Q, 0), side)
 
 
 def mosaic_times(res: dict, smoke, dev, side, copies_only: bool = False) -> None:
@@ -188,6 +207,15 @@ def cellconv_times(res: dict, smoke, dev, side) -> None:
     res["rel_err"]["p3"] = pc.check("p3", x, pc.run("p3", x, pne), pne)
     res["ms"]["p3"] = smoke.graph_ms(lambda: pc.run("p3", x), side)
     res["ms"]["p3 library"] = smoke.graph_ms(lambda: torch.matmul(pne, x["cf"]), side)
+    for i, part in enumerate(("p1", "p2", "p4")):
+        x = pc.draw(part, 541 + i, dev)
+        got = pc.run(part, x)
+        res["rel_err"][part] = pc.check(part, x, got)
+        t3 = (x["tab"] if "tab" in x else x["g"]).view(-1, pc.P, pc.C)
+        lib = ((lambda: t3[x["ids"].long()] * 2.0) if part == "p1" else (lambda: t3[x["ids"].long()].sum(1)))
+        res["ms"][part] = smoke.graph_ms(lambda: pc.run(part, x), side)
+        res["ms"][f"{part} library"] = smoke.graph_ms(lib, side)
+        res["ms"][f"{part} clone of the output"] = smoke.graph_ms(lambda: got.clone(), side)
     res["attrs"].update(cc.cellconv_kernel_attributes())
 
 

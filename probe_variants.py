@@ -2,7 +2,7 @@
 """Variants of one probe kernel's source, built side by side and timed in
 turns on one NVIDIA GPU.
 
-    python3 probe_variants.py p3|p11|stage|copy [--rounds 4] [--skip-diagnostics]
+    python3 probe_variants.py p3|p11|stage|copy|b4|gather [--rounds 4] [--skip-diagnostics]
 
 Each variant is the kernel's source in this checkout with a few lines
 replaced (``KERNELS``); the first is the source as it stands.  Every
@@ -12,15 +12,18 @@ called through the same C entry as the wrapper calls on the same inputs;
 device ms per call from ``chip_smoke.graph_ms`` (a CUDA graph of 5 calls),
 round r in the listed order on even rounds and reversed on odd ones, the
 one PyTorch call (``torch.matmul(pne, cf)``, ``torch.sum(a, 0)``, the
-stage's weight product alone as ``torch.bmm``) timed after each round;
-``stage`` times the whole-tensor forward at each of s1-s5
-(``bisect_fused``'s inputs), ``copy`` the strided copy at each copy
-probe's view, beside ``.contiguous()`` of the same view.  A variant marked ``diagnostic`` computes something else
+stage's weight product alone as ``torch.bmm``, b4's two-call yardstick)
+timed after each round; ``stage`` times the whole-tensor forward at each
+of s1-s5 (``bisect_fused``'s inputs), ``copy`` the strided copy at each
+copy probe's view, beside ``.contiguous()`` of the same view, ``gather``
+the block gather at p1, p2 and p4 (``probe_cellconv``'s inputs), beside a
+``clone`` of p4's output.  A variant marked ``diagnostic`` computes something else
 (it drops work to show what that work costs) and is timed only; every
 other must give the plain version's result as the wrapper's checks hold
 it (p3: pne bit for bit, the product within ``P3_RTOL`` of max |plain|;
 p11: bit for bit ``probes.grid_column_in_kernel_order``; stage: each
-stage within ``bisect_fused.RTOL`` of max |plain|; copy: bit for bit).  Prints each
+stage within ``bisect_fused.RTOL`` of max |plain|; copy and gather: bit for
+bit; b4: bit for bit ``probes.rank3_in_kernel_order``).  Prints each
 variant's registers and spills (``-Xptxas -v``), its check, and the median
 and range of its times beside the card's name and power limit.  It runs on
 the card only.
@@ -94,6 +97,8 @@ _RAW_PNE = [("""    uint32_t ph[2][4][4], pl[2][4][4];
 _COPY_THREADS = ("constexpr int kCopyThreads = 128;", "constexpr int kCopyThreads = 256;")
 _COPY_UNROLL2 = ("constexpr int kCopyUnroll = 4;", "constexpr int kCopyUnroll = 2;")
 _COPY_UNROLL8 = ("constexpr int kCopyUnroll = 4;", "constexpr int kCopyUnroll = 8;")
+_SLAB = "const int gq_slab = slab;"
+_GATHER_THREADS = "const int block_threads = threads;"
 KERNELS = {
     "p3": ("probe_cellconv.cu", "se3_probe_masked_dist_product",
            [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
@@ -126,6 +131,31 @@ KERNELS = {
               "256 threads, 4 float4s each": ([_COPY_THREADS], False),
               "128 threads, 2 float4s each": ([_COPY_UNROLL2], False),
               "128 threads, 8 float4s each": ([_COPY_UNROLL8], False)}),
+    "b4": ("probe_bwd_ops.cu", "se3_probe_rank3_accum", [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+           {"as built (slabs of 8 gq: 64 blocks)": ([], False),
+            "slabs of 4 gq (128 blocks)": ([(_SLAB, "const int gq_slab = 4;")], False),
+            "slabs of 16 gq (32 blocks)": ([(_SLAB, "const int gq_slab = 16;")], False),
+            "ring slots of 5 KB (8 pieces a row block)": ([("constexpr int kColSlot = 4096 + kColWave * kColGroup;",
+                                                            "constexpr int kColSlot = 1024 + kColWave * kColGroup;")],
+                                                          False),
+            "no sums (the stores alone)": ([("for (int s0 = 0; s0 < S; s0 += kColWave) {",
+                                             "for (int s0 = 0; s0 < 0; s0 += kColWave) {")], True),
+            "no stores (the sums alone)": ([("reinterpret_cast<float4*>(row)[o4] = v4;",
+                                             "if (v == 12345.f) reinterpret_cast<float4*>(row)[o4] = v4;")], True),
+            "no row loads (sums of stale shared memory)": ([("if (h < ncols) cp_async16(", "if (h < 0) cp_async16(")],
+                                                           True),
+            "no adds (one value a row block)": ([("for (int r = 0; r < len; ++r) sum += p[r * kColGroup];",
+                                                  "sum += p[0];")], True)}),
+    "gather": ("probe_cellconv.cu", "se3_probe_block_gather",
+               [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p],
+               {"as built (128 threads a block)": ([], False),
+                "64 threads a block": ([(_GATHER_THREADS, "const int block_threads = 64;")], False),
+                "256 threads a block": ([(_GATHER_THREADS, "const int block_threads = 256;")], False),
+                "8 loads ahead": ([("constexpr int kGatherAhead = 4;", "constexpr int kGatherAhead = 8;")], False),
+                "no table loads (ids only)": ([("if (r0 + k < R) x[k] = __ldg(tab + id[k] * blk4 + j);",
+                                                "if (r0 + k < R) x[k] = make_float4(id[k], 0.f, 0.f, 0.f);")],
+                                              True)}),
 }
 
 
@@ -164,7 +194,7 @@ def build_variants(kernel: str, skip_diagnostics: bool = False) -> dict:
                                                "-o", str(path.with_suffix(".so")), str(path)],
                                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     kern_name = {"p3": "masked_dist_product", "p11": "grid_column_accum", "stage": "stage_fwd",
-                 "copy": "copy_"}[kernel]
+                 "copy": "copy_", "b4": "colsum_broadcast", "gather": "block_gather"}[kernel]
     built = {}
     for name, (path, proc) in procs.items():
         log, _ = proc.communicate()
@@ -285,6 +315,60 @@ def copy_calls(dev):
     return call, check, ("p5 .contiguous()", lambda: views["p5_lane_merge"].clone())
 
 
+def b4_calls(dev):
+    import torch
+    from se3conv3d_tpu_torch.experiments import bisect_fused as bf
+    from se3conv3d_tpu_torch.kernels import probes
+
+    (a,) = bf.draw("b4_rank3_accum", 468, dev)
+    shape = (bf.GQ, a.shape[1], bf.O)
+    want = probes.rank3_in_kernel_order(a, bf.TM)[None, :, None].expand(shape)
+
+    def call(fn):
+        out = torch.empty(shape, device=dev)
+        err = fn(a.data_ptr(), out.data_ptr(), a.shape[0] // bf.TM, bf.TM, a.shape[1], bf.GQ, bf.O,
+                 probes.rank3_accum_plan(a.shape[1], bf.GQ)["slab"], torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise SystemExit(f"probe_variants: CUDA error {err}")
+        return out
+
+    def check(fn):
+        same = torch.equal(call(fn), want)
+        return same, f"bitwise the row-order, block-order sum: {same}"
+
+    yardstick = load_smoke().BISECT_YARDSTICK["b4_rank3_accum"]
+    return call, check, ("b4 yardstick (torch.sum, a copy)", lambda: yardstick(a, *shape))
+
+
+def gather_calls(dev):
+    import torch
+    from se3conv3d_tpu_torch.experiments import probe_cellconv as pc
+    from se3conv3d_tpu_torch.kernels import cellconv_probes as cc
+
+    xs = {part: pc.draw(part, 470 + i, dev) for i, part in enumerate(("p1", "p2", "p4"))}
+
+    def call(fn, part="p2"):
+        x = xs[part]
+        tab = x["tab"] if "tab" in x else x["g"]
+        ids = x["ids"]
+        nq, r = ids.shape[0], 1 if ids.dim() == 1 else ids.shape[1]
+        block = pc.P * pc.C
+        out = torch.empty(nq * pc.P, pc.C, device=dev)
+        err = fn(ids.data_ptr(), nq, r, tab.data_ptr(), tab.shape[0] // pc.P, block, int(part == "p1"),
+                 cc.GATHER_SCALE, cc.gather_plan(nq, block)["threads"], out.data_ptr(),
+                 torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise SystemExit(f"probe_variants: CUDA error {err}")
+        return out
+
+    def check(fn):
+        same = {part: torch.equal(call(fn, part), pc.reference(part, x)) for part, x in xs.items()}
+        return all(same.values()), f"bit for bit {same}"
+
+    out = pc.reference("p4", xs["p4"])
+    return call, check, ("p4 clone of the output", lambda: out.clone())
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("kernel", choices=sorted(KERNELS))
@@ -302,7 +386,7 @@ def main() -> int:
     built = build_variants(a.kernel, a.skip_diagnostics)
     dev, side = torch.device("cuda"), torch.cuda.Stream()
     call, check, (lib_name, lib) = {"p3": p3_calls, "p11": p11_calls, "stage": stage_calls,
-                                    "copy": copy_calls}[a.kernel](dev)
+                                    "copy": copy_calls, "b4": b4_calls, "gather": gather_calls}[a.kernel](dev)
     diagnostic = {name: d for name, (_, d) in KERNELS[a.kernel][3].items()}
     for name, (fn, ptxas) in built.items():
         ok, what = check(fn)
@@ -313,7 +397,7 @@ def main() -> int:
     from se3conv3d_tpu_torch.kernels import mosaic_probes
 
     stages = {"stage": ["pne", "agg", "swap", "wcontract", "reduce"],
-              "copy": list(mosaic_probes.COPY_VIEWS)}.get(a.kernel, [None])
+              "copy": list(mosaic_probes.COPY_VIEWS), "gather": ["p1", "p2", "p4"]}.get(a.kernel, [None])
     names = [(name, st) for name in built for st in stages]
     label = lambda name, st: name if st is None else f"{name} [{st}]"  # noqa: E731
     ms = {label(*n): [] for n in names}

@@ -3,12 +3,15 @@ its plain PyTorch version: counterparts of the four Pallas kernels of
 ``experiments/probe_cellconv.py`` (``csrc/probe_cellconv.cu``).
 
 - :func:`gather_blocks` (p1): ``out[i] = 2 * tab[ids[i]]``, the table
-  seen as blocks of ``block_rows`` rows (the TPU prefetched the ids as
-  scalars; here each thread reads the id of its block);
+  seen as blocks of ``block_rows`` rows;
 - :func:`gather_sum_blocks` (p2 and p4): ``out[i] = sum_r tab[ids[i, r]]``,
   added in r order from zero, as the TPU grid's revisited output did, so
   the kernel, the plain version (a loop over r) and the JAX kernel agree
-  bit for bit;
+  bit for bit.  Both launch one kernel, ``block_gather`` (scaled for p1):
+  the TPU prefetched the ids as scalars; here a block of
+  :func:`gather_plan` (an output block, a slice of its float4s) knows its
+  output block, its threads read that block's ids into registers, and each
+  thread issues its table loads, 4 at a time, before its first add;
 - :func:`masked_dist_product` (p3): ``pne = (d2 < 0.04) * (3 d2 + 1)``
   over the pairwise squared distances ``d2 = (dx^2 + dy^2) + dz^2`` of the
   queries' and candidates' xyz (each square rounded before the add, as the
@@ -34,20 +37,23 @@ from .build import library
 from .probes import _check, _on_card, _stream, kernel_attributes
 
 __all__ = [
-    "RADIUS2", "GATHER_SCALE", "CELLCONV_KERNELS", "P3_TILE_Q", "P3_SLICE", "P3_TILE_C", "bad_ids", "gather_blocks", "gather_blocks_reference", "gather_sum_blocks",
-    "gather_sum_blocks_reference", "masked_dist_pne", "masked_dist_product", "masked_dist_product_reference",
-    "cellconv_kernel_attributes",
+    "RADIUS2", "GATHER_SCALE", "CELLCONV_KERNELS", "P3_TILE_Q", "P3_SLICE", "P3_TILE_C", "GATHER_THREADS",
+    "bad_ids", "gather_plan", "gather_writes", "gather_blocks", "gather_blocks_reference",
+    "gather_sum_blocks", "gather_sum_blocks_reference", "masked_dist_pne", "masked_dist_product",
+    "masked_dist_product_reference", "cellconv_kernel_attributes",
 ]
 
 # p3's radius mask: d2 < 0.04 in float32, as the JAX kernel compares
 RADIUS2 = 0.04
 # the kernels of csrc/probe_cellconv.cu by their index in se3_probe_cellconv_attrs
-CELLCONV_KERNELS = ("gather_blocks", "gather_sum_blocks", "masked_dist_product")
+CELLCONV_KERNELS = ("block_gather<scaled>", "block_gather<sum>", "masked_dist_product")
 # p1's factor: the JAX kernel writes tab_ref[:] * 2.0
 GATHER_SCALE = 2.0
 # masked_dist_product's kernel takes NQ, NC and C in multiples of these: a
 # block's queries, a staged slice's candidates, a block's channels
 P3_TILE_Q, P3_SLICE, P3_TILE_C = 64, 32, 32
+# block_gather: threads a block, a float4 each
+GATHER_THREADS = 128
 
 
 def bad_ids(ids: torch.Tensor, nb: int) -> int:
@@ -71,6 +77,43 @@ def _card_ids(name: str, ids: torch.Tensor, tab: torch.Tensor) -> bool:
     return True
 
 
+def gather_plan(nq: int, block: int) -> dict:
+    """``block_gather``'s launch for ``nq`` output blocks of ``block``
+    floats: a block of ``threads`` threads (:data:`GATHER_THREADS`, fewer,
+    in whole warps, for a block of fewer float4s) for each output block
+    (grid x) and slice of ``threads`` of its float4s (grid y, at most
+    65,535; block y writes float4s ``y T + t, (y + grid_y) T + t, ...``).
+    Pure Python; the CPU tests check that :func:`gather_writes` covers the
+    output once."""
+    blk4 = block // 4
+    threads = min(GATHER_THREADS, 32 * -(-blk4 // 32))
+    slices = -(-blk4 // threads)
+    grid = (nq, min(slices, 65535))
+    return {"threads": threads, "slices": slices, "grid": grid, "blocks": grid[0] * grid[1]}
+
+
+def gather_writes(plan: dict, x: int, y: int, block: int) -> list:
+    """The float4 indices of the flat output that block ``(x, y)`` of
+    :func:`gather_plan` writes."""
+    blk4, t = block // 4, plan["threads"]
+    return [x * blk4 + j for j0 in range(y * t, blk4, plan["grid"][1] * t) for j in range(j0, min(j0 + t, blk4))]
+
+
+def _block_gather(name: str, ids: torch.Tensor, tab: torch.Tensor, block_rows: int, scaled: bool) -> torch.Tensor:
+    nq, r = ids.shape[0], (1 if ids.dim() == 1 else ids.shape[1])
+    nb, c = tab.shape[0] // block_rows, tab.shape[1]
+    block = block_rows * c
+    if nq < 1 or r < 1 or block % 4 or tab.data_ptr() % 16:
+        raise ValueError(f"{name}'s kernel takes 1 or more ids a block, blocks of a multiple of 4 floats and a "
+                         f"16-byte aligned tab; got ids {tuple(ids.shape)}, blocks of {block}")
+    out = torch.empty(nq * block_rows, c, dtype=torch.float32, device=tab.device)
+    with torch.cuda.device(tab.device):
+        _check(library("probe_cellconv").se3_probe_block_gather(
+            ids.data_ptr(), nq, r, tab.data_ptr(), nb, block, int(scaled), GATHER_SCALE,
+            gather_plan(nq, block)["threads"], out.data_ptr(), _stream(tab)), name)
+    return out
+
+
 def gather_blocks_reference(ids: torch.Tensor, tab: torch.Tensor, block_rows: int) -> torch.Tensor:
     t3 = _blocks(tab, block_rows)
     return (t3[ids.long()] * GATHER_SCALE).reshape(-1, tab.shape[1])
@@ -81,15 +124,10 @@ def gather_blocks(ids: torch.Tensor, tab: torch.Tensor, block_rows: int) -> torc
     ``ids[i]`` of ``tab [NB * block_rows, C]`` (p1; ids ``[NQ]``)."""
     if ids.dim() != 1:
         raise ValueError(f"ids must be [NQ], got {tuple(ids.shape)}")
-    t3 = _blocks(tab, block_rows)
+    _blocks(tab, block_rows)
     if not _card_ids("gather_blocks", ids, tab):
         return gather_blocks_reference(ids, tab, block_rows)
-    nb, c = t3.shape[0], tab.shape[1]
-    out = torch.empty(ids.shape[0] * block_rows, c, dtype=torch.float32, device=tab.device)
-    with torch.cuda.device(tab.device):
-        _check(library("probe_cellconv").se3_probe_gather_blocks(ids.data_ptr(), ids.shape[0], tab.data_ptr(), nb,
-                                                                 block_rows * c, GATHER_SCALE, out.data_ptr(),
-                                                                 _stream(tab)), "gather_blocks")
+    out = _block_gather("gather_blocks", ids, tab, block_rows, True)
     gather_blocks.launches += 1
     return out
 
@@ -109,16 +147,10 @@ def gather_sum_blocks(ids: torch.Tensor, tab: torch.Tensor, block_rows: int) -> 
     R]``)."""
     if ids.dim() != 2:
         raise ValueError(f"ids must be [NQ, R], got {tuple(ids.shape)}")
-    t3 = _blocks(tab, block_rows)
+    _blocks(tab, block_rows)
     if not _card_ids("gather_sum_blocks", ids, tab):
         return gather_sum_blocks_reference(ids, tab, block_rows)
-    nb, c = t3.shape[0], tab.shape[1]
-    out = torch.empty(ids.shape[0] * block_rows, c, dtype=torch.float32, device=tab.device)
-    with torch.cuda.device(tab.device):
-        _check(library("probe_cellconv").se3_probe_gather_sum_blocks(ids.data_ptr(), ids.shape[0], ids.shape[1],
-                                                                     tab.data_ptr(), nb, block_rows * c,
-                                                                     out.data_ptr(), _stream(tab)),
-               "gather_sum_blocks")
+    out = _block_gather("gather_sum_blocks", ids, tab, block_rows, False)
     gather_sum_blocks.launches += 1
     return out
 

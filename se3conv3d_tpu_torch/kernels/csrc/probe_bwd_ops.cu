@@ -4,7 +4,7 @@
 //   b1 (gelu_jvp):     out = gelu(a) + gelu'(a), tanh GELU        a [R, GQ]
 //   b2 (expand_groups): out[g*Q + q, t, o] = a[g, t, o]           a [G, TM, O]
 //   b3 (batched_contract): out[gq, c, o] = sum_m a[gq, m, c] * b[gq, m, o]
-//   b4 (rows_partials + broadcast_colsum): out[gq, c, o] = sum_m a[m, c]
+//   b4 (colsum_broadcast): out[gq, c, o] = sum_m a[m, c]
 //   b5 (scale2):       out = 2 * a, [TM, E, GQ] read as [TM*E, GQ]
 //
 // Replace the TPU Pallas kernels of experiments/bisect_fused.py: b1_jvp_gelu
@@ -25,12 +25,35 @@
 // so that the fragment reads hit 32 banks) and runs the product on
 // mma.sync in the port's 3xTF32 form, each 8-deep slice summed into a
 // zeroed tile and added by a rounded float32 add.  No sum crosses blocks:
-// two calls give the same bits.  b4 runs on the TPU as a sequential grid
-// whose output block every step revisits; Hopper blocks run in parallel,
-// so each block sums its rows (column by column, in row order) into a
-// partial row, and broadcast_colsum adds the partials in block order, as
-// the TPU grid did, and writes the broadcast: no atomics, two calls give
-// the same bits.
+// two calls give the same bits.
+//
+// b4 runs on the TPU as a sequential grid whose output block every step
+// revisits: each step adds a block of `rows` rows' column sums into it, so
+// the sums run block by block in row order and the block sums in block
+// order from zero.  Hopper blocks run in parallel; the TPU's order is kept
+// bit for bit, so each column's chain of adds stays sequential (rows adds
+// for a block's sum, then S adds for the total).  What bounds it is bytes
+// (256 KB read and 1 MiB written at the bisect shape: 0.4 us) and a
+// launch's latency; the chains' adds (128 + 8 dependent adds, ~0.3 us) come
+// next.  One launch, colsum_broadcast, no scratch: block (x, y) takes the
+// 8 columns 8x .. 8x + 7 (a narrower last group where C % 8 != 0) and the
+// gq slabs y, y + gridDim.y, ... (probes.rank3_accum_plan: 8 groups x 8
+// slabs of 8 gq = 64 blocks at the bisect shape).  Its 256 threads stage
+// the columns' strip into a ring of 2 shared-memory slots by cp.async
+// (16-byte copies where C % 4 == 0; at the bisect shape the whole 32 KB
+// strip in two pieces, both in flight at once), a warp a row block; thread
+// (k, c) adds row block k's column c in row order, 32 row blocks at a
+// time, and the first 8 threads add the block sums in block order.  Every
+// block that takes a column runs the same chain, so every slab holds the
+// same bits.  The stores: 16 threads a row (gq, c) of O values, float4
+// where O % 4 == 0 (a warp writes 512 contiguous bytes at O = 64), no
+// division per element.  Each block reads its columns over every row, so
+// more slabs read the strip again: 64 blocks beat 128 and 256
+// (probe_variants.py b4), and sharing the sums over a cluster of 8 blocks
+// through distributed shared memory was no faster at this shape (PERF.md
+// section 6).
+
+#include <stdint.h>
 
 #include "fused_equiv_common.cuh"
 #include "probe_common.cuh"
@@ -136,26 +159,104 @@ batched_contract(const float* __restrict__ a, const float* __restrict__ b, float
     }
 }
 
-// part[s, c] = sum of a[r, c] over block s's rows r in [s*rows, (s+1)*rows), in row order
-__global__ void rows_partials(const float* __restrict__ a, int rows, int C, float* __restrict__ part) {
-  const long long r0 = static_cast<long long>(blockIdx.x) * rows;
-  for (int c = threadIdx.x; c < C; c += blockDim.x) {
-    float s = 0.f;
-    for (int r = 0; r < rows; ++r) s += a[(r0 + r) * C + c];
-    part[static_cast<long long>(blockIdx.x) * C + c] = s;
-  }
+// colsum_broadcast: columns a block sums; threads; row blocks summed at
+// once (a thread each column); a ring slot's floats (16 KB of rows, plus 8
+// floats of padding a row block); threads a row of the stores
+constexpr int kColGroup = 8;
+constexpr int kColThreads = 256;
+constexpr int kColWave = kColThreads / kColGroup;
+constexpr int kColSlot = 4096 + kColWave * kColGroup;
+constexpr int kColStoreLanes = 16;
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
 }
 
-// out[gq, c, o] = ((0 + part[0, c]) + part[1, c]) + ... + part[S-1, c]
-__global__ void __launch_bounds__(kThreads)
-broadcast_colsum(const float* __restrict__ part, int S, int C, int O, float* __restrict__ out,
-                 long long n) {
-  for (long long i = blockIdx.x * static_cast<long long>(kThreads) + threadIdx.x; i < n;
-       i += static_cast<long long>(gridDim.x) * kThreads) {
-    const int c = static_cast<int>((i / O) % C);
-    float s = 0.f;
-    for (int p = 0; p < S; ++p) s += part[p * C + c];
-    out[i] = s;
+// out[gq, c, o] = ((0 + p_0[c]) + p_1[c]) + ... + p_{S-1}[c] for the
+// block's columns c and gq slabs, p_s[c] = ((0 + a[s rows, c]) + a[s rows
+// + 1, c]) + ... over row block s.  vec_loads: C % 4 == 0 and a 16-byte
+// aligned; vec_stores: O % 4 == 0 and out 16-byte aligned.
+__global__ void __launch_bounds__(kColThreads)
+colsum_broadcast(const float* __restrict__ a, int S, int rows, int C, int GQ, int O, int slab, bool vec_loads,
+                 bool vec_stores, float* __restrict__ out) {
+  __shared__ __align__(16) float ring[2 * kColSlot];
+  __shared__ float part[kColWave][kColGroup];
+  __shared__ float total[kColGroup];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int chain = tid / kColGroup, cl = tid % kColGroup;
+  const int c0 = blockIdx.x * kColGroup, ncols = min(kColGroup, C - c0);
+  float run = 0.f;  // threads tid < ncols: column c0 + tid, the block sums added in order
+  for (int s0 = 0; s0 < S; s0 += kColWave) {
+    const int n = min(kColWave, S - s0);
+    // rows a row block stages at once: what a slot holds, in equal pieces;
+    // a row block's stride in a slot is 8 floats past a multiple of 32, so
+    // the 4 row blocks of a warp read 32 banks
+    const int fit = 4 * ((kColSlot / n - kColGroup) / 32);
+    const int pieces = (rows + fit - 1) / fit, sub = (rows + pieces - 1) / pieces;
+    const int stride = 32 * ((sub + 3) / 4) + kColGroup;
+    auto stage = [&](int t) {
+      float* slot = ring + (t & 1) * kColSlot;
+      const int r0 = t * sub, len = min(sub, rows - r0);
+      for (int k = warp; k < n; k += kColThreads / 32) {
+        const float* src = a + (static_cast<long long>(s0 + k) * rows + r0) * C + c0;
+        float* dst = slot + k * stride;
+        if (vec_loads) {
+          for (int q = lane; q < 2 * len; q += 32) {
+            const int r = q >> 1, h = 4 * (q & 1);
+            if (h < ncols) cp_async16(dst + r * kColGroup + h, src + static_cast<long long>(r) * C + h, 16);
+          }
+        } else {
+          for (int q = lane; q < kColGroup * len; q += 32) {
+            const int r = q / kColGroup, c = q % kColGroup;
+            if (c < ncols) cp_async4(dst + r * kColGroup + c, src + static_cast<long long>(r) * C + c, 4);
+          }
+        }
+      }
+      asm volatile("cp.async.commit_group;" ::: "memory");
+    };
+    float sum = 0.f;
+    stage(0);
+    for (int t = 0; t < pieces; ++t) {
+      if (t + 1 < pieces) {
+        stage(t + 1);
+        cp_wait<1>();
+      } else {
+        cp_wait<0>();
+      }
+      __syncthreads();  // piece t landed in slot t & 1
+      if (chain < n && cl < ncols) {
+        const float* p = ring + (t & 1) * kColSlot + chain * stride + cl;
+        const int len = min(sub, rows - t * sub);
+#pragma unroll 8
+        for (int r = 0; r < len; ++r) sum += p[r * kColGroup];
+      }
+      __syncthreads();  // slot t & 1 is free for piece t + 2
+    }
+    if (chain < n && cl < ncols) part[chain][cl] = sum;
+    __syncthreads();
+    if (tid < ncols)
+      for (int k = 0; k < n; ++k) run += part[k][tid];
+    __syncthreads();  // part is rewritten by the next wave
+  }
+  if (tid < ncols) total[tid] = run;
+  __syncthreads();
+  // the stores: lane x of row (gq, c) = (g0 + rr / 8, c0 + rr % 8) for rr = y, y + 16, ...
+  const int x = tid % kColStoreLanes, y = tid / kColStoreLanes;
+  for (int g0 = blockIdx.y * slab; g0 < GQ; g0 += gridDim.y * slab) {
+    const int nrows = min(slab, GQ - g0) * kColGroup;
+    for (int rr = y; rr < nrows; rr += kColThreads / kColStoreLanes) {
+      const int c = rr % kColGroup;
+      if (c >= ncols) continue;
+      const float v = total[c];
+      float* row = out + (static_cast<long long>(g0 + rr / kColGroup) * C + c0 + c) * O;
+      if (vec_stores) {
+        const float4 v4 = make_float4(v, v, v, v);
+        for (int o4 = x; o4 < O / 4; o4 += kColStoreLanes) reinterpret_cast<float4*>(row)[o4] = v4;
+      } else {
+        for (int o = x; o < O; o += kColStoreLanes) row[o] = v;
+      }
+    }
   }
 }
 
@@ -200,17 +301,17 @@ extern "C" int se3_probe_batched_contract(const void* a, const void* b, void* ou
   return static_cast<int>(cudaGetLastError());
 }
 
-// a [S*rows, C], part [S, C] scratch, out [GQ, C, O]
-extern "C" int se3_probe_rank3_accum(const void* a, void* part, void* out, int S, int rows, int C,
-                                     int GQ, int O, void* stream_ptr) {
-  if (S < 1 || rows < 1 || C < 1) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  float* p = static_cast<float*>(part);
-  rows_partials<<<S, C < kThreads ? C : kThreads, 0, stream>>>(static_cast<const float*>(a), rows, C, p);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long n = static_cast<long long>(GQ) * C * O;
-  broadcast_colsum<<<grid_for(n), kThreads, 0, stream>>>(p, S, C, O, static_cast<float*>(out), n);
+// a [S*rows, C], out [GQ, C, O]; slab: gq a block (probes.rank3_accum_plan,
+// whose grid this is)
+extern "C" int se3_probe_rank3_accum(const void* a, void* out, int S, int rows, int C, int GQ, int O, int slab,
+                                     void* stream_ptr) {
+  if (S < 1 || rows < 1 || C < 1 || GQ < 1 || O < 1 || slab < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int gq_slab = slab;
+  const int groups = (C + kColGroup - 1) / kColGroup, slabs = (GQ + gq_slab - 1) / gq_slab;
+  const dim3 grid(groups, slabs < 65535 ? slabs : 65535);
+  colsum_broadcast<<<grid, kColThreads, 0, static_cast<cudaStream_t>(stream_ptr)>>>(
+      static_cast<const float*>(a), S, rows, C, GQ, O, gq_slab, C % 4 == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0,
+      O % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0, static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,9 +1,9 @@
 // The cell-blocked conv's building blocks, for NVIDIA Hopper (sm_90a),
 // float32, ids int32:
 //
-//   gather_blocks (p1):      out[i] = scale * tab[ids[i]]           (blocks of P x C)
-//   gather_sum_blocks (p2, p4): out[i] = ((0 + tab[ids[i, 0]]) + tab[ids[i, 1]]) + ...
-//                            over r < R, in r order
+//   block_gather (p1, p2, p4): out[i] = scale * tab[ids[i]] (p1, R = 1:
+//                            blocks of P x C) or ((0 + tab[ids[i, 0]]) +
+//                            tab[ids[i, 1]]) + ... over r < R, in r order
 //   masked_dist_product (p3): d2[q, k] = (dx^2 + dy^2) + dz^2 (qp[q] - cp[k], xyz),
 //                            pne = (d2 < 0.04) * (3 d2 + 1), out = pne @ cf
 //
@@ -20,13 +20,21 @@
 // plain PyTorch versions.
 //
 // What bounds them: bytes for the gathers (p1 reads and writes 256 KB, p2
-// 1.3 MB, p4 2.4 MB: launch latency at these sizes).  Scalar prefetch
-// becomes "the block loads its own id": each thread reads the id of the
-// block its float4 falls in.  An id outside [0, NB) is never clamped or
-// read through: its output block is NaN, and the wrapper's caller checks
-// the ids (cellconv_probes.bad_ids).  The sums keep the JAX grid's order
-// (from zero, r = 0, 1, ...), so kernel, plain version and JAX kernel agree
-// bit for bit.
+// 1.3 MB, p4 2.4 MB: launch latency at these sizes).  One kernel,
+// block_gather, takes all three (instantiated scaled for p1, summing for
+// p2 and p4).  Scalar prefetch becomes "the block loads its own ids": block
+// (i, y) of the grid (cellconv_probes.gather_plan: output block i, slice y
+// of its float4s, 128 threads a float4 each; 128 blocks at p1 / p2, 512 at
+// p4) knows its output block, so its threads read block i's ids straight
+// into registers (one broadcast load a warp; staging them in shared memory
+// behind a block barrier put a step more between p1's id load and its table
+// load), and each thread issues its table loads, 4 at a time, before its
+// first add; the index math is a 64-bit multiply-add, with no division.  An
+// id outside [0, NB) is never clamped or read through: the block writes NaN
+// over its slice, and the wrapper's caller checks the ids
+// (cellconv_probes.bad_ids).  p1 writes scale * x, with no zero added first
+// (-0.0 stays -0.0); the sums keep the JAX grid's order (from zero, r = 0,
+// 1, ...), so kernel, plain version and JAX kernel agree bit for bit.
 //
 // p3 is 2 * 2048 * 512 * 128 = 268 MFLOP of products over 1.4 MB: 1.6 us at
 // the 3xTF32 ceiling (a third of the TF32 tensor-core peak), 4.0 us at the
@@ -74,8 +82,6 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kMaxGrid = 4096;
 // masked_dist_product: a block's queries and channels, candidates a staged
 // slice, depth groups, ring slots a group, m16 tiles a warp (its rows),
 // the warps of a group over the block's rows
@@ -95,49 +101,55 @@ constexpr int kP3Smem = kPGroups * kPStages * kSlot * 4;
 static_assert(kPGroups * kPQ * kFS <= kPGroups * kPStages * kSlot, "the partial tiles reuse the rings");
 constexpr float kRadius2 = 0.04f;
 
-inline unsigned grid_for(long long n) {
-  const long long b = (n + kThreads - 1) / kThreads;
-  return static_cast<unsigned>(b < 1 ? 1 : (b < kMaxGrid ? b : kMaxGrid));
-}
+// block_gather: most threads a block; ids a thread reads, and table loads
+// it issues, before its first add
+constexpr int kGatherMaxThreads = 256;
+constexpr int kGatherAhead = 4;
 
-// out [NQ, blk4] float4 = scale * tab [NB, blk4] float4 at row ids[i]
-__global__ void __launch_bounds__(kThreads)
-gather_blocks(const int* __restrict__ ids, const float4* __restrict__ tab, int NB, long long blk4,
-              float scale, float4* __restrict__ out, long long n4) {
-  for (long long i = blockIdx.x * static_cast<long long>(kThreads) + threadIdx.x; i < n4;
-       i += static_cast<long long>(gridDim.x) * kThreads) {
-    const long long q = i / blk4;
-    const int id = __ldg(ids + q);
-    float4 v = make_float4(NAN, NAN, NAN, NAN);
-    if (id >= 0 && id < NB) {
-      const float4 x = __ldg(tab + id * blk4 + (i - q * blk4));
-      v = make_float4(scale * x.x, scale * x.y, scale * x.z, scale * x.w);
-    }
-    out[i] = v;
-  }
-}
-
-// out [NQ, blk4] float4 = sum over r < R, in order from zero, of tab's row ids[q, r]
-__global__ void __launch_bounds__(kThreads)
-gather_sum_blocks(const int* __restrict__ ids, int R, const float4* __restrict__ tab, int NB,
-                  long long blk4, float4* __restrict__ out, long long n4) {
-  for (long long i = blockIdx.x * static_cast<long long>(kThreads) + threadIdx.x; i < n4;
-       i += static_cast<long long>(gridDim.x) * kThreads) {
-    const long long q = i / blk4, j = i - q * blk4;
+// out [NQ, blk4] float4, block i = scale * tab[ids[i]] (kScaled, R = 1) or
+// the sum over r < R, in order from zero, of tab's row ids[i * R + r];
+// tab [NB, blk4] float4.  Block (i, y) writes float4s j = y T + t, (y +
+// gridDim.y) T + t, ... of block i (T = blockDim.x).  Every thread reads
+// block i's ids itself (the same address across a warp: one load a warp),
+// 4 at a time, each checked before the table loads they name; an id
+// outside [0, NB) stops the reads and makes the float4 NaN.
+template <bool kScaled>
+__global__ void __launch_bounds__(kGatherMaxThreads)
+block_gather(const int* __restrict__ ids, int R, const float4* __restrict__ tab, int NB, long long blk4,
+             float scale, float4* __restrict__ out) {
+  const int* bid = ids + static_cast<long long>(blockIdx.x) * R;
+  float4* o = out + static_cast<long long>(blockIdx.x) * blk4;
+  const long long step = static_cast<long long>(gridDim.y) * blockDim.x;
+  for (long long j = static_cast<long long>(blockIdx.y) * blockDim.x + threadIdx.x; j < blk4; j += step) {
     float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (int r = 0; r < R; ++r) {
-      const int id = __ldg(ids + q * R + r);
-      if (id < 0 || id >= NB) {
-        s = make_float4(NAN, NAN, NAN, NAN);
-        break;
+    bool bad = false;
+    for (int r0 = 0; r0 < R; r0 += kGatherAhead) {
+      int id[kGatherAhead];
+#pragma unroll
+      for (int k = 0; k < kGatherAhead; ++k)
+        if (r0 + k < R) {
+          id[k] = __ldg(bid + r0 + k);
+          bad |= id[k] < 0 || id[k] >= NB;
+        }
+      if (bad) break;
+      float4 x[kGatherAhead];
+#pragma unroll
+      for (int k = 0; k < kGatherAhead; ++k)
+        if (r0 + k < R) x[k] = __ldg(tab + id[k] * blk4 + j);
+      if (kScaled) {
+        s = make_float4(scale * x[0].x, scale * x[0].y, scale * x[0].z, scale * x[0].w);
+      } else {
+#pragma unroll
+        for (int k = 0; k < kGatherAhead; ++k)
+          if (r0 + k < R) {
+            s.x += x[k].x;
+            s.y += x[k].y;
+            s.z += x[k].z;
+            s.w += x[k].w;
+          }
       }
-      const float4 x = __ldg(tab + id * blk4 + j);
-      s.x += x.x;
-      s.y += x.y;
-      s.z += x.z;
-      s.w += x.w;
     }
-    out[i] = s;
+    o[j] = bad ? make_float4(NAN, NAN, NAN, NAN) : s;
   }
 }
 
@@ -295,27 +307,28 @@ masked_dist_product(const float* __restrict__ qp, int ldq, const float* __restri
 
 }  // namespace
 
-// ids [NQ] int32; tab [NB, block] and out [NQ, block] float32, 16-byte
-// aligned, block a multiple of 4.
-extern "C" int se3_probe_gather_blocks(const void* ids, int NQ, const void* tab, int NB, long long block,
-                                       float scale, void* out, void* stream_ptr) {
-  if (NQ < 1 || NB < 1 || block < 4 || block % 4 != 0) return static_cast<int>(cudaErrorInvalidValue);
-  const long long n4 = static_cast<long long>(NQ) * block / 4;
-  gather_blocks<<<grid_for(n4), kThreads, 0, static_cast<cudaStream_t>(stream_ptr)>>>(
-      static_cast<const int*>(ids), static_cast<const float4*>(tab), NB, block / 4, scale,
-      static_cast<float4*>(out), n4);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// ids [NQ, R] int32; tab [NB, block] and out [NQ, block] as above.
-extern "C" int se3_probe_gather_sum_blocks(const void* ids, int NQ, int R, const void* tab, int NB,
-                                           long long block, void* out, void* stream_ptr) {
-  if (NQ < 1 || R < 1 || NB < 1 || block < 4 || block % 4 != 0)
+// ids [NQ, R] int32; tab [NB, block] and out [NQ, block] float32, 16-byte
+// aligned, block a multiple of 4; scaled (p1): R = 1, out = scale * tab
+// block; threads a block (cellconv_probes.gather_plan), a multiple of 32 up
+// to 256.
+extern "C" int se3_probe_block_gather(const void* ids, int NQ, int R, const void* tab, int NB, long long block,
+                                      int scaled, float scale, int threads, void* out, void* stream_ptr) {
+  if (NQ < 1 || R < 1 || NB < 1 || block < 4 || block % 4 != 0 || (scaled && R != 1) || threads < 32 ||
+      threads > kGatherMaxThreads || threads % 32 != 0 || reinterpret_cast<uintptr_t>(tab) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(out) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const long long n4 = static_cast<long long>(NQ) * block / 4;
-  gather_sum_blocks<<<grid_for(n4), kThreads, 0, static_cast<cudaStream_t>(stream_ptr)>>>(
-      static_cast<const int*>(ids), R, static_cast<const float4*>(tab), NB, block / 4,
-      static_cast<float4*>(out), n4);
+  const int block_threads = threads;
+  const long long blk4 = block / 4, slices = (blk4 + block_threads - 1) / block_threads;
+  const dim3 grid(NQ, slices < 65535 ? static_cast<unsigned>(slices) : 65535u);
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (scaled)
+    block_gather<true><<<grid, block_threads, 0, stream>>>(static_cast<const int*>(ids), R,
+                                                            static_cast<const float4*>(tab), NB, blk4, scale,
+                                                            static_cast<float4*>(out));
+  else
+    block_gather<false><<<grid, block_threads, 0, stream>>>(static_cast<const int*>(ids), R,
+                                                             static_cast<const float4*>(tab), NB, blk4, scale,
+                                                             static_cast<float4*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -337,12 +350,12 @@ extern "C" int se3_probe_masked_dist_product(const void* qp, int ldq, int NQ, co
   return static_cast<int>(cudaGetLastError());
 }
 
-// attrs[0..3] of kernel `which`: 0 gather_blocks, 1 gather_sum_blocks,
+// attrs[0..3] of kernel `which`: 0 block_gather<scaled>, 1 block_gather<sum>,
 // 2 masked_dist_product (probe_common.cuh: kernel_attrs).
 extern "C" int se3_probe_cellconv_attrs(int which, int* attrs) {
   switch (which) {
-    case 0: return kernel_attrs(gather_blocks, 0, attrs);
-    case 1: return kernel_attrs(gather_sum_blocks, 0, attrs);
+    case 0: return kernel_attrs(block_gather<true>, 0, attrs);
+    case 1: return kernel_attrs(block_gather<false>, 0, attrs);
     case 2: return kernel_attrs(masked_dist_product, kP3Smem, attrs);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

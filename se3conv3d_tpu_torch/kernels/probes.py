@@ -44,7 +44,8 @@ The backward building blocks (``csrc/probe_bwd_ops.cu``; replace
 what ``jax.jvp`` with a tangent of ones gives), :func:`expand_groups`,
 :func:`batched_contract` (the ``d_w`` contraction over rows),
 :func:`rank3_accum` (a column sum over every row into one output that the
-TPU grid revisited, here per-block partials added in block order) and
+TPU grid revisited, here one launch that sums each row block in row order
+and the block sums in block order, the TPU grid's order) and
 :func:`merge_back`.  The streaming sum (``csrc/probe_stream.cu``; replaces
 ``chip_stream.py:k_sum``): :func:`column_sums` of a row-major ``[R, L]``
 array read once with 16-byte loads.  The accumulators
@@ -83,6 +84,7 @@ __all__ = [
     "stage_tensor_grid", "stage_tensor_writes",
     "gelu_jvp", "gelu_jvp_reference", "expand_groups", "expand_groups_reference",
     "batched_contract", "batched_contract_reference", "rank3_accum", "rank3_accum_reference",
+    "RANK3_GROUP", "RANK3_TARGET_BLOCKS", "rank3_accum_plan", "rank3_accum_writes", "rank3_in_kernel_order",
     "merge_back", "merge_back_reference", "column_sums", "column_sums_reference",
     "accum_tag", "block_total_accum", "block_total_accum_reference", "grid_column_accum",
     "grid_column_accum_reference", "grid_column_in_kernel_order", "column_partials_bytes",
@@ -466,20 +468,73 @@ def rank3_accum_reference(a: torch.Tensor, gq: int, o: int, rows: int) -> torch.
     return s[None, :, None].expand(gq, a.shape[1], o).contiguous()
 
 
+# b4's kernel (csrc/probe_bwd_ops.cu colsum_broadcast): the columns a block
+# sums, and the blocks its plan aims at (each block reads its columns over
+# every row, so more blocks read ``a`` again: 64 beat 128 at the bisect
+# shape)
+RANK3_GROUP, RANK3_TARGET_BLOCKS = 8, 64
+
+
+def rank3_accum_plan(c: int, gq: int) -> dict:
+    """:func:`rank3_accum`'s launch for ``C = c`` columns broadcast to
+    ``gq`` rows: a block for each group of :data:`RANK3_GROUP` columns
+    (``groups``, grid x) and each slab of ``slab`` gq (grid y, at most
+    65,535; a block walks slabs ``y, y + grid_y, ...``), the slab as small
+    as keeps the blocks near :data:`RANK3_TARGET_BLOCKS`.  Pure Python; the
+    C entry takes ``slab`` and recomputes the grid, and the CPU tests check
+    that :func:`rank3_accum_writes` covers the output once."""
+    groups = -(-c // RANK3_GROUP)
+    slab = max(1, -(-groups * gq // RANK3_TARGET_BLOCKS))
+    slabs = -(-gq // slab)
+    grid = (groups, min(slabs, 65535))
+    return {"groups": groups, "slab": slab, "slabs": slabs, "grid": grid, "blocks": grid[0] * grid[1]}
+
+
+def rank3_accum_writes(plan: dict, x: int, y: int, c: int, gq: int) -> list:
+    """The ``(gq rows, columns)`` slices of ``out [gq, C, O]`` (every o)
+    that block ``(x, y)`` of :func:`rank3_accum_plan` writes: columns
+    ``8x .. 8x + 7`` (fewer in the last group) of its slabs."""
+    cols = slice(RANK3_GROUP * x, min(RANK3_GROUP * (x + 1), c))
+    step = plan["grid"][1] * plan["slab"]
+    return [(slice(g0, min(g0 + plan["slab"], gq)), cols) for g0 in range(y * plan["slab"], gq, step)]
+
+
+def rank3_in_kernel_order(a: torch.Tensor, rows: int) -> torch.Tensor:
+    """``[C]``: the column sums :func:`rank3_accum`'s kernel broadcasts, in
+    its order: each block of ``rows`` rows summed column by column in row
+    order from zero, then the block sums added in block order from zero.
+    Plain PyTorch, on any device."""
+    blocks = a.float().reshape(-1, rows, a.shape[1])
+    run = torch.zeros(blocks.shape[0], a.shape[1], dtype=torch.float32, device=a.device)
+    for r in range(rows):
+        run = run + blocks[:, r]
+    s = torch.zeros(a.shape[1], dtype=torch.float32, device=a.device)
+    for blk in run:
+        s = s + blk
+    return s
+
+
 def rank3_accum(a: torch.Tensor, gq: int, o: int, rows: int) -> torch.Tensor:
     """``out[g, c, o] = sum_m a[m, c]`` for ``a [S*rows, C]``, broadcast
     to ``[gq, C, o]``: each block of ``rows`` rows summed on its own, the
-    block sums added in block order (b4)."""
-    if a.dim() != 2 or a.shape[0] % rows:
+    block sums added in block order (b4).  CUDA tensors launch one kernel
+    (:func:`rank3_accum_plan`), no scratch: each block stages its columns'
+    rows in shared memory, sums each row block's column in row order from
+    zero and the block sums in block order from zero (the TPU grid's
+    order), and writes its gq slabs; two calls give the same bits.  The
+    kernel takes S, rows, C, gq and o of 1 or more."""
+    if a.dim() != 2 or rows < 1 or a.shape[0] % rows:
         raise ValueError(f"a must be [S * {rows}, C], got {tuple(a.shape)}")
     if not _on_card("rank3_accum", a):
         return rank3_accum_reference(a, gq, o, rows)
     s, c = a.shape[0] // rows, a.shape[1]
-    part = torch.empty(s, c, dtype=torch.float32, device=a.device)
+    if min(s, c, gq, o) < 1:
+        raise ValueError(f"the kernel takes S, C, gq and o of 1 or more, got {s}, {c}, {gq}, {o}")
     out = torch.empty(gq, c, o, dtype=torch.float32, device=a.device)
     with torch.cuda.device(a.device):
-        _check(library("probe_bwd").se3_probe_rank3_accum(a.data_ptr(), part.data_ptr(), out.data_ptr(),
-                                                          s, rows, c, gq, o, _stream(a)), "rank3_accum")
+        _check(library("probe_bwd").se3_probe_rank3_accum(a.data_ptr(), out.data_ptr(), s, rows, c, gq, o,
+                                                          rank3_accum_plan(c, gq)["slab"], _stream(a)),
+               "rank3_accum")
     rank3_accum.launches += 1
     return out
 
