@@ -36,7 +36,8 @@ order they run:
    plain version (scalars within 1e-6 / 1e-5 of the sum of their terms'
    magnitudes, bfloat16 under half its no-rounding control), two calls
    bitwise equal, the stage split; ``bisect_fused``'s stage tensors at MP =
-   1024 and b1-b5 within 1e-5 of max |plain|, bitwise repeats; the column
+   1024 and b1-b5 within 1e-5 of max |plain| (b1 also within 1e-6 (1 +
+   |ref|) of float64 at each of 400,004 points), bitwise repeats; the column
    sums of ``chip_stream``'s three arrays against float64 (1e-6 of each
    column's sum of |x|), bitwise repeats, the read rate beside
    ``torch.sum``; the staged forward's registers per instantiation;
@@ -4355,14 +4356,39 @@ BISECT_NO_LIBRARY = {
     "s1_pne": "pne = gelu(geo . proj + bias) takes a product, the bias and a GELU: no one call",
     "s2_agg": "the aggregation needs pne first (a product and a GELU), then a batched product: no one call",
     "s3_swap": "pne, the aggregation and the relayout to [GQ, M, C]: no one call",
-    "b1_jvp_gelu": "gelu(a) + gelu'(a): no PyTorch call gives a GELU and its derivative together",
+    "b1_jvp_gelu": "gelu(a) + gelu'(a): no PyTorch call gives a GELU and its derivative together; "
+                   "F.gelu(a, approximate='tanh'), the same bytes with one tanh an element, timed as yardstick_ms",
     "b4_rank3_accum": "column sums broadcast to [GQ, C, O]: torch.sum, then a copy of the broadcast "
                       "(the two calls timed as yardstick_ms)",
 }
-# b4's two-call yardstick: the column sums, then a copy of their broadcast
+# b4's two-call yardstick: the column sums, then a copy of their broadcast;
+# b1's: the GELU alone (the floor a fused b1 can reach)
 BISECT_YARDSTICK = {
     "b4_rank3_accum": lambda a, gq, c, o: torch.sum(a, 0)[None, :, None].expand(gq, c, o).contiguous(),
+    "b1_jvp_gelu": lambda a, *shape: torch.nn.functional.gelu(a, approximate="tanh"),
 }
+# b1's per-element bound over gelu_jvp_sweep: |kernel - ref| <=
+# GELU_JVP_SWEEP_RTOL (1 + |ref|), ref the float64 gelu + gelu'
+GELU_JVP_SWEEP_RTOL = 1e-6
+
+
+def gelu_jvp_sweep(device) -> torch.Tensor:
+    """float32 points that b1's kernel is held to one by one: [-20, 20] in
+    400,000 steps, +-1e4 and signed zeros (400,004 values, a multiple of 4)."""
+    x = torch.linspace(-20.0, 20.0, 400_000, dtype=torch.float64)
+    return torch.cat([x, torch.tensor([1e4, -1e4, 0.0, -0.0], dtype=torch.float64)]).float().to(device)
+
+
+def gelu_jvp_sweep_error(got: torch.Tensor, x: torch.Tensor) -> float:
+    """max |got - ref| / (1 + |ref|) over ``x``, ref ``gelu(x) + gelu'(x)``
+    (tanh form) in float64 numpy on the host; inf where ``got`` is not
+    finite."""
+    k, c = math.sqrt(2.0 / math.pi), 0.044715
+    xd = x.detach().double().cpu().numpy()
+    t = np.tanh(k * (xd + c * xd ** 3))
+    ref = 0.5 * (1.0 + t) * (xd + 1.0) + xd * 0.5 * (1.0 - t * t) * k * (1.0 + 3.0 * c * xd * xd)
+    g = got.detach().double().cpu().numpy()
+    return float((np.abs(g - ref) / (1.0 + np.abs(ref))).max()) if np.isfinite(g).all() else float("inf")
 # the stages that end in the weight contraction: their library time is the
 # contraction alone (torch.bmm of a [GQ, MP, C] basis with W)
 BISECT_PRODUCT_ALONE = ("s4_wcontract", "s5_reduce", "s6_vmap")
@@ -4390,8 +4416,9 @@ def probe_bisect_cases(card, dev) -> dict:
     with the FMA bound beside it) and the one PyTorch call that computes
     the same function where there is one (s4-s6: the weight contraction
     alone as ``torch.bmm``), or why there is none
-    (:data:`BISECT_NO_LIBRARY`; b4 with its two-call yardstick,
-    :data:`BISECT_YARDSTICK`)."""
+    (:data:`BISECT_NO_LIBRARY`; b4 and b1 with their yardsticks,
+    :data:`BISECT_YARDSTICK`); b1 also value by value over
+    :func:`gelu_jvp_sweep` against float64 (:data:`GELU_JVP_SWEEP_RTOL`)."""
     from se3conv3d_tpu_torch.experiments import bisect_fused as bf
     from se3conv3d_tpu_torch.kernels import probes
 
@@ -4439,7 +4466,14 @@ def probe_bisect_cases(card, dev) -> dict:
         else:
             lib_text = f"; no single PyTorch call: {BISECT_NO_LIBRARY[name]}"
         if yard_ms is not None:
-            lib_text += f"; the two calls {yard_ms:.4f} ms"
+            lib_text += f"; yardstick_ms {yard_ms:.4f}"
+        if name == "b1_jvp_gelu":  # each value of the sweep against float64
+            sweep = gelu_jvp_sweep(dev)
+            sweep_err = gelu_jvp_sweep_error(fn(sweep), sweep)
+            lib_text += (f"; over {sweep.numel()} points of [-20, 20] and +-1e4 {sweep_err:.3e} of 1 + |float64| "
+                         f"(bound {GELU_JVP_SWEEP_RTOL:g})")
+            if sweep_err > GELU_JVP_SWEEP_RTOL:
+                raise SystemExit(f"phase 32: b1 is {sweep_err:.3e} of 1 + |ref| off float64 over the sweep")
         print(f"probe {name}: shape {tuple(got.shape)} max_abs_err={err:.3e} max_rel_err={rel:.3e} (bound "
               f"{bf.RTOL:g}); two calls bitwise equal: {same}; kernel_ms={ms:.4f} (device, one call with its host "
               f"time {call_ms:.4f}) plain_ms={plain_ms:.4f} "

@@ -10,8 +10,12 @@ the git-ignored ``scratch_checkout/``.  Round r runs one process a root, in
 the given order on even rounds and reversed on odd ones (A B, then B A).
 A process imports its root's ``se3conv3d_tpu_torch``, whose wrappers build
 that root's kernel sources at first use, and times with this checkout's
-``chip_smoke.graph_ms`` (device ms per call from a CUDA graph of 5 calls,
-median of 5 replays):
+``chip_smoke.graph_ms`` (device ms per call from a CUDA graph, median of 5
+replays) through :func:`floor_graph_ms`, which picks the calls a graph
+from a first timing of 5 so that one replay runs at least
+``GRAPH_FLOOR_MS``: each replay also costs a fixed ~11 us on an H100, which
+at 5 calls of a kernel near a launch's floor (~1.8 us) is most of what a
+graph of 5 reads:
 
 - ``stage``: ``probes.stage_sum`` on ``chip_stage_time``'s inputs at ``M``
   rows (every stage, float32 and bfloat16) and b3 ``probes.batched_contract``
@@ -22,8 +26,13 @@ median of 5 replays):
   and each stage's registers, local bytes, shared memory and blocks an SM;
   b4 (``probes.rank3_accum``, two calls bit for bit) beside its two-call
   yardstick (``chip_smoke.BISECT_YARDSTICK``: ``torch.sum``, then a copy of
-  the broadcast) and b2 (``probes.expand_groups``) beside
-  ``repeat_interleave``;
+  the broadcast), b2 (``probes.expand_groups``) beside
+  ``repeat_interleave``, b1 (``probes.gelu_jvp``, two calls bit for bit,
+  within ``bisect_fused.RTOL``; its error over ``chip_smoke.gelu_jvp_sweep``
+  printed beside ``chip_smoke.GELU_JVP_SWEEP_RTOL``) beside its yardstick
+  ``F.gelu(a, approximate="tanh")`` and b5 (``probes.merge_back``, bit for
+  bit ``2a``) beside ``torch.mul(a, 2.0)``, with ``stream_map``'s registers
+  and shared memory where the root has it;
 - ``mosaic``: every probe of ``mosaic_probes`` at the JAX script's shapes
   (the products of ``strided_product``, the six strided copies, p9 and
   p14), each beside its one PyTorch call (``chip_smoke.mosaic_library``:
@@ -44,7 +53,8 @@ median of 5 replays):
 A root's first process also reports its build's seconds (the sources at
 once), per kernel the HGMMA (wgmma) and HMMA (mma.sync) instructions in the
 libraries' SASS (``cuobjdump --dump-sass``; ``strided_product`` summed by
-operand type as well), and, with ``mosaic`` or ``cellconv``, each
+operand type as well), b1's kernel's MUFU.EX2 and all MUFU instructions
+(for ``stream_map<GeluJvp>`` per value: one exponential a value), and, with ``mosaic`` or ``cellconv``, each
 kernel's registers and shared memory (``cudaFuncGetAttributes``).  Every
 root's stage sums must agree with the first root's within
 ``chip_smoke.PROBE_SCALAR_RTOL`` of the stage's sum of |values|, its b3,
@@ -61,6 +71,7 @@ from __future__ import annotations
 import argparse
 import importlib.util
 import json
+import math
 import os
 import re
 import statistics
@@ -71,6 +82,9 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
 B3_RTOL = 1e-5
+# one replay of a timed CUDA graph runs at least this long (ms), in at most
+# GRAPH_MAX_CALLS calls
+GRAPH_FLOOR_MS, GRAPH_MAX_CALLS = 0.1, 1000
 SETS = {"stage": ("probe_stage", "probe_bwd"), "bisect": ("probe_stage", "probe_bwd"),
         "mosaic": ("probe_mosaic", "probe_accum"), "copies": ("probe_mosaic",), "cellconv": ("probe_cellconv",)}
 
@@ -82,15 +96,36 @@ def load_smoke():
     return mod
 
 
+def floor_graph_ms(graph_ms):
+    """``graph_ms`` (``chip_smoke.graph_ms``: fn, side, calls) with its calls
+    a graph picked from a first timing of 5: while one replay runs under
+    :data:`GRAPH_FLOOR_MS`, again with at least twice the calls and enough,
+    at the last reading, for the floor, so that a replay's fixed cost is
+    about a tenth or less of what is read.  A kernel whose 5 calls already
+    run that long is timed once, at 5 calls."""
+    def timed(fn, side) -> float:
+        calls, ms = 5, graph_ms(fn, side, 5)
+        while ms * calls < GRAPH_FLOOR_MS and calls < GRAPH_MAX_CALLS:
+            calls = min(GRAPH_MAX_CALLS, max(2 * calls, math.ceil(1.2 * GRAPH_FLOOR_MS / ms)))
+            ms = graph_ms(fn, side, calls)
+        return ms
+
+    return timed
+
+
 def demangle(name: str) -> str:
     """The kernel and template arguments of a mangled tile_fwd / stage_fwd /
-    strided_product name, shortened (tile_fwd<4,bf16>,
-    strided_product<f32,0,1,0>: tile id and the two layouts)."""
-    for kern in ("tile_fwd", "stage_fwd", "batched_contract", "strided_product", "masked_dist_product"):
+    strided_product / stream_map name, shortened (tile_fwd<4,bf16>,
+    strided_product<f32,0,1,0>: tile id and the two layouts;
+    stream_map<GeluJvp>: the map)."""
+    for kern in ("tile_fwd", "stage_fwd", "batched_contract", "strided_product", "masked_dist_product",
+                 "stream_map", "gelu_jvp"):
         if kern in name:
             rest = name.rsplit(kern, 1)[1]
             if not rest.startswith("I"):
                 return kern
+            if kern == "stream_map":
+                return f"{kern}<{'GeluJvp' if 'GeluJvp' in rest else 'Scale2'}>"
             dtype = "bf16" if "bfloat16" in rest[:40] else "f32"
             if kern == "strided_product":
                 args = re.findall(r"L[ib](\d+)E", rest.split("EEv")[0])
@@ -100,19 +135,27 @@ def demangle(name: str) -> str:
     return name[-40:]
 
 
+def is_b1(kernel: str) -> bool:
+    """b1's kernel: gelu_jvp (the first design's) or stream_map<GeluJvp>."""
+    return kernel == "gelu_jvp" or kernel.startswith("stream_map<GeluJvp")
+
+
 def sass_counts(lib: Path) -> dict:
-    """{kernel: [HGMMA, HMMA]} for the kernels of ``lib`` that hold either."""
+    """{kernel: [HGMMA, HMMA, MUFU.EX2, MUFU]} for the kernels of ``lib``
+    that hold HGMMA or HMMA, and b1's (:func:`is_b1`)."""
     tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     sass = subprocess.run([tool, "--dump-sass", str(lib)], capture_output=True, text=True, check=True).stdout
     counts, fn = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
             fn = demangle(line.split("Function :")[1].strip())
-            counts[fn] = [0, 0]
+            counts[fn] = [0, 0, 0, 0]
         elif fn is not None:
             counts[fn][0] += "HGMMA" in line
             counts[fn][1] += "HMMA" in line
-    return {k: v for k, v in counts.items() if any(v)}
+            counts[fn][2] += "MUFU.EX2" in line
+            counts[fn][3] += "MUFU" in line
+    return {k: v for k, v in counts.items() if any(v[:2]) or is_b1(k)}
 
 
 def stage_times(res: dict, smoke, m: int, dev, side) -> None:
@@ -164,6 +207,24 @@ def bisect_times(res: dict, smoke, dev, side) -> None:
     res["rel_err"]["b2"] = bf.check(bf.STAGES["b2_gexp"](x), bf.REFERENCES["b2_gexp"](x))
     res["ms"]["b2"] = smoke.graph_ms(lambda: bf.STAGES["b2_gexp"](x), side)
     res["ms"]["b2 library"] = smoke.graph_ms(lambda: x.repeat_interleave(bf.Q, 0), side)
+    (x,) = bf.draw("b1_jvp_gelu", 70, dev)
+    got = bf.STAGES["b1_jvp_gelu"](x)
+    res["rel_err"]["b1"] = bf.check(got, bf.REFERENCES["b1_jvp_gelu"](x))
+    if not torch.equal(got, bf.STAGES["b1_jvp_gelu"](x)):
+        raise SystemExit("probe_ab: b1 gave other bits on a second call")
+    sweep = smoke.gelu_jvp_sweep(dev)
+    res["b1_sweep_err"] = smoke.gelu_jvp_sweep_error(bf.STAGES["b1_jvp_gelu"](sweep), sweep)
+    res["ms"]["b1"] = smoke.graph_ms(lambda: bf.STAGES["b1_jvp_gelu"](x), side)
+    res["ms"]["b1 yardstick F.gelu(tanh)"] = smoke.graph_ms(lambda: smoke.BISECT_YARDSTICK["b1_jvp_gelu"](x), side)
+    (x,) = bf.draw("b5_merge_back", 71, dev)
+    got = bf.STAGES["b5_merge_back"](x)
+    if not torch.equal(got.view(torch.int32), (x.reshape(got.shape) * 2.0).view(torch.int32)):
+        raise SystemExit("probe_ab: b5 is not 2a bit for bit")
+    res["ms"]["b5"] = smoke.graph_ms(lambda: bf.STAGES["b5_merge_back"](x), side)
+    res["ms"]["b5 library torch.mul"] = smoke.graph_ms(lambda: torch.mul(x, 2.0), side)
+    if hasattr(probes, "stream_kernel_attributes"):
+        res["attrs"].update({f"stream_map<{op}>": probes.stream_kernel_attributes(op)
+                             for op in ("gelu_jvp", "merge_back")})
 
 
 def mosaic_times(res: dict, smoke, dev, side, copies_only: bool = False) -> None:
@@ -220,12 +281,14 @@ def cellconv_times(res: dict, smoke, dev, side) -> None:
 
 
 def worker(root: Path, m: int, first: bool, sets: list) -> dict:
-    """Times ``root``'s wrappers; returns ms, the stage sums and their sums
-    of |values|, the relative errors and, where ``first``, the build."""
+    """Times ``root``'s wrappers (:func:`floor_graph_ms`); returns ms, the
+    stage sums and their sums of |values|, the relative errors and, where
+    ``first``, the build."""
     sys.path.insert(0, str(root))
     import torch
 
     smoke = load_smoke()
+    smoke.graph_ms = floor_graph_ms(smoke.graph_ms)
     from se3conv3d_tpu_torch.kernels import build, probes
 
     if not Path(probes.__file__).resolve().is_relative_to(root):
@@ -257,9 +320,14 @@ def sass_line(root: str, res: dict) -> str:
     for k, v in counts.items():
         if k.startswith("strided_product<"):
             key = "strided_product<" + k.split("<")[1].split(",")[0].rstrip(">") + "> (all)"
-            by_type[key] = [x + y for x, y in zip(by_type.get(key, [0, 0]), v)]
+            by_type[key] = [x + y for x, y in zip(by_type.get(key, [0, 0]), v[:2])]
+    mma = {k: v for k, v in {**counts, **by_type}.items() if any(v[:2])}
+    # b1: stream_map<GeluJvp> maps 4 values a thread; gelu_jvp loops over float4s
+    mufu = [f"{k} {v[2]}, {v[3]}" + (f" ({v[2] / 4:.2f} EX2 a value)" if k.startswith("stream_map") else "")
+            for k, v in counts.items() if is_b1(k)]
     return (f"[{root}] build {res['build_s']:.1f} s; SASS (HGMMA, HMMA): "
-            + "; ".join(f"{k} {v[0]}, {v[1]}" for k, v in {**counts, **by_type}.items()))
+            + "; ".join(f"{k} {v[0]}, {v[1]}" for k, v in mma.items())
+            + ("; b1 SASS (MUFU.EX2, all MUFU): " + "; ".join(mufu) if mufu else ""))
 
 
 def main() -> int:
@@ -300,6 +368,10 @@ def main() -> int:
                     print(f"[{root}] {k}: {v['registers']} registers, {v['local_bytes']} local bytes, "
                           f"{v['static_smem']} + {v['dynamic_smem']} bytes of shared memory"
                           + (f", {v['blocks_per_sm']} block(s) an SM" if "blocks_per_sm" in v else ""), flush=True)
+            if "b1_sweep_err" in res and not runs[root]:
+                print(f"[{root}] b1 over gelu_jvp_sweep: {res['b1_sweep_err']:.3e} of 1 + |float64| (bound "
+                      f"{smoke.GELU_JVP_SWEEP_RTOL:g}, within: {res['b1_sweep_err'] <= smoke.GELU_JVP_SWEEP_RTOL})",
+                      flush=True)
             runs[root].append(res)
     first = runs[a.roots[0]][0]
     from se3conv3d_tpu_torch.experiments import bisect_accum
@@ -318,7 +390,7 @@ def main() -> int:
     for key in first["ms"]:
         print(f"{key:40s} " + "  ".join(f"[{root}] {statistics.median(ms[f'{key} [{root}]']):.4f}"
                                          for root in a.roots) + f" ms [{card}]", flush=True)
-    print(json.dumps({"card": card, "m": a.m, "rounds": a.rounds, "sets": sets,
+    print(json.dumps({"card": card, "m": a.m, "rounds": a.rounds, "graph_floor_ms": GRAPH_FLOOR_MS, "sets": sets,
                       "ms": {k: statistics.median(v) for k, v in ms.items()},
                       "range": {k: [min(v), max(v)] for k, v in ms.items()}}))
     return 0

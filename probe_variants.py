@@ -2,18 +2,21 @@
 """Variants of one probe kernel's source, built side by side and timed in
 turns on one NVIDIA GPU.
 
-    python3 probe_variants.py p3|p11|stage|copy|b4|gather [--rounds 4] [--skip-diagnostics]
+    python3 probe_variants.py p3|p11|stage|copy|b4|gather|b1|b5 [--rounds 4] [--skip-diagnostics]
 
 Each variant is the kernel's source in this checkout with a few lines
 replaced (``KERNELS``); the first is the source as it stands.  Every
 variant is compiled with ``nvcc`` (``kernels.build``'s flags, all at once)
 into its own library under the git-ignored ``kernels/_build/variants/``, and
 called through the same C entry as the wrapper calls on the same inputs;
-device ms per call from ``chip_smoke.graph_ms`` (a CUDA graph of 5 calls),
+device ms per call from ``chip_smoke.graph_ms`` (a CUDA graph of as many
+calls as ``probe_ab.floor_graph_ms`` picks, so that a replay's fixed cost
+of ~11 us is about a tenth or less of what is read),
 round r in the listed order on even rounds and reversed on odd ones, the
 one PyTorch call (``torch.matmul(pne, cf)``, ``torch.sum(a, 0)``, the
 stage's weight product alone as ``torch.bmm``, b4's two-call yardstick)
-timed after each round; ``stage`` times the whole-tensor forward at each
+timed after each round (b1: ``F.gelu(a, approximate="tanh")``, b5:
+``torch.mul(a, 2.0)``); ``stage`` times the whole-tensor forward at each
 of s1-s5 (``bisect_fused``'s inputs), ``copy`` the strided copy at each
 copy probe's view, beside ``.contiguous()`` of the same view, ``gather``
 the block gather at p1, p2 and p4 (``probe_cellconv``'s inputs), beside a
@@ -23,7 +26,14 @@ other must give the plain version's result as the wrapper's checks hold
 it (p3: pne bit for bit, the product within ``P3_RTOL`` of max |plain|;
 p11: bit for bit ``probes.grid_column_in_kernel_order``; stage: each
 stage within ``bisect_fused.RTOL`` of max |plain|; copy and gather: bit for
-bit; b4: bit for bit ``probes.rank3_in_kernel_order``).  Prints each
+bit; b4: bit for bit ``probes.rank3_in_kernel_order``; b5: bit for bit
+``2a``; b1: within ``bisect_fused.RTOL`` of max |plain|, its error over
+``chip_smoke.gelu_jvp_sweep`` printed beside its bound).  ``b1`` and ``b5``
+(one streaming kernel, ``stream_map``, one float4 a thread) try 2, 4 and 8
+float4s a thread, a ring of ``cp.async.bulk`` copies, streaming cache
+hints on the loads and stores, and for b1 the first design's two
+``tanhf``, ``__expf`` without the folded constants and the accurate
+``expf`` / ``__frcp_rn``.  Prints each
 variant's registers and spills (``-Xptxas -v``), its check, and the median
 and range of its times beside the card's name and power limit.  It runs on
 the card only.
@@ -99,6 +109,177 @@ _COPY_UNROLL2 = ("constexpr int kCopyUnroll = 4;", "constexpr int kCopyUnroll = 
 _COPY_UNROLL8 = ("constexpr int kCopyUnroll = 4;", "constexpr int kCopyUnroll = 8;")
 _SLAB = "const int gq_slab = slab;"
 _GATHER_THREADS = "const int block_threads = threads;"
+_LAUNCH = "  stream_map<Op><<<"
+_STREAM_ENTRY = "// stream_map's launch:"
+_STREAM_BODY = """    const float4 v = a[i];
+    out[i] = make_float4(Op::map(v.x), Op::map(v.y), Op::map(v.z), Op::map(v.w));"""
+
+
+def _variant_launch(launch: str) -> str:
+    """Text put before stream_map's launch so that ``launch`` (a statement
+    on the entry's ``in``, ``o``, ``n4`` and ``st``) runs instead."""
+    return f"  {{\n    {launch}\n    return static_cast<int>(cudaGetLastError());\n  }}\n" + _LAUNCH
+
+
+def _unroll(u: int) -> list:
+    """b1 / b5 with ``u`` float4s a thread (a block of 256 threads covers
+    256 u), every load of a thread issued before its first map."""
+    kernel = f"""template <class Op>
+__global__ void __launch_bounds__(kStreamThreads)
+stream_map_u(const float4* __restrict__ a, float4* __restrict__ out, unsigned n4) {{
+  constexpr int U = {u};
+  const unsigned i0 = blockIdx.x * static_cast<unsigned>(kStreamThreads * U) + threadIdx.x;
+  float4 v[U];
+#pragma unroll
+  for (int k = 0; k < U; ++k)
+    if (i0 + k * kStreamThreads < n4) v[k] = a[i0 + k * kStreamThreads];
+#pragma unroll
+  for (int k = 0; k < U; ++k)
+    if (i0 + k * kStreamThreads < n4)
+      out[i0 + k * kStreamThreads] = make_float4(Op::map(v[k].x), Op::map(v[k].y), Op::map(v[k].z), Op::map(v[k].w));
+}}
+
+"""
+    launch = (f"stream_map_u<Op><<<(n4 + {256 * u - 1}u) / {256 * u}u, kStreamThreads, 0, st>>>(in, o, n4);")
+    return [(_STREAM_ENTRY, kernel + _STREAM_ENTRY), (_LAUNCH, _variant_launch(launch))]
+
+
+def _bulk_ring(chunk_bytes: int) -> list:
+    """b1 / b5 as a persistent grid of at most 132 blocks, each walking
+    chunks of ``chunk_bytes`` through a 2-slot shared-memory ring: one
+    thread issues ``cp.async.bulk`` copies in (completing on an mbarrier)
+    and out (bulk groups), chunk k + 1 loading while chunk k is mapped in
+    place."""
+    kernel = f"""constexpr unsigned kBulkF4 = {chunk_bytes // 16};
+
+template <class Op>
+__global__ void __launch_bounds__(kStreamThreads)
+stream_bulk(const float4* __restrict__ a, float4* __restrict__ out, unsigned n4) {{
+  __shared__ __align__(128) float4 ring[2][kBulkF4];
+  __shared__ __align__(8) unsigned long long full[2];
+  const unsigned chunks = (n4 + kBulkF4 - 1) / kBulkF4;
+  const uint32_t bar = static_cast<uint32_t>(__cvta_generic_to_shared(&full[0]));
+  if (threadIdx.x == 0) {{
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(bar) : "memory");
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(bar + 8) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }}
+  __syncthreads();
+  auto issue = [&](unsigned c, int s) {{
+    const unsigned bytes = min(kBulkF4, n4 - c * kBulkF4) * 16;
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar + 8 * s), "r"(bytes) : "memory");
+    asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::"r"(
+                     static_cast<uint32_t>(__cvta_generic_to_shared(ring[s]))),
+                 "l"(a + c * kBulkF4), "r"(bytes), "r"(bar + 8 * s)
+                 : "memory");
+  }};
+  if (threadIdx.x == 0 && blockIdx.x < chunks) issue(blockIdx.x, 0);
+  unsigned k = 0;
+  for (unsigned c = blockIdx.x; c < chunks; c += gridDim.x, ++k) {{
+    const int s = k & 1;
+    if (threadIdx.x == 0 && c + gridDim.x < chunks) {{
+      asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");  // slot s ^ 1's store has read it
+      issue(c + gridDim.x, s ^ 1);
+    }}
+    uint32_t done = 0;
+    while (!done)
+      asm volatile("{{\\n .reg .pred p;\\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\\n selp.u32 %0, 1, 0, p;\\n}}"
+                   : "=r"(done)
+                   : "r"(bar + 8 * s), "r"((k >> 1) & 1)
+                   : "memory");
+    const unsigned nf = min(kBulkF4, n4 - c * kBulkF4);
+    for (unsigned i = threadIdx.x; i < nf; i += kStreamThreads) {{
+      const float4 v = ring[s][i];
+      ring[s][i] = make_float4(Op::map(v.x), Op::map(v.y), Op::map(v.z), Op::map(v.w));
+    }}
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    __syncthreads();
+    if (threadIdx.x == 0) {{
+      asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;" ::"l"(out + c * kBulkF4),
+                   "r"(static_cast<uint32_t>(__cvta_generic_to_shared(ring[s]))), "r"(nf * 16)
+                   : "memory");
+      asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+    }}
+  }}
+  if (threadIdx.x == 0) asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+}}
+
+"""
+    launch = ("const unsigned chunks = (n4 + kBulkF4 - 1) / kBulkF4;\n"
+              "    stream_bulk<Op><<<chunks < 132 ? chunks : 132, kStreamThreads, 0, st>>>(in, o, n4);")
+    return [(_STREAM_ENTRY, kernel + _STREAM_ENTRY), (_LAUNCH, _variant_launch(launch))]
+
+
+# the first design's launch: one float4 a thread in a 64-bit
+# grid-stride loop, grid_for's 256-thread blocks, plain loads and stores
+_FIRST_LAUNCH = [(_STREAM_ENTRY, """template <class Op>
+__global__ void __launch_bounds__(kThreads)
+first_design(const float4* __restrict__ a, float4* __restrict__ out, long long n4) {
+  for (long long i = blockIdx.x * static_cast<long long>(kThreads) + threadIdx.x; i < n4;
+       i += static_cast<long long>(gridDim.x) * kThreads) {
+    const float4 v = a[i];
+    out[i] = make_float4(Op::map(v.x), Op::map(v.y), Op::map(v.z), Op::map(v.w));
+  }
+}
+
+""" + _STREAM_ENTRY), (_LAUNCH, _variant_launch("first_design<Op><<<grid_for(n4), kThreads, 0, st>>>(in, o, n4);"))]
+_TANHF = [("return gelu_tanh_jvp(x);", "return gelu_tanh(x) + gelu_tanh_grad(x);")]
+_STORE_CS = "    __stcs(out + i, make_float4(Op::map(v.x), Op::map(v.y), Op::map(v.z), Op::map(v.w)));"
+# streaming cache hints: loads on the read-only path with no L1 allocation,
+# or ld.global.cs (__ldcs), and evict-first stores (__stcs)
+_NC_NO_ALLOCATE = [(_STREAM_BODY, """    float4 v;
+    asm volatile("ld.global.nc.L1::no_allocate.v4.f32 {%0, %1, %2, %3}, [%4];"
+                 : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+                 : "l"(a + i));
+""" + _STORE_CS)]
+_LDCS = [(_STREAM_BODY, "    const float4 v = __ldcs(a + i);\n" + _STORE_CS)]
+_ACCURATE = [("struct GeluJvp {", """__device__ __forceinline__ float gelu_jvp_accurate(float x) {
+  const float x2 = x * x;
+  const float u = kSqrt2OverPi * (x + kGeluCubic * (x2 * x));
+  const float e = expf(fminf(-2.0f * u, 88.0f));
+  if (1.0f + e > 0x1p126f) return 0.0f;  // as gelu_tanh_jvp
+  const float s = __frcp_rn(1.0f + e);
+  const float es2 = (e * s) * s;
+  return x * s + s + 2.0f * x * es2 * (kSqrt2OverPi * (1.0f + 3.0f * kGeluCubic * x2));
+}
+
+struct GeluJvp {"""), ("return gelu_tanh_jvp(x);", "return gelu_jvp_accurate(x);")]
+
+
+# b1 unfolded: __expf of -2u (log2(e) multiplied in it) and the sum term by
+# term, x s + s + 2x (e s) s sqrt(2/pi) (1 + 3 * 0.044715 x^2)
+_UNFOLDED = [("struct GeluJvp {", """__device__ __forceinline__ float gelu_jvp_unfolded(float x) {
+  const float x2 = x * x;
+  const float u = kSqrt2OverPi * (x + kGeluCubic * (x2 * x));
+  const float e = __expf(fminf(-2.0f * u, 88.0f));
+  const float s = __fdividef(1.0f, 1.0f + e);
+  return x * s + s + 2.0f * x * ((e * s) * s) * (kSqrt2OverPi * (1.0f + 3.0f * kGeluCubic * x2));
+}
+
+struct GeluJvp {"""), ("return gelu_tanh_jvp(x);", "return gelu_jvp_unfolded(x);")]
+
+
+def _stream_variants(gelu: bool) -> dict:
+    v = {"as built (one float4 a thread, 256 blocks at the bisect shape)": ([], False),
+         "U = 2 float4s a thread (128 blocks)": (_unroll(2), False),
+         "U = 4 (64 blocks)": (_unroll(4), False),
+         "U = 8 (32 blocks)": (_unroll(8), False),
+         "bulk-copy ring, 8 KB chunks": (_bulk_ring(8192), False),
+         "bulk-copy ring, 4 KB chunks (2 a block)": (_bulk_ring(4096), False),
+         "ld.global.nc.L1::no_allocate loads, __stcs stores": (_NC_NO_ALLOCATE, False),
+         "__ldcs loads, __stcs stores": (_LDCS, False),
+         "128 threads a block (512 blocks)": ([("constexpr int kStreamThreads = 256;",
+                                                 "constexpr int kStreamThreads = 128;")], False),
+         "the first design's launch (one float4 a thread, 256 blocks, 64-bit grid-stride loop)": (_FIRST_LAUNCH,
+                                                                                                  False)}
+    if gelu:
+        v["tanhf twice (gelu_tanh + gelu_tanh_grad, the first design's arithmetic)"] = (_TANHF, False)
+        v["the first design (its launch and its two tanhf)"] = (_FIRST_LAUNCH + _TANHF, False)
+        v["expf and __frcp_rn, unfolded"] = (_ACCURATE, False)
+        v["unfolded: __expf(-2u), x s + s + 2x (e s) s k (1 + 3c x^2)"] = (_UNFOLDED, False)
+    return v
+
+
 KERNELS = {
     "p3": ("probe_cellconv.cu", "se3_probe_masked_dist_product",
            [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
@@ -156,6 +337,10 @@ KERNELS = {
                 "no table loads (ids only)": ([("if (r0 + k < R) x[k] = __ldg(tab + id[k] * blk4 + j);",
                                                 "if (r0 + k < R) x[k] = make_float4(id[k], 0.f, 0.f, 0.f);")],
                                               True)}),
+    "b1": ("probe_bwd_ops.cu", "se3_probe_gelu_jvp", [ctypes.c_void_p] * 2 + [ctypes.c_longlong, ctypes.c_void_p],
+           _stream_variants(True)),
+    "b5": ("probe_bwd_ops.cu", "se3_probe_scale2", [ctypes.c_void_p] * 2 + [ctypes.c_longlong, ctypes.c_void_p],
+           _stream_variants(False)),
 }
 
 
@@ -194,7 +379,8 @@ def build_variants(kernel: str, skip_diagnostics: bool = False) -> dict:
                                                "-o", str(path.with_suffix(".so")), str(path)],
                                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     kern_name = {"p3": "masked_dist_product", "p11": "grid_column_accum", "stage": "stage_fwd",
-                 "copy": "copy_", "b4": "colsum_broadcast", "gather": "block_gather"}[kernel]
+                 "copy": "copy_", "b4": "colsum_broadcast", "gather": "block_gather", "b1": "GeluJvp",
+                 "b5": "Scale2"}[kernel]
     built = {}
     for name, (path, proc) in procs.items():
         log, _ = proc.communicate()
@@ -369,6 +555,46 @@ def gather_calls(dev):
     return call, check, ("p4 clone of the output", lambda: out.clone())
 
 
+def stream_calls(kernel: str):
+    """b1 or b5 at the bisect draw, through the C entry with the plan's U."""
+    def make(dev):
+        import torch
+        import torch.nn.functional as F
+        from se3conv3d_tpu_torch.experiments import bisect_fused as bf
+        from se3conv3d_tpu_torch.kernels import probes
+
+        (a,) = bf.draw({"b1": "b1_jvp_gelu", "b5": "b5_merge_back"}[kernel], 472, dev)
+        smoke = load_smoke()
+        sweep = smoke.gelu_jvp_sweep(dev)
+
+        def call(fn, x=a):
+            out = torch.empty(x.shape, device=dev)
+            err = fn(x.data_ptr(), out.data_ptr(), x.numel(), torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise SystemExit(f"probe_variants: CUDA error {err}")
+            return out
+
+        if kernel == "b5":
+            def check(fn):
+                same = torch.equal(call(fn).view(torch.int32), (a * 2.0).view(torch.int32))
+                return same, f"bit for bit 2a: {same}"
+
+            return call, check, ("torch.mul(a, 2.0)", lambda: torch.mul(a, 2.0))
+
+        ref = probes.gelu_jvp_reference(a)
+
+        def check(fn):
+            rel = float((call(fn) - ref).abs().max() / ref.abs().max())
+            sweep_err = smoke.gelu_jvp_sweep_error(call(fn, sweep), sweep)
+            return rel <= bf.RTOL, (f"{rel:.3e} of max |plain| (bound {bf.RTOL:g}); over the sweep {sweep_err:.3e} "
+                                    f"of 1 + |ref| (bound {smoke.GELU_JVP_SWEEP_RTOL:g}, within: "
+                                    f"{sweep_err <= smoke.GELU_JVP_SWEEP_RTOL})")
+
+        return call, check, ('F.gelu(a, approximate="tanh")', lambda: F.gelu(a, approximate="tanh"))
+
+    return make
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("kernel", choices=sorted(KERNELS))
@@ -381,12 +607,17 @@ def main() -> int:
         print("probe_variants: no CUDA device", file=sys.stderr)
         return 1
     smoke = load_smoke()
+    sys.path.insert(0, str(HERE))
+    from probe_ab import floor_graph_ms
+
+    graph_ms = floor_graph_ms(smoke.graph_ms)
     card = smoke.card_line()
     torch.backends.cuda.matmul.allow_tf32 = False
     built = build_variants(a.kernel, a.skip_diagnostics)
     dev, side = torch.device("cuda"), torch.cuda.Stream()
-    call, check, (lib_name, lib) = {"p3": p3_calls, "p11": p11_calls, "stage": stage_calls,
-                                    "copy": copy_calls, "b4": b4_calls, "gather": gather_calls}[a.kernel](dev)
+    call, check, (lib_name, lib) = {"p3": p3_calls, "p11": p11_calls, "stage": stage_calls, "copy": copy_calls,
+                                    "b4": b4_calls, "gather": gather_calls, "b1": stream_calls("b1"),
+                                    "b5": stream_calls("b5")}[a.kernel](dev)
     diagnostic = {name: d for name, (_, d) in KERNELS[a.kernel][3].items()}
     for name, (fn, ptxas) in built.items():
         ok, what = check(fn)
@@ -405,10 +636,10 @@ def main() -> int:
     for r in range(a.rounds):
         for name, st in (names if r % 2 == 0 else names[::-1]):
             run = (lambda fn=built[name][0]: call(fn)) if st is None else (lambda fn=built[name][0], st=st: call(fn, st))
-            ms[label(name, st)].append(smoke.graph_ms(run, side))
-        ms[lib_name].append(smoke.graph_ms(lib, side))
+            ms[label(name, st)].append(graph_ms(run, side))
+        ms[lib_name].append(graph_ms(lib, side))
     for name, v in ms.items():
-        print(f"{name:55s} median {statistics.median(v):.4f} ms, range {min(v):.4f}-{max(v):.4f} [{card}]",
+        print(f"{name:55s} median {statistics.median(v):.5f} ms, range {min(v):.5f}-{max(v):.5f} [{card}]",
               flush=True)
     return 0
 

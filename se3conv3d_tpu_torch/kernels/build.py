@@ -66,7 +66,8 @@ _SIGNATURES = {
                   ("se3_probe_expand_groups", [_P, _P, _I, _I, _L, _P], _I),
                   ("se3_probe_batched_contract", [_P] * 3 + [_I] * 4 + [_P], _I),
                   ("se3_probe_rank3_accum", [_P] * 2 + [_I] * 6 + [_P], _I),
-                  ("se3_probe_scale2", [_P, _P, _L, _P], _I)],
+                  ("se3_probe_scale2", [_P, _P, _L, _P], _I),
+                  ("se3_probe_stream_attrs", [_I, _P], _I)],
     "probe_stream": [("se3_probe_column_sums", [_P, _L, _I, _P, _P, _P], _I),
                      ("se3_probe_stream_blocks", [], _I)],
     "probe_accum": [("se3_probe_accum_blocks", [], _I),

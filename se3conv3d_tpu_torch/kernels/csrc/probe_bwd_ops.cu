@@ -1,11 +1,11 @@
 // The five backward building blocks of the fused-forward bisection, for
 // NVIDIA Hopper (sm_90a), float32:
 //
-//   b1 (gelu_jvp):     out = gelu(a) + gelu'(a), tanh GELU        a [R, GQ]
+//   b1 (stream_map<GeluJvp>): out = gelu(a) + gelu'(a), tanh GELU  a [R, GQ]
 //   b2 (expand_groups): out[g*Q + q, t, o] = a[g, t, o]           a [G, TM, O]
 //   b3 (batched_contract): out[gq, c, o] = sum_m a[gq, m, c] * b[gq, m, o]
 //   b4 (colsum_broadcast): out[gq, c, o] = sum_m a[m, c]
-//   b5 (scale2):       out = 2 * a, [TM, E, GQ] read as [TM*E, GQ]
+//   b5 (stream_map<Scale2>): out = 2 * a, [TM, E, GQ] read as [TM*E, GQ]
 //
 // Replace the TPU Pallas kernels of experiments/bisect_fused.py: b1_jvp_gelu
 // (:218), b2_gexp (:232), b3_dw2_contract11 (:249), b4_rank3_accum (:265)
@@ -16,8 +16,8 @@
 // se3conv3d_tpu_torch/kernels/probes.py for the wrappers and the plain
 // PyTorch versions.
 //
-// What bounds them: bytes for b1, b2, b4 and b5 (b1 a tanh per value, the
-// rest copies and adds); b3 is 2*GQ*C*O*R FLOPs (67 MFLOP at GQ = C = O =
+// What bounds them: bytes for b1, b2, b4 and b5 (b1 an exponential per
+// value, the rest copies and adds); b3 is 2*GQ*C*O*R FLOPs (67 MFLOP at GQ = C = O =
 // 64, R = 128) over 4 MiB of operands, so bytes too on tensor cores: each
 // block takes one 32 x 32 quadrant of one gq's output (256 blocks at GQ =
 // 64, against 132 SMs), stages 32-row slices of its operand columns in
@@ -52,6 +52,25 @@
 // (probe_variants.py b4), and sharing the sums over a cluster of 8 blocks
 // through distributed shared memory was no faster at this shape (PERF.md
 // section 6).
+//
+// b1 (b1_jvp_gelu, :218) and b5 (b5_merge_back, :283) are one streaming
+// kernel, stream_map<Op>, over a contiguous [4096, 64] float32 array at the
+// bisect shape: 1 MiB read and 1 MiB written, 0.63 us at 3.35 TB/s, plus a
+// launch, which at this size is most of the time.  The first design gave
+// each thread one float4 in a 64-bit grid-stride loop (256 blocks of 256
+// threads here), and b1 the cubic and an accurate tanhf, which takes two
+// paths by |u|, in both gelu_tanh and gelu_tanh_grad (nvcc merged the two
+// into one exponential a value).  Timed in CUDA graphs long enough to hide
+// a replay's fixed cost, both were already near a launch's floor, ~1.8 us
+// a call as torch.mul and F.gelu are.  Now each thread maps one float4,
+// with 32-bit indices and a masked tail, no loop: one wave of 256 blocks
+// here.  More float4s a thread (2, 4 or 8, every load issued first), a
+// ring of cp.async.bulk copies, and streaming cache hints on the loads and
+// stores each read level or slower (probe_variants.py b1 / b5, PERF.md
+// section 6).  b1 is gelu_tanh_jvp (probe_common.cuh): one ex2.approx and
+// one fast division a value, no branch, within 2.0e-7 (1 + |ref|) of
+// float64 over [-20, 20] and +-1e4 where the two tanhf gave 6.2e-7, and 3%
+// under them a call.  b5 is 2 v, exact, so its output is bit for bit 2a.
 
 #include <stdint.h>
 
@@ -68,13 +87,25 @@ inline unsigned grid_for(long long n) {
   return static_cast<unsigned>(b < 1 ? 1 : (b < kMaxGrid ? b : kMaxGrid));
 }
 
-__global__ void __launch_bounds__(kThreads)
-gelu_jvp(const float4* __restrict__ a, float4* __restrict__ out, long long n4) {
-  for (long long i = blockIdx.x * static_cast<long long>(kThreads) + threadIdx.x; i < n4;
-       i += static_cast<long long>(gridDim.x) * kThreads) {
+// b1 and b5: one streaming kernel for an elementwise map of float4s, one
+// float4 a thread, 32-bit indices (the C entry refuses n / 4 >= 2^31), the
+// tail masked, no grid-stride loop.
+constexpr int kStreamThreads = 256;
+
+struct GeluJvp {  // b1
+  __device__ __forceinline__ static float map(float x) { return gelu_tanh_jvp(x); }
+};
+struct Scale2 {  // b5: exact in float32
+  __device__ __forceinline__ static float map(float x) { return 2.f * x; }
+};
+
+template <class Op>
+__global__ void __launch_bounds__(kStreamThreads)
+stream_map(const float4* __restrict__ a, float4* __restrict__ out, unsigned n4) {
+  const unsigned i = blockIdx.x * static_cast<unsigned>(kStreamThreads) + threadIdx.x;
+  if (i < n4) {
     const float4 v = a[i];
-    out[i] = make_float4(gelu_tanh(v.x) + gelu_tanh_grad(v.x), gelu_tanh(v.y) + gelu_tanh_grad(v.y),
-                         gelu_tanh(v.z) + gelu_tanh_grad(v.z), gelu_tanh(v.w) + gelu_tanh_grad(v.w));
+    out[i] = make_float4(Op::map(v.x), Op::map(v.y), Op::map(v.z), Op::map(v.w));
   }
 }
 
@@ -260,13 +291,19 @@ colsum_broadcast(const float* __restrict__ a, int S, int rows, int C, int GQ, in
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-scale2(const float4* __restrict__ a, float4* __restrict__ out, long long n4) {
-  for (long long i = blockIdx.x * static_cast<long long>(kThreads) + threadIdx.x; i < n4;
-       i += static_cast<long long>(gridDim.x) * kThreads) {
-    const float4 v = a[i];
-    out[i] = make_float4(2.f * v.x, 2.f * v.y, 2.f * v.z, 2.f * v.w);
-  }
+// stream_map's launch: n floats (a positive multiple of 4, n / 4 < 2^31),
+// a and out 16-byte aligned
+template <class Op>
+int stream_launch(const void* a, void* out, long long n, void* stream_ptr) {
+  if (n < 4 || n % 4 != 0 || n / 4 >= (1LL << 31) || reinterpret_cast<uintptr_t>(a) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(out) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned n4 = static_cast<unsigned>(n / 4);
+  const float4* in = static_cast<const float4*>(a);
+  float4* o = static_cast<float4*>(out);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream_ptr);
+  stream_map<Op><<<(n4 + kStreamThreads - 1) / kStreamThreads, kStreamThreads, 0, st>>>(in, o, n4);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -274,11 +311,21 @@ scale2(const float4* __restrict__ a, float4* __restrict__ out, long long n4) {
 // Every array below is float32, contiguous and 16-byte aligned; element
 // counts and the inner widths are multiples of 4.
 
+// b1 and b5 (stream_launch): a [n], out [n]
 extern "C" int se3_probe_gelu_jvp(const void* a, void* out, long long n, void* stream_ptr) {
-  if (n % 4 != 0) return static_cast<int>(cudaErrorInvalidValue);
-  gelu_jvp<<<grid_for(n / 4), kThreads, 0, static_cast<cudaStream_t>(stream_ptr)>>>(
-      static_cast<const float4*>(a), static_cast<float4*>(out), n / 4);
-  return static_cast<int>(cudaGetLastError());
+  return stream_launch<GeluJvp>(a, out, n, stream_ptr);
+}
+
+extern "C" int se3_probe_scale2(const void* a, void* out, long long n, void* stream_ptr) {
+  return stream_launch<Scale2>(a, out, n, stream_ptr);
+}
+
+// registers, local bytes and shared memory (kernel_attrs) of
+// stream_map<GeluJvp> (which 0) or stream_map<Scale2> (which 1)
+extern "C" int se3_probe_stream_attrs(int which, int* attrs) {
+  if (which == 0) return kernel_attrs(stream_map<GeluJvp>, 0, attrs);
+  if (which == 1) return kernel_attrs(stream_map<Scale2>, 0, attrs);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // a [G, inner], out [G*Q, inner]
@@ -312,12 +359,5 @@ extern "C" int se3_probe_rank3_accum(const void* a, void* out, int S, int rows, 
   colsum_broadcast<<<grid, kColThreads, 0, static_cast<cudaStream_t>(stream_ptr)>>>(
       static_cast<const float*>(a), S, rows, C, GQ, O, gq_slab, C % 4 == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0,
       O % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0, static_cast<float*>(out));
-  return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int se3_probe_scale2(const void* a, void* out, long long n, void* stream_ptr) {
-  if (n % 4 != 0) return static_cast<int>(cudaErrorInvalidValue);
-  scale2<<<grid_for(n / 4), kThreads, 0, static_cast<cudaStream_t>(stream_ptr)>>>(
-      static_cast<const float4*>(a), static_cast<float4*>(out), n / 4);
   return static_cast<int>(cudaGetLastError());
 }

@@ -46,7 +46,9 @@ what ``jax.jvp`` with a tangent of ones gives), :func:`expand_groups`,
 :func:`rank3_accum` (a column sum over every row into one output that the
 TPU grid revisited, here one launch that sums each row block in row order
 and the block sums in block order, the TPU grid's order) and
-:func:`merge_back`.  The streaming sum (``csrc/probe_stream.cu``; replaces
+:func:`merge_back`; b1 and b5 are one streaming kernel (``stream_map``,
+one float4 a thread), b1 with one exponential a value
+(:func:`gelu_jvp_exp_form` is its arithmetic in PyTorch).  The streaming sum (``csrc/probe_stream.cu``; replaces
 ``chip_stream.py:k_sum``): :func:`column_sums` of a row-major ``[R, L]``
 array read once with 16-byte loads.  The accumulators
 (``csrc/probe_accum.cu``): :func:`block_total_accum` (the sum of every
@@ -85,7 +87,9 @@ __all__ = [
     "gelu_jvp", "gelu_jvp_reference", "expand_groups", "expand_groups_reference",
     "batched_contract", "batched_contract_reference", "rank3_accum", "rank3_accum_reference",
     "RANK3_GROUP", "RANK3_TARGET_BLOCKS", "rank3_accum_plan", "rank3_accum_writes", "rank3_in_kernel_order",
-    "merge_back", "merge_back_reference", "column_sums", "column_sums_reference",
+    "merge_back", "merge_back_reference", "GELU_JVP_CLAMP", "FDIVIDEF_ZERO_PAST", "gelu_jvp_exp_form",
+    "stream_kernel_attributes",
+    "column_sums", "column_sums_reference",
     "accum_tag", "block_total_accum", "block_total_accum_reference", "grid_column_accum",
     "grid_column_accum_reference", "grid_column_in_kernel_order", "column_partials_bytes",
     "COLUMN_PARTIALS_MAX_BYTES", "TM", "ACCUM_KERNELS", "ACCUM_THREADS", "accum_plan", "accum_blocks",
@@ -408,14 +412,49 @@ def gelu_jvp_reference(a: torch.Tensor) -> torch.Tensor:
     return gelu_tanh(a) + gelu_tanh_grad(a)
 
 
+# where gelu_tanh_jvp clamps its base-2 exponent (csrc/probe_common.cuh),
+# and where its __fdividef(1, 1 + e) is 0 (CUDA's stated range: a divisor
+# past 2^126)
+GELU_JVP_CLAMP, FDIVIDEF_ZERO_PAST = 127.0, 2.0 ** 126
+
+
+def gelu_jvp_exp_form(a: torch.Tensor) -> torch.Tensor:
+    """:func:`gelu_jvp`'s kernel arithmetic (``gelu_tanh_jvp``) in float32
+    PyTorch, ``torch.exp2`` and a division standing in for the card's
+    ``ex2.approx`` and ``__fdividef`` (0 for a divisor past 2^126, as
+    there): e = 2^min(x (A + B x^2), 127) = exp(-2u), A = -2 log2(e)
+    sqrt(2/pi), B = 0.044715 A, s = 1 / (1 + e), g = x (2 sqrt(2/pi) + 6 *
+    0.044715 sqrt(2/pi) x^2), and s (x + 1 + (e s) g)."""
+    a_, b_ = -2.0 * _SQRT_2_OVER_PI / math.log(2.0), -2.0 * _SQRT_2_OVER_PI / math.log(2.0) * _GELU_CUBIC
+    g1, g3 = 2.0 * _SQRT_2_OVER_PI, 6.0 * _GELU_CUBIC * _SQRT_2_OVER_PI
+    x = a.float()
+    x2 = x * x
+    e = torch.exp2(torch.clamp(x * (a_ + b_ * x2), max=GELU_JVP_CLAMP))
+    d = 1.0 + e
+    s = torch.where(d > FDIVIDEF_ZERO_PAST, torch.zeros_like(d), 1.0 / d)
+    return s * ((x + 1.0) + (e * s) * (x * (g1 + g3 * x2)))
+
+
+def _stream_map(symbol: str, a: torch.Tensor, out: torch.Tensor, name: str) -> None:
+    """Launches b1's or b5's C entry on ``a`` into ``out``: one float4 a
+    thread, so ``a`` holds a positive multiple of 4 floats, fewer than 2^33
+    (32-bit float4 indices), at a 16-byte aligned address."""
+    if a.numel() < 4 or a.numel() % 4 or a.numel() // 4 >= 2**31 or a.data_ptr() % 16:
+        raise ValueError(f"{name} takes a positive multiple of 4 floats, fewer than 2^33, at a 16-byte aligned "
+                         f"address, got {a.numel()} floats {a.data_ptr() % 16} bytes past one")
+    with torch.cuda.device(a.device):
+        _check(getattr(library("probe_bwd"), symbol)(a.data_ptr(), out.data_ptr(), a.numel(), _stream(a)), name)
+
+
 def gelu_jvp(a: torch.Tensor) -> torch.Tensor:
-    """``gelu(a) + gelu'(a)`` (tanh form), elementwise (b1)."""
+    """``gelu(a) + gelu'(a)`` (tanh form), elementwise (b1).  CUDA tensors
+    launch one streaming kernel (one float4 a thread) with one exponential
+    an element (:func:`gelu_jvp_exp_form`): ``a`` contiguous float32, a
+    positive multiple of 4 values, 16-byte aligned."""
     if not _on_card("gelu_jvp", a):
         return gelu_jvp_reference(a)
     out = torch.empty_like(a)
-    with torch.cuda.device(a.device):
-        _check(library("probe_bwd").se3_probe_gelu_jvp(a.data_ptr(), out.data_ptr(), a.numel(), _stream(a)),
-               "gelu_jvp")
+    _stream_map("se3_probe_gelu_jvp", a, out, "gelu_jvp")
     gelu_jvp.launches += 1
     return out
 
@@ -544,15 +583,21 @@ def merge_back_reference(a: torch.Tensor) -> torch.Tensor:
 
 
 def merge_back(a: torch.Tensor) -> torch.Tensor:
-    """``[TM, E, GQ]`` -> ``[TM*E, GQ]``, times 2 (b5)."""
+    """``[TM, E, GQ]`` -> ``[TM*E, GQ]``, times 2 (b5), bit for bit: CUDA
+    tensors launch :func:`gelu_jvp`'s streaming kernel with ``2 v`` for its
+    map, on the same terms."""
     if not _on_card("merge_back", a):
         return merge_back_reference(a)
     out = torch.empty(a.numel() // a.shape[-1], a.shape[-1], dtype=torch.float32, device=a.device)
-    with torch.cuda.device(a.device):
-        _check(library("probe_bwd").se3_probe_scale2(a.data_ptr(), out.data_ptr(), a.numel(), _stream(a)),
-               "merge_back")
+    _stream_map("se3_probe_scale2", a, out, "merge_back")
     merge_back.launches += 1
     return out
+
+
+def stream_kernel_attributes(op: str) -> dict:
+    """:func:`kernel_attributes` of ``stream_map`` for ``op`` ``"gelu_jvp"``
+    or ``"merge_back"``."""
+    return kernel_attributes("probe_bwd", "se3_probe_stream_attrs", {"gelu_jvp": 0, "merge_back": 1}[op])
 
 
 for _fn in (gelu_jvp, expand_groups, batched_contract, rank3_accum, merge_back):
