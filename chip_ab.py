@@ -20,7 +20,12 @@ driving it with the phases of the ``chip_smoke.py`` beside this file:
   median of 5 train steps; the peak device memory of each);
 - the ScanNet-20 ``scan_scenes`` train step (``chip_smoke.scannet_train``:
   6 rooms x 120,000 points, float32, the two backward modes in turns,
-  median and peak device memory per mode).
+  median and peak device memory per mode);
+- last (a profiled run slows the launches after it), the device ms of each
+  conv forward and backward pass (``torch.profiler`` over 3 calls, the
+  live-row table given) at ``PASS_SHAPES``, by kernel name in either
+  package (``PASSES``: the shared product ``wg_product`` by call site, or
+  the parent's ``tf32x3_gemm`` / ``bf16_gemm``).
 
 Each turn prints one JSON line; the last line holds every turn's numbers
 and the card's name and power limit.
@@ -45,6 +50,55 @@ CONV_SHAPES = {
     "dfaust_level1": ((32, 2048, 2048, 32, 2, 2, 32, 32, 32), None),
     "dfaust_level4": ((32, 128, 128, 32, 2, 2, 32, 256, 256), None),
 }
+# the conv passes by kernel name, each alternative a tuple of substrings:
+# the product's call sites as wg_product names them, or the parent's kernels
+PASSES = {
+    "fwd": (("basis_kernel", (("basis_kernel<", ", false, "),)),
+            ("product", (("wg_product<", "SiteFwd"), ("tf32x3_gemm<true, false",),
+                         ("bf16_gemm<float, true, true",))),
+            ("sum_splits", (("sum_splits",),)),
+            ("weights' copy", (("product_image",), ("round_bf16",)))),
+    "bwd": (("basis_kernel", (("basis_kernel<", ", true, "),)),
+            ("d_w product", (("wg_product<", "SiteDw"), ("tf32x3_gemm<false, false",),
+                             ("bf16_gemm<float, false, false",))),
+            ("dbasis product", (("wg_product<", "SiteDbasis"), ("tf32x3_gemm<true, true",),
+                                ("bf16_gemm<__nv_bfloat16, true, true",))),
+            ("edge_kernel", (("edge_kernel",),)), ("sum_partials", (("sum_partials",),)),
+            ("weights' copy", (("product_image",), ("round_bf16",)))),
+}
+# name: (B, M, N, K, G, F, Q, C, O), operand dtypes: the ScanNet level 0
+# fully live, and the ModelNet40 level-5 block conv fully live
+PASS_SHAPES = {
+    "scannet_level0": (CONV_SHAPES["scannet_level0"][0], ("float32", "bfloat16")),
+    "modelnet_level5": ((12, 256, 256, 32, 2, 2, 32, 512, 512), ("float32",)),
+}
+
+
+def pass_profile(cs, kfe, dev) -> dict:
+    """Device ms a call of each conv pass at ``PASS_SHAPES``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    for i, (name, (shp, dtypes)) in enumerate(PASS_SHAPES.items()):
+        for dt in dtypes:
+            args, gout = cs.padded_conv_args(40 + i, shp, None, dev, getattr(torch, dt))
+            live = kfe.live_row_table(args[4])
+            runs = {"fwd": lambda: kfe.fused_equiv_fwd(*args, live_rows=live),
+                    "bwd": lambda: kfe.fused_equiv_bwd(*args, gout, live_rows=live)}
+            res = out[f"{name} {dt}"] = {}
+            with torch.no_grad():
+                for what, fn in runs.items():
+                    fn()
+                    torch.cuda.synchronize()
+                    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                        for _ in range(3):
+                            fn()
+                        torch.cuda.synchronize()
+                    res[what] = {p: ms / 3 for p, ms in cs.pass_ms(cs.device_rows(prof), PASSES[what]).items()}
+            del args, gout, live
+            torch.cuda.empty_cache()
+    return out
 
 
 def side(root: str) -> int:
@@ -100,6 +154,9 @@ def side(root: str) -> int:
     rooms = cs.scannet_rooms(dev)
     trainer = cs.scannet_trainer(dev, {k: v[:1] for k, v in rooms.items()}, cs.scannet_recipes()["float32"])
     out["scannet_train"] = cs.scannet_train(card, dev, trainer, rooms, kfe, segsum, ops)
+    del trainer, rooms
+    torch.cuda.empty_cache()
+    out["passes_ms"] = pass_profile(cs, kfe, dev)
     print(json.dumps(out), flush=True)
     return 0
 

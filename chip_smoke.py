@@ -733,19 +733,26 @@ def conv_bounds(shape, idx, mask, dtype=torch.float32, d=9, kp=False) -> dict:
     return out
 
 
-def products_matmul_ms(rows: int, conv_weights, seed: int, dtype=torch.float32) -> float:
-    """The yardstick of the conv backward's two products: ``torch.matmul``
-    in ``dtype`` (float32: full float32, TF32 off, set here) for ``d_w =
-    basis^T . gout`` and ``dbasis = gout . W^T`` over ``rows`` live rows
-    (seeded operands of the kernel's shapes; the time does not depend on
-    their values)."""
-    torch.backends.cuda.matmul.allow_tf32 = False
+def site_operands(rows: int, conv_weights, seed: int, dtype=torch.float32) -> tuple:
+    """Seeded ``(basis [rows, C*Q], gout [rows, O], W [C*Q, O])`` in
+    ``dtype`` at a conv's product shapes (the times do not depend on the
+    values)."""
     c, q, o = conv_weights.shape
     gen = torch.Generator(device=conv_weights.device).manual_seed(seed)
     basis = torch.randn(rows, c * q, device=conv_weights.device, generator=gen).to(dtype)
     gout = torch.randn(rows, o, device=conv_weights.device, generator=gen).to(dtype)
-    w2 = conv_weights.reshape(c * q, o).to(dtype)
-    return cuda_ms(lambda: (torch.matmul(basis.t(), gout), torch.matmul(gout, w2.t())), 10)
+    return basis, gout, conv_weights.reshape(c * q, o).to(dtype)
+
+
+def products_matmul_ms(rows: int, conv_weights, seed: int, dtype=torch.float32) -> dict:
+    """The yardsticks of the conv backward's two products, each timed
+    apart: ``torch.matmul`` in ``dtype`` (float32: full float32, TF32 off,
+    set here) for ``d_w = basis^T . gout`` and ``dbasis = gout . W^T`` over
+    ``rows`` live rows: ``{"d_w": ms, "dbasis": ms}``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    basis, gout, w2 = site_operands(rows, conv_weights, seed, dtype)
+    return {"d_w": cuda_ms(lambda: torch.matmul(basis.t(), gout), 10),
+            "dbasis": cuda_ms(lambda: torch.matmul(gout, w2.t()), 10)}
 
 
 def product_matmul_ms(rows: int, conv_weights, seed: int, dtype=torch.float32) -> float:
@@ -754,11 +761,39 @@ def product_matmul_ms(rows: int, conv_weights, seed: int, dtype=torch.float32) -
     here) for ``out = basis . W`` over ``rows`` live rows x out-frames
     (seeded operands of the kernel's shapes)."""
     torch.backends.cuda.matmul.allow_tf32 = False
-    c, q, o = conv_weights.shape
-    gen = torch.Generator(device=conv_weights.device).manual_seed(seed)
-    basis = torch.randn(rows, c * q, device=conv_weights.device, generator=gen).to(dtype)
-    w2 = conv_weights.reshape(c * q, o).to(dtype)
+    basis, _, w2 = site_operands(rows, conv_weights, seed, dtype)
     return cuda_ms(lambda: torch.matmul(basis, w2), 10)
+
+
+# the conv's shared product (wg_product) by call site: its pass name in
+# FWD_PASSES / BWD_PASSES, its layout in kernels.product, and the key of its
+# torch.matmul yardstick in forward_vs_plain's / backward_vs_plain's result
+PRODUCT_SITES = {"fwd": ("product", "fwd", "library_ms"), "d_w": ("d_w product", "dw", "dw_library_ms"),
+                 "dbasis": ("dbasis product", "dbasis", "dbasis_library_ms")}
+
+
+def product_dims(layout: str, rows: int, cq: int, o: int) -> tuple:
+    """``(I, J, K)`` of the product at ``layout`` for a conv of ``rows``
+    live rows x out-frames, depth ``C*Q`` and ``O`` outputs."""
+    return {"fwd": (rows, o, cq), "dw": (cq, o, rows), "dbasis": (rows, cq, o)}[layout]
+
+
+def product_bound(layout: str, i: int, j: int, k: int, dtype=torch.float32) -> dict:
+    """Least time of one product (``kernels.product`` layouts, ``I x J``
+    outputs over depth ``K``): the larger of its bytes over the HBM rate
+    (each input read once, each output written once: the operands in
+    ``dtype``, W float32, the output float32, or in ``dtype`` at dbasis)
+    and ``2 I J K`` FLOPs at the bf16 peak or the 3xTF32 ceiling (a third
+    of the TF32 peak)."""
+    op = 2.0 if dtype == torch.bfloat16 else 4.0
+    nbytes = {"fwd": op * i * k + 4.0 * k * j + 4.0 * i * j,
+              "dw": op * k * i + op * k * j + 4.0 * i * j,
+              "dbasis": op * i * k + 4.0 * j * k + op * i * j}[layout]
+    flops = 2.0 * i * j * k
+    t_ops = flops / (PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_TF32_FLOPS / 3)
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    return dict(bound_ms=max(t_ops, t_bytes) * 1e3, bound_by="operations" if t_ops >= t_bytes else "bytes",
+                gflop=flops / 1e9, mbytes=nbytes / 1e6)
 
 
 def max_rel_err(got, ref) -> tuple:
@@ -825,18 +860,19 @@ SCANNET_PADDED = {
 }
 # the conv forward's and backward's passes: (name, alternatives, each a
 # tuple of substrings of a kernel's name); both libraries build
-# basis_kernel, tf32x3_gemm, bf16_gemm and round_bf16, told apart by their
-# template arguments (the float32 instantiations, then the bfloat16 ones)
+# basis_kernel and the shared product wg_product, told apart by their
+# template arguments (the product's first names its call site)
 FWD_PASSES = (("basis_kernel", (("basis_kernel<", ", false, "),)),
-              ("product", (("tf32x3_gemm<true, false",), ("bf16_gemm<float, true, true",))),
+              ("product", (("wg_product<", "SiteFwd"),)),
               ("sum_splits", (("sum_splits",),)))
 BWD_PASSES = (("basis_kernel", (("basis_kernel<", ", true, "),)),
-              ("d_w product", (("tf32x3_gemm<false, false",), ("bf16_gemm<float, false, false",))),
-              ("dbasis product", (("tf32x3_gemm<true, true",), ("bf16_gemm<__nv_bfloat16, true, true",))),
+              ("d_w product", (("wg_product<", "SiteDw"),)),
+              ("dbasis product", (("wg_product<", "SiteDbasis"),)),
               ("edge_kernel", (("edge_kernel",),)), ("sum_partials", (("sum_partials",),)))
-# the bfloat16 copy of the weights: one small kernel in each library, so a
-# step's profile cannot tell the forward's from the backward's
-WEIGHT_COPY_PASSES = (("round_bf16", (("round_bf16",),)),)
+# the weights' images for the products (W for the forward, W^T for dbasis):
+# one small kernel in each library, so a step's profile cannot tell the
+# forward's from the backward's
+WEIGHT_COPY_PASSES = (("product_image", (("product_image",),)),)
 # the prefix sum's single kernel ('sorted' mode only)
 CUMSUM_PASSES = (("scan_kernel", (("scan_kernel<",),)),)
 # PyTorch's reduction kernels (BN statistics, masked sums and means)
@@ -1248,7 +1284,8 @@ def backward_vs_plain(card, label, shp, args, gout, live, bounds, seed, opts=Non
                                                     **opts), 10)
     # one timed call of the plain version: 0.7-2 s each at the ScanNet level 0
     plain_ms = cuda_ms(lambda: kfe.fused_equiv_bwd_reference(*args, gout, **opts), 1)
-    lib_ms = products_matmul_ms(live.numel() * g, args[7], seed, dtype)
+    lib = products_matmul_ms(live.numel() * g, args[7], seed, dtype)
+    lib_ms = lib["d_w"] + lib["dbasis"]
     for mode, e in (("scatter", errs), ("sorted", errs_s)):
         print(f"{label} {dname} mode {mode}: "
               + " ".join(f"{w}: max_abs_err={v[0]:.3e} max_rel_err={v[1]:.3e} mean_rel_err={v[2]:.3e}"
@@ -1263,7 +1300,8 @@ def backward_vs_plain(card, label, shp, args, gout, live, bounds, seed, opts=Non
           f"scatter {ms:.4f} sorted-rows {sorted_ms:.4f} plain_ms {plain_ms:.4f} "
           f"bound_ms={bounds['bound_ms']:.4f} ({bounds['bound_by']}, {bounds['gflop']:.2f} GFLOP, "
           + product_text(dtype).format(bounds["bound_f32_ms"])
-          + f"); torch.matmul {dname} for d_w and dbasis over the same live rows {lib_ms:.4f} ms; "
+          + f"); torch.matmul {dname} over the same live rows for d_w {lib['d_w']:.4f} ms and dbasis "
+          f"{lib['dbasis']:.4f} ms ({lib_ms:.4f} together); "
           f"parameter gradients equal across modes and calls: {same_params} [{card}]", flush=True)
     told_apart = all(tells_apart(errs_s[w][2] if w == "d_sorted_rows" else errs[w][2], v)
                      for w, v in control.items())
@@ -1274,7 +1312,8 @@ def backward_vs_plain(card, label, shp, args, gout, live, bounds, seed, opts=Non
                 max_abs_err=max(v[0] for e in (errs, errs_s) for v in e.values()),
                 max_rel_err=max(v[1] for e in (errs, errs_s) for v in e.values()),
                 control_mean_rel_err=control or None, segment_sum_max_abs_err=seg_err,
-                products_library_ms=lib_ms, **bounds)
+                products_library_ms=lib_ms, dw_library_ms=lib["d_w"], dbasis_library_ms=lib["dbasis"],
+                **bounds)
 
 
 def scannet_conv_kernels(card, dev, dtype=torch.float32) -> dict:
@@ -1325,13 +1364,33 @@ def padded_conv_args(i, shp, n_live, dev, dtype=torch.float32) -> tuple:
 
 def scannet_conv_passes(card, dev, conv: dict, dtype=torch.float32) -> None:
     """Device ms of each conv forward and backward pass at phase 9's shapes
-    with ``dtype`` operands (``torch.profiler`` over 3 calls each), into
-    ``conv[name]["fwd"]`` and ``conv[name]["bwd"]``."""
+    with ``dtype`` operands (:func:`conv_passes`)."""
+    cases = {name: (i, shp, n_live) for i, (name, (shp, n_live)) in enumerate(scannet_conv_cases().items())}
+    conv_passes(card, dev, conv, cases, dtype, "scannet")
+
+
+def modelnet_conv_passes(card, dev, conv: dict) -> None:
+    """Device ms of each conv pass at phase 21's fully live level-5 block
+    conv (float32, the recipes' dtype; :func:`conv_passes`)."""
+    names = list(MN_SHAPES)
+    name = "modelnet_level5_block_conv_live"
+    conv_passes(card, dev, conv, {name: (30 + names.index(name), MN_SHAPES[name][0], None)}, torch.float32,
+                "modelnet")
+
+
+def conv_passes(card, dev, conv: dict, cases: dict, dtype, label: str) -> None:
+    """Device ms of each conv forward and backward pass (``torch.profiler``
+    over 3 calls each) at ``cases`` (``name: (seed index of
+    padded_conv_args, shape, live rows per example or None)``) with
+    ``dtype`` operands, into ``conv[name]["fwd"]`` / ``["bwd"]``; and each
+    call site of the shared product beside its bound
+    (:func:`product_bound`) and ``torch.matmul`` in the same dtype, into
+    ``conv[name]["products"]``."""
     from torch.profiler import ProfilerActivity, profile
 
     from se3conv3d_tpu_torch.kernels import fused_equiv as kfe
 
-    for i, (name, (shp, n_live)) in enumerate(scannet_conv_cases().items()):
+    for name, (i, shp, n_live) in cases.items():
         args, gout = padded_conv_args(i, shp, n_live, dev, dtype)
         live = kfe.live_row_table(args[4])
         with torch.no_grad():
@@ -1340,20 +1399,35 @@ def scannet_conv_passes(card, dev, conv: dict, dtype=torch.float32) -> None:
             for what, (fn, passes) in runs.items():
                 fn()
                 torch.cuda.synchronize()
-                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                # both activities, as scannet_profile.  The ModelNet40
+                # forward's profile, the last of the run, still read a third
+                # of its kernels (a third of the CUDA-event time; chip_ab.py's
+                # fresh processes read them whole)
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                     for _ in range(3):
                         fn()
                     torch.cuda.synchronize()
                 conv[name][what]["passes_ms"] = {p: ms / 3 for p, ms in
                                                  pass_ms(device_rows(prof), passes).items()}
         fwd, bwd = conv[name]["fwd"], conv[name]["bwd"]
-        print(f"scannet_fwd_passes {name} {dtype_name(dtype)}: device ms per call "
+        print(f"{label}_fwd_passes {name} {dtype_name(dtype)}: device ms per call "
               + ", ".join(f"{p} {ms:.4f}" for p, ms in fwd["passes_ms"].items())
               + f" (torch.matmul for the product {fwd['library_ms']:.4f}) [{card}]", flush=True)
-        print(f"scannet_bwd_passes {name} {dtype_name(dtype)}: device ms per call "
+        print(f"{label}_bwd_passes {name} {dtype_name(dtype)}: device ms per call "
               + ", ".join(f"{p} {ms:.4f}" for p, ms in bwd["passes_ms"].items())
               + f" (products: {bwd['passes_ms']['d_w product'] + bwd['passes_ms']['dbasis product']:.4f}; "
               f"torch.matmul {bwd['products_library_ms']:.4f}) [{card}]", flush=True)
+        _, _, _, _, g, _, q, c, o = shp
+        products = {}
+        for site, (pass_name, layout, lib_key) in PRODUCT_SITES.items():
+            x = fwd if site == "fwd" else bwd
+            bound = product_bound(layout, *product_dims(layout, live.numel() * g, c * q, o), dtype)
+            products[site] = dict(ms=x["passes_ms"][pass_name], library_ms=x[lib_key], **bound)
+        conv[name]["products"] = products
+        print(f"{label}_products {name} {dtype_name(dtype)}, {live.numel() * g} rows: "
+              + "; ".join(f"{site} {v['ms']:.4f} ms, bound {v['bound_ms']:.4f} ({v['bound_by']}, "
+                          f"{v['bound_ms'] / max(v['ms'], 1e-9):.0%} of it), torch.matmul {v['library_ms']:.4f}"
+                          for site, v in products.items()) + f" [{card}]", flush=True)
         del args, gout, live
         torch.cuda.empty_cache()
 
@@ -1631,6 +1705,8 @@ def reset_launches(kfe, segsum=None) -> None:
             fn.launches_by_act, fn.launches_by_kp = {}, {}
         if hasattr(fn, "launches_by_q"):
             fn.launches_by_q = {}
+        if hasattr(fn, "product_launches"):
+            fn.product_launches = 0
     if segsum is not None:
         segsum.blocked_cumsum.launches = 0
 
@@ -1784,6 +1860,7 @@ def scannet_train(card, dev, trainer, batch, kfe, segsum, ops, order=SCANNET_MOD
     bns = {n: mod for n, mod in model.named_modules() if isinstance(mod, MaskedBatchNorm)}
     bn_before = {n: mod.mean.clone() for n, mod in bns.items()}
     counts = {mode: [0, 0, 0] for mode in ("scatter", "sorted")}
+    prod_counts = {mode: [0, 0] for mode in counts}
     times = {mode: [] for mode in counts}
     peaks = {mode: 0 for mode in counts}
     want_fwd = SCANNET_CONVS * SCENES
@@ -1800,11 +1877,14 @@ def scannet_train(card, dev, trainer, batch, kfe, segsum, ops, order=SCANNET_MOD
             dt = time.perf_counter() - t0
         n = (kfe.fused_equiv_fwd.launches, kfe.fused_equiv_bwd.launches, segsum.blocked_cumsum.launches)
         n_bf16 = (getattr(kfe.fused_equiv_fwd, "bf16_launches", 0), getattr(kfe.fused_equiv_bwd, "bf16_launches", 0))
+        # the shared product's launches inside the convs (a package without the count: None)
+        n_prod = tuple(getattr(fn, "product_launches", None) for fn in (kfe.fused_equiv_fwd, kfe.fused_equiv_bwd))
         loss, gnorm = float(out["loss"]), float(out["grad_norm"])
         peak = torch.cuda.max_memory_allocated()
         print(f"{name} {dname}: step {step} mode {mode} lr {lr:.6e} loss {loss:.6f} grad_norm "
               f"{gnorm:.6f} launches fwd {n[0]} bwd {n[1]} cumsum {n[2]} (bfloat16: fwd {n_bf16[0]} bwd "
-              f"{n_bf16[1]}; prefix-sum payloads {sorted(set(payloads))}) time {dt:.4f} s peak "
+              f"{n_bf16[1]}; prefix-sum payloads {sorted(set(payloads))}; the product inside them: fwd "
+              f"{n_prod[0]} bwd {n_prod[1]}) time {dt:.4f} s peak "
               f"{peak / 2**30:.3f} GiB [{card}]", flush=True)
         if not (np.isfinite(loss) and np.isfinite(gnorm)):
             raise SystemExit("non-finite loss or gradients in a ScanNet train step")
@@ -1814,6 +1894,10 @@ def scannet_train(card, dev, trainer, batch, kfe, segsum, ops, order=SCANNET_MOD
         if n_bf16 != ((n[0], n[1]) if bf16 else (0, 0)) or set(payloads) - {dname}:
             raise SystemExit(f"ScanNet {dname} train step in mode {mode}: bfloat16 launches {n_bf16} "
                              f"of {n[:2]}, prefix-sum payloads {sorted(set(payloads))}")
+        if n_prod[0] is not None and (n_prod[0] < n[0] or n_prod[1] != 2 * n[1]):
+            raise SystemExit(f"ScanNet train step in mode {mode}: the product launched {n_prod} times in "
+                             f"{n[:2]} conv launches (at least one a forward, two a backward)")
+        prod_counts[mode] = [a + (b or 0) for a, b in zip(prod_counts[mode], n_prod)]
         times[mode].append(dt)
         peaks[mode] = max(peaks[mode], peak)
         for j in range(3):
@@ -1828,7 +1912,7 @@ def scannet_train(card, dev, trainer, batch, kfe, segsum, ops, order=SCANNET_MOD
               f"{[round(x, 4) for x in times[mode]]}), {SCENES * SCENE_POINTS / med:.1f} input points/s, "
               f"peak memory {peaks[mode] / 2**30:.3f} GiB [{card}]", flush=True)
         result[mode] = dict(step_s=med, all_s=times[mode], peak_gib=peaks[mode] / 2**30,
-                            launches=counts[mode])
+                            launches=counts[mode], product_launches=prod_counts[mode])
     still = [n for n, mod in bns.items() if torch.equal(mod.mean, bn_before[n])]
     print(f"{name} {dname}: {len(bns) - len(still)} of {len(bns)} BN running means moved")
     if still:
@@ -1971,7 +2055,7 @@ def scannet_profile(card, trainer, batch, ops, modes=("scatter", "sorted"), name
         copies = pass_ms(rows, WEIGHT_COPY_PASSES)
         reductions = pass_ms(rows, REDUCTION_PASSES)
         for what, ps in (("forward", fwd_passes), ("backward", passes), ("prefix sum", cumsum),
-                         ("weights' bfloat16 copies", copies), ("PyTorch reductions", reductions)):
+                         ("weights' images", copies), ("PyTorch reductions", reductions)):
             print(f"{name} {dname}: mode {mode}: conv {what} {sum(ps.values()):.2f} ms: "
                   + ", ".join(f"{p} {ms:.2f}" for p, ms in ps.items()) + f" [{card}]", flush=True)
         out[mode] = dict(wall_ms=wall_ms, busy_ms=busy, fwd_passes_ms=fwd_passes, bwd_passes_ms=passes,
@@ -2674,7 +2758,8 @@ def conv_plan(shp, n_live, elem_bytes=4) -> dict:
                                             ctypes.byref(w_splits), ctypes.byref(p_blocks))
     return dict(chunk=chunk.value, chunks=-(-n_live // chunk.value), splits=splits.value,
                 fwd_scratch_mib=fwd_scratch.value / 2**20, bwd_scratch_mib=bwd_scratch.value / 2**20,
-                w_splits=w_splits.value, w_partials_mib=w_splits.value * c * q * o * 4 / 2**20,
+                w_splits=w_splits.value,
+                w_partials_mib=w_splits.value * c * q * o * 4 / 2**20 if w_splits.value > 1 else 0.0,
                 p_blocks=p_blocks.value)
 
 
@@ -6477,9 +6562,183 @@ def run_points(card, dev) -> dict:
     return out
 
 
+# --- the conv's shared product alone (phase 39) --------------------------------
+
+# phase 39's products, name: (rows, C*Q, O, G of a forward row map or None):
+# the ScanNet level-0 block conv fully live (timed), rows that are not a
+# multiple of the 128-row tile at O = 32, 64 and 18 (rows of 72 / 36 bytes:
+# the value-by-value copies), the ScanNet level-4 (O = 320), ModelNet40
+# level-5 (512) and global-vector (1024) widths, and G = 4 rows through a
+# row map (mixF's level 0)
+PRODUCT_CASES = {
+    "scannet_level0": (131072, 2048, 64, None),
+    "o32_ragged": (1000, 1024, 32, None),
+    "o64_ragged": (4099, 2048, 64, None),
+    "o18_unaligned": (777, 480, 18, None),
+    "o320": (2051, 10240, 320, None),
+    "o512": (1537, 16384, 512, None),
+    "o1024": (264, 16384, 1024, None),
+    "g4_rowmap": (4 * 301, 1024, 32, 4),
+}
+PRODUCT_TIMED = "scannet_level0"
+
+
+def product_operands(layout: str, rows: int, cq: int, o: int, dtype, seed: int, dev) -> tuple:
+    """``(a, b)`` of ``kernels.product`` at ``layout`` for a conv of
+    ``rows`` rows, depth ``C*Q`` and ``O`` outputs: basis [rows, C*Q] and
+    gout [rows, O] in ``dtype``, W [C*Q, O] float32."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    basis = torch.randn(rows, cq, device=dev, generator=gen).to(dtype)
+    gout = torch.randn(rows, o, device=dev, generator=gen).to(dtype)
+    w = torch.randn(cq, o, device=dev, generator=gen) / cq ** 0.5
+    return {"fwd": (basis, w), "dw": (basis, gout), "dbasis": (gout, w)}[layout]
+
+
+def row_map(rows: int, g: int, dev) -> tuple:
+    """``(rowmap, map_rows)``: ``rows / g`` ascending int32 entries with
+    gaps, one -1 and one past ``map_rows``, which store nothing."""
+    n = rows // g
+    entries = torch.arange(n, dtype=torch.int32) * 2
+    entries[n // 3], entries[-1] = -1, 2 * n + 5
+    return entries.to(dev), 2 * n
+
+
+def plans_agree(rows: int, cq: int, o: int, eb: int) -> bool:
+    """The Python mirror of the plans (``kernels.product``) against the C
+    plans at one conv shape: the product's, the forward's and the
+    backward's."""
+    import ctypes
+
+    from se3conv3d_tpu_torch.kernels import product as kp
+    from se3conv3d_tpu_torch.kernels.build import library
+    from se3conv3d_tpu_torch.kernels.fused_equiv import FWD_SCRATCH_BYTES
+
+    ok = True
+    for layout, code in kp.LAYOUTS.items():
+        sp, sc = ctypes.c_int(), ctypes.c_longlong()
+        library("product").se3_product_plan(code, *product_dims(layout, rows, cq, o), eb, ctypes.byref(sp),
+                                            ctypes.byref(sc))
+        ok &= (sp.value, sc.value) == kp.product_plan(layout, *product_dims(layout, rows, cq, o), eb)
+    c, q = cq // 32, 32
+    chunk, splits, fwd_scratch = ctypes.c_int(), ctypes.c_int(), ctypes.c_longlong()
+    library("fwd").se3_fused_equiv_fwd_plan(rows, 1, q, c, o, FWD_SCRATCH_BYTES, eb, ctypes.byref(chunk),
+                                            ctypes.byref(splits), ctypes.byref(fwd_scratch))
+    ok &= (chunk.value, splits.value, fwd_scratch.value) == kp.fwd_plan(rows, 1, q, c, o, FWD_SCRATCH_BYTES, eb)
+    bwd_scratch, w_splits, p_blocks = ctypes.c_longlong(), ctypes.c_int(), ctypes.c_int()
+    library("bwd").se3_fused_equiv_bwd_plan(rows, 1, q, c, o, eb, ctypes.byref(bwd_scratch),
+                                            ctypes.byref(w_splits), ctypes.byref(p_blocks))
+    ok &= (bwd_scratch.value, w_splits.value, p_blocks.value) == kp.bwd_plan(rows, 1, q, c, o, eb)
+    return ok
+
+
+def run_products(card, dev) -> dict:
+    """39. the conv's shared product alone (``kernels.product``) against
+    its plain version in float64 at ``PRODUCT_CASES``, the three layouts in
+    both dtypes: within the conv kernels' bounds (forward ``KERNEL_RTOL``,
+    d_w and dbasis ``BWD_RTOL`` of max |plain|; bfloat16 ``BF16_RTOL`` /
+    ``BF16_MEAN_RTOL``, and where W is rounded (forward, dbasis) at most
+    ``BF16_SOUND_SHARE`` of the error against W unrounded), two calls
+    bitwise equal, one counted launch a call, the plans' Python mirror
+    equal to the C plans; at ``PRODUCT_TIMED`` each call's ms (W's image
+    included), the plain version's, ``torch.matmul``'s in the same dtype
+    and the bound (:func:`product_bound`)."""
+    from se3conv3d_tpu_torch.kernels import product as kp
+
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    for ci, (name, (rows, cq, o, g)) in enumerate(PRODUCT_CASES.items()):
+        if not plans_agree(rows, cq, o, 4) or not plans_agree(rows, cq, o, 2):
+            raise SystemExit(f"phase 39: the plans' Python mirror differs from the C plans at {name}")
+        out[name] = {}
+        for dt in KERNEL_DTYPES:
+            res = out[name][dtype_name(dt)] = {}
+            for layout in kp.LAYOUTS:
+                if g is not None and layout != "fwd":
+                    continue
+                a, b = product_operands(layout, rows, cq, o, dt, 390 + ci, dev)
+                mapped = row_map(rows, g, dev) if g is not None else (None, 0)
+                before = kp.product.launches
+                got = kp.product(layout, a, b, mapped[0], g or 1, mapped[1])
+                again = kp.product(layout, a, b, mapped[0], g or 1, mapped[1])
+                torch.cuda.synchronize()
+                launches = kp.product.launches - before
+                ref = kp.product_reference(layout, a, b, mapped[0], g or 1, mapped[1])
+                err = max_rel_err(got, ref)
+                same = torch.equal(got, again)
+                rtol = KERNEL_RTOL if layout == "fwd" else BWD_RTOL
+                control = None
+                if dt == torch.bfloat16 and layout != "dw":  # W left unrounded
+                    control = max_rel_err(got, kp.product_reference(layout, a.float(), b, mapped[0], g or 1,
+                                                                    mapped[1]).to(got.dtype))[2]
+                ok = (same and launches == 2 and bool(torch.isfinite(got.float()).all()) and within(err, dt, rtol)
+                      and (control is None or tells_apart(err[2], control)))
+                res[layout] = dict(max_abs_err=err[0], max_rel_err=err[1], mean_rel_err=err[2],
+                                   control_mean_rel_err=control, bitwise=same, dims=product_dims(layout, rows, cq, o))
+                if name == PRODUCT_TIMED:
+                    i, j, k = product_dims(layout, rows, cq, o)
+                    res[layout].update(
+                        ms=cuda_ms(lambda: kp.product(layout, a, b), 10),
+                        plain_ms=cuda_ms(lambda: kp.product_reference(layout, a, b), 1),
+                        library_ms=cuda_ms({"fwd": lambda: torch.matmul(a, b.to(dt)),
+                                            "dw": lambda: torch.matmul(a.t(), b),
+                                            "dbasis": lambda: torch.matmul(a, b.to(dt).t())}[layout], 10),
+                        **product_bound(layout, i, j, k, dt))
+                del a, b, got, again, ref
+                x = res[layout]
+                print(f"phase 39 product {layout} {dtype_name(dt)} {name} I,J,K={x['dims']}"
+                      + (f" G={g} row map" if g else "") + f": max_abs_err={err[0]:.3e} max_rel_err={err[1]:.3e} "
+                      f"mean_rel_err={err[2]:.3e} ({bound_text(dt, rtol)}"
+                      + (f"; mean_rel_err {control_text(err[2], control)}" if control is not None else "")
+                      + f"); two calls bitwise equal: {same}; launches {launches} of 2"
+                      + (f"; ms {x['ms']:.4f} a call, plain {x['plain_ms']:.4f}, torch.matmul "
+                         f"{x['library_ms']:.4f}, bound {x['bound_ms']:.4f} ({x['bound_by']})" if "ms" in x else "")
+                      + f" [{card}]", flush=True)
+                if not ok:
+                    raise SystemExit(f"phase 39: the product {layout} ({dtype_name(dt)}) disagrees with its "
+                                     f"plain version, repeats other bits or miscounts at {name}")
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 39: {out['seconds']:.2f} s [{card}]", flush=True)
+    return out
+
+
+def product_entry(products: dict, scan: dict) -> dict:
+    """The shared product's entry of the kernels line: its launches inside
+    the convs of the ScanNet train steps (phase 13, the main path), its
+    errors over phase 39's cases, and phase 39's times of one call at the
+    ScanNet level 0 (the forward's layout at the top, every layout under
+    ``"by_layout"``), with the device ms of each call site in the conv
+    passes of phase 9 (``"conv_passes"``)."""
+    every = {f"scannet_train_{dt}_{mode}": sum(scan["train"][dt][mode]["product_launches"])
+             for dt in SCANNET_DTYPES for mode in ("scatter", "sorted") if mode in scan["train"][dt]}
+    cases = {k: v for k, v in products.items() if k != "seconds"}
+
+    def errs(dt):
+        return max(x["max_abs_err"] for case in cases.values() for x in case[dt].values())
+
+    timed = {dt: cases[PRODUCT_TIMED][dt] for dt in SCANNET_DTYPES}
+    f0, b0 = timed["float32"]["fwd"], timed["bfloat16"]["fwd"]
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    at = f"one call of kernels.product at the ScanNet level 0 (rows, C*Q, O = {PRODUCT_CASES[PRODUCT_TIMED][:3]})"
+    return {
+        "name": "wg_product", "route": "cuda", "source": "se3conv3d_tpu_torch/kernels/csrc/wg_product.cuh",
+        "replaces": "se3conv3d_tpu/ops/pallas/fused_equiv.py:216",
+        "also_replaces": ["se3conv3d_tpu/ops/pallas/fused_equiv.py:252", "se3conv3d_tpu/ops/pallas/fused_equiv.py:258"],
+        "launches": sum(every.values()), "launches_by_path": every,
+        "max_abs_err": errs("float32"), **{k: f0[k] for k in keys},
+        "library_call": "torch.matmul, float32 without TF32, for basis . W", "at": at,
+        "by_layout": timed["float32"],
+        "conv_passes": {dt: scan["conv"][dt]["scannet_level0_block_conv"].get("products") for dt in SCANNET_DTYPES},
+        "bf16": {"max_abs_err": errs("bfloat16"), **{k: b0[k] for k in keys},
+                 "library_call": "torch.matmul, bfloat16", "at": at, "by_layout": timed["bfloat16"]},
+        "seconds": products["seconds"],
+    }
+
+
 def kernels_line(dfaust: dict, scan: dict, mixf: dict, rot_i: dict, g4: dict, std: dict, mn: dict,
                  cli: dict, evals: dict, modes: dict, probes: dict, sites: dict, zoo: dict,
-                 ddp: dict, mink: dict, fps: dict, points: dict) -> dict:
+                 ddp: dict, mink: dict, fps: dict, points: dict, products: dict) -> dict:
     """The ``{"kernels": [...]}`` object: every kernel with its launches on
     the main paths, its error against its plain version, and its times at
     the ScanNet level-0 shape (float32), with the same for its bfloat16
@@ -6508,7 +6767,8 @@ def kernels_line(dfaust: dict, scan: dict, mixf: dict, rot_i: dict, g4: dict, st
     (b) by dtype, the prefix sum's launches among them, and each rank of
     (c)'s dry run); phases 36-37 (MinkUNet34A's cuDNN convs, FPS in PyTorch
     ops) launch no kernel of the port, and their readings close the line
-    with phase 38's."""
+    with phase 38's.  The conv's shared product (phase 39,
+    :func:`product_entry`) follows the prefix sum."""
     compared, bwd_compared = dfaust["fwd"], dfaust["bwd"]
     scan_conv, scan_cumsum, scan_train, scan_eval = scan["conv"], scan["cumsum"], scan["train"], scan["eval"]
     lvl0 = SCANNET_SHAPES["scannet_level0_block_conv"]
@@ -6681,7 +6941,8 @@ def kernels_line(dfaust: dict, scan: dict, mixf: dict, rot_i: dict, g4: dict, st
                      "max_abs_err": c0b["max_abs_err"], "ms": c0b["ms"], "plain_ms": c0b["plain_ms"],
                      "bound_ms": c0b["bound_ms"], "bound_by": "bytes", "library_ms": c0b["library_ms"],
                      "at": cum_at + " bfloat16 rows"},
-        }, *mode_entries(modes), *probe_entries(probes), *mosaic_site_entries(sites), *zoo_entries(zoo)],
+        }, product_entry(products, scan), *mode_entries(modes), *probe_entries(probes),
+        *mosaic_site_entries(sites), *zoo_entries(zoo)],
         "probe_registers": probes["registers"], "mosaic_site_registers": sites["registers"],
         "other_conv_kinds": {k: modes[k] for k in ("kp_models", "act_models",
                                                                               "plain_kinds")},
@@ -6741,6 +7002,8 @@ def main() -> int:
     # 33. the Mosaic probe sites of experiments/bisect_accum.py,
     # bisect_accum2.py, probe_cellconv.py and probe_mosaic.py
     sites = run_mosaic_sites(card, dev)
+    # 39. the conv's shared product alone, its three layouts in both dtypes
+    products = run_products(card, dev)
 
     # 2. kernel vs plain
     shapes = {
@@ -6858,12 +7121,13 @@ def main() -> int:
     # the profiled ModelNet40 train step last: a profiled run slows the launches after it
     mn = dict(conv=mn_conv, runs=mn_runs, profile=modelnet_profile(card, dev, mn_batch))
     del mn_batch
+    modelnet_conv_passes(card, dev, mn_conv)
     dfaust = dict(fwd=compared, bwd=bwd_compared, eval_launches=launches,
                   train_launches=dfaust_steps["launches"], bf16_train_launches=dfaust_bf16["bf16_launches"],
                   bf16_train=dfaust_bf16)
     print(f"chip_smoke: total {time.perf_counter() - started:.1f} s, the build included [{card}]", flush=True)
     print(json.dumps(kernels_line(dfaust, scan, mixf, rot_i, g4, std, mn, cli, evals, modes, probes, sites, zoo,
-                                  ddp, mink, fps, points)))
+                                  ddp, mink, fps, points, products)))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

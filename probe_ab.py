@@ -115,11 +115,12 @@ def floor_graph_ms(graph_ms):
 
 def demangle(name: str) -> str:
     """The kernel and template arguments of a mangled tile_fwd / stage_fwd /
-    strided_product / stream_map name, shortened (tile_fwd<4,bf16>,
-    strided_product<f32,0,1,0>: tile id and the two layouts;
-    stream_map<GeluJvp>: the map)."""
+    strided_product / stream_map / wg_product name, shortened
+    (tile_fwd<4,bf16>, strided_product<f32,0,1,0>: tile id and the two
+    layouts; stream_map<GeluJvp>: the map; wg_product<SiteDw,bf16,64>: the
+    conv product's call site, operand type and tile width)."""
     for kern in ("tile_fwd", "stage_fwd", "batched_contract", "strided_product", "masked_dist_product",
-                 "stream_map", "gelu_jvp"):
+                 "stream_map", "gelu_jvp", "wg_product"):
         if kern in name:
             rest = name.rsplit(kern, 1)[1]
             if not rest.startswith("I"):
@@ -127,6 +128,9 @@ def demangle(name: str) -> str:
             if kern == "stream_map":
                 return f"{kern}<{'GeluJvp' if 'GeluJvp' in rest else 'Scale2'}>"
             dtype = "bf16" if "bfloat16" in rest[:40] else "f32"
+            if kern == "wg_product":
+                site, bn = re.search(r"Site\w+?E", rest).group(0)[:-1], re.search(r"Li(\d+)E", rest).group(1)
+                return f"{kern}<{site},{dtype},{bn}>"
             if kern == "strided_product":
                 args = re.findall(r"L[ib](\d+)E", rest.split("EEv")[0])
                 return f"{kern}<{','.join([dtype] + args)}>"

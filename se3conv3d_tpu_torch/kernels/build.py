@@ -28,6 +28,7 @@ SOURCES = {
     "fwd": _HERE / "csrc" / "fused_equiv_fwd.cu",
     "bwd": _HERE / "csrc" / "fused_equiv_bwd.cu",
     "cumsum": _HERE / "csrc" / "segsum_cumsum.cu",
+    "product": _HERE / "csrc" / "product.cu",
     "probe_stage": _HERE / "csrc" / "probe_stage_fwd.cu",
     "probe_bwd": _HERE / "csrc" / "probe_bwd_ops.cu",
     "probe_stream": _HERE / "csrc" / "probe_stream.cu",
@@ -58,6 +59,8 @@ _SIGNATURES = {
             ("se3_fused_std_bwd", [_P] * 16 + [_I] * 12 + [_P], _I),
             ("se3_fused_kp_bwd", [_P] * 18 + [_I] * 13 + [_F, _I, _P], _I),
             ("se3_fused_equiv_bwd_plan", [_I] * 6 + [_P] * 3, None)],
+    "product": [("se3_product_plan", [_I] * 5 + [_P] * 2, None),
+                ("se3_product", [_I, _I, _P, _L, _P, _L, _P, _L, _P] + [_I] * 6 + [_P] * 2, _I)],
     "cumsum": [("se3_blocked_cumsum", [_P] * 3 + [_I, _L, _I, _I, _P], _I),
                ("se3_blocked_cumsum_words", [_I, _L, _I], _L)],
     "probe_stage": [("se3_probe_stage_fwd", [_P] * 9 + [_I] * 6 + [_P], _I),

@@ -46,10 +46,12 @@
 //      pne once per edge in shared memory, features gathered by idx/mask,
 //      basis in registers, written to a scratch [L*G, C*Q]; it also copies
 //      the live rows of gout to a compact [L*G, O] beside it;
-//   2. tf32x3_gemm: d_w = basis^T . gout over the L*G rows, split along
-//      them into per-split partials, then sum_partials adds the splits in a
-//      fixed order (deterministic: the splits depend only on L);
-//   3. tf32x3_gemm: dbasis = gout . W^T, written over the basis scratch;
+//   2. wg_product (wg_product.cuh, the forward's product): d_w = basis^T .
+//      gout over the L*G rows, split along them into per-split partials,
+//      then sum_partials adds the splits in a fixed order (deterministic:
+//      the splits depend only on L);
+//   3. wg_product: dbasis = gout . W^T, written over the basis scratch, W^T
+//      from an image made once a call (product_image);
 //   4. edge_kernel: one warp per live row recomputes pne and act' for its
 //      valid edges, contracts them with dbasis and the gathered features,
 //      adds d_feats with float32 atomics straight into [B, N, F, C]
@@ -66,13 +68,13 @@
 //      shapes); the reduction is then a prefix sum (segsum_cumsum.cu) and
 //      prefix differences.
 //
-// The two products run on tensor cores: mma.sync.m16n8k8 in TF32, in the
-// 3xTF32 form (each operand split into hi = tf32(x) and lo = tf32(x - hi),
-// summing lo*hi + hi*lo + hi*hi in float32), which keeps float32 accuracy
-// where plain TF32 keeps about three decimal digits; each 16-deep slice is
+// The two products run on tensor cores: wgmma in TF32, in the 3xTF32 form
+// (each operand split into hi = tf32(x) and lo = tf32(x - hi), summing
+// lo*hi + hi*lo + hi*hi in float32), which keeps float32 accuracy where
+// plain TF32 keeps about three decimal digits; each 16-deep slice is
 // summed apart and added to the running sum by a rounded float32 add.
-// Operand tiles are staged through shared memory by cp.async,
-// double-buffered.  Passes 1 and 4 are float32 FMA.
+// Operand stages reach shared memory by cp.async.bulk through a ring of
+// mbarriers (wg_product.cuh).  Passes 1 and 4 are float32 FMA.
 //
 // With bfloat16 operands (the TPU kernel's bf16 path, `cdt`) rel, rot6 and
 // feats arrive in bfloat16 and the kernels round where the TPU kernel
@@ -80,11 +82,11 @@
 // compact gout rows (stored in bfloat16), dbasis (written over the basis
 // scratch in bfloat16), each edge's d_gathered row (before its float32
 // atomics, or stored in bfloat16 at its sorted slot) and each dpre (before
-// the d_proj / d_bias sums); the products are bf16_gemm, dbasis over a
-// bfloat16 copy of W made per call.  Every sum is float32, as are d_proj,
-// d_bias and d_w.
+// the d_proj / d_bias sums); the products run on bfloat16 wgmma, dbasis
+// over an image of W rounded to bfloat16.  Every sum is float32, as are
+// d_proj, d_bias and d_w.
 
-#include "fused_equiv_common.cuh"
+#include "wg_product.cuh"
 
 namespace {
 
@@ -129,35 +131,6 @@ size_t edge_smem(int K, int P, int Q) {
            sizeof(int) * 2 * kETM * static_cast<size_t>(K);
   return sizeof(float) * ((kD + 1) * GQC + kETM * EdgeCols<GQC, kD>::kWarpFloats) +
          sizeof(int) * 2 * kETM * static_cast<size_t>(K);
-}
-
-constexpr int kMinSplitRows = 64;         // d_w: least rows per split
-// the d_w partials aim at this many blocks in flight (4 per SM of an H100)
-constexpr int kWantBlocks = 4 * 132;
-
-// out[i] = sum_{s < S} part[s * n + i], in order of s (deterministic).
-// Block (32, 8): lanes take 32 neighbouring i, the 8 rows stride over s.
-__global__ void sum_partials(const float* __restrict__ part, int S, long long n,
-                             float* __restrict__ out) {
-  __shared__ float red[8][33];
-  const long long i = blockIdx.x * 32LL + threadIdx.x;
-  float s = 0.f;
-  if (i < n)
-    for (int p = threadIdx.y; p < S; p += 8) s += part[p * n + i];
-  red[threadIdx.y][threadIdx.x] = s;
-  __syncthreads();
-  if (threadIdx.y == 0 && i < n) {
-    float t = 0.f;
-#pragma unroll
-    for (int y = 0; y < 8; ++y) t += red[y][threadIdx.x];
-    out[i] = t;
-  }
-}
-
-cudaError_t launch_sum_partials(const float* part, int S, long long n, float* out,
-                                cudaStream_t stream) {
-  sum_partials<<<static_cast<unsigned>((n + 31) / 32), dim3(32, 8), 0, stream>>>(part, S, n, out);
-  return cudaGetLastError();
 }
 
 // --- 4. per-edge gradients ---------------------------------------------------
@@ -459,12 +432,10 @@ edge_kernel(const T* __restrict__ rel, const T* __restrict__ rot6,
   }
 }
 
-long long round16(long long x) { return (x + 15) / 16 * 16; }
-
 // The passes of one backward call with operand type T in the geometry kD
-// (kp: the kernel-point geometry's arguments at kD = kKP).  The scratch holds the basis / dbasis rows [L*G, C*Q] and the compact gout
-// rows [L*G, O], in T, then with bfloat16 operands the bfloat16 copy of W
-// [C*Q, O].
+// (kp: the kernel-point geometry's arguments at kD = kKP).  The scratch holds
+// the basis / dbasis rows [L*G, C*Q] and the compact gout rows [L*G, O], in
+// T, then the image of W^T for the dbasis product.
 template <int kD, typename T>
 cudaError_t backward(const T* rel, const T* rot6, const T* feats, const int64_t* idx,
                      const uint8_t* mask, const float* proj, const float* bias, const float* w,
@@ -472,12 +443,12 @@ cudaError_t backward(const T* rel, const T* rot6, const T* feats, const int64_t*
                      float* dparams, float* dw, char* scratch, float* wpart, float* ppart, int B,
                      int M, int N, int K, int G, int F, int Q, int C, int O, int L, int w_splits,
                      int p_blocks, int act, const KpGeo& kp, cudaStream_t stream) {
-  constexpr bool kBf16 = sizeof(T) == 2;
   const int D = kD == kKP ? kp.P : kD;
   const long long rows = static_cast<long long>(L) * G;
   const int CQ = C * Q, BM = B * M;
   T* scr = reinterpret_cast<T*>(scratch);
   T* gl = reinterpret_cast<T*>(scratch + round16(rows * CQ * sizeof(T)));
+  auto* img = reinterpret_cast<uint8_t*>(scratch + round16(rows * CQ * sizeof(T)) + round16(rows * O * sizeof(T)));
   cudaError_t err;
 
   // 1. basis and the compact gout rows
@@ -486,34 +457,13 @@ cudaError_t backward(const T* rel, const T* rot6, const T* feats, const int64_t*
   if (err != cudaSuccess) return err;
 
   // 2. d_w[(c,q), o] = sum_rows basis[row, (c,q)] * gout[row, o], split along the rows
-  const int step = kBf16 ? kHK : kTK;
-  int k_per = static_cast<int>((rows + w_splits - 1) / w_splits);
-  k_per = ((k_per + step - 1) / step) * step;
-  const long long nw = static_cast<long long>(CQ) * O;
-  if constexpr (kBf16)
-    err = launch_bf16_gemm<float, false, false>(scr, CQ, gl, O, wpart, nw, O, CQ, O,
-                                                static_cast<int>(rows), k_per, w_splits,
-                                                CQ % 8 == 0 && O % 8 == 0, nullptr, 1, 0, stream);
-  else
-    err = launch_gemm<false, false>(scr, CQ, gl, O, wpart, nw, O, CQ, O, static_cast<int>(rows),
-                                    k_per, w_splits, CQ % 4 == 0 && O % 4 == 0, nullptr, 1, 0,
-                                    stream);
-  if (err != cudaSuccess) return err;
-  err = launch_sum_partials(wpart, w_splits, nw, dw, stream);
+  err = product_dw<T>(scr, CQ, gl, O, dw, wpart, CQ, O, static_cast<int>(rows), w_splits, stream);
   if (err != cudaSuccess) return err;
 
   // 3. dbasis[row, (c,q)] = sum_o gout[row, o] * W[(c,q), o], over the basis scratch
-  if constexpr (kBf16) {
-    bf16* wb = reinterpret_cast<bf16*>(scratch + round16(rows * CQ * 2) + round16(rows * O * 2));
-    err = launch_round_bf16(w, wb, CQ, O, false, stream);
-    if (err == cudaSuccess)
-      err = launch_bf16_gemm<bf16, true, true>(gl, O, wb, O, scr, 0, CQ, static_cast<int>(rows),
-                                               CQ, O, O, 1, O % 8 == 0, nullptr, 1, 0, stream);
-  } else {
-    err = launch_gemm<true, true>(gl, O, w, O, scr, 0, CQ, static_cast<int>(rows), CQ, O, O, 1,
-                                  O % 4 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0, nullptr,
-                                  1, 0, stream);
-  }
+  err = launch_product_image<T>(w, O, true, CQ, O, img, stream);
+  if (err == cudaSuccess)
+    err = product_dbasis<T>(gl, O, img, scr, CQ, static_cast<int>(rows), CQ, O, stream);
   if (err != cudaSuccess) return err;
 
   // 4. per-edge gradients, in the column capacity of G and G*Q (kD = 3 and
@@ -548,22 +498,17 @@ cudaError_t backward(const T* rel, const T* rot6, const T* feats, const int64_t*
 
 // Scratch sizes the caller allocates for se3_fused_equiv_bwd, given L live
 // rows and operands of elem_bytes (4: float32, 2: bfloat16): the bytes of
-// the basis/dbasis scratch with the compact gout rows (and, in bfloat16,
-// the weights' copy), the d_w partials (w_splits of C*Q*O float32) and the
-// d_proj partials (p_blocks of (D + 1)*Q for D pne inputs).  The d_w
-// splits aim at kWantBlocks blocks in flight with at least kMinSplitRows
-// rows each; at least one split and one block.
+// the basis/dbasis scratch with the compact gout rows and the image of W^T,
+// the d_w splits (product_splits: w_splits partials of C*Q*O float32 when
+// more than one) and the d_proj partials (p_blocks of (D + 1)*Q for D pne
+// inputs); at least one split and one block.
 extern "C" void se3_fused_equiv_bwd_plan(int L, int G, int Q, int C, int O, int elem_bytes,
                                          long long* scratch, int* w_splits, int* p_blocks) {
   const long long rows = static_cast<long long>(L) * G;
   const long long cq = static_cast<long long>(C) * Q;
   *scratch = round16(rows * cq * elem_bytes) + round16(rows * O * elem_bytes) +
-             (elem_bytes == 2 ? round16(cq * O * 2) : 0);
-  const long long tiles = ((cq + kTI - 1) / kTI) * ((O + kTJ - 1) / kTJ);
-  long long s = (kWantBlocks + tiles - 1) / tiles;
-  const long long max_s = (rows + kMinSplitRows - 1) / kMinSplitRows;
-  s = s < max_s ? s : max_s;
-  *w_splits = static_cast<int>(s < 1 ? 1 : s);
+             round16(product_image_bytes(static_cast<int>(cq), O, elem_bytes));
+  *w_splits = product_splits(product_tiles(cq, O), rows, O, kPMaxSplits);
   const long long num_tiles = (static_cast<long long>(L) + kETM - 1) / kETM;
   *p_blocks = static_cast<int>(num_tiles < 1024 ? (num_tiles < 1 ? 1 : num_tiles) : 1024);
 }

@@ -34,11 +34,8 @@
 //   G <= 2 and G*Q <= 64, 128 for G <= 4 and G*Q <= 128 (the mixed frame
 //   counts' F = 4); each kernel that keeps pne rows in shared memory is
 //   built for both, so a G <= 2 conv keeps its footprint and occupancy;
-// - tf32x3_gemm: a float32 product on tensor cores in the 3xTF32 form, and
-//   bf16_gemm, its bfloat16 counterpart (one m16n8k16 product per tile and
-//   16-deep step, float32 accumulation), each with an optional epilogue
-//   that scatters scratch row r*G+g to output row live[r]*G + g;
-// - round_bf16: float32 weights rounded to a bfloat16 copy.
+// - tensor-core helpers (the 3xTF32 split, mma.sync tiles, the row map and
+//   the paired stores); the product itself, on wgmma, is wg_product.cuh.
 // Everything here sits in an anonymous namespace: each source that includes
 // it builds into its own library with its own copy.
 
@@ -518,12 +515,8 @@ cudaError_t launch_basis(bool with_gout, const T* rel, const T* rot6, const T* f
   }
 }
 
-// --- C[z] = A . B over the depth slice z, on tensor cores --------------------
-// tf32x3_gemm: block tile kTI x kTJ, 8 warps of 32 x 32 (2 x 4 mma tiles)
-constexpr int kGThreads = 256;
-constexpr int kTI = 128;
-constexpr int kTJ = 64;
-constexpr int kTK = 16;                   // depth per stage, two k8 steps
+// --- tensor-core helpers -----------------------------------------------------
+// (the conv's product is wg_product.cuh; the probes' kernels use these)
 
 // x rounded to TF32 (10 mantissa bits), to nearest with ties away from zero:
 // cvt.rna.tf32.f32 for finite x, as an integer add and mask.
@@ -559,43 +552,6 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src, int byte
                : "memory");
 }
 
-// One operand's kTK-deep slice of a tile into shared memory.  The operand
-// X(r, k) has `R` rows (the tile's own index, r in [r0, r0 + ROWS)) and is
-// summed over k in [k0, ke).  KC (depth contiguous): X(r, k) = X[r*ld + k],
-// kept as [ROWS][kTK + 4]; else X(r, k) = X[k*ld + r], kept as
-// [kTK][ROWS + 8].  Both pads put the mma fragment reads of one warp on 32
-// distinct banks.  VEC: 16-byte copies (ld, the base and the contiguous
-// extent are multiples of 4 floats); else 4-byte copies.
-template <bool KC, int ROWS, bool VEC>
-__device__ __forceinline__ void load_slice(float* s, const float* __restrict__ X, long long ld,
-                                           int r0, int R, int k0, int ke, int tid) {
-  constexpr int kStride = KC ? kTK + 4 : ROWS + 8;
-  if (VEC) {
-    constexpr int kChunks = ROWS * kTK / 4;
-#pragma unroll
-    for (int c = tid; c < kChunks; c += kGThreads) {
-      int r, k;
-      if (KC) { r = c / (kTK / 4); k = (c % (kTK / 4)) * 4; } else { k = c / (ROWS / 4); r = (c % (ROWS / 4)) * 4; }
-      const int gr = r0 + r, gk = k0 + k;
-      int bytes = 0;
-      if (gr < R && gk < ke) bytes = 4 * min(4, KC ? ke - gk : R - gr);
-      const float* src = bytes ? X + (KC ? gr * ld + gk : gk * ld + gr) : X;
-      cp_async16(s + (KC ? r * kStride + k : k * kStride + r), src, bytes);
-    }
-  } else {
-    constexpr int kElems = ROWS * kTK;
-#pragma unroll 4
-    for (int e = tid; e < kElems; e += kGThreads) {
-      int r, k;
-      if (KC) { r = e / kTK; k = e % kTK; } else { k = e / ROWS; r = e % ROWS; }
-      const int gr = r0 + r, gk = k0 + k;
-      const bool ok = gr < R && gk < ke;
-      const float* src = ok ? X + (KC ? gr * ld + gk : gk * ld + gr) : X;
-      cp_async4(s + (KC ? r * kStride + k : k * kStride + r), src, ok ? 4 : 0);
-    }
-  }
-}
-
 // Output row of product row i: i itself, or with a live-row map (rowmap =
 // live rows of this call, G rows each) rowmap[i / G] * G + i % G; -1 (not
 // stored) where the map's entry lies outside [0, map_rows).
@@ -605,160 +561,6 @@ __device__ __forceinline__ long long mapped_row(const int* __restrict__ rowmap, 
   const int r = rowmap[i / G];
   return r < 0 || r >= map_rows ? -1 : static_cast<long long>(r) * G + i % G;
 }
-
-// Cout[z] (I x J, row stride ldc; z = blockIdx.z at Cout + z*sCs) =
-// sum over depth k in [z*kPer, min((z+1)*kPer, Kd)) of A(i, k) * B(k, j),
-// row i stored at mapped_row(rowmap, G, map_rows, i).  A_KC: A(i, k) =
-// A[i*lda + k], else A[k*lda + i]; B_KC: B(k, j) = B[j*ldb + k], else
-// B[k*ldb + j].  A block of 8 warps owns a kTI x kTJ tile; each warp a 32 x 32 piece, 2 x 4
-// m16n8 tiles, three mma per tile and k8 step (3xTF32).  The tensor cores'
-// float32 adds do not round to nearest, and over thousands of depth steps
-// that bias grows with the depth; so each kTK-deep slice is summed by the
-// mma into a zeroed register tile and added to the running sum by a
-// rounded float32 add.  Two shared-memory stages: the next slice's
-// cp.async copies run while this one's products do.  A block whose depth
-// slice is empty writes zeros.  The sum order within a block is fixed, so
-// the result depends only on (I, J, Kd, kPer).
-template <bool A_KC, bool B_KC, bool VEC>
-__global__ void __launch_bounds__(kGThreads)
-tf32x3_gemm(const float* __restrict__ A, long long lda, const float* __restrict__ Bm,
-            long long ldb, float* __restrict__ Cout, long long sCs, long long ldc,
-            int I, int J, int Kd, int kPer, const int* __restrict__ rowmap, int G, int map_rows) {
-  constexpr int kSA = A_KC ? kTK + 4 : kTI + 8;
-  constexpr int kSB = B_KC ? kTK + 4 : kTJ + 8;
-  constexpr int kASize = A_KC ? kTI * kSA : kTK * kSA;
-  constexpr int kBSize = B_KC ? kTJ * kSB : kTK * kSB;
-  __shared__ __align__(16) float As[2][kASize];
-  __shared__ __align__(16) float Bs[2][kBSize];
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int gid = lane >> 2, tig = lane & 3;  // mma fragment coordinates
-  const int wi = (warp & 3) * 32, wj = (warp >> 2) * 32;
-  const int i0 = blockIdx.y * kTI, j0 = blockIdx.x * kTJ;
-  const int kb = blockIdx.z * kPer, ke = min(Kd, kb + kPer);
-  const int nk = ke > kb ? (ke - kb + kTK - 1) / kTK : 0;
-
-  float acc[2][4][4];
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int v = 0; v < 4; ++v) acc[mt][nt][v] = 0.f;
-
-  auto load = [&](int stage, int k0) {
-    load_slice<A_KC, kTI, VEC>(As[stage], A, lda, i0, I, k0, ke, tid);
-    load_slice<B_KC, kTJ, VEC>(Bs[stage], Bm, ldb, j0, J, k0, ke, tid);
-  };
-  if (nk > 0) load(0, kb);
-  asm volatile("cp.async.commit_group;" ::: "memory");
-
-  for (int kt = 0; kt < nk; ++kt) {
-    if (kt + 1 < nk) load((kt + 1) & 1, kb + (kt + 1) * kTK);
-    asm volatile("cp.async.commit_group;" ::: "memory");
-    asm volatile("cp.async.wait_group 1;" ::: "memory");  // all but the newest group: slice kt is in
-    __syncthreads();
-    const float* as = As[kt & 1];
-    const float* bs = Bs[kt & 1];
-    float part[2][4][4];  // this slice's products: the mma's own adds stay short
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-        for (int v = 0; v < 4; ++v) part[mt][nt][v] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < kTK; ks += 8) {
-      uint32_t ah[2][4], al[2][4], bh[4][2], bl[4][2];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-#pragma unroll
-        for (int v = 0; v < 4; ++v) {
-          const int i = wi + mt * 16 + gid + 8 * (v & 1);
-          const int k = ks + tig + 4 * (v >> 1);
-          split_tf32(A_KC ? as[i * kSA + k] : as[k * kSA + i], ah[mt][v], al[mt][v]);
-        }
-      }
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-#pragma unroll
-        for (int v = 0; v < 2; ++v) {
-          const int j = wj + nt * 8 + gid;
-          const int k = ks + tig + 4 * v;
-          split_tf32(B_KC ? bs[j * kSB + k] : bs[k * kSB + j], bh[nt][v], bl[nt][v]);
-        }
-      }
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          mma_tf32(part[mt][nt], al[mt], bh[nt]);
-          mma_tf32(part[mt][nt], ah[mt], bl[nt]);
-          mma_tf32(part[mt][nt], ah[mt], bh[nt]);
-        }
-    }
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-        for (int v = 0; v < 4; ++v) acc[mt][nt][v] += part[mt][nt][v];
-    __syncthreads();  // the next iteration's copies overwrite this stage
-  }
-  asm volatile("cp.async.wait_group 0;" ::: "memory");
-
-  // accumulator v of tile (mt, nt): row gid + 8*(v >> 1), column 2*tig + (v & 1)
-  float* out = Cout + blockIdx.z * sCs;
-  const bool pairs = (ldc % 2 == 0) && (sCs % 2 == 0);
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int i = i0 + wi + mt * 16 + gid + 8 * h;
-      if (i >= I) continue;
-      const long long mi = mapped_row(rowmap, G, map_rows, i);
-      if (mi < 0) continue;
-      float* orow = out + mi * ldc;
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int j = j0 + wj + nt * 8 + 2 * tig;
-        const float x = acc[mt][nt][2 * h], y = acc[mt][nt][2 * h + 1];
-        if (pairs && j + 1 < J) {
-          *reinterpret_cast<float2*>(orow + j) = make_float2(x, y);
-        } else {
-          if (j < J) orow[j] = x;
-          if (j + 1 < J) orow[j + 1] = y;
-        }
-      }
-    }
-}
-
-template <bool A_KC, bool B_KC>
-cudaError_t launch_gemm(const float* A, long long lda, const float* Bm, long long ldb, float* Cout,
-                        long long sCs, long long ldc, int I, int J, int Kd, int kPer, int splits,
-                        bool vec, const int* rowmap, int G, int map_rows, cudaStream_t stream) {
-  const dim3 grid((J + kTJ - 1) / kTJ, (I + kTI - 1) / kTI, splits);
-  if (vec)
-    tf32x3_gemm<A_KC, B_KC, true><<<grid, kGThreads, 0, stream>>>(A, lda, Bm, ldb, Cout, sCs, ldc,
-                                                                  I, J, Kd, kPer, rowmap, G,
-                                                                  map_rows);
-  else
-    tf32x3_gemm<A_KC, B_KC, false><<<grid, kGThreads, 0, stream>>>(A, lda, Bm, ldb, Cout, sCs, ldc,
-                                                                   I, J, Kd, kPer, rowmap, G,
-                                                                   map_rows);
-  return cudaGetLastError();
-}
-
-// --- the bfloat16 product: C[z] = A . B on tensor cores ------------------------
-// bf16_gemm computes what tf32x3_gemm does (the same tiles, warps, depth
-// split, row map and epilogue) from bfloat16 operands: one
-// mma.sync.m16n8k16 bf16 product per m16n8 tile and 16-deep step, float32
-// accumulate.  A bfloat16 product is exact in float32, so the sums are the
-// only rounding; as in tf32x3_gemm each 16-deep step is summed by the mma
-// into a zeroed register tile and added to the running sum by a rounded
-// float32 add.  Stages are kHK deep (64 bytes of a depth-contiguous row);
-// the output is float32 or bfloat16 (TO), rounded once at the store.
-constexpr int kHK = 32;                   // depth per stage, two k16 steps
 
 // d += a . b on one m16n8k16 bf16 tile, float32 accumulate.
 __device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, const uint32_t* b) {
@@ -773,42 +575,6 @@ __device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, const uint
 __device__ __forceinline__ uint32_t pack_bf16(bf16 x, bf16 y) {
   return static_cast<uint32_t>(__bfloat16_as_ushort(x)) |
          (static_cast<uint32_t>(__bfloat16_as_ushort(y)) << 16);
-}
-
-// One operand's kHK-deep slice of a tile into shared memory, as load_slice:
-// KC keeps [ROWS][kHK + 8] (a depth pair is one 32-bit word; rows of 80
-// bytes put a warp's fragment words on 32 distinct banks), else
-// [kHK][ROWS + 8].  VEC: 16-byte cp.async copies of 8 values (ld, the base
-// and the slice start are multiples of 8 values); else plain loads and
-// stores, one value at a time.
-template <bool KC, int ROWS, bool VEC>
-__device__ __forceinline__ void load_slice_bf16(bf16* s, const bf16* __restrict__ X, long long ld,
-                                                int r0, int R, int k0, int ke, int tid) {
-  constexpr int kStride = KC ? kHK + 8 : ROWS + 8;
-  if (VEC) {
-    constexpr int kChunks = ROWS * kHK / 8;
-#pragma unroll
-    for (int c = tid; c < kChunks; c += kGThreads) {
-      int r, k;
-      if (KC) { r = c / (kHK / 8); k = (c % (kHK / 8)) * 8; } else { k = c / (ROWS / 8); r = (c % (ROWS / 8)) * 8; }
-      const int gr = r0 + r, gk = k0 + k;
-      int bytes = 0;
-      if (gr < R && gk < ke) bytes = 2 * min(8, KC ? ke - gk : R - gr);
-      const bf16* src = bytes ? X + (KC ? gr * ld + gk : gk * ld + gr) : X;
-      cp_async16(s + (KC ? r * kStride + k : k * kStride + r), src, bytes);
-    }
-  } else {
-    constexpr int kElems = ROWS * kHK;
-    const bf16 zero = __float2bfloat16_rn(0.f);
-#pragma unroll 4
-    for (int e = tid; e < kElems; e += kGThreads) {
-      int r, k;
-      if (KC) { r = e / kHK; k = e % kHK; } else { k = e / ROWS; r = e % ROWS; }
-      const int gr = r0 + r, gk = k0 + k;
-      s[KC ? r * kStride + k : k * kStride + r] =
-          gr < R && gk < ke ? X[KC ? gr * ld + gk : gk * ld + gr] : zero;
-    }
-  }
 }
 
 // Two neighbouring outputs of row `orow` at column j (j + 1 < J, 4-byte
@@ -828,141 +594,6 @@ __device__ __forceinline__ void store_pair(bf16* orow, int j, int J, bool pairs,
     if (j < J) orow[j] = __float2bfloat16_rn(x);
     if (j + 1 < J) orow[j + 1] = __float2bfloat16_rn(y);
   }
-}
-
-// Cout[z] = sum over depth k in [z*kPer, min((z+1)*kPer, Kd)) of A(i, k) *
-// B(k, j), with the operand layouts, row map and depth split of
-// tf32x3_gemm; kPer is a multiple of kHK where the depth is split.
-template <typename TO, bool A_KC, bool B_KC, bool VEC>
-__global__ void __launch_bounds__(kGThreads)
-bf16_gemm(const bf16* __restrict__ A, long long lda, const bf16* __restrict__ Bm, long long ldb,
-          TO* __restrict__ Cout, long long sCs, long long ldc, int I, int J, int Kd, int kPer,
-          const int* __restrict__ rowmap, int G, int map_rows) {
-  constexpr int kSA = A_KC ? kHK + 8 : kTI + 8;
-  constexpr int kSB = B_KC ? kHK + 8 : kTJ + 8;
-  constexpr int kASize = A_KC ? kTI * kSA : kHK * kSA;
-  constexpr int kBSize = B_KC ? kTJ * kSB : kHK * kSB;
-  __shared__ __align__(16) bf16 As[2][kASize];
-  __shared__ __align__(16) bf16 Bs[2][kBSize];
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int gid = lane >> 2, tig = lane & 3;  // mma fragment coordinates
-  const int wi = (warp & 3) * 32, wj = (warp >> 2) * 32;
-  const int i0 = blockIdx.y * kTI, j0 = blockIdx.x * kTJ;
-  const int kb = blockIdx.z * kPer, ke = min(Kd, kb + kPer);
-  const int nk = ke > kb ? (ke - kb + kHK - 1) / kHK : 0;
-
-  float acc[2][4][4];
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int v = 0; v < 4; ++v) acc[mt][nt][v] = 0.f;
-
-  auto load = [&](int stage, int k0) {
-    load_slice_bf16<A_KC, kTI, VEC>(As[stage], A, lda, i0, I, k0, ke, tid);
-    load_slice_bf16<B_KC, kTJ, VEC>(Bs[stage], Bm, ldb, j0, J, k0, ke, tid);
-  };
-  // depth pair (k, k + 1) of row r: one word where the depth is contiguous
-  auto pair_a = [&](const bf16* as, int i, int k) -> uint32_t {
-    if (A_KC) return *reinterpret_cast<const uint32_t*>(as + i * kSA + k);
-    return pack_bf16(as[k * kSA + i], as[(k + 1) * kSA + i]);
-  };
-  auto pair_b = [&](const bf16* bs, int j, int k) -> uint32_t {
-    if (B_KC) return *reinterpret_cast<const uint32_t*>(bs + j * kSB + k);
-    return pack_bf16(bs[k * kSB + j], bs[(k + 1) * kSB + j]);
-  };
-  if (nk > 0) load(0, kb);
-  asm volatile("cp.async.commit_group;" ::: "memory");
-
-  for (int kt = 0; kt < nk; ++kt) {
-    if (kt + 1 < nk) load((kt + 1) & 1, kb + (kt + 1) * kHK);
-    asm volatile("cp.async.commit_group;" ::: "memory");
-    asm volatile("cp.async.wait_group 1;" ::: "memory");  // all but the newest group: slice kt is in
-    __syncthreads();
-    const bf16* as = As[kt & 1];
-    const bf16* bs = Bs[kt & 1];
-#pragma unroll
-    for (int ks = 0; ks < kHK; ks += 16) {
-      uint32_t a[2][4], b[4][2];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int v = 0; v < 4; ++v)
-          a[mt][v] = pair_a(as, wi + mt * 16 + gid + 8 * (v & 1), ks + 2 * tig + 8 * (v >> 1));
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-        for (int v = 0; v < 2; ++v) b[nt][v] = pair_b(bs, wj + nt * 8 + gid, ks + 2 * tig + 8 * v);
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          float part[4] = {0.f, 0.f, 0.f, 0.f};  // this step's products: the mma's own adds stay short
-          mma_bf16(part, a[mt], b[nt]);
-#pragma unroll
-          for (int v = 0; v < 4; ++v) acc[mt][nt][v] += part[v];
-        }
-    }
-    __syncthreads();  // the next iteration's copies overwrite this stage
-  }
-  asm volatile("cp.async.wait_group 0;" ::: "memory");
-
-  // accumulator v of tile (mt, nt): row gid + 8*(v >> 1), column 2*tig + (v & 1)
-  TO* out = Cout + blockIdx.z * sCs;
-  const bool pairs = (ldc % 2 == 0) && (sCs % 2 == 0);
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int i = i0 + wi + mt * 16 + gid + 8 * h;
-      if (i >= I) continue;
-      const long long mi = mapped_row(rowmap, G, map_rows, i);
-      if (mi < 0) continue;
-      TO* orow = out + mi * ldc;
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-        store_pair(orow, j0 + wj + nt * 8 + 2 * tig, J, pairs, acc[mt][nt][2 * h],
-                   acc[mt][nt][2 * h + 1]);
-    }
-}
-
-template <typename TO, bool A_KC, bool B_KC>
-cudaError_t launch_bf16_gemm(const bf16* A, long long lda, const bf16* Bm, long long ldb, TO* Cout,
-                             long long sCs, long long ldc, int I, int J, int Kd, int kPer,
-                             int splits, bool vec, const int* rowmap, int G, int map_rows,
-                             cudaStream_t stream) {
-  const dim3 grid((J + kTJ - 1) / kTJ, (I + kTI - 1) / kTI, splits);
-  if (vec)
-    bf16_gemm<TO, A_KC, B_KC, true><<<grid, kGThreads, 0, stream>>>(A, lda, Bm, ldb, Cout, sCs, ldc,
-                                                                    I, J, Kd, kPer, rowmap, G,
-                                                                    map_rows);
-  else
-    bf16_gemm<TO, A_KC, B_KC, false><<<grid, kGThreads, 0, stream>>>(A, lda, Bm, ldb, Cout, sCs,
-                                                                     ldc, I, J, Kd, kPer, rowmap,
-                                                                     G, map_rows);
-  return cudaGetLastError();
-}
-
-// dst = src [R, Cc] rounded to bfloat16, as [R, Cc], or transposed to
-// [Cc, R]: the weights' operand copy of the bfloat16 products.
-__global__ void round_bf16(const float* __restrict__ src, bf16* __restrict__ dst, long long R,
-                           int Cc, bool transpose) {
-  const long long n = R * Cc;
-  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; i < n;
-       i += static_cast<long long>(gridDim.x) * blockDim.x) {
-    // i indexes dst; transposed, dst[c*R + r] = src[r*Cc + c]
-    dst[i] = __float2bfloat16_rn(transpose ? src[(i % R) * Cc + i / R] : src[i]);
-  }
-}
-
-inline cudaError_t launch_round_bf16(const float* src, bf16* dst, long long R, int Cc,
-                                     bool transpose, cudaStream_t stream) {
-  const long long n = R * Cc;
-  const int blocks = static_cast<int>(n / 256 + 1 < 4096 ? n / 256 + 1 : 4096);
-  round_bf16<<<blocks, 256, 0, stream>>>(src, dst, R, Cc, transpose);
-  return cudaGetLastError();
 }
 
 }  // namespace

@@ -29,11 +29,13 @@
 // caller gives:
 //   1. basis_kernel (fused_equiv_common.cuh, shared with the backward): the
 //      chunk's basis rows into a scratch [Lc*G, C*Q];
-//   2. tf32x3_gemm: out rows = basis . W[C*Q, O] on tensor cores in 3xTF32,
-//      a block of 128 rows reading W once, its epilogue storing scratch row
-//      r*G + g at out[live[r], g, :].  Where the chunk has too few row tiles
-//      to fill the card, the depth C*Q is split into partials that
-//      sum_splits adds in a fixed order, storing through the same map.
+//   2. wg_product (wg_product.cuh, the product the backward shares): out
+//      rows = basis . W[C*Q, O] on wgmma (3xTF32 for float32), W read from
+//      an image made once a call (product_image: K-major hi / lo tiles, or
+//      bfloat16 ones), its epilogue storing scratch row r*G + g at
+//      out[live[r], g, :].  Where the chunk has too few tiles to fill the
+//      card, the depth C*Q is split into partials that sum_splits adds in
+//      a fixed order, storing through the same map.
 // The result depends only on the shapes and L: two calls agree bitwise.
 //
 // The standard (non-equivariant) conv is the same function at G = F = 1
@@ -51,120 +53,56 @@
 // feats arrive in bfloat16 (the kernel-point offsets stay float32, and
 // each weight is rounded); basis_kernel rounds the projection and bias,
 // each pne and each basis entry to bfloat16 (a scratch of 2-byte rows), and
-// the product is bf16_gemm over a bfloat16 copy of W, transposed to
-// [O, C*Q] so that both operands are depth-contiguous (round_bf16, made per
-// call in the scratch).  Every sum stays float32, as does the output.
+// the product's image holds W rounded to bfloat16.  Every sum stays
+// float32, as does the output.
 
-#include "fused_equiv_common.cuh"
-
-namespace {
-
-constexpr int kSMs = 132;               // an H100's SMs
-constexpr int kSlots = 2 * kSMs;        // product blocks resident at once (two per SM)
-constexpr int kMinSplitDepth = 256;     // least depth per split of the product
-constexpr int kSumThreads = 256;
-
-long long round16(long long x) { return (x + 15) / 16 * 16; }
-
-// out[live[r]*G + g][j] = sum_{s < S} part[s][r*G + g][j], in order of s
-// (deterministic): the depth splits of the product, stored at their rows
-// (none for a table entry outside [0, BM)).
-__global__ void __launch_bounds__(kSumThreads)
-sum_splits(const float* __restrict__ part, int S, long long n, int J,
-           const int* __restrict__ live, int G, int BM, float* __restrict__ out) {
-  const long long i = blockIdx.x * static_cast<long long>(kSumThreads) + threadIdx.x;
-  if (i >= n) return;
-  const long long row = mapped_row(live, G, BM, static_cast<int>(i / J));
-  if (row < 0) return;
-  float s = 0.f;
-  for (int p = 0; p < S; ++p) s += part[p * n + i];
-  out[row * J + i % J] = s;
-}
-
-}  // namespace
+#include "wg_product.cuh"
 
 // Work plan of se3_fused_equiv_fwd for L live rows within cap_bytes of
 // scratch, with basis rows of elem_bytes (4: float32, 2: bfloat16) per
 // value: live rows per chunk, depth splits of the product, and the scratch
-// bytes the caller allocates (with bfloat16 operands the weights' copy,
-// then the chunk's basis rows, then the float32 split partials).  One
-// eighth of the cap is kept for the partials; a single live row whose
-// basis exceeds the rest is taken alone.  The weights' copy is outside the
-// cap.
+// bytes the caller allocates (W's image, then the chunk's basis rows, then
+// the float32 split partials).  One eighth of the cap is kept for the
+// partials; a single live row whose basis exceeds the rest is taken alone.
+// The image is outside the cap.
 extern "C" void se3_fused_equiv_fwd_plan(int L, int G, int Q, int C, int O, long long cap_bytes,
                                          int elem_bytes, int* chunk, int* splits,
                                          long long* scratch) {
   const long long cq = static_cast<long long>(C) * Q;
   const long long part_cap = cap_bytes / 8;
   long long lc = (cap_bytes - part_cap) / (G * cq * elem_bytes);
-  const long long max_lc = static_cast<long long>(kTI) * 65535 / G;  // the product's grid
-  lc = lc < 1 ? 1 : (lc < max_lc ? lc : max_lc);
+  lc = lc < 1 ? 1 : lc;
   if (lc > L) lc = L > 0 ? L : 1;
   const long long n = (L + lc - 1) / lc;
   lc = (L + n - 1) / n;  // even chunks
   const long long rows = lc * G;
-  const long long tiles = ((rows + kTI - 1) / kTI) * ((O + kTJ - 1) / kTJ);
-  // Depth splits: s splits run tiles*s blocks of depth cq/s in
-  // ceil(tiles*s / kSlots) rounds, and add s partial rows of width O to
-  // read back; take the s with the least of rounds / s + s*O / cq.
-  const long long by_depth = (cq + kMinSplitDepth - 1) / kMinSplitDepth;
-  const long long by_room = part_cap / (rows * O * 4);
-  const long long s_max = by_depth < by_room ? by_depth : by_room;
-  long long s = 1;
-  double best = static_cast<double>((tiles + kSlots - 1) / kSlots);
-  for (long long t = 2; t <= s_max; ++t) {
-    const double cost = static_cast<double>((tiles * t + kSlots - 1) / kSlots) / t +
-                        static_cast<double>(t * O) / cq;
-    if (cost < best) best = cost, s = t;
-  }
+  const int s = product_splits(product_tiles(rows, O), cq, O, part_cap / (rows * O * 4));
   *chunk = static_cast<int>(lc);
-  *splits = static_cast<int>(s);
-  const long long w_bytes = elem_bytes == 2 ? round16(cq * O * 2) : 0;
-  *scratch = w_bytes + round16(rows * cq * elem_bytes) + (s > 1 ? s * rows * O * 4 : 0);
+  *splits = s;
+  *scratch = round16(product_image_bytes(O, static_cast<int>(cq), elem_bytes)) +
+             round16(rows * cq * elem_bytes) + (s > 1 ? s * rows * O * 4 : 0);
 }
 
 namespace {
 
 // The chunks of one forward call with operand type T and the geometry kD
-// (kp: the kernel-point geometry's arguments at kD = kKP); `wb` is the
-// product's B operand: W [C*Q, O] float32, or its bfloat16 copy [O, C*Q].
-template <int kD, typename T, typename TW>
+// (kp: the kernel-point geometry's arguments at kD = kKP); `img` is W's
+// image for the product.
+template <int kD, typename T>
 cudaError_t forward(const T* rel, const T* rot6, const T* feats, const int64_t* idx,
-                    const uint8_t* mask, const float* proj, const float* bias, const TW* wb,
+                    const uint8_t* mask, const float* proj, const float* bias, const uint8_t* img,
                     const int* live, float* outf, T* basis, float* part, int B, int M, int N,
                     int K, int G, int F, int Q, int C, int O, int L, int chunk, int splits,
                     int act, const KpGeo& kp, cudaStream_t stream) {
-  constexpr bool kBf16 = sizeof(T) == 2;
   const int CQ = C * Q, BM = B * M;
-  // VEC: 16-byte copies of every operand row (4 floats, or 8 bfloat16 values)
-  const bool vec = kBf16 ? CQ % 8 == 0
-                         : CQ % 4 == 0 && O % 4 == 0 && reinterpret_cast<uintptr_t>(wb) % 16 == 0;
-  const int step = kBf16 ? kHK : kTK;
-  int k_per = (CQ + splits - 1) / splits;
-  k_per = (k_per + step - 1) / step * step;
   cudaError_t err;
   for (int r0 = 0; r0 < L; r0 += chunk) {
     const int lc = L - r0 < chunk ? L - r0 : chunk;
-    const int rows = lc * G;
     const int* lv = live + r0;
     err = launch_basis<T, kD>(false, rel, rot6, feats, idx, mask, proj, bias, nullptr, lv, basis,
                               nullptr, M, N, K, G, F, Q, C, O, lc, BM, act, kp, stream);
-    if (err != cudaSuccess) return err;
-    const long long n = static_cast<long long>(rows) * O;
-    float* dst = splits == 1 ? outf : part;
-    const int* map = splits == 1 ? lv : nullptr;
-    if constexpr (kBf16)
-      err = launch_bf16_gemm<float, true, true>(basis, CQ, wb, CQ, dst, n, O, rows, O, CQ, k_per,
-                                                splits, vec, map, splits == 1 ? G : 1,
-                                                splits == 1 ? BM : 0, stream);
-    else
-      err = launch_gemm<true, false>(basis, CQ, wb, O, dst, n, O, rows, O, CQ, k_per, splits, vec,
-                                     map, splits == 1 ? G : 1, splits == 1 ? BM : 0, stream);
-    if (err == cudaSuccess && splits > 1) {
-      sum_splits<<<static_cast<unsigned>((n + kSumThreads - 1) / kSumThreads), kSumThreads, 0,
-                   stream>>>(part, splits, n, O, lv, G, BM, outf);
-      err = cudaGetLastError();
-    }
+    if (err == cudaSuccess)
+      err = product_fwd<T>(basis, CQ, img, outf, O, part, lc * G, O, CQ, splits, lv, G, BM, stream);
     if (err != cudaSuccess) return err;
   }
   return cudaSuccess;
@@ -185,25 +123,27 @@ int forward_call(const void* rel, const void* rot6, const void* feats, const voi
   const auto* biasf = static_cast<const float*>(bias);
   const auto* livep = static_cast<const int*>(live);
   const long long CQ = static_cast<long long>(C) * Q;
-  const long long basis_bytes = round16(chunk * G * CQ * (use_bf16 ? 2 : 4));
-  char* scr = static_cast<char*>(scratch);
+  const int eb = use_bf16 ? 2 : 4;
+  auto* img = static_cast<uint8_t*>(scratch);  // W's image, then the basis rows, then the partials
+  char* basis = reinterpret_cast<char*>(img) + round16(product_image_bytes(O, static_cast<int>(CQ), eb));
+  float* part = reinterpret_cast<float*>(basis + round16(chunk * G * CQ * eb));
   cudaError_t err;
   if (use_bf16) {
-    auto* wt = reinterpret_cast<bf16*>(scr);  // [O, C*Q]
-    scr += round16(CQ * O * 2);
-    err = launch_round_bf16(static_cast<const float*>(w), wt, CQ, O, true, stream);
+    err = launch_product_image<bf16>(static_cast<const float*>(w), O, false, O, static_cast<int>(CQ), img,
+                                     stream);
     if (err == cudaSuccess)
       err = forward<kD>(static_cast<const bf16*>(rel), static_cast<const bf16*>(rot6),
-                        static_cast<const bf16*>(feats), idxp, maskp, projf, biasf,
-                        static_cast<const bf16*>(wt), livep, static_cast<float*>(out),
-                        reinterpret_cast<bf16*>(scr), reinterpret_cast<float*>(scr + basis_bytes), B,
-                        M, N, K, G, F, Q, C, O, L, chunk, splits, act, kp, stream);
+                        static_cast<const bf16*>(feats), idxp, maskp, projf, biasf, img, livep,
+                        static_cast<float*>(out), reinterpret_cast<bf16*>(basis), part, B, M, N, K, G, F,
+                        Q, C, O, L, chunk, splits, act, kp, stream);
   } else {
-    err = forward<kD>(static_cast<const float*>(rel), static_cast<const float*>(rot6),
-                      static_cast<const float*>(feats), idxp, maskp, projf, biasf,
-                      static_cast<const float*>(w), livep, static_cast<float*>(out),
-                      reinterpret_cast<float*>(scr), reinterpret_cast<float*>(scr + basis_bytes), B, M,
-                      N, K, G, F, Q, C, O, L, chunk, splits, act, kp, stream);
+    err = launch_product_image<float>(static_cast<const float*>(w), O, false, O, static_cast<int>(CQ), img,
+                                      stream);
+    if (err == cudaSuccess)
+      err = forward<kD>(static_cast<const float*>(rel), static_cast<const float*>(rot6),
+                        static_cast<const float*>(feats), idxp, maskp, projf, biasf, img, livep,
+                        static_cast<float*>(out), reinterpret_cast<float*>(basis), part, B, M, N, K, G,
+                        F, Q, C, O, L, chunk, splits, act, kp, stream);
   }
   return static_cast<int>(err);
 }

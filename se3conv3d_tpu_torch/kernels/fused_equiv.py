@@ -64,12 +64,14 @@ edge, built once per neighborhood and cached on it; a padded row's output
 is zero), in two passes over chunks of them.  The basis pass, shared with
 the backward (``csrc/fused_equiv_common.cuh``), evaluates each edge's pne
 row once into shared memory, gathers the features and writes the chunk's
-``basis`` rows to an ``[Lc*G, C*Q]`` scratch; a product ``basis . W`` on
-tensor cores (``mma.sync`` m16n8k8 TF32 in the 3xTF32 form: each operand
-split into a TF32 high part and a TF32 remainder, three products summed in
-float32, which holds float32 accuracy) reads ``W`` once per 128 rows and
-stores each row at its query row, its depth ``C*Q`` split into partials
-summed in a fixed order where the chunk has too few rows to fill the card.
+``basis`` rows to an ``[Lc*G, C*Q]`` scratch; the product ``basis . W``
+(``csrc/wg_product.cuh``, :mod:`.product`: ``wgmma`` fed by a ring of
+TMA stages, float32 in the 3xTF32 form, each operand split
+into a TF32 high part and a TF32 remainder, three products summed in
+float32, which holds float32 accuracy) reads ``W`` from an image made once
+a call and stores each row at its query row, its depth ``C*Q`` split into
+partials summed in a fixed order where the chunk has too few rows to fill
+the card.
 The chunks keep the scratch within :data:`FWD_SCRATCH_BYTES`.  Two calls
 give the same bits.
 
@@ -92,8 +94,7 @@ adds ``d_feats`` with float32
 atomics straight into ``[B, N, F, C]`` (no per-edge ``[M, E, C]`` output,
 masked edges skipped) and sums ``d_proj`` / ``d_bias`` per block, again
 added in a fixed order.  The basis pass is the forward's, and the two
-products run on the forward's 3xTF32 tensor-core product, their operand
-tiles staged through shared memory by ``cp.async``, double-buffered.  The
+products run on the forward's product (``csrc/wg_product.cuh``).  The
 parameter gradients are deterministic: their split boundaries depend only
 on the live count;
 ``d_feats`` is summed by atomics in no fixed order.
@@ -201,9 +202,8 @@ STD_MAX_Q = 64
 # the forward walks its live rows in chunks whose scratch (basis rows and
 # depth-split partials) stays within this many bytes
 FWD_SCRATCH_BYTES = 128 << 20
-# the backward's dbasis product tiles its L*G rows by 128 along a grid
-# dimension of at most 65535 blocks (the forward's chunks stay below it)
-_MAX_SCRATCH_ROWS = 128 * 65535
+# the products index their L*G rows with 32-bit integers
+_MAX_SCRATCH_ROWS = 2**31 - 1
 
 
 def column_capacity(g: int, q: int) -> int:
@@ -569,7 +569,7 @@ def fused_equiv_fwd(
                                           b, m, n, k, g, f, q, c, o, *plan, stream)
     if err != 0:
         raise RuntimeError(f"fused_equiv_fwd kernel launch failed: CUDA error {err}")
-    _count(fused_equiv_fwd, bf16, g, d, q, act, kp)
+    _count(fused_equiv_fwd, bf16, g, d, q, act, kp, products=-(-n_live // chunk.value))
     return out
 
 
@@ -631,7 +631,9 @@ def fused_equiv_bwd(rel, rot6, feats, idx, mask, proj_axes, proj_biases, conv_we
     lib.se3_fused_equiv_bwd_plan(n_live, g, q, c, o, feats.element_size(), ctypes.byref(scratch),
                                  ctypes.byref(w_splits), ctypes.byref(p_blocks))
     work = torch.empty(scratch.value, dtype=torch.uint8, device=dev)  # bytes
-    w_part = torch.empty((w_splits.value, c * q * o), dtype=torch.float32, device=dev)
+    # d_w's split partials (one split writes d_w itself)
+    w_part = torch.empty((w_splits.value if w_splits.value > 1 else 0, c * q * o), dtype=torch.float32,
+                         device=dev)
     p_part = torch.empty((p_blocks.value, (d + 1) * q), dtype=torch.float32, device=dev)
     ptrs = (feats.data_ptr(), idx.data_ptr(), mask.data_ptr(), proj_axes.data_ptr(),
             proj_biases.data_ptr(), conv_weights.data_ptr(), gout.data_ptr(), live_rows.data_ptr(),
@@ -652,15 +654,17 @@ def fused_equiv_bwd(rel, rot6, feats, idx, mask, proj_axes, proj_biases, conv_we
                                           b, m, n, k, g, f, q, c, o, *plan, stream)
     if err != 0:
         raise RuntimeError(f"fused_equiv_bwd kernel launch failed: CUDA error {err}")
-    _count(fused_equiv_bwd, bf16, g, d, q, act, kp)
+    _count(fused_equiv_bwd, bf16, g, d, q, act, kp, products=2)
     return d_feats, d_params[:d], d_params[d], d_w
 
 
-def _count(wrapper, bf16, g, d, q, act, kp):
+def _count(wrapper, bf16, g, d, q, act, kp, products):
     """One more kernel launch of ``wrapper``: all, bfloat16, by G, by D, by
     (D, Q), by activation and, for the kernel-point geometry, by
-    (correlation, P)."""
+    (correlation, P); and its launches of the shared product (``wg_product``:
+    one a forward chunk, two a backward)."""
     wrapper.launches += 1
+    wrapper.product_launches += products
     wrapper.bf16_launches += bf16
     for table, key in ((wrapper.launches_by_g, g), (wrapper.launches_by_d, d),
                        (wrapper.launches_by_q, (d, q)), (wrapper.launches_by_act, act)):
@@ -674,9 +678,10 @@ def _count(wrapper, bf16, g, d, q, act, kp):
 # operands, all by G (out-frames: {G: launches}), by D (pne inputs: 9
 # equivariant, 3 standard, P kernel-point), by (D, Q) (the basis functions
 # of each geometry: {(D, Q): launches}), by activation ({act: launches})
-# and the kernel-point ones by ({(corr, P): launches}); callers may reset them
+# and the kernel-point ones by ({(corr, P): launches}), and the launches of
+# the shared product inside them (product_launches); callers may reset them
 for _wrapper in (fused_equiv_fwd, fused_equiv_bwd):
-    _wrapper.launches = _wrapper.bf16_launches = 0
+    _wrapper.launches = _wrapper.bf16_launches = _wrapper.product_launches = 0
     _wrapper.launches_by_g, _wrapper.launches_by_d, _wrapper.launches_by_q = {}, {}, {}
     _wrapper.launches_by_act, _wrapper.launches_by_kp = {}, {}
 

@@ -141,14 +141,16 @@ def test_every_conv_forward_of_the_model_gets_its_neighborhoods_table(grad, monk
 
 
 def test_build_key_follows_the_shared_header(tmp_path, monkeypatch):
-    """The forward's and backward's library keys hash the header they both
-    include: an edit to it (on a copy of ``csrc/``) moves both keys and
-    leaves the prefix sum's; an edit to one source moves only its own."""
+    """The forward's and backward's library keys hash the headers they both
+    include (the product's, which includes the common one): an edit to the
+    common header (on a copy of ``csrc/``) moves both keys and leaves the
+    prefix sum's; an edit to one source moves only its own."""
     csrc = tmp_path / "csrc"
     shutil.copytree(build.SOURCES["fwd"].parent, csrc)
     monkeypatch.setattr(build, "SOURCES", {name: csrc / path.name for name, path in build.SOURCES.items()})
     header = csrc / "fused_equiv_common.cuh"
-    assert [p.name for p in build._source_files(build.SOURCES["fwd"])] == ["fused_equiv_fwd.cu", header.name]
+    assert [p.name for p in build._source_files(build.SOURCES["fwd"])] == ["fused_equiv_fwd.cu", "wg_product.cuh",
+                                                                          header.name]
     assert [p.name for p in build._source_files(build.SOURCES["cumsum"])] == ["segsum_cumsum.cu"]
 
     def keys():
