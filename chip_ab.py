@@ -25,7 +25,10 @@ driving it with the phases of the ``chip_smoke.py`` beside this file:
   conv forward and backward pass (``torch.profiler`` over 3 calls, the
   live-row table given) at ``PASS_SHAPES``, by kernel name in either
   package (``PASSES``: the shared product ``wg_product`` by call site, or
-  the parent's ``tf32x3_gemm`` / ``bf16_gemm``).
+  the parent's ``tf32x3_gemm`` / ``bf16_gemm``), and the backward's passes
+  at ``EDGE_CASES`` (G = 4, Q = 64, the kernel points at P = 13 and 55,
+  relu, sin and linear: the per-edge pass ``edge_kernel`` at its other
+  instantiations).
 
 Each turn prints one JSON line; the last line holds every turn's numbers
 and the card's name and power limit.
@@ -72,6 +75,27 @@ PASS_SHAPES = {
     "scannet_level0": (CONV_SHAPES["scannet_level0"][0], ("float32", "bfloat16")),
     "modelnet_level5": ((12, 256, 256, 32, 2, 2, 32, 512, 512), ("float32",)),
 }
+# the backward's passes at its other instantiations: name: (shape, live rows
+# per example or None, dtype, kind), kind an activation of the equivariant
+# conv, "std" (kD = 3, gelu) or a kernel-point type ("kp_gauss": P = 13,
+# "kp_gauss_double": P = 55, with the identity activation): G = 4 at the
+# mixF level 0; Q = 64 at the DFaust level 0 (36,864 live rows); the kernel
+# points at the standard ScanNet level 0 (bfloat16, its recipe's) and DFaust
+# level 0 (float32); relu, sin and linear at the ScanNet level 0
+DFAUST_Q64 = (32, 4096, 4096, 32, 2, 2, 64, 32, 32)
+DFAUST_STD = (32, 4096, 4096, 32, 1, 1, 32, 32, 32)
+EDGE_CASES = {
+    **{f"mixf_level0_g4 {dt}": ((16, 4096, 4096, 32, 4, 4, 32, 32, 32), None, dt, "gelu")
+       for dt in ("float32", "bfloat16")},
+    "dfaust_level0_q64_g2 float32": (DFAUST_Q64, 1152, "float32", "gelu"),
+    "dfaust_std_level0_q64 float32": (DFAUST_Q64[:4] + (1, 1) + DFAUST_Q64[6:], 1152, "float32", "std"),
+    **{f"scannet_std_level0_{kind} bfloat16": (CONV_SHAPES["scannet_level0"][0], None, "bfloat16", kind)
+       for kind in ("kp_gauss", "kp_gauss_double")},
+    **{f"dfaust_std_level0_{kind} float32": (DFAUST_STD, 1152, "float32", kind)
+       for kind in ("kp_gauss", "kp_gauss_double")},
+    **{f"scannet_level0_{act} {dt}": (CONV_SHAPES["scannet_level0"][0], None, dt, act)
+       for act in ("relu", "sin", "linear") for dt in ("float32", "bfloat16")},
+}
 
 
 def pass_profile(cs, kfe, dev) -> dict:
@@ -98,6 +122,29 @@ def pass_profile(cs, kfe, dev) -> dict:
                     res[what] = {p: ms / 3 for p, ms in cs.pass_ms(cs.device_rows(prof), PASSES[what]).items()}
             del args, gout, live
             torch.cuda.empty_cache()
+    for i, (name, (shp, n_live, dt, kind)) in enumerate(EDGE_CASES.items()):
+        args, gout = cs.padded_conv_args(50 + i, shp, n_live, dev, getattr(torch, dt))
+        opts = dict(act=kind)
+        if kind == "std" or kind.startswith("kp"):
+            args[1], opts["act"] = None, "gelu" if kind == "std" else "linear"
+            args[5] = args[5][:3].contiguous()
+            if kind.startswith("kp"):
+                kp = cs.conv_kernel_points(kind, dev)
+                gen = torch.Generator(device=dev).manual_seed(110 + i)
+                args[0] = args[0].float()  # the kernel points read float32 offsets
+                args[5] = torch.randn(kp.points.shape[0], shp[6], device=dev, generator=gen) * 0.3
+                opts["kp"] = kp
+        live = kfe.live_row_table(args[4])
+        fn = lambda: kfe.fused_equiv_bwd(*args, gout, live_rows=live, **opts)
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+        out[f"edge {name}"] = {"bwd": {p: ms / 3 for p, ms in cs.pass_ms(cs.device_rows(prof), PASSES["bwd"]).items()}}
+        del args, gout, live
+        torch.cuda.empty_cache()
     return out
 
 

@@ -680,16 +680,18 @@ def conv_bounds(shape, idx, mask, dtype=torch.float32, d=9, kp=False) -> dict:
     basis once, ``dpne`` and ``d_feats`` (``2*Q*C`` each) and
     ``d_proj``/``d_bias`` (``2*(D+1)*Q``), and per live point the ``d_w``
     and ``dbasis`` products (``2*C*Q*O`` each).  The standard geometry reads
-    the offsets and no ``rot6``.  The forward's weight
-    contraction and the backward's two products run on tensor cores in
-    3xTF32, so the bounds take them at that ceiling (``PEAK_TF32_FLOPS /
-    3``) and the rest at the float32 peak; ``bound_f32_ms`` takes every FLOP
-    at the float32 peak.  With bfloat16 operands (``dtype``) the geometry
-    and the features count 2 bytes a value (the parameters, ``gout``,
-    ``d_feats`` and the output stay float32), every FLOP counts at the dense
-    bf16 tensor-core peak, and ``bound_f32_ms`` takes the per-edge FLOPs
-    (float32 FMA in these kernels) at the float32 peak and the products at
-    the bf16 peak.  ``kp``: the kernel-point geometry, D = P weights per
+    the offsets and no ``rot6``.  The forward's weight contraction, the
+    backward's two products and its per-edge ``dpne`` and ``d_feats``
+    products (``edge_kernel``) run on tensor cores in 3xTF32, so the bounds
+    take them at that ceiling (``PEAK_TF32_FLOPS / 3``) and the rest (pne,
+    the basis sums, ``d_proj``) at the float32 peak; ``bound_f32_ms`` takes
+    every FLOP at the float32 peak.  With bfloat16 operands (``dtype``) the
+    geometry and the features count 2 bytes a value (the parameters,
+    ``gout``, ``d_feats`` and the output stay float32), every FLOP counts at
+    the dense bf16 tensor-core peak, and ``bound_f32_ms`` takes the FLOPs
+    these kernels run outside the tensor cores (pne and the basis sums;
+    ``d_proj``) at the float32 peak and the products (``dpne`` and
+    ``d_feats`` too) at the bf16 peak.  ``kp``: the kernel-point geometry, D = P weights per
     edge computed from the float32 offsets (4 bytes a value whatever
     ``dtype``), ``KP_FLOPS`` per point and edge for the correlation (and 3
     for the ``norm_dist`` scale) in the forward and again in the backward,
@@ -702,6 +704,7 @@ def conv_bounds(shape, idx, mask, dtype=torch.float32, d=9, kp=False) -> dict:
     corr_flops = edges * (KP_FLOPS * d + 3) if kp else 0.0
     fwd_flops = 2 * edges * q * (d + c) + point_flops + corr_flops
     bwd_edge_flops = 2 * edges * q * (d + 3 * c + d + 1) + corr_flops
+    edge_mma_flops = 4 * edges * q * c  # dpne and d_feats, on tensor cores
     bwd_flops = bwd_edge_flops + 2 * point_flops
     bf16 = dtype == torch.bfloat16
     op = 2.0 if bf16 else 4.0  # bytes of an operand value
@@ -717,11 +720,12 @@ def conv_bounds(shape, idx, mask, dtype=torch.float32, d=9, kp=False) -> dict:
     if bf16:
         fwd_ops_s, bwd_ops_s = fwd_flops / PEAK_BF16_FLOPS, bwd_flops / PEAK_BF16_FLOPS
         fma_s = {"fwd": (fwd_flops - point_flops) / PEAK_F32_FLOPS + point_flops / PEAK_BF16_FLOPS,
-                 "bwd": bwd_edge_flops / PEAK_F32_FLOPS + 2 * point_flops / PEAK_BF16_FLOPS}
+                 "bwd": (bwd_edge_flops - edge_mma_flops) / PEAK_F32_FLOPS
+                 + (edge_mma_flops + 2 * point_flops) / PEAK_BF16_FLOPS}
     else:
         tf32x3 = PEAK_TF32_FLOPS / 3
         fwd_ops_s = (fwd_flops - point_flops) / PEAK_F32_FLOPS + point_flops / tf32x3
-        bwd_ops_s = bwd_edge_flops / PEAK_F32_FLOPS + 2 * point_flops / tf32x3
+        bwd_ops_s = (bwd_edge_flops - edge_mma_flops) / PEAK_F32_FLOPS + (edge_mma_flops + 2 * point_flops) / tf32x3
         fma_s = {"fwd": fwd_flops / PEAK_F32_FLOPS, "bwd": bwd_flops / PEAK_F32_FLOPS}
     out = {}
     for name, flops, ops_s, nbytes in (("fwd", fwd_flops, fwd_ops_s, fwd_bytes),
@@ -794,6 +798,111 @@ def product_bound(layout: str, i: int, j: int, k: int, dtype=torch.float32) -> d
     t_bytes = nbytes / PEAK_BYTES_PER_S
     return dict(bound_ms=max(t_ops, t_bytes) * 1e3, bound_by="operations" if t_ops >= t_bytes else "bytes",
                 gflop=flops / 1e9, mbytes=nbytes / 1e6)
+
+
+def edge_bound(shape, idx, mask, dtype=torch.float32, d=9, kp=False, sorted_rows=False) -> dict:
+    """Least time of the backward's per-edge pass (``edge_kernel``) alone,
+    from :func:`conv_bounds`' counts: the larger of its bytes over the HBM
+    rate and its FLOPs over the peaks.  It reads the dbasis rows of the live
+    rows (``L*G*C*Q`` operand values), their geometry (``rel``, ``rot6``,
+    ``idx``, ``mask``), the distinct feature rows its valid edges gather and
+    the projection and bias, and writes ``d_feats`` (float32, every row) or,
+    with ``sorted_rows``, each valid edge's row of the sorted buffer (operand
+    values), and its ``[D + 1, Q]`` partials.  FLOPs per valid edge and
+    frame pair: ``dpne`` and ``d_feats`` (``2*Q*C`` each) on tensor cores, at
+    the 3xTF32 ceiling in float32 or the bf16 peak; pne (``2*D*Q``), act' and
+    ``d_proj`` / ``d_bias`` (``2*(D+1)*Q``), and the kernel-point weights,
+    at the float32 peak."""
+    b, m, n, k, g, f, q, c, o = shape
+    valid = float(mask.sum())
+    edges = valid * g * f
+    live = float(mask.any(-1).sum())
+    bf16 = dtype == torch.bfloat16
+    op = 2.0 if bf16 else 4.0
+    rot = 6 * f if d == 9 and not kp else 0
+    geo = live * ((4.0 if kp else op) * k * g * 3 + op * k * g * rot + 9.0 * k)
+    example = torch.arange(b, device=idx.device).reshape(b, 1, 1) * n
+    gathered = float(torch.unique((idx.long() + example)[mask]).numel())
+    out = op * valid * f * c if sorted_rows else 4.0 * b * n * f * c
+    nbytes = op * live * g * c * q + geo + op * gathered * f * c + 4.0 * (d + 1) * q + out + 4.0 * (d + 1) * q
+    mma_flops = 4.0 * edges * q * c
+    other_flops = 2.0 * edges * q * (2 * d + 1) + (edges * (KP_FLOPS * d + 3) if kp else 0.0)
+    t_ops = mma_flops / (PEAK_BF16_FLOPS if bf16 else PEAK_TF32_FLOPS / 3) + other_flops / PEAK_F32_FLOPS
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    return dict(bound_ms=max(t_ops, t_bytes) * 1e3, bound_by="operations" if t_ops >= t_bytes else "bytes",
+                gflop=(mma_flops + other_flops) / 1e9, mbytes=nbytes / 1e6)
+
+
+def edge_matmul_ms(rows: int, e: int, c: int, gq: int, seed: int, dtype=torch.float32) -> dict:
+    """The per-edge pass's yardstick: its two products as ``torch.bmm`` in
+    ``dtype`` (float32: full float32, TF32 off, set here) over operands
+    gathered beforehand (seeded, of its shapes), ``rows`` live rows of
+    ``e`` edges: ``[rows, e, C] @ [rows, C, G*Q]`` for dpne and ``[rows, e,
+    G*Q] @ [rows, G*Q, C]`` for d_feats; ``{"dpne": ms, "d_feats": ms,
+    "ms": both}``.  No PyTorch call computes the pass."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    feat = torch.randn(rows, e, c, device="cuda", generator=gen).to(dtype)
+    db = torch.randn(rows, c, gq, device="cuda", generator=gen).to(dtype)
+    pne = torch.randn(rows, e, gq, device="cuda", generator=gen).to(dtype)
+    dbt = db.transpose(1, 2).contiguous()
+    out = {"dpne": cuda_ms(lambda: torch.bmm(feat, db), 10), "d_feats": cuda_ms(lambda: torch.bmm(pne, dbt), 10)}
+    del feat, db, pne, dbt
+    torch.cuda.empty_cache()
+    return dict(out, ms=out["dpne"] + out["d_feats"])
+
+
+# every instantiation of the per-edge pass, (operand bytes, G, Q, K, kd, P)
+# at the recipes' shapes and at the limits: phase 9 holds kernels.fused_equiv's
+# plan mirror against the C plan there, and the card's occupancy and spills
+EDGE_PLANS = [(e, *s) for e in (4, 2) for s in ((1, 32, 24, 9, 0), (2, 32, 16, 9, 0), (2, 32, 32, 9, 0),
+                                                (4, 32, 32, 9, 0), (2, 32, 768, 9, 0), (4, 32, 432, 9, 0),
+                                                (1, 64, 32, 3, 0), (1, 64, 32, 0, 55), (1, 64, 768, 0, 64))]
+# edge_kernel's instantiations in the backward's library: operand type x
+# (pne columns, kd, the activation switch)
+EDGE_INSTANCES = 2 * 7
+
+
+def edge_checks(card) -> dict:
+    """9. (before the conv shapes) every ``edge_kernel`` instantiation of the
+    backward's library carries HMMA in its SASS (``probe_ab.sass_counts``,
+    ``cuobjdump``); the plan mirror (``kernels.fused_equiv.edge_plan``)
+    equals the C plan at ``EDGE_PLANS``, where gelu's instantiation keeps
+    no local memory (the kernel points' 32 bytes of stack, sinf's slow path)
+    and the card holds at least the plan's blocks an SM.  Fails the run
+    otherwise."""
+    import ctypes
+
+    import probe_ab
+    from se3conv3d_tpu_torch.kernels import fused_equiv as kfe
+    from se3conv3d_tpu_torch.kernels.build import build_libraries, library
+
+    sass = {k: v for k, v in probe_ab.sass_counts(build_libraries(names=("bwd",))["bwd"], every=True).items()
+            if k.startswith("edge_kernel")}
+    print(f"edge_checks: SASS HMMA of each edge_kernel instantiation: "
+          + ", ".join(f"{k} {v[1]}" for k, v in sorted(sass.items())) + f" [{card}]", flush=True)
+    if len(sass) != EDGE_INSTANCES or not all(v[1] > 0 for v in sass.values()):
+        raise SystemExit(f"edge_kernel: {len(sass)} instantiations (want {EDGE_INSTANCES}), "
+                         f"not every one on tensor cores: {sass}")
+    keys = ("warps", "smem_bytes", "stages", "blocks_per_sm", "gq_stride", "geo_rows", "edges_per_round",
+            "channels_per_chunk")
+    plans = {}
+    for plan in EDGE_PLANS:
+        out, attrs = (ctypes.c_int * 8)(), (ctypes.c_int * 4)()
+        err = library("bwd").se3_fused_edge_plan(*plan, out)
+        want = kfe.edge_plan(*plan)
+        err = err or library("bwd").se3_fused_edge_attrs(*plan, 0, attrs)
+        plans[str(plan)] = dict(c_plan=list(out), registers=attrs[0], local_bytes=attrs[1], blocks_per_sm=attrs[3])
+        # gelu's own instantiation (act 0) keeps no local memory; the
+        # kernel-point one switches the activation: 32 bytes, sinf's stack
+        local_max = 32 if plan[4] == 0 else 0
+        if err or list(out) != [want[x] for x in keys] or attrs[1] > local_max or attrs[3] < want["blocks_per_sm"]:
+            raise SystemExit(f"edge_kernel plan {plan}: C {list(out)} (error {err}), mirror "
+                             f"{[want[x] for x in keys]}, attributes {list(attrs)}")
+    print("edge_checks: plan mirror equal to the C plan; (bytes, G, Q, K, kd, P): registers, blocks an SM "
+          "(plan) " + "; ".join(f"{k}: {v['registers']}, {v['blocks_per_sm']} ({v['c_plan'][3]})"
+                                for k, v in plans.items()) + f" [{card}]", flush=True)
+    return dict(sass={k: v[1] for k, v in sass.items()}, plans=plans)
 
 
 def max_rel_err(got, ref) -> tuple:
@@ -1382,10 +1491,12 @@ def conv_passes(card, dev, conv: dict, cases: dict, dtype, label: str) -> None:
     """Device ms of each conv forward and backward pass (``torch.profiler``
     over 3 calls each) at ``cases`` (``name: (seed index of
     padded_conv_args, shape, live rows per example or None)``) with
-    ``dtype`` operands, into ``conv[name]["fwd"]`` / ``["bwd"]``; and each
+    ``dtype`` operands, into ``conv[name]["fwd"]`` / ``["bwd"]``; each
     call site of the shared product beside its bound
     (:func:`product_bound`) and ``torch.matmul`` in the same dtype, into
-    ``conv[name]["products"]``."""
+    ``conv[name]["products"]``; and the backward's per-edge pass beside
+    :func:`edge_bound` and its two-``bmm`` yardstick
+    (:func:`edge_matmul_ms`), into ``conv[name]["edge"]``."""
     from torch.profiler import ProfilerActivity, profile
 
     from se3conv3d_tpu_torch.kernels import fused_equiv as kfe
@@ -1428,6 +1539,15 @@ def conv_passes(card, dev, conv: dict, cases: dict, dtype, label: str) -> None:
               + "; ".join(f"{site} {v['ms']:.4f} ms, bound {v['bound_ms']:.4f} ({v['bound_by']}, "
                           f"{v['bound_ms'] / max(v['ms'], 1e-9):.0%} of it), torch.matmul {v['library_ms']:.4f}"
                           for site, v in products.items()) + f" [{card}]", flush=True)
+        edge = edge_bound(shp, args[3], args[4], dtype)
+        yard = edge_matmul_ms(live.numel(), shp[3] * shp[5], c, g * q, 140 + i, dtype)
+        edge.update(ms=bwd["passes_ms"]["edge_kernel"], yardstick_ms=yard["ms"], yardstick=yard)
+        conv[name]["edge"] = edge
+        print(f"{label}_edge_pass {name} {dtype_name(dtype)}: edge_kernel {edge['ms']:.4f} ms, bound "
+              f"{edge['bound_ms']:.4f} ({edge['bound_by']}, {edge['gflop']:.2f} GFLOP, {edge['mbytes']:.1f} MB; "
+              f"{edge['bound_ms'] / max(edge['ms'], 1e-9):.0%} of it), yardstick two torch.bmm "
+              f"{dtype_name(dtype)} over gathered operands {yard['ms']:.4f} (dpne {yard['dpne']:.4f}, "
+              f"d_feats {yard['d_feats']:.4f}) [{card}]", flush=True)
         del args, gout, live
         torch.cuda.empty_cache()
 
@@ -1707,6 +1827,8 @@ def reset_launches(kfe, segsum=None) -> None:
             fn.launches_by_q = {}
         if hasattr(fn, "product_launches"):
             fn.product_launches = 0
+        if hasattr(fn, "edge_launches"):
+            fn.edge_launches = 0
     if segsum is not None:
         segsum.blocked_cumsum.launches = 0
 
@@ -1861,6 +1983,7 @@ def scannet_train(card, dev, trainer, batch, kfe, segsum, ops, order=SCANNET_MOD
     bn_before = {n: mod.mean.clone() for n, mod in bns.items()}
     counts = {mode: [0, 0, 0] for mode in ("scatter", "sorted")}
     prod_counts = {mode: [0, 0] for mode in counts}
+    edge_counts = {mode: 0 for mode in counts}
     times = {mode: [] for mode in counts}
     peaks = {mode: 0 for mode in counts}
     want_fwd = SCANNET_CONVS * SCENES
@@ -1879,12 +2002,14 @@ def scannet_train(card, dev, trainer, batch, kfe, segsum, ops, order=SCANNET_MOD
         n_bf16 = (getattr(kfe.fused_equiv_fwd, "bf16_launches", 0), getattr(kfe.fused_equiv_bwd, "bf16_launches", 0))
         # the shared product's launches inside the convs (a package without the count: None)
         n_prod = tuple(getattr(fn, "product_launches", None) for fn in (kfe.fused_equiv_fwd, kfe.fused_equiv_bwd))
+        # the per-edge pass's launches inside the backwards (None: a package without the count)
+        n_edge = getattr(kfe.fused_equiv_bwd, "edge_launches", None)
         loss, gnorm = float(out["loss"]), float(out["grad_norm"])
         peak = torch.cuda.max_memory_allocated()
         print(f"{name} {dname}: step {step} mode {mode} lr {lr:.6e} loss {loss:.6f} grad_norm "
               f"{gnorm:.6f} launches fwd {n[0]} bwd {n[1]} cumsum {n[2]} (bfloat16: fwd {n_bf16[0]} bwd "
               f"{n_bf16[1]}; prefix-sum payloads {sorted(set(payloads))}; the product inside them: fwd "
-              f"{n_prod[0]} bwd {n_prod[1]}) time {dt:.4f} s peak "
+              f"{n_prod[0]} bwd {n_prod[1]}; edge_kernel {n_edge}) time {dt:.4f} s peak "
               f"{peak / 2**30:.3f} GiB [{card}]", flush=True)
         if not (np.isfinite(loss) and np.isfinite(gnorm)):
             raise SystemExit("non-finite loss or gradients in a ScanNet train step")
@@ -1897,7 +2022,11 @@ def scannet_train(card, dev, trainer, batch, kfe, segsum, ops, order=SCANNET_MOD
         if n_prod[0] is not None and (n_prod[0] < n[0] or n_prod[1] != 2 * n[1]):
             raise SystemExit(f"ScanNet train step in mode {mode}: the product launched {n_prod} times in "
                              f"{n[:2]} conv launches (at least one a forward, two a backward)")
+        if n_edge is not None and n_edge != n[1]:
+            raise SystemExit(f"ScanNet train step in mode {mode}: edge_kernel launched {n_edge} times in "
+                             f"{n[1]} backward launches (one a backward)")
         prod_counts[mode] = [a + (b or 0) for a, b in zip(prod_counts[mode], n_prod)]
+        edge_counts[mode] += n_edge or 0
         times[mode].append(dt)
         peaks[mode] = max(peaks[mode], peak)
         for j in range(3):
@@ -1912,7 +2041,8 @@ def scannet_train(card, dev, trainer, batch, kfe, segsum, ops, order=SCANNET_MOD
               f"{[round(x, 4) for x in times[mode]]}), {SCENES * SCENE_POINTS / med:.1f} input points/s, "
               f"peak memory {peaks[mode] / 2**30:.3f} GiB [{card}]", flush=True)
         result[mode] = dict(step_s=med, all_s=times[mode], peak_gib=peaks[mode] / 2**30,
-                            launches=counts[mode], product_launches=prod_counts[mode])
+                            launches=counts[mode], product_launches=prod_counts[mode],
+                            edge_launches=edge_counts[mode])
     still = [n for n, mod in bns.items() if torch.equal(mod.mean, bn_before[n])]
     print(f"{name} {dname}: {len(bns) - len(still)} of {len(bns)} BN running means moved")
     if still:
@@ -2143,7 +2273,9 @@ def run_scannet(card, dev, recorded_draws, drop_path_draws) -> dict:
     from se3conv3d_tpu_torch.ops import pne_conv as ops
     from se3conv3d_tpu_torch.train.trainer import Trainer
 
-    # 9.-10. the ScanNet conv shapes, the prefix sum and the segment sums
+    # 9.-10. the per-edge pass's SASS and plans, the ScanNet conv shapes, the
+    # prefix sum and the segment sums
+    edge = edge_checks(card)
     scan_conv = {dt: scannet_conv_kernels(card, dev, getattr(torch, dt)) for dt in SCANNET_DTYPES}
     scan_cumsum = scannet_cumsum(card, dev)
     torch.cuda.empty_cache()
@@ -2195,7 +2327,7 @@ def run_scannet(card, dev, recorded_draws, drop_path_draws) -> dict:
         scannet_conv_passes(card, dev, scan_conv[dt], getattr(torch, dt))
     cumsum_device_ms(card, dev, scan_cumsum)
 
-    return dict(conv=scan_conv, cumsum=scan_cumsum, grid=grid, eval=scan_eval, train=scan_train)
+    return dict(conv=scan_conv, cumsum=scan_cumsum, grid=grid, eval=scan_eval, train=scan_train, edge=edge)
 
 
 def mixf_fill(dev, batch, model_dict=None) -> list:
@@ -6736,6 +6868,46 @@ def product_entry(products: dict, scan: dict) -> dict:
     }
 
 
+def edge_entry(scan: dict, mn: dict) -> dict:
+    """The backward's per-edge pass's entry of the kernels line: its launches
+    inside the backwards of the ScanNet train steps (phase 13, the main
+    path; one a backward, gated), the backward's errors at phase 9's shapes
+    (its ``d_feats``, ``d_proj`` and ``d_bias`` come from this pass), and
+    its device ms at the ScanNet level 0 (phase 9's ``conv_passes``) beside
+    :func:`edge_bound` and the two-``bmm`` yardstick
+    (:func:`edge_matmul_ms`; no single PyTorch call computes the pass, so
+    ``library_ms`` is null); ``plain_ms`` is the whole backward's plain
+    version, which computes the pass's outputs with the rest; every phase-9
+    shape under ``"by_shape"``, ModelNet40's level 5 under ``"modelnet"``,
+    phase 9's SASS and plan checks under ``"checks"``."""
+    every = {f"scannet_train_{dt}_{mode}": scan["train"][dt][mode]["edge_launches"]
+             for dt in SCANNET_DTYPES for mode in ("scatter", "sorted") if mode in scan["train"][dt]}
+    lvl0 = "scannet_level0_block_conv"
+
+    def at(dt):
+        conv = scan["conv"][dt]
+        x, bwd = conv[lvl0]["edge"], conv[lvl0]["bwd"]
+        return {"max_abs_err": max(v["bwd"]["max_abs_err"] for v in conv.values()), "ms": x["ms"],
+                "plain_ms": bwd["plain_ms"], "bound_ms": x["bound_ms"], "bound_by": x["bound_by"],
+                "library_ms": None, "yardstick_ms": x["yardstick_ms"],
+                "by_shape": {k: v.get("edge") for k, v in conv.items()}}
+
+    f0 = at("float32")
+    return {
+        "name": "edge_kernel", "route": "cuda", "source": "se3conv3d_tpu_torch/kernels/csrc/fused_equiv_bwd.cu",
+        "replaces": "se3conv3d_tpu/ops/pallas/fused_equiv.py:266",
+        "also_replaces": ["se3conv3d_tpu/ops/pallas/fused_equiv.py:268", "se3conv3d_tpu/ops/pallas/fused_equiv.py:273",
+                          "se3conv3d_tpu/ops/pallas/fused_equiv.py:275"],
+        "launches": sum(every.values()), "launches_by_path": every, **f0,
+        "library_call": None, "yardstick": "two torch.bmm (dpne, d_feats), float32 without TF32, over gathered "
+        "operands", "plain_call": "fused_equiv_bwd_reference (the whole backward)",
+        "at": f"scannet level-0 block conv B,M,N,K,G,F,Q,C,O={SCANNET_SHAPES[lvl0]}",
+        "bf16": {**at("bfloat16"), "yardstick": "two torch.bmm, bfloat16"},
+        "modelnet": {k: v.get("edge") for k, v in mn["conv"].items() if isinstance(v, dict) and "edge" in v},
+        "checks": scan["edge"],
+    }
+
+
 def kernels_line(dfaust: dict, scan: dict, mixf: dict, rot_i: dict, g4: dict, std: dict, mn: dict,
                  cli: dict, evals: dict, modes: dict, probes: dict, sites: dict, zoo: dict,
                  ddp: dict, mink: dict, fps: dict, points: dict, products: dict) -> dict:
@@ -6768,7 +6940,8 @@ def kernels_line(dfaust: dict, scan: dict, mixf: dict, rot_i: dict, g4: dict, st
     (c)'s dry run); phases 36-37 (MinkUNet34A's cuDNN convs, FPS in PyTorch
     ops) launch no kernel of the port, and their readings close the line
     with phase 38's.  The conv's shared product (phase 39,
-    :func:`product_entry`) follows the prefix sum."""
+    :func:`product_entry`) follows the prefix sum, then the backward's
+    per-edge pass (phase 9, :func:`edge_entry`)."""
     compared, bwd_compared = dfaust["fwd"], dfaust["bwd"]
     scan_conv, scan_cumsum, scan_train, scan_eval = scan["conv"], scan["cumsum"], scan["train"], scan["eval"]
     lvl0 = SCANNET_SHAPES["scannet_level0_block_conv"]
@@ -6941,7 +7114,7 @@ def kernels_line(dfaust: dict, scan: dict, mixf: dict, rot_i: dict, g4: dict, st
                      "max_abs_err": c0b["max_abs_err"], "ms": c0b["ms"], "plain_ms": c0b["plain_ms"],
                      "bound_ms": c0b["bound_ms"], "bound_by": "bytes", "library_ms": c0b["library_ms"],
                      "at": cum_at + " bfloat16 rows"},
-        }, product_entry(products, scan), *mode_entries(modes), *probe_entries(probes),
+        }, product_entry(products, scan), edge_entry(scan, mn), *mode_entries(modes), *probe_entries(probes),
         *mosaic_site_entries(sites), *zoo_entries(zoo)],
         "probe_registers": probes["registers"], "mosaic_site_registers": sites["registers"],
         "other_conv_kinds": {k: modes[k] for k in ("kp_models", "act_models",

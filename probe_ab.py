@@ -115,10 +115,15 @@ def floor_graph_ms(graph_ms):
 
 def demangle(name: str) -> str:
     """The kernel and template arguments of a mangled tile_fwd / stage_fwd /
-    strided_product / stream_map / wg_product name, shortened
+    strided_product / stream_map / wg_product / edge_kernel name, shortened
     (tile_fwd<4,bf16>, strided_product<f32,0,1,0>: tile id and the two
     layouts; stream_map<GeluJvp>: the map; wg_product<SiteDw,bf16,64>: the
-    conv product's call site, operand type and tile width)."""
+    conv product's call site, operand type and tile width;
+    edge_kernel<f32,64,9,0>: operand type, pne columns, geometry, the
+    activation switch)."""
+    edge = re.search(r"11edge_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)ELb([01])E", name)
+    if edge:
+        return f"edge_kernel<{'f32' if edge.group(1) == 'f' else 'bf16'},{edge.group(2)},{edge.group(3)},{edge.group(4)}>"
     for kern in ("tile_fwd", "stage_fwd", "batched_contract", "strided_product", "masked_dist_product",
                  "stream_map", "gelu_jvp", "wg_product"):
         if kern in name:
@@ -144,9 +149,10 @@ def is_b1(kernel: str) -> bool:
     return kernel == "gelu_jvp" or kernel.startswith("stream_map<GeluJvp")
 
 
-def sass_counts(lib: Path) -> dict:
+def sass_counts(lib: Path, every: bool = False) -> dict:
     """{kernel: [HGMMA, HMMA, MUFU.EX2, MUFU]} for the kernels of ``lib``
-    that hold HGMMA or HMMA, and b1's (:func:`is_b1`)."""
+    that hold HGMMA or HMMA, and b1's (:func:`is_b1`); with ``every``, for
+    each kernel of ``lib``."""
     tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     sass = subprocess.run([tool, "--dump-sass", str(lib)], capture_output=True, text=True, check=True).stdout
     counts, fn = {}, None
@@ -159,7 +165,7 @@ def sass_counts(lib: Path) -> dict:
             counts[fn][1] += "HMMA" in line
             counts[fn][2] += "MUFU.EX2" in line
             counts[fn][3] += "MUFU" in line
-    return {k: v for k, v in counts.items() if any(v[:2]) or is_b1(k)}
+    return {k: v for k, v in counts.items() if every or any(v[:2]) or is_b1(k)}
 
 
 def stage_times(res: dict, smoke, m: int, dev, side) -> None:

@@ -58,7 +58,9 @@ _SIGNATURES = {
     "bwd": [("se3_fused_equiv_bwd", [_P] * 17 + [_I] * 14 + [_P], _I),
             ("se3_fused_std_bwd", [_P] * 16 + [_I] * 12 + [_P], _I),
             ("se3_fused_kp_bwd", [_P] * 18 + [_I] * 13 + [_F, _I, _P], _I),
-            ("se3_fused_equiv_bwd_plan", [_I] * 6 + [_P] * 3, None)],
+            ("se3_fused_equiv_bwd_plan", [_I] * 6 + [_P] * 3, None),
+            ("se3_fused_edge_plan", [_I] * 6 + [_P], _I),
+            ("se3_fused_edge_attrs", [_I] * 7 + [_P], _I)],
     "product": [("se3_product_plan", [_I] * 5 + [_P] * 2, None),
                 ("se3_product", [_I, _I, _P, _L, _P, _L, _P, _L, _P] + [_I] * 6 + [_P] * 2, _I)],
     "cumsum": [("se3_blocked_cumsum", [_P] * 3 + [_I, _L, _I, _I, _P], _I),

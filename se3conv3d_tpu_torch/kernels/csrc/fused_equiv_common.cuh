@@ -25,7 +25,7 @@
 //   basis entry; the geometry and features arrive rounded), and accumulate
 //   in float32;
 // - the per-edge helpers (edge compaction, the pne inputs, pre, each
-//   activation and its derivative);
+//   activation; the backward computes its derivative beside it);
 // - basis_kernel: the basis of every live query row (a row with a valid
 //   edge; live[r] = b*M + m) into a scratch [L*G, C*Q] of T, live row r
 //   owning scratch rows r*G .. r*G+G-1 (depth index c*Q + q, the layout of
@@ -84,11 +84,6 @@ __device__ __forceinline__ float gelu_erf(float x) {
   return 0.5f * x * (1.0f + erff(x * 0.70710678118654752f));
 }
 
-__device__ __forceinline__ float gelu_grad(float x) {
-  const float cdf = 0.5f * (1.0f + erff(x * 0.70710678118654752f));
-  return cdf + x * 0.39894228040143268f * expf(-0.5f * x * x);
-}
-
 // The activations of the pne (the TPU kernel's _ACTS), by run-time code.
 enum Act : int { kActGelu = 0, kActRelu = 1, kActSin = 2, kActLinear = 3 };
 
@@ -111,27 +106,6 @@ __device__ __forceinline__ void fill_pne(int act, int Q, float* dst, Pre pre, Pr
       break;
     default:
       for (int q = 0; q < Q; ++q) dst[q] = rnd<T>(gelu_erf(pre(q)));
-  }
-}
-
-// row[q] = row[q] * act'(pre(q)) rounded to T (dpre from dpne), q < Q, in
-// the closed forms of the TPU kernel's _act_and_grad: gelu' = Phi + x phi,
-// relu' a step with 0 at 0 (jax.jvp of jax.nn.relu), sin' = cos, linear' = 1
-// (relu's pre from pre_rn, as in fill_pne).
-template <typename T, typename Pre, typename PreRn>
-__device__ __forceinline__ void scale_by_act_grad(int act, int Q, float* row, Pre pre, PreRn pre_rn) {
-  switch (act) {
-    case kActRelu:
-      for (int q = 0; q < Q; ++q) row[q] = rnd<T>(row[q] * (pre_rn(q) > 0.f ? 1.f : 0.f));
-      break;
-    case kActSin:
-      for (int q = 0; q < Q; ++q) row[q] = rnd<T>(row[q] * cosf(pre(q)));
-      break;
-    case kActLinear:
-      for (int q = 0; q < Q; ++q) row[q] = rnd<T>(row[q]);
-      break;
-    default:
-      for (int q = 0; q < Q; ++q) row[q] = rnd<T>(row[q] * gelu_grad(pre(q)));
   }
 }
 

@@ -86,18 +86,34 @@ valid edge (:func:`live_row_table`, built once per neighborhood and cached
 on it).  A row without one has a zero ``basis`` row and adds nothing to
 any gradient, and the padded clouds leave most rows so (83-89% of the
 ScanNet level 0).  The forward's first half writes ``basis`` to an
-``[L*G, C*Q]`` scratch for the ``L`` live rows; a product ``basis^T .
-gout`` gives ``d_w`` in per-row-split partials summed in a fixed order; a
-product ``gout . W^T`` gives ``dbasis`` over the same scratch; and a
-per-point pass recomputes pne and act' (and the kernel-point weights),
-adds ``d_feats`` with float32
-atomics straight into ``[B, N, F, C]`` (no per-edge ``[M, E, C]`` output,
-masked edges skipped) and sums ``d_proj`` / ``d_bias`` per block, again
-added in a fixed order.  The basis pass is the forward's, and the two
-products run on the forward's product (``csrc/wg_product.cuh``).  The
-parameter gradients are deterministic: their split boundaries depend only
-on the live count;
-``d_feats`` is summed by atomics in no fixed order.
+``[L*G, C*Q]`` scratch for the ``L`` live rows; a
+product ``basis^T . gout`` gives ``d_w`` in per-row-split partials summed
+in a fixed order; a product ``gout . W^T`` gives ``dbasis`` over the same
+scratch; and the per-edge pass (``edge_kernel``) recomputes pne and act'
+(and the kernel-point weights) from one ``pre``, adds ``d_feats`` with
+float32 vector atomics straight into ``[B, N, F, C]`` (no per-edge ``[M,
+E, C]`` output, masked edges skipped) and sums ``d_proj`` / ``d_bias`` per
+block, again added in a fixed order.  The basis pass is the forward's, and
+the two products run on the forward's product (``csrc/wg_product.cuh``).
+The parameter gradients are deterministic: their split boundaries depend
+only on the live count, and the per-edge pass walks the rows in a fixed
+order (:func:`edge_plan`); ``d_feats`` is summed by atomics in no fixed
+order.
+
+The per-edge pass, what bounds it and its design: at the ScanNet level 0
+(3.15M edges, C = 64, G*Q = 32) its two per-edge products (``dpne = feat .
+dbasis^T`` and ``d_gathered = pne . dbasis``) take 12.9 GFLOP each, and it
+reads the 1.07 GB dbasis scratch (0.54 in bfloat16): bytes bound it, at
+about 0.38 ms (float32) and 0.20 ms (bfloat16) on an H100.  A block of 4
+warps walks the live rows one at a time, a row's edges in rounds of 32 and
+its channels in chunks of 32; each unit's dbasis chunk and gathered
+features come in by 16-byte ``cp.async`` into a ring of 2 stages while the
+unit before multiplies; the products, and ``d_proj = dpre^T . [geo, 1]``,
+run on ``mma.sync`` (float32 in 3xTF32, bfloat16 on bf16 tiles), each
+16-deep slice summed apart and added in float32 as the shared product
+does; pne and act' come from one ``pre`` per (edge, column) at the places
+of the thread's own accumulators.  :func:`edge_plan` mirrors its launch
+(shared memory, stages, blocks an SM) and :func:`edge_writes` its tiles.
 
 Given the sort tables of the 'sorted' reduction (``sorted_slot``, the
 inverse of the permutation that sorts the edges by source), the per-point
@@ -130,16 +146,15 @@ columns are read twice); its shared memory lets fewer warps run per SM.
 Activations and the kernel-point geometry: the activation is a run-time
 switch the same for every lane, outside the per-edge loops, in the basis
 pass; the backward's per-edge pass keeps an instantiation of gelu's alone
-(its code on every recipe's path: a switch there cost it 5-10% on an
-H100) beside one that switches.  relu's ``pre`` is summed with each
-product and sum rounded on its own, in the kernels and the plain versions
-alike (:func:`_pre`): its derivative steps at 0.  The kernel-point geometry
-is its own instantiation (``kD = kKP`` of
-``csrc/fused_equiv_common.cuh``), whose backward sums ``d_proj [P + 1, Q]``
-per warp in shared memory (a lane per column q) where P + 1 register
-accumulators a lane would spill.  What bounds them on an H100: the same
-products as the gelu kernels, plus at the kernel points about 10 FLOPs,
-an exp or a sqrt per point and edge and the ``2*P*Q`` projection.
+beside one that switches.  relu's ``pre`` is summed with each product and
+sum rounded on its own, in the kernels and the plain versions alike
+(:func:`_pre`): its derivative steps at 0.  The kernel-point geometry is its
+own instantiation (``kD = kKP`` of ``csrc/fused_equiv_common.cuh``), whose
+per-edge pass holds each round's P weights in shared memory and sums
+``d_proj [P + 1, Q]`` in five m-tiles of register accumulators.  What
+bounds them on an H100: the same products as the gelu kernels, plus at the
+kernel points about 10 FLOPs, an exp or a sqrt per point and edge and the
+``2*P*Q`` projection.
 """
 from __future__ import annotations
 
@@ -175,6 +190,9 @@ __all__ = [
     "STD_MAX_Q",
     "FWD_SCRATCH_BYTES",
     "OPERAND_DTYPES",
+    "edge_plan",
+    "edge_writes",
+    "EDGE_GRID",
 ]
 
 # the operand types of rel, rot6 and feats (the kernels' instantiations)
@@ -204,6 +222,103 @@ STD_MAX_Q = 64
 FWD_SCRATCH_BYTES = 128 << 20
 # the products index their L*G rows with 32-bit integers
 _MAX_SCRATCH_ROWS = 2**31 - 1
+
+
+# the backward's per-edge pass (csrc/fused_equiv_bwd.cu edge_kernel): 4
+# warps a block, rounds of 32 edges (two m-tiles of 16), chunks of 32
+# channels, a ring of 2 stages, padded rows of 40 values for the staged
+# features and the transposed geometry; its walk takes 4 blocks an SM of
+# the 132 of an H100 (kEGrid)
+EDGE_WARPS, EDGE_ROUND, EDGE_CHUNK, EDGE_STAGES = 4, 32, 32, 2
+EDGE_ROW_STRIDE = 40
+EDGE_GRID = 132 * 4
+# shared memory: one block may take SMEM_MAX bytes; an SM holds SM_SMEM,
+# 1 KB of it reserved for each block
+SMEM_MAX, SM_SMEM, BLOCK_RESERVED = 232448, 233472, 1024
+
+
+def _align16(x: int) -> int:
+    return (x + 15) // 16 * 16
+
+
+def edge_plan(elem_bytes: int, g: int, q: int, k: int, kd: int, p: int = 0) -> dict:
+    """The launch of the backward's per-edge pass (``se3_fused_edge_plan``)
+    for operands of ``elem_bytes``, ``g`` out-frames, ``q`` basis
+    functions, ``k`` neighbors and the geometry ``kd`` (9, 3, or 0: the
+    kernel points, ``p`` of them): warps a block, dynamic shared-memory
+    bytes (``fits``: within one block's ``SMEM_MAX``), ring stages, blocks
+    an SM (4 at 64 pne columns, 2 at 128 and at the kernel points: the
+    instantiations' launch bounds; fewer where shared memory runs out), the
+    row stride of the staged dbasis and of the pne rows (G*Q rounded up to
+    32, plus 4 in float32 or 8 in bfloat16: conflict-free fragment loads),
+    the geometry rows of a frame (D + 1 rounded up to 16), edges a round and
+    channels a chunk."""
+    gqc = column_capacity(g, q)
+    if gqc == 0 or (kd != 9 and gqc != 64) or (kd == 0 and not 1 <= p <= MAX_KP):
+        raise ValueError(f"no per-edge instantiation takes G={g}, Q={q}, kd={kd}, P={p}")
+    d, gq = (p if kd == 0 else kd), g * q
+    gqs = -(-gq // 32) * 32 + (4 if elem_bytes == 4 else 8)
+    geo_rows = (d + 16) // 16 * 16
+    stage = _align16(elem_bytes * EDGE_CHUNK * gqs) + _align16(elem_bytes * EDGE_ROUND * EDGE_ROW_STRIDE)
+    total = (EDGE_STAGES * stage + _align16(elem_bytes * EDGE_ROUND * gqs)
+             + 3 * _align16(4 * g * geo_rows * EDGE_ROW_STRIDE) + _align16(4 * d * q) + _align16(4 * q)
+             + _align16(4 * 3 * (p if kd == 0 else 0)) + _align16(4 * gq) + _align16(4 * 3 * 2 * k) + 16)
+    want = 4 if gqc == 64 and kd != 0 else 2
+    return dict(warps=EDGE_WARPS, smem_bytes=total, stages=EDGE_STAGES,
+                blocks_per_sm=min(SM_SMEM // (total + BLOCK_RESERVED), want), gq_stride=gqs,
+                geo_rows=geo_rows, edges_per_round=EDGE_ROUND, channels_per_chunk=EDGE_CHUNK,
+                fits=total <= SMEM_MAX)
+
+
+def edge_writes(n_edges: int, gq: int, c: int, gqc: int = 64, q: int = None, d: int = 9,
+                sorted_bf16: bool = False) -> dict:
+    """Which (edge, column) the per-edge pass's tiles write, for a row of
+    ``n_edges`` valid edges, ``gq`` pne columns (``gqc`` the capacity),
+    ``c`` channels, ``q`` basis functions (default ``gq``) and ``d`` pne
+    inputs: ``{"dpne": Counter of (e, gq), "d_feats": Counter of (e, c),
+    "d_proj": Counter of (d, q)}``, each count the lane writes, as the
+    kernel's warps (n-tiles ``w, w + 4, ...`` of 8 columns, channels ``8w ..
+    8w + 7`` of each chunk), m-tiles of 16 (live where the round has an edge
+    in them), lanes and lane trades assign them (bfloat16 sorted rows: 8
+    channels a lane where ``c % 8 == 0``)."""
+    from collections import Counter
+
+    q = gq if q is None else q
+    dpne, dfeat, dproj = Counter(), Counter(), Counter()
+    lanes = [(lane >> 2, lane & 3) for lane in range(32)]
+    for rd in range(-(-n_edges // EDGE_ROUND)):
+        ne = min(EDGE_ROUND, n_edges - rd * EDGE_ROUND)
+        for w in range(EDGE_WARPS):
+            for mt in range(2 if ne > 16 else 1):
+                for jn in range(gqc // 32):
+                    n0 = (w + 4 * jn) * 8
+                    if n0 >= gq:
+                        break
+                    for (r4, t4), i in ((x, i) for x in lanes for i in range(4)):
+                        e, col = mt * 16 + r4 + 8 * (i >> 1), n0 + 2 * t4 + (i & 1)
+                        if e < ne and col < gq:
+                            dpne[(rd * EDGE_ROUND + e, col)] += 1
+                for c0 in range(0, c, EDGE_CHUNK):
+                    cw = min(EDGE_CHUNK, c - c0)
+                    if w * 8 >= cw:
+                        continue
+                    for r4, t4 in lanes:
+                        e, cc, width = mt * 16 + r4 + 8 * (t4 & 1), w * 8 + 4 * (t4 >> 1), 4
+                        if sorted_bf16 and c % 8 == 0:
+                            if t4 >= 2:
+                                continue
+                            cc, width = w * 8, 8
+                        if e < ne and cc < cw:
+                            for x in range(min(width, cw - cc)):
+                                dfeat[(rd * EDGE_ROUND + e, c0 + cc + x)] += 1
+    for w in range(EDGE_WARPS):  # the block's d_proj partial, at the end of the walk
+        for pm in range(-(-(d + 1) // 16)):
+            for jn in range(gqc // 32):
+                for (r4, t4), i in ((x, i) for x in lanes for i in range(4)):
+                    dd, qq = pm * 16 + r4 + 8 * (i >> 1), (w + 4 * jn) * 8 + 2 * t4 + (i & 1)
+                    if dd <= d and qq < q:
+                        dproj[(dd, qq)] += 1
+    return {"dpne": dpne, "d_feats": dfeat, "d_proj": dproj}
 
 
 def column_capacity(g: int, q: int) -> int:
@@ -654,17 +769,19 @@ def fused_equiv_bwd(rel, rot6, feats, idx, mask, proj_axes, proj_biases, conv_we
                                           b, m, n, k, g, f, q, c, o, *plan, stream)
     if err != 0:
         raise RuntimeError(f"fused_equiv_bwd kernel launch failed: CUDA error {err}")
-    _count(fused_equiv_bwd, bf16, g, d, q, act, kp, products=2)
+    _count(fused_equiv_bwd, bf16, g, d, q, act, kp, products=2, edges=1)
     return d_feats, d_params[:d], d_params[d], d_w
 
 
-def _count(wrapper, bf16, g, d, q, act, kp, products):
+def _count(wrapper, bf16, g, d, q, act, kp, products, edges=0):
     """One more kernel launch of ``wrapper``: all, bfloat16, by G, by D, by
     (D, Q), by activation and, for the kernel-point geometry, by
-    (correlation, P); and its launches of the shared product (``wg_product``:
-    one a forward chunk, two a backward)."""
+    (correlation, P); its launches of the shared product (``wg_product``:
+    one a forward chunk, two a backward) and of the per-edge pass
+    (``edge_kernel``: one a backward)."""
     wrapper.launches += 1
     wrapper.product_launches += products
+    wrapper.edge_launches += edges
     wrapper.bf16_launches += bf16
     for table, key in ((wrapper.launches_by_g, g), (wrapper.launches_by_d, d),
                        (wrapper.launches_by_q, (d, q)), (wrapper.launches_by_act, act)):
@@ -679,9 +796,10 @@ def _count(wrapper, bf16, g, d, q, act, kp, products):
 # equivariant, 3 standard, P kernel-point), by (D, Q) (the basis functions
 # of each geometry: {(D, Q): launches}), by activation ({act: launches})
 # and the kernel-point ones by ({(corr, P): launches}), and the launches of
-# the shared product inside them (product_launches); callers may reset them
+# the shared product inside them (product_launches) and of the per-edge pass
+# (edge_launches, the backward's); callers may reset them
 for _wrapper in (fused_equiv_fwd, fused_equiv_bwd):
-    _wrapper.launches = _wrapper.bf16_launches = _wrapper.product_launches = 0
+    _wrapper.launches = _wrapper.bf16_launches = _wrapper.product_launches = _wrapper.edge_launches = 0
     _wrapper.launches_by_g, _wrapper.launches_by_d, _wrapper.launches_by_q = {}, {}, {}
     _wrapper.launches_by_act, _wrapper.launches_by_kp = {}, {}
 

@@ -53,6 +53,7 @@ MIN_SPLIT_DEPTH = 256   # kPMinSplitDepth
 MAX_SPLITS = 64         # kPMaxSplits
 MAX_STAGES = 8          # kPMaxStages
 SMEM_MAX = 232448       # kSmemMax: one block's shared memory on an H100
+EDGE_GRID = SLOTS * 4   # kEGrid: the conv backward's per-edge walk, 4 blocks an SM
 OPERAND_DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -164,12 +165,13 @@ def fwd_plan(n_live: int, g: int, q: int, c: int, o: int, cap_bytes: int, elem_b
 def bwd_plan(n_live: int, g: int, q: int, c: int, o: int, elem_bytes: int) -> tuple:
     """``(scratch bytes, d_w splits, d_proj blocks)`` of the conv backward
     (``se3_fused_equiv_bwd_plan``): basis and compact gout rows and W^T's
-    image; the d_w splits along the rows."""
+    image; the d_w splits along the rows; one d_proj partial a block of the
+    per-edge pass's walk, a block a live row up to ``EDGE_GRID`` (4 an SM,
+    ``kernels.fused_equiv.EDGE_GRID``)."""
     rows, cq = n_live * g, c * q
     scratch = round16(rows * cq * elem_bytes) + round16(rows * o * elem_bytes) + round16(
         image_bytes(cq, o, elem_bytes))
-    num_tiles = -(-n_live // 4)
-    return scratch, splits(tiles(cq, o), rows, o, MAX_SPLITS), min(max(num_tiles, 1), 1024)
+    return scratch, splits(tiles(cq, o), rows, o, MAX_SPLITS), min(max(n_live, 1), EDGE_GRID)
 
 
 def _round_weights(w: torch.Tensor, dtype) -> torch.Tensor:
